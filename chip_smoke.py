@@ -27,12 +27,28 @@ per line, and exits non-zero at the first phase that fails:
    substitution-only reads, timed by stage on the host clock; the device's
    busy share and its largest items over 4 of those batches from
    ``torch.profiler``; and the same loop on reads of which 10% carry one
-   indel, which take the host slow path (affine traceback).
+   indel, which take the host slow path (affine traceback, split over the
+   host's cores when the native library has no OpenMP);
+6. the Myers CUDA kernel (``csrc/myers.cu``, built beside the banded DP in
+   phase 2) held against the plain torch version on every lane at the
+   paired-rescue shape (2,048 lanes x L + 400 window columns, L = 32, 64,
+   100, 150, 256) and at a verify shape (65,536 x 6 lanes, L = 100,
+   W = 106); both timed at L = 100;
+7. the FM pigeonhole path end to end: the CLI's ``align -k 2`` without a
+   seed table on the same index, 2 x 65,536 reads; >= 99% mapped and
+   correct, banded-DP kernel launched;
+8. paired end to end: the CLI's ``align --paired --seed-table`` on 6 x
+   16,384 pairs of 100 bp (FR mates, inserts 250-550, 1-2 substitutions a
+   mate, 10% of mate2 with 4 more: unmappable at k = 2, within the rescue
+   bar); >= 90% proper pairs and the Myers kernel launched; then the same
+   pairs through ``PairedAligner.align_pair_arrays`` (inserts 200-600):
+   pairs/s, the phase split, and >= 5% of pairs rescued.
 
-The last lines are a JSON summary of the kernel, the card's name and power
-limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``.
-Without a CUDA device the script fails and prints no result.  It imports
-nothing of JAX.
+Each path's kernel launch counts are set to 0 just before it runs and read
+just after.  The last lines are a JSON summary of the kernels, the card's
+name and power limit as nvidia-smi prints them, and ``{"ok": true,
+"device": {...}}``.  Without a CUDA device the script fails and prints no
+result.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +60,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
@@ -59,6 +76,12 @@ N_BATCHES = 6
 VERIFY_SLACK = 6  # SuffixFilterAligner's default lanes per read
 MIN_MAPPED = 0.99
 MIN_CORRECT = 0.99
+FM_BATCHES = 2  # FM-path CLI run: 2 x 65,536 reads
+PAIR_BATCH = 16_384
+PAIR_BATCHES = 6
+MIN_PROPER = 0.9
+MIN_RESCUED = 0.05
+RESCUE_LANES = 2048
 
 
 class SmokeFailure(Exception):
@@ -119,14 +142,18 @@ def dp_inputs(k: int, Q: int, W: int, seed: int):
 
 
 def phase_kernel(torch, dev):
-    """Build the kernel, compare it with the plain version, time both."""
-    import numpy as np
+    """Build both kernels, compare the banded DP with its plain version,
+    time both."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda
+    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda
 
     t0 = time.time()
-    dp_cuda._library()
-    log(f"[2] built csrc/banded_dp.cu with nvcc for sm_90a in {time.time() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, side by side
+        for f in [pool.submit(dp_cuda._library), pool.submit(myers_cuda._library)]:
+            f.result()
+    log(f"[2] built csrc/banded_dp.cu and csrc/myers.cu with nvcc for sm_90a in "
+        f"{time.time() - t0:.1f} s")
     Q = BATCH * VERIFY_SLACK
     max_err = 0
     timing = None
@@ -166,14 +193,16 @@ def phase_fused_step(torch, dev, codes, offsets, positions):
     seed_tab = (torch.from_numpy(offsets).to(dev), torch.from_numpy(positions).to(dev))
     reads, _, _, _ = simulate_reads_array(codes, BATCH, L, seed=7, max_subs=2)
     rwords, nmask = pipeline.pack_reads_2bit(reads.astype(np.int8))
+    fm = SimpleNamespace(n=int(codes.size))  # the seed path reads only the text length
     args = (
-        text, int(codes.size), seed_tab,
+        fm, text, None, seed_tab,
         torch.from_numpy(rwords.view(np.int32)).to(dev),
         torch.from_numpy(nmask.view(np.int32)).to(dev),
         torch.full((BATCH,), L, dtype=torch.int32, device=dev),
     )
-    static = dict(L=L, k=K, n_pieces=K + 1, max_hits=8, max_cands=4 * (K + 1),
-                  W=L + 3 * K, seed_j=SEED_J, verify_slack=VERIFY_SLACK)
+    static = dict(L=L, k=K, n_pieces=K + 1, max_hits=8, kmer_j=0, kmer_full_cover=False,
+                  max_cands=4 * (K + 1), W=L + 3 * K, seed_j=SEED_J,
+                  verify_slack=VERIFY_SLACK)
 
     def step():
         return pipeline._fused_align_step_impl(*args, **static)
@@ -212,12 +241,12 @@ def build_index(cli, codes) -> tuple[Path, Path, float | None]:
     return idx, seedf, secs
 
 
-def write_reads(path: Path, codes) -> None:
+def write_reads(path: Path, codes, n: int = BATCH * N_BATCHES, seed: int = 11) -> None:
     import numpy as np
 
     from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
 
-    reads, pos, strand, _ = simulate_reads_array(codes, BATCH * N_BATCHES, L, seed=11, max_subs=2)
+    reads, pos, strand, _ = simulate_reads_array(codes, n, L, seed=seed, max_subs=2)
     seqs = np.frombuffer(b"ACGT", np.uint8)[reads].tobytes()
     qual = "I" * L
     with open(path, "w") as fh:
@@ -394,6 +423,201 @@ def phase_cli(codes, card):
     return launches
 
 
+def myers_inputs(Q: int, Lr: int, W: int, seed: int):
+    """Rescue-like lanes: half hold their read (a few substitutions and an
+    indel) somewhere in the window, half are random; codes 0..4 (4 = N);
+    ragged lengths, some 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 5, size=(Q, Lr), dtype=np.int8)
+    windows = rng.integers(0, 5, size=(Q, W), dtype=np.int8)
+    planted = np.nonzero(rng.random(Q) < 0.5)[0]
+    at = rng.integers(0, max(1, W - Lr - 1), size=planted.size)
+    for q, a in zip(planted.tolist(), at.tolist()):
+        seg = np.delete(reads[q], rng.integers(0, Lr)) if rng.random() < 0.3 else reads[q]
+        span = min(seg.size, W - a)
+        windows[q, a : a + span] = seg[:span]
+    cols = rng.integers(0, W, size=(planted.size, 3))
+    windows[planted[:, None], cols] = rng.integers(0, 4, size=cols.shape)
+    lengths = np.where(rng.random(Q) < 0.8, Lr, rng.integers(0, Lr + 1, size=Q)).astype(np.int32)
+    lengths[rng.random(Q) < 0.01] = 0
+    return reads, lengths, windows
+
+
+def phase_myers(torch, dev, card):
+    """The Myers kernel against its plain version on every lane; times."""
+    from genome_weaver_align_tpu_torch.ops import myers, myers_cuda
+
+    max_err = 0
+    times = {}
+    shapes = [(RESCUE_LANES, Lr, Lr + 400) for Lr in (32, 64, 100, 150, 256)]
+    shapes.append((BATCH * VERIFY_SLACK, L, L + 3 * K))
+    for Q, Lr, W in shapes:
+        r, ln, w = (torch.from_numpy(a).to(dev) for a in myers_inputs(Q, Lr, W, Lr + Q))
+        nwords = -(-Lr // 32)
+        b_kern, e_kern = myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords)
+        b_plain, e_plain = myers._myers_plain(r, ln, w, nwords, W)
+        torch.cuda.synchronize()
+        err = max(int((b_kern - b_plain).abs().max()), int((e_kern - e_plain).abs().max()))
+        max_err = max(max_err, err)
+        n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
+        n_hit = int((b_plain <= max(K, Lr // 20)).sum())
+        log(f"[6] myers Q={Q} L={Lr} W={W}: {n_hit} lanes within the rescue bar, "
+            f"(best, end) mismatches {n_bad}, max |err| {err}")
+        check(n_bad == 0, f"Myers kernel disagrees with plain at Q={Q} L={Lr} W={W}")
+        if Lr == L:
+            ms = cuda_time_ms(lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=20)
+            plain_ms = cuda_time_ms(lambda: myers._myers_plain(r, ln, w, nwords, W),
+                                    reps=2, warmup=1)
+            times["rescue" if Q == RESCUE_LANES else "verify"] = (ms, plain_ms)
+            log(f"[6] myers Q={Q} L={Lr} W={W}: kernel {ms:.3f} ms, plain torch "
+                f"{plain_ms:.3f} ms ({card})")
+    return max_err, times
+
+
+def phase_fm_cli(codes, card):
+    """The FM pigeonhole path end to end through the CLI (no seed table)."""
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, myers_cuda
+
+    idx, _, _ = build_index(cli, codes)
+    work = CACHE / f"fm{os.getpid()}"
+    work.mkdir(parents=True)
+    fq, sam, rep = work / "reads.fq", work / "out.sam", work / "report.json"
+    n_reads = BATCH * FM_BATCHES
+    write_reads(fq, codes, n_reads, seed=31)
+
+    dp_cuda.banded_edit_distance_cuda.launches = 0
+    myers_cuda.myers_semiglobal_cuda.launches = 0
+    rc = cli.main(["align", str(idx), str(fq), "-k", str(K), "--batch-size", str(BATCH),
+                   "--report", str(rep), "-o", str(sam)])
+    launches = dp_cuda.banded_edit_distance_cuda.launches
+    check(rc == 0, f"FM-path align exited {rc}")
+    report = json.loads(rep.read_text())
+    n, mapped, correct = score_sam(sam)
+    shutil.rmtree(work)
+    log(f"[7] FM path, align -k {K} without a seed table: {n} reads, mapped "
+        f"{mapped / n:.6f}, correct {correct / n:.6f}, {report['reads_per_s']} reads/s over "
+        f"{report['wall_s']} s ({card}), banded-DP launches {launches}, Myers launches "
+        f"{myers_cuda.myers_semiglobal_cuda.launches}")
+    check(n == n_reads, f"SAM holds {n} records")
+    check(launches > 0, "the FM-path run never launched the banded DP kernel")
+    check(mapped / n >= MIN_MAPPED, f"FM path mapped share {mapped / n:.4f} < {MIN_MAPPED}")
+    check(correct / n >= MIN_CORRECT, f"FM path correct share {correct / n:.4f} < {MIN_CORRECT}")
+
+
+def make_pairs(codes):
+    """6 x 16,384 FR pairs of 100 bp: inserts 250-550, 1-2 substitutions on
+    each mate, 10% of mate2 with 4 more (unmappable at k = 2, within the
+    rescue bar max(k, L // 20) = 5)."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    n = PAIR_BATCH * PAIR_BATCHES
+    insert = rng.integers(250, 550, size=n)
+    pos1 = rng.integers(0, codes.size - 600, size=n)
+    c1 = codes[pos1[:, None] + np.arange(L)[None, :]].astype(np.int8)
+    p2 = pos1 + insert - L
+    c2raw = codes[p2[:, None] + np.arange(L)[None, :]].astype(np.int8)
+    c2 = np.ascontiguousarray((3 - c2raw)[:, ::-1])  # mate2 on the reverse strand
+    for arr in (c1, c2):
+        for _ in range(2):
+            at = rng.integers(0, L, size=n)
+            rows = np.nonzero(rng.random(n) < 0.6)[0]
+            arr[rows, at[rows]] = (arr[rows, at[rows]] + rng.integers(1, 4, size=rows.size)) % 4
+    half = np.nonzero(rng.random(n) < 0.10)[0]
+    for _ in range(4):
+        at = rng.integers(0, L, size=n)
+        c2[half, at[half]] = (c2[half, at[half]] + rng.integers(1, 4, size=half.size)) % 4
+    return c1, c2, pos1
+
+
+def write_mates(path: Path, mates, pos1) -> None:
+    import numpy as np
+
+    seqs = np.frombuffer(b"ACGT", np.uint8)[mates].tobytes()
+    qual = "I" * L
+    with open(path, "w") as fh:
+        fh.write("".join(
+            f"@p{i}_{p}\n{seqs[i * L:(i + 1) * L].decode()}\n+\n{qual}\n"
+            for i, p in enumerate(pos1.tolist())
+        ))
+
+
+def phase_paired(torch, dev, codes, card):
+    """Paired end to end through the CLI, then the same pairs through
+    ``PairedAligner.align_pair_arrays``."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
+    from genome_weaver_align_tpu_torch.models.paired import PairedAligner
+    from genome_weaver_align_tpu_torch.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, myers_cuda
+
+    idx, seedf, _ = build_index(cli, codes)
+    c1, c2, pos1 = make_pairs(codes)
+    n_pairs = c1.shape[0]
+    work = CACHE / f"pairs{os.getpid()}"
+    work.mkdir(parents=True)
+    f1, f2, sam, rep = work / "r1.fq", work / "r2.fq", work / "out.sam", work / "report.json"
+    write_mates(f1, c1, pos1)
+    write_mates(f2, c2, pos1)
+
+    dp_cuda.banded_edit_distance_cuda.launches = 0
+    myers_cuda.myers_semiglobal_cuda.launches = 0
+    rc = cli.main(["align", str(idx), str(f1), "--paired", str(f2), "-k", str(K),
+                   "--seed-table", str(seedf), "--batch-size", str(PAIR_BATCH),
+                   "--report", str(rep), "-o", str(sam)])
+    launches = (dp_cuda.banded_edit_distance_cuda.launches,
+                myers_cuda.myers_semiglobal_cuda.launches)
+    check(rc == 0, f"paired align exited {rc}")
+    report = json.loads(rep.read_text())
+    n_rec = n_proper_rec = 0
+    with open(sam) as fh:
+        for line in fh:
+            if line[0] != "@":
+                n_rec += 1
+                n_proper_rec += bool(int(line.split("\t", 2)[1]) & 2)
+    shutil.rmtree(work)
+    proper = n_proper_rec / 2 / n_pairs
+    log(f"[8] paired CLI, align --paired --seed-table -k {K}: {n_pairs} pairs, "
+        f"{n_rec} records, proper {proper:.6f} (report {report['proper_pairs']}), "
+        f"{report['reads_per_s']} reads/s over {report['wall_s']} s ({card}), banded-DP "
+        f"launches {launches[0]}, Myers launches {launches[1]}")
+    check(n_rec == 2 * n_pairs, f"SAM holds {n_rec} records")
+    check(proper >= MIN_PROPER, f"proper share {proper:.4f} < {MIN_PROPER}")
+    check(launches[1] > 0, "the paired run never launched the Myers kernel")
+
+    gi = load_index(idx)
+    offsets, positions, sj = load_seed_table(seedf)
+    al = SuffixFilterAligner(gi, k=K, max_hits_per_piece=8, seed_table=(offsets, positions),
+                             seed_j=sj, max_cands=12, verify_slack=4, device=dev)
+    pa = PairedAligner(al, min_insert=200, max_insert=600)
+    lengths = np.full(PAIR_BATCH, L, np.int32)
+    pa.align_pair_arrays(c1[:PAIR_BATCH], lengths, c2[:PAIR_BATCH], lengths)  # warm-up
+    times, n_proper, n_rescued, phases = [], 0, 0, []
+    for b in range(PAIR_BATCHES):
+        sl = slice(b * PAIR_BATCH, (b + 1) * PAIR_BATCH)
+        t0 = time.perf_counter()
+        phs = pa.align_pair_arrays(c1[sl], lengths, c2[sl], lengths)
+        times.append(time.perf_counter() - t0)
+        n_proper += sum(ph.proper for ph in phs)
+        n_rescued += sum(ph.rescued != 0 for ph in phs)
+        phases.append((pa.last_rescue_jobs, pa.last_phase_ms))
+    rescued = n_rescued / n_pairs
+    log(f"[8] paired arrays, {PAIR_BATCHES} x {PAIR_BATCH} pairs (inserts 200-600): "
+        f"{n_pairs / sum(times):.1f} pairs/s over {sum(times):.3f} s, best batch "
+        f"{PAIR_BATCH / min(times):.1f} pairs/s; proper {n_proper / n_pairs:.6f}, rescued "
+        f"{rescued:.6f} ({card})")
+    for jobs, ms in phases:
+        log(f"[8]   rescue jobs {jobs}, last_phase_ms {ms}")
+    check(rescued >= MIN_RESCUED, f"rescued share {rescued:.4f} < {MIN_RESCUED}")
+    return launches[1]
+
+
 def main() -> int:
     import torch
 
@@ -435,6 +659,9 @@ def main() -> int:
         del offsets, positions
         launches = phase_cli(codes, card)
         phase_profile(torch, dev, codes, card)
+        myers_err, myers_times = phase_myers(torch, dev, card)
+        phase_fm_cli(codes, card)
+        myers_launches = phase_paired(torch, dev, codes, card)
         check("jax" not in sys.modules, "the smoke imported jax")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -448,6 +675,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "myers",
+        "route": "cuda",
+        "source": "genome_weaver_align_tpu_torch/csrc/myers.cu",
+        "replaces": "genome_weaver_align_tpu/ops/myers_pallas.py:75",
+        "launches": myers_launches,
+        "max_abs_err": myers_err,
+        "ms": myers_times["rescue"][0],
+        "plain_ms": myers_times["rescue"][1],
     }]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ the on-disk formats (``.npz`` index, ``.seedN.npz`` seed table).
 Layout:
 
 - ``index``  — host copies of the index builders and file formats.
-- ``ops``    — window gather, banded DP (plain torch + the hand-written
-               CUDA kernel in ``csrc/banded_dp.cu``), host affine traceback.
-- ``models`` — the seed-table suffix filter and the ``SuffixFilterAligner``
-               pipeline.
-- ``cli``    — ``index``, ``simulate`` and ``align``.
+- ``ops``    — FM rank/occ/locate (``rank``), window gather, banded DP and
+               Myers edit distance (plain torch + the hand-written CUDA
+               kernels in ``csrc/banded_dp.cu`` and ``csrc/myers.cu``),
+               host affine traceback.
+- ``models`` — the suffix filter (FM pigeonhole and seed-table paths), the
+               ``SuffixFilterAligner`` pipeline and the ``PairedAligner``.
+- ``cli``    — ``index``, ``simulate`` and ``align`` (single-end and paired).
 """
 
 __version__ = "0.1.0"

@@ -6,9 +6,13 @@ Same verbs, flags and files as ``genome_weaver_align_tpu.cli``:
     python -m genome_weaver_align_tpu_torch simulate genome.fa -n 1000 -l 100 -o reads.fq
     python -m genome_weaver_align_tpu_torch align genome.npz reads.fq -k 2 \\
         --seed-table genome.npz.seed13.npz -o out.sam
+    python -m genome_weaver_align_tpu_torch align genome.npz r1.fq --paired r2.fq -k 2 -o out.sam
 
-``align`` runs the seed-table k-edit single-end path on FASTQ input, on the
-CUDA device when there is one and on the CPU otherwise.  The modes and flags
+``align`` runs the k-edit pipeline (``--mode auto|pigeonhole`` with k > 0):
+candidates from the seed table when one is given and its j fits the read
+pieces, else from the FM index (optionally with a ``--kmer-table``); FASTQ
+or FASTA reads, single-end, ``--paired`` or ``--interleaved``; on the CUDA
+device when there is one and on the CPU otherwise.  The modes and flags
 whose paths are not ported yet exit with code 2 and say so.
 """
 
@@ -91,19 +95,10 @@ def _unported_align_feature(args, cfg) -> str | None:
         mode = "exact" if cfg.k == 0 else "pigeonhole"
     if mode != "pigeonhole" or cfg.k <= 0:
         return f"align --mode {mode} -k {cfg.k}"
-    if args.paired or args.interleaved:
-        return "paired alignment (--paired/--interleaved)"
     if cfg.n_interval > 1:
         return "align --n-interval > 1"
-    if cfg.kmer_table:
-        return "align --kmer-table"
     if args.profile:
         return "align --profile"
-    if not cfg.seed_table:
-        return "align without --seed-table (the FM pigeonhole path)"
-    base = cfg.reads[:-3] if cfg.reads.endswith(".gz") else cfg.reads
-    if not base.endswith((".fq", ".fastq")):
-        return "align on non-FASTQ reads"
     return None
 
 
@@ -114,7 +109,6 @@ def _cmd_align(args) -> int:
     from genome_weaver_align_tpu.utils.log import StopWatch
 
     from .index.files import load_index
-    from .index.seedtable import load_seed_table
     from .models.pipeline import SuffixFilterAligner
 
     cfg = AlignConfig.from_args(args)
@@ -125,18 +119,137 @@ def _cmd_align(args) -> int:
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     gi = load_index(cfg.index)
     sw.lap(f"loaded index ({gi.genome.n} bp)")
-    offsets, positions, sj = load_seed_table(cfg.seed_table)
-    sw.lap(f"loaded {sj}-mer seed table")
+    tables = {}
+    if cfg.kmer_table:
+        z = np.load(cfg.kmer_table)
+        j = int(np.log2(z["lo"].size) / 2)
+        tables.update(kmer_table=(z["lo"], z["hi"]), kmer_j=j)
+        sw.lap(f"loaded {j}-mer table")
+    if cfg.seed_table:
+        from .index.seedtable import load_seed_table
+
+        offsets, positions, sj = load_seed_table(cfg.seed_table)
+        tables.update(seed_table=(offsets, positions), seed_j=sj)
+        sw.lap(f"loaded {sj}-mer seed table")
     aligner = SuffixFilterAligner(
-        gi,
-        k=cfg.k,
-        max_hits_per_piece=cfg.max_hits_per_piece,
-        seed_table=(offsets, positions),
-        seed_j=sj,
-        device=device,
+        gi, k=cfg.k, max_hits_per_piece=cfg.max_hits_per_piece, device=device, **tables
     )
     sw.lap(f"uploaded tables to {device}")
-    return _align_array_stream(args, aligner, sw)
+    # array streaming: uniform unpaired FASTQ goes straight to (B, L) arrays;
+    # FASTA and paired input take the list-of-Read path, as in the JAX CLI
+    base = cfg.reads[:-3] if cfg.reads.endswith(".gz") else cfg.reads
+    if base.endswith((".fq", ".fastq")) and not args.interleaved and not args.paired:
+        return _align_array_stream(args, aligner, sw)
+    return _align_read_list(args, cfg, aligner, sw)
+
+
+def _align_read_list(args, cfg, aligner, sw) -> int:
+    """List-of-Read align loop (FASTA reads, ``--paired``,
+    ``--interleaved``): all reads are loaded, aligned batch by batch
+    (single-end batches pipelined: submit N+1 before finishing N) and the
+    SAM is written at the end, as the JAX CLI's list path does."""
+    from genome_weaver_align_tpu.utils.fasta import iter_reads
+    from genome_weaver_align_tpu.utils.sam import write_sam
+
+    from .models.paired import PairedAligner
+
+    reads = list(iter_reads(cfg.reads))
+    paired = None
+    if args.interleaved:
+        if len(reads) % 2:
+            raise ValueError("interleaved input needs an even read count")
+        mates = reads[1::2]
+        reads = reads[0::2]
+        paired = PairedAligner(aligner)
+        sw.lap(f"loaded {len(reads)} interleaved pairs")
+    elif args.paired:
+        mates = list(iter_reads(args.paired))
+        if len(mates) != len(reads):
+            raise ValueError("paired files must have equal read counts")
+        paired = PairedAligner(aligner)
+        sw.lap(f"loaded {len(reads)} pairs")
+    else:
+        sw.lap(f"loaded {len(reads)} reads")
+
+    # resume: skip batches recorded as complete for this output path
+    progress_path = (cfg.out + ".progress") if cfg.out != "-" else None
+    start_batch = 0
+    if args.resume and progress_path and os.path.exists(progress_path):
+        with open(progress_path) as fh:
+            start_batch = json.loads(fh.read()).get("batches_done", 0)
+        sw.lap(f"resuming at batch {start_batch}")
+
+    records = []
+    n_mapped = n_proper = n_pending = 0
+    t0 = time.time()
+    bs = cfg.batch_size
+    n_batches = (len(reads) + bs - 1) // bs
+    pending = None  # single-end: (batch, submitted handle)
+
+    def finish_single(batch, handle):
+        nonlocal n_mapped, n_pending
+        hits = aligner.align_batch_finish(handle)
+        n_pending += aligner.last_stats["n_staircase_pending"]
+        records.extend(aligner.to_sam(batch, hits))
+        n_mapped += sum(h is not None for h in hits)
+
+    for b in range(start_batch, n_batches):
+        i = b * bs
+        if paired is not None:
+            batch = list(zip(reads[i : i + bs], mates[i : i + bs]))
+            hits = paired.align_pairs(batch)
+            n_pending += paired.last_staircase_pending
+            records.extend(paired.to_sam(batch, hits))
+            n_mapped += sum((ph.h1 is not None) + (ph.h2 is not None) for ph in hits)
+            n_proper += sum(ph.proper for ph in hits)
+        else:
+            batch = reads[i : i + bs]
+            nxt = (batch, aligner.align_batch_submit(batch))
+            if pending is not None:
+                finish_single(*pending)
+            pending = nxt
+        if progress_path:
+            with open(progress_path, "w") as fh:
+                fh.write(json.dumps({"batches_done": b + 1}))
+    if pending is not None:
+        finish_single(*pending)
+    dt = time.time() - t0
+    total = len(reads) * (2 if paired else 1)
+    sw.lap(
+        f"aligned: {n_mapped}/{total} mapped, {total/max(dt,1e-9):.0f} reads/s"
+        + (f", {n_proper} proper pairs" if paired else "")
+    )
+    sw.lap(f"{n_pending} overflowed read(s) left for the tier-2 staircase, "
+           "which is not yet ported")
+
+    hdr = aligner.sam_header()
+    if cfg.out == "-":
+        sys.stdout.write(hdr + "\n")
+        for r in records:
+            sys.stdout.write(r.line() + "\n")
+    else:
+        write_sam(cfg.out, hdr, records)
+        sw.lap(f"wrote {cfg.out}")
+    if args.report:
+        _write_report(args.report, sw, {
+            "reads": total,
+            "mapped": n_mapped,
+            "proper_pairs": n_proper if paired else None,
+            "reads_per_s": round(total / max(dt, 1e-9), 1),
+            "wall_s": round(dt, 3),
+            "mode": "pigeonhole",
+            "k": cfg.k,
+            "batch_size": bs,
+            "n_staircase_pending": n_pending,
+            "device": str(aligner.device),
+        })
+    return 0
+
+
+def _write_report(path, sw, report: dict) -> None:
+    with open(path, "w") as fh:
+        fh.write(json.dumps(report, indent=1))
+    sw.lap(f"report -> {path}")
 
 
 def _align_array_stream(args, aligner, sw) -> int:
@@ -203,7 +316,7 @@ def _align_array_stream(args, aligner, sw) -> int:
     sw.lap(f"{n_pending} overflowed read(s) left for the tier-2 staircase, "
            "which is not yet ported")
     if args.report:
-        report = {
+        _write_report(args.report, sw, {
             "reads": total,
             "mapped": n_mapped,
             "proper_pairs": None,
@@ -214,10 +327,7 @@ def _align_array_stream(args, aligner, sw) -> int:
             "batch_size": bs,
             "n_staircase_pending": n_pending,
             "device": str(aligner.device),
-        }
-        with open(args.report, "w") as fh:
-            fh.write(json.dumps(report, indent=1))
-        sw.lap(f"report -> {args.report}")
+        })
     return 0
 
 
@@ -272,7 +382,7 @@ def main(argv=None) -> int:
     )
     pi.set_defaults(fn=_cmd_index)
 
-    pa = sub.add_parser("align", help="align reads to an index (seed-table path)")
+    pa = sub.add_parser("align", help="align reads to an index")
     pa.add_argument("index")
     pa.add_argument("reads")
     pa.add_argument("-o", "--out", default=acfg.out)
@@ -285,9 +395,12 @@ def main(argv=None) -> int:
     )
     pa.add_argument("--batch-size", type=int, default=acfg.batch_size)
     pa.add_argument("--max-hits-per-piece", type=int, default=acfg.max_hits_per_piece)
-    pa.add_argument("--paired", help="R2 file (not yet ported)")
-    pa.add_argument("--interleaved", action="store_true", help="(not yet ported)")
-    pa.add_argument("--kmer-table", help="(not yet ported)")
+    pa.add_argument("--paired", help="R2 file: align as pairs (reads = R1)")
+    pa.add_argument(
+        "--interleaved", action="store_true",
+        help="reads file holds R1/R2 alternating (paired mode)",
+    )
+    pa.add_argument("--kmer-table", help=".npz with lo/hi arrays (index.kmer)")
     pa.add_argument("--seed-table", help=".npz seed table (index.seedtable)")
     pa.add_argument("--report", help="write a JSON run report here")
     pa.add_argument("--resume", action="store_true", help="resume from .progress")

@@ -1,22 +1,23 @@
-"""Alignment pipeline: the seed-table ``SuffixFilterAligner`` in torch.
+"""Alignment pipeline: the k-edit ``SuffixFilterAligner`` in torch.
 
 Torch counterpart of ``genome_weaver_align_tpu.models.pipeline``'s flagship
 path.  Per batch: host 2-bit pack -> one device step for both strands
-(unpack, seed-table candidates, dedupe, lane compaction, window gather,
-banded DP verify, scatter-min best hit, cross-strand pick, offset-Hamming
-fast-CIGAR check, 2-row packed result) -> host finish (unpack, affine
-traceback for indel reads, tier-1 overflow fallback) -> SAM lines.
+(unpack, candidates from the seed table or the FM pigeonhole search,
+dedupe, lane compaction, window gather, banded DP verify, scatter-min best
+hit, cross-strand pick, offset-Hamming fast-CIGAR check, 2-row packed
+result) -> host finish (unpack, affine traceback for indel reads, tier-1
+overflow fallback) -> SAM lines.  ``align_batch``/``to_sam`` are the
+list-of-``Read`` API over the same arrays, which ``models.paired`` and the
+CLI's FASTA and paired modes use.
 
 The device step enqueues its work with fixed shapes and no host
 synchronisation, so a driver that submits batch N+1 before finishing batch N
 overlaps host work with device work, as the JAX package's async dispatch
 does.
 
-Not ported yet: the FM pigeonhole path (used when there is no seed table or
-a piece is shorter than the seed length: this aligner raises ValueError
-there), the tier-2 staircase (reads tier 2 would take stay overflow-flagged
-and are counted in ``last_stats["n_staircase_pending"]``), and the exact,
-one-mismatch, paired, long-read and multi-device aligners.
+Not ported yet: the tier-2 staircase (reads tier 2 would take stay
+overflow-flagged and are counted in ``last_stats["n_staircase_pending"]``),
+and the exact, one-mismatch, long-read and multi-device aligners.
 """
 
 from __future__ import annotations
@@ -30,18 +31,15 @@ import numpy as np
 import torch
 
 from genome_weaver_align_tpu.utils import dna, sam
+from genome_weaver_align_tpu.utils.fasta import Read
 
 from ..ops import affine
 from ..ops import dp as dp_ops
+from ..ops import rank
 from ..ops import window as window_ops
 from . import suffix_filter
 
 I32 = torch.int32
-
-_FM_PATH_MISSING = (
-    "the FM pigeonhole candidate path (ops/rank.py, piece_interval_search, "
-    "pigeonhole_candidates) is not yet ported"
-)
 
 
 @dataclass
@@ -138,26 +136,29 @@ def hits_from_arrays(ah: ArrayHits) -> list[ApproxHit | None]:
     return out
 
 
-def device_tables(gi, seed_table, device) -> dict:
+def device_tables(gi, device, seed_table=None, kmer_table=None) -> dict:
     """Numpy index arrays -> the aligner's device tensors.
 
-    ``gi.fwd.text_words`` (uint32 packed text) is held as int32 words with
-    the same bits; ``gi.fwd.n`` is the text length; ``seed_table`` is the
-    CSR ``(offsets, positions)`` pair.  ``gi`` may be either package's
-    ``GenomeIndex``: only these fields are read, so both packages can run on
-    the same state.  The FM tables are not uploaded: no ported path reads
-    them yet.
+    ``gi.fwd`` (the numpy ``FMIndexData``) becomes a ``rank.DeviceFMIndex``
+    ("fm"), and its packed text (uint32) int32 words with the same bits
+    ("text"); ``seed_table`` is the CSR ``(offsets, positions)`` pair and
+    ``kmer_table`` the ``(lo, hi)`` interval pair, each uploaded when
+    given.  ``gi`` may be either package's ``GenomeIndex``: only these
+    fields are read, so both packages can run on the same state.
     """
     words = np.ascontiguousarray(gi.fwd.text_words, dtype=np.uint32).view(np.int32)
-    offsets, positions = seed_table
+
+    def pair(tab):
+        if tab is None:
+            return None
+        return tuple(torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device) for a in tab)
+
     return {
+        "fm": rank.from_host(gi.fwd, device),
         "text": torch.from_numpy(words).to(device),
-        "n": int(gi.fwd.n),
         "text_host": gi.fwd.text_words,
-        "seed": (
-            torch.as_tensor(np.asarray(offsets, dtype=np.int32)).to(device),
-            torch.as_tensor(np.asarray(positions, dtype=np.int32)).to(device),
-        ),
+        "seed": pair(seed_table),
+        "kmer": pair(kmer_table),
     }
 
 
@@ -171,18 +172,22 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class SuffixFilterAligner:
-    """Acceptance configs 3-4: k-edit seed-table suffix filter + banded DP
-    verify + SAM emission (the flagship pipeline)."""
+    """Acceptance configs 3-4: k-edit suffix filter (seed-table or FM
+    pigeonhole candidates) + banded DP verify + SAM emission (the flagship
+    pipeline)."""
 
     def __init__(
         self,
         gi,
         k: int = 2,
         max_hits_per_piece: int = 8,
-        seed_table=None,  # (offsets, positions) from index.seedtable
+        kmer_table=None,  # (lo, hi) numpy arrays from index.kmer, optional
+        kmer_j: int = 0,
+        verify_mode: str = "banded",  # banded | myers
+        seed_table=None,  # (offsets, positions) from index.seedtable, optional
         seed_j: int = 0,
         max_cands: int | None = None,  # verify lanes per read after dedup;
-        # default 4*(k+1): the seed path proposes a superset
+        # default 8 (FM path) / 4*(k+1) (seed path, which proposes a superset)
         verify_slack: int = 6,  # batch-pooled verify budget (lanes/read avg);
         # 0 = per-read lanes (verify_candidates); >0 = compacted verify
         overflow_fallback: bool = True,  # rerun budget-overflowed reads with
@@ -192,63 +197,94 @@ class SuffixFilterAligner:
         seed_probes: int = suffix_filter.SEED_PROBES,
         device: str | torch.device = "cpu",
     ):
-        if seed_table is None or seed_j <= 0:
-            raise ValueError(f"SuffixFilterAligner needs a seed table: {_FM_PATH_MISSING}")
         self.gi = gi
         self.k = k
         self.n_pieces = k + 1
         self.max_hits = max_hits_per_piece
         self.device = torch.device(device)
-        tables = device_tables(gi, seed_table, self.device)
+        use_kmer = kmer_table is not None and kmer_j > 0
+        use_seed = seed_table is not None and seed_j > 0
+        tables = device_tables(
+            gi, self.device,
+            seed_table=seed_table if use_seed else None,
+            kmer_table=kmer_table if use_kmer else None,
+        )
+        self.fm = tables["fm"]
         self.text_words = tables["text"]
-        self.n_text = tables["n"]
         self.text_host = tables["text_host"]
+        self.verify_mode = verify_mode
+        self.kmer_tab = tables["kmer"]
+        self.kmer_j = kmer_j if use_kmer else 0
         self.seed_tab = tables["seed"]
-        self.seed_j = seed_j
-        self.max_cands = 4 * (k + 1) if max_cands is None else max_cands
+        self.seed_j = seed_j if use_seed else 0
+        if max_cands is None:
+            max_cands = 4 * (k + 1) if self.seed_tab is not None else 8
+        self.max_cands = max_cands
         self.verify_slack = verify_slack
         self.overflow_fallback = overflow_fallback
         self.scored = scored
         self.seed_probes = seed_probes
         self._fb: "SuffixFilterAligner | None" = None
 
-    def _check_seed_path(self, min_len: int) -> None:
-        if min_len // self.n_pieces < self.seed_j:
-            raise ValueError(
-                f"reads of length {min_len} give k+1={self.n_pieces} pieces "
-                f"shorter than the seed length {self.seed_j}: {_FM_PATH_MISSING}"
-            )
-
     def _strand_pass(self, search_reads, verify_reads, lengths):
         """One strand: candidates -> verify -> per-read best, downloaded."""
-        self._check_seed_path(int(lengths.min()))
         L = search_reads.shape[1]
         W = L + 3 * self.k
         dev = self.device
         search = _to_device(search_reads.astype(np.int32), dev)
         verify = _to_device(verify_reads.astype(np.int32), dev)
         lens = _to_device(lengths.astype(np.int32), dev)
-        cands = suffix_filter.seed_candidates(
-            self.seed_tab[0], self.seed_tab[1], search, lens, self.n_pieces,
-            self.seed_j, max_hits=self.max_hits, max_cands=self.max_cands,
-            n_probes=self.seed_probes,
-        )
-        if self.verify_slack:
+        min_piece = int(lengths.min()) // self.n_pieces
+        if self.seed_tab is not None and min_piece >= self.seed_j:
+            cands = suffix_filter.seed_candidates(
+                self.seed_tab[0], self.seed_tab[1], search, lens, self.n_pieces,
+                self.seed_j, max_hits=self.max_hits, max_cands=self.max_cands,
+                n_probes=self.seed_probes,
+            )
+        else:
+            cands = suffix_filter.pigeonhole_candidates(
+                self.fm, search, lens, self.n_pieces, self.max_hits,
+                kmer_tab=self.kmer_tab, kmer_j=self.kmer_j,
+                kmer_full_cover=bool(self.kmer_j and min_piece >= self.kmer_j),
+                max_cands=self.max_cands,
+            )
+        if self.verify_slack and self.verify_mode == "banded":
             dist_c, cp_c, rid_c, ovf2 = suffix_filter.verify_candidates_compact(
-                self.text_words, self.n_text, verify, lens, cands.cand_pos,
+                self.text_words, self.fm.n, verify, lens, cands.cand_pos,
                 self.k, W, slack=self.verify_slack,
             )
             best = suffix_filter.best_hit_compact(rid_c, cp_c, dist_c, self.k, len(lengths))
             ovf = cands.overflow | ovf2
         else:
-            dist, _ = suffix_filter.verify_candidates(
-                self.text_words, self.n_text, verify, lens, cands.cand_pos, self.k, W,
-            )
+            if self.verify_mode == "myers":
+                dist = suffix_filter.verify_candidates_myers(
+                    self.text_words, self.fm.n, verify, lens, cands.cand_pos,
+                    self.k, W, (L + 31) // 32,
+                )
+            else:
+                dist, _ = suffix_filter.verify_candidates(
+                    self.text_words, self.fm.n, verify, lens, cands.cand_pos, self.k, W,
+                )
             best = suffix_filter.best_hit(cands.cand_pos, dist, self.k)
             ovf = cands.overflow
         # ONE transfer for all four results
         out = torch.stack([best.best_pos, best.best_dist, best.n_good, ovf.to(I32)]).cpu().numpy()
         return out[0], out[1], out[2], out[3].astype(bool)
+
+    def align_batch(self, reads: list[Read]) -> list[ApproxHit | None]:
+        """Submit + finish in one call (see align_batch_submit for the
+        pipelined two-phase API used by streaming drivers)."""
+        return self.align_batch_finish(self.align_batch_submit(reads))
+
+    def align_batch_submit(self, reads: list[Read]):
+        """List-of-Read wrapper over the array-native submit."""
+        lengths = np.array([len(r) for r in reads], dtype=np.int32)
+        verify_fwd = reads_to_batch_verify(reads)
+        return ("reads", reads, self.align_arrays_submit(verify_fwd, lengths))
+
+    def align_batch_finish(self, handle) -> list[ApproxHit | None]:
+        _, reads, inner = handle
+        return hits_from_arrays(self.align_arrays_finish(inner))
 
     def align_arrays_submit(self, verify_fwd: np.ndarray, lengths: np.ndarray):
         """Array-native submit: enqueue device work for a (B, L) code batch.
@@ -259,13 +295,15 @@ class SuffixFilterAligner:
         L = verify_fwd.shape[1]
         if not bool(np.all(lengths == L)):
             return ("general", lengths, verify_fwd)
-        self._check_seed_path(L)
+        min_piece = L // self.n_pieces
+        use_seed = self.seed_tab is not None and min_piece >= self.seed_j
         rwords, nmask = pack_reads_2bit(verify_fwd)
         dev = self.device
         out_dev = _fused_align_step_impl(
+            self.fm,
             self.text_words,
-            self.n_text,
-            self.seed_tab,
+            self.kmer_tab,
+            self.seed_tab if use_seed else None,
             _to_device(rwords.view(np.int32), dev),
             _to_device(nmask.view(np.int32), dev),
             _to_device(np.asarray(lengths, dtype=np.int32), dev),
@@ -273,9 +311,11 @@ class SuffixFilterAligner:
             k=self.k,
             n_pieces=self.n_pieces,
             max_hits=self.max_hits,
+            kmer_j=self.kmer_j,
+            kmer_full_cover=bool(self.kmer_j and min_piece >= self.kmer_j),
             max_cands=self.max_cands,
             W=L + 3 * self.k,
-            seed_j=self.seed_j,
+            seed_j=self.seed_j if use_seed else 0,
             verify_slack=self.verify_slack,
             seed_probes=self.seed_probes,
         )
@@ -314,7 +354,7 @@ class SuffixFilterAligner:
             dev = self.device
             ham, o_min = suffix_filter.offset_hamming(
                 self.text_words,
-                self.n_text,
+                self.fm.n,
                 _to_device(vsel.astype(np.int32), dev),
                 _to_device(np.asarray(lengths, dtype=np.int32), dev),
                 _to_device(np.where(mapped, cand, 0).astype(np.int32), dev),
@@ -356,7 +396,7 @@ class SuffixFilterAligner:
             # traceback windows decoded on the host: a device gather here
             # would queue behind the next pipelined batch's step
             wins = window_ops.gather_windows_host(
-                self.text_host, self.n_text, ws_all[slow_idx], Wb
+                self.text_host, self.fm.n, ws_all[slow_idx], Wb
             ).astype(np.int64)
             if self.scored:
                 # scored emission: the affine engine alone supplies
@@ -516,8 +556,54 @@ class SuffixFilterAligner:
             scored=self.scored,
         )
 
+    def to_sam(self, reads: list[Read], hits) -> list[sam.SamRecord]:
+        recs = []
+        for r, h in zip(reads, hits):
+            if h is None:
+                recs.append(sam.unmapped(r.name, r.codes, r.qual))
+                continue
+            ci, local = self.gi.genome.coord(h.pos)
+            # native AS: slow-path reads carry the affine traceback's score;
+            # fast-path alignments are all-M with h.dist mismatches, whose
+            # affine score is exact in closed form (no gaps)
+            if h.score is not None:
+                score, nm = h.score, h.nm
+            elif getattr(self, "scored", False):
+                score = 1 * (len(r) - h.dist) - 4 * h.dist
+                nm = h.dist
+            else:
+                score, nm = None, h.dist
+            recs.append(
+                sam.mapped(
+                    r.name,
+                    r.codes,
+                    self.gi.genome.names[int(ci[0])],
+                    int(local[0]),
+                    h.strand,
+                    h.cigar,
+                    edit_distance=nm,
+                    mapq=37 if h.n_good == 1 else (3 if h.n_good > 1 else 0),
+                    qual=r.qual,
+                    n_hits=h.n_good,
+                    overflow=h.overflow,
+                    score=score,
+                )
+            )
+        return recs
+
     def sam_header(self) -> str:
         return sam.header(self.gi.genome.names, self.gi.genome.lengths, prog="gwa-torch")
+
+
+def reads_to_batch_verify(reads: list[Read]) -> np.ndarray:
+    """(B, L) int32 with N kept as 4 (counts as an edit in verify)."""
+    L = max(len(r) for r in reads)
+    if all(len(r) == L for r in reads):  # uniform: one vectorised stack
+        return np.stack([r.codes for r in reads]).astype(np.int32)
+    out = np.zeros((len(reads), L), dtype=np.int32)
+    for i, r in enumerate(reads):
+        out[i, : len(r)] = r.codes
+    return out
 
 
 def revcomp_verify_batch(batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -609,33 +695,41 @@ def _unpack_result(packed: np.ndarray, k: int):
 
 
 def _fused_align_step_impl(
-    text_words, n_text, seed_tab, rwords, nmask, lengths,
-    *, L, k, n_pieces, max_hits, max_cands, W,
-    seed_j, verify_slack=0, seed_probes=suffix_filter.SEED_PROBES,
+    fm, text_words, kmer_tab, seed_tab, rwords, nmask, lengths,
+    *, L, k, n_pieces, max_hits, kmer_j, kmer_full_cover, max_cands, W,
+    seed_j=0, verify_slack=0, seed_probes=suffix_filter.SEED_PROBES,
 ):
-    """Whole per-batch device step: both strands, seed-table candidates,
-    verify, cross-strand best, fast-CIGAR hamming -> (2, B) int32 packed
-    result.  Uniform-length batches only (device-side reverse complement).
-    Fixed shapes, no host synchronisation."""
+    """Whole per-batch device step: both strands, candidates (the seed
+    table when given, else the FM pigeonhole search), verify, cross-strand
+    best, fast-CIGAR hamming -> (2, B) int32 packed result.  Uniform-length
+    batches only (device-side reverse complement).  Fixed shapes, no host
+    synchronisation."""
     INF = dp_ops.INF
     vf = _unpack_reads_2bit(rwords, nmask, L)
     vrc = torch.where(vf < 4, 3 - vf, vf).flip(1)
 
     def strand_pass(vcodes):
         search = torch.where(vcodes >= 4, 0, vcodes)
-        cands = suffix_filter.seed_candidates(
-            seed_tab[0], seed_tab[1], search, lengths, n_pieces, seed_j,
-            max_hits=max_hits, max_cands=max_cands, n_probes=seed_probes,
-        )
+        if seed_tab is not None and seed_j > 0:
+            cands = suffix_filter.seed_candidates(
+                seed_tab[0], seed_tab[1], search, lengths, n_pieces, seed_j,
+                max_hits=max_hits, max_cands=max_cands, n_probes=seed_probes,
+            )
+        else:
+            cands = suffix_filter.pigeonhole_candidates(
+                fm, search, lengths, n_pieces, max_hits,
+                kmer_tab=kmer_tab, kmer_j=kmer_j, kmer_full_cover=kmer_full_cover,
+                max_cands=max_cands,
+            )
         if verify_slack:
             dist_c, cp_c, rid_c, ovf2 = suffix_filter.verify_candidates_compact(
-                text_words, n_text, vcodes, lengths, cands.cand_pos, k, W,
+                text_words, fm.n, vcodes, lengths, cands.cand_pos, k, W,
                 slack=verify_slack,
             )
             best = suffix_filter.best_hit_compact(rid_c, cp_c, dist_c, k, vcodes.shape[0])
             return best, cands.overflow | ovf2
         dist, _ = suffix_filter.verify_candidates(
-            text_words, n_text, vcodes, lengths, cands.cand_pos, k, W,
+            text_words, fm.n, vcodes, lengths, cands.cand_pos, k, W,
         )
         return suffix_filter.best_hit(cands.cand_pos, dist, k), cands.overflow
 
@@ -653,6 +747,6 @@ def _fused_align_step_impl(
 
     vsel = torch.where(take_r[:, None], vrc, vf)
     ham, o_min = suffix_filter.offset_hamming(
-        text_words, n_text, vsel, lengths, torch.where(mapped, cand, 0), k,
+        text_words, fm.n, vsel, lengths, torch.where(mapped, cand, 0), k,
     )
     return _pack_result(cand, dist, take_r, n_good, ovf, ham, o_min, k)

@@ -1,11 +1,13 @@
-"""Approximate search, seed-table path: piece partitioning + CSR seed-table
-candidates + banded DP verify + deterministic best hit.
+"""Approximate search: piece partitioning + candidate generation (FM
+pigeonhole or CSR seed table) + DP verify + deterministic best hit.
 
-Torch counterpart of ``genome_weaver_align_tpu.models.suffix_filter``'s seed
-path.  Split each read into ``k+1`` pieces; any alignment with <= k edits
-leaves at least one piece exact (pigeonhole), and an exact piece implies
-every j-mer inside it is exact, so the seed table's buckets propose a
-complete superset of candidate diagonals, which the banded DP verifies.
+Torch counterpart of ``genome_weaver_align_tpu.models.suffix_filter``.
+Split each read into ``k+1`` pieces; any alignment with <= k edits leaves
+at least one piece exact (pigeonhole).  The FM path backward-searches every
+piece and locates its occurrences; the seed-table path looks up j-mers
+inside each piece (an exact piece implies every j-mer inside it is exact),
+a complete superset of candidate diagonals.  The banded DP (or Myers)
+verifies them.
 
 Every function takes tensors on one device and keeps fixed shapes with no
 host synchronisation, so a batch's whole step is enqueued without waiting.
@@ -13,8 +15,7 @@ Where the JAX code relies on clamped gathers or dropped out-of-range
 scatters, this code clamps explicitly or scatters into a spare slot that it
 slices off: an out-of-range index on a CUDA device is a device assert.
 
-The FM pigeonhole path (``piece_interval_search``,
-``pigeonhole_candidates``) and the staircase are not ported yet.
+The staircase (tier 2) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops import dp as dp_ops
-from ..ops import window
+from ..ops import myers as myers_ops
+from ..ops import rank, window
+from ..ops.rank import DeviceFMIndex
 
 I32 = torch.int32
 
@@ -88,6 +91,104 @@ def _dedupe_cands(cand: torch.Tensor, overflow: torch.Tensor, max_cands: int | N
         cand = cand[:, :max_cands]
         n = n.clamp(max=max_cands)
     return CandidateResult(cand, n, overflow)
+
+
+def piece_interval_search(
+    fm: DeviceFMIndex,
+    reads: torch.Tensor,  # (B, L) int32 search codes (N already mapped to 0)
+    lengths: torch.Tensor,
+    n_pieces: int,
+    max_len: int | None = None,
+    kmer_tab: tuple[torch.Tensor, torch.Tensor] | None = None,
+    kmer_j: int = 0,
+    kmer_full_cover: bool = False,
+):
+    """Exact backward search of every piece: (lo, hi, s), each (B, P).
+
+    A fixed trip count of ceil(L/P) + 1 interval updates (lanes whose piece
+    is exhausted or whose interval is empty stop updating).  With a k-mer
+    table, each piece's last ``kmer_j`` characters resolve with one lookup
+    (pieces shorter than kmer_j take the plain loop);
+    ``kmer_full_cover=True`` (caller guarantees every piece >= kmer_j) also
+    shortens the loop by kmer_j rounds."""
+    B, L = reads.shape
+    dev = reads.device
+    reads = reads.to(I32)
+    bounds = _piece_bounds(lengths, n_pieces)
+    s, e = bounds[:, :-1], bounds[:, 1:]  # (B, P)
+    steps = (L + n_pieces - 1) // n_pieces + 1 if max_len is None else max_len
+
+    if kmer_tab is not None and kmer_j > 0:
+        use_tab = (e - s) >= kmer_j  # (B, P)
+        idx = torch.zeros((B, n_pieces), dtype=I32, device=dev)
+        for t in range(kmer_j):
+            pos = (e - kmer_j + t).clamp(0, L - 1)
+            idx = (idx << 2) | torch.gather(reads, 1, pos.long())
+        idx = idx.clamp(0, kmer_tab[0].shape[0] - 1).long()
+        lo = torch.where(use_tab, kmer_tab[0][idx], 0)
+        hi = torch.where(use_tab, kmer_tab[1][idx], fm.n + 1)
+        skip = torch.where(use_tab, kmer_j, 0)
+    else:
+        lo = torch.zeros((B, n_pieces), dtype=I32, device=dev)
+        hi = torch.full((B, n_pieces), fm.n + 1, dtype=I32, device=dev)
+        skip = torch.zeros((B, n_pieces), dtype=I32, device=dev)
+
+    trip = steps - kmer_j if (kmer_tab is not None and kmer_full_cover) else steps
+    for t in range(trip):
+        j = e - 1 - skip - t  # (B, P)
+        active = (j >= s) & (lo < hi)
+        c = torch.gather(reads, 1, j.clamp(0, L - 1).long())
+        nlo, nhi = rank.backward_step(fm, c, lo, hi)
+        lo, hi = torch.where(active, nlo, lo), torch.where(active, nhi, hi)
+    return lo, hi, s
+
+
+def pigeonhole_candidates(
+    fm: DeviceFMIndex,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    n_pieces: int,
+    max_hits: int = 16,
+    kmer_tab=None,
+    kmer_j: int = 0,
+    kmer_full_cover: bool = False,
+    locate_slack: int = 2,
+    max_cands: int | None = None,
+) -> CandidateResult:
+    """Candidate loci from exact piece matches, deduped and sorted.
+
+    Locate is the gather-dominated stage, so only valid interval rows walk
+    the LF chain: rows are batch-compacted and the first
+    ``B * n_pieces * locate_slack`` lanes located; a read whose valid row
+    fell beyond the budget is overflow-flagged, never silently dropped.
+    ``max_cands`` caps the candidate axis after dedup (sorted ascending, so
+    the slice keeps the smallest loci; more real candidates also flags
+    overflow)."""
+    B, L = reads.shape
+    dev = reads.device
+    lo, hi, s = piece_interval_search(
+        fm, reads, lengths, n_pieces,
+        kmer_tab=kmer_tab, kmer_j=kmer_j, kmer_full_cover=kmer_full_cover,
+    )
+    overflow = torch.any(hi - lo > max_hits, dim=1)
+
+    rows = lo[:, :, None] + torch.arange(max_hits, dtype=I32, device=dev)  # (B, P, H)
+    valid = rows < hi[:, :, None]
+    rows_flat = rows.clamp(0, fm.n).reshape(-1)
+    valid_flat = valid.reshape(-1)
+    N = rows_flat.shape[0]
+    sel, ok, dropped = compact_lanes(valid_flat, B * n_pieces * locate_slack)
+    sel = sel.long()
+    pos_sel = rank.locate(fm, rows_flat[sel])
+    # lanes past the valid count write the spare slot N, sliced off
+    sel_tgt = torch.where(ok, sel, N)
+    pos_flat = torch.zeros(N + 1, dtype=I32, device=dev).scatter_(0, sel_tgt, pos_sel)[:N]
+    located = (valid_flat & ~dropped).reshape(rows.shape)
+    overflow = overflow | torch.any(dropped.reshape(B, -1), dim=1)
+    pos = pos_flat.reshape(rows.shape)
+
+    cand = torch.where(valid & located, pos - s[:, :, None], NO_CAND)
+    return _dedupe_cands(cand.reshape(B, n_pieces * max_hits), overflow, max_cands)
 
 
 SEED_PROBES = 4  # rare-seed probes per piece (see the JAX package)
@@ -200,6 +301,29 @@ def verify_candidates(
     dist, end_b = dp_ops.banded_edit_distance_best(r, ln, wins, k)
     dist = torch.where(invalid, dp_ops.INF, dist.reshape(B, C))
     return dist, end_b.reshape(B, C)
+
+
+def verify_candidates_myers(
+    text_words: torch.Tensor,
+    n_text: int,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    cand_pos: torch.Tensor,
+    k: int,
+    window_width: int,
+    nwords: int,
+) -> torch.Tensor:
+    """Myers bit-parallel verify over the same windows (no band limit):
+    (B, C) dists, INF where invalid."""
+    B, C = cand_pos.shape
+    invalid = cand_pos == NO_CAND
+    wins = window.gather_windows(
+        text_words, n_text, torch.where(invalid, 0, cand_pos - k).reshape(-1), window_width
+    )
+    r = reads.to(torch.int8).repeat_interleave(C, dim=0)
+    ln = lengths.to(I32).repeat_interleave(C)
+    dist = myers_ops.myers_semiglobal(r, ln, wins, nwords)
+    return torch.where(invalid, dp_ops.INF, dist.reshape(B, C))
 
 
 def offset_hamming(

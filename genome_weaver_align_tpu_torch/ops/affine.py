@@ -33,10 +33,19 @@ window-consuming gap (D) is slot b-1 in the same row.
 from __future__ import annotations
 
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 _NEG = np.int32(-(1 << 20))
+
+# Without OpenMP in the native library, ``affine_banded_batch`` splits a
+# cohort of at least THREAD_MIN_ROWS rows into HOST_THREADS contiguous chunks
+# and runs one native call per chunk on its own thread; smaller cohorts take
+# one call, where a thread pool would cost more than it saves.
+THREAD_MIN_ROWS = 256
+HOST_THREADS = os.cpu_count() or 1
 
 _native_fn = None
 _native_failed = False
@@ -154,7 +163,8 @@ def affine_banded_batch(
 ):
     """Scored banded alignment + traceback; native C++ engine when built
     (bit-identical to the NumPy lockstep, and faster), NumPy fallback
-    otherwise."""
+    otherwise.  A native library without OpenMP runs large cohorts as row
+    chunks on host threads (see THREAD_MIN_ROWS)."""
     fn = _load_native()
     if fn is None:
         return affine_banded_batch_numpy(
@@ -173,13 +183,31 @@ def affine_banded_batch(
     buf = np.zeros((Q, cigar_cap), np.uint8)
     i8p = ctypes.POINTER(ctypes.c_int8)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    rc = fn(
-        r8.ctypes.data_as(i8p), l32.ctypes.data_as(i32p), w8.ctypes.data_as(i8p),
-        Q, L, W, k, match, mismatch, gap_open, gap_ext,
-        score.ctypes.data_as(i32p), start.ctypes.data_as(i32p),
-        nm.ctypes.data_as(i32p),
-        buf.ctypes.data_as(ctypes.c_char_p), cigar_cap,
-    )
+
+    def rows(lo: int, hi: int) -> int:
+        """One native call on rows [lo, hi): row slices of the C-ordered
+        inputs and outputs are contiguous, so each call gets its own."""
+        return fn(
+            r8[lo:hi].ctypes.data_as(i8p), l32[lo:hi].ctypes.data_as(i32p),
+            w8[lo:hi].ctypes.data_as(i8p),
+            hi - lo, L, W, k, match, mismatch, gap_open, gap_ext,
+            score[lo:hi].ctypes.data_as(i32p), start[lo:hi].ctypes.data_as(i32p),
+            nm[lo:hi].ctypes.data_as(i32p),
+            buf[lo:hi].ctypes.data_as(ctypes.c_char_p), cigar_cap,
+        )
+
+    from ..index import native as idx_native
+
+    n_chunks = min(HOST_THREADS, Q)
+    if idx_native.built_with_openmp is True or Q < THREAD_MIN_ROWS or n_chunks <= 1:
+        rc = rows(0, Q)
+    else:
+        # a library built without OpenMP runs its row loop on one core; the
+        # rows are independent and ctypes releases the GIL during a foreign
+        # call, so contiguous row chunks run on a thread each
+        bounds = np.linspace(0, Q, n_chunks + 1).astype(np.int64).tolist()
+        with ThreadPoolExecutor(n_chunks) as pool:
+            rc = max(pool.map(rows, bounds[:-1], bounds[1:]))
     if rc != 0:
         raise RuntimeError("native affine traceback failed")
     flat = buf.tobytes()

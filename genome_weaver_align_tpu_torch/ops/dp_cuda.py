@@ -2,74 +2,29 @@
 
 The kernel replaces the JAX package's Pallas kernel
 ``genome_weaver_align_tpu/ops/dp_pallas.py::_kernel`` and computes exactly
-``ops.dp.banded_edit_distance``.  It is compiled at first use with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C entry, named by a hash
-of the source and flags, in this package's gitignored ``_build/``
-directory, and loaded with ``ctypes``.  Without ``nvcc``, or when the build
-fails, loading raises: there is no fallback to the plain version.
+``ops.dp.banded_edit_distance``.  ``ops._cuda_build`` compiles it at first
+use with ``nvcc`` for ``sm_90a`` into the gitignored ``_build/`` directory;
+without ``nvcc``, or when the build fails, loading raises: there is no
+fallback to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ._cuda_build import load_kernel_library
 from .dp import INF
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "banded_dp.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-)
 MAX_K = 8  # the kernel is instantiated for k = 1..MAX_K
-
-
-def _find_nvcc() -> str:
-    """``$CUDA_HOME/bin/nvcc`` when CUDA_HOME is set, else ``nvcc`` on PATH,
-    else the toolkit's default install path."""
-    home = os.environ.get("CUDA_HOME")
-    candidates = [Path(home) / "bin" / "nvcc"] if home else [
-        shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")
-    ]
-    for c in candidates:
-        if c and Path(c).is_file():
-            return str(c)
-    raise RuntimeError(
-        "cannot build the banded DP CUDA kernel: nvcc not found "
-        f"(CUDA_HOME={home!r}; looked for {[str(c) for c in candidates if c]})"
-    )
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    nvcc = _find_nvcc()
-    h = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    path = _BUILD_DIR / f"banded_dp-{h.hexdigest()[:16]}.so"
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {_SOURCE.name} (rc={res.returncode}):\n"
-                    f"{res.stderr[-4000:]}"
-                )
-            os.replace(tmp, path)
-        finally:
-            tmp.unlink(missing_ok=True)
-    lib = ctypes.CDLL(str(path))
+    lib = load_kernel_library("banded_dp.cu")
     vp = ctypes.c_void_p
     lib.gwa_banded_dp.argtypes = [
         vp, vp, vp, vp, vp, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,

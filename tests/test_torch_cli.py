@@ -1,8 +1,11 @@
-"""The port's CLI (index -> simulate -> align --seed-table) writes SAM
-byte-identical to the JAX CLI on the same files; the only allowed
-difference is the @PG header line naming the program."""
+"""The port's CLI (index -> simulate -> align) writes SAM byte-identical to
+the JAX CLI on the same files, on the seed-table path, the FM pigeonhole
+path (with and without a k-mer table), FASTA reads, and paired input
+(--paired, --interleaved); the only allowed difference is the @PG header
+line naming the program."""
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -10,7 +13,8 @@ import pytest
 from genome_weaver_align_tpu.cli import main as jax_main
 from genome_weaver_align_tpu.index import native as j_native
 from genome_weaver_align_tpu.ops import affine as j_affine
-from genome_weaver_align_tpu.utils.fasta import Contig, write_fasta
+from genome_weaver_align_tpu.utils.fasta import Contig, Read, write_fasta, write_fastq
+from genome_weaver_align_tpu.utils.simulate import simulate_pairs
 from genome_weaver_align_tpu_torch.cli import main
 
 J = 10
@@ -37,10 +41,24 @@ def files(tmp_path_factory):
     codes[20000:20040] = 4  # an N run, resolved by the index
     write_fasta(d / "g.fa", [Contig("chrA", codes[:30000]), Contig("chrB", codes[30000:])])
     assert main(["index", str(d / "g.fa"), "-o", str(d / "g.npz"), "--sample-rate", "8",
-                 "--seed", str(J)]) == 0
+                 "--seed", str(J), "--kmer", "6"]) == 0
     assert main(["simulate", str(d / "g.fa"), "-o", str(d / "r.fq"), "-n", "700", "-l", "100",
                  "--seed", "3", "--sub-rate", "0.02", "--max-subs", "2",
                  "--indel-rate", "0.01", "--max-indels", "1"]) == 0
+    # pairs: FR mates, a few mate2s corrupted past k = 2 (rescue), as
+    # separate files, interleaved, and single-end reads as FASTA
+    sims = simulate_pairs(codes[:30000], 150, 100, seed=8, sub_rate=0.01, max_subs=2)
+    r1 = [s.r1.read for s in sims]
+    r2 = []
+    for i, s in enumerate(sims):
+        c = s.r2.read.codes.copy()
+        if i % 10 == 0:
+            c[[10, 35, 60, 85]] = (c[[10, 35, 60, 85]] + 1) % 4
+        r2.append(Read(s.r2.read.name, c, s.r2.read.qual))
+    write_fastq(d / "p1.fq", r1)
+    write_fastq(d / "p2.fq", r2)
+    write_fastq(d / "pi.fq", [r for pair in zip(r1, r2) for r in pair])
+    write_fasta(d / "r.fa", [Contig(r.name, r.codes) for r in r1[:60]])
     return d
 
 
@@ -84,19 +102,57 @@ def test_cli_resume_identical_to_jax(files):
     assert len([l for l in port if not l.startswith("@")]) == 700 - 2 * 256
 
 
+def _same_sam(d, reads, *extra, records=None):
+    """Run both CLIs on ``reads`` with ``extra`` flags (no seed table unless
+    given) and require identical SAM but for @PG."""
+    for fn, out in ((main, "port_x.sam"), (jax_main, "jax_x.sam")):
+        assert fn(["align", str(d / "g.npz"), str(d / reads), "-k", "2", "-o", str(d / out),
+                   "--batch-size", "64", *extra]) == 0
+    port, port_pg = _body(d / "port_x.sam")
+    ref, _ = _body(d / "jax_x.sam")
+    assert port == ref
+    assert port_pg == ["@PG\tID:gwa-torch\tPN:gwa-torch"]
+    body = [l for l in port if not l.startswith("@")]
+    if records is not None:
+        assert len(body) == records
+    return body
+
+
+def test_cli_fm_path_identical_to_jax(files):
+    body = _same_sam(files, "r.fq", records=700)
+    # every read within k = 2 edits maps (a third carry three edits)
+    within_k = [l for l in body if sum(int(x) for x in re.findall(r"_[mid](\d+)", l.split("\t")[0])) <= 2]
+    assert len(within_k) > 400 and all(not int(l.split("\t")[1]) & 4 for l in within_k)
+
+
+def test_cli_kmer_table_identical_to_jax(files):
+    _same_sam(files, "r.fq", "--kmer-table", str(files / "g.npz.kmer6.npz"), records=700)
+
+
+def test_cli_fasta_reads_identical_to_jax(files):
+    _same_sam(files, "r.fa", records=60)
+
+
+@pytest.mark.parametrize("seed_table", [False, True])
+def test_cli_paired_identical_to_jax(files, seed_table):
+    extra = ["--seed-table", str(files / f"g.npz.seed{J}.npz")] if seed_table else []
+    body = _same_sam(files, "p1.fq", "--paired", str(files / "p2.fq"), *extra, records=300)
+    flags = [int(l.split("\t")[1]) for l in body]
+    assert sum(f & 0x2 for f in flags) // 2 >= 130  # proper pairs
+    assert all(f & 0x1 for f in flags)
+
+
+def test_cli_interleaved_identical_to_jax(files):
+    body = _same_sam(files, "pi.fq", "--interleaved", records=300)
+    paired_body = _same_sam(files, "p1.fq", "--paired", str(files / "p2.fq"))
+    assert body == paired_body
+
+
 @pytest.mark.parametrize("extra", [
     ["--mode", "exact"], ["--mode", "staircase"], ["--mode", "long"], ["-k", "0"],
-    ["--paired", "x.fq"], ["--interleaved"], ["--n-interval", "2"],
-    ["--kmer-table", "x.npz"], ["--profile", "prof"],
+    ["--n-interval", "2"], ["--profile", "prof"],
 ])
 def test_cli_unported_modes_exit_2(files, capsys, extra):
     assert _align(main, files, "never.sam", *extra) == 2
     assert "not yet ported" in capsys.readouterr().err
     assert not (files / "never.sam").exists()
-
-
-def test_cli_align_without_seed_table_exits_2(files, capsys):
-    d = files
-    rc = main(["align", str(d / "g.npz"), str(d / "r.fq"), "-k", "2", "-o", str(d / "n.sam")])
-    assert rc == 2
-    assert "FM pigeonhole" in capsys.readouterr().err

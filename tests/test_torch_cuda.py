@@ -3,9 +3,9 @@ without one).  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-They import no JAX: they hold the CUDA kernel against the plain torch
-version, and the aligner on the card against the same aligner on the CPU,
-which the CPU tests hold against the JAX package."""
+They import no JAX: they hold each CUDA kernel (banded DP, Myers) against
+its plain torch version, and the aligners on the card against the same
+aligners on the CPU, which the CPU tests hold against the JAX package."""
 
 import numpy as np
 import pytest
@@ -15,8 +15,8 @@ from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
 from genome_weaver_align_tpu_torch.index.build import build_fm_index
 from genome_weaver_align_tpu_torch.index.files import Genome, GenomeIndex
 from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
-from genome_weaver_align_tpu_torch.models import pipeline
-from genome_weaver_align_tpu_torch.ops import dp, dp_cuda
+from genome_weaver_align_tpu_torch.models import paired, pipeline
+from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda
 from genome_weaver_align_tpu.utils.fasta import Contig
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +96,93 @@ def test_aligner_on_card_equals_cpu(cuda):
             got = on_card.align_arrays_finish(h)
             assert dp_cuda.banded_edit_distance_cuda.launches > before
             _hits_equal(got, on_cpu.align_arrays_finish(on_cpu.align_arrays_submit(reads, lens)))
+
+
+def _myers_inputs(Q, L, W, seed):
+    """Half the lanes hold their read (a few substitutions) inside the
+    window, half are random; codes 0..4 (4 = N); ragged lengths, some 0."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 5, size=(Q, L)).astype(np.int32)
+    wins = rng.integers(0, 5, size=(Q, W)).astype(np.int32)
+    planted = np.nonzero(rng.random(Q) < 0.5)[0]
+    at = int(rng.integers(0, max(1, W - L)))
+    span = min(L, W - at)
+    wins[planted, at : at + span] = reads[planted, :span]
+    for _ in range(3):
+        col = rng.integers(0, W, size=planted.size)
+        wins[planted, col] = rng.integers(0, 4, size=planted.size)
+    lengths = np.where(rng.random(Q) < 0.7, L, rng.integers(0, L + 1, size=Q)).astype(np.int32)
+    lengths[::37] = 0
+    return reads, lengths, wins
+
+
+@pytest.mark.parametrize("L", [20, 32, 64, 96, 100, 128, 150, 160, 192, 224, 256])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_myers_kernel_equals_plain(cuda, L, dtype):
+    Q, W = 1001, L + 43  # Q not a multiple of the 128-thread block, W not of 8
+    reads, lengths, wins = _myers_inputs(Q, L, W, L)
+    r, w = (torch.from_numpy(a).to(cuda, dtype) for a in (reads, wins))
+    ln = torch.from_numpy(lengths).to(cuda)
+    nwords = -(-L // 32)
+    for steps in (W, W - 5):
+        before = myers_cuda.myers_semiglobal_cuda.launches
+        got = myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords, steps)
+        assert myers_cuda.myers_semiglobal_cuda.launches == before + 1
+        want = myers._myers_plain(r, ln, w, nwords, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    zero = torch.from_numpy(lengths == 0).to(cuda)
+    assert int(got[0][zero].abs().sum()) == 0 and int(got[1][zero].abs().sum()) == 0
+    # the dispatcher sends CUDA tensors to the kernel
+    before = myers_cuda.myers_semiglobal_cuda.launches
+    myers.myers_semiglobal_end(r, ln, w, nwords)
+    assert myers_cuda.myers_semiglobal_cuda.launches == before + 1
+
+
+def test_myers_kernel_rejects_what_it_cannot_take(cuda):
+    r = torch.zeros((4, 257), dtype=torch.int8, device=cuda)
+    w = torch.zeros((4, 300), dtype=torch.int8, device=cuda)
+    ln = torch.full((4,), 257, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="257"):
+        myers_cuda.myers_semiglobal_cuda(r, ln, w)
+    r, w, ln = r[:, :100].contiguous(), w[:, :120].contiguous(), ln.clone().fill_(100)
+    with pytest.raises(ValueError, match="CUDA"):
+        myers_cuda.myers_semiglobal_cuda(r.cpu(), ln.cpu(), w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        myers_cuda.myers_semiglobal_cuda(r.t().contiguous().t(), ln, w)
+    with pytest.raises(ValueError, match="int8 or int32"):
+        myers_cuda.myers_semiglobal_cuda(r, ln, w.int())
+    got = myers_cuda.myers_semiglobal_cuda(r[:0], ln[:0], w[:0])
+    assert got[0].shape == (0,)
+
+
+def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
+    """The FM pigeonhole path (banded kernel) and paired mate rescue
+    (Myers kernel) on the card against the same aligners on the CPU."""
+    rng = np.random.default_rng(12)
+    codes = rng.integers(0, 4, size=80_000, dtype=np.uint8)
+    genome = Genome.from_contigs([Contig("c", codes)])
+    gi = GenomeIndex(genome, build_fm_index(genome.codes, sample_rate=8), None)
+    n, L = 512, 100
+    pos1 = rng.integers(0, codes.size - 600, size=n)
+    c1 = codes[pos1[:, None] + np.arange(L)].astype(np.int8)
+    p2 = pos1 + rng.integers(250, 550, size=n) - L
+    c2 = np.ascontiguousarray((3 - codes[p2[:, None] + np.arange(L)].astype(np.int8))[:, ::-1])
+    half = np.arange(0, n, 8)
+    for col in (10, 35, 60, 85):  # 4 substitutions: unmappable at k = 2, rescued
+        c2[half, col] = (c2[half, col] + 1) % 4
+    lengths = np.full(n, L, np.int32)
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        pa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, k=2, device=device),
+                                  min_insert=200, max_insert=600)
+        before = (dp_cuda.banded_edit_distance_cuda.launches,
+                  myers_cuda.myers_semiglobal_cuda.launches)
+        results.append(pa.align_pair_arrays(c1, lengths, c2, lengths))
+        if device.type == "cuda":
+            assert dp_cuda.banded_edit_distance_cuda.launches > before[0]
+            assert myers_cuda.myers_semiglobal_cuda.launches > before[1]
+    got, want = results
+    assert sum(ph.rescued != 0 for ph in got) >= n // 10
+    assert [(a.h1, a.h2, a.proper, a.rescued) for a in got] == \
+        [(b.h1, b.h2, b.proper, b.rescued) for b in want]

@@ -1,5 +1,5 @@
-"""The PyTorch port imports and runs with JAX absent, and its CUDA kernel
-has no silent fallback."""
+"""The PyTorch port imports and runs with JAX absent, and its CUDA kernels
+have no silent fallback."""
 
 import os
 import subprocess
@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from genome_weaver_align_tpu_torch.ops import dp, dp_cuda
+from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "genome_weaver_align_tpu_torch"
@@ -21,8 +21,8 @@ import numpy as np
 import genome_weaver_align_tpu_torch
 from genome_weaver_align_tpu_torch import cli
 from genome_weaver_align_tpu_torch.index import build, files, kmer, native, sais, seedtable
-from genome_weaver_align_tpu_torch.models import pipeline, suffix_filter
-from genome_weaver_align_tpu_torch.ops import affine, dp, dp_cuda, window
+from genome_weaver_align_tpu_torch.models import paired, pipeline, suffix_filter
+from genome_weaver_align_tpu_torch.ops import affine, dp, dp_cuda, myers, myers_cuda, rank, window
 from genome_weaver_align_tpu.utils.fasta import Contig, write_fasta
 
 rng = np.random.default_rng(0)
@@ -31,6 +31,8 @@ assert cli.main(["index", "g.fa", "-o", "g.npz", "--seed", "8"]) == 0
 assert cli.main(["simulate", "g.fa", "-o", "r.fq", "-n", "40", "-l", "60"]) == 0
 assert cli.main(["align", "g.npz", "r.fq", "-k", "2", "-o", "out.sam",
                  "--seed-table", "g.npz.seed8.npz"]) == 0
+assert cli.main(["align", "g.npz", "r.fq", "-k", "2", "-o", "fm.sam"]) == 0
+assert cli.main(["align", "g.npz", "r.fq", "-k", "2", "-o", "pairs.sam", "--interleaved"]) == 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m])
 print("NO_JAX_OK")
 """
@@ -44,8 +46,9 @@ def test_port_runs_with_jax_absent(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
-    body = [l for l in (tmp_path / "out.sam").read_text().splitlines() if l[0] != "@"]
-    assert len(body) == 40
+    for name in ("out.sam", "fm.sam", "pairs.sam"):
+        body = [l for l in (tmp_path / name).read_text().splitlines() if l[0] != "@"]
+        assert len(body) == 40, name
 
 
 def test_port_source_never_imports_jax():
@@ -58,14 +61,15 @@ def test_port_source_never_imports_jax():
     assert offenders == []
 
 
-def test_kernel_loader_names_missing_nvcc(monkeypatch, tmp_path):
+@pytest.mark.parametrize("binding", [dp_cuda, myers_cuda])
+def test_kernel_loader_names_missing_nvcc(monkeypatch, tmp_path, binding):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))  # a toolkit dir without nvcc
-    dp_cuda._library.cache_clear()
+    binding._library.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="nvcc"):
-            dp_cuda._library()
+            binding._library()
     finally:
-        dp_cuda._library.cache_clear()
+        binding._library.cache_clear()
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():

@@ -15,18 +15,22 @@ from genome_weaver_align_tpu.index import kmer as j_kmer
 from genome_weaver_align_tpu.index import native as j_native
 from genome_weaver_align_tpu.index import sais as j_sais
 from genome_weaver_align_tpu.index import seedtable as j_seedtable
+from genome_weaver_align_tpu.models import paired as j_paired
 from genome_weaver_align_tpu.models import pipeline as j_pipeline
 from genome_weaver_align_tpu.ops import affine as j_affine
 from genome_weaver_align_tpu.ops import dp as j_dp
+from genome_weaver_align_tpu.ops import rank as j_rank
 from genome_weaver_align_tpu.ops import window as j_window
 from genome_weaver_align_tpu.utils.fasta import Contig
 from genome_weaver_align_tpu_torch.index import build, files, kmer, native, sais, seedtable
-from genome_weaver_align_tpu_torch.models import pipeline
-from genome_weaver_align_tpu_torch.ops import affine, dp, window
+from genome_weaver_align_tpu_torch.models import paired, pipeline
+from genome_weaver_align_tpu_torch.ops import affine, dp, rank, window
 
 # (original module, port module, names copied verbatim).  native._load is
-# the one deliberate difference: it compiles with g++ into the port's
-# _build/ directory instead of running make in native/.
+# one deliberate difference: it compiles with g++ into the port's _build/
+# directory instead of running make in native/.  affine_banded_batch is
+# another: it splits large cohorts over host threads when the library has
+# no OpenMP (tests/test_torch_affine.py holds it to the single call).
 COPIES = {
     "sais": (j_sais, sais, ["suffix_array_naive", "suffix_array"]),
     "build": (j_build, build, ["BLOCK_BASES", "_pair_mask", "FMIndexData", "build_fm_index"]),
@@ -41,13 +45,14 @@ COPIES = {
                                   "suffix_array_native", "bwt_native",
                                   "seed_table_native", "suffix_array_best"]),
     "affine": (j_affine, affine, ["_NEG", "_load_native", "_score_rows",
-                                  "affine_banded_batch", "affine_banded_batch_numpy",
-                                  "affine_semiglobal_host"]),
+                                  "affine_banded_batch_numpy", "affine_semiglobal_host"]),
     "window": (j_window, window, ["gather_windows_host"]),
     "dp": (j_dp, dp, ["_HINF", "banded_rows_host", "traceback_banded_batch"]),
     "pipeline": (j_pipeline, pipeline, ["ApproxHit", "ArrayHits", "hits_from_arrays",
-                                        "revcomp_verify_batch",
+                                        "revcomp_verify_batch", "reads_to_batch_verify",
                                         "pack_reads_2bit", "_RESULT_INF", "_unpack_result"]),
+    "paired": (j_paired, paired, ["PairHit", "_ref_span", "_with_mate"]),
+    "rank": (j_rank, rank, ["fuse_blocks"]),
 }
 
 

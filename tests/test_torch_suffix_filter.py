@@ -1,5 +1,6 @@
-"""Each seed-path suffix-filter function of the port equals its JAX twin on
-the same inputs (exact equality: the pipeline is integer-only)."""
+"""Each suffix-filter function of the port (seed-table path, FM pigeonhole
+path, banded and Myers verify) equals its JAX twin on the same inputs
+(exact equality: the pipeline is integer-only)."""
 
 import numpy as np
 import pytest
@@ -7,11 +8,15 @@ import torch
 import jax.numpy as jnp
 
 from genome_weaver_align_tpu.index import native as j_native
+from genome_weaver_align_tpu.index.build import build_fm_index
+from genome_weaver_align_tpu.index.kmer import build_kmer_table
 from genome_weaver_align_tpu.index.seedtable import build_seed_table
 from genome_weaver_align_tpu.models import suffix_filter as j_sf
+from genome_weaver_align_tpu.ops import rank as j_rank
 from genome_weaver_align_tpu.utils import packing
 from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
 from genome_weaver_align_tpu_torch.models import suffix_filter as sf
+from genome_weaver_align_tpu_torch.ops import rank
 
 K = 2
 J = 8
@@ -156,3 +161,80 @@ def test_offset_hamming(setup, cands):
     )
     for g, w in zip(got, want):
         _eq(g, w)
+
+
+# ---------------------------------------------------------------- FM path
+
+
+@pytest.fixture(scope="module")
+def fm_setup(setup):
+    """Both packages' device FM tables and a 5-mer interval table for the
+    setup genome (its tiled repeat gives wide intervals -> overflow)."""
+    fm = build_fm_index(setup["codes"], sample_rate=8)
+    lo, hi = build_kmer_table(fm, 5)
+    return dict(jfm=j_rank.from_host(fm), pfm=rank.from_host(fm), kmer=(lo, hi), j=5)
+
+
+def _search(s):
+    return np.where(s["reads"] >= 4, 0, s["reads"]).astype(np.int32)
+
+
+@pytest.mark.parametrize("use_kmer,full_cover", [(False, False), (True, False), (True, True)])
+def test_piece_interval_search(setup, fm_setup, use_kmer, full_cover):
+    s, f = setup, fm_setup
+    search = _search(s)
+    kw_j = dict(kmer_tab=tuple(jnp.asarray(a) for a in f["kmer"]), kmer_j=f["j"],
+                kmer_full_cover=full_cover) if use_kmer else {}
+    kw_p = dict(kmer_tab=tuple(_t(a) for a in f["kmer"]), kmer_j=f["j"],
+                kmer_full_cover=full_cover) if use_kmer else {}
+    want = j_sf.piece_interval_search(
+        f["jfm"], jnp.asarray(search), jnp.asarray(s["lengths"]), K + 1, **kw_j
+    )
+    got = sf.piece_interval_search(f["pfm"], _t(search), _t(s["lengths"]), K + 1, **kw_p)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    lo, hi, _ = got
+    assert ((hi - lo) > 8).any() and ((hi - lo) == 1).any()  # repeats and unique pieces
+
+
+@pytest.mark.parametrize("max_hits,max_cands,slack,use_kmer", [
+    (8, 8, 2, False), (2, 5, 1, False), (4, None, 2, True), (16, 8, 1, True),
+])
+def test_pigeonhole_candidates(setup, fm_setup, max_hits, max_cands, slack, use_kmer):
+    s, f = setup, fm_setup
+    search = _search(s)
+    kw_j = dict(kmer_tab=tuple(jnp.asarray(a) for a in f["kmer"]), kmer_j=f["j"],
+                kmer_full_cover=True) if use_kmer else {}
+    kw_p = dict(kmer_tab=tuple(_t(a) for a in f["kmer"]), kmer_j=f["j"],
+                kmer_full_cover=True) if use_kmer else {}
+    want = j_sf.pigeonhole_candidates(
+        f["jfm"], jnp.asarray(search), jnp.asarray(s["lengths"]), K + 1, max_hits,
+        locate_slack=slack, max_cands=max_cands, **kw_j,
+    )
+    got = sf.pigeonhole_candidates(
+        f["pfm"], _t(search), _t(s["lengths"]), K + 1, max_hits,
+        locate_slack=slack, max_cands=max_cands, **kw_p,
+    )
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert got.overflow.any() and (~got.overflow).any()
+    # about half the reads come from the reverse strand, which this
+    # forward-strand search cannot place
+    assert (got.n_cands > 0).float().mean() > 0.4
+
+
+def test_verify_candidates_myers(setup, cands):
+    s = setup
+    L = s["reads"].shape[1]
+    W = L + 3 * K
+    nwords = (L + 31) // 32
+    want = j_sf.verify_candidates_myers(
+        jnp.asarray(s["words"]), s["codes"].size, jnp.asarray(s["reads"]),
+        jnp.asarray(s["lengths"]), jnp.asarray(cands), K, W, nwords,
+    )
+    got = sf.verify_candidates_myers(
+        _t(s["words"]), s["codes"].size, _t(s["reads"]), _t(s["lengths"]), _t(cands),
+        K, W, nwords,
+    )
+    _eq(got, want)
+    assert (got <= K).any() and (got == sf.dp_ops.INF).any()
