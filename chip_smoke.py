@@ -42,13 +42,37 @@ per line, and exits non-zero at the first phase that fails:
    mate, 10% of mate2 with 4 more: unmappable at k = 2, within the rescue
    bar); >= 90% proper pairs and the Myers kernel launched; then the same
    pairs through ``PairedAligner.align_pair_arrays`` (inserts 200-600):
-   pairs/s, the phase split, and >= 5% of pairs rescued.
+   pairs/s, the phase split, and >= 5% of pairs rescued;
+9. the two ring kernels (``csrc/ring.cu``, built beside the others in
+   phase 2) held against their plain torch versions on every element:
+   ``ring_psum`` over S = 1, 2, 3, 4, 8 shards (int32 at 3, 777, 65,536 and
+   4,194,304 elements a shard, float32 at 65,536), ``fused_rank_ring`` at
+   (S, M) = (1,2), (2,2), (4,2), (4,3), (8,2), Q = 96 and 65,536, on rows
+   gathered from the phase-4 index split into S interval shards; then the
+   kernels, their plain versions and ``parts.sum(0)`` timed at the exact
+   search's payload shapes (S = 4: ring (2, 32,768), fused M = 2,
+   Q = 65,536);
+10. the interval-sharded exact search at full size: the phase-4 index in
+   4 interval shards on the card, 65,536 error-free forward-strand 100 bp
+   reads; ``make_sharded_exact_search`` with ``merge="psum"``, ``"ring"``
+   and ``"fused"`` (microbatch 2) must give the same (lo, hi, pos) as each
+   other and as the single-device ``exact_interval_search`` + ``locate``,
+   find every read, and place every unique one at its true start; the
+   ring kernel launched 100 x 2 times and the fused one 100 times;
+11. ``ShardedAligner`` end to end through the CLI: ``align -k 2
+   --n-interval 4`` with the seed table on 65,536 reads and without it
+   (FM shards) on 16,384 reads; the SAM body must be byte-identical to
+   the single-device CLI's on the same FASTQ, >= 99% mapped and correct,
+   and the banded-DP kernel launched.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
-just after.  The last lines are a JSON summary of the kernels, the card's
-name and power limit as nvidia-smi prints them, and ``{"ok": true,
-"device": {...}}``.  Without a CUDA device the script fails and prints no
-result.  It imports nothing of JAX.
+just after.  The last lines are a JSON summary of the kernels (each with
+its time, its plain version's, a bound from its inputs' bytes and
+operations, and the time of one PyTorch call that computes the same
+function where there is one), the card's name and power limit as
+nvidia-smi prints them, and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script fails and prints no result.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +106,15 @@ PAIR_BATCHES = 6
 MIN_PROPER = 0.9
 MIN_RESCUED = 0.05
 RESCUE_LANES = 2048
+SHARDS = 4  # interval shards of phases 10-11
+RING_MICROBATCH = 2
+SHARDED_FM_READS = 16_384
+# The card's published peaks (H100 SXM, at its full 700 W limit): memory
+# bytes/s, and the float32 rate outside the tensor cores, taken here for
+# the kernels' integer ALU work as well (int32 issues at no more than it,
+# so the bound stays a least time).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -105,19 +138,33 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, reps: int, warmup: int = 2, hide_host: bool = False) -> float:
+    """Device ms per call from CUDA events around ``reps`` calls.  With
+    ``hide_host`` the calls queue behind a ~0.1 s device sleep, so calls
+    shorter than their host launch cost run back to back and the events
+    time the device work, not the host."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms, what sets it): the bytes the function must move (each
+    input read once, each output written once) over the memory rate, or
+    its operations over the peak rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def dp_inputs(k: int, Q: int, W: int, seed: int):
@@ -142,18 +189,19 @@ def dp_inputs(k: int, Q: int, W: int, seed: int):
 
 
 def phase_kernel(torch, dev):
-    """Build both kernels, compare the banded DP with its plain version,
-    time both."""
+    """Build all kernels, compare the banded DP with its plain version,
+    time both; the bound at the timed shape."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda
+    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda, ring_cuda
 
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, side by side
-        for f in [pool.submit(dp_cuda._library), pool.submit(myers_cuda._library)]:
+    libs = (dp_cuda._library, myers_cuda._library, ring_cuda._library)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+        for f in [pool.submit(lib) for lib in libs]:
             f.result()
-    log(f"[2] built csrc/banded_dp.cu and csrc/myers.cu with nvcc for sm_90a in "
-        f"{time.time() - t0:.1f} s")
+    log(f"[2] built csrc/banded_dp.cu, csrc/myers.cu and csrc/ring.cu with nvcc for sm_90a "
+        f"in {time.time() - t0:.1f} s")
     Q = BATCH * VERIFY_SLACK
     max_err = 0
     timing = None
@@ -176,7 +224,11 @@ def phase_kernel(torch, dev):
             if k == 2 and W == L + 3 * k:
                 ms = cuda_time_ms(lambda: dp_cuda.banded_edit_distance_cuda(r, ln, w, k), reps=20)
                 plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance(r, ln, w, k), reps=3, warmup=1)
-                timing = (ms, plain_ms)
+                # reads, lengths and windows in, dist and end_b out; ~6
+                # integer ops per band cell, 4k+1 cells a read row
+                n_bytes = Q * (L + W) + 3 * 4 * Q
+                n_ops = 6 * (4 * k + 1) * int(ln.clamp(max=L).sum())
+                timing = (ms, plain_ms, *bound(n_bytes, n_ops))
     return max_err, timing
 
 
@@ -184,8 +236,8 @@ def phase_fused_step(torch, dev, codes, offsets, positions):
     """One fused align step with the kernel and with the plain DP."""
     import numpy as np
 
-    from genome_weaver_align_tpu.utils import packing
-    from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
+    from genome_weaver_align_tpu_torch.utils import packing
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
     from genome_weaver_align_tpu_torch.models import pipeline
     from genome_weaver_align_tpu_torch.ops import dp
 
@@ -223,7 +275,7 @@ def phase_fused_step(torch, dev, codes, offsets, positions):
 
 def build_index(cli, codes) -> tuple[Path, Path, float | None]:
     """The CLI index of the smoke genome, built once into smoke_cache/."""
-    from genome_weaver_align_tpu.utils.fasta import Contig, write_fasta
+    from genome_weaver_align_tpu_torch.utils.fasta import Contig, write_fasta
 
     cache = CACHE / f"random_{GENOME_LEN}_seed{GENOME_SEED}"
     idx, seedf = cache / "genome.npz", cache / f"genome.npz.seed{SEED_J}.npz"
@@ -244,7 +296,7 @@ def build_index(cli, codes) -> tuple[Path, Path, float | None]:
 def write_reads(path: Path, codes, n: int = BATCH * N_BATCHES, seed: int = 11) -> None:
     import numpy as np
 
-    from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 
     reads, pos, strand, _ = simulate_reads_array(codes, n, L, seed=seed, max_subs=2)
     seqs = np.frombuffer(b"ACGT", np.uint8)[reads].tobytes()
@@ -344,7 +396,7 @@ def phase_profile(torch, dev, codes, card):
     slow path."""
     from torch.profiler import ProfilerActivity, profile
 
-    from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
     from genome_weaver_align_tpu_torch import cli
     from genome_weaver_align_tpu_torch.index import native
     from genome_weaver_align_tpu_torch.index.files import load_index
@@ -470,9 +522,15 @@ def phase_myers(torch, dev, card):
             ms = cuda_time_ms(lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=20)
             plain_ms = cuda_time_ms(lambda: myers._myers_plain(r, ln, w, nwords, W),
                                     reps=2, warmup=1)
-            times["rescue" if Q == RESCUE_LANES else "verify"] = (ms, plain_ms)
+            # reads, lengths and windows in, best and end out; ~25 integer
+            # ops per word per window column of each non-empty lane
+            n_bytes = Q * (Lr + W) * r.element_size() + 3 * 4 * Q
+            n_ops = 25 * nwords * W * int((ln > 0).sum())
+            times["rescue" if Q == RESCUE_LANES else "verify"] = (
+                ms, plain_ms, *bound(n_bytes, n_ops))
+            b = times["rescue" if Q == RESCUE_LANES else "verify"]
             log(f"[6] myers Q={Q} L={Lr} W={W}: kernel {ms:.3f} ms, plain torch "
-                f"{plain_ms:.3f} ms ({card})")
+                f"{plain_ms:.3f} ms, bound {b[2]:.4f} ms by {b[3]} ({card})")
     return max_err, times
 
 
@@ -618,6 +676,213 @@ def phase_paired(torch, dev, codes, card):
     return launches[1]
 
 
+def fused_inputs(torch, sh, M: int, Q: int, gen):
+    """``fused_rank_ring``'s inputs for M payloads of Q (code, coordinate)
+    queries over the whole range of a sharded index on the card, the shard
+    edges, the primary row and the last row among them: (words, codes,
+    roff, base, own) and the queries."""
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    dev = sh.pk_start.device
+    k = torch.randint(0, sh.n + 1, (M, Q), generator=gen, device=dev, dtype=torch.int32)
+    c = torch.randint(0, 4, (M, Q), generator=gen, device=dev, dtype=torch.int32)
+    edges = torch.cat([sh.pk_start, sh.pk_end,
+                       torch.tensor([sh.primary, sh.n], dtype=torch.int32, device=dev)])
+    edges = torch.cat([edges, edges - 1]).clamp(0, sh.n)[:Q]
+    k[:, : edges.numel()] = edges
+    g = [si.local_occ_gather(sh, c[m], k[m]) for m in range(M)]
+    words, roff, base, own = (torch.stack([x[f] for x in g], dim=1).contiguous()
+                              for f in range(4))
+    codes = c[None].expand(sh.n_shards, M, Q).contiguous()
+    return (words, codes, roff, base, own), (c, k)
+
+
+def phase_rings(torch, dev, fm, card):
+    """Both ring kernels against their plain versions on every element;
+    kernel, plain and ``parts.sum(0)`` times at the search's payloads."""
+    from genome_weaver_align_tpu_torch.ops import rank, ring_cuda
+    from genome_weaver_align_tpu_torch.parallel import ring
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    max_err = {"ring": 0, "fused": 0}
+    for S in (1, 2, 3, 4, 8):
+        cases = [(torch.int32, n) for n in (3, 777, 65_536, 4_194_304)] + [(torch.float32, 65_536)]
+        for dtype, n in cases:
+            if dtype == torch.int32:
+                x = torch.randint(-(1 << 30), 1 << 30, (S, n), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            else:
+                x = torch.randn((S, n), generator=gen, device=dev) * 1e4
+            got, want = ring_cuda.ring_allreduce_cuda(x), ring.ring_psum_plain(x)
+            n_bad = int((got != want).sum())
+            err = float((got.double() - want.double()).abs().max())
+            max_err["ring"] = max(max_err["ring"], err)
+            log(f"[9] ring_psum S={S} {str(dtype)[6:]} x {n}: mismatches {n_bad}, max |err| {err}")
+            check(n_bad == 0, f"ring kernel disagrees with plain at S={S} {dtype} n={n}")
+
+    fm_dev = rank.from_host(fm, dev)
+    shards = {}
+    for S, M in ((1, 2), (2, 2), (4, 2), (4, 3), (8, 2)):
+        if S not in shards:
+            shards[S] = si.put_sharded(si.shard_fm_index(fm, S), dev)
+        for Q in (96, 65_536):
+            ins, (c, k) = fused_inputs(torch, shards[S], M, Q, gen)
+            got, want = ring_cuda.fused_rank_ring_cuda(*ins), ring.fused_rank_ring_plain(*ins)
+            occ = rank.occ_codes(fm_dev, c, k)  # the single-device rank
+            n_bad = int((got != want).sum())
+            n_wrong = int((got[0] != occ).sum())
+            err = int((got.long() - want.long()).abs().max())
+            max_err["fused"] = max(max_err["fused"], err)
+            log(f"[9] fused_rank_ring S={S} M={M} Q={Q}: mismatches with plain {n_bad}, with "
+                f"the single-device occ {n_wrong}, max |err| {err}")
+            check(n_bad == 0 and n_wrong == 0, f"fused kernel wrong at S={S} M={M} Q={Q}")
+    ring_cuda.raise_if_failed(dev)
+
+    # the exact search's payloads: ring (2, B / microbatch) per shard,
+    # fused M = microbatch payloads of Q = 2 B / M
+    timing = {}
+    S, n = SHARDS, BATCH // RING_MICROBATCH
+    parts = torch.randint(-(1 << 20), 1 << 20, (S, 2, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts, check=False), reps=200,
+                      hide_host=True)
+    ring_cuda.raise_if_failed(dev)
+    plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(parts), reps=200, hide_host=True)
+    lib_ms = cuda_time_ms(lambda: parts.sum(0, dtype=torch.int32), reps=200, hide_host=True)
+    # each shard's partials in, each shard's sum out; S - 1 adds an element
+    timing["ring"] = (ms, plain_ms, *bound(2 * parts.numel() * 4, (S - 1) * parts.numel()),
+                      lib_ms)
+    ins, _ = fused_inputs(torch, shards[S], RING_MICROBATCH, 2 * BATCH // RING_MICROBATCH, gen)
+    ms = cuda_time_ms(lambda: ring_cuda.fused_rank_ring_cuda(*ins, check=False), reps=200,
+                      hide_host=True)
+    ring_cuda.raise_if_failed(dev)
+    plain_ms = cuda_time_ms(lambda: ring.fused_rank_ring_plain(*ins), reps=50, hide_host=True)
+    # words (32 B), codes, roff, base, own in and the sum out per query and
+    # shard; ~7 integer ops per word for the match count, S - 1 adds
+    n_q = ins[1].numel()
+    timing["fused"] = (ms, plain_ms, *bound(n_q * (32 + 5 * 4), n_q * (8 * 7 + 2 + S - 1)),
+                       None)
+    for name, (t, p, b, by, lib) in timing.items():
+        log(f"[9] {name} at S={S}, payload {tuple(parts.shape) if name == 'ring' else tuple(ins[1].shape)}: "
+            f"kernel {t:.4f} ms, plain torch {p:.4f} ms, parts.sum(0) "
+            f"{'%.4f ms' % lib if lib is not None else 'none'}, bound {b:.4f} ms by {by} ({card})")
+    return max_err, timing
+
+
+def phase_sharded_search(torch, dev, codes, gi, card):
+    """The interval-sharded exact search at full size, three merges."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.models import exact
+    from genome_weaver_align_tpu_torch.ops import rank, ring_cuda
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    rng = np.random.default_rng(41)
+    starts = rng.integers(0, codes.size - L, size=BATCH)
+    reads = codes[starts[:, None] + np.arange(L)[None, :]].astype(np.int32)
+    lengths = np.full(BATCH, L, np.int32)
+    t0 = time.time()
+    layout = pmesh.make_layout(1, SHARDS, dev)
+    sh = si.put_sharded(si.shard_fm_index(gi.fwd, SHARDS), dev)
+    r, ln, _ = pmesh.shard_reads(layout, reads, lengths)
+    torch.cuda.synchronize()
+    log(f"[10] {SHARDS} interval shards of the {gi.fwd.n} bp index on the card in "
+        f"{time.time() - t0:.1f} s")
+
+    fm = rank.from_host(gi.fwd, dev)
+    t0 = time.time()
+    lo, hi = exact.exact_interval_search(fm, r, ln, max_len=L)
+    pos = torch.where(hi > lo, rank.locate(fm, lo.clamp(0, gi.fwd.n)), -1)
+    torch.cuda.synchronize()
+    ref = [lo.cpu(), hi.cpu(), pos.cpu()]
+    log(f"[10] single-device exact search + locate, {BATCH} reads: {time.time() - t0:.3f} s")
+
+    launches, secs = {}, {}
+    for merge, mb in (("psum", 1), ("ring", RING_MICROBATCH), ("fused", RING_MICROBATCH)):
+        fn = si.make_sharded_exact_search(layout, L, sh, merge=merge, microbatch=mb)
+        fn(sh, r[:1024], ln[:1024])  # warm-up: scratch and allocator
+        torch.cuda.synchronize()
+        ring_cuda.ring_allreduce_cuda.launches = 0
+        ring_cuda.fused_rank_ring_cuda.launches = 0
+        t0 = time.time()
+        out = fn(sh, r, ln)
+        torch.cuda.synchronize()
+        secs[merge] = time.time() - t0
+        launches[merge] = (ring_cuda.ring_allreduce_cuda.launches,
+                           ring_cuda.fused_rank_ring_cuda.launches)
+        got = [v.cpu() for v in out]
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"[10] merge={merge} microbatch={mb}: {secs[merge]:.3f} s "
+            f"({BATCH / secs[merge]:.1f} reads/s), (lo, hi, pos) equal to the single-device "
+            f"search: {same}; ring launches {launches[merge][0]}, fused launches "
+            f"{launches[merge][1]} ({card})")
+        check(same, f"merge={merge} differs from the single-device search")
+    lo, hi, pos = ref
+    n_found = int((hi > lo).sum())
+    unique = (hi - lo == 1).numpy()
+    n_placed = int((pos.numpy()[unique] == starts[unique]).sum())
+    log(f"[10] {n_found} of {BATCH} reads found, {int(unique.sum())} unique, {n_placed} of "
+        f"them at their true start")
+    check(n_found == BATCH, "an error-free read was not found")
+    check(n_placed == int(unique.sum()), "a unique read was placed off its true start")
+    check(launches["ring"] == (L * RING_MICROBATCH, 0),
+          f"merge=ring launched {launches['ring']}, expected ({L * RING_MICROBATCH}, 0)")
+    check(launches["fused"] == (0, L), f"merge=fused launched {launches['fused']}, expected (0, {L})")
+    check(launches["psum"] == (0, 0), "merge=psum launched a ring kernel")
+    return launches["ring"][0], launches["fused"][1]
+
+
+def phase_sharded_cli(codes, card):
+    """ShardedAligner through the CLI (--n-interval 4) against the
+    single-device CLI on the same FASTQ, seed table and FM shards."""
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+
+    idx, seedf, _ = build_index(cli, codes)
+    work = CACHE / f"sharded{os.getpid()}"
+    work.mkdir(parents=True)
+    for name, n_reads, extra, seed in (("seed-table", BATCH, ["--seed-table", str(seedf)], 51),
+                                       ("FM", SHARDED_FM_READS, [], 52)):
+        fq = work / "reads.fq"
+        write_reads(fq, codes, n_reads, seed=seed)
+        bodies = {}
+        for n_int in (SHARDS, 1):
+            sam, rep = work / f"out{n_int}.sam", work / f"report{n_int}.json"
+            dp_cuda.banded_edit_distance_cuda.launches = 0
+            rc = cli.main(["align", str(idx), str(fq), "-k", str(K), *extra, "--n-interval",
+                           str(n_int), "--batch-size", str(BATCH), "--report", str(rep),
+                           "-o", str(sam)])
+            launches = dp_cuda.banded_edit_distance_cuda.launches
+            check(rc == 0, f"{name} align --n-interval {n_int} exited {rc}")
+            report = json.loads(rep.read_text())
+            n, mapped, correct = score_sam(sam)
+            with open(sam) as fh:
+                bodies[n_int] = [line for line in fh if line[0] != "@"]
+            log(f"[11] {name} align -k {K} --n-interval {n_int}: {n} reads, mapped "
+                f"{mapped / n:.6f}, correct {correct / n:.6f}, {report['reads_per_s']} reads/s "
+                f"over {report['wall_s']} s ({card}), banded-DP launches {launches}")
+            check(n == n_reads, f"SAM holds {n} records")
+            check(mapped / n >= MIN_MAPPED, f"mapped share {mapped / n:.4f} < {MIN_MAPPED}")
+            check(correct / n >= MIN_CORRECT, f"correct share {correct / n:.4f} < {MIN_CORRECT}")
+            check(launches > 0, f"--n-interval {n_int} never launched the banded DP kernel")
+        same = bodies[SHARDS] == bodies[1]
+        log(f"[11] {name}: the --n-interval {SHARDS} SAM body is byte-identical to the "
+            f"single-device one: {same}")
+        check(same, f"{name}: the sharded SAM differs from the single-device SAM")
+    shutil.rmtree(work)
+
+
+def kernel_row(name, source, replaces, launches, max_err, timing) -> dict:
+    ms, plain_ms, bound_ms, bound_by, library_ms = timing
+    return {"name": name, "route": "cuda", "source": f"genome_weaver_align_tpu_torch/csrc/{source}",
+            "replaces": f"genome_weaver_align_tpu/{replaces}", "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
 
@@ -632,7 +897,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from genome_weaver_align_tpu.utils.simulate import random_genome
+    from genome_weaver_align_tpu_torch.utils.simulate import random_genome
     from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
 
     dev = torch.device("cuda", 0)
@@ -647,9 +912,9 @@ def main() -> int:
         omp = {True: "with OpenMP", False: "without OpenMP", None: "prebuilt, loaded"}[
             native.built_with_openmp]
         log(f"[2] built native/*.cpp with g++ in {time.time() - t0:.1f} s ({omp})")
-        max_err, (ms, plain_ms) = phase_kernel(torch, dev)
-        log(f"[2] k=2, {BATCH * VERIFY_SLACK} lanes: kernel {ms:.3f} ms, plain torch "
-            f"{plain_ms:.3f} ms ({card})")
+        max_err, dp_timing = phase_kernel(torch, dev)
+        log(f"[2] k=2, {BATCH * VERIFY_SLACK} lanes: kernel {dp_timing[0]:.3f} ms, plain torch "
+            f"{dp_timing[1]:.3f} ms, bound {dp_timing[2]:.4f} ms by {dp_timing[3]} ({card})")
         t0 = time.time()
         codes = random_genome(GENOME_LEN, seed=GENOME_SEED)
         offsets, positions = build_seed_table(codes, SEED_J)
@@ -662,29 +927,30 @@ def main() -> int:
         myers_err, myers_times = phase_myers(torch, dev, card)
         phase_fm_cli(codes, card)
         myers_launches = phase_paired(torch, dev, codes, card)
+        from genome_weaver_align_tpu_torch import cli
+        from genome_weaver_align_tpu_torch.index.files import load_index
+
+        gi = load_index(build_index(cli, codes)[0])
+        ring_err, ring_timing = phase_rings(torch, dev, gi.fwd, card)
+        ring_launches, fused_launches = phase_sharded_search(torch, dev, codes, gi, card)
+        del gi
+        phase_sharded_cli(codes, card)
         check("jax" not in sys.modules, "the smoke imported jax")
+        check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
+                      for m in sys.modules), "the smoke imported the JAX package")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(json.dumps({"kernels": [{
-        "name": "banded_dp",
-        "route": "cuda",
-        "source": "genome_weaver_align_tpu_torch/csrc/banded_dp.cu",
-        "replaces": "genome_weaver_align_tpu/ops/dp_pallas.py:47",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "myers",
-        "route": "cuda",
-        "source": "genome_weaver_align_tpu_torch/csrc/myers.cu",
-        "replaces": "genome_weaver_align_tpu/ops/myers_pallas.py:75",
-        "launches": myers_launches,
-        "max_abs_err": myers_err,
-        "ms": myers_times["rescue"][0],
-        "plain_ms": myers_times["rescue"][1],
-    }]}))
+    log(json.dumps({"kernels": [
+        kernel_row("banded_dp", "banded_dp.cu", "ops/dp_pallas.py:47", launches, max_err,
+                   (*dp_timing, None)),
+        kernel_row("myers", "myers.cu", "ops/myers_pallas.py:75", myers_launches, myers_err,
+                   (*myers_times["rescue"], None)),
+        kernel_row("ring_allreduce", "ring.cu", "parallel/ring.py:58", ring_launches,
+                   ring_err["ring"], ring_timing["ring"]),
+        kernel_row("fused_rank_ring", "ring.cu", "parallel/ring.py:162", fused_launches,
+                   ring_err["fused"], ring_timing["fused"]),
+    ]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

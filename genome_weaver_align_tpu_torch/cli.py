@@ -11,9 +11,13 @@ Same verbs, flags and files as ``genome_weaver_align_tpu.cli``:
 ``align`` runs the k-edit pipeline (``--mode auto|pigeonhole`` with k > 0):
 candidates from the seed table when one is given and its j fits the read
 pieces, else from the FM index (optionally with a ``--kmer-table``); FASTQ
-or FASTA reads, single-end, ``--paired`` or ``--interleaved``; on the CUDA
-device when there is one and on the CPU otherwise.  The modes and flags
-whose paths are not ported yet exit with code 2 and say so.
+or FASTA reads, single-end, ``--paired`` or ``--interleaved``.  With
+``--n-interval N`` (N > 1) it runs ``ShardedAligner``: the index, the text
+and the seed table split into N interval shards on the one device.  It runs
+on the CUDA device (``--device cuda``, the default) and exits non-zero when
+there is none; ``--device cpu`` runs the plain torch versions on the CPU.
+The modes and flags whose paths are not ported yet exit with code 2 and say
+so.
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ def _not_ported(what: str) -> int:
 
 
 def _cmd_index(args) -> int:
-    from genome_weaver_align_tpu.utils.config import IndexConfig
-    from genome_weaver_align_tpu.utils.fasta import read_fasta
-    from genome_weaver_align_tpu.utils.log import StopWatch
+    from genome_weaver_align_tpu_torch.utils.config import IndexConfig
+    from genome_weaver_align_tpu_torch.utils.fasta import read_fasta
+    from genome_weaver_align_tpu_torch.utils.log import StopWatch
 
     from .index.build import build_fm_index
     from .index.files import Genome, GenomeIndex, save_index
@@ -95,8 +99,8 @@ def _unported_align_feature(args, cfg) -> str | None:
         mode = "exact" if cfg.k == 0 else "pigeonhole"
     if mode != "pigeonhole" or cfg.k <= 0:
         return f"align --mode {mode} -k {cfg.k}"
-    if cfg.n_interval > 1:
-        return "align --n-interval > 1"
+    if cfg.n_interval > 1 and (args.paired or args.interleaved or cfg.kmer_table):
+        return "align --n-interval > 1 with --paired, --interleaved or --kmer-table"
     if args.profile:
         return "align --profile"
     return None
@@ -105,8 +109,8 @@ def _unported_align_feature(args, cfg) -> str | None:
 def _cmd_align(args) -> int:
     import torch
 
-    from genome_weaver_align_tpu.utils.config import AlignConfig
-    from genome_weaver_align_tpu.utils.log import StopWatch
+    from genome_weaver_align_tpu_torch.utils.config import AlignConfig
+    from genome_weaver_align_tpu_torch.utils.log import StopWatch
 
     from .index.files import load_index
     from .models.pipeline import SuffixFilterAligner
@@ -115,8 +119,14 @@ def _cmd_align(args) -> int:
     missing = _unported_align_feature(args, cfg)
     if missing:
         return _not_ported(missing)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.stderr.write(
+            "gwa-torch: --device cuda was asked for (the default) but no CUDA "
+            "device is available; pass --device cpu to run on the CPU\n"
+        )
+        return 1
     sw = StopWatch()
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     gi = load_index(cfg.index)
     sw.lap(f"loaded index ({gi.genome.n} bp)")
     tables = {}
@@ -131,6 +141,17 @@ def _cmd_align(args) -> int:
         offsets, positions, sj = load_seed_table(cfg.seed_table)
         tables.update(seed_table=(offsets, positions), seed_j=sj)
         sw.lap(f"loaded {sj}-mer seed table")
+    if cfg.n_interval > 1:
+        from .parallel.sharded_pipeline import ShardedAligner
+
+        # the JAX CLI builds it with its default hit budget, not the flag's
+        aligner = ShardedAligner(
+            gi, k=cfg.k, n_interval=cfg.n_interval,
+            seed_table=tables.get("seed_table"), seed_j=tables.get("seed_j", 0),
+            device=device,
+        )
+        sw.lap(f"uploaded {cfg.n_interval} interval shards to {device}")
+        return _align_read_list(args, cfg, aligner, sw)
     aligner = SuffixFilterAligner(
         gi, k=cfg.k, max_hits_per_piece=cfg.max_hits_per_piece, device=device, **tables
     )
@@ -148,8 +169,8 @@ def _align_read_list(args, cfg, aligner, sw) -> int:
     ``--interleaved``): all reads are loaded, aligned batch by batch
     (single-end batches pipelined: submit N+1 before finishing N) and the
     SAM is written at the end, as the JAX CLI's list path does."""
-    from genome_weaver_align_tpu.utils.fasta import iter_reads
-    from genome_weaver_align_tpu.utils.sam import write_sam
+    from genome_weaver_align_tpu_torch.utils.fasta import iter_reads
+    from genome_weaver_align_tpu_torch.utils.sam import write_sam
 
     from .models.paired import PairedAligner
 
@@ -258,7 +279,7 @@ def _align_array_stream(args, aligner, sw) -> int:
     Two-phase (submit N+1 before finish N) so host parsing/SAM assembly
     overlaps device compute; at most two batches are in flight and SAM is
     emitted incrementally."""
-    from genome_weaver_align_tpu.utils.fasta import iter_fastq_array_batches
+    from genome_weaver_align_tpu_torch.utils.fasta import iter_fastq_array_batches
 
     from .models.pipeline import prefetch_result
 
@@ -332,8 +353,8 @@ def _align_array_stream(args, aligner, sw) -> int:
 
 
 def _cmd_simulate(args) -> int:
-    from genome_weaver_align_tpu.utils.fasta import read_fasta, write_fastq
-    from genome_weaver_align_tpu.utils.simulate import simulate_reads
+    from genome_weaver_align_tpu_torch.utils.fasta import read_fasta, write_fastq
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads
 
     from .index.files import Genome
 
@@ -356,7 +377,7 @@ def _cmd_simulate(args) -> int:
 def main(argv=None) -> int:
     # argparse defaults come from the shared config dataclasses, as in the
     # JAX package's CLI
-    from genome_weaver_align_tpu.utils.config import AlignConfig, IndexConfig
+    from genome_weaver_align_tpu_torch.utils.config import AlignConfig, IndexConfig
 
     icfg, acfg = IndexConfig(), AlignConfig()
     p = argparse.ArgumentParser(prog="gwa-torch", description=__doc__,
@@ -406,7 +427,9 @@ def main(argv=None) -> int:
     pa.add_argument("--resume", action="store_true", help="resume from .progress")
     pa.add_argument("--profile", help="(not yet ported)")
     pa.add_argument("--n-interval", type=int, default=acfg.n_interval,
-                    help="(values > 1 are not yet ported)")
+                    help="interval shards of the index (ShardedAligner when > 1)")
+    pa.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="run on the CUDA device (default; fails without one) or the CPU")
     pa.set_defaults(fn=_cmd_align)
 
     ps = sub.add_parser("simulate", help="simulate reads from a genome")

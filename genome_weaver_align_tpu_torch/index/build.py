@@ -29,9 +29,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from genome_weaver_align_tpu.utils import packing
-from genome_weaver_align_tpu.utils.bitvector import BitVector
-from genome_weaver_align_tpu.utils.packing import (
+from genome_weaver_align_tpu_torch.utils import packing
+from genome_weaver_align_tpu_torch.utils.bitvector import BitVector
+from genome_weaver_align_tpu_torch.utils.packing import (
     BASES_PER_WORD,
     match_mask_word,
     popcount32,

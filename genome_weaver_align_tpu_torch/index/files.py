@@ -13,9 +13,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from genome_weaver_align_tpu.utils import dna
-from genome_weaver_align_tpu.utils.bitvector import BitVector
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align_tpu_torch.utils import dna
+from genome_weaver_align_tpu_torch.utils.bitvector import BitVector
+from genome_weaver_align_tpu_torch.utils.fasta import Contig
 from .build import FMIndexData, build_fm_index
 
 

@@ -25,8 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from genome_weaver_align_tpu.utils import dna, sam
-from genome_weaver_align_tpu.utils.fasta import Read
+from genome_weaver_align_tpu_torch.utils import dna, sam
+from genome_weaver_align_tpu_torch.utils.fasta import Read
 
 from ..ops import affine, myers, window
 from .pipeline import (

@@ -17,7 +17,8 @@ does.
 
 Not ported yet: the tier-2 staircase (reads tier 2 would take stay
 overflow-flagged and are counted in ``last_stats["n_staircase_pending"]``),
-and the exact, one-mismatch, long-read and multi-device aligners.
+and the exact, one-mismatch and long-read aligners.  The interval-sharded
+aligner is ``parallel.sharded_pipeline.ShardedAligner``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from genome_weaver_align_tpu.utils import dna, sam
-from genome_weaver_align_tpu.utils.fasta import Read
+from genome_weaver_align_tpu_torch.utils import dna, sam
+from genome_weaver_align_tpu_torch.utils.fasta import Read
 
 from ..ops import affine
 from ..ops import dp as dp_ops
@@ -195,7 +196,7 @@ class SuffixFilterAligner:
         scored: bool = True,  # emit indel CIGARs/POS/NM/AS from the scored
         # affine-gap aligner (ops.affine); selection stays edit-based
         seed_probes: int = suffix_filter.SEED_PROBES,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",  # the CPU only when asked for
     ):
         self.gi = gi
         self.k = k

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from genome_weaver_align_tpu.utils.larray import check_device_indexable
+from genome_weaver_align_tpu_torch.utils.larray import check_device_indexable
 
 from ..index.build import BLOCK_BASES, WORDS_PER_BLOCK, FMIndexData
 

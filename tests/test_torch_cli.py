@@ -15,9 +15,14 @@ from genome_weaver_align_tpu.index import native as j_native
 from genome_weaver_align_tpu.ops import affine as j_affine
 from genome_weaver_align_tpu.utils.fasta import Contig, Read, write_fasta, write_fastq
 from genome_weaver_align_tpu.utils.simulate import simulate_pairs
-from genome_weaver_align_tpu_torch.cli import main
+from genome_weaver_align_tpu_torch.cli import main as port_main
 
 J = 10
+
+
+def main(argv):
+    """The port's CLI, its ``align`` on the CPU (the default is the card)."""
+    return port_main([*argv, "--device", "cpu"] if argv[0] == "align" else argv)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -150,9 +155,26 @@ def test_cli_interleaved_identical_to_jax(files):
 
 @pytest.mark.parametrize("extra", [
     ["--mode", "exact"], ["--mode", "staircase"], ["--mode", "long"], ["-k", "0"],
-    ["--n-interval", "2"], ["--profile", "prof"],
+    ["--mode", "onemm"], ["--profile", "prof"],
 ])
 def test_cli_unported_modes_exit_2(files, capsys, extra):
     assert _align(main, files, "never.sam", *extra) == 2
     assert "not yet ported" in capsys.readouterr().err
+    assert not (files / "never.sam").exists()
+
+
+@pytest.mark.parametrize("extra", [["--paired", "p2.fq"], ["--interleaved"], ["--kmer-table", "k.npz"]])
+def test_cli_n_interval_unported_modes_exit_2(files, capsys, extra):
+    extra = [str(files / e) if e.endswith(("fq", "npz")) else e for e in extra]
+    assert _align(main, files, "never.sam", "--n-interval", "2", *extra) == 2
+    assert "not yet ported" in capsys.readouterr().err
+    assert not (files / "never.sam").exists()
+
+
+def test_cli_without_gpu_names_the_missing_device(files, capsys, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _align(port_main, files, "never.sam") != 0
+    assert "no CUDA device" in capsys.readouterr().err
     assert not (files / "never.sam").exists()

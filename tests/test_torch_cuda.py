@@ -3,21 +3,24 @@ without one).  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-They import no JAX: they hold each CUDA kernel (banded DP, Myers) against
-its plain torch version, and the aligners on the card against the same
-aligners on the CPU, which the CPU tests hold against the JAX package."""
+They import no JAX: they hold each CUDA kernel (banded DP, Myers, the two
+ring merges) against its plain torch version, and the aligners and the
+sharded search on the card against the same code on the CPU, which the CPU
+tests hold against the JAX package."""
 
 import numpy as np
 import pytest
 import torch
 
-from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
+from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 from genome_weaver_align_tpu_torch.index.build import build_fm_index
 from genome_weaver_align_tpu_torch.index.files import Genome, GenomeIndex
 from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
 from genome_weaver_align_tpu_torch.models import paired, pipeline
-from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda, ring_cuda
+from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+from genome_weaver_align_tpu_torch.parallel import ring, sharded_index, sharded_pipeline
+from genome_weaver_align_tpu_torch.utils.fasta import Contig
 
 pytestmark = pytest.mark.cuda
 
@@ -88,7 +91,7 @@ def test_aligner_on_card_equals_cpu(cuda):
     ragged = rng.integers(40, 101, size=2000).astype(np.int32)
     for kw in ({}, {"max_hits_per_piece": 2}):
         on_card = pipeline.SuffixFilterAligner(gi, seed_table=tab, seed_j=10, device=cuda, **kw)
-        on_cpu = pipeline.SuffixFilterAligner(gi, seed_table=tab, seed_j=10, **kw)
+        on_cpu = pipeline.SuffixFilterAligner(gi, seed_table=tab, seed_j=10, device="cpu", **kw)
         for lens in (lengths, ragged):
             before = dp_cuda.banded_edit_distance_cuda.launches
             h = on_card.align_arrays_submit(reads, lens)
@@ -186,3 +189,136 @@ def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
     assert sum(ph.rescued != 0 for ph in got) >= n // 10
     assert [(a.h1, a.h2, a.proper, a.rescued) for a in got] == \
         [(b.h1, b.h2, b.proper, b.rescued) for b in want]
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+def test_ring_allreduce_equals_plain(cuda, S):
+    rng = np.random.default_rng(S)
+    for n in (3, 777, 65_536, 4_194_304):
+        x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, size=(S, n), dtype=np.int32)).to(cuda)
+        before = ring_cuda.ring_allreduce_cuda.launches
+        got = ring_cuda.ring_allreduce_cuda(x)
+        assert ring_cuda.ring_allreduce_cuda.launches == before + 1
+        assert torch.equal(got, ring.ring_psum_plain(x)), n  # int32 wraps alike
+    xf = torch.from_numpy(rng.standard_normal((S, 4, 16_384)).astype(np.float32) * 1e4).to(cuda)
+    got = ring_cuda.ring_allreduce_cuda(xf)
+    assert torch.equal(got, ring.ring_psum_plain(xf))  # the same order: bit-equal
+    # the dispatcher sends CUDA tensors to the kernel
+    before = ring_cuda.ring_allreduce_cuda.launches
+    ring.ring_psum(xf)
+    assert ring_cuda.ring_allreduce_cuda.launches == before + 1
+
+
+def test_ring_rejects_what_it_cannot_take(cuda):
+    for dtype in (torch.int64, torch.float16, torch.int8):
+        with pytest.raises(TypeError, match="int32 or float32"):
+            ring_cuda.ring_allreduce_cuda(torch.zeros((2, 8), dtype=dtype, device=cuda))
+        with pytest.raises(TypeError, match="int32 or float32"):
+            ring.ring_psum(torch.zeros((2, 8), dtype=dtype, device=cuda))
+    with pytest.raises(ValueError, match="shards"):
+        ring_cuda.ring_allreduce_cuda(torch.zeros((17, 8), dtype=torch.int32, device=cuda))
+    z = torch.zeros((2, 9, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="M=9"):
+        ring_cuda.fused_rank_ring_cuda(torch.zeros((2, 9, 5, 8), dtype=torch.int32, device=cuda),
+                                       z, z, z, z)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_stuck_ring_raises_instead_of_hanging(cuda, fused):
+    """Shard 1's blocks return at once: its neighbours wait ~1 s, set the
+    error word and return; the wrapper raises, and the next launch works."""
+    import time
+
+    x = torch.ones((3, 4096), dtype=torch.int32, device=cuda)
+    w = torch.zeros((3, 2, 4096, 8), dtype=torch.int32, device=cuda)
+    t0 = time.time()
+    with pytest.raises(RuntimeError, match="stuck"):
+        if fused:
+            z = torch.zeros((3, 2, 4096), dtype=torch.int32, device=cuda)
+            ring_cuda.fused_rank_ring_cuda(w, z, z, z + 1, z + 1, stall_shard=1)
+        else:
+            ring_cuda.ring_allreduce_cuda(x, stall_shard=1)
+    assert time.time() - t0 < 30
+    assert torch.equal(ring_cuda.ring_allreduce_cuda(x), torch.full_like(x, 3))
+
+
+def _sharded_rows(fm, S, M, Q, seed):
+    """Fused-kernel inputs gathered from a real sharded index: Q query
+    coordinates over the whole range (the primary row and the shard edges
+    included) per payload."""
+    rng = np.random.default_rng(seed)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, S), "cpu")
+    edges = np.concatenate([sh.pk_start.numpy(), sh.pk_end.numpy(), [fm.primary, fm.n]])
+    k = rng.integers(0, fm.n + 1, size=(M, Q)).astype(np.int32)
+    k[:, : min(Q, 2 * edges.size)] = np.clip(
+        np.concatenate([edges, edges - 1])[: min(Q, 2 * edges.size)], 0, fm.n)
+    c = rng.integers(0, 4, size=(M, Q)).astype(np.int32)
+    g = [sharded_index.local_occ_gather(sh, torch.from_numpy(c[m]), torch.from_numpy(k[m]))
+         for m in range(M)]
+    words, roff, base, own = (torch.stack([x[f] for x in g], dim=1) for f in range(4))
+    codes = torch.from_numpy(c)[None].expand(S, M, Q).contiguous()
+    return words, codes, roff, base, own, (c, k)
+
+
+@pytest.mark.parametrize("S,M", [(1, 2), (2, 2), (4, 2), (4, 3), (8, 2)])
+def test_fused_rank_ring_equals_plain(cuda, S, M):
+    rng = np.random.default_rng(S * 10 + M)
+    fm = build_fm_index(rng.integers(0, 4, size=200_000, dtype=np.uint8), sample_rate=8)
+    for Q in (96, 65_536):
+        ins = _sharded_rows(fm, S, M, Q, Q + S)
+        plain = ring.fused_rank_ring_plain(*ins[:5])
+        before = ring_cuda.fused_rank_ring_cuda.launches
+        got = ring_cuda.fused_rank_ring_cuda(*(t.to(cuda) for t in ins[:5]))
+        assert ring_cuda.fused_rank_ring_cuda.launches == before + 1
+        assert torch.equal(got.cpu(), plain), Q
+        c, k = ins[5]
+        for m in range(M):
+            want = np.array([fm.occ(int(cc), int(kk)) for cc, kk in zip(c[m, :50], k[m, :50])])
+            assert np.array_equal(got[0, m, :50].cpu().numpy(), want.reshape(-1))
+
+
+def test_sharded_search_and_aligner_on_card_equal_cpu(cuda):
+    """All three merges of the sharded exact search, and ShardedAligner on
+    both candidate paths, on the card against the CPU."""
+    rng = np.random.default_rng(21)
+    codes = rng.integers(0, 4, size=120_000, dtype=np.uint8)
+    genome = Genome.from_contigs([Contig("c", codes)])
+    gi = GenomeIndex(genome, build_fm_index(genome.codes, sample_rate=8), None)
+    B, L = 1000, 60
+    starts = rng.integers(0, codes.size - L, size=B)
+    reads = codes[starts[:, None] + np.arange(L)].astype(np.int32)
+    reads[::9, 5] = (reads[::9, 5] + 1) % 4
+    lengths = np.full(B, L, np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        layout = pmesh.make_layout(1, 4, dev)
+        sh = sharded_index.put_sharded(sharded_index.shard_fm_index(gi.fwd, 4), dev)
+        r, l, _ = pmesh.shard_reads(layout, reads, lengths)
+        for merge in ("psum", "ring", "fused"):
+            before = (ring_cuda.ring_allreduce_cuda.launches, ring_cuda.fused_rank_ring_cuda.launches)
+            fn = sharded_index.make_sharded_exact_search(layout, L, sh, merge=merge, microbatch=2)
+            out[dev.type, merge] = [v.cpu() for v in fn(sh, r, l)]
+            after = (ring_cuda.ring_allreduce_cuda.launches, ring_cuda.fused_rank_ring_cuda.launches)
+            if dev.type == "cuda":
+                assert after[0] - before[0] == (2 * L if merge == "ring" else 0)
+                assert after[1] - before[1] == (L if merge == "fused" else 0)
+    for key, val in out.items():
+        assert all(torch.equal(a, b) for a, b in zip(val, out["cpu", "psum"])), key
+    lo, hi, pos = out["cpu", "psum"]
+    one = (hi - lo == 1).numpy()
+    assert one.sum() > B // 2 and np.array_equal(pos.numpy()[one], starts[one])
+
+    sims = simulate_reads_array(codes, 600, 100, seed=4, max_subs=2, indel_frac=0.1)[0]
+    from genome_weaver_align_tpu_torch.utils.fasta import Read
+
+    reads = [Read(f"r{i}", s.astype(np.uint8)) for i, s in enumerate(sims)]
+    tab = build_seed_table(genome.codes, 10)
+    for kw in ({}, {"seed_table": tab, "seed_j": 10}):
+        hits = []
+        for dev in (cuda, torch.device("cpu")):
+            al = sharded_pipeline.ShardedAligner(gi, k=2, n_interval=4, device=dev, **kw)
+            before = dp_cuda.banded_edit_distance_cuda.launches
+            hits.append([r.line() for r in al.to_sam(reads, al.align_batch(reads))])
+            if dev.type == "cuda":
+                assert dp_cuda.banded_edit_distance_cuda.launches > before
+        assert hits[0] == hits[1]

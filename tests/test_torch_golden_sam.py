@@ -72,7 +72,7 @@ def test_jax_sends_no_golden_read_to_tier2(golden_inputs):
 
 def test_port_reproduces_golden_sam(golden_inputs):
     gi, reads, pairs = golden_inputs
-    al = SuffixFilterAligner(gi, k=4)
+    al = SuffixFilterAligner(gi, k=4, device="cpu")
     lines = [al.sam_header()]
     lines += [r.line() for r in al.to_sam(reads, al.align_batch(reads))]
     assert al.last_stats["n_staircase_pending"] == 0

@@ -1,7 +1,8 @@
-"""The PyTorch port imports and runs with JAX absent, and its CUDA kernels
-have no silent fallback."""
+"""The PyTorch port imports and runs with JAX and the JAX package absent,
+its source imports neither, and its CUDA kernels have no silent fallback."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -17,23 +18,32 @@ PKG = ROOT / "genome_weaver_align_tpu_torch"
 _NO_JAX_DRIVE = r"""
 import sys
 sys.modules["jax"] = None  # any "import jax" now raises ImportError
+sys.modules["genome_weaver_align_tpu"] = None  # and so does the JAX package
 import numpy as np
 import genome_weaver_align_tpu_torch
 from genome_weaver_align_tpu_torch import cli
 from genome_weaver_align_tpu_torch.index import build, files, kmer, native, sais, seedtable
 from genome_weaver_align_tpu_torch.models import paired, pipeline, suffix_filter
-from genome_weaver_align_tpu_torch.ops import affine, dp, dp_cuda, myers, myers_cuda, rank, window
-from genome_weaver_align_tpu.utils.fasta import Contig, write_fasta
+from genome_weaver_align_tpu_torch.models import exact
+from genome_weaver_align_tpu_torch.ops import (
+    affine, dp, dp_cuda, myers, myers_cuda, rank, ring_cuda, window,
+)
+from genome_weaver_align_tpu_torch.parallel import (
+    mesh, multihost, ring, sharded_index, sharded_pipeline,
+)
+from genome_weaver_align_tpu_torch.utils.fasta import Contig, write_fasta
 
 rng = np.random.default_rng(0)
 write_fasta("g.fa", [Contig("c", rng.integers(0, 4, size=8000, dtype=np.uint8))])
 assert cli.main(["index", "g.fa", "-o", "g.npz", "--seed", "8"]) == 0
 assert cli.main(["simulate", "g.fa", "-o", "r.fq", "-n", "40", "-l", "60"]) == 0
-assert cli.main(["align", "g.npz", "r.fq", "-k", "2", "-o", "out.sam",
-                 "--seed-table", "g.npz.seed8.npz"]) == 0
-assert cli.main(["align", "g.npz", "r.fq", "-k", "2", "-o", "fm.sam"]) == 0
-assert cli.main(["align", "g.npz", "r.fq", "-k", "2", "-o", "pairs.sam", "--interleaved"]) == 0
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m])
+align = ["align", "g.npz", "r.fq", "-k", "2", "--device", "cpu", "-o"]
+assert cli.main([*align, "out.sam", "--seed-table", "g.npz.seed8.npz"]) == 0
+assert cli.main([*align, "fm.sam"]) == 0
+assert cli.main([*align, "pairs.sam", "--interleaved"]) == 0
+assert cli.main([*align, "sharded.sam", "--n-interval", "2"]) == 0
+assert not any(m == "jax" or m.startswith(("jax.", "genome_weaver_align_tpu."))
+               for m in sys.modules if sys.modules[m])
 print("NO_JAX_OK")
 """
 
@@ -46,17 +56,35 @@ def test_port_runs_with_jax_absent(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
-    for name in ("out.sam", "fm.sam", "pairs.sam"):
+    for name in ("out.sam", "fm.sam", "pairs.sam", "sharded.sam"):
         body = [l for l in (tmp_path / name).read_text().splitlines() if l[0] != "@"]
         assert len(body) == 40, name
+    sam = [(tmp_path / n).read_text().splitlines() for n in ("fm.sam", "sharded.sam")]
+    assert [l for l in sam[0] if l[0] != "@"] == [l for l in sam[1] if l[0] != "@"]
 
 
 def test_port_source_never_imports_jax():
     offenders = [
         str(p.relative_to(ROOT))
-        for p in PKG.rglob("*.py")
+        for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
         for line in p.read_text().splitlines()
         if line.strip().startswith(("import jax", "from jax"))
+    ]
+    assert offenders == []
+
+
+_JAX_PACKAGE_IMPORT = re.compile(r"^\s*(import|from)\s+genome_weaver_align_tpu(?!_torch)\b")
+
+
+def test_port_source_never_imports_the_jax_package():
+    """No module of the port, and not ``chip_smoke.py``, imports the JAX
+    package, not even its host-only modules: the port carries its own
+    copies (``genome_weaver_align_tpu_torch/utils``)."""
+    offenders = [
+        f"{p.relative_to(ROOT)}:{i}"
+        for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if _JAX_PACKAGE_IMPORT.match(line)
     ]
     assert offenders == []
 

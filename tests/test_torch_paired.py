@@ -75,7 +75,7 @@ def test_paired_matches_jax(data, path, inserts):
         kw.update(seed_table=tab, seed_j=J, max_cands=12, verify_slack=4)
     ins = dict(min_insert=inserts[0], max_insert=inserts[1]) if inserts else {}
     jpa = j_paired.PairedAligner(j_pipeline.SuffixFilterAligner(gi, **kw), **ins)
-    ppa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, **kw), **ins)
+    ppa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, device="cpu", **kw), **ins)
     lengths = np.full(N_PAIRS, L, np.int32)
     want = jpa.align_pair_arrays(c1, lengths, c2, lengths)
     got = ppa.align_pair_arrays(c1, lengths, c2, lengths)
@@ -98,7 +98,7 @@ def test_align_pairs_list_api_and_half_mapped(data):
     mixed = pairs[:40] + [(pairs[i][0], Read("junk", rng.integers(0, 4, size=L, dtype=np.uint8)))
                           for i in range(40, 48)]
     jpa = j_paired.PairedAligner(j_pipeline.SuffixFilterAligner(gi, k=2))
-    ppa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, k=2))
+    ppa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, k=2, device="cpu"))
     want = [r.line() for r in jpa.to_sam(mixed, jpa.align_pairs(mixed))]
     got_hits = ppa.align_pairs(mixed)
     assert [r.line() for r in ppa.to_sam(mixed, got_hits)] == want

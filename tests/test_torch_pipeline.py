@@ -217,7 +217,7 @@ def test_list_api_and_to_sam(random_gi):
     reads.append(Read("junk", rng.integers(0, 4, size=80, dtype=np.uint8)))
     reads.append(Read("short", reads[0].codes[:50].copy()))
     jal = j_pipeline.SuffixFilterAligner(gi, k=3)
-    pal = pipeline.SuffixFilterAligner(gi, k=3)
+    pal = pipeline.SuffixFilterAligner(gi, k=3, device="cpu")
     want = [r.line() for r in jal.to_sam(reads, jal.align_batch(reads))]
     got = [r.line() for r in pal.to_sam(reads, pal.align_batch(reads))]
     assert got == want
