@@ -8,12 +8,18 @@ per line, and exits non-zero at the first phase that fails:
 
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA
    versions;
-2. the host C++ library (``native/*.cpp``) and the banded-DP CUDA kernel
-   (``csrc/banded_dp.cu``) are built from the checkout; the kernel is held
-   against the plain torch version on the card, k = 1..4, at the main
-   path's verify shape (65,536 reads x 6 lanes, L = 100),
-   ragged lengths and dead lanes included: dist and end_b must be equal on
-   every lane.  Both are timed at k = 2;
+2. the host C++ library (``native/*.cpp``) and the CUDA kernels are built
+   from the checkout.  The banded DP's text entry (window gathered from the
+   2-bit text in the kernel) is held against its plain version on the card
+   at the main path's verify shape (65,536 reads x 6 lanes, L = 100, on a
+   chr20-scale random text), k = 1..8, with starts off both text ends and
+   next to word boundaries, ragged and 0-length reads, N codes, and a
+   narrow window with dead lanes; the windows entry is held against the
+   plain DP at k = 1..4 on random windows.  dist and end_b must be equal on
+   every lane.  At k = 2 the text entry, the stage it replaces
+   (``gather_windows`` + ``reads[rid]`` + the windows entry), the windows
+   entry alone and the plain version are timed, and the SASS of the text
+   kernel's unrolled row loop is counted per band cell (``cuobjdump``);
 3. one fused align step on a 65,536-read batch, with the kernel and with
    the plain DP, both on the card: the packed results must be identical;
 4. end to end through the port's CLI on a chr20-scale random genome
@@ -45,8 +51,9 @@ per line, and exits non-zero at the first phase that fails:
    pairs/s, the phase split, and >= 5% of pairs rescued;
 9. the two ring kernels (``csrc/ring.cu``, built beside the others in
    phase 2) held against their plain torch versions on every element:
-   ``ring_psum`` over S = 1, 2, 3, 4, 8 shards (int32 at 3, 777, 65,536 and
-   4,194,304 elements a shard, float32 at 65,536), ``fused_rank_ring`` at
+   the one-pass ``ring_psum`` over S = 1, 2, 3, 4, 8, 16 shards (int32 at
+   3, 777, 65,536 and 4,194,304 elements a shard, float32 at 777 and
+   65,536, bit for bit), ``fused_rank_ring`` at
    (S, M) = (1,2), (2,2), (4,2), (4,3), (8,2), Q = 96 and 65,536, on rows
    gathered from the phase-4 index split into S interval shards; then the
    kernels, their plain versions and ``parts.sum(0)`` timed at the exact
@@ -69,7 +76,9 @@ Each path's kernel launch counts are set to 0 just before it runs and read
 just after.  The last lines are a JSON summary of the kernels (each with
 its time, its plain version's, a bound from its inputs' bytes and
 operations, and the time of one PyTorch call that computes the same
-function where there is one), the card's name and power limit as
+function where there is one; integer work is priced at the card's int32
+issue rate, 64 a clock on each SM at the maximum SM clock), the card's
+name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script fails and prints no result.  It imports nothing of
 JAX.
@@ -110,11 +119,19 @@ SHARDS = 4  # interval shards of phases 10-11
 RING_MICROBATCH = 2
 SHARDED_FM_READS = 16_384
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
-# bytes/s, and the float32 rate outside the tensor cores, taken here for
-# the kernels' integer ALU work as well (int32 issues at no more than it,
-# so the bound stays a least time).
+# bytes/s and the float32 rate outside the tensor cores.  Integer work is
+# priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
+# read from the card in main() (H100 SXM: 132 x 64 x 1.98 GHz = 16.7e12/s).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_FLOAT_OPS_PER_S = 67e12
+INT32_PER_CLOCK_PER_SM = 64
+INT_OPS_PER_S = None  # set in main()
+# Least integer instructions per unit of work, as each kernel's source note
+# derives them: a banded-DP band cell; a Myers step per read word and per
+# step; a fused-rank word.
+DP_OPS_PER_CELL = 4
+MYERS_OPS_PER_WORD, MYERS_OPS_PER_STEP = 11, 5
+RANK_OPS_PER_WORD = 7
 
 
 class SmokeFailure(Exception):
@@ -159,11 +176,24 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2, hide_host: bool = False) -> flo
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def int_ops_per_s(torch) -> float:
+    """The card's int32 issue rate: SMs x 64 a clock x the maximum SM clock."""
+    res = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def bound(n_bytes: float, int_ops: float, float_ops: float = 0.0) -> tuple[float, str]:
     """(least ms, what sets it): the bytes the function must move (each
     input read once, each output written once) over the memory rate, or
-    its operations over the peak rate, whichever is longer."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
+    its integer and float operations over their peak rates, whichever is
+    longer."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (int_ops / INT_OPS_PER_S + float_ops / PEAK_FLOAT_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -188,12 +218,107 @@ def dp_inputs(k: int, Q: int, W: int, seed: int):
     return reads, lengths, windows
 
 
-def phase_kernel(torch, dev):
-    """Build all kernels, compare the banded DP with its plain version,
-    time both; the bound at the timed shape."""
+def random_text(torch, dev, n: int, seed: int):
+    """A random genome of n bases made on the card: (codes (n,) int8, the
+    packed text (ceil(n / 16),) int32, 16 bases a word as ``utils.packing``
+    lays them out)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    nw = -(-n // 16)
+    codes = torch.randint(0, 4, (nw * 16,), generator=gen, device=dev, dtype=torch.int64)
+    codes[n:] = 0
+    words = (codes.view(nw, 16) << (2 * torch.arange(16, device=dev))).sum(1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    return codes[:n].to(torch.int8), words
+
+
+def text_lanes(torch, codes, k: int, W: int, gen):
+    """The verify stage's lanes on a text: BATCH reads of L, VERIFY_SLACK
+    lanes a read with rid not decreasing and the last 1% of lanes on read 0
+    (as ``compact_lanes`` leaves unused lanes).  Each read's first lane
+    starts k before the read's true locus (the read copied from the text
+    with up to k substitutions; N codes in 1% of reads), the other lanes at
+    random starts, the first lanes off both text ends and next to word
+    boundaries.  Ragged lengths, 1% zero.  -> (starts, reads, lengths,
+    rid)."""
+    dev = codes.device
+    n = codes.numel()
+    B, Q = BATCH, BATCH * VERIFY_SLACK
+    rid = torch.div(torch.arange(Q, device=dev), VERIFY_SLACK, rounding_mode="floor")
+    rid[-Q // 100:] = 0
+    rid = rid.to(torch.int32)
+    starts = torch.randint(-W, n + 5, (Q,), generator=gen, device=dev, dtype=torch.int32)
+    locus = torch.randint(0, n - L, (B,), generator=gen, device=dev)
+    starts[::VERIFY_SLACK] = (locus - k).to(torch.int32)
+    edges = [-W - 7, -k - 1, -1, 0, 15, 16, 17, 31, 32, n - W - 1, n - W, n - W + 3, n - 1, n,
+             n + 20]
+    starts[: len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    reads = codes[locus[:, None] + torch.arange(L, device=dev)[None, :]]
+    rows = torch.arange(B, device=dev)
+    for _ in range(k):
+        at = torch.randint(0, L, (B,), generator=gen, device=dev)
+        bump = torch.randint(1, 4, (B,), generator=gen, device=dev, dtype=torch.int8)
+        reads[rows, at] = (reads[rows, at] + bump) % 4
+    n_rows = torch.rand(B, generator=gen, device=dev) < 0.01
+    reads[n_rows, torch.randint(0, L, (B,), generator=gen, device=dev)[n_rows]] = 4
+    lengths = torch.where(torch.rand(B, generator=gen, device=dev) < 0.7, L,
+                          torch.randint(0, L + 1, (B,), generator=gen, device=dev))
+    lengths[torch.rand(B, generator=gen, device=dev) < 0.01] = 0
+    return starts, reads.contiguous(), lengths.to(torch.int32), rid
+
+
+def sass_per_cell(lib, tag: str) -> str:
+    """Count the SASS of the loop with the most DPX ``VIADDMNMX`` (one a
+    band cell) in the kernel whose mangled name holds ``tag``: instructions
+    a cell and the loop's opcodes.  The kernel's whole SASS goes to
+    ``smoke_cache/``."""
+    import re
+    from collections import Counter
+
+    from genome_weaver_align_tpu_torch.ops._cuda_build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return f"not measured (no {tool})"
+    res = subprocess.run([str(tool), "-sass", lib._name], capture_output=True, text=True,
+                         timeout=300)
+    for fn in res.stdout.split("Function : ")[1:]:
+        name, _, body = fn.partition("\n")
+        if tag not in name:
+            continue
+        CACHE.mkdir(exist_ok=True)
+        (CACHE / f"sass_{tag}.txt").write_text(name + "\n" + body)
+        insts = []
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                toks = m.group(2).split()
+                op = toks[1] if toks[0].startswith("@") else toks[0]
+                insts.append((int(m.group(1), 16), op.split(".")[0], m.group(2)))
+        best = None
+        for addr, op, text in insts:
+            tgt = re.search(r"0x([0-9a-f]+)", text) if op == "BRA" else None
+            if tgt and int(tgt.group(1), 16) <= addr:
+                loop = [o for a, o, _ in insts if int(tgt.group(1), 16) <= a <= addr]
+                cells = loop.count("VIADDMNMX")
+                if cells and (best is None or cells > best[0]):
+                    best = (cells, loop)
+        if best is None:
+            return f"{name}: no loop with VIADDMNMX found ({len(insts)} instructions)"
+        cells, loop = best
+        top = ", ".join(f"{op} {c}" for op, c in Counter(loop).most_common(12))
+        return (f"{name}: row loop {len(loop)} instructions for {cells} band cells = "
+                f"{len(loop) / cells:.2f} a cell ({top})")
+    return f"no kernel named *{tag}* in {lib._name}"
+
+
+def phase_kernel(torch, dev, card):
+    """Build all kernels; hold both banded-DP entries against their plain
+    versions; time the text entry, the stage it replaces and the windows
+    entry; the bound at the timed shape."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda, ring_cuda
+    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda, ring_cuda, window
 
     t0 = time.time()
     libs = (dp_cuda._library, myers_cuda._library, ring_cuda._library)
@@ -218,17 +343,69 @@ def phase_kernel(torch, dev):
             max_err = max(max_err, err)
             n_bad_d = int((d_kern != d_plain).sum())
             n_bad_e = int((e_kern != e_plain).sum())
-            log(f"[2] k={k} Q={Q} L={L} W={W}: {n_dead} dead lanes, dist mismatches "
-                f"{n_bad_d}, end_b mismatches {n_bad_e}, max |dist err| {err}")
-            check(n_bad_d == 0 and n_bad_e == 0, f"kernel disagrees with plain at k={k} W={W}")
-            if k == 2 and W == L + 3 * k:
-                ms = cuda_time_ms(lambda: dp_cuda.banded_edit_distance_cuda(r, ln, w, k), reps=20)
-                plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance(r, ln, w, k), reps=3, warmup=1)
-                # reads, lengths and windows in, dist and end_b out; ~6
-                # integer ops per band cell, 4k+1 cells a read row
-                n_bytes = Q * (L + W) + 3 * 4 * Q
-                n_ops = 6 * (4 * k + 1) * int(ln.clamp(max=L).sum())
-                timing = (ms, plain_ms, *bound(n_bytes, n_ops))
+            log(f"[2] windows entry k={k} Q={Q} L={L} W={W}: {n_dead} dead lanes, dist "
+                f"mismatches {n_bad_d}, end_b mismatches {n_bad_e}, max |dist err| {err}")
+            check(n_bad_d == 0 and n_bad_e == 0, f"windows entry disagrees with plain at k={k} W={W}")
+        del r, ln, w, d_kern, e_kern, d_plain, e_plain
+
+    codes, words = random_text(torch, dev, GENOME_LEN, seed=3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for k in range(1, dp_cuda.MAX_K + 1):
+        for W in ((L + 3 * k, L // 2) if k in (1, 2, 8) else (L + 3 * k,)):
+            starts, reads, lengths, rid = text_lanes(torch, codes, k, W, gen)
+            args = (words, GENOME_LEN, starts, reads, lengths, rid, k, W)
+            d_kern, e_kern = dp_cuda.banded_edit_distance_text_cuda(*args)
+            d_plain, e_plain = dp.banded_edit_distance_text_plain(*args)
+            torch.cuda.synchronize()
+            n_dead = int((d_plain >= dp.INF).sum())
+            n_hit = int((d_plain <= k).sum())
+            err = int((d_kern - d_plain).abs().max())
+            max_err = max(max_err, err)
+            n_bad_d = int((d_kern != d_plain).sum())
+            n_bad_e = int((e_kern != e_plain).sum())
+            log(f"[2] text entry k={k} Q={Q} L={L} W={W}: {n_hit} lanes within k, {n_dead} "
+                f"dead lanes, dist mismatches {n_bad_d}, end_b mismatches {n_bad_e}, "
+                f"max |dist err| {err}")
+            check(n_bad_d == 0 and n_bad_e == 0, f"text entry disagrees with plain at k={k} W={W}")
+            if k == K and W == L + 3 * k:
+                rid_l = rid.long()
+
+                def old_stage():
+                    wins = window.gather_windows(words, GENOME_LEN, starts, W)
+                    return dp_cuda.banded_edit_distance_cuda(reads[rid_l], lengths[rid_l], wins, k)
+
+                r, ln = reads[rid_l], lengths[rid_l]
+                wins = window.gather_windows(words, GENOME_LEN, starts, W)
+                times = {}
+                for name, fn in (
+                    ("text", lambda: dp_cuda.banded_edit_distance_text_cuda(*args)),
+                    ("stage", old_stage),
+                    ("windows", lambda: dp_cuda.banded_edit_distance_cuda(r, ln, wins, k)),
+                    ("text2", lambda: dp_cuda.banded_edit_distance_text_cuda(*args)),
+                ):
+                    times[name] = cuda_time_ms(fn, reps=50, hide_host=True)
+                plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance_text_plain(*args),
+                                        reps=3, warmup=1)
+                # reads, lengths, rid, starts and the text words the windows
+                # cover in, dist and end_b out; DP_OPS_PER_CELL a band cell of
+                # every live read row
+                w0 = (starts >> 4).long()[:, None] + torch.arange(W // 16 + 2, device=dev)
+                n_words = int(torch.unique(w0.clamp(0, words.numel() - 1)).numel())
+                rows = int(lengths[rid_l].clamp(0, L).sum())
+                n_ops = DP_OPS_PER_CELL * (4 * k + 1) * rows
+                n_bytes = reads.numel() + 4 * (BATCH + 2 * Q + n_words) + 8 * Q
+                b_text = bound(n_bytes, n_ops)
+                b_win = bound(Q * (L + W) + 12 * Q, n_ops)
+                log(f"[2] k={k}, {Q} lanes over {BATCH} reads, W={W}, {rows} live read rows: text "
+                    f"entry {times['text']:.4f} / {times['text2']:.4f} ms (bound {b_text[0]:.4f} ms "
+                    f"by {b_text[1]}); the stage it replaces (gather_windows + reads[rid] + "
+                    f"windows entry) {times['stage']:.4f} ms; windows entry alone "
+                    f"{times['windows']:.4f} ms (bound {b_win[0]:.4f} ms by {b_win[1]}); plain "
+                    f"{plain_ms:.3f} ms ({card})")
+                timing = (min(times["text"], times["text2"]), plain_ms, *b_text)
+                del wins, r, ln
+    log(f"[2] SASS: {sass_per_cell(dp_cuda._library(), f'banded_dp_kernelILi{K}ELb1E')}")
     return max_err, timing
 
 
@@ -260,7 +437,7 @@ def phase_fused_step(torch, dev, codes, offsets, positions):
         return pipeline._fused_align_step_impl(*args, **static)
 
     out_kernel = step()
-    with mock.patch.object(dp, "banded_edit_distance_best", dp.banded_edit_distance):
+    with mock.patch.object(dp, "banded_edit_distance_text", dp.banded_edit_distance_text_plain):
         out_plain = step()
         plain_ms = cuda_time_ms(step, reps=3, warmup=1)
     ms = cuda_time_ms(step, reps=5, warmup=1)
@@ -457,19 +634,22 @@ def phase_cli(codes, card):
     fq, sam, rep = work / "reads.fq", work / "out.sam", work / "report.json"
     write_reads(fq, codes)
 
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
     dp_cuda.banded_edit_distance_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(fq), "-k", str(K), "--seed-table", str(seedf),
                    "--batch-size", str(BATCH), "--report", str(rep), "-o", str(sam)])
-    launches = dp_cuda.banded_edit_distance_cuda.launches
+    launches = dp_cuda.banded_edit_distance_text_cuda.launches
+    win_launches = dp_cuda.banded_edit_distance_cuda.launches
     check(rc == 0, f"align exited {rc}")
     report = json.loads(rep.read_text())
     n, mapped, correct = score_sam(sam)
     shutil.rmtree(work)
     log(f"[4] align -k {K}: {n} reads, mapped {mapped / n:.6f}, correct {correct / n:.6f}, "
         f"{report['reads_per_s']} reads/s over {report['wall_s']} s ({card}), "
-        f"kernel launches {launches}, device {report['device']}")
+        f"banded-DP launches: text entry {launches}, windows entry {win_launches}, device "
+        f"{report['device']}")
     check(n == BATCH * N_BATCHES, f"SAM holds {n} records")
-    check(launches > 0, "the align run never launched the banded DP kernel")
+    check(launches > 0, "the align run never launched the banded DP kernel's text entry")
     check(mapped / n >= MIN_MAPPED, f"mapped share {mapped / n:.4f} < {MIN_MAPPED}")
     check(correct / n >= MIN_CORRECT, f"correct share {correct / n:.4f} < {MIN_CORRECT}")
     return launches
@@ -522,10 +702,10 @@ def phase_myers(torch, dev, card):
             ms = cuda_time_ms(lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=20)
             plain_ms = cuda_time_ms(lambda: myers._myers_plain(r, ln, w, nwords, W),
                                     reps=2, warmup=1)
-            # reads, lengths and windows in, best and end out; ~25 integer
-            # ops per word per window column of each non-empty lane
+            # reads, lengths and windows in, best and end out; the least
+            # integer work of a window column of each non-empty lane
             n_bytes = Q * (Lr + W) * r.element_size() + 3 * 4 * Q
-            n_ops = 25 * nwords * W * int((ln > 0).sum())
+            n_ops = (MYERS_OPS_PER_WORD * nwords + MYERS_OPS_PER_STEP) * W * int((ln > 0).sum())
             times["rescue" if Q == RESCUE_LANES else "verify"] = (
                 ms, plain_ms, *bound(n_bytes, n_ops))
             b = times["rescue" if Q == RESCUE_LANES else "verify"]
@@ -546,21 +726,23 @@ def phase_fm_cli(codes, card):
     n_reads = BATCH * FM_BATCHES
     write_reads(fq, codes, n_reads, seed=31)
 
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
     dp_cuda.banded_edit_distance_cuda.launches = 0
     myers_cuda.myers_semiglobal_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(fq), "-k", str(K), "--batch-size", str(BATCH),
                    "--report", str(rep), "-o", str(sam)])
-    launches = dp_cuda.banded_edit_distance_cuda.launches
+    launches = dp_cuda.banded_edit_distance_text_cuda.launches
     check(rc == 0, f"FM-path align exited {rc}")
     report = json.loads(rep.read_text())
     n, mapped, correct = score_sam(sam)
     shutil.rmtree(work)
     log(f"[7] FM path, align -k {K} without a seed table: {n} reads, mapped "
         f"{mapped / n:.6f}, correct {correct / n:.6f}, {report['reads_per_s']} reads/s over "
-        f"{report['wall_s']} s ({card}), banded-DP launches {launches}, Myers launches "
+        f"{report['wall_s']} s ({card}), banded-DP launches: text entry {launches}, windows "
+        f"entry {dp_cuda.banded_edit_distance_cuda.launches}; Myers launches "
         f"{myers_cuda.myers_semiglobal_cuda.launches}")
     check(n == n_reads, f"SAM holds {n} records")
-    check(launches > 0, "the FM-path run never launched the banded DP kernel")
+    check(launches > 0, "the FM-path run never launched the banded DP kernel's text entry")
     check(mapped / n >= MIN_MAPPED, f"FM path mapped share {mapped / n:.4f} < {MIN_MAPPED}")
     check(correct / n >= MIN_CORRECT, f"FM path correct share {correct / n:.4f} < {MIN_CORRECT}")
 
@@ -624,12 +806,12 @@ def phase_paired(torch, dev, codes, card):
     write_mates(f1, c1, pos1)
     write_mates(f2, c2, pos1)
 
-    dp_cuda.banded_edit_distance_cuda.launches = 0
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
     myers_cuda.myers_semiglobal_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(f1), "--paired", str(f2), "-k", str(K),
                    "--seed-table", str(seedf), "--batch-size", str(PAIR_BATCH),
                    "--report", str(rep), "-o", str(sam)])
-    launches = (dp_cuda.banded_edit_distance_cuda.launches,
+    launches = (dp_cuda.banded_edit_distance_text_cuda.launches,
                 myers_cuda.myers_semiglobal_cuda.launches)
     check(rc == 0, f"paired align exited {rc}")
     report = json.loads(rep.read_text())
@@ -644,7 +826,7 @@ def phase_paired(torch, dev, codes, card):
     log(f"[8] paired CLI, align --paired --seed-table -k {K}: {n_pairs} pairs, "
         f"{n_rec} records, proper {proper:.6f} (report {report['proper_pairs']}), "
         f"{report['reads_per_s']} reads/s over {report['wall_s']} s ({card}), banded-DP "
-        f"launches {launches[0]}, Myers launches {launches[1]}")
+        f"text-entry launches {launches[0]}, Myers launches {launches[1]}")
     check(n_rec == 2 * n_pairs, f"SAM holds {n_rec} records")
     check(proper >= MIN_PROPER, f"proper share {proper:.4f} < {MIN_PROPER}")
     check(launches[1] > 0, "the paired run never launched the Myers kernel")
@@ -707,8 +889,9 @@ def phase_rings(torch, dev, fm, card):
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     max_err = {"ring": 0, "fused": 0}
-    for S in (1, 2, 3, 4, 8):
-        cases = [(torch.int32, n) for n in (3, 777, 65_536, 4_194_304)] + [(torch.float32, 65_536)]
+    for S in (1, 2, 3, 4, 8, 16):
+        cases = [(torch.int32, n) for n in (3, 777, 65_536, 4_194_304)] + [
+            (torch.float32, n) for n in (777, 65_536)]
         for dtype, n in cases:
             if dtype == torch.int32:
                 x = torch.randint(-(1 << 30), 1 << 30, (S, n), generator=gen, device=dev,
@@ -738,7 +921,6 @@ def phase_rings(torch, dev, fm, card):
             log(f"[9] fused_rank_ring S={S} M={M} Q={Q}: mismatches with plain {n_bad}, with "
                 f"the single-device occ {n_wrong}, max |err| {err}")
             check(n_bad == 0 and n_wrong == 0, f"fused kernel wrong at S={S} M={M} Q={Q}")
-    ring_cuda.raise_if_failed(dev)
 
     # the exact search's payloads: ring (2, B / microbatch) per shard,
     # fused M = microbatch payloads of Q = 2 B / M
@@ -746,9 +928,7 @@ def phase_rings(torch, dev, fm, card):
     S, n = SHARDS, BATCH // RING_MICROBATCH
     parts = torch.randint(-(1 << 20), 1 << 20, (S, 2, n), generator=gen, device=dev,
                           dtype=torch.int32)
-    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts, check=False), reps=200,
-                      hide_host=True)
-    ring_cuda.raise_if_failed(dev)
+    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts), reps=200, hide_host=True)
     plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(parts), reps=200, hide_host=True)
     lib_ms = cuda_time_ms(lambda: parts.sum(0, dtype=torch.int32), reps=200, hide_host=True)
     # each shard's partials in, each shard's sum out; S - 1 adds an element
@@ -760,9 +940,11 @@ def phase_rings(torch, dev, fm, card):
     ring_cuda.raise_if_failed(dev)
     plain_ms = cuda_time_ms(lambda: ring.fused_rank_ring_plain(*ins), reps=50, hide_host=True)
     # words (32 B), codes, roff, base, own in and the sum out per query and
-    # shard; ~7 integer ops per word for the match count, S - 1 adds
+    # shard; RANK_OPS_PER_WORD a word for the match count, 2 for own *
+    # (base + count), S - 1 adds
     n_q = ins[1].numel()
-    timing["fused"] = (ms, plain_ms, *bound(n_q * (32 + 5 * 4), n_q * (8 * 7 + 2 + S - 1)),
+    timing["fused"] = (ms, plain_ms,
+                       *bound(n_q * (32 + 5 * 4), n_q * (8 * RANK_OPS_PER_WORD + 2 + S - 1)),
                        None)
     for name, (t, p, b, by, lib) in timing.items():
         log(f"[9] {name} at S={S}, payload {tuple(parts.shape) if name == 'ring' else tuple(ins[1].shape)}: "
@@ -851,11 +1033,15 @@ def phase_sharded_cli(codes, card):
         bodies = {}
         for n_int in (SHARDS, 1):
             sam, rep = work / f"out{n_int}.sam", work / f"report{n_int}.json"
+            dp_cuda.banded_edit_distance_text_cuda.launches = 0
             dp_cuda.banded_edit_distance_cuda.launches = 0
             rc = cli.main(["align", str(idx), str(fq), "-k", str(K), *extra, "--n-interval",
                            str(n_int), "--batch-size", str(BATCH), "--report", str(rep),
                            "-o", str(sam)])
-            launches = dp_cuda.banded_edit_distance_cuda.launches
+            # the sharded verify takes the windows entry (its windows are
+            # sums of shard partials), the single-device one the text entry
+            launches = (dp_cuda.banded_edit_distance_text_cuda.launches,
+                        dp_cuda.banded_edit_distance_cuda.launches)
             check(rc == 0, f"{name} align --n-interval {n_int} exited {rc}")
             report = json.loads(rep.read_text())
             n, mapped, correct = score_sam(sam)
@@ -863,11 +1049,14 @@ def phase_sharded_cli(codes, card):
                 bodies[n_int] = [line for line in fh if line[0] != "@"]
             log(f"[11] {name} align -k {K} --n-interval {n_int}: {n} reads, mapped "
                 f"{mapped / n:.6f}, correct {correct / n:.6f}, {report['reads_per_s']} reads/s "
-                f"over {report['wall_s']} s ({card}), banded-DP launches {launches}")
+                f"over {report['wall_s']} s ({card}), banded-DP launches: text entry "
+                f"{launches[0]}, windows entry {launches[1]}")
             check(n == n_reads, f"SAM holds {n} records")
             check(mapped / n >= MIN_MAPPED, f"mapped share {mapped / n:.4f} < {MIN_MAPPED}")
             check(correct / n >= MIN_CORRECT, f"correct share {correct / n:.4f} < {MIN_CORRECT}")
-            check(launches > 0, f"--n-interval {n_int} never launched the banded DP kernel")
+            entry = 1 if n_int > 1 else 0
+            check(launches[entry] > 0, f"--n-interval {n_int} never launched the banded DP "
+                  f"kernel's {('text', 'windows')[entry]} entry")
         same = bodies[SHARDS] == bodies[1]
         log(f"[11] {name}: the --n-interval {SHARDS} SAM body is byte-identical to the "
             f"single-device one: {same}")
@@ -900,10 +1089,13 @@ def main() -> int:
     from genome_weaver_align_tpu_torch.utils.simulate import random_genome
     from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
 
+    global INT_OPS_PER_S
     dev = torch.device("cuda", 0)
     card = card_line()
+    INT_OPS_PER_S = int_ops_per_s(torch)
     log(f"[1] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"device {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
+        f"device {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible; "
+        f"int32 issue rate {INT_OPS_PER_S:.4g}/s")
     try:
         from genome_weaver_align_tpu_torch.index import native
 
@@ -912,9 +1104,7 @@ def main() -> int:
         omp = {True: "with OpenMP", False: "without OpenMP", None: "prebuilt, loaded"}[
             native.built_with_openmp]
         log(f"[2] built native/*.cpp with g++ in {time.time() - t0:.1f} s ({omp})")
-        max_err, dp_timing = phase_kernel(torch, dev)
-        log(f"[2] k=2, {BATCH * VERIFY_SLACK} lanes: kernel {dp_timing[0]:.3f} ms, plain torch "
-            f"{dp_timing[1]:.3f} ms, bound {dp_timing[2]:.4f} ms by {dp_timing[3]} ({card})")
+        max_err, dp_timing = phase_kernel(torch, dev, card)
         t0 = time.time()
         codes = random_genome(GENOME_LEN, seed=GENOME_SEED)
         offsets, positions = build_seed_table(codes, SEED_J)

@@ -1,5 +1,6 @@
 // Banded semi-global edit distance on Hopper (sm_90a), one thread per
-// candidate lane.
+// candidate lane, with the window gathered from the 2-bit packed text inside
+// the kernel.
 //
 // Replaces the Pallas TPU kernel genome_weaver_align_tpu/ops/dp_pallas.py::_kernel
 // and computes exactly genome_weaver_align_tpu_torch/ops/dp.py::banded_edit_distance
@@ -9,127 +10,358 @@
 // dependency is the serial running min along the band, so cells above INF
 // (unreachable lanes) carry the same garbage as the plain version and
 // end_b, the first argmin of the unclamped last row, agrees on every lane.
+// The arithmetic stays exact int32: 16-bit lanes could not hold INF = 2^20.
 //
-// Layout: the logical (Q, L) int8 reads, (Q,) int32 lengths and (Q, W) int8
-// windows, read as they are.  The TPU kernel's transposes, pad-shift and
-// 8-step aligned chunking existed only for Mosaic and are not carried over.
-// The band's 4k+1 cells and the 4k+1 window codes it covers live in
-// registers; each row loads one read code and one new window code.
+// Two entries share one kernel body and differ in the window loader (the
+// template flag kText):
+//   text     lane q verifies read rid[q] of the (B, L) int8 reads against the
+//            W bases of the packed text at starts[q] (out-of-text bases are
+//            code 4, as ops/window.py::gather_windows gives them).  Equal to
+//            banded_edit_distance(reads[rid], lengths[rid],
+//                                 gather_windows(text, n, starts, W), k).
+//            No (Q, W) window or (Q, L) read tensor is ever written.
+//   windows  lane q verifies read row q against window row q of a (Q, W)
+//            int8 tensor (the sharded aligner's windows, sums of shard
+//            partials).
 //
-// Bound: the bytes of reads and windows.  Each thread walks its own row, so
-// neighbouring threads load bytes L (or W) apart: the loads are uncoalesced
-// and each 32-byte sector fetched serves one lane.  A later version stages
-// tiles of reads and windows through shared memory with coalesced 16-byte
-// loads, or fuses the window gather from the 2-bit packed text so windows
-// never reach device memory (ROADMAP queue 2 #1).
+// What bounds it, and what the design does about it:
+//   * Read loads.  A block takes 128 consecutive lanes.  After
+//     compact_lanes their rids do not decrease, so they cover a short run
+//     of reads (about 21 at 6 lanes a read): the block copies those rows
+//     (one contiguous span of the reads tensor) into shared memory once,
+//     with 16-byte loads, and each row then costs one shared-memory byte
+//     load.  A block whose lanes span more than 128 reads copies each lane's
+//     row instead (a warp per row, coalesced bytes).  Lanes that share a read
+//     read the same shared byte (a broadcast); rows L bytes apart fall in
+//     different banks (L = 100: 25 words apart, coprime with 32).  The
+//     byte load is one instruction a row; packing 4 codes a 32-bit load
+//     would cost more instructions (a funnel shift and an extract a row,
+//     rows are not 4-aligned) to save a load that is not the limit.
+//   * Window loads.  The text entry streams its window from the packed
+//     words (the text is 16 MB at chr20 scale and stays in L2): one 32-bit
+//     word a 16 rows, prefetched a word ahead, decoded with a shift and a
+//     mask in registers.
+//   * Cell update: 4 integer instructions a cell, the least it needs, all in
+//     registers (D, E = D + 1, and the band's window codes):
+//        x    = (w ^ r) & 0x1FF                  LOP3: 0 iff the codes match
+//        diag = min(D[b] + x, E[b])              DPX __viaddmin_s32
+//        D[b] = min(diag, E_old[b+1], E_new[b-1]) DPX __vimin3_s32
+//        E[b] = D[b] + 1                          IADD
+//     A read code >= 4 needs no test: the window codes are 0..3 or 256 (an
+//     out-of-text base, or a window byte >= 4), which no int8 read code
+//     equals, and a negative read code matches only an equal window byte,
+//     as in the plain version.  The row loop is split into a checked head
+//     (i < k), an unchecked body (every slot's j inside the window; with the
+//     default W >= L + 3k that is every later row), unrolled by 4k+1 rows so
+//     that the band's window codes rotate by register renaming instead of
+//     moves, and a checked tail for narrow windows.
+//   So the kernel is bound by its integer issue rate: 4 instructions for
+//   each of the (4k+1) cells of every live read row.
 //
 // Entry: gwa_banded_dp, a plain C function bound with ctypes.  It launches
 // on the caller's stream, does not synchronise, allocates nothing, and
-// returns cudaGetLastError() after the launch.
+// returns the launch's CUDA error code.
 
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+#include <type_traits>
+#include <utility>
 
 namespace {
 
 constexpr int32_t kInf = 1 << 20;
+constexpr int32_t kNoMatch = 256;  // a window code no int8 read code equals
+constexpr int kThreads = 128;
+
+struct Args {
+  const int8_t* reads;     // (B, L)
+  const int32_t* lengths;  // (B,)
+  const int32_t* rid;      // (Q,) the read of each lane; null: lane q reads row q
+  const int8_t* windows;   // (Q, W) for the windows entry
+  const uint32_t* text;    // (nw,) packed text for the text entry
+  const int32_t* starts;   // (Q,) window starts for the text entry
+  int32_t* dist;
+  int32_t* end_b;
+  int64_t Q;
+  int32_t B, L, W, nw, n_text;
+};
+
+// Window codes j = 0, 1, 2, ... of one lane from the packed text: 2 bits a
+// base, 16 bases a word, base p at bits 2 (p & 15) of word p >> 4.
+struct TextStream {
+  const uint32_t* text;
+  int32_t last;  // nw - 1
+  uint32_t n;
+  int32_t p;
+  uint32_t cur, nxt;
+
+  __device__ __forceinline__ uint32_t word(int32_t w) const {
+    return __ldg(text + min(max(w, 0), last));
+  }
+  __device__ __forceinline__ void init(const Args& a, int64_t q) {
+    text = a.text;
+    last = a.nw - 1;
+    n = static_cast<uint32_t>(a.n_text);
+    p = a.starts[q];
+    cur = word(p >> 4) >> (2 * (p & 15));
+    nxt = word((p >> 4) + 1);
+  }
+  __device__ __forceinline__ int32_t next() {
+    const int32_t c = static_cast<uint32_t>(p) < n ? static_cast<int32_t>(cur & 3u) : kNoMatch;
+    cur >>= 2;
+    ++p;
+    if ((p & 15) == 0) {
+      cur = nxt;
+      nxt = word((p >> 4) + 1);
+    }
+    return c;
+  }
+};
+
+// Window codes of one lane from a (Q, W) int8 tensor; bytes >= 4 never match.
+struct WindowStream {
+  const int8_t* w;
+  int32_t W, j;
+
+  __device__ __forceinline__ void init(const Args& a, int64_t q) {
+    w = a.windows + q * a.W;
+    W = a.W;
+    j = 0;
+  }
+  __device__ __forceinline__ int32_t next() {
+    const int32_t c = j < W ? static_cast<int32_t>(w[j]) : kNoMatch;
+    ++j;
+    return c < 4 ? c : kNoMatch;
+  }
+};
 
 template <int K>
-__global__ void __launch_bounds__(128) banded_dp_kernel(
-    const int8_t* __restrict__ reads, const int32_t* __restrict__ lengths,
-    const int8_t* __restrict__ windows, int32_t* __restrict__ dist,
-    int32_t* __restrict__ end_b, int64_t Q, int32_t L, int32_t W) {
+struct Band {
+  static constexpr int kBand = 4 * K + 1;
+  int32_t D[kBand];
+  int32_t E[kBand];   // D + 1
+  int32_t wc[kBand];  // window codes of the band's slots, rotated by R in the body
+};
+
+// A row whose slots may fall outside the window: the plain version's valid
+// mask, then the window codes shift down one slot.
+template <int K, class Stream>
+__device__ __forceinline__ void checked_row(Band<K>& s, Stream& win, int32_t rc, int32_t i,
+                                            int32_t W) {
+  constexpr int BAND = Band<K>::kBand;
+  s.wc[BAND - 1] = win.next();
+#pragma unroll
+  for (int b = 0; b < BAND; ++b) {
+    const bool valid = static_cast<uint32_t>(i + b - K) < static_cast<uint32_t>(W);
+    const int32_t x = (s.wc[b] ^ rc) & 0x1FF;
+    const int32_t ins = b + 1 < BAND ? s.E[b + 1] : kInf + 1;
+    const int32_t t = valid ? min(__viaddmin_s32(s.D[b], x, s.E[b]), ins) : kInf;
+    const int32_t d = b == 0 ? t : min(t, s.E[b - 1]);
+    s.D[b] = d;
+    s.E[b] = d + 1;
+  }
+#pragma unroll
+  for (int b = 0; b < BAND - 1; ++b) s.wc[b] = s.wc[b + 1];
+}
+
+// A row with every slot inside the window; slot b's code is wc[(b + R) % BAND].
+template <int K, int R, class Stream>
+__device__ __forceinline__ void body_row(Band<K>& s, Stream& win, const int8_t* rrow,
+                                         int32_t i) {
+  constexpr int BAND = Band<K>::kBand;
+  s.wc[(BAND - 1 + R) % BAND] = win.next();
+  const int32_t rc = rrow[i];
+#pragma unroll
+  for (int b = 0; b < BAND; ++b) {
+    const int32_t x = (s.wc[(b + R) % BAND] ^ rc) & 0x1FF;
+    const int32_t diag = __viaddmin_s32(s.D[b], x, s.E[b]);
+    int32_t d;
+    if (b == 0) {
+      d = min(diag, s.E[1]);
+    } else {
+      d = __vimin3_s32(diag, b + 1 < BAND ? s.E[b + 1] : kInf + 1, s.E[b - 1]);
+    }
+    s.D[b] = d;
+    s.E[b] = d + 1;
+  }
+}
+
+template <int K, class Stream, int... R>
+__device__ __forceinline__ void body_rows(Band<K>& s, Stream& win, const int8_t* rrow,
+                                          int32_t i0, std::integer_sequence<int, R...>) {
+  (body_row<K, R>(s, win, rrow, i0 + R), ...);
+}
+
+// Copy the rows of this block's lanes into shared memory; returns the
+// lane's row there.
+__device__ __forceinline__ const int8_t* stage_reads(const Args& a, int32_t r, bool live,
+                                                     int8_t* smem) {
+  __shared__ int32_t s_lo, s_hi;
+  __shared__ int32_t s_rid[kThreads];
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_lo = INT_MAX;
+    s_hi = INT_MIN;
+  }
+  s_rid[tid] = r;
+  __syncthreads();
+  const int32_t lo = __reduce_min_sync(0xFFFFFFFFu, live ? r : INT_MAX);
+  const int32_t hi = __reduce_max_sync(0xFFFFFFFFu, live ? r : INT_MIN);
+  if ((tid & 31) == 0) {
+    atomicMin(&s_lo, lo);
+    atomicMax(&s_hi, hi);
+  }
+  __syncthreads();
+  const int32_t rlo = s_lo, rhi = s_hi;
+  const int64_t L = a.L;
+  const int8_t* row;
+  if (static_cast<int64_t>(rhi) - rlo < kThreads) {
+    // one contiguous span [g0, g1) of the reads tensor: 16-byte loads for
+    // its aligned middle, bytes for the ragged ends; shared offset = address
+    // - base keeps the middle's stores 16-byte aligned
+    using Addr = unsigned long long;
+    constexpr Addr kAlign = 15;
+    const Addr g0 = reinterpret_cast<Addr>(a.reads + rlo * L);
+    const Addr g1 = reinterpret_cast<Addr>(a.reads + (rhi + 1) * L);
+    const Addr base = g0 & ~kAlign;
+    const Addr m0 = min((g0 + kAlign) & ~kAlign, g1);
+    const Addr m1 = max(g1 & ~kAlign, m0);
+    for (Addr g = g0 + tid; g < m0; g += kThreads)
+      smem[g - base] = *reinterpret_cast<const int8_t*>(g);
+    for (Addr g = m0 + 16 * tid; g < m1; g += 16 * kThreads)
+      *reinterpret_cast<uint4*>(smem + (g - base)) = __ldg(reinterpret_cast<const uint4*>(g));
+    for (Addr g = m1 + tid; g < g1; g += kThreads)
+      smem[g - base] = *reinterpret_cast<const int8_t*>(g);
+    row = smem + (g0 - base) + (r - rlo) * L;
+  } else {
+    // lanes over more than 128 reads: each lane's own row, a warp a row
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int t = warp; t < kThreads; t += kThreads / 32) {
+      const int8_t* src = a.reads + s_rid[t] * L;
+      for (int64_t c = lane; c < L; c += 32) smem[t * L + c] = src[c];
+    }
+    row = smem + tid * L;
+  }
+  __syncthreads();
+  return row;
+}
+
+template <int K, bool kText>
+__global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
   constexpr int BAND = 4 * K + 1;
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  const int8_t* r = reads + q * L;
-  const int8_t* w = windows + q * W;
-  const int32_t len = lengths[q];
-  const int32_t steps = len < L ? len : L;
+  extern __shared__ __align__(16) int8_t smem[];
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool live = q < a.Q;
+  int32_t r = 0;
+  if (live) r = a.rid ? min(max(a.rid[q], 0), a.B - 1) : static_cast<int32_t>(q);
+  const int8_t* rrow = stage_reads(a, r, live, smem);
+  if (!live) return;
 
-  int32_t D[BAND];
-  int32_t wc[BAND];  // wc[b] = window code at j = i + b - K (4 off the window)
-#pragma unroll
-  for (int b = 0; b < BAND; ++b) D[b] = (b >= K) ? 0 : kInf;
-#pragma unroll
-  for (int b = 0; b < BAND - 1; ++b) {
-    const int32_t j = b - K;
-    wc[b] = (j >= 0 && j < W) ? static_cast<int32_t>(w[j]) : 4;
-  }
+  const int32_t len = a.lengths[r];
+  const int32_t steps = min(len, a.L);
+  const int32_t W = a.W;
+  typename std::conditional<kText, TextStream, WindowStream>::type win;
+  win.init(a, q);
 
-  for (int32_t i = 0; i < steps; ++i) {
-    {
-      const int32_t j = i + BAND - 1 - K;
-      wc[BAND - 1] = (j < W) ? static_cast<int32_t>(w[j]) : 4;
-    }
-    const int32_t rc = r[i];
-    const bool rlive = rc < 4;
-    int32_t run = 0;
+  Band<K> s;
 #pragma unroll
-    for (int b = 0; b < BAND; ++b) {
-      const int32_t j = i + b - K;
-      const bool valid = j >= 0 && j < W;
-      const int32_t sub = (valid && rlive && wc[b] == rc) ? 0 : 1;
-      const int32_t diag = D[b] + sub;
-      // read insertion: slot b+1 of the previous row (still unmodified)
-      const int32_t ins = (b + 1 < BAND ? D[b + 1] : kInf) + 1;
-      const int32_t tmp = valid ? min(diag, ins) : kInf;
-      // window deletion: serial running min along the band
-      run = (b == 0) ? tmp : min(tmp, run + 1);
-      D[b] = run;
-    }
-#pragma unroll
-    for (int b = 0; b < BAND - 1; ++b) wc[b] = wc[b + 1];
+  for (int b = 0; b < BAND; ++b) {
+    s.D[b] = b >= K ? 0 : kInf;
+    s.E[b] = s.D[b] + 1;
+    s.wc[b] = kNoMatch;
   }
+#pragma unroll
+  for (int b = K; b < BAND - 1; ++b) s.wc[b] = win.next();  // j = 0 .. 3K-1
+
+  // rows [0, head): slots below the window; [head, body): every slot inside
+  // it; [body, steps): slots past its end
+  const int32_t head = min(K, steps);
+  const int32_t body = max(head, min(steps, W - 3 * K));
+  int32_t i = 0;
+  for (; i < head; ++i) checked_row<K>(s, win, rrow[i], i, W);
+  for (; i + BAND <= body; i += BAND)
+    body_rows<K>(s, win, rrow, i, std::make_integer_sequence<int, BAND>{});
+  for (; i < body; ++i) {
+    body_row<K, 0>(s, win, rrow, i);
+#pragma unroll
+    for (int b = 0; b < BAND - 1; ++b) s.wc[b] = s.wc[b + 1];
+  }
+  for (; i < steps; ++i) checked_row<K>(s, win, rrow[i], i, W);
 
   int32_t best = 0;
   int32_t best_b = 0;
 #pragma unroll
   for (int b = 0; b < BAND; ++b) {
     const int32_t j_end = len + b - K;
-    const int32_t df = (j_end >= 0 && j_end <= W) ? D[b] : kInf;
+    const int32_t df = (j_end >= 0 && j_end <= W) ? s.D[b] : kInf;
     if (b == 0 || df < best) {
       best = df;
       best_b = b;
     }
   }
-  dist[q] = min(best, kInf);
-  end_b[q] = best_b;
+  a.dist[q] = min(best, kInf);
+  a.end_b[q] = best_b;
 }
 
-template <int K>
-void launch(const int8_t* reads, const int32_t* lengths, const int8_t* windows,
-            int32_t* dist, int32_t* end_b, int64_t Q, int32_t L, int32_t W,
-            cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  const unsigned blocks = static_cast<unsigned>((Q + kThreads - 1) / kThreads);
-  banded_dp_kernel<K><<<blocks, kThreads, 0, stream>>>(reads, lengths, windows,
-                                                       dist, end_b, Q, L, W);
+size_t smem_bytes(int32_t L) { return static_cast<size_t>(kThreads) * L + 16; }
+
+template <int K, bool kText>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = banded_dp_kernel<K, kText>;
+  const size_t smem = smem_bytes(a.L);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const unsigned blocks = static_cast<unsigned>((a.Q + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kText>
+int dispatch(int32_t k, const Args& a, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch<1, kText>(a, s);
+    case 2: return launch<2, kText>(a, s);
+    case 3: return launch<3, kText>(a, s);
+    case 4: return launch<4, kText>(a, s);
+    case 5: return launch<5, kText>(a, s);
+    case 6: return launch<6, kText>(a, s);
+    case 7: return launch<7, kText>(a, s);
+    case 8: return launch<8, kText>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-extern "C" int gwa_banded_dp(const void* reads, const void* lengths,
-                             const void* windows, void* dist, void* end_b,
-                             int64_t Q, int32_t L, int32_t W, int32_t k,
-                             void* stream) {
+// text != null: the text entry (rid, starts, text over nw words of n_text
+// bases; windows unused); else the windows entry (rid and starts null,
+// B = Q).  Reads (B, L) int8, lengths (B,), dist and end_b (Q,) int32.
+extern "C" int gwa_banded_dp(const void* reads, const void* lengths, const void* rid,
+                             const void* windows, const void* text, const void* starts,
+                             void* dist, void* end_b, int64_t Q, int32_t B, int32_t L,
+                             int32_t W, int32_t nw, int32_t n_text, int32_t k, void* stream) {
   if (Q <= 0) return 0;
-  const auto* r = static_cast<const int8_t*>(reads);
-  const auto* ln = static_cast<const int32_t*>(lengths);
-  const auto* wn = static_cast<const int8_t*>(windows);
-  auto* d = static_cast<int32_t*>(dist);
-  auto* e = static_cast<int32_t*>(end_b);
+  if (B <= 0 || L < 0 || W < 0 || (text && nw <= 0)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.reads = static_cast<const int8_t*>(reads);
+  a.lengths = static_cast<const int32_t*>(lengths);
+  a.rid = static_cast<const int32_t*>(rid);
+  a.windows = static_cast<const int8_t*>(windows);
+  a.text = static_cast<const uint32_t*>(text);
+  a.starts = static_cast<const int32_t*>(starts);
+  a.dist = static_cast<int32_t*>(dist);
+  a.end_b = static_cast<int32_t*>(end_b);
+  a.Q = Q;
+  a.B = B;
+  a.L = L;
+  a.W = W;
+  a.nw = nw;
+  a.n_text = n_text;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: launch<1>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 2: launch<2>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 3: launch<3>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 4: launch<4>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 5: launch<5>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 6: launch<6>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 7: launch<7>(r, ln, wn, d, e, Q, L, W, s); break;
-    case 8: launch<8>(r, ln, wn, d, e, Q, L, W, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return text ? dispatch<true>(k, a, s) : dispatch<false>(k, a, s);
 }

@@ -24,8 +24,12 @@
 // Bound: the window bytes and the serial dependency of the steps.  Each
 // thread walks its own window row, one code per step, so neighbouring
 // threads load bytes W apart: the loads are uncoalesced and each 32-byte
-// sector fetched serves one lane.  The arithmetic is ~25 NW integer ops a
-// step, which the card's integer units cover many times over.  A later
+// sector fetched serves one lane.  The least arithmetic is 11 integer
+// instructions a read word a step (the Peq pick, Eq | MV, Eq & PV, the
+// carried add, the xor-or, HN, HP, the two carried shifts, MV, PV) and 5 a
+// step for the score (two bit tests, the add, the compare and the select
+// of best and end), which the card's integer units cover many times over at
+// the rescue shape.  A later
 // version stages window tiles through shared memory with coalesced 16-byte
 // loads, or packs the windows 2 bits a base.
 //

@@ -293,12 +293,12 @@ def verify_candidates(
     """Banded edit distance for every candidate: (B, C) dists (INF invalid)."""
     B, C = cand_pos.shape
     invalid = cand_pos == NO_CAND
-    wins = window.gather_windows(
-        text_words, n_text, torch.where(invalid, 0, cand_pos - k).reshape(-1), window_width
+    rid = torch.div(torch.arange(B * C, dtype=I32, device=cand_pos.device), C,
+                    rounding_mode="floor")
+    dist, end_b = dp_ops.banded_edit_distance_text(
+        text_words, n_text, torch.where(invalid, 0, cand_pos - k).reshape(-1),
+        reads.to(torch.int8).contiguous(), lengths.to(I32).contiguous(), rid, k, window_width,
     )
-    r = reads.to(torch.int8).repeat_interleave(C, dim=0)
-    ln = lengths.to(I32).repeat_interleave(C)
-    dist, end_b = dp_ops.banded_edit_distance_best(r, ln, wins, k)
     dist = torch.where(invalid, dp_ops.INF, dist.reshape(B, C))
     return dist, end_b.reshape(B, C)
 
@@ -374,15 +374,15 @@ def verify_candidates_compact(
     K = B * slack
     sel, ok, dropped = compact_lanes(valid, K)
     sel = sel.long()
-    rid = torch.div(sel, C, rounding_mode="floor")
+    rid = torch.div(sel, C, rounding_mode="floor").to(I32)
     cp = flat[sel]
-    wins = window.gather_windows(text_words, n_text, torch.where(ok, cp - k, 0), window_width)
-    r = reads.to(torch.int8)[rid]
-    ln = lengths.to(I32)[rid]
-    dist, _ = dp_ops.banded_edit_distance_best(r, ln, wins, k)
+    dist, _ = dp_ops.banded_edit_distance_text(
+        text_words, n_text, torch.where(ok, cp - k, 0), reads.to(torch.int8).contiguous(),
+        lengths.to(I32).contiguous(), rid, k, window_width,
+    )
     dist = torch.where(ok, dist, dp_ops.INF)
     overflow = torch.any(dropped.reshape(B, C), dim=1)
-    return dist, cp, rid.to(I32), overflow
+    return dist, cp, rid, overflow
 
 
 def best_hit_compact(

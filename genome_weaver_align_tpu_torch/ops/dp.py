@@ -10,15 +10,19 @@ Same coordinates as ``genome_weaver_align_tpu.ops.dp``:
 Semi-global: leading/trailing window characters are free (D(0, j) = 0,
 answer = min_b D(L, b)); the read must align end-to-end.
 
-``banded_edit_distance_best`` sends a CUDA tensor to the hand-written kernel
-(``ops.dp_cuda``, source ``csrc/banded_dp.cu``) and a CPU tensor to the
-plain version below; there is no fallback from one to the other.
+``banded_edit_distance_text`` (windows gathered from the packed text, the
+verify stage's entry) and ``banded_edit_distance_best`` (windows given)
+send a CUDA tensor to the hand-written kernel (``ops.dp_cuda``, source
+``csrc/banded_dp.cu``) and a CPU tensor to the plain versions below; there
+is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .window import gather_windows
 
 INF = 1 << 20
 
@@ -82,6 +86,44 @@ def banded_edit_distance_best(
 
         return dp_cuda.banded_edit_distance_cuda(reads, lengths, windows, k)
     return banded_edit_distance(reads, lengths, windows, k)
+
+
+def banded_edit_distance_text_plain(
+    text_words: torch.Tensor, n_text: int, starts: torch.Tensor, reads: torch.Tensor,
+    lengths: torch.Tensor, rid: torch.Tensor, k: int, W: int,
+):
+    """The text entry's plain version: gather every lane's window and read,
+    then ``banded_edit_distance``."""
+    rid = rid.long()
+    return banded_edit_distance(
+        reads[rid], lengths[rid], gather_windows(text_words, n_text, starts, W), k
+    )
+
+
+def banded_edit_distance_text(
+    text_words: torch.Tensor,  # (nw,) int32 packed text
+    n_text: int,  # text length in bases
+    starts: torch.Tensor,  # (Q,) int32 window starts (may be negative or past n_text)
+    reads: torch.Tensor,  # (B, L) int8 codes; values >= 4 never match
+    lengths: torch.Tensor,  # (B,) int32
+    rid: torch.Tensor,  # (Q,) int32 read of each lane
+    k: int,
+    W: int,  # window width
+):
+    """Banded verify of lane q: read ``rid[q]`` against the W text bases at
+    ``starts[q]`` (code 4 off the text) -> (dist (Q,), end_b (Q,)) int32.
+
+    A CUDA tensor launches the kernel, which gathers each window from the
+    packed words itself (no (Q, W) or (Q, L) tensor is made); a CPU tensor
+    takes ``banded_edit_distance_text_plain``.  Both give the same ``dist``
+    and ``end_b`` on every lane."""
+    if reads.is_cuda:
+        from . import dp_cuda
+
+        return dp_cuda.banded_edit_distance_text_cuda(
+            text_words, n_text, starts, reads, lengths, rid, k, W
+        )
+    return banded_edit_distance_text_plain(text_words, n_text, starts, reads, lengths, rid, k, W)
 
 
 def hamming_distance(

@@ -1,4 +1,4 @@
-"""Binding of the hand-written CUDA ring kernels (``csrc/ring.cu``).
+"""Binding of the hand-written CUDA all-reduce kernels (``csrc/ring.cu``).
 
 ``ring_allreduce_cuda`` replaces the JAX package's Pallas kernel
 ``genome_weaver_align_tpu/parallel/ring.py::_ring_kernel`` and
@@ -8,14 +8,16 @@ exactly ``parallel.ring.ring_psum_plain`` and ``fused_rank_ring_plain``.
 ``sm_90a``; without ``nvcc``, or when the build fails, loading raises: there
 is no fallback to the plain versions.
 
-Each shard's scratch (two receive slots per thread block, and the flags)
-is its own tensor, cached per device and grown on demand, and every launch
-takes a new epoch that tags its flags (see the source).  Launches that
-share the scratch must run in one stream order: one stream at a time per
-device.  A ring whose flag wait passes about 1 s sets an error word;
-with ``check=True`` the wrapper reads it after the launch (a synchronising
-read) and raises ``RuntimeError``; with ``check=False`` the caller calls
-``raise_if_failed`` later.
+``ring_allreduce_cuda`` is one pass over every shard's input: no flags, no
+scratch, nothing read back.  The fused kernel runs the ring's multi-hop flag
+protocol: each shard's scratch (two receive slots per thread block, and the
+flags) is its own tensor, cached per device and grown on demand, and every
+launch takes a new epoch that tags its flags (see the source).  Launches
+that share the scratch must run in one stream order: one stream at a time
+per device.  A fused ring whose flag wait passes about 1 s sets an error
+word; with ``check=True`` the wrapper reads it after the launch (a
+synchronising read) and raises ``RuntimeError``; with ``check=False`` the
+caller calls ``raise_if_failed`` later.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from ._cuda_build import load_kernel_library
 MAX_SHARDS = 16
 MAX_PAYLOADS = 8  # the fused kernel is instantiated for M = 1..MAX_PAYLOADS
 _INPUTS = 5
-_KIND_RING, _KIND_FUSED = 0, 1
 _DTYPES = {torch.int32: 0, torch.float32: 1}
 _STUCK = {1: "a capacity grant", 2: "a receive flag"}
 
@@ -40,17 +41,19 @@ def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = load_kernel_library("ring.cu")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    lib.gwa_ring_plan.argtypes = [i32, i32, i32, i64, ctypes.POINTER(i32), ctypes.POINTER(i64)]
+    lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
+    lib.gwa_allreduce.restype = ctypes.c_int
+    lib.gwa_ring_plan.argtypes = [i32, i32, i64, ctypes.POINTER(i32), ctypes.POINTER(i64)]
     lib.gwa_ring_plan.restype = ctypes.c_int
     lib.gwa_ring_launch.argtypes = [
-        i32, i32, i32, i32, i64, vp, vp, vp, vp, ctypes.c_uint64, vp, i32, vp,
+        i32, i32, i32, i64, vp, vp, vp, vp, ctypes.c_uint64, vp, i32, vp,
     ]
     lib.gwa_ring_launch.restype = ctypes.c_int
     return lib
 
 
 class _Scratch:
-    """One device's ring scratch: per-shard slots and flags, the error
+    """One device's fused-ring scratch: per-shard slots and flags, the error
     word, the epoch counter."""
 
     def __init__(self, device: torch.device):
@@ -86,7 +89,7 @@ def _scratch_for(device: torch.device) -> _Scratch:
 
 
 def raise_if_failed(device) -> None:
-    """Raise ``RuntimeError`` if a ring launch on ``device`` timed out
+    """Raise ``RuntimeError`` if a fused ring launch on ``device`` timed out
     (synchronises with the device); clears the error word."""
     sc = _scratch.get(torch.device(device))
     if sc is None:
@@ -100,18 +103,18 @@ def raise_if_failed(device) -> None:
         )
 
 
-def _run(kind: int, param: int, ins: list[list[torch.Tensor]], out: torch.Tensor,
-         Q: int, check: bool, stall_shard: int) -> None:
-    """Plan, reserve scratch, launch over S shards (``ins[d]`` the inputs of
-    shard d, ``out[d]`` its output).  ``stall_shard`` >= 0 makes that
-    shard's blocks return at once (the no-hang test): its neighbours time
-    out."""
+def _run_fused(M: int, ins: list[list[torch.Tensor]], out: torch.Tensor, Q: int, check: bool,
+               stall_shard: int) -> None:
+    """Plan, reserve scratch, launch the fused ring over S shards (``ins[d]``
+    the inputs of shard d, ``out[d]`` its output).  ``stall_shard`` >= 0
+    makes that shard's blocks return at once (the no-hang test): its
+    neighbours time out."""
     lib = _library()
     S = len(ins)
     dev = out.device
     G, slot_elems = ctypes.c_int32(0), ctypes.c_int64(0)
     with torch.cuda.device(dev):
-        rc = lib.gwa_ring_plan(kind, param, S, Q, ctypes.byref(G), ctypes.byref(slot_elems))
+        rc = lib.gwa_ring_plan(M, S, Q, ctypes.byref(G), ctypes.byref(slot_elems))
         if rc != 0:
             raise RuntimeError(f"gwa_ring_plan failed for {S} shards: CUDA error {rc}")
         sc = _scratch_for(dev)
@@ -124,7 +127,7 @@ def _run(kind: int, param: int, ins: list[list[torch.Tensor]], out: torch.Tensor
         ptr_slot = (ctypes.c_uint64 * S)(*[sc.slots[d].data_ptr() for d in range(S)])
         ptr_flag = (ctypes.c_uint64 * S)(*[sc.flags[d].data_ptr() for d in range(S)])
         rc = lib.gwa_ring_launch(
-            kind, param, S, G.value, Q, ptr_in, ptr_out, ptr_slot, ptr_flag, epoch,
+            M, S, G.value, Q, ptr_in, ptr_out, ptr_slot, ptr_flag, epoch,
             sc.err.data_ptr(), stall_shard, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -140,11 +143,11 @@ def _check_shards(S: int) -> None:
         raise ValueError(f"{S} shards: the ring kernels take 1..{MAX_SHARDS}")
 
 
-def ring_allreduce_cuda(parts: torch.Tensor, check: bool = True,
-                        stall_shard: int = -1) -> torch.Tensor:
-    """Ring all-reduce over the leading shard axis of a CUDA tensor
-    ``(S, ...)`` int32 or float32: every shard's row of the result holds the
-    sum, added in ``ring_psum_plain``'s order.  Counts each launch in
+def ring_allreduce_cuda(parts: torch.Tensor) -> torch.Tensor:
+    """All-reduce over the leading shard axis of a CUDA tensor ``(S, ...)``
+    int32 or float32: every shard's row of the result holds the sum, added
+    in ``ring_psum_plain``'s order.  One kernel pass; launches on the
+    current stream without synchronising.  Counts each launch in
     ``.launches``."""
     # Bad input: the kernel is built for int32 and float32 on the card; a
     # CPU tensor or another type raises here and never reaches a plain
@@ -158,12 +161,18 @@ def ring_allreduce_cuda(parts: torch.Tensor, check: bool = True,
     S = parts.shape[0]
     _check_shards(S)
     out = torch.empty_like(parts)
-    n = parts[0].numel() if S else 0
+    n = parts[0].numel()
     if n == 0:
         return out
-    flat = parts.reshape(S, n)
-    _run(_KIND_RING, _DTYPES[parts.dtype], [[flat[d]] for d in range(S)],
-         out.view(S, n), n, check, stall_shard)
+    flat, oflat = parts.reshape(S, n), out.view(S, n)
+    ptr_in = (ctypes.c_uint64 * S)(*[flat[d].data_ptr() for d in range(S)])
+    ptr_out = (ctypes.c_uint64 * S)(*[oflat[d].data_ptr() for d in range(S)])
+    lib = _library()
+    with torch.cuda.device(parts.device):
+        rc = lib.gwa_allreduce(_DTYPES[parts.dtype], S, n, ptr_in, ptr_out,
+                               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gwa_allreduce launch failed ({S} shards): CUDA error {rc}")
     ring_allreduce_cuda.launches += 1
     return out
 
@@ -205,7 +214,7 @@ def fused_rank_ring_cuda(
     out = torch.empty((S, M, Q), dtype=torch.int32, device=words.device)
     if Q == 0:
         return out
-    _run(_KIND_FUSED, M, [[t[d] for t in ts] for d in range(S)], out, Q, check, stall_shard)
+    _run_fused(M, [[t[d] for t in ts] for d in range(S)], out, Q, check, stall_shard)
     fused_rank_ring_cuda.launches += 1
     return out
 

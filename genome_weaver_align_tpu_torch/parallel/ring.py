@@ -13,9 +13,10 @@ receives:
   int32 (shard 0's copy: every shard holds the same).
 
 Each sends a CUDA tensor to its hand-written kernel (``ops.ring_cuda``,
-source ``csrc/ring.cu``: S groups of thread blocks running the ring's
-multi-hop flag protocol) and a CPU tensor to its plain version below; there
-is no fallback from one to the other.  The plain versions add in the ring's
+source ``csrc/ring.cu``: one pass over every shard's input for the sum; S
+groups of thread blocks running the ring's multi-hop flag protocol for the
+fused rank) and a CPU tensor to its plain version below; there is no
+fallback from one to the other.  The plain versions add in the ring's
 order, shard d receiving x_{d-1}, x_{d-2}, ... one hop at a time, so the
 kernel equals them bit for bit, float32 included.
 
@@ -75,13 +76,16 @@ def fused_rank_ring(
     roff: torch.Tensor,  # (S, M, Q) int32 base offsets in the block
     base: torch.Tensor,  # (S, M, Q) int32 the checkpoint value occ_cp[b][code]
     own: torch.Tensor,  # (S, M, Q) int32 1 where the shard owns the query, else 0
+    check: bool = True,
 ) -> torch.Tensor:
     """Merged occ values of M payloads: (M, Q) int32, equal to the sum over
-    shards of ``sharded_index.local_occ_codes``."""
+    shards of ``sharded_index.local_occ_codes``.  On the card, ``check=False``
+    skips the kernel's synchronising error-word read: the caller then calls
+    ``ops.ring_cuda.raise_if_failed`` once after its launches."""
     if words.is_cuda:
         from ..ops import ring_cuda
 
         return ring_cuda.fused_rank_ring_cuda(
-            *(t.contiguous() for t in (words, codes, roff, base, own))
+            *(t.contiguous() for t in (words, codes, roff, base, own)), check=check
         )[0]
     return fused_rank_ring_plain(words, codes, roff, base, own)[0]

@@ -372,7 +372,7 @@ def make_sharded_exact_search(
                 ]
                 words, roff, base, own = (torch.stack([x[f] for x in g], dim=1) for f in range(4))
                 codes = torch.stack([torch.cat([c, c]) for c in cs]).expand(sh.n_shards, -1, -1)
-                occ = ring.fused_rank_ring(words, codes, roff, base, own)
+                occ = ring.fused_rank_ring(words, codes, roff, base, own, check=False)
                 news = [
                     (sh.C[c.long()] + occ[m, :Bc], sh.C[c.long()] + occ[m, Bc:])
                     for m, c in enumerate(cs)
@@ -385,6 +385,12 @@ def make_sharded_exact_search(
                 (torch.where(a, nlo, lo), torch.where(a, nhi, hi))
                 for a, (nlo, nhi), (lo, hi) in zip(actives, news, state)
             ]
+        if merge == "fused" and dev.type == "cuda":
+            # one synchronising read of the error word for all the steps: a
+            # stuck fused ring still raises
+            from ..ops import ring_cuda
+
+            ring_cuda.raise_if_failed(dev)
         lo = torch.cat([s[0] for s in state])
         hi = torch.cat([s[1] for s in state])
         pos = locate(sh, lo.clamp(0, sh.n))

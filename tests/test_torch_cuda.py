@@ -3,8 +3,8 @@ without one).  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-They import no JAX: they hold each CUDA kernel (banded DP, Myers, the two
-ring merges) against its plain torch version, and the aligners and the
+They import no JAX: they hold each CUDA kernel (banded DP through both
+entries, Myers, the two ring merges) against its plain torch version, and the aligners and the
 sharded search on the card against the same code on the CPU, which the CPU
 tests hold against the JAX package."""
 
@@ -20,6 +20,7 @@ from genome_weaver_align_tpu_torch.models import paired, pipeline
 from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda, ring_cuda
 from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
 from genome_weaver_align_tpu_torch.parallel import ring, sharded_index, sharded_pipeline
+from genome_weaver_align_tpu_torch.utils import packing
 from genome_weaver_align_tpu_torch.utils.fasta import Contig
 
 pytestmark = pytest.mark.cuda
@@ -64,6 +65,59 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         dp_cuda.banded_edit_distance_cuda(r.t().contiguous().t(), ln, w, 2)
     got = dp_cuda.banded_edit_distance_cuda(r[:0], ln[:0], w[:0], 2)
     assert got[0].shape == (0,)
+    long_r = torch.zeros((4, 1816), dtype=torch.int8, device=cuda)  # 128 rows exceed the block
+    with pytest.raises(ValueError, match="shared memory"):
+        dp_cuda.banded_edit_distance_cuda(long_r, ln, torch.zeros((4, 1822), dtype=torch.int8,
+                                                                  device=cuda), 2)
+    words = torch.zeros(8, dtype=torch.int32, device=cuda)
+    starts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="k=0"):
+        dp_cuda.banded_edit_distance_text_cuda(words, 100, starts, r, ln, starts, 0, 16)
+    with pytest.raises(ValueError, match="int32"):
+        dp_cuda.banded_edit_distance_text_cuda(words, 100, starts.long(), r, ln, starts, 2, 16)
+
+
+def _text_inputs(k, W, seed, Q=3001, B=500, L=77, n=20_000):
+    """Text-entry inputs like the verify stage's: rid not decreasing (with
+    a tail of rid 0, as compact_lanes leaves unused lanes), half the lanes
+    holding their read near the window start, starts off both text ends and
+    next to word boundaries, ragged and 0-length reads, N codes."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    words = packing.pack(codes)
+    rid = np.sort(rng.integers(0, B, size=Q)).astype(np.int32)
+    rid[-200:] = 0
+    starts = rng.integers(-W, n + 5, size=Q).astype(np.int32)
+    edges = [-W - 7, -k - 1, -1, 0, 15, 16, 17, 31, 32, n - W - 1, n - W, n - W + 3, n - 1, n, n + 20]
+    starts[: len(edges)] = edges
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+    for q in range(len(edges), Q, 2):
+        seg = codes[max(starts[q] + k, 0) : max(starts[q] + k + L, 0)]
+        reads[rid[q], : seg.size] = seg
+    lengths = np.where(rng.random(B) < 0.7, L, rng.integers(0, L + 1, size=B)).astype(np.int32)
+    lengths[::41] = 0
+    return words.view(np.int32), n, starts, reads, lengths, rid
+
+
+@pytest.mark.parametrize("k", range(1, dp_cuda.MAX_K + 1))
+@pytest.mark.parametrize("narrow", [False, True])
+def test_text_entry_equals_plain(cuda, k, narrow):
+    """The fused entry (window gathered from the packed text in the kernel)
+    against ``gather_windows`` + ``reads[rid]`` + the plain DP on every
+    lane; a block over more than 128 reads takes the per-lane read copy."""
+    L = 77
+    W = L // 2 if narrow else L + 3 * k
+    for B in (500, 6000):  # ~6 and ~0.5 lanes a read
+        words, n, starts, reads, lengths, rid = (
+            torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in _text_inputs(k, W, 10 * k + narrow + B, B=B, L=L))
+        before = dp_cuda.banded_edit_distance_text_cuda.launches
+        got = dp.banded_edit_distance_text(words, n, starts, reads, lengths, rid, k, W)
+        assert dp_cuda.banded_edit_distance_text_cuda.launches == before + 1
+        want = dp.banded_edit_distance_text_plain(words, n, starts, reads, lengths, rid, k, W)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
+        assert bool((want[0] >= dp.INF).any()) == narrow
 
 
 def _hits_equal(a, b):
@@ -93,11 +147,11 @@ def test_aligner_on_card_equals_cpu(cuda):
         on_card = pipeline.SuffixFilterAligner(gi, seed_table=tab, seed_j=10, device=cuda, **kw)
         on_cpu = pipeline.SuffixFilterAligner(gi, seed_table=tab, seed_j=10, device="cpu", **kw)
         for lens in (lengths, ragged):
-            before = dp_cuda.banded_edit_distance_cuda.launches
+            before = dp_cuda.banded_edit_distance_text_cuda.launches
             h = on_card.align_arrays_submit(reads, lens)
             pipeline.prefetch_result(h)
             got = on_card.align_arrays_finish(h)
-            assert dp_cuda.banded_edit_distance_cuda.launches > before
+            assert dp_cuda.banded_edit_distance_text_cuda.launches > before
             _hits_equal(got, on_cpu.align_arrays_finish(on_cpu.align_arrays_submit(reads, lens)))
 
 
@@ -179,11 +233,11 @@ def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
     for device in (cuda, torch.device("cpu")):
         pa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, k=2, device=device),
                                   min_insert=200, max_insert=600)
-        before = (dp_cuda.banded_edit_distance_cuda.launches,
+        before = (dp_cuda.banded_edit_distance_text_cuda.launches,
                   myers_cuda.myers_semiglobal_cuda.launches)
         results.append(pa.align_pair_arrays(c1, lengths, c2, lengths))
         if device.type == "cuda":
-            assert dp_cuda.banded_edit_distance_cuda.launches > before[0]
+            assert dp_cuda.banded_edit_distance_text_cuda.launches > before[0]
             assert myers_cuda.myers_semiglobal_cuda.launches > before[1]
     got, want = results
     assert sum(ph.rescued != 0 for ph in got) >= n // 10
@@ -191,18 +245,22 @@ def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
         [(b.h1, b.h2, b.proper, b.rescued) for b in want]
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 16])
 def test_ring_allreduce_equals_plain(cuda, S):
+    """The one-pass kernel against the ring's plain sum on every element:
+    int32 (wrapping) and float32 bit for bit, at sizes that are and are not
+    a multiple of the 4-element vector."""
     rng = np.random.default_rng(S)
-    for n in (3, 777, 65_536, 4_194_304):
+    for n in (1, 3, 777, 4099, 65_536, 4_194_304):
         x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, size=(S, n), dtype=np.int32)).to(cuda)
         before = ring_cuda.ring_allreduce_cuda.launches
         got = ring_cuda.ring_allreduce_cuda(x)
         assert ring_cuda.ring_allreduce_cuda.launches == before + 1
         assert torch.equal(got, ring.ring_psum_plain(x)), n  # int32 wraps alike
-    xf = torch.from_numpy(rng.standard_normal((S, 4, 16_384)).astype(np.float32) * 1e4).to(cuda)
-    got = ring_cuda.ring_allreduce_cuda(xf)
-    assert torch.equal(got, ring.ring_psum_plain(xf))  # the same order: bit-equal
+    for shape in ((4, 16_384), (5, 7), (1023,)):
+        xf = torch.from_numpy(rng.standard_normal((S, *shape)).astype(np.float32) * 1e4).to(cuda)
+        got = ring_cuda.ring_allreduce_cuda(xf)
+        assert torch.equal(got, ring.ring_psum_plain(xf)), shape  # the same order: bit-equal
     # the dispatcher sends CUDA tensors to the kernel
     before = ring_cuda.ring_allreduce_cuda.launches
     ring.ring_psum(xf)
@@ -223,23 +281,20 @@ def test_ring_rejects_what_it_cannot_take(cuda):
                                        z, z, z, z)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_stuck_ring_raises_instead_of_hanging(cuda, fused):
-    """Shard 1's blocks return at once: its neighbours wait ~1 s, set the
-    error word and return; the wrapper raises, and the next launch works."""
+def test_stuck_ring_raises_instead_of_hanging(cuda):
+    """Shard 1's blocks of the fused ring return at once: its neighbours
+    wait ~1 s, set the error word and return; the wrapper raises, and the
+    next launch works."""
     import time
 
-    x = torch.ones((3, 4096), dtype=torch.int32, device=cuda)
     w = torch.zeros((3, 2, 4096, 8), dtype=torch.int32, device=cuda)
+    z = torch.zeros((3, 2, 4096), dtype=torch.int32, device=cuda)
     t0 = time.time()
     with pytest.raises(RuntimeError, match="stuck"):
-        if fused:
-            z = torch.zeros((3, 2, 4096), dtype=torch.int32, device=cuda)
-            ring_cuda.fused_rank_ring_cuda(w, z, z, z + 1, z + 1, stall_shard=1)
-        else:
-            ring_cuda.ring_allreduce_cuda(x, stall_shard=1)
+        ring_cuda.fused_rank_ring_cuda(w, z, z, z + 1, z + 1, stall_shard=1)
     assert time.time() - t0 < 30
-    assert torch.equal(ring_cuda.ring_allreduce_cuda(x), torch.full_like(x, 3))
+    # roff 0 counts no bases: each of the 3 owning shards adds its base 1
+    assert torch.equal(ring_cuda.fused_rank_ring_cuda(w, z, z, z + 1, z + 1), z + 3)
 
 
 def _sharded_rows(fm, S, M, Q, seed):

@@ -107,6 +107,10 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         dp_cuda.banded_edit_distance_cuda(reads, lens, wins, 2)
     assert dp_cuda.banded_edit_distance_cuda.launches == 0
+    words, starts, rid = (torch.zeros(4, dtype=torch.int32) for _ in range(3))
+    with pytest.raises(ValueError, match="CUDA"):
+        dp_cuda.banded_edit_distance_text_cuda(words, 64, starts, reads, lens, rid, 2, 16)
+    assert dp_cuda.banded_edit_distance_text_cuda.launches == 0
 
 
 def test_dispatcher_sends_cpu_tensors_to_plain(monkeypatch):
@@ -121,3 +125,20 @@ def test_dispatcher_sends_cpu_tensors_to_plain(monkeypatch):
     got = dp.banded_edit_distance_best(reads, lens, wins, 2)
     want = dp.banded_edit_distance(reads, lens, wins, 2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_text_entry_sends_cpu_tensors_to_plain(monkeypatch):
+    def kernel_called(*a, **kw):
+        raise AssertionError("CPU tensors must not reach the CUDA wrapper")
+
+    monkeypatch.setattr(dp_cuda, "banded_edit_distance_text_cuda", kernel_called)
+    g = torch.Generator().manual_seed(1)
+    words = torch.randint(-(1 << 31), 1 << 31, (8,), generator=g, dtype=torch.int64).to(torch.int32)
+    reads = torch.randint(0, 5, (3, 20), generator=g, dtype=torch.int8)
+    lens = torch.tensor([20, 7, 0], dtype=torch.int32)
+    rid = torch.tensor([0, 0, 1, 2, 2], dtype=torch.int32)
+    starts = torch.tensor([-5, 3, 60, 100, 127], dtype=torch.int32)
+    got = dp.banded_edit_distance_text(words, 128, starts, reads, lens, rid, 2, 26)
+    want = dp.banded_edit_distance_text_plain(words, 128, starts, reads, lens, rid, 2, 26)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].shape == (5,)

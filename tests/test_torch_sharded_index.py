@@ -103,9 +103,9 @@ def test_ring_merges_reach_the_ring(setup, monkeypatch):
     real_psum, real_fused = ring.ring_psum, ring.fused_rank_ring
 
     def count(name, real):
-        def f(*a):
+        def f(*a, **kw):
             calls[name] += 1
-            return real(*a)
+            return real(*a, **kw)
         return f
 
     monkeypatch.setattr(ring, "ring_psum", count("ring", real_psum))

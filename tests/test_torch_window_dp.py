@@ -92,3 +92,42 @@ def test_banded_edit_distance_matches_jax_engines(k, W):
     assert np.array_equal(got_e, Df.argmin(axis=1))
     if W == 20:
         assert (~live).any() and live.any()
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_banded_edit_distance_text_matches_jax(k, narrow):
+    """The text entry (windows gathered from the packed text, reads picked
+    by lane) against the JAX package's ``gather_windows`` + banded DP:
+    starts off both ends of the text and next to word boundaries, ragged
+    and 0-length reads, N codes, and a narrow window with dead lanes."""
+    rng = np.random.default_rng(10 * k + narrow)
+    n, B, L = 3001, 40, 48
+    W = L // 2 if narrow else L + 3 * k
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    words = packing.pack(codes)
+    rid = np.sort(rng.integers(0, B, size=150)).astype(np.int32)
+    Q = rid.size
+    starts = rng.integers(0, n - W, size=Q).astype(np.int32)
+    edges = [-W - 3, -k - 1, -1, 0, 15, 16, 17, 31, n - W - 1, n - W + 2, n - 5, n, n + 9]
+    starts[: len(edges)] = edges
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int8)  # 4 = N never matches
+    for q in range(len(edges), Q, 2):  # half the lanes hold their read near the start
+        seg = codes[max(starts[q] + k, 0) : starts[q] + k + L]
+        reads[rid[q], : seg.size] = seg
+    lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+    lengths[: B // 2] = L
+    lengths[3] = 0
+
+    got_d, got_e = (t.numpy() for t in dp.banded_edit_distance_text(
+        torch.from_numpy(words.view(np.int32)), n, torch.from_numpy(starts),
+        torch.from_numpy(reads), torch.from_numpy(lengths), torch.from_numpy(rid), k, W))
+    wins = j_window.gather_windows(jnp.asarray(words), n, jnp.asarray(starts), W)
+    want_d, want_e = (np.asarray(a) for a in j_dp.banded_edit_distance(
+        jnp.asarray(reads[rid].astype(np.int32)), jnp.asarray(lengths[rid]),
+        wins.astype(jnp.int32), k))
+    assert np.array_equal(got_d, want_d)
+    assert np.array_equal(got_e, want_e)
+    live = got_d < dp.INF
+    assert live.any() and (got_d[live] <= k).any()
+    assert (~live).any() == narrow
