@@ -12,14 +12,15 @@ per line, and exits non-zero at the first phase that fails:
    from the checkout.  The banded DP's text entry (window gathered from the
    2-bit text in the kernel) is held against its plain version on the card
    at the main path's verify shape (65,536 reads x 6 lanes, L = 100, on a
-   chr20-scale random text), k = 1..8, with starts off both text ends and
-   next to word boundaries, ragged and 0-length reads, N codes, and a
-   narrow window with dead lanes; the windows entry is held against the
-   plain DP at k = 1..4 on random windows.  dist and end_b must be equal on
-   every lane.  At k = 2 the text entry, the stage it replaces
-   (``gather_windows`` + ``reads[rid]`` + the windows entry), the windows
-   entry alone and the plain version are timed, and the SASS of the text
-   kernel's unrolled row loop is counted per band cell (``cuobjdump``);
+   chr20-scale random text), k = 1..14 (the aligner's k < 15), with starts
+   off both text ends and next to word boundaries, ragged and 0-length
+   reads, N codes, and a narrow window with dead lanes; the windows entry
+   is held against the plain DP at k = 1..4 and 9..14 on random windows.
+   dist and end_b must be equal on every lane.  At k = 2 the text entry,
+   the stage it replaces (``gather_windows`` + ``reads[rid]`` + the windows
+   entry), the windows entry alone and both plain versions are timed, the
+   SASS of the text kernel's unrolled row loop is counted per band cell
+   (``cuobjdump``), and ptxas's registers and spills at k = 14 are printed;
 3. one fused align step on a 65,536-read batch, with the kernel and with
    the plain DP, both on the card: the packed results must be identical;
 4. end to end through the port's CLI on a chr20-scale random genome
@@ -35,11 +36,18 @@ per line, and exits non-zero at the first phase that fails:
    ``torch.profiler``; and the same loop on reads of which 10% carry one
    indel, which take the host slow path (affine traceback, split over the
    host's cores when the native library has no OpenMP);
-6. the Myers CUDA kernel (``csrc/myers.cu``, built beside the banded DP in
-   phase 2) held against the plain torch version on every lane at the
+6. both Myers entries held against their plain versions on every lane:
+   the windows entry (``csrc/myers.cu``, built in phase 2) at the
    paired-rescue shape (2,048 lanes x L + 400 window columns, L = 32, 64,
    100, 150, 256) and at a verify shape (65,536 x 6 lanes, L = 100,
-   W = 106); both timed at L = 100;
+   W = 106); the text entry (window streamed from the 2-bit text in the
+   kernel) at the same shapes on a chr20-scale random text, with starts
+   off both text ends and at word edges, ``valid`` < W (the insert bound)
+   and repeated read ids.  At L = 100 the text entry, the stage it
+   replaces (``gather_windows`` + ``where`` + ``contiguous`` + the windows
+   entry), the windows entry and the plain versions are timed, and the
+   text kernel's dependent chain a window column is counted from its SASS
+   (the latency floor);
 7. the FM pigeonhole path end to end: the CLI's ``align -k 2`` without a
    seed table on the same index, 2 x 65,536 reads; >= 99% mapped and
    correct, banded-DP kernel launched;
@@ -48,16 +56,20 @@ per line, and exits non-zero at the first phase that fails:
    mate, 10% of mate2 with 4 more: unmappable at k = 2, within the rescue
    bar); >= 90% proper pairs and the Myers kernel launched; then the same
    pairs through ``PairedAligner.align_pair_arrays`` (inserts 200-600):
-   pairs/s, the phase split, and >= 5% of pairs rescued;
-9. the two ring kernels (``csrc/ring.cu``, built beside the others in
-   phase 2) held against their plain torch versions on every element:
-   the one-pass ``ring_psum`` over S = 1, 2, 3, 4, 8, 16 shards (int32 at
-   3, 777, 65,536 and 4,194,304 elements a shard, float32 at 777 and
-   65,536, bit for bit), ``fused_rank_ring`` at
-   (S, M) = (1,2), (2,2), (4,2), (4,3), (8,2), Q = 96 and 65,536, on rows
-   gathered from the phase-4 index split into S interval shards; then the
-   kernels, their plain versions and ``parts.sum(0)`` timed at the exact
-   search's payload shapes (S = 4: ring (2, 32,768), fused M = 2,
+   pairs/s, the phase split, and >= 5% of pairs rescued; the rescue must
+   reach the Myers text entry and never the windows entry;
+9. the shard-sum kernels (``csrc/ring.cu``, built in phase 2) held against
+   their plain torch versions on every element: the one-pass
+   ``ring_psum`` over S = 1, 2, 3, 4, 8, 16 shards (int32 at 3, 777,
+   65,536 and 4,194,304 elements a shard, float32 at 777 and 65,536, bit
+   for bit); the fused rank + sum's words entry (``fused_rank_ring``) at
+   S = 1, 2, 3, 4, 8, 16 and M = 1, 2, 3, 9, Q = 96 and 65,536, on rows
+   gathered from the phase-4 index split into S interval shards, and its
+   table entry (``sharded_index.fused_occ``: rows read from the shard
+   tables) at S = 1, 2, 4, 8, 16, both also against the single-device
+   ``rank.occ_codes``; then the kernels, their plain versions,
+   ``parts.sum(0)`` and the stage the table entry replaces timed at the
+   exact search's payloads (S = 4: sum (2, 32,768), fused M = 2,
    Q = 65,536);
 10. the interval-sharded exact search at full size: the phase-4 index in
    4 interval shards on the card, 65,536 error-free forward-strand 100 bp
@@ -65,7 +77,7 @@ per line, and exits non-zero at the first phase that fails:
    and ``"fused"`` (microbatch 2) must give the same (lo, hi, pos) as each
    other and as the single-device ``exact_interval_search`` + ``locate``,
    find every read, and place every unique one at its true start; the
-   ring kernel launched 100 x 2 times and the fused one 100 times;
+   sum kernel launched 100 x 2 times and the fused table entry 100 times;
 11. ``ShardedAligner`` end to end through the CLI: ``align -k 2
    --n-interval 4`` with the seed table on 65,536 reads and without it
    (FM shards) on 16,384 reads; the SAM body must be byte-identical to
@@ -73,11 +85,12 @@ per line, and exits non-zero at the first phase that fails:
    and the banded-DP kernel launched.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
-just after.  The last lines are a JSON summary of the kernels (each with
-its time, its plain version's, a bound from its inputs' bytes and
-operations, and the time of one PyTorch call that computes the same
-function where there is one; integer work is priced at the card's int32
-issue rate, 64 a clock on each SM at the maximum SM clock), the card's
+just after.  The last lines are a JSON summary of every kernel entry (each
+with the run its launches were counted in, its time, its plain version's,
+a bound from its inputs' bytes and operations, and the time of one PyTorch
+call that computes the same function where there is one; integer work is
+priced at the card's int32 issue rate, 64 a clock on each SM at the
+maximum SM clock), the card's
 name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script fails and prints no result.  It imports nothing of
@@ -126,6 +139,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOAT_OPS_PER_S = 67e12
 INT32_PER_CLOCK_PER_SM = 64
 INT_OPS_PER_S = None  # set in main()
+MAX_SM_HZ = None  # the card's maximum SM clock, set in main()
+# Cycles from one fixed-latency integer instruction to a dependent one on
+# Hopper, for the Myers latency floor: its step chain is counted in such
+# links from the SASS.
+CYCLES_PER_LINK = 4
 # Least integer instructions per unit of work, as each kernel's source note
 # derives them: a banded-DP band cell; a Myers step per read word and per
 # step; a fused-rank word.
@@ -176,15 +194,18 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2, hide_host: bool = False) -> flo
     return start.elapsed_time(end) / reps
 
 
-def int_ops_per_s(torch) -> float:
-    """The card's int32 issue rate: SMs x 64 a clock x the maximum SM clock."""
+def max_sm_hz() -> float:
+    """The card's maximum SM clock in Hz."""
     res = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    mhz = float(res.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_PER_CLOCK_PER_SM * mhz * 1e6
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def int_ops_per_s(torch, hz: float) -> float:
+    """The card's int32 issue rate: SMs x 64 a clock x the maximum SM clock."""
+    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_PER_CLOCK_PER_SM * hz
 
 
 def bound(n_bytes: float, int_ops: float, float_ops: float = 0.0) -> tuple[float, str]:
@@ -312,6 +333,26 @@ def sass_per_cell(lib, tag: str) -> str:
     return f"no kernel named *{tag}* in {lib._name}"
 
 
+def ptxas_usage(source: str, tag: str) -> str:
+    """Registers and spills that ptxas reported for the kernel of
+    ``csrc/<source>`` whose mangled name holds ``tag``."""
+    import re
+
+    from genome_weaver_align_tpu_torch.ops._cuda_build import ptxas_report
+
+    for part in ptxas_report(source).split("Compiling entry function '")[1:]:
+        name, _, rest = part.partition("'")
+        if tag not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", rest)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", rest)
+        return (f"{regs.group(1) if regs else '?'} registers, "
+                + (f"{spill.group(1)} bytes stack frame, {spill.group(2)} bytes spill stores, "
+                   f"{spill.group(3)} bytes spill loads" if spill else "no spill line"))
+    return f"not measured (no ptxas entry *{tag}*)"
+
+
 def phase_kernel(torch, dev, card):
     """Build all kernels; hold both banded-DP entries against their plain
     versions; time the text entry, the stage it replaces and the windows
@@ -330,7 +371,7 @@ def phase_kernel(torch, dev, card):
     Q = BATCH * VERIFY_SLACK
     max_err = 0
     timing = None
-    for k in (1, 2, 3, 4):
+    for k in (1, 2, 3, 4, *range(9, dp_cuda.MAX_K + 1)):
         # the main-path window width, then a narrow one whose long reads
         # cannot reach the window end (dead lanes: dist saturates at INF)
         for W in (L + 3 * k, L // 2):
@@ -352,7 +393,7 @@ def phase_kernel(torch, dev, card):
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     for k in range(1, dp_cuda.MAX_K + 1):
-        for W in ((L + 3 * k, L // 2) if k in (1, 2, 8) else (L + 3 * k,)):
+        for W in ((L + 3 * k, L // 2) if k in (1, 2, 8, dp_cuda.MAX_K) else (L + 3 * k,)):
             starts, reads, lengths, rid = text_lanes(torch, codes, k, W, gen)
             args = (words, GENOME_LEN, starts, reads, lengths, rid, k, W)
             d_kern, e_kern = dp_cuda.banded_edit_distance_text_cuda(*args)
@@ -387,6 +428,8 @@ def phase_kernel(torch, dev, card):
                     times[name] = cuda_time_ms(fn, reps=50, hide_host=True)
                 plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance_text_plain(*args),
                                         reps=3, warmup=1)
+                win_plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance(r, ln, wins, k),
+                                            reps=3, warmup=1)
                 # reads, lengths, rid, starts and the text words the windows
                 # cover in, dist and end_b out; DP_OPS_PER_CELL a band cell of
                 # every live read row
@@ -402,10 +445,14 @@ def phase_kernel(torch, dev, card):
                     f"by {b_text[1]}); the stage it replaces (gather_windows + reads[rid] + "
                     f"windows entry) {times['stage']:.4f} ms; windows entry alone "
                     f"{times['windows']:.4f} ms (bound {b_win[0]:.4f} ms by {b_win[1]}); plain "
-                    f"{plain_ms:.3f} ms ({card})")
-                timing = (min(times["text"], times["text2"]), plain_ms, *b_text)
+                    f"{plain_ms:.3f} ms, windows plain {win_plain_ms:.3f} ms ({card})")
+                timing = {"text": (min(times["text"], times["text2"]), plain_ms, *b_text),
+                          "windows": (times["windows"], win_plain_ms, *b_win)}
                 del wins, r, ln
     log(f"[2] SASS: {sass_per_cell(dp_cuda._library(), f'banded_dp_kernelILi{K}ELb1E')}")
+    for entry, flag in (("text", 1), ("windows", 0)):
+        tag = f"banded_dp_kernelILi{dp_cuda.MAX_K}ELb{flag}E"
+        log(f"[2] ptxas, {entry} entry at k={dp_cuda.MAX_K}: {ptxas_usage('banded_dp.cu', tag)}")
     return max_err, timing
 
 
@@ -677,9 +724,151 @@ def myers_inputs(Q: int, Lr: int, W: int, seed: int):
     return reads, lengths, windows
 
 
+def sass_loop(lib, tags) -> tuple[str, list]:
+    """(kernel name, the instructions of its longest loop as (opcode,
+    operand text)) for the kernel of ``lib`` whose mangled name holds every
+    tag; the kernel's whole SASS goes to ``smoke_cache/``."""
+    import re
+
+    from genome_weaver_align_tpu_torch.ops._cuda_build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return f"no {tool}", []
+    res = subprocess.run([str(tool), "-sass", lib._name], capture_output=True, text=True,
+                         timeout=300)
+    for fn in res.stdout.split("Function : ")[1:]:
+        name, _, body = fn.partition("\n")
+        if not all(t in name for t in tags):
+            continue
+        CACHE.mkdir(exist_ok=True)
+        (CACHE / f"sass_{'_'.join(tags)}.txt").write_text(name + "\n" + body)
+        insts = []
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                toks = m.group(2).split(None, 2 if m.group(2).startswith("@") else 1)
+                guard = toks[0] if toks[0].startswith("@") else ""
+                rest = toks[1:] if guard else toks
+                insts.append((int(m.group(1), 16), rest[0], (rest[1] if len(rest) > 1 else ""),
+                              guard))
+        best = []
+        for addr, op, text, _ in insts:
+            tgt = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
+            if tgt and int(tgt.group(1), 16) <= addr:
+                loop = [i for i in insts if int(tgt.group(1), 16) <= i[0] <= addr]
+                if len(loop) > len(best):
+                    best = loop
+        return name, best
+    return f"no kernel named *{'*'.join(tags)}*", []
+
+
+def dependent_chain(loop, iterations: int = 4) -> int:
+    """Instructions on the longest dependency chain of one steady-state
+    trip round ``loop`` (SASS as ``sass_loop`` gives it): registers and
+    predicates read and written, each fixed-latency instruction one link;
+    loads, shared-memory and special-register reads are left off (the
+    stream prefetches its word a trip ahead)."""
+    import re
+
+    reg = re.compile(r"(?<![\w.])!?-?~?\|?(R\d+|P\d)(\.64)?")
+    ready: dict[str, int] = {}
+    ends = []
+    for _ in range(iterations):
+        top = 0
+        for _, op, text, guard in loop:
+            ops = [o.strip() for o in text.split(",")] if text else []
+            dests: list[str] = []
+            if ops and not ops[0].startswith("[") and not op.startswith(("ST", "BRA", "BAR", "RED",
+                                                                         "ATOM", "EXIT", "RET")):
+                first = ops[0].lstrip("!")
+                if re.fullmatch(r"R\d+(\.64)?|P\d|PT", first):
+                    dests.append(ops[0])
+                    for o in ops[1:]:
+                        if re.fullmatch(r"P\d|PT", o):
+                            dests.append(o)
+                        else:
+                            break
+                    if first.startswith("P"):
+                        dests = dests[:2]
+            srcs = [o for o in ops if o not in dests] + ([guard[1:]] if guard else [])
+            names = []
+            for o in srcs:
+                for m in reg.finditer(o.replace(".reuse", "")):
+                    names.append(m.group(1))
+                    if m.group(2):
+                        names.append(f"R{int(m.group(1)[1:]) + 1}")
+            t = max([ready.get(n, 0) for n in names] + [0])
+            fixed = not op.startswith(("LD", "S2R", "S2UR", "CS2R", "LDS", "LDG", "LDC", "ULDC",
+                                       "SHFL", "MATCH", "VOTE", "REDUX"))
+            t += 1 if fixed else 0
+            for d in dests:
+                d = d.lstrip("!")
+                if d.endswith(".64"):
+                    ready[d[:-3]] = ready[f"R{int(d[1:-3]) + 1}"] = t
+                elif d not in ("PT", "RZ"):
+                    ready[d] = t
+            top = max(top, t)
+        ends.append(top)
+    return ends[-1] - ends[-2]
+
+
+def myers_text_lanes(torch, codes, Q: int, Lr: int, W: int, gen, rid_mode: str):
+    """Text-entry lanes on the card: Q windows of W over the text, half of
+    them holding their read (substitutions, and an indel in 30%), starts off
+    both text ends and at word edges, ragged and 0 lengths, 1% N codes.
+    rid_mode "identity" (the rescue), "repeat" (the second half of the lanes
+    re-reads random rows) or "verify" (VERIFY_SLACK lanes a read).  valid is
+    the rescue's insert bound W - Lr + length in half the lanes, random in
+    [-2, W] in a tenth, W elsewhere.  -> (starts, reads, lengths, rid,
+    valid)."""
+    dev = codes.device
+    n = codes.numel()
+    B = Q // VERIFY_SLACK if rid_mode == "verify" else Q
+    starts = torch.randint(-W, n + 5, (Q,), generator=gen, device=dev, dtype=torch.int32)
+    locus = torch.randint(0, n - W, (B,), generator=gen, device=dev)
+    off = torch.randint(0, W - Lr, (B,), generator=gen, device=dev)
+    reads = codes[(locus + off)[:, None] + torch.arange(Lr + 1, device=dev)[None, :]]
+    indel = torch.rand(B, generator=gen, device=dev) < 0.3
+    cut = torch.randint(0, Lr, (B,), generator=gen, device=dev)
+    col = torch.arange(Lr, device=dev)[None, :]
+    reads = torch.where(indel[:, None] & (col >= cut[:, None]), reads[:, 1:], reads[:, :Lr])
+    rows = torch.arange(B, device=dev)
+    for _ in range(2):
+        at = torch.randint(0, Lr, (B,), generator=gen, device=dev)
+        reads[rows, at] = (reads[rows, at] + torch.randint(1, 4, (B,), generator=gen, device=dev,
+                                                           dtype=torch.int8)) % 4
+    n_rows = torch.rand(B, generator=gen, device=dev) < 0.01
+    reads[n_rows, torch.randint(0, Lr, (B,), generator=gen, device=dev)[n_rows]] = 4
+    lengths = torch.where(torch.rand(B, generator=gen, device=dev) < 0.8, Lr,
+                          torch.randint(0, Lr + 1, (B,), generator=gen, device=dev))
+    lengths[torch.rand(B, generator=gen, device=dev) < 0.01] = 0
+    if rid_mode == "verify":
+        rid = torch.div(torch.arange(Q, device=dev), VERIFY_SLACK, rounding_mode="floor")
+        starts[::VERIFY_SLACK] = (locus + off - K).to(torch.int32)
+    else:
+        rid = torch.arange(Q, device=dev)
+        if rid_mode == "repeat":
+            rid[Q // 2:] = torch.randint(0, Q, (Q - Q // 2,), generator=gen, device=dev)
+        planted = torch.arange(0, Q, 2, device=dev)
+        starts[planted] = locus[planted].to(torch.int32)
+    edges = [-W - 7, -W + 3, -1, 0, 15, 16, 17, 31, n - W - 1, n - W, n - W + 3, n - 1, n, n + 20]
+    starts[: len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    rid = rid.to(torch.int32)
+    valid = torch.full((Q,), W, dtype=torch.int32, device=dev)
+    if rid_mode != "verify":
+        valid[::2] = (W - Lr + lengths[rid.long()][::2]).to(torch.int32)
+        some = torch.rand(Q, generator=gen, device=dev) < 0.1
+        valid[some] = torch.randint(-2, W + 1, (int(some.sum()),), generator=gen, device=dev,
+                                    dtype=torch.int32)
+    return starts, reads.contiguous(), lengths.to(torch.int32), rid, valid
+
+
 def phase_myers(torch, dev, card):
-    """The Myers kernel against its plain version on every lane; times."""
-    from genome_weaver_align_tpu_torch.ops import myers, myers_cuda
+    """Both Myers entries against their plain versions on every lane; the
+    text entry, the stage it replaces, the windows entry and the plain
+    versions timed; the text kernel's step chain from its SASS."""
+    from genome_weaver_align_tpu_torch.ops import myers, myers_cuda, window
 
     max_err = 0
     times = {}
@@ -695,23 +884,103 @@ def phase_myers(torch, dev, card):
         max_err = max(max_err, err)
         n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
         n_hit = int((b_plain <= max(K, Lr // 20)).sum())
-        log(f"[6] myers Q={Q} L={Lr} W={W}: {n_hit} lanes within the rescue bar, "
+        log(f"[6] windows entry Q={Q} L={Lr} W={W}: {n_hit} lanes within the rescue bar, "
             f"(best, end) mismatches {n_bad}, max |err| {err}")
-        check(n_bad == 0, f"Myers kernel disagrees with plain at Q={Q} L={Lr} W={W}")
+        check(n_bad == 0, f"Myers windows entry disagrees with plain at Q={Q} L={Lr} W={W}")
         if Lr == L:
-            ms = cuda_time_ms(lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=20)
+            shape = "rescue" if Q == RESCUE_LANES else "verify"
+            ms = cuda_time_ms(lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=50,
+                              hide_host=True)
             plain_ms = cuda_time_ms(lambda: myers._myers_plain(r, ln, w, nwords, W),
                                     reps=2, warmup=1)
             # reads, lengths and windows in, best and end out; the least
             # integer work of a window column of each non-empty lane
             n_bytes = Q * (Lr + W) * r.element_size() + 3 * 4 * Q
             n_ops = (MYERS_OPS_PER_WORD * nwords + MYERS_OPS_PER_STEP) * W * int((ln > 0).sum())
-            times["rescue" if Q == RESCUE_LANES else "verify"] = (
-                ms, plain_ms, *bound(n_bytes, n_ops))
-            b = times["rescue" if Q == RESCUE_LANES else "verify"]
-            log(f"[6] myers Q={Q} L={Lr} W={W}: kernel {ms:.3f} ms, plain torch "
+            times["windows", shape] = (ms, plain_ms, *bound(n_bytes, n_ops))
+            b = times["windows", shape]
+            log(f"[6] windows entry Q={Q} L={Lr} W={W}: kernel {ms:.4f} ms, plain torch "
                 f"{plain_ms:.3f} ms, bound {b[2]:.4f} ms by {b[3]} ({card})")
-    return max_err, times
+        del r, ln, w
+
+    max_text = 0
+    codes, words = random_text(torch, dev, GENOME_LEN, seed=5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    text_shapes = [(RESCUE_LANES, Lr, Lr + 400, mode) for Lr in (32, 64, 100, 150, 256)
+                   for mode in ("identity", "repeat")]
+    text_shapes.append((BATCH * VERIFY_SLACK, L, L + 3 * K, "verify"))
+    for Q, Lr, W, mode in text_shapes:
+        starts, reads, lengths, rid, valid = myers_text_lanes(torch, codes, Q, Lr, W, gen, mode)
+        nwords = -(-Lr // 32)
+        args = (words, GENOME_LEN, starts, reads, lengths, rid, valid, W, nwords)
+        b_kern, e_kern = myers_cuda.myers_semiglobal_text_cuda(*args)
+        b_plain, e_plain = myers.myers_semiglobal_text_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((b_kern - b_plain).abs().max()), int((e_kern - e_plain).abs().max()))
+        max_text = max(max_text, err)
+        n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
+        n_hit = int((b_plain <= max(K, Lr // 20)).sum())
+        log(f"[6] text entry Q={Q} L={Lr} W={W} rid {mode}: {n_hit} lanes within the rescue "
+            f"bar, {int((valid < W).sum())} lanes with valid < W, (best, end) mismatches "
+            f"{n_bad}, max |err| {err}")
+        check(n_bad == 0, f"Myers text entry disagrees with plain at Q={Q} L={Lr} W={W} {mode}")
+        check(n_hit > Q // 20, f"too few planted lanes found at Q={Q} L={Lr}")
+        if Lr != L or mode == "repeat":
+            continue
+        shape = "rescue" if Q == RESCUE_LANES else "verify"
+        col = torch.arange(W, device=dev)
+        rid_l = rid.long()
+
+        def old_stage():
+            wins = window.gather_windows(words, GENOME_LEN, starts, W)
+            wins = torch.where(col[None, :] >= valid[:, None], 4, wins).contiguous()
+            r, ln = (reads, lengths) if shape == "rescue" else (reads[rid_l], lengths[rid_l])
+            return myers_cuda.myers_semiglobal_cuda(r, ln, wins, nwords)
+
+        t = {}
+        for name, fn in (("text", lambda: myers_cuda.myers_semiglobal_text_cuda(*args)),
+                         ("stage", old_stage),
+                         ("text2", lambda: myers_cuda.myers_semiglobal_text_cuda(*args))):
+            t[name] = cuda_time_ms(fn, reps=50, hide_host=True)
+        plain_ms = cuda_time_ms(lambda: myers.myers_semiglobal_text_plain(*args), reps=2,
+                                warmup=1)
+        # reads, lengths, starts, rid, valid and the text words the windows
+        # cover in, best and end out; the least integer work as above
+        w0 = (starts >> 4).long()[:, None] + torch.arange(W // 16 + 2, device=dev)
+        n_words = int(torch.unique(w0.clamp(0, words.numel() - 1)).numel())
+        n_bytes = reads.numel() + 4 * (lengths.numel() + 3 * Q + n_words) + 8 * Q
+        n_ops = (MYERS_OPS_PER_WORD * nwords + MYERS_OPS_PER_STEP) * W * int(
+            (lengths[rid_l] > 0).sum())
+        b = bound(n_bytes, n_ops)
+        ms = min(t["text"], t["text2"])
+        times["text", shape] = (ms, plain_ms, *b)
+        times["stage", shape] = t["stage"]
+        log(f"[6] text entry Q={Q} L={Lr} W={W}: kernel {t['text']:.4f} / {t['text2']:.4f} ms "
+            f"(bound {b[0]:.4f} ms by {b[1]}); the stage it replaces (gather_windows + where + "
+            f"contiguous + windows entry) {t['stage']:.4f} ms; plain {plain_ms:.3f} ms ({card})")
+
+    name, loop = sass_loop(myers_cuda._library(), ("myers_kernelILi4E", "TextStream"))
+    chain = dependent_chain(loop) if loop else 0
+    if chain:
+        # 16 window columns a trip round the unrolled loop
+        per_step = chain / 16
+        floor_ms = (L + 400) * per_step * CYCLES_PER_LINK / MAX_SM_HZ * 1e3
+        # a warp issues at most one instruction a cycle, and the rescue
+        # cohort is a warp or less a multiprocessor: each lane's warp issues
+        # the loop's instructions of every column itself
+        issue_ms = (L + 400) * len(loop) / 16 / MAX_SM_HZ * 1e3
+        times["floor"], times["issue_floor"] = floor_ms, issue_ms
+        log(f"[6] SASS of {name}: the 16-column loop is {len(loop)} instructions "
+            f"({len(loop) / 16:.2f} a column), its longest dependent chain a trip {chain} "
+            f"instructions = {per_step:.2f} a column; at the rescue shape ({L + 400} columns, "
+            f"{MAX_SM_HZ / 1e9:.2f} GHz) the latency floor ({CYCLES_PER_LINK} cycles a link) is "
+            f"{floor_ms:.4f} ms and one warp's issue floor (one instruction a cycle) "
+            f"{issue_ms:.4f} ms")
+    else:
+        times["floor"] = times["issue_floor"] = None
+        log(f"[6] SASS: not measured ({name})")
+    return (max_err, max_text), times
 
 
 def phase_fm_cli(codes, card):
@@ -728,6 +997,7 @@ def phase_fm_cli(codes, card):
 
     dp_cuda.banded_edit_distance_text_cuda.launches = 0
     dp_cuda.banded_edit_distance_cuda.launches = 0
+    myers_cuda.myers_semiglobal_text_cuda.launches = 0
     myers_cuda.myers_semiglobal_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(fq), "-k", str(K), "--batch-size", str(BATCH),
                    "--report", str(rep), "-o", str(sam)])
@@ -739,7 +1009,8 @@ def phase_fm_cli(codes, card):
     log(f"[7] FM path, align -k {K} without a seed table: {n} reads, mapped "
         f"{mapped / n:.6f}, correct {correct / n:.6f}, {report['reads_per_s']} reads/s over "
         f"{report['wall_s']} s ({card}), banded-DP launches: text entry {launches}, windows "
-        f"entry {dp_cuda.banded_edit_distance_cuda.launches}; Myers launches "
+        f"entry {dp_cuda.banded_edit_distance_cuda.launches}; Myers launches: text entry "
+        f"{myers_cuda.myers_semiglobal_text_cuda.launches}, windows entry "
         f"{myers_cuda.myers_semiglobal_cuda.launches}")
     check(n == n_reads, f"SAM holds {n} records")
     check(launches > 0, "the FM-path run never launched the banded DP kernel's text entry")
@@ -807,11 +1078,13 @@ def phase_paired(torch, dev, codes, card):
     write_mates(f2, c2, pos1)
 
     dp_cuda.banded_edit_distance_text_cuda.launches = 0
+    myers_cuda.myers_semiglobal_text_cuda.launches = 0
     myers_cuda.myers_semiglobal_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(f1), "--paired", str(f2), "-k", str(K),
                    "--seed-table", str(seedf), "--batch-size", str(PAIR_BATCH),
                    "--report", str(rep), "-o", str(sam)])
     launches = (dp_cuda.banded_edit_distance_text_cuda.launches,
+                myers_cuda.myers_semiglobal_text_cuda.launches,
                 myers_cuda.myers_semiglobal_cuda.launches)
     check(rc == 0, f"paired align exited {rc}")
     report = json.loads(rep.read_text())
@@ -826,10 +1099,12 @@ def phase_paired(torch, dev, codes, card):
     log(f"[8] paired CLI, align --paired --seed-table -k {K}: {n_pairs} pairs, "
         f"{n_rec} records, proper {proper:.6f} (report {report['proper_pairs']}), "
         f"{report['reads_per_s']} reads/s over {report['wall_s']} s ({card}), banded-DP "
-        f"text-entry launches {launches[0]}, Myers launches {launches[1]}")
+        f"text-entry launches {launches[0]}, Myers launches: text entry {launches[1]}, "
+        f"windows entry {launches[2]}")
     check(n_rec == 2 * n_pairs, f"SAM holds {n_rec} records")
     check(proper >= MIN_PROPER, f"proper share {proper:.4f} < {MIN_PROPER}")
-    check(launches[1] > 0, "the paired run never launched the Myers kernel")
+    check(launches[1] > 0, "the paired run never launched the Myers kernel's text entry")
+    check(launches[2] == 0, "the paired rescue built a window tensor for the windows entry")
 
     gi = load_index(idx)
     offsets, positions, sj = load_seed_table(seedf)
@@ -858,20 +1133,22 @@ def phase_paired(torch, dev, codes, card):
     return launches[1]
 
 
-def fused_inputs(torch, sh, M: int, Q: int, gen):
+def fused_inputs(torch, sh, M: int, Q: int, gen, gather: bool = True):
     """``fused_rank_ring``'s inputs for M payloads of Q (code, coordinate)
     queries over the whole range of a sharded index on the card, the shard
     edges, the primary row and the last row among them: (words, codes,
-    roff, base, own) and the queries."""
+    roff, base, own) (None without ``gather``) and the queries (M, Q)."""
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
 
     dev = sh.pk_start.device
     k = torch.randint(0, sh.n + 1, (M, Q), generator=gen, device=dev, dtype=torch.int32)
     c = torch.randint(0, 4, (M, Q), generator=gen, device=dev, dtype=torch.int32)
     edges = torch.cat([sh.pk_start, sh.pk_end,
-                       torch.tensor([sh.primary, sh.n], dtype=torch.int32, device=dev)])
-    edges = torch.cat([edges, edges - 1]).clamp(0, sh.n)[:Q]
+                       torch.tensor([sh.primary, sh.n, sh.n + 1], dtype=torch.int32, device=dev)])
+    edges = torch.cat([edges, edges - 1]).clamp(0, sh.n + 1)[:Q]
     k[:, : edges.numel()] = edges
+    if not gather:
+        return None, (c, k)
     g = [si.local_occ_gather(sh, c[m], k[m]) for m in range(M)]
     words, roff, base, own = (torch.stack([x[f] for x in g], dim=1).contiguous()
                               for f in range(4))
@@ -880,15 +1157,16 @@ def fused_inputs(torch, sh, M: int, Q: int, gen):
 
 
 def phase_rings(torch, dev, fm, card):
-    """Both ring kernels against their plain versions on every element;
-    kernel, plain and ``parts.sum(0)`` times at the search's payloads."""
+    """The shard sum and both fused entries against their plain versions on
+    every element; kernels, plain versions, the stage the table entry
+    replaces and ``parts.sum(0)`` timed at the search's payloads."""
     from genome_weaver_align_tpu_torch.ops import rank, ring_cuda
     from genome_weaver_align_tpu_torch.parallel import ring
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
-    max_err = {"ring": 0, "fused": 0}
+    max_err = {"ring": 0, "words": 0, "table": 0}
     for S in (1, 2, 3, 4, 8, 16):
         cases = [(torch.int32, n) for n in (3, 777, 65_536, 4_194_304)] + [
             (torch.float32, n) for n in (777, 65_536)]
@@ -907,25 +1185,40 @@ def phase_rings(torch, dev, fm, card):
 
     fm_dev = rank.from_host(fm, dev)
     shards = {}
-    for S, M in ((1, 2), (2, 2), (4, 2), (4, 3), (8, 2)):
-        if S not in shards:
-            shards[S] = si.put_sharded(si.shard_fm_index(fm, S), dev)
+    for S in (1, 2, 3, 4, 8, 16):
+        shards[S] = sh = si.put_sharded(si.shard_fm_index(fm, S), dev)
         for Q in (96, 65_536):
-            ins, (c, k) = fused_inputs(torch, shards[S], M, Q, gen)
-            got, want = ring_cuda.fused_rank_ring_cuda(*ins), ring.fused_rank_ring_plain(*ins)
-            occ = rank.occ_codes(fm_dev, c, k)  # the single-device rank
-            n_bad = int((got != want).sum())
-            n_wrong = int((got[0] != occ).sum())
+            for M in (1, 2, 3, 9):
+                ins, (c, k) = fused_inputs(torch, sh, M, Q, gen)
+                got, want = ring_cuda.fused_rank_ring_cuda(*ins), ring.fused_rank_ring_plain(*ins)
+                occ = rank.occ_codes(fm_dev, c, k)  # the single-device rank
+                n_bad = int((got != want).sum())
+                n_wrong = int((got[0] != occ).sum())
+                err = int((got.long() - want.long()).abs().max())
+                max_err["words"] = max(max_err["words"], err)
+                log(f"[9] fused words entry S={S} M={M} Q={Q}: mismatches with plain {n_bad}, "
+                    f"with the single-device occ {n_wrong}, max |err| {err}")
+                check(n_bad == 0 and n_wrong == 0, f"fused words entry wrong at S={S} M={M} Q={Q}")
+            if S in (3,):
+                continue
+            _, (c, k) = fused_inputs(torch, sh, 2, Q, gen, gather=False)
+            got, want = ring_cuda.fused_occ_cuda(sh.bwt_blocks, sh.occ_cp, sh.pk_start, sh.pk_end,
+                                                 sh.primary, c, k), si.fused_occ_plain(sh, c, k)
+            occ = rank.occ_codes(fm_dev, c, k)
+            n_bad, n_wrong = int((got != want).sum()), int((got != occ).sum())
             err = int((got.long() - want.long()).abs().max())
-            max_err["fused"] = max(max_err["fused"], err)
-            log(f"[9] fused_rank_ring S={S} M={M} Q={Q}: mismatches with plain {n_bad}, with "
+            max_err["table"] = max(max_err["table"], err)
+            log(f"[9] fused table entry S={S} M=2 Q={Q}: mismatches with plain {n_bad}, with "
                 f"the single-device occ {n_wrong}, max |err| {err}")
-            check(n_bad == 0 and n_wrong == 0, f"fused kernel wrong at S={S} M={M} Q={Q}")
+            check(n_bad == 0 and n_wrong == 0, f"fused table entry wrong at S={S} Q={Q}")
+        if S not in (SHARDS,):
+            del shards[S]
 
     # the exact search's payloads: ring (2, B / microbatch) per shard,
     # fused M = microbatch payloads of Q = 2 B / M
     timing = {}
     S, n = SHARDS, BATCH // RING_MICROBATCH
+    sh = shards[S]
     parts = torch.randint(-(1 << 20), 1 << 20, (S, 2, n), generator=gen, device=dev,
                           dtype=torch.int32)
     ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts), reps=200, hide_host=True)
@@ -934,22 +1227,49 @@ def phase_rings(torch, dev, fm, card):
     # each shard's partials in, each shard's sum out; S - 1 adds an element
     timing["ring"] = (ms, plain_ms, *bound(2 * parts.numel() * 4, (S - 1) * parts.numel()),
                       lib_ms)
-    ins, _ = fused_inputs(torch, shards[S], RING_MICROBATCH, 2 * BATCH // RING_MICROBATCH, gen)
-    ms = cuda_time_ms(lambda: ring_cuda.fused_rank_ring_cuda(*ins, check=False), reps=200,
-                      hide_host=True)
-    ring_cuda.raise_if_failed(dev)
+    M, Q = RING_MICROBATCH, 2 * BATCH // RING_MICROBATCH
+    ins, (c, k) = fused_inputs(torch, sh, M, Q, gen)
+    ms = cuda_time_ms(lambda: ring_cuda.fused_rank_ring_cuda(*ins), reps=200, hide_host=True)
     plain_ms = cuda_time_ms(lambda: ring.fused_rank_ring_plain(*ins), reps=50, hide_host=True)
-    # words (32 B), codes, roff, base, own in and the sum out per query and
-    # shard; RANK_OPS_PER_WORD a word for the match count, 2 for own *
-    # (base + count), S - 1 adds
+    # what this run's data needs: every shard's own in and sum out per
+    # query, and the row (32 B), code, roff and base only where own is set;
+    # RANK_OPS_PER_WORD a word for the match count and 2 for own * (base +
+    # count) of each owner, S - 1 adds
+    n_own = int((ins[4] != 0).sum())
     n_q = ins[1].numel()
-    timing["fused"] = (ms, plain_ms,
-                       *bound(n_q * (32 + 5 * 4), n_q * (8 * RANK_OPS_PER_WORD + 2 + S - 1)),
-                       None)
-    for name, (t, p, b, by, lib) in timing.items():
-        log(f"[9] {name} at S={S}, payload {tuple(parts.shape) if name == 'ring' else tuple(ins[1].shape)}: "
-            f"kernel {t:.4f} ms, plain torch {p:.4f} ms, parts.sum(0) "
-            f"{'%.4f ms' % lib if lib is not None else 'none'}, bound {b:.4f} ms by {by} ({card})")
+    timing["words"] = (ms, plain_ms,
+                       *bound(n_q * 2 * 4 + n_own * (32 + 3 * 4),
+                              n_own * (8 * RANK_OPS_PER_WORD + 2) + n_q * (S - 1) // S), None)
+
+    def table():
+        return ring_cuda.fused_occ_cuda(sh.bwt_blocks, sh.occ_cp, sh.pk_start, sh.pk_end,
+                                        sh.primary, c, k)
+
+    def old_stage():  # what merge="fused" ran a step before the table entry
+        g = [si.local_occ_gather(sh, c[m], k[m]) for m in range(M)]
+        w, roff, base, own = (torch.stack([x[f] for x in g], dim=1) for f in range(4))
+        return ring.fused_rank_ring(w, c[None].expand(S, M, Q), roff, base, own)
+
+    t = {}
+    for name, fn in (("table", table), ("stage", old_stage), ("table2", table)):
+        t[name] = cuda_time_ms(fn, reps=200, hide_host=True)
+    plain_ms = cuda_time_ms(lambda: si.fused_occ_plain(sh, c, k), reps=50, hide_host=True)
+    # k, code, the owner's 32-byte row and checkpoint in and the sum out per
+    # query (the S bounds once); RANK_OPS_PER_WORD a word, the owner test
+    # and block split of each shard
+    n_q = c.numel()
+    timing["table"] = (min(t["table"], t["table2"]), plain_ms,
+                       *bound(n_q * (4 + 4 + 32 + 4 + 4) + 8 * S,
+                              n_q * (8 * RANK_OPS_PER_WORD + 4 * S + 6)), None)
+    for name, (tm, p, b, by, lib) in timing.items():
+        shape = tuple(parts.shape) if name == "ring" else (S, M, Q)
+        log(f"[9] {name} at S={S}, payload {shape}: kernel {tm:.4f} ms, plain torch {p:.4f} ms, "
+            f"parts.sum(0) {'%.4f ms' % lib if lib is not None else 'none'}, bound {b:.4f} ms "
+            f"by {by} ({card})")
+    log(f"[9] table entry {t['table']:.4f} / {t['table2']:.4f} ms; the stage it replaces "
+        f"(local_occ_gather of both chunks + stack + the words entry) {t['stage']:.4f} ms "
+        f"({card})")
+    timing["stage"] = t["stage"]
     return max_err, timing
 
 
@@ -987,20 +1307,21 @@ def phase_sharded_search(torch, dev, codes, gi, card):
         fn = si.make_sharded_exact_search(layout, L, sh, merge=merge, microbatch=mb)
         fn(sh, r[:1024], ln[:1024])  # warm-up: scratch and allocator
         torch.cuda.synchronize()
-        ring_cuda.ring_allreduce_cuda.launches = 0
-        ring_cuda.fused_rank_ring_cuda.launches = 0
+        counters = (ring_cuda.ring_allreduce_cuda, ring_cuda.fused_occ_cuda,
+                    ring_cuda.fused_rank_ring_cuda)
+        for f in counters:
+            f.launches = 0
         t0 = time.time()
         out = fn(sh, r, ln)
         torch.cuda.synchronize()
         secs[merge] = time.time() - t0
-        launches[merge] = (ring_cuda.ring_allreduce_cuda.launches,
-                           ring_cuda.fused_rank_ring_cuda.launches)
+        launches[merge] = tuple(f.launches for f in counters)
         got = [v.cpu() for v in out]
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
         log(f"[10] merge={merge} microbatch={mb}: {secs[merge]:.3f} s "
             f"({BATCH / secs[merge]:.1f} reads/s), (lo, hi, pos) equal to the single-device "
-            f"search: {same}; ring launches {launches[merge][0]}, fused launches "
-            f"{launches[merge][1]} ({card})")
+            f"search: {same}; launches: sum {launches[merge][0]}, fused table entry "
+            f"{launches[merge][1]}, fused words entry {launches[merge][2]} ({card})")
         check(same, f"merge={merge} differs from the single-device search")
     lo, hi, pos = ref
     n_found = int((hi > lo).sum())
@@ -1010,10 +1331,11 @@ def phase_sharded_search(torch, dev, codes, gi, card):
         f"them at their true start")
     check(n_found == BATCH, "an error-free read was not found")
     check(n_placed == int(unique.sum()), "a unique read was placed off its true start")
-    check(launches["ring"] == (L * RING_MICROBATCH, 0),
-          f"merge=ring launched {launches['ring']}, expected ({L * RING_MICROBATCH}, 0)")
-    check(launches["fused"] == (0, L), f"merge=fused launched {launches['fused']}, expected (0, {L})")
-    check(launches["psum"] == (0, 0), "merge=psum launched a ring kernel")
+    check(launches["ring"] == (L * RING_MICROBATCH, 0, 0),
+          f"merge=ring launched {launches['ring']}, expected ({L * RING_MICROBATCH}, 0, 0)")
+    check(launches["fused"] == (0, L, 0),
+          f"merge=fused launched {launches['fused']}, expected (0, {L}, 0)")
+    check(launches["psum"] == (0, 0, 0), "merge=psum launched a ring kernel")
     return launches["ring"][0], launches["fused"][1]
 
 
@@ -1024,6 +1346,7 @@ def phase_sharded_cli(codes, card):
     from genome_weaver_align_tpu_torch.ops import dp_cuda
 
     idx, seedf, _ = build_index(cli, codes)
+    sharded_launches = 0
     work = CACHE / f"sharded{os.getpid()}"
     work.mkdir(parents=True)
     for name, n_reads, extra, seed in (("seed-table", BATCH, ["--seed-table", str(seedf)], 51),
@@ -1057,19 +1380,24 @@ def phase_sharded_cli(codes, card):
             entry = 1 if n_int > 1 else 0
             check(launches[entry] > 0, f"--n-interval {n_int} never launched the banded DP "
                   f"kernel's {('text', 'windows')[entry]} entry")
+            if n_int > 1:
+                sharded_launches += launches[1]
         same = bodies[SHARDS] == bodies[1]
         log(f"[11] {name}: the --n-interval {SHARDS} SAM body is byte-identical to the "
             f"single-device one: {same}")
         check(same, f"{name}: the sharded SAM differs from the single-device SAM")
     shutil.rmtree(work)
+    return sharded_launches
 
 
-def kernel_row(name, source, replaces, launches, max_err, timing) -> dict:
+def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
+    """One entry of the ``kernels`` line; ``path`` names the run whose
+    launches are counted."""
     ms, plain_ms, bound_ms, bound_by, library_ms = timing
     return {"name": name, "route": "cuda", "source": f"genome_weaver_align_tpu_torch/csrc/{source}",
-            "replaces": f"genome_weaver_align_tpu/{replaces}", "launches": launches,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "replaces": f"genome_weaver_align_tpu/{replaces}", "path": path,
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
 def main() -> int:
@@ -1089,10 +1417,11 @@ def main() -> int:
     from genome_weaver_align_tpu_torch.utils.simulate import random_genome
     from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
 
-    global INT_OPS_PER_S
+    global INT_OPS_PER_S, MAX_SM_HZ
     dev = torch.device("cuda", 0)
     card = card_line()
-    INT_OPS_PER_S = int_ops_per_s(torch)
+    MAX_SM_HZ = max_sm_hz()
+    INT_OPS_PER_S = int_ops_per_s(torch, MAX_SM_HZ)
     log(f"[1] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible; "
         f"int32 issue rate {INT_OPS_PER_S:.4g}/s")
@@ -1124,22 +1453,37 @@ def main() -> int:
         ring_err, ring_timing = phase_rings(torch, dev, gi.fwd, card)
         ring_launches, fused_launches = phase_sharded_search(torch, dev, codes, gi, card)
         del gi
-        phase_sharded_cli(codes, card)
+        banded_win_launches = phase_sharded_cli(codes, card)
         check("jax" not in sys.modules, "the smoke imported jax")
         check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
                       for m in sys.modules), "the smoke imported the JAX package")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    myers_win_err, myers_text_err = myers_err
     log(json.dumps({"kernels": [
-        kernel_row("banded_dp", "banded_dp.cu", "ops/dp_pallas.py:47", launches, max_err,
-                   (*dp_timing, None)),
-        kernel_row("myers", "myers.cu", "ops/myers_pallas.py:75", myers_launches, myers_err,
-                   (*myers_times["rescue"], None)),
-        kernel_row("ring_allreduce", "ring.cu", "parallel/ring.py:58", ring_launches,
-                   ring_err["ring"], ring_timing["ring"]),
-        kernel_row("fused_rank_ring", "ring.cu", "parallel/ring.py:162", fused_launches,
-                   ring_err["fused"], ring_timing["fused"]),
+        kernel_row("banded_dp_text", "banded_dp.cu", "ops/dp_pallas.py:47",
+                   "[4] align --seed-table", launches, max_err, (*dp_timing["text"], None)),
+        kernel_row("banded_dp_windows", "banded_dp.cu", "ops/dp_pallas.py:47",
+                   "[11] align --n-interval 4", banded_win_launches, max_err,
+                   (*dp_timing["windows"], None)),
+        kernel_row("myers_text", "myers.cu", "ops/myers_pallas.py:75",
+                   "[8] align --paired (mate rescue)", myers_launches, myers_text_err,
+                   (*myers_times["text", "rescue"], None),
+                   stage_ms=myers_times["stage", "rescue"],
+                   latency_floor_ms=myers_times["floor"],
+                   warp_issue_floor_ms=myers_times["issue_floor"]),
+        kernel_row("myers_windows", "myers.cu", "ops/myers_pallas.py:75",
+                   "none: the JAX contract's entry, held against plain in [6]", 0,
+                   myers_win_err, (*myers_times["windows", "rescue"], None)),
+        kernel_row("ring_allreduce", "ring.cu", "parallel/ring.py:58",
+                   "[10] merge=ring", ring_launches, ring_err["ring"], ring_timing["ring"]),
+        kernel_row("fused_rank_ring_words", "ring.cu", "parallel/ring.py:162",
+                   "none: the JAX contract's entry, held against plain in [9]", 0,
+                   ring_err["words"], ring_timing["words"]),
+        kernel_row("fused_occ_table", "ring.cu", "parallel/ring.py:162", "[10] merge=fused",
+                   fused_launches, ring_err["table"], ring_timing["table"],
+                   stage_ms=ring_timing["stage"]),
     ]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -29,9 +29,9 @@
 //     compact_lanes their rids do not decrease, so they cover a short run
 //     of reads (about 21 at 6 lanes a read): the block copies those rows
 //     (one contiguous span of the reads tensor) into shared memory once,
-//     with 16-byte loads, and each row then costs one shared-memory byte
-//     load.  A block whose lanes span more than 128 reads copies each lane's
-//     row instead (a warp per row, coalesced bytes).  Lanes that share a read
+//     with 16-byte loads (stage_rows.cuh), and each row then costs one
+//     shared-memory byte load.  A block whose lanes span more than 128 reads
+//     copies each lane's row instead (a warp per row, coalesced bytes).  Lanes that share a read
 //     read the same shared byte (a broadcast); rows L bytes apart fall in
 //     different banks (L = 100: 25 words apart, coprime with 32).  The
 //     byte load is one instruction a row; packing 4 codes a 32-bit load
@@ -57,6 +57,9 @@
 //     moves, and a checked tail for narrow windows.
 //   So the kernel is bound by its integer issue rate: 4 instructions for
 //   each of the (4k+1) cells of every live read row.
+//   * k = 1..14, the aligner's whole range (k < 15: the 4-bit dist field).
+//     The band's 3 (4k+1) registers reach 171 at k = 14; what ptxas spills
+//     there, chip_smoke.py prints.
 //
 // Entry: gwa_banded_dp, a plain C function bound with ctypes.  It launches
 // on the caller's stream, does not synchronise, allocates nothing, and
@@ -69,11 +72,18 @@
 #include <type_traits>
 #include <utility>
 
+#include "stage_rows.cuh"
+
 namespace {
 
 constexpr int32_t kInf = 1 << 20;
 constexpr int32_t kNoMatch = 256;  // a window code no int8 read code equals
-constexpr int kThreads = 128;
+constexpr int kThreads = gwa::kMaxStageThreads;
+// The body's rows are unrolled by 4k+1 for k up to this; a wider band runs
+// its body one row at a time with the window codes shifted by moves, so
+// that the (4k+1)^2-cell unrolled body of every k up to 14 (the aligner's
+// k < 15) does not multiply the build time.
+constexpr int kMaxUnrolledK = 8;
 
 struct Args {
   const int8_t* reads;     // (B, L)
@@ -194,69 +204,15 @@ __device__ __forceinline__ void body_rows(Band<K>& s, Stream& win, const int8_t*
   (body_row<K, R>(s, win, rrow, i0 + R), ...);
 }
 
-// Copy the rows of this block's lanes into shared memory; returns the
-// lane's row there.
-__device__ __forceinline__ const int8_t* stage_reads(const Args& a, int32_t r, bool live,
-                                                     int8_t* smem) {
-  __shared__ int32_t s_lo, s_hi;
-  __shared__ int32_t s_rid[kThreads];
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    s_lo = INT_MAX;
-    s_hi = INT_MIN;
-  }
-  s_rid[tid] = r;
-  __syncthreads();
-  const int32_t lo = __reduce_min_sync(0xFFFFFFFFu, live ? r : INT_MAX);
-  const int32_t hi = __reduce_max_sync(0xFFFFFFFFu, live ? r : INT_MIN);
-  if ((tid & 31) == 0) {
-    atomicMin(&s_lo, lo);
-    atomicMax(&s_hi, hi);
-  }
-  __syncthreads();
-  const int32_t rlo = s_lo, rhi = s_hi;
-  const int64_t L = a.L;
-  const int8_t* row;
-  if (static_cast<int64_t>(rhi) - rlo < kThreads) {
-    // one contiguous span [g0, g1) of the reads tensor: 16-byte loads for
-    // its aligned middle, bytes for the ragged ends; shared offset = address
-    // - base keeps the middle's stores 16-byte aligned
-    using Addr = unsigned long long;
-    constexpr Addr kAlign = 15;
-    const Addr g0 = reinterpret_cast<Addr>(a.reads + rlo * L);
-    const Addr g1 = reinterpret_cast<Addr>(a.reads + (rhi + 1) * L);
-    const Addr base = g0 & ~kAlign;
-    const Addr m0 = min((g0 + kAlign) & ~kAlign, g1);
-    const Addr m1 = max(g1 & ~kAlign, m0);
-    for (Addr g = g0 + tid; g < m0; g += kThreads)
-      smem[g - base] = *reinterpret_cast<const int8_t*>(g);
-    for (Addr g = m0 + 16 * tid; g < m1; g += 16 * kThreads)
-      *reinterpret_cast<uint4*>(smem + (g - base)) = __ldg(reinterpret_cast<const uint4*>(g));
-    for (Addr g = m1 + tid; g < g1; g += kThreads)
-      smem[g - base] = *reinterpret_cast<const int8_t*>(g);
-    row = smem + (g0 - base) + (r - rlo) * L;
-  } else {
-    // lanes over more than 128 reads: each lane's own row, a warp a row
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int t = warp; t < kThreads; t += kThreads / 32) {
-      const int8_t* src = a.reads + s_rid[t] * L;
-      for (int64_t c = lane; c < L; c += 32) smem[t * L + c] = src[c];
-    }
-    row = smem + tid * L;
-  }
-  __syncthreads();
-  return row;
-}
-
 template <int K, bool kText>
 __global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
   constexpr int BAND = 4 * K + 1;
-  extern __shared__ __align__(16) int8_t smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const bool live = q < a.Q;
   int32_t r = 0;
   if (live) r = a.rid ? min(max(a.rid[q], 0), a.B - 1) : static_cast<int32_t>(q);
-  const int8_t* rrow = stage_reads(a, r, live, smem);
+  const int8_t* rrow = gwa::stage_rows(a.reads, a.L, r, live, smem);
   if (!live) return;
 
   const int32_t len = a.lengths[r];
@@ -281,8 +237,10 @@ __global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
   const int32_t body = max(head, min(steps, W - 3 * K));
   int32_t i = 0;
   for (; i < head; ++i) checked_row<K>(s, win, rrow[i], i, W);
-  for (; i + BAND <= body; i += BAND)
-    body_rows<K>(s, win, rrow, i, std::make_integer_sequence<int, BAND>{});
+  if constexpr (K <= kMaxUnrolledK) {
+    for (; i + BAND <= body; i += BAND)
+      body_rows<K>(s, win, rrow, i, std::make_integer_sequence<int, BAND>{});
+  }
   for (; i < body; ++i) {
     body_row<K, 0>(s, win, rrow, i);
 #pragma unroll
@@ -332,6 +290,12 @@ int dispatch(int32_t k, const Args& a, cudaStream_t s) {
     case 6: return launch<6, kText>(a, s);
     case 7: return launch<7, kText>(a, s);
     case 8: return launch<8, kText>(a, s);
+    case 9: return launch<9, kText>(a, s);
+    case 10: return launch<10, kText>(a, s);
+    case 11: return launch<11, kText>(a, s);
+    case 12: return launch<12, kText>(a, s);
+    case 13: return launch<13, kText>(a, s);
+    case 14: return launch<14, kText>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

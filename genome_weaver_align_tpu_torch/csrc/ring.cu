@@ -1,82 +1,60 @@
 // All-reduce over interval shards on Hopper (sm_90a): the plain sum and the
-// fused occ-rank + ring sum.
+// fused occ-rank + shard sum, each one grid-stride pass.
 //
 // Replaces the two Pallas TPU kernels of genome_weaver_align_tpu/parallel/ring.py:
 //   _ring_kernel             -> allreduce_kernel<T, S>  (int32, float32; S = 1..16)
-//   _fused_rank_ring_kernel  -> ring_kernel<M>          (M = 1..8)
+//   _fused_rank_ring_kernel  -> fused_words_kernel      (the JAX contract: gathered rows)
+//                               fused_occ_kernel        (rows read from the sharded tables)
 // and computes exactly the plain versions in
 // genome_weaver_align_tpu_torch/parallel/ring.py (ring_psum_plain,
-// fused_rank_ring_plain): every shard d ends with
+// fused_rank_ring_plain) and parallel/sharded_index.py (fused_occ_plain):
+// every shard d ends with
 //   x_d + x_{d-1} + x_{d-2} + ... + x_{d-S+1}
 // added in that order, so the float32 sum is bit-equal to the plain loop.
 // Every shard's buffers come in as their own base pointers.
 //
-// allreduce_kernel: one pass, no ring.  The TPU ran a ring because ICI moves
-// data by remote DMA between neighbours.  On one card all S shards lie in
-// the same device memory and the ring's S-1 dependent hops were pure
-// latency (flag round trips across SMs), so a plain grid-stride kernel
-// reads the same 16-byte vector of every shard's input once and writes
-// every shard's output: int32 adds wrap, so one sum serves every shard;
-// float32 adds each shard's sum in its own ring order.  Stream order makes
-// every input complete at launch: no flags, no error word, nothing for the
-// host to read back.  Bound: bytes (S inputs read and S outputs written
-// once); the adds are S-1 an element (int32) or S(S-1) (float32).  Across
-// NVLink-joined cards the choice is between NCCL's all_reduce, this
-// one-shot pass over peer pointers behind one ready barrier, and the hop
-// protocol below.
+// No ring.  The TPU ran a ring because ICI moves data by remote DMA between
+// neighbours.  On one card all S shards lie in the same device memory and a
+// ring's S-1 dependent hops are pure latency (round trips across SMs), so
+// each kernel is one pass that reads every shard's input once and writes
+// every shard's output.  Stream order makes every input complete at launch:
+// nothing to wait on, no scratch, nothing for the host to read back.  Across
+// NVLink-joined cards the choice is between NCCL's all_reduce and this
+// one-pass shape over peer pointers behind one ready barrier.
 //
-// ring_kernel (fused): the ring's multi-hop protocol.  The S shards are
-// groups of G persistent thread blocks each; block b of every group owns
-// the same tiles of the payload (tiles b, b+G, ...), and talks only to
-// block b of the groups d-1 and d+1.  Per tile (ring.py:14-19, 87-121), for
-// hop s in 0..S-2:
-//   1. wait for a capacity grant from shard d+1 (cumulative count);
-//   2. store the value in flight (this shard's partial at s = 0, else the
-//      value received at hop s-1, held in registers) into shard d+1's slot
-//      (s+1)%2, then publish shard d+1's recv flag;
-//   3. wait for this shard's own recv flag from shard d-1, load the slot it
-//      filled, add it into the sum, and grant shard d-1 capacity for the
-//      slot it will fill at its hop s+2.
-// Both slots start free, so each shard grants min(2, S-1) at the start of a
-// tile.  Ordering rule kept from ring.py:102-105: every shard signals its
-// grant before it blocks on one.  The value in flight stays in registers,
-// and a shard never writes its own slots.  The TPU's token /
-// optimization_barrier sequencing becomes stream order: launches on one
-// stream never overlap, so one launch's flags never meet another's.
-//   * Co-residency: blocks spin on flags that other blocks set, so every
-//     block must be resident at once.  The grid is sized from
-//     cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, split
-//     over the S groups, and launched with cudaLaunchCooperativeKernel,
-//     which refuses a grid that cannot be co-resident instead of hanging.
-//   * No hang: every spin is bounded by %globaltimer (kTimeoutNs, 1 s).  On
-//     expiry the block sets the error word and returns; blocks spinning
-//     elsewhere see the word and return too.  The host reads the word when
-//     it asks (ring_cuda.raise_if_failed) and raises.  ``stall_shard`` (-1
-//     in use) makes one shard's blocks return at once, so the card tests can
-//     show that its neighbours time out and raise instead of hanging.
-//   * Visibility across SMs: the writer's threads store with __stcg, then
-//     __syncthreads(), then thread 0 issues __threadfence() and a release
-//     store of the flag (cuda::atomic_ref, thread_scope_device).  The reader's
-//     thread 0 spins on an acquire load, then __syncthreads(), then every
-//     thread loads the slot with __ldcg (L1 is not coherent across SMs).
-//   * Stale flags: flags persist from launch to launch.  Each value is
-//     (epoch << 32) | count, with a per-launch epoch from the host that only
-//     grows, so a flag of an earlier launch never satisfies a wait.
-//   * Ownership: roff can exceed 128 for a query this shard does not own
-//     (sharded_index.py:171-173); the mask clip saturates at the full block
-//     and own = 0 zeroes the partial.
-//   Bound: bytes (the 32-byte word row and four int32 of every shard and
-//   query read once, the sum written once); the least work is 7 integer
-//   instructions a word (xor, shift, and-not with the mask, popcount, add,
-//   and the mask's clip and shift), 2 for own * (base + count), and S-1
-//   adds a query.  The S-1 hops add flag round trips across SMs.
+// allreduce_kernel: each thread reads the same 16-byte vector of every
+// shard's input; int32 adds wrap, so one sum serves every shard; float32
+// adds each shard's sum in its own ring order.  Bound: bytes (S inputs read
+// and S outputs written once); the adds are S-1 an element (int32) or
+// S(S-1) (float32).
 //
-// Entries: gwa_allreduce, gwa_ring_plan (grid and scratch sizes) and
-// gwa_ring_launch, plain C functions bound with ctypes.  The launches run
-// on the caller's stream, do not synchronise, allocate nothing, and return
-// the launch's CUDA error code.
+// fused_words_kernel: one thread per (payload, query) walks the S shards.
+// It reads own first and loads the 32-byte word row (two 16-byte loads),
+// code, roff and base only where own != 0: own * x is 0 in wrapping int32
+// when own is 0, so the skip is bit-exact.  It adds in int32 and writes the
+// sum to every shard's output row.  roff can exceed 128 for a query the
+// shard does not own (sharded_index.py _block_split); the mask clip
+// saturates at the full block.  Bound: bytes (every shard's own read and
+// sum written once, and the owner's 32-byte row, code, roff and base read
+// once); the least work is 7 integer instructions a word (xor, shift,
+// and-not with the mask, popcount, add, and the mask's clip and shift), 2
+// for own * (base + count), and S-1 adds a query.
+//
+// fused_occ_kernel: the same sum, but each thread does the shards' block
+// split itself (sharded_index.py _block_split: the sentinel adjustment, the
+// owner test against each shard's [pk_start, pk_end), the clamped local
+// block and roff), with the S bounds in shared memory, and loads only the
+// owner's 32-byte row of bwt_blocks and one int32 of occ_cp; a non-owner
+// adds 0 without a load.  No (S, M, Q, 8) word tensor is ever built.  At
+// chr20 scale the shards' bwt_blocks are ~16 MB and stay in the 50 MB L2; a
+// random row is one 32-byte sector.  Bound: bytes, k, code, row,
+// checkpoint and out, 48 B a query.
+//
+// Entries: gwa_allreduce, gwa_fused_words and gwa_fused_occ, plain C
+// functions bound with ctypes.  The launches run on the caller's stream, do
+// not synchronise, allocate nothing, and return the launch's CUDA error
+// code.
 
-#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,9 +63,8 @@
 namespace {
 
 constexpr int kMaxShards = 16;
-constexpr int kInputs = 5;
 constexpr int kThreads = 256;
-constexpr unsigned long long kTimeoutNs = 1000000000ull;
+constexpr int kBlockBases = 128;  // bases of one 8-word BWT row
 
 __device__ __forceinline__ int add(int a, int b) {  // wraps like torch's int32 add
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -102,6 +79,19 @@ template <>
 __device__ __forceinline__ float from_bits<float>(unsigned u) { return __uint_as_float(u); }
 __device__ __forceinline__ unsigned to_bits(int v) { return static_cast<unsigned>(v); }
 __device__ __forceinline__ unsigned to_bits(float v) { return __float_as_uint(v); }
+
+// Blocks of a grid-stride pass over `items` work items: enough to cover
+// them, at most 8 a multiprocessor.
+int grid_blocks(int64_t items, unsigned* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t want = (items + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * 8;
+  *blocks = static_cast<unsigned>(want < cap ? want : cap);
+  return 0;
+}
 
 // ---- one-pass all-reduce
 
@@ -181,14 +171,9 @@ int allreduce(const ShardIO& p, int64_t n, cudaStream_t stream) {
     aligned &= (reinterpret_cast<uintptr_t>(p.in[d]) | reinterpret_cast<uintptr_t>(p.out[d])) %
                    16 == 0;
   const int64_t n_vec = aligned ? n / 4 : 0;
-  const int64_t items = n_vec > n - 4 * n_vec ? n_vec : n - 4 * n_vec;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t want = (items + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * 8;
-  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  unsigned blocks = 0;
+  const int rc = grid_blocks(n_vec > n - 4 * n_vec ? n_vec : n - 4 * n_vec, &blocks);
+  if (rc != 0) return rc;
   allreduce_kernel<T, S><<<blocks, kThreads, 0, stream>>>(p, n, n_vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -216,211 +201,97 @@ int allreduce_s(int S, const ShardIO& p, int64_t n, cudaStream_t s) {
   }
 }
 
-// ---- fused rank + ring
+// ---- fused occ rank + shard sum
 
-struct ShardPtrs {
-  const void* in[kMaxShards][kInputs];  // words, codes, roff, base, own
-  void* out[kMaxShards];
-  void* slots[kMaxShards];               // per block: 2 slots x M x kThreads elements
-  unsigned long long* flags[kMaxShards];  // [0, G): recv from d-1; [G, 2G): grants from d+1
-};
-
-using Flag = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
-using ErrWord = cuda::atomic_ref<int, cuda::thread_scope_device>;
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// All threads call it; thread 0 spins.  False when this wait timed out or
-// another block already failed: the caller returns.
-__device__ bool wait_at_least(unsigned long long* flag, unsigned long long target, int* err,
-                              int code) {
-  __shared__ int s_ok;
-  if (threadIdx.x == 0) {
-    Flag f(*flag);
-    ErrWord e(*err);
-    int ok = 1;
-    if (f.load(cuda::memory_order_acquire) < target) {
-      const unsigned long long t0 = globaltimer();
-      while (f.load(cuda::memory_order_acquire) < target) {
-        if (e.load(cuda::memory_order_relaxed) != 0) {
-          ok = 0;
-          break;
-        }
-        if (globaltimer() - t0 > kTimeoutNs) {
-          int zero = 0;
-          e.compare_exchange_strong(zero, code, cuda::memory_order_relaxed);
-          ok = 0;
-          break;
-        }
-        __nanosleep(64);
-      }
-    }
-    s_ok = ok;
-  }
-  __syncthreads();
-  return s_ok != 0;
-}
-
-// Thread 0 only, after a __syncthreads() that follows the block's stores.
-__device__ __forceinline__ void publish(unsigned long long* flag, unsigned long long v) {
-  __threadfence();
-  Flag(*flag).store(v, cuda::memory_order_release);
-}
-
-// own * (base + #bases equal to code in the first roff of the 128-base
-// block): the 8 words are one 32-byte row; the code * 0x55555555 spread
-// that ring.py:345 hoisted out for Mosaic is computed here
-__device__ __forceinline__ int rank_partial(const ShardPtrs& p, int d, int64_t r) {
-  const uint4* w4 = reinterpret_cast<const uint4*>(static_cast<const int*>(p.in[d][0]) + r * 8);
+// #bases equal to code in the first roff bases of one 128-base block: the 8
+// words are one 16-byte-aligned 32-byte row; the code * 0x55555555 spread
+// that ring.py:345 hoisted out for Mosaic is computed here.  roff above 128
+// saturates at the full block.
+__device__ __forceinline__ unsigned rank_partial(const int* row, int code, int roff) {
+  const uint4* w4 = reinterpret_cast<const uint4*>(row);
   const uint4 lo = __ldg(w4), hi = __ldg(w4 + 1);
   const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  const unsigned pattern =
-      static_cast<unsigned>(static_cast<const int*>(p.in[d][1])[r]) * 0x55555555u;
-  const int roff = static_cast<const int*>(p.in[d][2])[r];
-  const int base = static_cast<const int*>(p.in[d][3])[r];
-  const int own = static_cast<const int*>(p.in[d][4])[r];
+  const unsigned pattern = static_cast<unsigned>(code) * 0x55555555u;
   int cnt = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int allowed = min(max(roff - 16 * j, 0), 16);  // saturates for roff > 128
+    const int allowed = min(max(roff - 16 * j, 0), 16);
     const unsigned mask = allowed >= 16 ? 0xFFFFFFFFu : (1u << (2 * allowed)) - 1u;
     const unsigned x = w[j] ^ pattern;
     cnt += __popc(~(x | (x >> 1)) & 0x55555555u & mask);
   }
-  return static_cast<int>(static_cast<unsigned>(own) *
-                          (static_cast<unsigned>(base) + static_cast<unsigned>(cnt)));
+  return static_cast<unsigned>(cnt);
 }
 
-// M payloads of Q elements per shard; each thread holds one element of every
-// payload in a tile, so one hop moves all M payloads of the tile.
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-    ring_kernel(ShardPtrs p, int S, int G, int64_t Q, unsigned long long epoch, int* err,
-                int stall_shard) {
-  constexpr int64_t kTileQ = kThreads;
-  const int d = blockIdx.x / G;
-  const int b = blockIdx.x % G;
-  if (d == stall_shard) return;
-  const int right = (d + 1) % S;
-  const int left = (d + S - 1) % S;
-  const int tid = threadIdx.x;
-  const size_t slot_stride = static_cast<size_t>(M) * kThreads;
-  int* out = static_cast<int*>(p.out[d]);
-  const int* my_slots = static_cast<const int*>(p.slots[d]) + b * 2 * slot_stride;
-  int* right_slots = static_cast<int*>(p.slots[right]) + b * 2 * slot_stride;
-  unsigned long long* my_recv = p.flags[d] + b;
-  unsigned long long* my_cap = p.flags[d] + G + b;
-  unsigned long long* right_recv = p.flags[right] + b;
-  unsigned long long* left_cap = p.flags[left] + G + b;
-  const unsigned long long tag = epoch << 32;
-  const int hops = S - 1;
-  unsigned long long n_cap = 0, n_sent = 0, n_recv = 0, n_granted = 0;
-  const int64_t n_tiles = (Q + kTileQ - 1) / kTileQ;
+// The words entry: per shard, (n, 8) word rows and (n,) codes, roff, base,
+// own; out (n,) per shard.
+struct WordsIO {
+  const int* words[kMaxShards];
+  const int* codes[kMaxShards];
+  const int* roff[kMaxShards];
+  const int* base[kMaxShards];
+  const int* own[kMaxShards];
+  int* out[kMaxShards];
+};
 
-  for (int64_t tile = b; tile < n_tiles; tile += G) {
-    int cur[M], acc[M];
-    int64_t idx[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int64_t q = tile * kTileQ + tid;
-      idx[i] = q < Q ? static_cast<int64_t>(i) * Q + q : -1;
-      cur[i] = idx[i] >= 0 ? rank_partial(p, d, idx[i]) : 0;
-      acc[i] = cur[i];
-    }
-    if (hops > 0) {
-      n_granted += hops < 2 ? hops : 2;  // both slots free: grant before any wait
-      if (tid == 0) publish(left_cap, tag | n_granted);
-      for (int s = 0; s < hops; ++s) {
-        const size_t slot = static_cast<size_t>((s + 1) & 1) * slot_stride;
-        if (!wait_at_least(my_cap, tag | (n_cap + 1), err, 1)) return;
-        ++n_cap;
-#pragma unroll
-        for (int i = 0; i < M; ++i) __stcg(right_slots + slot + i * kThreads + tid, cur[i]);
-        __syncthreads();
-        ++n_sent;
-        if (tid == 0) publish(right_recv, tag | n_sent);
-        if (!wait_at_least(my_recv, tag | (n_recv + 1), err, 2)) return;
-        ++n_recv;
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-          cur[i] = __ldcg(my_slots + slot + i * kThreads + tid);
-          acc[i] = add(acc[i], cur[i]);
-        }
-        __syncthreads();  // the slot is read: shard d-1 may refill it at its hop s+2
-        if (s + 2 < hops) {
-          ++n_granted;
-          if (tid == 0) publish(left_cap, tag | n_granted);
-        }
+__global__ void __launch_bounds__(kThreads) fused_words_kernel(const WordsIO p, int S, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    unsigned acc = 0;
+    for (int d = 0; d < S; ++d) {
+      const int own = __ldg(p.own[d] + i);
+      if (own != 0) {
+        const unsigned cnt = rank_partial(p.words[d] + i * 8, __ldg(p.codes[d] + i),
+                                          __ldg(p.roff[d] + i));
+        acc += static_cast<unsigned>(own) * (static_cast<unsigned>(__ldg(p.base[d] + i)) + cnt);
       }
     }
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-      if (idx[i] >= 0) out[idx[i]] = acc[i];
+    for (int d = 0; d < S; ++d) p.out[d][i] = static_cast<int>(acc);
   }
 }
 
-template <int M>
-int plan(int S, int64_t Q, int* G, int64_t* slot_elems) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_kernel<M>, kThreads, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t per_shard = static_cast<int64_t>(per_sm) * sms / S;
-  if (per_shard < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int64_t n_tiles = (Q + kThreads - 1) / kThreads;
-  *G = static_cast<int>(n_tiles < per_shard ? n_tiles : per_shard);
-  *slot_elems = static_cast<int64_t>(*G) * 2 * M * kThreads;
-  return 0;
-}
-
-template <int M>
-int launch(const ShardPtrs& p, int S, int G, int64_t Q, unsigned long long epoch, int* err,
-           int stall_shard, cudaStream_t stream) {
-  ShardPtrs pp = p;
-  void* args[] = {&pp, &S, &G, &Q, &epoch, &err, &stall_shard};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ring_kernel<M>),
-                                              dim3(static_cast<unsigned>(S * G)),
-                                              dim3(kThreads), args, 0, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Calls F<M>::run(args...) for M = 1..8.
-template <template <int> class F, typename... A>
-int dispatch(int M, A... a) {
-  switch (M) {
-    case 1: return F<1>::run(a...);
-    case 2: return F<2>::run(a...);
-    case 3: return F<3>::run(a...);
-    case 4: return F<4>::run(a...);
-    case 5: return F<5>::run(a...);
-    case 6: return F<6>::run(a...);
-    case 7: return F<7>::run(a...);
-    case 8: return F<8>::run(a...);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <int M>
-struct Plan {
-  static int run(int S, int64_t Q, int* G, int64_t* slot_elems) {
-    return plan<M>(S, Q, G, slot_elems);
-  }
+// The table entry: the stacked shard tables and n (code, coordinate)
+// queries -> n merged occ values.
+struct TableIO {
+  const int* bwt;       // (S, R, 8) uint32 words as int32
+  const int* occ_cp;    // (S, R, 4) global checkpoint values
+  const int* pk_start;  // (S,)
+  const int* pk_end;    // (S,)
+  const int* codes;     // (n,) 0..3
+  const int* k;         // (n,) sentinel-inclusive coordinates
+  int* out;             // (n,)
+  int64_t n;
+  int S, R, primary;
 };
 
-template <int M>
-struct Launch {
-  static int run(const ShardPtrs* p, int S, int G, int64_t Q, unsigned long long epoch, int* err,
-                 int stall_shard, cudaStream_t stream) {
-    return launch<M>(*p, S, G, Q, epoch, err, stall_shard, stream);
+__global__ void __launch_bounds__(kThreads) fused_occ_kernel(const TableIO a) {
+  __shared__ int s_ps[kMaxShards], s_pe[kMaxShards];
+  if (threadIdx.x < a.S) {
+    s_ps[threadIdx.x] = a.pk_start[threadIdx.x];
+    s_pe[threadIdx.x] = a.pk_end[threadIdx.x];
   }
-};
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < a.n;
+       i += stride) {
+    const int k = __ldg(a.k + i);
+    const int k_adj = k - (k > a.primary ? 1 : 0);
+    unsigned acc = 0;
+    for (int d = 0; d < a.S; ++d) {
+      const int ps = s_ps[d];
+      if (k_adj >= ps && k_adj < s_pe[d]) {
+        const int b = min((k_adj - ps) / kBlockBases, a.R - 1);
+        const int roff = k_adj - ps - b * kBlockBases;
+        const int code = __ldg(a.codes + i);
+        const int64_t row = static_cast<int64_t>(d) * a.R + b;
+        acc += static_cast<unsigned>(__ldg(a.occ_cp + row * 4 + (code & 3))) +
+               rank_partial(a.bwt + row * 8, code, roff);
+      }
+    }
+    a.out[i] = static_cast<int>(acc);
+  }
+}
 
 }  // namespace
 
@@ -441,27 +312,51 @@ extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptr
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int gwa_ring_plan(int M, int S, int64_t Q, int* G, int64_t* slot_elems) {
-  if (S < 1 || S > kMaxShards || Q < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<Plan>(M, S, Q, G, slot_elems);
+// ptrs: 6 x S device pointers, shard-major: words (16-byte aligned), codes,
+// roff, base, own and out of shard d at ptrs[6 d .. 6 d + 5]; n queries a
+// shard.
+extern "C" int gwa_fused_words(int S, int64_t n, const uint64_t* ptrs, void* stream) {
+  if (S < 1 || S > kMaxShards || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  WordsIO p{};
+  for (int d = 0; d < S; ++d) {
+    const uint64_t* q = ptrs + 6 * d;
+    p.words[d] = reinterpret_cast<const int*>(q[0]);
+    p.codes[d] = reinterpret_cast<const int*>(q[1]);
+    p.roff[d] = reinterpret_cast<const int*>(q[2]);
+    p.base[d] = reinterpret_cast<const int*>(q[3]);
+    p.own[d] = reinterpret_cast<const int*>(q[4]);
+    p.out[d] = reinterpret_cast<int*>(q[5]);
+  }
+  unsigned blocks = 0;
+  const int rc = grid_blocks(n, &blocks);
+  if (rc != 0) return rc;
+  fused_words_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, S, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// in_ptrs: S x 5 device pointers; out_ptrs, slot_ptrs, flag_ptrs: S each.
-// G from gwa_ring_plan; epoch > every earlier epoch used with these flags,
-// below 2^32; stall_shard -1 (or a shard, for the no-hang test).
-extern "C" int gwa_ring_launch(int M, int S, int G, int64_t Q, const uint64_t* in_ptrs,
-                               const uint64_t* out_ptrs, const uint64_t* slot_ptrs,
-                               const uint64_t* flag_ptrs, uint64_t epoch, void* err,
-                               int stall_shard, void* stream) {
-  if (S < 1 || S > kMaxShards || G < 1 || Q < 1) return static_cast<int>(cudaErrorInvalidValue);
-  ShardPtrs p{};
-  for (int d = 0; d < S; ++d) {
-    for (int i = 0; i < kInputs; ++i)
-      p.in[d][i] = reinterpret_cast<const void*>(in_ptrs[d * kInputs + i]);
-    p.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
-    p.slots[d] = reinterpret_cast<void*>(slot_ptrs[d]);
-    p.flags[d] = reinterpret_cast<unsigned long long*>(flag_ptrs[d]);
-  }
-  return dispatch<Launch>(M, &p, S, G, Q, static_cast<unsigned long long>(epoch),
-                          static_cast<int*>(err), stall_shard, static_cast<cudaStream_t>(stream));
+// bwt (S, R, 8) 16-byte aligned, occ_cp (S, R, 4), pk_start and pk_end
+// (S,), codes, k and out (n,), all int32.
+extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const void* bwt,
+                             const void* occ_cp, const void* pk_start, const void* pk_end,
+                             const void* codes, const void* k, void* out, void* stream) {
+  if (S < 1 || S > kMaxShards || R < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  TableIO a{};
+  a.bwt = static_cast<const int*>(bwt);
+  a.occ_cp = static_cast<const int*>(occ_cp);
+  a.pk_start = static_cast<const int*>(pk_start);
+  a.pk_end = static_cast<const int*>(pk_end);
+  a.codes = static_cast<const int*>(codes);
+  a.k = static_cast<const int*>(k);
+  a.out = static_cast<int*>(out);
+  a.n = n;
+  a.S = S;
+  a.R = R;
+  a.primary = primary;
+  unsigned blocks = 0;
+  const int rc = grid_blocks(n, &blocks);
+  if (rc != 0) return rc;
+  fused_occ_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -69,9 +69,9 @@ class PairedAligner:
         return fwd.pos <= rev.pos and self.min_insert <= tlen <= self.max_insert
 
     def _rescue_batch(self, jobs: list[tuple[np.ndarray, ApproxHit, int]]):
-        """Batched mate rescue: ONE window gather + ONE Myers verify over all
-        half-mapped mates on the device, then ONE banded affine traceback for
-        the accepted cohort on the host.
+        """Batched mate rescue: ONE Myers verify over all half-mapped mates on
+        the device, each against its insert window of the packed text, then
+        ONE banded affine traceback for the accepted cohort on the host.
 
         Each job is (unmapped mate codes, anchor hit, anchor length); returns
         per-job ApproxHit | None."""
@@ -94,22 +94,19 @@ class PairedAligner:
             codes[t, :l] = rc
 
         dev = self.al.device
-        wins = window.gather_windows(
-            self.al.text_words, self.al.fm.n, _to_device(ws.astype(np.int32), dev), W
-        )
         # W is sized with the cohort max read length; columns beyond each
-        # read's OWN insert window (max_insert - min_insert + len) become the
-        # never-matching code 4, so a shorter mate cannot be rescued outside
-        # its insert bound
+        # read's OWN insert window (max_insert - min_insert + len) never
+        # match, so a shorter mate cannot be rescued outside its insert
+        # bound.  On the card the kernel streams each window from the packed
+        # text: no (J, W) window tensor is made
         own_w = (W - lmax) + lens  # (J,) per-job valid window length
-        col = torch.arange(W, dtype=torch.int64, device=dev)
-        wins = torch.where(col[None, :] >= _to_device(own_w, dev)[:, None], 4, wins)
-        d, end = myers.myers_semiglobal_end(
+        d, end = myers.myers_semiglobal_text(
+            self.al.text_words, self.al.fm.n, _to_device(ws.astype(np.int32), dev),
             _to_device(codes, dev), _to_device(lens.astype(np.int32), dev),
-            wins.contiguous(), (lmax + 31) // 32,
+            torch.arange(J, dtype=torch.int32, device=dev),
+            _to_device(own_w.astype(np.int32), dev), W, (lmax + 31) // 32,
         )
-        # ONE transfer for the accept stats; the window tensor stays on the
-        # device
+        # ONE transfer for the accept stats
         d, end = torch.stack([d, end]).cpu().numpy().astype(np.int64)
 
         max_k = np.maximum(self.al.k, lens // 20)  # permissive rescue bar

@@ -317,12 +317,13 @@ def verify_candidates_myers(
     (B, C) dists, INF where invalid."""
     B, C = cand_pos.shape
     invalid = cand_pos == NO_CAND
-    wins = window.gather_windows(
-        text_words, n_text, torch.where(invalid, 0, cand_pos - k).reshape(-1), window_width
+    dev = cand_pos.device
+    rid = torch.div(torch.arange(B * C, dtype=I32, device=dev), C, rounding_mode="floor")
+    dist, _ = myers_ops.myers_semiglobal_text(
+        text_words, n_text, torch.where(invalid, 0, cand_pos - k).reshape(-1),
+        reads.to(torch.int8).contiguous(), lengths.to(I32).contiguous(), rid,
+        torch.full((B * C,), window_width, dtype=I32, device=dev), window_width, nwords,
     )
-    r = reads.to(torch.int8).repeat_interleave(C, dim=0)
-    ln = lengths.to(I32).repeat_interleave(C)
-    dist = myers_ops.myers_semiglobal(r, ln, wins, nwords)
     return torch.where(invalid, dp_ops.INF, dist.reshape(B, C))
 
 

@@ -13,7 +13,9 @@ wraps, and ``>>`` is arithmetic, so every right shift is followed by a
 mask; the carry of a word add comes from the bit-majority identity
 ``((a & b) | ((a | b) & ~s)) >> 31`` instead of an unsigned compare.
 
-``myers_semiglobal`` and ``myers_semiglobal_end`` send CUDA tensors to the
+``myers_semiglobal_text`` (windows streamed from the packed text: mate
+rescue and ``verify_mode="myers"``), ``myers_semiglobal`` and
+``myers_semiglobal_end`` (windows given) send CUDA tensors to the
 hand-written kernel (``ops.myers_cuda``, source ``csrc/myers.cu``; it takes
 reads of at most 256 bases) and CPU tensors to the plain loop below; there
 is no fallback from one to the other.
@@ -22,6 +24,8 @@ is no fallback from one to the other.
 from __future__ import annotations
 
 import torch
+
+from . import window
 
 I32 = torch.int32
 
@@ -145,3 +149,43 @@ def myers_semiglobal_end(reads, lengths, windows, nwords: int, max_window: int |
 
         return myers_cuda.myers_semiglobal_cuda(reads, lengths, windows, nwords, steps)
     return _myers_plain(reads, lengths, windows, nwords, steps)
+
+
+def myers_semiglobal_text_plain(text_words, n_text: int, starts, reads, lengths, rid, valid,
+                                W: int, nwords: int):
+    """The text entry's plain version: gather every lane's window and read,
+    set the columns at or after ``valid`` to 4, then the plain loop."""
+    rid = rid.long()
+    wins = window.gather_windows(text_words, n_text, starts, W)
+    col = torch.arange(W, dtype=I32, device=wins.device)
+    wins = torch.where(col[None, :] >= valid.to(I32)[:, None], 4, wins)
+    return _myers_plain(reads[rid], lengths[rid], wins, nwords, W)
+
+
+def myers_semiglobal_text(
+    text_words: torch.Tensor,  # (nw,) int32 packed text
+    n_text: int,  # text length in bases
+    starts: torch.Tensor,  # (Q,) int32 window starts (may be negative or past n_text)
+    reads: torch.Tensor,  # (B, L) int8 codes; values >= 4 never match
+    lengths: torch.Tensor,  # (B,) int32
+    rid: torch.Tensor,  # (Q,) int32 read of each lane
+    valid: torch.Tensor,  # (Q,) int32 columns at or after valid[q] never match
+    W: int,  # window width
+    nwords: int,
+):
+    """Myers of lane q: read ``rid[q]`` against the W text bases at
+    ``starts[q]`` (code 4 off the text and at columns >= ``valid[q]``) ->
+    (best (Q,), end (Q,)) int32, as ``myers_semiglobal_end`` gives them.
+
+    A CUDA tensor launches the kernel, which streams each window from the
+    packed words itself (no (Q, W) tensor is made); a CPU tensor takes
+    ``myers_semiglobal_text_plain``.  Both give the same result on every
+    lane."""
+    if reads.is_cuda:
+        from . import myers_cuda
+
+        return myers_cuda.myers_semiglobal_text_cuda(
+            text_words, n_text, starts, reads, lengths, rid, valid, W, nwords
+        )
+    return myers_semiglobal_text_plain(text_words, n_text, starts, reads, lengths, rid, valid,
+                                       W, nwords)

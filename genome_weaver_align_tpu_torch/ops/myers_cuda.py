@@ -1,10 +1,19 @@
 """Binding of the hand-written CUDA Myers kernel (``csrc/myers.cu``).
 
 The kernel replaces the JAX package's Pallas kernel
-``genome_weaver_align_tpu/ops/myers_pallas.py::_kernel`` and computes
-exactly ``ops.myers.myers_semiglobal_end``.  ``ops._cuda_build`` compiles it
-at first use with ``nvcc`` for ``sm_90a``; without ``nvcc``, or when the
-build fails, loading raises: there is no fallback to the plain version.
+``genome_weaver_align_tpu/ops/myers_pallas.py::_kernel``.  It has two
+entries over one kernel body:
+
+- ``myers_semiglobal_text_cuda``: windows streamed from the 2-bit packed
+  text inside the kernel, reads picked by a read id per lane, columns at or
+  after a per-lane bound never matching; equal to
+  ``ops.myers.myers_semiglobal_text_plain``;
+- ``myers_semiglobal_cuda``: (Q, W) windows and (Q, L) reads; equal to
+  ``ops.myers.myers_semiglobal_end``.
+
+``ops._cuda_build`` compiles it at first use with ``nvcc`` for ``sm_90a``;
+without ``nvcc``, or when the build fails, loading raises: there is no
+fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -27,7 +36,18 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.gwa_myers.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i32, i32, i32, i32, i32, vp]
     lib.gwa_myers.restype = ctypes.c_int
+    lib.gwa_myers_text.argtypes = [
+        vp, i32, i32, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int64, i32, i32, i32, i32, vp,
+    ]
+    lib.gwa_myers_text.restype = ctypes.c_int
     return lib
+
+
+def _check_words(L: int, nwords: int) -> None:
+    if L > MAX_LEN:
+        raise ValueError(f"read length {L} > {MAX_LEN} unsupported")
+    if not 1 <= nwords <= MAX_WORDS:
+        raise ValueError(f"nwords={nwords}: the kernel is built for 1..{MAX_WORDS} words")
 
 
 def myers_semiglobal_cuda(
@@ -59,12 +79,9 @@ def myers_semiglobal_cuda(
         raise ValueError("myers_semiglobal_cuda needs contiguous tensors")
     Q, L = reads.shape
     W = windows.shape[1]
-    if L > MAX_LEN:
-        raise ValueError(f"read length {L} > {MAX_LEN} unsupported")
     nwords = max(1, -(-L // 32)) if nwords is None else nwords
     steps = W if steps is None else steps
-    if not 1 <= nwords <= MAX_WORDS:
-        raise ValueError(f"nwords={nwords}: the kernel is built for 1..{MAX_WORDS} words")
+    _check_words(L, nwords)
     if steps > 0 and W == 0:
         raise ValueError("windows have no columns to step over")
     best = torch.empty(Q, dtype=torch.int32, device=reads.device)
@@ -85,3 +102,58 @@ def myers_semiglobal_cuda(
 
 
 myers_semiglobal_cuda.launches = 0
+
+
+def myers_semiglobal_text_cuda(
+    text_words: torch.Tensor,  # (nw,) int32 packed text, 16 bases a word
+    n_text: int,  # text length in bases
+    starts: torch.Tensor,  # (Q,) int32 window starts (may be negative or past n_text)
+    reads: torch.Tensor,  # (B, L) int8 codes
+    lengths: torch.Tensor,  # (B,) int32
+    rid: torch.Tensor,  # (Q,) int32 read of each lane, in [0, B)
+    valid: torch.Tensor,  # (Q,) int32 columns >= valid[q] never match
+    W: int,  # window width
+    nwords: int,  # bit-vector words
+):
+    """Launch the text entry -> (best (Q,) int32, end (Q,) int32), equal to
+    ``ops.myers.myers_semiglobal_text_plain`` on every lane.  A rid outside
+    [0, B) is clamped into it (the plain version raises).  Launches on the
+    current stream without synchronising; counts each launch in
+    ``.launches``."""
+    ts = (text_words, starts, reads, lengths, rid, valid)
+    if not (reads.is_cuda and all(t.device == reads.device for t in ts)):
+        raise ValueError("myers_semiglobal_text_cuda needs all tensors on one CUDA device")
+    if reads.dtype != torch.int8 or any(t.dtype != torch.int32 for t in ts if t is not reads):
+        raise ValueError(f"expected int8 reads and int32 text words, starts, lengths, rid and "
+                         f"valid, got {[t.dtype for t in ts]}")
+    Q = starts.shape[0]
+    if (text_words.dim() != 1 or reads.dim() != 2 or starts.dim() != 1
+            or lengths.shape != (reads.shape[0],) or rid.shape != (Q,) or valid.shape != (Q,)):
+        raise ValueError(f"shape mismatch: {[tuple(t.shape) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("myers_semiglobal_text_cuda needs contiguous tensors")
+    B, L = reads.shape
+    _check_words(L, nwords)
+    if not 0 <= n_text < 1 << 31 or W < 0:
+        raise ValueError(f"n_text={n_text}, W={W}: out of the kernel's int32 range")
+    best = torch.empty(Q, dtype=torch.int32, device=reads.device)
+    end = torch.empty(Q, dtype=torch.int32, device=reads.device)
+    if Q == 0:
+        return best, end
+    if B == 0 or text_words.shape[0] == 0:
+        raise ValueError("myers_semiglobal_text_cuda needs at least one read and one text word")
+    lib = _library()
+    with torch.cuda.device(reads.device):
+        rc = lib.gwa_myers_text(
+            text_words.data_ptr(), text_words.shape[0], n_text, starts.data_ptr(),
+            reads.data_ptr(), lengths.data_ptr(), rid.data_ptr(), valid.data_ptr(),
+            best.data_ptr(), end.data_ptr(), Q, B, L, W, nwords,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gwa_myers_text launch failed: CUDA error {rc}")
+    myers_semiglobal_text_cuda.launches += 1
+    return best, end
+
+
+myers_semiglobal_text_cuda.launches = 0

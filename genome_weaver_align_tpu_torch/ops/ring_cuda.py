@@ -1,23 +1,20 @@
 """Binding of the hand-written CUDA all-reduce kernels (``csrc/ring.cu``).
 
 ``ring_allreduce_cuda`` replaces the JAX package's Pallas kernel
-``genome_weaver_align_tpu/parallel/ring.py::_ring_kernel`` and
-``fused_rank_ring_cuda`` replaces ``_fused_rank_ring_kernel``; they compute
-exactly ``parallel.ring.ring_psum_plain`` and ``fused_rank_ring_plain``.
-``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
-``sm_90a``; without ``nvcc``, or when the build fails, loading raises: there
-is no fallback to the plain versions.
+``genome_weaver_align_tpu/parallel/ring.py::_ring_kernel``; the fused occ
+rank + shard sum that replaces ``_fused_rank_ring_kernel`` has two entries:
 
-``ring_allreduce_cuda`` is one pass over every shard's input: no flags, no
-scratch, nothing read back.  The fused kernel runs the ring's multi-hop flag
-protocol: each shard's scratch (two receive slots per thread block, and the
-flags) is its own tensor, cached per device and grown on demand, and every
-launch takes a new epoch that tags its flags (see the source).  Launches
-that share the scratch must run in one stream order: one stream at a time
-per device.  A fused ring whose flag wait passes about 1 s sets an error
-word; with ``check=True`` the wrapper reads it after the launch (a
-synchronising read) and raises ``RuntimeError``; with ``check=False`` the
-caller calls ``raise_if_failed`` later.
+- ``fused_rank_ring_cuda``: the JAX function's contract, rows already
+  gathered per shard; equal to ``parallel.ring.fused_rank_ring_plain``;
+- ``fused_occ_cuda``: reads each query's row straight from the sharded
+  tables (the sharded exact search's entry); equal to
+  ``parallel.sharded_index.fused_occ_plain``.
+
+``ring_allreduce_cuda`` equals ``parallel.ring.ring_psum_plain``.  Every
+kernel is one pass over every shard's input: nothing to wait on, no
+scratch, nothing read back.  ``ops._cuda_build`` compiles the source at first use with
+``nvcc`` for ``sm_90a``; without ``nvcc``, or when the build fails, loading
+raises: there is no fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -30,10 +27,7 @@ import torch
 from ._cuda_build import load_kernel_library
 
 MAX_SHARDS = 16
-MAX_PAYLOADS = 8  # the fused kernel is instantiated for M = 1..MAX_PAYLOADS
-_INPUTS = 5
 _DTYPES = {torch.int32: 0, torch.float32: 1}
-_STUCK = {1: "a capacity grant", 2: "a receive flag"}
 
 
 @functools.cache
@@ -42,105 +36,20 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("ring.cu")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
-    lib.gwa_allreduce.restype = ctypes.c_int
-    lib.gwa_ring_plan.argtypes = [i32, i32, i64, ctypes.POINTER(i32), ctypes.POINTER(i64)]
-    lib.gwa_ring_plan.restype = ctypes.c_int
-    lib.gwa_ring_launch.argtypes = [
-        i32, i32, i32, i64, vp, vp, vp, vp, ctypes.c_uint64, vp, i32, vp,
-    ]
-    lib.gwa_ring_launch.restype = ctypes.c_int
+    lib.gwa_fused_words.argtypes = [i32, i64, vp, vp]
+    lib.gwa_fused_occ.argtypes = [i32, i32, i32, i64, vp, vp, vp, vp, vp, vp, vp, vp]
+    for fn in (lib.gwa_allreduce, lib.gwa_fused_words, lib.gwa_fused_occ):
+        fn.restype = ctypes.c_int
     return lib
-
-
-class _Scratch:
-    """One device's fused-ring scratch: per-shard slots and flags, the error
-    word, the epoch counter."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.slots: list[torch.Tensor] = []
-        self.flags: list[torch.Tensor] = []
-        self.err = torch.zeros(1, dtype=torch.int32, device=device)
-        self.epoch = 0
-
-    def reserve(self, S: int, slot_elems: int, n_flags: int):
-        while len(self.slots) < S:
-            self.slots.append(torch.empty(0, dtype=torch.int32, device=self.device))
-            self.flags.append(torch.zeros(0, dtype=torch.int64, device=self.device))
-        for d in range(S):
-            if self.slots[d].numel() < slot_elems:
-                self.slots[d] = torch.empty(slot_elems, dtype=torch.int32, device=self.device)
-            if self.flags[d].numel() < n_flags:
-                # zero flags lie below every epoch's values
-                self.flags[d] = torch.zeros(n_flags, dtype=torch.int64, device=self.device)
-        self.epoch += 1
-        if self.epoch >= 1 << 32:
-            raise RuntimeError("ring flag epochs exhausted on this device")
-        return self.epoch
-
-
-_scratch: dict[torch.device, _Scratch] = {}
-
-
-def _scratch_for(device: torch.device) -> _Scratch:
-    if device not in _scratch:
-        _scratch[device] = _Scratch(device)
-    return _scratch[device]
-
-
-def raise_if_failed(device) -> None:
-    """Raise ``RuntimeError`` if a fused ring launch on ``device`` timed out
-    (synchronises with the device); clears the error word."""
-    sc = _scratch.get(torch.device(device))
-    if sc is None:
-        return
-    code = int(sc.err.item())
-    if code:
-        sc.err.zero_()
-        raise RuntimeError(
-            f"ring kernel stuck on {sc.device}: a block waited over 1 s for "
-            f"{_STUCK.get(code, f'flag (code {code})')}; the result is invalid"
-        )
-
-
-def _run_fused(M: int, ins: list[list[torch.Tensor]], out: torch.Tensor, Q: int, check: bool,
-               stall_shard: int) -> None:
-    """Plan, reserve scratch, launch the fused ring over S shards (``ins[d]``
-    the inputs of shard d, ``out[d]`` its output).  ``stall_shard`` >= 0
-    makes that shard's blocks return at once (the no-hang test): its
-    neighbours time out."""
-    lib = _library()
-    S = len(ins)
-    dev = out.device
-    G, slot_elems = ctypes.c_int32(0), ctypes.c_int64(0)
-    with torch.cuda.device(dev):
-        rc = lib.gwa_ring_plan(M, S, Q, ctypes.byref(G), ctypes.byref(slot_elems))
-        if rc != 0:
-            raise RuntimeError(f"gwa_ring_plan failed for {S} shards: CUDA error {rc}")
-        sc = _scratch_for(dev)
-        epoch = sc.reserve(S, slot_elems.value, 2 * G.value)
-        ptr_in = (ctypes.c_uint64 * (S * _INPUTS))()
-        for d, tensors in enumerate(ins):
-            for i, t in enumerate(tensors):
-                ptr_in[d * _INPUTS + i] = t.data_ptr()
-        ptr_out = (ctypes.c_uint64 * S)(*[out[d].data_ptr() for d in range(S)])
-        ptr_slot = (ctypes.c_uint64 * S)(*[sc.slots[d].data_ptr() for d in range(S)])
-        ptr_flag = (ctypes.c_uint64 * S)(*[sc.flags[d].data_ptr() for d in range(S)])
-        rc = lib.gwa_ring_launch(
-            M, S, G.value, Q, ptr_in, ptr_out, ptr_slot, ptr_flag, epoch,
-            sc.err.data_ptr(), stall_shard, torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"gwa_ring_launch failed ({S} shards x {G.value} blocks): CUDA error {rc}"
-        )
-    if check:
-        raise_if_failed(dev)
 
 
 def _check_shards(S: int) -> None:
     if not 1 <= S <= MAX_SHARDS:
         raise ValueError(f"{S} shards: the ring kernels take 1..{MAX_SHARDS}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def ring_allreduce_cuda(parts: torch.Tensor) -> torch.Tensor:
@@ -169,8 +78,7 @@ def ring_allreduce_cuda(parts: torch.Tensor) -> torch.Tensor:
     ptr_out = (ctypes.c_uint64 * S)(*[oflat[d].data_ptr() for d in range(S)])
     lib = _library()
     with torch.cuda.device(parts.device):
-        rc = lib.gwa_allreduce(_DTYPES[parts.dtype], S, n, ptr_in, ptr_out,
-                               torch.cuda.current_stream().cuda_stream)
+        rc = lib.gwa_allreduce(_DTYPES[parts.dtype], S, n, ptr_in, ptr_out, _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_allreduce launch failed ({S} shards): CUDA error {rc}")
     ring_allreduce_cuda.launches += 1
@@ -180,43 +88,93 @@ def ring_allreduce_cuda(parts: torch.Tensor) -> torch.Tensor:
 ring_allreduce_cuda.launches = 0
 
 
+def _check_int32_cuda(name: str, ts) -> None:
+    if not all(t.is_cuda and t.device == ts[0].device for t in ts):
+        raise ValueError(f"{name} needs all tensors on one CUDA device")
+    if any(t.dtype != torch.int32 for t in ts):
+        raise TypeError(f"{name} takes int32 tensors, got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
 def fused_rank_ring_cuda(
     words: torch.Tensor,  # (S, M, Q, 8) int32, the uint32 BWT words of each query's block
     codes: torch.Tensor,  # (S, M, Q) int32 query base codes
     roff: torch.Tensor,  # (S, M, Q) int32 base offsets in the block (may exceed 128)
     base: torch.Tensor,  # (S, M, Q) int32 the owner's checkpoint value
     own: torch.Tensor,  # (S, M, Q) int32 1 where the shard owns the query
-    check: bool = True,
-    stall_shard: int = -1,
 ) -> torch.Tensor:
-    """Fused occ-rank partials + ring all-reduce -> (S, M, Q) int32: every
+    """Fused occ-rank partials + shard sum -> (S, M, Q) int32: every
     shard's row holds, per payload m, the sum over shards of
-    ``own * (base + match count)``.  Counts each launch in ``.launches``."""
+    ``own * (base + match count)``.  One pass, any M.  Counts each launch
+    in ``.launches``."""
     ts = (words, codes, roff, base, own)
-    if not all(t.is_cuda and t.device == words.device for t in ts):
-        raise ValueError("fused_rank_ring_cuda needs all tensors on one CUDA device")
-    if any(t.dtype != torch.int32 for t in ts):
-        raise TypeError(f"fused_rank_ring_cuda takes int32 tensors, got {[t.dtype for t in ts]}")
+    _check_int32_cuda("fused_rank_ring_cuda", ts)
     if words.dim() != 4 or words.shape[3] != 8 or any(t.shape != words.shape[:3] for t in ts[1:]):
         raise ValueError(
             f"expected words (S, M, Q, 8) and (S, M, Q) codes/roff/base/own, got "
             f"{[tuple(t.shape) for t in ts]}"
         )
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("fused_rank_ring_cuda needs contiguous tensors")
     if words.data_ptr() % 16:
         raise ValueError("fused_rank_ring_cuda loads each 32-byte word row as two 16-byte "
                          "vectors: words must start 16-byte aligned")
-    S, M, Q = codes.shape
+    S = codes.shape[0]
     _check_shards(S)
-    if not 1 <= M <= MAX_PAYLOADS:
-        raise ValueError(f"M={M}: the fused kernel is built for 1 <= M <= {MAX_PAYLOADS}")
-    out = torch.empty((S, M, Q), dtype=torch.int32, device=words.device)
-    if Q == 0:
+    out = torch.empty(codes.shape, dtype=torch.int32, device=words.device)
+    n = codes[0].numel()
+    if n == 0:
         return out
-    _run_fused(M, [[t[d] for t in ts] for d in range(S)], out, Q, check, stall_shard)
+    ptrs = (ctypes.c_uint64 * (6 * S))(
+        *[t[d].data_ptr() for d in range(S) for t in (*ts, out)]
+    )
+    with torch.cuda.device(words.device):
+        rc = _library().gwa_fused_words(S, n, ptrs, _stream())
+    if rc != 0:
+        raise RuntimeError(f"gwa_fused_words launch failed ({S} shards): CUDA error {rc}")
     fused_rank_ring_cuda.launches += 1
     return out
 
 
 fused_rank_ring_cuda.launches = 0
+
+
+def fused_occ_cuda(
+    bwt_blocks: torch.Tensor,  # (S, R, 8) int32 words of each shard's BWT blocks
+    occ_cp: torch.Tensor,  # (S, R, 4) int32 global checkpoint values
+    pk_start: torch.Tensor,  # (S,) int32 packed-coordinate shard starts
+    pk_end: torch.Tensor,  # (S,) int32 shard ends (exclusive)
+    primary: int,  # the sentinel's BWT row
+    codes: torch.Tensor,  # (...) int32 query codes, 0..3
+    k: torch.Tensor,  # (...) int32 sentinel-inclusive coordinates
+) -> torch.Tensor:
+    """Merged occ$(codes, k) over the interval shards, each query's row read
+    from its owner's table -> (...) int32, equal to
+    ``sharded_index.fused_occ_plain``.  Launches on the current stream
+    without synchronising; counts each launch in ``.launches``."""
+    ts = (bwt_blocks, occ_cp, pk_start, pk_end, codes, k)
+    _check_int32_cuda("fused_occ_cuda", ts)
+    S, R = bwt_blocks.shape[:2]
+    if (bwt_blocks.shape[2:] != (8,) or occ_cp.shape != (S, R, 4)
+            or pk_start.shape != (S,) or pk_end.shape != (S,) or codes.shape != k.shape):
+        raise ValueError(
+            f"expected bwt_blocks (S, R, 8), occ_cp (S, R, 4), pk_start/pk_end (S,) and codes "
+            f"and k of one shape, got {[tuple(t.shape) for t in ts]}"
+        )
+    if bwt_blocks.data_ptr() % 16:
+        raise ValueError("fused_occ_cuda loads each 32-byte word row as two 16-byte vectors: "
+                         "bwt_blocks must start 16-byte aligned")
+    _check_shards(S)
+    out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
+    n = codes.numel()
+    if n == 0:
+        return out
+    with torch.cuda.device(codes.device):
+        rc = _library().gwa_fused_occ(S, R, int(primary), n, *(t.data_ptr() for t in ts),
+                                      out.data_ptr(), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gwa_fused_occ launch failed ({S} shards): CUDA error {rc}")
+    fused_occ_cuda.launches += 1
+    return out
+
+
+fused_occ_cuda.launches = 0

@@ -13,12 +13,12 @@ receives:
   int32 (shard 0's copy: every shard holds the same).
 
 Each sends a CUDA tensor to its hand-written kernel (``ops.ring_cuda``,
-source ``csrc/ring.cu``: one pass over every shard's input for the sum; S
-groups of thread blocks running the ring's multi-hop flag protocol for the
-fused rank) and a CPU tensor to its plain version below; there is no
-fallback from one to the other.  The plain versions add in the ring's
-order, shard d receiving x_{d-1}, x_{d-2}, ... one hop at a time, so the
-kernel equals them bit for bit, float32 included.
+source ``csrc/ring.cu``: one pass over every shard's input, no ring on one
+card) and a CPU tensor to its plain version below; there is no fallback
+from one to the other.  The plain versions add in the ring's order, shard
+d receiving x_{d-1}, x_{d-2}, ... one hop at a time, so the kernels equal
+them bit for bit, float32 included.  The sharded exact search reads its
+rows from the shard tables instead (``sharded_index.fused_occ``).
 
 The JAX package threads a token through ``lax.optimization_barrier`` so that
 ring merges run in one order on every device (``ring.py:329-333``,
@@ -76,16 +76,13 @@ def fused_rank_ring(
     roff: torch.Tensor,  # (S, M, Q) int32 base offsets in the block
     base: torch.Tensor,  # (S, M, Q) int32 the checkpoint value occ_cp[b][code]
     own: torch.Tensor,  # (S, M, Q) int32 1 where the shard owns the query, else 0
-    check: bool = True,
 ) -> torch.Tensor:
     """Merged occ values of M payloads: (M, Q) int32, equal to the sum over
-    shards of ``sharded_index.local_occ_codes``.  On the card, ``check=False``
-    skips the kernel's synchronising error-word read: the caller then calls
-    ``ops.ring_cuda.raise_if_failed`` once after its launches."""
+    shards of ``sharded_index.local_occ_codes``."""
     if words.is_cuda:
         from ..ops import ring_cuda
 
         return ring_cuda.fused_rank_ring_cuda(
-            *(t.contiguous() for t in (words, codes, roff, base, own)), check=check
+            *(t.contiguous() for t in (words, codes, roff, base, own))
         )[0]
     return fused_rank_ring_plain(words, codes, roff, base, own)[0]

@@ -193,7 +193,8 @@ def local_occ_codes(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) ->
 
 
 def local_occ_gather(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor):
-    """Gather half of ``local_occ_codes`` for ``ring.fused_rank_ring``.
+    """Gather half of ``local_occ_codes`` for ``ring.fused_rank_ring`` (the
+    JAX contract's entry; the sharded search calls ``fused_occ``).
 
     Returns (words (S, Q, 8), roff (S, Q), base (S, Q), own (S, Q)), all
     int32, such that the sum over shards of
@@ -206,6 +207,27 @@ def local_occ_gather(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor):
     cs = codes.to(I32).expand(own.shape)
     base = torch.gather(_shard_rows(sh.occ_cp, b_local), -1, cs[..., None].long())[..., 0]
     return words, roff, base, own.to(I32)
+
+
+def fused_occ_plain(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``fused_occ``'s plain version: the int32 sum over shards of
+    ``local_occ_codes``."""
+    return local_occ_codes(sh, codes, k).sum(0, dtype=I32)
+
+
+def fused_occ(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Merged occ$(codes, k) of queries of any shape (codes 0..3) -> int32
+    of that shape.  On the card one kernel reads each query's row from its
+    owner's table and sums over the shards (``ops.ring_cuda.fused_occ_cuda``:
+    no gathered word tensor); a CPU tensor takes ``fused_occ_plain``."""
+    if codes.is_cuda:
+        from ..ops import ring_cuda
+
+        return ring_cuda.fused_occ_cuda(
+            sh.bwt_blocks, sh.occ_cp, sh.pk_start, sh.pk_end, sh.primary,
+            codes.to(I32).contiguous(), k.to(I32).contiguous(),
+        )
+    return fused_occ_plain(sh, codes, k)
 
 
 def local_occ_all4(sh: ShardedFMIndex, k: torch.Tensor) -> torch.Tensor:
@@ -330,13 +352,13 @@ def make_sharded_exact_search(
     shard_reads`` gives them.
 
     ``merge`` picks the merge of the extension steps: "psum"
-    (``parts.sum(0)``), "ring" (``ring.ring_psum``: one ring launch per
+    (``parts.sum(0)``), "ring" (``ring.ring_psum``: one launch per
     microbatch chunk per step, payload (2, B / microbatch)) or "fused"
-    (``ring.fused_rank_ring``: one launch per step that computes every
-    chunk's occ partials and ring-sums them).  ``microbatch`` > 1 splits
-    the batch into that many chunks per step (when it divides the batch),
-    as the JAX code splits each data shard's batch; the results are the
-    same for every chunking.  ``locate``'s merges stay ``parts.sum(0)``.
+    (``fused_occ``: one launch per step that reads every chunk's lo and hi
+    rows from the shard tables and sums the shards' occ values).
+    ``microbatch`` > 1 splits the batch into that many chunks per step (when
+    it divides the batch), as the JAX code splits each data shard's batch;
+    the results are the same for every chunking.  ``locate``'s merges stay ``parts.sum(0)``.
     ``like`` is accepted for the JAX signature; nothing is read from it.
     """
     if merge not in ("psum", "ring", "fused"):
@@ -364,15 +386,10 @@ def make_sharded_exact_search(
                 actives.append((j >= 0) & (lo < hi))
                 cs.append(torch.gather(rchunks[m], 1, j.clamp(0, L - 1)[:, None].long())[:, 0])
             if merge == "fused":
-                # every chunk's rows gathered here, then ONE kernel computes
-                # all the popcount partials and their ring sums
-                g = [
-                    local_occ_gather(sh, torch.cat([c, c]), torch.cat(state[m]))
-                    for m, c in enumerate(cs)
-                ]
-                words, roff, base, own = (torch.stack([x[f] for x in g], dim=1) for f in range(4))
-                codes = torch.stack([torch.cat([c, c]) for c in cs]).expand(sh.n_shards, -1, -1)
-                occ = ring.fused_rank_ring(words, codes, roff, base, own, check=False)
+                # one payload a chunk, its lo then its hi queries: ONE
+                # kernel reads their rows and sums the shards
+                occ = fused_occ(sh, torch.stack([torch.cat([c, c]) for c in cs]),
+                                torch.stack([torch.cat(s) for s in state]))
                 news = [
                     (sh.C[c.long()] + occ[m, :Bc], sh.C[c.long()] + occ[m, Bc:])
                     for m, c in enumerate(cs)
@@ -385,12 +402,6 @@ def make_sharded_exact_search(
                 (torch.where(a, nlo, lo), torch.where(a, nhi, hi))
                 for a, (nlo, nhi), (lo, hi) in zip(actives, news, state)
             ]
-        if merge == "fused" and dev.type == "cuda":
-            # one synchronising read of the error word for all the steps: a
-            # stuck fused ring still raises
-            from ..ops import ring_cuda
-
-            ring_cuda.raise_if_failed(dev)
         lo = torch.cat([s[0] for s in state])
         hi = torch.cat([s[1] for s in state])
         pos = locate(sh, lo.clamp(0, sh.n))

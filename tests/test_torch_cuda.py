@@ -3,10 +3,12 @@ without one).  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-They import no JAX: they hold each CUDA kernel (banded DP through both
-entries, Myers, the two ring merges) against its plain torch version, and the aligners and the
-sharded search on the card against the same code on the CPU, which the CPU
-tests hold against the JAX package."""
+They import no JAX: they hold each CUDA kernel entry (banded DP and Myers,
+each from the packed text and from given windows; the shard sum; the fused
+rank + shard sum from gathered rows and from the shard tables) against its
+plain torch version, and the aligners and the sharded search on the card
+against the same code on the CPU, which the CPU tests hold against the JAX
+package."""
 
 import numpy as np
 import pytest
@@ -16,8 +18,8 @@ from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 from genome_weaver_align_tpu_torch.index.build import build_fm_index
 from genome_weaver_align_tpu_torch.index.files import Genome, GenomeIndex
 from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
-from genome_weaver_align_tpu_torch.models import paired, pipeline
-from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda, ring_cuda
+from genome_weaver_align_tpu_torch.models import paired, pipeline, suffix_filter
+from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda, rank, ring_cuda, window
 from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
 from genome_weaver_align_tpu_torch.parallel import ring, sharded_index, sharded_pipeline
 from genome_weaver_align_tpu_torch.utils import packing
@@ -57,7 +59,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     r = torch.zeros((4, 10), dtype=torch.int8, device=cuda)
     w = torch.zeros((4, 16), dtype=torch.int8, device=cuda)
     ln = torch.full((4,), 10, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="k=9"):
+    with pytest.raises(ValueError, match="k=15"):
         dp_cuda.banded_edit_distance_cuda(r, ln, w, dp_cuda.MAX_K + 1)
     with pytest.raises(ValueError, match="int8"):
         dp_cuda.banded_edit_distance_cuda(r.int(), ln, w, 2)
@@ -211,6 +213,63 @@ def test_myers_kernel_rejects_what_it_cannot_take(cuda):
         myers_cuda.myers_semiglobal_cuda(r, ln, w.int())
     got = myers_cuda.myers_semiglobal_cuda(r[:0], ln[:0], w[:0])
     assert got[0].shape == (0,)
+    words = torch.zeros(8, dtype=torch.int32, device=cuda)
+    z = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="257"):
+        myers_cuda.myers_semiglobal_text_cuda(words, 100, z, torch.zeros((4, 257), dtype=torch.int8,
+                                              device=cuda), ln, z, z + 9, 300, 9)
+    with pytest.raises(ValueError, match="int8"):
+        myers_cuda.myers_semiglobal_text_cuda(words, 100, z, r.int(), ln, z, z, 120, 4)
+    got = myers_cuda.myers_semiglobal_text_cuda(words, 100, z[:0], r, ln, z[:0], z[:0], 120, 4)
+    assert got[0].shape == (0,)
+
+
+def _myers_text_inputs(L, W, B, Q, seed, n=30_000):
+    """Text-entry lanes like the rescue's and the verify's: repeated rids,
+    starts off both text ends and at word edges, the read planted (with an
+    indel or substitutions) in half the windows, valid < W in half the
+    lanes, N codes, ragged and zero lengths."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    words = packing.pack(codes).view(np.int32)
+    rid = rng.integers(0, B, size=Q).astype(np.int32)
+    starts = rng.integers(-W, n + 5, size=Q).astype(np.int32)
+    edges = [-W - 7, -40, -1, 0, 15, 16, 17, 31, 32, n - W - 1, n - W, n - 1, n, n + 20]
+    starts[: len(edges)] = edges
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+    for q in range(len(edges), Q, 2):
+        at = int(rng.integers(0, max(1, W - L)))
+        seg = codes[max(starts[q] + at, 0) : max(starts[q] + at + L + 1, 0)].astype(np.int8)
+        if seg.size and rng.random() < 0.3:
+            seg = np.delete(seg, rng.integers(0, seg.size))
+        reads[rid[q], : min(L, seg.size)] = seg[:L]
+        reads[rid[q], rng.integers(0, L, size=2)] = rng.integers(0, 4, size=2)
+    lengths = np.where(rng.random(B) < 0.7, L, rng.integers(0, L + 1, size=B)).astype(np.int32)
+    lengths[::37] = 0
+    valid = np.where(rng.random(Q) < 0.5, W, rng.integers(-2, W + 1, size=Q)).astype(np.int32)
+    return words, n, starts, reads, lengths, rid, valid
+
+
+@pytest.mark.parametrize("L", [20, 32, 64, 100, 150, 256])
+def test_myers_text_entry_equals_plain(cuda, L):
+    """The text entry (window streamed from the packed text in the kernel)
+    against gather + where + the plain loop on every lane; a block over
+    more rows than it has lanes takes the per-lane read copy."""
+    W = L + 43  # not a multiple of the 16-column group
+    for B, Q, rid_sorted in ((3000, 3001, False), (300, 2048, True), (40, 999, False)):
+        words, n, starts, reads, lengths, rid, valid = _myers_text_inputs(L, W, B, Q, L + B)
+        if rid_sorted:
+            rid = np.sort(rid)
+        args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+                for a in (words, n, starts, reads, lengths, rid, valid)]
+        nwords = -(-L // 32)
+        before = myers_cuda.myers_semiglobal_text_cuda.launches
+        got = myers.myers_semiglobal_text(*args, W, nwords)
+        assert myers_cuda.myers_semiglobal_text_cuda.launches == before + 1
+        want = myers.myers_semiglobal_text_plain(*args, W, nwords)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (B, Q)
+        assert int((want[0] <= 5).sum()) > Q // 20
 
 
 def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
@@ -234,15 +293,80 @@ def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
         pa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, k=2, device=device),
                                   min_insert=200, max_insert=600)
         before = (dp_cuda.banded_edit_distance_text_cuda.launches,
+                  myers_cuda.myers_semiglobal_text_cuda.launches,
                   myers_cuda.myers_semiglobal_cuda.launches)
         results.append(pa.align_pair_arrays(c1, lengths, c2, lengths))
         if device.type == "cuda":
             assert dp_cuda.banded_edit_distance_text_cuda.launches > before[0]
-            assert myers_cuda.myers_semiglobal_cuda.launches > before[1]
+            assert myers_cuda.myers_semiglobal_text_cuda.launches > before[1]
+            assert myers_cuda.myers_semiglobal_cuda.launches == before[2]
     got, want = results
     assert sum(ph.rescued != 0 for ph in got) >= n // 10
     assert [(a.h1, a.h2, a.proper, a.rescued) for a in got] == \
         [(b.h1, b.h2, b.proper, b.rescued) for b in want]
+
+
+def test_rescue_and_myers_verify_stream_from_the_text(cuda, monkeypatch):
+    """Mate rescue and verify_mode="myers" on the card equal the CPU and
+    reach the Myers text entry without ever gathering a window tensor."""
+    rng = np.random.default_rng(13)
+    codes = rng.integers(0, 4, size=60_000, dtype=np.uint8)
+    genome = Genome.from_contigs([Contig("c", codes)])
+    gi = GenomeIndex(genome, build_fm_index(genome.codes, sample_rate=8), None)
+    n, L = 300, 100
+    pos = rng.integers(0, codes.size - 700, size=n)
+    # each mate on the reverse strand 300 bases past its forward anchor
+    mates = np.ascontiguousarray((3 - codes[pos[:, None] + 300 + np.arange(L)].astype(np.int8))[:, ::-1])
+    mates[::3, 40] = (mates[::3, 40] + 1) % 4
+    anchors = [pipeline.ApproxHit(int(p), 0, 0, f"{L}M", 1, False) for p in pos]
+    jobs = [(m[: L - (i % 7)], a, L) for i, (m, a) in enumerate(zip(mates, anchors))]
+    B, C = 64, 5
+    reads = codes[pos[:B, None] + np.arange(L)].astype(np.int32)
+    cand = np.stack([pos[:B] + o for o in (0, 3, -2, 500, 9000)], axis=1).astype(np.int32)
+    cand[::4, 2] = suffix_filter.NO_CAND
+    text_cpu = torch.from_numpy(packing.pack(codes).view(np.int32))
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        if device.type == "cuda":
+            def no_gather(*a, **kw):
+                raise AssertionError("a (Q, W) window tensor was gathered")
+            monkeypatch.setattr(window, "gather_windows", no_gather)
+        pa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, k=2, device=device),
+                                  min_insert=200, max_insert=600)
+        before = myers_cuda.myers_semiglobal_text_cuda.launches
+        rescued = pa._rescue_batch(jobs)
+        dist = suffix_filter.verify_candidates_myers(
+            text_cpu.to(device), codes.size, torch.from_numpy(reads).to(device),
+            torch.full((B,), L, dtype=torch.int32, device=device),
+            torch.from_numpy(cand).to(device), 2, L + 6, 4)
+        out[device.type] = (rescued, dist.cpu())
+        if device.type == "cuda":
+            assert myers_cuda.myers_semiglobal_text_cuda.launches == before + 2
+    assert out["cuda"][0] == out["cpu"][0]
+    assert sum(h is not None for h in out["cpu"][0]) > n // 2
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert int((out["cpu"][1] == 0).sum()) >= B // 2
+
+
+def test_verify_mode_myers_on_card_equals_cpu(cuda):
+    """Myers verify runs on the ragged path, as in the JAX aligner."""
+    rng = np.random.default_rng(14)
+    codes = rng.integers(0, 4, size=50_000, dtype=np.uint8)
+    genome = Genome.from_contigs([Contig("c", codes)])
+    gi = GenomeIndex(genome, build_fm_index(genome.codes, sample_rate=8), None)
+    reads, _, _, _ = simulate_reads_array(codes, 500, 100, seed=5, max_subs=2, indel_frac=0.2)
+    reads = reads.astype(np.int8)
+    lengths = rng.integers(40, 101, size=500).astype(np.int32)
+    for i, n in enumerate(lengths):
+        reads[i, n:] = 0
+    hits = []
+    for device in (cuda, torch.device("cpu")):
+        al = pipeline.SuffixFilterAligner(gi, k=2, verify_mode="myers", device=device)
+        before = myers_cuda.myers_semiglobal_text_cuda.launches
+        hits.append(al.align_arrays_finish(al.align_arrays_submit(reads, lengths)))
+        if device.type == "cuda":
+            assert myers_cuda.myers_semiglobal_text_cuda.launches > before
+    _hits_equal(*hits)
 
 
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 16])
@@ -275,26 +399,20 @@ def test_ring_rejects_what_it_cannot_take(cuda):
             ring.ring_psum(torch.zeros((2, 8), dtype=dtype, device=cuda))
     with pytest.raises(ValueError, match="shards"):
         ring_cuda.ring_allreduce_cuda(torch.zeros((17, 8), dtype=torch.int32, device=cuda))
-    z = torch.zeros((2, 9, 5), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="M=9"):
-        ring_cuda.fused_rank_ring_cuda(torch.zeros((2, 9, 5, 8), dtype=torch.int32, device=cuda),
+    z = torch.zeros((17, 2, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shards"):
+        ring_cuda.fused_rank_ring_cuda(torch.zeros((17, 2, 5, 8), dtype=torch.int32, device=cuda),
                                        z, z, z, z)
-
-
-def test_stuck_ring_raises_instead_of_hanging(cuda):
-    """Shard 1's blocks of the fused ring return at once: its neighbours
-    wait ~1 s, set the error word and return; the wrapper raises, and the
-    next launch works."""
-    import time
-
-    w = torch.zeros((3, 2, 4096, 8), dtype=torch.int32, device=cuda)
-    z = torch.zeros((3, 2, 4096), dtype=torch.int32, device=cuda)
-    t0 = time.time()
-    with pytest.raises(RuntimeError, match="stuck"):
-        ring_cuda.fused_rank_ring_cuda(w, z, z, z + 1, z + 1, stall_shard=1)
-    assert time.time() - t0 < 30
-    # roff 0 counts no bases: each of the 3 owning shards adds its base 1
-    assert torch.equal(ring_cuda.fused_rank_ring_cuda(w, z, z, z + 1, z + 1), z + 3)
+    s = torch.zeros(2, dtype=torch.int32, device=cuda)
+    q = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="occ_cp"):
+        ring_cuda.fused_occ_cuda(torch.zeros((2, 3, 8), dtype=torch.int32, device=cuda),
+                                 torch.zeros((2, 4, 4), dtype=torch.int32, device=cuda), s, s, 0,
+                                 q, q)
+    with pytest.raises(TypeError, match="int32"):
+        ring_cuda.fused_occ_cuda(torch.zeros((2, 3, 8), dtype=torch.int32, device=cuda),
+                                 torch.zeros((2, 3, 4), dtype=torch.int32, device=cuda), s, s, 0,
+                                 q.long(), q)
 
 
 def _sharded_rows(fm, S, M, Q, seed):
@@ -315,21 +433,46 @@ def _sharded_rows(fm, S, M, Q, seed):
     return words, codes, roff, base, own, (c, k)
 
 
-@pytest.mark.parametrize("S,M", [(1, 2), (2, 2), (4, 2), (4, 3), (8, 2)])
-def test_fused_rank_ring_equals_plain(cuda, S, M):
-    rng = np.random.default_rng(S * 10 + M)
-    fm = build_fm_index(rng.integers(0, 4, size=200_000, dtype=np.uint8), sample_rate=8)
-    for Q in (96, 65_536):
-        ins = _sharded_rows(fm, S, M, Q, Q + S)
-        plain = ring.fused_rank_ring_plain(*ins[:5])
-        before = ring_cuda.fused_rank_ring_cuda.launches
-        got = ring_cuda.fused_rank_ring_cuda(*(t.to(cuda) for t in ins[:5]))
-        assert ring_cuda.fused_rank_ring_cuda.launches == before + 1
-        assert torch.equal(got.cpu(), plain), Q
-        c, k = ins[5]
-        for m in range(M):
-            want = np.array([fm.occ(int(cc), int(kk)) for cc, kk in zip(c[m, :50], k[m, :50])])
-            assert np.array_equal(got[0, m, :50].cpu().numpy(), want.reshape(-1))
+@pytest.fixture(scope="module")
+def ring_fm():
+    rng = np.random.default_rng(77)
+    return build_fm_index(rng.integers(0, 4, size=200_000, dtype=np.uint8), sample_rate=8)
+
+
+@pytest.mark.parametrize("S", range(1, 17))
+def test_fused_rank_ring_equals_plain(cuda, ring_fm, S):
+    """The words entry: one pass, any M, against the plain rank + ring sum
+    and the index's own occ."""
+    fm = ring_fm
+    for M in range(1, 10):
+        for Q in ((96, 65_536) if M in (2, 9) else (96,)):
+            ins = _sharded_rows(fm, S, M, Q, Q + S + M)
+            plain = ring.fused_rank_ring_plain(*ins[:5])
+            before = ring_cuda.fused_rank_ring_cuda.launches
+            got = ring_cuda.fused_rank_ring_cuda(*(t.to(cuda) for t in ins[:5]))
+            assert ring_cuda.fused_rank_ring_cuda.launches == before + 1
+            assert torch.equal(got.cpu(), plain), (M, Q)
+            c, k = ins[5]
+            for m in range(M):
+                want = np.array([fm.occ(int(cc), int(kk)) for cc, kk in zip(c[m, :50], k[m, :50])])
+                assert np.array_equal(got[0, m, :50].cpu().numpy(), want.reshape(-1))
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16])
+def test_fused_occ_equals_plain(cuda, ring_fm, S):
+    """The table entry: rows read from the shard tables on the card against
+    ``fused_occ_plain`` and the single-device rank, every coordinate."""
+    fm = ring_fm
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, S), cuda)
+    rng = np.random.default_rng(S)
+    k = torch.arange(fm.n + 2, dtype=torch.int32, device=cuda)
+    c = torch.from_numpy(rng.integers(0, 4, size=fm.n + 2).astype(np.int32)).to(cuda)
+    before = ring_cuda.fused_occ_cuda.launches
+    got = sharded_index.fused_occ(sh, torch.stack([c, 3 - c]), torch.stack([k, k.flip(0)]))
+    assert ring_cuda.fused_occ_cuda.launches == before + 1
+    want = sharded_index.fused_occ_plain(sh, torch.stack([c, 3 - c]), torch.stack([k, k.flip(0)]))
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], rank.occ_codes(rank.from_host(fm, cuda), c, k))
 
 
 def test_sharded_search_and_aligner_on_card_equal_cpu(cuda):
@@ -350,13 +493,16 @@ def test_sharded_search_and_aligner_on_card_equal_cpu(cuda):
         sh = sharded_index.put_sharded(sharded_index.shard_fm_index(gi.fwd, 4), dev)
         r, l, _ = pmesh.shard_reads(layout, reads, lengths)
         for merge in ("psum", "ring", "fused"):
-            before = (ring_cuda.ring_allreduce_cuda.launches, ring_cuda.fused_rank_ring_cuda.launches)
+            counts = (ring_cuda.ring_allreduce_cuda, ring_cuda.fused_occ_cuda,
+                      ring_cuda.fused_rank_ring_cuda)
+            before = [f.launches for f in counts]
             fn = sharded_index.make_sharded_exact_search(layout, L, sh, merge=merge, microbatch=2)
             out[dev.type, merge] = [v.cpu() for v in fn(sh, r, l)]
-            after = (ring_cuda.ring_allreduce_cuda.launches, ring_cuda.fused_rank_ring_cuda.launches)
+            after = [f.launches for f in counts]
             if dev.type == "cuda":
                 assert after[0] - before[0] == (2 * L if merge == "ring" else 0)
                 assert after[1] - before[1] == (L if merge == "fused" else 0)
+                assert after[2] == before[2]
     for key, val in out.items():
         assert all(torch.equal(a, b) for a, b in zip(val, out["cpu", "psum"])), key
     lo, hi, pos = out["cpu", "psum"]

@@ -1,7 +1,8 @@
 """The port's plain Myers bit-parallel engine (``ops/myers.py``) against the
 JAX package's jnp engine and its Pallas kernel in interpret mode: (best,
 end) bit-identical on mixed streams (planted edits, junk rows, N codes,
-ragged and zero lengths)."""
+ragged and zero lengths); the text entry's plain version against the jnp
+engine on JAX-gathered windows."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,8 @@ import jax.numpy as jnp
 
 from genome_weaver_align_tpu.ops import myers as j_myers
 from genome_weaver_align_tpu.ops import myers_pallas
+from genome_weaver_align_tpu.ops import window as j_window
+from genome_weaver_align_tpu.utils import packing
 from genome_weaver_align_tpu_torch.ops import myers, myers_cuda
 from tests.streams import mixed_stream
 
@@ -64,6 +67,41 @@ def test_max_window_matches_jax(max_window):
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("seed,L,W", [(0, 100, 140), (1, 64, 90), (2, 150, 183)])
+def test_text_entry_plain_matches_jax(seed, L, W):
+    """Lane q runs read rid[q] against the text at starts[q] with columns >=
+    valid[q] set to 4: starts off both text ends and at word edges,
+    valid < W, repeated rids, planted reads, N codes, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    n, B, Q = 4001, 60, 300
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    words = packing.pack(codes)
+    rid = rng.integers(0, B, size=Q).astype(np.int32)  # repeated, unsorted
+    starts = rng.integers(-W, n + 10, size=Q).astype(np.int32)
+    edges = [-W - 3, -40, -1, 0, 15, 16, 17, n - W, n - 5, n, n + 7]
+    starts[: len(edges)] = edges
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+    for q in range(len(edges), Q, 3):  # plant the read (and a substitution)
+        seg = codes[max(starts[q] + 5, 0) : max(starts[q] + 5 + L, 0)].astype(np.int8)
+        reads[rid[q], : seg.size] = seg
+        reads[rid[q], rng.integers(0, L)] = rng.integers(0, 4)
+    lengths = np.where(rng.random(B) < 0.7, L, rng.integers(0, L + 1, size=B)).astype(np.int32)
+    lengths[::13] = 0
+    valid = np.where(rng.random(Q) < 0.5, W, rng.integers(-3, W + 1, size=Q)).astype(np.int32)
+    nwords = -(-L // 32)
+    got = myers.myers_semiglobal_text(
+        torch.from_numpy(words.view(np.int32)), n, *_t(starts, reads, lengths, rid, valid),
+        W, nwords)
+    wins = np.asarray(j_window.gather_windows(jnp.asarray(words), n, jnp.asarray(starts), W))
+    wins = np.where(np.arange(W)[None, :] >= valid[:, None], 4, wins).astype(np.int32)
+    want = j_myers.myers_semiglobal_end(
+        jnp.asarray(reads[rid].astype(np.int32)), jnp.asarray(lengths[rid]), jnp.asarray(wins),
+        nwords)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert (got[0].numpy() <= 2).sum() > Q // 10  # planted lanes are found
+
+
 def test_int8_inputs_and_build_eq():
     reads, lens, wins = _inputs(100, 64, 80, 2)
     got = myers.myers_semiglobal_end(*_t(reads.astype(np.int8), lens, wins.astype(np.int8)), 2)
@@ -93,9 +131,17 @@ def test_dispatcher_sends_cpu_tensors_to_plain(monkeypatch):
         raise AssertionError("CPU tensors must not reach the CUDA wrapper")
 
     monkeypatch.setattr(myers_cuda, "myers_semiglobal_cuda", kernel_called)
+    monkeypatch.setattr(myers_cuda, "myers_semiglobal_text_cuda", kernel_called)
     reads, lens, wins = _inputs(20, 40, 50, 1)
     got = myers.myers_semiglobal_end(*_t(reads, lens, wins), 2)
     want = myers._myers_plain(*_t(reads, lens, wins), 2, 50)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    words = torch.from_numpy(packing.pack(np.zeros(64, np.uint8)).view(np.int32))
+    z = torch.zeros(20, dtype=torch.int32)
+    got = myers.myers_semiglobal_text(words, 64, z, *_t(reads.astype(np.int8), lens), z, z + 50,
+                                      50, 2)
+    want = myers.myers_semiglobal_text_plain(words, 64, z, *_t(reads.astype(np.int8), lens), z,
+                                             z + 50, 50, 2)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -103,4 +149,9 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     reads, lens, wins = _inputs(20, 40, 50, 1)
     with pytest.raises(ValueError, match="CUDA"):
         myers_cuda.myers_semiglobal_cuda(*_t(reads, lens, wins))
+    z = torch.zeros(20, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        myers_cuda.myers_semiglobal_text_cuda(z, 100, z, *_t(reads.astype(np.int8), lens), z, z,
+                                              50, 2)
     assert myers_cuda.myers_semiglobal_cuda.launches == 0
+    assert myers_cuda.myers_semiglobal_text_cuda.launches == 0

@@ -1,6 +1,7 @@
 """The port's ring merges (``parallel/ring.py``): the plain ring sum against
-``x.sum(0)``, the plain fused rank + ring against the JAX package's
-``psum(local_occ_codes)`` on the 8-device CPU mesh, and the dispatch rules
+``x.sum(0)``, the plain fused rank + ring and the sharded index's
+``fused_occ_plain`` against the JAX package's ``psum(local_occ_codes)`` on
+the 8-device CPU mesh, and the dispatch rules
 (CPU tensors to the plain versions, no CPU tensor into the CUDA wrapper,
 a missing nvcc named).  The JAX ring kernels themselves are held to
 ``psum`` by ``tests/test_ring.py``; the CUDA kernels to the plain versions
@@ -77,6 +78,10 @@ def test_fused_rank_ring_plain_matches_jax_psum(n, M):
     sh_dev = j_si.put_sharded(jsh, _mesh(n), "i")
     Q = 96
     qk = rng.integers(0, fm.n + 1, size=(M, Q)).astype(np.int32)
+    # the shard edges, the sentinel's row and both ends among the queries
+    edges = np.concatenate([jsh.pk_start, jsh.pk_end, [fm.primary, 0, fm.n, fm.n + 1]])
+    edges = np.clip(np.concatenate([edges, edges - 1, edges + 1]), 0, fm.n + 1)[:Q]
+    qk[:, : edges.size] = edges
     qc = rng.integers(0, 4, size=(M, Q)).astype(np.int32)
 
     def f(shl):
@@ -99,6 +104,10 @@ def test_fused_rank_ring_plain_matches_jax_psum(n, M):
     for d in range(n):
         assert np.array_equal(all_shards[d].numpy(), want[d]), (n, M, d)
     assert torch.equal(ring.fused_rank_ring(words, codes, roff, base, own), all_shards[0])
+    # the table entry's plain twin: rows read from the shard tables
+    occ = si.fused_occ(psh, torch.from_numpy(qc), torch.from_numpy(qk))
+    assert torch.equal(occ, si.fused_occ_plain(psh, torch.from_numpy(qc), torch.from_numpy(qk)))
+    assert np.array_equal(occ.numpy(), want[0]), (n, M)
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -107,6 +116,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(ring_cuda, "ring_allreduce_cuda", kernel_called)
     monkeypatch.setattr(ring_cuda, "fused_rank_ring_cuda", kernel_called)
+    monkeypatch.setattr(ring_cuda, "fused_occ_cuda", kernel_called)
     x = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     assert torch.equal(ring.ring_psum(x), ring.ring_psum_plain(x))
     w = torch.zeros((2, 1, 5, 8), dtype=torch.int32)
@@ -114,6 +124,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     # roff 0 counts no bases: each of the 2 shards owns with base 3
     got = ring.fused_rank_ring(w, z, z, z + 3, z + 1)
     assert torch.equal(got, torch.full((1, 5), 6, dtype=torch.int32))
+    fm = build_fm_index(np.arange(300, dtype=np.uint8) % 4, sample_rate=16)
+    sh = si.put_sharded(si.shard_fm_index(fm, 2), "cpu")
+    k = torch.arange(fm.n + 2, dtype=torch.int32)
+    assert torch.equal(si.fused_occ(sh, k % 4, k), si.occ_codes(sh, k % 4, k))
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -122,8 +136,13 @@ def test_cuda_wrappers_reject_cpu_tensors():
     z = torch.zeros((2, 1, 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         ring_cuda.fused_rank_ring_cuda(torch.zeros((2, 1, 5, 8), dtype=torch.int32), z, z, z, z)
+    s = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_cuda.fused_occ_cuda(torch.zeros((2, 3, 8), dtype=torch.int32),
+                                 torch.zeros((2, 3, 4), dtype=torch.int32), s, s, 0, z, z)
     assert ring_cuda.ring_allreduce_cuda.launches == 0
     assert ring_cuda.fused_rank_ring_cuda.launches == 0
+    assert ring_cuda.fused_occ_cuda.launches == 0
 
 
 def test_ring_loader_names_missing_nvcc(monkeypatch, tmp_path):

@@ -94,13 +94,13 @@ def test_sharded_exact_search_matches_jax(setup, n_data, n_interval):
 
 def test_ring_merges_reach_the_ring(setup, monkeypatch):
     """merge="ring" merges every extension step of every chunk through
-    ``ring.ring_psum``; merge="fused" once per step through
-    ``ring.fused_rank_ring``."""
+    ``ring.ring_psum``; merge="fused" once per step through the table entry
+    ``sharded_index.fused_occ``, with every chunk's lo and hi queries."""
     codes, fm = setup
     from genome_weaver_align_tpu_torch.parallel import ring
 
     calls = {"ring": 0, "fused": 0}
-    real_psum, real_fused = ring.ring_psum, ring.fused_rank_ring
+    real_psum, real_fused = ring.ring_psum, si.fused_occ
 
     def count(name, real):
         def f(*a, **kw):
@@ -109,7 +109,7 @@ def test_ring_merges_reach_the_ring(setup, monkeypatch):
         return f
 
     monkeypatch.setattr(ring, "ring_psum", count("ring", real_psum))
-    monkeypatch.setattr(ring, "fused_rank_ring", count("fused", real_fused))
+    monkeypatch.setattr(si, "fused_occ", count("fused", real_fused))
     layout = pmesh.make_layout(1, 4, "cpu")
     sh = si.put_sharded(si.shard_fm_index(fm, 4), "cpu")
     reads = np.stack([codes[i : i + 20] for i in range(0, 800, 100)]).astype(np.int32)
