@@ -82,7 +82,23 @@ per line, and exits non-zero at the first phase that fails:
    --n-interval 4`` with the seed table on 65,536 reads and without it
    (FM shards) on 16,384 reads; the SAM body must be byte-identical to
    the single-device CLI's on the same FASTQ, >= 99% mapped and correct,
-   and the banded-DP kernel launched.
+   and the banded-DP kernel launched;
+12. the tier-2 staircase at scale, on the JAX package's repeat bench
+   configuration (``bench.py`` ``bench_repeat``): ``repeat_genome`` of the
+   same length (seed 4) indexed by the CLI with its reverse text (cached
+   under ``smoke_cache/``), ``SuffixFilterAligner`` at k = 2 with 8 hits a
+   piece, 12 candidates and 4 verify lanes a read, the array loop over 6 x
+   32,768 reads with <= 2 substitutions.  >= 97% mapped (the bench's
+   limit), some reads through tier 2, the banded text entry launched inside
+   tier 2, and the same reads on the index without its reverse text map no
+   read that tier 2 loses.  Per batch: both tiers' host ms and cohorts;
+   for one tier-2 call: its wall, the wall a sequential staircase step, and
+   the device events and busy share under ``torch.profiler``;
+13. the search modes through the CLI on the phase-4 index: ``-k 0``
+   (``ExactAligner``) on 65,536 error-free reads, ``--mode onemm`` on
+   16,384 reads with <= 1 substitution, ``--mode staircase -k 2`` on the
+   first 16,384 of phase 4's reads; >= 99% mapped and correct in each,
+   reads/s, and the banded text entry launched under ``staircase``.
 
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after.  The last lines are a JSON summary of every kernel entry (each
@@ -131,6 +147,12 @@ RESCUE_LANES = 2048
 SHARDS = 4  # interval shards of phases 10-11
 RING_MICROBATCH = 2
 SHARDED_FM_READS = 16_384
+REPEAT_SEED = 4  # phase 12: the JAX package's repeat bench (bench.py bench_repeat)
+REPEAT_BATCH = 32_768
+REPEAT_BATCHES = 6
+MIN_REPEAT_MAPPED = 0.97  # that bench's own limit
+EXACT_READS = 65_536  # phase 13
+MODE_READS = 16_384
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
 # bytes/s and the float32 rate outside the tensor cores.  Integer work is
 # priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
@@ -497,17 +519,19 @@ def phase_fused_step(torch, dev, codes, offsets, positions):
     check(mapped >= MIN_MAPPED, f"fused step mapped only {mapped:.4f}")
 
 
-def build_index(cli, codes) -> tuple[Path, Path, float | None]:
-    """The CLI index of the smoke genome, built once into smoke_cache/."""
+def build_index(cli, codes, name: str = f"random_{GENOME_LEN}_seed{GENOME_SEED}",
+                contig: str = "chr20s") -> tuple[Path, Path, float | None]:
+    """The CLI index (with its reverse text) and seed table of a smoke
+    genome, built once into smoke_cache/<name>."""
     from genome_weaver_align_tpu_torch.utils.fasta import Contig, write_fasta
 
-    cache = CACHE / f"random_{GENOME_LEN}_seed{GENOME_SEED}"
+    cache = CACHE / name
     idx, seedf = cache / "genome.npz", cache / f"genome.npz.seed{SEED_J}.npz"
     if idx.exists() and seedf.exists():
         return idx, seedf, None
     tmp = cache.with_name(cache.name + f".tmp{os.getpid()}")
     tmp.mkdir(parents=True)
-    write_fasta(tmp / "genome.fa", [Contig("chr20s", codes)])
+    write_fasta(tmp / "genome.fa", [Contig(contig, codes)])
     t0 = time.time()
     rc = cli.main(["index", str(tmp / "genome.fa"), "-o", str(tmp / "genome.npz"),
                    "--seed", str(SEED_J)])
@@ -517,12 +541,17 @@ def build_index(cli, codes) -> tuple[Path, Path, float | None]:
     return idx, seedf, secs
 
 
-def write_reads(path: Path, codes, n: int = BATCH * N_BATCHES, seed: int = 11) -> None:
+def write_reads(path: Path, codes, n: int = BATCH * N_BATCHES, seed: int = 11,
+                max_subs: int = 2, of: int | None = None) -> None:
+    """n simulated reads with 0..max_subs substitutions as FASTQ, their true
+    locus and strand in the name; with ``of``, the first n of the ``of``
+    reads that seed gives."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 
-    reads, pos, strand, _ = simulate_reads_array(codes, n, L, seed=seed, max_subs=2)
+    reads, pos, strand, _ = simulate_reads_array(codes, of or n, L, seed=seed, max_subs=max_subs)
+    reads, pos, strand = reads[:n], pos[:n], strand[:n]
     seqs = np.frombuffer(b"ACGT", np.uint8)[reads].tobytes()
     qual = "I" * L
     with open(path, "w") as fh:
@@ -1390,6 +1419,188 @@ def phase_sharded_cli(codes, card):
     return sharded_launches
 
 
+def phase_tier2(torch, dev, card):
+    """The tier-2 staircase at scale, on the JAX package's repeat bench
+    configuration: the repeat genome indexed by the CLI with its reverse
+    text, k = 2, 8 hits a piece, 12 candidates, 4 verify lanes a read, the
+    array loop over 6 x 32,768 reads; then the same reads on the index
+    without its reverse text (no tier 2), and one tier-2 call profiled.
+    -> the banded text entry's launches inside tier 2."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index.files import GenomeIndex, load_index
+    from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
+    from genome_weaver_align_tpu_torch.models.pipeline import SuffixFilterAligner, prefetch_result
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.utils.simulate import repeat_genome, simulate_reads_array
+
+    t0 = time.time()
+    codes = repeat_genome(GENOME_LEN, seed=REPEAT_SEED)
+    gen_s = time.time() - t0
+    idx, seedf, index_s = build_index(cli, codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}",
+                                      "chr20rep")
+    log(f"[12] repeat_genome({GENOME_LEN}, seed={REPEAT_SEED}) in {gen_s:.1f} s; index --seed "
+        f"{SEED_J}: " + (f"{index_s:.1f} s ({card})" if index_s is not None
+                         else f"cached in {idx.parent}"))
+    gi = load_index(idx)
+    check(gi.rev is not None, "the CLI index of the repeat genome has no reverse text")
+    offsets, positions, sj = load_seed_table(seedf)
+    kw = dict(k=K, max_hits_per_piece=8, max_cands=12, verify_slack=4,
+              seed_table=(offsets, positions), seed_j=sj, device=dev)
+    reads, _, _, _ = simulate_reads_array(codes, REPEAT_BATCH * REPEAT_BATCHES, L, seed=13,
+                                          max_subs=2)
+    reads = reads.astype(np.int8)
+    lengths = np.full(REPEAT_BATCH, L, np.int32)
+    del codes
+
+    def run(aligner):
+        """The array loop (submit N+1, then finish N): per batch the
+        ArrayHits' mapped and overflow columns and ``last_stats``."""
+        out = []
+        pending = None
+        for b in range(REPEAT_BATCHES + 1):
+            h = None
+            if b < REPEAT_BATCHES:
+                h = aligner.align_arrays_submit(reads[b * REPEAT_BATCH:(b + 1) * REPEAT_BATCH],
+                                                lengths)
+                prefetch_result(h)
+            if pending is not None:
+                ah = aligner.align_arrays_finish(pending)
+                out.append((ah.mapped.copy(), ah.overflow.copy(), dict(aligner.last_stats)))
+            pending = h
+        return out
+
+    no_rev = SuffixFilterAligner(GenomeIndex(gi.genome, gi.fwd, None), **kw)
+    w0 = time.perf_counter()
+    base = run(no_rev)
+    base_s = time.perf_counter() - w0
+    del no_rev
+    al = SuffixFilterAligner(gi, **kw)
+    fb2 = al._get_fb2()  # the reverse text goes up here, not inside the first batch
+    submit2 = fb2.align_arrays_submit
+    tier2 = {"launches": 0, "calls": 0}
+
+    def counted_submit(*a):
+        n0 = dp_cuda.banded_edit_distance_text_cuda.launches
+        h = submit2(*a)
+        tier2["launches"] += dp_cuda.banded_edit_distance_text_cuda.launches - n0
+        tier2["calls"] += 1
+        return h
+
+    fb2.align_arrays_submit = counted_submit
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
+    w0 = time.perf_counter()
+    res = run(al)
+    wall = time.perf_counter() - w0
+    launches = dp_cuda.banded_edit_distance_text_cuda.launches
+    fb2.align_arrays_submit = submit2
+    total = REPEAT_BATCH * REPEAT_BATCHES
+    for b, (mapped, ovf, st) in enumerate(res):
+        log(f"[12] batch {b}: t_tier1_ms {st.get('t_tier1_ms')}, t_tier2_ms "
+            f"{st.get('t_tier2_ms')}, tier-1 cohort {st.get('n_overflow_fallback', 0)}, tier-2 "
+            f"cohort {st['n_staircase_fallback']}, mapped {int(mapped.sum())} ({card})")
+    m_rev = np.concatenate([r[0] for r in res])
+    m_base = np.concatenate([r[0] for r in base])
+    n_tier2 = sum(r[2]["n_staircase_fallback"] for r in res)
+    lost = int((m_base & ~m_rev).sum())
+    log(f"[12] {total} reads, k={K}: mapped {m_rev.mean():.6f} with tier 2 against "
+        f"{m_base.mean():.6f} on the index without its reverse text (+{int(m_rev.sum()) - int(m_base.sum())} "
+        f"reads, {lost} lost); overflowed {np.concatenate([r[1] for r in res]).mean():.6f}; "
+        f"{n_tier2} reads through tier 2 in {tier2['calls']} calls; banded text-entry launches "
+        f"{launches} in the loop, {tier2['launches']} of them in tier 2; loop {wall:.3f} s "
+        f"({total / wall:.1f} reads/s) against {base_s:.3f} s without tier 2 ({card})")
+    check(m_rev.mean() >= MIN_REPEAT_MAPPED, f"mapped share {m_rev.mean():.4f} < {MIN_REPEAT_MAPPED}")
+    check(n_tier2 > 0, "no read went through the tier-2 staircase")
+    check(tier2["launches"] > 0, "tier 2 never launched the banded DP kernel's text entry")
+    check(lost == 0 and m_rev.sum() >= m_base.sum(), "tier 2 unmapped reads (the merge must be "
+          "improve-only)")
+
+    # one tier-2 call on the largest batch cohort, as _apply_overflow_fallback
+    # builds it: reads still overflowed and unmapped after tier 1, padded
+    # to a power of two of at least 128
+    b = max(range(REPEAT_BATCHES), key=lambda i: res[i][2]["n_staircase_fallback"])
+    cohort = b * REPEAT_BATCH + np.nonzero(base[b][1] & ~base[b][0])[0]
+    P2 = max(128, 1 << (int(cohort.size) - 1).bit_length())
+    sel = np.concatenate([cohort, np.full(P2 - cohort.size, cohort[0], cohort.dtype)])
+    c_reads, c_lens = reads[sel], np.full(P2, L, np.int32)
+
+    def call():
+        return fb2.align_arrays_finish(fb2.align_arrays_submit(c_reads, c_lens))
+
+    call()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steps = -(-L // (K + 1)) + -(-(L * K) // (K + 1))  # spine + forward
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    n_ev, busy_s, top = device_busy(torch, prof)
+    log(f"[12] one tier-2 call, cohort {cohort.size} padded to {P2} (2 x {P2} stacked strand "
+        f"lanes): wall {min(times) * 1e3:.3f} ms (best of 3: "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), {steps} sequential staircase steps, "
+        f"{min(times) * 1e3 / steps:.4f} ms a step ({card})")
+    if n_ev:
+        log(f"[12] under torch.profiler: {n_ev} device events (kernels and copies), "
+            f"{n_ev / steps:.1f} a step; device busy {busy_s * 1e3:.3f} ms of {pwall * 1e3:.3f} ms, "
+            f"share {busy_s / pwall:.4f} ({card})")
+        for name, ms, share in top:
+            log(f"[12]   {share:7.2%} of device time {ms:8.3f} ms  {name[:100]}")
+    else:
+        log("[12] device busy share: not measured (torch.profiler recorded no device events)")
+    del al, fb2, gi
+    torch.cuda.empty_cache()
+    return tier2["launches"]
+
+
+def phase_modes(codes, card) -> dict:
+    """The search modes through the CLI on the phase-4 index (it holds its
+    reverse text): ``-k 0`` (exact) on error-free reads, ``--mode onemm``
+    on reads with <= 1 substitution, ``--mode staircase -k 2`` on the first
+    reads of phase 4's set.  -> banded text-entry launches by mode."""
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+
+    idx, _, _ = build_index(cli, codes)
+    work = CACHE / f"modes{os.getpid()}"
+    work.mkdir(parents=True)
+    launches = {}
+    for name, extra, n_reads, reads_kw in (
+        ("-k 0", ["-k", "0"], EXACT_READS, dict(seed=61, max_subs=0)),
+        ("--mode onemm", ["--mode", "onemm"], MODE_READS, dict(seed=62, max_subs=1)),
+        ("--mode staircase -k 2", ["--mode", "staircase", "-k", str(K)], MODE_READS,
+         dict(seed=11, of=BATCH * N_BATCHES)),
+    ):
+        fq, sam, rep = work / "reads.fq", work / "out.sam", work / "report.json"
+        write_reads(fq, codes, n_reads, **reads_kw)
+        dp_cuda.banded_edit_distance_text_cuda.launches = 0
+        rc = cli.main(["align", str(idx), str(fq), *extra, "--batch-size", str(n_reads),
+                       "--report", str(rep), "-o", str(sam)])
+        launches[name] = dp_cuda.banded_edit_distance_text_cuda.launches
+        check(rc == 0, f"align {name} exited {rc}")
+        report = json.loads(rep.read_text())
+        n, mapped, correct = score_sam(sam)
+        log(f"[13] align {name}: {n} reads, mode {report['mode']}, mapped {mapped / n:.6f}, "
+            f"correct {correct / n:.6f}, {report['reads_per_s']} reads/s over {report['wall_s']} s "
+            f"({card}), banded text-entry launches {launches[name]}")
+        check(n == n_reads, f"SAM holds {n} records")
+        check(mapped / n >= MIN_MAPPED, f"{name}: mapped share {mapped / n:.4f} < {MIN_MAPPED}")
+        check(correct / n >= MIN_CORRECT, f"{name}: correct share {correct / n:.4f} < {MIN_CORRECT}")
+    check(launches["--mode staircase -k 2"] > 0,
+          "--mode staircase never launched the banded DP kernel's text entry")
+    shutil.rmtree(work)
+    return launches
+
+
 def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
     """One entry of the ``kernels`` line; ``path`` names the run whose
     launches are counted."""
@@ -1454,6 +1665,8 @@ def main() -> int:
         ring_launches, fused_launches = phase_sharded_search(torch, dev, codes, gi, card)
         del gi
         banded_win_launches = phase_sharded_cli(codes, card)
+        tier2_launches = phase_tier2(torch, dev, card)
+        mode_launches = phase_modes(codes, card)
         check("jax" not in sys.modules, "the smoke imported jax")
         check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
                       for m in sys.modules), "the smoke imported the JAX package")
@@ -1463,7 +1676,10 @@ def main() -> int:
     myers_win_err, myers_text_err = myers_err
     log(json.dumps({"kernels": [
         kernel_row("banded_dp_text", "banded_dp.cu", "ops/dp_pallas.py:47",
-                   "[4] align --seed-table", launches, max_err, (*dp_timing["text"], None)),
+                   "[4] align --seed-table", launches, max_err, (*dp_timing["text"], None),
+                   launches_by_path={"[4] align --seed-table": launches,
+                                     "[12] tier 2 (repeat genome)": tier2_launches,
+                                     **{f"[13] align {m}": n for m, n in mode_launches.items()}}),
         kernel_row("banded_dp_windows", "banded_dp.cu", "ops/dp_pallas.py:47",
                    "[11] align --n-interval 4", banded_win_launches, max_err,
                    (*dp_timing["windows"], None)),

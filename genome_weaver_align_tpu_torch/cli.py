@@ -8,16 +8,25 @@ Same verbs, flags and files as ``genome_weaver_align_tpu.cli``:
         --seed-table genome.npz.seed13.npz -o out.sam
     python -m genome_weaver_align_tpu_torch align genome.npz r1.fq --paired r2.fq -k 2 -o out.sam
 
-``align`` runs the k-edit pipeline (``--mode auto|pigeonhole`` with k > 0):
-candidates from the seed table when one is given and its j fits the read
-pieces, else from the FM index (optionally with a ``--kmer-table``); FASTQ
-or FASTA reads, single-end, ``--paired`` or ``--interleaved``.  With
-``--n-interval N`` (N > 1) it runs ``ShardedAligner``: the index, the text
-and the seed table split into N interval shards on the one device.  It runs
-on the CUDA device (``--device cuda``, the default) and exits non-zero when
-there is none; ``--device cpu`` runs the plain torch versions on the CPU.
-The modes and flags whose paths are not ported yet exit with code 2 and say
-so.
+``align`` runs, as the JAX CLI does:
+
+- ``--mode auto|pigeonhole`` with 1 <= k <= 14: the k-edit pipeline, with
+  candidates from the seed table when one is given and its j fits the read
+  pieces, else from the FM index (optionally with a ``--kmer-table``); reads
+  left flooded after the tier-1 fallback take the tier-2 staircase when the
+  index holds its reverse text (``index`` always writes it);
+- ``--mode staircase``: the k-edit pipeline with the staircase search;
+- ``--mode exact`` or ``-k 0`` (auto): exact matches (``ExactAligner``);
+- ``--mode onemm``: at most one substitution (``OneMismatchAligner``);
+
+on FASTQ or FASTA reads, single-end, ``--paired`` or ``--interleaved``.
+With ``--n-interval N`` (N > 1) it runs ``ShardedAligner``: the index, the
+text and the seed table split into N interval shards on the one device.  It
+runs on the CUDA device (``--device cuda``, the default) and exits non-zero
+when there is none; ``--device cpu`` runs the plain torch versions on the
+CPU.  A k outside 1..14 for the k-edit modes exits with code 2 (the JAX CLI
+unmaps such reads instead), and so do the modes and flags whose paths are
+not ported yet, each saying so.
 """
 
 from __future__ import annotations
@@ -92,15 +101,26 @@ def _cmd_index(args) -> int:
     return 0
 
 
+def _align_mode(cfg) -> str:
+    """The aligner ``--mode`` names; ``auto`` is exact at k = 0, else
+    pigeonhole, as in the JAX CLI."""
+    if cfg.mode == "auto":
+        return "exact" if cfg.k == 0 else "pigeonhole"
+    return cfg.mode
+
+
 def _unported_align_feature(args, cfg) -> str | None:
     """The first requested align feature whose path is not ported, or None."""
-    mode = cfg.mode
-    if mode == "auto":
-        mode = "exact" if cfg.k == 0 else "pigeonhole"
-    if mode != "pigeonhole" or cfg.k <= 0:
-        return f"align --mode {mode} -k {cfg.k}"
+    mode = _align_mode(cfg)
+    if mode == "long":
+        return "align --mode long"
+    if cfg.n_interval > 1 and cfg.mode not in ("auto", "pigeonhole"):
+        # the JAX CLI runs ShardedAligner there and ignores the mode
+        return f"align --n-interval > 1 with --mode {cfg.mode}"
     if cfg.n_interval > 1 and (args.paired or args.interleaved or cfg.kmer_table):
         return "align --n-interval > 1 with --paired, --interleaved or --kmer-table"
+    if mode in ("exact", "onemm") and (args.paired or args.interleaved):
+        return f"align --mode {mode} with --paired or --interleaved"
     if args.profile:
         return "align --profile"
     return None
@@ -113,12 +133,16 @@ def _cmd_align(args) -> int:
     from genome_weaver_align_tpu_torch.utils.log import StopWatch
 
     from .index.files import load_index
-    from .models.pipeline import SuffixFilterAligner
+    from .models.pipeline import MAX_K, ExactAligner, SuffixFilterAligner
 
     cfg = AlignConfig.from_args(args)
     missing = _unported_align_feature(args, cfg)
     if missing:
         return _not_ported(missing)
+    mode = _align_mode(cfg)
+    if (mode in ("pigeonhole", "staircase") or cfg.n_interval > 1) and not 1 <= cfg.k <= MAX_K:
+        sys.stderr.write(f"gwa-torch: align -k {cfg.k}: the k-edit modes take 1 <= k <= {MAX_K}\n")
+        return _NOT_PORTED
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.stderr.write(
@@ -152,23 +176,41 @@ def _cmd_align(args) -> int:
         )
         sw.lap(f"uploaded {cfg.n_interval} interval shards to {device}")
         return _align_read_list(args, cfg, aligner, sw)
-    aligner = SuffixFilterAligner(
-        gi, k=cfg.k, max_hits_per_piece=cfg.max_hits_per_piece, device=device, **tables
-    )
+    if mode == "exact":
+        aligner = ExactAligner(gi, device=device)
+    elif mode == "onemm":
+        from .models.one_mismatch import OneMismatchAligner
+
+        aligner = OneMismatchAligner(gi, device=device)
+    else:
+        aligner = SuffixFilterAligner(
+            gi, k=cfg.k, max_hits_per_piece=cfg.max_hits_per_piece,
+            use_staircase=mode == "staircase", device=device, **tables,
+        )
     sw.lap(f"uploaded tables to {device}")
-    # array streaming: uniform unpaired FASTQ goes straight to (B, L) arrays;
-    # FASTA and paired input take the list-of-Read path, as in the JAX CLI
+    # array streaming: uniform unpaired FASTQ of the auto/pigeonhole k-edit
+    # path goes straight to (B, L) arrays; FASTA, paired input and the other
+    # modes take the list-of-Read path, as in the JAX CLI
     base = cfg.reads[:-3] if cfg.reads.endswith(".gz") else cfg.reads
-    if base.endswith((".fq", ".fastq")) and not args.interleaved and not args.paired:
+    if (base.endswith((".fq", ".fastq")) and not args.interleaved and not args.paired
+            and mode == "pigeonhole"):
         return _align_array_stream(args, aligner, sw)
     return _align_read_list(args, cfg, aligner, sw)
 
 
+def _n_tier2(aligner) -> int:
+    """Reads the last finished batch sent to the tier-2 staircase (0 for
+    aligners without a tier 2)."""
+    return getattr(aligner, "last_stats", {}).get("n_staircase_fallback", 0)
+
+
 def _align_read_list(args, cfg, aligner, sw) -> int:
     """List-of-Read align loop (FASTA reads, ``--paired``,
-    ``--interleaved``): all reads are loaded, aligned batch by batch
-    (single-end batches pipelined: submit N+1 before finishing N) and the
-    SAM is written at the end, as the JAX CLI's list path does."""
+    ``--interleaved``, ``--n-interval``, the exact, onemm and staircase
+    modes): all reads are loaded, aligned batch by batch (single-end batches
+    pipelined where the aligner has a submit/finish pair: submit N+1 before
+    finishing N) and the SAM is written at the end, as the JAX CLI's list
+    path does."""
     from genome_weaver_align_tpu_torch.utils.fasta import iter_reads
     from genome_weaver_align_tpu_torch.utils.sam import write_sam
 
@@ -201,16 +243,16 @@ def _align_read_list(args, cfg, aligner, sw) -> int:
         sw.lap(f"resuming at batch {start_batch}")
 
     records = []
-    n_mapped = n_proper = n_pending = 0
+    n_mapped = n_proper = n_tier2 = 0
     t0 = time.time()
     bs = cfg.batch_size
     n_batches = (len(reads) + bs - 1) // bs
     pending = None  # single-end: (batch, submitted handle)
+    pipelined = hasattr(aligner, "align_batch_submit")
 
-    def finish_single(batch, handle):
-        nonlocal n_mapped, n_pending
-        hits = aligner.align_batch_finish(handle)
-        n_pending += aligner.last_stats["n_staircase_pending"]
+    def finish_single(batch, hits):
+        nonlocal n_mapped, n_tier2
+        n_tier2 += _n_tier2(aligner)
         records.extend(aligner.to_sam(batch, hits))
         n_mapped += sum(h is not None for h in hits)
 
@@ -219,29 +261,31 @@ def _align_read_list(args, cfg, aligner, sw) -> int:
         if paired is not None:
             batch = list(zip(reads[i : i + bs], mates[i : i + bs]))
             hits = paired.align_pairs(batch)
-            n_pending += paired.last_staircase_pending
+            n_tier2 += paired.last_staircase_fallback
             records.extend(paired.to_sam(batch, hits))
             n_mapped += sum((ph.h1 is not None) + (ph.h2 is not None) for ph in hits)
             n_proper += sum(ph.proper for ph in hits)
-        else:
+        elif pipelined:
             batch = reads[i : i + bs]
             nxt = (batch, aligner.align_batch_submit(batch))
             if pending is not None:
-                finish_single(*pending)
+                finish_single(pending[0], aligner.align_batch_finish(pending[1]))
             pending = nxt
+        else:
+            batch = reads[i : i + bs]
+            finish_single(batch, aligner.align_batch(batch))
         if progress_path:
             with open(progress_path, "w") as fh:
                 fh.write(json.dumps({"batches_done": b + 1}))
     if pending is not None:
-        finish_single(*pending)
+        finish_single(pending[0], aligner.align_batch_finish(pending[1]))
     dt = time.time() - t0
     total = len(reads) * (2 if paired else 1)
     sw.lap(
         f"aligned: {n_mapped}/{total} mapped, {total/max(dt,1e-9):.0f} reads/s"
         + (f", {n_proper} proper pairs" if paired else "")
     )
-    sw.lap(f"{n_pending} overflowed read(s) left for the tier-2 staircase, "
-           "which is not yet ported")
+    sw.lap(f"{n_tier2} read(s) went through the tier-2 staircase")
 
     hdr = aligner.sam_header()
     if cfg.out == "-":
@@ -258,10 +302,10 @@ def _align_read_list(args, cfg, aligner, sw) -> int:
             "proper_pairs": n_proper if paired else None,
             "reads_per_s": round(total / max(dt, 1e-9), 1),
             "wall_s": round(dt, 3),
-            "mode": "pigeonhole",
+            "mode": _align_mode(cfg),
             "k": cfg.k,
             "batch_size": bs,
-            "n_staircase_pending": n_pending,
+            "n_staircase_fallback": n_tier2,
             "device": str(aligner.device),
         })
     return 0
@@ -291,16 +335,16 @@ def _align_array_stream(args, aligner, sw) -> int:
         sw.lap(f"resuming at batch {start_batch}")
 
     bs = args.batch_size
-    total = n_mapped = n_pending = 0
+    total = n_mapped = n_tier2 = 0
     t0 = time.time()
     out_fh = sys.stdout if args.out == "-" else open(args.out, "w")
     try:
         out_fh.write(aligner.sam_header() + "\n")
 
         def emit(pb, ah, names, codes, quals, lengths):
-            nonlocal n_mapped, n_pending
+            nonlocal n_mapped, n_tier2
             n_mapped += int(ah.mapped.sum())
-            n_pending += aligner.last_stats["n_staircase_pending"]
+            n_tier2 += _n_tier2(aligner)
             lines = aligner.to_sam_lines(names, codes, lengths, ah, quals=quals)
             out_fh.write("\n".join(lines) + "\n")
             if progress_path:
@@ -334,8 +378,7 @@ def _align_array_stream(args, aligner, sw) -> int:
             out_fh.close()
     dt = time.time() - t0
     sw.lap(f"aligned: {n_mapped}/{total} mapped, {total/max(dt,1e-9):.0f} reads/s")
-    sw.lap(f"{n_pending} overflowed read(s) left for the tier-2 staircase, "
-           "which is not yet ported")
+    sw.lap(f"{n_tier2} read(s) went through the tier-2 staircase")
     if args.report:
         _write_report(args.report, sw, {
             "reads": total,
@@ -346,7 +389,7 @@ def _align_array_stream(args, aligner, sw) -> int:
             "mode": "pigeonhole",
             "k": args.k,
             "batch_size": bs,
-            "n_staircase_pending": n_pending,
+            "n_staircase_fallback": n_tier2,
             "device": str(aligner.device),
         })
     return 0
@@ -412,7 +455,7 @@ def main(argv=None) -> int:
         "--mode",
         choices=["auto", "exact", "onemm", "pigeonhole", "staircase", "long"],
         default=acfg.mode,
-        help="only auto/pigeonhole with k > 0 are ported",
+        help="'long' is not yet ported",
     )
     pa.add_argument("--batch-size", type=int, default=acfg.batch_size)
     pa.add_argument("--max-hits-per-piece", type=int, default=acfg.max_hits_per_piece)

@@ -164,10 +164,10 @@ class PairedAligner:
         p1 = self.al.align_arrays_submit(codes1, lengths1)
         p2 = self.al.align_arrays_submit(codes2, lengths2)
         h1s = hits_from_arrays(self.al.align_arrays_finish(p1))
-        pending = self.al.last_stats["n_staircase_pending"]
+        n_tier2 = self.al.last_stats["n_staircase_fallback"]
         h2s = hits_from_arrays(self.al.align_arrays_finish(p2))
-        # mates left overflowed and unmapped for the unported tier 2
-        self.last_staircase_pending = pending + self.al.last_stats["n_staircase_pending"]
+        # mates that went through the tier-2 staircase, both files
+        self.last_staircase_fallback = n_tier2 + self.al.last_stats["n_staircase_fallback"]
         t1 = time.time()
         out = self._pair_and_rescue(codes1, lengths1, codes2, lengths2, h1s, h2s)
         self.last_phase_ms = {

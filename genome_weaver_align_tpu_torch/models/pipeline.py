@@ -1,24 +1,29 @@
-"""Alignment pipeline: the k-edit ``SuffixFilterAligner`` in torch.
+"""Alignment pipeline: the exact aligner and the k-edit
+``SuffixFilterAligner`` in torch.
 
-Torch counterpart of ``genome_weaver_align_tpu.models.pipeline``'s flagship
-path.  Per batch: host 2-bit pack -> one device step for both strands
-(unpack, candidates from the seed table or the FM pigeonhole search,
-dedupe, lane compaction, window gather, banded DP verify, scatter-min best
-hit, cross-strand pick, offset-Hamming fast-CIGAR check, 2-row packed
-result) -> host finish (unpack, affine traceback for indel reads, tier-1
-overflow fallback) -> SAM lines.  ``align_batch``/``to_sam`` are the
-list-of-``Read`` API over the same arrays, which ``models.paired`` and the
-CLI's FASTA and paired modes use.
+Torch counterpart of ``genome_weaver_align_tpu.models.pipeline``.  Per
+batch of the flagship path: host 2-bit pack -> one device step for both
+strands (unpack, candidates from the seed table or the FM pigeonhole search,
+dedupe, lane compaction, banded DP verify with the window gathered in the
+kernel, scatter-min best hit, cross-strand pick, offset-Hamming fast-CIGAR
+check, 2-row packed result) -> host finish (unpack, affine traceback for
+indel reads, the overflow fallback) -> SAM lines.  ``align_batch``/``to_sam``
+are the list-of-``Read`` API over the same arrays, which ``models.paired``
+and the CLI's list modes use.
 
-The device step enqueues its work with fixed shapes and no host
+The overflow fallback has two tiers, as in the JAX package: tier 1 reruns
+overflowed unmapped reads at larger budgets; reads still overflowed and
+unmapped go to tier 2, the staircase search (``models.staircase``) over the
+index's reverse text, when the index has one, merged improve-only.
+``use_staircase=True`` makes the staircase the aligner's own candidate
+search (``--mode staircase``).  ``ExactAligner`` is acceptance config 1.
+
+The device steps enqueue their work with fixed shapes and no host
 synchronisation, so a driver that submits batch N+1 before finishing batch N
 overlaps host work with device work, as the JAX package's async dispatch
-does.
-
-Not ported yet: the tier-2 staircase (reads tier 2 would take stay
-overflow-flagged and are counted in ``last_stats["n_staircase_pending"]``),
-and the exact, one-mismatch and long-read aligners.  The interval-sharded
-aligner is ``parallel.sharded_pipeline.ShardedAligner``.
+does.  The interval-sharded aligner is
+``parallel.sharded_pipeline.ShardedAligner``; the one-mismatch aligner is
+``models.one_mismatch.OneMismatchAligner``.
 """
 
 from __future__ import annotations
@@ -33,14 +38,118 @@ import torch
 
 from genome_weaver_align_tpu_torch.utils import dna, sam
 from genome_weaver_align_tpu_torch.utils.fasta import Read
+from genome_weaver_align_tpu_torch.utils.simulate import reads_to_batch
 
 from ..ops import affine
 from ..ops import dp as dp_ops
 from ..ops import rank
 from ..ops import window as window_ops
-from . import suffix_filter
+from ..ops.dp_cuda import MAX_K
+from . import bidirectional as bd
+from . import exact, staircase, suffix_filter
 
 I32 = torch.int32
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor; CUDA uploads go through pinned memory
+    asynchronously, so they do not wait for work already queued."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _device_pair(tab, device):
+    """A pair of host tables -> int32 device tensors (None stays None)."""
+    if tab is None:
+        return None
+    return tuple(torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device) for a in tab)
+
+
+@dataclass
+class ExactHit:
+    pos: int  # global genome coordinate (multi-hit reads: the occurrence at
+    #           the smallest SA rank — deterministic; mapq 0 flags ambiguity)
+    strand: int  # 0 fwd, 1 rev (read maps as revcomp)
+    n_hits: int  # multiplicity across both strands
+
+
+class ExactAligner:
+    """Acceptance config 1: exact-match backward search end to end.
+
+    One device step per batch: both strands searched, best (smallest
+    position, fwd-preferred) located, one packed download.  Accepts a k-mer
+    prefix table like the flagship aligner."""
+
+    def __init__(self, gi, kmer_table=None, kmer_j: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.gi = gi
+        self.device = torch.device(device)
+        self.fm = rank.from_host(gi.fwd, self.device)
+        use_kmer = kmer_table is not None and kmer_j > 0
+        self.kmer_tab = _device_pair(kmer_table if use_kmer else None, self.device)
+        self.kmer_j = kmer_j if use_kmer else 0
+
+    def _step(self, reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """(3, B) int32: best position (2^30 = none), strand, multiplicity."""
+        rc = torch.where(reads < 4, 3 - reads, reads).flip(1)
+        outs = []
+        for batch in (reads, rc):
+            lo, hi = exact.exact_interval_search(
+                self.fm, batch.to(I32), lengths, kmer_tab=self.kmer_tab, kmer_j=self.kmer_j,
+            )
+            pos, valid = exact.locate_hits(self.fm, lo, hi, 1)
+            first = torch.where(valid[:, 0], pos[:, 0], 2**30)
+            outs.append((first, (hi - lo).clamp(min=0)))
+        (pf, wf), (pr, wr) = outs
+        take_r = pr < pf
+        return torch.stack([torch.where(take_r, pr, pf), take_r.to(I32), wf + wr])
+
+    def align_batch(self, reads: list[Read]):
+        lengths = np.array([len(r) for r in reads], dtype=np.int32)
+        fwd = reads_to_batch(reads).astype(np.int8)
+        packed = self._step(
+            _to_device(fwd, self.device), _to_device(lengths, self.device)
+        ).cpu().numpy()
+        pos, strand, total = packed
+        out: list[ExactHit | None] = []
+        for p, st, t in zip(pos.tolist(), strand.tolist(), total.tolist()):
+            out.append(None if p >= 2**30 else ExactHit(p, st, t))
+        return out
+
+    def to_sam(self, reads: list[Read], hits) -> list[sam.SamRecord]:
+        recs = []
+        for r, h in zip(reads, hits):
+            if h is None:
+                recs.append(sam.unmapped(r.name, r.codes, r.qual))
+                continue
+            ci, local = self.gi.genome.coord(h.pos)
+            recs.append(
+                sam.mapped(
+                    r.name,
+                    r.codes,
+                    self.gi.genome.names[int(ci[0])],
+                    int(local[0]),
+                    h.strand,
+                    f"{len(r)}M",
+                    edit_distance=0,
+                    mapq=37 if h.n_hits == 1 else 0,
+                    qual=r.qual,
+                )
+            )
+        return recs
+
+    def sam_header(self) -> str:
+        return sam.header(self.gi.genome.names, self.gi.genome.lengths, prog="gwa-torch")
+
+
+def check_k(k: int) -> None:
+    """The k-edit aligners take 1 <= k <= MAX_K: the banded DP kernel is
+    built for that range, and the packed result's 4-bit distance field
+    saturates at 15 (a read at distance 15 would read as unmapped)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k}: the k-edit aligners take 1 <= k <= {MAX_K}")
 
 
 @dataclass
@@ -148,28 +257,13 @@ def device_tables(gi, device, seed_table=None, kmer_table=None) -> dict:
     fields are read, so both packages can run on the same state.
     """
     words = np.ascontiguousarray(gi.fwd.text_words, dtype=np.uint32).view(np.int32)
-
-    def pair(tab):
-        if tab is None:
-            return None
-        return tuple(torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device) for a in tab)
-
     return {
         "fm": rank.from_host(gi.fwd, device),
         "text": torch.from_numpy(words).to(device),
         "text_host": gi.fwd.text_words,
-        "seed": pair(seed_table),
-        "kmer": pair(kmer_table),
+        "seed": _device_pair(seed_table, device),
+        "kmer": _device_pair(kmer_table, device),
     }
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor; CUDA uploads go through pinned memory
-    asynchronously, so they do not wait for work already queued."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 class SuffixFilterAligner:
@@ -182,6 +276,8 @@ class SuffixFilterAligner:
         gi,
         k: int = 2,
         max_hits_per_piece: int = 8,
+        use_staircase: bool = False,  # staircase search (models.staircase)
+        # over the index's reverse text instead of the pigeonhole/seed search
         kmer_table=None,  # (lo, hi) numpy arrays from index.kmer, optional
         kmer_j: int = 0,
         verify_mode: str = "banded",  # banded | myers
@@ -196,8 +292,13 @@ class SuffixFilterAligner:
         scored: bool = True,  # emit indel CIGARs/POS/NM/AS from the scored
         # affine-gap aligner (ops.affine); selection stays edit-based
         seed_probes: int = suffix_filter.SEED_PROBES,
+        staircase_slots: int = 16,  # staircase pool lanes per (piece, read)
+        staircase_narrow_left: bool = False,  # staircase states also narrow
+        # LEFT through pre-anchor pieces (whole-read intervals); see
+        # staircase.staircase_filter_candidates(narrow_left=...)
         device: str | torch.device = "cuda",  # the CPU only when asked for
     ):
+        check_k(k)
         self.gi = gi
         self.k = k
         self.n_pieces = k + 1
@@ -225,7 +326,13 @@ class SuffixFilterAligner:
         self.overflow_fallback = overflow_fallback
         self.scored = scored
         self.seed_probes = seed_probes
+        self.use_staircase = use_staircase
+        self.staircase_slots = staircase_slots
+        self.staircase_narrow_left = staircase_narrow_left
         self._fb: "SuffixFilterAligner | None" = None
+        self._fb2: "SuffixFilterAligner | None" = None
+        if use_staircase:
+            self.bi = bd.DeviceBiIndex(self.fm, rank.from_host(gi.rev, self.device))
 
     def _strand_pass(self, search_reads, verify_reads, lengths):
         """One strand: candidates -> verify -> per-read best, downloaded."""
@@ -236,7 +343,12 @@ class SuffixFilterAligner:
         verify = _to_device(verify_reads.astype(np.int32), dev)
         lens = _to_device(lengths.astype(np.int32), dev)
         min_piece = int(lengths.min()) // self.n_pieces
-        if self.seed_tab is not None and min_piece >= self.seed_j:
+        if self.use_staircase:
+            cands = staircase.staircase_filter_candidates(
+                self.bi, search, lens, self.k, n_slots=self.staircase_slots,
+                narrow_left=self.staircase_narrow_left,
+            )
+        elif self.seed_tab is not None and min_piece >= self.seed_j:
             cands = suffix_filter.seed_candidates(
                 self.seed_tab[0], self.seed_tab[1], search, lens, self.n_pieces,
                 self.seed_j, max_hits=self.max_hits, max_cands=self.max_cands,
@@ -296,10 +408,28 @@ class SuffixFilterAligner:
         L = verify_fwd.shape[1]
         if not bool(np.all(lengths == L)):
             return ("general", lengths, verify_fwd)
-        min_piece = L // self.n_pieces
-        use_seed = self.seed_tab is not None and min_piece >= self.seed_j
         rwords, nmask = pack_reads_2bit(verify_fwd)
         dev = self.device
+        if self.use_staircase:
+            # the whole staircase step in one device step: RC on the
+            # device, both strands stacked into one 2B-lane staircase pass,
+            # compact verify, cross-strand best, fast-CIGAR hamming
+            out_dev = _fused_staircase_step_impl(
+                self.bi,
+                self.text_words,
+                _to_device(rwords.view(np.int32), dev),
+                _to_device(nmask.view(np.int32), dev),
+                _to_device(np.asarray(lengths, dtype=np.int32), dev),
+                L=L,
+                k=self.k,
+                W=L + 3 * self.k,
+                n_slots=self.staircase_slots,
+                verify_slack=self.verify_slack,
+                narrow_left=self.staircase_narrow_left,
+            )
+            return ("uniform", lengths, verify_fwd, _PendingResult(out_dev))
+        min_piece = L // self.n_pieces
+        use_seed = self.seed_tab is not None and min_piece >= self.seed_j
         out_dev = _fused_align_step_impl(
             self.fm,
             self.text_words,
@@ -336,8 +466,20 @@ class SuffixFilterAligner:
             search_fwd = np.where(verify_fwd >= 4, 0, verify_fwd).astype(np.int32)
             verify_rc = revcomp_verify_batch(verify_fwd, lengths)
             search_rc = np.where(verify_rc >= 4, 0, verify_rc).astype(np.int32)
-            pf, df, nf, of = self._strand_pass(search_fwd, verify_fwd, lengths)
-            pr, dr, nr, orv = self._strand_pass(search_rc, verify_rc, lengths)
+            if self.use_staircase:
+                # ONE stacked pass for both strands: the staircase is bound
+                # by its ~L sequential steps, so 2B lanes cost about what B do
+                B0 = len(lengths)
+                p2, d2, n2, o2 = self._strand_pass(
+                    np.concatenate([search_fwd, search_rc]),
+                    np.concatenate([verify_fwd, verify_rc]),
+                    np.concatenate([lengths, lengths]),
+                )
+                pf, df, nf, of = p2[:B0], d2[:B0], n2[:B0], o2[:B0]
+                pr, dr, nr, orv = p2[B0:], d2[B0:], n2[B0:], o2[B0:]
+            else:
+                pf, df, nf, of = self._strand_pass(search_fwd, verify_fwd, lengths)
+                pr, dr, nr, orv = self._strand_pass(search_rc, verify_rc, lengths)
 
             # deterministic best across strands: (dist, pos, strand) order
             df = np.where(df <= self.k, df, 1 << 20)
@@ -424,7 +566,7 @@ class SuffixFilterAligner:
         self.last_stats = {
             "n_slow_traceback": int(slow_idx.size),
             "n_mapped": int(mapped.sum()),
-            "n_staircase_pending": 0,
+            "n_staircase_fallback": 0,
         }
         ah = ArrayHits(
             mapped=mapped,
@@ -459,8 +601,34 @@ class SuffixFilterAligner:
             fb.verify_slack = 0
             fb.overflow_fallback = False
             fb._fb = None
+            fb._fb2 = None
             self._fb = fb
         return self._fb
+
+    def _get_fb2(self) -> "SuffixFilterAligner | None":
+        """Tier-2 fallback: the staircase search (``models.staircase``).
+
+        Budget truncation cannot fix a read whose every seed bucket is
+        flooded by a repeat family: the staircase extends matches across
+        the whole read in FM space under the mismatch budget, so intervals
+        narrow to loci within k substitutions of the read.  Needs the
+        reverse-text index (``gi.rev``), uploaded here once, at first use;
+        the forward tables are the primary's (a shallow copy, as tier 1).
+        Its settings are those of the aligner the JAX package builds here:
+        compact verify with 16 lanes a read, banded verify, no fallback of
+        its own, no left narrowing."""
+        if self._fb2 is None and self.gi.rev is not None and not self.use_staircase:
+            fb2 = copy.copy(self)
+            fb2.use_staircase = True
+            fb2.bi = bd.DeviceBiIndex(self.fm, rank.from_host(self.gi.rev, self.device))
+            fb2.verify_mode = "banded"
+            fb2.verify_slack = 16
+            fb2.overflow_fallback = False
+            fb2.staircase_narrow_left = False
+            fb2.kmer_tab, fb2.kmer_j, fb2.seed_tab, fb2.seed_j = None, 0, None, 0
+            fb2._fb = fb2._fb2 = None
+            self._fb2 = fb2
+        return self._fb2
 
     def _apply_overflow_fallback(
         self, ah: ArrayHits, verify_fwd: np.ndarray, lengths: np.ndarray
@@ -473,10 +641,11 @@ class SuffixFilterAligner:
         truncation keeps its hit with the XO multiplicity-floor flag.  The
         subset is padded to a power-of-two bucket (or FB_CHUNK chunks).
 
-        Tier 2 (the staircase) is not ported: reads still overflowed and
-        unmapped after tier 1 stay so, and are counted in
-        ``last_stats["n_staircase_pending"]``, as the JAX aligner leaves
-        them when it has no reverse-text index.
+        Tier 2: reads still overflowed and unmapped after tier 1 go through
+        the staircase (``_get_fb2``) when the index has its reverse text,
+        padded to a power-of-two bucket of at least 128; the merge is
+        improve-only.  ``last_stats`` counts both cohorts and times both
+        tiers on the host clock.
         """
         idx = np.nonzero(ah.overflow & ~ah.mapped)[0]
         if idx.size == 0:
@@ -516,15 +685,7 @@ class SuffixFilterAligner:
             ah.dist[ch] = fh.dist[:m]
             ah.n_good[ch] = fh.n_good[:m]
             ah.overflow[ch] = fh.overflow[:m]  # still set if even capped-x overflowed
-            for t, i in enumerate(ch.tolist()):
-                if t in fh.cigars:
-                    ah.cigars[i] = fh.cigars[t]
-                else:
-                    ah.cigars.pop(i, None)
-                if t in fh.aux:
-                    ah.aux[i] = fh.aux[t]
-                else:
-                    ah.aux.pop(i, None)
+            _copy_extras(ah, fh, range(m), ch.tolist())
             still_parts.append(
                 ch[
                     np.asarray(fh.overflow[:m], dtype=bool)
@@ -533,7 +694,33 @@ class SuffixFilterAligner:
             )
         self.last_stats["n_overflow_fallback"] = int(n)
         self.last_stats["t_tier1_ms"] = round((time.perf_counter() - _t0) * 1e3, 1)
-        self.last_stats["n_staircase_pending"] = int(sum(p.size for p in still_parts))
+        _t0 = time.perf_counter()
+
+        # tier 2: reads STILL overflowed after tier 1 AND unmapped go
+        # through the staircase.  Mapped-but-overflowed reads keep their
+        # hit: their XO flag already marks the multiplicity floor.
+        still = np.concatenate(still_parts)
+        fb2 = self._get_fb2() if still.size else None
+        self.last_stats["n_staircase_fallback"] = int(still.size) if fb2 is not None else 0
+        if fb2 is not None:
+            P2 = max(128, 1 << (int(still.size) - 1).bit_length())
+            sel2 = np.concatenate([still, np.full(P2 - still.size, still[0], still.dtype)])
+            fh2 = fb2.align_arrays_finish(fb2.align_arrays_submit(verify_fwd[sel2], lengths[sel2]))
+            m = still.size
+            # improve-only merge: take the staircase hit when it maps an
+            # unmapped read or strictly lowers the distance; the overflow
+            # flag STAYS set (n_good from a flooded region is a floor)
+            better = np.asarray(fh2.mapped[:m], bool) & (
+                ~ah.mapped[still] | (fh2.dist[:m] < ah.dist[still])
+            )
+            rows = still[better]
+            ah.mapped[rows] = True
+            ah.pos[rows] = fh2.pos[:m][better]
+            ah.strand[rows] = fh2.strand[:m][better]
+            ah.dist[rows] = fh2.dist[:m][better]
+            ah.n_good[rows] = fh2.n_good[:m][better]
+            _copy_extras(ah, fh2, np.nonzero(better)[0].tolist(), rows.tolist())
+        self.last_stats["t_tier2_ms"] = round((time.perf_counter() - _t0) * 1e3, 1)
         return ah
 
     def to_sam_lines(
@@ -594,6 +781,20 @@ class SuffixFilterAligner:
 
     def sam_header(self) -> str:
         return sam.header(self.gi.genome.names, self.gi.genome.lengths, prog="gwa-torch")
+
+
+def _copy_extras(ah: ArrayHits, fh: ArrayHits, src, dst) -> None:
+    """Fallback rows src of ``fh`` replace rows dst of ``ah``: their indel
+    CIGARs and (AS, NM), or none."""
+    for t, i in zip(src, dst):
+        if t in fh.cigars:
+            ah.cigars[i] = fh.cigars[t]
+        else:
+            ah.cigars.pop(i, None)
+        if t in fh.aux:
+            ah.aux[i] = fh.aux[t]
+        else:
+            ah.aux.pop(i, None)
 
 
 def reads_to_batch_verify(reads: list[Read]) -> np.ndarray:
@@ -664,7 +865,7 @@ def _unpack_reads_2bit(rwords: torch.Tensor, nmask: torch.Tensor, L: int) -> tor
 def _pack_result(cand, dist, take_r, n_good, ovf, ham, o_min, k):
     """Pack the per-read result columns into TWO int32 rows (bitfield) —
     the download is 8 bytes/read instead of 28.  Saturations are
-    harmless: dist saturates at 15 (> any k <= 4 = unmapped), ham at 511
+    harmless: dist saturates at 15 (> any k <= 14 = unmapped), ham at 511
     (only compared against dist <= k), o_min at 31 (range <= 3k), n_good
     at 255 (the SAM X0 cap is 8)."""
     bf = (
@@ -749,5 +950,55 @@ def _fused_align_step_impl(
     vsel = torch.where(take_r[:, None], vrc, vf)
     ham, o_min = suffix_filter.offset_hamming(
         text_words, fm.n, vsel, lengths, torch.where(mapped, cand, 0), k,
+    )
+    return _pack_result(cand, dist, take_r, n_good, ovf, ham, o_min, k)
+
+
+def _fused_staircase_step_impl(
+    bi, text_words, rwords, nmask, lengths, *, L, k, W, n_slots, verify_slack,
+    narrow_left=False,
+):
+    """Whole staircase step: device RC, BOTH strands stacked into one
+    2B-lane staircase pass (the staircase is depth-bound, so stacking
+    halves the sequential pass count), verify, cross-strand best,
+    fast-CIGAR hamming -> the packing of ``_fused_align_step_impl``, so the
+    finish path is shared.  Fixed shapes, no host synchronisation."""
+    INF = dp_ops.INF
+    vf = _unpack_reads_2bit(rwords, nmask, L)
+    B = vf.shape[0]
+    vrc = torch.where(vf < 4, 3 - vf, vf).flip(1)
+    v2 = torch.cat([vf, vrc], dim=0)
+    search2 = torch.where(v2 >= 4, 0, v2)
+    lengths2 = torch.cat([lengths, lengths], dim=0)
+
+    cands = staircase.staircase_filter_candidates(
+        bi, search2, lengths2, k, n_slots=n_slots, narrow_left=narrow_left,
+    )
+    if verify_slack:
+        dist_c, cp_c, rid_c, ovf2 = suffix_filter.verify_candidates_compact(
+            text_words, bi.fwd.n, v2, lengths2, cands.cand_pos, k, W, slack=verify_slack,
+        )
+        best = suffix_filter.best_hit_compact(rid_c, cp_c, dist_c, k, 2 * B)
+        ovf2b = cands.overflow | ovf2
+    else:
+        dist2, _ = suffix_filter.verify_candidates(
+            text_words, bi.fwd.n, v2, lengths2, cands.cand_pos, k, W,
+        )
+        best = suffix_filter.best_hit(cands.cand_pos, dist2, k)
+        ovf2b = cands.overflow
+
+    df = torch.where(best.best_dist[:B] <= k, best.best_dist[:B], INF)
+    dr = torch.where(best.best_dist[B:] <= k, best.best_dist[B:], INF)
+    pf, pr = best.best_pos[:B], best.best_pos[B:]
+    take_r = (dr < df) | ((dr == df) & (pr < pf))
+    dist = torch.where(take_r, dr, df)
+    cand = torch.where(take_r, pr, pf)
+    n_good = best.n_good[:B] + best.n_good[B:]
+    ovf = ovf2b[:B] | ovf2b[B:]
+    mapped = dist <= k
+
+    vsel = torch.where(take_r[:, None], vrc, vf)
+    ham, o_min = suffix_filter.offset_hamming(
+        text_words, bi.fwd.n, vsel, lengths, torch.where(mapped, cand, 0), k,
     )
     return _pack_result(cand, dist, take_r, n_good, ovf, ham, o_min, k)

@@ -93,8 +93,9 @@ def banded_edit_distance_text_plain(
     lengths: torch.Tensor, rid: torch.Tensor, k: int, W: int,
 ):
     """The text entry's plain version: gather every lane's window and read,
-    then ``banded_edit_distance``."""
-    rid = rid.long()
+    then ``banded_edit_distance``.  A read id outside [0, B) is clamped into
+    range, as the kernel and the JAX gather do."""
+    rid = rid.long().clamp(0, reads.shape[0] - 1)
     return banded_edit_distance(
         reads[rid], lengths[rid], gather_windows(text_words, n_text, starts, W), k
     )

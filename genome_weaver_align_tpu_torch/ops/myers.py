@@ -154,8 +154,10 @@ def myers_semiglobal_end(reads, lengths, windows, nwords: int, max_window: int |
 def myers_semiglobal_text_plain(text_words, n_text: int, starts, reads, lengths, rid, valid,
                                 W: int, nwords: int):
     """The text entry's plain version: gather every lane's window and read,
-    set the columns at or after ``valid`` to 4, then the plain loop."""
-    rid = rid.long()
+    set the columns at or after ``valid`` to 4, then the plain loop.  A read
+    id outside [0, B) is clamped into range, as the kernel and the JAX
+    gather do."""
+    rid = rid.long().clamp(0, reads.shape[0] - 1)
     wins = window.gather_windows(text_words, n_text, starts, W)
     col = torch.arange(W, dtype=I32, device=wins.device)
     wins = torch.where(col[None, :] >= valid.to(I32)[:, None], 4, wins)

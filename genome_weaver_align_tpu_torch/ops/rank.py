@@ -185,14 +185,14 @@ def occ_codes(fm: DeviceFMIndex, codes: torch.Tensor, k: torch.Tensor) -> torch.
 
 
 def occ_all4(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
-    """occ$(c, k) for all four codes: (...,) -> (..., 4)."""
+    """occ$(c, k) for all four codes: (...,) -> (..., 4).  The four codes'
+    match counts run as one (..., 4, 8) word tensor: the bidirectional
+    search calls this once a sequential step, so its op count is the
+    step's launch count."""
     words, cp, r = _row_split(fm, k)
-    masks = _pair_masks(r)
-    counts = [
-        _match_counts(words, torch.full(k.shape, c, dtype=I32, device=k.device), masks)
-        for c in range(4)
-    ]
-    return cp + torch.stack(counts, dim=-1)
+    codes = torch.arange(4, dtype=I32, device=k.device)
+    counts = _match_counts(words[..., None, :], codes, _pair_masks(r)[..., None, :])
+    return cp + counts
 
 
 def backward_step(fm: DeviceFMIndex, codes: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):

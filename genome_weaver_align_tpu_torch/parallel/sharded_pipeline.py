@@ -35,6 +35,7 @@ from ..models import suffix_filter as sf
 from ..models.pipeline import (
     ApproxHit,
     SuffixFilterAligner,
+    check_k,
     reads_to_batch_verify,
     revcomp_verify_batch,
 )
@@ -312,6 +313,7 @@ class ShardedAligner:
         # 4x hit budgets, as the JAX sharded aligner does
         device: str | torch.device = "cuda",  # the CPU only when asked for
     ):
+        check_k(k)
         self.gi = gi
         self.k = k
         self.device = torch.device(device)
@@ -335,7 +337,6 @@ class ShardedAligner:
         self._fb = None
         self._fns = {}
         self._text = _upload(gi.fwd.text_words, self.device)
-        self.last_stats = {"n_staircase_pending": 0}
 
     def _fn(self, L, use_seed: bool):
         key = (L, use_seed)

@@ -2,7 +2,8 @@
 the JAX CLI on the same files, on the seed-table path, the FM pigeonhole
 path (with and without a k-mer table), FASTA reads, and paired input
 (--paired, --interleaved); the only allowed difference is the @PG header
-line naming the program."""
+line naming the program.  The search modes and tier 2 are in
+test_torch_cli_modes.py and test_torch_cli_tier2.py."""
 
 import json
 import re
@@ -16,6 +17,7 @@ from genome_weaver_align_tpu.ops import affine as j_affine
 from genome_weaver_align_tpu.utils.fasta import Contig, Read, write_fasta, write_fastq
 from genome_weaver_align_tpu.utils.simulate import simulate_pairs
 from genome_weaver_align_tpu_torch.cli import main as port_main
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 J = 10
 
@@ -154,8 +156,9 @@ def test_cli_interleaved_identical_to_jax(files):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mode", "exact"], ["--mode", "staircase"], ["--mode", "long"], ["-k", "0"],
-    ["--mode", "onemm"], ["--profile", "prof"],
+    ["--mode", "exact", "--interleaved"], ["--mode", "staircase", "--n-interval", "2"],
+    ["--mode", "long"], ["--mode", "exact", "--n-interval", "2"],
+    ["--mode", "onemm", "--interleaved"], ["--profile", "prof"],
 ])
 def test_cli_unported_modes_exit_2(files, capsys, extra):
     assert _align(main, files, "never.sam", *extra) == 2

@@ -523,3 +523,116 @@ def test_sharded_search_and_aligner_on_card_equal_cpu(cuda):
             if dev.type == "cuda":
                 assert dp_cuda.banded_edit_distance_cuda.launches > before
         assert hits[0] == hits[1]
+
+
+def test_text_entries_clamp_read_ids_on_card(cuda):
+    """A read id outside [0, B) (negative, B and past it): both text
+    kernels equal their plain versions, which clamp the id into range."""
+    L, k = 77, 2
+    W = L + 3 * k
+    words, n, starts, reads, lengths, rid = _text_inputs(k, W, 91, Q=600, B=50, L=L)
+    rid = rid.copy()
+    rid[::5] = -1
+    rid[1::5] = 50 + 3
+    rid[2::7] = 50
+    rid[3::11] = -40
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in (words, n, starts, reads, lengths, rid)]
+    got = dp_cuda.banded_edit_distance_text_cuda(*args, k, W)
+    want = dp.banded_edit_distance_text_plain(*args, k, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int((want[0] <= k).sum()) > 0
+
+    Lm, Wm = 100, 143
+    words, n, starts, reads, lengths, rid, valid = _myers_text_inputs(Lm, Wm, 60, 900, 92)
+    rid[::4] = -2
+    rid[1::4] = 60 + 5
+    rid[2::9] = 60
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in (words, n, starts, reads, lengths, rid, valid)]
+    got = myers_cuda.myers_semiglobal_text_cuda(*args, Wm, 4)
+    want = myers.myers_semiglobal_text_plain(*args, Wm, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.fixture(scope="module")
+def flooded_gi():
+    """60 copies of a 400 bp unit (3% diverged) before random sequence,
+    indexed with its reverse text, its 8-mer seed table, and reads from
+    inside the copies with 2 substitutions: at tiny budgets every seed
+    bucket floods and tier 2 takes the reads tier 1 leaves."""
+    from genome_weaver_align_tpu_torch.index.files import build_genome_index
+
+    rng = np.random.default_rng(11)
+    unit = rng.integers(0, 4, size=400, dtype=np.uint8)
+    parts = []
+    for _ in range(60):
+        c = unit.copy()
+        mut = rng.random(400) < 0.03
+        c[mut] = (c[mut] + rng.integers(1, 4, size=int(mut.sum()))) % 4
+        parts.append(c)
+    codes = np.concatenate(parts + [rng.integers(0, 4, size=30000, dtype=np.uint8)])
+    gi = build_genome_index(Genome.from_contigs([Contig("chrR", codes)]), sample_rate=16)
+    reads = np.empty((300, 96), dtype=np.int8)
+    for i in range(300):
+        p = int(rng.integers(0, 60)) * 400 + int(rng.integers(0, 400 - 96))
+        r = codes[p : p + 96].astype(np.int8)
+        r[rng.integers(0, 96, size=2)] = rng.integers(0, 4, size=2)
+        reads[i] = r
+    return gi, build_seed_table(codes, 8), reads
+
+
+def test_staircase_on_card_equals_cpu(cuda, flooded_gi):
+    """Tier 2 behind the seed path (flooding budgets) and the staircase as
+    the aligner's own search (``use_staircase``, with and without left
+    narrowing), on a uniform and a ragged batch: ArrayHits on the card equal
+    the CPU's, tier 2 ran, and its verify launched the banded text entry."""
+    gi, tab, reads = flooded_gi
+    lengths = np.full(reads.shape[0], reads.shape[1], np.int32)
+    ragged = np.random.default_rng(4).integers(60, 97, size=reads.shape[0]).astype(np.int32)
+    flood = dict(max_hits_per_piece=2, max_cands=4, seed_table=tab, seed_j=8, seed_probes=1,
+                 verify_slack=2)
+    for kw in (flood, dict(use_staircase=True),
+               dict(use_staircase=True, staircase_narrow_left=True)):
+        on_card = pipeline.SuffixFilterAligner(gi, k=2, device=cuda, **kw)
+        on_cpu = pipeline.SuffixFilterAligner(gi, k=2, device="cpu", **kw)
+        for lens in (lengths, ragged):
+            before = dp_cuda.banded_edit_distance_text_cuda.launches
+            got = on_card.align_arrays_finish(on_card.align_arrays_submit(reads, lens))
+            assert dp_cuda.banded_edit_distance_text_cuda.launches > before
+            _hits_equal(got, on_cpu.align_arrays_finish(on_cpu.align_arrays_submit(reads, lens)))
+            counts = lambda st: {key: v for key, v in st.items() if not key.startswith("t_")}
+            assert counts(on_card.last_stats) == counts(on_cpu.last_stats)
+            if "seed_table" in kw:  # tier 2 shares the primary's forward tables
+                assert on_card.last_stats["n_staircase_fallback"] > 0
+                fb2 = on_card._get_fb2()
+                assert fb2.bi.fwd is on_card.fm and fb2.text_words is on_card.text_words
+            assert got.mapped.mean() > 0.8
+
+
+def test_exact_and_one_mismatch_aligners_on_card_equal_cpu(cuda):
+    """``ExactAligner`` and ``OneMismatchAligner`` on the card against the
+    CPU: the same hits, on error-free and one-substitution reads of a
+    random genome, a ragged read, a read with an N and an absent read."""
+    from genome_weaver_align_tpu_torch.index.files import build_genome_index
+    from genome_weaver_align_tpu_torch.models.one_mismatch import OneMismatchAligner
+    from genome_weaver_align_tpu_torch.utils.fasta import Read
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads
+
+    rng = np.random.default_rng(21)
+    codes = rng.integers(0, 4, size=60_000, dtype=np.uint8)
+    gi = build_genome_index(Genome.from_contigs([Contig("c", codes)]), sample_rate=16)
+    for cls, subs in ((pipeline.ExactAligner, 0), (OneMismatchAligner, 1)):
+        sims = simulate_reads(codes, 400, 100, seed=5, sub_rate=0.01, max_subs=subs)
+        reads = [s.read for s in sims]
+        withn = reads[0].codes.copy()
+        withn[30] = 4
+        reads += [Read("with_n", withn), Read("short", reads[1].codes[:61].copy()),
+                  Read("junk", rng.integers(0, 4, size=100, dtype=np.uint8))]
+        got = cls(gi, device=cuda).align_batch(reads)
+        want = cls(gi, device="cpu").align_batch(reads)
+        assert [None if h is None else h.__dict__ for h in got] == \
+            [None if h is None else h.__dict__ for h in want]
+        assert sum(h is not None for h in got) >= 400

@@ -14,6 +14,7 @@ from genome_weaver_align_tpu.models import exact as j_exact
 from genome_weaver_align_tpu.ops import rank as j_rank
 from genome_weaver_align_tpu_torch.models import exact
 from genome_weaver_align_tpu_torch.ops import rank
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -85,3 +86,53 @@ def test_locate_hits_matches_jax(setup, max_hits):
 def test_revcomp_batch_matches_jax(setup):
     _, _, reads, lengths = setup
     assert np.array_equal(exact.revcomp_batch(reads, lengths), j_exact.revcomp_batch(reads, lengths))
+
+
+# ------------------------------------------------------------- ExactAligner
+
+
+@pytest.fixture(scope="module")
+def exact_gi():
+    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
+    from genome_weaver_align_tpu.utils.fasta import Contig
+
+    rng = np.random.default_rng(0)
+    cs = [Contig(f"chr{i}", rng.integers(0, 4, size=10000, dtype=np.uint8)) for i in range(2)]
+    return build_genome_index(Genome.from_contigs(cs), sample_rate=16)
+
+
+@pytest.mark.parametrize("kmer_j", [0, 5])
+def test_exact_aligner_matches_jax(exact_gi, kmer_j):
+    """``ExactAligner`` end to end (acceptance config 1): hits and SAM lines
+    equal to the JAX aligner's on simulated 36 bp reads both strands, a read
+    with an N, a ragged batch and an absent read; the true locus wins where
+    the read is unique."""
+    from genome_weaver_align_tpu.models.pipeline import ExactAligner as JaxExactAligner
+    from genome_weaver_align_tpu.utils import simulate
+    from genome_weaver_align_tpu.utils.fasta import Read
+    from genome_weaver_align_tpu_torch.models.pipeline import ExactAligner
+
+    gi = exact_gi
+    sims = simulate.simulate_reads(gi.genome.codes, n_reads=100, read_len=36, seed=3)
+    reads = [s.read for s in sims]
+    kw = {}
+    if kmer_j:
+        kw = dict(kmer_table=build_kmer_table(gi.fwd, kmer_j), kmer_j=kmer_j)
+    jal, pal = JaxExactAligner(gi, **kw), ExactAligner(gi, device="cpu", **kw)
+    hits = pal.align_batch(reads)
+    assert [h.__dict__ for h in hits] == [h.__dict__ for h in jal.align_batch(reads)]
+    assert sum(h.pos == s.true_pos and h.strand == s.true_strand
+               for s, h in zip(sims, hits) if h.n_hits == 1) >= 90
+    assert [r.line() for r in pal.to_sam(reads, hits)] == \
+        [r.line() for r in jal.to_sam(reads, jal.align_batch(reads))]
+
+    rng = np.random.default_rng(99)
+    withn = reads[0].codes.copy()
+    withn[5] = 4
+    odd = [Read("noexist", rng.integers(0, 4, size=36, dtype=np.uint8)), Read("with_n", withn),
+           Read("short", reads[2].codes[:20].copy()), reads[3]]
+    got, want = pal.align_batch(odd), jal.align_batch(odd)
+    assert [None if h is None else h.__dict__ for h in got] == \
+        [None if h is None else h.__dict__ for h in want]
+    assert [r.line() for r in pal.to_sam(odd, got)] == [r.line() for r in jal.to_sam(odd, want)]
+    assert pal.sam_header().endswith("@PG\tID:gwa-torch\tPN:gwa-torch")

@@ -1,5 +1,6 @@
-"""The PyTorch port imports and runs with JAX and the JAX package absent,
-its source imports neither, and its CUDA kernels have no silent fallback."""
+"""The PyTorch port imports and runs with JAX and the JAX package absent
+(every align mode it has), its source imports neither, and its CUDA
+kernels have no silent fallback."""
 
 import os
 import re
@@ -24,7 +25,7 @@ import genome_weaver_align_tpu_torch
 from genome_weaver_align_tpu_torch import cli
 from genome_weaver_align_tpu_torch.index import build, files, kmer, native, sais, seedtable
 from genome_weaver_align_tpu_torch.models import paired, pipeline, suffix_filter
-from genome_weaver_align_tpu_torch.models import exact
+from genome_weaver_align_tpu_torch.models import bidirectional, exact, one_mismatch, staircase
 from genome_weaver_align_tpu_torch.ops import (
     affine, dp, dp_cuda, myers, myers_cuda, rank, ring_cuda, window,
 )
@@ -42,6 +43,10 @@ assert cli.main([*align, "out.sam", "--seed-table", "g.npz.seed8.npz"]) == 0
 assert cli.main([*align, "fm.sam"]) == 0
 assert cli.main([*align, "pairs.sam", "--interleaved"]) == 0
 assert cli.main([*align, "sharded.sam", "--n-interval", "2"]) == 0
+assert cli.main([*align, "stair.sam", "--mode", "staircase"]) == 0
+assert cli.main([*align, "onemm.sam", "--mode", "onemm"]) == 0
+align[4] = "0"  # -k 0: the exact aligner
+assert cli.main([*align, "exact.sam"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "genome_weaver_align_tpu."))
                for m in sys.modules if sys.modules[m])
 print("NO_JAX_OK")
@@ -56,7 +61,8 @@ def test_port_runs_with_jax_absent(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
-    for name in ("out.sam", "fm.sam", "pairs.sam", "sharded.sam"):
+    for name in ("out.sam", "fm.sam", "pairs.sam", "sharded.sam", "stair.sam", "onemm.sam",
+                 "exact.sam"):
         body = [l for l in (tmp_path / name).read_text().splitlines() if l[0] != "@"]
         assert len(body) == 40, name
     sam = [(tmp_path / n).read_text().splitlines() for n in ("fm.sam", "sharded.sam")]

@@ -155,3 +155,28 @@ def test_kernel_wrapper_rejects_cpu_tensors():
                                               50, 2)
     assert myers_cuda.myers_semiglobal_cuda.launches == 0
     assert myers_cuda.myers_semiglobal_text_cuda.launches == 0
+
+
+def test_text_entry_plain_clamps_read_ids():
+    """A read id outside [0, B) (-1, B + 3) reads the nearest read, as the
+    CUDA kernel does; the JAX gather ``reads[rid]`` clamps the ids past B
+    alike (a negative id wraps there; no caller passes one)."""
+    rng = np.random.default_rng(32)
+    n, B, L, W = 2001, 10, 64, 80
+    words = torch.from_numpy(packing.pack(rng.integers(0, 4, size=n, dtype=np.uint8)).view(np.int32))
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+    lengths = rng.integers(1, L + 1, size=B).astype(np.int32)
+    rid = np.array([-1, B + 3, 0, B - 1, -9, B], dtype=np.int32)
+    starts = rng.integers(0, n - W, size=rid.size).astype(np.int32)
+    valid = np.full(rid.size, W, np.int32)
+    got = myers.myers_semiglobal_text(words, n, *_t(starts, reads, lengths, rid, valid), W, 2)
+    want = myers.myers_semiglobal_text_plain(
+        words, n, *_t(starts, reads, lengths, np.clip(rid, 0, B - 1), valid), W, 2)
+    wins = j_window.gather_windows(jnp.asarray(words.numpy().view(np.uint32)), n,
+                                   jnp.asarray(starts), W)
+    jr, jl = jnp.asarray(reads.astype(np.int32))[rid], jnp.asarray(lengths)[rid]
+    jax_out = j_myers.myers_semiglobal_end(jr, jl, wins.astype(jnp.int32), 2)
+    up = rid >= 0
+    for g, w, j in zip(got, want, jax_out):
+        assert torch.equal(g, w)
+        assert np.array_equal(g.numpy()[up], np.asarray(j)[up])

@@ -15,6 +15,7 @@ from genome_weaver_align_tpu.models import pipeline as j_pipeline
 from genome_weaver_align_tpu.ops import affine as j_affine
 from genome_weaver_align_tpu.utils.fasta import Contig, Read
 from genome_weaver_align_tpu_torch.models import paired, pipeline
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 J = 10
 N_PAIRS, L = 256, 100

@@ -1,13 +1,15 @@
 """The port's SuffixFilterAligner against the JAX one on the same numpy
-index (no reverse-text index, so the JAX aligner runs no tier 2 either):
-ArrayHits equal field by field, CIGARs and AS/NM included, on the
-seed-table path and on the FM pigeonhole path."""
+index: ArrayHits equal field by field, CIGARs and AS/NM included, on the
+seed-table path and on the FM pigeonhole path, through the tier-1 fallback
+(indexes without their reverse text: neither aligner runs tier 2) and
+through the tier-2 staircase (a repeat genome indexed with its reverse
+text); and the k range both devices enforce."""
 
 import numpy as np
 import pytest
 import torch
 
-from genome_weaver_align_tpu.index.files import Genome, GenomeIndex
+from genome_weaver_align_tpu.index.files import Genome, GenomeIndex, build_genome_index
 from genome_weaver_align_tpu.index.build import build_fm_index
 from genome_weaver_align_tpu.index.kmer import build_kmer_table
 from genome_weaver_align_tpu.index import native as j_native
@@ -17,6 +19,7 @@ from genome_weaver_align_tpu.ops import affine as j_affine
 from genome_weaver_align_tpu.utils.fasta import Contig, Read
 from genome_weaver_align_tpu.utils.simulate import simulate_reads, simulate_reads_array
 from genome_weaver_align_tpu_torch.models import pipeline
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 J = 9
 
@@ -134,9 +137,8 @@ def test_repeat_genome_tier1_fallback(repeat_gi):
                                    max_hits_per_piece=2)
     assert stats["n_overflow_fallback"] == jstats["n_overflow_fallback"] > 0
     assert got.overflow.any()
-    # without a reverse-text index the JAX aligner runs no tier 2 either
-    assert jstats["n_staircase_fallback"] == 0
-    assert stats["n_staircase_pending"] == int(np.sum(got.overflow & ~got.mapped))
+    # without a reverse-text index neither aligner runs tier 2
+    assert jstats["n_staircase_fallback"] == stats["n_staircase_fallback"] == 0
 
 
 # ------------------------------------------------------------- FM path
@@ -202,8 +204,92 @@ def test_fm_path_repeat_tier1_fallback(repeat_gi):
                                    max_hits_per_piece=2)
     assert stats["n_overflow_fallback"] == jstats["n_overflow_fallback"] > 0
     assert got.overflow.any()
-    assert jstats["n_staircase_fallback"] == 0
-    assert stats["n_staircase_pending"] == int(np.sum(got.overflow & ~got.mapped))
+    assert jstats["n_staircase_fallback"] == stats["n_staircase_fallback"] == 0
+
+
+# ------------------------------------------------------------- tier 2
+
+SEED_J2 = 8
+
+
+@pytest.fixture(scope="module")
+def flooded():
+    """The JAX tier-2 test's genome, indexed with its reverse text: 60
+    copies of a 400 bp unit (each 3% diverged) before random sequence, and
+    reads from inside the copies with 2 substitutions each."""
+    rng = np.random.default_rng(11)
+    unit = rng.integers(0, 4, size=400, dtype=np.uint8)
+    parts = []
+    for _ in range(60):
+        c = unit.copy()
+        mut = rng.random(400) < 0.03
+        c[mut] = (c[mut] + rng.integers(1, 4, size=int(mut.sum()))) % 4
+        parts.append(c)
+    codes = np.concatenate(parts + [rng.integers(0, 4, size=30000, dtype=np.uint8)])
+    gi = build_genome_index(Genome.from_contigs([Contig("chrR", codes)]), sample_rate=16)
+    reads = np.empty((40, 96), dtype=np.int8)
+    for i in range(40):
+        p = int(rng.integers(0, 60)) * 400 + int(rng.integers(0, 400 - 96))
+        r = codes[p : p + 96].astype(np.int8)
+        for _ in range(2):
+            at = int(rng.integers(0, 96))
+            r[at] = (r[at] + int(rng.integers(1, 4))) % 4
+        reads[i] = r
+    return gi, build_seed_table(codes, SEED_J2), reads
+
+
+def _flood_args(tab):
+    """Tiny budgets that flood every seed bucket (the JAX test's)."""
+    return dict(max_hits_per_piece=2, max_cands=4, seed_table=tab, seed_j=SEED_J2,
+                seed_probes=1, verify_slack=2)
+
+
+def test_tier2_staircase_matches_jax(flooded):
+    """Reads still flooded after tier 1 go through the staircase on both
+    aligners; the merged ArrayHits are equal, and the staircase maps reads
+    the rev-less index leaves unmapped (the merge is improve-only)."""
+    gi, tab, reads = flooded
+    lengths = np.full(reads.shape[0], reads.shape[1], np.int32)
+    jstats, stats, got = _run_both(gi, None, reads, lengths, **_flood_args(tab))
+    assert stats["n_staircase_fallback"] == jstats["n_staircase_fallback"] > 0
+    assert stats["t_tier2_ms"] >= 0 and "t_tier1_ms" in stats
+    no_rev = pipeline.SuffixFilterAligner(GenomeIndex(gi.genome, gi.fwd, None), device="cpu",
+                                          k=2, **_flood_args(tab))
+    base = no_rev.align_arrays_finish(no_rev.align_arrays_submit(reads, lengths))
+    assert no_rev.last_stats["n_staircase_fallback"] == 0
+    assert got.mapped.sum() > base.mapped.sum()
+    assert np.all(got.mapped[base.mapped])
+    assert np.all(got.dist[base.mapped] <= base.dist[base.mapped])
+
+
+def test_tier2_on_ragged_and_list_api_matches_jax(flooded):
+    """A ragged flooded batch (tier 2 on the general path) through the list
+    API and to_sam: SAM lines equal."""
+    gi, tab, reads = flooded
+    lens = np.random.default_rng(4).integers(60, 97, size=reads.shape[0])
+    rs = [Read(f"r{i}", reads[i, :l].astype(np.uint8)) for i, l in enumerate(lens)]
+    jal = j_pipeline.SuffixFilterAligner(gi, k=2, **_flood_args(tab))
+    pal = pipeline.SuffixFilterAligner(gi, k=2, device="cpu", **_flood_args(tab))
+    want = [r.line() for r in jal.to_sam(rs, jal.align_batch(rs))]
+    got = [r.line() for r in pal.to_sam(rs, pal.align_batch(rs))]
+    assert got == want
+    assert pal.last_stats["n_staircase_fallback"] == jal.last_stats["n_staircase_fallback"] > 0
+
+
+@pytest.mark.parametrize("k", [0, 15, -1])
+def test_k_outside_1_to_14_is_rejected(random_gi, k):
+    """Both aligners refuse k outside 1..14 when built, on the CPU as on
+    the card (the JAX aligner instead unmaps reads at k >= 15)."""
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
+
+    assert pipeline.MAX_K == dp_cuda.MAX_K == 14
+    gi, _ = random_gi
+    with pytest.raises(ValueError, match="1 <= k <= 14"):
+        pipeline.SuffixFilterAligner(gi, k=k, device="cpu")
+    with pytest.raises(ValueError, match="1 <= k <= 14"):
+        ShardedAligner(gi, k=k, n_interval=2, device="cpu")
+    pipeline.SuffixFilterAligner(gi, k=14, device="cpu")
 
 
 def test_list_api_and_to_sam(random_gi):

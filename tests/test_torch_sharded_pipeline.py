@@ -22,6 +22,7 @@ from genome_weaver_align_tpu_torch.cli import main as port_main
 from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
 from genome_weaver_align_tpu_torch.parallel import sharded_index as si
 from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

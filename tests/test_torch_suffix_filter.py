@@ -17,6 +17,7 @@ from genome_weaver_align_tpu.utils import packing
 from genome_weaver_align_tpu.utils.simulate import simulate_reads_array
 from genome_weaver_align_tpu_torch.models import suffix_filter as sf
 from genome_weaver_align_tpu_torch.ops import rank
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 K = 2
 J = 8

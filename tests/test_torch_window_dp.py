@@ -131,3 +131,28 @@ def test_banded_edit_distance_text_matches_jax(k, narrow):
     live = got_d < dp.INF
     assert live.any() and (got_d[live] <= k).any()
     assert (~live).any() == narrow
+
+
+def test_banded_text_entry_clamps_read_ids():
+    """A read id outside [0, B) (-1, B + 3) reads the nearest read, as the
+    CUDA kernel does; the JAX gather ``reads[rid]`` clamps the ids past B
+    alike (a negative id wraps there; no caller passes one)."""
+    rng = np.random.default_rng(31)
+    n, B, L, k = 2001, 12, 40, 2
+    W = L + 3 * k
+    words = torch.from_numpy(packing.pack(rng.integers(0, 4, size=n, dtype=np.uint8)).view(np.int32))
+    reads = torch.from_numpy(rng.integers(0, 5, size=(B, L)).astype(np.int8))
+    lengths = torch.from_numpy(rng.integers(1, L + 1, size=B).astype(np.int32))
+    rid = torch.tensor([-1, B + 3, 0, B - 1, -7, B], dtype=torch.int32)
+    starts = torch.from_numpy(rng.integers(0, n - W, size=rid.numel()).astype(np.int32))
+    got = dp.banded_edit_distance_text(words, n, starts, reads, lengths, rid, k, W)
+    want = dp.banded_edit_distance_text(words, n, starts, reads, lengths, rid.clamp(0, B - 1), k, W)
+    jw = j_window.gather_windows(jnp.asarray(words.numpy().view(np.uint32)), n,
+                                 jnp.asarray(starts.numpy()), W)
+    jr = jnp.asarray(reads.numpy().astype(np.int32))[jnp.asarray(rid.numpy())]
+    jl = jnp.asarray(lengths.numpy())[jnp.asarray(rid.numpy())]
+    jax_d, jax_e = j_dp.banded_edit_distance(jr, jl, jw.astype(jnp.int32), k)
+    up = rid.numpy() >= 0
+    for g, w, j in zip(got, want, (jax_d, jax_e)):
+        assert torch.equal(g, w)
+        assert np.array_equal(g.numpy()[up], np.asarray(j)[up])
