@@ -12,15 +12,19 @@ per line, and exits non-zero at the first phase that fails:
    from the checkout.  The banded DP's text entry (window gathered from the
    2-bit text in the kernel) is held against its plain version on the card
    at the main path's verify shape (65,536 reads x 6 lanes, L = 100, on a
-   chr20-scale random text), k = 1..14 (the aligner's k < 15), with starts
-   off both text ends and next to word boundaries, ragged and 0-length
-   reads, N codes, and a narrow window with dead lanes; the windows entry
-   is held against the plain DP at k = 1..4 and 9..14 on random windows.
-   dist and end_b must be equal on every lane.  At k = 2 the text entry,
-   the stage it replaces (``gather_windows`` + ``reads[rid]`` + the windows
-   entry), the windows entry alone and both plain versions are timed, the
-   SASS of the text kernel's unrolled row loop is counted per band cell
-   (``cuobjdump``), and ptxas's registers and spills at k = 14 are printed;
+   chr20-scale random text), k = 1..16 (the short-read aligners' k <= 14
+   and the long-read segment band, 16), with starts off both text ends and
+   next to word boundaries, ragged and 0-length reads, N codes, and a
+   narrow window with dead lanes; the windows entry is held against the
+   plain DP at k = 1..4 and 9..16 on random windows.  dist and end_b must
+   be equal on every lane.  At k = 2 the text entry, the stage it replaces
+   (``gather_windows`` + ``reads[rid]`` + the windows entry), the windows
+   entry alone and both plain versions are timed; the text entry is also
+   held against its plain version and timed at the long-read segment
+   verify's shape (8,192 lanes of 128 bases, W = 176, k = 16); the SASS of
+   the text kernel's unrolled row loop is counted per band cell
+   (``cuobjdump``), and ptxas's registers and spills at k = 14 and 16 are
+   printed;
 3. one fused align step on a 65,536-read batch, with the kernel and with
    the plain DP, both on the card: the packed results must be identical;
 4. end to end through the port's CLI on a chr20-scale random genome
@@ -98,8 +102,30 @@ per line, and exits non-zero at the first phase that fails:
    (``ExactAligner``) on 65,536 error-free reads, ``--mode onemm`` on
    16,384 reads with <= 1 substitution, ``--mode staircase -k 2`` on the
    first 16,384 of phase 4's reads; >= 99% mapped and correct in each,
-   reads/s, and the banded text entry launched under ``staircase``.
-
+   reads/s, and the banded text entry launched under ``staircase``;
+14. long reads, as the JAX package's long-read bench runs them
+   (``bench.py`` ``bench_long``): the phase-4 index and seed table, 4 x 256
+   reads of 4,096 bases (seed 31, 8 one-base indels and 20 substitutions a
+   read, both strands), the default ``LongReadAligner`` (128-base segments,
+   4 hits a segment, 4 probes, band 48, kb = 16) without and then with
+   traceback: reads/s of each, >= 99% mapped, >= 99% at their locus (same
+   strand, within band + kb), >= 99% at their exact start after traceback
+   (+-4), the banded text entry launched; then ``align --mode long``
+   through the CLI on the same 1,024 reads: >= 99% mapped, every mapped
+   record tagged ``XT:A:L``;
+15. multi-part streaming with the JAX package's gbp bench traffic
+   (``bench.py`` ``bench_gbp``: 16 batches of 8,192 reads of 150 bp,
+   k = 2, <= 2 substitutions, both strands), first on the phase-3 genome
+   cut into two contigs of 32 Mbp, then on the phase-12 repeat genome cut
+   the same way, each built by the port into two parts with their
+   reversed-text indexes in the flat layout (cached under
+   ``smoke_cache/``): ``align_stream_multipart``; on the random genome
+   >= 99% mapped and at their true global position (+-k) and strand, on
+   the repeat genome >= 97% mapped (phase 12's limit), some reads through
+   the two-tier staircase rescue, >= 97% of them mapped, and the banded
+   text entry launched in it; align and load seconds, reads/s, each part's peak device memory,
+   the rescue cohort, and the banded text entry launched in each part's
+   stream.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after.  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
@@ -153,6 +179,12 @@ REPEAT_BATCHES = 6
 MIN_REPEAT_MAPPED = 0.97  # that bench's own limit
 EXACT_READS = 65_536  # phase 13
 MODE_READS = 16_384
+# phase 14: the JAX package's long-read bench (bench.py bench_long)
+LONG_B, LONG_L, LONG_BATCHES, LONG_SEED = 256, 4096, 4, 31
+LONG_SEG, LONG_KB, LONG_BAND = 128, 16, 48  # LongReadAligner's defaults
+MIN_EXACT_POS = 0.99
+# phase 15: the JAX package's gbp bench traffic (bench.py bench_gbp)
+GBP_BATCH, GBP_BATCHES, GBP_L, GBP_SEED = 8_192, 16, 150, 29
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
 # bytes/s and the float32 rate outside the tensor cores.  Integer work is
 # priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
@@ -471,11 +503,61 @@ def phase_kernel(torch, dev, card):
                 timing = {"text": (min(times["text"], times["text2"]), plain_ms, *b_text),
                           "windows": (times["windows"], win_plain_ms, *b_win)}
                 del wins, r, ln
+    timing["text_long"] = long_segment_timing(torch, dev, codes, words, gen, card)
     log(f"[2] SASS: {sass_per_cell(dp_cuda._library(), f'banded_dp_kernelILi{K}ELb1E')}")
-    for entry, flag in (("text", 1), ("windows", 0)):
-        tag = f"banded_dp_kernelILi{dp_cuda.MAX_K}ELb{flag}E"
-        log(f"[2] ptxas, {entry} entry at k={dp_cuda.MAX_K}: {ptxas_usage('banded_dp.cu', tag)}")
+    for k in (14, dp_cuda.MAX_K):  # the short-read aligners' top k, the kernel's
+        for entry, flag in (("text", 1), ("windows", 0)):
+            tag = f"banded_dp_kernelILi{k}ELb{flag}E"
+            log(f"[2] ptxas, {entry} entry at k={k}: {ptxas_usage('banded_dp.cu', tag)}")
     return max_err, timing
+
+
+def long_segment_timing(torch, dev, codes, words, gen, card):
+    """The text entry at the long-read segment verify's shape: LONG_B
+    reads of LONG_L bases in LONG_SEG-base segments (Q = 8,192 lanes a
+    strand), kb = 16, W = LONG_SEG + 3 kb, each lane its own segment
+    (rid = arange(Q)), the window starting at the segment's diagonal.
+    Segments copied from the text with 1% substitutions and a one-base
+    indel in a quarter of them; 5% ragged (a read's tail segment).  Held
+    against the plain version on every lane and timed.  -> (kernel ms,
+    plain ms, bound ms, bound by)."""
+    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda
+
+    k, Lseg = LONG_KB, LONG_SEG
+    Q, W = LONG_B * (LONG_L // Lseg), Lseg + 3 * k
+    n = codes.numel()
+    locus = torch.randint(0, n - W - 2, (Q,), generator=gen, device=dev)
+    cols = torch.arange(Lseg, device=dev)[None, :].expand(Q, Lseg)
+    r = torch.randint(0, 8, (Q, 1), generator=gen, device=dev)
+    shift = torch.where(r == 0, -1, torch.where(r == 1, 1, 0))  # an indel in a quarter
+    at = torch.randint(8, Lseg - 8, (Q, 1), generator=gen, device=dev)
+    reads = codes[locus[:, None] + k + cols + torch.where(cols >= at, shift, 0)]
+    sub = torch.rand(Q, Lseg, generator=gen, device=dev) < 0.01
+    reads = torch.where(sub, (reads + 1) % 4, reads).to(torch.int8).contiguous()
+    lengths = torch.full((Q,), Lseg, dtype=torch.int32, device=dev)
+    tail = torch.rand(Q, generator=gen, device=dev) < 0.05
+    lengths[tail] = torch.randint(0, Lseg, (int(tail.sum()),), generator=gen, device=dev,
+                                  dtype=torch.int32)
+    starts = locus.to(torch.int32)
+    rid = torch.arange(Q, dtype=torch.int32, device=dev)
+    args = (words, n, starts, reads, lengths, rid, k, W)
+    d_kern, e_kern = dp_cuda.banded_edit_distance_text_cuda(*args)
+    d_plain, e_plain = dp.banded_edit_distance_text_plain(*args)
+    torch.cuda.synchronize()
+    n_bad = int((d_kern != d_plain).sum()) + int((e_kern != e_plain).sum())
+    n_hit = int((d_plain <= 2 * k).sum())
+    check(n_bad == 0, f"text entry disagrees with plain at the long-read shape ({n_bad} values)")
+    t = [cuda_time_ms(lambda: dp_cuda.banded_edit_distance_text_cuda(*args), reps=50,
+                      hide_host=True) for _ in range(2)]
+    plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance_text_plain(*args), reps=3, warmup=1)
+    rows = int(lengths.sum())
+    w0 = (starts >> 4).long()[:, None] + torch.arange(W // 16 + 2, device=dev)
+    n_words = int(torch.unique(w0.clamp(0, words.numel() - 1)).numel())
+    b = bound(reads.numel() + 4 * (3 * Q + n_words) + 8 * Q, DP_OPS_PER_CELL * (4 * k + 1) * rows)
+    log(f"[2] text entry at the long-read segment shape, k={k} Q={Q} L={Lseg} W={W}: {n_hit} "
+        f"lanes within 2k, mismatches with plain 0; kernel {t[0]:.4f} / {t[1]:.4f} ms (bound "
+        f"{b[0]:.4f} ms by {b[1]}, {rows} live rows), plain {plain_ms:.3f} ms ({card})")
+    return (min(t), plain_ms, *b)
 
 
 def phase_fused_step(torch, dev, codes, offsets, positions):
@@ -1425,7 +1507,7 @@ def phase_tier2(torch, dev, card):
     text, k = 2, 8 hits a piece, 12 candidates, 4 verify lanes a read, the
     array loop over 6 x 32,768 reads; then the same reads on the index
     without its reverse text (no tier 2), and one tier-2 call profiled.
-    -> the banded text entry's launches inside tier 2."""
+    -> the banded text entry's launches inside tier 2, and the repeat genome."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1453,7 +1535,6 @@ def phase_tier2(torch, dev, card):
                                           max_subs=2)
     reads = reads.astype(np.int8)
     lengths = np.full(REPEAT_BATCH, L, np.int32)
-    del codes
 
     def run(aligner):
         """The array loop (submit N+1, then finish N): per batch the
@@ -1559,7 +1640,7 @@ def phase_tier2(torch, dev, card):
         log("[12] device busy share: not measured (torch.profiler recorded no device events)")
     del al, fb2, gi
     torch.cuda.empty_cache()
-    return tier2["launches"]
+    return tier2["launches"], codes
 
 
 def phase_modes(codes, card) -> dict:
@@ -1599,6 +1680,242 @@ def phase_modes(codes, card) -> dict:
           "--mode staircase never launched the banded DP kernel's text entry")
     shutil.rmtree(work)
     return launches
+
+
+def long_reads(codes):
+    """The JAX package's long-read bench reads: LONG_B x LONG_BATCHES reads
+    of LONG_L bases (seed LONG_SEED), 8 scattered one-base indels and
+    L // 200 substitutions a read, both strands.  -> (reads (N, L) int8,
+    true start (N,), strand (N,))."""
+    import numpy as np
+
+    rng = np.random.default_rng(LONG_SEED)
+    N, Lr = LONG_B * LONG_BATCHES, LONG_L
+    pos = rng.integers(0, codes.size - Lr - 64, size=N)
+    reads = np.zeros((N, Lr), dtype=np.uint8)
+    for i in range(N):
+        seq = codes[pos[i] : pos[i] + Lr + 32].tolist()
+        for _ in range(8):
+            at = int(rng.integers(64, Lr - 64))
+            if rng.random() < 0.5:
+                seq.insert(at, int(rng.integers(0, 4)))
+            else:
+                del seq[at]
+        row = np.array(seq[:Lr], dtype=np.uint8)
+        subs = rng.integers(0, Lr, size=max(1, Lr // 200))
+        row[subs] = (row[subs] + rng.integers(1, 4, size=subs.size)) % 4
+        reads[i] = row
+    strand = rng.integers(0, 2, size=N)
+    reads = np.where(strand[:, None] == 1, (3 - reads)[:, ::-1], reads).astype(np.int8)
+    return reads, pos, strand
+
+
+def phase_long_reads(torch, dev, codes, card) -> int:
+    """Long reads on the phase-4 index and seed table, as the JAX package's
+    long-read bench runs them: the default LongReadAligner on LONG_BATCHES
+    batches of LONG_B reads, without and then with traceback; then ``align
+    --mode long`` through the CLI on the same reads.  -> the banded text
+    entry's launches in the loop (all at kb = 16)."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
+    from genome_weaver_align_tpu_torch.models.long_read import LongReadAligner
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+
+    idx, seedf, _ = build_index(cli, codes)
+    gi = load_index(idx)
+    offsets, positions, sj = load_seed_table(seedf)
+    al = LongReadAligner(gi, (offsets, positions), sj, device=dev)
+    check((al.seg_len, al.kb, al.band) == (LONG_SEG, LONG_KB, LONG_BAND),
+          "LongReadAligner's defaults changed")
+    t0 = time.time()
+    reads, pos, strand = long_reads(codes)
+    log(f"[14] {reads.shape[0]} reads of {LONG_L} bases (8 indels, {LONG_L // 200} "
+        f"substitutions each) in {time.time() - t0:.1f} s")
+    lens = np.full(LONG_B, LONG_L, np.int32)
+    al.align_arrays(reads[:LONG_B], lens, traceback=False)  # warm-up
+    torch.cuda.synchronize()
+    rates, n_mapped, n_close, n_exact = {}, 0, 0, 0
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
+    for traceback in (False, True):
+        times = []
+        for b in range(LONG_BATCHES):
+            sl = slice(b * LONG_B, (b + 1) * LONG_B)
+            t0 = time.perf_counter()
+            lh = al.align_arrays(reads[sl], lens, traceback=traceback)
+            times.append(time.perf_counter() - t0)
+            ok = lh.mapped & (lh.strand == strand[sl])
+            if traceback:
+                n_exact += int((ok & (np.abs(lh.pos - pos[sl]) <= 4)).sum())
+            else:
+                n_mapped += int(lh.mapped.sum())
+                n_close += int((ok & (np.abs(lh.pos - pos[sl]) <= al.band + al.kb)).sum())
+        rates[traceback] = (LONG_B * LONG_BATCHES / sum(times), times)
+    launches = dp_cuda.banded_edit_distance_text_cuda.launches
+    N = reads.shape[0]
+    log(f"[14] LongReadAligner, {LONG_BATCHES} x {LONG_B} reads of {LONG_L}: map "
+        f"{rates[False][0]:.1f} reads/s without traceback (batches "
+        f"{', '.join(f'{t:.3f}' for t in rates[False][1])} s), {rates[True][0]:.1f} reads/s with "
+        f"traceback (batches {', '.join(f'{t:.3f}' for t in rates[True][1])} s); mapped "
+        f"{n_mapped / N:.6f}, locus-correct {n_close / N:.6f}, exact position after traceback "
+        f"{n_exact / N:.6f}; banded text-entry launches at kb={al.kb}: {launches} ({card})")
+    check(n_mapped / N >= MIN_MAPPED, f"long reads: mapped share {n_mapped / N:.4f} < {MIN_MAPPED}")
+    check(n_close / N >= MIN_CORRECT, f"long reads: locus-correct {n_close / N:.4f} < {MIN_CORRECT}")
+    check(n_exact / N >= MIN_EXACT_POS, f"long reads: exact position {n_exact / N:.4f} < "
+          f"{MIN_EXACT_POS}")
+    check(launches > 0, "the long-read loop never launched the banded DP kernel's text entry")
+    del al
+
+    work = CACHE / f"long{os.getpid()}"
+    work.mkdir(parents=True)
+    fq, sam, rep = work / "long.fq", work / "long.sam", work / "report.json"
+    seqs = np.frombuffer(b"ACGT", np.uint8)[reads].tobytes()
+    with open(fq, "w") as fh:
+        fh.write("".join(f"@l{i}_p{p}_s{st}\n{seqs[i * LONG_L:(i + 1) * LONG_L].decode()}\n+\n"
+                         f"{'I' * LONG_L}\n" for i, (p, st) in enumerate(zip(pos, strand))))
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
+    rc = cli.main(["align", str(idx), str(fq), "--mode", "long", "--seed-table", str(seedf),
+                   "--batch-size", str(LONG_B), "--report", str(rep), "-o", str(sam)])
+    cli_launches = dp_cuda.banded_edit_distance_text_cuda.launches
+    check(rc == 0, f"align --mode long exited {rc}")
+    n = n_map = n_tag = 0
+    with open(sam) as fh:
+        for line in fh:
+            if line[0] == "@":
+                continue
+            n += 1
+            f = line.rstrip("\n").split("\t")
+            if not int(f[1]) & 4:
+                n_map += 1
+                n_tag += "XT:A:L" in f[11:]
+    report = json.loads(rep.read_text())
+    log(f"[14] align --mode long: {n} reads, mapped {n_map / n:.6f}, {n_tag} of {n_map} mapped "
+        f"records carry XT:A:L, {report['reads_per_s']} reads/s over {report['wall_s']} s, "
+        f"banded text-entry launches {cli_launches} ({card})")
+    check(n == N, f"the long-read SAM holds {n} records")
+    check(n_map / n >= MIN_MAPPED, f"align --mode long: mapped share {n_map / n:.4f}")
+    check(n_tag == n_map, "a mapped long-read record lacks XT:A:L")
+    shutil.rmtree(work)
+    return launches
+
+
+def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
+    """Multi-part streaming with the JAX package's gbp bench traffic
+    (batches of 8,192 reads of 150 bp, 16 batches, k = 2, <= 2
+    substitutions, both strands) on the chr20-scale genome cut into two
+    contigs, then on the phase-12 repeat genome cut the same way, each
+    indexed by the port into two parts with their reversed texts in the
+    flat layout (cached in smoke_cache/).  -> the banded text entry's
+    launches in each part's stream and in the rescue, for each genome."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.index import multipart_io
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.utils.fasta import Contig
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
+
+    def parts_of(g, name):
+        """``g`` cut into two contigs and built into two flat parts."""
+        mid = g.size // 2
+        part_dir = CACHE / f"parts_{name}"
+        if (part_dir / "parts.json").exists():
+            mi = multipart_io.load_multi_index(part_dir)
+            log(f"[15] {mi.n_parts} parts cached in {part_dir}")
+        else:
+            tmp = part_dir.with_name(part_dir.name + f".tmp{os.getpid()}")
+            t0 = time.time()
+            multipart_io.build_multipart(
+                tmp, [Contig("chr20a", g[:mid]), Contig("chr20b", g[mid:])],
+                part_limit=g.size - mid, seed_j=SEED_J, sample_rate=8,
+                flat=True, log=lambda m: log(f"[15] {m}"))
+            os.replace(tmp, part_dir)
+            mi = multipart_io.load_multi_index(part_dir)
+            log(f"[15] {name}: built {mi.n_parts} parts with their reversed-text indexes and "
+                f"the flat layout in {time.time() - t0:.1f} s ({card})")
+        check(mi.n_parts == 2 and multipart_io.has_flat(part_dir, 2), "expected 2 flat parts")
+        return mi
+
+    def traffic(g):
+        """The bench's reads, none across the contig boundary (such a read
+        has no locus in either part: it moves one read length left)."""
+        mid = g.size // 2
+        reads, pos, strand, _ = simulate_reads_array(g, GBP_BATCH * GBP_BATCHES, GBP_L,
+                                                     seed=GBP_SEED, max_subs=2)
+        cross = (pos < mid) & (pos + GBP_L > mid)
+        pos = np.where(cross, pos - GBP_L, pos)
+        for i in np.nonzero(cross)[0]:
+            fwd = g[pos[i]:pos[i] + GBP_L]
+            reads[i] = (3 - fwd)[::-1] if strand[i] else fwd
+        return reads.astype(np.int8), pos, strand
+
+    def stream(mi, reads, tag):
+        """``align_stream_multipart`` with the launch count set to 0 just
+        before and read just after; -> its outputs, stats and the banded
+        text entry's launches in each part's stream and in the rescue."""
+        counts = {}
+
+        def smoke_log(msg):
+            if msg.startswith("part ") and ("flat load" in msg or ": streamed" in msg):
+                counts[msg.split(":")[0] + (" start" if "flat load" in msg else " end")] = (
+                    dp_cuda.banded_edit_distance_text_cuda.launches)
+            if not msg.startswith("part ") or "batch" not in msg:
+                log(f"[15] {tag}: {msg}")
+
+        stats = {}
+        dp_cuda.banded_edit_distance_text_cuda.launches = 0
+        out = multipart_io.align_stream_multipart(
+            mi, reads, np.full(GBP_BATCH, GBP_L, np.int32), GBP_BATCH, k=K, log=smoke_log,
+            stats=stats, device=dev)
+        total = dp_cuda.banded_edit_distance_text_cuda.launches
+        per_part = [counts[f"part {p} end"] - counts[f"part {p} start"] for p in range(2)]
+        return out, stats, per_part, total - counts["part 1 end"]
+
+    def report(tag, out, stats, per_part, rescue, pos, strand):
+        _, gpos, st, mapped, align_s, load_s = out
+        correct = mapped & (np.abs(gpos - pos) <= K) & (st == strand)
+        log(f"[15] {tag}: align_stream_multipart, {GBP_BATCHES} x {GBP_BATCH} reads of {GBP_L}, "
+            f"k={K}: mapped {mapped.mean():.6f}, correct {correct.mean():.6f}; align_s "
+            f"{align_s:.3f}, load_s {load_s:.3f}, {mapped.size / align_s:.1f} reads/s from "
+            f"align_s; peak device memory by part {stats['peak_mem_bytes']} B, rescue "
+            f"{stats.get('rescue_peak_mem_bytes')} B; banded text-entry launches by part "
+            f"{per_part}, rescue {rescue}; rescue cohort {stats['un_before_rescue']} reads, "
+            f"{stats['rescued']} improved; tier-1 reruns {stats['n_overflow_rerun']}; batch ms "
+            f"{stats['batch_ms']} ({card})")
+        return mapped, correct
+
+    mi = parts_of(codes, f"{GENOME_LEN}_seed{GENOME_SEED}")
+    reads, pos, strand = traffic(codes)
+    out, stats, per_part, rescue = stream(mi, reads, "random")
+    mapped, correct = report("random", out, stats, per_part, rescue, pos, strand)
+    check(mapped.mean() >= MIN_MAPPED, f"multi-part: mapped share {mapped.mean():.4f}")
+    check(correct.mean() >= MIN_CORRECT, f"multi-part: correct share {correct.mean():.4f}")
+    check(all(n > 0 for n in per_part), "a part's stream never launched the banded DP kernel")
+    del mi, reads, out
+
+    # the repeat genome: reads whose every seed bucket a repeat family
+    # floods stay unmapped through the deferred tier 1 and reach the
+    # two-tier staircase rescue over every part's reversed text
+    rmi = parts_of(rep_codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}")
+    reads, pos, strand = traffic(rep_codes)
+    out, rstats, rper_part, rrescue = stream(rmi, reads, "repeat")
+    rmapped, _ = report("repeat", out, rstats, rper_part, rrescue, pos, strand)
+    # the rescue only improves a read's best, so every read unmapped at the
+    # end was in its cohort and the rest of the cohort is what it mapped
+    cohort = rstats["un_before_rescue"]
+    placed = cohort - int((~rmapped).sum())
+    log(f"[15] repeat: the rescue mapped {placed} of its cohort of {cohort} reads "
+        f"({placed / max(cohort, 1):.6f})")
+    check(rmapped.mean() >= MIN_REPEAT_MAPPED,
+          f"multi-part, repeat genome: mapped share {rmapped.mean():.4f} < {MIN_REPEAT_MAPPED}")
+    check(all(n > 0 for n in rper_part), "a part's stream never launched the banded DP kernel")
+    check(cohort > 0, "no read of the repeat genome reached the multi-part rescue")
+    check(placed / cohort >= MIN_REPEAT_MAPPED,
+          f"the multi-part rescue mapped {placed / cohort:.4f} of its cohort < {MIN_REPEAT_MAPPED}")
+    check(rrescue > 0, "the multi-part rescue never launched the banded DP kernel")
+    return {"by_part": per_part, "rescue": rescue, "repeat_by_part": rper_part,
+            "repeat_rescue": rrescue}
 
 
 def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
@@ -1665,8 +1982,10 @@ def main() -> int:
         ring_launches, fused_launches = phase_sharded_search(torch, dev, codes, gi, card)
         del gi
         banded_win_launches = phase_sharded_cli(codes, card)
-        tier2_launches = phase_tier2(torch, dev, card)
+        tier2_launches, rep_codes = phase_tier2(torch, dev, card)
         mode_launches = phase_modes(codes, card)
+        long_launches = phase_long_reads(torch, dev, codes, card)
+        mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
         check("jax" not in sys.modules, "the smoke imported jax")
         check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
                       for m in sys.modules), "the smoke imported the JAX package")
@@ -1679,7 +1998,20 @@ def main() -> int:
                    "[4] align --seed-table", launches, max_err, (*dp_timing["text"], None),
                    launches_by_path={"[4] align --seed-table": launches,
                                      "[12] tier 2 (repeat genome)": tier2_launches,
-                                     **{f"[13] align {m}": n for m, n in mode_launches.items()}}),
+                                     **{f"[13] align {m}": n for m, n in mode_launches.items()},
+                                     "[14] long reads": long_launches,
+                                     **{f"[15] multi-part, part {p}": n
+                                        for p, n in enumerate(mp_launches["by_part"])},
+                                     "[15] multi-part, rescue": mp_launches["rescue"],
+                                     **{f"[15] multi-part repeat, part {p}": n
+                                        for p, n in enumerate(mp_launches["repeat_by_part"])},
+                                     "[15] multi-part repeat, rescue":
+                                         mp_launches["repeat_rescue"]}),
+        kernel_row("banded_dp_text_long_read", "banded_dp.cu", "ops/dp_pallas.py:47",
+                   "[14] long reads (LongReadAligner, kb = 16)", long_launches, max_err,
+                   (*dp_timing["text_long"], None),
+                   shape={"Q": LONG_B * (LONG_L // LONG_SEG), "L": LONG_SEG,
+                          "W": LONG_SEG + 3 * LONG_KB, "k": LONG_KB}),
         kernel_row("banded_dp_windows", "banded_dp.cu", "ops/dp_pallas.py:47",
                    "[11] align --n-interval 4", banded_win_launches, max_err,
                    (*dp_timing["windows"], None)),

@@ -18,8 +18,13 @@ Same verbs, flags and files as ``genome_weaver_align_tpu.cli``:
 - ``--mode staircase``: the k-edit pipeline with the staircase search;
 - ``--mode exact`` or ``-k 0`` (auto): exact matches (``ExactAligner``);
 - ``--mode onemm``: at most one substitution (``OneMismatchAligner``);
+- ``--mode long`` (needs ``--seed-table``): long reads by chunked seeding
+  and diagonal voting (``LongReadAligner``); its records carry ``XT:A:L``;
 
-on FASTQ or FASTA reads, single-end, ``--paired`` or ``--interleaved``.
+on FASTQ or FASTA reads, single-end, ``--paired`` or ``--interleaved``
+(``--mode long`` single-end only, as in the JAX CLI).  ``--profile DIR``
+writes a ``torch.profiler`` trace of the align loop to ``DIR/trace.json``;
+``dump`` prints an index's metadata.
 With ``--n-interval N`` (N > 1) it runs ``ShardedAligner``: the index, the
 text and the seed table split into N interval shards on the one device.  It
 runs on the CUDA device (``--device cuda``, the default) and exits non-zero
@@ -112,8 +117,6 @@ def _align_mode(cfg) -> str:
 def _unported_align_feature(args, cfg) -> str | None:
     """The first requested align feature whose path is not ported, or None."""
     mode = _align_mode(cfg)
-    if mode == "long":
-        return "align --mode long"
     if cfg.n_interval > 1 and cfg.mode not in ("auto", "pigeonhole"):
         # the JAX CLI runs ShardedAligner there and ignores the mode
         return f"align --n-interval > 1 with --mode {cfg.mode}"
@@ -121,8 +124,6 @@ def _unported_align_feature(args, cfg) -> str | None:
         return "align --n-interval > 1 with --paired, --interleaved or --kmer-table"
     if mode in ("exact", "onemm") and (args.paired or args.interleaved):
         return f"align --mode {mode} with --paired or --interleaved"
-    if args.profile:
-        return "align --profile"
     return None
 
 
@@ -133,15 +134,17 @@ def _cmd_align(args) -> int:
     from genome_weaver_align_tpu_torch.utils.log import StopWatch
 
     from .index.files import load_index
-    from .models.pipeline import MAX_K, ExactAligner, SuffixFilterAligner
+    from .models.pipeline import MAX_ALIGNER_K, ExactAligner, SuffixFilterAligner
 
     cfg = AlignConfig.from_args(args)
     missing = _unported_align_feature(args, cfg)
     if missing:
         return _not_ported(missing)
     mode = _align_mode(cfg)
-    if (mode in ("pigeonhole", "staircase") or cfg.n_interval > 1) and not 1 <= cfg.k <= MAX_K:
-        sys.stderr.write(f"gwa-torch: align -k {cfg.k}: the k-edit modes take 1 <= k <= {MAX_K}\n")
+    if ((mode in ("pigeonhole", "staircase") or cfg.n_interval > 1)
+            and not 1 <= cfg.k <= MAX_ALIGNER_K):
+        sys.stderr.write(
+            f"gwa-torch: align -k {cfg.k}: the k-edit modes take 1 <= k <= {MAX_ALIGNER_K}\n")
         return _NOT_PORTED
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -165,6 +168,8 @@ def _cmd_align(args) -> int:
         offsets, positions, sj = load_seed_table(cfg.seed_table)
         tables.update(seed_table=(offsets, positions), seed_j=sj)
         sw.lap(f"loaded {sj}-mer seed table")
+    if mode == "long":
+        return _align_long_reads(args, cfg, gi, tables, device, sw)
     if cfg.n_interval > 1:
         from .parallel.sharded_pipeline import ShardedAligner
 
@@ -198,6 +203,68 @@ def _cmd_align(args) -> int:
     return _align_read_list(args, cfg, aligner, sw)
 
 
+def _align_long_reads(args, cfg, gi, tables, device, sw) -> int:
+    """``--mode long``: ``LongReadAligner`` (chunked seeding, diagonal
+    voting, the banded segment verify at kb = 16), then one whole-read
+    affine traceback a mapped read for POS/CIGAR/AS/NM.  Records carry
+    ``XT:A:L``.  As in the JAX CLI: reads in batches of max(8,
+    --batch-size), ``-k`` unused, exit 2 without ``--seed-table``."""
+    from genome_weaver_align_tpu_torch.utils import sam
+    from genome_weaver_align_tpu_torch.utils.fasta import iter_reads
+
+    from .models.long_read import LongReadAligner
+
+    if "seed_table" not in tables:
+        sys.stderr.write("align --mode long requires --seed-table\n")
+        return _NOT_PORTED
+    al = LongReadAligner(gi, tables["seed_table"], tables["seed_j"], device=device)
+    reads = list(iter_reads(cfg.reads))
+    sw.lap(f"loaded {len(reads)} long reads")
+    t0 = time.time()
+    records = []
+    n_mapped = 0
+    bs = max(8, cfg.batch_size)
+    for i in range(0, len(reads), bs):
+        batch = reads[i : i + bs]
+        arr = np.zeros((len(batch), max(len(r) for r in batch)), dtype=np.int8)
+        lens = np.empty(len(batch), dtype=np.int32)
+        for t, r in enumerate(batch):
+            arr[t, : len(r)] = r.codes
+            lens[t] = len(r)
+        lh = al.align_arrays(arr, lens)
+        for t, r in enumerate(batch):
+            if not lh.mapped[t]:
+                records.append(sam.unmapped(r.name, r.codes, r.qual))
+                continue
+            n_mapped += 1
+            ci, local = gi.genome.coord(int(lh.pos[t]))
+            score, nm = lh.aux.get(t, (None, int(lh.dist[t])))
+            rec = sam.mapped(
+                r.name, r.codes, gi.genome.names[int(ci[0])], int(local[0]), int(lh.strand[t]),
+                lh.cigars.get(t, f"{len(r)}M"), edit_distance=nm, mapq=37, qual=r.qual,
+                score=score,
+            )
+            rec.tags = rec.tags + (("XT", "A", "L"),)
+            records.append(rec)
+    dt = time.time() - t0
+    sw.lap(f"long-read mapped {n_mapped}/{len(reads)}, {len(reads) / max(dt, 1e-9):.0f} reads/s")
+    hdr = sam.header(gi.genome.names, gi.genome.lengths, prog="gwa-torch")
+    if cfg.out == "-":
+        sys.stdout.write(hdr + "\n")
+        for r in records:
+            sys.stdout.write(r.line() + "\n")
+    else:
+        sam.write_sam(cfg.out, hdr, records)
+        sw.lap(f"wrote {cfg.out}")
+    if args.report:
+        _write_report(args.report, sw, {
+            "reads": len(reads), "mapped": n_mapped,
+            "reads_per_s": round(len(reads) / max(dt, 1e-9), 1),
+            "wall_s": round(dt, 3), "mode": "long", "k": None, "batch_size": bs,
+        })
+    return 0
+
+
 def _n_tier2(aligner) -> int:
     """Reads the last finished batch sent to the tier-2 staircase (0 for
     aligners without a tier 2)."""
@@ -212,6 +279,7 @@ def _align_read_list(args, cfg, aligner, sw) -> int:
     finishing N) and the SAM is written at the end, as the JAX CLI's list
     path does."""
     from genome_weaver_align_tpu_torch.utils.fasta import iter_reads
+    from genome_weaver_align_tpu_torch.utils.log import profile_to
     from genome_weaver_align_tpu_torch.utils.sam import write_sam
 
     from .models.paired import PairedAligner
@@ -256,29 +324,30 @@ def _align_read_list(args, cfg, aligner, sw) -> int:
         records.extend(aligner.to_sam(batch, hits))
         n_mapped += sum(h is not None for h in hits)
 
-    for b in range(start_batch, n_batches):
-        i = b * bs
-        if paired is not None:
-            batch = list(zip(reads[i : i + bs], mates[i : i + bs]))
-            hits = paired.align_pairs(batch)
-            n_tier2 += paired.last_staircase_fallback
-            records.extend(paired.to_sam(batch, hits))
-            n_mapped += sum((ph.h1 is not None) + (ph.h2 is not None) for ph in hits)
-            n_proper += sum(ph.proper for ph in hits)
-        elif pipelined:
-            batch = reads[i : i + bs]
-            nxt = (batch, aligner.align_batch_submit(batch))
-            if pending is not None:
-                finish_single(pending[0], aligner.align_batch_finish(pending[1]))
-            pending = nxt
-        else:
-            batch = reads[i : i + bs]
-            finish_single(batch, aligner.align_batch(batch))
-        if progress_path:
-            with open(progress_path, "w") as fh:
-                fh.write(json.dumps({"batches_done": b + 1}))
-    if pending is not None:
-        finish_single(pending[0], aligner.align_batch_finish(pending[1]))
+    with profile_to(args.profile):
+        for b in range(start_batch, n_batches):
+            i = b * bs
+            if paired is not None:
+                batch = list(zip(reads[i : i + bs], mates[i : i + bs]))
+                hits = paired.align_pairs(batch)
+                n_tier2 += paired.last_staircase_fallback
+                records.extend(paired.to_sam(batch, hits))
+                n_mapped += sum((ph.h1 is not None) + (ph.h2 is not None) for ph in hits)
+                n_proper += sum(ph.proper for ph in hits)
+            elif pipelined:
+                batch = reads[i : i + bs]
+                nxt = (batch, aligner.align_batch_submit(batch))
+                if pending is not None:
+                    finish_single(pending[0], aligner.align_batch_finish(pending[1]))
+                pending = nxt
+            else:
+                batch = reads[i : i + bs]
+                finish_single(batch, aligner.align_batch(batch))
+            if progress_path:
+                with open(progress_path, "w") as fh:
+                    fh.write(json.dumps({"batches_done": b + 1}))
+        if pending is not None:
+            finish_single(pending[0], aligner.align_batch_finish(pending[1]))
     dt = time.time() - t0
     total = len(reads) * (2 if paired else 1)
     sw.lap(
@@ -324,6 +393,7 @@ def _align_array_stream(args, aligner, sw) -> int:
     overlaps device compute; at most two batches are in flight and SAM is
     emitted incrementally."""
     from genome_weaver_align_tpu_torch.utils.fasta import iter_fastq_array_batches
+    from genome_weaver_align_tpu_torch.utils.log import profile_to
 
     from .models.pipeline import prefetch_result
 
@@ -351,28 +421,29 @@ def _align_array_stream(args, aligner, sw) -> int:
                 with open(progress_path, "w") as fh:
                     fh.write(json.dumps({"batches_done": pb + 1}))
 
-        pending = None
-        for b, (names, codes, quals, lengths) in enumerate(
-            iter_fastq_array_batches(args.reads, bs)
-        ):
-            total += len(names)
-            if b < start_batch:
-                continue
-            nxt = (
-                b,
-                aligner.align_arrays_submit(codes.astype(np.int8), lengths),
-                names, codes, quals, lengths,
-            )
-            prefetch_result(nxt[1])
-            if pending is None:
+        with profile_to(args.profile):
+            pending = None
+            for b, (names, codes, quals, lengths) in enumerate(
+                iter_fastq_array_batches(args.reads, bs)
+            ):
+                total += len(names)
+                if b < start_batch:
+                    continue
+                nxt = (
+                    b,
+                    aligner.align_arrays_submit(codes.astype(np.int8), lengths),
+                    names, codes, quals, lengths,
+                )
+                prefetch_result(nxt[1])
+                if pending is None:
+                    pending = nxt
+                    continue
+                pb, ph, pn, pc, pq, pl = pending
                 pending = nxt
-                continue
-            pb, ph, pn, pc, pq, pl = pending
-            pending = nxt
-            emit(pb, aligner.align_arrays_finish(ph), pn, pc, pq, pl)
-        if pending is not None:
-            pb, ph, pn, pc, pq, pl = pending
-            emit(pb, aligner.align_arrays_finish(ph), pn, pc, pq, pl)
+                emit(pb, aligner.align_arrays_finish(ph), pn, pc, pq, pl)
+            if pending is not None:
+                pb, ph, pn, pc, pq, pl = pending
+                emit(pb, aligner.align_arrays_finish(ph), pn, pc, pq, pl)
     finally:
         if out_fh is not sys.stdout:
             out_fh.close()
@@ -417,6 +488,23 @@ def _cmd_simulate(args) -> int:
     return 0
 
 
+def _cmd_dump(args) -> int:
+    """The index's FM header, contig table, base counts and host table size,
+    line for line as the JAX CLI prints them."""
+    from .index.files import load_index
+
+    gi = load_index(args.index)
+    print(f"n={gi.fwd.n} primary={gi.fwd.primary} sample_rate={gi.fwd.sample_rate}")
+    print(f"contigs: {list(zip(gi.genome.names, gi.genome.lengths))}")
+    print(f"counts A/C/G/T: {gi.fwd.counts.tolist()}  C[]: {gi.fwd.C.tolist()}")
+    nbytes = sum(
+        a.nbytes
+        for a in (gi.fwd.bwt_words, gi.fwd.occ_cp, gi.fwd.ssa_values, gi.fwd.text_words)
+    )
+    print(f"fwd index tables ~{nbytes/1e6:.1f} MB host-side")
+    return 0
+
+
 def main(argv=None) -> int:
     # argparse defaults come from the shared config dataclasses, as in the
     # JAX package's CLI
@@ -455,7 +543,7 @@ def main(argv=None) -> int:
         "--mode",
         choices=["auto", "exact", "onemm", "pigeonhole", "staircase", "long"],
         default=acfg.mode,
-        help="'long' is not yet ported",
+        help="'long' needs --seed-table",
     )
     pa.add_argument("--batch-size", type=int, default=acfg.batch_size)
     pa.add_argument("--max-hits-per-piece", type=int, default=acfg.max_hits_per_piece)
@@ -468,7 +556,8 @@ def main(argv=None) -> int:
     pa.add_argument("--seed-table", help=".npz seed table (index.seedtable)")
     pa.add_argument("--report", help="write a JSON run report here")
     pa.add_argument("--resume", action="store_true", help="resume from .progress")
-    pa.add_argument("--profile", help="(not yet ported)")
+    pa.add_argument("--profile", help="write a torch.profiler trace of the align loop to "
+                    "this dir (trace.json)")
     pa.add_argument("--n-interval", type=int, default=acfg.n_interval,
                     help="interval shards of the index (ShardedAligner when > 1)")
     pa.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -486,6 +575,10 @@ def main(argv=None) -> int:
     ps.add_argument("--indel-rate", type=float, default=0.0)
     ps.add_argument("--max-indels", type=int, default=0)
     ps.set_defaults(fn=_cmd_simulate)
+
+    pd = sub.add_parser("dump", help="print index metadata")
+    pd.add_argument("index")
+    pd.set_defaults(fn=_cmd_dump)
 
     args = p.parse_args(argv)
     return args.fn(args)

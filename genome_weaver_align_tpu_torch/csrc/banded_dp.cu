@@ -42,24 +42,29 @@
 //     word a 16 rows, prefetched a word ahead, decoded with a shift and a
 //     mask in registers.
 //   * Cell update: 4 integer instructions a cell, the least it needs, all in
-//     registers (D, E = D + 1, and the band's window codes):
-//        x    = (w ^ r) & 0x1FF                  LOP3: 0 iff the codes match
-//        diag = min(D[b] + x, E[b])              DPX __viaddmin_s32
-//        D[b] = min(diag, E_old[b+1], E_new[b-1]) DPX __vimin3_s32
-//        E[b] = D[b] + 1                          IADD
-//     A read code >= 4 needs no test: the window codes are 0..3 or 256 (an
-//     out-of-text base, or a window byte >= 4), which no int8 read code
-//     equals, and a negative read code matches only an equal window byte,
-//     as in the plain version.  The row loop is split into a checked head
-//     (i < k), an unchecked body (every slot's j inside the window; with the
-//     default W >= L + 3k that is every later row), unrolled by 4k+1 rows so
-//     that the band's window codes rotate by register renaming instead of
-//     moves, and a checked tail for narrow windows.
+//     registers (D and the band's window codes; E = D + 1 is never stored):
+//        x    = (w ^ r) & 0x1FF                        LOP3: 0 iff the codes match
+//        m    = min(D_old[b], D_old[b+1], D_new[b-1])   DPX __vimin3_s32
+//        t    = D_old[b] + x                            IADD
+//        D[b] = min(m + 1, t)                           DPX __viaddmin_s32
+//     which is the plain version's min(D + x, D + 1, D_old[b+1] + 1,
+//     D_new[b-1] + 1): a match (x = 0) is the diagonal, a mismatch costs 1
+//     through m + 1.  A read code >= 4 needs no test: the window codes are
+//     0..3 or 256 (an out-of-text base, or a window byte >= 4), which no
+//     int8 read code equals, and a negative read code matches only an equal
+//     window byte, as in the plain version.  The row loop is split into a
+//     checked head (i < k), an unchecked body (every slot's j inside the
+//     window; with the default W >= L + 3k that is every later row),
+//     unrolled by 4k+1 rows so that the band's window codes rotate by
+//     register renaming instead of moves, and a checked tail for narrow
+//     windows.
 //   So the kernel is bound by its integer issue rate: 4 instructions for
 //   each of the (4k+1) cells of every live read row.
-//   * k = 1..14, the aligner's whole range (k < 15: the 4-bit dist field).
-//     The band's 3 (4k+1) registers reach 171 at k = 14; what ptxas spills
-//     there, chip_smoke.py prints.
+//   * k = 1..16: the short-read aligners' k < 15 (their 4-bit dist field)
+//     and the long-read segment verify's band, kb = 16.  The band's D and
+//     window codes take 2 (4k+1) = 130 registers at k = 16; storing E too
+//     would add 65 more.  What ptxas reports at k = 14 and 16, chip_smoke.py
+//     prints.
 //
 // Entry: gwa_banded_dp, a plain C function bound with ctypes.  It launches
 // on the caller's stream, does not synchronise, allocates nothing, and
@@ -81,8 +86,8 @@ constexpr int32_t kNoMatch = 256;  // a window code no int8 read code equals
 constexpr int kThreads = gwa::kMaxStageThreads;
 // The body's rows are unrolled by 4k+1 for k up to this; a wider band runs
 // its body one row at a time with the window codes shifted by moves, so
-// that the (4k+1)^2-cell unrolled body of every k up to 14 (the aligner's
-// k < 15) does not multiply the build time.
+// that the (4k+1)^2-cell unrolled body of every k up to 16 does not
+// multiply the build time.
 constexpr int kMaxUnrolledK = 8;
 
 struct Args {
@@ -151,7 +156,6 @@ template <int K>
 struct Band {
   static constexpr int kBand = 4 * K + 1;
   int32_t D[kBand];
-  int32_t E[kBand];   // D + 1
   int32_t wc[kBand];  // window codes of the band's slots, rotated by R in the body
 };
 
@@ -166,11 +170,9 @@ __device__ __forceinline__ void checked_row(Band<K>& s, Stream& win, int32_t rc,
   for (int b = 0; b < BAND; ++b) {
     const bool valid = static_cast<uint32_t>(i + b - K) < static_cast<uint32_t>(W);
     const int32_t x = (s.wc[b] ^ rc) & 0x1FF;
-    const int32_t ins = b + 1 < BAND ? s.E[b + 1] : kInf + 1;
-    const int32_t t = valid ? min(__viaddmin_s32(s.D[b], x, s.E[b]), ins) : kInf;
-    const int32_t d = b == 0 ? t : min(t, s.E[b - 1]);
-    s.D[b] = d;
-    s.E[b] = d + 1;
+    const int32_t up = b + 1 < BAND ? s.D[b + 1] : kInf;  // not yet updated: row i-1
+    const int32_t t = valid ? __viaddmin_s32(min(s.D[b], up), 1, s.D[b] + x) : kInf;
+    s.D[b] = b == 0 ? t : __viaddmin_s32(s.D[b - 1], 1, t);  // D[b-1]: row i
   }
 #pragma unroll
   for (int b = 0; b < BAND - 1; ++b) s.wc[b] = s.wc[b + 1];
@@ -186,15 +188,15 @@ __device__ __forceinline__ void body_row(Band<K>& s, Stream& win, const int8_t* 
 #pragma unroll
   for (int b = 0; b < BAND; ++b) {
     const int32_t x = (s.wc[(b + R) % BAND] ^ rc) & 0x1FF;
-    const int32_t diag = __viaddmin_s32(s.D[b], x, s.E[b]);
-    int32_t d;
+    // D[b + 1] still holds row i-1, D[b - 1] already row i; past the last
+    // slot the plain version reads INF
+    int32_t m;
     if (b == 0) {
-      d = min(diag, s.E[1]);
+      m = min(s.D[0], s.D[1]);
     } else {
-      d = __vimin3_s32(diag, b + 1 < BAND ? s.E[b + 1] : kInf + 1, s.E[b - 1]);
+      m = __vimin3_s32(s.D[b], b + 1 < BAND ? s.D[b + 1] : kInf, s.D[b - 1]);
     }
-    s.D[b] = d;
-    s.E[b] = d + 1;
+    s.D[b] = __viaddmin_s32(m, 1, s.D[b] + x);
   }
 }
 
@@ -225,7 +227,6 @@ __global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
 #pragma unroll
   for (int b = 0; b < BAND; ++b) {
     s.D[b] = b >= K ? 0 : kInf;
-    s.E[b] = s.D[b] + 1;
     s.wc[b] = kNoMatch;
   }
 #pragma unroll
@@ -296,6 +297,8 @@ int dispatch(int32_t k, const Args& a, cudaStream_t s) {
     case 12: return launch<12, kText>(a, s);
     case 13: return launch<13, kText>(a, s);
     case 14: return launch<14, kText>(a, s);
+    case 15: return launch<15, kText>(a, s);
+    case 16: return launch<16, kText>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

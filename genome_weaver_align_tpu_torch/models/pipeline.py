@@ -44,11 +44,14 @@ from ..ops import affine
 from ..ops import dp as dp_ops
 from ..ops import rank
 from ..ops import window as window_ops
-from ..ops.dp_cuda import MAX_K
 from . import bidirectional as bd
 from . import exact, staircase, suffix_filter
 
 I32 = torch.int32
+# The k-edit aligners take 1 <= k <= MAX_ALIGNER_K: the packed result's 4-bit
+# distance field saturates at 15, so a read at distance 15 would read as
+# unmapped.  The banded DP kernel itself takes k up to ``dp_cuda.MAX_K``.
+MAX_ALIGNER_K = 14
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -145,11 +148,9 @@ class ExactAligner:
 
 
 def check_k(k: int) -> None:
-    """The k-edit aligners take 1 <= k <= MAX_K: the banded DP kernel is
-    built for that range, and the packed result's 4-bit distance field
-    saturates at 15 (a read at distance 15 would read as unmapped)."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k}: the k-edit aligners take 1 <= k <= {MAX_K}")
+    """Refuse a k outside the k-edit aligners' range, 1..MAX_ALIGNER_K."""
+    if not 1 <= k <= MAX_ALIGNER_K:
+        raise ValueError(f"k={k}: the k-edit aligners take 1 <= k <= {MAX_ALIGNER_K}")
 
 
 @dataclass
@@ -246,7 +247,7 @@ def hits_from_arrays(ah: ArrayHits) -> list[ApproxHit | None]:
     return out
 
 
-def device_tables(gi, device, seed_table=None, kmer_table=None) -> dict:
+def upload_tables(gi, device, seed_table=None, kmer_table=None) -> dict:
     """Numpy index arrays -> the aligner's device tensors.
 
     ``gi.fwd`` (the numpy ``FMIndexData``) becomes a ``rank.DeviceFMIndex``
@@ -297,6 +298,12 @@ class SuffixFilterAligner:
         # LEFT through pre-anchor pieces (whole-read intervals); see
         # staircase.staircase_filter_candidates(narrow_left=...)
         device: str | torch.device = "cuda",  # the CPU only when asked for
+        device_tables: dict | None = None,  # tables already on ``device``
+        # (index.multipart_io.load_part_flat): "fm" (DeviceFMIndex), "text"
+        # (packed text words), "text_host" (the same words on the host, for
+        # the slow path's window decode) and, for the staircase, "rev"
+        # (DeviceFMIndex of the reversed text).  gi.fwd and gi.rev may then
+        # be None: nothing is uploaded from them.
     ):
         check_k(k)
         self.gi = gi
@@ -306,11 +313,20 @@ class SuffixFilterAligner:
         self.device = torch.device(device)
         use_kmer = kmer_table is not None and kmer_j > 0
         use_seed = seed_table is not None and seed_j > 0
-        tables = device_tables(
-            gi, self.device,
-            seed_table=seed_table if use_seed else None,
-            kmer_table=kmer_table if use_kmer else None,
-        )
+        if device_tables is None:
+            tables = upload_tables(
+                gi, self.device,
+                seed_table=seed_table if use_seed else None,
+                kmer_table=kmer_table if use_kmer else None,
+            )
+        else:
+            tables = {
+                "fm": device_tables["fm"],
+                "text": device_tables["text"],
+                "text_host": device_tables["text_host"],
+                "seed": _device_pair(seed_table if use_seed else None, self.device),
+                "kmer": _device_pair(kmer_table if use_kmer else None, self.device),
+            }
         self.fm = tables["fm"]
         self.text_words = tables["text"]
         self.text_host = tables["text_host"]
@@ -332,7 +348,10 @@ class SuffixFilterAligner:
         self._fb: "SuffixFilterAligner | None" = None
         self._fb2: "SuffixFilterAligner | None" = None
         if use_staircase:
-            self.bi = bd.DeviceBiIndex(self.fm, rank.from_host(gi.rev, self.device))
+            rev = (device_tables or {}).get("rev")
+            if rev is None:
+                rev = rank.from_host(gi.rev, self.device)
+            self.bi = bd.DeviceBiIndex(self.fm, rev)
 
     def _strand_pass(self, search_reads, verify_reads, lengths):
         """One strand: candidates -> verify -> per-read best, downloaded."""

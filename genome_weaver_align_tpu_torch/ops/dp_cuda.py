@@ -26,7 +26,7 @@ import torch
 from ._cuda_build import load_kernel_library
 from .dp import INF
 
-MAX_K = 14  # the kernel is instantiated for k = 1..MAX_K, the aligner's k < 15
+MAX_K = 16  # the kernel is instantiated for k = 1..MAX_K: the long-read band, kb = 16
 _THREADS = 128  # lanes a block; the block stages up to this many read rows
 _MAX_SMEM = 232_448  # shared memory a block can have on sm_90
 

@@ -67,11 +67,17 @@ def fuse_blocks(bwt_words: np.ndarray, occ_cp: np.ndarray) -> np.ndarray:
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """Host array -> int32 device tensor (uint32 arrays keep their bits)."""
+    """Host array -> int32 device tensor (uint32 arrays keep their bits).
+    A CUDA upload is copied into pinned host memory once and then sent
+    without blocking the host (in stream order, as every later kernel)."""
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+    t = torch.from_numpy(a.astype(np.int32, copy=False))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def from_host(fm: FMIndexData, device="cpu") -> DeviceFMIndex:

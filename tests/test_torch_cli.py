@@ -157,8 +157,8 @@ def test_cli_interleaved_identical_to_jax(files):
 
 @pytest.mark.parametrize("extra", [
     ["--mode", "exact", "--interleaved"], ["--mode", "staircase", "--n-interval", "2"],
-    ["--mode", "long"], ["--mode", "exact", "--n-interval", "2"],
-    ["--mode", "onemm", "--interleaved"], ["--profile", "prof"],
+    ["--mode", "long", "--n-interval", "2"], ["--mode", "exact", "--n-interval", "2"],
+    ["--mode", "onemm", "--interleaved"], ["--mode", "pigeonhole", "--n-interval", "2", "--interleaved"],
 ])
 def test_cli_unported_modes_exit_2(files, capsys, extra):
     assert _align(main, files, "never.sam", *extra) == 2

@@ -59,7 +59,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     r = torch.zeros((4, 10), dtype=torch.int8, device=cuda)
     w = torch.zeros((4, 16), dtype=torch.int8, device=cuda)
     ln = torch.full((4,), 10, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="k=15"):
+    with pytest.raises(ValueError, match=f"k={dp_cuda.MAX_K + 1}"):
         dp_cuda.banded_edit_distance_cuda(r, ln, w, dp_cuda.MAX_K + 1)
     with pytest.raises(ValueError, match="int8"):
         dp_cuda.banded_edit_distance_cuda(r.int(), ln, w, 2)
@@ -636,3 +636,97 @@ def test_exact_and_one_mismatch_aligners_on_card_equal_cpu(cuda):
         assert [None if h is None else h.__dict__ for h in got] == \
             [None if h is None else h.__dict__ for h in want]
         assert sum(h is not None for h in got) >= 400
+
+
+def _long_reads(codes, n, rng):
+    """Ragged reads of 300-2,000 bases on both strands, 6 substitutions and
+    2 one-base indels each, zero-padded to the longest."""
+    lens = rng.integers(300, 2001, size=n)
+    reads = np.zeros((n, int(lens.max())), np.int8)
+    for i, m in enumerate(lens):
+        p = int(rng.integers(0, codes.size - m - 40))
+        seq = list(codes[p : p + m + 20])
+        for _ in range(2):
+            at = int(rng.integers(60, m - 60))
+            if rng.random() < 0.5:
+                seq.insert(at, int(rng.integers(0, 4)))
+            else:
+                del seq[at]
+        seq = np.array(seq[:m], np.int8)
+        at = rng.integers(0, m, size=6)
+        seq[at] = (seq[at] + rng.integers(1, 4, size=6)) % 4
+        reads[i, :m] = (3 - seq)[::-1] if i % 2 else seq
+    return reads, lens.astype(np.int32)
+
+
+def test_long_read_aligner_on_card_equals_cpu(cuda, monkeypatch):
+    """LongReadAligner on the card (segment verify at kb = 16 through the
+    text entry, never the plain version) against the CPU, field for field,
+    with and without traceback, at kb = 16 and kb = 15."""
+    from genome_weaver_align_tpu_torch.models import long_read
+
+    rng = np.random.default_rng(14)
+    codes = rng.integers(0, 4, size=300_000, dtype=np.uint8)
+    genome = Genome.from_contigs([Contig("c", codes)])
+    gi = GenomeIndex(genome, build_fm_index(genome.codes, sample_rate=16), None)
+    tab = build_seed_table(genome.codes, 11)
+    reads, lens = _long_reads(codes, 48, rng)
+    plain = dp.banded_edit_distance_text_plain
+    for kb in (16, 15):
+        on_card = long_read.LongReadAligner(gi, tab, 11, kb=kb, device=cuda)
+        on_cpu = long_read.LongReadAligner(gi, tab, 11, kb=kb, device="cpu")
+        for traceback in (True, False):
+            def no_plain(*a, **kw):
+                raise AssertionError("the card run reached the plain DP")
+
+            monkeypatch.setattr(dp, "banded_edit_distance_text_plain", no_plain)
+            before = dp_cuda.banded_edit_distance_text_cuda.launches
+            got = on_card.align_arrays(reads, lens, traceback=traceback)
+            assert dp_cuda.banded_edit_distance_text_cuda.launches == before + 2  # both strands
+            monkeypatch.setattr(dp, "banded_edit_distance_text_plain", plain)
+            want = on_cpu.align_arrays(reads, lens, traceback=traceback)
+            for field in long_read.LongHits._fields:
+                x, y = getattr(got, field), getattr(want, field)
+                assert (x == y) if isinstance(x, dict) else np.array_equal(x, y), (kb, field)
+            assert got.mapped.mean() > 0.9
+
+
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("tight", [False, True])
+def test_multipart_stream_on_card_equals_cpu(cuda, tmp_path, monkeypatch, flat, tight):
+    """align_stream_multipart on the card against the CPU port: two parts
+    written by build_multipart (with reversed-text indexes), npz or flat; a
+    tail batch; with budgets cut to 1 hit a piece, the staircase rescue."""
+    from genome_weaver_align_tpu_torch.index import multipart_io as mp
+
+    if tight:
+        monkeypatch.setattr(mp, "_part_budgets", lambda n, j, k: (1, 3, 1))
+        monkeypatch.setattr(pipeline.SuffixFilterAligner, "FB_MULT", 1)
+    rng = np.random.default_rng(6)
+    contigs = [Contig(f"c{i}", rng.integers(0, 4, size=40_000, dtype=np.uint8)) for i in range(3)]
+    unit = rng.integers(0, 4, size=60, dtype=np.uint8)
+    for c in contigs:  # a shared unit: ties across parts
+        c.codes[1000:1060] = unit
+    mi = mp.build_multipart(tmp_path, contigs, part_limit=80_000, seed_j=8, flat=flat)
+    assert mi.n_parts == 2
+    whole = np.concatenate([c.codes for c in contigs])
+    starts = np.concatenate([rng.integers(0, whole.size - 100, size=2990),
+                             [1000 - 20, 41_000 - 20, 81_000 - 20]])
+    reads = whole[starts[:, None] + np.arange(100)].astype(np.int8)
+    rows = np.arange(reads.shape[0])
+    for _ in range(2):
+        at = rng.integers(0, 100, size=rows.size)
+        reads[rows, at] = (reads[rows, at] + 1) % 4
+    rc = rng.random(rows.size) < 0.5
+    reads[rc] = (3 - reads[rc])[:, ::-1]
+    lrow = np.full(1024, 100, np.int32)
+    st_card, st_cpu = {}, {}
+    before = dp_cuda.banded_edit_distance_text_cuda.launches
+    got = mp.align_stream_multipart(mi, reads, lrow, 1024, stats=st_card, device=cuda)
+    assert dp_cuda.banded_edit_distance_text_cuda.launches > before
+    want = mp.align_stream_multipart(mi, reads, lrow, 1024, stats=st_cpu, device="cpu")
+    for g, w in zip(got[:4], want[:4]):
+        assert np.array_equal(g, w)
+    assert got[3].mean() > 0.99
+    assert len(st_card["peak_mem_bytes"]) == 2 and all(b > 0 for b in st_card["peak_mem_bytes"])
+    assert st_card["rescued"] == st_cpu["rescued"] and (st_card["rescued"] > 0) == tight

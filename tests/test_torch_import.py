@@ -24,7 +24,8 @@ import numpy as np
 import genome_weaver_align_tpu_torch
 from genome_weaver_align_tpu_torch import cli
 from genome_weaver_align_tpu_torch.index import build, files, kmer, native, sais, seedtable
-from genome_weaver_align_tpu_torch.models import paired, pipeline, suffix_filter
+from genome_weaver_align_tpu_torch.index import multi, multipart_io
+from genome_weaver_align_tpu_torch.models import long_read, paired, pipeline, suffix_filter
 from genome_weaver_align_tpu_torch.models import bidirectional, exact, one_mismatch, staircase
 from genome_weaver_align_tpu_torch.ops import (
     affine, dp, dp_cuda, myers, myers_cuda, rank, ring_cuda, window,
@@ -45,8 +46,15 @@ assert cli.main([*align, "pairs.sam", "--interleaved"]) == 0
 assert cli.main([*align, "sharded.sam", "--n-interval", "2"]) == 0
 assert cli.main([*align, "stair.sam", "--mode", "staircase"]) == 0
 assert cli.main([*align, "onemm.sam", "--mode", "onemm"]) == 0
+assert cli.main([*align, "long.sam", "--mode", "long", "--seed-table", "g.npz.seed8.npz"]) == 0
+assert cli.main(["dump", "g.npz"]) == 0
 align[4] = "0"  # -k 0: the exact aligner
 assert cli.main([*align, "exact.sam"]) == 0
+contigs = [Contig(f"c{i}", rng.integers(0, 4, size=3000, dtype=np.uint8)) for i in range(2)]
+mi = multipart_io.build_multipart("parts", contigs, part_limit=4000, seed_j=6, sample_rate=8)
+reads = np.stack([contigs[i % 2].codes[50 * i : 50 * i + 60] for i in range(16)]).astype(np.int8)
+res = multipart_io.align_stream_multipart(mi, reads, np.full(8, 60, np.int32), 8, device="cpu")
+assert res[3].all()
 assert not any(m == "jax" or m.startswith(("jax.", "genome_weaver_align_tpu."))
                for m in sys.modules if sys.modules[m])
 print("NO_JAX_OK")
@@ -62,7 +70,7 @@ def test_port_runs_with_jax_absent(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
     for name in ("out.sam", "fm.sam", "pairs.sam", "sharded.sam", "stair.sam", "onemm.sam",
-                 "exact.sam"):
+                 "exact.sam", "long.sam"):
         body = [l for l in (tmp_path / name).read_text().splitlines() if l[0] != "@"]
         assert len(body) == 40, name
     sam = [(tmp_path / n).read_text().splitlines() for n in ("fm.sam", "sharded.sam")]

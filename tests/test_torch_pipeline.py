@@ -283,13 +283,28 @@ def test_k_outside_1_to_14_is_rejected(random_gi, k):
     from genome_weaver_align_tpu_torch.ops import dp_cuda
     from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
 
-    assert pipeline.MAX_K == dp_cuda.MAX_K == 14
+    assert pipeline.MAX_ALIGNER_K == 14 and dp_cuda.MAX_K == 16
     gi, _ = random_gi
     with pytest.raises(ValueError, match="1 <= k <= 14"):
         pipeline.SuffixFilterAligner(gi, k=k, device="cpu")
     with pytest.raises(ValueError, match="1 <= k <= 14"):
         ShardedAligner(gi, k=k, n_interval=2, device="cpu")
     pipeline.SuffixFilterAligner(gi, k=14, device="cpu")
+
+
+@pytest.mark.parametrize("k", [15, 16])
+def test_kernel_band_past_14_stays_refused_by_short_read_aligners(random_gi, k):
+    """The banded DP kernel takes k = 15 and 16 (the long-read band), but
+    the short-read aligners keep their own bound: their 4-bit dist field
+    saturates at 15."""
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+
+    assert k <= dp_cuda.MAX_K
+    gi, _ = random_gi
+    with pytest.raises(ValueError, match="1 <= k <= 14"):
+        pipeline.SuffixFilterAligner(gi, k=k, device="cpu")
+    with pytest.raises(ValueError, match="1 <= k <= 14"):
+        pipeline.check_k(k)
 
 
 def test_list_api_and_to_sam(random_gi):
