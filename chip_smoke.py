@@ -125,7 +125,31 @@ per line, and exits non-zero at the first phase that fails:
    the two-tier staircase rescue, >= 97% of them mapped, and the banded
    text entry launched in it; align and load seconds, reads/s, each part's peak device memory,
    the rescue cohort, and the banded text entry launched in each part's
-   stream.
+   stream;
+16. several processes on one card (BASELINE config 5's stream on one
+   host): the card's compute mode must not be ``Exclusive_Process``; this
+   script starts itself as each rank (``--rank``), joined by gloo on a free
+   loopback port, all ranks on the one card.  ``ShardedAligner`` (k = 2,
+   4 interval shards, the phase-4 index and seed table) on 4 x 32,768
+   reads of 150 bp (seed 17, <= 1 substitution, one indel in 15%), each
+   rank aligning its slice of every batch and running the host tail on
+   the gathered batch; then the exact search (``multihost.exact_align``:
+   ``make_global_batch``, ``exact_interval_search`` + ``locate_hits`` on
+   both strands, ``gather_to_host``) on 65,536 error-free 36 bp reads.
+   Each with 1 rank and with 2: the 2-rank SAM byte-identical to the 1-rank
+   SAM, >= 99% mapped and correct, the windows entry launched in every
+   sharded rank (each rank counts its own) and equal to the plain DP on
+   every call of one batch of that rank (L = 150, W = 156); reads/s,
+   ``gather_to_host`` ms a batch (after a barrier, whose wait is printed
+   apart) and each rank's peak device memory;
+17. index builders and rank backends: ``index --builder device --seed 13``
+   through the CLI on the phase-4 FASTA must write every array of the
+   phase-4 index (native SA-IS) and its seed table; the device build's
+   seconds, doubling rounds and peak device memory a strand against native
+   SA-IS on the forward text.  Then ``WaveletRank`` over the forward BWT
+   on the card: ``exact_search_wavelet`` on 65,536 error-free 36 bp reads
+   must give the fused-row search's (lo, hi) on every read; both searches
+   timed.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after.  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
@@ -185,6 +209,13 @@ LONG_SEG, LONG_KB, LONG_BAND = 128, 16, 48  # LongReadAligner's defaults
 MIN_EXACT_POS = 0.99
 # phase 15: the JAX package's gbp bench traffic (bench.py bench_gbp)
 GBP_BATCH, GBP_BATCHES, GBP_L, GBP_SEED = 8_192, 16, 150, 29
+# phase 16: several processes on one card (BASELINE config 5's stream)
+RANKS = 2
+RANK_BATCH, RANK_BATCHES, RANK_L, RANK_SEED = 32_768, 4, 150, 17
+RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's length
+RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
+# phase 17: the wavelet search's traffic
+WAVELET_READS, WAVELET_L = 65_536, 36
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
 # bytes/s and the float32 rate outside the tensor cores.  Integer work is
 # priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
@@ -810,7 +841,7 @@ def phase_cli(codes, card):
     check(launches > 0, "the align run never launched the banded DP kernel's text entry")
     check(mapped / n >= MIN_MAPPED, f"mapped share {mapped / n:.4f} < {MIN_MAPPED}")
     check(correct / n >= MIN_CORRECT, f"correct share {correct / n:.4f} < {MIN_CORRECT}")
-    return launches
+    return launches, index_s
 
 
 def myers_inputs(Q: int, Lr: int, W: int, seed: int):
@@ -1918,6 +1949,367 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
             "repeat_rescue": rrescue}
 
 
+def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path) -> list[dict]:
+    """``n`` processes of this script (``--rank``), one gloo group on a free
+    loopback port, all on the one card; every one must exit 0 within
+    RANK_TIMEOUT_S.  -> each rank's result line, in rank order."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", mode, str(r), str(n), port,
+         str(idx), str(seedf), str(reads), str(sam)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    results = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"[16] {mode}: rank {r} of {n} ran past {RANK_TIMEOUT_S} s")
+            check(p.returncode == 0, f"[16] {mode}: rank {r} of {n} exited {p.returncode}: "
+                  f"{text[-3000:]}")
+            lines = [ln for ln in text.splitlines() if ln.startswith("RANK_RESULT ")]
+            check(len(lines) == 1, f"[16] {mode}: rank {r} of {n} printed no result: {text[-3000:]}")
+            results.append(json.loads(lines[0].split(" ", 1)[1]))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return results
+
+
+def check_windows_entry(torch, aligner, batch) -> dict:
+    """Align ``batch`` once (also the warm-up) with every call of the banded
+    DP's windows entry held against the plain DP on the same tensors: the
+    sharded verify's shapes in this rank.  -> lanes, read and window widths
+    of each call, and the mismatches of dist and end_b."""
+    from genome_weaver_align_tpu_torch.ops import dp
+
+    real = dp.banded_edit_distance_best  # the windows entry on a CUDA tensor
+    res = {"lanes": [], "L": [], "W": [], "bad_dist": 0, "bad_end": 0, "max_abs_err": 0}
+
+    def held(r, ln, w, k):
+        check(r.is_cuda, "the sharded verify's reads are not on the card")
+        d, e = real(r, ln, w, k)
+        d_plain, e_plain = dp.banded_edit_distance(r, ln, w, k)
+        res["lanes"].append(r.shape[0])
+        res["L"].append(r.shape[1])
+        res["W"].append(w.shape[1])
+        res["bad_dist"] += int((d != d_plain).sum())
+        res["bad_end"] += int((e != e_plain).sum())
+        res["max_abs_err"] = max(res["max_abs_err"], int((d - d_plain).abs().max()))
+        return d, e
+
+    with mock.patch.object(dp, "banded_edit_distance_best", held):
+        aligner.align_batch(batch)
+    return res
+
+
+def rank_child(argv: list[str]) -> int:
+    """One rank of phase 16 (``chip_smoke.py --rank MODE RANK N PORT INDEX
+    SEEDS READS SAM``): joins the gloo group, runs its slice of every batch
+    on ``cuda:RANK % device_count``, and prints one ``RANK_RESULT`` JSON
+    line: wall seconds of the main path, its windows-entry launches (set to
+    0 just before it and read just after), the seconds each
+    ``gather_to_host`` waited at a barrier for the other ranks and the
+    seconds the gather itself took, and the peak device memory.  In sharded
+    mode, before the timed run, every windows-entry call of one batch is
+    held against the plain DP on the same tensors.  Rank 0 writes the
+    SAM."""
+    mode, rank, n, port, idx, seedf, reads_path, sam_path = argv
+    rank, n = int(rank), int(n)
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.parallel import multihost as mh
+    from genome_weaver_align_tpu_torch.utils import sam
+
+    # the ranks share the host's cores: torch's intra-op pools would
+    # oversubscribe them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    mh.initialize_distributed(f"127.0.0.1:{port}", n, rank)
+    check(mh.process_count() == n and mh.process_index() == rank, "the process group is wrong")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    gi = load_index(idx)
+    z = np.load(reads_path)
+    reads, pos, strand = z["reads"], z["pos"], z["strand"]
+    names = [f"r{i}_p{p}_s{s}" for i, (p, s) in enumerate(zip(pos.tolist(), strand.tolist()))]
+    gather = {"s": 0.0, "wait_s": 0.0, "calls": 0}
+    real_gather = mh.gather_to_host
+
+    def timed_gather(tensors):
+        # the gather, not the step before it nor the wait for the slower rank
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if n > 1:
+            torch.distributed.barrier()
+        t1 = time.perf_counter()
+        out = real_gather(tensors)
+        gather["wait_s"] += t1 - t0
+        gather["s"] += time.perf_counter() - t1
+        gather["calls"] += 1
+        return out
+
+    mh.gather_to_host = timed_gather
+    dp_check = None
+    if mode == "sharded":
+        from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
+        from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
+        from genome_weaver_align_tpu_torch.utils.fasta import Read
+
+        so, sp, j = load_seed_table(seedf)
+        al = ShardedAligner(gi, k=K, n_interval=SHARDS, seed_table=(so, sp), seed_j=j, device=dev)
+        del so, sp
+        batches = [[Read(names[i], reads[i]) for i in range(b * RANK_BATCH, (b + 1) * RANK_BATCH)]
+                   for b in range(reads.shape[0] // RANK_BATCH)]
+        dp_check = check_windows_entry(torch, al, batches[0])
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gather.update(s=0.0, wait_s=0.0, calls=0)
+        dp_cuda.banded_edit_distance_cuda.launches = 0
+        t0 = time.perf_counter()
+        recs = []
+        for batch in batches:
+            recs.extend(al.to_sam(batch, al.align_batch(batch)))
+        wall = time.perf_counter() - t0
+        launches = dp_cuda.banded_edit_distance_cuda.launches
+        hdr = al.sam_header()
+    else:
+        from genome_weaver_align_tpu_torch.models import exact
+        from genome_weaver_align_tpu_torch.ops import rank as rank_ops
+        from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+
+        fm = rank_ops.from_host(gi.fwd, dev)
+        B, L_ = reads.shape
+        layout = pmesh.make_layout(n, 1, dev)
+        reads32, lengths = reads.astype(np.int32), np.full(B, L_, np.int32)
+        mh.exact_align(fm, layout, reads32[:1024 * n], lengths[:1024 * n], max_len=L_)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gather.update(s=0.0, wait_s=0.0, calls=0)
+        dp_cuda.banded_edit_distance_cuda.launches = 0
+        t0 = time.perf_counter()
+        gpos, gstr = mh.exact_align(fm, layout, reads32, lengths, max_len=L_)
+        wall = time.perf_counter() - t0
+        launches = dp_cuda.banded_edit_distance_cuda.launches
+        recs = exact.sam_records(gi.genome, names, reads, gpos, gstr) if rank == 0 else []
+        hdr = sam.header(gi.genome.names, gi.genome.lengths)
+    if rank == 0:
+        sam.write_sam(sam_path, hdr, recs)
+    result = {"rank": rank, "ranks": n, "mode": mode, "reads": int(reads.shape[0]), "wall_s": wall,
+              "windows_launches": launches, "gather_s": gather["s"],
+              "gather_wait_s": gather["wait_s"], "gather_calls": gather["calls"],
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "dp_check": dp_check}
+    if n > 1:
+        torch.distributed.destroy_process_group()
+    print("RANK_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def phase_ranks(torch, codes, card) -> dict:
+    """Several processes on one card: ``ShardedAligner`` (k = 2, 4 interval
+    shards, the phase-4 index and seed table) on 4 x 32,768 reads of 150
+    bp with at most one substitution and, in 15% of them, one indel, then
+    the exact search on 65,536 error-free 36 bp reads; each with 1 rank and
+    with 2, every rank a process of this script on the one card.  The
+    2-rank SAM must equal the 1-rank SAM byte for byte, and in every
+    sharded rank the windows entry must equal the plain DP on one batch's
+    calls.  -> (the windows entry's launches in each sharded rank, keyed by
+    run; its max |dist err| there)."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
+
+    mode_q = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"[16] compute mode {mode_q}")
+    check(mode_q != "Exclusive_Process",
+          "the card is in Exclusive_Process compute mode: two processes cannot share it")
+    idx, seedf, _ = build_index(cli, codes)
+    torch.cuda.empty_cache()  # the card's memory to the ranks
+    work = CACHE / f"ranks{os.getpid()}"
+    work.mkdir(parents=True)
+    launches, max_err = {}, 0
+    for mode, n_reads, length, kw in (
+        # <= 1 substitution and <= 1 indel keep every read within k = 2
+        ("sharded", RANK_BATCH * RANK_BATCHES, RANK_L,
+         dict(seed=RANK_SEED, max_subs=1, indel_frac=0.15)),
+        ("exact", RANK_EXACT_READS, RANK_EXACT_L, dict(seed=RANK_EXACT_SEED, max_subs=0)),
+    ):
+        reads, pos, strand, _ = simulate_reads_array(codes, n_reads, length, **kw)
+        np.savez(work / "reads.npz", reads=reads, pos=pos, strand=strand)
+        bodies = {}
+        for n in (1, RANKS):
+            sam = work / f"{mode}{n}.sam"
+            res = run_ranks(mode, n, idx, seedf, work / "reads.npz", sam)
+            bodies[n] = sam.read_bytes()
+            wall = max(r["wall_s"] for r in res)
+            n_sam, mapped, correct = score_sam(sam)
+            n_batches = RANK_BATCHES if mode == "sharded" else 1
+            def per_batch_ms(key):
+                return [round(1e3 * r[key] / n_batches, 3) for r in res]
+
+            log(f"[16] {mode}, {n} rank(s) on one card: {n_reads} reads of {length} bp in "
+                f"{wall:.3f} s, {n_reads / wall:.1f} reads/s ({card}); mapped {mapped / n_sam:.6f}, "
+                f"correct {correct / n_sam:.6f}; by rank: wall_s "
+                f"{[round(r['wall_s'], 3) for r in res]}, gather_to_host ms a batch "
+                f"{per_batch_ms('gather_s')} ({res[0]['gather_calls']} calls; before them the "
+                f"wait for the other ranks at a barrier, ms a batch "
+                f"{per_batch_ms('gather_wait_s')}), peak device memory "
+                f"{[r['peak_mem_bytes'] for r in res]} B, windows-entry launches "
+                f"{[r['windows_launches'] for r in res]}")
+            check(n_sam == n_reads, f"[16] {mode}: the SAM holds {n_sam} records")
+            check(mapped / n_sam >= MIN_MAPPED, f"[16] {mode}: mapped share {mapped / n_sam:.4f}")
+            check(correct / n_sam >= MIN_CORRECT,
+                  f"[16] {mode}: correct share {correct / n_sam:.4f}")
+            if mode == "sharded":
+                for r in res:
+                    key = f"[16] sharded, rank {r['rank']} of {n}"
+                    launches[key] = r["windows_launches"]
+                    check(launches[key] > 0, f"{key} never launched the banded DP's windows entry")
+                    c = r["dp_check"]
+                    log(f"[16] {key[5:]}: windows entry against the plain DP on one batch's "
+                        f"calls, lanes {c['lanes']}, L {c['L']}, W {c['W']}, k={K}: dist "
+                        f"mismatches {c['bad_dist']}, end_b mismatches {c['bad_end']}, max "
+                        f"|dist err| {c['max_abs_err']}")
+                    check(c["lanes"] and c["bad_dist"] == 0 and c["bad_end"] == 0,
+                          f"{key}: the windows entry disagrees with the plain DP")
+                    max_err = max(max_err, c["max_abs_err"])
+        same = bodies[RANKS] == bodies[1]
+        log(f"[16] {mode}: the {RANKS}-rank SAM is byte-identical to the 1-rank SAM: {same}")
+        check(same, f"[16] {mode}: the {RANKS}-rank SAM differs from the 1-rank SAM")
+    shutil.rmtree(work)
+    return launches, max_err
+
+
+def phase_builders(torch, dev, codes, card, native_index_s):
+    """The device suffix-array builder and the wavelet rank backend at chr20
+    scale: ``index --builder device`` through the CLI on the phase-4 FASTA
+    with phase 4's options must write the same arrays as the cached index
+    (native SA-IS), then ``exact_search_wavelet`` over the forward BWT must
+    give the fused-row search's (lo, hi) on every read."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index import device_build, native, wavelet
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.models import exact
+    from genome_weaver_align_tpu_torch.ops import rank as rank_ops
+    from genome_weaver_align_tpu_torch.utils import packing
+
+    idx, seedf, _ = build_index(cli, codes)
+    fasta = idx.parent / "genome.fa"
+    check(fasta.exists(), f"{fasta} is missing")
+    work = CACHE / f"devbuild{os.getpid()}"
+    work.mkdir(parents=True)
+    runs = []
+    real_sa = device_build.suffix_array_device
+
+    real_round = device_build._doubling_round
+    rounds = [0]
+
+    def counted_round(k, rank):  # keeps no reference to a round's tensors
+        rounds[0] += 1
+        return real_round(k, rank)
+
+    def timed_sa(c, device="cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rounds[0] = 0
+        with mock.patch.object(device_build, "_doubling_round", counted_round):
+            t0 = time.perf_counter()
+            sa = real_sa(c, device=device)
+            s = time.perf_counter() - t0
+        runs.append({"s": s, "rounds": rounds[0],
+                     "peak": torch.cuda.max_memory_allocated(dev), "sa": sa if not runs else None})
+        return sa
+
+    torch.cuda.empty_cache()
+    with mock.patch.object(device_build, "suffix_array_device", timed_sa):
+        t0 = time.time()
+        rc = cli.main(["index", str(fasta), "-o", str(work / "genome.npz"), "--seed", str(SEED_J),
+                       "--builder", "device"])
+        cli_s = time.time() - t0
+    check(rc == 0, f"index --builder device exited {rc}")
+    check(len(runs) == 2, f"the device builder ran {len(runs)} times, expected 2")
+    t0 = time.perf_counter()
+    sa_native = native.suffix_array_native(codes)
+    native_s = time.perf_counter() - t0
+    same_sa = np.array_equal(runs[0]["sa"], sa_native)
+    del sa_native
+    runs[0]["sa"] = None
+    diff = []
+    for name in ("genome.npz", f"genome.npz.seed{SEED_J}.npz"):
+        with np.load(idx.parent / name) as a, np.load(work / name) as b:
+            diff += [f"{name}:{key}" for key in sorted(set(a.files) | set(b.files))
+                     if key not in a.files or key not in b.files
+                     or a[key].dtype != b[key].dtype or not np.array_equal(a[key], b[key])]
+    shutil.rmtree(work)
+    log(f"[17] index --builder device --seed {SEED_J} of {codes.size} bp: {cli_s:.1f} s through "
+        f"the CLI (phase 4's index --builder auto: "
+        + (f"{native_index_s:.1f} s" if native_index_s is not None else "cached, not timed")
+        + f"); suffix_array_device forward / reverse {runs[0]['s']:.3f} / {runs[1]['s']:.3f} s in "
+        f"{runs[0]['rounds']} / {runs[1]['rounds']} doubling rounds, peak device memory "
+        f"{runs[0]['peak']} / {runs[1]['peak']} B; native SA-IS forward {native_s:.3f} s; "
+        f"forward SA equal to native: {same_sa}; arrays that differ from the cached index: "
+        f"{diff} ({card})")
+    check(same_sa, "the device suffix array differs from native SA-IS")
+    check(not diff, f"index --builder device differs from the cached index in {diff}")
+
+    fm = load_index(idx).fwd
+    t0 = time.time()
+    wv = wavelet.WaveletRank(packing.unpack(fm.bwt_words, fm.n))
+    dw = wavelet.to_device(wv, dev)
+    fused = rank_ops.from_host(fm, dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    wav_bytes = sum(t.numel() * 4 for t in (dw.l0_words, dw.l0_cp, dw.l1_words, dw.l1_cp))
+    rng = np.random.default_rng(44)
+    starts = rng.integers(0, codes.size - WAVELET_L, size=WAVELET_READS)
+    reads = codes[starts[:, None] + np.arange(WAVELET_L)[None, :]].astype(np.int32)
+    r = torch.from_numpy(reads).to(dev)
+    ln = torch.full((WAVELET_READS,), WAVELET_L, dtype=torch.int32, device=dev)
+    C = rank_ops._upload(fm.C, dev)
+
+    def wav():
+        return wavelet.exact_search_wavelet(dw, C, fm.primary, r, ln)
+
+    def fused_search():
+        return exact.exact_interval_search(fused, r, ln, max_len=WAVELET_L)
+
+    lo_w, hi_w = wav()
+    lo_f, hi_f = fused_search()
+    same = torch.equal(lo_w, lo_f) and torch.equal(hi_w, hi_f)
+    n_found = int((hi_f > lo_f).sum())
+    ms_w = cuda_time_ms(wav, reps=3, hide_host=True)
+    ms_f = cuda_time_ms(fused_search, reps=3, hide_host=True)
+    walls = {}
+    for name, fn in (("wavelet", wav), ("fused", fused_search)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+    log(f"[17] wavelet rank over the forward BWT ({fm.n} symbols): built and uploaded in "
+        f"{build_s:.1f} s, {wav_bytes} B on the card against {fused.blocks.numel() * 4} B of fused "
+        f"rows; exact search of {WAVELET_READS} error-free {WAVELET_L} bp reads: wavelet "
+        f"{ms_w:.3f} ms, fused rows {ms_f:.3f} ms (CUDA events, launches queued behind a device "
+        f"sleep; host wall a call {walls['wavelet']:.3f} / {walls['fused']:.3f} ms) ({card}); "
+        f"(lo, hi) equal on every read: {same}; {n_found} reads found")
+    check(same, "exact_search_wavelet differs from the fused-row exact search")
+    check(n_found == WAVELET_READS, "an error-free read was not found")
+
+
 def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
     """One entry of the ``kernels`` line; ``path`` names the run whose
     launches are counted."""
@@ -1969,7 +2361,7 @@ def main() -> int:
             f"{time.time() - t0:.1f} s")
         phase_fused_step(torch, dev, codes, offsets, positions)
         del offsets, positions
-        launches = phase_cli(codes, card)
+        launches, native_index_s = phase_cli(codes, card)
         phase_profile(torch, dev, codes, card)
         myers_err, myers_times = phase_myers(torch, dev, card)
         phase_fm_cli(codes, card)
@@ -1986,6 +2378,8 @@ def main() -> int:
         mode_launches = phase_modes(codes, card)
         long_launches = phase_long_reads(torch, dev, codes, card)
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
+        rank_launches, rank_err = phase_ranks(torch, codes, card)
+        phase_builders(torch, dev, codes, card, native_index_s)
         check("jax" not in sys.modules, "the smoke imported jax")
         check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
                       for m in sys.modules), "the smoke imported the JAX package")
@@ -2013,8 +2407,10 @@ def main() -> int:
                    shape={"Q": LONG_B * (LONG_L // LONG_SEG), "L": LONG_SEG,
                           "W": LONG_SEG + 3 * LONG_KB, "k": LONG_KB}),
         kernel_row("banded_dp_windows", "banded_dp.cu", "ops/dp_pallas.py:47",
-                   "[11] align --n-interval 4", banded_win_launches, max_err,
-                   (*dp_timing["windows"], None)),
+                   "[11] align --n-interval 4", banded_win_launches, max(max_err, rank_err),
+                   (*dp_timing["windows"], None),
+                   launches_by_path={"[11] align --n-interval 4": banded_win_launches,
+                                     **rank_launches}),
         kernel_row("myers_text", "myers.cu", "ops/myers_pallas.py:75",
                    "[8] align --paired (mate rescue)", myers_launches, myers_text_err,
                    (*myers_times["text", "rescue"], None),
@@ -2043,4 +2439,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_child(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

@@ -3,6 +3,7 @@
 Same verbs, flags and files as ``genome_weaver_align_tpu.cli``:
 
     python -m genome_weaver_align_tpu_torch index genome.fa -o genome.npz --seed 13
+    python -m genome_weaver_align_tpu_torch index genome.fa -o genome.npz --builder device
     python -m genome_weaver_align_tpu_torch simulate genome.fa -n 1000 -l 100 -o reads.fq
     python -m genome_weaver_align_tpu_torch align genome.npz reads.fq -k 2 \\
         --seed-table genome.npz.seed13.npz -o out.sam
@@ -24,7 +25,9 @@ Same verbs, flags and files as ``genome_weaver_align_tpu.cli``:
 on FASTQ or FASTA reads, single-end, ``--paired`` or ``--interleaved``
 (``--mode long`` single-end only, as in the JAX CLI).  ``--profile DIR``
 writes a ``torch.profiler`` trace of the align loop to ``DIR/trace.json``;
-``dump`` prints an index's metadata.
+``dump`` prints an index's metadata.  ``index --builder device`` builds
+both suffix arrays by prefix doubling on ``--device`` (``cuda`` by default;
+exit 1 without one), the other builders on the host.
 With ``--n-interval N`` (N > 1) it runs ``ShardedAligner``: the index, the
 text and the seed table split into N interval shards on the one device.  It
 runs on the CUDA device (``--device cuda``, the default) and exits non-zero
@@ -52,6 +55,19 @@ def _not_ported(what: str) -> int:
     return _NOT_PORTED
 
 
+def _missing_device(device: str) -> bool:
+    """True (after saying so) when ``--device cuda`` finds no CUDA device."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        sys.stderr.write(
+            "gwa-torch: --device cuda was asked for (the default) but no CUDA "
+            "device is available; pass --device cpu to run on the CPU\n"
+        )
+        return True
+    return False
+
+
 def _cmd_index(args) -> int:
     from genome_weaver_align_tpu_torch.utils.config import IndexConfig
     from genome_weaver_align_tpu_torch.utils.fasta import read_fasta
@@ -61,8 +77,8 @@ def _cmd_index(args) -> int:
     from .index.files import Genome, GenomeIndex, save_index
 
     cfg = IndexConfig.from_args(args)
-    if cfg.builder == "device":
-        return _not_ported("index --builder device")
+    if cfg.builder == "device" and _missing_device(args.device):
+        return 1
     sw = StopWatch()
     contigs = read_fasta(cfg.genome)
     genome = Genome.from_contigs(contigs)
@@ -77,6 +93,10 @@ def _cmd_index(args) -> int:
             from .index.native import suffix_array_native
 
             return suffix_array_native(codes)
+        if cfg.builder == "device":
+            from .index.device_build import suffix_array_device
+
+            return suffix_array_device(codes, device=args.device)
         return None  # auto: build_fm_index picks native-else-numpy
 
     fwd = build_fm_index(
@@ -146,13 +166,9 @@ def _cmd_align(args) -> int:
         sys.stderr.write(
             f"gwa-torch: align -k {cfg.k}: the k-edit modes take 1 <= k <= {MAX_ALIGNER_K}\n")
         return _NOT_PORTED
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        sys.stderr.write(
-            "gwa-torch: --device cuda was asked for (the default) but no CUDA "
-            "device is available; pass --device cpu to run on the CPU\n"
-        )
+    if _missing_device(args.device):
         return 1
+    device = torch.device(args.device)
     sw = StopWatch()
     gi = load_index(cfg.index)
     sw.lap(f"loaded index ({gi.genome.n} bp)")
@@ -521,7 +537,7 @@ def main(argv=None) -> int:
     pi.add_argument("--sample-rate", type=int, default=icfg.sample_rate)
     pi.add_argument(
         "--builder", choices=["auto", "numpy", "native", "device"], default=icfg.builder,
-        help="suffix-array builder ('device' is not yet ported)",
+        help="suffix-array builder ('device': prefix doubling on --device)",
     )
     pi.add_argument("--kmer", type=int, default=icfg.kmer, help="also build a j-mer table")
     pi.add_argument(
@@ -532,6 +548,9 @@ def main(argv=None) -> int:
         "--seed", type=int, default=icfg.seed,
         help="also build a CSR j-mer seed table (index.seedtable)",
     )
+    pi.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where --builder device sorts: the CUDA device (default; fails "
+                    "without one) or the CPU; the host builders ignore it")
     pi.set_defaults(fn=_cmd_index)
 
     pa = sub.add_parser("align", help="align reads to an index")

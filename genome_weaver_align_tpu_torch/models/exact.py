@@ -5,8 +5,8 @@ A (B,) pair of interval tensors advances a fixed number of steps in
 lockstep; dead lanes (empty interval) and exhausted lanes (past the read's
 first character) are frozen by masking, not branching.  It is the
 single-device reference of ``parallel.sharded_index.
-make_sharded_exact_search``.  ``ExactAligner`` and the CLI's ``-k 0`` are not
-ported yet.
+make_sharded_exact_search``; ``best_strand`` is the step of
+``models.pipeline.ExactAligner`` and of ``parallel.multihost.exact_align``.
 """
 
 from __future__ import annotations
@@ -16,8 +16,10 @@ import torch
 
 from ..ops import rank
 from ..ops.rank import DeviceFMIndex
+from ..utils import sam
 
 I32 = torch.int32
+NO_HIT = 2**30  # the position of a read found on neither strand
 
 
 def exact_interval_search(
@@ -75,6 +77,46 @@ def locate_hits(fm: DeviceFMIndex, lo: torch.Tensor, hi: torch.Tensor, max_hits:
     valid = rows < hi[:, None]
     pos = rank.locate(fm, rows.clamp(0, fm.n).reshape(-1)).reshape(rows.shape)
     return torch.where(valid, pos, -1), valid
+
+
+def best_strand(
+    fm: DeviceFMIndex,
+    reads: torch.Tensor,  # (B, L) codes
+    lengths: torch.Tensor,  # (B,) int32
+    max_len: int | None = None,
+    kmer_tab: tuple[torch.Tensor, torch.Tensor] | None = None,
+    kmer_j: int = 0,
+):
+    """Both strands of every read searched exactly and the first located
+    row of each interval taken; the smaller position wins, the forward
+    strand on a tie.  -> (pos, strand, n_hits) (B,) int32: pos is NO_HIT
+    where neither strand matches, n_hits the two intervals' widths."""
+    rc = torch.where(reads < 4, 3 - reads, reads).flip(1)
+    outs = []
+    for batch in (reads, rc):
+        lo, hi = exact_interval_search(fm, batch.to(I32), lengths, max_len=max_len,
+                                       kmer_tab=kmer_tab, kmer_j=kmer_j)
+        pos, valid = locate_hits(fm, lo, hi, 1)
+        outs.append((torch.where(valid[:, 0], pos[:, 0], NO_HIT), (hi - lo).clamp(min=0)))
+    (pf, wf), (pr, wr) = outs
+    take_r = pr < pf
+    return torch.where(take_r, pr, pf), take_r.to(I32), wf + wr
+
+
+def sam_records(genome, names, reads: np.ndarray, pos: np.ndarray, strand: np.ndarray):
+    """SAM records of exact hits on the host (``best_strand``'s pos and
+    strand, gathered): read i mapped at global ``pos[i]`` with an all-match
+    CIGAR, or unmapped at NO_HIT."""
+    recs = []
+    for i, name in enumerate(names):
+        codes = reads[i].astype(np.uint8)
+        if pos[i] >= NO_HIT:
+            recs.append(sam.unmapped(name, codes))
+            continue
+        ci, local = genome.coord(int(pos[i]))
+        recs.append(sam.mapped(name, codes, genome.names[int(ci[0])], int(local[0]),
+                               int(strand[i]), f"{codes.size}M", edit_distance=0))
+    return recs
 
 
 def revcomp_batch(reads: np.ndarray, lengths: np.ndarray) -> np.ndarray:

@@ -95,19 +95,9 @@ class ExactAligner:
         self.kmer_j = kmer_j if use_kmer else 0
 
     def _step(self, reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """(3, B) int32: best position (2^30 = none), strand, multiplicity."""
-        rc = torch.where(reads < 4, 3 - reads, reads).flip(1)
-        outs = []
-        for batch in (reads, rc):
-            lo, hi = exact.exact_interval_search(
-                self.fm, batch.to(I32), lengths, kmer_tab=self.kmer_tab, kmer_j=self.kmer_j,
-            )
-            pos, valid = exact.locate_hits(self.fm, lo, hi, 1)
-            first = torch.where(valid[:, 0], pos[:, 0], 2**30)
-            outs.append((first, (hi - lo).clamp(min=0)))
-        (pf, wf), (pr, wr) = outs
-        take_r = pr < pf
-        return torch.stack([torch.where(take_r, pr, pf), take_r.to(I32), wf + wr])
+        """(3, B) int32: best position (exact.NO_HIT = none), strand, multiplicity."""
+        return torch.stack(exact.best_strand(self.fm, reads, lengths, kmer_tab=self.kmer_tab,
+                                             kmer_j=self.kmer_j))
 
     def align_batch(self, reads: list[Read]):
         lengths = np.array([len(r) for r in reads], dtype=np.int32)
@@ -118,7 +108,7 @@ class ExactAligner:
         pos, strand, total = packed
         out: list[ExactHit | None] = []
         for p, st, t in zip(pos.tolist(), strand.tolist(), total.tolist()):
-            out.append(None if p >= 2**30 else ExactHit(p, st, t))
+            out.append(None if p >= exact.NO_HIT else ExactHit(p, st, t))
         return out
 
     def to_sam(self, reads: list[Read], hits) -> list[sam.SamRecord]:

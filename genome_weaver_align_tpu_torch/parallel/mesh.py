@@ -3,17 +3,20 @@
 
 Axes keep the JAX package's names:
 
-- ``data``     — read-cohort data parallelism.  In one process on one
-                 device it is only padding: ``shard_reads`` pads the batch
-                 to a multiple of ``n_data``, and the outputs, sliced to the
-                 batch, are the same for every ``n_data``.
+- ``data``     — read-cohort data parallelism across processes
+                 (``parallel.multihost``): ``shard_reads`` pads the batch to
+                 a multiple of ``n_data`` and uploads this process's slice,
+                 by the process index and count the layout recorded when it
+                 was made.  In one process it is only padding, and the
+                 outputs, sliced to the batch, are the same for every
+                 ``n_data``.
 - ``interval`` — BWT-interval index sharding: every sharded table keeps a
                  leading shard axis of size ``n_interval``, and all shards
                  live on ``device``.  Each rank query is answered by its
                  owning shard and the per-shard partials are merged by a sum
                  over that axis (``parallel.ring`` or ``parts.sum(0)``).
 
-Shards on several cards or in several processes are later work.
+Interval shards on several cards are later work.
 """
 
 from __future__ import annotations
@@ -23,17 +26,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import multihost as mh
+
 DATA_AXIS = "data"
 INTERVAL_AXIS = "interval"
 
 
 @dataclass(frozen=True)
 class ShardLayout:
-    """Stands in for the JAX ``Mesh``: axis sizes and the one device."""
+    """Stands in for the JAX ``Mesh``: axis sizes, the one device, and this
+    process's place among the processes the data axis spans (each owns
+    ``n_data // process_count`` consecutive positions on it)."""
 
     n_data: int = 1
     n_interval: int = 1
     device: torch.device = torch.device("cuda")
+    process_index: int = 0
+    process_count: int = 1
 
     @property
     def shape(self) -> dict:
@@ -41,22 +50,27 @@ class ShardLayout:
 
 
 def make_layout(n_data: int = 1, n_interval: int = 1, device="cuda") -> ShardLayout:
+    """A layout for this process in the current process group (one process
+    when none is initialised): make it after ``initialize_distributed``."""
     if n_data < 1 or n_interval < 1:
         raise ValueError(f"axis sizes must be >= 1, got n_data={n_data}, n_interval={n_interval}")
-    return ShardLayout(n_data, n_interval, torch.device(device))
+    pi, pc = mh.process_index(), mh.process_count()
+    if n_data % pc:
+        raise ValueError(f"the data axis ({n_data}) must divide across {pc} processes")
+    return ShardLayout(n_data, n_interval, torch.device(device), pi, pc)
 
 
 def shard_reads(layout: ShardLayout, reads: np.ndarray, lengths: np.ndarray):
-    """Pad the batch to a multiple of the data-axis size and upload it:
-    (reads, lengths, B) with B the unpadded batch size."""
+    """Pad the whole batch to a multiple of the data-axis size and upload
+    this process's slice of it: (reads, lengths, B) with B the unpadded
+    batch size.  ``multihost.gather_to_host`` of the results gives the
+    padded batch's rows in order."""
     B = reads.shape[0]
     pad = (-B) % layout.n_data
     if pad:
         reads = np.concatenate([reads, np.zeros((pad,) + reads.shape[1:], reads.dtype)])
         lengths = np.concatenate([lengths, np.zeros(pad, lengths.dtype)])
-    dev = layout.device
-    return (
-        torch.from_numpy(np.ascontiguousarray(reads, dtype=np.int32)).to(dev),
-        torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32)).to(dev),
-        B,
-    )
+    hb = reads.shape[0] // layout.process_count
+    mine = slice(layout.process_index * hb, (layout.process_index + 1) * hb)
+    r, l, _ = mh.make_global_batch(layout, reads[mine], lengths[mine])
+    return r, l, B

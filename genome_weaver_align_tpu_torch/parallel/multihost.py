@@ -1,15 +1,39 @@
-"""Single-process part of ``genome_weaver_align_tpu.parallel.multihost``.
+"""Several processes over ``torch.distributed``: the torch counterpart of
+``genome_weaver_align_tpu.parallel.multihost``.
 
-Results come back to the host in global read order, so the SAM writer emits
-the same bytes whatever the shard layout.  Several processes
-(``torch.distributed``) are not ported: ``initialize_distributed`` raises
-for more than one (ROADMAP queue 1 #14).
+One process per host (or per card), joined by ``initialize_distributed``.
+Reads are streamed data-parallel: every process holds the whole batch, pads
+it to a multiple of the process count and aligns only its own slice
+(``host_shard_info``, ``make_global_batch``).  ``gather_to_host`` brings
+every slice's results back to every process, in global read order, so the
+host tail that follows (CIGARs, SAM) sees the whole batch and the SAM bytes
+are the same for any process count.  With one process every function
+degenerates to the local case.
+
+The transport is gloo, always:
+
+- the results go to the host for the SAM tail in any case, as the JAX
+  package's ``process_allgather`` returns host arrays;
+- gloo runs the same way on the CPU and with several ranks on one card;
+- NCCL refuses two ranks on one GPU.
+
+NCCL belongs with shards spread across cards (ROADMAP queue 1 #16).
 """
 
 from __future__ import annotations
 
+import datetime
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..models import exact
+
+# a rank that never reaches a collective fails the others after this long
+# instead of hanging them
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def initialize_distributed(
@@ -17,18 +41,85 @@ def initialize_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """No-op for a single process; more than one is not ported."""
+    """Join a gloo process group at ``coordinator_address`` (``host:port``;
+    process 0 listens there); no-op for a single process."""
     if num_processes is None or num_processes <= 1:
         return
-    raise NotImplementedError(
-        f"{num_processes} processes: multi-host alignment over torch.distributed "
-        "is not ported yet (ROADMAP queue 1 #14)"
+    dist.init_process_group(
+        "gloo",
+        init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes,
+        rank=process_id,
+        timeout=COLLECTIVE_TIMEOUT,
     )
 
 
+def process_index() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+@dataclass
+class HostShardInfo:
+    process_index: int
+    process_count: int
+    global_batch: int
+    host_batch: int
+    host_start: int  # first read index of this process's slice of a batch
+
+
+def host_shard_info(global_batch: int) -> HostShardInfo:
+    pi, pc = process_index(), process_count()
+    if global_batch % pc:
+        raise ValueError(f"global batch {global_batch} must divide across {pc} processes")
+    hb = global_batch // pc
+    return HostShardInfo(pi, pc, global_batch, hb, pi * hb)
+
+
+def make_global_batch(layout, host_reads: np.ndarray, host_lengths: np.ndarray):
+    """Upload this process's slice of a batch to ``layout.device``:
+    (reads, lengths, global batch size), the global size by the layout's
+    process count.  Each process passes ONLY its own rows; with one process
+    they are the whole batch."""
+    dev = layout.device
+    reads = torch.from_numpy(np.ascontiguousarray(host_reads, dtype=np.int32)).to(dev)
+    lengths = torch.from_numpy(np.ascontiguousarray(host_lengths, dtype=np.int32)).to(dev)
+    return reads, lengths, host_reads.shape[0] * layout.process_count
+
+
 def gather_to_host(tensors) -> list[np.ndarray]:
-    """Device tensors -> numpy arrays (one device-to-host copy each)."""
-    return [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t) for t in tensors]
+    """Every process's slice of each result, concatenated along axis 0 in
+    process order, as numpy arrays on every process (the JAX package's
+    ``process_allgather(tiled=True)``).  Slices must have the same shape on
+    every process: pad the batch before it is split, and slice the padding
+    off after the gather."""
+    local = [t.cpu() if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
+             for t in tensors]
+    pc = process_count()
+    if pc == 1:
+        return [t.numpy() for t in local]
+    out = []
+    for t in local:
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(pc)]
+        dist.all_gather(parts, t)
+        out.append(torch.cat(parts).numpy())
+    return out
+
+
+def exact_align(fm, layout, reads: np.ndarray, lengths: np.ndarray, max_len: int | None = None):
+    """The exact search of one batch across the processes: each passes the
+    whole batch, uploads its slice (``host_shard_info``,
+    ``make_global_batch``), searches both strands (``exact.best_strand``)
+    and gathers.  -> (pos, strand) of every read, on every process."""
+    info = host_shard_info(reads.shape[0])
+    mine = slice(info.host_start, info.host_start + info.host_batch)
+    r, ln, _ = make_global_batch(layout, reads[mine], lengths[mine])
+    pos, strand, _ = exact.best_strand(fm, r, ln, max_len=max_len)
+    return gather_to_host([pos, strand])
 
 
 def stream_batches(reads: list, batch_size: int):

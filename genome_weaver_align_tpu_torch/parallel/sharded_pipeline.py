@@ -2,7 +2,8 @@
 ``genome_weaver_align_tpu.parallel.sharded_pipeline``.
 
 Per batch, with the index, the genome text and the seed table split into S
-interval shards on one device:
+interval shards on one device (and the batch split across processes, when
+there are several):
 
 1. piece exact search  — every interval update answered by the owning BWT
                          shard, partials merged by a sum over the shards;
@@ -296,9 +297,14 @@ class ShardedAligner:
 
     Splits the index, the text and (when given) the seed table into
     ``n_interval`` interval shards on ``device`` and runs the merged
-    pipeline per batch.  CIGARs come from the same fast-Hamming / host
-    traceback split as the single-device aligner, over the full text, so
-    the SAM bytes are the same whatever the shard count.
+    pipeline per batch.  Under ``multihost.initialize_distributed`` every
+    process passes the whole batch, aligns its slice of it and gathers the
+    rest; a branch that decides a collective (the seed path, the overflow
+    cohort) is decided from the gathered batch, so every process makes the
+    same collectives in the same order.  CIGARs come from the same
+    fast-Hamming / host traceback split as the single-device aligner, over
+    the full text, so the SAM bytes are the same whatever the shard and
+    process counts.
     """
 
     def __init__(
@@ -317,8 +323,10 @@ class ShardedAligner:
         self.gi = gi
         self.k = k
         self.device = torch.device(device)
-        # one device: the data axis would only pad the batch
-        self.layout = pmesh.make_layout(1, n_interval, self.device)
+        # the data axis spans the processes (one in a plain run): each one
+        # aligns its slice of every batch, and every one runs the host tail
+        # on the gathered batch, as every JAX process does
+        self.layout = pmesh.make_layout(mh.process_count(), n_interval, self.device)
         self.sst = None
         self.seed_j = 0
         if seed_table is not None and seed_j > 0:
@@ -361,6 +369,10 @@ class ShardedAligner:
         return self.align_batch(handle)
 
     def align_batch(self, reads):
+        if self.layout.process_count != mh.process_count():
+            raise RuntimeError(
+                f"this aligner was built for {self.layout.process_count} process(es) and the "
+                f"group has {mh.process_count()}: build it after initialize_distributed")
         lengths = np.array([len(r) for r in reads], dtype=np.int32)
         vf = reads_to_batch_verify(reads)
         vrc = revcomp_verify_batch(vf, lengths)

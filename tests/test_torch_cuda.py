@@ -6,9 +6,12 @@ without one).  On the card:
 They import no JAX: they hold each CUDA kernel entry (banded DP and Myers,
 each from the packed text and from given windows; the shard sum; the fused
 rank + shard sum from gathered rows and from the shard tables) against its
-plain torch version, and the aligners and the sharded search on the card
-against the same code on the CPU, which the CPU tests hold against the JAX
-package."""
+plain torch version, and the aligners, the sharded search, two ranks of
+``ShardedAligner`` sharing the card, the device suffix-array build and the
+wavelet search on the card against the same code on the CPU (or native
+SA-IS), which the CPU tests hold against the JAX package."""
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -730,3 +733,74 @@ def test_multipart_stream_on_card_equals_cpu(cuda, tmp_path, monkeypatch, flat, 
     assert got[3].mean() > 0.99
     assert len(st_card["peak_mem_bytes"]) == 2 and all(b > 0 for b in st_card["peak_mem_bytes"])
     assert st_card["rescued"] == st_cpu["rescued"] and (st_card["rescued"] > 0) == tight
+
+
+def test_two_ranks_on_the_card_write_the_one_rank_sam(cuda, tmp_path):
+    """``ShardedAligner`` in 2 gloo processes sharing the card against 1
+    (``tests/torch_multihost_driver.py``, sharded mode): the same SAM bytes,
+    and the banded DP's windows entry launched in every rank."""
+    import re
+
+    # the test's own directory is on sys.path under pytest's default import
+    # mode; a top-level "tests" package elsewhere may shadow this one
+    from torch_multihost_driver import launch
+
+    texts = {n: launch(n, tmp_path / f"{n}.sam", "sharded", "--device", "cuda", timeout=600)
+             for n in (1, 2)}
+    a, b = ((tmp_path / f"{n}.sam").read_bytes() for n in (1, 2))
+    assert b"long0" in a and b"short0" in a and a == b
+    for text in texts[1] + texts[2]:
+        assert int(re.search(r"windows-entry launches (\d+)", text).group(1)) > 0
+
+
+def test_device_suffix_array_on_card_equals_native(cuda):
+    from genome_weaver_align_tpu_torch.index import device_build, native
+    from genome_weaver_align_tpu_torch.index.device_build import suffix_array_device
+    from genome_weaver_align_tpu_torch.index.sais import suffix_array_naive
+
+    if not native.available():
+        pytest.skip("the native SA-IS library did not build")
+    rng = np.random.default_rng(17)
+    unit = rng.integers(0, 4, size=300, dtype=np.uint8)
+    for codes in (rng.integers(0, 4, size=200_000, dtype=np.uint8),
+                  np.concatenate([np.tile(unit, 40), rng.integers(0, 4, 5000, np.uint8)])):
+        with mock.patch.object(device_build, "_doubling_round",
+                               wraps=device_build._doubling_round) as rounds:
+            got = suffix_array_device(codes, device=cuda)
+        assert np.array_equal(got, native.suffix_array_native(codes))
+        assert rounds.call_count >= 4
+    for t in ([], [1, 1], [2, 0, 2], [3, 3, 3, 3]):
+        codes = np.array(t, np.uint8)
+        assert np.array_equal(suffix_array_device(codes, device=cuda), suffix_array_naive(codes))
+
+
+def test_wavelet_rank_and_search_on_card_equal_cpu(cuda):
+    from genome_weaver_align_tpu_torch.index import wavelet
+    from genome_weaver_align_tpu_torch.models import exact
+
+    rng = np.random.default_rng(23)
+    codes = rng.integers(0, 4, size=50_000, dtype=np.uint8)
+    fm = build_fm_index(codes, sample_rate=8)
+    w = wavelet.WaveletRank(packing.unpack(fm.bwt_words, fm.n))
+    ks = torch.from_numpy(rng.integers(0, fm.n + 1, size=4096))
+    cs = torch.from_numpy(rng.integers(0, 4, size=4096))
+    B, L = 2048, 36
+    starts = rng.integers(0, codes.size - L, size=B)
+    reads = torch.from_numpy(codes[starts[:, None] + np.arange(L)].astype(np.int32))
+    reads[::5, 7] = (reads[::5, 7] + 1) % 4
+    lengths = torch.full((B,), L, dtype=torch.int32)
+    lengths[::9] = L - 11
+    C = torch.from_numpy(fm.C.astype(np.int32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        dw = wavelet.to_device(w, device=dev)
+        occ = wavelet.device_rank(dw, cs.to(dev), ks.to(dev))
+        lo, hi = wavelet.exact_search_wavelet(dw, C.to(dev), fm.primary, reads.to(dev),
+                                              lengths.to(dev))
+        out[dev.type] = [occ.cpu(), lo.cpu(), hi.cpu()]
+        if dev.type == "cuda":
+            flo, fhi = exact.exact_interval_search(rank.from_host(fm, dev), reads.to(dev),
+                                                   lengths.to(dev))
+            assert torch.equal(lo, flo) and torch.equal(hi, fhi)
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+    assert int((out["cpu"][2] > out["cpu"][1]).sum()) > B // 2

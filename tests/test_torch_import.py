@@ -24,7 +24,7 @@ import numpy as np
 import genome_weaver_align_tpu_torch
 from genome_weaver_align_tpu_torch import cli
 from genome_weaver_align_tpu_torch.index import build, files, kmer, native, sais, seedtable
-from genome_weaver_align_tpu_torch.index import multi, multipart_io
+from genome_weaver_align_tpu_torch.index import device_build, multi, multipart_io, wavelet
 from genome_weaver_align_tpu_torch.models import long_read, paired, pipeline, suffix_filter
 from genome_weaver_align_tpu_torch.models import bidirectional, exact, one_mismatch, staircase
 from genome_weaver_align_tpu_torch.ops import (
@@ -38,6 +38,13 @@ from genome_weaver_align_tpu_torch.utils.fasta import Contig, write_fasta
 rng = np.random.default_rng(0)
 write_fasta("g.fa", [Contig("c", rng.integers(0, 4, size=8000, dtype=np.uint8))])
 assert cli.main(["index", "g.fa", "-o", "g.npz", "--seed", "8"]) == 0
+assert cli.main(["index", "g.fa", "-o", "gd.npz", "--builder", "device", "--device", "cpu"]) == 0
+with np.load("g.npz") as a, np.load("gd.npz") as b:
+    assert all(np.array_equal(a[key], b[key]) for key in a.files)
+multihost.initialize_distributed(num_processes=1)
+import torch
+w = wavelet.to_device(wavelet.WaveletRank(np.zeros(5, np.uint8)), device="cpu")
+assert int(wavelet.device_rank(w, torch.zeros(1), torch.tensor([5]))[0]) == 5
 assert cli.main(["simulate", "g.fa", "-o", "r.fq", "-n", "40", "-l", "60"]) == 0
 align = ["align", "g.npz", "r.fq", "-k", "2", "--device", "cpu", "-o"]
 assert cli.main([*align, "out.sam", "--seed-table", "g.npz.seed8.npz"]) == 0

@@ -1,0 +1,168 @@
+"""One process of a multi-process run of the PyTorch port, joined over
+``torch.distributed`` (gloo) on a loopback address; the counterpart of
+``tests/multihost_driver.py``.  ``tests/test_torch_multihost.py`` starts N
+of them as separate interpreters and holds the N-process SAM against the
+1-process SAM byte for byte.
+
+Usage:
+    python torch_multihost_driver.py <pid> <nprocs> <port> <out.sam> [exact|sharded]
+        [--device cpu|cuda]
+
+mode "exact" (default): a 20 kb genome (seed 21), 32 reads of 40 bases
+(seed 22) through ``multihost.exact_align``: each process passes only its
+slice through ``make_global_batch``, runs ``exact_interval_search`` +
+``locate_hits`` on both strands and ``gather_to_host``; process 0 writes
+the SAM.
+
+mode "sharded": ``ShardedAligner(k=2, n_interval=2, seed_j=8)`` on a
+100 kb genome (seed 31): a batch of 100 bp reads with indels takes the
+seed path, a batch of 30 bp reads the FM path; each maps >= 90%; process
+0 writes the SAM.
+
+The device defaults to cuda (process p on ``cuda:p % device_count``).
+"""
+
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def launch(nprocs: int, out, *args: str, driver=__file__, timeout: float = 300) -> list[str]:
+    """Run ``nprocs`` interpreters of ``driver`` (this file by default) as
+    processes 0..nprocs-1 of one group on a free loopback port, the checkout
+    on their ``PYTHONPATH``; every one must exit 0 within ``timeout``.
+    Returns their outputs in process order."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [
+        subprocess.Popen([sys.executable, str(driver), str(pid), str(nprocs), port, str(out),
+                          *args], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for pid in range(nprocs)
+    ]
+    texts = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"{driver} exited {p.returncode}: {text[-3000:]}")
+            texts.append(text)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return texts
+
+
+def main(argv):
+    import argparse
+
+    p = argparse.ArgumentParser()
+    p.add_argument("pid", type=int)
+    p.add_argument("nprocs", type=int)
+    p.add_argument("port")
+    p.add_argument("out")
+    p.add_argument("mode", nargs="?", choices=["exact", "sharded"], default="exact")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    a = p.parse_args(argv)
+    pid, nprocs, port, out, mode, device = a.pid, a.nprocs, a.port, a.out, a.mode, a.device
+
+    import torch
+
+    # several of these share the machine's cores with other test workers
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    from genome_weaver_align_tpu_torch.parallel import multihost as mh
+
+    mh.initialize_distributed(f"127.0.0.1:{port}", nprocs, pid)
+    assert mh.process_count() == nprocs and mh.process_index() == pid
+    if nprocs > 1:
+        assert torch.distributed.get_backend() == "gloo"
+    if device == "cuda":
+        device = f"cuda:{pid % torch.cuda.device_count()}"
+    try:
+        (sharded_main if mode == "sharded" else exact_main)(pid, out, torch.device(device))
+    finally:
+        if nprocs > 1:
+            torch.distributed.destroy_process_group()
+    print(f"proc {pid}/{nprocs}: OK", flush=True)
+
+
+def exact_main(pid, out, device):
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.index.files import Genome, build_genome_index
+    from genome_weaver_align_tpu_torch.models import exact
+    from genome_weaver_align_tpu_torch.ops import rank
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+    from genome_weaver_align_tpu_torch.parallel import multihost as mh
+    from genome_weaver_align_tpu_torch.utils import sam, simulate
+    from genome_weaver_align_tpu_torch.utils.fasta import Contig
+
+    # every process builds the same tiny index (in production each loads
+    # the serialized index)
+    g = simulate.random_genome(20_000, seed=21)
+    gi = build_genome_index(Genome.from_contigs([Contig("c1", g)]), sample_rate=16)
+    dfm = rank.from_host(gi.fwd, device)
+
+    B, L = 32, 40
+    reads, _, _, _ = simulate.simulate_reads_array(g, B, L, seed=22, max_subs=0)
+    layout = pmesh.make_layout(mh.process_count(), 1, device)
+    gpos, gstr = mh.exact_align(dfm, layout, reads.astype(np.int32), np.full(B, L, np.int32))
+    assert gpos.shape == (B,)
+
+    if pid == 0:
+        recs = exact.sam_records(gi.genome, [f"r{i}" for i in range(B)], reads, gpos, gstr)
+        sam.write_sam(out, sam.header(gi.genome.names, gi.genome.lengths), recs)
+
+
+def sharded_main(pid, out, device):
+    """ShardedAligner across processes on a 100 kb genome with planted
+    substitutions and indels: 100 bp reads take the seed-table path, 30 bp
+    reads the FM path (their pieces are shorter than seed_j).  Every process
+    holds the whole index on the host."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.index.files import Genome, build_genome_index
+    from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
+    from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
+    from genome_weaver_align_tpu_torch.utils import sam, simulate
+    from genome_weaver_align_tpu_torch.utils.fasta import Contig, Read
+
+    g = simulate.random_genome(100_000, seed=31)
+    gi = build_genome_index(Genome.from_contigs([Contig("c1", g)]), sample_rate=16)
+    seed_j = 8
+    so, sp = build_seed_table(g, seed_j)
+    al = ShardedAligner(gi, k=2, n_interval=2, max_hits=8, seed_table=(so, sp),
+                        seed_j=seed_j, device=device)
+
+    recs = []
+    for tag, (L, max_subs, indel_frac, seed) in (
+        ("long", (100, 1, 0.15, 32)),  # seed path; <= 1 sub + <= 1 indel: within k = 2
+        ("short", (30, 1, 0.0, 33)),  # FM path
+    ):
+        B = 64
+        rarr, _, _, _ = simulate.simulate_reads_array(
+            g, B, L, seed=seed, max_subs=max_subs, indel_frac=indel_frac)
+        reads = [Read(f"{tag}{i}", rarr[i].astype(np.uint8)) for i in range(B)]
+        hits = al.align_batch(reads)
+        assert sum(h is not None for h in hits) >= int(0.9 * B), tag
+        recs.extend(al.to_sam(reads, hits))
+
+    if pid == 0:
+        sam.write_sam(out, al.sam_header(), recs)
+    if device.type == "cuda":
+        from genome_weaver_align_tpu_torch.ops import dp_cuda
+
+        print(f"windows-entry launches {dp_cuda.banded_edit_distance_cuda.launches}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
