@@ -54,7 +54,8 @@ per line, and exits non-zero at the first phase that fails:
    (the latency floor);
 7. the FM pigeonhole path end to end: the CLI's ``align -k 2`` without a
    seed table on the same index, 2 x 65,536 reads; >= 99% mapped and
-   correct, banded-DP kernel launched;
+   correct, banded-DP kernel and the backward-search kernel (the pieces'
+   search, ``csrc/fm_search.cu``) launched;
 8. paired end to end: the CLI's ``align --paired --seed-table`` on 6 x
    16,384 pairs of 100 bp (FR mates, inserts 250-550, 1-2 substitutions a
    mate, 10% of mate2 with 4 more: unmappable at k = 2, within the rescue
@@ -94,15 +95,21 @@ per line, and exits non-zero at the first phase that fails:
    piece, 12 candidates and 4 verify lanes a read, the array loop over 6 x
    32,768 reads with <= 2 substitutions.  >= 97% mapped (the bench's
    limit), some reads through tier 2, the banded text entry launched inside
+   tier 2, the staircase kernel (``csrc/staircase.cu``) launched inside
    tier 2, and the same reads on the index without its reverse text map no
    read that tier 2 loses.  Per batch: both tiers' host ms and cohorts;
    for one tier-2 call: its wall, the wall a sequential staircase step, and
-   the device events and busy share under ``torch.profiler``;
+   the device events and busy share under ``torch.profiler``, which must be
+   at least 10x fewer events than the eager staircase loop's 13,230;
 13. the search modes through the CLI on the phase-4 index: ``-k 0``
    (``ExactAligner``) on 65,536 error-free reads, ``--mode onemm`` on
    16,384 reads with <= 1 substitution, ``--mode staircase -k 2`` on the
    first 16,384 of phase 4's reads; >= 99% mapped and correct in each,
-   reads/s, and the banded text entry launched under ``staircase``;
+   reads/s, the banded text entry and the staircase kernel launched under
+   ``staircase``, the backward-search kernel under ``-k 0`` and the
+   one-mismatch kernel (``csrc/one_mismatch.cu``) under ``onemm``; then
+   ``OneMismatchAligner.align_batch`` on the onemm reads, its two strands'
+   device searches timed apart from its host loop;
 14. long reads, as the JAX package's long-read bench runs them
    (``bench.py`` ``bench_long``): the phase-4 index and seed table, 4 x 256
    reads of 4,096 bases (seed 31, 8 one-base indels and 20 substitutions a
@@ -123,9 +130,10 @@ per line, and exits non-zero at the first phase that fails:
    >= 99% mapped and at their true global position (+-k) and strand, on
    the repeat genome >= 97% mapped (phase 12's limit), some reads through
    the two-tier staircase rescue, >= 97% of them mapped, and the banded
-   text entry launched in it; align and load seconds, reads/s, each part's peak device memory,
-   the rescue cohort, and the banded text entry launched in each part's
-   stream;
+   text entry and the staircase kernel launched in it (the staircase in
+   each rescue tier that runs); align and load seconds, reads/s, each
+   part's peak device memory, the rescue cohort, and the banded text entry
+   launched in each part's stream;
 16. several processes on one card (BASELINE config 5's stream on one
    host): the card's compute mode must not be ``Exclusive_Process``; this
    script starts itself as each rank (``--rank``), joined by gloo on a free
@@ -149,7 +157,24 @@ per line, and exits non-zero at the first phase that fails:
    SA-IS on the forward text.  Then ``WaveletRank`` over the forward BWT
    on the card: ``exact_search_wavelet`` on 65,536 error-free 36 bp reads
    must give the fused-row search's (lo, hi) on every read; both searches
-   timed.
+   timed;
+18. the FM search kernels (``csrc/fm_search.cu``, ``csrc/staircase.cu``,
+   ``csrc/one_mismatch.cu``), each held against its plain torch loop on
+   every output field (lo, hi, overflow, every slot) at each path's shape
+   on that path's index: the backward search on 65,536 reads of 100 bp on
+   the phase-4 index (exact and P = 3 pieces, each without a table, with a
+   10-mer table, and with a ``max_len`` shorter than the reads); the
+   staircase at ``--mode staircase``'s shape (2 x 16,384 lanes) on the
+   phase-4 index and at a tier-2 call's (2 x 256 lanes) and the rescue's
+   (64 slots, ``narrow_left``) on the phase-12 repeat index; the
+   one-mismatch search on 16,384 reads of 100 bp with 48 slots; then 512
+   reads of lengths 0, 1, 2 and ragged with N codes mapped to 0 through
+   every kernel, with a 1-slot pool (it overflows) and ``keep`` 1.  At each
+   shape the kernel, its plain loop (device time, and the eager loop's
+   wall: the stage the kernel replaced), the bound (the rows this run's
+   data fetches, 48 B each, and their integer work) and the latency floor
+   (its sequential steps times one dependent step, measured on one lane
+   of 8,192 backward steps) are printed.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after.  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
@@ -201,6 +226,7 @@ REPEAT_SEED = 4  # phase 12: the JAX package's repeat bench (bench.py bench_repe
 REPEAT_BATCH = 32_768
 REPEAT_BATCHES = 6
 MIN_REPEAT_MAPPED = 0.97  # that bench's own limit
+TIER2_EVENTS_PR8 = 13_230  # one tier-2 call's device events with the eager staircase loop
 EXACT_READS = 65_536  # phase 13
 MODE_READS = 16_384
 # phase 14: the JAX package's long-read bench (bench.py bench_long)
@@ -216,6 +242,17 @@ RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's l
 RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
 # phase 17: the wavelet search's traffic
 WAVELET_READS, WAVELET_L = 65_536, 36
+# phase 18: the FM search kernels at their paths' shapes
+FM_KMER_J = 10  # a 4^10-entry k-mer table (8 MB)
+STAIR_COHORT = 256  # a tier-2 call's padded cohort ([12]) and a rescue chunk's reads ([15])
+RESCUE_SLOTS = 64  # the multi-part rescue's pools
+CHAIN_L = 8_192  # one read this long, one lane: the dependent-step latency
+FM_ROW_BYTES = 48  # one fused row: 8 BWT words and 4 checkpoints
+# Least integer instructions a fused row, as csrc/fm_occ.cuh counts it: for
+# one code 5 a word (xor, shift, or-not, and with the mask, popcount; the
+# add folds into the popcount's sum), for all four codes 12 a word (shift,
+# two ands with the mask, three and-nots, three popcounts, three adds).
+FM_OPS_PER_ROW_ONE, FM_OPS_PER_ROW_ALL4 = 40, 96
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
 # bytes/s and the float32 rate outside the tensor cores.  Integer work is
 # priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
@@ -444,15 +481,22 @@ def phase_kernel(torch, dev, card):
     entry; the bound at the timed shape."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda, ring_cuda, window
+    from genome_weaver_align_tpu_torch.ops import (
+        dp, dp_cuda, fm_search_cuda, myers_cuda, one_mismatch_cuda, ring_cuda, staircase_cuda,
+        window,
+    )
 
     t0 = time.time()
-    libs = (dp_cuda._library, myers_cuda._library, ring_cuda._library)
+    libs = (dp_cuda._library, myers_cuda._library, ring_cuda._library, fm_search_cuda._library,
+            staircase_cuda._library, one_mismatch_cuda._library)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
-    log(f"[2] built csrc/banded_dp.cu, csrc/myers.cu and csrc/ring.cu with nvcc for sm_90a "
-        f"in {time.time() - t0:.1f} s")
+    log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu and "
+        f"one_mismatch.cu with nvcc for sm_90a in {time.time() - t0:.1f} s; ptxas: fm_search "
+        f"{ptxas_usage('fm_search.cu', 'backward_search_kernel')}, staircase "
+        f"{ptxas_usage('staircase.cu', 'staircase_kernel')}, one_mismatch "
+        f"{ptxas_usage('one_mismatch.cu', 'one_mismatch_kernel')}")
     Q = BATCH * VERIFY_SLACK
     max_err = 0
     timing = None
@@ -1125,10 +1169,11 @@ def phase_myers(torch, dev, card):
     return (max_err, max_text), times
 
 
-def phase_fm_cli(codes, card):
-    """The FM pigeonhole path end to end through the CLI (no seed table)."""
+def phase_fm_cli(codes, card) -> int:
+    """The FM pigeonhole path end to end through the CLI (no seed table).
+    -> the backward-search kernel's launches (the pieces' search)."""
     from genome_weaver_align_tpu_torch import cli
-    from genome_weaver_align_tpu_torch.ops import dp_cuda, myers_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, myers_cuda
 
     idx, _, _ = build_index(cli, codes)
     work = CACHE / f"fm{os.getpid()}"
@@ -1141,9 +1186,11 @@ def phase_fm_cli(codes, card):
     dp_cuda.banded_edit_distance_cuda.launches = 0
     myers_cuda.myers_semiglobal_text_cuda.launches = 0
     myers_cuda.myers_semiglobal_cuda.launches = 0
+    fm_search_cuda.backward_search_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(fq), "-k", str(K), "--batch-size", str(BATCH),
                    "--report", str(rep), "-o", str(sam)])
     launches = dp_cuda.banded_edit_distance_text_cuda.launches
+    search_launches = fm_search_cuda.backward_search_cuda.launches
     check(rc == 0, f"FM-path align exited {rc}")
     report = json.loads(rep.read_text())
     n, mapped, correct = score_sam(sam)
@@ -1153,11 +1200,14 @@ def phase_fm_cli(codes, card):
         f"{report['wall_s']} s ({card}), banded-DP launches: text entry {launches}, windows "
         f"entry {dp_cuda.banded_edit_distance_cuda.launches}; Myers launches: text entry "
         f"{myers_cuda.myers_semiglobal_text_cuda.launches}, windows entry "
-        f"{myers_cuda.myers_semiglobal_cuda.launches}")
+        f"{myers_cuda.myers_semiglobal_cuda.launches}; backward-search (piece) launches "
+        f"{search_launches}")
     check(n == n_reads, f"SAM holds {n} records")
     check(launches > 0, "the FM-path run never launched the banded DP kernel's text entry")
+    check(search_launches > 0, "the FM-path run never launched the backward-search kernel")
     check(mapped / n >= MIN_MAPPED, f"FM path mapped share {mapped / n:.4f} < {MIN_MAPPED}")
     check(correct / n >= MIN_CORRECT, f"FM path correct share {correct / n:.4f} < {MIN_CORRECT}")
+    return search_launches
 
 
 def make_pairs(codes):
@@ -1546,7 +1596,7 @@ def phase_tier2(torch, dev, card):
     from genome_weaver_align_tpu_torch.index.files import GenomeIndex, load_index
     from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
     from genome_weaver_align_tpu_torch.models.pipeline import SuffixFilterAligner, prefetch_result
-    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, staircase_cuda
     from genome_weaver_align_tpu_torch.utils.simulate import repeat_genome, simulate_reads_array
 
     t0 = time.time()
@@ -1592,17 +1642,20 @@ def phase_tier2(torch, dev, card):
     al = SuffixFilterAligner(gi, **kw)
     fb2 = al._get_fb2()  # the reverse text goes up here, not inside the first batch
     submit2 = fb2.align_arrays_submit
-    tier2 = {"launches": 0, "calls": 0}
+    tier2 = {"launches": 0, "calls": 0, "staircase": 0}
 
     def counted_submit(*a):
         n0 = dp_cuda.banded_edit_distance_text_cuda.launches
+        s0 = staircase_cuda.staircase_pools_cuda.launches
         h = submit2(*a)
         tier2["launches"] += dp_cuda.banded_edit_distance_text_cuda.launches - n0
+        tier2["staircase"] += staircase_cuda.staircase_pools_cuda.launches - s0
         tier2["calls"] += 1
         return h
 
     fb2.align_arrays_submit = counted_submit
     dp_cuda.banded_edit_distance_text_cuda.launches = 0
+    staircase_cuda.staircase_pools_cuda.launches = 0
     w0 = time.perf_counter()
     res = run(al)
     wall = time.perf_counter() - w0
@@ -1621,11 +1674,14 @@ def phase_tier2(torch, dev, card):
         f"{m_base.mean():.6f} on the index without its reverse text (+{int(m_rev.sum()) - int(m_base.sum())} "
         f"reads, {lost} lost); overflowed {np.concatenate([r[1] for r in res]).mean():.6f}; "
         f"{n_tier2} reads through tier 2 in {tier2['calls']} calls; banded text-entry launches "
-        f"{launches} in the loop, {tier2['launches']} of them in tier 2; loop {wall:.3f} s "
+        f"{launches} in the loop, {tier2['launches']} of them in tier 2; staircase launches "
+        f"{staircase_cuda.staircase_pools_cuda.launches} in the loop, {tier2['staircase']} of "
+        f"them in tier 2; loop {wall:.3f} s "
         f"({total / wall:.1f} reads/s) against {base_s:.3f} s without tier 2 ({card})")
     check(m_rev.mean() >= MIN_REPEAT_MAPPED, f"mapped share {m_rev.mean():.4f} < {MIN_REPEAT_MAPPED}")
     check(n_tier2 > 0, "no read went through the tier-2 staircase")
     check(tier2["launches"] > 0, "tier 2 never launched the banded DP kernel's text entry")
+    check(tier2["staircase"] > 0, "tier 2 never launched the staircase kernel")
     check(lost == 0 and m_rev.sum() >= m_base.sum(), "tier 2 unmapped reads (the merge must be "
           "improve-only)")
 
@@ -1669,18 +1725,29 @@ def phase_tier2(torch, dev, card):
             log(f"[12]   {share:7.2%} of device time {ms:8.3f} ms  {name[:100]}")
     else:
         log("[12] device busy share: not measured (torch.profiler recorded no device events)")
+    check(0 < n_ev <= TIER2_EVENTS_PR8 // 10,
+          f"one tier-2 call ran {n_ev} device events: not 10x fewer than the eager "
+          f"staircase's {TIER2_EVENTS_PR8}")
     del al, fb2, gi
     torch.cuda.empty_cache()
-    return tier2["launches"], codes
+    return tier2, codes
 
 
 def phase_modes(codes, card) -> dict:
     """The search modes through the CLI on the phase-4 index (it holds its
     reverse text): ``-k 0`` (exact) on error-free reads, ``--mode onemm``
     on reads with <= 1 substitution, ``--mode staircase -k 2`` on the first
-    reads of phase 4's set.  -> banded text-entry launches by mode."""
+    reads of phase 4's set.  -> {mode: {kernel: launches}} for the banded
+    text entry and the three FM search kernels."""
     from genome_weaver_align_tpu_torch import cli
-    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.ops import (
+        dp_cuda, fm_search_cuda, one_mismatch_cuda, staircase_cuda,
+    )
+
+    counters = {"banded": dp_cuda.banded_edit_distance_text_cuda,
+                "backward": fm_search_cuda.backward_search_cuda,
+                "staircase": staircase_cuda.staircase_pools_cuda,
+                "one-mismatch": one_mismatch_cuda.one_mismatch_candidates_cuda}
 
     idx, _, _ = build_index(cli, codes)
     work = CACHE / f"modes{os.getpid()}"
@@ -1694,22 +1761,63 @@ def phase_modes(codes, card) -> dict:
     ):
         fq, sam, rep = work / "reads.fq", work / "out.sam", work / "report.json"
         write_reads(fq, codes, n_reads, **reads_kw)
-        dp_cuda.banded_edit_distance_text_cuda.launches = 0
+        for c in counters.values():
+            c.launches = 0
         rc = cli.main(["align", str(idx), str(fq), *extra, "--batch-size", str(n_reads),
                        "--report", str(rep), "-o", str(sam)])
-        launches[name] = dp_cuda.banded_edit_distance_text_cuda.launches
+        launches[name] = {key: c.launches for key, c in counters.items()}
         check(rc == 0, f"align {name} exited {rc}")
         report = json.loads(rep.read_text())
         n, mapped, correct = score_sam(sam)
         log(f"[13] align {name}: {n} reads, mode {report['mode']}, mapped {mapped / n:.6f}, "
             f"correct {correct / n:.6f}, {report['reads_per_s']} reads/s over {report['wall_s']} s "
-            f"({card}), banded text-entry launches {launches[name]}")
+            f"({card}), launches {launches[name]}")
         check(n == n_reads, f"SAM holds {n} records")
         check(mapped / n >= MIN_MAPPED, f"{name}: mapped share {mapped / n:.4f} < {MIN_MAPPED}")
         check(correct / n >= MIN_CORRECT, f"{name}: correct share {correct / n:.4f} < {MIN_CORRECT}")
-    check(launches["--mode staircase -k 2"] > 0,
+    check(launches["--mode staircase -k 2"]["banded"] > 0,
           "--mode staircase never launched the banded DP kernel's text entry")
+    check(launches["--mode staircase -k 2"]["staircase"] > 0,
+          "--mode staircase never launched the staircase kernel")
+    check(launches["-k 0"]["backward"] > 0, "-k 0 never launched the backward-search kernel")
+    check(launches["--mode onemm"]["one-mismatch"] > 0,
+          "--mode onemm never launched the one-mismatch kernel")
     shutil.rmtree(work)
+
+    # where --mode onemm's time goes now that its search is one launch a
+    # strand: OneMismatchAligner.align_batch on the same reads, its two
+    # strands' device work timed apart from the whole call
+    import torch
+
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.models.one_mismatch import OneMismatchAligner
+    from genome_weaver_align_tpu_torch.utils.fasta import Read
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
+
+    mm_reads, _, _, _ = simulate_reads_array(codes, MODE_READS, L, seed=62, max_subs=1)
+    reads = [Read(f"r{i}", r) for i, r in enumerate(mm_reads)]
+    al = OneMismatchAligner(load_index(idx), device="cuda")
+    al.align_batch(reads[:256])
+    strand_s = []
+    inner = al._strand
+
+    def timed_strand(*a):  # ends in a download, so the device work is done
+        t0 = time.perf_counter()
+        out = inner(*a)
+        strand_s.append(time.perf_counter() - t0)
+        return out
+
+    al._strand = timed_strand
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = al.align_batch(reads)
+    total_s = time.perf_counter() - t0
+    search_s = sum(strand_s)
+    log(f"[13] --mode onemm's OneMismatchAligner.align_batch on the same {MODE_READS} reads: "
+        f"{total_s:.3f} s, of which the two strands' searches (upload, one kernel launch, locate, "
+        f"best, one download each) {search_s:.3f} s and the host (batch build, the per-read loop "
+        f"with one text extract a read) {total_s - search_s:.3f} s; "
+        f"{sum(h is not None for h in hits)} mapped ({card})")
     return launches
 
 
@@ -1843,7 +1951,7 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
     import numpy as np
 
     from genome_weaver_align_tpu_torch.index import multipart_io
-    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, staircase_cuda
     from genome_weaver_align_tpu_torch.utils.fasta import Contig
     from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 
@@ -1886,21 +1994,29 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
         before and read just after; -> its outputs, stats and the banded
         text entry's launches in each part's stream and in the rescue."""
         counts = {}
+        stair = {"A/plain": 0, "B/narrow": 0, "mark": 0}
 
         def smoke_log(msg):
             if msg.startswith("part ") and ("flat load" in msg or ": streamed" in msg):
                 counts[msg.split(":")[0] + (" start" if "flat load" in msg else " end")] = (
                     dp_cuda.banded_edit_distance_text_cuda.launches)
+                stair["mark"] = staircase_cuda.staircase_pools_cuda.launches
+            if msg.startswith("rescue tier "):  # one part of one rescue tier is done
+                n = staircase_cuda.staircase_pools_cuda.launches
+                stair[msg.split()[2]] += n - stair["mark"]
+                stair["mark"] = n
             if not msg.startswith("part ") or "batch" not in msg:
                 log(f"[15] {tag}: {msg}")
 
         stats = {}
         dp_cuda.banded_edit_distance_text_cuda.launches = 0
+        staircase_cuda.staircase_pools_cuda.launches = 0
         out = multipart_io.align_stream_multipart(
             mi, reads, np.full(GBP_BATCH, GBP_L, np.int32), GBP_BATCH, k=K, log=smoke_log,
             stats=stats, device=dev)
         total = dp_cuda.banded_edit_distance_text_cuda.launches
         per_part = [counts[f"part {p} end"] - counts[f"part {p} start"] for p in range(2)]
+        stats["staircase_launches"] = {t: stair[t] for t in ("A/plain", "B/narrow")}
         return out, stats, per_part, total - counts["part 1 end"]
 
     def report(tag, out, stats, per_part, rescue, pos, strand):
@@ -1911,7 +2027,8 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
             f"{align_s:.3f}, load_s {load_s:.3f}, {mapped.size / align_s:.1f} reads/s from "
             f"align_s; peak device memory by part {stats['peak_mem_bytes']} B, rescue "
             f"{stats.get('rescue_peak_mem_bytes')} B; banded text-entry launches by part "
-            f"{per_part}, rescue {rescue}; rescue cohort {stats['un_before_rescue']} reads, "
+            f"{per_part}, rescue {rescue}; staircase launches by rescue tier "
+            f"{stats['staircase_launches']}; rescue cohort {stats['un_before_rescue']} reads, "
             f"{stats['rescued']} improved; tier-1 reruns {stats['n_overflow_rerun']}; batch ms "
             f"{stats['batch_ms']} ({card})")
         return mapped, correct
@@ -1945,8 +2062,14 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
     check(placed / cohort >= MIN_REPEAT_MAPPED,
           f"the multi-part rescue mapped {placed / cohort:.4f} of its cohort < {MIN_REPEAT_MAPPED}")
     check(rrescue > 0, "the multi-part rescue never launched the banded DP kernel")
+    check(rstats["staircase_launches"]["A/plain"] > 0,
+          "the multi-part rescue's tier A never launched the staircase kernel")
+    tier_b = (rmapped.size - int(rmapped.sum())) > 0 or rstats["staircase_launches"]["B/narrow"]
+    check(not tier_b or rstats["staircase_launches"]["B/narrow"] > 0,
+          "the multi-part rescue's tier B ran and never launched the staircase kernel")
     return {"by_part": per_part, "rescue": rescue, "repeat_by_part": rper_part,
-            "repeat_rescue": rrescue}
+            "repeat_rescue": rrescue, "staircase": stats["staircase_launches"],
+            "repeat_staircase": rstats["staircase_launches"]}
 
 
 def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path) -> list[dict]:
@@ -2310,6 +2433,218 @@ def phase_builders(torch, dev, codes, card, native_index_s):
     check(n_found == WAVELET_READS, "an error-free read was not found")
 
 
+def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
+    """Each FM search kernel against its plain version on every output field
+    (lo, hi, overflow and every slot), at each path's shape on the index
+    that path uses, then at the edges; kernel, plain (device time and the
+    eager loop's wall), bound and latency floor timed at each shape.
+    -> {entry: {"err", "ms", "plain_ms", "stage_ms", "bound", "floor_ms",
+    "shape"}}."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.index.kmer import build_kmer_table
+    from genome_weaver_align_tpu_torch.models import bidirectional as bd
+    from genome_weaver_align_tpu_torch.models import exact, one_mismatch, staircase, suffix_filter
+    from genome_weaver_align_tpu_torch.ops import rank
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
+
+    def search_codes(r):
+        return torch.from_numpy(np.where(r >= 4, 0, r).astype(np.int32)).to(dev)
+
+    def both_strands(r):
+        """Forward and reverse-complement search codes stacked, as tier 2
+        and the staircase mode search them (uniform lengths)."""
+        r = np.where(r >= 4, 0, r).astype(np.int32)
+        return torch.from_numpy(np.concatenate([r, (3 - r)[:, ::-1]])).to(dev)
+
+    def lens(n, length=L):
+        return torch.full((n,), length, dtype=torch.int32, device=dev)
+
+    def err_of(got, want) -> int:
+        """Largest |difference| over every field (a differing flag is 1)."""
+        check(len(got) == len(want), "the kernel returned another number of outputs")
+        worst = 0
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"output {tuple(a.shape)} {a.dtype} against {tuple(b.shape)} {b.dtype}")
+            if a.numel():
+                worst = max(worst, int((a.long() - b.long()).abs().max()))
+        return worst
+
+    # the dependent-step latency: one lane of the backward search over a
+    # read of CHAIN_L bases from the genome (alive through every step)
+    fm_tables = load_index(build_index(cli, codes)[0])
+    fm = bd.from_host_bi(fm_tables.fwd, fm_tables.rev, dev)
+    chain = search_codes(codes[1_000_000:1_000_000 + CHAIN_L][None, :].astype(np.int32))
+    chain_ln = lens(1, CHAIN_L)
+    lo, hi = exact.exact_interval_search(fm.fwd, chain, chain_ln)
+    check(int(hi[0] - lo[0]) >= 1, "the latency chain's read was not found")
+    chain_ms = cuda_time_ms(lambda: exact.exact_interval_search(fm.fwd, chain, chain_ln), reps=5)
+    step_us = chain_ms * 1e3 / CHAIN_L
+    log(f"[18] one lane, {CHAIN_L} dependent backward steps: {chain_ms:.4f} ms, {step_us:.4f} us "
+        f"a step: the latency floor's unit ({card})")
+
+    out = {}
+
+    def live_extensions(plain, spine_with_slots):
+        """``plain`` run once with ``rank.step_where`` counted.  Each plain
+        loop advances its lanes through it once a sequential step; the
+        active lanes there whose interval is not empty are the step's live
+        extensions, two row fetches each, the only ones this run's data
+        needs.  With ``spine_with_slots`` (the one-mismatch search) the
+        update of a (B, S) slot pool is part of the step of the (B,) spine
+        update just before it.  -> (outputs, live extensions, sequential
+        steps with one or more)."""
+        real, counts = rank.step_where, []
+
+        def counting(active, new, old):
+            counts.append((int((active & (old[1] > old[0])).sum()), old[0].dim() > 1))
+            return real(active, new, old)
+
+        with mock.patch.object(rank, "step_where", counting):
+            want = plain()
+        steps, spine_live = 0, False
+        for live, on_slots in counts:
+            if spine_with_slots and on_slots:
+                steps += live > 0 and not spine_live
+            else:
+                steps += live > 0
+                spine_live = live > 0
+        return want, sum(live for live, _ in counts), steps
+
+    def measure(name, shape, kernel, plain, ops_per_row, io_bytes, spine_with_slots=False):
+        """Kernel against plain on every field, then timed; the bound counts
+        the rows this run's data fetches (two a live extension) and the
+        latency floor its sequential steps."""
+        got = kernel()
+        want, live, steps = live_extensions(plain, spine_with_slots)
+        torch.cuda.synchronize()
+        err = err_of(got, want)
+        check(err == 0, f"[18] {name}: the kernel differs from its plain version by {err}")
+        ms = cuda_time_ms(kernel, reps=20, hide_host=True)
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = cuda_time_ms(plain, reps=1, warmup=0, hide_host=True)
+        rows = 2 * live
+        b = bound(rows * FM_ROW_BYTES + io_bytes, rows * ops_per_row)
+        floor_ms = steps * step_us / 1e3
+        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, bound=b,
+                         floor_ms=floor_ms, shape=shape)
+        log(f"[18] {name} ({shape}): equal on every field; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms on the device, eager loop wall {stage_ms:.3f} ms; bound "
+            f"{b[0]:.4f} ms by {b[1]} ({rows} row fetches); latency floor {floor_ms:.4f} ms "
+            f"({steps} sequential steps) ({card})")
+
+    # ---- the backward search on the [4] index: -k 0's and [7]'s shapes
+    t0 = time.time()
+    tab = tuple(torch.from_numpy(a).to(dev) for a in build_kmer_table(fm_tables.fwd, FM_KMER_J))
+    log(f"[18] {FM_KMER_J}-mer table in {time.time() - t0:.1f} s")
+    exact_r, _, _, _ = simulate_reads_array(codes, EXACT_READS, L, seed=61, max_subs=0)
+    piece_r, _, _, _ = simulate_reads_array(codes, BATCH, L, seed=71, max_subs=2)
+    er, pr = search_codes(exact_r), search_codes(piece_r)
+    for name, r, P, kw in (
+        ("exact", er, 1, {}),
+        (f"exact, {FM_KMER_J}-mer table", er, 1, dict(kmer_tab=tab, kmer_j=FM_KMER_J)),
+        ("exact, max_len 60", er, 1, dict(max_len=60)),
+        ("pieces", pr, K + 1, {}),
+        (f"pieces, {FM_KMER_J}-mer table, full cover", pr, K + 1,
+         dict(kmer_tab=tab, kmer_j=FM_KMER_J, kmer_full_cover=True)),
+        ("pieces, max_len 20", pr, K + 1, dict(max_len=20)),
+    ):
+        ln = lens(r.shape[0])
+        if P == 1:
+            kernel = lambda r=r, ln=ln, kw=kw: exact.exact_interval_search(fm.fwd, r, ln, **kw)
+            plain = lambda r=r, ln=ln, kw=kw: exact.exact_interval_search_plain(
+                fm.fwd, r, ln, **kw)
+        else:
+            kernel = lambda r=r, ln=ln, kw=kw: suffix_filter.piece_interval_search(
+                fm.fwd, r, ln, K + 1, **kw)
+            plain = lambda r=r, ln=ln, kw=kw: suffix_filter.piece_interval_search_plain(
+                fm.fwd, r, ln, K + 1, **kw)
+        measure(name, f"{r.shape[0]} reads x {L}, P = {P}", kernel, plain, FM_OPS_PER_ROW_ONE,
+                r.numel() * 4 + r.shape[0] * 4 + r.shape[0] * P * 8)
+
+    # ---- the staircase: --mode staircase's shape on the [4] index
+    def stair(bi, r, name, shape, **kw):
+        ln = lens(r.shape[0])
+        keep = kw.get("keep", 8)
+        measure(name, shape, lambda: staircase.staircase_pools(bi, r, ln, K, **kw),
+                lambda: staircase.staircase_pools_plain(bi, r, ln, K, **kw),
+                FM_OPS_PER_ROW_ALL4, r.numel() * 4 + r.shape[0] * (4 + (K + 1) * (8 * keep + 1)))
+
+    mode_r, _, _, _ = simulate_reads_array(codes, MODE_READS, L, seed=11, max_subs=2)
+    stair(fm, both_strands(mode_r), "staircase, --mode staircase",
+          f"2 x {MODE_READS} lanes, k = {K}, 16 slots, keep 8")
+
+    # ---- the one-mismatch search on the [4] index: --mode onemm's shape
+    mm_r, _, _, _ = simulate_reads_array(codes, MODE_READS, L, seed=62, max_subs=1)
+    mr = search_codes(mm_r)
+    mln = lens(mr.shape[0])
+    measure("one-mismatch", f"{MODE_READS} reads x {L}, 48 slots",
+            lambda: one_mismatch.one_mismatch_candidates(fm, mr, mln),
+            lambda: one_mismatch.one_mismatch_candidates_plain(fm, mr, mln),
+            FM_OPS_PER_ROW_ALL4, mr.numel() * 4 + mr.shape[0] * (4 + 97 * 8 + 1),
+            spine_with_slots=True)
+
+    # ---- edges on the [4] index: reads of length 0, 1 and < P, N codes
+    # mapped to 0, a 1-slot pool (it overflows every step), keep 1
+    rng = np.random.default_rng(18)
+    edge = piece_r[:512].copy()
+    edge[rng.random(edge.shape) < 0.02] = 4
+    er_e = search_codes(edge)
+    eln = torch.from_numpy(np.concatenate([[0, 1, 2], rng.integers(3, L + 1, size=len(edge) - 3)])
+                           .astype(np.int32)).to(dev)
+    edge_cases = [
+        ("exact", lambda: exact.exact_interval_search(fm.fwd, er_e, eln),
+         lambda: exact.exact_interval_search_plain(fm.fwd, er_e, eln)),
+        ("exact, table", lambda: exact.exact_interval_search(fm.fwd, er_e, eln, 40, tab, FM_KMER_J),
+         lambda: exact.exact_interval_search_plain(fm.fwd, er_e, eln, 40, tab, FM_KMER_J)),
+        ("pieces", lambda: suffix_filter.piece_interval_search(fm.fwd, er_e, eln, K + 1),
+         lambda: suffix_filter.piece_interval_search_plain(fm.fwd, er_e, eln, K + 1)),
+        ("staircase, 1 slot", lambda: staircase.staircase_pools(fm, er_e, eln, K, n_slots=1),
+         lambda: staircase.staircase_pools_plain(fm, er_e, eln, K, n_slots=1)),
+        ("staircase, narrow, keep 1",
+         lambda: staircase.staircase_pools(fm, er_e, eln, K, narrow_left=True, keep=1),
+         lambda: staircase.staircase_pools_plain(fm, er_e, eln, K, narrow_left=True, keep=1)),
+        ("one-mismatch, 1 slot", lambda: one_mismatch.one_mismatch_candidates(fm, er_e, eln,
+                                                                               n_slots=1),
+         lambda: one_mismatch.one_mismatch_candidates_plain(fm, er_e, eln, n_slots=1)),
+    ]
+    flags = {}
+    for name, kernel, plain in edge_cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(err_of(got, want) == 0, f"[18] edge case {name}: the kernel differs from plain")
+        if name.endswith("1 slot"):
+            flags[name] = int(want[-1].sum())
+    log(f"[18] edges (512 reads, lengths 0, 1, 2 and ragged, 2% N codes mapped to 0): exact, "
+        f"exact with the table and max_len 40, pieces, the staircase with 1 slot and narrowed "
+        f"with keep 1, the one-mismatch search with 1 slot: equal on every field; overflow "
+        f"flags of the 1-slot pools {flags}")
+    check(all(v > 0 for v in flags.values()), "a 1-slot pool never overflowed")
+    del fm, fm_tables, tab, er, pr, mr, er_e
+    torch.cuda.empty_cache()
+
+    # ---- the staircase on the [12] repeat index: one tier-2 call's shape
+    # and the multi-part rescue's (64 slots, narrow_left)
+    rep = load_index(build_index(cli, rep_codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}",
+                                 "chr20rep")[0])
+    rbi = bd.from_host_bi(rep.fwd, rep.rev, dev)
+    coh, _, _, _ = simulate_reads_array(rep_codes, STAIR_COHORT, L, seed=13, max_subs=2)
+    cr = both_strands(coh)
+    stair(rbi, cr, "staircase, tier-2 call", f"2 x {STAIR_COHORT} lanes, k = {K}, 16 slots, "
+          "keep 8, repeat index")
+    stair(rbi, cr, "staircase, rescue", f"2 x {STAIR_COHORT} lanes, k = {K}, {RESCUE_SLOTS} "
+          "slots, narrow_left, keep 8, repeat index", n_slots=RESCUE_SLOTS, narrow_left=True)
+    del rbi, rep, cr
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
     """One entry of the ``kernels`` line; ``path`` names the run whose
     launches are counted."""
@@ -2319,6 +2654,43 @@ def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra)
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
+
+def fm_rows(fm_k, fm_cli_launches, tier2_staircase, mode_launches, mp_launches) -> list:
+    """The ``kernels`` line's rows of the three FM search kernels: one for
+    each entry at each path's shape, with the launches of every path that
+    runs it (each count set to 0 just before that path and read just
+    after), the eager loop's wall (``stage_ms``) and the latency floor."""
+    def row(name, source, replaces, entry, path, launches, by_path):
+        r = fm_k[entry]
+        return kernel_row(name, source, replaces, path, launches, r["err"],
+                          (r["ms"], r["plain_ms"], *r["bound"], None), stage_ms=r["stage_ms"],
+                          latency_floor_ms=r["floor_ms"], shape=r["shape"],
+                          launches_by_path=by_path)
+
+    back = {"[7] align (FM pigeonhole pieces)": fm_cli_launches,
+            "[13] align -k 0": mode_launches["-k 0"]["backward"]}
+    stair = {"[12] tier 2 (repeat genome)": tier2_staircase,
+             "[13] align --mode staircase -k 2": mode_launches["--mode staircase -k 2"]["staircase"],
+             **{f"[15] multi-part rescue, tier {t}": n for t, n in mp_launches["staircase"].items()},
+             **{f"[15] multi-part repeat rescue, tier {t}": n
+                for t, n in mp_launches["repeat_staircase"].items()}}
+    onemm = {"[13] align --mode onemm": mode_launches["--mode onemm"]["one-mismatch"]}
+    return [
+        row("fm_backward_search_exact", "fm_search.cu", "models/exact.py:65", "exact",
+            "[13] align -k 0", back["[13] align -k 0"], back),
+        row("fm_backward_search_pieces", "fm_search.cu", "models/suffix_filter.py:123", "pieces",
+            "[7] align (FM pigeonhole pieces)", fm_cli_launches, back),
+        row("staircase_tier2", "staircase.cu", "models/staircase.py:215",
+            "staircase, tier-2 call", "[12] tier 2 (repeat genome)", tier2_staircase, stair),
+        row("staircase_mode", "staircase.cu", "models/staircase.py:215",
+            "staircase, --mode staircase", "[13] align --mode staircase -k 2",
+            stair["[13] align --mode staircase -k 2"], stair),
+        row("staircase_rescue", "staircase.cu", "models/staircase.py:235", "staircase, rescue",
+            "[15] multi-part repeat rescue, tiers A and B",
+            sum(mp_launches["repeat_staircase"].values()), stair),
+        row("one_mismatch", "one_mismatch.cu", "models/one_mismatch.py:127", "one-mismatch",
+            "[13] align --mode onemm", onemm["[13] align --mode onemm"], onemm),
+    ]
 
 def main() -> int:
     import torch
@@ -2364,7 +2736,7 @@ def main() -> int:
         launches, native_index_s = phase_cli(codes, card)
         phase_profile(torch, dev, codes, card)
         myers_err, myers_times = phase_myers(torch, dev, card)
-        phase_fm_cli(codes, card)
+        fm_cli_launches = phase_fm_cli(codes, card)
         myers_launches = phase_paired(torch, dev, codes, card)
         from genome_weaver_align_tpu_torch import cli
         from genome_weaver_align_tpu_torch.index.files import load_index
@@ -2374,12 +2746,14 @@ def main() -> int:
         ring_launches, fused_launches = phase_sharded_search(torch, dev, codes, gi, card)
         del gi
         banded_win_launches = phase_sharded_cli(codes, card)
-        tier2_launches, rep_codes = phase_tier2(torch, dev, card)
+        tier2, rep_codes = phase_tier2(torch, dev, card)
+        tier2_launches = tier2["launches"]
         mode_launches = phase_modes(codes, card)
         long_launches = phase_long_reads(torch, dev, codes, card)
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
         rank_launches, rank_err = phase_ranks(torch, codes, card)
         phase_builders(torch, dev, codes, card, native_index_s)
+        fm_k = phase_fm_kernels(torch, dev, codes, rep_codes, card)
         check("jax" not in sys.modules, "the smoke imported jax")
         check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
                       for m in sys.modules), "the smoke imported the JAX package")
@@ -2392,7 +2766,8 @@ def main() -> int:
                    "[4] align --seed-table", launches, max_err, (*dp_timing["text"], None),
                    launches_by_path={"[4] align --seed-table": launches,
                                      "[12] tier 2 (repeat genome)": tier2_launches,
-                                     **{f"[13] align {m}": n for m, n in mode_launches.items()},
+                                     **{f"[13] align {m}": n["banded"]
+                                        for m, n in mode_launches.items()},
                                      "[14] long reads": long_launches,
                                      **{f"[15] multi-part, part {p}": n
                                         for p, n in enumerate(mp_launches["by_part"])},
@@ -2428,6 +2803,7 @@ def main() -> int:
         kernel_row("fused_occ_table", "ring.cu", "parallel/ring.py:162", "[10] merge=fused",
                    fused_launches, ring_err["table"], ring_timing["table"],
                    stage_ms=ring_timing["stage"]),
+        *fm_rows(fm_k, fm_cli_launches, tier2["staircase"], mode_launches, mp_launches),
     ]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

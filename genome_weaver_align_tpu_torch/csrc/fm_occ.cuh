@@ -1,0 +1,171 @@
+// FM-index occurrence counts and bidirectional extensions on one fused row,
+// shared by fm_search.cu, staircase.cu and one_mismatch.cu.  No kernel.
+//
+// The tables are the port's DeviceFMIndex (ops/rank.py): `blocks` holds one
+// 12-word row per 128-base block, [8 BWT words | occ checkpoints A, C, G, T],
+// with base i of a word at bits 2i (low) and 2i + 1 (high).  Coordinates are
+// sentinel-inclusive: k counts the `$` row, which the BWT words leave out,
+// so a row is found at k - (k > primary).  These functions compute exactly
+// rank.occ_all4 (ops/rank.py:193) and bidirectional._extend /
+// _extend_all4 (models/bidirectional.py:75, :104), the torch versions of
+// the JAX package's ops/rank.py:163 and models/bidirectional.py.
+//
+// What bounds a search step: one dependent 48-byte row load a coordinate,
+// from the tables (24 MB a strand at chr20 scale: both strands stay in the
+// 50 MB L2).  A row is read as three 16-byte loads; the lo and hi rows of an
+// interval are both requested before either is used.  The counting is
+// unsigned 32-bit arithmetic: per word two masks (low and high bit of every
+// 2-bit slot, cut to the first r slots of the block) and three popcounts
+// (codes 1, 2, 3); code 0's count is r less the other three, since every
+// slot holds one code.
+
+#pragma once
+
+#include <cstdint>
+
+namespace gwa {
+
+constexpr int kRowWords = 12;  // 8 BWT words + 4 checkpoints
+constexpr int kRowBases = 128;
+
+struct FMTable {
+  const int* blocks;  // (nb + 1, 12) int32, 16-byte aligned
+  int C[4];           // C[0..3] (C[4] is never read by a search)
+  int primary;        // row of $ in the sentinel-inclusive BWT
+};
+
+struct FusedRow {
+  uint4 w0, w1;  // BWT words 0-3, 4-7
+  uint4 cp;      // checkpoints A, C, G, T
+  int r;         // bases of the block before the coordinate, 0..127
+};
+
+__device__ __forceinline__ FusedRow load_row(const FMTable& t, int k) {
+  const int k_adj = k - (k > t.primary ? 1 : 0);
+  const uint4* p =
+      reinterpret_cast<const uint4*>(t.blocks + static_cast<int64_t>(k_adj >> 7) * kRowWords);
+  FusedRow row;
+  row.w0 = __ldg(p);
+  row.w1 = __ldg(p + 1);
+  row.cp = __ldg(p + 2);
+  row.r = k_adj & (kRowBases - 1);
+  return row;
+}
+
+// Mask of the low bit of each of the first `r - 16 j` slots of word j.
+__device__ __forceinline__ unsigned slot_mask(int r, int j) {
+  const int allowed = min(max(r - 16 * j, 0), 16);
+  return (allowed >= 16 ? 0xFFFFFFFFu : (1u << (2 * allowed)) - 1u) & 0x55555555u;
+}
+
+__device__ __forceinline__ void count_word(unsigned w, unsigned m, unsigned& c1, unsigned& c2,
+                                           unsigned& c3) {
+  const unsigned lo = w & m, hi = (w >> 1) & m;
+  c1 += __popc(lo & ~hi);
+  c2 += __popc(hi & ~lo);
+  c3 += __popc(lo & hi);
+}
+
+// occ$(c, k) for the four codes at the row's coordinate.
+__device__ __forceinline__ void occ4(const FusedRow& row, int (&occ)[4]) {
+  const unsigned w[8] = {row.w0.x, row.w0.y, row.w0.z, row.w0.w,
+                         row.w1.x, row.w1.y, row.w1.z, row.w1.w};
+  unsigned c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) count_word(w[j], slot_mask(row.r, j), c1, c2, c3);
+  occ[0] = static_cast<int>(row.cp.x) + row.r - static_cast<int>(c1 + c2 + c3);
+  occ[1] = static_cast<int>(row.cp.y + c1);
+  occ[2] = static_cast<int>(row.cp.z + c2);
+  occ[3] = static_cast<int>(row.cp.w + c3);
+}
+
+// a[c] for c in 0..3 without a local-memory array.
+__device__ __forceinline__ int pick4(const int (&a)[4], int c) {
+  return c == 0 ? a[0] : c == 1 ? a[1] : c == 2 ? a[2] : a[3];
+}
+
+// occ$(c, k) for one code: the backward exact search's update.
+__device__ __forceinline__ int occ1(const FusedRow& row, int c) {
+  const unsigned w[8] = {row.w0.x, row.w0.y, row.w0.z, row.w0.w,
+                         row.w1.x, row.w1.y, row.w1.z, row.w1.w};
+  const unsigned pattern = static_cast<unsigned>(c) * 0x55555555u;
+  unsigned n = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const unsigned x = w[j] ^ pattern;
+    n += __popc(~(x | (x >> 1)) & slot_mask(row.r, j));
+  }
+  const unsigned cp = c == 0 ? row.cp.x : c == 1 ? row.cp.y : c == 2 ? row.cp.z : row.cp.w;
+  return static_cast<int>(cp + n);
+}
+
+// The children of one interval on `main` (coordinates mlo, mhi) whose
+// synchronized interval on the other table starts at olo, for all four
+// codes: (main lo, main hi, other lo, other hi) of each.  Codes in order,
+// with the other side's offset  s + sum_{a < c} cnt[a],  where
+// s = [mlo <= primary < mhi] counts the `$` suffix, which sorts first.
+struct Children {
+  int mlo[4], mhi[4], olo[4], ohi[4];
+};
+
+__device__ __forceinline__ void children_from_rows(const FMTable& tab, const FusedRow& a,
+                                                   const FusedRow& b, int mlo, int mhi, int olo,
+                                                   Children& ch) {
+  int occ_lo[4], occ_hi[4];
+  occ4(a, occ_lo);
+  occ4(b, occ_hi);
+  const int s = (mlo <= tab.primary && tab.primary < mhi) ? 1 : 0;
+  int below = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int cnt = occ_hi[c] - occ_lo[c];
+    ch.mlo[c] = tab.C[c] + occ_lo[c];
+    ch.mhi[c] = ch.mlo[c] + cnt;
+    ch.olo[c] = olo + s + below;
+    ch.ohi[c] = ch.olo[c] + cnt;
+    below += cnt;
+  }
+}
+
+__device__ __forceinline__ void extend_all4(const FMTable& tab, int mlo, int mhi, int olo,
+                                            Children& ch) {
+  const FusedRow a = load_row(tab, mlo);
+  const FusedRow b = load_row(tab, mhi);
+  children_from_rows(tab, a, b, mlo, mhi, olo, ch);
+}
+
+// A synchronized pair of SA intervals: [lo, hi) on the forward-text table
+// (pattern P), [rlo, rhi) on the reverse-text table (rev(P)).
+struct BiIv {
+  int lo, hi, rlo, rhi;
+};
+
+// P -> cP: the character update on the forward table.
+__device__ __forceinline__ BiIv extend_backward(const FMTable& fwd, const BiIv& v, int c) {
+  Children ch;
+  extend_all4(fwd, v.lo, v.hi, v.rlo, ch);
+  return {pick4(ch.mlo, c), pick4(ch.mhi, c), pick4(ch.olo, c), pick4(ch.ohi, c)};
+}
+
+__device__ __forceinline__ FMTable load_table(const int* blocks, const int* C, int primary) {
+  FMTable t;
+  t.blocks = blocks;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) t.C[c] = __ldg(C + c);
+  t.primary = primary;
+  return t;
+}
+
+// Read code at j clamped into [0, L - 1] (lanes past their read are masked
+// by the caller); codes are 0..3, and & 3 keeps a stray code in the table.
+__device__ __forceinline__ int code_at(const int* row, int L, int j) {
+  return L > 0 ? (__ldg(row + min(max(j, 0), L - 1)) & 3) : 0;
+}
+
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+}  // namespace gwa

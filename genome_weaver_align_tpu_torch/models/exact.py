@@ -3,7 +3,8 @@
 
 A (B,) pair of interval tensors advances a fixed number of steps in
 lockstep; dead lanes (empty interval) and exhausted lanes (past the read's
-first character) are frozen by masking, not branching.  It is the
+first character) are frozen by masking, not branching.  On a CUDA device
+the whole loop is one kernel (``csrc/fm_search.cu``, one thread a read).  It is the
 single-device reference of ``parallel.sharded_index.
 make_sharded_exact_search``; ``best_strand`` is the step of
 ``models.pipeline.ExactAligner`` and of ``parallel.multihost.exact_align``.
@@ -14,12 +15,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import rank
+from ..ops import fm_search_cuda, rank
 from ..ops.rank import DeviceFMIndex
 from ..utils import sam
 
 I32 = torch.int32
 NO_HIT = 2**30  # the position of a read found on neither strand
+
+
+def _trip(L: int, max_len: int | None, kmer_tab, kmer_j: int) -> int:
+    """The search loop's trip count: the read length or ``max_len``, less
+    the k-mer table's characters when every read that is long enough for
+    the table still has its own steps."""
+    steps = L if max_len is None else max_len
+    if kmer_tab is not None and kmer_j > 0 and steps >= 2 * kmer_j - 1:
+        return steps - kmer_j  # reads shorter than kmer_j still need kmer_j - 1 steps
+    return steps
 
 
 def exact_interval_search(
@@ -31,7 +42,26 @@ def exact_interval_search(
     kmer_j: int = 0,
 ):
     """SA intervals [lo, hi) of each read's exact occurrences; hi <= lo =>
-    none.
+    none.  On a CUDA device the whole loop is one kernel
+    (``csrc/fm_search.cu``); on the CPU, ``exact_interval_search_plain``."""
+    if not reads.is_cuda:
+        return exact_interval_search_plain(fm, reads, lengths, max_len, kmer_tab, kmer_j)
+    lo, hi = fm_search_cuda.backward_search_cuda(
+        fm, reads.to(I32).contiguous(), lengths.to(I32).contiguous(), 1,
+        _trip(reads.shape[1], max_len, kmer_tab, kmer_j), kmer_tab, kmer_j)
+    return lo.reshape(-1), hi.reshape(-1)
+
+
+def exact_interval_search_plain(
+    fm: DeviceFMIndex,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    max_len: int | None = None,
+    kmer_tab: tuple[torch.Tensor, torch.Tensor] | None = None,
+    kmer_j: int = 0,
+):
+    """The search as a loop of torch ops, one backward step an iteration
+    (the kernel's plain version).
 
     With a k-mer prefix table (``index.kmer``), the last ``kmer_j``
     characters of every read resolve with one table lookup; the backward
@@ -40,7 +70,7 @@ def exact_interval_search(
     dev = reads.device
     reads = reads.to(I32)
     lengths = lengths.to(I32)
-    steps = L if max_len is None else max_len
+    trip = _trip(L, max_len, kmer_tab, kmer_j)
 
     if kmer_tab is not None and kmer_j > 0:
         use_tab = lengths >= kmer_j
@@ -51,20 +81,16 @@ def exact_interval_search(
         lo = torch.where(use_tab, kmer_tab[0][idx.long()], 0)
         hi = torch.where(use_tab, kmer_tab[1][idx.long()], fm.n + 1)
         skip = torch.where(use_tab, kmer_j, 0)
-        # reads shorter than kmer_j still need up to kmer_j - 1 steps
-        trip = steps - kmer_j if steps >= 2 * kmer_j - 1 else steps
     else:
         lo = torch.zeros(B, dtype=I32, device=dev)
         hi = torch.full((B,), fm.n + 1, dtype=I32, device=dev)
         skip = torch.zeros(B, dtype=I32, device=dev)
-        trip = steps
 
     for t in range(trip):
         j = lengths - 1 - skip - t
         active = (j >= 0) & (lo < hi)
         c = torch.gather(reads, 1, j.clamp(0, L - 1)[:, None].long())[:, 0]
-        nlo, nhi = rank.backward_step(fm, c, lo, hi)
-        lo, hi = torch.where(active, nlo, lo), torch.where(active, nhi, hi)
+        lo, hi = rank.step_where(active, rank.backward_step(fm, c, lo, hi), (lo, hi))
     return lo.to(I32), hi.to(I32)
 
 

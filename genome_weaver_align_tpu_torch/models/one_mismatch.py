@@ -13,7 +13,8 @@ The two cases are disjoint (error side) and complete for Hamming distance 1.
 The per-read search state is a dense (B, S) slot tensor of synchronized
 bidirectional intervals advanced in lockstep; dead slots are packed to the
 front each step with a stable argsort, and slot overflow is flagged per
-read, never silently dropped.
+read, never silently dropped.  On a CUDA device both cases are one kernel
+(``csrc/one_mismatch.cu``, one warp a read).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from genome_weaver_align_tpu_torch.utils import sam
 from . import bidirectional as bd
 from . import exact as exact_mod
 from .bidirectional import BiInterval, DeviceBiIndex
+from ..ops import one_mismatch_cuda, rank
 
 I32 = torch.int32
 
@@ -64,6 +66,14 @@ def _spawn(br: BiInterval, count, all4: BiInterval, c, overflow):
     return BiInterval(*fields), overflow
 
 
+def _steps(L: int, max_len: int | None) -> int:
+    """Each case's step count.  Its lanes are all inactive after ceil(L/2)
+    steps (mid = len // 2), and an inactive step changes nothing: its
+    compaction of an already packed pool is the identity.  The JAX loops
+    run L steps."""
+    return min(L if max_len is None else max_len, (L + 1) // 2)
+
+
 def one_mismatch_candidates(
     bi: DeviceBiIndex,
     reads: torch.Tensor,  # (B, L) int32 search codes
@@ -75,16 +85,31 @@ def one_mismatch_candidates(
 
     Returns (cand_lo, cand_hi) of shape (B, 2*n_slots + 1) — case-A spine
     (exact match) in slot 0, then case-A branches, then case-B branches —
-    plus an overflow flag (B,).  Empty candidates have hi <= lo.
+    plus an overflow flag (B,).  Empty candidates have hi <= lo.  On a CUDA
+    device the whole search is one kernel (``csrc/one_mismatch.cu``, one
+    warp a read); on the CPU, ``one_mismatch_candidates_plain``.
     """
+    if not reads.is_cuda:
+        return one_mismatch_candidates_plain(bi, reads, lengths, max_len, n_slots)
+    return one_mismatch_cuda.one_mismatch_candidates_cuda(
+        bi, reads.to(I32).contiguous(), lengths.to(I32).contiguous(),
+        _steps(reads.shape[1], max_len), n_slots)
+
+
+def one_mismatch_candidates_plain(
+    bi: DeviceBiIndex,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    max_len: int | None = None,
+    n_slots: int = 48,
+):
+    """``one_mismatch_candidates`` as a loop of torch ops over all reads at
+    once, one sequential step an iteration (the kernel's plain version)."""
     B, L = reads.shape
     dev = reads.device
     reads = reads.to(I32)
     lengths = lengths.to(I32)
-    # each loop's lanes are all inactive after ceil(L/2) steps (mid =
-    # len // 2), and an inactive step changes nothing: its compaction of
-    # an already packed pool is the identity.  The JAX loops run L steps.
-    steps = min(L if max_len is None else max_len, (L + 1) // 2)
+    steps = _steps(L, max_len)
     mid = torch.div(lengths, 2, rounding_mode="floor")
     n = bi.fwd.n
 
@@ -92,7 +117,7 @@ def one_mismatch_candidates(
         return torch.gather(reads, 1, j.clamp(0, L - 1)[:, None].long())[:, 0]
 
     def masked(active, new: BiInterval, old: BiInterval) -> BiInterval:
-        return BiInterval(*[torch.where(active, a, b) for a, b in zip(new, old)])
+        return BiInterval(*rank.step_where(active, new, old))
 
     def build_backward(first, last_excl):
         """Spine = read[first(b) : last_excl(b)] built by backward extension."""
@@ -112,15 +137,14 @@ def one_mismatch_candidates(
             j = j_of(t)
             active = active_of(j)
             c = char_at(j)
-            ext = extend(bi, state.br, c[:, None])
-            br, count = _compact(masked(active[:, None], ext, state.br))
+            br, count = _compact(extend(bi, state.br, c[:, None]))
             all4 = extend_all4(bi, state.spine)
             spine_new = BiInterval(*[torch.gather(f, 1, c[:, None].long())[:, 0] for f in all4])
-            # freeze spawns/spine updates on inactive lanes
             br2, ovf = _spawn(br, count, all4, c, state.overflow)
+            # inactive lanes keep their state: their pool is already packed
             state = MMState(
                 masked(active, spine_new, state.spine),
-                masked(active[:, None], br2, br),
+                masked(active[:, None], br2, state.br),
                 torch.where(active, ovf, state.overflow),
             )
         return state

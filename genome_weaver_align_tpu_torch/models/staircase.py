@@ -16,7 +16,9 @@ ceil(L/P) plus forward ceil(L(P-1)/P)).  Each step expands every lane into
 its 4 children with one ``extend_forward_all4`` (one stacked occ gather),
 masks them by the budget and compacts the 4S children back to S slots.
 Overflow is flagged per read.  Every step has fixed shapes and no host
-synchronisation.
+synchronisation.  On a CUDA device the pools' whole search, through the
+compaction to ``keep``, is one kernel (``csrc/staircase.cu``, one warp a
+pool); the locate and the candidate tail stay torch.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from . import bidirectional as bd
 from .bidirectional import BiInterval, DeviceBiIndex
 from .suffix_filter import NO_CAND, CandidateResult, _dedupe_cands, _piece_bounds
-from ..ops import rank
+from ..ops import rank, staircase_cuda
 
 I32 = torch.int32
 
@@ -62,6 +64,14 @@ def _compact_pool(iv: BiInterval, mm: torch.Tensor, n_slots: int):
     return packed, take(mm), live
 
 
+def _trip_counts(L: int, k: int, max_len: int | None) -> tuple[int, int, int]:
+    """(spine, forward, backward) steps: piece 0's bounds cover all lanes
+    forward, lane P-1 walks the most backward."""
+    Lb = L if max_len is None else max_len
+    P = k + 1
+    return -(-Lb // P), -(-(Lb * (P - 1)) // P), -(-(Lb * (P - 1)) // P)
+
+
 def staircase_filter_candidates(
     bi: DeviceBiIndex,
     reads: torch.Tensor,  # (B, L) int32 search codes (N already mapped to 0)
@@ -78,14 +88,73 @@ def staircase_filter_candidates(
     # where a suffix interval is wide and only hits_per_state rows of it
     # are located
 ) -> CandidateResult:
+    """Candidate loci of every read: the pools' search
+    (``staircase_pools``: one kernel on a CUDA device), then the rows of
+    each pool's kept intervals located and offset to the read start."""
+    B, L = reads.shape
+    dev = reads.device
+    P = k + 1
+    n = bi.fwd.n
+    lo, hi, overflow_pb = staircase_pools(bi, reads, lengths, k, n_slots=n_slots, keep=keep,
+                                          max_len=max_len, narrow_left=narrow_left)
+    s_pb = _piece_bounds(lengths.to(I32), P)[:, :-1].T  # (P, B) piece starts
+
+    # -> candidate loci (read start = occ - s_i), ONE locate for all pieces.
+    # Dead lanes are pinned to row 0: the sparse-SA LF walk on scattered
+    # rows would spread its gathers over the whole index.
+    rows = lo[..., None] + torch.arange(hits_per_state, dtype=I32, device=dev)
+    valid = rows < hi[..., None]
+    rows = torch.where(valid, rows, 0)
+    pos = rank.locate(bi.fwd, rows.clamp(0, n).reshape(-1)).reshape(rows.shape)
+    # narrowed states span the WHOLE read, so their occurrence IS the read
+    # start; suffix-only states start at their piece
+    cand_off = torch.zeros_like(s_pb) if narrow_left else s_pb
+    cand = torch.where(valid, pos - cand_off[..., None, None], NO_CAND)  # (P,B,keep,H)
+    overflow_pb = overflow_pb | torch.any((hi - lo) > hits_per_state, dim=2)
+    overflow = torch.any(overflow_pb, dim=0)
+    cand = cand.permute(1, 0, 2, 3).reshape(B, P * keep * hits_per_state)
+    return _dedupe_cands(cand, overflow, None)
+
+
+def staircase_pools(
+    bi: DeviceBiIndex,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    n_slots: int = 16,
+    keep: int = 8,
+    max_len: int | None = None,
+    narrow_left: bool = False,
+):
+    """The staircase search of every (piece, read) pool, compacted to its
+    first ``keep`` live slots: (lo, hi) (P, B, keep) int32 and overflow
+    (P, B) bool.  On a CUDA device the whole search is one kernel
+    (``csrc/staircase.cu``); on the CPU, ``staircase_pools_plain``."""
+    if not reads.is_cuda:
+        return staircase_pools_plain(bi, reads, lengths, k, n_slots, keep, max_len, narrow_left)
+    return staircase_cuda.staircase_pools_cuda(
+        bi, reads.to(I32).contiguous(), lengths.to(I32).contiguous(), k, n_slots, keep,
+        *_trip_counts(reads.shape[1], k, max_len), narrow_left)
+
+
+def staircase_pools_plain(
+    bi: DeviceBiIndex,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    n_slots: int = 16,
+    keep: int = 8,
+    max_len: int | None = None,
+    narrow_left: bool = False,
+):
+    """``staircase_pools`` as a loop of torch ops over all pools at once,
+    one sequential step an iteration (the kernel's plain version)."""
     B, L = reads.shape
     dev = reads.device
     reads = reads.to(I32)
     lengths = lengths.to(I32)
-    Lb = L if max_len is None else max_len
     P = k + 1
-    spine_steps = -(-Lb // P)
-    fwd_steps = -(-(Lb * (P - 1)) // P)  # piece 0's bound covers all lanes
+    spine_steps, fwd_steps, bwd_steps = _trip_counts(L, k, max_len)
     bounds = _piece_bounds(lengths, P)  # (B, P+1)
     n = bi.fwd.n
 
@@ -100,9 +169,8 @@ def staircase_filter_candidates(
     spine = bd.init_interval(n, (P, B), dev)
     for t in range(spine_steps):
         j = e_pb - 1 - t
-        active = j >= s_pb
         ext = bd.extend_backward(bi, spine, char_at(j))
-        spine = BiInterval(*[torch.where(active, a, b) for a, b in zip(ext, spine)])
+        spine = BiInterval(*rank.step_where(j >= s_pb, ext, spine))
 
     # ---- pool init: slot 0 = spine, mm 0
     slot0 = (torch.arange(n_slots, device=dev) == 0)[None, None, :]
@@ -144,9 +212,7 @@ def staircase_filter_candidates(
             child_mm = reorder(child_mm)
         new_iv, new_mm, live = compact(pool_iv, child_mm, n_slots)
         ovf = ovf | (active & (live > n_slots))
-        out_iv = BiInterval(
-            *[torch.where(active[..., None], a, b) for a, b in zip(new_iv, iv)]
-        )
+        out_iv = BiInterval(*rank.step_where(active[..., None], new_iv, iv))
         out_mm = torch.where(active[..., None], new_mm, mm)
         return out_iv, out_mm, ovf
 
@@ -163,7 +229,6 @@ def staircase_filter_candidates(
     if narrow_left:
         # leftward narrowing: extend every surviving state back through
         # the pieces BEFORE its anchor piece under the full k budget
-        bwd_steps = -(-(Lb * (P - 1)) // P)  # lane P-1 walks the most
         full_budget = torch.full((P, B), k, dtype=I32, device=dev)
         for t in range(bwd_steps):
             j = s_pb - 1 - t  # (P, B)
@@ -176,18 +241,4 @@ def staircase_filter_candidates(
     iv, mm, live_final = compact(iv, mm, keep)
     overflow_pb = overflow_pb | (live_final > keep)
 
-    # -> candidate loci (read start = occ - s_i), ONE locate for all pieces.
-    # Dead lanes are pinned to row 0: the sparse-SA LF walk on scattered
-    # rows would spread its gathers over the whole index.
-    rows = iv.lo[..., None] + torch.arange(hits_per_state, dtype=I32, device=dev)
-    valid = rows < iv.hi[..., None]
-    rows = torch.where(valid, rows, 0)
-    pos = rank.locate(bi.fwd, rows.clamp(0, n).reshape(-1)).reshape(rows.shape)
-    # narrowed states span the WHOLE read, so their occurrence IS the read
-    # start; suffix-only states start at their piece
-    cand_off = torch.zeros_like(s_pb) if narrow_left else s_pb
-    cand = torch.where(valid, pos - cand_off[..., None, None], NO_CAND)  # (P,B,keep,H)
-    overflow_pb = overflow_pb | torch.any((iv.hi - iv.lo) > hits_per_state, dim=2)
-    overflow = torch.any(overflow_pb, dim=0)
-    cand = cand.permute(1, 0, 2, 3).reshape(B, P * keep * hits_per_state)
-    return _dedupe_cands(cand, overflow, None)
+    return iv.lo, iv.hi, overflow_pb

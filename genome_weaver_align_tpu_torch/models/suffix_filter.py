@@ -15,7 +15,7 @@ Where the JAX code relies on clamped gathers or dropped out-of-range
 scatters, this code clamps explicitly or scatters into a spare slot that it
 slices off: an out-of-range index on a CUDA device is a device assert.
 
-The staircase (tier 2) is not ported yet.
+On a CUDA device the piece search is one kernel (``csrc/fm_search.cu``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 
 from ..ops import dp as dp_ops
 from ..ops import myers as myers_ops
-from ..ops import rank, window
+from ..ops import fm_search_cuda, rank, window
 from ..ops.rank import DeviceFMIndex
 
 I32 = torch.int32
@@ -93,6 +93,14 @@ def _dedupe_cands(cand: torch.Tensor, overflow: torch.Tensor, max_cands: int | N
     return CandidateResult(cand, n, overflow)
 
 
+def _piece_trip(L: int, n_pieces: int, max_len: int | None, kmer_tab, kmer_j: int,
+                kmer_full_cover: bool) -> int:
+    """The piece search's trip count: ceil(L/P) + 1 or ``max_len``, less
+    kmer_j when the table covers every piece's last kmer_j characters."""
+    steps = (L + n_pieces - 1) // n_pieces + 1 if max_len is None else max_len
+    return steps - kmer_j if (kmer_tab is not None and kmer_full_cover) else steps
+
+
 def piece_interval_search(
     fm: DeviceFMIndex,
     reads: torch.Tensor,  # (B, L) int32 search codes (N already mapped to 0)
@@ -103,7 +111,31 @@ def piece_interval_search(
     kmer_j: int = 0,
     kmer_full_cover: bool = False,
 ):
-    """Exact backward search of every piece: (lo, hi, s), each (B, P).
+    """Exact backward search of every piece: (lo, hi, s), each (B, P).  On
+    a CUDA device the whole loop is one kernel (``csrc/fm_search.cu``); on
+    the CPU, ``piece_interval_search_plain``."""
+    if not reads.is_cuda:
+        return piece_interval_search_plain(fm, reads, lengths, n_pieces, max_len, kmer_tab,
+                                           kmer_j, kmer_full_cover)
+    lo, hi = fm_search_cuda.backward_search_cuda(
+        fm, reads.to(I32).contiguous(), lengths.to(I32).contiguous(), n_pieces,
+        _piece_trip(reads.shape[1], n_pieces, max_len, kmer_tab, kmer_j, kmer_full_cover),
+        kmer_tab, kmer_j)
+    return lo, hi, _piece_bounds(lengths, n_pieces)[:, :-1]
+
+
+def piece_interval_search_plain(
+    fm: DeviceFMIndex,
+    reads: torch.Tensor,
+    lengths: torch.Tensor,
+    n_pieces: int,
+    max_len: int | None = None,
+    kmer_tab: tuple[torch.Tensor, torch.Tensor] | None = None,
+    kmer_j: int = 0,
+    kmer_full_cover: bool = False,
+):
+    """The piece search as a loop of torch ops (the kernel's plain
+    version).
 
     A fixed trip count of ceil(L/P) + 1 interval updates (lanes whose piece
     is exhausted or whose interval is empty stop updating).  With a k-mer
@@ -116,7 +148,6 @@ def piece_interval_search(
     reads = reads.to(I32)
     bounds = _piece_bounds(lengths, n_pieces)
     s, e = bounds[:, :-1], bounds[:, 1:]  # (B, P)
-    steps = (L + n_pieces - 1) // n_pieces + 1 if max_len is None else max_len
 
     if kmer_tab is not None and kmer_j > 0:
         use_tab = (e - s) >= kmer_j  # (B, P)
@@ -133,13 +164,12 @@ def piece_interval_search(
         hi = torch.full((B, n_pieces), fm.n + 1, dtype=I32, device=dev)
         skip = torch.zeros((B, n_pieces), dtype=I32, device=dev)
 
-    trip = steps - kmer_j if (kmer_tab is not None and kmer_full_cover) else steps
+    trip = _piece_trip(L, n_pieces, max_len, kmer_tab, kmer_j, kmer_full_cover)
     for t in range(trip):
         j = e - 1 - skip - t  # (B, P)
         active = (j >= s) & (lo < hi)
         c = torch.gather(reads, 1, j.clamp(0, L - 1).long())
-        nlo, nhi = rank.backward_step(fm, c, lo, hi)
-        lo, hi = torch.where(active, nlo, lo), torch.where(active, nhi, hi)
+        lo, hi = rank.step_where(active, rank.backward_step(fm, c, lo, hi), (lo, hi))
     return lo, hi, s
 
 

@@ -1,0 +1,128 @@
+"""Binding of the hand-written CUDA backward exact search (``csrc/fm_search.cu``).
+
+The kernel replaces the JAX package's device loops
+``genome_weaver_align_tpu/models/exact.py:65`` (``exact_interval_search``)
+and ``genome_weaver_align_tpu/models/suffix_filter.py:123``
+(``piece_interval_search``): one thread a lane, the whole loop in one
+launch.  ``backward_search_cuda`` is equal to
+``models.exact.exact_interval_search_plain`` (one piece a read) and to
+``models.suffix_filter.piece_interval_search_plain`` (P pieces a read).
+
+``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
+``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
+when the build fails, loading raises: there is no fallback to the plain
+versions.  ``check_table`` is shared with the staircase and one-mismatch
+bindings.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ._cuda_build import load_kernel_library
+from .rank import FUSED_WIDTH, DeviceFMIndex
+
+I32 = torch.int32
+MAX_PIECES = 32  # pieces a read (the staircase's k + 1)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    lib = load_kernel_library("fm_search.cu")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.gwa_backward_search.argtypes = [
+        vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, i32, vp, vp, vp,
+    ]
+    lib.gwa_backward_search.restype = ctypes.c_int
+    return lib
+
+
+def check_reads(reads: torch.Tensor, lengths: torch.Tensor, name: str) -> None:
+    """(B, L) int32 codes and (B,) int32 lengths, contiguous, with
+    len * (P + 1) inside int32 for any P the kernels take, on one CUDA
+    device (checked last, so that the CPU tests reach every other check)."""
+    if reads.dtype != I32 or lengths.dtype != I32:
+        raise ValueError(f"{name}: expected int32 reads and lengths, got "
+                         f"{reads.dtype}/{lengths.dtype}")
+    if reads.dim() != 2 or lengths.shape != (reads.shape[0],):
+        raise ValueError(f"{name}: shape mismatch: reads {tuple(reads.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    if not (reads.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous reads and lengths")
+    if reads.shape[1] * (MAX_PIECES + 1) >= 1 << 31:
+        raise ValueError(f"{name}: reads of {reads.shape[1]} bases: piece bounds would leave int32")
+    if not (reads.is_cuda and lengths.device == reads.device):
+        raise ValueError(f"{name} needs reads and lengths on one CUDA device")
+
+
+def check_table(fm: DeviceFMIndex, dev: torch.device, name: str) -> None:
+    """The fused rows and C of one table, int32 on ``dev``, rows 16-byte
+    aligned (each row is read as three 16-byte loads)."""
+    b, C = fm.blocks, fm.C
+    if b.device != dev or C.device != dev:
+        raise ValueError(f"{name}: the index tables are not on the reads' device {dev}")
+    if b.dtype != I32 or C.dtype != I32 or b.dim() != 2 or b.shape[1] != FUSED_WIDTH:
+        raise ValueError(f"{name}: expected (nb + 1, {FUSED_WIDTH}) int32 fused rows and int32 C")
+    if not (b.is_contiguous() and C.is_contiguous()) or b.data_ptr() % 16:
+        raise ValueError(f"{name} needs contiguous, 16-byte aligned fused rows")
+    if not 0 <= fm.n < (1 << 31) - 1:
+        raise ValueError(f"{name}: an index of {fm.n} symbols leaves int32")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def backward_search_cuda(
+    fm: DeviceFMIndex,
+    reads: torch.Tensor,  # (B, L) int32 codes 0..3, contiguous, on a CUDA device
+    lengths: torch.Tensor,  # (B,) int32
+    n_pieces: int,
+    trip: int,  # the plain loop's trip count
+    kmer_tab: tuple[torch.Tensor, torch.Tensor] | None = None,  # (lo, hi) of size 4^kmer_j
+    kmer_j: int = 0,
+):
+    """Launch the search -> (lo, hi) (B, n_pieces) int32: read b's piece p
+    is [floor(len p / P), floor(len (p + 1) / P)), searched last character
+    first for ``trip`` steps at most.  Launches on the current stream
+    without synchronising; counts each launch in ``.launches``."""
+    name = "backward_search_cuda"
+    if not 1 <= n_pieces <= MAX_PIECES:
+        raise ValueError(f"{name}: n_pieces={n_pieces}: the kernel takes 1..{MAX_PIECES}")
+    use_tab = kmer_tab is not None and kmer_j > 0
+    if use_tab and not 0 < kmer_j <= 15:
+        raise ValueError(f"{name}: kmer_j={kmer_j}: the lookup index is int32")
+    check_reads(reads, lengths, name)
+    check_table(fm, reads.device, name)
+    if use_tab:
+        tlo, thi = kmer_tab
+        if not (tlo.device == thi.device == reads.device and tlo.dtype == thi.dtype == I32
+                and tlo.is_contiguous() and thi.is_contiguous() and tlo.dim() == 1
+                and tlo.shape == thi.shape and tlo.shape[0] > 0):
+            raise ValueError(f"{name}: the k-mer table must be two equal, non-empty, "
+                             "contiguous 1-D int32 tensors on the reads' device")
+    B, L = reads.shape
+    dev = reads.device
+    lo = torch.empty((B, n_pieces), dtype=I32, device=dev)
+    hi = torch.empty((B, n_pieces), dtype=I32, device=dev)
+    if B == 0:
+        return lo, hi
+    with torch.cuda.device(dev):
+        rc = _library().gwa_backward_search(
+            reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, fm.blocks.data_ptr(),
+            fm.C.data_ptr(), fm.primary, fm.n,
+            tlo.data_ptr() if use_tab else None, thi.data_ptr() if use_tab else None,
+            tlo.shape[0] if use_tab else 0, kmer_j if use_tab else 0, max(trip, 0),
+            lo.data_ptr(), hi.data_ptr(), stream(),
+        )
+    if rc != 0:
+        raise RuntimeError(f"gwa_backward_search launch failed: CUDA error {rc}")
+    backward_search_cuda.launches += 1
+    return lo, hi
+
+
+backward_search_cuda.launches = 0

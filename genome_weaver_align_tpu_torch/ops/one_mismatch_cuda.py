@@ -1,0 +1,81 @@
+"""Binding of the hand-written CUDA one-mismatch search
+(``csrc/one_mismatch.cu``).
+
+The kernel replaces the JAX package's device loops of
+``genome_weaver_align_tpu/models/one_mismatch.py`` (the spines :101, case
+A :127, case B :150, with ``_compact`` :40 and ``_spawn`` :48): one warp a
+read, both cases in one launch.  ``one_mismatch_candidates_cuda`` is equal
+to ``models.one_mismatch.one_mismatch_candidates_plain`` on every output,
+the stale intervals of dead branch slots included.
+
+``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
+``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
+when the build fails, loading raises: there is no fallback to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ._cuda_build import load_kernel_library
+from .fm_search_cuda import check_reads, check_table, stream
+
+I32 = torch.int32
+MAX_SLOTS = 64  # a warp's 32 lanes hold two slots each
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    lib = load_kernel_library("one_mismatch.cu")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.gwa_one_mismatch.argtypes = [
+        vp, vp, i32, i32, i32, i32, vp, vp, i32, vp, vp, i32, i32, vp, vp, vp, vp,
+    ]
+    lib.gwa_one_mismatch.restype = ctypes.c_int
+    return lib
+
+
+def one_mismatch_candidates_cuda(
+    bi,  # models.bidirectional.DeviceBiIndex
+    reads: torch.Tensor,  # (B, L) int32 search codes 0..3, contiguous, on a CUDA device
+    lengths: torch.Tensor,  # (B,) int32
+    steps: int,  # the plain version's step count
+    n_slots: int,
+):
+    """Launch the search -> (cand_lo, cand_hi) (B, 2 n_slots + 1) int32 and
+    overflow (B,) bool.  Launches on the current stream without
+    synchronising; counts each launch in ``.launches``."""
+    name = "one_mismatch_candidates_cuda"
+    if not 1 <= n_slots <= MAX_SLOTS:
+        raise ValueError(f"{name}: n_slots={n_slots}: the kernel takes 1..{MAX_SLOTS}")
+    check_reads(reads, lengths, name)
+    for fm in (bi.fwd, bi.rev):
+        check_table(fm, reads.device, name)
+    if bi.fwd.n != bi.rev.n:
+        raise ValueError(f"{name}: forward and reverse tables of different texts")
+    B, L = reads.shape
+    dev = reads.device
+    cand_lo = torch.empty((B, 2 * n_slots + 1), dtype=I32, device=dev)
+    cand_hi = torch.empty((B, 2 * n_slots + 1), dtype=I32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return cand_lo, cand_hi, overflow
+    with torch.cuda.device(dev):
+        rc = _library().gwa_one_mismatch(
+            reads.data_ptr(), lengths.data_ptr(), B, L, n_slots, max(steps, 0),
+            bi.fwd.blocks.data_ptr(), bi.fwd.C.data_ptr(), bi.fwd.primary,
+            bi.rev.blocks.data_ptr(), bi.rev.C.data_ptr(), bi.rev.primary, bi.fwd.n,
+            cand_lo.data_ptr(), cand_hi.data_ptr(), overflow.data_ptr(), stream(),
+        )
+    if rc != 0:
+        raise RuntimeError(f"gwa_one_mismatch launch failed: CUDA error {rc}")
+    one_mismatch_candidates_cuda.launches += 1
+    return cand_lo, cand_hi, overflow
+
+
+one_mismatch_candidates_cuda.launches = 0

@@ -80,8 +80,9 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_host(fm: FMIndexData, device="cpu") -> DeviceFMIndex:
-    """The numpy ``FMIndexData`` that both packages load -> device tables."""
+def from_host(fm: FMIndexData, device) -> DeviceFMIndex:
+    """The numpy ``FMIndexData`` that both packages load -> tables on
+    ``device`` (required: a caller that forgot it would get the CPU)."""
     check_device_indexable(fm.n + 1, "FM index")
     marks = fm.ssa_marks
     mw = marks._wpad
@@ -109,7 +110,8 @@ def from_arrays(
     n: int,
     sample_rate: int,
     full_sa: np.ndarray | None = None,
-    device="cpu",
+    *,
+    device,
 ) -> DeviceFMIndex:
     """DeviceFMIndex straight from device-ready host arrays (the flat
     multi-part layout stores exactly these); equal to ``from_host``'s."""
@@ -208,6 +210,14 @@ def backward_step(fm: DeviceFMIndex, codes: torch.Tensor, lo: torch.Tensor, hi: 
     occ_lo, occ_hi = torch.chunk(both, 2, dim=0)
     Cc = fm.C[codes.long()]
     return Cc + occ_lo, Cc + occ_hi
+
+
+def step_where(active: torch.Tensor, new, old) -> tuple:
+    """One step of a lockstep search loop: each field of ``new`` where
+    ``active``, of ``old`` elsewhere, so lanes that are done keep their
+    interval.  ``new`` and ``old`` are (lo, hi, ...) field tuples (a
+    ``BiInterval`` too); ``active`` broadcasts against the fields."""
+    return tuple(torch.where(active, a, b) for a, b in zip(new, old))
 
 
 def bwt_char(fm: DeviceFMIndex, i: torch.Tensor) -> torch.Tensor:

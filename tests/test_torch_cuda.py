@@ -5,8 +5,9 @@ without one).  On the card:
 
 They import no JAX: they hold each CUDA kernel entry (banded DP and Myers,
 each from the packed text and from given windows; the shard sum; the fused
-rank + shard sum from gathered rows and from the shard tables) against its
-plain torch version, and the aligners, the sharded search, two ranks of
+rank + shard sum from gathered rows and from the shard tables; the backward
+exact and piece search, the staircase and the one-mismatch search) against
+its plain torch version, and the aligners, the sharded search, two ranks of
 ``ShardedAligner`` sharing the card, the device suffix-array build and the
 wavelet search on the card against the same code on the CPU (or native
 SA-IS), which the CPU tests hold against the JAX package."""
@@ -22,11 +23,16 @@ from genome_weaver_align_tpu_torch.index.build import build_fm_index
 from genome_weaver_align_tpu_torch.index.files import Genome, GenomeIndex
 from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
 from genome_weaver_align_tpu_torch.models import paired, pipeline, suffix_filter
-from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers, myers_cuda, rank, ring_cuda, window
+from genome_weaver_align_tpu_torch.ops import (
+    dp, dp_cuda, fm_search_cuda, myers, myers_cuda, one_mismatch_cuda, rank, ring_cuda,
+    staircase_cuda, window,
+)
 from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
 from genome_weaver_align_tpu_torch.parallel import ring, sharded_index, sharded_pipeline
 from genome_weaver_align_tpu_torch.utils import packing
 from genome_weaver_align_tpu_torch.utils.fasta import Contig
+
+import torch_fm_models as fm_models  # tests/ is on the path under pytest
 
 pytestmark = pytest.mark.cuda
 
@@ -297,9 +303,11 @@ def test_fm_path_and_rescue_on_card_equal_cpu(cuda):
                                   min_insert=200, max_insert=600)
         before = (dp_cuda.banded_edit_distance_text_cuda.launches,
                   myers_cuda.myers_semiglobal_text_cuda.launches,
-                  myers_cuda.myers_semiglobal_cuda.launches)
+                  myers_cuda.myers_semiglobal_cuda.launches,
+                  fm_search_cuda.backward_search_cuda.launches)
         results.append(pa.align_pair_arrays(c1, lengths, c2, lengths))
         if device.type == "cuda":
+            assert fm_search_cuda.backward_search_cuda.launches > before[3]
             assert dp_cuda.banded_edit_distance_text_cuda.launches > before[0]
             assert myers_cuda.myers_semiglobal_text_cuda.launches > before[1]
             assert myers_cuda.myers_semiglobal_cuda.launches == before[2]
@@ -603,8 +611,10 @@ def test_staircase_on_card_equals_cpu(cuda, flooded_gi):
         on_cpu = pipeline.SuffixFilterAligner(gi, k=2, device="cpu", **kw)
         for lens in (lengths, ragged):
             before = dp_cuda.banded_edit_distance_text_cuda.launches
+            before_st = staircase_cuda.staircase_pools_cuda.launches
             got = on_card.align_arrays_finish(on_card.align_arrays_submit(reads, lens))
             assert dp_cuda.banded_edit_distance_text_cuda.launches > before
+            assert staircase_cuda.staircase_pools_cuda.launches > before_st
             _hits_equal(got, on_cpu.align_arrays_finish(on_cpu.align_arrays_submit(reads, lens)))
             counts = lambda st: {key: v for key, v in st.items() if not key.startswith("t_")}
             assert counts(on_card.last_stats) == counts(on_cpu.last_stats)
@@ -634,7 +644,11 @@ def test_exact_and_one_mismatch_aligners_on_card_equal_cpu(cuda):
         withn[30] = 4
         reads += [Read("with_n", withn), Read("short", reads[1].codes[:61].copy()),
                   Read("junk", rng.integers(0, 4, size=100, dtype=np.uint8))]
+        counter = (fm_search_cuda.backward_search_cuda if subs == 0
+                   else one_mismatch_cuda.one_mismatch_candidates_cuda)
+        before = counter.launches
         got = cls(gi, device=cuda).align_batch(reads)
+        assert counter.launches > before
         want = cls(gi, device="cpu").align_batch(reads)
         assert [None if h is None else h.__dict__ for h in got] == \
             [None if h is None else h.__dict__ for h in want]
@@ -804,3 +818,155 @@ def test_wavelet_rank_and_search_on_card_equal_cpu(cuda):
             assert torch.equal(lo, flo) and torch.equal(hi, fhi)
     assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["cpu"]))
     assert int((out["cpu"][2] > out["cpu"][1]).sum()) > B // 2
+
+
+# ---------------------------------------------------------------- FM search kernels
+
+def _fm_genome(seed: int, alphabet: int = 4):
+    """The edge-case genome of ``tests/torch_fm_models.py``, both strands'
+    tables and a 4-mer table, on the CPU."""
+    from genome_weaver_align_tpu_torch.index.kmer import build_kmer_table
+    from genome_weaver_align_tpu_torch.models import bidirectional as bd
+
+    codes = fm_models.genome_codes(seed, alphabet)
+    fwd = build_fm_index(codes, sample_rate=16)
+    rev = build_fm_index(codes[::-1].copy(), sample_rate=16)
+    tab = tuple(torch.from_numpy(a.astype(np.int32)) for a in build_kmer_table(fwd, 4))
+    return codes, fwd, rev, bd, tab
+
+
+def _fm_reads(codes, seed, dying=False, **kw):
+    """``torch_fm_models.edge_reads`` (or ``dying_reads``) as CPU tensors,
+    300 reads of up to 60 bp unless ``kw`` says otherwise."""
+    kw = dict(dict(B=300, L=60), **kw)
+    make = fm_models.dying_reads if dying else fm_models.edge_reads
+    reads, lengths = make(codes, seed, **kw)
+    return torch.from_numpy(reads), torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("kmer", ["none", "table", "full_cover"])
+@pytest.mark.parametrize("max_len", [None, 9])
+def test_backward_search_kernel_equals_plain(cuda, P, kmer, max_len):
+    """``exact_interval_search`` (P = 1) and ``piece_interval_search``
+    (P = 3) on the card launch the kernel once and equal their plain loops
+    on the card on every lane."""
+    from genome_weaver_align_tpu_torch.models import exact
+
+    codes, fwd, _, _, tab = _fm_genome(30)
+    fm = rank.from_host(fwd, cuda)
+    r, ln = _fm_reads(codes, 31 + P)
+    if kmer == "full_cover":
+        ln = ln.clamp(min=12)
+    tab = None if kmer == "none" else tuple(t.to(cuda) for t in tab)
+    kj = 0 if tab is None else 4
+    r, ln = r.to(cuda), ln.to(cuda)
+    before = fm_search_cuda.backward_search_cuda.launches
+    if P == 1:
+        got = exact.exact_interval_search(fm, r, ln, max_len, tab, kj)
+        want = exact.exact_interval_search_plain(fm, r, ln, max_len, tab, kj)
+    else:
+        got = suffix_filter.piece_interval_search(fm, r, ln, P, max_len, tab, kj,
+                                                  kmer == "full_cover")
+        want = suffix_filter.piece_interval_search_plain(fm, r, ln, P, max_len, tab, kj,
+                                                         kmer == "full_cover")
+    assert fm_search_cuda.backward_search_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int((want[1] > want[0]).sum()) > 0
+
+
+STAIRCASE_CARD_CASES = [
+    dict(k=2), dict(k=1), dict(k=2, n_slots=1), dict(k=2, n_slots=64), dict(k=2, keep=1),
+    dict(k=3, narrow_left=True), dict(k=2, n_slots=64, narrow_left=True),
+    dict(k=2, n_slots=2, narrow_left=True, keep=3), dict(k=2, max_len=20),
+]
+
+
+@pytest.mark.parametrize("kw", STAIRCASE_CARD_CASES,
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_staircase_kernel_equals_plain(cuda, kw):
+    """The staircase pools (lo, hi, overflow, every slot) and the
+    candidates after the tail, kernel against the plain loop on the card."""
+    from genome_weaver_align_tpu_torch.models import staircase
+
+    codes, fwd, rev, bd, _ = _fm_genome(40)
+    bi = bd.from_host_bi(fwd, rev, cuda)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 41))
+    kw = dict(kw)
+    k = kw.pop("k")
+    before = staircase_cuda.staircase_pools_cuda.launches
+    got = staircase.staircase_pools(bi, r, ln, k, **kw)
+    assert staircase_cuda.staircase_pools_cuda.launches == before + 1
+    want = staircase.staircase_pools_plain(bi, r, ln, k, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int((want[1] > want[0]).sum()) > 0
+    cands = staircase.staircase_filter_candidates(bi, r, ln, k, **kw)
+    with mock.patch.object(staircase, "staircase_pools", staircase.staircase_pools_plain):
+        plain = staircase.staircase_filter_candidates(bi, r, ln, k, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(cands, plain))
+
+
+@pytest.mark.parametrize("n_slots", [1, 4, 48, 64])
+@pytest.mark.parametrize("max_len", [None, 7])
+def test_one_mismatch_kernel_equals_plain(cuda, n_slots, max_len):
+    """cand_lo, cand_hi (dead slots' stale intervals included) and
+    overflow, kernel against the plain loop on the card."""
+    from genome_weaver_align_tpu_torch.models import one_mismatch
+
+    codes, fwd, rev, bd, _ = _fm_genome(50)
+    bi = bd.from_host_bi(fwd, rev, cuda)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 51, subs=1))
+    before = one_mismatch_cuda.one_mismatch_candidates_cuda.launches
+    got = one_mismatch.one_mismatch_candidates(bi, r, ln, max_len, n_slots)
+    assert one_mismatch_cuda.one_mismatch_candidates_cuda.launches == before + 1
+    want = one_mismatch.one_mismatch_candidates_plain(bi, r, ln, max_len, n_slots)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int((want[1] > want[0]).sum()) > 0
+
+
+def test_fm_kernels_where_every_spine_dies_at_once(cuda):
+    """A genome without code 3 and reads whose pieces and halves end in 3:
+    all three kernels equal their plain loops; also B = 0."""
+    from genome_weaver_align_tpu_torch.models import exact, one_mismatch, staircase
+
+    codes, fwd, rev, bd, _ = _fm_genome(60, alphabet=3)
+    bi = bd.from_host_bi(fwd, rev, cuda)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 61, dying=True))
+    for a, b in ((staircase.staircase_pools(bi, r, ln, 2),
+                  staircase.staircase_pools_plain(bi, r, ln, 2)),
+                 (staircase.staircase_pools(bi, r, ln, 2, narrow_left=True),
+                  staircase.staircase_pools_plain(bi, r, ln, 2, narrow_left=True)),
+                 (one_mismatch.one_mismatch_candidates(bi, r, ln),
+                  one_mismatch.one_mismatch_candidates_plain(bi, r, ln)),
+                 (suffix_filter.piece_interval_search(bi.fwd, r, ln, 3),
+                  suffix_filter.piece_interval_search_plain(bi.fwd, r, ln, 3)),
+                 (exact.exact_interval_search(bi.fwd, r[:0], ln[:0]),
+                  exact.exact_interval_search_plain(bi.fwd, r[:0], ln[:0]))):
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_fm_kernels_reject_what_they_cannot_take(cuda):
+    codes, fwd, rev, bd, _ = _fm_genome(70)
+    bi = bd.from_host_bi(fwd, rev, cuda)
+    r = torch.zeros((4, 20), dtype=torch.int32, device=cuda)
+    ln = torch.full((4,), 20, dtype=torch.int32, device=cuda)
+    cpu_fm = rank.from_host(fwd, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        fm_search_cuda.backward_search_cuda(cpu_fm, r, ln, 1, 5)
+    shifted = torch.empty(bi.fwd.blocks.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    shifted = shifted.view(bi.fwd.blocks.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fm_search_cuda.backward_search_cuda(
+            rank.DeviceFMIndex(shifted, *[getattr(bi.fwd, f) for f in
+                                          ("C", "primary", "mark_blocks", "mark_cp",
+                                           "ssa_values", "n", "sample_rate")]), r, ln, 1, 5)
+    with pytest.raises(ValueError, match="n_slots=65"):
+        staircase_cuda.staircase_pools_cuda(bi, r, ln, 2, 65, 8, 7, 14, 14, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r.t().contiguous().t(), ln, 5, 48)
+    with pytest.raises(ValueError, match="int32"):
+        one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r.long(), ln, 5, 48)

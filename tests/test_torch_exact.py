@@ -48,7 +48,7 @@ def setup():
 @pytest.mark.parametrize("max_len", [None, 12])
 def test_exact_interval_search_matches_jax(setup, kmer_j, max_len):
     _, fm, reads, lengths = setup
-    jfm, pfm = j_rank.from_host(fm), rank.from_host(fm)
+    jfm, pfm = j_rank.from_host(fm), rank.from_host(fm, "cpu")
     jtab = ptab = None
     if kmer_j:
         lo, hi = build_kmer_table(fm, kmer_j)
@@ -69,7 +69,7 @@ def test_exact_interval_search_matches_jax(setup, kmer_j, max_len):
 @pytest.mark.parametrize("max_hits", [1, 8])
 def test_locate_hits_matches_jax(setup, max_hits):
     codes, fm, reads, lengths = setup
-    jfm, pfm = j_rank.from_host(fm), rank.from_host(fm)
+    jfm, pfm = j_rank.from_host(fm), rank.from_host(fm, "cpu")
     lo, hi = j_exact.exact_interval_search(jfm, jnp.asarray(reads), jnp.asarray(lengths))
     want = j_exact.locate_hits(jfm, lo, hi, max_hits)
     got = exact.locate_hits(pfm, torch.from_numpy(np.array(lo)), torch.from_numpy(np.array(hi)),

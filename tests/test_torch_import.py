@@ -11,7 +11,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, myers_cuda
+from genome_weaver_align_tpu_torch.ops import (
+    dp, dp_cuda, fm_search_cuda, myers_cuda, one_mismatch_cuda, staircase_cuda,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "genome_weaver_align_tpu_torch"
@@ -28,7 +30,8 @@ from genome_weaver_align_tpu_torch.index import device_build, multi, multipart_i
 from genome_weaver_align_tpu_torch.models import long_read, paired, pipeline, suffix_filter
 from genome_weaver_align_tpu_torch.models import bidirectional, exact, one_mismatch, staircase
 from genome_weaver_align_tpu_torch.ops import (
-    affine, dp, dp_cuda, myers, myers_cuda, rank, ring_cuda, window,
+    affine, dp, dp_cuda, fm_search_cuda, myers, myers_cuda, one_mismatch_cuda, rank, ring_cuda,
+    staircase_cuda, window,
 )
 from genome_weaver_align_tpu_torch.parallel import (
     mesh, multihost, ring, sharded_index, sharded_pipeline,
@@ -110,7 +113,8 @@ def test_port_source_never_imports_the_jax_package():
     assert offenders == []
 
 
-@pytest.mark.parametrize("binding", [dp_cuda, myers_cuda])
+@pytest.mark.parametrize("binding", [dp_cuda, myers_cuda, fm_search_cuda, staircase_cuda,
+                                     one_mismatch_cuda])
 def test_kernel_loader_names_missing_nvcc(monkeypatch, tmp_path, binding):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))  # a toolkit dir without nvcc
     binding._library.cache_clear()

@@ -61,7 +61,7 @@ def _both(setup, reads, lengths, **kw):
 
 def _positions(fwd, cand_lo, cand_hi, max_hits=8):
     B, C = cand_lo.shape
-    pos, valid = exact.locate_hits(rank.from_host(fwd), cand_lo.reshape(-1),
+    pos, valid = exact.locate_hits(rank.from_host(fwd, "cpu"), cand_lo.reshape(-1),
                                    cand_hi.reshape(-1), max_hits)
     pos, valid = pos.reshape(B, -1).numpy(), valid.reshape(B, -1).numpy()
     return [set(pos[i][valid[i]].tolist()) for i in range(B)]

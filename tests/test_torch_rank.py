@@ -29,7 +29,7 @@ def fms(request):
     """One ~20 kbp random genome per sample rate, both packages' tables."""
     codes = np.random.default_rng(40).integers(0, 4, size=20_011, dtype=np.uint8)
     fm = build_fm_index(codes, sample_rate=request.param, keep_full_sa=True)
-    return fm, j_rank.from_host(fm), rank.from_host(fm)
+    return fm, j_rank.from_host(fm), rank.from_host(fm, "cpu")
 
 
 def _rows(fm, rng, size=3000):
@@ -61,7 +61,7 @@ def test_from_arrays_equals_from_host(fms):
     got = rank.from_arrays(
         rank.fuse_blocks(fm.bwt_words, fm.occ_cp), fm.C, fm.primary,
         marks._wpad.reshape(-1, rank.MARK_WORDS_PER_BLOCK), marks.checkpoints,
-        fm.ssa_values, fm.n, fm.sample_rate,
+        fm.ssa_values, fm.n, fm.sample_rate, device="cpu",
     )
     for name in ("blocks", "C", "mark_blocks", "mark_cp", "ssa_values"):
         assert torch.equal(getattr(got, name), getattr(pfm, name)), name

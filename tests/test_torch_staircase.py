@@ -133,7 +133,7 @@ def test_staircase_prunes_vs_pigeonhole(setup):
     lengths = np.full(B, L, np.int32)
     st = _both(setup, reads, lengths, k)
     ph = suffix_filter.pigeonhole_candidates(
-        rank.from_host(fwd), torch.from_numpy(reads), torch.from_numpy(lengths), k + 1, 16)
+        rank.from_host(fwd, "cpu"), torch.from_numpy(reads), torch.from_numpy(lengths), k + 1, 16)
     for i in range(B):
         sset = set(int(x) for x in st.cand_pos[i].tolist() if x != NO_CAND)
         pset = set(int(x) for x in ph.cand_pos[i].tolist() if x != NO_CAND)

@@ -173,7 +173,7 @@ def fm_setup(setup):
     setup genome (its tiled repeat gives wide intervals -> overflow)."""
     fm = build_fm_index(setup["codes"], sample_rate=8)
     lo, hi = build_kmer_table(fm, 5)
-    return dict(jfm=j_rank.from_host(fm), pfm=rank.from_host(fm), kmer=(lo, hi), j=5)
+    return dict(jfm=j_rank.from_host(fm), pfm=rank.from_host(fm, "cpu"), kmer=(lo, hi), j=5)
 
 
 def _search(s):

@@ -95,7 +95,7 @@ def test_exact_search_wavelet_equals_fused_and_jax(seed, B, L):
     lo, hi = wavelet.exact_search_wavelet(
         dw, torch.from_numpy(fm.C.astype(np.int32)), int(fm.primary), r, ln)
     assert lo.dtype == hi.dtype == torch.int32
-    flo, fhi = exact.exact_interval_search(rank.from_host(fm), r, ln)
+    flo, fhi = exact.exact_interval_search(rank.from_host(fm, "cpu"), r, ln)
     assert torch.equal(lo, flo) and torch.equal(hi, fhi)
     jlo, jhi = j_wavelet.exact_search_wavelet(
         j_wavelet.to_device(j_wavelet.WaveletRank(packing.unpack(fm.bwt_words, fm.n))),
