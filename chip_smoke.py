@@ -174,7 +174,13 @@ per line, and exits non-zero at the first phase that fails:
    wall: the stage the kernel replaced), the bound (the rows this run's
    data fetches, 48 B each, and their integer work) and the latency floor
    (its sequential steps times one dependent step, measured on one lane
-   of 8,192 backward steps) are printed.
+   of 8,192 backward steps) are printed.  The staircase and one-mismatch
+   kernels are also held and timed at each group size (1-32 lanes a pool,
+   or a read's case; the bindings pick one from the shape), the live slots
+   of each non-empty staircase pool-step are counted (mean and maximum), and
+   so are the one-mismatch search's case-B dead chains (distinct dead lo
+   values a read and step, a row each for bit-equal outputs), with the
+   bound that adds them beside the live-only one.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after.  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
@@ -246,6 +252,13 @@ WAVELET_READS, WAVELET_L = 65_536, 36
 FM_KMER_J = 10  # a 4^10-entry k-mer table (8 MB)
 STAIR_COHORT = 256  # a tier-2 call's padded cohort ([12]) and a rescue chunk's reads ([15])
 RESCUE_SLOTS = 64  # the multi-part rescue's pools
+# the shapes on either side of the bindings' lane choices: larger tier-2
+# cohorts (padded to powers of two, up to the pipeline's 4,096-read chunk),
+# the multi-part rescue's own chunk, and smaller --mode batches
+STAIR_COHORTS = (512, 1_024, 2_048, 4_096)
+RESCUE_CHUNK = 1_024
+MODE_SUBSETS = (1_024, 4_096)
+ONEMM_SUBSETS = (512, 2_048, 4_096)
 CHAIN_L = 8_192  # one read this long, one lane: the dependent-step latency
 FM_ROW_BYTES = 48  # one fused row: 8 BWT words and 4 checkpoints
 # Least integer instructions a fused row, as csrc/fm_occ.cuh counts it: for
@@ -494,8 +507,9 @@ def phase_kernel(torch, dev, card):
             f.result()
     log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu and "
         f"one_mismatch.cu with nvcc for sm_90a in {time.time() - t0:.1f} s; ptxas: fm_search "
-        f"{ptxas_usage('fm_search.cu', 'backward_search_kernel')}, staircase "
-        f"{ptxas_usage('staircase.cu', 'staircase_kernel')}, one_mismatch "
+        f"{ptxas_usage('fm_search.cu', 'backward_search_kernel')}, staircase (a slot a lane) "
+        f"{ptxas_usage('staircase.cu', 'staircase_kernelILi1E')}, staircase (two slots a "
+        f"lane) {ptxas_usage('staircase.cu', 'staircase_kernelILi2E')}, one_mismatch "
         f"{ptxas_usage('one_mismatch.cu', 'one_mismatch_kernel')}")
     Q = BATCH * VERIFY_SLACK
     max_err = 0
@@ -2437,9 +2451,11 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     """Each FM search kernel against its plain version on every output field
     (lo, hi, overflow and every slot), at each path's shape on the index
     that path uses, then at the edges; kernel, plain (device time and the
-    eager loop's wall), bound and latency floor timed at each shape.
-    -> {entry: {"err", "ms", "plain_ms", "stage_ms", "bound", "floor_ms",
-    "shape"}}."""
+    eager loop's wall), bound and latency floor timed at each shape; the
+    staircase and one-mismatch kernels also at every group size (lanes a
+    pool or a read's case), with the live slots a staircase pool-step and
+    case B's dead chains counted.  -> {entry: {"err", "ms", "plain_ms",
+    "stage_ms", "bound", "floor_ms", "shape", and those counts}}."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch import cli
@@ -2447,7 +2463,7 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     from genome_weaver_align_tpu_torch.index.kmer import build_kmer_table
     from genome_weaver_align_tpu_torch.models import bidirectional as bd
     from genome_weaver_align_tpu_torch.models import exact, one_mismatch, staircase, suffix_filter
-    from genome_weaver_align_tpu_torch.ops import rank
+    from genome_weaver_align_tpu_torch.ops import one_mismatch_cuda, rank, staircase_cuda
     from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 
     def search_codes(r):
@@ -2495,12 +2511,26 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
         extensions, two row fetches each, the only ones this run's data
         needs.  With ``spine_with_slots`` (the one-mismatch search) the
         update of a (B, S) slot pool is part of the step of the (B,) spine
-        update just before it.  -> (outputs, live extensions, sequential
-        steps with one or more)."""
-        real, counts = rank.step_where, []
+        update just before it, and the second search's (case B's) slot
+        updates also count each active read's distinct dead lo values (its
+        dead chains, one row each for bit-equal outputs).  A (P, B, S)
+        staircase pool update counts the live slots of each active pool
+        that has any.  -> (outputs, live extensions, sequential steps with
+        one or more, extra counts)."""
+        real, counts, pools, chains = rank.step_where, [], [], []
 
         def counting(active, new, old):
-            counts.append((int((active & (old[1] > old[0])).sum()), old[0].dim() > 1))
+            live = active & (old[1] > old[0])
+            counts.append((int(live.sum()), old[0].dim() > 1))
+            if old[0].dim() == 3:  # a staircase pool update
+                per_pool = live.sum(-1)
+                pools.append((int((per_pool > 0).sum()), int(per_pool.sum()),
+                              int(per_pool.max()) if per_pool.numel() else 0))
+            if spine_with_slots and old[0].dim() == 2:  # a one-mismatch slot update
+                dead_lo = torch.where(active & (old[1] <= old[0]), old[0], -1)
+                srt = dead_lo.sort(dim=1).values
+                chains.append(int(((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum()
+                                  + (srt[:, 0] >= 0).sum()))
             return real(active, new, old)
 
         with mock.patch.object(rank, "step_where", counting):
@@ -2512,14 +2542,40 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
             else:
                 steps += live > 0
                 spine_live = live > 0
-        return want, sum(live for live, _ in counts), steps
+        extra = {}
+        if pools:
+            busy = sum(n for n, _, _ in pools)
+            extra = dict(nonempty_pool_steps=busy,
+                         live_slots_mean=sum(n for _, n, _ in pools) / max(busy, 1),
+                         live_slots_max=max(m for _, _, m in pools))
+        if chains:
+            extra = dict(dead_chains=sum(chains[len(chains) // 2:]))  # case B: the second search
+        return want, sum(live for live, _ in counts), steps, extra
 
-    def measure(name, shape, kernel, plain, ops_per_row, io_bytes, spine_with_slots=False):
+    def lane_sweep(name, binding, kernel, want):
+        """The kernel at each group size (lanes a pool or a read's case),
+        held against the plain outputs and timed; -> {lanes: ms}, empty for
+        a checkout whose binding has no lane choice to sweep (one timed
+        against this script by ``scripts/fm_kernels_ab.py``)."""
+        times = {}
+        if not hasattr(binding, "lanes_for"):
+            return times
+        for g in (1, 2, 4, 8, 16, 32):
+            with mock.patch.object(binding, "lanes_for", lambda *shape, g=g: g):
+                err = err_of(kernel(), want)
+                check(err == 0, f"[18] {name}: the kernel with {g} lanes a group differs from "
+                      f"its plain version by {err}")
+                times[g] = cuda_time_ms(kernel, reps=10, hide_host=True)
+        return times
+
+    def measure(name, shape, kernel, plain, ops_per_row, io_bytes, spine_with_slots=False,
+                binding=None):
         """Kernel against plain on every field, then timed; the bound counts
         the rows this run's data fetches (two a live extension) and the
-        latency floor its sequential steps."""
+        latency floor its sequential steps.  With ``binding`` the kernel is
+        also held and timed at every group size."""
         got = kernel()
-        want, live, steps = live_extensions(plain, spine_with_slots)
+        want, live, steps, extra = live_extensions(plain, spine_with_slots)
         torch.cuda.synchronize()
         err = err_of(got, want)
         check(err == 0, f"[18] {name}: the kernel differs from its plain version by {err}")
@@ -2532,12 +2588,28 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
         rows = 2 * live
         b = bound(rows * FM_ROW_BYTES + io_bytes, rows * ops_per_row)
         floor_ms = steps * step_us / 1e3
+        note = ""
+        if "dead_chains" in extra:  # what bit-equal outputs force on top: a row a chain
+            chains = extra["dead_chains"]
+            b_chains = bound((rows + chains) * FM_ROW_BYTES + io_bytes,
+                             rows * ops_per_row + chains * FM_OPS_PER_ROW_ONE)
+            extra["bound_with_dead_chains_ms"] = b_chains[0]
+            note = (f"; case B's distinct dead chains {chains} (a row each): bound with them "
+                    f"{b_chains[0]:.4f} ms by {b_chains[1]}")
+        if "live_slots_mean" in extra:
+            note = (f"; live slots a non-empty active pool-step: mean "
+                    f"{extra['live_slots_mean']:.4f}, max {extra['live_slots_max']} over "
+                    f"{extra['nonempty_pool_steps']} pool-steps")
+        if binding is not None and hasattr(binding, "lanes_for"):
+            extra["lanes_ms"] = lane_sweep(name, binding, kernel, want)
+            note += "; by lanes a group: " + ", ".join(
+                f"{g} {t:.4f} ms" for g, t in extra["lanes_ms"].items())
         out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, bound=b,
-                         floor_ms=floor_ms, shape=shape)
+                         floor_ms=floor_ms, shape=shape, **extra)
         log(f"[18] {name} ({shape}): equal on every field; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms on the device, eager loop wall {stage_ms:.3f} ms; bound "
             f"{b[0]:.4f} ms by {b[1]} ({rows} row fetches); latency floor {floor_ms:.4f} ms "
-            f"({steps} sequential steps) ({card})")
+            f"({steps} sequential steps){note} ({card})")
 
     # ---- the backward search on the [4] index: -k 0's and [7]'s shapes
     t0 = time.time()
@@ -2570,25 +2642,36 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
 
     # ---- the staircase: --mode staircase's shape on the [4] index
     def stair(bi, r, name, shape, **kw):
+        """A narrowing pool takes a whole warp (no group size to sweep)."""
         ln = lens(r.shape[0])
         keep = kw.get("keep", 8)
         measure(name, shape, lambda: staircase.staircase_pools(bi, r, ln, K, **kw),
                 lambda: staircase.staircase_pools_plain(bi, r, ln, K, **kw),
-                FM_OPS_PER_ROW_ALL4, r.numel() * 4 + r.shape[0] * (4 + (K + 1) * (8 * keep + 1)))
+                FM_OPS_PER_ROW_ALL4, r.numel() * 4 + r.shape[0] * (4 + (K + 1) * (8 * keep + 1)),
+                binding=None if kw.get("narrow_left") else staircase_cuda)
 
     mode_r, _, _, _ = simulate_reads_array(codes, MODE_READS, L, seed=11, max_subs=2)
     stair(fm, both_strands(mode_r), "staircase, --mode staircase",
           f"2 x {MODE_READS} lanes, k = {K}, 16 slots, keep 8")
+    for n in MODE_SUBSETS:
+        stair(fm, both_strands(mode_r[:n]), f"staircase, --mode staircase, {n} reads",
+              f"2 x {n} lanes, k = {K}, 16 slots, keep 8")
 
     # ---- the one-mismatch search on the [4] index: --mode onemm's shape
     mm_r, _, _, _ = simulate_reads_array(codes, MODE_READS, L, seed=62, max_subs=1)
+
+    def onemm(name, r):
+        ln = lens(r.shape[0])
+        measure(name, f"{r.shape[0]} reads x {L}, 48 slots",
+                lambda: one_mismatch.one_mismatch_candidates(fm, r, ln),
+                lambda: one_mismatch.one_mismatch_candidates_plain(fm, r, ln),
+                FM_OPS_PER_ROW_ALL4, r.numel() * 4 + r.shape[0] * (4 + 97 * 8 + 1),
+                spine_with_slots=True, binding=one_mismatch_cuda)
+
     mr = search_codes(mm_r)
-    mln = lens(mr.shape[0])
-    measure("one-mismatch", f"{MODE_READS} reads x {L}, 48 slots",
-            lambda: one_mismatch.one_mismatch_candidates(fm, mr, mln),
-            lambda: one_mismatch.one_mismatch_candidates_plain(fm, mr, mln),
-            FM_OPS_PER_ROW_ALL4, mr.numel() * 4 + mr.shape[0] * (4 + 97 * 8 + 1),
-            spine_with_slots=True)
+    onemm("one-mismatch", mr)
+    for n in ONEMM_SUBSETS:
+        onemm(f"one-mismatch, {n} reads", mr[:n].contiguous())
 
     # ---- edges on the [4] index: reads of length 0, 1 and < P, N codes
     # mapped to 0, a 1-slot pool (it overflows every step), keep 1
@@ -2640,7 +2723,17 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
           "keep 8, repeat index")
     stair(rbi, cr, "staircase, rescue", f"2 x {STAIR_COHORT} lanes, k = {K}, {RESCUE_SLOTS} "
           "slots, narrow_left, keep 8, repeat index", n_slots=RESCUE_SLOTS, narrow_left=True)
-    del rbi, rep, cr
+    coh, _, _, _ = simulate_reads_array(rep_codes, max(STAIR_COHORTS), L, seed=14, max_subs=2)
+    for n in STAIR_COHORTS:
+        stair(rbi, both_strands(coh[:n]), f"staircase, tier-2 call, {n} reads",
+              f"2 x {n} lanes, k = {K}, 16 slots, keep 8, repeat index")
+    chunk = both_strands(coh[:RESCUE_CHUNK])
+    for narrow in (False, True):
+        stair(rbi, chunk, f"staircase, rescue chunk{', narrow_left' * narrow}",
+              f"2 x {RESCUE_CHUNK} lanes, k = {K}, {RESCUE_SLOTS} slots"
+              f"{', narrow_left' * narrow}, keep 8, repeat index", n_slots=RESCUE_SLOTS,
+              narrow_left=narrow)
+    del rbi, rep, cr, chunk
     torch.cuda.empty_cache()
     return out
 
@@ -2662,10 +2755,13 @@ def fm_rows(fm_k, fm_cli_launches, tier2_staircase, mode_launches, mp_launches) 
     after), the eager loop's wall (``stage_ms``) and the latency floor."""
     def row(name, source, replaces, entry, path, launches, by_path):
         r = fm_k[entry]
+        extra = {key: r[key] for key in ("dead_chains", "bound_with_dead_chains_ms",
+                                         "live_slots_mean", "live_slots_max", "lanes_ms")
+                 if key in r}
         return kernel_row(name, source, replaces, path, launches, r["err"],
                           (r["ms"], r["plain_ms"], *r["bound"], None), stage_ms=r["stage_ms"],
                           latency_floor_ms=r["floor_ms"], shape=r["shape"],
-                          launches_by_path=by_path)
+                          launches_by_path=by_path, **extra)
 
     back = {"[7] align (FM pigeonhole pieces)": fm_cli_launches,
             "[13] align -k 0": mode_launches["-k 0"]["backward"]}

@@ -1,5 +1,6 @@
 // FM-index occurrence counts and bidirectional extensions on one fused row,
-// shared by fm_search.cu, staircase.cu and one_mismatch.cu.  No kernel.
+// shared by fm_search.cu, staircase.cu and one_mismatch.cu, and the block
+// size of a launch of lane groups (block_threads).  No kernel.
 //
 // The tables are the port's DeviceFMIndex (ops/rank.py): `blocks` holds one
 // 12-word row per 128-base block, [8 BWT words | occ checkpoints A, C, G, T],
@@ -21,6 +22,9 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <cstddef>
 #include <cstdint>
 
 namespace gwa {
@@ -160,6 +164,23 @@ __device__ __forceinline__ FMTable load_table(const int* blocks, const int* C, i
 // by the caller); codes are 0..3, and & 3 keeps a stray code in the table.
 __device__ __forceinline__ int code_at(const int* row, int L, int j) {
   return L > 0 ? (__ldg(row + min(max(j, 0), L - 1)) & 3) : 0;
+}
+
+// Threads a block for groups of `lanes` lanes needing `group_bytes` of
+// shared memory each: `threads`, halved while the block's shared memory is
+// more than the device allows a block, down to one warp; 0 when one warp's
+// groups do not fit.  The shared memory is returned in `smem`.
+inline int block_threads(int threads, int lanes, size_t group_bytes, size_t& smem) {
+  int device = 0, most = 48 * 1024;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess)
+    most = 48 * 1024;
+  for (; threads >= 32; threads /= 2) {
+    smem = static_cast<size_t>(threads / lanes) * group_bytes;
+    if (smem <= static_cast<size_t>(most)) return threads;
+  }
+  return 0;
 }
 
 __device__ __forceinline__ unsigned lanes_below() {

@@ -1,6 +1,6 @@
-// Staircase suffix-filter search on Hopper (sm_90a): one warp a (piece,
-// read) pool, the whole search in one launch, up to and including the
-// compaction of each pool to its `keep` best slots.
+// Staircase suffix-filter search on Hopper (sm_90a): one group of G lanes a
+// (piece, read) pool, the whole search in one launch, up to and including
+// the compaction of each pool to its `keep` best slots.
 //
 // Replaces the JAX package's device loops of
 // genome_weaver_align_tpu/models/staircase.py: the spine (:131), the forward
@@ -24,21 +24,35 @@
 //   keep    the first `keep` live slots, in slot order, are the output; the
 //           pool overflows when more were live.
 //
-// An inactive pool keeps its state, so a warp leaves a phase at its first
-// inactive step; a pool with no live slot stays empty (a dead parent has only
-// dead children), so it leaves the search there.  Either way the output is
-// the plain version's.
+// The pool is packed after every step (kept children have non-empty
+// intervals), so its live slots are exactly [0, live), and the kernel keeps
+// `live` instead of zeroing the rest: slots past it are never read, and the
+// output writes zeros past it, as the plain version's zeroed slots give.  An
+// inactive pool keeps its state, so a group leaves a phase at its first
+// inactive step, and a pool with no live slot stays empty (a dead parent has
+// only dead children), so it leaves the search there; a warp leaves a phase
+// when all its pools have.  Either way the output is the plain version's.
 //
-// What bounds it: latency where the pools are few (a tier-2 call's 1,536),
-// instruction issue where they are many (--mode staircase's 98,304 pools:
-// every lane counts its slots' rows, live or not, so a pool of one live slot
-// costs a whole warp's work a step).  Every step waits on the 48-byte rows
-// that the previous step chose: 2 a live slot.  Lane l holds slots l and
-// l + 32 (a pool of at most 32 slots skips the second half in every lane),
-// and the rows of both go out before either is used.  The pool lives in shared
-// memory between steps and in registers within one; compaction is a warp
-// ballot and a prefix popcount per child rank, so a step has no block-wide
-// barrier.  Bytes a step a pool: 96 a live slot plus 4 of read.
+// Where the lanes go: group lane 0 builds the spine (one lane, not 32
+// alike); a step runs passes over the live slots only, H slots a lane
+// (H = 2 only for a whole warp on more than 32 slots, so one pass covers
+// them), and a lane past `live` issues no load and no count.  The children
+// go to the pool's other buffer (two buffers of n_slots slots: lo, hi,
+// rlo, mm; rhi = rlo + hi - lo), placed by a ballot and prefix popcount
+// masked to the group: slot-major, a lane's kept children are consecutive
+// (three ballots of its count); rank-major, one ballot a rank, and a
+// rank's children start after every earlier rank's, so the step must see
+// every parent in one pass: a narrowing pool always takes a whole warp.
+//
+// What bounds it: latency where the pools are few, instruction issue
+// where they are many.  The binding gives a pool enough lanes for its slots
+// in one pass (16 for a tier-2 call's 16 slots, a warp for the rescue's 64)
+// and halves them as the launch outgrows the card, down to one lane a pool
+// at --mode staircase's 98,304 pools (about one live slot a non-empty
+// pool-step there: a warp counts 32 pools' rows at once); a narrowing pool
+// always takes a warp.  Every step waits on the 48-byte rows the previous
+// step chose: 2 a live slot, requested before either is counted.  Bytes a
+// step a pool: 96 a live slot plus 4 of read.
 //
 // Entry: gwa_staircase, a plain C function bound with ctypes; it launches on
 // the caller's stream, does not synchronise, allocates nothing, and returns
@@ -52,7 +66,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // pools a block
+constexpr int kThreads = 128;  // a block: 4 warps, fewer where shared memory runs short
 constexpr int kMaxSlots = 64;
 constexpr int kMaxPieces = 32;
 constexpr unsigned kAll = 0xFFFFFFFFu;
@@ -63,226 +77,275 @@ struct StairArgs {
   int* out_lo;         // (P, B, keep)
   int* out_hi;
   unsigned char* overflow;  // (P, B) bool
-  int B, L, P, k, n_slots, keep, spine_steps, fwd_steps, bwd_steps, n;
+  int B, L, P, k, n_slots, keep, spine_steps, fwd_steps, bwd_steps, n, lanes;
   bool narrow_left;
 };
 
-struct Pool {
-  int lo[kMaxSlots], hi[kMaxSlots], rlo[kMaxSlots], rhi[kMaxSlots], mm[kMaxSlots];
+// A group's lanes: its size, this lane's place in it, and ballot masks.
+struct Group {
+  int G, gl;
+  unsigned mask, below;
 };
 
-// Stable compaction of a warp's children into the pool: writes each kept
-// child to slot base + (its rank among the kept children of this round)
-// when that is below n_slots, and returns the round's kept count.
-__device__ __forceinline__ int place(Pool& pool, int n_slots, int base, bool keep, int lo, int hi,
-                                     int rlo, int rhi, int mm) {
-  const unsigned ballot = __ballot_sync(kAll, keep);
-  const int dest = base + __popc(ballot & gwa::lanes_below());
-  if (keep && dest < n_slots) {
-    pool.lo[dest] = lo;
-    pool.hi[dest] = hi;
-    pool.rlo[dest] = rlo;
-    pool.rhi[dest] = rhi;
-    pool.mm[dest] = mm;
-  }
-  return __popc(ballot);
+// A pool buffer: lo, hi, rlo, mm of n slots, one array after another.
+struct Slots {
+  int* p;
+  int n;
+  __device__ int& lo(int s) const { return p[s]; }
+  __device__ int& hi(int s) const { return p[n + s]; }
+  __device__ int& rlo(int s) const { return p[2 * n + s]; }
+  __device__ int& mm(int s) const { return p[3 * n + s]; }
+};
+
+// A parent slot as read from the pool, with its two rows requested.
+struct Parent {
+  int lo, hi, rlo, mm;
+  gwa::FusedRow ra, rb;
+};
+
+// The children of a parent, by code (lo, hi, rlo), and the bits of those
+// kept under the budget.
+struct Kids {
+  int lo[4], hi[4], rlo[4], mm;
+  unsigned keep;
+};
+
+__device__ __forceinline__ void fetch(const Slots& src, int s, const gwa::FMTable& tab,
+                                      bool forward, Parent& p) {
+  p.lo = src.lo(s);
+  p.hi = src.hi(s);
+  p.rlo = src.rlo(s);
+  p.mm = src.mm(s);
+  p.ra = gwa::load_row(tab, forward ? p.rlo : p.lo);
+  p.rb = gwa::load_row(tab, forward ? p.rlo + p.hi - p.lo : p.hi);
 }
 
-// One all-4 expansion of every live slot and the compaction of the kept
-// children; returns the number kept (which may exceed n_slots).
-__device__ int expand_step(Pool& pool, const gwa::FMTable& fwd, const gwa::FMTable& rev,
-                           bool forward, int n_slots, int c, int budget, bool rank_major) {
-  const int lane = threadIdx.x & 31;
-  const int halves = n_slots > 32 ? 2 : 1;  // the same in every lane of the warp
-  gwa::BiIv v[2];
-  int mm[2];
-  bool live[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int s = lane + 32 * h;
-    live[h] = h < halves && s < n_slots && pool.hi[s] > pool.lo[s];
-    v[h] = live[h] ? gwa::BiIv{pool.lo[s], pool.hi[s], pool.rlo[s], pool.rhi[s]}
-                   : gwa::BiIv{0, 0, 0, 0};
-    mm[h] = live[h] ? pool.mm[s] : 0;
-  }
-  // the rows of both slots are requested before any is counted
-  const gwa::FMTable& tab = forward ? rev : fwd;
-  gwa::FusedRow ra[2], rb[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (h < halves) {
-      ra[h] = gwa::load_row(tab, forward ? v[h].rlo : v[h].lo);
-      rb[h] = gwa::load_row(tab, forward ? v[h].rhi : v[h].hi);
-    }
-  }
-  struct {
-    int lo[4], hi[4], rlo[4], rhi[4];
-  } ch[2] = {};  // the children of both slots, by code
-  unsigned keep[2] = {0, 0};  // bit a: child a is kept
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (h >= halves) continue;
-    gwa::Children m;
-    if (forward) {
-      gwa::children_from_rows(tab, ra[h], rb[h], v[h].rlo, v[h].rhi, v[h].lo, m);
-    } else {
-      gwa::children_from_rows(tab, ra[h], rb[h], v[h].lo, v[h].hi, v[h].rlo, m);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      ch[h].lo[a] = forward ? m.olo[a] : m.mlo[a];
-      ch[h].hi[a] = forward ? m.ohi[a] : m.mhi[a];
-      ch[h].rlo[a] = forward ? m.mlo[a] : m.olo[a];
-      ch[h].rhi[a] = forward ? m.mhi[a] : m.ohi[a];
-      const bool ok = mm[h] + (a != c ? 1 : 0) <= budget && ch[h].hi[a] > ch[h].lo[a];
-      keep[h] |= (live[h] && ok ? 1u : 0u) << a;
-    }
-  }
-  __syncwarp();  // every lane has read its parents before any child is written
-  int base = 0;
-  if (rank_major) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int a = r == 0 ? c : (r - 1) + (r - 1 >= c ? 1 : 0);
-#pragma unroll
-      for (int h = 0; h < halves; ++h) {
-        const int kept = place(pool, n_slots, base, (keep[h] >> a) & 1u, gwa::pick4(ch[h].lo, a),
-                               gwa::pick4(ch[h].hi, a), gwa::pick4(ch[h].rlo, a),
-                               gwa::pick4(ch[h].rhi, a), mm[h] + (a != c ? 1 : 0));
-        base += kept;
-      }
-    }
+__device__ __forceinline__ Kids children_of(const Parent& p, const gwa::FMTable& tab,
+                                            bool forward, int c, int budget) {
+  gwa::Children m;
+  if (forward) {
+    gwa::children_from_rows(tab, p.ra, p.rb, p.rlo, p.rlo + p.hi - p.lo, p.lo, m);
   } else {
-#pragma unroll
-    for (int h = 0; h < halves; ++h) {
-      // a lane's kept children are consecutive: the prefix over lanes of
-      // their counts (0..4, three ballots of its bits) places the first
-      const int cnt = __popc(keep[h]);
-      const unsigned below = gwa::lanes_below();
-      const unsigned b0 = __ballot_sync(kAll, cnt & 1), b1 = __ballot_sync(kAll, cnt & 2),
-                     b2 = __ballot_sync(kAll, cnt & 4);
-      int dest = base + __popc(b0 & below) + 2 * __popc(b1 & below) + 4 * __popc(b2 & below);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        if ((keep[h] >> a) & 1u) {
-          if (dest < n_slots) {
-            pool.lo[dest] = ch[h].lo[a];
-            pool.hi[dest] = ch[h].hi[a];
-            pool.rlo[dest] = ch[h].rlo[a];
-            pool.rhi[dest] = ch[h].rhi[a];
-            pool.mm[dest] = mm[h] + (a != c ? 1 : 0);
-          }
-          ++dest;
-        }
-      }
-      base += __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
-    }
+    gwa::children_from_rows(tab, p.ra, p.rb, p.lo, p.hi, p.rlo, m);
   }
-  // slots past the kept children are zeroed in all five fields
+  Kids k;
+  k.mm = p.mm;
+  k.keep = 0;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int s = lane + 32 * h;
-    if (s < n_slots && s >= base) {
-      pool.lo[s] = pool.hi[s] = pool.rlo[s] = pool.rhi[s] = pool.mm[s] = 0;
+  for (int a = 0; a < 4; ++a) {
+    k.lo[a] = forward ? m.olo[a] : m.mlo[a];
+    k.hi[a] = forward ? m.ohi[a] : m.mhi[a];
+    k.rlo[a] = forward ? m.mlo[a] : m.olo[a];
+    const bool ok = k.mm + (a != c ? 1 : 0) <= budget && k.hi[a] > k.lo[a];
+    k.keep |= (ok ? 1u : 0u) << a;
+  }
+  return k;
+}
+
+// The children of the H parents a lane takes in pass q, slots
+// (q H + h) G + gl: every row of the pass is requested before any is
+// counted.  A slot past `live` is no work (no children kept).
+template <int H>
+__device__ __forceinline__ void pass_children(const Slots& src, int live, int q,
+                                              const gwa::FMTable& tab, bool forward, int c,
+                                              int budget, const Group& g, Kids (&k)[H]) {
+  Parent p[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int s = (q * H + h) * g.G + g.gl;
+    if (s < live) fetch(src, s, tab, forward, p[h]);
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int s = (q * H + h) * g.G + g.gl;
+    k[h] = Kids{};
+    if (s < live) k[h] = children_of(p[h], tab, forward, c, budget);
+  }
+}
+
+__device__ __forceinline__ void put(const Slots& dst, int dest, const Kids& k, int a, int mm) {
+  if (dest < dst.n) {
+    dst.lo(dest) = gwa::pick4(k.lo, a);
+    dst.hi(dest) = gwa::pick4(k.hi, a);
+    dst.rlo(dest) = gwa::pick4(k.rlo, a);
+    dst.mm(dest) = mm;
+  }
+}
+
+// One all-4 expansion of the live slots [0, live) of `src` into `dst` and
+// the compaction of the kept children; returns the number kept (which may
+// exceed n_slots).  A pass takes H G parents, H a lane.  Every lane of the
+// warp calls it (the ballots are warp-wide); a group with live == 0 takes
+// part with no work.
+template <int H>
+__device__ int expand_step(const Slots& src, const Slots& dst, int live, const gwa::FMTable& tab,
+                           bool forward, int c, int budget, bool rank_major, const Group& g) {
+  const int passes = (live + H * g.G - 1) / (H * g.G);  // the same in every lane of a group
+  Kids k[H];
+  int base = 0;
+  if (!rank_major) {
+    for (int q = 0; __any_sync(kAll, q < passes); ++q) {
+      pass_children<H>(src, live, q, tab, forward, c, budget, g, k);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        // a lane's kept children are consecutive: the prefix over the
+        // group's lanes of their counts (0..4, three ballots of its bits)
+        // places the first
+        const int cnt = __popc(k[h].keep);
+        const unsigned b0 = __ballot_sync(kAll, cnt & 1) & g.mask,
+                       b1 = __ballot_sync(kAll, cnt & 2) & g.mask,
+                       b2 = __ballot_sync(kAll, cnt & 4) & g.mask;
+        int dest = base + __popc(b0 & g.below) + 2 * __popc(b1 & g.below) +
+                   4 * __popc(b2 & g.below);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          if ((k[h].keep >> a) & 1u) put(dst, dest++, k[h], a, k[h].mm + (a != c ? 1 : 0));
+        }
+        base += __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+      }
+    }
+    __syncwarp();
+    return base;
+  }
+  // rank-major: rank 0 is child c, ranks 1..3 the other codes in order; a
+  // narrowing pool is a whole warp whose one pass covers every live slot
+  // (the entry refuses fewer lanes), so the pass's ballots are the totals
+  pass_children<H>(src, live, 0, tab, forward, c, budget, g, k);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int a = r == 0 ? c : (r - 1) + (r - 1 >= c ? 1 : 0);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const bool kept = (k[h].keep >> a) & 1u;
+      const unsigned bal = __ballot_sync(kAll, kept);
+      if (kept) put(dst, base + __popc(bal & g.below), k[h], a, k[h].mm + (a != c));
+      base += __popc(bal);  // placed so far: earlier ranks, then earlier parents
     }
   }
   __syncwarp();
   return base;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// H: parents a lane takes in one pass (2 for a whole warp on a pool of more
+// than 32 slots, so that one pass requests every live slot's rows).  The
+// minimum blocks an SM cap the registers: H = 1 at 5 blocks (96 registers;
+// one lane a pool of 16 slots fits 3 blocks in shared memory anyway), H = 2
+// at 3 (168: a rescue call's 1,536 warps in one wave).  Phase [2] of
+// chip_smoke.py prints what ptxas used and spilled.
+template <int H>
+__global__ void __launch_bounds__(kThreads, H == 1 ? 5 : 3)
     staircase_kernel(const StairArgs a, const int* fwd_blocks, const int* fwd_C, int fwd_primary,
                      const int* rev_blocks, const int* rev_C, int rev_primary) {
-  __shared__ Pool pools[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t pool_id = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (pool_id >= static_cast<int64_t>(a.P) * a.B) return;  // whole warps only
-  Pool& pool = pools[warp];
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  Group g;
+  g.G = a.lanes;
+  g.gl = lane & (g.G - 1);
+  const int gbase = lane - g.gl;
+  g.mask = g.G == 32 ? kAll : ((1u << g.G) - 1u) << gbase;
+  g.below = gwa::lanes_below() & g.mask;
+  const int group = threadIdx.x / g.G;
+  const int64_t pool_id = static_cast<int64_t>(blockIdx.x) * (blockDim.x / g.G) + group;
+  const bool valid = pool_id < static_cast<int64_t>(a.P) * a.B;  // else idle in the collectives
+  const int n = a.n_slots;
+  int* const pool = smem + group * 8 * n;  // two buffers of n slots
   const gwa::FMTable fwd = gwa::load_table(fwd_blocks, fwd_C, fwd_primary);
   const gwa::FMTable rev = gwa::load_table(rev_blocks, rev_C, rev_primary);
-  const int p = static_cast<int>(pool_id / a.B), b = static_cast<int>(pool_id % a.B);
-  const int len = __ldg(a.lengths + b);
+  const int p = valid ? static_cast<int>(pool_id / a.B) : 0;
+  const int b = valid ? static_cast<int>(pool_id % a.B) : 0;
+  const int len = valid ? __ldg(a.lengths + b) : 0;
   const int s_p = len * p / a.P, e_p = len * (p + 1) / a.P;
   const int* read = a.reads + static_cast<int64_t>(b) * a.L;
 
-  // ---- spine: piece p built backward (every lane computes it alike)
-  gwa::BiIv spine{0, a.n + 1, 0, a.n + 1};
-  for (int t = 0; t < a.spine_steps; ++t) {
-    const int j = e_p - 1 - t;
-    if (j < s_p || spine.hi <= spine.lo) break;  // an empty spine stays empty
-    spine = gwa::extend_backward(fwd, spine, gwa::code_at(read, a.L, j));
+  // ---- spine: piece p built backward by group lane 0; slot 0 when live
+  int live = 0;
+  if (g.gl == 0 && valid) {
+    gwa::BiIv spine{0, a.n + 1, 0, a.n + 1};
+    for (int t = 0; t < a.spine_steps; ++t) {
+      const int j = e_p - 1 - t;
+      if (j < s_p || spine.hi <= spine.lo) break;  // an empty spine stays empty
+      spine = gwa::extend_backward(fwd, spine, gwa::code_at(read, a.L, j));
+    }
+    if (spine.hi > spine.lo) {
+      const Slots first{pool, n};
+      first.lo(0) = spine.lo;
+      first.hi(0) = spine.hi;
+      first.rlo(0) = spine.rlo;
+      first.mm(0) = 0;
+      live = 1;
+    }
   }
-  for (int s = lane; s < a.n_slots; s += 32) {
-    const bool first = s == 0;
-    pool.lo[s] = first ? spine.lo : 0;
-    pool.hi[s] = first ? spine.hi : 0;
-    pool.rlo[s] = first ? spine.rlo : 0;
-    pool.rhi[s] = first ? spine.rhi : 0;
-    pool.mm[s] = 0;
-  }
+  live = __shfl_sync(kAll, live, gbase);  // the same in every lane of a group
   __syncwarp();
+  int cur = 0;
   bool overflow = false;
 
   // ---- forward staircase through the pieces after p
-  bool empty = spine.hi <= spine.lo;
-  for (int t = 0; t < a.fwd_steps && !empty; ++t) {
+  int piece = p, next_bound = e_p;  // piece_of(j), and where piece + 1 starts
+  for (int t = 0; t < a.fwd_steps; ++t) {
     const int j = e_p + t;
-    if (j >= len) break;
-    int piece_of_j = -1;
-    for (int i = 0; i <= a.P; ++i) piece_of_j += (len * i / a.P <= j) ? 1 : 0;
-    const int live = expand_step(pool, fwd, rev, true, a.n_slots, gwa::code_at(read, a.L, j),
-                                 piece_of_j - p, a.narrow_left);
-    overflow |= live > a.n_slots;
-    empty = live == 0;
+    const bool act = live > 0 && j < len;
+    if (!__any_sync(kAll, act)) break;
+    int c = 0;
+    if (act) {
+      c = gwa::code_at(read, a.L, j);
+      while (next_bound <= j) next_bound = len * (++piece + 1) / a.P;
+    }
+    const int kept = expand_step<H>(Slots{pool + cur * 4 * n, n},
+                                    Slots{pool + (cur ^ 1) * 4 * n, n}, act ? live : 0, rev, true,
+                                    c, piece - p, a.narrow_left, g);
+    if (act) {
+      overflow |= kept > n;
+      live = min(kept, n);
+      cur ^= 1;
+    }
   }
 
   // ---- left narrowing through the pieces before p, budget k
   if (a.narrow_left) {
-    for (int t = 0; t < a.bwd_steps && !empty; ++t) {
+    for (int t = 0; t < a.bwd_steps; ++t) {
       const int j = s_p - 1 - t;
-      if (j < 0) break;
-      const int live = expand_step(pool, fwd, rev, false, a.n_slots,
-                                   gwa::code_at(read, a.L, j), a.k, true);
-      overflow |= live > a.n_slots;
-      empty = live == 0;
+      const bool act = live > 0 && j >= 0;
+      if (!__any_sync(kAll, act)) break;
+      const int c = act ? gwa::code_at(read, a.L, j) : 0;
+      const int kept = expand_step<H>(Slots{pool + cur * 4 * n, n},
+                                      Slots{pool + (cur ^ 1) * 4 * n, n}, act ? live : 0, fwd,
+                                      false, c, a.k, true, g);
+      if (act) {
+        overflow |= kept > n;
+        live = min(kept, n);
+        cur ^= 1;
+      }
     }
   }
 
-  // ---- the first `keep` live slots, in slot order
+  // ---- the first `keep` live slots, in slot order, zeros after them
+  if (!valid) return;
   int* out_lo = a.out_lo + pool_id * a.keep;
   int* out_hi = a.out_hi + pool_id * a.keep;
-  int base = 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int s = lane + 32 * h;
-    const bool live = s < a.n_slots && pool.hi[s] > pool.lo[s];
-    const unsigned ballot = __ballot_sync(kAll, live);
-    const int dest = base + __popc(ballot & gwa::lanes_below());
-    if (live && dest < a.keep) {
-      out_lo[dest] = pool.lo[s];
-      out_hi[dest] = pool.hi[s];
-    }
-    base += __popc(ballot);
+  const Slots last{pool + cur * 4 * n, n};
+  for (int i = g.gl; i < a.keep; i += g.G) {
+    out_lo[i] = i < live ? last.lo(i) : 0;
+    out_hi[i] = i < live ? last.hi(i) : 0;
   }
-  for (int i = lane; i < a.keep; i += 32) {
-    if (i >= base) out_lo[i] = out_hi[i] = 0;
-  }
-  if (lane == 0) a.overflow[pool_id] = (overflow || base > a.keep) ? 1 : 0;
+  if (g.gl == 0) a.overflow[pool_id] = (overflow || live > a.keep) ? 1 : 0;
 }
 
 }  // namespace
 
 // reads (B, L), lengths (B,), the forward and reverse tables' blocks
 // (nb + 1, 12, 16-byte aligned) and C (5,): int32; out_lo / out_hi
-// (P, B, keep) int32, overflow (P, B) bytes.
+// (P, B, keep) int32, overflow (P, B) bytes; lanes a pool: a power of two,
+// 1..32, and 32 under narrow_left.
 extern "C" int gwa_staircase(const void* reads, const void* lengths, int B, int L, int P, int k,
                              int n_slots, int keep, int spine_steps, int fwd_steps, int bwd_steps,
                              int narrow_left, const void* fwd_blocks, const void* fwd_C,
                              int fwd_primary, const void* rev_blocks, const void* rev_C,
                              int rev_primary, int n, void* out_lo, void* out_hi, void* overflow,
-                             void* stream) {
+                             int lanes, void* stream) {
   if (B < 0 || L < 0 || P < 1 || P > kMaxPieces || n_slots < 1 || n_slots > kMaxSlots ||
-      keep < 0)
+      keep < 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      (narrow_left && lanes != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t pools = static_cast<int64_t>(P) * B;
   if (pools == 0) return 0;
@@ -302,9 +365,21 @@ extern "C" int gwa_staircase(const void* reads, const void* lengths, int B, int 
   a.fwd_steps = fwd_steps;
   a.bwd_steps = bwd_steps;
   a.n = n;
+  a.lanes = lanes;
   a.narrow_left = narrow_left != 0;
-  const unsigned grid = static_cast<unsigned>((pools + kWarps - 1) / kWarps);
-  staircase_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  size_t smem = 0;
+  const int threads = gwa::block_threads(kThreads, lanes, 8 * n_slots * sizeof(int), smem);
+  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool two = lanes == 32 && n_slots > 32;  // a warp's pass covers every slot
+  const auto kernel = two ? staircase_kernel<2> : staircase_kernel<1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int groups = threads / lanes;
+  const unsigned grid = static_cast<unsigned>((pools + groups - 1) / groups);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int*>(fwd_blocks), static_cast<const int*>(fwd_C), fwd_primary,
       static_cast<const int*>(rev_blocks), static_cast<const int*>(rev_C), rev_primary);
   return static_cast<int>(cudaGetLastError());

@@ -11,8 +11,8 @@ launch.  ``backward_search_cuda`` is equal to
 ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
 ``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
 when the build fails, loading raises: there is no fallback to the plain
-versions.  ``check_table`` is shared with the staircase and one-mismatch
-bindings.
+versions.  ``check_table`` and ``group_lanes`` are shared with the
+staircase and one-mismatch bindings.
 """
 
 from __future__ import annotations
@@ -27,6 +27,10 @@ from .rank import FUSED_WIDTH, DeviceFMIndex
 
 I32 = torch.int32
 MAX_PIECES = 32  # pieces a read (the staircase's k + 1)
+# Lanes a launch of lane groups may take an SM before each group takes
+# fewer: the crossover of the staircase and one-mismatch kernels' group
+# sizes at their paths' shapes (PERF.md section 6, chip_smoke.py [18])
+LANES_AN_SM = 768
 
 
 @functools.cache
@@ -75,6 +79,29 @@ def check_table(fm: DeviceFMIndex, dev: torch.device, name: str) -> None:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def group_lanes(groups: int, least: int, most: int, sms: int) -> int:
+    """Lanes a group (a staircase pool, a one-mismatch read's case) for a
+    launch of ``groups`` groups on ``sms`` SMs: the most, a power of two
+    from ``least`` to ``most``, for which the launch's lanes stay within
+    ``LANES_AN_SM`` an SM, and ``least`` where even that is more.  Few
+    groups wait on their steps' latency and want lanes for a step's work;
+    many wait on instruction issue and want a warp's lanes shared."""
+    lanes = most
+    while lanes > least and groups * lanes > LANES_AN_SM * sms:
+        lanes //= 2
+    return lanes
 
 
 def backward_search_cuda(

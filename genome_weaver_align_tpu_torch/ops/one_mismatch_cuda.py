@@ -3,10 +3,13 @@
 
 The kernel replaces the JAX package's device loops of
 ``genome_weaver_align_tpu/models/one_mismatch.py`` (the spines :101, case
-A :127, case B :150, with ``_compact`` :40 and ``_spawn`` :48): one warp a
-read, both cases in one launch.  ``one_mismatch_candidates_cuda`` is equal
-to ``models.one_mismatch.one_mismatch_candidates_plain`` on every output,
-the stale intervals of dead branch slots included.
+A :127, case B :150, with ``_compact`` :40 and ``_spawn`` :48): one group
+of lanes a (read, case), both cases in one launch, lanes only on live work
+(the spine, live slots and case B's distinct dead chains).
+``one_mismatch_candidates_cuda`` is equal to
+``models.one_mismatch.one_mismatch_candidates_plain`` on every output, the
+stale intervals of dead branch slots included.  The binding picks the
+lanes a group from the batch (``lanes_for``).
 
 ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
 ``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
@@ -22,10 +25,13 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
-from .fm_search_cuda import check_reads, check_table, stream
+from .fm_search_cuda import check_reads, check_table, group_lanes, sm_count, stream
 
 I32 = torch.int32
-MAX_SLOTS = 64  # a warp's 32 lanes hold two slots each
+MAX_SLOTS = 64
+# lanes a (read, case) when the reads are many, and few: the fastest at
+# 16,384 reads, and within 4% of the fastest at 512-4,096 (PERF.md §6)
+LEAST, MOST = 2, 4
 
 
 @functools.cache
@@ -34,10 +40,17 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("one_mismatch.cu")
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.gwa_one_mismatch.argtypes = [
-        vp, vp, i32, i32, i32, i32, vp, vp, i32, vp, vp, i32, i32, vp, vp, vp, vp,
+        vp, vp, i32, i32, i32, i32, vp, vp, i32, vp, vp, i32, i32, vp, vp, vp, i32, vp,
     ]
     lib.gwa_one_mismatch.restype = ctypes.c_int
     return lib
+
+
+def lanes_for(reads: int, dev: torch.device) -> int:
+    """Lanes a (read, case): ``MOST`` while the launch fits
+    ``group_lanes``' lanes an SM, fewer as the reads grow, down to
+    ``LEAST``."""
+    return group_lanes(2 * reads, LEAST, MOST, sm_count(dev))
 
 
 def one_mismatch_candidates_cuda(
@@ -62,7 +75,7 @@ def one_mismatch_candidates_cuda(
     dev = reads.device
     cand_lo = torch.empty((B, 2 * n_slots + 1), dtype=I32, device=dev)
     cand_hi = torch.empty((B, 2 * n_slots + 1), dtype=I32, device=dev)
-    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    overflow = torch.zeros(B, dtype=torch.bool, device=dev)  # a case writes 1 where it overflows
     if B == 0:
         return cand_lo, cand_hi, overflow
     with torch.cuda.device(dev):
@@ -70,7 +83,8 @@ def one_mismatch_candidates_cuda(
             reads.data_ptr(), lengths.data_ptr(), B, L, n_slots, max(steps, 0),
             bi.fwd.blocks.data_ptr(), bi.fwd.C.data_ptr(), bi.fwd.primary,
             bi.rev.blocks.data_ptr(), bi.rev.C.data_ptr(), bi.rev.primary, bi.fwd.n,
-            cand_lo.data_ptr(), cand_hi.data_ptr(), overflow.data_ptr(), stream(),
+            cand_lo.data_ptr(), cand_hi.data_ptr(), overflow.data_ptr(),
+            lanes_for(B, dev), stream(),
         )
     if rc != 0:
         raise RuntimeError(f"gwa_one_mismatch launch failed: CUDA error {rc}")

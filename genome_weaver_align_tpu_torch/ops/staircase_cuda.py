@@ -3,10 +3,12 @@
 The kernel replaces the JAX package's device loops of
 ``genome_weaver_align_tpu/models/staircase.py`` (the spine :131, the
 forward staircase :215, the left narrowing :235 and ``_compact_pool``
-:43): one warp a (piece, read) pool, the whole search in one launch, up to
-and including each pool's compaction to ``keep`` slots.
-``staircase_pools_cuda`` is equal to
-``models.staircase.staircase_pools_plain`` on every output.
+:43): one group of lanes a (piece, read) pool, the whole search in one
+launch, up to and including each pool's compaction to ``keep`` slots, lanes
+only on live slots.  ``staircase_pools_cuda`` is equal to
+``models.staircase.staircase_pools_plain`` on every output.  The binding
+picks the lanes a pool from the pool count, ``n_slots`` and
+``narrow_left`` (``lanes_for``).
 
 ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
 ``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
@@ -22,10 +24,10 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
-from .fm_search_cuda import MAX_PIECES, check_reads, check_table, stream
+from .fm_search_cuda import MAX_PIECES, check_reads, check_table, group_lanes, sm_count, stream
 
 I32 = torch.int32
-MAX_SLOTS = 64  # a warp's 32 lanes hold two slots each
+MAX_SLOTS = 64
 
 
 @functools.cache
@@ -35,10 +37,21 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.gwa_staircase.argtypes = [
         vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, i32, i32,
-        vp, vp, vp, vp,
+        vp, vp, vp, i32, vp,
     ]
     lib.gwa_staircase.restype = ctypes.c_int
     return lib
+
+
+def lanes_for(pools: int, n_slots: int, narrow_left: bool, dev: torch.device) -> int:
+    """Lanes a pool: a whole warp under ``narrow_left`` (rank-major
+    placement sees a step's parents in one pass; a warp takes two slots a
+    lane past 32); else enough for a pool's slots in one pass while the
+    launch fits ``group_lanes``' lanes an SM, fewer as the pools grow, down
+    to one."""
+    if narrow_left:
+        return 32
+    return group_lanes(pools, 1, min(32, 1 << (n_slots - 1).bit_length()), sm_count(dev))
 
 
 def staircase_pools_cuda(
@@ -83,7 +96,8 @@ def staircase_pools_cuda(
             max(spine_steps, 0), max(fwd_steps, 0), max(bwd_steps, 0), int(narrow_left),
             bi.fwd.blocks.data_ptr(), bi.fwd.C.data_ptr(), bi.fwd.primary,
             bi.rev.blocks.data_ptr(), bi.rev.C.data_ptr(), bi.rev.primary, bi.fwd.n,
-            lo.data_ptr(), hi.data_ptr(), overflow.data_ptr(), stream(),
+            lo.data_ptr(), hi.data_ptr(), overflow.data_ptr(),
+            lanes_for(P * B, n_slots, narrow_left, dev), stream(),
         )
     if rc != 0:
         raise RuntimeError(f"gwa_staircase launch failed: CUDA error {rc}")

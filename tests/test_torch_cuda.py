@@ -12,6 +12,7 @@ its plain torch version, and the aligners, the sharded search, two ranks of
 wavelet search on the card against the same code on the CPU (or native
 SA-IS), which the CPU tests hold against the JAX package."""
 
+import contextlib
 from unittest import mock
 
 import numpy as np
@@ -947,6 +948,105 @@ def test_fm_kernels_where_every_spine_dies_at_once(cuda):
                   exact.exact_interval_search_plain(bi.fwd, r[:0], ln[:0]))):
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _lanes(binding, lanes):
+    """Launch the binding's kernel with ``lanes`` lanes a group (a pool, or
+    a read's case) whatever the shape; None keeps the binding's choice."""
+    if lanes is None:
+        return contextlib.nullcontext()
+    return mock.patch.object(binding, "lanes_for", lambda *shape: lanes)
+
+
+def _fm_bi(cuda, codes):
+    from genome_weaver_align_tpu_torch.models import bidirectional as bd
+
+    fwd = build_fm_index(codes, sample_rate=16)
+    rev = build_fm_index(codes[::-1].copy(), sample_rate=16)
+    return bd.from_host_bi(fwd, rev, cuda)
+
+
+@pytest.mark.parametrize("n_slots, narrow, lanes", [
+    (n_slots, narrow, lanes) for n_slots in (1, 8, 16, 17, 32, 33, 64) for narrow in (False, True)
+    for lanes in ((32,) if narrow else (1, 2, 4, 8, 32))])
+def test_staircase_kernel_at_slot_counts_and_group_sizes(cuda, n_slots, narrow, lanes):
+    """301 reads (903 pools: no multiple of the pools a block holds at any
+    group size) on the repeat genome, every field against the plain loop; a
+    narrowing pool at a whole warp, the only size its kernel takes."""
+    from genome_weaver_align_tpu_torch.models import staircase
+
+    codes = fm_models.genome_codes(40)
+    bi = _fm_bi(cuda, codes)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 42, B=301))
+    with _lanes(staircase_cuda, lanes):
+        got = staircase.staircase_pools(bi, r, ln, 2, n_slots=n_slots, narrow_left=narrow)
+    want = staircase.staircase_pools_plain(bi, r, ln, 2, n_slots=n_slots, narrow_left=narrow)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int((want[1] > want[0]).sum()) > 0
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32])
+def test_fm_kernels_where_pools_of_one_warp_die_at_different_steps(cuda, lanes):
+    """Dying reads (every spine empty after one step) interleaved with
+    reads that live on, 301 of them, on the genome without code 3: the
+    groups of one warp leave their phases at different steps."""
+    from genome_weaver_align_tpu_torch.models import one_mismatch, staircase
+
+    codes = fm_models.genome_codes(60, alphabet=3)
+    bi = _fm_bi(cuda, codes)
+    live_r, live_ln = _fm_reads(codes, 62, B=301)
+    dying_r, dying_ln = _fm_reads(codes, 63, dying=True, B=301)
+    pick = torch.arange(301) % 2 == 0
+    r = torch.where(pick[:, None], dying_r, live_r).to(cuda)
+    ln = torch.where(pick, dying_ln, live_ln).to(cuda)
+    for kw in (dict(), dict(narrow_left=True, n_slots=33)):  # narrowing: a warp a pool
+        with _lanes(staircase_cuda, None if kw.get("narrow_left") else lanes):
+            got = staircase.staircase_pools(bi, r, ln, 2, **kw)
+        want = staircase.staircase_pools_plain(bi, r, ln, 2, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with _lanes(one_mismatch_cuda, lanes):
+        got = one_mismatch.one_mismatch_candidates(bi, r, ln)
+    want = one_mismatch.one_mismatch_candidates_plain(bi, r, ln)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("n_slots", [48, 9, 64])
+def test_one_mismatch_kernel_with_many_dead_chains(cuda, lanes, n_slots):
+    """A 7 bp repeat: spawned branches die at different places, so a
+    read's dead slots hold several distinct lo values (five or more in some
+    step: checked on the CPU); 301 reads, every field against the plain
+    loop."""
+    from genome_weaver_align_tpu_torch.models import one_mismatch
+
+    codes = fm_models.chains_genome(94)
+    bi = _fm_bi(cuda, codes)
+    reads, lengths = fm_models.chain_reads(codes, 95, B=301)
+    r, ln = torch.from_numpy(reads).to(cuda), torch.from_numpy(lengths).to(cuda)
+    with _lanes(one_mismatch_cuda, lanes):
+        got = one_mismatch.one_mismatch_candidates(bi, r, ln, None, n_slots)
+    want = one_mismatch.one_mismatch_candidates_plain(bi, r, ln, None, n_slots)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int((want[1] > want[0]).sum()) > 0
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+def test_staircase_kernel_refuses_narrowing_below_a_warp(cuda, lanes):
+    """Rank-major placement sees a step's parents in one pass: the kernel
+    takes a narrowing pool only as a whole warp, and its binding picks
+    that."""
+    from genome_weaver_align_tpu_torch.models import staircase
+
+    codes = fm_models.genome_codes(40)
+    bi = _fm_bi(cuda, codes)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 42, B=31))
+    assert staircase_cuda.lanes_for(3 * 31, 64, True, cuda) == 32
+    with _lanes(staircase_cuda, lanes), pytest.raises(RuntimeError, match="launch failed"):
+        staircase.staircase_pools(bi, r, ln, 2, narrow_left=True)
 
 
 def test_fm_kernels_reject_what_they_cannot_take(cuda):

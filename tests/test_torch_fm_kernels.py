@@ -8,13 +8,20 @@
   ``narrow_left`` at k = 3, ``kmer_full_cover``, and a spine that dies at
   its first step.
 - The scalar models of the kernels (``tests/torch_fm_models.py``, in the
-  CUDA sources' own loop order) against the plain versions on every field.
+  CUDA sources' own loop order) against the plain versions on every field,
+  at several lane-group sizes.
+- What the one-mismatch kernel rests on, in the plain loop and in the JAX
+  function alike (each slot update spied): a dead slot has lo == hi at
+  every step, case A leaves a dead slot's (lo, hi) as it is, and case B
+  moves dead slots of equal lo alike, on a genome whose reads hold several
+  distinct dead lo values at once.
 - The bindings refuse what the kernels cannot take, a CPU tensor reaches
   the plain version and never a kernel, and ``rank.from_host`` and
   ``rank.from_arrays`` take no default device.
 
 Everything is int32, so every comparison is exact equality."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,6 +81,13 @@ def no_t_genome():
     """A genome without code 3: a piece ending in 3 has an empty spine
     after its first step."""
     return _index(models.genome_codes(92, alphabet=3, size=6_000))
+
+
+@pytest.fixture(scope="module")
+def chains():
+    """A 7 bp unit repeated 300 times, 5% of it changed: one-mismatch
+    branches die at different places (several dead chains a read)."""
+    return _index(models.chains_genome(93))
 
 
 def _eq(got, want):
@@ -227,6 +241,170 @@ def test_models_match_plain_where_spines_die_at_once(no_t_genome):
                                        one_mismatch._steps(reads.shape[1], None), 48))
 
 
+_STAIR_GROUP_INPUTS = [
+    ("edge", dict(k=2)), ("edge", dict(k=2, n_slots=1)), ("edge", dict(k=3, narrow_left=True)),
+    ("edge", dict(k=2, n_slots=64, narrow_left=True, keep=3)),
+    ("chains", dict(k=2, n_slots=17)), ("chains", dict(k=2, n_slots=33, narrow_left=True)),
+]
+
+
+def _stair_group_ids(v):
+    return v if isinstance(v, (str, int)) else "-".join(map(str, v.values()))
+
+
+def _stair_group_inputs(g, inputs, kw):
+    reads, lengths = (models.edge_reads(g["codes"], 7, B=10) if inputs == "edge"
+                      else models.chain_reads(g["codes"], 12, B=8))
+    kw = dict(kw)
+    return reads, lengths, kw.pop("k"), kw
+
+
+@pytest.mark.parametrize("inputs, kw, lanes", [
+    (inputs, kw, lanes) for inputs, kw in _STAIR_GROUP_INPUTS
+    for lanes in ((32, 64) if kw.get("narrow_left") else (1, 2, 8, 32, 64))
+], ids=_stair_group_ids)
+def test_staircase_model_lane_groups_match_plain(genome, chains, lanes, inputs, kw):
+    """The staircase model at other group sizes than the default's: one
+    lane a pool (every step many passes), two, eight, a whole warp, and a
+    warp taking two slots a lane (64 a pass); a narrowing pool only at a
+    whole warp, where rank-major placement sees every parent in one
+    pass."""
+    g = genome if inputs == "edge" else chains
+    reads, lengths, k, kw = _stair_group_inputs(g, inputs, kw)
+    want = staircase.staircase_pools_plain(g["bi"], torch.from_numpy(reads),
+                                           torch.from_numpy(lengths), k, **kw)
+    trips = staircase._trip_counts(reads.shape[1], k, None)
+    got = models.staircase_pools(g["bi"], reads, lengths, k, kw.get("n_slots", 16),
+                                 kw.get("keep", 8), *trips, kw.get("narrow_left", False), lanes)
+    _eq(want, got)
+
+
+@pytest.mark.parametrize("inputs, kw, lanes", [
+    (inputs, kw, lanes) for inputs, kw in _STAIR_GROUP_INPUTS if kw.get("narrow_left")
+    for lanes in (1, 2, 8)
+], ids=_stair_group_ids)
+def test_staircase_model_refuses_narrowing_below_a_warp(genome, chains, lanes, inputs, kw):
+    """Rank-major placement needs every parent of a step in one pass, so
+    the model, like the kernel's entry, takes a narrowing pool only as a
+    whole warp."""
+    g = genome if inputs == "edge" else chains
+    reads, lengths, k, kw = _stair_group_inputs(g, inputs, kw)
+    with pytest.raises(ValueError, match="whole warp"):
+        models.staircase_pools(g["bi"], reads, lengths, k, kw.get("n_slots", 16),
+                               kw.get("keep", 8), *staircase._trip_counts(reads.shape[1], k, None),
+                               True, lanes)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 32])
+@pytest.mark.parametrize("inputs, n_slots", [("edge", 48), ("edge", 3), ("chains", 48),
+                                             ("chains", 9)])
+def test_one_mismatch_model_lane_groups_match_plain(genome, chains, lanes, inputs, n_slots):
+    """The one-mismatch model at other group sizes than the default's,
+    also on reads with many dead chains (several chunks of them a step)."""
+    g = genome if inputs == "edge" else chains
+    reads, lengths = (models.edge_reads(g["codes"], 8, B=8, subs=1) if inputs == "edge"
+                      else models.chain_reads(g["codes"], 13))
+    want = one_mismatch.one_mismatch_candidates_plain(
+        g["bi"], torch.from_numpy(reads), torch.from_numpy(lengths), n_slots=n_slots)
+    got = models.one_mismatch_candidates(g["bi"], reads, lengths,
+                                         one_mismatch._steps(reads.shape[1], None), n_slots, lanes)
+    _eq(want, got)
+
+
+# ------------------------------------------------ what the one-mismatch kernel rests on
+
+@pytest.fixture(scope="module")
+def slot_updates(genome, no_t_genome, chains):
+    """(impl, inputs) -> (every (B, S) slot update of the one-mismatch
+    search as (forward, old lo, old hi, new lo, new hi) numpy arrays, the
+    outputs), for the plain loop ("plain") or the JAX function ("jax", run
+    eagerly under ``jax.disable_jit`` so that its loop's steps are seen),
+    with each package's ``extend_forward`` and ``extend_backward`` spied.
+    Both run ceil(L / 2) steps, after which every lane is inactive."""
+    inputs = {"edge": (genome, lambda c: models.edge_reads(c, 14, B=8, subs=1)),
+              "dying": (no_t_genome, lambda c: models.dying_reads(c, 15)),
+              "chains": (chains, lambda c: models.chain_reads(c, 16, B=8))}
+    done = {}
+
+    def record(impl, name):
+        if (impl, name) in done:
+            return done[impl, name]
+        g, make = inputs[name]
+        reads, lengths = make(g["codes"])
+        max_len = (reads.shape[1] + 1) // 2
+        mod = bd if impl == "plain" else j_bd
+        rec = []
+        with pytest.MonkeyPatch.context() as mp:
+            for fn, forward in (("extend_forward", True), ("extend_backward", False)):
+                def spy(bi, st, c, real=getattr(mod, fn), forward=forward):
+                    new = real(bi, st, c)
+                    if st.lo.ndim == 2:
+                        rec.append((forward, *(np.asarray(x) for x in (st.lo, st.hi, new.lo,
+                                                                       new.hi))))
+                    return new
+                mp.setattr(mod, fn, spy)
+            if impl == "plain":
+                out = one_mismatch.one_mismatch_candidates_plain(
+                    g["bi"], torch.from_numpy(reads), torch.from_numpy(lengths), max_len)
+            else:
+                with jax.disable_jit():
+                    out = j_one_mismatch.one_mismatch_candidates(
+                        g["jbi"], jnp.asarray(reads), jnp.asarray(lengths), max_len)
+        assert len(rec) == 2 * max_len  # every step of both cases
+        done[impl, name] = rec, [np.asarray(o) for o in out]
+        return done[impl, name]
+
+    return record
+
+
+@pytest.mark.parametrize("impl", ["plain", "jax"])
+@pytest.mark.parametrize("inputs", ["edge", "dying", "chains"])
+def test_one_mismatch_dead_slots_have_lo_equal_hi(slot_updates, impl, inputs):
+    rec, (cand_lo, cand_hi, _) = slot_updates(impl, inputs)
+    n_dead = 0
+    for _, lo, hi, _, _ in rec:
+        dead = hi <= lo
+        assert np.array_equal(lo[dead], hi[dead])
+        n_dead += int(dead.sum())
+    dead = cand_hi <= cand_lo  # and after the last step
+    assert np.array_equal(cand_lo[dead], cand_hi[dead])
+    assert n_dead > 0
+
+
+@pytest.mark.parametrize("impl", ["plain", "jax"])
+@pytest.mark.parametrize("inputs", ["edge", "dying", "chains"])
+def test_one_mismatch_case_a_dead_slots_keep_their_interval(slot_updates, impl, inputs):
+    rec, _ = slot_updates(impl, inputs)
+    n_dead = 0
+    for forward, lo, hi, new_lo, new_hi in rec:
+        if forward:
+            dead = hi <= lo
+            assert np.array_equal(new_lo[dead], lo[dead]) and np.array_equal(new_hi[dead], hi[dead])
+            n_dead += int(dead.sum())
+    assert n_dead > 0
+
+
+@pytest.mark.parametrize("impl", ["plain", "jax"])
+@pytest.mark.parametrize("inputs", ["edge", "chains"])
+def test_one_mismatch_case_b_dead_slots_of_one_lo_stay_equal(slot_updates, impl, inputs):
+    """Case B moves every dead slot of one lo to one new lo (= hi); on the
+    repeat genome a read holds five or more distinct dead lo values."""
+    rec, _ = slot_updates(impl, inputs)
+    most = 0
+    for forward, lo, hi, new_lo, new_hi in rec:
+        if forward:
+            continue
+        for b in range(lo.shape[0]):
+            dead = hi[b] <= lo[b]
+            values = np.unique(lo[b][dead])
+            most = max(most, values.size)
+            for v in values:
+                moved = dead & (lo[b] == v)
+                assert np.unique(new_lo[b][moved]).size == 1
+                assert np.array_equal(new_lo[b][moved], new_hi[b][moved])
+    assert most >= (5 if inputs == "chains" else 1)
+
+
 # ---------------------------------------------------------------- bindings and dispatch
 
 def test_bindings_refuse_what_the_kernels_cannot_take(genome):
@@ -268,6 +446,34 @@ def test_bindings_refuse_what_the_kernels_cannot_take(genome):
     for call, match in bad:
         with pytest.raises(ValueError, match=match):
             call()
+
+
+@pytest.mark.parametrize("groups, least, most, want", [
+    (0, 1, 16, 16), (100, 1, 16, 16), (150, 1, 16, 8), (400, 1, 16, 4), (3_200, 1, 16, 1),
+    (1_000, 2, 32, 2), (40, 2, 32, 32)])
+def test_group_lanes_shrink_as_the_groups_outgrow_the_card(monkeypatch, groups, least, most,
+                                                           want):
+    """The most lanes a group, a power of two from ``least`` to ``most``,
+    that keep the launch within its lanes an SM (here 800 on 2 SMs)."""
+    monkeypatch.setattr(fm_search_cuda, "LANES_AN_SM", 800)
+    assert fm_search_cuda.group_lanes(groups, least, most, 2) == want
+
+
+@pytest.mark.parametrize("n_slots, narrow, most", [
+    (1, False, 1), (16, False, 16), (17, False, 32), (64, False, 32), (2, True, 32),
+    (64, True, 32)])
+@pytest.mark.parametrize("pools", [768, 6_144, 98_304])
+def test_lane_choices_of_the_bindings(monkeypatch, pools, n_slots, narrow, most):
+    """The staircase binding takes a whole warp for a narrowing pool and
+    otherwise at most a pass over a pool's slots; the one-mismatch binding
+    shares the same rule between its own limits."""
+    dev = torch.device("cuda", 0)
+    for binding in (staircase_cuda, one_mismatch_cuda):
+        monkeypatch.setattr(binding, "sm_count", lambda d: 132)
+    want = 32 if narrow else fm_search_cuda.group_lanes(pools, 1, most, 132)
+    assert staircase_cuda.lanes_for(pools, n_slots, narrow, dev) == want
+    assert one_mismatch_cuda.lanes_for(pools, dev) == fm_search_cuda.group_lanes(
+        2 * pools, one_mismatch_cuda.LEAST, one_mismatch_cuda.MOST, 132)
 
 
 def test_cpu_tensors_take_the_plain_loops(genome, monkeypatch):

@@ -4,11 +4,16 @@ order, for the CPU tests (no card here runs the CUDA code).
 Each model follows its CUDA source step for step: ``csrc/fm_occ.cuh``'s
 row split and three-popcount count (code 0 as r less the other three),
 ``csrc/fm_search.cu``'s one lane at a time with its early exit,
-``csrc/staircase.cu``'s one pool at a time with lane l holding slots l and
-l + 32 and ballot-and-prefix compaction, and ``csrc/one_mismatch.cu``'s
-one read at a time with its stable partition and spawns in code order.
-The tests hold each model against the plain torch version on every
-output, so the formulation the CUDA code follows is checked on the CPU.
+``csrc/staircase.cu``'s one pool at a time as a group of G lanes (the
+spine in group lane 0, passes of G live slots into the other buffer, the
+ballot-and-prefix placement; rank-major placement in one pass of a whole
+warp), and ``csrc/one_mismatch.cu``'s one (read, case)
+at a time as a group of G lanes (the work items: spine, live slots and
+case B's distinct dead chains, found by chunks of G; the newly dead staged
+until the live count is known; spawns in code order).  Shared memory the
+kernel never writes holds None here, so a model that reads it fails.  The
+tests hold each model against the plain torch version on every output, at
+several G, so the formulation the CUDA code follows is checked on the CPU.
 The genome and read generators at the end are the edge-case inputs of both
 the CPU tests and the card tests.
 """
@@ -18,7 +23,6 @@ from __future__ import annotations
 import numpy as np
 
 M32 = 0xFFFFFFFF
-LANES = 32
 
 
 class Table:
@@ -123,61 +127,69 @@ def backward_search(fm, reads, lengths, n_pieces, trip, kmer_tab=None, kmer_j=0)
 
 # ---------------------------------------------------------------- staircase.cu
 
-def _expand_step(pool, n_slots, fwd, rev, forward, c, budget, rank_major):
-    """One all-4 expansion of the pool's live slots and the warp's
-    ballot compaction; returns the kept count."""
-    lane_state = []
-    for lane in range(LANES):
-        halves = []
-        for h in range(2):
-            s = lane + 32 * h
-            live = s < n_slots and pool["hi"][s] > pool["lo"][s]
-            v = tuple(pool[f][s] for f in ("lo", "hi", "rlo", "rhi")) if live else (0, 0, 0, 0)
-            mm = pool["mm"][s] if live else 0
-            ch = bi_children(fwd, rev, forward, v) if live else [(0, 0, 0, 0)] * 4
-            keep = 0
-            for a in range(4):
-                ok = mm + (a != c) <= budget and ch[a][1] > ch[a][0]
-                keep |= (1 if live and ok else 0) << a
-            halves.append((ch, mm, keep))
-        lane_state.append(halves)
+FIELDS = ("lo", "hi", "rlo", "mm")  # a slot in shared memory; rhi = rlo + hi - lo
 
-    def write(dest, ch, mm):
+
+def _children_of(buf, s, fwd, rev, forward, c, budget):
+    """One lane's work on parent slot s: its four children (lo, hi, rlo,
+    rhi) by code and the bits of those kept under the budget."""
+    lo, hi, rlo, mm = (buf[f][s] for f in FIELDS)
+    ch = bi_children(fwd, rev, forward, (lo, hi, rlo, rlo + hi - lo))
+    keep = 0
+    for a in range(4):
+        if mm + (a != c) <= budget and ch[a][1] > ch[a][0]:
+            keep |= 1 << a
+    return ch, mm, keep
+
+
+def _expand_step(cur, nxt, live, n_slots, fwd, rev, forward, c, budget, rank_major, lanes):
+    """One all-4 expansion of a pool's live slots [0, live) from buffer
+    ``cur`` into ``nxt``, as a group of ``lanes`` lanes runs it: passes of
+    ``lanes`` parents in slot order, the kept children placed by ballot and
+    prefix popcount (a warp taking two slots a lane is ``lanes`` = 64).
+    Rank-major placement takes every parent in one pass, whose ballots give
+    each rank's total.  Returns the kept count (which may exceed n_slots)."""
+    passes = [range(p0, min(p0 + lanes, live)) for p0 in range(0, live, lanes)]
+
+    def write(dest, child, mm):
         if dest < n_slots:
-            for f, x in zip(("lo", "hi", "rlo", "rhi", "mm"), (*ch, mm)):
-                pool[f][dest] = x
+            for f, x in zip(FIELDS, (*child[:3], mm)):
+                nxt[f][dest] = x
 
     base = 0
-    if rank_major:
-        for r in range(4):
-            a = c if r == 0 else (r - 1) + (1 if r - 1 >= c else 0)
-            for h in range(2):
-                ballot = [(lane_state[lane][h][2] >> a) & 1 for lane in range(LANES)]
-                for lane in range(LANES):
-                    if ballot[lane]:
-                        ch, mm, _ = lane_state[lane][h]
-                        write(base + sum(ballot[:lane]), ch[a], mm + (a != c))
-                base += sum(ballot)
-    else:
-        for h in range(2):
-            counts = [bin(lane_state[lane][h][2]).count("1") for lane in range(LANES)]
-            for lane in range(LANES):
-                ch, mm, keep = lane_state[lane][h]
-                dest = base + sum(counts[:lane])  # the three ballots' prefix
+    if not rank_major:
+        for slots in passes:
+            work = [_children_of(cur, s, fwd, rev, forward, c, budget) for s in slots]
+            for ch, mm, keep in work:  # a lane's kept children are consecutive
                 for a in range(4):
                     if (keep >> a) & 1:
-                        write(dest, ch[a], mm + (a != c))
-                        dest += 1
-            base += sum(counts)
-    for s in range(base, n_slots):
-        for f in pool:
-            pool[f][s] = 0
+                        write(base, ch[a], mm + (a != c))
+                        base += 1
+        return base
+    assert len(passes) <= 1, "rank-major placement in more than one pass"
+    work = [_children_of(cur, s, fwd, rev, forward, c, budget) for s in range(live)]
+    for a in [c] + [a for a in range(4) if a != c]:  # exact child first, then by code
+        ballot = [(keep >> a) & 1 for _, _, keep in work]
+        for lane, (ch, mm, keep) in enumerate(work):
+            if ballot[lane]:
+                write(base + sum(ballot[:lane]), ch[a], mm + (a != c))
+        base += sum(ballot)
     return base
 
 
 def staircase_pools(bi, reads, lengths, k, n_slots, keep, spine_steps, fwd_steps, bwd_steps,
-                    narrow_left):
-    """(lo, hi) (P, B, keep) int32 and overflow (P, B) bool, pool by pool."""
+                    narrow_left, lanes=None):
+    """(lo, hi) (P, B, keep) int32 and overflow (P, B) bool, pool by pool,
+    each pool a group of ``lanes`` lanes (by default 4, and a whole warp
+    under ``narrow_left``, which the kernel refuses with fewer).  Group lane
+    0 builds the spine; the pool is two buffers of slots (None where the
+    kernel never wrote), and only its live prefix [0, live) is read."""
+    if lanes is None:
+        lanes = 32 if narrow_left else 4
+    if narrow_left and lanes < 32:
+        raise ValueError(f"narrow_left at {lanes} lanes a pool: the kernel takes a whole warp")
+    if lanes == 32 and n_slots > 32:
+        lanes = 64  # two slots a lane: one pass covers the pool
     fwd, rev = Table(bi.fwd), Table(bi.rev)
     B, L = reads.shape
     P = k + 1
@@ -195,97 +207,156 @@ def staircase_pools(bi, reads, lengths, k, n_slots, keep, spine_steps, fwd_steps
                 if j < s_p or spine[1] <= spine[0]:
                     break
                 spine = bi_children(fwd, rev, False, spine)[code_at(read, L, j)]
-            pool = {f: [0] * n_slots for f in ("lo", "hi", "rlo", "rhi", "mm")}
-            for f, x in zip(("lo", "hi", "rlo", "rhi"), spine):
-                pool[f][0] = x
+            bufs = [{f: [None] * n_slots for f in FIELDS} for _ in range(2)]
+            live, cur = 0, 0
+            if spine[1] > spine[0]:
+                for f, x in zip(FIELDS, (*spine[:3], 0)):
+                    bufs[0][f][0] = x
+                live = 1
             overflow = False
-            empty = spine[1] <= spine[0]
+            piece, next_bound = p, e_p  # piece_of(j), and where the next piece starts
             for t in range(fwd_steps):
                 j = e_p + t
-                if empty or j >= ln:
+                if live == 0 or j >= ln:
                     break
-                piece_of_j = sum(1 for i in range(P + 1) if ln * i // P <= j) - 1
-                live = _expand_step(pool, n_slots, fwd, rev, True, code_at(read, L, j),
-                                    piece_of_j - p, narrow_left)
-                overflow |= live > n_slots
-                empty = live == 0
+                while next_bound <= j:
+                    piece += 1
+                    next_bound = ln * (piece + 1) // P
+                kept = _expand_step(bufs[cur], bufs[1 - cur], live, n_slots, fwd, rev, True,
+                                    code_at(read, L, j), piece - p, narrow_left, lanes)
+                overflow |= kept > n_slots
+                live, cur = min(kept, n_slots), 1 - cur
             if narrow_left:
                 for t in range(bwd_steps):
                     j = s_p - 1 - t
-                    if empty or j < 0:
+                    if live == 0 or j < 0:
                         break
-                    live = _expand_step(pool, n_slots, fwd, rev, False, code_at(read, L, j), k,
-                                        True)
-                    overflow |= live > n_slots
-                    empty = live == 0
-            base = 0
-            for h in range(2):
-                ballot = [lane + 32 * h < n_slots
-                          and pool["hi"][lane + 32 * h] > pool["lo"][lane + 32 * h]
-                          for lane in range(LANES)]
-                for lane in range(LANES):
-                    dest = base + sum(ballot[:lane])
-                    if ballot[lane] and dest < keep:
-                        out_lo[p, b, dest] = pool["lo"][lane + 32 * h]
-                        out_hi[p, b, dest] = pool["hi"][lane + 32 * h]
-                base += sum(ballot)
-            out_ovf[p, b] = overflow or base > keep
+                    kept = _expand_step(bufs[cur], bufs[1 - cur], live, n_slots, fwd, rev,
+                                        False, code_at(read, L, j), k, True, lanes)
+                    overflow |= kept > n_slots
+                    live, cur = min(kept, n_slots), 1 - cur
+            for i in range(min(live, keep)):
+                out_lo[p, b, i] = bufs[cur]["lo"][i]
+                out_hi[p, b, i] = bufs[cur]["hi"][i]
+            out_ovf[p, b] = overflow or live > keep
     return out_lo, out_hi, out_ovf
 
 
 # ---------------------------------------------------------------- one_mismatch.cu
 
-def _search_case(fwd, rev, forward, read, L, ln, mid, S, steps):
+def _dead_chains(lo, hi, n_live, hw, S, lanes):
+    """Case B's distinct dead chains: the dead entries are the slots that
+    died, [n_live, hw), and the never-spawned tail [hw, S), which is one
+    chain kept in slot S - 1.  In chunks of ``lanes`` entries, an entry
+    whose lo an earlier chunk listed takes that index; the others match
+    each other (``__match_any_sync``), and the lowest lane of each value
+    appends it.  Each entry's index is parked in its slot's hi (a dead
+    slot's hi equals its lo).  -> (the distinct lo values, entry count)."""
+    n_dead = hw - n_live
+    n_ent = n_dead + (1 if hw < S else 0)
+    table = []
+    for e0 in range(0, n_ent, lanes):
+        ents = range(e0, min(e0 + lanes, n_ent))
+        slot = {e: n_live + e if e < n_dead else S - 1 for e in ents}
+        idx = {e: table.index(lo[slot[e]]) if lo[slot[e]] in table else -1 for e in ents}
+        fresh = [e for e in ents if idx[e] < 0]
+        leaders = [e for e in fresh if not any(lo[slot[f]] == lo[slot[e]] for f in fresh if f < e)]
+        for e in leaders:
+            idx[e] = len(table)
+            table.append(lo[slot[e]])
+        for e in fresh:
+            idx[e] = idx[next(f for f in leaders if lo[slot[f]] == lo[slot[e]])]
+        for e in ents:
+            assert lo[slot[e]] == hi[slot[e]], "a dead slot with hi != lo"
+            hi[slot[e]] = idx[e]
+    return table, n_ent
+
+
+def _search_case(fwd, rev, forward, read, L, ln, mid, S, steps, lanes):
+    """One (read, case) group of ``lanes`` lanes.  The pool is shared
+    memory that the kernel never initialises but for slot S - 1 (None
+    elsewhere until written); live slots are [0, n_live), the slots that
+    died [n_live, hw) and the never-spawned tail [hw, S), kept in slot
+    S - 1.  A step's work items are the spine (item 0, group lane 0), the
+    live slots, and in case B the distinct dead chains, ``lanes`` a pass."""
     first, last = (0, mid) if forward else (mid, ln)
     spine = (0, fwd.n + 1, 0, fwd.n + 1)
     for t in range(steps):
         j = last - 1 - t
-        if j < first:
+        if j < first or (not forward and spine[1] <= spine[0]):  # case B's spine is not output
             break
         spine = bi_children(fwd, rev, False, spine)[code_at(read, L, j)]
-    br = [(0, 0, 0, 0)] * S
+    lo, hi, rlo = [None] * S, [None] * S, [None] * S
+    aux = [None] * S  # distinct dead chains, then the newly dead
+    lo[S - 1] = hi[S - 1] = 0
+    n_live = hw = 0
     overflow = False
     for t in range(steps):
         j = mid + t if forward else mid - 1 - t
         if (j >= ln) if forward else (j < 0):
             break
+        if forward and spine[1] <= spine[0] and n_live == 0:  # nothing moves any more
+            break
         c = code_at(read, L, j)
-        ext = [bi_children(fwd, rev, forward, v)[c] for v in br]
-        sm = bi_children(fwd, rev, forward, spine)
-        alive = [[lane + 32 * h < S and ext[lane + 32 * h][1] > ext[lane + 32 * h][0]
-                  for lane in range(LANES)] for h in range(2)]
-        dead = [[lane + 32 * h < S and not alive[h][lane] for lane in range(LANES)]
-                for h in range(2)]
-        count = sum(alive[0]) + sum(alive[1])
-        new = [None] * S
-        for lane in range(LANES):
-            for h in range(2):
-                s = lane + 32 * h
-                if s >= S:
-                    continue
-                if alive[h][lane]:
-                    dest = (sum(alive[0]) if h else 0) + sum(alive[h][:lane])
+        table, n_ent = ([], 0) if forward else _dead_chains(lo, hi, n_live, hw, S, lanes)
+        D = len(table)
+        aux[:D] = table
+        n_items = 1 + n_live + D
+        count = dead = 0
+        spine_ch = None
+        for p0 in range(0, n_items, lanes):
+            items = range(p0, min(p0 + lanes, n_items))
+            ops = {}  # every operand of the pass is read before anything is written
+            for i in items:
+                if i == 0:
+                    ops[i] = spine if spine[1] > spine[0] else None
+                elif i <= n_live:
+                    s = i - 1
+                    ops[i] = (lo[s], hi[s], rlo[s], rlo[s] + hi[s] - lo[s])
                 else:
-                    dest = count + (sum(dead[0]) if h else 0) + sum(dead[h][:lane])
-                new[dest] = ext[s]
-        br = new
+                    ops[i] = aux[i - 1 - n_live]
+            alive, died = [], []
+            for i in items:
+                if i == 0:
+                    if ops[i] is not None:
+                        spine_ch = bi_children(fwd, rev, forward, ops[i])
+                elif i <= n_live:
+                    v = bi_children(fwd, rev, forward, ops[i])[c]
+                    (alive if v[1] > v[0] else died).append(v)
+                else:
+                    aux[i - 1 - n_live] = fwd.C[c] + occ1(fwd, ops[i], c)
+            for v in alive:
+                lo[count], hi[count], rlo[count] = v[:3]
+                count += 1
+            for v in died:
+                aux[D + dead] = v[0]  # hi == lo
+                dead += 1
+        for e in range(dead):
+            lo[count + e] = hi[count + e] = aux[D + e]
+        for e in range(n_ent):
+            s = n_live + e if e < hw - n_live else S - 1
+            lo[s] = hi[s] = aux[hi[s]]
         spawned = 0
-        for u in range(3):
-            w = sm[u + (1 if u >= c else 0)]
-            if w[1] > w[0]:
-                slot = count + spawned
-                if slot >= S:
-                    overflow = True
-                else:
-                    br[slot] = w
-                spawned += 1
-        spine = sm[c]
-    return spine, br, overflow
+        if spine_ch is not None:
+            for u in range(3):
+                w = spine_ch[u + (1 if u >= c else 0)]
+                if w[1] > w[0]:
+                    slot = count + spawned
+                    if slot >= S:
+                        overflow = True
+                    else:
+                        lo[slot], hi[slot], rlo[slot] = w[:3]
+                    spawned += 1
+            spine = spine_ch[c]
+        n_live = min(S, count + spawned)
+        hw = max(hw, n_live)
+    out = [(lo[s], hi[s]) if s < hw else (lo[S - 1], hi[S - 1]) for s in range(S)]
+    return spine, out, overflow
 
 
-def one_mismatch_candidates(bi, reads, lengths, steps, n_slots):
+def one_mismatch_candidates(bi, reads, lengths, steps, n_slots, lanes=8):
     """(cand_lo, cand_hi) (B, 2 S + 1) int32 and overflow (B,) bool, read
-    by read."""
+    by read, each case a group of ``lanes`` lanes."""
     fwd, rev = Table(bi.fwd), Table(bi.rev)
     B, L = reads.shape
     S = n_slots
@@ -295,8 +366,8 @@ def one_mismatch_candidates(bi, reads, lengths, steps, n_slots):
     for b in range(B):
         ln = int(lengths[b])
         mid = ln // 2
-        spine, br_a, oa = _search_case(fwd, rev, True, reads[b], L, ln, mid, S, steps)
-        _, br_b, ob = _search_case(fwd, rev, False, reads[b], L, ln, mid, S, steps)
+        spine, br_a, oa = _search_case(fwd, rev, True, reads[b], L, ln, mid, S, steps, lanes)
+        _, br_b, ob = _search_case(fwd, rev, False, reads[b], L, ln, mid, S, steps, lanes)
         cand_lo[b] = [spine[0]] + [v[0] for v in br_a] + [v[0] for v in br_b]
         cand_hi[b] = [spine[1]] + [v[1] for v in br_a] + [v[1] for v in br_b]
         ovf[b] = oa or ob
@@ -345,3 +416,29 @@ def dying_reads(codes, seed, B=8, L=30):
             if e > 0:
                 reads[i, e - 1] = 3
     return reads, lengths
+
+
+def chains_genome(seed, copies=300, size=4_000):
+    """A 7 bp unit repeated ``copies`` times with 5% of its bases changed,
+    then a random genome: one-mismatch branches spawned inside the repeat
+    die at different places, so a read's dead slots hold several distinct
+    lo values at once (more than eight in some steps of ``chain_reads``)."""
+    rng = np.random.default_rng(seed)
+    rep = np.tile(rng.integers(0, 4, size=7, dtype=np.uint8), copies)
+    hit = rng.random(rep.size) < 0.05
+    rep[hit] = (rep[hit] + rng.integers(1, 4, size=int(hit.sum()))) % 4
+    return np.concatenate([rep, rng.integers(0, 4, size=size, dtype=np.uint8)]).astype(np.uint8)
+
+
+def chain_reads(codes, seed, B=16, L=40, repeat_len=2_100):
+    """Reads from the repeat of ``chains_genome``, every other one with one
+    substitution: (reads (B, L), lengths (B,)) int32 arrays."""
+    rng = np.random.default_rng(seed)
+    reads = np.zeros((B, L), np.int32)
+    for i in range(B):
+        p = int(rng.integers(0, repeat_len - L))
+        reads[i] = codes[p : p + L]
+        if i % 2:
+            at = int(rng.integers(0, L))
+            reads[i, at] = (reads[i, at] + 1 + rng.integers(0, 3)) % 4
+    return reads, np.full(B, L, np.int32)
