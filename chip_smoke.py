@@ -54,8 +54,8 @@ per line, and exits non-zero at the first phase that fails:
    (the latency floor);
 7. the FM pigeonhole path end to end: the CLI's ``align -k 2`` without a
    seed table on the same index, 2 x 65,536 reads; >= 99% mapped and
-   correct, banded-DP kernel and the backward-search kernel (the pieces'
-   search, ``csrc/fm_search.cu``) launched;
+   correct, banded-DP kernel, the backward-search kernel (the pieces'
+   search, ``csrc/fm_search.cu``) and the locate kernel launched;
 8. paired end to end: the CLI's ``align --paired --seed-table`` on 6 x
    16,384 pairs of 100 bp (FR mates, inserts 250-550, 1-2 substitutions a
    mate, 10% of mate2 with 4 more: unmappable at k = 2, within the rescue
@@ -82,12 +82,14 @@ per line, and exits non-zero at the first phase that fails:
    and ``"fused"`` (microbatch 2) must give the same (lo, hi, pos) as each
    other and as the single-device ``exact_interval_search`` + ``locate``,
    find every read, and place every unique one at its true start; the
-   sum kernel launched 100 x 2 times and the fused table entry 100 times;
+   sum kernel launched 100 x 2 times and the fused table entry 100 times,
+   the sharded locate once under each merge;
 11. ``ShardedAligner`` end to end through the CLI: ``align -k 2
    --n-interval 4`` with the seed table on 65,536 reads and without it
    (FM shards) on 16,384 reads; the SAM body must be byte-identical to
    the single-device CLI's on the same FASTQ, >= 99% mapped and correct,
-   and the banded-DP kernel launched;
+   and the banded-DP kernel launched; on the FM shards the sharded piece
+   search and the sharded locate launched (the locate on one device);
 12. the tier-2 staircase at scale, on the JAX package's repeat bench
    configuration (``bench.py`` ``bench_repeat``): ``repeat_genome`` of the
    same length (seed 4) indexed by the CLI with its reverse text (cached
@@ -95,10 +97,11 @@ per line, and exits non-zero at the first phase that fails:
    piece, 12 candidates and 4 verify lanes a read, the array loop over 6 x
    32,768 reads with <= 2 substitutions.  >= 97% mapped (the bench's
    limit), some reads through tier 2, the banded text entry launched inside
-   tier 2, the staircase kernel (``csrc/staircase.cu``) launched inside
-   tier 2, and the same reads on the index without its reverse text map no
-   read that tier 2 loses.  Per batch: both tiers' host ms and cohorts;
-   for one tier-2 call: its wall, the wall a sequential staircase step, and
+   tier 2, the staircase kernel (``csrc/staircase.cu``) and the locate
+   kernel (``csrc/locate.cu``) launched inside tier 2, and the same reads
+   on the index without its reverse text map no read that tier 2 loses.
+   Per batch: both tiers' host ms and cohorts; for one tier-2 call: its
+   wall, the wall a sequential staircase step, and
    the device events and busy share under ``torch.profiler``, which must be
    at least 10x fewer events than the eager staircase loop's 13,230;
 13. the search modes through the CLI on the phase-4 index: ``-k 0``
@@ -106,8 +109,9 @@ per line, and exits non-zero at the first phase that fails:
    16,384 reads with <= 1 substitution, ``--mode staircase -k 2`` on the
    first 16,384 of phase 4's reads; >= 99% mapped and correct in each,
    reads/s, the banded text entry and the staircase kernel launched under
-   ``staircase``, the backward-search kernel under ``-k 0`` and the
-   one-mismatch kernel (``csrc/one_mismatch.cu``) under ``onemm``; then
+   ``staircase``, the backward-search kernel under ``-k 0``, the
+   one-mismatch kernel (``csrc/one_mismatch.cu``) under ``onemm`` and the
+   locate kernel under each; then
    ``OneMismatchAligner.align_batch`` on the onemm reads, its two strands'
    device searches timed apart from its host loop;
 14. long reads, as the JAX package's long-read bench runs them
@@ -130,9 +134,9 @@ per line, and exits non-zero at the first phase that fails:
    >= 99% mapped and at their true global position (+-k) and strand, on
    the repeat genome >= 97% mapped (phase 12's limit), some reads through
    the two-tier staircase rescue, >= 97% of them mapped, and the banded
-   text entry and the staircase kernel launched in it (the staircase in
-   each rescue tier that runs); align and load seconds, reads/s, each
-   part's peak device memory, the rescue cohort, and the banded text entry
+   text entry, the staircase kernel and the locate kernel launched in it
+   (the staircase in each rescue tier that runs); align and load seconds,
+   reads/s, each part's peak device memory, the rescue cohort, and the banded text entry
    launched in each part's stream;
 16. several processes on one card (BASELINE config 5's stream on one
    host): the card's compute mode must not be ``Exclusive_Process``; this
@@ -180,9 +184,27 @@ per line, and exits non-zero at the first phase that fails:
    of each non-empty staircase pool-step are counted (mean and maximum), and
    so are the one-mismatch search's case-B dead chains (distinct dead lo
    values a read and step, a row each for bit-equal outputs), with the
-   bound that adds them beside the live-only one.
+   bound that adds them beside the live-only one;
+19. the LF-walk locate (``csrc/locate.cu``: ``rank.locate`` and the
+   sharded ``locate``) and the sharded piece search
+   (``csrc/fm_search.cu``'s sharded entry), each held against its plain
+   loop on every element with the inputs its path gives it, captured from
+   the path's own functions on this run's reads: [7]'s locate rows (65,536
+   reads, 3 pieces, 8 hits, 2 lanes of slack a piece), [13] ``-k 0``'s
+   (65,536 reads), a [12] tier-2 call's (2 x 256 lanes on the repeat
+   index), the sharded locate's at [11] (16,384 reads on 4 shards) and
+   [10] (65,536), and [11]'s sharded piece search; each timed (kernel,
+   plain device time, the eager loop's wall, a bound from the distinct
+   rows the walks read, the latency floor in [18]'s dependent-step unit).
+   Then row 0, the primary row, n and 65,536 random rows through both
+   locates at S = 1..16 shards and the sharded search at each S, and one
+   FM sharded align step's device events with the kernels and with the
+   plain loops.
 Each path's kernel launch counts are set to 0 just before it runs and read
-just after.  The last lines are a JSON summary of every kernel entry (each
+just after; the locate kernel's are read in [7], [12], [13], [15] and
+[16]'s exact ranks, the sharded locate's in [10], [11] and [16]'s sharded
+ranks (which take the seed path: 0 there), the sharded piece search's in
+[11] and [16].  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
 a bound from its inputs' bytes and operations, and the time of one PyTorch
 call that computes the same function where there is one; integer work is
@@ -196,6 +218,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -266,6 +289,11 @@ FM_ROW_BYTES = 48  # one fused row: 8 BWT words and 4 checkpoints
 # add folds into the popcount's sum), for all four codes 12 a word (shift,
 # two ands with the mask, three and-nots, three popcounts, three adds).
 FM_OPS_PER_ROW_ONE, FM_OPS_PER_ROW_ALL4 = 40, 96
+# The locate walk ([19], csrc/locate.cu): a LF step also takes the row's
+# code (shift, and, select: 4) and its mark bit (shift, and, test, select:
+# 4); rank1 is 4 instructions a mark word (mask, and, popcount, add).
+MARK_BLOCK_BYTES = 16
+LF_STEP_OPS, RANK1_OPS = 8, 16
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
 # bytes/s and the float32 rate outside the tensor cores.  Integer work is
 # priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
@@ -495,19 +523,22 @@ def phase_kernel(torch, dev, card):
     from concurrent.futures import ThreadPoolExecutor
 
     from genome_weaver_align_tpu_torch.ops import (
-        dp, dp_cuda, fm_search_cuda, myers_cuda, one_mismatch_cuda, ring_cuda, staircase_cuda,
-        window,
+        dp, dp_cuda, fm_search_cuda, locate_cuda, myers_cuda, one_mismatch_cuda, ring_cuda,
+        staircase_cuda, window,
     )
 
     t0 = time.time()
     libs = (dp_cuda._library, myers_cuda._library, ring_cuda._library, fm_search_cuda._library,
-            staircase_cuda._library, one_mismatch_cuda._library)
+            staircase_cuda._library, one_mismatch_cuda._library, locate_cuda._library)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
-    log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu and "
-        f"one_mismatch.cu with nvcc for sm_90a in {time.time() - t0:.1f} s; ptxas: fm_search "
-        f"{ptxas_usage('fm_search.cu', 'backward_search_kernel')}, staircase (a slot a lane) "
+    log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu, "
+        f"one_mismatch.cu and locate.cu with nvcc for sm_90a in {time.time() - t0:.1f} s; ptxas: "
+        f"fm_search {ptxas_usage('fm_search.cu', 'backward_search_kernel')}, fm_search sharded "
+        f"{ptxas_usage('fm_search.cu', 'backward_search_sharded_kernel')}, locate "
+        f"{ptxas_usage('locate.cu', '13locate_kernel')}, locate sharded "
+        f"{ptxas_usage('locate.cu', 'locate_sharded_kernel')}, staircase (a slot a lane) "
         f"{ptxas_usage('staircase.cu', 'staircase_kernelILi1E')}, staircase (two slots a "
         f"lane) {ptxas_usage('staircase.cu', 'staircase_kernelILi2E')}, one_mismatch "
         f"{ptxas_usage('one_mismatch.cu', 'one_mismatch_kernel')}")
@@ -1183,11 +1214,12 @@ def phase_myers(torch, dev, card):
     return (max_err, max_text), times
 
 
-def phase_fm_cli(codes, card) -> int:
+def phase_fm_cli(codes, card) -> tuple[int, int]:
     """The FM pigeonhole path end to end through the CLI (no seed table).
-    -> the backward-search kernel's launches (the pieces' search)."""
+    -> the backward-search kernel's launches (the pieces' search) and the
+    locate kernel's."""
     from genome_weaver_align_tpu_torch import cli
-    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, myers_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, locate_cuda, myers_cuda
 
     idx, _, _ = build_index(cli, codes)
     work = CACHE / f"fm{os.getpid()}"
@@ -1201,10 +1233,12 @@ def phase_fm_cli(codes, card) -> int:
     myers_cuda.myers_semiglobal_text_cuda.launches = 0
     myers_cuda.myers_semiglobal_cuda.launches = 0
     fm_search_cuda.backward_search_cuda.launches = 0
+    locate_cuda.locate_cuda.launches = 0
     rc = cli.main(["align", str(idx), str(fq), "-k", str(K), "--batch-size", str(BATCH),
                    "--report", str(rep), "-o", str(sam)])
     launches = dp_cuda.banded_edit_distance_text_cuda.launches
     search_launches = fm_search_cuda.backward_search_cuda.launches
+    locate_launches = locate_cuda.locate_cuda.launches
     check(rc == 0, f"FM-path align exited {rc}")
     report = json.loads(rep.read_text())
     n, mapped, correct = score_sam(sam)
@@ -1215,13 +1249,14 @@ def phase_fm_cli(codes, card) -> int:
         f"entry {dp_cuda.banded_edit_distance_cuda.launches}; Myers launches: text entry "
         f"{myers_cuda.myers_semiglobal_text_cuda.launches}, windows entry "
         f"{myers_cuda.myers_semiglobal_cuda.launches}; backward-search (piece) launches "
-        f"{search_launches}")
+        f"{search_launches}; locate launches {locate_launches}")
     check(n == n_reads, f"SAM holds {n} records")
     check(launches > 0, "the FM-path run never launched the banded DP kernel's text entry")
     check(search_launches > 0, "the FM-path run never launched the backward-search kernel")
+    check(locate_launches > 0, "the FM-path run never launched the locate kernel")
     check(mapped / n >= MIN_MAPPED, f"FM path mapped share {mapped / n:.4f} < {MIN_MAPPED}")
     check(correct / n >= MIN_CORRECT, f"FM path correct share {correct / n:.4f} < {MIN_CORRECT}")
-    return search_launches
+    return search_launches, locate_launches
 
 
 def make_pairs(codes):
@@ -1479,23 +1514,32 @@ def phase_rings(torch, dev, fm, card):
     return max_err, timing
 
 
+def sharded_search_reads(codes, layout):
+    """[10]'s reads: BATCH error-free reads of L bases at seeded starts,
+    laid out for ``layout`` -> (starts, reads, lengths)."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+
+    starts = np.random.default_rng(41).integers(0, codes.size - L, size=BATCH)
+    reads = codes[starts[:, None] + np.arange(L)[None, :]].astype(np.int32)
+    r, ln, _ = pmesh.shard_reads(layout, reads, np.full(BATCH, L, np.int32))
+    return starts, r, ln
+
+
 def phase_sharded_search(torch, dev, codes, gi, card):
     """The interval-sharded exact search at full size, three merges."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch.models import exact
-    from genome_weaver_align_tpu_torch.ops import rank, ring_cuda
+    from genome_weaver_align_tpu_torch.ops import locate_cuda, rank, ring_cuda
     from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
 
-    rng = np.random.default_rng(41)
-    starts = rng.integers(0, codes.size - L, size=BATCH)
-    reads = codes[starts[:, None] + np.arange(L)[None, :]].astype(np.int32)
-    lengths = np.full(BATCH, L, np.int32)
     t0 = time.time()
     layout = pmesh.make_layout(1, SHARDS, dev)
     sh = si.put_sharded(si.shard_fm_index(gi.fwd, SHARDS), dev)
-    r, ln, _ = pmesh.shard_reads(layout, reads, lengths)
+    starts, r, ln = sharded_search_reads(codes, layout)
     torch.cuda.synchronize()
     log(f"[10] {SHARDS} interval shards of the {gi.fwd.n} bp index on the card in "
         f"{time.time() - t0:.1f} s")
@@ -1514,7 +1558,7 @@ def phase_sharded_search(torch, dev, codes, gi, card):
         fn(sh, r[:1024], ln[:1024])  # warm-up: scratch and allocator
         torch.cuda.synchronize()
         counters = (ring_cuda.ring_allreduce_cuda, ring_cuda.fused_occ_cuda,
-                    ring_cuda.fused_rank_ring_cuda)
+                    ring_cuda.fused_rank_ring_cuda, locate_cuda.locate_sharded_cuda)
         for f in counters:
             f.launches = 0
         t0 = time.time()
@@ -1527,7 +1571,8 @@ def phase_sharded_search(torch, dev, codes, gi, card):
         log(f"[10] merge={merge} microbatch={mb}: {secs[merge]:.3f} s "
             f"({BATCH / secs[merge]:.1f} reads/s), (lo, hi, pos) equal to the single-device "
             f"search: {same}; launches: sum {launches[merge][0]}, fused table entry "
-            f"{launches[merge][1]}, fused words entry {launches[merge][2]} ({card})")
+            f"{launches[merge][1]}, fused words entry {launches[merge][2]}, sharded locate "
+            f"{launches[merge][3]} ({card})")
         check(same, f"merge={merge} differs from the single-device search")
     lo, hi, pos = ref
     n_found = int((hi > lo).sum())
@@ -1537,22 +1582,27 @@ def phase_sharded_search(torch, dev, codes, gi, card):
         f"them at their true start")
     check(n_found == BATCH, "an error-free read was not found")
     check(n_placed == int(unique.sum()), "a unique read was placed off its true start")
-    check(launches["ring"] == (L * RING_MICROBATCH, 0, 0),
-          f"merge=ring launched {launches['ring']}, expected ({L * RING_MICROBATCH}, 0, 0)")
-    check(launches["fused"] == (0, L, 0),
-          f"merge=fused launched {launches['fused']}, expected (0, {L}, 0)")
-    check(launches["psum"] == (0, 0, 0), "merge=psum launched a ring kernel")
-    return launches["ring"][0], launches["fused"][1]
+    check(launches["ring"] == (L * RING_MICROBATCH, 0, 0, 1),
+          f"merge=ring launched {launches['ring']}, expected ({L * RING_MICROBATCH}, 0, 0, 1)")
+    check(launches["fused"] == (0, L, 0, 1),
+          f"merge=fused launched {launches['fused']}, expected (0, {L}, 0, 1)")
+    check(launches["psum"] == (0, 0, 0, 1), "merge=psum launched a ring kernel, or the sharded "
+          "locate other than once")
+    return launches["ring"][0], launches["fused"][1], {
+        f"[10] merge={m}": launches[m][3] for m in ("psum", "ring", "fused")}
 
 
 def phase_sharded_cli(codes, card):
     """ShardedAligner through the CLI (--n-interval 4) against the
     single-device CLI on the same FASTQ, seed table and FM shards."""
     from genome_weaver_align_tpu_torch import cli
-    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, locate_cuda
 
+    fm_counters = {"locate": locate_cuda.locate_cuda,
+                   "sharded locate": locate_cuda.locate_sharded_cuda,
+                   "sharded piece search": fm_search_cuda.backward_search_sharded_cuda}
     idx, seedf, _ = build_index(cli, codes)
-    sharded_launches = 0
+    sharded_launches, fm_launches = 0, {}
     work = CACHE / f"sharded{os.getpid()}"
     work.mkdir(parents=True)
     for name, n_reads, extra, seed in (("seed-table", BATCH, ["--seed-table", str(seedf)], 51),
@@ -1564,6 +1614,8 @@ def phase_sharded_cli(codes, card):
             sam, rep = work / f"out{n_int}.sam", work / f"report{n_int}.json"
             dp_cuda.banded_edit_distance_text_cuda.launches = 0
             dp_cuda.banded_edit_distance_cuda.launches = 0
+            for c in fm_counters.values():
+                c.launches = 0
             rc = cli.main(["align", str(idx), str(fq), "-k", str(K), *extra, "--n-interval",
                            str(n_int), "--batch-size", str(BATCH), "--report", str(rep),
                            "-o", str(sam)])
@@ -1571,6 +1623,7 @@ def phase_sharded_cli(codes, card):
             # sums of shard partials), the single-device one the text entry
             launches = (dp_cuda.banded_edit_distance_text_cuda.launches,
                         dp_cuda.banded_edit_distance_cuda.launches)
+            fm_launches[name, n_int] = {key: c.launches for key, c in fm_counters.items()}
             check(rc == 0, f"{name} align --n-interval {n_int} exited {rc}")
             report = json.loads(rep.read_text())
             n, mapped, correct = score_sam(sam)
@@ -1579,7 +1632,8 @@ def phase_sharded_cli(codes, card):
             log(f"[11] {name} align -k {K} --n-interval {n_int}: {n} reads, mapped "
                 f"{mapped / n:.6f}, correct {correct / n:.6f}, {report['reads_per_s']} reads/s "
                 f"over {report['wall_s']} s ({card}), banded-DP launches: text entry "
-                f"{launches[0]}, windows entry {launches[1]}")
+                f"{launches[0]}, windows entry {launches[1]}; FM launches "
+                f"{fm_launches[name, n_int]}")
             check(n == n_reads, f"SAM holds {n} records")
             check(mapped / n >= MIN_MAPPED, f"mapped share {mapped / n:.4f} < {MIN_MAPPED}")
             check(correct / n >= MIN_CORRECT, f"correct share {correct / n:.4f} < {MIN_CORRECT}")
@@ -1588,12 +1642,17 @@ def phase_sharded_cli(codes, card):
                   f"kernel's {('text', 'windows')[entry]} entry")
             if n_int > 1:
                 sharded_launches += launches[1]
+            if name == "FM":  # the FM path: its searches and locate are kernels
+                want = ("sharded locate", "sharded piece search") if n_int > 1 else ("locate",)
+                for key in want:
+                    check(fm_launches[name, n_int][key] > 0,
+                          f"FM --n-interval {n_int} never launched the {key} kernel")
         same = bodies[SHARDS] == bodies[1]
         log(f"[11] {name}: the --n-interval {SHARDS} SAM body is byte-identical to the "
             f"single-device one: {same}")
         check(same, f"{name}: the sharded SAM differs from the single-device SAM")
     shutil.rmtree(work)
-    return sharded_launches
+    return sharded_launches, fm_launches
 
 
 def phase_tier2(torch, dev, card):
@@ -1610,7 +1669,7 @@ def phase_tier2(torch, dev, card):
     from genome_weaver_align_tpu_torch.index.files import GenomeIndex, load_index
     from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
     from genome_weaver_align_tpu_torch.models.pipeline import SuffixFilterAligner, prefetch_result
-    from genome_weaver_align_tpu_torch.ops import dp_cuda, staircase_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, locate_cuda, staircase_cuda
     from genome_weaver_align_tpu_torch.utils.simulate import repeat_genome, simulate_reads_array
 
     t0 = time.time()
@@ -1656,20 +1715,23 @@ def phase_tier2(torch, dev, card):
     al = SuffixFilterAligner(gi, **kw)
     fb2 = al._get_fb2()  # the reverse text goes up here, not inside the first batch
     submit2 = fb2.align_arrays_submit
-    tier2 = {"launches": 0, "calls": 0, "staircase": 0}
+    tier2 = {"launches": 0, "calls": 0, "staircase": 0, "locate": 0}
 
     def counted_submit(*a):
         n0 = dp_cuda.banded_edit_distance_text_cuda.launches
         s0 = staircase_cuda.staircase_pools_cuda.launches
+        l0 = locate_cuda.locate_cuda.launches
         h = submit2(*a)
         tier2["launches"] += dp_cuda.banded_edit_distance_text_cuda.launches - n0
         tier2["staircase"] += staircase_cuda.staircase_pools_cuda.launches - s0
+        tier2["locate"] += locate_cuda.locate_cuda.launches - l0
         tier2["calls"] += 1
         return h
 
     fb2.align_arrays_submit = counted_submit
     dp_cuda.banded_edit_distance_text_cuda.launches = 0
     staircase_cuda.staircase_pools_cuda.launches = 0
+    locate_cuda.locate_cuda.launches = 0
     w0 = time.perf_counter()
     res = run(al)
     wall = time.perf_counter() - w0
@@ -1690,12 +1752,14 @@ def phase_tier2(torch, dev, card):
         f"{n_tier2} reads through tier 2 in {tier2['calls']} calls; banded text-entry launches "
         f"{launches} in the loop, {tier2['launches']} of them in tier 2; staircase launches "
         f"{staircase_cuda.staircase_pools_cuda.launches} in the loop, {tier2['staircase']} of "
-        f"them in tier 2; loop {wall:.3f} s "
+        f"them in tier 2; locate launches {locate_cuda.locate_cuda.launches} in the loop, "
+        f"{tier2['locate']} of them in tier 2; loop {wall:.3f} s "
         f"({total / wall:.1f} reads/s) against {base_s:.3f} s without tier 2 ({card})")
     check(m_rev.mean() >= MIN_REPEAT_MAPPED, f"mapped share {m_rev.mean():.4f} < {MIN_REPEAT_MAPPED}")
     check(n_tier2 > 0, "no read went through the tier-2 staircase")
     check(tier2["launches"] > 0, "tier 2 never launched the banded DP kernel's text entry")
     check(tier2["staircase"] > 0, "tier 2 never launched the staircase kernel")
+    check(tier2["locate"] > 0, "tier 2 never launched the locate kernel")
     check(lost == 0 and m_rev.sum() >= m_base.sum(), "tier 2 unmapped reads (the merge must be "
           "improve-only)")
 
@@ -1752,16 +1816,17 @@ def phase_modes(codes, card) -> dict:
     reverse text): ``-k 0`` (exact) on error-free reads, ``--mode onemm``
     on reads with <= 1 substitution, ``--mode staircase -k 2`` on the first
     reads of phase 4's set.  -> {mode: {kernel: launches}} for the banded
-    text entry and the three FM search kernels."""
+    text entry, the three FM search kernels and the locate."""
     from genome_weaver_align_tpu_torch import cli
     from genome_weaver_align_tpu_torch.ops import (
-        dp_cuda, fm_search_cuda, one_mismatch_cuda, staircase_cuda,
+        dp_cuda, fm_search_cuda, locate_cuda, one_mismatch_cuda, staircase_cuda,
     )
 
     counters = {"banded": dp_cuda.banded_edit_distance_text_cuda,
                 "backward": fm_search_cuda.backward_search_cuda,
                 "staircase": staircase_cuda.staircase_pools_cuda,
-                "one-mismatch": one_mismatch_cuda.one_mismatch_candidates_cuda}
+                "one-mismatch": one_mismatch_cuda.one_mismatch_candidates_cuda,
+                "locate": locate_cuda.locate_cuda}
 
     idx, _, _ = build_index(cli, codes)
     work = CACHE / f"modes{os.getpid()}"
@@ -1796,6 +1861,8 @@ def phase_modes(codes, card) -> dict:
     check(launches["-k 0"]["backward"] > 0, "-k 0 never launched the backward-search kernel")
     check(launches["--mode onemm"]["one-mismatch"] > 0,
           "--mode onemm never launched the one-mismatch kernel")
+    for name in launches:
+        check(launches[name]["locate"] > 0, f"align {name} never launched the locate kernel")
     shutil.rmtree(work)
 
     # where --mode onemm's time goes now that its search is one launch a
@@ -1965,7 +2032,7 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
     import numpy as np
 
     from genome_weaver_align_tpu_torch.index import multipart_io
-    from genome_weaver_align_tpu_torch.ops import dp_cuda, staircase_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, locate_cuda, staircase_cuda
     from genome_weaver_align_tpu_torch.utils.fasta import Contig
     from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 
@@ -2009,12 +2076,14 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
         text entry's launches in each part's stream and in the rescue."""
         counts = {}
         stair = {"A/plain": 0, "B/narrow": 0, "mark": 0}
+        loc = {"parts": 0}
 
         def smoke_log(msg):
             if msg.startswith("part ") and ("flat load" in msg or ": streamed" in msg):
                 counts[msg.split(":")[0] + (" start" if "flat load" in msg else " end")] = (
                     dp_cuda.banded_edit_distance_text_cuda.launches)
                 stair["mark"] = staircase_cuda.staircase_pools_cuda.launches
+                loc["parts"] = locate_cuda.locate_cuda.launches
             if msg.startswith("rescue tier "):  # one part of one rescue tier is done
                 n = staircase_cuda.staircase_pools_cuda.launches
                 stair[msg.split()[2]] += n - stair["mark"]
@@ -2025,12 +2094,16 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
         stats = {}
         dp_cuda.banded_edit_distance_text_cuda.launches = 0
         staircase_cuda.staircase_pools_cuda.launches = 0
+        locate_cuda.locate_cuda.launches = 0
         out = multipart_io.align_stream_multipart(
             mi, reads, np.full(GBP_BATCH, GBP_L, np.int32), GBP_BATCH, k=K, log=smoke_log,
             stats=stats, device=dev)
         total = dp_cuda.banded_edit_distance_text_cuda.launches
         per_part = [counts[f"part {p} end"] - counts[f"part {p} start"] for p in range(2)]
         stats["staircase_launches"] = {t: stair[t] for t in ("A/plain", "B/narrow")}
+        # the parts' streams (up to the last part's end), then the rescue
+        stats["locate_launches"] = {"parts": loc["parts"],
+                                    "rescue": locate_cuda.locate_cuda.launches - loc["parts"]}
         return out, stats, per_part, total - counts["part 1 end"]
 
     def report(tag, out, stats, per_part, rescue, pos, strand):
@@ -2042,7 +2115,8 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
             f"align_s; peak device memory by part {stats['peak_mem_bytes']} B, rescue "
             f"{stats.get('rescue_peak_mem_bytes')} B; banded text-entry launches by part "
             f"{per_part}, rescue {rescue}; staircase launches by rescue tier "
-            f"{stats['staircase_launches']}; rescue cohort {stats['un_before_rescue']} reads, "
+            f"{stats['staircase_launches']}; locate launches {stats['locate_launches']}; rescue "
+            f"cohort {stats['un_before_rescue']} reads, "
             f"{stats['rescued']} improved; tier-1 reruns {stats['n_overflow_rerun']}; batch ms "
             f"{stats['batch_ms']} ({card})")
         return mapped, correct
@@ -2081,9 +2155,12 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
     tier_b = (rmapped.size - int(rmapped.sum())) > 0 or rstats["staircase_launches"]["B/narrow"]
     check(not tier_b or rstats["staircase_launches"]["B/narrow"] > 0,
           "the multi-part rescue's tier B ran and never launched the staircase kernel")
+    check(rstats["locate_launches"]["rescue"] > 0,
+          "the multi-part rescue never launched the locate kernel")
     return {"by_part": per_part, "rescue": rescue, "repeat_by_part": rper_part,
             "repeat_rescue": rrescue, "staircase": stats["staircase_launches"],
-            "repeat_staircase": rstats["staircase_launches"]}
+            "repeat_staircase": rstats["staircase_launches"],
+            "locate": stats["locate_launches"], "repeat_locate": rstats["locate_launches"]}
 
 
 def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path) -> list[dict]:
@@ -2150,8 +2227,9 @@ def rank_child(argv: list[str]) -> int:
     """One rank of phase 16 (``chip_smoke.py --rank MODE RANK N PORT INDEX
     SEEDS READS SAM``): joins the gloo group, runs its slice of every batch
     on ``cuda:RANK % device_count``, and prints one ``RANK_RESULT`` JSON
-    line: wall seconds of the main path, its windows-entry launches (set to
-    0 just before it and read just after), the seconds each
+    line: wall seconds of the main path, its windows-entry, locate and
+    sharded search launches (set to 0 just before it and read just after),
+    the seconds each
     ``gather_to_host`` waited at a barrier for the other ranks and the
     seconds the gather itself took, and the peak device memory.  In sharded
     mode, before the timed run, every windows-entry call of one batch is
@@ -2164,9 +2242,13 @@ def rank_child(argv: list[str]) -> int:
 
     sys.path.insert(0, str(ROOT))
     from genome_weaver_align_tpu_torch.index.files import load_index
-    from genome_weaver_align_tpu_torch.ops import dp_cuda
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, locate_cuda
     from genome_weaver_align_tpu_torch.parallel import multihost as mh
     from genome_weaver_align_tpu_torch.utils import sam
+
+    fm_counters = {"locate": locate_cuda.locate_cuda,
+                   "sharded locate": locate_cuda.locate_sharded_cuda,
+                   "sharded piece search": fm_search_cuda.backward_search_sharded_cuda}
 
     # the ranks share the host's cores: torch's intra-op pools would
     # oversubscribe them
@@ -2212,12 +2294,15 @@ def rank_child(argv: list[str]) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         gather.update(s=0.0, wait_s=0.0, calls=0)
         dp_cuda.banded_edit_distance_cuda.launches = 0
+        for c in fm_counters.values():
+            c.launches = 0
         t0 = time.perf_counter()
         recs = []
         for batch in batches:
             recs.extend(al.to_sam(batch, al.align_batch(batch)))
         wall = time.perf_counter() - t0
         launches = dp_cuda.banded_edit_distance_cuda.launches
+        fm_launches = {key: c.launches for key, c in fm_counters.items()}
         hdr = al.sam_header()
     else:
         from genome_weaver_align_tpu_torch.models import exact
@@ -2233,16 +2318,19 @@ def rank_child(argv: list[str]) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         gather.update(s=0.0, wait_s=0.0, calls=0)
         dp_cuda.banded_edit_distance_cuda.launches = 0
+        for c in fm_counters.values():
+            c.launches = 0
         t0 = time.perf_counter()
         gpos, gstr = mh.exact_align(fm, layout, reads32, lengths, max_len=L_)
         wall = time.perf_counter() - t0
         launches = dp_cuda.banded_edit_distance_cuda.launches
+        fm_launches = {key: c.launches for key, c in fm_counters.items()}
         recs = exact.sam_records(gi.genome, names, reads, gpos, gstr) if rank == 0 else []
         hdr = sam.header(gi.genome.names, gi.genome.lengths)
     if rank == 0:
         sam.write_sam(sam_path, hdr, recs)
     result = {"rank": rank, "ranks": n, "mode": mode, "reads": int(reads.shape[0]), "wall_s": wall,
-              "windows_launches": launches, "gather_s": gather["s"],
+              "windows_launches": launches, "fm_launches": fm_launches, "gather_s": gather["s"],
               "gather_wait_s": gather["wait_s"], "gather_calls": gather["calls"],
               "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "dp_check": dp_check}
     if n > 1:
@@ -2260,7 +2348,8 @@ def phase_ranks(torch, codes, card) -> dict:
     2-rank SAM must equal the 1-rank SAM byte for byte, and in every
     sharded rank the windows entry must equal the plain DP on one batch's
     calls.  -> (the windows entry's launches in each sharded rank, keyed by
-    run; its max |dist err| there)."""
+    run; its max |dist err| there; the locate and sharded search kernels'
+    launches in each rank of each run)."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch import cli
@@ -2276,7 +2365,7 @@ def phase_ranks(torch, codes, card) -> dict:
     torch.cuda.empty_cache()  # the card's memory to the ranks
     work = CACHE / f"ranks{os.getpid()}"
     work.mkdir(parents=True)
-    launches, max_err = {}, 0
+    launches, max_err, fm_launches = {}, 0, {}
     for mode, n_reads, length, kw in (
         # <= 1 substitution and <= 1 indel keep every read within k = 2
         ("sharded", RANK_BATCH * RANK_BATCHES, RANK_L,
@@ -2304,7 +2393,13 @@ def phase_ranks(torch, codes, card) -> dict:
                 f"wait for the other ranks at a barrier, ms a batch "
                 f"{per_batch_ms('gather_wait_s')}), peak device memory "
                 f"{[r['peak_mem_bytes'] for r in res]} B, windows-entry launches "
-                f"{[r['windows_launches'] for r in res]}")
+                f"{[r['windows_launches'] for r in res]}, FM launches "
+                f"{[r['fm_launches'] for r in res]}")
+            for r in res:
+                fm_launches[f"[16] {mode}, rank {r['rank']} of {n}"] = r["fm_launches"]
+            if mode == "exact":  # exact_align's locate_hits: the locate kernel in every rank
+                check(all(r["fm_launches"]["locate"] > 0 for r in res),
+                      f"[16] exact, {n} rank(s): a rank never launched the locate kernel")
             check(n_sam == n_reads, f"[16] {mode}: the SAM holds {n_sam} records")
             check(mapped / n_sam >= MIN_MAPPED, f"[16] {mode}: mapped share {mapped / n_sam:.4f}")
             check(correct / n_sam >= MIN_CORRECT,
@@ -2326,7 +2421,7 @@ def phase_ranks(torch, codes, card) -> dict:
         log(f"[16] {mode}: the {RANKS}-rank SAM is byte-identical to the 1-rank SAM: {same}")
         check(same, f"[16] {mode}: the {RANKS}-rank SAM differs from the 1-rank SAM")
     shutil.rmtree(work)
-    return launches, max_err
+    return launches, max_err, fm_launches
 
 
 def phase_builders(torch, dev, codes, card, native_index_s):
@@ -2502,7 +2597,7 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     log(f"[18] one lane, {CHAIN_L} dependent backward steps: {chain_ms:.4f} ms, {step_us:.4f} us "
         f"a step: the latency floor's unit ({card})")
 
-    out = {}
+    out = {"step_us": step_us}
 
     def live_extensions(plain, spine_with_slots):
         """``plain`` run once with ``rank.step_where`` counted.  Each plain
@@ -2738,6 +2833,239 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     return out
 
 
+def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
+    """[19] The locate kernel, the sharded locate and the sharded piece
+    search, each held against its plain version on every element at each
+    path's shape, with the inputs the path itself gives them (captured from
+    the path's own functions on this run's reads), then timed: kernel,
+    plain (device time), the eager loop's wall (stage), bound and latency
+    floor.  Then every row kind at the edges (row 0, the primary row, n)
+    and 65,536 random rows over S = 1..16 shards, and the FM sharded align
+    step's device events with the kernels and with the plain loops.
+    -> {case: {"err", "ms", "plain_ms", "stage_ms", "bound", "floor_ms",
+    "shape"}} and the step's events under "events"."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.models import bidirectional as bd
+    from genome_weaver_align_tpu_torch.models import exact, staircase, suffix_filter
+    from genome_weaver_align_tpu_torch.ops import rank
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+    from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
+
+    out = {}
+
+    def capture(mod, attr, call):
+        """The arguments of the first call of ``mod.attr`` inside ``call()``."""
+        seen, real = [], getattr(mod, attr)
+
+        def spy(*a, **kw):
+            seen.append(a)
+            return real(*a, **kw)
+
+        with mock.patch.object(mod, attr, spy):
+            call()
+        torch.cuda.synchronize()
+        check(bool(seen), f"[19] the path never called {attr}")
+        return seen[0]
+
+    def err_of(got, want) -> int:
+        got, want = (got if isinstance(got, tuple) else (got,)), (
+            want if isinstance(want, tuple) else (want,))
+        worst = 0
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"output {tuple(a.shape)} {a.dtype} against {tuple(b.shape)} {b.dtype}")
+            if a.numel():
+                worst = max(worst, int((a.long() - b.long()).abs().max()))
+        return worst
+
+    def walk(fm, rows):
+        """The plain walk, counted: its LF steps, the longest walk, and the
+        distinct fused rows and mark blocks it reads (each read once is the
+        least a walk must move: neighbouring rows of one interval share
+        their blocks), and the distinct checkpoints and sampled values."""
+        i, d = rows.reshape(-1).to(torch.int32), torch.zeros(rows.numel(), dtype=torch.int32,
+                                                              device=rows.device)
+        fused, marks = [], [i >> 7]
+        for _ in range(fm.sample_rate):
+            marked = rank._mark_get(fm, i)
+            live = i[~marked]
+            fused.append((live - (live > fm.primary).to(torch.int32)) >> 7)
+            i = torch.where(marked, i, rank.lf_fused(fm, i))
+            d += (~marked).to(torch.int32)
+            marks.append(i[~marked] >> 7)
+
+        def distinct(parts):
+            return int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+
+        return dict(steps=int(d.sum()), longest=int(d.max()) if d.numel() else 0,
+                    rows=distinct(fused), marks=distinct(marks), cps=distinct([i >> 7]),
+                    values=distinct([i]))
+
+    def timed(name, shape, kernel, plain, n_bytes, n_ops, chain):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = err_of(got, want)
+        check(err == 0, f"[19] {name}: the kernel differs from its plain version by {err}")
+        ms = cuda_time_ms(kernel, reps=20, hide_host=True)
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = cuda_time_ms(plain, reps=1, warmup=0, hide_host=True)
+        b = bound(n_bytes, n_ops)
+        floor_ms = chain * step_us / 1e3
+        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, bound=b,
+                         floor_ms=floor_ms, shape=shape)
+        log(f"[19] {name} ({shape}): equal on every element; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms on the device, eager loop wall {stage_ms:.3f} ms; bound "
+            f"{b[0]:.4f} ms by {b[1]}; latency floor {floor_ms:.4f} ms ({chain} dependent "
+            f"loads) ({card})")
+
+    def locate_case(name, path_fm, rows, kernel, plain):
+        """The bound: the distinct 48-byte fused rows and 16-byte mark
+        blocks the walks read, a 4-byte checkpoint and sampled value each
+        distinct end row, the rows in and the positions out; the integer
+        work of every LF step and rank1.  The floor: the longest walk's
+        dependent loads (a row and its mark block together a step, the
+        first mark block, the checkpoint, the sampled value)."""
+        w = walk(path_fm, rows)
+        Q = rows.numel()
+        shape = (f"{Q} rows, sample_rate {path_fm.sample_rate}, {w['steps'] / max(Q, 1):.4f} LF "
+                 f"steps a row, longest {w['longest']}, {w['rows']} distinct fused rows, "
+                 f"{w['marks']} distinct mark blocks")
+        timed(name, shape, kernel, plain,
+              w["rows"] * FM_ROW_BYTES + w["marks"] * MARK_BLOCK_BYTES
+              + (w["cps"] + w["values"]) * 4 + Q * 8,
+              w["steps"] * (FM_OPS_PER_ROW_ONE + LF_STEP_OPS) + Q * RANK1_OPS, w["longest"] + 3)
+
+    # ---- the [4] index: [7]'s and [13]'s rows, [10]'s, and the [11] shards
+    gi = load_index(build_index(cli, codes)[0])
+    fm = rank.from_host(gi.fwd, dev)
+    lens = torch.full((BATCH,), L, dtype=torch.int32, device=dev)
+    piece_r, _, _, _ = simulate_reads_array(codes, BATCH, L, seed=71, max_subs=2)
+    pr = torch.from_numpy(np.where(piece_r >= 4, 0, piece_r).astype(np.int32)).to(dev)
+    rows7 = capture(rank, "locate", lambda: suffix_filter.pigeonhole_candidates(
+        fm, pr, lens, K + 1, max_hits=8))[1]
+    locate_case("locate, [7] FM pigeonhole", fm, rows7, lambda: rank.locate(fm, rows7),
+                lambda: rank.locate_plain(fm, rows7))
+    exact_r, _, _, _ = simulate_reads_array(codes, EXACT_READS, L, seed=61, max_subs=0)
+    er = torch.from_numpy(exact_r.astype(np.int32)).to(dev)
+    lo, hi = exact.exact_interval_search(fm, er, lens[:EXACT_READS])
+    rows13 = capture(rank, "locate", lambda: exact.locate_hits(fm, lo, hi, 1))[1]
+    locate_case("locate, [13] -k 0", fm, rows13, lambda: rank.locate(fm, rows13),
+                lambda: rank.locate_plain(fm, rows13))
+
+    sh = si.put_sharded(si.shard_fm_index(gi.fwd, SHARDS), dev)
+    layout = pmesh.make_layout(1, SHARDS, dev)
+    tx = sp.put_text(sp.shard_text(gi.fwd.text_words, gi.fwd.n, SHARDS), dev)
+    step = sp.make_sharded_pigeonhole_align(layout, like_index=sh,
+                                            like_text=tx, max_len=L, k=K, max_hits=8)
+    sf_r, _, _, _ = simulate_reads_array(codes, SHARDED_FM_READS, L, seed=52, max_subs=2)
+    sr = torch.from_numpy(np.where(sf_r >= 4, 0, sf_r).astype(np.int32)).to(dev)
+    sln = lens[:SHARDED_FM_READS]
+    rows11 = capture(si, "locate", lambda: step(sh, tx, sr, sln))[1]
+    locate_case(f"sharded locate, [11] S = {SHARDS}", fm, rows11, lambda: si.locate(sh, rows11),
+                lambda: si.locate_plain(sh, rows11))
+    _, r10, ln10 = sharded_search_reads(codes, layout)
+    search10 = si.make_sharded_exact_search(layout, L, sh)
+    rows10 = capture(si, "locate", lambda: search10(sh, r10, ln10))[1]
+    locate_case(f"sharded locate, [10] S = {SHARDS}", fm, rows10, lambda: si.locate(sh, rows10),
+                lambda: si.locate_plain(sh, rows10))
+
+    # the sharded piece search: two 48-byte rows a live extension, counted
+    # where the plain loop advances its lanes (rank.step_where)
+    real, live, steps = rank.step_where, [0], [0]
+
+    def counting(active, new, old):
+        n_live = int((active & (old[1] > old[0])).sum())
+        live[0] += n_live
+        steps[0] += n_live > 0
+        return real(active, new, old)
+
+    with mock.patch.object(rank, "step_where", counting):
+        sp.sharded_piece_search_plain(sh, sr, sln, K + 1, L)
+    P = K + 1
+    timed(f"sharded piece search, [11] S = {SHARDS}",
+          f"{SHARDED_FM_READS} reads x {L}, P = {P}, {live[0]} live extensions",
+          lambda: sp.sharded_piece_search(sh, sr, sln, P, L),
+          lambda: sp.sharded_piece_search_plain(sh, sr, sln, P, L),
+          2 * live[0] * FM_ROW_BYTES + sr.numel() * 4 + SHARDED_FM_READS * (4 + 8 * P),
+          2 * live[0] * FM_OPS_PER_ROW_ONE, steps[0])
+
+    # the FM sharded step's device events, with the kernels and with the
+    # plain loops in their place
+    events = {}
+    for how in ("kernels", "plain loops"):
+        with contextlib.ExitStack() as stack:
+            if how == "plain loops":
+                stack.enter_context(mock.patch.object(sp, "sharded_piece_search",
+                                                      sp.sharded_piece_search_plain))
+                stack.enter_context(mock.patch.object(si, "locate", si.locate_plain))
+            step(sh, tx, sr, sln)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(sh, tx, sr, sln)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        n_ev, busy_s, _ = device_busy(torch, prof)
+        events[how] = n_ev
+        log(f"[19] one FM sharded align step ([11], {SHARDED_FM_READS} reads, S = {SHARDS}) "
+            f"with the {how}: {n_ev} device events, busy {busy_s * 1e3:.3f} ms of "
+            f"{wall * 1e3:.3f} ms ({card})")
+    out["events"] = events
+    check(0 < events["kernels"] < events["plain loops"],
+          "the sharded step with the kernels ran no fewer device events than with the loops")
+
+    # ---- edges: row 0, the primary row, n (twice: a row clamped from n + 1)
+    # and 65,536 random rows, one index and S = 1..16 shards
+    gen = torch.Generator(device=dev).manual_seed(19)
+    edge = torch.cat([torch.tensor([0, gi.fwd.primary, gi.fwd.n, gi.fwd.n], dtype=torch.int32,
+                                   device=dev),
+                      torch.randint(0, gi.fwd.n + 1, (65_536,), generator=gen, device=dev,
+                                    dtype=torch.int32)])
+    want = rank.locate_plain(fm, edge)
+    check(err_of(rank.locate(fm, edge), want) == 0, "[19] locate differs at the edges")
+    done = []
+    for S in range(1, 17):
+        shs = si.put_sharded(si.shard_fm_index(gi.fwd, S), dev)
+        check(err_of(si.locate(shs, edge), want) == 0 and
+              err_of(si.locate_plain(shs, edge[:4096]), want[:4096]) == 0,
+              f"[19] the sharded locate differs at the edges, S = {S}")
+        check(err_of(sp.sharded_piece_search(shs, sr[:2048], sln[:2048], P, L),
+                     sp.sharded_piece_search_plain(shs, sr[:2048], sln[:2048], P, L)) == 0,
+              f"[19] the sharded piece search differs from its plain loop, S = {S}")
+        done.append(S)
+        del shs
+    log(f"[19] edges (row 0, the primary row, n twice, 65,536 random rows): locate equal to its "
+        f"plain loop; the sharded locate equal to the one-index plain loop at S = {done} (and "
+        f"its own plain loop on 4,096 of them); the sharded piece search on 2,048 reads equal "
+        f"to its plain loop at each S")
+    del gi, fm, sh, tx, pr, er, sr, r10, ln10, edge
+    torch.cuda.empty_cache()
+
+    # ---- the [12] repeat index: a tier-2 call's rows
+    rep = load_index(build_index(cli, rep_codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}",
+                                 "chr20rep")[0])
+    rbi = bd.from_host_bi(rep.fwd, rep.rev, dev)
+    coh, _, _, _ = simulate_reads_array(rep_codes, STAIR_COHORT, L, seed=13, max_subs=2)
+    coh = np.where(coh >= 4, 0, coh).astype(np.int32)
+    cr = torch.from_numpy(np.concatenate([coh, (3 - coh)[:, ::-1]])).to(dev)
+    rows12 = capture(rank, "locate", lambda: staircase.staircase_filter_candidates(
+        rbi, cr, lens[:cr.shape[0]], K))[1]
+    locate_case("locate, [12] tier-2 call", rbi.fwd, rows12, lambda: rank.locate(rbi.fwd, rows12),
+                lambda: rank.locate_plain(rbi.fwd, rows12))
+    del rbi, rep, cr
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
     """One entry of the ``kernels`` line; ``path`` names the run whose
     launches are counted."""
@@ -2788,6 +3116,50 @@ def fm_rows(fm_k, fm_cli_launches, tier2_staircase, mode_launches, mp_launches) 
             "[13] align --mode onemm", onemm["[13] align --mode onemm"], onemm),
     ]
 
+def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, locate10, fm11,
+                fm16) -> list:
+    """The ``kernels`` line's rows of the locate, the sharded locate and
+    the sharded piece search, each timed at its main path's shape ([19];
+    its other paths' shapes under ``other_shapes``), with the launches of
+    every path that runs it (each count set to 0 just before that path and
+    read just after; [16]'s sharded ranks take the seed path, which runs
+    neither sharded entry)."""
+    def row(name, replaces, entry, path, launches, by_path, others=()):
+        r = loc_k[entry]
+        source = "fm_search.cu" if "piece" in entry else "locate.cu"
+        other = {o: {key: (loc_k[o]["bound"][0] if key == "bound_ms" else loc_k[o][key])
+                     for key in ("ms", "plain_ms", "stage_ms", "bound_ms", "floor_ms", "shape")}
+                 for o in others}
+        return kernel_row(name, source, replaces, path, launches, r["err"],
+                          (r["ms"], r["plain_ms"], *r["bound"], None), stage_ms=r["stage_ms"],
+                          latency_floor_ms=r["floor_ms"], shape=r["shape"],
+                          launches_by_path=by_path, **({"other_shapes": other} if other else {}))
+
+    loc = {"[7] align (FM pigeonhole pieces)": fm_cli_locate,
+           "[12] tier 2 (repeat genome)": tier2_locate,
+           **{f"[13] align {m}": n["locate"] for m, n in mode_launches.items()},
+           **{f"[15] multi-part, {k}": n for k, n in mp_launches["locate"].items()},
+           **{f"[15] multi-part repeat, {k}": n for k, n in mp_launches["repeat_locate"].items()},
+           **{run: n["locate"] for run, n in fm16.items()}}
+    fm_run = fm11["FM", SHARDS]
+    sharded = {**locate10, f"[11] align --n-interval {SHARDS} (FM shards)":
+               fm_run["sharded locate"],
+               **{run: n["sharded locate"] for run, n in fm16.items() if "sharded" in run}}
+    pieces = {f"[11] align --n-interval {SHARDS} (FM shards)": fm_run["sharded piece search"],
+              **{run: n["sharded piece search"] for run, n in fm16.items() if "sharded" in run}}
+    path11 = f"[11] align --n-interval {SHARDS} (FM shards)"
+    return [
+        row("locate", "ops/rank.py:234", "locate, [7] FM pigeonhole",
+            "[7] align (FM pigeonhole pieces)", fm_cli_locate, loc,
+            ("locate, [12] tier-2 call", "locate, [13] -k 0")),
+        row("locate_sharded", "parallel/sharded_index.py:267", f"sharded locate, [11] S = {SHARDS}",
+            path11, fm_run["sharded locate"], sharded, (f"sharded locate, [10] S = {SHARDS}",)),
+        row("fm_backward_search_sharded_pieces", "parallel/sharded_pipeline.py:330",
+            f"sharded piece search, [11] S = {SHARDS}", path11, fm_run["sharded piece search"],
+            pieces),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -2832,24 +3204,26 @@ def main() -> int:
         launches, native_index_s = phase_cli(codes, card)
         phase_profile(torch, dev, codes, card)
         myers_err, myers_times = phase_myers(torch, dev, card)
-        fm_cli_launches = phase_fm_cli(codes, card)
+        fm_cli_launches, fm_cli_locate = phase_fm_cli(codes, card)
         myers_launches = phase_paired(torch, dev, codes, card)
         from genome_weaver_align_tpu_torch import cli
         from genome_weaver_align_tpu_torch.index.files import load_index
 
         gi = load_index(build_index(cli, codes)[0])
         ring_err, ring_timing = phase_rings(torch, dev, gi.fwd, card)
-        ring_launches, fused_launches = phase_sharded_search(torch, dev, codes, gi, card)
+        ring_launches, fused_launches, locate10 = phase_sharded_search(torch, dev, codes, gi,
+                                                                       card)
         del gi
-        banded_win_launches = phase_sharded_cli(codes, card)
+        banded_win_launches, fm11 = phase_sharded_cli(codes, card)
         tier2, rep_codes = phase_tier2(torch, dev, card)
         tier2_launches = tier2["launches"]
         mode_launches = phase_modes(codes, card)
         long_launches = phase_long_reads(torch, dev, codes, card)
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
-        rank_launches, rank_err = phase_ranks(torch, codes, card)
+        rank_launches, rank_err, fm16 = phase_ranks(torch, codes, card)
         phase_builders(torch, dev, codes, card, native_index_s)
         fm_k = phase_fm_kernels(torch, dev, codes, rep_codes, card)
+        loc_k = phase_locate(torch, dev, codes, rep_codes, card, fm_k["step_us"])
         check("jax" not in sys.modules, "the smoke imported jax")
         check(not any(m == "genome_weaver_align_tpu" or m.startswith("genome_weaver_align_tpu.")
                       for m in sys.modules), "the smoke imported the JAX package")
@@ -2900,6 +3274,8 @@ def main() -> int:
                    fused_launches, ring_err["table"], ring_timing["table"],
                    stage_ms=ring_timing["stage"]),
         *fm_rows(fm_k, fm_cli_launches, tier2["staircase"], mode_launches, mp_launches),
+        *locate_rows(loc_k, fm_cli_locate, tier2["locate"], mode_launches, mp_launches, locate10,
+                     fm11, fm16),
     ]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

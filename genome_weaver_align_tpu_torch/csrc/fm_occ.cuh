@@ -1,6 +1,7 @@
 // FM-index occurrence counts and bidirectional extensions on one fused row,
-// shared by fm_search.cu, staircase.cu and one_mismatch.cu, and the block
-// size of a launch of lane groups (block_threads).  No kernel.
+// shared by fm_search.cu, locate.cu, staircase.cu and one_mismatch.cu, the
+// row and owner lookups of the interval-sharded tables, and the block size
+// of a launch of lane groups (block_threads).  No kernel.
 //
 // The tables are the port's DeviceFMIndex (ops/rank.py): `blocks` holds one
 // 12-word row per 128-base block, [8 BWT words | occ checkpoints A, C, G, T],
@@ -88,6 +89,15 @@ __device__ __forceinline__ int pick4(const int (&a)[4], int c) {
   return c == 0 ? a[0] : c == 1 ? a[1] : c == 2 ? a[2] : a[3];
 }
 
+// The BWT code at the row's coordinate (base r of the block): LF's
+// character, read from the row that also gives its count (rank.lf_fused).
+__device__ __forceinline__ int row_code(const FusedRow& row) {
+  const int q = row.r >> 4;
+  const uint4 h = q < 4 ? row.w0 : row.w1;
+  const unsigned w = (q & 3) == 0 ? h.x : (q & 3) == 1 ? h.y : (q & 3) == 2 ? h.z : h.w;
+  return static_cast<int>((w >> (2 * (row.r & 15))) & 3u);
+}
+
 // occ$(c, k) for one code: the backward exact search's update.
 __device__ __forceinline__ int occ1(const FusedRow& row, int c) {
   const unsigned w[8] = {row.w0.x, row.w0.y, row.w0.z, row.w0.w,
@@ -158,6 +168,63 @@ __device__ __forceinline__ FMTable load_table(const int* blocks, const int* C, i
   for (int c = 0; c < 4; ++c) t.C[c] = __ldg(C + c);
   t.primary = primary;
   return t;
+}
+
+// ---- interval shards (parallel/sharded_index.py).  S <= kMaxShards
+// stacked tables on one device, each coordinate space split into disjoint
+// ranges [start[s], end[s]): the packed BWT coordinates (BWT words and
+// checkpoints, two arrays) and the row coordinates (marks, sampled values).
+// A query reads its owner's table only; with no owner it is the plain
+// version's sum of zeros.
+
+constexpr int kMaxShards = 16;
+
+// The shard whose [start, end) holds x, or -1.  start and end are the S
+// bounds, in shared memory.
+__device__ __forceinline__ int shard_of(const int* start, const int* end, int S, int x) {
+  int s = -1;
+  for (int d = 0; d < S; ++d) {
+    if (x >= start[d] && x < end[d]) s = d;
+  }
+  return s;
+}
+
+// The stacked packed-space tables: bwt (S, R, 8) words and occ_cp (S, R, 4)
+// global checkpoint values, 16-byte aligned; pk_start / pk_end point to the
+// S bounds in shared memory.
+struct ShardedFM {
+  const int* bwt;
+  const int* cp;
+  const int* pk_start;
+  const int* pk_end;
+  int S, R, primary;
+  int C[4];
+};
+
+struct ShardRow {
+  FusedRow row;
+  bool own;  // some shard owns the coordinate
+};
+
+// The owner's row at sentinel-inclusive coordinate k, split as
+// sharded_index._block_split does: local block clamped to the shard's
+// table, r the offset in it.  Nothing is loaded without an owner.
+__device__ __forceinline__ ShardRow load_row(const ShardedFM& t, int k) {
+  const int k_adj = k - (k > t.primary ? 1 : 0);
+  const int s = shard_of(t.pk_start, t.pk_end, t.S, k_adj);
+  ShardRow out;
+  out.own = s >= 0;
+  if (out.own) {
+    const int local = k_adj - t.pk_start[s];
+    const int b = min(local / kRowBases, t.R - 1);
+    const int64_t row = static_cast<int64_t>(s) * t.R + b;
+    const uint4* w = reinterpret_cast<const uint4*>(t.bwt + row * 8);
+    out.row.w0 = __ldg(w);
+    out.row.w1 = __ldg(w + 1);
+    out.row.cp = __ldg(reinterpret_cast<const uint4*>(t.cp + row * 4));
+    out.row.r = local - b * kRowBases;
+  }
+  return out;
 }
 
 // Read code at j clamped into [0, L - 1] (lanes past their read are masked

@@ -1,19 +1,30 @@
 // Backward exact FM search on Hopper (sm_90a): one thread a lane, the whole
-// search loop in one launch.
+// search loop in one launch, over one index or over its interval shards.
 //
 // Replaces the JAX package's device loops
 //   genome_weaver_align_tpu/models/exact.py:65          (exact_interval_search)
 //   genome_weaver_align_tpu/models/suffix_filter.py:123 (piece_interval_search)
+//   genome_weaver_align_tpu/parallel/sharded_pipeline.py:330
+//                            (make_sharded_pigeonhole_align's piece search)
 // (each a lax.fori_loop under jit) and computes exactly the port's plain
-// versions, models/exact.py exact_interval_search_plain and
-// models/suffix_filter.py piece_interval_search_plain.  A lane is a read
-// (P = 1) or a (read, piece) of P equal pieces: lane i = b P + p searches
-// read b over [floor(len p / P), floor(len (p + 1) / P)), last character
-// first.  With a k-mer table the last kmer_j characters of a lane at least
-// kmer_j long resolve with one table lookup first.  The loop runs the plain
-// version's trip count `trip`; a lane stops updating once its position
-// passes its start or its interval empties, and neither ever recovers, so
-// it leaves the loop there with the interval the plain loop ends with.
+// versions, models/exact.py exact_interval_search_plain,
+// models/suffix_filter.py piece_interval_search_plain and
+// parallel/sharded_pipeline.py sharded_piece_search_plain.  A lane is a
+// read (P = 1) or a (read, piece) of P equal pieces: lane i = b P + p
+// searches read b over [floor(len p / P), floor(len (p + 1) / P)), last
+// character first.  With a k-mer table (one index only) the last kmer_j
+// characters of a lane at least kmer_j long resolve with one table lookup
+// first.  The loop runs the plain version's trip count `trip`; a lane stops
+// updating once its position passes its start or its interval empties, and
+// neither ever recovers, so it leaves the loop there with the interval the
+// plain loop ends with.
+//
+// One loop (search_lane) over a table accessor: OneIndex reads the fused
+// rows of one DeviceFMIndex; gwa::ShardedFM finds the shard that owns each
+// coordinate (bounds in shared memory) and reads that shard's BWT words and
+// checkpoints, which equals the plain loop's sum over the shards of
+// sharded_index.local_occ_codes (a coordinate of [0, n] always has one
+// owner; a query without one counts 0, as the sum of zeros does).
 //
 // What bounds it: the rows' bytes at a path's batch (65,536 lanes: two
 // 48-byte rows a lane a step, near the measured time), latency below it:
@@ -22,9 +33,10 @@
 // (fm_occ.cuh); the interval lives in registers.  Bytes a step a lane: 96
 // from the rows plus 4 of read.
 //
-// Entry: gwa_backward_search, a plain C function bound with ctypes; it
-// launches on the caller's stream, does not synchronise, allocates
-// nothing, and returns the launch's CUDA error code.
+// Entries: gwa_backward_search (one index) and gwa_backward_search_sharded
+// (S = 1..16 interval shards), plain C functions bound with ctypes; they
+// launch on the caller's stream, do not synchronise, allocate nothing, and
+// return the launch's CUDA error code.
 
 #include <cuda_runtime.h>
 
@@ -46,11 +58,28 @@ struct SearchArgs {
   int B, L, P, n, kmer_j, tab_size, trip;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    backward_search_kernel(const SearchArgs a, const int* blocks, const int* C, int primary) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<int64_t>(a.B) * a.P) return;
-  const gwa::FMTable fm = gwa::load_table(blocks, C, primary);
+// The fused rows of one index.
+struct OneIndex {
+  gwa::FMTable fm;
+  __device__ __forceinline__ gwa::FusedRow load(int k) const { return gwa::load_row(fm, k); }
+  __device__ __forceinline__ int occ(const gwa::FusedRow& row, int c) const {
+    return gwa::occ1(row, c);
+  }
+  __device__ __forceinline__ int C(int c) const { return gwa::pick4(fm.C, c); }
+};
+
+// The interval shards' split tables.
+struct Sharded {
+  gwa::ShardedFM fm;
+  __device__ __forceinline__ gwa::ShardRow load(int k) const { return gwa::load_row(fm, k); }
+  __device__ __forceinline__ int occ(const gwa::ShardRow& row, int c) const {
+    return row.own ? gwa::occ1(row.row, c) : 0;
+  }
+  __device__ __forceinline__ int C(int c) const { return gwa::pick4(fm.C, c); }
+};
+
+template <class Table>
+__device__ __forceinline__ void search_lane(const SearchArgs& a, const Table& tab, int64_t i) {
   const int b = static_cast<int>(i / a.P), p = static_cast<int>(i % a.P);
   const int len = __ldg(a.lengths + b);
   const int start = len * p / a.P, end = len * (p + 1) / a.P;
@@ -70,14 +99,58 @@ __global__ void __launch_bounds__(kThreads)
     const int j = end - 1 - skip - t;
     if (j < start || lo >= hi) break;
     const int c = gwa::code_at(read, a.L, j);
-    const gwa::FusedRow rl = gwa::load_row(fm, lo);
-    const gwa::FusedRow rh = gwa::load_row(fm, hi);
-    const int base = gwa::pick4(fm.C, c);
-    lo = base + gwa::occ1(rl, c);
-    hi = base + gwa::occ1(rh, c);
+    const auto rl = tab.load(lo);
+    const auto rh = tab.load(hi);
+    const int base = tab.C(c);
+    lo = base + tab.occ(rl, c);
+    hi = base + tab.occ(rh, c);
   }
   a.out_lo[i] = lo;
   a.out_hi[i] = hi;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    backward_search_kernel(const SearchArgs a, const int* blocks, const int* C, int primary) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<int64_t>(a.B) * a.P) return;
+  search_lane(a, OneIndex{gwa::load_table(blocks, C, primary)}, i);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    backward_search_sharded_kernel(const SearchArgs a, gwa::ShardedFM fm, const int* C,
+                                   const int* pk_start, const int* pk_end) {
+  __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
+  if (threadIdx.x < fm.S) {
+    s_ps[threadIdx.x] = pk_start[threadIdx.x];
+    s_pe[threadIdx.x] = pk_end[threadIdx.x];
+  }
+  __syncthreads();
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<int64_t>(a.B) * a.P) return;
+  fm.pk_start = s_ps;
+  fm.pk_end = s_pe;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) fm.C[c] = __ldg(C + c);
+  search_lane(a, Sharded{fm}, i);
+}
+
+SearchArgs search_args(const void* reads, const void* lengths, int B, int L, int P, int n,
+                       int trip, void* out_lo, void* out_hi) {
+  SearchArgs a{};
+  a.reads = static_cast<const int*>(reads);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out_lo = static_cast<int*>(out_lo);
+  a.out_hi = static_cast<int*>(out_hi);
+  a.B = B;
+  a.L = L;
+  a.P = P;
+  a.n = n;
+  a.trip = trip;
+  return a;
+}
+
+unsigned grid(const SearchArgs& a) {
+  return static_cast<unsigned>((static_cast<int64_t>(a.B) * a.P + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -91,24 +164,38 @@ extern "C" int gwa_backward_search(const void* reads, const void* lengths, int B
                                    void* stream) {
   if (B < 0 || L < 0 || P < 1 || kmer_j < 0 || (tab_lo != nullptr && tab_size < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t lanes = static_cast<int64_t>(B) * P;
-  if (lanes == 0) return 0;
-  SearchArgs a{};
-  a.reads = static_cast<const int*>(reads);
-  a.lengths = static_cast<const int*>(lengths);
+  if (static_cast<int64_t>(B) * P == 0) return 0;
+  SearchArgs a = search_args(reads, lengths, B, L, P, n, trip, out_lo, out_hi);
   a.tab_lo = static_cast<const int*>(tab_lo);
   a.tab_hi = static_cast<const int*>(tab_hi);
-  a.out_lo = static_cast<int*>(out_lo);
-  a.out_hi = static_cast<int*>(out_hi);
-  a.B = B;
-  a.L = L;
-  a.P = P;
-  a.n = n;
   a.kmer_j = kmer_j;
   a.tab_size = tab_size;
-  a.trip = trip;
-  const unsigned blocks_n = static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
-  backward_search_kernel<<<blocks_n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  backward_search_kernel<<<grid(a), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int*>(blocks), static_cast<const int*>(C), primary);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// reads (B, L), lengths (B,), the S interval shards' bwt (S, R, 8) and
+// occ_cp (S, R, 4) 16-byte aligned, pk_start / pk_end (S,), C (5,),
+// out_lo / out_hi (B * P,): all int32.
+extern "C" int gwa_backward_search_sharded(const void* reads, const void* lengths, int B, int L,
+                                           int P, int S, int R, const void* bwt,
+                                           const void* occ_cp, const void* pk_start,
+                                           const void* pk_end, const void* C, int primary,
+                                           int n, int trip, void* out_lo, void* out_hi,
+                                           void* stream) {
+  if (B < 0 || L < 0 || P < 1 || S < 1 || S > gwa::kMaxShards || R < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(B) * P == 0) return 0;
+  const SearchArgs a = search_args(reads, lengths, B, L, P, n, trip, out_lo, out_hi);
+  gwa::ShardedFM fm{};
+  fm.bwt = static_cast<const int*>(bwt);
+  fm.cp = static_cast<const int*>(occ_cp);
+  fm.S = S;
+  fm.R = R;
+  fm.primary = primary;
+  backward_search_sharded_kernel<<<grid(a), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, fm, static_cast<const int*>(C), static_cast<const int*>(pk_start),
+      static_cast<const int*>(pk_end));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,9 @@ its 4 children with one ``extend_forward_all4`` (one stacked occ gather),
 masks them by the budget and compacts the 4S children back to S slots.
 Overflow is flagged per read.  Every step has fixed shapes and no host
 synchronisation.  On a CUDA device the pools' whole search, through the
-compaction to ``keep``, is one kernel (``csrc/staircase.cu``, one warp a
-pool); the locate and the candidate tail stay torch.
+compaction to ``keep``, is one kernel (``csrc/staircase.cu``, a group of
+lanes a pool) and the locate another (``csrc/locate.cu``); the candidate
+tail stays torch.
 """
 
 from __future__ import annotations
@@ -100,8 +101,9 @@ def staircase_filter_candidates(
     s_pb = _piece_bounds(lengths.to(I32), P)[:, :-1].T  # (P, B) piece starts
 
     # -> candidate loci (read start = occ - s_i), ONE locate for all pieces.
-    # Dead lanes are pinned to row 0: the sparse-SA LF walk on scattered
-    # rows would spread its gathers over the whole index.
+    # Dead lanes are pinned to row 0: the locate walks every lane it is
+    # given, and the pinned ones all walk row 0's one chain, whose rows stay
+    # cached, instead of fetching rows of their own.
     rows = lo[..., None] + torch.arange(hits_per_state, dtype=I32, device=dev)
     valid = rows < hi[..., None]
     rows = torch.where(valid, rows, 0)

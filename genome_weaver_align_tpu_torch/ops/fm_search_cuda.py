@@ -1,18 +1,24 @@
 """Binding of the hand-written CUDA backward exact search (``csrc/fm_search.cu``).
 
 The kernel replaces the JAX package's device loops
-``genome_weaver_align_tpu/models/exact.py:65`` (``exact_interval_search``)
-and ``genome_weaver_align_tpu/models/suffix_filter.py:123``
-(``piece_interval_search``): one thread a lane, the whole loop in one
-launch.  ``backward_search_cuda`` is equal to
+``genome_weaver_align_tpu/models/exact.py:65`` (``exact_interval_search``),
+``genome_weaver_align_tpu/models/suffix_filter.py:123``
+(``piece_interval_search``) and the piece search of
+``genome_weaver_align_tpu/parallel/sharded_pipeline.py:330``
+(``make_sharded_pigeonhole_align``): one thread a lane, the whole loop in
+one launch.  ``backward_search_cuda`` is equal to
 ``models.exact.exact_interval_search_plain`` (one piece a read) and to
-``models.suffix_filter.piece_interval_search_plain`` (P pieces a read).
+``models.suffix_filter.piece_interval_search_plain`` (P pieces a read);
+``backward_search_sharded_cuda``, over the interval shards of a
+``ShardedFMIndex``, to ``parallel.sharded_pipeline.sharded_piece_search_plain``.
 
 ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
 ``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
 when the build fails, loading raises: there is no fallback to the plain
-versions.  ``check_table`` and ``group_lanes`` are shared with the
-staircase and one-mismatch bindings.
+versions.  ``check_table`` (built on ``check_tables``, which owns the
+dtype, contiguity, alignment and device rules) and ``group_lanes`` are
+shared with the staircase, one-mismatch and locate bindings,
+``check_sharded`` with the locate binding.
 """
 
 from __future__ import annotations
@@ -23,10 +29,11 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
-from .rank import FUSED_WIDTH, DeviceFMIndex
+from .rank import FUSED_WIDTH, MARK_WORDS_PER_BLOCK, DeviceFMIndex
 
 I32 = torch.int32
 MAX_PIECES = 32  # pieces a read (the staircase's k + 1)
+MAX_SHARDS = 16  # interval shards a sharded kernel takes
 # Lanes a launch of lane groups may take an SM before each group takes
 # fewer: the crossover of the staircase and one-mismatch kernels' group
 # sizes at their paths' shapes (PERF.md section 6, chip_smoke.py [18])
@@ -41,7 +48,10 @@ def _library() -> ctypes.CDLL:
     lib.gwa_backward_search.argtypes = [
         vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, i32, vp, vp, vp,
     ]
-    lib.gwa_backward_search.restype = ctypes.c_int
+    lib.gwa_backward_search_sharded.argtypes = [
+        vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, vp, vp, vp,
+    ]
+    lib.gwa_backward_search.restype = lib.gwa_backward_search_sharded.restype = ctypes.c_int
     return lib
 
 
@@ -63,18 +73,60 @@ def check_reads(reads: torch.Tensor, lengths: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs reads and lengths on one CUDA device")
 
 
-def check_table(fm: DeviceFMIndex, dev: torch.device, name: str) -> None:
-    """The fused rows and C of one table, int32 on ``dev``, rows 16-byte
-    aligned (each row is read as three 16-byte loads)."""
-    b, C = fm.blocks, fm.C
-    if b.device != dev or C.device != dev:
-        raise ValueError(f"{name}: the index tables are not on the reads' device {dev}")
-    if b.dtype != I32 or C.dtype != I32 or b.dim() != 2 or b.shape[1] != FUSED_WIDTH:
-        raise ValueError(f"{name}: expected (nb + 1, {FUSED_WIDTH}) int32 fused rows and int32 C")
-    if not (b.is_contiguous() and C.is_contiguous()) or b.data_ptr() % 16:
-        raise ValueError(f"{name} needs contiguous, 16-byte aligned fused rows")
+def check_table(fm: DeviceFMIndex, dev: torch.device, name: str, marks: bool = False) -> None:
+    """The fused rows and C of one table (with ``marks`` its mark blocks,
+    mark checkpoints and sampled values too: locate), int32 and contiguous
+    on ``dev``, the tables read as 16-byte vectors 16-byte aligned (each
+    fused row is three 16-byte loads)."""
+    b = fm.blocks
+    if b.dim() != 2 or b.shape[1] != FUSED_WIDTH:
+        raise ValueError(f"{name}: expected (nb + 1, {FUSED_WIDTH}) int32 fused rows, got "
+                         f"{tuple(b.shape)}")
+    tables = {"blocks": b, "C": fm.C}
+    if marks:
+        tables.update(mark_blocks=fm.mark_blocks, mark_cp=fm.mark_cp, ssa_values=fm.ssa_values)
+    check_tables(name, dev, tables, aligned=("blocks", "mark_blocks"))
     if not 0 <= fm.n < (1 << 31) - 1:
         raise ValueError(f"{name}: an index of {fm.n} symbols leaves int32")
+
+
+def check_tables(name: str, dev: torch.device, tables: dict, aligned=()) -> None:
+    """Every table int32 and contiguous on ``dev``; those in ``aligned``
+    (read as 16-byte vectors) 16-byte aligned."""
+    for key, t in tables.items():
+        if t.dtype != I32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous int32 tensor, got {t.dtype}")
+        if key in aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is read as 16-byte vectors: it must start 16-byte "
+                             "aligned")
+    for key, t in tables.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} is not on the queries' device {dev}")
+
+
+def check_sharded(sh, dev: torch.device, name: str, marks: bool = True) -> None:
+    """The stacked tables of a ``ShardedFMIndex`` (``put_sharded``): S of
+    1..16 shards, shapes that agree, int32 and contiguous on ``dev``, the
+    vector-read tables 16-byte aligned; with ``marks`` the row-space tables
+    too (locate), else the packed space alone (the piece search)."""
+    bwt = sh.bwt_blocks
+    S = bwt.shape[0] if bwt.dim() == 3 else -1
+    if not 1 <= S <= MAX_SHARDS:
+        raise ValueError(f"{name}: {S} shards: the kernels take 1..{MAX_SHARDS}")
+    R = bwt.shape[1]
+    shapes = {"bwt_blocks": (S, R, 8), "occ_cp": (S, R, 4), "pk_start": (S,), "pk_end": (S,),
+              "C": (5,)}
+    if marks:
+        mbs, vmax = sh.mark_blocks.shape[1], sh.ssa_values.shape[-1]
+        shapes.update(mark_blocks=(S, mbs, MARK_WORDS_PER_BLOCK), mark_cp=(S, mbs + 1),
+                      row_start=(S,), row_end=(S,), ssa_values=(S, vmax), ssa_base=(S,))
+    tables = {key: getattr(sh, key) for key in shapes}
+    got = {key: tuple(t.shape) for key, t in tables.items()}
+    if got != shapes or R < 1 or (marks and (shapes["mark_cp"][1] < 2 or vmax < 1)):
+        raise ValueError(f"{name}: the shard tables' shapes disagree or are empty: {got}")
+    check_tables(name, dev, tables, aligned=("bwt_blocks", "occ_cp", "mark_blocks"))
+    if not 0 <= sh.n < (1 << 31) - 1:
+        raise ValueError(f"{name}: an index of {sh.n} symbols leaves int32")
 
 
 def stream() -> int:
@@ -153,3 +205,44 @@ def backward_search_cuda(
 
 
 backward_search_cuda.launches = 0
+
+
+def backward_search_sharded_cuda(
+    sh,  # a ShardedFMIndex after put_sharded: S = 1..16 interval shards
+    reads: torch.Tensor,  # (B, L) int32 codes 0..3, contiguous, on a CUDA device
+    lengths: torch.Tensor,  # (B,) int32
+    n_pieces: int,
+    trip: int,  # the plain loop's trip count
+):
+    """Launch the piece search over the interval shards -> (lo, hi)
+    (B, n_pieces) int32: read b's piece p is [floor(len p / P),
+    floor(len (p + 1) / P)), searched last character first for ``trip``
+    steps at most, each row read from the shard that owns it.  Launches on
+    the current stream without synchronising; counts each launch in
+    ``.launches``."""
+    name = "backward_search_sharded_cuda"
+    if not 1 <= n_pieces <= MAX_PIECES:
+        raise ValueError(f"{name}: n_pieces={n_pieces}: the kernel takes 1..{MAX_PIECES}")
+    check_sharded(sh, reads.device, name, marks=False)
+    check_reads(reads, lengths, name)
+    B, L = reads.shape
+    dev = reads.device
+    lo = torch.empty((B, n_pieces), dtype=I32, device=dev)
+    hi = torch.empty((B, n_pieces), dtype=I32, device=dev)
+    if B == 0:
+        return lo, hi
+    S, R = sh.bwt_blocks.shape[:2]
+    with torch.cuda.device(dev):
+        rc = _library().gwa_backward_search_sharded(
+            reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, S, R, sh.bwt_blocks.data_ptr(),
+            sh.occ_cp.data_ptr(), sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), sh.C.data_ptr(),
+            sh.primary, sh.n, max(trip, 0), lo.data_ptr(), hi.data_ptr(), stream(),
+        )
+    if rc != 0:
+        raise RuntimeError(f"gwa_backward_search_sharded launch failed ({S} shards): CUDA error "
+                           f"{rc}")
+    backward_search_sharded_cuda.launches += 1
+    return lo, hi
+
+
+backward_search_sharded_cuda.launches = 0

@@ -259,14 +259,26 @@ def _mark_rank1(fm: DeviceFMIndex, i: torch.Tensor) -> torch.Tensor:
 
 
 def locate(fm: DeviceFMIndex, rows: torch.Tensor) -> torch.Tensor:
-    """Text positions of BWT rows.
+    """Text positions of BWT rows (values in [0, n]).
 
-    With a full SA on the device this is ONE gather; otherwise an LF walk
-    of exactly ``sample_rate`` steps to the nearest sparse-SA sample: a
-    fixed trip count, so the walk never waits on the device to decide
-    whether to stop.  Results are bit-identical either way."""
+    With a full SA on the device this is ONE gather; otherwise the LF walk
+    to the nearest sparse-SA sample: on a CUDA device one kernel
+    (``ops.locate_cuda``, ``csrc/locate.cu``) that stops each row at its
+    first sampled row, on the CPU ``locate_plain``.  Results are
+    bit-identical either way."""
     if fm.full_sa is not None:
         return fm.full_sa[rows.long()]
+    if rows.is_cuda:
+        from . import locate_cuda
+
+        return locate_cuda.locate_cuda(fm, rows.to(I32).contiguous())
+    return locate_plain(fm, rows)
+
+
+def locate_plain(fm: DeviceFMIndex, rows: torch.Tensor) -> torch.Tensor:
+    """The LF walk as a loop of torch ops (the kernel's plain version): a
+    fixed trip of exactly ``sample_rate`` steps, a marked row kept where it
+    is, so the walk never waits on the device to decide whether to stop."""
     i = rows.to(I32)
     d = torch.zeros_like(i)
     for _ in range(fm.sample_rate):

@@ -325,8 +325,21 @@ def lf(sh, i, merge=None):
     return sh.C[c.long()] + merge(local_occ_codes(sh, c, i))
 
 
-def locate(sh, rows, merge=None):
-    """LF walk of exactly ``sample_rate`` steps with merges per step."""
+def locate(sh, rows):
+    """Text positions of BWT rows (values in [0, n]) over the shards.  On a
+    CUDA device one kernel walks each row, reading every step from the
+    shards that own it (``ops.locate_cuda.locate_sharded_cuda``,
+    ``csrc/locate.cu``); on the CPU, ``locate_plain``."""
+    if rows.is_cuda:
+        from ..ops import locate_cuda
+
+        return locate_cuda.locate_sharded_cuda(sh, rows.to(I32).contiguous())
+    return locate_plain(sh, rows)
+
+
+def locate_plain(sh, rows, merge=None):
+    """LF walk of exactly ``sample_rate`` steps with merges per step (the
+    kernel's plain version)."""
     merge = merge or default_merge
     i = rows.to(I32)
     d = torch.zeros_like(i)
@@ -358,7 +371,8 @@ def make_sharded_exact_search(
     rows from the shard tables and sums the shards' occ values).
     ``microbatch`` > 1 splits the batch into that many chunks per step (when
     it divides the batch), as the JAX code splits each data shard's batch;
-    the results are the same for every chunking.  ``locate``'s merges stay ``parts.sum(0)``.
+    the results are the same for every chunking.  The located positions
+    come from ``locate``: one kernel on a CUDA device, whatever ``merge``.
     ``like`` is accepted for the JAX signature; nothing is read from it.
     """
     if merge not in ("psum", "ring", "fused"):

@@ -6,10 +6,16 @@ interval shards on one device (and the batch split across processes, when
 there are several):
 
 1. piece exact search  — every interval update answered by the owning BWT
-                         shard, partials merged by a sum over the shards;
+   (FM path)             shard (``sharded_piece_search``: one kernel on a
+                         CUDA device, ``csrc/fm_search.cu``; on the CPU a
+                         loop of per-step partials merged by a sum over the
+                         shards);
    (seed path)         — each probe's k-mer answered by the shard that owns
                          its k-mer range, one merge of the candidates;
-2. sparse-SA locate    — merges per LF step (FM path);
+2. sparse-SA locate    — the LF walk, each step answered by the owning
+   (FM path)             shards (``sharded_index.locate``: one kernel on a
+                         CUDA device, ``csrc/locate.cu``; on the CPU merges
+                         per LF step);
 3. candidate dedup     — sort + neighbour mask;
 4. window gather       — each genome position contributed by the shard that
                          owns it, merged;
@@ -40,7 +46,7 @@ from ..models.pipeline import (
     reads_to_batch_verify,
     revcomp_verify_batch,
 )
-from ..ops import affine
+from ..ops import affine, rank
 from ..ops import dp as dp_ops
 from ..ops.rank import _upload
 from ..utils import sam as sam_mod
@@ -244,6 +250,47 @@ def make_sharded_seed_align(
     return fn
 
 
+def _piece_steps(max_len: int, n_pieces: int) -> int:
+    """The sharded piece search's trip count: ceil(max_len / P) + 1."""
+    return (max_len + n_pieces - 1) // n_pieces + 1
+
+
+def sharded_piece_search(sh: si.ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor,
+                         n_pieces: int, max_len: int):
+    """Exact backward search of every piece of every read over the interval
+    shards -> (lo, hi), each (B, P) int32.  On a CUDA device the whole loop
+    is one kernel (``ops.fm_search_cuda.backward_search_sharded_cuda``); on
+    the CPU, ``sharded_piece_search_plain``."""
+    if not reads.is_cuda:
+        return sharded_piece_search_plain(sh, reads, lengths, n_pieces, max_len)
+    from ..ops import fm_search_cuda
+
+    return fm_search_cuda.backward_search_sharded_cuda(
+        sh, reads.to(I32).contiguous(), lengths.to(I32).contiguous(), n_pieces,
+        _piece_steps(max_len, n_pieces))
+
+
+def sharded_piece_search_plain(sh: si.ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor,
+                               n_pieces: int, max_len: int):
+    """The piece search as a loop of torch ops (the kernel's plain version):
+    ceil(max_len / P) + 1 interval updates, each answered by the owning BWT
+    shard with the partials summed over the shards; lanes whose piece is
+    exhausted or whose interval is empty stop updating."""
+    reads = reads.to(I32)
+    B, L = reads.shape
+    dev = reads.device
+    bounds = sf._piece_bounds(lengths, n_pieces)
+    s, e = bounds[:, :-1], bounds[:, 1:]
+    lo = torch.zeros((B, n_pieces), dtype=I32, device=dev)
+    hi = torch.full((B, n_pieces), sh.n + 1, dtype=I32, device=dev)
+    for t in range(_piece_steps(max_len, n_pieces)):
+        j = e - 1 - t
+        active = (j >= s) & (lo < hi)
+        c = torch.gather(reads, 1, j.clamp(0, L - 1).long())
+        lo, hi = rank.step_where(active, si.backward_step(sh, c, lo, hi), (lo, hi))
+    return lo, hi
+
+
 def make_sharded_pigeonhole_align(
     layout: pmesh.ShardLayout,
     *,
@@ -253,9 +300,10 @@ def make_sharded_pigeonhole_align(
     k: int,
     max_hits: int = 8,
 ):
-    """FM-path sharded align step: piece search and locate with merges per
-    step.  Returns fn(index_shards, text_shards, reads, lengths) ->
-    (best_pos, best_dist, n_good, overflow)."""
+    """FM-path sharded align step: the piece search and the locate over the
+    interval shards (one kernel each on a CUDA device).  Returns
+    fn(index_shards, text_shards, reads, lengths) -> (best_pos, best_dist,
+    n_good, overflow)."""
     n_pieces = k + 1
     n_interval = layout.n_interval
     W = max_len + 3 * k
@@ -263,24 +311,15 @@ def make_sharded_pigeonhole_align(
     def fn(sh, tx, reads, lengths):
         reads = reads.to(I32)
         lengths = lengths.to(I32)
-        B, L = reads.shape
+        B = reads.shape[0]
         dev = reads.device
-        bounds = sf._piece_bounds(lengths, n_pieces)
-        s, e = bounds[:, :-1], bounds[:, 1:]
+        s = sf._piece_bounds(lengths, n_pieces)[:, :-1]
 
-        # 1. piece search with per-step interval merges
-        steps = (max_len + n_pieces - 1) // n_pieces + 1
-        lo = torch.zeros((B, n_pieces), dtype=I32, device=dev)
-        hi = torch.full((B, n_pieces), sh.n + 1, dtype=I32, device=dev)
-        for t in range(steps):
-            j = e - 1 - t
-            active = (j >= s) & (lo < hi)
-            c = torch.gather(reads, 1, j.clamp(0, L - 1).long())
-            nlo, nhi = si.backward_step(sh, c, lo, hi)
-            lo, hi = torch.where(active, nlo, lo), torch.where(active, nhi, hi)
+        # 1. piece search, every interval update answered by its owner shard
+        lo, hi = sharded_piece_search(sh, reads, lengths, n_pieces, max_len)
         overflow = torch.any((hi - lo) > max_hits, dim=1)
 
-        # 2. locate candidate rows (merged LF walk)
+        # 2. locate candidate rows (the LF walk over the shards)
         rows = lo[:, :, None] + torch.arange(max_hits, dtype=I32, device=dev)[None, None, :]
         valid = rows < hi[:, :, None]
         pos = si.locate(sh, rows.clamp(0, sh.n).reshape(-1)).reshape(rows.shape)

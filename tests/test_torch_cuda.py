@@ -1070,3 +1070,121 @@ def test_fm_kernels_reject_what_they_cannot_take(cuda):
         one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r.t().contiguous().t(), ln, 5, 48)
     with pytest.raises(ValueError, match="int32"):
         one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r.long(), ln, 5, 48)
+
+
+# ---------------------------------------------------------------- locate and the sharded search
+
+def _locate_genome(rate):
+    """The edge-case genome indexed at ``rate``, and every row 0..n of it
+    with the edge rows once more at the front (0, where the staircase pins
+    its dead lanes, the primary row, n, and n again as a row clamped from
+    n + 1), on the CPU."""
+    codes = fm_models.genome_codes(80)
+    fwd = build_fm_index(codes, sample_rate=rate)
+    edges = [0, fwd.primary, fwd.n, fwd.n]
+    rows = np.concatenate([edges, np.random.default_rng(rate).permutation(fwd.n + 1)])
+    return codes, fwd, torch.from_numpy(rows.astype(np.int32))
+
+
+@pytest.mark.parametrize("rate", [8, 16])
+def test_locate_kernel_equals_plain_on_every_row(cuda, rate):
+    """``rank.locate`` on the card launches the kernel once and equals
+    ``locate_plain`` on the card (and on the CPU) on every row, also as a
+    (rows, hits) tensor; a full SA still takes one gather, no kernel."""
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+    _, fwd, rows = _locate_genome(rate)
+    fm = rank.from_host(fwd, cuda)
+    r = rows.to(cuda)
+    before = locate_cuda.locate_cuda.launches
+    got = rank.locate(fm, r)
+    assert locate_cuda.locate_cuda.launches == before + 1
+    want = rank.locate_plain(fm, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), rank.locate_plain(rank.from_host(fwd, "cpu"), rows))
+    grid = r[: 4 * 1000].reshape(1000, 4)
+    assert torch.equal(rank.locate(fm, grid), want[: 4 * 1000].reshape(1000, 4))
+    assert rank.locate(fm, r[:0]).shape == (0,)
+    import dataclasses
+
+    full = dataclasses.replace(fm, full_sa=want[4:][torch.argsort(r[4:])].contiguous())
+    before = locate_cuda.locate_cuda.launches
+    assert torch.equal(rank.locate(full, r), want)
+    assert locate_cuda.locate_cuda.launches == before
+
+
+@pytest.mark.parametrize("S", range(1, 17))
+def test_sharded_locate_kernel_equals_plain_on_every_row(cuda, S):
+    """The sharded ``locate`` on the card launches the kernel once and
+    equals its plain loop (with the sum and the ring merges), and the
+    single-index locate, on every row."""
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+    _, fwd, rows = _locate_genome(8 if S % 2 else 16)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, S), cuda)
+    r = rows.to(cuda)
+    before = locate_cuda.locate_sharded_cuda.launches
+    got = sharded_index.locate(sh, r)
+    assert locate_cuda.locate_sharded_cuda.launches == before + 1
+    want = sharded_index.locate_plain(sh, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, rank.locate_plain(rank.from_host(fwd, cuda), r))
+    ring_merged = sharded_index.locate_plain(sh, r[:512], sharded_index.ring_merge)
+    assert torch.equal(ring_merged, want[:512])
+
+
+@pytest.mark.parametrize("S", range(1, 17))
+@pytest.mark.parametrize("max_len", [None, 9])
+def test_sharded_piece_search_kernel_equals_plain(cuda, S, max_len):
+    """The sharded piece search on the card launches the kernel once and
+    equals its plain loop on every lane (reads of length 0, 1, < P and
+    ragged), and the single-index piece search."""
+    codes = fm_models.genome_codes(82)
+    fwd = build_fm_index(codes, sample_rate=16)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, S), cuda)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 83))
+    max_len = max_len or r.shape[1]
+    before = fm_search_cuda.backward_search_sharded_cuda.launches
+    got = sharded_pipeline.sharded_piece_search(sh, r, ln, 3, max_len)
+    assert fm_search_cuda.backward_search_sharded_cuda.launches == before + 1
+    want = sharded_pipeline.sharded_piece_search_plain(sh, r, ln, 3, max_len)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    one = suffix_filter.piece_interval_search_plain(
+        rank.from_host(fwd, cuda), r, ln, 3,
+        None if max_len == r.shape[1] else sharded_pipeline._piece_steps(max_len, 3))
+    assert all(torch.equal(a, b) for a, b in zip(got, one[:2]))
+    assert int((want[1] > want[0]).sum()) > 0
+
+
+def test_locate_kernels_reject_what_they_cannot_take(cuda):
+    import dataclasses
+
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+    _, fwd, rows = _locate_genome(8)
+    fm = rank.from_host(fwd, cuda)
+    r = rows.to(cuda)
+    with pytest.raises(ValueError, match="device"):
+        locate_cuda.locate_cuda(rank.from_host(fwd, "cpu"), r)
+    with pytest.raises(ValueError, match="int32"):
+        locate_cuda.locate_cuda(fm, r.long())
+    shifted = torch.empty(fm.mark_blocks.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        locate_cuda.locate_cuda(
+            dataclasses.replace(fm, mark_blocks=shifted.view(fm.mark_blocks.shape)), r)
+    sh17 = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 17), cuda)
+    with pytest.raises(ValueError, match="17 shards"):
+        locate_cuda.locate_sharded_cuda(sh17, r)
+    reads = torch.zeros((4, 20), dtype=torch.int32, device=cuda)
+    lens = torch.full((4,), 20, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="17 shards"):
+        fm_search_cuda.backward_search_sharded_cuda(sh17, reads, lens, 3, 8)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 4), "cpu")
+    with pytest.raises(ValueError, match="device"):
+        locate_cuda.locate_sharded_cuda(sh, r)
+    with pytest.raises(ValueError, match="device"):
+        fm_search_cuda.backward_search_sharded_cuda(sh, reads, lens, 3, 8)
+    assert locate_cuda.locate_cuda(fm, r[:0]).shape == (0,)

@@ -1,9 +1,15 @@
-"""Scalar models of the port's FM search kernels, in the kernels' own loop
-order, for the CPU tests (no card here runs the CUDA code).
+"""Scalar models of the port's FM search and locate kernels, in the
+kernels' own loop order, for the CPU tests (no card here runs the CUDA
+code).
 
 Each model follows its CUDA source step for step: ``csrc/fm_occ.cuh``'s
 row split and three-popcount count (code 0 as r less the other three),
-``csrc/fm_search.cu``'s one lane at a time with its early exit,
+``csrc/fm_search.cu``'s one lane at a time with its early exit, its loop
+shared by one index and the interval shards through a table accessor
+(the sharded one finds each coordinate's owner and reads that shard's
+split tables), ``csrc/locate.cu``'s one row at a time (mark block and row
+read together, stop at the first mark; over the shards, each step's row
+and packed owners looked up),
 ``csrc/staircase.cu``'s one pool at a time as a group of G lanes (the
 spine in group lane 0, passes of G live slots into the other buffer, the
 ballot-and-prefix placement; rank-major placement in one pass of a whole
@@ -58,14 +64,25 @@ def occ4(t: Table, k):
     return [cp[0] + r - (c1 + c2 + c3), cp[1] + c1, cp[2] + c2, cp[3] + c3]
 
 
-def occ1(t: Table, k, c):
-    b, r = t.row(k)
+def occ1_row(words, cp, r, c):
+    """fm_occ.cuh's occ1 on one row: its 8 words, 4 checkpoints and the
+    bases r of the block before the coordinate."""
     pattern = (c * 0x55555555) & M32
     n = 0
     for j in range(8):
-        x = int(t.words[b, j]) ^ pattern
+        x = int(words[j]) ^ pattern
         n += bin(~(x | (x >> 1)) & _slot_mask(r, j) & M32).count("1")
-    return int(t.cp[b, c]) + n
+    return int(cp[c]) + n
+
+
+def row_code(words, r):
+    """fm_occ.cuh's row_code: the BWT code at base r of the block."""
+    return (int(words[r >> 4]) >> (2 * (r & 15))) & 3
+
+
+def occ1(t: Table, k, c):
+    b, r = t.row(k)
+    return occ1_row(t.words[b], t.cp[b], r, c)
 
 
 def children(t: Table, mlo, mhi, olo):
@@ -96,33 +113,177 @@ def code_at(read, L, j):
 
 # ---------------------------------------------------------------- fm_search.cu
 
-def backward_search(fm, reads, lengths, n_pieces, trip, kmer_tab=None, kmer_j=0):
-    """(lo, hi) (B, P) int32, lane by lane."""
-    t = Table(fm)
+class OneIndex:
+    """fm_search.cu's accessor over one index's fused rows."""
+
+    def __init__(self, fm):
+        self.t = Table(fm)
+        self.C, self.n = self.t.C, self.t.n
+
+    def load(self, k):
+        b, r = self.t.row(k)
+        return self.t.words[b], self.t.cp[b], r
+
+    def occ(self, row, c):
+        return occ1_row(*row, c)
+
+
+class Shards:
+    """The stacked tables of a ``ShardedFMIndex`` (on the CPU) as host
+    values, and fm_search.cu's accessor over them: a coordinate's row is
+    read from the shard that owns it (fm_occ.cuh load_row), none without
+    an owner."""
+
+    def __init__(self, sh):
+        def host(x):
+            return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+        self.words = host(sh.bwt_blocks).view(np.uint32)
+        self.occ_cp = host(sh.occ_cp)
+        self.pk = (host(sh.pk_start), host(sh.pk_end))
+        self.marks = host(sh.mark_blocks).view(np.uint32)
+        self.mark_cp = host(sh.mark_cp)
+        self.rows = (host(sh.row_start), host(sh.row_end))
+        self.ssa, self.ssa_base = host(sh.ssa_values), host(sh.ssa_base)
+        self.C = [int(x) for x in host(sh.C)[:4]]
+        self.primary, self.n, self.S = int(sh.primary), int(sh.n), self.words.shape[0]
+        self.sample_rate = int(sh.sample_rate)
+
+    @staticmethod
+    def owner(bounds, x):
+        """fm_occ.cuh shard_of: the shard whose [start, end) holds x, -1 if none."""
+        s = -1
+        for d in range(len(bounds[0])):
+            if bounds[0][d] <= x < bounds[1][d]:
+                s = d
+        return s
+
+    def load(self, k):
+        k_adj = k - (1 if k > self.primary else 0)
+        s = self.owner(self.pk, k_adj)
+        if s < 0:
+            return None
+        local = k_adj - int(self.pk[0][s])
+        b = min(local // 128, self.words.shape[1] - 1)
+        return self.words[s, b], self.occ_cp[s, b], local - b * 128
+
+    def occ(self, row, c):
+        return 0 if row is None else occ1_row(*row, c)
+
+
+def _search_lane(tab, read, L, ln, p, P, trip, kmer=None, kmer_j=0):
+    """fm_search.cu search_lane: one lane's (lo, hi)."""
+    start, end = ln * p // P, ln * (p + 1) // P
+    lo, hi, skip = 0, tab.n + 1, 0
+    if kmer is not None and end - start >= kmer_j:
+        idx = 0
+        for u in range(kmer_j):
+            idx = (idx << 2) | code_at(read, L, end - kmer_j + u)
+        idx = min(max(idx, 0), kmer[0].shape[0] - 1)
+        lo, hi, skip = int(kmer[0][idx]), int(kmer[1][idx]), kmer_j
+    for s in range(trip):
+        j = end - 1 - skip - s
+        if j < start or lo >= hi:
+            break
+        c = code_at(read, L, j)
+        rl, rh = tab.load(lo), tab.load(hi)
+        lo, hi = tab.C[c] + tab.occ(rl, c), tab.C[c] + tab.occ(rh, c)
+    return lo, hi
+
+
+def _search(tab, reads, lengths, P, trip, kmer=None, kmer_j=0):
     B, L = reads.shape
-    P = n_pieces
     lo_out = np.zeros((B, P), np.int32)
     hi_out = np.zeros((B, P), np.int32)
-    tab = None if kmer_tab is None or kmer_j <= 0 else [np.asarray(x) for x in kmer_tab]
     for b in range(B):
-        ln = int(lengths[b])
         for p in range(P):
-            start, end = ln * p // P, ln * (p + 1) // P
-            lo, hi, skip = 0, t.n + 1, 0
-            if tab is not None and end - start >= kmer_j:
-                idx = 0
-                for u in range(kmer_j):
-                    idx = (idx << 2) | code_at(reads[b], L, end - kmer_j + u)
-                idx = min(max(idx, 0), tab[0].shape[0] - 1)
-                lo, hi, skip = int(tab[0][idx]), int(tab[1][idx]), kmer_j
-            for s in range(trip):
-                j = end - 1 - skip - s
-                if j < start or lo >= hi:
-                    break
-                c = code_at(reads[b], L, j)
-                lo, hi = t.C[c] + occ1(t, lo, c), t.C[c] + occ1(t, hi, c)
-            lo_out[b, p], hi_out[b, p] = lo, hi
+            lo_out[b, p], hi_out[b, p] = _search_lane(tab, reads[b], L, int(lengths[b]), p, P,
+                                                      trip, kmer, kmer_j)
     return lo_out, hi_out
+
+
+def backward_search(fm, reads, lengths, n_pieces, trip, kmer_tab=None, kmer_j=0):
+    """(lo, hi) (B, P) int32, lane by lane over one index."""
+    kmer = None if kmer_tab is None or kmer_j <= 0 else [np.asarray(x) for x in kmer_tab]
+    return _search(OneIndex(fm), reads, lengths, n_pieces, trip, kmer, kmer_j)
+
+
+def backward_search_sharded(sh, reads, lengths, n_pieces, trip):
+    """(lo, hi) (B, P) int32, lane by lane over the interval shards."""
+    return _search(Shards(sh), reads, lengths, n_pieces, trip)
+
+
+# ---------------------------------------------------------------- locate.cu
+
+def _mark_bit(words4, rem):
+    return (int(words4[rem >> 5]) >> (rem & 31)) & 1
+
+
+def _marks_below(words4, rem):
+    n = 0
+    for j in range(4):
+        allowed = min(max(rem - 32 * j, 0), 32)
+        n += bin(int(words4[j]) & ((1 << allowed) - 1)).count("1")
+    return n
+
+
+def locate(fm, rows):
+    """locate.cu locate_kernel, row by row -> int32 positions.  A step reads
+    the row's mark block and its fused row together (the row before the
+    mark is known) and stops at the first marked row."""
+    t = Table(fm)
+    blocks = fm.mark_blocks.cpu().numpy().view(np.uint32)
+    cp, ssa = fm.mark_cp.cpu().numpy(), fm.ssa_values.cpu().numpy()
+    mb = blocks.shape[0]
+    out = np.zeros(len(rows), np.int32)
+    for q, i in enumerate(int(x) for x in rows):
+        d = 0
+        mblk = min(max(i >> 7, 0), mb - 1)
+        for _ in range(int(fm.sample_rate)):
+            b, r = t.row(min(max(i, 0), t.n))
+            if _mark_bit(blocks[mblk], i & 127):
+                break
+            c = row_code(t.words[b], r)
+            i = t.C[c] + occ1_row(t.words[b], t.cp[b], r, c)
+            d += 1
+            mblk = min(max(i >> 7, 0), mb - 1)
+        rank = int(cp[mblk]) + _marks_below(blocks[mblk], i - mblk * 128)
+        out[q] = int(ssa[min(max(rank, 0), ssa.size - 1)]) + d
+    return out
+
+
+def locate_sharded(sh, rows):
+    """locate.cu locate_sharded_kernel, row by row -> int32 positions: each
+    step the row's owner in the row coordinates gives its mark, the owner
+    in the packed coordinates its LF row; no owner, no load (0)."""
+    st = Shards(sh)
+    mbs, vmax = st.marks.shape[1], st.ssa.shape[1]
+    out = np.zeros(len(rows), np.int32)
+    for q, i in enumerate(int(x) for x in rows):
+        d, t = 0, 0
+        while True:
+            sr = st.owner(st.rows, i)
+            if sr >= 0:
+                local = i - int(st.rows[0][sr])
+                b = min(local // 128, mbs - 1)
+                rem = local - b * 128
+                marks = st.marks[sr, b]
+            if t == st.sample_rate:
+                break
+            row = st.load(i)
+            if sr >= 0 and _mark_bit(marks, rem):
+                break
+            k_adj = i - (1 if i > st.primary else 0)
+            c = row_code(row[0], row[2]) if row is not None and k_adj < st.n else 0
+            i = st.C[c] + st.occ(row, c)
+            d += 1
+            t += 1
+        value = 0
+        if sr >= 0:
+            rank = int(st.mark_cp[sr, b]) + _marks_below(marks, rem)
+            value = int(st.ssa[sr, min(max(rank - int(st.ssa_base[sr]), 0), vmax - 1)])
+        out[q] = value + d
+    return out
 
 
 # ---------------------------------------------------------------- staircase.cu
