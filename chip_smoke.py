@@ -195,11 +195,15 @@ per line, and exits non-zero at the first phase that fails:
    index), the sharded locate's at [11] (16,384 reads on 4 shards) and
    [10] (65,536), and [11]'s sharded piece search; each timed (kernel,
    plain device time, the eager loop's wall, a bound from the distinct
-   rows the walks read, the latency floor in [18]'s dependent-step unit).
-   Then row 0, the primary row, n and 65,536 random rows through both
-   locates at S = 1..16 shards and the sharded search at each S, and one
-   FM sharded align step's device events with the kernels and with the
-   plain loops.
+   rows the walks read, the latency floor in [18]'s dependent-step unit),
+   with the persistent grid the locate binding chose; both locates on
+   subsets of [7]'s rows (4,096 to 393,216) and the SASS of each kernel's
+   LF step (instructions, inner loops, opcodes).  Then row 0, the primary
+   row, n and 65,536 random
+   rows through both locates at S = 1..16 shards and on hand-made unequal
+   shard bounds (the owner guess misses: the scan), the sharded search at
+   each S, and one FM sharded align step's device events with the kernels
+   and with the plain loops.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; the locate kernel's are read in [7], [12], [13], [15] and
 [16]'s exact ranks, the sharded locate's in [10], [11] and [16]'s sharded
@@ -294,6 +298,9 @@ FM_OPS_PER_ROW_ONE, FM_OPS_PER_ROW_ALL4 = 40, 96
 # 4); rank1 is 4 instructions a mark word (mask, and, popcount, add).
 MARK_BLOCK_BYTES = 16
 LF_STEP_OPS, RANK1_OPS = 8, 16
+# [19]: subsets of [7]'s locate rows, below and past the walks the
+# persistent grid holds at once
+SWEEP_ROWS = (4_096, 16_384, 65_536, 131_072, 262_144, 393_216)
 # The card's published peaks (H100 SXM, at its full 700 W limit): memory
 # bytes/s and the float32 rate outside the tensor cores.  Integer work is
 # priced at the int32 issue rate, SMs x 64 a clock x the maximum SM clock,
@@ -536,9 +543,10 @@ def phase_kernel(torch, dev, card):
     log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu, "
         f"one_mismatch.cu and locate.cu with nvcc for sm_90a in {time.time() - t0:.1f} s; ptxas: "
         f"fm_search {ptxas_usage('fm_search.cu', 'backward_search_kernel')}, fm_search sharded "
-        f"{ptxas_usage('fm_search.cu', 'backward_search_sharded_kernel')}, locate "
-        f"{ptxas_usage('locate.cu', '13locate_kernel')}, locate sharded "
-        f"{ptxas_usage('locate.cu', 'locate_sharded_kernel')}, staircase (a slot a lane) "
+        f"{ptxas_usage('fm_search.cu', 'backward_search_sharded_kernel')}, "
+        f"locate {ptxas_usage('locate.cu', '13locate_kernel')}, locate sharded "
+        f"{ptxas_usage('locate.cu', '21locate_sharded_kernel')}, fused table entry "
+        f"{ptxas_usage('ring.cu', 'fused_occ_kernel')}, staircase (a slot a lane) "
         f"{ptxas_usage('staircase.cu', 'staircase_kernelILi1E')}, staircase (two slots a "
         f"lane) {ptxas_usage('staircase.cu', 'staircase_kernelILi2E')}, one_mismatch "
         f"{ptxas_usage('one_mismatch.cu', 'one_mismatch_kernel')}")
@@ -955,9 +963,10 @@ def myers_inputs(Q: int, Lr: int, W: int, seed: int):
     return reads, lengths, windows
 
 
-def sass_loop(lib, tags) -> tuple[str, list]:
-    """(kernel name, the instructions of its longest loop as (opcode,
-    operand text)) for the kernel of ``lib`` whose mangled name holds every
+def sass_loops(lib, tags) -> tuple[str, list]:
+    """(kernel name, every loop of its SASS, each the instructions between
+    a backward branch's target and the branch as (address, opcode, operand
+    text, guard)) for the kernel of ``lib`` whose mangled name holds every
     tag; the kernel's whole SASS goes to ``smoke_cache/``."""
     import re
 
@@ -983,15 +992,19 @@ def sass_loop(lib, tags) -> tuple[str, list]:
                 rest = toks[1:] if guard else toks
                 insts.append((int(m.group(1), 16), rest[0], (rest[1] if len(rest) > 1 else ""),
                               guard))
-        best = []
+        loops = []
         for addr, op, text, _ in insts:
             tgt = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
             if tgt and int(tgt.group(1), 16) <= addr:
-                loop = [i for i in insts if int(tgt.group(1), 16) <= i[0] <= addr]
-                if len(loop) > len(best):
-                    best = loop
-        return name, best
+                loops.append([i for i in insts if int(tgt.group(1), 16) <= i[0] <= addr])
+        return name, loops
     return f"no kernel named *{'*'.join(tags)}*", []
+
+
+def sass_loop(lib, tags) -> tuple[str, list]:
+    """(kernel name, the instructions of its longest loop) (``sass_loops``)."""
+    name, loops = sass_loops(lib, tags)
+    return name, max(loops, key=len, default=[])
 
 
 def dependent_chain(loop, iterations: int = 4) -> int:
@@ -2542,6 +2555,27 @@ def phase_builders(torch, dev, codes, card, native_index_s):
     check(n_found == WAVELET_READS, "an error-free read was not found")
 
 
+def dependent_step_us(torch, fwd, codes, card, tag) -> float:
+    """The dependent-step latency, the latency floors' unit: one lane of
+    the backward search over a read of CHAIN_L bases from the genome (alive
+    through every step), in us a step."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.models import exact
+
+    dev = fwd.blocks.device
+    chain = codes[1_000_000:1_000_000 + CHAIN_L][None, :].astype(np.int32)
+    chain = torch.from_numpy(np.where(chain >= 4, 0, chain)).to(dev)
+    chain_ln = torch.full((1,), CHAIN_L, dtype=torch.int32, device=dev)
+    lo, hi = exact.exact_interval_search(fwd, chain, chain_ln)
+    check(int(hi[0] - lo[0]) >= 1, "the latency chain's read was not found")
+    chain_ms = cuda_time_ms(lambda: exact.exact_interval_search(fwd, chain, chain_ln), reps=5)
+    step_us = chain_ms * 1e3 / CHAIN_L
+    log(f"{tag} one lane, {CHAIN_L} dependent backward steps: {chain_ms:.4f} ms, {step_us:.4f} us "
+        f"a step: the latency floor's unit ({card})")
+    return step_us
+
+
 def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     """Each FM search kernel against its plain version on every output field
     (lo, hi, overflow and every slot), at each path's shape on the index
@@ -2584,18 +2618,9 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
                 worst = max(worst, int((a.long() - b.long()).abs().max()))
         return worst
 
-    # the dependent-step latency: one lane of the backward search over a
-    # read of CHAIN_L bases from the genome (alive through every step)
     fm_tables = load_index(build_index(cli, codes)[0])
     fm = bd.from_host_bi(fm_tables.fwd, fm_tables.rev, dev)
-    chain = search_codes(codes[1_000_000:1_000_000 + CHAIN_L][None, :].astype(np.int32))
-    chain_ln = lens(1, CHAIN_L)
-    lo, hi = exact.exact_interval_search(fm.fwd, chain, chain_ln)
-    check(int(hi[0] - lo[0]) >= 1, "the latency chain's read was not found")
-    chain_ms = cuda_time_ms(lambda: exact.exact_interval_search(fm.fwd, chain, chain_ln), reps=5)
-    step_us = chain_ms * 1e3 / CHAIN_L
-    log(f"[18] one lane, {CHAIN_L} dependent backward steps: {chain_ms:.4f} ms, {step_us:.4f} us "
-        f"a step: the latency floor's unit ({card})")
+    step_us = dependent_step_us(torch, fm.fwd, codes, card, "[18]")
 
     out = {"step_us": step_us}
 
@@ -2833,17 +2858,47 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     return out
 
 
-def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
+def walk_sass(locate_cuda) -> dict:
+    """The SASS of each locate kernel's LF step: the smallest loop that
+    loads from global memory (the step reads its row and mark block; a
+    thread's loop over its rows holds the step loop), its instructions,
+    the inner loops it holds (owner scans) and the most frequent opcodes."""
+    from collections import Counter
+
+    lib = locate_cuda._library()
+    out = {}
+    for kernel, name in (("13locate_kernel", "locate"), ("21locate_sharded_kernel", "sharded")):
+        fn, loops = sass_loops(lib, [kernel])
+        steps = [lp for lp in loops if any(op.startswith("LDG") for _, op, _, _ in lp)]
+        if not steps:
+            out[name] = {"kernel": fn, "instructions": None}
+            continue
+        step = min(steps, key=len)
+        inner = [lp for lp in loops if len(lp) < len(step) and lp[0][0] >= step[0][0]
+                 and lp[-1][0] <= step[-1][0]]
+        in_inner = {i[0] for lp in inner for i in lp}
+        top = ", ".join(f"{op} {c}" for op, c in Counter(op.split(".")[0] for _, op, _, _ in step)
+                        .most_common(10))
+        out[name] = {"kernel": fn, "instructions": len(step), "inner_loops": len(inner),
+                     "outside_inner_loops": len(step) - len(in_inner), "opcodes": top}
+    return out
+
+
+def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -> dict:
     """[19] The locate kernel, the sharded locate and the sharded piece
     search, each held against its plain version on every element at each
     path's shape, with the inputs the path itself gives them (captured from
     the path's own functions on this run's reads), then timed: kernel,
     plain (device time), the eager loop's wall (stage), bound and latency
-    floor.  Then every row kind at the edges (row 0, the primary row, n)
-    and 65,536 random rows over S = 1..16 shards, and the FM sharded align
-    step's device events with the kernels and with the plain loops.
-    -> {case: {"err", "ms", "plain_ms", "stage_ms", "bound", "floor_ms",
-    "shape"}} and the step's events under "events"."""
+    floor, with the persistent grid the locate binding chose; both locates
+    on subsets of [7]'s rows (SWEEP_ROWS); the SASS of their loops.  With
+    ``edges`` (the smoke; ``scripts/fm_kernels_ab.py --phase locate``
+    leaves them out): every row kind at the edges (row 0, the primary row,
+    n) and 65,536 random rows over S = 1..16 shards and on hand-made
+    unequal bounds, and the FM sharded align step's device events with the
+    kernels and with the plain loops.  -> {case: {"err", "ms", "plain_ms",
+    "stage_ms", "bound", "floor_ms", "shape", "grid"}}, "sweep", "sass" and
+    (edges) the step's "events"."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2851,7 +2906,7 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
     from genome_weaver_align_tpu_torch.index.files import load_index
     from genome_weaver_align_tpu_torch.models import bidirectional as bd
     from genome_weaver_align_tpu_torch.models import exact, staircase, suffix_filter
-    from genome_weaver_align_tpu_torch.ops import rank
+    from genome_weaver_align_tpu_torch.ops import locate_cuda, rank
     from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
     from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
@@ -2907,7 +2962,20 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
                     rows=distinct(fused), marks=distinct(marks), cps=distinct([i >> 7]),
                     values=distinct([i]))
 
-    def timed(name, shape, kernel, plain, n_bytes, n_ops, chain):
+    def locate_bound(w, Q):
+        """The distinct 48-byte fused rows and 16-byte mark blocks the walks
+        read, a 4-byte checkpoint and sampled value each distinct end row,
+        the rows in and the positions out; the integer work of every LF
+        step and rank1."""
+        return bound(w["rows"] * FM_ROW_BYTES + w["marks"] * MARK_BLOCK_BYTES
+                     + (w["cps"] + w["values"]) * 4 + Q * 8,
+                     w["steps"] * (FM_OPS_PER_ROW_ONE + LF_STEP_OPS) + Q * RANK1_OPS)
+
+    def grid_of(rows, sharded) -> str:
+        grid, cap = locate_cuda.launch_shape(rows.numel(), rows.device, sharded)
+        return f"{grid} blocks of 256 threads (capacity {cap} walks)"
+
+    def timed(name, shape, kernel, plain, b, chain, grid=""):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = err_of(got, want)
@@ -2918,48 +2986,50 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
         torch.cuda.synchronize()
         stage_ms = (time.perf_counter() - t0) * 1e3
         plain_ms = cuda_time_ms(plain, reps=1, warmup=0, hide_host=True)
-        b = bound(n_bytes, n_ops)
         floor_ms = chain * step_us / 1e3
         out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, stage_ms=stage_ms, bound=b,
-                         floor_ms=floor_ms, shape=shape)
-        log(f"[19] {name} ({shape}): equal on every element; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms on the device, eager loop wall {stage_ms:.3f} ms; bound "
-            f"{b[0]:.4f} ms by {b[1]}; latency floor {floor_ms:.4f} ms ({chain} dependent "
-            f"loads) ({card})")
+                         floor_ms=floor_ms, shape=shape, grid=grid)
+        log(f"[19] {name} ({shape}{'; ' + grid if grid else ''}): equal on every element; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on the device, eager loop wall "
+            f"{stage_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]}; latency floor {floor_ms:.4f} ms "
+            f"({chain} dependent loads) ({card})")
 
-    def locate_case(name, path_fm, rows, kernel, plain):
-        """The bound: the distinct 48-byte fused rows and 16-byte mark
-        blocks the walks read, a 4-byte checkpoint and sampled value each
-        distinct end row, the rows in and the positions out; the integer
-        work of every LF step and rank1.  The floor: the longest walk's
-        dependent loads (a row and its mark block together a step, the
-        first mark block, the checkpoint, the sampled value)."""
+    def locate_case(name, path_fm, rows, kernel, plain, sharded):
+        """The floor: the longest walk's dependent loads (a row and its mark
+        block together a step, the first mark block, the checkpoint, the
+        sampled value)."""
         w = walk(path_fm, rows)
         Q = rows.numel()
         shape = (f"{Q} rows, sample_rate {path_fm.sample_rate}, {w['steps'] / max(Q, 1):.4f} LF "
                  f"steps a row, longest {w['longest']}, {w['rows']} distinct fused rows, "
                  f"{w['marks']} distinct mark blocks")
-        timed(name, shape, kernel, plain,
-              w["rows"] * FM_ROW_BYTES + w["marks"] * MARK_BLOCK_BYTES
-              + (w["cps"] + w["values"]) * 4 + Q * 8,
-              w["steps"] * (FM_OPS_PER_ROW_ONE + LF_STEP_OPS) + Q * RANK1_OPS, w["longest"] + 3)
+        timed(name, shape, kernel, plain, locate_bound(w, Q), w["longest"] + 3,
+              grid_of(rows, sharded))
 
     # ---- the [4] index: [7]'s and [13]'s rows, [10]'s, and the [11] shards
     gi = load_index(build_index(cli, codes)[0])
     fm = rank.from_host(gi.fwd, dev)
+    if step_us is None:
+        step_us = dependent_step_us(torch, fm, codes, card, "[19]")
+    out["sass"] = walk_sass(locate_cuda)
+    for kind, v in out["sass"].items():
+        log(f"[19] SASS of the {kind} kernel's LF step loop ({v['kernel']}): "
+            + (f"{v['instructions']} instructions, {v['outside_inner_loops']} of them outside "
+               f"its {v['inner_loops']} inner loops; {v['opcodes']}"
+               if v["instructions"] else "not found"))
     lens = torch.full((BATCH,), L, dtype=torch.int32, device=dev)
     piece_r, _, _, _ = simulate_reads_array(codes, BATCH, L, seed=71, max_subs=2)
     pr = torch.from_numpy(np.where(piece_r >= 4, 0, piece_r).astype(np.int32)).to(dev)
     rows7 = capture(rank, "locate", lambda: suffix_filter.pigeonhole_candidates(
         fm, pr, lens, K + 1, max_hits=8))[1]
     locate_case("locate, [7] FM pigeonhole", fm, rows7, lambda: rank.locate(fm, rows7),
-                lambda: rank.locate_plain(fm, rows7))
+                lambda: rank.locate_plain(fm, rows7), False)
     exact_r, _, _, _ = simulate_reads_array(codes, EXACT_READS, L, seed=61, max_subs=0)
     er = torch.from_numpy(exact_r.astype(np.int32)).to(dev)
     lo, hi = exact.exact_interval_search(fm, er, lens[:EXACT_READS])
     rows13 = capture(rank, "locate", lambda: exact.locate_hits(fm, lo, hi, 1))[1]
     locate_case("locate, [13] -k 0", fm, rows13, lambda: rank.locate(fm, rows13),
-                lambda: rank.locate_plain(fm, rows13))
+                lambda: rank.locate_plain(fm, rows13), False)
 
     sh = si.put_sharded(si.shard_fm_index(gi.fwd, SHARDS), dev)
     layout = pmesh.make_layout(1, SHARDS, dev)
@@ -2971,12 +3041,29 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
     sln = lens[:SHARDED_FM_READS]
     rows11 = capture(si, "locate", lambda: step(sh, tx, sr, sln))[1]
     locate_case(f"sharded locate, [11] S = {SHARDS}", fm, rows11, lambda: si.locate(sh, rows11),
-                lambda: si.locate_plain(sh, rows11))
+                lambda: si.locate_plain(sh, rows11), True)
     _, r10, ln10 = sharded_search_reads(codes, layout)
     search10 = si.make_sharded_exact_search(layout, L, sh)
     rows10 = capture(si, "locate", lambda: search10(sh, r10, ln10))[1]
     locate_case(f"sharded locate, [10] S = {SHARDS}", fm, rows10, lambda: si.locate(sh, rows10),
-                lambda: si.locate_plain(sh, rows10))
+                lambda: si.locate_plain(sh, rows10), True)
+
+    # both locates on subsets of [7]'s rows: time against row count
+    sweep = {}
+    flat7 = rows7.reshape(-1)
+    for N in SWEEP_ROWS:
+        r = flat7[:N].contiguous()
+        want = rank.locate_plain(fm, r)
+        check(err_of(rank.locate(fm, r), want) == 0 and err_of(si.locate(sh, r), want) == 0,
+              f"[19] a locate differs from its plain version on {N} of [7]'s rows")
+        b = locate_bound(walk(fm, r), N)
+        res = {"bound": b[0], "bound_by": b[1],
+               "locate": cuda_time_ms(lambda r=r: rank.locate(fm, r), reps=20, hide_host=True),
+               "sharded": cuda_time_ms(lambda r=r: si.locate(sh, r), reps=20, hide_host=True)}
+        sweep[N] = res
+        log(f"[19] sweep, the first {N} of [7]'s rows: locate {res['locate']:.4f} ms, sharded "
+            f"{res['sharded']:.4f} ms, bound {b[0]:.4f} ms by {b[1]} ({card})")
+    out["sweep"] = sweep
 
     # the sharded piece search: two 48-byte rows a live extension, counted
     # where the plain loop advances its lanes (rank.step_where)
@@ -2995,59 +3082,75 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
           f"{SHARDED_FM_READS} reads x {L}, P = {P}, {live[0]} live extensions",
           lambda: sp.sharded_piece_search(sh, sr, sln, P, L),
           lambda: sp.sharded_piece_search_plain(sh, sr, sln, P, L),
-          2 * live[0] * FM_ROW_BYTES + sr.numel() * 4 + SHARDED_FM_READS * (4 + 8 * P),
-          2 * live[0] * FM_OPS_PER_ROW_ONE, steps[0])
+          bound(2 * live[0] * FM_ROW_BYTES + sr.numel() * 4 + SHARDED_FM_READS * (4 + 8 * P),
+                2 * live[0] * FM_OPS_PER_ROW_ONE), steps[0])
 
-    # the FM sharded step's device events, with the kernels and with the
-    # plain loops in their place
-    events = {}
-    for how in ("kernels", "plain loops"):
-        with contextlib.ExitStack() as stack:
-            if how == "plain loops":
-                stack.enter_context(mock.patch.object(sp, "sharded_piece_search",
-                                                      sp.sharded_piece_search_plain))
-                stack.enter_context(mock.patch.object(si, "locate", si.locate_plain))
-            step(sh, tx, sr, sln)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+    if edges:
+        # the FM sharded step's device events, with the kernels and with the
+        # plain loops in their place
+        events = {}
+        for how in ("kernels", "plain loops"):
+            with contextlib.ExitStack() as stack:
+                if how == "plain loops":
+                    stack.enter_context(mock.patch.object(sp, "sharded_piece_search",
+                                                          sp.sharded_piece_search_plain))
+                    stack.enter_context(mock.patch.object(si, "locate", si.locate_plain))
                 step(sh, tx, sr, sln)
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        n_ev, busy_s, _ = device_busy(torch, prof)
-        events[how] = n_ev
-        log(f"[19] one FM sharded align step ([11], {SHARDED_FM_READS} reads, S = {SHARDS}) "
-            f"with the {how}: {n_ev} device events, busy {busy_s * 1e3:.3f} ms of "
-            f"{wall * 1e3:.3f} ms ({card})")
-    out["events"] = events
-    check(0 < events["kernels"] < events["plain loops"],
-          "the sharded step with the kernels ran no fewer device events than with the loops")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    step(sh, tx, sr, sln)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            n_ev, busy_s, _ = device_busy(torch, prof)
+            events[how] = n_ev
+            log(f"[19] one FM sharded align step ([11], {SHARDED_FM_READS} reads, S = {SHARDS}) "
+                f"with the {how}: {n_ev} device events, busy {busy_s * 1e3:.3f} ms of "
+                f"{wall * 1e3:.3f} ms ({card})")
+        out["events"] = events
+        check(0 < events["kernels"] < events["plain loops"],
+              "the sharded step with the kernels ran no fewer device events than with the loops")
 
-    # ---- edges: row 0, the primary row, n (twice: a row clamped from n + 1)
-    # and 65,536 random rows, one index and S = 1..16 shards
-    gen = torch.Generator(device=dev).manual_seed(19)
-    edge = torch.cat([torch.tensor([0, gi.fwd.primary, gi.fwd.n, gi.fwd.n], dtype=torch.int32,
-                                   device=dev),
-                      torch.randint(0, gi.fwd.n + 1, (65_536,), generator=gen, device=dev,
-                                    dtype=torch.int32)])
-    want = rank.locate_plain(fm, edge)
-    check(err_of(rank.locate(fm, edge), want) == 0, "[19] locate differs at the edges")
-    done = []
-    for S in range(1, 17):
-        shs = si.put_sharded(si.shard_fm_index(gi.fwd, S), dev)
-        check(err_of(si.locate(shs, edge), want) == 0 and
-              err_of(si.locate_plain(shs, edge[:4096]), want[:4096]) == 0,
-              f"[19] the sharded locate differs at the edges, S = {S}")
-        check(err_of(sp.sharded_piece_search(shs, sr[:2048], sln[:2048], P, L),
-                     sp.sharded_piece_search_plain(shs, sr[:2048], sln[:2048], P, L)) == 0,
-              f"[19] the sharded piece search differs from its plain loop, S = {S}")
-        done.append(S)
-        del shs
-    log(f"[19] edges (row 0, the primary row, n twice, 65,536 random rows): locate equal to its "
-        f"plain loop; the sharded locate equal to the one-index plain loop at S = {done} (and "
-        f"its own plain loop on 4,096 of them); the sharded piece search on 2,048 reads equal "
-        f"to its plain loop at each S")
-    del gi, fm, sh, tx, pr, er, sr, r10, ln10, edge
+        # ---- edges: row 0, the primary row, n (twice: a row clamped from
+        # n + 1) and 65,536 random rows, one index, S = 1..16 shards and the
+        # hand-made unequal bounds
+        gen = torch.Generator(device=dev).manual_seed(19)
+        edge = torch.cat([torch.tensor([0, gi.fwd.primary, gi.fwd.n, gi.fwd.n],
+                                       dtype=torch.int32, device=dev),
+                          torch.randint(0, gi.fwd.n + 1, (65_536,), generator=gen, device=dev,
+                                        dtype=torch.int32)])
+        want = rank.locate_plain(fm, edge)
+        check(err_of(rank.locate(fm, edge), want) == 0, "[19] locate differs at the edges")
+        done = []
+        for S in range(1, 17):
+            shs = si.put_sharded(si.shard_fm_index(gi.fwd, S), dev)
+            check(err_of(si.locate(shs, edge), want) == 0 and
+                  err_of(si.locate_plain(shs, edge[:4096]), want[:4096]) == 0,
+                  f"[19] the sharded locate differs at the edges, S = {S}")
+            check(err_of(sp.sharded_piece_search(shs, sr[:2048], sln[:2048], P, L),
+                         sp.sharded_piece_search_plain(shs, sr[:2048], sln[:2048], P, L)) == 0,
+                  f"[19] the sharded piece search differs from its plain loop, S = {S}")
+            done.append(S)
+            del shs
+        # 4 shards cut at unequal block counts of both coordinates (one of
+        # 1,000 packed blocks, one of 100 mark blocks)
+        nb, mb = gi.fwd.bwt_words.size // 8, gi.fwd.ssa_marks._wpad.size // 4
+        uneq = si.put_sharded(si.shard_fm_index(
+            gi.fwd, 4, [0, nb // 12, nb // 12 + 1_000, 2 * nb // 3, nb],
+            [0, mb // 2, mb // 2 + 100, 3 * mb // 4, mb]), dev)
+        check(err_of(si.locate(uneq, edge), want) == 0 and
+              err_of(si.locate_plain(uneq, edge[:4096]), want[:4096]) == 0,
+              "[19] the sharded locate differs on the unequal shard bounds")
+        check(err_of(sp.sharded_piece_search(uneq, sr[:2048], sln[:2048], P, L),
+                     sp.sharded_piece_search_plain(uneq, sr[:2048], sln[:2048], P, L)) == 0,
+              "[19] the sharded piece search differs on the unequal shard bounds")
+        bounds = [(int(a), int(b)) for a, b in zip(uneq.row_start, uneq.row_end)]
+        log(f"[19] edges (row 0, the primary row, n twice, 65,536 random rows): locate equal to "
+            f"its plain loop; the sharded locate equal to the one-index plain loop at S = {done} "
+            f"and on unequal row bounds {bounds} (and its own plain loop on 4,096 of them); the "
+            f"sharded piece search on 2,048 reads equal to its plain loop at each S")
+        del uneq, edge
+    del gi, fm, sh, tx, pr, er, sr, r10, ln10
     torch.cuda.empty_cache()
 
     # ---- the [12] repeat index: a tier-2 call's rows
@@ -3060,7 +3163,7 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us) -> dict:
     rows12 = capture(rank, "locate", lambda: staircase.staircase_filter_candidates(
         rbi, cr, lens[:cr.shape[0]], K))[1]
     locate_case("locate, [12] tier-2 call", rbi.fwd, rows12, lambda: rank.locate(rbi.fwd, rows12),
-                lambda: rank.locate_plain(rbi.fwd, rows12))
+                lambda: rank.locate_plain(rbi.fwd, rows12), False)
     del rbi, rep, cr
     torch.cuda.empty_cache()
     return out
@@ -3130,10 +3233,15 @@ def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, 
         other = {o: {key: (loc_k[o]["bound"][0] if key == "bound_ms" else loc_k[o][key])
                      for key in ("ms", "plain_ms", "stage_ms", "bound_ms", "floor_ms", "shape")}
                  for o in others}
+        extra = {"other_shapes": other} if other else {}
+        if r.get("grid"):  # the locates: the persistent grid the binding chose
+            extra["grid"] = r["grid"]
+            for o in others:
+                other[o]["grid"] = loc_k[o]["grid"]
         return kernel_row(name, source, replaces, path, launches, r["err"],
                           (r["ms"], r["plain_ms"], *r["bound"], None), stage_ms=r["stage_ms"],
                           latency_floor_ms=r["floor_ms"], shape=r["shape"],
-                          launches_by_path=by_path, **({"other_shapes": other} if other else {}))
+                          launches_by_path=by_path, **extra)
 
     loc = {"[7] align (FM pigeonhole pieces)": fm_cli_locate,
            "[12] tier 2 (repeat genome)": tier2_locate,

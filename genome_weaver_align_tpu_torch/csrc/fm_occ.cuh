@@ -1,7 +1,8 @@
 // FM-index occurrence counts and bidirectional extensions on one fused row,
-// shared by fm_search.cu, locate.cu, staircase.cu and one_mismatch.cu, the
-// row and owner lookups of the interval-sharded tables, and the block size
-// of a launch of lane groups (block_threads).  No kernel.
+// shared by fm_search.cu, locate.cu, staircase.cu, one_mismatch.cu and
+// ring.cu, the owner lookup and row reads of the interval-sharded tables
+// (one definition of the split: owner_of, load_row(ShardedFM)), and the
+// block size of a launch of lane groups (block_threads).  No kernel.
 //
 // The tables are the port's DeviceFMIndex (ops/rank.py): `blocks` holds one
 // 12-word row per 128-base block, [8 BWT words | occ checkpoints A, C, G, T],
@@ -19,7 +20,9 @@
 // unsigned 32-bit arithmetic: per word two masks (low and high bit of every
 // 2-bit slot, cut to the first r slots of the block) and three popcounts
 // (codes 1, 2, 3); code 0's count is r less the other three, since every
-// slot holds one code.
+// slot holds one code.  occ1 cuts every word with its own clamped mask;
+// lf_below, the LF walk's step, counts the words below the coordinate's
+// word in full and masks that one word only.
 
 #pragma once
 
@@ -113,6 +116,53 @@ __device__ __forceinline__ int occ1(const FusedRow& row, int c) {
   return static_cast<int>(cp + n);
 }
 
+// x[k] for k in 0..3 by the bits of k: two levels of selects, no branch.
+__device__ __forceinline__ unsigned sel4(unsigned x0, unsigned x1, unsigned x2, unsigned x3,
+                                         int k) {
+  const unsigned lo = (k & 1) ? x1 : x0, hi = (k & 1) ? x3 : x2;
+  return (k & 2) ? hi : lo;
+}
+
+// The word of the row's eight that holds the coordinate's base (word
+// r >> 4): three levels of selects.
+__device__ __forceinline__ unsigned row_word(const FusedRow& row) {
+  const int q = row.r >> 4;
+  const uint4 h = (q & 4) ? row.w1 : row.w0;
+  return sel4(h.x, h.y, h.z, h.w, q);
+}
+
+// The BWT code at the row's coordinate, from its word (row_word).
+__device__ __forceinline__ int word_code(unsigned wq, int r) {
+  return static_cast<int>((wq >> (2 * (r & 15))) & 3u);
+}
+
+// LF's next row from the coordinate's fused row: C[c] + occ$(c, k), c the
+// row's code at the coordinate (code 0 where `coded` is false: no owner of
+// the code, as the sharded plain loop reads it), bit for bit C[c] +
+// occ1(row, c).  The words below the coordinate's word (wq) count in full
+// and wq is cut to its r & 15 slots: the words' predicates and the cut
+// depend on r alone, ready before the row arrives.  The four C[c] + cp[c]
+// sums do not wait on the code; one two-level select picks the code's.
+__device__ __forceinline__ int lf_below(const FusedRow& row, const int (&C)[4],
+                                        bool coded = true) {
+  const unsigned wq = row_word(row);
+  const int c = coded ? word_code(wq, row.r) : 0;
+  const unsigned pattern = static_cast<unsigned>(c) * 0x55555555u;
+  const unsigned w[7] = {row.w0.x, row.w0.y, row.w0.z, row.w0.w, row.w1.x, row.w1.y, row.w1.z};
+  const int q = row.r >> 4;
+  const unsigned cut = ((1u << (2 * (row.r & 15))) - 1u) & 0x55555555u;
+  unsigned x = wq ^ pattern;
+  unsigned n = __popc(~(x | (x >> 1)) & cut);
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    x = w[j] ^ pattern;
+    if (j < q) n += __popc(~(x | (x >> 1)) & 0x55555555u);
+  }
+  const unsigned base =
+      sel4(row.cp.x + C[0], row.cp.y + C[1], row.cp.z + C[2], row.cp.w + C[3], c);
+  return static_cast<int>(base + n);
+}
+
 // The children of one interval on `main` (coordinates mlo, mhi) whose
 // synchronized interval on the other table starts at olo, for all four
 // codes: (main lo, main hi, other lo, other hi) of each.  Codes in order,
@@ -171,16 +221,16 @@ __device__ __forceinline__ FMTable load_table(const int* blocks, const int* C, i
 }
 
 // ---- interval shards (parallel/sharded_index.py).  S <= kMaxShards
-// stacked tables on one device, each coordinate space split into disjoint
-// ranges [start[s], end[s]): the packed BWT coordinates (BWT words and
+// stacked tables on one device, each coordinate space split into ranges
+// [start[s], end[s]): the packed BWT coordinates (BWT words and
 // checkpoints, two arrays) and the row coordinates (marks, sampled values).
 // A query reads its owner's table only; with no owner it is the plain
 // version's sum of zeros.
 
 constexpr int kMaxShards = 16;
 
-// The shard whose [start, end) holds x, or -1.  start and end are the S
-// bounds, in shared memory.
+// The shard whose [start, end) holds x, or -1 (the last such shard where
+// ranges overlap).  start and end are the S bounds, in shared memory.
 __device__ __forceinline__ int shard_of(const int* start, const int* end, int S, int x) {
   int s = -1;
   for (int d = 0; d < S; ++d) {
@@ -189,15 +239,58 @@ __device__ __forceinline__ int shard_of(const int* start, const int* end, int S,
   return s;
 }
 
+// One coordinate space's split: the S bounds in shared memory, whether they
+// are disjoint, and the division x / width (__umulhi(x, magic) >> shift,
+// exact for 0 <= x < 2^31; ops/fm_search_cuda.py owner_divisor) that
+// guesses the owner.  shard_fm_index splits each space into equal widths
+// clamped to n + 1, so there the guess is the owner of every x in [0, n].
+struct Split {
+  const int* start;
+  const int* end;
+  int S;
+  unsigned magic;
+  int shift;
+  bool disjoint;
+};
+
+// Every thread of the block calls it (it synchronises): the S bounds copied
+// into s_start / s_end (shared memory, S <= blockDim.x) and checked for
+// overlap once a block.
+__device__ __forceinline__ Split load_split(const int* start, const int* end, int S,
+                                            unsigned magic, int shift, int* s_start,
+                                            int* s_end) {
+  const int t = threadIdx.x;
+  if (t < S) {
+    s_start[t] = start[t];
+    s_end[t] = end[t];
+  }
+  __syncthreads();
+  bool overlap = false;
+  if (t < S) {
+    for (int e = 0; e < S; ++e)
+      overlap |= e != t && max(s_start[t], s_start[e]) < min(s_end[t], s_end[e]);
+  }
+  const bool disjoint = !__syncthreads_or(overlap);
+  return {s_start, s_end, S, magic, shift, disjoint};
+}
+
+// shard_of(x) by arithmetic: the guess x / width, kept when its range holds
+// x and the ranges are disjoint (then no other shard holds x), else the
+// scan.  Equal to shard_of for every bounds; unequal ones cost the scan.
+__device__ __forceinline__ int owner_of(const Split& sp, int x) {
+  const unsigned g = min(__umulhi(static_cast<unsigned>(x), sp.magic) >> sp.shift,
+                         static_cast<unsigned>(sp.S - 1));
+  if (sp.disjoint && x >= sp.start[g] && x < sp.end[g]) return static_cast<int>(g);
+  return shard_of(sp.start, sp.end, sp.S, x);
+}
+
 // The stacked packed-space tables: bwt (S, R, 8) words and occ_cp (S, R, 4)
-// global checkpoint values, 16-byte aligned; pk_start / pk_end point to the
-// S bounds in shared memory.
+// global checkpoint values, 16-byte aligned, and their split.
 struct ShardedFM {
   const int* bwt;
   const int* cp;
-  const int* pk_start;
-  const int* pk_end;
-  int S, R, primary;
+  Split pk;
+  int R, primary;
   int C[4];
 };
 
@@ -206,24 +299,31 @@ struct ShardRow {
   bool own;  // some shard owns the coordinate
 };
 
-// The owner's row at sentinel-inclusive coordinate k, split as
-// sharded_index._block_split does: local block clamped to the shard's
-// table, r the offset in it.  Nothing is loaded without an owner.
+// Shard s's row at packed coordinate k_adj (sentinel removed; s's range
+// holds it), split as sharded_index._block_split does: local block clamped
+// to the shard's table, r the offset in it.
+__device__ __forceinline__ FusedRow shard_row(const ShardedFM& t, int s, int k_adj) {
+  const int local = k_adj - t.pk.start[s];  // >= 0: the shard's range holds k_adj
+  const int b = min(local >> 7, t.R - 1);
+  const int64_t row = static_cast<int64_t>(s) * t.R + b;
+  const uint4* w = reinterpret_cast<const uint4*>(t.bwt + row * 8);
+  FusedRow out;
+  out.w0 = __ldg(w);
+  out.w1 = __ldg(w + 1);
+  out.cp = __ldg(reinterpret_cast<const uint4*>(t.cp + row * 4));
+  out.r = local - b * kRowBases;
+  return out;
+}
+
+// The owner's row at sentinel-inclusive coordinate k (owner_of; where
+// ranges overlap, the last shard that holds it).  Nothing is loaded
+// without an owner.
 __device__ __forceinline__ ShardRow load_row(const ShardedFM& t, int k) {
   const int k_adj = k - (k > t.primary ? 1 : 0);
-  const int s = shard_of(t.pk_start, t.pk_end, t.S, k_adj);
+  const int s = owner_of(t.pk, k_adj);
   ShardRow out;
   out.own = s >= 0;
-  if (out.own) {
-    const int local = k_adj - t.pk_start[s];
-    const int b = min(local / kRowBases, t.R - 1);
-    const int64_t row = static_cast<int64_t>(s) * t.R + b;
-    const uint4* w = reinterpret_cast<const uint4*>(t.bwt + row * 8);
-    out.row.w0 = __ldg(w);
-    out.row.w1 = __ldg(w + 1);
-    out.row.cp = __ldg(reinterpret_cast<const uint4*>(t.cp + row * 4));
-    out.row.r = local - b * kRowBases;
-  }
+  if (out.own) out.row = shard_row(t, s, k_adj);
   return out;
 }
 

@@ -21,7 +21,8 @@
 //
 // One loop (search_lane) over a table accessor: OneIndex reads the fused
 // rows of one DeviceFMIndex; gwa::ShardedFM finds the shard that owns each
-// coordinate (bounds in shared memory) and reads that shard's BWT words and
+// coordinate (fm_occ.cuh owner_of: x / width, confirmed against the bounds
+// in shared memory) and reads that shard's BWT words and
 // checkpoints, which equals the plain loop's sum over the shards of
 // sharded_index.local_occ_codes (a coordinate of [0, n] always has one
 // owner; a query without one counts 0, as the sum of zeros does).
@@ -120,15 +121,9 @@ __global__ void __launch_bounds__(kThreads)
     backward_search_sharded_kernel(const SearchArgs a, gwa::ShardedFM fm, const int* C,
                                    const int* pk_start, const int* pk_end) {
   __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
-  if (threadIdx.x < fm.S) {
-    s_ps[threadIdx.x] = pk_start[threadIdx.x];
-    s_pe[threadIdx.x] = pk_end[threadIdx.x];
-  }
-  __syncthreads();
+  fm.pk = gwa::load_split(pk_start, pk_end, fm.pk.S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<int64_t>(a.B) * a.P) return;
-  fm.pk_start = s_ps;
-  fm.pk_end = s_pe;
 #pragma unroll
   for (int c = 0; c < 4; ++c) fm.C[c] = __ldg(C + c);
   search_lane(a, Sharded{fm}, i);
@@ -177,21 +172,23 @@ extern "C" int gwa_backward_search(const void* reads, const void* lengths, int B
 
 // reads (B, L), lengths (B,), the S interval shards' bwt (S, R, 8) and
 // occ_cp (S, R, 4) 16-byte aligned, pk_start / pk_end (S,), C (5,),
-// out_lo / out_hi (B * P,): all int32.
+// out_lo / out_hi (B * P,): all int32.  The owner guess is x / width =
+// __umulhi(x, pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
 extern "C" int gwa_backward_search_sharded(const void* reads, const void* lengths, int B, int L,
                                            int P, int S, int R, const void* bwt,
                                            const void* occ_cp, const void* pk_start,
-                                           const void* pk_end, const void* C, int primary,
-                                           int n, int trip, void* out_lo, void* out_hi,
-                                           void* stream) {
-  if (B < 0 || L < 0 || P < 1 || S < 1 || S > gwa::kMaxShards || R < 1)
+                                           const void* pk_end, unsigned pk_magic, int pk_shift,
+                                           const void* C, int primary, int n, int trip,
+                                           void* out_lo, void* out_hi, void* stream) {
+  if (B < 0 || L < 0 || P < 1 || S < 1 || S > gwa::kMaxShards || R < 1 || pk_shift < 0 ||
+      pk_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<int64_t>(B) * P == 0) return 0;
   const SearchArgs a = search_args(reads, lengths, B, L, P, n, trip, out_lo, out_hi);
   gwa::ShardedFM fm{};
   fm.bwt = static_cast<const int*>(bwt);
   fm.cp = static_cast<const int*>(occ_cp);
-  fm.S = S;
+  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
   fm.R = R;
   fm.primary = primary;
   backward_search_sharded_kernel<<<grid(a), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

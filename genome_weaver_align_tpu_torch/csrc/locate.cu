@@ -1,6 +1,6 @@
-// Sparse-SA locate on Hopper (sm_90a): the LF walk of one BWT row to its
-// nearest sampled row, one thread a row, the whole walk in one launch, over
-// one index or over its interval shards.
+// Sparse-SA locate on Hopper (sm_90a): the LF walk of each BWT row to its
+// nearest sampled row, over one index or over its interval shards, on a
+// persistent grid whose threads walk one row after another.
 //
 // Replaces the JAX package's device loops
 //   genome_weaver_align_tpu/ops/rank.py:234                 (locate)
@@ -15,35 +15,48 @@
 // same row and d.  Rows are in [0, n] (callers clamp); every table index is
 // also clamped into its table, so no row reads outside the tables.
 //
-// One index (locate_kernel): a step reads the row's 16-byte mark block
-// (rank.MARK_BLOCK_BITS = 128 rows) and its 48-byte fused row together, the
-// row before the mark is known: one dependent round trip a step instead of
-// two, for one row read in vain at the marked end.  LF's code comes from the
-// row that gives its count (rank.lf_fused); the count is fm_occ.cuh's occ1.
-// At the end, rank1 is the mark block's checkpoint plus the popcount of the
-// block's bits below the row (the words masked as rank._mark_rank1 does),
-// then one sampled value.
+// One loop (walk) over a table accessor.  OneIndex: a step reads the row's
+// 16-byte mark block (rank.MARK_BLOCK_BITS = 128 rows) and its 48-byte fused
+// row together, before the mark is known: one dependent round trip a step,
+// for one row read in vain at the marked end.  LF's code and count come from
+// that row (rank.lf_fused; fm_occ.cuh lf_below).  rank1 is the mark
+// block's checkpoint plus the popcount of the block's bits below the row
+// (the words masked as rank._mark_rank1 does), then one sampled value.
+// Shards: the same walk over the stacked ShardedFMIndex tables
+// (parallel/sharded_index.py:56).  Each step finds the row's owner in the
+// row coordinates (marks, sampled values) and in the packed coordinates (BWT
+// words and checkpoints) with fm_occ.cuh owner_of (x / width, confirmed
+// against the S bounds in shared memory) and reads only the owners' tables.
+// That equals the plain loop's sums over the shards, where non-owners add
+// 0, including its quirks: the BWT code has an owner only below n
+// (local_bwt_char), a coordinate with no owner adds 0, and the sampled slot
+// is clamped to the shard's table (local_ssa_value).
 //
-// Interval shards (locate_sharded_kernel): the same walk over the stacked
-// ShardedFMIndex tables (parallel/sharded_index.py:56).  Each step finds the
-// row's owner in the row coordinates (marks, sampled values) and in the
-// packed coordinates (BWT words and checkpoints, two arrays), from the S
-// bounds in shared memory, and reads only the owners' tables.  That equals
-// the plain loop's sums over the shards, where non-owners add 0, including
-// its quirks: the BWT code has an owner only below n (local_bwt_char), a
-// coordinate with no owner adds 0, and the sampled slot is clamped to the
-// shard's table (local_ssa_value).
-//
-// What bounds it: bytes and latency of the dependent chain.  A row walks
-// about sample_rate / 2 steps; each reads a 48-byte row (two 32-byte
-// sectors) and a 16-byte mark block, and the end one checkpoint and one
-// sampled value.  The tables stay in L2 at the paths' index sizes except
-// the sampled values.  The walk's latency is (steps + 2) dependent loads.
+// What bounds it: the walk's dependent chain and the issue of its steps.
+// A walk takes 0 to sample_rate - 1 LF steps (4.74 on average on the FM
+// path at sample_rate 8); each step is one dependent round trip to L2 (the
+// tables stay there at the paths' index sizes, except the sampled values)
+// and the instructions that turn the row into the next row.  Below about
+// 65,536 rows a launch waits on the chain; at the FM path's 393,216 rows
+// on issue and on waves (PERF.md section 6).  So a step's chain is short
+// (lf_below: one masked word, selects by bits, no branch), the sharded
+// owners come by division (owner_of, not two scans of the bounds), and the
+// grid is persistent: the blocks that fit on the SMs at once, no more than
+// the rows need, each thread walking one row at a time until the rows run
+// out, its next row strided (the grid's threads further on) and that row's
+// id read while the current one walks.  Measured at the paths' shapes
+// (PERF.md section 6), one walk a thread beats two and four walked in
+// lockstep (more registers, fewer threads, the longest of the thread's
+// walks), strided rows beat rows claimed from a counter (the atomic's
+// round trip before each row), and both beat a machine of per-slot stages
+// that let a slot start a new row while its warp still walked (its
+// per-trip overhead lengthens every step's chain).
 //
 // Entries: gwa_locate (one index) and gwa_locate_sharded (S = 1..16
 // interval shards), plain C functions bound with ctypes; they launch on the
 // caller's stream, do not synchronise, allocate nothing, and return the
-// launch's CUDA error code.
+// launch's CUDA error code.  gwa_locate_resident gives the blocks of a
+// kernel that fit on one SM (the binding's persistent grid).
 
 #include <cuda_runtime.h>
 
@@ -56,11 +69,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMarkBits = 128;  // rows a mark block (4 words)
 
-// The row's bit in its 16-byte mark block (bit at offset rem, 0..127).
+// The row's bit in its 16-byte mark block (bit at offset rem, 0..127; a
+// larger offset reads the last word).
 __device__ __forceinline__ bool mark_bit(const uint4& m, int rem) {
-  const int q = rem >> 5;
-  const unsigned w = q == 0 ? m.x : q == 1 ? m.y : q == 2 ? m.z : m.w;
-  return (w >> (rem & 31)) & 1u;
+  return (gwa::sel4(m.x, m.y, m.z, m.w, min(rem >> 5, 3)) >> (rem & 31)) & 1u;
 }
 
 // Marked rows of the block before offset rem (0..128).
@@ -83,151 +95,244 @@ __device__ __forceinline__ uint4 load4(const int* p) {
 struct LocateArgs {
   const int* rows;  // (Q,)
   int* out;         // (Q,)
-  int64_t Q;
-  int n, sample_rate;
+  int Q, sample_rate;
+};
+
+// Where a walk stopped: the index of its mark block's rank1 checkpoint (-1:
+// no owner, the value is 0) and a key for the sampled value's index: the
+// block's marked rows below the row, and the owner above bit 8 (shards).
+struct Stop {
+  int cp, key;
 };
 
 // One index: DeviceFMIndex's fused rows and marks.
-struct OneMarks {
+struct OneIndex {
+  gwa::FMTable fm;
   const int* blocks;  // (mb, 4) mark words
   const int* cp;      // (mb + 1,) rank1 checkpoints
   const int* ssa;     // (n_ssa,) sampled values in row order
-  int mb, n_ssa;
+  int mb, n_ssa, n;
+
+  struct Step {
+    gwa::FusedRow row;
+    uint4 marks;
+    int mblk, rem;
+  };
+  __device__ __forceinline__ Step load(int i) const {
+    Step s;
+    s.mblk = min(max(i >> 7, 0), mb - 1);
+    s.rem = i - s.mblk * kMarkBits;
+    s.marks = load4(blocks + static_cast<int64_t>(s.mblk) * 4);
+    s.row = gwa::load_row(fm, min(max(i, 0), n));
+    return s;
+  }
+  __device__ __forceinline__ bool marked(const Step& s) const {
+    return mark_bit(s.marks, s.rem & (kMarkBits - 1));
+  }
+  __device__ __forceinline__ int lf(const Step& s) const { return gwa::lf_below(s.row, fm.C); }
+  __device__ __forceinline__ Stop stop(const Step& s) const {
+    return {s.mblk, marks_below(s.marks, s.rem)};
+  }
+  __device__ __forceinline__ int value_index(int key, int rank0) const {
+    return min(max(rank0 + key, 0), n_ssa - 1);
+  }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    locate_kernel(const LocateArgs a, const int* blocks, const int* C, int primary,
-                  const OneMarks m) {
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (q >= a.Q) return;
-  const gwa::FMTable fm = gwa::load_table(blocks, C, primary);
-  int i = __ldg(a.rows + q), d = 0;
-  int mblk = min(max(i >> 7, 0), m.mb - 1);
-  uint4 marks = load4(m.blocks + static_cast<int64_t>(mblk) * 4);
-  for (int t = 0; t < a.sample_rate; ++t) {
-    const gwa::FusedRow row = gwa::load_row(fm, min(max(i, 0), a.n));
-    if (mark_bit(marks, i & (kMarkBits - 1))) break;
-    const int c = gwa::row_code(row);
-    i = gwa::pick4(fm.C, c) + gwa::occ1(row, c);
-    ++d;
-    mblk = min(max(i >> 7, 0), m.mb - 1);
-    marks = load4(m.blocks + static_cast<int64_t>(mblk) * 4);
+// Interval shards: ShardedFMIndex's stacked tables, both splits in shared
+// memory.
+struct Shards {
+  gwa::ShardedFM fm;    // the packed split in fm.pk
+  gwa::Split rows;      // the row coordinates' split
+  const int* blocks;    // (S, mbs, 4) mark words
+  const int* cp;        // (S, mbs + 1) global rank1 at the local block starts
+  const int* ssa;       // (S, vmax) sampled values
+  const int* ssa_base;  // (S,) marked rows before each shard, in shared memory
+  int mbs, vmax, n;
+
+  struct Step {
+    gwa::ShardRow row;
+    uint4 marks;
+    int owner, b, rem;  // the row's owner, its local mark block, the offset in it
+    bool coded;         // the coordinate lies below n: its BWT code has an owner
+  };
+  __device__ __forceinline__ Step load(int i) const {
+    Step s;
+    s.owner = gwa::owner_of(rows, i);
+    s.b = s.rem = 0;
+    s.marks = make_uint4(0, 0, 0, 0);
+    if (s.owner >= 0) {
+      const int local = i - rows.start[s.owner];  // >= 0: the owner's range holds i
+      s.b = min(local >> 7, mbs - 1);
+      s.rem = local - s.b * kMarkBits;
+      s.marks = load4(blocks + (static_cast<int64_t>(s.owner) * mbs + s.b) * 4);
+    }
+    s.row = gwa::load_row(fm, i);
+    s.coded = i - (i > fm.primary ? 1 : 0) < n;
+    return s;
   }
-  const int rank = __ldg(m.cp + mblk) + marks_below(marks, i - mblk * kMarkBits);
-  a.out[q] = __ldg(m.ssa + min(max(rank, 0), m.n_ssa - 1)) + d;
+  __device__ __forceinline__ bool marked(const Step& s) const {
+    return s.owner >= 0 && mark_bit(s.marks, s.rem);
+  }
+  __device__ __forceinline__ int lf(const Step& s) const {
+    return s.row.own ? gwa::lf_below(s.row.row, fm.C, s.coded) : fm.C[0];
+  }
+  __device__ __forceinline__ Stop stop(const Step& s) const {
+    if (s.owner < 0) return {-1, 0};
+    return {s.owner * (mbs + 1) + s.b, marks_below(s.marks, s.rem) | s.owner << 8};
+  }
+  __device__ __forceinline__ int value_index(int key, int rank0) const {
+    const int owner = key >> 8;
+    const int slot = min(max(rank0 + (key & 255) - ssa_base[owner], 0), vmax - 1);
+    return owner * vmax + slot;
+  }
+};
+
+// The persistent walk: each thread walks rows start, start + threads, ...
+// (threads = the grid's), each to its first mark, then reads its checkpoint
+// and sampled value; the next row's id is read while the current one walks.
+template <class Table>
+__device__ __forceinline__ void walk(const LocateArgs& a, const Table& tab) {
+  const int threads = gridDim.x * kThreads;
+  int q = blockIdx.x * kThreads + threadIdx.x;
+  int row = q < a.Q ? __ldg(a.rows + q) : 0;
+  while (q < a.Q) {
+    const int next = q + threads;
+    const int next_row = next < a.Q ? __ldg(a.rows + next) : 0;
+    int i = row, d = 0;
+    typename Table::Step st = tab.load(i);
+    while (d != a.sample_rate && !tab.marked(st)) {
+      i = tab.lf(st);
+      ++d;
+      st = tab.load(i);
+    }
+    const Stop e = tab.stop(st);
+    const int rank0 = e.cp >= 0 ? __ldg(tab.cp + e.cp) : 0;
+    const int value = e.cp >= 0 ? __ldg(tab.ssa + tab.value_index(e.key, rank0)) : 0;
+    a.out[q] = value + d;
+    q = next;
+    row = next_row;
+  }
 }
 
-// Interval shards: ShardedFMIndex's stacked tables.
-struct ShardMarks {
-  const int* blocks;  // (S, mbs, 4) mark words
-  const int* cp;      // (S, mbs + 1) global rank1 at the local block starts
-  const int* ssa;     // (S, vmax) sampled values
-  const int* row_start;  // (S,) row-coordinate bounds
+__global__ void __launch_bounds__(kThreads)
+    locate_kernel(const LocateArgs a, OneIndex tab, const int* C) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) tab.fm.C[c] = __ldg(C + c);
+  walk(a, tab);
+}
+
+// The S bounds of both splits and the sampled values' bases go to shared
+// memory once a block.
+struct ShardBounds {
+  const int* pk_start;
+  const int* pk_end;
+  const int* row_start;
   const int* row_end;
-  const int* ssa_base;   // (S,) marked rows before each shard
-  int mbs, vmax;
+  const int* ssa_base;
 };
 
 __global__ void __launch_bounds__(kThreads)
-    locate_sharded_kernel(const LocateArgs a, gwa::ShardedFM fm, const int* C,
-                          const int* pk_start, const int* pk_end, const ShardMarks m) {
+    locate_sharded_kernel(const LocateArgs a, Shards tab, const int* C, const ShardBounds sb) {
   __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
   __shared__ int s_rs[gwa::kMaxShards], s_re[gwa::kMaxShards], s_base[gwa::kMaxShards];
-  if (threadIdx.x < fm.S) {
-    s_ps[threadIdx.x] = pk_start[threadIdx.x];
-    s_pe[threadIdx.x] = pk_end[threadIdx.x];
-    s_rs[threadIdx.x] = m.row_start[threadIdx.x];
-    s_re[threadIdx.x] = m.row_end[threadIdx.x];
-    s_base[threadIdx.x] = m.ssa_base[threadIdx.x];
-  }
-  __syncthreads();
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (q >= a.Q) return;
-  fm.pk_start = s_ps;
-  fm.pk_end = s_pe;
+  const int S = tab.fm.pk.S;
+  if (threadIdx.x < S) s_base[threadIdx.x] = sb.ssa_base[threadIdx.x];
+  tab.fm.pk = gwa::load_split(sb.pk_start, sb.pk_end, S, tab.fm.pk.magic, tab.fm.pk.shift,
+                              s_ps, s_pe);
+  tab.rows = gwa::load_split(sb.row_start, sb.row_end, S, tab.rows.magic, tab.rows.shift, s_rs,
+                             s_re);
+  tab.ssa_base = s_base;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) fm.C[c] = __ldg(C + c);
-
-  int i = __ldg(a.rows + q), d = 0;
-  int sr = -1, b = 0, rem = 0;  // the row's owner, its local mark block, the offset in it
-  uint4 marks = make_uint4(0, 0, 0, 0);
-  for (int t = 0;; ++t) {
-    sr = gwa::shard_of(s_rs, s_re, fm.S, i);
-    if (sr >= 0) {
-      const int local = i - s_rs[sr];
-      b = min(local / kMarkBits, m.mbs - 1);
-      rem = local - b * kMarkBits;
-      marks = load4(m.blocks + (static_cast<int64_t>(sr) * m.mbs + b) * 4);
-    }
-    if (t == a.sample_rate) break;
-    const gwa::ShardRow row = gwa::load_row(fm, i);  // before the mark is known
-    if (sr >= 0 && mark_bit(marks, rem)) break;
-    const int k_adj = i - (i > fm.primary ? 1 : 0);
-    const int c = row.own && k_adj < a.n ? gwa::row_code(row.row) : 0;
-    i = gwa::pick4(fm.C, c) + (row.own ? gwa::occ1(row.row, c) : 0);
-    ++d;
-  }
-  int value = 0;
-  if (sr >= 0) {
-    const int rank = __ldg(m.cp + static_cast<int64_t>(sr) * (m.mbs + 1) + b) +
-                     marks_below(marks, rem);
-    const int slot = min(max(rank - s_base[sr], 0), m.vmax - 1);
-    value = __ldg(m.ssa + static_cast<int64_t>(sr) * m.vmax + slot);
-  }
-  a.out[q] = value + d;
+  for (int c = 0; c < 4; ++c) tab.fm.C[c] = __ldg(C + c);
+  walk(a, tab);
 }
 
-unsigned grid(int64_t Q) { return static_cast<unsigned>((Q + kThreads - 1) / kThreads); }
+const void* kernel_of(bool sharded) {
+  return sharded ? reinterpret_cast<const void*>(&locate_sharded_kernel)
+                 : reinterpret_cast<const void*>(&locate_kernel);
+}
+
+// Checks a launch's shape and launches the kernel with its arguments.
+int launch(bool sharded, int64_t Q, int grid, void** args, cudaStream_t stream) {
+  // every row index a thread reaches, Q + threads, stays inside int32
+  if (Q < 0 || Q > (1 << 30) || grid < 1 || grid > (1 << 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Q == 0) return 0;
+  return static_cast<int>(
+      cudaLaunchKernel(kernel_of(sharded), dim3(grid), dim3(kThreads), args, 0, stream));
+}
 
 }  // namespace
 
+// Blocks of the kernel (one index or shards) that fit on one SM at once,
+// in *blocks.
+extern "C" int gwa_locate_resident(int sharded, int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_of(sharded != 0), kThreads, 0));
+}
+
 // rows and out (Q,), blocks (nb_rows, 12) 16-byte aligned, C (5,),
 // mark_blocks (mb, 4) 16-byte aligned, mark_cp (mb + 1,), ssa_values
-// (n_ssa,): all int32.
+// (n_ssa,): all int32.  grid blocks of 256 threads.
 extern "C" int gwa_locate(const void* rows, int64_t Q, const void* blocks, int nb_rows,
                           const void* C, int primary, int n, const void* mark_blocks, int mb,
                           const void* mark_cp, const void* ssa_values, int n_ssa,
-                          int sample_rate, void* out, void* stream) {
+                          int sample_rate, void* out, int grid, void* stream) {
   // a row of [0, n] must find its fused row: n / 128 < nb_rows
-  if (Q < 0 || (n >> 7) >= nb_rows || mb < 1 || n_ssa < 1 || sample_rate < 0 || n < 0)
+  if ((n >> 7) >= nb_rows || mb < 1 || n_ssa < 1 || sample_rate < 0 || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (Q == 0) return 0;
-  const LocateArgs a{static_cast<const int*>(rows), static_cast<int*>(out), Q, n, sample_rate};
-  const OneMarks m{static_cast<const int*>(mark_blocks), static_cast<const int*>(mark_cp),
-                   static_cast<const int*>(ssa_values), mb, n_ssa};
-  locate_kernel<<<grid(Q), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int*>(blocks), static_cast<const int*>(C), primary, m);
-  return static_cast<int>(cudaGetLastError());
+  LocateArgs a{static_cast<const int*>(rows), static_cast<int*>(out), static_cast<int>(Q),
+               sample_rate};
+  OneIndex tab{};
+  tab.fm.blocks = static_cast<const int*>(blocks);
+  tab.fm.primary = primary;
+  tab.blocks = static_cast<const int*>(mark_blocks);
+  tab.cp = static_cast<const int*>(mark_cp);
+  tab.ssa = static_cast<const int*>(ssa_values);
+  tab.mb = mb;
+  tab.n_ssa = n_ssa;
+  tab.n = n;
+  const int* c = static_cast<const int*>(C);
+  void* args[] = {&a, &tab, &c};
+  return launch(false, Q, grid, args, static_cast<cudaStream_t>(stream));
 }
 
 // rows and out (Q,); the S shards' bwt (S, R, 8) and occ_cp (S, R, 4)
 // 16-byte aligned, pk_start / pk_end (S,), mark_blocks (S, mbs, 4) 16-byte
 // aligned, mark_cp (S, mbs + 1), row_start / row_end (S,), ssa_values
-// (S, vmax), ssa_base (S,), C (5,): all int32.
+// (S, vmax), ssa_base (S,), C (5,): all int32.  Each split's owner guess is
+// x / width = __umulhi(x, magic) >> shift (fm_search_cuda.owner_divisor).
 extern "C" int gwa_locate_sharded(const void* rows, int64_t Q, int S, int R, const void* bwt,
                                   const void* occ_cp, const void* pk_start, const void* pk_end,
-                                  int mbs, const void* mark_blocks, const void* mark_cp,
-                                  const void* row_start, const void* row_end, int vmax,
+                                  unsigned pk_magic, int pk_shift, int mbs,
+                                  const void* mark_blocks, const void* mark_cp,
+                                  const void* row_start, const void* row_end,
+                                  unsigned row_magic, int row_shift, int vmax,
                                   const void* ssa_values, const void* ssa_base, const void* C,
-                                  int primary, int n, int sample_rate, void* out,
+                                  int primary, int n, int sample_rate, void* out, int grid,
                                   void* stream) {
-  if (Q < 0 || S < 1 || S > gwa::kMaxShards || R < 1 || mbs < 1 || vmax < 1 ||
-      sample_rate < 0 || n < 0)
+  if (S < 1 || S > gwa::kMaxShards || R < 1 || mbs < 1 || vmax < 1 || sample_rate < 0 ||
+      n < 0 || pk_shift < 0 || pk_shift > 31 || row_shift < 0 || row_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (Q == 0) return 0;
-  const LocateArgs a{static_cast<const int*>(rows), static_cast<int*>(out), Q, n, sample_rate};
-  gwa::ShardedFM fm{};
-  fm.bwt = static_cast<const int*>(bwt);
-  fm.cp = static_cast<const int*>(occ_cp);
-  fm.S = S;
-  fm.R = R;
-  fm.primary = primary;
-  const ShardMarks m{static_cast<const int*>(mark_blocks), static_cast<const int*>(mark_cp),
-                     static_cast<const int*>(ssa_values), static_cast<const int*>(row_start),
-                     static_cast<const int*>(row_end), static_cast<const int*>(ssa_base),
-                     mbs, vmax};
-  locate_sharded_kernel<<<grid(Q), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, fm, static_cast<const int*>(C), static_cast<const int*>(pk_start),
-      static_cast<const int*>(pk_end), m);
-  return static_cast<int>(cudaGetLastError());
+  LocateArgs a{static_cast<const int*>(rows), static_cast<int*>(out), static_cast<int>(Q),
+               sample_rate};
+  Shards tab{};
+  tab.fm.bwt = static_cast<const int*>(bwt);
+  tab.fm.cp = static_cast<const int*>(occ_cp);
+  tab.fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
+  tab.fm.R = R;
+  tab.fm.primary = primary;
+  tab.rows = {nullptr, nullptr, S, row_magic, row_shift, false};
+  tab.blocks = static_cast<const int*>(mark_blocks);
+  tab.cp = static_cast<const int*>(mark_cp);
+  tab.ssa = static_cast<const int*>(ssa_values);
+  tab.mbs = mbs;
+  tab.vmax = vmax;
+  tab.n = n;
+  const int* c = static_cast<const int*>(C);
+  ShardBounds sb{static_cast<const int*>(pk_start), static_cast<const int*>(pk_end),
+                 static_cast<const int*>(row_start), static_cast<const int*>(row_end),
+                 static_cast<const int*>(ssa_base)};
+  void* args[] = {&a, &tab, &c, &sb};
+  return launch(true, Q, grid, args, static_cast<cudaStream_t>(stream));
 }

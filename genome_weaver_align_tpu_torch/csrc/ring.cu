@@ -42,13 +42,17 @@
 //
 // fused_occ_kernel: the same sum, but each thread does the shards' block
 // split itself (sharded_index.py _block_split: the sentinel adjustment, the
-// owner test against each shard's [pk_start, pk_end), the clamped local
-// block and roff), with the S bounds in shared memory, and loads only the
-// owner's 32-byte row of bwt_blocks and one int32 of occ_cp; a non-owner
-// adds 0 without a load.  No (S, M, Q, 8) word tensor is ever built.  At
-// chr20 scale the shards' bwt_blocks are ~16 MB and stay in the 50 MB L2; a
-// random row is one 32-byte sector.  Bound: bytes, k, code, row,
-// checkpoint and out, 48 B a query.
+// owner, the clamped local block and roff) through fm_occ.cuh's one
+// definition of the split, load_row(ShardedFM): the owner by division,
+// confirmed against the S bounds in shared memory (owner_of), and only the
+// owner's 32-byte row of bwt_blocks and 16 bytes of occ_cp read (one
+// sector each); occ1 counts it.  A coordinate with no owner adds 0 without
+// a load; where the ranges are disjoint (shard_fm_index's split; load_split
+// tests it once a block) the owner's value is the plain version's sum over
+// the shards, and where they overlap the kernel sums every owner's partial
+// as the plain version does.  No (S, M, Q, 8) word tensor is ever
+// built.  At chr20 scale the shards' bwt_blocks are ~16 MB and stay in the
+// 50 MB L2.  Bound: bytes, k, code, row, checkpoint and out, 48 B a query.
 //
 // Entries: gwa_allreduce, gwa_fused_words and gwa_fused_occ, plain C
 // functions bound with ctypes.  The launches run on the caller's stream, do
@@ -60,11 +64,12 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "fm_occ.cuh"
+
 namespace {
 
 constexpr int kMaxShards = 16;
 constexpr int kThreads = 256;
-constexpr int kBlockBases = 128;  // bases of one 8-word BWT row
 
 __device__ __forceinline__ int add(int a, int b) {  // wraps like torch's int32 add
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -254,42 +259,33 @@ __global__ void __launch_bounds__(kThreads) fused_words_kernel(const WordsIO p, 
 // The table entry: the stacked shard tables and n (code, coordinate)
 // queries -> n merged occ values.
 struct TableIO {
-  const int* bwt;       // (S, R, 8) uint32 words as int32
-  const int* occ_cp;    // (S, R, 4) global checkpoint values
   const int* pk_start;  // (S,)
   const int* pk_end;    // (S,)
   const int* codes;     // (n,) 0..3
   const int* k;         // (n,) sentinel-inclusive coordinates
   int* out;             // (n,)
   int64_t n;
-  int S, R, primary;
 };
 
-__global__ void __launch_bounds__(kThreads) fused_occ_kernel(const TableIO a) {
+__global__ void __launch_bounds__(kThreads) fused_occ_kernel(const TableIO a, gwa::ShardedFM fm) {
   __shared__ int s_ps[kMaxShards], s_pe[kMaxShards];
-  if (threadIdx.x < a.S) {
-    s_ps[threadIdx.x] = a.pk_start[threadIdx.x];
-    s_pe[threadIdx.x] = a.pk_end[threadIdx.x];
-  }
-  __syncthreads();
+  fm.pk = gwa::load_split(a.pk_start, a.pk_end, fm.pk.S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < a.n;
        i += stride) {
-    const int k = __ldg(a.k + i);
-    const int k_adj = k - (k > a.primary ? 1 : 0);
-    unsigned acc = 0;
-    for (int d = 0; d < a.S; ++d) {
-      const int ps = s_ps[d];
-      if (k_adj >= ps && k_adj < s_pe[d]) {
-        const int b = min((k_adj - ps) / kBlockBases, a.R - 1);
-        const int roff = k_adj - ps - b * kBlockBases;
-        const int code = __ldg(a.codes + i);
-        const int64_t row = static_cast<int64_t>(d) * a.R + b;
-        acc += static_cast<unsigned>(__ldg(a.occ_cp + row * 4 + (code & 3))) +
-               rank_partial(a.bwt + row * 8, code, roff);
+    const int k = __ldg(a.k + i), c = __ldg(a.codes + i) & 3;
+    if (fm.pk.disjoint) {  // one owner at most: shard_fm_index's split
+      const gwa::ShardRow row = gwa::load_row(fm, k);
+      a.out[i] = row.own ? gwa::occ1(row.row, c) : 0;
+    } else {  // overlapping ranges: every owner's partial, summed as the plain version does
+      const int k_adj = k - (k > fm.primary ? 1 : 0);
+      unsigned acc = 0;
+      for (int d = 0; d < fm.pk.S; ++d) {
+        if (k_adj >= fm.pk.start[d] && k_adj < fm.pk.end[d])
+          acc += static_cast<unsigned>(gwa::occ1(gwa::shard_row(fm, d, k_adj), c));
       }
+      a.out[i] = static_cast<int>(acc);
     }
-    a.out[i] = static_cast<int>(acc);
   }
 }
 
@@ -335,28 +331,32 @@ extern "C" int gwa_fused_words(int S, int64_t n, const uint64_t* ptrs, void* str
   return static_cast<int>(cudaGetLastError());
 }
 
-// bwt (S, R, 8) 16-byte aligned, occ_cp (S, R, 4), pk_start and pk_end
-// (S,), codes, k and out (n,), all int32.
+// bwt (S, R, 8) and occ_cp (S, R, 4) 16-byte aligned, pk_start and pk_end
+// (S,), codes, k and out (n,), all int32.  The owner guess is x / width =
+// __umulhi(x, pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
 extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const void* bwt,
                              const void* occ_cp, const void* pk_start, const void* pk_end,
-                             const void* codes, const void* k, void* out, void* stream) {
-  if (S < 1 || S > kMaxShards || R < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+                             unsigned pk_magic, int pk_shift, const void* codes, const void* k,
+                             void* out, void* stream) {
+  if (S < 1 || S > kMaxShards || R < 1 || n < 0 || pk_shift < 0 || pk_shift > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   TableIO a{};
-  a.bwt = static_cast<const int*>(bwt);
-  a.occ_cp = static_cast<const int*>(occ_cp);
   a.pk_start = static_cast<const int*>(pk_start);
   a.pk_end = static_cast<const int*>(pk_end);
   a.codes = static_cast<const int*>(codes);
   a.k = static_cast<const int*>(k);
   a.out = static_cast<int*>(out);
   a.n = n;
-  a.S = S;
-  a.R = R;
-  a.primary = primary;
+  gwa::ShardedFM fm{};
+  fm.bwt = static_cast<const int*>(bwt);
+  fm.cp = static_cast<const int*>(occ_cp);
+  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
+  fm.R = R;
+  fm.primary = primary;
   unsigned blocks = 0;
   const int rc = grid_blocks(n, &blocks);
   if (rc != 0) return rc;
-  fused_occ_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  fused_occ_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, fm);
   return static_cast<int>(cudaGetLastError());
 }

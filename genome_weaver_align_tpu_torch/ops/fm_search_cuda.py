@@ -18,7 +18,8 @@ when the build fails, loading raises: there is no fallback to the plain
 versions.  ``check_table`` (built on ``check_tables``, which owns the
 dtype, contiguity, alignment and device rules) and ``group_lanes`` are
 shared with the staircase, one-mismatch and locate bindings,
-``check_sharded`` with the locate binding.
+``check_sharded`` and ``owner_divisor`` (the sharded kernels' owner by
+division) with the locate and fused-occ bindings.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def _library() -> ctypes.CDLL:
         vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, i32, vp, vp, vp,
     ]
     lib.gwa_backward_search_sharded.argtypes = [
-        vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, vp, vp, vp,
+        vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp, ctypes.c_uint32, i32, vp, i32, i32, i32,
+        vp, vp, vp,
     ]
     lib.gwa_backward_search.restype = lib.gwa_backward_search_sharded.restype = ctypes.c_int
     return lib
@@ -127,6 +129,25 @@ def check_sharded(sh, dev: torch.device, name: str, marks: bool = True) -> None:
     check_tables(name, dev, tables, aligned=("bwt_blocks", "occ_cp", "mark_blocks"))
     if not 0 <= sh.n < (1 << 31) - 1:
         raise ValueError(f"{name}: an index of {sh.n} symbols leaves int32")
+
+
+def owner_divisor(width: int) -> tuple[int, int]:
+    """(magic, shift) with ``x // width == ((x * magic) >> 32) >> shift``
+    for every 0 <= x < 2^31 (Granlund and Montgomery's round-up division:
+    magic = ceil(2^(31 + l) / width), shift = l - 1, 2^(l-1) < width <=
+    2^l): the sharded kernels' guess of a coordinate's owner
+    (``csrc/fm_occ.cuh`` ``owner_of``), which the shard's bounds confirm.
+    A width below 2 gives (0, 0): every guess is shard 0."""
+    if width < 2:
+        return 0, 0
+    log = (width - 1).bit_length()
+    return -(-(1 << (31 + log)) // width), log - 1
+
+
+def packed_divisor(sh) -> tuple[int, int]:
+    """``owner_divisor`` of the packed coordinates' split:
+    ``shard_fm_index``'s equal widths, nbs = R - 1 blocks of 128."""
+    return owner_divisor((sh.bwt_blocks.shape[1] - 1) * 128)
 
 
 def stream() -> int:
@@ -235,8 +256,9 @@ def backward_search_sharded_cuda(
     with torch.cuda.device(dev):
         rc = _library().gwa_backward_search_sharded(
             reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, S, R, sh.bwt_blocks.data_ptr(),
-            sh.occ_cp.data_ptr(), sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), sh.C.data_ptr(),
-            sh.primary, sh.n, max(trip, 0), lo.data_ptr(), hi.data_ptr(), stream(),
+            sh.occ_cp.data_ptr(), sh.pk_start.data_ptr(), sh.pk_end.data_ptr(),
+            *packed_divisor(sh), sh.C.data_ptr(), sh.primary, sh.n, max(trip, 0), lo.data_ptr(),
+            hi.data_ptr(), stream(),
         )
     if rc != 0:
         raise RuntimeError(f"gwa_backward_search_sharded launch failed ({S} shards): CUDA error "

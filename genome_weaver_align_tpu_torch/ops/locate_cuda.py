@@ -3,15 +3,17 @@
 The kernels replace the JAX package's device loops
 ``genome_weaver_align_tpu/ops/rank.py:234`` (``locate``) and
 ``genome_weaver_align_tpu/parallel/sharded_index.py:267`` (the sharded
-``locate``): one thread a row, the whole walk in one launch, stopping at
-the row's first sampled row.  ``locate_cuda`` is equal to
-``ops.rank.locate_plain`` and ``locate_sharded_cuda`` to
-``parallel.sharded_index.locate_plain`` with the default merge.
+``locate``): a persistent grid whose threads walk one row after another,
+the whole walk of every row in one launch, stopping at the row's first
+sampled row.  ``locate_cuda`` is equal to ``ops.rank.locate_plain``
+and ``locate_sharded_cuda`` to ``parallel.sharded_index.locate_plain``
+with the default merge.
 
-``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
-``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
-when the build fails, loading raises: there is no fallback to the plain
-versions.
+``launch_shape`` gives a launch's grid and capacity (the walks the grid
+holds at once; a thread whose row is done takes the row the grid's threads
+further on).  ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for ``sm_90a`` into the gitignored ``_build/``
+directory; without ``nvcc``, or when the build fails, loading raises:
+there is no fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -22,29 +24,62 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
-from .fm_search_cuda import check_sharded, check_table, stream
+from .fm_search_cuda import (
+    check_sharded, check_table, owner_divisor, packed_divisor, sm_count, stream,
+)
 from .rank import MARK_WORDS_PER_BLOCK, DeviceFMIndex
 
 I32 = torch.int32
+THREADS = 256  # csrc/locate.cu kThreads
+MAX_ROWS = 1 << 30  # csrc/locate.cu launch: a thread's next row stays inside int32
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = load_kernel_library("locate.cu")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    lib.gwa_locate.argtypes = [vp, i64, vp, i32, vp, i32, i32, vp, i32, vp, vp, i32, i32, vp, vp]
-    lib.gwa_locate_sharded.argtypes = [
-        vp, i64, i32, i32, vp, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp, vp, i32, i32, i32,
-        vp, vp,
+    vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_uint32
+    lib.gwa_locate.argtypes = [
+        vp, i64, vp, i32, vp, i32, i32, vp, i32, vp, vp, i32, i32, vp, i32, vp,
     ]
-    lib.gwa_locate.restype = lib.gwa_locate_sharded.restype = ctypes.c_int
+    lib.gwa_locate_sharded.argtypes = [
+        vp, i64, i32, i32, vp, vp, vp, vp, u32, i32, i32, vp, vp, vp, vp, u32, i32, i32, vp, vp,
+        vp, i32, i32, i32, vp, i32, vp,
+    ]
+    lib.gwa_locate_resident.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.gwa_locate, lib.gwa_locate_sharded, lib.gwa_locate_resident):
+        fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _resident(index: int, sharded: bool) -> int:
+    """Blocks of a locate kernel that fit on one SM of device ``index``."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = _library().gwa_locate_resident(int(sharded), ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"gwa_locate_resident failed: CUDA error {rc}, {blocks.value} blocks")
+    return blocks.value
+
+
+def launch_shape(Q: int, dev: torch.device, sharded: bool) -> tuple[int, int]:
+    """(blocks, capacity) of a launch over ``Q`` rows on ``dev``: the
+    persistent grid is the blocks that fit on the SMs at once, no more than
+    the rows need; its capacity is the walks it holds at once (blocks x 256
+    threads)."""
+    if not 0 <= Q <= MAX_ROWS:
+        raise ValueError(f"{Q} rows: the locate kernels take 0 to 2^30")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    most = _resident(index, sharded) * sm_count(dev)
+    return max(1, min(most, -(-Q // THREADS))), most * THREADS
 
 
 def _check_rows(rows: torch.Tensor, name: str) -> None:
     if rows.dtype != I32 or not rows.is_contiguous():
         raise ValueError(f"{name}: expected contiguous int32 rows, got {rows.dtype}")
+    if rows.numel() > MAX_ROWS:
+        raise ValueError(f"{name}: {rows.numel()} rows: the kernels take at most 2^30")
 
 
 def locate_cuda(fm: DeviceFMIndex, rows: torch.Tensor) -> torch.Tensor:
@@ -68,11 +103,12 @@ def locate_cuda(fm: DeviceFMIndex, rows: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(rows)
     if rows.numel() == 0:
         return out
+    grid, _ = launch_shape(rows.numel(), rows.device, False)
     with torch.cuda.device(rows.device):
         rc = _library().gwa_locate(
             rows.data_ptr(), rows.numel(), fm.blocks.data_ptr(), fm.blocks.shape[0],
             fm.C.data_ptr(), fm.primary, fm.n, mb.data_ptr(), mb.shape[0], mcp.data_ptr(),
-            ssa.data_ptr(), ssa.numel(), fm.sample_rate, out.data_ptr(), stream())
+            ssa.data_ptr(), ssa.numel(), fm.sample_rate, out.data_ptr(), grid, stream())
     if rc != 0:
         raise RuntimeError(f"gwa_locate launch failed: CUDA error {rc}")
     locate_cuda.launches += 1
@@ -85,7 +121,10 @@ locate_cuda.launches = 0
 def locate_sharded_cuda(sh, rows: torch.Tensor) -> torch.Tensor:
     """Text positions of the BWT rows ``rows`` (int32, any shape, values in
     [0, n], on a CUDA device) over the interval shards of ``sh`` (a
-    ``ShardedFMIndex`` after ``put_sharded``) -> int32 of that shape.
+    ``ShardedFMIndex`` after ``put_sharded``) -> int32 of that shape.  Each
+    step's owners are guessed by division (``shard_fm_index``'s equal
+    widths: nbs = R - 1 blocks of 128 packed coordinates, mbs mark blocks
+    of 128 rows) and confirmed against the bounds; other bounds take a scan.
     Launches on the current stream without synchronising; counts each
     launch in ``.launches``."""
     name = "locate_sharded_cuda"
@@ -97,14 +136,16 @@ def locate_sharded_cuda(sh, rows: torch.Tensor) -> torch.Tensor:
     if rows.numel() == 0:
         return out
     S, R = sh.bwt_blocks.shape[:2]
+    mbs = sh.mark_blocks.shape[1]
+    grid, _ = launch_shape(rows.numel(), rows.device, True)
     with torch.cuda.device(rows.device):
         rc = _library().gwa_locate_sharded(
             rows.data_ptr(), rows.numel(), S, R, sh.bwt_blocks.data_ptr(), sh.occ_cp.data_ptr(),
-            sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), sh.mark_blocks.shape[1],
+            sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), *packed_divisor(sh), mbs,
             sh.mark_blocks.data_ptr(), sh.mark_cp.data_ptr(), sh.row_start.data_ptr(),
-            sh.row_end.data_ptr(), sh.ssa_values.shape[1], sh.ssa_values.data_ptr(),
-            sh.ssa_base.data_ptr(), sh.C.data_ptr(), sh.primary, sh.n, sh.sample_rate,
-            out.data_ptr(), stream())
+            sh.row_end.data_ptr(), *owner_divisor(mbs * 128), sh.ssa_values.shape[1],
+            sh.ssa_values.data_ptr(), sh.ssa_base.data_ptr(), sh.C.data_ptr(), sh.primary, sh.n,
+            sh.sample_rate, out.data_ptr(), grid, stream())
     if rc != 0:
         raise RuntimeError(f"gwa_locate_sharded launch failed ({S} shards): CUDA error {rc}")
     locate_sharded_cuda.launches += 1

@@ -25,6 +25,7 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
+from .fm_search_cuda import owner_divisor
 
 MAX_SHARDS = 16
 _DTYPES = {torch.int32: 0, torch.float32: 1}
@@ -37,7 +38,9 @@ def _library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
     lib.gwa_fused_words.argtypes = [i32, i64, vp, vp]
-    lib.gwa_fused_occ.argtypes = [i32, i32, i32, i64, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.gwa_fused_occ.argtypes = [
+        i32, i32, i32, i64, vp, vp, vp, vp, ctypes.c_uint32, i32, vp, vp, vp, vp,
+    ]
     for fn in (lib.gwa_allreduce, lib.gwa_fused_words, lib.gwa_fused_occ):
         fn.restype = ctypes.c_int
     return lib
@@ -160,17 +163,18 @@ def fused_occ_cuda(
             f"expected bwt_blocks (S, R, 8), occ_cp (S, R, 4), pk_start/pk_end (S,) and codes "
             f"and k of one shape, got {[tuple(t.shape) for t in ts]}"
         )
-    if bwt_blocks.data_ptr() % 16:
-        raise ValueError("fused_occ_cuda loads each 32-byte word row as two 16-byte vectors: "
-                         "bwt_blocks must start 16-byte aligned")
+    if bwt_blocks.data_ptr() % 16 or occ_cp.data_ptr() % 16:
+        raise ValueError("fused_occ_cuda loads each 32-byte word row and its 16-byte checkpoints "
+                         "as 16-byte vectors: bwt_blocks and occ_cp must start 16-byte aligned")
     _check_shards(S)
     out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
     n = codes.numel()
     if n == 0:
         return out
     with torch.cuda.device(codes.device):
-        rc = _library().gwa_fused_occ(S, R, int(primary), n, *(t.data_ptr() for t in ts),
-                                      out.data_ptr(), _stream())
+        rc = _library().gwa_fused_occ(S, R, int(primary), n, *(t.data_ptr() for t in ts[:4]),
+                                      *owner_divisor((R - 1) * 128),
+                                      *(t.data_ptr() for t in ts[4:]), out.data_ptr(), _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_fused_occ launch failed ({S} shards): CUDA error {rc}")
     fused_occ_cuda.launches += 1

@@ -75,33 +75,53 @@ class ShardedFMIndex:
     n_shards: int
 
 
-def shard_fm_index(fm: FMIndexData, n_shards: int) -> ShardedFMIndex:
+def _cuts(cuts, total: int, n_shards: int) -> list[int]:
+    """The block cuts of a split: ``cuts`` checked, or equal widths of
+    ceil(total / n_shards) blocks (the last shards may start past the end)."""
+    if cuts is None:
+        width = -(-total // n_shards)
+        return [s * width for s in range(n_shards + 1)]
+    cuts = [int(c) for c in cuts]
+    if len(cuts) != n_shards + 1 or cuts[0] != 0 or any(b < a for a, b in zip(cuts, cuts[1:])):
+        raise ValueError(f"expected {n_shards + 1} non-decreasing block cuts from 0, got {cuts}")
+    return cuts
+
+
+def shard_fm_index(fm: FMIndexData, n_shards: int, pk_cuts=None,
+                   row_cuts=None) -> ShardedFMIndex:
     """Host-side split of FMIndexData into n_shards stacked slices (numpy;
-    array for array the JAX package's split)."""
+    array for array the JAX package's split).  Shard s owns packed blocks
+    [pk_cuts[s], pk_cuts[s + 1]) of 128 coordinates and mark blocks
+    [row_cuts[s], row_cuts[s + 1]) of 128 rows; by default the cuts are
+    equal widths, ceil(blocks / n_shards).  Explicit cuts (n_shards + 1
+    non-decreasing block counts from 0) give unequal shards, the tables
+    padded to the widest."""
     n = fm.n
     # ---- packed space
     nb_total = fm.bwt_words.size // WORDS_PER_BLOCK  # includes +1 pad block
-    nbs = -(-nb_total // n_shards)
+    pk_cuts = _cuts(pk_cuts, nb_total, n_shards)
+    nbs = max(b - a for a, b in zip(pk_cuts, pk_cuts[1:]))
     bwt = np.zeros((n_shards, nbs + 1, WORDS_PER_BLOCK), dtype=np.uint32)
     occ = np.zeros((n_shards, nbs + 1, 4), dtype=np.int32)
     blocks = fm.bwt_words.reshape(nb_total, WORDS_PER_BLOCK)
     pk_start = np.zeros(n_shards, np.int32)
     pk_end = np.zeros(n_shards, np.int32)
     for s in range(n_shards):
-        b0 = s * nbs
-        b1 = min(nb_total, b0 + nbs + 1)  # +1: boundary block overlap
+        b0 = pk_cuts[s]
+        b1 = min(nb_total, pk_cuts[s + 1] + 1)  # +1: boundary block overlap
         if b0 < nb_total:
             bwt[s, : b1 - b0] = blocks[b0:b1]
             occ[s, : b1 - b0] = fm.occ_cp[b0:b1].astype(np.int32)
         # clamped, disjoint, and covering [0, n]: the +1-padded final block
         # guarantees (nb_total)*BLOCK_BASES > n, so k == n has an owner
         pk_start[s] = min(b0 * BLOCK_BASES, n + 1)
-        pk_end[s] = min((b0 + nbs) * BLOCK_BASES, n + 1)
+        pk_end[s] = min(pk_cuts[s + 1] * BLOCK_BASES, n + 1)
     # ---- row space
     marks = fm.ssa_marks
     mw = marks._wpad  # (mb_total * 4,) uint32 words over n+1 rows
     mb_total = mw.size // MARK_WORDS_PER_BLOCK
-    mbs = -(-mb_total // n_shards)
+    row_cuts = _cuts(row_cuts, mb_total, n_shards)
+    mbs = max(b - a for a, b in zip(row_cuts, row_cuts[1:]))
     mblk = np.zeros((n_shards, mbs, MARK_WORDS_PER_BLOCK), dtype=np.uint32)
     mcp = np.zeros((n_shards, mbs + 1), dtype=np.int32)
     row_start = np.zeros(n_shards, np.int32)
@@ -111,16 +131,16 @@ def shard_fm_index(fm: FMIndexData, n_shards: int) -> ShardedFMIndex:
     ssa_base = np.zeros(n_shards, np.int32)
     ssa_parts = []
     for s in range(n_shards):
-        b0 = s * mbs
-        b1 = min(mb_total, b0 + mbs)
+        b0 = row_cuts[s]
+        b1 = min(mb_total, row_cuts[s + 1])
         if b0 < mb_total:
             mblk[s, : b1 - b0] = mwords[b0:b1]
             mcp[s, : b1 - b0 + 1] = cps[b0 : b1 + 1]
         row_start[s] = min(b0 * MARK_BLOCK_BITS, n + 1)
-        row_end[s] = min((b0 + mbs) * MARK_BLOCK_BITS, n + 1)
+        row_end[s] = min(row_cuts[s + 1] * MARK_BLOCK_BITS, n + 1)
         ssa_base[s] = cps[min(b0, mb_total)]
         lo_rank = int(ssa_base[s])
-        hi_rank = int(cps[min(b0 + mbs, mb_total)])
+        hi_rank = int(cps[min(row_cuts[s + 1], mb_total)])
         ssa_parts.append(fm.ssa_values[lo_rank:hi_rank].astype(np.int32))
     vmax = max(1, max(p.size for p in ssa_parts))
     ssa = np.zeros((n_shards, vmax), dtype=np.int32)
@@ -218,8 +238,11 @@ def fused_occ_plain(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) ->
 def fused_occ(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Merged occ$(codes, k) of queries of any shape (codes 0..3) -> int32
     of that shape.  On the card one kernel reads each query's row from its
-    owner's table and sums over the shards (``ops.ring_cuda.fused_occ_cuda``:
-    no gathered word tensor); a CPU tensor takes ``fused_occ_plain``."""
+    owner's table (``ops.ring_cuda.fused_occ_cuda``: no gathered word
+    tensor); with disjoint bounds, as ``shard_fm_index`` cuts them, that
+    owner's count is the sum over the shards, and with overlapping bounds
+    the kernel sums every owner's count.  A CPU tensor takes
+    ``fused_occ_plain``."""
     if codes.is_cuda:
         from ..ops import ring_cuda
 

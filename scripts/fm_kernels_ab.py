@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Phase [18] of ``chip_smoke.py`` (the FM search kernels at their paths'
 shapes), or with ``--phase modes`` its phase [13] (``-k 0``, ``--mode
-onemm`` and ``--mode staircase`` through the CLI), from several checkouts
-in turn, on one card.
+onemm`` and ``--mode staircase`` through the CLI), or with ``--phase
+locate`` its phase [19] without the edges and the S sweep (the locate and
+the sharded locate at their five path shapes and on subsets of [7]'s rows;
+the SASS of their loops; the sharded piece search at [11]) and its phase
+[9] (the shard sums and the fused table entry, which reads the shard
+tables through the same owner lookup), from several checkouts in turn, on
+one card.
 
-    python3 scripts/fm_kernels_ab.py [--phase modes] [--smoke DIR] DIR [DIR ...]
+    python3 scripts/fm_kernels_ab.py [--phase modes|locate] [--smoke DIR] DIR [DIR ...]
 
 Each DIR is a checkout of the repository (``git archive <commit>``
 unpacked).  The runs go in the order given (parent, change, change,
@@ -17,8 +22,12 @@ own.  The smoke genome and repeat genome are indexed once, into the first
 DIR's ``smoke_cache/``, and every run reads them there.  Each run prints
 the phase's lines and then one JSON line, ``{"dir": ..., "kernels":
 {entry: {"ms": ..., "plain_ms": ..., ...}}}`` for [18], ``{"dir": ...,
-"launches": {mode: {kernel: n}}}`` for [13]; the script exits non-zero
-when a run fails.
+"launches": {mode: {kernel: n}}}`` for [13], ``{"dir": ..., "locate":
+{case: {"ms": ..., ...}, "sweep": ..., "sass": ...}, "rings": {"table":
+[ms, ...], ...}}`` for [19] and [9]; the script exits non-zero when a run
+fails.  A locate binding from before the persistent grid (one thread a
+row, no ``launch_shape``) is given the grid it launches, so ``--smoke``
+with the newer checkout drives both.
 """
 
 from __future__ import annotations
@@ -51,6 +60,19 @@ if phase == "modes":  # the kernels built first, as the smoke's [2] builds them
     for m in (dp_cuda, fm_search_cuda, one_mismatch_cuda, staircase_cuda):
         m._library()
     out = {"launches": s.phase_modes(codes, s.card_line())}
+elif phase == "locate":  # the kernels built first, as the smoke's [2] builds them
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.index.files import load_index
+    from genome_weaver_align_tpu_torch.ops import fm_search_cuda, locate_cuda, ring_cuda
+    for m in (fm_search_cuda, locate_cuda, ring_cuda):
+        m._library()
+    if not hasattr(locate_cuda, "launch_shape"):  # one thread a row: (blocks, capacity)
+        locate_cuda.launch_shape = lambda Q, dev, sharded: (-(-Q // 256), -(-Q // 256) * 256)
+    rep = repeat_genome(s.GENOME_LEN, seed=s.REPEAT_SEED)
+    dev = torch.device("cuda", 0)
+    out = {"locate": s.phase_locate(torch, dev, codes, rep, s.card_line(), edges=False)}
+    fwd = load_index(s.build_index(cli, codes)[0]).fwd
+    out["rings"] = s.phase_rings(torch, dev, fwd, s.card_line())[1]
 else:
     rep = repeat_genome(s.GENOME_LEN, seed=s.REPEAT_SEED)
     out = {"kernels": s.phase_fm_kernels(torch, torch.device("cuda", 0), codes, rep,
@@ -64,7 +86,7 @@ def main(argv: list[str]) -> int:
     while argv[:1] in (["--smoke"], ["--phase"]) and len(argv) > 1:
         if argv[0] == "--smoke":
             smoke = Path(argv[1]).resolve()
-        elif argv[1] in ("fm_kernels", "modes"):
+        elif argv[1] in ("fm_kernels", "modes", "locate"):
             phase = argv[1]
         else:
             print(f"fm_kernels_ab: unknown phase {argv[1]}", file=sys.stderr)

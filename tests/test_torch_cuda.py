@@ -487,6 +487,31 @@ def test_fused_occ_equals_plain(cuda, ring_fm, S):
     assert torch.equal(got[0], rank.occ_codes(rank.from_host(fm, cuda), c, k))
 
 
+@pytest.mark.parametrize("overlap", ["a block", "the whole range"])
+def test_fused_occ_on_overlapping_bounds_sums_every_owner(cuda, ring_fm, overlap):
+    """Packed bounds that overlap (each of the first three shards reaching
+    100 coordinates into the next, or the first shard's range covering
+    every coordinate): the table entry sums every owner's count, as
+    ``fused_occ_plain`` does, on every coordinate."""
+    import dataclasses
+
+    fm = ring_fm
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, 4), cuda)
+    pk_end = sh.pk_end.clone()
+    if overlap == "a block":
+        pk_end[:3] = (pk_end[:3] + 100).clamp(max=fm.n + 1)
+    else:
+        pk_end[0] = fm.n + 1
+    sh = dataclasses.replace(sh, pk_end=pk_end)
+    rng = np.random.default_rng(5)
+    k = torch.arange(fm.n + 2, dtype=torch.int32, device=cuda)
+    c = torch.from_numpy(rng.integers(0, 4, size=fm.n + 2).astype(np.int32)).to(cuda)
+    got = sharded_index.fused_occ(sh, c, k)
+    want = sharded_index.fused_occ_plain(sh, c, k)
+    assert torch.equal(got, want)
+    assert not torch.equal(want, rank.occ_codes(rank.from_host(fm, cuda), c, k))
+
+
 def test_sharded_search_and_aligner_on_card_equal_cpu(cuda):
     """All three merges of the sharded exact search, and ShardedAligner on
     both candidate paths, on the card against the CPU."""
@@ -1135,6 +1160,82 @@ def test_sharded_locate_kernel_equals_plain_on_every_row(cuda, S):
     assert torch.equal(ring_merged, want[:512])
 
 
+def _tiled(rows, Q):
+    """``rows`` repeated to Q rows (the edge rows first)."""
+    return rows.repeat(-(-Q // rows.numel()))[:Q].contiguous()
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_locate_kernels_at_the_grid_capacity(cuda, sharded):
+    """Row counts at the persistent grid's capacity (the walks it holds at
+    once, as the binding reports it) - 1, + 0 and + 1, and twice it + 1:
+    every row equals the plain locate."""
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+    _, fwd, rows = _locate_genome(8)
+    fm = rank.from_host(fwd, cuda)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 4), cuda)
+    grid, cap = locate_cuda.launch_shape(locate_cuda.MAX_ROWS, cuda, sharded)
+    assert cap == grid * locate_cuda.THREADS
+    for Q in (cap - 1, cap, cap + 1, 2 * cap + 1):
+        r = _tiled(rows.to(cuda), Q)
+        assert locate_cuda.launch_shape(Q, cuda, sharded)[0] == grid
+        got = (locate_cuda.locate_sharded_cuda(sh, r) if sharded
+               else locate_cuda.locate_cuda(fm, r))
+        assert torch.equal(got, rank.locate_plain(fm, r)), Q
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_locate_kernels_on_rows_repeated_across_a_warp(cuda, sharded):
+    """Each row 32 times in a row (one warp's lanes on one row, as [7]'s
+    compaction pins its spare lanes), then each 7 times (runs across warp
+    edges)."""
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+    _, fwd, rows = _locate_genome(16)
+    fm = rank.from_host(fwd, cuda)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 3), cuda)
+    r = rows[:2000].to(cuda)
+    r = torch.cat([r.repeat_interleave(32), r.repeat_interleave(7)]).contiguous()
+    got = locate_cuda.locate_sharded_cuda(sh, r) if sharded else locate_cuda.locate_cuda(fm, r)
+    assert torch.equal(got, rank.locate_plain(fm, r))
+
+
+# block cuts of the packed and the row coordinates (tests/test_torch_locate.py)
+UNEQUAL = [([0, 3, 4, 16, 30], [0, 9, 10, 11, 30]), ([0, 1, 30], [0, 20, 28]),
+           ([0, 5, 5, 9, 12, 30], [0, 2, 2, 17, 18, 30])]
+
+
+@pytest.mark.parametrize("cuts", UNEQUAL, ids=["S4", "S2", "S5-empty"])
+def test_sharded_kernels_on_unequal_bounds(cuda, cuts):
+    """Hand-made unequal shard bounds (the owner guess misses: each owner
+    comes from the scan): the sharded locate, the sharded piece search and
+    the fused table entry equal their plain versions and the one-index
+    locate and search."""
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+    codes = fm_models.genome_codes(81, size=3_000)
+    fwd = build_fm_index(codes, sample_rate=8)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, len(cuts[0]) - 1, *cuts),
+                                   cuda)
+    fm = rank.from_host(fwd, cuda)
+    rows = torch.arange(fwd.n + 1, dtype=torch.int32, device=cuda)
+    before = locate_cuda.locate_sharded_cuda.launches
+    got = sharded_index.locate(sh, rows)
+    assert locate_cuda.locate_sharded_cuda.launches == before + 1
+    assert torch.equal(got, sharded_index.locate_plain(sh, rows))
+    assert torch.equal(got, rank.locate_plain(fm, rows))
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 95))
+    got = sharded_pipeline.sharded_piece_search(sh, r, ln, 3, r.shape[1])
+    want = sharded_pipeline.sharded_piece_search_plain(sh, r, ln, 3, r.shape[1])
+    one = suffix_filter.piece_interval_search_plain(fm, r, ln, 3)
+    assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, want, one))
+    gen = torch.Generator(device=cuda).manual_seed(96)
+    k = torch.randint(0, fwd.n + 2, (4096,), generator=gen, device=cuda, dtype=torch.int32)
+    c = torch.randint(0, 4, (4096,), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(sharded_index.fused_occ(sh, c, k), sharded_index.fused_occ_plain(sh, c, k))
+
+
 @pytest.mark.parametrize("S", range(1, 17))
 @pytest.mark.parametrize("max_len", [None, 9])
 def test_sharded_piece_search_kernel_equals_plain(cuda, S, max_len):
@@ -1187,4 +1288,13 @@ def test_locate_kernels_reject_what_they_cannot_take(cuda):
         locate_cuda.locate_sharded_cuda(sh, r)
     with pytest.raises(ValueError, match="device"):
         fm_search_cuda.backward_search_sharded_cuda(sh, reads, lens, 3, 8)
+    shc = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 4), cuda)
+    for Q in (-1, locate_cuda.MAX_ROWS + 1):
+        with pytest.raises(ValueError, match="0 to 2"):
+            locate_cuda.launch_shape(Q, cuda, True)
+    shifted = torch.empty(shc.occ_cp.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        sharded_index.fused_occ(dataclasses.replace(shc, occ_cp=shifted.view(shc.occ_cp.shape)),
+                                r[:8] & 3, r[:8])
     assert locate_cuda.locate_cuda(fm, r[:0]).shape == (0,)
+    assert locate_cuda.locate_sharded_cuda(shc, r[:0]).shape == (0,)

@@ -14,7 +14,15 @@ on the card (``csrc/locate.cu``, ``csrc/fm_search.cu``), on the CPU.
   CUDA sources' loop order) against the plain versions on every row and
   lane, at S = 1..16, and the FM sharded align step with both models in
   place of the port's functions against the JAX
-  ``make_sharded_pigeonhole_align``.
+  ``make_sharded_pigeonhole_align``.  The locate models run the kernels'
+  persistent walk on small grids: every row written once and equal to the
+  plain version at row counts around the grid's capacity, on grids of one,
+  two and five warps.
+- ``owner_of`` (the sharded kernels' owner by division, confirmed by the
+  bounds) equal to the scan for every coordinate of both splits at S =
+  1..16 (the last shards empty) and on hand-made unequal bounds
+  (``shard_fm_index`` at explicit block cuts), where the sharded plain
+  locate and the model still equal the one-index locate.
 - The bindings refuse what the kernels cannot take, and a CPU tensor
   reaches the plain version and never a kernel.
 
@@ -132,7 +140,9 @@ def test_sharded_piece_search_plain_matches_jax_at_edges(genome, S):
 def test_locate_model_matches_plain_on_every_row(genome, rate):
     g, rows = genome[rate], genome["rows"]
     want = rank.locate_plain(g["pfm"], torch.from_numpy(rows)).numpy()
-    assert np.array_equal(models.locate(g["pfm"], rows), want)
+    got, writes = models.locate(g["pfm"], rows)
+    assert np.array_equal(got, want)
+    assert (writes == 1).all()
 
 
 @pytest.mark.parametrize("rate, S", [(8, 1), (16, 3), (8, 8), (16, 16)])
@@ -142,7 +152,119 @@ def test_sharded_locate_model_matches_plain_on_every_row(genome, rate, S):
     sh = _sharded(genome, rate, S)
     rows = np.concatenate([genome["rows"], [genome[rate]["fm"].n + 1]]).astype(np.int32)
     want = si.locate_plain(sh, torch.from_numpy(rows)).numpy()
-    assert np.array_equal(models.locate_sharded(sh, rows), want)
+    got, writes = models.locate_sharded(sh, rows)
+    assert np.array_equal(got, want)
+    assert (writes == 1).all()
+
+
+GRIDS = (32, 64, 160)  # the models' grids: one, two and five warps
+ROW_COUNTS = {"0": lambda cap: 0, "1": lambda cap: 1, "31": lambda cap: 31, "33": lambda cap: 33,
+              "capacity-1": lambda cap: cap - 1, "capacity+1": lambda cap: cap + 1,
+              "3capacity+5": lambda cap: 3 * cap + 5}
+
+
+def _walk_rows(genome, Q, seed):
+    """Q rows of the test index: the edge rows (0, the primary row, n)
+    first, then random rows, some repeated in runs (lanes of one warp on
+    one row, as [7]'s compaction pins them)."""
+    fm = genome[8]["fm"]
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, fm.n + 1, size=Q)
+    rows[Q // 2:] = np.repeat(rows[Q // 2::7], 7)[: Q - Q // 2]
+    rows[:3] = [0, fm.primary, fm.n][: min(Q, 3)]
+    return rows.astype(np.int32)
+
+
+@pytest.mark.parametrize("threads", GRIDS)
+@pytest.mark.parametrize("count", list(ROW_COUNTS))
+def test_locate_model_writes_every_row_once(genome, count, threads):
+    """locate.cu's walk on a grid of 32, 64 and 160 threads: at Q = 0, 1,
+    31, 33, the grid's capacity (its threads) +- 1 and beyond it, every
+    row is written exactly once and equals ``locate_plain``."""
+    rows = _walk_rows(genome, ROW_COUNTS[count](threads), 91)
+    pfm = genome[8]["pfm"]
+    got, writes = models.locate(pfm, rows, threads=threads)
+    assert (writes == 1).all()
+    assert np.array_equal(got, rank.locate_plain(pfm, torch.from_numpy(rows)).numpy())
+
+
+@pytest.mark.parametrize("threads", GRIDS)
+@pytest.mark.parametrize("count", list(ROW_COUNTS))
+def test_sharded_locate_model_writes_every_row_once(genome, count, threads):
+    """The sharded walk likewise, on 5 shards."""
+    rows = _walk_rows(genome, ROW_COUNTS[count](threads), 92)
+    sh = _sharded(genome, 8, 5)
+    got, writes = models.locate_sharded(sh, rows, threads=threads)
+    assert (writes == 1).all()
+    assert np.array_equal(got, si.locate_plain(sh, torch.from_numpy(rows)).numpy())
+
+
+def _scan_and_guess(sp, xs):
+    return ([models.Shards.owner(sp[0], x) for x in xs], [models.owner_of(sp, x) for x in xs])
+
+
+@pytest.mark.parametrize("S", range(1, 17))
+def test_owner_of_equals_the_scan_on_the_equal_split(S):
+    """Both splits of ``shard_fm_index`` on a 2,000-base genome (16 blocks
+    of 128: from S = 9 on the last shards are empty), every x of [0,
+    n + 1]: the guess by division with the bindings' divisors is the scan's
+    owner, confirmed (no x of [0, n] falls back to the scan)."""
+    fm = build_fm_index(models.genome_codes(93, size=1_500), sample_rate=8)
+    st = models.Shards(si.shard_fm_index(fm, S))
+    xs = range(fm.n + 2)
+    for sp in (st.pk_split, st.row_split):
+        scan, guess = _scan_and_guess(sp, xs)
+        assert scan == guess
+        bounds, (magic, shift), apart = sp
+        assert apart
+        assert all(((x * magic) >> 32) >> shift == s for x, s in zip(xs, scan) if s >= 0)
+        assert scan[-1] == -1 and min(scan[:-1]) == 0  # n + 1 has no owner; [0, n] all do
+    if S > 8:
+        assert st.pk[0][-1] == st.pk[1][-1] == fm.n + 1  # an empty last shard
+
+
+# block cuts of the packed and the row coordinates (29 and 28 blocks)
+UNEQUAL = [([0, 3, 4, 16, 30], [0, 9, 10, 11, 30]), ([0, 1, 30], [0, 20, 28]),
+           ([0, 5, 5, 9, 12, 30], [0, 2, 2, 17, 18, 30]), ([0, 30], [0, 30])]
+
+
+@pytest.mark.parametrize("cuts", UNEQUAL, ids=["S4", "S2", "S5-empty", "S1"])
+def test_owner_of_and_the_locates_on_unequal_bounds(genome, cuts):
+    """Hand-made unequal splits (an empty shard among them): ``owner_of``
+    equals the scan for every coordinate, and the sharded plain locate and
+    its model equal the one-index locate on every row, and the model of
+    the sharded piece search the one-index search."""
+    fm = genome[8]["fm"]
+    sh = si.put_sharded(si.shard_fm_index(fm, len(cuts[0]) - 1, *cuts), CPU)
+    st = models.Shards(sh)
+    xs = range(-2, fm.n + 3)
+    for sp in (st.pk_split, st.row_split):
+        scan, guess = _scan_and_guess(sp, xs)
+        assert scan == guess
+    rows = genome["rows"]
+    want = rank.locate_plain(genome[8]["pfm"], torch.from_numpy(rows)).numpy()
+    assert np.array_equal(si.locate_plain(sh, torch.from_numpy(rows)).numpy(), want)
+    got, writes = models.locate_sharded(sh, rows)
+    assert np.array_equal(got, want) and (writes == 1).all()
+    reads, lengths = models.edge_reads(genome["codes"], 94)
+    one = models.backward_search(genome[8]["pfm"], reads, lengths, 3, reads.shape[1])
+    for a, b in zip(models.backward_search_sharded(sh, reads, lengths, 3, reads.shape[1]), one):
+        assert np.array_equal(a, b)
+
+
+def test_shard_fm_index_at_its_own_equal_cuts_gives_the_equal_split(genome):
+    """``shard_fm_index`` given its default cuts explicitly gives the same
+    arrays, and it refuses cuts it cannot take."""
+    fm, S = genome[8]["fm"], 4
+    want = si.shard_fm_index(fm, S)
+    nbs = want.bwt_blocks.shape[1] - 1
+    mbs = want.mark_blocks.shape[1]
+    got = si.shard_fm_index(fm, S, [s * nbs for s in range(S + 1)], [s * mbs for s in range(S + 1)])
+    for f in dataclasses.fields(want):
+        assert np.array_equal(np.asarray(getattr(got, f.name)), np.asarray(getattr(want, f.name)))
+    for cuts in ([0, 5, 30], [1, 5, 9, 12, 30], [0, 9, 5, 12, 30]):
+        with pytest.raises(ValueError, match="block cuts"):
+            si.shard_fm_index(fm, S, cuts, [s * mbs for s in range(S + 1)])
 
 
 @pytest.mark.parametrize("S", [1, 3, 16])
@@ -185,7 +307,7 @@ def test_pigeonhole_step_with_the_models_matches_jax(genome, monkeypatch):
 
     monkeypatch.setattr(sp, "sharded_piece_search", search_model)
     monkeypatch.setattr(si, "locate",
-                        lambda sh, rows: torch.from_numpy(models.locate_sharded(sh, rows.numpy())))
+                        lambda sh, rows: torch.from_numpy(models.locate_sharded(sh, rows.numpy())[0]))
     layout = pmesh.make_layout(1, S, "cpu")
     sh = si.put_sharded(si.shard_fm_index(fm, S), CPU)
     tx = sp.put_text(sp.shard_text(fm.text_words, fm.n, S), CPU)
@@ -233,6 +355,8 @@ def test_locate_bindings_refuse_what_the_kernels_cannot_take(genome):
             dataclasses.replace(sh, mark_blocks=shifted(sh.mark_blocks)), rows), "aligned"),
         (lambda: locate_cuda.locate_sharded_cuda(
             dataclasses.replace(sh, ssa_base=sh.ssa_base[:2]), rows), "shapes"),
+        (lambda: locate_cuda.launch_shape(-1, CPU, False), "0 to 2"),
+        (lambda: locate_cuda.launch_shape(locate_cuda.MAX_ROWS + 1, CPU, True), "0 to 2"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(sh, r, ln, 3, 8), "CUDA device"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(sh17, r, ln, 3, 8), "17 shards"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(sh, r.long(), ln, 3, 8), "int32"),

@@ -7,9 +7,11 @@ row split and three-popcount count (code 0 as r less the other three),
 ``csrc/fm_search.cu``'s one lane at a time with its early exit, its loop
 shared by one index and the interval shards through a table accessor
 (the sharded one finds each coordinate's owner and reads that shard's
-split tables), ``csrc/locate.cu``'s one row at a time (mark block and row
-read together, stop at the first mark; over the shards, each step's row
-and packed owners looked up),
+split tables, the owner guessed by division and confirmed as
+``fm_occ.cuh`` ``owner_of`` does), ``csrc/locate.cu``'s persistent walk
+(a thread's rows one after another, the next the grid's threads further
+on; mark block and row read together, stop at the first mark; over the
+shards, each step's row and packed owners looked up),
 ``csrc/staircase.cu``'s one pool at a time as a group of G lanes (the
 spine in group lane 0, passes of G live slots into the other buffer, the
 ballot-and-prefix placement; rank-major placement in one pass of a whole
@@ -27,6 +29,8 @@ the CPU tests and the card tests.
 from __future__ import annotations
 
 import numpy as np
+
+from genome_weaver_align_tpu_torch.ops.fm_search_cuda import owner_divisor
 
 M32 = 0xFFFFFFFF
 
@@ -80,6 +84,22 @@ def row_code(words, r):
     return (int(words[r >> 4]) >> (2 * (r & 15))) & 3
 
 
+def lf_below(words, cp, C, r, coded=True):
+    """fm_occ.cuh's lf_below: C[c] + occ$(c, k) for the code c at base r of
+    the row (0 where not ``coded``), the words below the coordinate's word
+    wq counted in full and wq cut to its r & 15 slots."""
+    wq = int(words[(r >> 4) & 7])
+    c = (wq >> (2 * (r & 15))) & 3 if coded else 0
+    pattern = (c * 0x55555555) & M32
+    x = wq ^ pattern
+    n = bin(~(x | (x >> 1)) & ((1 << (2 * (r & 15))) - 1) & 0x55555555).count("1")
+    for j in range(7):
+        x = int(words[j]) ^ pattern
+        if j < r >> 4:
+            n += bin(~(x | (x >> 1)) & 0x55555555).count("1")
+    return (C[c] + int(cp[c]) + n + 2**31) % 2**32 - 2**31
+
+
 def occ1(t: Table, k, c):
     b, r = t.row(k)
     return occ1_row(t.words[b], t.cp[b], r, c)
@@ -128,6 +148,32 @@ class OneIndex:
         return occ1_row(*row, c)
 
 
+def disjoint(bounds):
+    """No x lies in two shards' [start, end) (fm_occ.cuh load_split)."""
+    starts, ends = (int(x) for x in bounds[0]), (int(x) for x in bounds[1])
+    spans = list(zip(starts, ends))
+    return not any(max(a0, b0) < min(a1, b1)
+                   for i, (a0, a1) in enumerate(spans) for b0, b1 in spans[i + 1:])
+
+
+def split(bounds, width):
+    """fm_occ.cuh Split: the bounds, the bindings' divisor of ``width``
+    (ops/fm_search_cuda.py owner_divisor) and whether the ranges are
+    disjoint."""
+    return bounds, owner_divisor(width), disjoint(bounds)
+
+
+def owner_of(sp, x):
+    """fm_occ.cuh owner_of on a ``split``: the guess x / width
+    (__umulhi(x, magic) >> shift), kept when its range holds x and the
+    ranges are disjoint, else the scan (shard_of)."""
+    bounds, (magic, shift), apart = sp
+    g = min((((x & M32) * magic) >> 32) >> shift, len(bounds[0]) - 1)
+    if apart and int(bounds[0][g]) <= x < int(bounds[1][g]):
+        return g
+    return Shards.owner(bounds, x)
+
+
 class Shards:
     """The stacked tables of a ``ShardedFMIndex`` (on the CPU) as host
     values, and fm_search.cu's accessor over them: a coordinate's row is
@@ -148,6 +194,9 @@ class Shards:
         self.C = [int(x) for x in host(sh.C)[:4]]
         self.primary, self.n, self.S = int(sh.primary), int(sh.n), self.words.shape[0]
         self.sample_rate = int(sh.sample_rate)
+        # the splits as the bindings pass them: shard_fm_index's equal widths
+        self.pk_split = split(self.pk, (self.words.shape[1] - 1) * 128)
+        self.row_split = split(self.rows, self.marks.shape[1] * 128)
 
     @staticmethod
     def owner(bounds, x):
@@ -160,7 +209,7 @@ class Shards:
 
     def load(self, k):
         k_adj = k - (1 if k > self.primary else 0)
-        s = self.owner(self.pk, k_adj)
+        s = owner_of(self.pk_split, k_adj)
         if s < 0:
             return None
         local = k_adj - int(self.pk[0][s])
@@ -227,63 +276,111 @@ def _marks_below(words4, rem):
     return n
 
 
-def locate(fm, rows):
-    """locate.cu locate_kernel, row by row -> int32 positions.  A step reads
-    the row's mark block and its fused row together (the row before the
-    mark is known) and stops at the first marked row."""
-    t = Table(fm)
-    blocks = fm.mark_blocks.cpu().numpy().view(np.uint32)
-    cp, ssa = fm.mark_cp.cpu().numpy(), fm.ssa_values.cpu().numpy()
-    mb = blocks.shape[0]
-    out = np.zeros(len(rows), np.int32)
-    for q, i in enumerate(int(x) for x in rows):
-        d = 0
-        mblk = min(max(i >> 7, 0), mb - 1)
-        for _ in range(int(fm.sample_rate)):
-            b, r = t.row(min(max(i, 0), t.n))
-            if _mark_bit(blocks[mblk], i & 127):
-                break
-            c = row_code(t.words[b], r)
-            i = t.C[c] + occ1_row(t.words[b], t.cp[b], r, c)
-            d += 1
-            mblk = min(max(i >> 7, 0), mb - 1)
-        rank = int(cp[mblk]) + _marks_below(blocks[mblk], i - mblk * 128)
-        out[q] = int(ssa[min(max(rank, 0), ssa.size - 1)]) + d
-    return out
+class _OneWalk:
+    """locate.cu's OneIndex accessor: a step's mark block and fused row."""
+
+    def __init__(self, fm):
+        self.t = Table(fm)
+        self.blocks = fm.mark_blocks.cpu().numpy().view(np.uint32)
+        self.cp, self.ssa = fm.mark_cp.cpu().numpy(), fm.ssa_values.cpu().numpy()
+        self.sample_rate = int(fm.sample_rate)
+
+    def load(self, i):
+        mblk = min(max(i >> 7, 0), self.blocks.shape[0] - 1)
+        return (mblk, i - mblk * 128, self.blocks[mblk], self.t.row(min(max(i, 0), self.t.n)))
+
+    def marked(self, st):
+        return _mark_bit(st[2], st[1] & 127)
+
+    def lf(self, st):
+        b, r = st[3]
+        return lf_below(self.t.words[b], self.t.cp[b], self.t.C, r)
+
+    def stop(self, st):
+        return st[0], _marks_below(st[2], st[1])
+
+    def value_index(self, key, rank0):
+        return min(max(rank0 + key, 0), self.ssa.size - 1)
 
 
-def locate_sharded(sh, rows):
-    """locate.cu locate_sharded_kernel, row by row -> int32 positions: each
-    step the row's owner in the row coordinates gives its mark, the owner
-    in the packed coordinates its LF row; no owner, no load (0)."""
-    st = Shards(sh)
-    mbs, vmax = st.marks.shape[1], st.ssa.shape[1]
-    out = np.zeros(len(rows), np.int32)
-    for q, i in enumerate(int(x) for x in rows):
-        d, t = 0, 0
-        while True:
-            sr = st.owner(st.rows, i)
-            if sr >= 0:
-                local = i - int(st.rows[0][sr])
-                b = min(local // 128, mbs - 1)
-                rem = local - b * 128
-                marks = st.marks[sr, b]
-            if t == st.sample_rate:
-                break
-            row = st.load(i)
-            if sr >= 0 and _mark_bit(marks, rem):
-                break
-            k_adj = i - (1 if i > st.primary else 0)
-            c = row_code(row[0], row[2]) if row is not None and k_adj < st.n else 0
-            i = st.C[c] + st.occ(row, c)
+class _ShardWalk:
+    """locate.cu's Shards accessor: each step's owners by owner_of."""
+
+    def __init__(self, sh):
+        self.st = Shards(sh)
+        self.cp, self.ssa = self.st.mark_cp.reshape(-1), self.st.ssa.reshape(-1)
+        self.mbs, self.vmax = self.st.marks.shape[1], self.st.ssa.shape[1]
+        self.sample_rate = self.st.sample_rate
+
+    def load(self, i):
+        st = self.st
+        owner, b, rem, marks = owner_of(st.row_split, i), 0, 0, np.zeros(4, np.uint32)
+        if owner >= 0:
+            local = i - int(st.rows[0][owner])
+            b = min(local >> 7, self.mbs - 1)
+            rem = local - b * 128
+            marks = st.marks[owner, b]
+        coded = i - (1 if i > st.primary else 0) < st.n
+        return owner, b, rem, marks, st.load(i), coded
+
+    def marked(self, step):
+        return step[0] >= 0 and _mark_bit(step[3], step[2])
+
+    def lf(self, step):
+        row, coded = step[4], step[5]
+        if row is None:
+            return self.st.C[0]
+        words, cp, r = row
+        return lf_below(words, cp, self.st.C, r, coded)
+
+    def stop(self, step):
+        owner, b, rem, marks = step[:4]
+        if owner < 0:
+            return -1, 0
+        return owner * (self.mbs + 1) + b, _marks_below(marks, rem) | owner << 8
+
+    def value_index(self, key, rank0):
+        owner = key >> 8
+        slot = min(max(rank0 + (key & 255) - int(self.st.ssa_base[owner]), 0), self.vmax - 1)
+        return owner * self.vmax + slot
+
+
+def _walk(tab, rows, threads):
+    """locate.cu walk on a grid of ``threads`` threads: thread t walks rows
+    t, t + threads, ... one after another until the rows run out.  ->
+    (positions (Q,) int32, writes of each row)."""
+    rows = [int(x) for x in rows]
+    Q = len(rows)
+    out, writes = np.zeros(Q, np.int64), np.zeros(Q, np.int64)
+
+    def walk_one(i):
+        d, st = 0, tab.load(i)
+        while d != tab.sample_rate and not tab.marked(st):
+            i = tab.lf(st)
             d += 1
-            t += 1
-        value = 0
-        if sr >= 0:
-            rank = int(st.mark_cp[sr, b]) + _marks_below(marks, rem)
-            value = int(st.ssa[sr, min(max(rank - int(st.ssa_base[sr]), 0), vmax - 1)])
-        out[q] = value + d
-    return out
+            st = tab.load(i)
+        cp, key = tab.stop(st)
+        if cp < 0:
+            return d
+        return int(tab.ssa[tab.value_index(key, int(tab.cp[cp]))]) + d
+
+    for t in range(threads):
+        for q in range(t, Q, threads):
+            out[q] = walk_one(rows[q])
+            writes[q] += 1
+    return out.astype(np.int32), writes
+
+
+def locate(fm, rows, threads=64):
+    """locate.cu locate_kernel on a model grid -> (positions int32, writes
+    of each row)."""
+    return _walk(_OneWalk(fm), rows, threads)
+
+
+def locate_sharded(sh, rows, threads=64):
+    """locate.cu locate_sharded_kernel on a model grid -> (positions int32,
+    writes of each row)."""
+    return _walk(_ShardWalk(sh), rows, threads)
 
 
 # ---------------------------------------------------------------- staircase.cu
