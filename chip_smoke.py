@@ -142,7 +142,8 @@ per line, and exits non-zero at the first phase that fails:
    host): the card's compute mode must not be ``Exclusive_Process``; this
    script starts itself as each rank (``--rank``), joined by gloo on a free
    loopback port, all ranks on the one card.  ``ShardedAligner`` (k = 2,
-   4 interval shards, the phase-4 index and seed table) on 4 x 32,768
+   4 interval shards, the phase-4 index and seed table; with 2 ranks each
+   holds 2 of the shards and maps the other's, as in [20]) on 4 x 32,768
    reads of 150 bp (seed 17, <= 1 substitution, one indel in 15%), each
    rank aligning its slice of every batch and running the host tail on
    the gathered batch; then the exact search (``multihost.exact_align``:
@@ -203,12 +204,36 @@ per line, and exits non-zero at the first phase that fails:
    rows through both locates at S = 1..16 shards and on hand-made unequal
    shard bounds (the owner guess misses: the scan), the sharded search at
    each S, and one FM sharded align step's device events with the kernels
-   and with the plain loops.
+   and with the plain loops.  With every shard in its own allocation (one
+   base pointer a shard, as a shard mapped from another process is), the
+   sharded locate, the sharded piece search and the fused table entry
+   (65,536 random queries) must equal their plain versions at each S and
+   on the unequal bounds;
+20. interval shards in separate processes (BASELINE config 5's layout) on
+   the one card: this script as 1, 2 and 4 ranks (``--rank interval``),
+   ``ShardedAligner`` with 4 interval shards, each rank holding 4 / n of
+   them and mapping the others' through CUDA IPC (``parallel.peer``; one
+   rank: the stacked layout): the seed path on [16]'s reads and the FM
+   path on [11]'s, each rank aligning its slice; [10]'s exact search on
+   the same 65,536 reads in every rank under the psum (gloo
+   ``all_reduce``), ring (the sum kernel over the ranks' mapped slots)
+   and fused (the table entry through the peer map) merges.  The n-rank
+   SAMs must equal the 1-rank SAMs byte for byte with >= 99% mapped and
+   correct, every rank's exact search the 1-rank result, each rank's
+   sharded tables at most 1 / n of the stacked bytes plus one block row a
+   shard (the allocator's requested bytes of the uploads, mapped peers
+   not counted; the whole text printed apart), the sharded locate, piece
+   search and fused table entry equal to their plain versions on the
+   mapped layout, and every rank must launch the sharded locate, the
+   sharded piece search, the fused table entry, the ring sum and the
+   windows entry; each run's wall, reads/s, ms a batch, host barriers and
+   peak device memory a rank are printed.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; the locate kernel's are read in [7], [12], [13], [15] and
-[16]'s exact ranks, the sharded locate's in [10], [11] and [16]'s sharded
-ranks (which take the seed path: 0 there), the sharded piece search's in
-[11] and [16].  The last lines are a JSON summary of every kernel entry (each
+[16]'s exact ranks, the sharded locate's in [10], [11], [16]'s sharded
+ranks (which take the seed path: 0 there) and [20]'s, the sharded piece
+search's in [11], [16] and [20], the sum's and the fused table entry's in
+[10] and [20].  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
 a bound from its inputs' bytes and operations, and the time of one PyTorch
 call that computes the same function where there is one; integer work is
@@ -273,6 +298,7 @@ RANKS = 2
 RANK_BATCH, RANK_BATCHES, RANK_L, RANK_SEED = 32_768, 4, 150, 17
 RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's length
 RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
+INTERVAL_RANKS = (1, 2, 4)  # phase 20: the shards over 1 (stacked), 2 and 4 processes
 # phase 17: the wavelet search's traffic
 WAVELET_READS, WAVELET_L = 65_536, 36
 # phase 18: the FM search kernels at their paths' shapes
@@ -1504,8 +1530,17 @@ def phase_rings(torch, dev, fm, card):
         w, roff, base, own = (torch.stack([x[f] for x in g], dim=1) for f in range(4))
         return ring.fused_rank_ring(w, c[None].expand(S, M, Q), roff, base, own)
 
+    ap = own_allocations(sh)
+
+    def table_apart():  # every shard in its own allocation (the mapped layout's kernel)
+        return ring_cuda.fused_occ_cuda(ap.bwt_blocks, ap.occ_cp, sh.pk_start, sh.pk_end,
+                                        sh.primary, c, k)
+
+    check(torch.equal(table_apart(), table()),
+          "[9] the fused table entry on separate allocations differs from the stacked one")
     t = {}
-    for name, fn in (("table", table), ("stage", old_stage), ("table2", table)):
+    for name, fn in (("table", table), ("stage", old_stage), ("table2", table),
+                     ("apart", table_apart)):
         t[name] = cuda_time_ms(fn, reps=200, hide_host=True)
     plain_ms = cuda_time_ms(lambda: si.fused_occ_plain(sh, c, k), reps=50, hide_host=True)
     # k, code, the owner's 32-byte row and checkpoint in and the sum out per
@@ -1521,9 +1556,10 @@ def phase_rings(torch, dev, fm, card):
             f"parts.sum(0) {'%.4f ms' % lib if lib is not None else 'none'}, bound {b:.4f} ms "
             f"by {by} ({card})")
     log(f"[9] table entry {t['table']:.4f} / {t['table2']:.4f} ms; the stage it replaces "
-        f"(local_occ_gather of both chunks + stack + the words entry) {t['stage']:.4f} ms "
-        f"({card})")
+        f"(local_occ_gather of both chunks + stack + the words entry) {t['stage']:.4f} ms; "
+        f"every shard in its own allocation {t['apart']:.4f} ms ({card})")
     timing["stage"] = t["stage"]
+    timing["apart"] = t["apart"]
     return max_err, timing
 
 
@@ -2176,7 +2212,8 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
             "locate": stats["locate_launches"], "repeat_locate": rstats["locate_launches"]}
 
 
-def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path) -> list[dict]:
+def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path,
+              tag: str = "[16]") -> list[dict]:
     """``n`` processes of this script (``--rank``), one gloo group on a free
     loopback port, all on the one card; every one must exit 0 within
     RANK_TIMEOUT_S.  -> each rank's result line, in rank order."""
@@ -2196,11 +2233,12 @@ def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path)
             try:
                 text, _ = p.communicate(timeout=RANK_TIMEOUT_S)
             except subprocess.TimeoutExpired:
-                raise SmokeFailure(f"[16] {mode}: rank {r} of {n} ran past {RANK_TIMEOUT_S} s")
-            check(p.returncode == 0, f"[16] {mode}: rank {r} of {n} exited {p.returncode}: "
+                raise SmokeFailure(f"{tag} {mode}: rank {r} of {n} ran past {RANK_TIMEOUT_S} s")
+            check(p.returncode == 0, f"{tag} {mode}: rank {r} of {n} exited {p.returncode}: "
                   f"{text[-3000:]}")
             lines = [ln for ln in text.splitlines() if ln.startswith("RANK_RESULT ")]
-            check(len(lines) == 1, f"[16] {mode}: rank {r} of {n} printed no result: {text[-3000:]}")
+            check(len(lines) == 1, f"{tag} {mode}: rank {r} of {n} printed no result: "
+                  f"{text[-3000:]}")
             results.append(json.loads(lines[0].split(" ", 1)[1]))
     finally:
         for p in procs:
@@ -2237,8 +2275,9 @@ def check_windows_entry(torch, aligner, batch) -> dict:
 
 
 def rank_child(argv: list[str]) -> int:
-    """One rank of phase 16 (``chip_smoke.py --rank MODE RANK N PORT INDEX
-    SEEDS READS SAM``): joins the gloo group, runs its slice of every batch
+    """One rank of phase 16 or 20 (``chip_smoke.py --rank MODE RANK N PORT
+    INDEX SEEDS READS SAM``; mode ``interval``: ``interval_child``): joins
+    the gloo group, runs its slice of every batch
     on ``cuda:RANK % device_count``, and prints one ``RANK_RESULT`` JSON
     line: wall seconds of the main path, its windows-entry, locate and
     sharded search launches (set to 0 just before it and read just after),
@@ -2271,6 +2310,8 @@ def rank_child(argv: list[str]) -> int:
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     gi = load_index(idx)
+    if mode == "interval":
+        return interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path)
     z = np.load(reads_path)
     reads, pos, strand = z["reads"], z["pos"], z["strand"]
     names = [f"r{i}_p{p}_s{s}" for i, (p, s) in enumerate(zip(pos.tolist(), strand.tolist()))]
@@ -2317,6 +2358,7 @@ def rank_child(argv: list[str]) -> int:
         launches = dp_cuda.banded_edit_distance_cuda.launches
         fm_launches = {key: c.launches for key, c in fm_counters.items()}
         hdr = al.sam_header()
+        al.close()  # the mapped shards released in every rank before any frees its own
     else:
         from genome_weaver_align_tpu_torch.models import exact
         from genome_weaver_align_tpu_torch.ops import rank as rank_ops
@@ -2435,6 +2477,266 @@ def phase_ranks(torch, codes, card) -> dict:
         check(same, f"[16] {mode}: the {RANKS}-rank SAM differs from the 1-rank SAM")
     shutil.rmtree(work)
     return launches, max_err, fm_launches
+
+
+def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
+    """One rank of phase 20 (``--rank interval``): ``ShardedAligner`` with
+    SHARDS interval shards, this rank holding SHARDS / n of them and mapping
+    the others' (the stacked layout with one rank).  The device bytes of
+    each sharded upload (the allocator's requested and allocated bytes,
+    the mapped peers not counted), the seed path on [16]'s reads and the
+    FM path on [11]'s, each rank aligning its slice; [10]'s exact search on
+    the same reads in every rank under each merge (results to
+    ``SAM.<rank>.npz``); the sharded kernels against their plain versions
+    on this layout; the kernels' launches of each run (set to 0 just before
+    it and read just after); one ``RANK_RESULT`` line.  Rank 0 writes the
+    seed path's SAM and the FM path's (``SAM.fm.sam``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
+    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, locate_cuda, ring_cuda
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+    from genome_weaver_align_tpu_torch.parallel import peer
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+    from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
+    from genome_weaver_align_tpu_torch.utils import sam
+    from genome_weaver_align_tpu_torch.utils.fasta import Read
+
+    counters = {"windows entry": dp_cuda.banded_edit_distance_cuda,
+                "sharded locate": locate_cuda.locate_sharded_cuda,
+                "sharded piece search": fm_search_cuda.backward_search_sharded_cuda,
+                "fused table entry": ring_cuda.fused_occ_cuda,
+                "ring sum": ring_cuda.ring_allreduce_cuda}
+
+    def zero():
+        torch.cuda.synchronize(dev)
+        for c in counters.values():
+            c.launches = 0
+
+    def launches():
+        torch.cuda.synchronize(dev)
+        return {key: c.launches for key, c in counters.items()}
+
+    mem = {"requested": 0, "allocated": 0, "small": 0, "stacked": 0}
+
+    def measured(put, tables):
+        """``put`` with its upload's device bytes counted: the big tables
+        (``tables``) apart from the small bounds every rank uploads."""
+        def wrapped(host, device, layout=None):
+            torch.cuda.synchronize(dev)
+            r0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+            a0 = torch.cuda.memory_allocated(dev)
+            out = put(host, device, layout)
+            torch.cuda.synchronize(dev)
+            mem["requested"] += torch.cuda.memory_stats(dev)["requested_bytes.all.current"] - r0
+            mem["allocated"] += torch.cuda.memory_allocated(dev) - a0
+            for f in dataclasses.fields(host):
+                a = getattr(host, f.name)
+                if isinstance(a, np.ndarray):
+                    mem["stacked" if f.name in tables else "small"] += a.size * 4
+            return out
+        return wrapped
+
+    z = np.load(reads_path)
+
+    def batches(key, size):
+        reads, pos, strand = z[f"{key}_reads"], z[f"{key}_pos"], z[f"{key}_strand"]
+        recs = [Read(f"r{i}_p{p}_s{s}", reads[i])
+                for i, (p, s) in enumerate(zip(pos.tolist(), strand.tolist()))]
+        return [recs[b : b + size] for b in range(0, len(recs), size)]
+
+    so, spos, j = load_seed_table(seedf)
+    with mock.patch.object(si, "put_sharded", measured(si.put_sharded, si._TABLES)), \
+            mock.patch.object(sp, "put_text", measured(sp.put_text, ("words",))), \
+            mock.patch.object(sp, "put_seed", measured(sp.put_seed, ("offsets", "positions"))):
+        al = sp.ShardedAligner(gi, k=K, n_interval=SHARDS, seed_table=(so, spos), seed_j=j,
+                               device=dev)
+    del so, spos
+    text_bytes = al._text.numel() * al._text.element_size()
+    result = {"rank": rank, "ranks": n, "held": list(al.layout.held), "mem": mem,
+              "text_bytes": text_bytes, "launches": {}, "wall_s": {}, "reads": {}, "bad": {}}
+
+    def run(tag, aligner, bs):
+        aligner.align_batch(bs[0][:4096])  # warm-up
+        zero()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        recs = []
+        for b in bs:
+            recs.extend(aligner.to_sam(b, aligner.align_batch(b)))
+        result["wall_s"][tag] = time.perf_counter() - t0
+        result["launches"][tag] = launches()
+        result["reads"][tag] = sum(len(b) for b in bs)
+        result[f"peak_mem_bytes_{tag}"] = torch.cuda.max_memory_allocated(dev)
+        return recs, aligner.sam_header()
+
+    seed_recs, hdr = run("seed path", al, batches("seed", RANK_BATCH))
+    fm_al = sp.ShardedAligner(gi, k=K, n_interval=SHARDS, device=dev)
+    fm_batches = batches("fm", BATCH)
+    fm_recs, _ = run("FM path", fm_al, fm_batches)
+    if rank == 0:
+        sam.write_sam(sam_path, hdr, seed_recs)
+        sam.write_sam(f"{sam_path}.fm.sam", hdr, fm_recs)
+
+    # the piece search on this layout against its plain loop
+    fr = torch.from_numpy(np.where(z["fm_reads"][:4096] >= 4, 0, z["fm_reads"][:4096])
+                          .astype(np.int32)).to(dev)
+    fl = torch.full((fr.shape[0],), fr.shape[1], dtype=torch.int32, device=dev)
+    got = sp.sharded_piece_search(fm_al.sh, fr, fl, K + 1, fr.shape[1])
+    want = sp.sharded_piece_search_plain(fm_al.sh, fr, fl, K + 1, fr.shape[1])
+    result["bad"]["sharded piece search"] = sum(int((a != b).sum()) for a, b in zip(got, want))
+
+    # [10]'s exact search: every rank the same reads, the merges across
+    # the ranks
+    layout = pmesh.make_layout(1, SHARDS, dev)
+    er = z["exact_reads"]
+    r, ln, B = pmesh.shard_reads(layout, er, np.full(er.shape[0], er.shape[1], np.int32))
+    barrier = {"s": 0.0, "calls": 0}
+    real_barrier = peer.barrier
+
+    def timed_barrier(group):
+        t0 = time.perf_counter()
+        real_barrier(group)
+        barrier["s"] += time.perf_counter() - t0
+        barrier["calls"] += 1
+
+    exact = {}
+    with mock.patch.object(peer, "barrier", timed_barrier):
+        for merge, mb in (("psum", 1), ("ring", RING_MICROBATCH), ("fused", RING_MICROBATCH)):
+            fn = si.make_sharded_exact_search(layout, er.shape[1], al.sh, merge=merge,
+                                              microbatch=mb)
+            fn(al.sh, r[:1024], ln[:1024])  # warm-up
+            zero()
+            barrier.update(s=0.0, calls=0)
+            t0 = time.perf_counter()
+            out = fn(al.sh, r, ln)
+            torch.cuda.synchronize(dev)
+            tag = f"exact, merge={merge}"
+            result["wall_s"][tag] = time.perf_counter() - t0
+            result["launches"][tag] = launches()
+            result["reads"][tag] = B
+            result[f"barrier_{merge}"] = dict(barrier)
+            for key, v in zip(("lo", "hi", "pos"), out):
+                exact[f"{merge}_{key}"] = v.cpu().numpy()[:B]
+    np.savez(f"{sam_path}.{rank}.npz", **exact)
+
+    # the sharded locate and the fused table entry on this layout against
+    # their plain versions, at the exact search's rows and 2 x 65,536
+    # random queries
+    rows = torch.from_numpy(exact["psum_lo"]).to(dev).clamp(0, gi.fwd.n)
+    result["bad"]["sharded locate"] = int((si.locate(al.sh, rows)
+                                           != si.locate_plain(al.sh, rows)).sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    qk = torch.randint(0, gi.fwd.n + 2, (2, 65_536), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qc = torch.randint(0, 4, (2, 65_536), generator=gen, device=dev, dtype=torch.int32)
+    result["bad"]["fused table entry"] = int((si.fused_occ(al.sh, qc, qk)
+                                              != si.fused_occ_plain(al.sh, qc, qk)).sum())
+    result["mapped"] = isinstance(al.sh.bwt_blocks, peer.Shards)
+    fm_al.close()
+    al.close()
+    if n > 1:
+        torch.distributed.destroy_process_group()
+    print("RANK_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def phase_interval(torch, codes, card) -> dict:
+    """Interval shards in separate processes (BASELINE config 5's layout)
+    on the one card: SHARDS shards over 1 (the stacked layout), 2 and 4
+    ranks, each holding SHARDS / n and mapping the others' through CUDA
+    IPC.  The SAMs (seed and FM path) of n ranks must equal the 1-rank SAMs
+    byte for byte, every rank's exact search under each merge the 1-rank
+    result, each rank's sharded tables at most 1 / n of the stacked bytes
+    plus one block row a shard, the sharded kernels equal to their plain
+    versions on the mapped layout, and every rank must launch the sharded
+    locate, the sharded piece search, the fused table entry, the ring sum
+    and the windows entry.  -> the launches of each rank, keyed by run."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+    from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
+
+    idx, seedf, _ = build_index(cli, codes)
+    torch.cuda.empty_cache()  # the card's memory to the ranks
+    work = CACHE / f"interval{os.getpid()}"
+    work.mkdir(parents=True)
+    seed = simulate_reads_array(codes, RANK_BATCH * RANK_BATCHES, RANK_L, seed=RANK_SEED,
+                                max_subs=1, indel_frac=0.15)[:3]
+    fm = simulate_reads_array(codes, SHARDED_FM_READS, L, seed=52, max_subs=2)[:3]  # [11]'s
+    _, er, _ = sharded_search_reads(codes, pmesh.make_layout(1, 1, "cpu"))  # [10]'s
+    np.savez(work / "reads.npz", **{f"{key}_{f}": a for key, arrs in (("seed", seed), ("fm", fm))
+                                    for f, a in zip(("reads", "pos", "strand"), arrs)},
+             exact_reads=er.numpy())
+    ref, launches, max_err = {}, {}, 0
+    for n in INTERVAL_RANKS:
+        sam = work / f"seed{n}.sam"
+        res = run_ranks("interval", n, idx, seedf, work / "reads.npz", sam, tag="[20]")
+        bodies = {"seed path": sam.read_bytes(), "FM path": Path(f"{sam}.fm.sam").read_bytes()}
+        exact = [dict(np.load(f"{sam}.{r['rank']}.npz")) for r in res]
+        for tag, path in (("seed path", sam), ("FM path", Path(f"{sam}.fm.sam"))):
+            n_sam, mapped, correct = score_sam(path)
+            wall = max(r["wall_s"][tag] for r in res)
+            n_batches = -(-n_sam // (RANK_BATCH if tag == "seed path" else BATCH))
+            log(f"[20] {tag}, {n} rank(s), {SHARDS} shards: {n_sam} reads in {wall:.3f} s, "
+                f"{n_sam / wall:.1f} reads/s, {1e3 * wall / n_batches:.1f} ms a batch ({card}); "
+                f"mapped {mapped / n_sam:.6f}, correct {correct / n_sam:.6f}; peak device "
+                f"memory by rank {[r[f'peak_mem_bytes_{tag}'] for r in res]} B; launches by rank "
+                f"{[r['launches'][tag] for r in res]}")
+            check(mapped / n_sam >= MIN_MAPPED and correct / n_sam >= MIN_CORRECT,
+                  f"[20] {tag}, {n} ranks: mapped {mapped / n_sam:.4f}, correct "
+                  f"{correct / n_sam:.4f}")
+        for merge in ("psum", "ring", "fused"):
+            tag = f"exact, merge={merge}"
+            wall = max(r["wall_s"][tag] for r in res)
+            bar = [r[f"barrier_{merge}"] for r in res]
+            log(f"[20] {tag}, {n} rank(s): {res[0]['reads'][tag]} reads in every rank, "
+                f"{wall:.3f} s ({card}); host barriers {[b['calls'] for b in bar]}, "
+                f"{[round(1e3 * b['s'] / max(1, b['calls']), 4) for b in bar]} ms each by rank; "
+                f"launches by rank {[r['launches'][tag] for r in res]}")
+        if n == 1:
+            ref = {"bodies": bodies, "exact": exact[0]}
+        for tag, body in bodies.items() if n > 1 else ():
+            same = body == ref["bodies"][tag]
+            log(f"[20] {tag}: the {n}-rank SAM is byte-identical to the 1-rank stacked SAM: "
+                f"{same}")
+            check(same, f"[20] {tag}: the {n}-rank SAM differs from the 1-rank SAM")
+        for r, ex in zip(res, exact):
+            same = all(np.array_equal(ex[key], ref["exact"][key]) for key in ref["exact"])
+            check(same, f"[20] rank {r['rank']} of {n}: the exact search differs from the "
+                  f"1-rank stacked search")
+            m = r["mem"]
+            big = m["requested"] - m["small"]
+            limit = m["stacked"] * (SHARDS // n) / SHARDS + FM_ROW_BYTES * (SHARDS // n)
+            log(f"[20] rank {r['rank']} of {n} holds shards {r['held']} "
+                f"({'the others mapped' if r['mapped'] else 'stacked'}): sharded tables "
+                f"{big} B requested ({m['allocated']} B allocated with the bounds), stacked "
+                f"{m['stacked']} B, limit {limit:.0f} B; the whole text (_text) {r['text_bytes']} "
+                f"B apart; the exact search equal to the 1-rank search under psum, ring and "
+                f"fused: {same}; kernels against plain on this layout, mismatches {r['bad']}")
+            check(big <= limit, f"[20] rank {r['rank']} of {n} holds {big} B of sharded tables, "
+                  f"more than {limit:.0f}")
+            check(r["mapped"] == (n > 1), f"[20] rank {r['rank']} of {n}: mapped {r['mapped']}")
+            check(not any(r["bad"].values()), f"[20] rank {r['rank']} of {n}: a sharded kernel "
+                  f"differs from its plain version: {r['bad']}")
+            want = {"seed path": ("windows entry",),
+                    "FM path": ("windows entry", "sharded locate", "sharded piece search"),
+                    "exact, merge=psum": ("sharded locate",),
+                    "exact, merge=ring": ("sharded locate", "ring sum"),
+                    "exact, merge=fused": ("sharded locate", "fused table entry")}
+            for tag, kernels in want.items():
+                for kname in kernels:
+                    check(r["launches"][tag][kname] > 0, f"[20] rank {r['rank']} of {n}, {tag}: "
+                          f"the {kname} kernel was never launched")
+                launches[f"[20] {tag}, rank {r['rank']} of {n}"] = r["launches"][tag]
+    log(f"[20] the ranks share one card: a peer's shard is read from the same HBM as this "
+        f"rank's own, so these times say nothing of reads across NVLink ({card})")
+    shutil.rmtree(work)
+    return launches
 
 
 def phase_builders(torch, dev, codes, card, native_index_s):
@@ -3085,6 +3387,22 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
           bound(2 * live[0] * FM_ROW_BYTES + sr.numel() * 4 + SHARDED_FM_READS * (4 + 8 * P),
                 2 * live[0] * FM_OPS_PER_ROW_ONE), steps[0])
 
+    # the same launches with every shard in its own allocation: the kernels'
+    # other instantiation (one base pointer a shard in shared memory), the
+    # layout of shards mapped from other processes ([20])
+    ap = own_allocations(sh)
+    out["apart"] = {}
+    for name, on in ((f"sharded locate, [11] S = {SHARDS}", lambda t: si.locate(t, rows11)),
+                     (f"sharded locate, [10] S = {SHARDS}", lambda t: si.locate(t, rows10)),
+                     (f"sharded piece search, [11] S = {SHARDS}",
+                      lambda t: sp.sharded_piece_search(t, sr, sln, P, L))):
+        check(err_of(on(ap), on(sh)) == 0,
+              f"[19] {name}: separate allocations differ from the stacked tables")
+        out["apart"][name] = cuda_time_ms(lambda: on(ap), reps=20, hide_host=True)
+        log(f"[19] {name}, every shard in its own allocation: equal to the stacked launch; "
+            f"{out['apart'][name]:.4f} ms against {out[name]['ms']:.4f} ms stacked ({card})")
+    del ap
+
     if edges:
         # the FM sharded step's device events, with the kernels and with the
         # plain loops in their place
@@ -3121,6 +3439,24 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
                                         dtype=torch.int32)])
         want = rank.locate_plain(fm, edge)
         check(err_of(rank.locate(fm, edge), want) == 0, "[19] locate differs at the edges")
+        qk = torch.randint(0, gi.fwd.n + 2, (65_536,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        qc = torch.randint(0, 4, (65_536,), generator=gen, device=dev, dtype=torch.int32)
+
+        def apart_equal(shs, tag):
+            """The three sharded kernels with each shard in its own
+            allocation: equal to the stacked launch and the plain versions."""
+            ap = own_allocations(shs)
+            check(err_of(si.locate(ap, edge), want) == 0,
+                  f"[19] the sharded locate on separate allocations differs, {tag}")
+            check(err_of(sp.sharded_piece_search(ap, sr[:2048], sln[:2048], P, L),
+                         sp.sharded_piece_search_plain(shs, sr[:2048], sln[:2048], P, L)) == 0,
+                  f"[19] the sharded piece search on separate allocations differs, {tag}")
+            fused = si.fused_occ_plain(shs, qc, qk)
+            check(err_of(si.fused_occ(ap, qc, qk), fused) == 0 and
+                  err_of(si.fused_occ(shs, qc, qk), fused) == 0,
+                  f"[19] the fused table entry differs from its plain version, {tag}")
+
         done = []
         for S in range(1, 17):
             shs = si.put_sharded(si.shard_fm_index(gi.fwd, S), dev)
@@ -3130,6 +3466,7 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
             check(err_of(sp.sharded_piece_search(shs, sr[:2048], sln[:2048], P, L),
                          sp.sharded_piece_search_plain(shs, sr[:2048], sln[:2048], P, L)) == 0,
                   f"[19] the sharded piece search differs from its plain loop, S = {S}")
+            apart_equal(shs, f"S = {S}")
             done.append(S)
             del shs
         # 4 shards cut at unequal block counts of both coordinates (one of
@@ -3144,11 +3481,15 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
         check(err_of(sp.sharded_piece_search(uneq, sr[:2048], sln[:2048], P, L),
                      sp.sharded_piece_search_plain(uneq, sr[:2048], sln[:2048], P, L)) == 0,
               "[19] the sharded piece search differs on the unequal shard bounds")
+        apart_equal(uneq, "unequal bounds")
         bounds = [(int(a), int(b)) for a, b in zip(uneq.row_start, uneq.row_end)]
         log(f"[19] edges (row 0, the primary row, n twice, 65,536 random rows): locate equal to "
             f"its plain loop; the sharded locate equal to the one-index plain loop at S = {done} "
             f"and on unequal row bounds {bounds} (and its own plain loop on 4,096 of them); the "
-            f"sharded piece search on 2,048 reads equal to its plain loop at each S")
+            f"sharded piece search on 2,048 reads equal to its plain loop at each S; with every "
+            f"shard in its own allocation, the sharded locate, the piece search and the fused "
+            f"table entry (65,536 random queries) equal to the plain versions at each S and on "
+            f"the unequal bounds")
         del uneq, edge
     del gi, fm, sh, tx, pr, er, sr, r10, ln10
     torch.cuda.empty_cache()
@@ -3167,6 +3508,20 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
     del rbi, rep, cr
     torch.cuda.empty_cache()
     return out
+
+
+def own_allocations(sh):
+    """``sh`` with each shard of each sharded table copied to an allocation
+    of its own (``peer.Shards``): one base pointer a shard, as a shard
+    mapped from another process is."""
+    import dataclasses
+
+    from genome_weaver_align_tpu_torch.parallel import peer
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    return dataclasses.replace(sh, **{
+        f: peer.Shards([t.clone() for t in getattr(sh, f)], getattr(sh, f))
+        for f in si._TABLES})
 
 
 def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra) -> dict:
@@ -3219,8 +3574,13 @@ def fm_rows(fm_k, fm_cli_launches, tier2_staircase, mode_launches, mp_launches) 
             "[13] align --mode onemm", onemm["[13] align --mode onemm"], onemm),
     ]
 
+def per_run(launches: dict, kernel: str) -> dict:
+    """One kernel's launches in each run of a phase's ranks (keyed by run)."""
+    return {run: n[kernel] for run, n in launches.items()}
+
+
 def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, locate10, fm11,
-                fm16) -> list:
+                fm16, launches20) -> list:
     """The ``kernels`` line's rows of the locate, the sharded locate and
     the sharded piece search, each timed at its main path's shape ([19];
     its other paths' shapes under ``other_shapes``), with the launches of
@@ -3234,6 +3594,8 @@ def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, 
                      for key in ("ms", "plain_ms", "stage_ms", "bound_ms", "floor_ms", "shape")}
                  for o in others}
         extra = {"other_shapes": other} if other else {}
+        if entry in loc_k["apart"]:  # the sharded kernels with one allocation a shard
+            extra["separate_allocations_ms"] = loc_k["apart"][entry]
         if r.get("grid"):  # the locates: the persistent grid the binding chose
             extra["grid"] = r["grid"]
             for o in others:
@@ -3252,9 +3614,11 @@ def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, 
     fm_run = fm11["FM", SHARDS]
     sharded = {**locate10, f"[11] align --n-interval {SHARDS} (FM shards)":
                fm_run["sharded locate"],
-               **{run: n["sharded locate"] for run, n in fm16.items() if "sharded" in run}}
+               **{run: n["sharded locate"] for run, n in fm16.items() if "sharded" in run},
+               **per_run(launches20, "sharded locate")}
     pieces = {f"[11] align --n-interval {SHARDS} (FM shards)": fm_run["sharded piece search"],
-              **{run: n["sharded piece search"] for run, n in fm16.items() if "sharded" in run}}
+              **{run: n["sharded piece search"] for run, n in fm16.items() if "sharded" in run},
+              **per_run(launches20, "sharded piece search")}
     path11 = f"[11] align --n-interval {SHARDS} (FM shards)"
     return [
         row("locate", "ops/rank.py:234", "locate, [7] FM pigeonhole",
@@ -3329,6 +3693,7 @@ def main() -> int:
         long_launches = phase_long_reads(torch, dev, codes, card)
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
         rank_launches, rank_err, fm16 = phase_ranks(torch, codes, card)
+        launches20 = phase_interval(torch, codes, card)
         phase_builders(torch, dev, codes, card, native_index_s)
         fm_k = phase_fm_kernels(torch, dev, codes, rep_codes, card)
         loc_k = phase_locate(torch, dev, codes, rep_codes, card, fm_k["step_us"])
@@ -3363,7 +3728,8 @@ def main() -> int:
                    "[11] align --n-interval 4", banded_win_launches, max(max_err, rank_err),
                    (*dp_timing["windows"], None),
                    launches_by_path={"[11] align --n-interval 4": banded_win_launches,
-                                     **rank_launches}),
+                                     **rank_launches,
+                                     **per_run(launches20, "windows entry")}),
         kernel_row("myers_text", "myers.cu", "ops/myers_pallas.py:75",
                    "[8] align --paired (mate rescue)", myers_launches, myers_text_err,
                    (*myers_times["text", "rescue"], None),
@@ -3374,16 +3740,20 @@ def main() -> int:
                    "none: the JAX contract's entry, held against plain in [6]", 0,
                    myers_win_err, (*myers_times["windows", "rescue"], None)),
         kernel_row("ring_allreduce", "ring.cu", "parallel/ring.py:58",
-                   "[10] merge=ring", ring_launches, ring_err["ring"], ring_timing["ring"]),
+                   "[10] merge=ring", ring_launches, ring_err["ring"], ring_timing["ring"],
+                   launches_by_path={"[10] merge=ring": ring_launches,
+                                     **per_run(launches20, "ring sum")}),
         kernel_row("fused_rank_ring_words", "ring.cu", "parallel/ring.py:162",
                    "none: the JAX contract's entry, held against plain in [9]", 0,
                    ring_err["words"], ring_timing["words"]),
         kernel_row("fused_occ_table", "ring.cu", "parallel/ring.py:162", "[10] merge=fused",
                    fused_launches, ring_err["table"], ring_timing["table"],
-                   stage_ms=ring_timing["stage"]),
+                   stage_ms=ring_timing["stage"], separate_allocations_ms=ring_timing["apart"],
+                   launches_by_path={"[10] merge=fused": fused_launches,
+                                     **per_run(launches20, "fused table entry")}),
         *fm_rows(fm_k, fm_cli_launches, tier2["staircase"], mode_launches, mp_launches),
         *locate_rows(loc_k, fm_cli_locate, tier2["locate"], mode_launches, mp_launches, locate10,
-                     fm11, fm16),
+                     fm11, fm16, launches20),
     ]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

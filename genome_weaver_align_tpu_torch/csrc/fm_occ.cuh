@@ -1,7 +1,8 @@
 // FM-index occurrence counts and bidirectional extensions on one fused row,
 // shared by fm_search.cu, locate.cu, staircase.cu, one_mismatch.cu and
 // ring.cu, the owner lookup and row reads of the interval-sharded tables
-// (one definition of the split: owner_of, load_row(ShardedFM)), and the
+// (one definition of the split: owner_of, load_row(ShardedFM); one base
+// pointer a shard: ShardPtrs, ShardTable), and the
 // block size of a launch of lane groups (block_threads).  No kernel.
 //
 // The tables are the port's DeviceFMIndex (ops/rank.py): `blocks` holds one
@@ -221,13 +222,70 @@ __device__ __forceinline__ FMTable load_table(const int* blocks, const int* C, i
 }
 
 // ---- interval shards (parallel/sharded_index.py).  S <= kMaxShards
-// stacked tables on one device, each coordinate space split into ranges
+// shards on one device, each coordinate space split into ranges
 // [start[s], end[s]): the packed BWT coordinates (BWT words and
 // checkpoints, two arrays) and the row coordinates (marks, sampled values).
 // A query reads its owner's table only; with no owner it is the plain
-// version's sum of zeros.
+// version's sum of zeros.  Each table comes as one base pointer a shard
+// (ShardPtrs), and every shard's table has the same rows.  Two layouts,
+// one kernel template each (ShardTable): the shards are the rows of one
+// stacked tensor (base + s * stride: arithmetic, nothing loaded), or each
+// lies in an allocation of its own, this process's or a peer's mapped
+// through CUDA IPC (parallel/peer.py).  Then a kernel copies the S
+// pointers to shared memory once a block (load_shards): a lane indexes them
+// by its query's owner, which differs between the lanes of a warp, and an
+// indexed read of the parameter space would serialise.  The host entry
+// picks the layout from the pointers themselves (evenly_spaced).
 
 constexpr int kMaxShards = 16;
+
+// One table's S base pointers, a kernel parameter.
+struct ShardPtrs {
+  const int* p[kMaxShards];
+};
+
+// Whether the S pointers are the rows of one stacked tensor: shard s at
+// p[0] + s * stride ints (host side).
+inline bool evenly_spaced(const ShardPtrs& t, int S, int64_t stride) {
+  for (int s = 1; s < S; ++s) {
+    if (t.p[s] != t.p[0] + s * stride) return false;
+  }
+  return true;
+}
+
+// One table's shards in a kernel.
+template <bool Stacked>
+struct ShardTable {
+  const int* base;        // Stacked: shard 0's rows, shard s at base + s * stride
+  const int* const* ptr;  // else: each shard's base, in shared memory
+  int64_t stride;
+  __device__ __forceinline__ const int* operator[](int s) const {
+    if constexpr (Stacked) {
+      return base + s * stride;
+    } else {
+      return ptr[s];
+    }
+  }
+};
+
+// A table's shards for the kernel; apart, thread 0 stores the S pointers to
+// `smem` (kMaxShards entries), visible to the block after its next
+// __syncthreads (load_split's).  The indices are constants: a parameter
+// indexed by the thread (thread d storing pointer d) is copied to each
+// thread's stack first, 128 bytes a table.  Every thread calls it.
+template <bool Stacked>
+__device__ __forceinline__ ShardTable<Stacked> load_shards(const ShardPtrs& src, int S,
+                                                           int64_t stride, const int** smem) {
+  if constexpr (!Stacked) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int d = 0; d < kMaxShards; ++d) {
+        if (d < S) smem[d] = src.p[d];
+      }
+    }
+  }
+  return {src.p[0], smem, stride};
+}
 
 // The shard whose [start, end) holds x, or -1 (the last such shard where
 // ranges overlap).  start and end are the S bounds, in shared memory.
@@ -284,11 +342,11 @@ __device__ __forceinline__ int owner_of(const Split& sp, int x) {
   return shard_of(sp.start, sp.end, sp.S, x);
 }
 
-// The stacked packed-space tables: bwt (S, R, 8) words and occ_cp (S, R, 4)
+// The packed-space tables: each shard's bwt (R, 8) words and occ_cp (R, 4)
 // global checkpoint values, 16-byte aligned, and their split.
+template <bool Stacked>
 struct ShardedFM {
-  const int* bwt;
-  const int* cp;
+  ShardTable<Stacked> bwt, cp;
   Split pk;
   int R, primary;
   int C[4];
@@ -302,15 +360,15 @@ struct ShardRow {
 // Shard s's row at packed coordinate k_adj (sentinel removed; s's range
 // holds it), split as sharded_index._block_split does: local block clamped
 // to the shard's table, r the offset in it.
-__device__ __forceinline__ FusedRow shard_row(const ShardedFM& t, int s, int k_adj) {
+template <bool Stacked>
+__device__ __forceinline__ FusedRow shard_row(const ShardedFM<Stacked>& t, int s, int k_adj) {
   const int local = k_adj - t.pk.start[s];  // >= 0: the shard's range holds k_adj
   const int b = min(local >> 7, t.R - 1);
-  const int64_t row = static_cast<int64_t>(s) * t.R + b;
-  const uint4* w = reinterpret_cast<const uint4*>(t.bwt + row * 8);
+  const uint4* w = reinterpret_cast<const uint4*>(t.bwt[s] + static_cast<int64_t>(b) * 8);
   FusedRow out;
   out.w0 = __ldg(w);
   out.w1 = __ldg(w + 1);
-  out.cp = __ldg(reinterpret_cast<const uint4*>(t.cp + row * 4));
+  out.cp = __ldg(reinterpret_cast<const uint4*>(t.cp[s] + static_cast<int64_t>(b) * 4));
   out.r = local - b * kRowBases;
   return out;
 }
@@ -318,7 +376,8 @@ __device__ __forceinline__ FusedRow shard_row(const ShardedFM& t, int s, int k_a
 // The owner's row at sentinel-inclusive coordinate k (owner_of; where
 // ranges overlap, the last shard that holds it).  Nothing is loaded
 // without an owner.
-__device__ __forceinline__ ShardRow load_row(const ShardedFM& t, int k) {
+template <bool Stacked>
+__device__ __forceinline__ ShardRow load_row(const ShardedFM<Stacked>& t, int k) {
   const int k_adj = k - (k > t.primary ? 1 : 0);
   const int s = owner_of(t.pk, k_adj);
   ShardRow out;

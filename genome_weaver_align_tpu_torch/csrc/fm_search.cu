@@ -22,8 +22,10 @@
 // One loop (search_lane) over a table accessor: OneIndex reads the fused
 // rows of one DeviceFMIndex; gwa::ShardedFM finds the shard that owns each
 // coordinate (fm_occ.cuh owner_of: x / width, confirmed against the bounds
-// in shared memory) and reads that shard's BWT words and
-// checkpoints, which equals the plain loop's sum over the shards of
+// in shared memory) and reads that shard's BWT words and checkpoints
+// (fm_occ.cuh ShardTable: the stacked tables' rows, one instantiation, or
+// shards in their own allocations, a peer process's mapped through CUDA
+// IPC, the other), which equals the plain loop's sum over the shards of
 // sharded_index.local_occ_codes (a coordinate of [0, n] always has one
 // owner; a query without one counts 0, as the sum of zeros does).
 //
@@ -70,8 +72,9 @@ struct OneIndex {
 };
 
 // The interval shards' split tables.
+template <bool Stacked>
 struct Sharded {
-  gwa::ShardedFM fm;
+  gwa::ShardedFM<Stacked> fm;
   __device__ __forceinline__ gwa::ShardRow load(int k) const { return gwa::load_row(fm, k); }
   __device__ __forceinline__ int occ(const gwa::ShardRow& row, int c) const {
     return row.own ? gwa::occ1(row.row, c) : 0;
@@ -117,16 +120,23 @@ __global__ void __launch_bounds__(kThreads)
   search_lane(a, OneIndex{gwa::load_table(blocks, C, primary)}, i);
 }
 
+template <bool Stacked>
 __global__ void __launch_bounds__(kThreads)
-    backward_search_sharded_kernel(const SearchArgs a, gwa::ShardedFM fm, const int* C,
-                                   const int* pk_start, const int* pk_end) {
+    backward_search_sharded_kernel(const SearchArgs a, gwa::ShardedFM<Stacked> fm,
+                                   const int* C, const int* pk_start, const int* pk_end,
+                                   const gwa::ShardPtrs bwt, const gwa::ShardPtrs cp) {
   __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
-  fm.pk = gwa::load_split(pk_start, pk_end, fm.pk.S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
+  __shared__ const int* s_bwt[gwa::kMaxShards];
+  __shared__ const int* s_cp[gwa::kMaxShards];
+  const int S = fm.pk.S;
+  fm.bwt = gwa::load_shards<Stacked>(bwt, S, static_cast<int64_t>(fm.R) * 8, s_bwt);
+  fm.cp = gwa::load_shards<Stacked>(cp, S, static_cast<int64_t>(fm.R) * 4, s_cp);
+  fm.pk = gwa::load_split(pk_start, pk_end, S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<int64_t>(a.B) * a.P) return;
 #pragma unroll
   for (int c = 0; c < 4; ++c) fm.C[c] = __ldg(C + c);
-  search_lane(a, Sharded{fm}, i);
+  search_lane(a, Sharded<Stacked>{fm}, i);
 }
 
 SearchArgs search_args(const void* reads, const void* lengths, int B, int L, int P, int n,
@@ -146,6 +156,20 @@ SearchArgs search_args(const void* reads, const void* lengths, int B, int L, int
 
 unsigned grid(const SearchArgs& a) {
   return static_cast<unsigned>((static_cast<int64_t>(a.B) * a.P + kThreads - 1) / kThreads);
+}
+
+template <bool Stacked>
+int launch_sharded(const SearchArgs& a, int S, int R, int primary, unsigned pk_magic,
+                   int pk_shift, const void* C, const void* pk_start, const void* pk_end,
+                   const gwa::ShardPtrs& bwt, const gwa::ShardPtrs& cp, cudaStream_t stream) {
+  gwa::ShardedFM<Stacked> fm{};
+  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
+  fm.R = R;
+  fm.primary = primary;
+  backward_search_sharded_kernel<Stacked><<<grid(a), kThreads, 0, stream>>>(
+      a, fm, static_cast<const int*>(C), static_cast<const int*>(pk_start),
+      static_cast<const int*>(pk_end), bwt, cp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -170,13 +194,14 @@ extern "C" int gwa_backward_search(const void* reads, const void* lengths, int B
   return static_cast<int>(cudaGetLastError());
 }
 
-// reads (B, L), lengths (B,), the S interval shards' bwt (S, R, 8) and
-// occ_cp (S, R, 4) 16-byte aligned, pk_start / pk_end (S,), C (5,),
-// out_lo / out_hi (B * P,): all int32.  The owner guess is x / width =
-// __umulhi(x, pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
+// reads (B, L), lengths (B,), the S interval shards' bwt (R, 8) and occ_cp
+// (R, 4) 16-byte aligned (bwt_ptrs and cp_ptrs: S device pointers each),
+// pk_start / pk_end (S,), C (5,), out_lo / out_hi (B * P,): all int32.  The
+// owner guess is x / width = __umulhi(x, pk_magic) >> pk_shift
+// (fm_search_cuda.owner_divisor).
 extern "C" int gwa_backward_search_sharded(const void* reads, const void* lengths, int B, int L,
-                                           int P, int S, int R, const void* bwt,
-                                           const void* occ_cp, const void* pk_start,
+                                           int P, int S, int R, const uint64_t* bwt_ptrs,
+                                           const uint64_t* cp_ptrs, const void* pk_start,
                                            const void* pk_end, unsigned pk_magic, int pk_shift,
                                            const void* C, int primary, int n, int trip,
                                            void* out_lo, void* out_hi, void* stream) {
@@ -185,14 +210,16 @@ extern "C" int gwa_backward_search_sharded(const void* reads, const void* length
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<int64_t>(B) * P == 0) return 0;
   const SearchArgs a = search_args(reads, lengths, B, L, P, n, trip, out_lo, out_hi);
-  gwa::ShardedFM fm{};
-  fm.bwt = static_cast<const int*>(bwt);
-  fm.cp = static_cast<const int*>(occ_cp);
-  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
-  fm.R = R;
-  fm.primary = primary;
-  backward_search_sharded_kernel<<<grid(a), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, fm, static_cast<const int*>(C), static_cast<const int*>(pk_start),
-      static_cast<const int*>(pk_end));
-  return static_cast<int>(cudaGetLastError());
+  gwa::ShardPtrs bwt{}, cp{};
+  for (int s = 0; s < S; ++s) {
+    bwt.p[s] = reinterpret_cast<const int*>(bwt_ptrs[s]);
+    cp.p[s] = reinterpret_cast<const int*>(cp_ptrs[s]);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (gwa::evenly_spaced(bwt, S, static_cast<int64_t>(R) * 8) &&
+      gwa::evenly_spaced(cp, S, static_cast<int64_t>(R) * 4))
+    return launch_sharded<true>(a, S, R, primary, pk_magic, pk_shift, C, pk_start, pk_end, bwt,
+                                cp, st);
+  return launch_sharded<false>(a, S, R, primary, pk_magic, pk_shift, C, pk_start, pk_end, bwt,
+                               cp, st);
 }

@@ -22,11 +22,15 @@
 // that row (rank.lf_fused; fm_occ.cuh lf_below).  rank1 is the mark
 // block's checkpoint plus the popcount of the block's bits below the row
 // (the words masked as rank._mark_rank1 does), then one sampled value.
-// Shards: the same walk over the stacked ShardedFMIndex tables
-// (parallel/sharded_index.py:56).  Each step finds the row's owner in the
-// row coordinates (marks, sampled values) and in the packed coordinates (BWT
-// words and checkpoints) with fm_occ.cuh owner_of (x / width, confirmed
-// against the S bounds in shared memory) and reads only the owners' tables.
+// Shards: the same walk over the ShardedFMIndex tables
+// (parallel/sharded_index.py:56), one base pointer a shard and table
+// (fm_occ.cuh ShardTable: the stacked tables' rows, one kernel
+// instantiation, or shards in their own allocations, a peer process's
+// mapped through CUDA IPC, the other).  Each step
+// finds the row's owner in the row coordinates (marks, sampled values) and
+// in the packed coordinates (BWT words and checkpoints) with fm_occ.cuh
+// owner_of (x / width, confirmed against the S bounds in shared memory) and
+// reads only the owners' tables.
 // That equals the plain loop's sums over the shards, where non-owners add
 // 0, including its quirks: the BWT code has an owner only below n
 // (local_bwt_char), a coordinate with no owner adds 0, and the sampled slot
@@ -98,11 +102,12 @@ struct LocateArgs {
   int Q, sample_rate;
 };
 
-// Where a walk stopped: the index of its mark block's rank1 checkpoint (-1:
-// no owner, the value is 0) and a key for the sampled value's index: the
-// block's marked rows below the row, and the owner above bit 8 (shards).
+// Where a walk stopped: its mark block's rank1 checkpoint (null: no owner,
+// the value is 0) and a key for the sampled value's index: the block's
+// marked rows below the row, and the owner above bit 8 (shards).
 struct Stop {
-  int cp, key;
+  const int* cp;
+  int key;
 };
 
 // One index: DeviceFMIndex's fused rows and marks.
@@ -131,22 +136,24 @@ struct OneIndex {
   }
   __device__ __forceinline__ int lf(const Step& s) const { return gwa::lf_below(s.row, fm.C); }
   __device__ __forceinline__ Stop stop(const Step& s) const {
-    return {s.mblk, marks_below(s.marks, s.rem)};
+    return {cp + s.mblk, marks_below(s.marks, s.rem)};
   }
-  __device__ __forceinline__ int value_index(int key, int rank0) const {
-    return min(max(rank0 + key, 0), n_ssa - 1);
+  __device__ __forceinline__ const int* value_at(int key, int rank0) const {
+    return ssa + min(max(rank0 + key, 0), n_ssa - 1);
   }
 };
 
-// Interval shards: ShardedFMIndex's stacked tables, both splits in shared
+// Interval shards: ShardedFMIndex's tables (fm_occ.cuh ShardTable: stacked,
+// or one base pointer a shard in shared memory), both splits in shared
 // memory.
+template <bool Stacked>
 struct Shards {
-  gwa::ShardedFM fm;    // the packed split in fm.pk
-  gwa::Split rows;      // the row coordinates' split
-  const int* blocks;    // (S, mbs, 4) mark words
-  const int* cp;        // (S, mbs + 1) global rank1 at the local block starts
-  const int* ssa;       // (S, vmax) sampled values
-  const int* ssa_base;  // (S,) marked rows before each shard, in shared memory
+  gwa::ShardedFM<Stacked> fm;          // the packed split in fm.pk
+  gwa::Split rows;                     // the row coordinates' split
+  gwa::ShardTable<Stacked> blocks;     // each shard's (mbs, 4) mark words
+  gwa::ShardTable<Stacked> cp;         // each shard's (mbs + 1) global rank1 at its block starts
+  gwa::ShardTable<Stacked> ssa;        // each shard's (vmax) sampled values
+  const int* ssa_base;                 // (S,) marked rows before each shard
   int mbs, vmax, n;
 
   struct Step {
@@ -164,7 +171,7 @@ struct Shards {
       const int local = i - rows.start[s.owner];  // >= 0: the owner's range holds i
       s.b = min(local >> 7, mbs - 1);
       s.rem = local - s.b * kMarkBits;
-      s.marks = load4(blocks + (static_cast<int64_t>(s.owner) * mbs + s.b) * 4);
+      s.marks = load4(blocks[s.owner] + static_cast<int64_t>(s.b) * 4);
     }
     s.row = gwa::load_row(fm, i);
     s.coded = i - (i > fm.primary ? 1 : 0) < n;
@@ -177,13 +184,12 @@ struct Shards {
     return s.row.own ? gwa::lf_below(s.row.row, fm.C, s.coded) : fm.C[0];
   }
   __device__ __forceinline__ Stop stop(const Step& s) const {
-    if (s.owner < 0) return {-1, 0};
-    return {s.owner * (mbs + 1) + s.b, marks_below(s.marks, s.rem) | s.owner << 8};
+    if (s.owner < 0) return {nullptr, 0};
+    return {cp[s.owner] + s.b, marks_below(s.marks, s.rem) | s.owner << 8};
   }
-  __device__ __forceinline__ int value_index(int key, int rank0) const {
+  __device__ __forceinline__ const int* value_at(int key, int rank0) const {
     const int owner = key >> 8;
-    const int slot = min(max(rank0 + (key & 255) - ssa_base[owner], 0), vmax - 1);
-    return owner * vmax + slot;
+    return ssa[owner] + min(max(rank0 + (key & 255) - ssa_base[owner], 0), vmax - 1);
   }
 };
 
@@ -206,8 +212,8 @@ __device__ __forceinline__ void walk(const LocateArgs& a, const Table& tab) {
       st = tab.load(i);
     }
     const Stop e = tab.stop(st);
-    const int rank0 = e.cp >= 0 ? __ldg(tab.cp + e.cp) : 0;
-    const int value = e.cp >= 0 ? __ldg(tab.ssa + tab.value_index(e.key, rank0)) : 0;
+    const int rank0 = e.cp != nullptr ? __ldg(e.cp) : 0;
+    const int value = e.cp != nullptr ? __ldg(tab.value_at(e.key, rank0)) : 0;
     a.out[q] = value + d;
     q = next;
     row = next_row;
@@ -221,8 +227,8 @@ __global__ void __launch_bounds__(kThreads)
   walk(a, tab);
 }
 
-// The S bounds of both splits and the sampled values' bases go to shared
-// memory once a block.
+// The S bounds of both splits, the sampled values' bases and the tables'
+// base pointers go to shared memory once a block.
 struct ShardBounds {
   const int* pk_start;
   const int* pk_end;
@@ -231,12 +237,25 @@ struct ShardBounds {
   const int* ssa_base;
 };
 
+struct ShardTables {
+  gwa::ShardPtrs bwt, occ_cp, mark_blocks, mark_cp, ssa_values;
+};
+
+template <bool Stacked>
 __global__ void __launch_bounds__(kThreads)
-    locate_sharded_kernel(const LocateArgs a, Shards tab, const int* C, const ShardBounds sb) {
+    locate_sharded_kernel(const LocateArgs a, Shards<Stacked> tab, const int* C,
+                          const ShardBounds sb, const ShardTables t) {
   __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
   __shared__ int s_rs[gwa::kMaxShards], s_re[gwa::kMaxShards], s_base[gwa::kMaxShards];
+  __shared__ const int* s_ptr[5][gwa::kMaxShards];
   const int S = tab.fm.pk.S;
+  const int64_t R = tab.fm.R, mbs = tab.mbs;
   if (threadIdx.x < S) s_base[threadIdx.x] = sb.ssa_base[threadIdx.x];
+  tab.fm.bwt = gwa::load_shards<Stacked>(t.bwt, S, R * 8, s_ptr[0]);
+  tab.fm.cp = gwa::load_shards<Stacked>(t.occ_cp, S, R * 4, s_ptr[1]);
+  tab.blocks = gwa::load_shards<Stacked>(t.mark_blocks, S, mbs * 4, s_ptr[2]);
+  tab.cp = gwa::load_shards<Stacked>(t.mark_cp, S, mbs + 1, s_ptr[3]);
+  tab.ssa = gwa::load_shards<Stacked>(t.ssa_values, S, tab.vmax, s_ptr[4]);
   tab.fm.pk = gwa::load_split(sb.pk_start, sb.pk_end, S, tab.fm.pk.magic, tab.fm.pk.shift,
                               s_ps, s_pe);
   tab.rows = gwa::load_split(sb.row_start, sb.row_end, S, tab.rows.magic, tab.rows.shift, s_rs,
@@ -247,25 +266,52 @@ __global__ void __launch_bounds__(kThreads)
   walk(a, tab);
 }
 
-const void* kernel_of(bool sharded) {
-  return sharded ? reinterpret_cast<const void*>(&locate_sharded_kernel)
-                 : reinterpret_cast<const void*>(&locate_kernel);
+// The kernel of one index, or of the shards (stacked, or apart).
+const void* kernel_of(bool sharded, bool stacked = true) {
+  if (!sharded) return reinterpret_cast<const void*>(&locate_kernel);
+  return stacked ? reinterpret_cast<const void*>(&locate_sharded_kernel<true>)
+                 : reinterpret_cast<const void*>(&locate_sharded_kernel<false>);
 }
 
 // Checks a launch's shape and launches the kernel with its arguments.
-int launch(bool sharded, int64_t Q, int grid, void** args, cudaStream_t stream) {
+int launch(const void* kernel, int64_t Q, int grid, void** args, cudaStream_t stream) {
   // every row index a thread reaches, Q + threads, stays inside int32
   if (Q < 0 || Q > (1 << 30) || grid < 1 || grid > (1 << 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Q == 0) return 0;
   return static_cast<int>(
-      cudaLaunchKernel(kernel_of(sharded), dim3(grid), dim3(kThreads), args, 0, stream));
+      cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), args, 0, stream));
+}
+
+// A sharded launch's sizes and owner divisors.
+struct ShardSizes {
+  int S, R, mbs, vmax, primary, n;
+  unsigned pk_magic;
+  int pk_shift;
+  unsigned row_magic;
+  int row_shift;
+};
+
+// The launch of one layout's kernel (its arguments are this call's copies).
+template <bool Stacked>
+int launch_sharded(LocateArgs a, int64_t Q, const ShardSizes& z, const int* c, ShardBounds sb,
+                   ShardTables t, int grid, cudaStream_t stream) {
+  Shards<Stacked> tab{};
+  tab.fm.pk = {nullptr, nullptr, z.S, z.pk_magic, z.pk_shift, false};
+  tab.fm.R = z.R;
+  tab.fm.primary = z.primary;
+  tab.rows = {nullptr, nullptr, z.S, z.row_magic, z.row_shift, false};
+  tab.mbs = z.mbs;
+  tab.vmax = z.vmax;
+  tab.n = z.n;
+  void* args[] = {&a, &tab, &c, &sb, &t};
+  return launch(kernel_of(true, Stacked), Q, grid, args, stream);
 }
 
 }  // namespace
 
-// Blocks of the kernel (one index or shards) that fit on one SM at once,
-// in *blocks.
+// Blocks of the kernel (one index or stacked shards) that fit on one SM at
+// once, in *blocks.
 extern "C" int gwa_locate_resident(int sharded, int* blocks) {
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel_of(sharded != 0), kThreads, 0));
@@ -294,45 +340,47 @@ extern "C" int gwa_locate(const void* rows, int64_t Q, const void* blocks, int n
   tab.n = n;
   const int* c = static_cast<const int*>(C);
   void* args[] = {&a, &tab, &c};
-  return launch(false, Q, grid, args, static_cast<cudaStream_t>(stream));
+  return launch(kernel_of(false), Q, grid, args, static_cast<cudaStream_t>(stream));
 }
 
-// rows and out (Q,); the S shards' bwt (S, R, 8) and occ_cp (S, R, 4)
-// 16-byte aligned, pk_start / pk_end (S,), mark_blocks (S, mbs, 4) 16-byte
-// aligned, mark_cp (S, mbs + 1), row_start / row_end (S,), ssa_values
-// (S, vmax), ssa_base (S,), C (5,): all int32.  Each split's owner guess is
-// x / width = __umulhi(x, magic) >> shift (fm_search_cuda.owner_divisor).
-extern "C" int gwa_locate_sharded(const void* rows, int64_t Q, int S, int R, const void* bwt,
-                                  const void* occ_cp, const void* pk_start, const void* pk_end,
-                                  unsigned pk_magic, int pk_shift, int mbs,
-                                  const void* mark_blocks, const void* mark_cp,
-                                  const void* row_start, const void* row_end,
-                                  unsigned row_magic, int row_shift, int vmax,
-                                  const void* ssa_values, const void* ssa_base, const void* C,
-                                  int primary, int n, int sample_rate, void* out, int grid,
-                                  void* stream) {
+// rows and out (Q,); each of the S shards' bwt (R, 8) and occ_cp (R, 4)
+// 16-byte aligned, mark_blocks (mbs, 4) 16-byte aligned, mark_cp (mbs + 1)
+// and ssa_values (vmax) (the *_ptrs: S device pointers each); pk_start /
+// pk_end, row_start / row_end and ssa_base (S,), C (5,): all int32.  Each
+// split's owner guess is x / width = __umulhi(x, magic) >> shift
+// (fm_search_cuda.owner_divisor).
+extern "C" int gwa_locate_sharded(const void* rows, int64_t Q, int S, int R,
+                                  const uint64_t* bwt_ptrs, const uint64_t* cp_ptrs,
+                                  const void* pk_start, const void* pk_end, unsigned pk_magic,
+                                  int pk_shift, int mbs, const uint64_t* mark_block_ptrs,
+                                  const uint64_t* mark_cp_ptrs, const void* row_start,
+                                  const void* row_end, unsigned row_magic, int row_shift,
+                                  int vmax, const uint64_t* ssa_ptrs, const void* ssa_base,
+                                  const void* C, int primary, int n, int sample_rate, void* out,
+                                  int grid, void* stream) {
   if (S < 1 || S > gwa::kMaxShards || R < 1 || mbs < 1 || vmax < 1 || sample_rate < 0 ||
       n < 0 || pk_shift < 0 || pk_shift > 31 || row_shift < 0 || row_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   LocateArgs a{static_cast<const int*>(rows), static_cast<int*>(out), static_cast<int>(Q),
                sample_rate};
-  Shards tab{};
-  tab.fm.bwt = static_cast<const int*>(bwt);
-  tab.fm.cp = static_cast<const int*>(occ_cp);
-  tab.fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
-  tab.fm.R = R;
-  tab.fm.primary = primary;
-  tab.rows = {nullptr, nullptr, S, row_magic, row_shift, false};
-  tab.blocks = static_cast<const int*>(mark_blocks);
-  tab.cp = static_cast<const int*>(mark_cp);
-  tab.ssa = static_cast<const int*>(ssa_values);
-  tab.mbs = mbs;
-  tab.vmax = vmax;
-  tab.n = n;
+  ShardSizes z{S, R, mbs, vmax, primary, n, pk_magic, pk_shift, row_magic, row_shift};
   const int* c = static_cast<const int*>(C);
   ShardBounds sb{static_cast<const int*>(pk_start), static_cast<const int*>(pk_end),
                  static_cast<const int*>(row_start), static_cast<const int*>(row_end),
                  static_cast<const int*>(ssa_base)};
-  void* args[] = {&a, &tab, &c, &sb};
-  return launch(true, Q, grid, args, static_cast<cudaStream_t>(stream));
+  ShardTables t{};
+  for (int s = 0; s < S; ++s) {
+    t.bwt.p[s] = reinterpret_cast<const int*>(bwt_ptrs[s]);
+    t.occ_cp.p[s] = reinterpret_cast<const int*>(cp_ptrs[s]);
+    t.mark_blocks.p[s] = reinterpret_cast<const int*>(mark_block_ptrs[s]);
+    t.mark_cp.p[s] = reinterpret_cast<const int*>(mark_cp_ptrs[s]);
+    t.ssa_values.p[s] = reinterpret_cast<const int*>(ssa_ptrs[s]);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (gwa::evenly_spaced(t.bwt, S, static_cast<int64_t>(R) * 8) &&
+      gwa::evenly_spaced(t.occ_cp, S, static_cast<int64_t>(R) * 4) &&
+      gwa::evenly_spaced(t.mark_blocks, S, static_cast<int64_t>(mbs) * 4) &&
+      gwa::evenly_spaced(t.mark_cp, S, mbs + 1) && gwa::evenly_spaced(t.ssa_values, S, vmax))
+    return launch_sharded<true>(a, Q, z, c, sb, t, grid, st);
+  return launch_sharded<false>(a, Q, z, c, sb, t, grid, st);
 }

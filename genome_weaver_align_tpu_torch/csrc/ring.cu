@@ -11,7 +11,13 @@
 // every shard d ends with
 //   x_d + x_{d-1} + x_{d-2} + ... + x_{d-S+1}
 // added in that order, so the float32 sum is bit-equal to the plain loop.
-// Every shard's buffers come in as their own base pointers.
+// Every shard's buffers come in as their own base pointers: one stacked
+// tensor's rows, or separate allocations, another process's mapped through
+// CUDA IPC (parallel/peer.py).  Across processes the sum's inputs are the
+// ranks' mapped partial slots, and each process writes its own output only
+// (a null output pointer is skipped); the host orders the steps (a stream
+// synchronize and a barrier before the sum reads the peers' slots: kernels
+// of two processes time-slice one card, so none waits on another's flag).
 //
 // No ring.  The TPU ran a ring because ICI moves data by remote DMA between
 // neighbours.  On one card all S shards lie in the same device memory and a
@@ -42,7 +48,8 @@
 //
 // fused_occ_kernel: the same sum, but each thread does the shards' block
 // split itself (sharded_index.py _block_split: the sentinel adjustment, the
-// owner, the clamped local block and roff) through fm_occ.cuh's one
+// owner, the clamped local block and roff; the tables stacked, or one
+// allocation a shard: fm_occ.cuh ShardTable) through fm_occ.cuh's one
 // definition of the split, load_row(ShardedFM): the owner by division,
 // confirmed against the S bounds in shared memory (owner_of), and only the
 // owner's 32-byte row of bwt_blocks and 16 bytes of occ_cp read (one
@@ -105,9 +112,11 @@ struct ShardIO {
   void* out[kMaxShards];
 };
 
-// out[d] = x_d + x_{d-1} + ... + x_{d-S+1} for the E elements of x[0..S-1].
+// out[d] = x_d + x_{d-1} + ... + x_{d-S+1} for the E elements of x[0..S-1]
+// (float32: only where want[d]).
 template <typename T, int S, int E>
-__device__ __forceinline__ void ring_sums(const T (&x)[S][E], T (&out)[S][E]) {
+__device__ __forceinline__ void ring_sums(const T (&x)[S][E], T (&out)[S][E],
+                                          const bool (&want)[S]) {
   if constexpr (std::is_same<T, int>::value) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -120,6 +129,7 @@ __device__ __forceinline__ void ring_sums(const T (&x)[S][E], T (&out)[S][E]) {
   } else {
 #pragma unroll
     for (int d = 0; d < S; ++d) {
+      if (!want[d]) continue;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         T acc = x[d][e];
@@ -133,11 +143,16 @@ __device__ __forceinline__ void ring_sums(const T (&x)[S][E], T (&out)[S][E]) {
 
 // Elements [0, 4 n_vec) as 16-byte vectors (every pointer 16-byte aligned),
 // then [4 n_vec, n) one at a time.
+// A null output pointer is not written: across processes each writes its
+// own shard's output only.
 template <typename T, int S>
 __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, int64_t n,
                                                              int64_t n_vec) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  bool want[S];
+#pragma unroll
+  for (int d = 0; d < S; ++d) want[d] = p.out[d] != nullptr;
   for (int64_t v = first; v < n_vec; v += stride) {
     T x[S][4], out[S][4];
 #pragma unroll
@@ -148,9 +163,10 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
       x[d][2] = from_bits<T>(u.z);
       x[d][3] = from_bits<T>(u.w);
     }
-    ring_sums<T, S, 4>(x, out);
+    ring_sums<T, S, 4>(x, out, want);
 #pragma unroll
     for (int d = 0; d < S; ++d) {
+      if (!want[d]) continue;
       uint4 u;
       u.x = to_bits(out[d][0]);
       u.y = to_bits(out[d][1]);
@@ -163,9 +179,11 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
     T x[S][1], out[S][1];
 #pragma unroll
     for (int d = 0; d < S; ++d) x[d][0] = static_cast<const T*>(p.in[d])[i];
-    ring_sums<T, S, 1>(x, out);
+    ring_sums<T, S, 1>(x, out, want);
 #pragma unroll
-    for (int d = 0; d < S; ++d) static_cast<T*>(p.out[d])[i] = out[d][0];
+    for (int d = 0; d < S; ++d) {
+      if (want[d]) static_cast<T*>(p.out[d])[i] = out[d][0];
+    }
   }
 }
 
@@ -267,8 +285,15 @@ struct TableIO {
   int64_t n;
 };
 
-__global__ void __launch_bounds__(kThreads) fused_occ_kernel(const TableIO a, gwa::ShardedFM fm) {
+template <bool Stacked>
+__global__ void __launch_bounds__(kThreads)
+    fused_occ_kernel(const TableIO a, gwa::ShardedFM<Stacked> fm, const gwa::ShardPtrs bwt,
+                     const gwa::ShardPtrs cp) {
   __shared__ int s_ps[kMaxShards], s_pe[kMaxShards];
+  __shared__ const int* s_bwt[kMaxShards];
+  __shared__ const int* s_cp[kMaxShards];
+  fm.bwt = gwa::load_shards<Stacked>(bwt, fm.pk.S, static_cast<int64_t>(fm.R) * 8, s_bwt);
+  fm.cp = gwa::load_shards<Stacked>(cp, fm.pk.S, static_cast<int64_t>(fm.R) * 4, s_cp);
   fm.pk = gwa::load_split(a.pk_start, a.pk_end, fm.pk.S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < a.n;
@@ -289,10 +314,19 @@ __global__ void __launch_bounds__(kThreads) fused_occ_kernel(const TableIO a, gw
   }
 }
 
+template <bool Stacked>
+gwa::ShardedFM<Stacked> sharded_fm(int S, int R, int primary, unsigned pk_magic, int pk_shift) {
+  gwa::ShardedFM<Stacked> fm{};
+  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
+  fm.R = R;
+  fm.primary = primary;
+  return fm;
+}
+
 }  // namespace
 
 // dtype 0: int32, 1: float32.  in_ptrs, out_ptrs: S device pointers each, n
-// elements a shard.
+// elements a shard; a null output pointer is not written.
 extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptrs,
                              const uint64_t* out_ptrs, void* stream) {
   if (S < 1 || S > kMaxShards || n < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -331,11 +365,12 @@ extern "C" int gwa_fused_words(int S, int64_t n, const uint64_t* ptrs, void* str
   return static_cast<int>(cudaGetLastError());
 }
 
-// bwt (S, R, 8) and occ_cp (S, R, 4) 16-byte aligned, pk_start and pk_end
-// (S,), codes, k and out (n,), all int32.  The owner guess is x / width =
+// Each of the S shards' bwt (R, 8) and occ_cp (R, 4) 16-byte aligned
+// (bwt_ptrs and cp_ptrs: S device pointers each), pk_start and pk_end (S,),
+// codes, k and out (n,), all int32.  The owner guess is x / width =
 // __umulhi(x, pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
-extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const void* bwt,
-                             const void* occ_cp, const void* pk_start, const void* pk_end,
+extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const uint64_t* bwt_ptrs,
+                             const uint64_t* cp_ptrs, const void* pk_start, const void* pk_end,
                              unsigned pk_magic, int pk_shift, const void* codes, const void* k,
                              void* out, void* stream) {
   if (S < 1 || S > kMaxShards || R < 1 || n < 0 || pk_shift < 0 || pk_shift > 31)
@@ -348,15 +383,24 @@ extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const void* b
   a.k = static_cast<const int*>(k);
   a.out = static_cast<int*>(out);
   a.n = n;
-  gwa::ShardedFM fm{};
-  fm.bwt = static_cast<const int*>(bwt);
-  fm.cp = static_cast<const int*>(occ_cp);
-  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
-  fm.R = R;
-  fm.primary = primary;
+  gwa::ShardPtrs bwt{}, cp{};
+  for (int s = 0; s < S; ++s) {
+    bwt.p[s] = reinterpret_cast<const int*>(bwt_ptrs[s]);
+    cp.p[s] = reinterpret_cast<const int*>(cp_ptrs[s]);
+  }
   unsigned blocks = 0;
   const int rc = grid_blocks(n, &blocks);
   if (rc != 0) return rc;
-  fused_occ_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, fm);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (gwa::evenly_spaced(bwt, S, static_cast<int64_t>(R) * 8) &&
+      gwa::evenly_spaced(cp, S, static_cast<int64_t>(R) * 4)) {
+    fused_occ_kernel<true><<<blocks, kThreads, 0, st>>>(a, sharded_fm<true>(S, R, primary,
+                                                                            pk_magic, pk_shift),
+                                                        bwt, cp);
+  } else {
+    fused_occ_kernel<false><<<blocks, kThreads, 0, st>>>(a, sharded_fm<false>(S, R, primary,
+                                                                              pk_magic, pk_shift),
+                                                         bwt, cp);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,8 +18,10 @@ when the build fails, loading raises: there is no fallback to the plain
 versions.  ``check_table`` (built on ``check_tables``, which owns the
 dtype, contiguity, alignment and device rules) and ``group_lanes`` are
 shared with the staircase, one-mismatch and locate bindings,
-``check_sharded`` and ``owner_divisor`` (the sharded kernels' owner by
-division) with the locate and fused-occ bindings.
+``check_sharded``, ``shard_ptrs`` (one base pointer a shard: the rows of a
+stacked table, or shards in their own allocations, another process's
+mapped) and ``owner_divisor`` (the sharded kernels' owner by division) with
+the locate and fused-occ bindings.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ._cuda_build import load_kernel_library
 from .rank import FUSED_WIDTH, MARK_WORDS_PER_BLOCK, DeviceFMIndex
 
 I32 = torch.int32
+PTRS = ctypes.POINTER(ctypes.c_uint64)  # an array of device pointers, one a shard
 MAX_PIECES = 32  # pieces a read (the staircase's k + 1)
 MAX_SHARDS = 16  # interval shards a sharded kernel takes
 # Lanes a launch of lane groups may take an SM before each group takes
@@ -50,8 +53,8 @@ def _library() -> ctypes.CDLL:
         vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, i32, vp, vp, vp,
     ]
     lib.gwa_backward_search_sharded.argtypes = [
-        vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp, ctypes.c_uint32, i32, vp, i32, i32, i32,
-        vp, vp, vp,
+        vp, vp, i32, i32, i32, i32, i32, PTRS, PTRS, vp, vp, ctypes.c_uint32, i32, vp, i32, i32,
+        i32, vp, vp, vp,
     ]
     lib.gwa_backward_search.restype = lib.gwa_backward_search_sharded.restype = ctypes.c_int
     return lib
@@ -106,29 +109,55 @@ def check_tables(name: str, dev: torch.device, tables: dict, aligned=()) -> None
             raise ValueError(f"{name}: {key} is not on the queries' device {dev}")
 
 
-def check_sharded(sh, dev: torch.device, name: str, marks: bool = True) -> None:
-    """The stacked tables of a ``ShardedFMIndex`` (``put_sharded``): S of
-    1..16 shards, shapes that agree, int32 and contiguous on ``dev``, the
-    vector-read tables 16-byte aligned; with ``marks`` the row-space tables
-    too (locate), else the packed space alone (the piece search)."""
-    bwt = sh.bwt_blocks
-    S = bwt.shape[0] if bwt.dim() == 3 else -1
+def shard_parts(table) -> list[torch.Tensor]:
+    """A sharded table's per-shard tensors: the views of a stacked
+    ``(S, R, ...)`` tensor, or the S tensors of a sequence (``parallel.peer.
+    Shards``: shards in their own allocations, some mapped from other
+    processes)."""
+    return list(table.unbind(0)) if isinstance(table, torch.Tensor) else list(table)
+
+
+def shard_ptrs(parts) -> ctypes.Array:
+    """The device pointers of the per-shard tensors, for a kernel's table
+    argument."""
+    return (ctypes.c_uint64 * len(parts))(*[t.data_ptr() for t in parts])
+
+
+def check_sharded(sh, dev: torch.device, name: str, marks: bool = True) -> dict:
+    """The tables of a ``ShardedFMIndex`` (``put_sharded``), stacked or one
+    tensor a shard: S of 1..16 shards, shapes that agree, every shard's
+    tensor int32 and contiguous on ``dev``, the vector-read ones 16-byte
+    aligned; with ``marks`` the row-space tables too (locate), else the
+    packed space alone (the piece search).  -> each table's per-shard
+    tensors."""
+    keys = ("bwt_blocks", "occ_cp") + (("mark_blocks", "mark_cp", "ssa_values") if marks else ())
+    per = {key: shard_parts(getattr(sh, key)) for key in keys}
+    S = len(per["bwt_blocks"])
     if not 1 <= S <= MAX_SHARDS:
         raise ValueError(f"{name}: {S} shards: the kernels take 1..{MAX_SHARDS}")
-    R = bwt.shape[1]
-    shapes = {"bwt_blocks": (S, R, 8), "occ_cp": (S, R, 4), "pk_start": (S,), "pk_end": (S,),
-              "C": (5,)}
+    first = {key: ts[0].shape for key, ts in per.items()}
+    R = first["bwt_blocks"][0] if len(first["bwt_blocks"]) == 2 else -1
+    shapes = {"bwt_blocks": (R, 8), "occ_cp": (R, 4)}
     if marks:
-        mbs, vmax = sh.mark_blocks.shape[1], sh.ssa_values.shape[-1]
-        shapes.update(mark_blocks=(S, mbs, MARK_WORDS_PER_BLOCK), mark_cp=(S, mbs + 1),
-                      row_start=(S,), row_end=(S,), ssa_values=(S, vmax), ssa_base=(S,))
-    tables = {key: getattr(sh, key) for key in shapes}
-    got = {key: tuple(t.shape) for key, t in tables.items()}
-    if got != shapes or R < 1 or (marks and (shapes["mark_cp"][1] < 2 or vmax < 1)):
+        mbs, vmax = first["mark_blocks"][0], first["ssa_values"][-1]
+        shapes.update(mark_blocks=(mbs, MARK_WORDS_PER_BLOCK), mark_cp=(mbs + 1,),
+                      ssa_values=(vmax,))
+    small = {key: (S,) for key in ("pk_start", "pk_end")}
+    if marks:
+        small.update({key: (S,) for key in ("row_start", "row_end", "ssa_base")})
+    small["C"] = (5,)
+    want = {**{key: [shapes[key]] * S for key in per}, **small}
+    got = {**{key: [tuple(t.shape) for t in ts] for key, ts in per.items()},
+           **{key: tuple(getattr(sh, key).shape) for key in small}}
+    if got != want or R < 1 or (marks and (mbs + 1 < 2 or vmax < 1)):
         raise ValueError(f"{name}: the shard tables' shapes disagree or are empty: {got}")
-    check_tables(name, dev, tables, aligned=("bwt_blocks", "occ_cp", "mark_blocks"))
+    tables = {f"{key}[{s}]": t for key, ts in per.items() for s, t in enumerate(ts)}
+    tables.update({key: getattr(sh, key) for key in small})
+    check_tables(name, dev, tables, aligned=tuple(
+        key for key in tables if key.split("[")[0] in ("bwt_blocks", "occ_cp", "mark_blocks")))
     if not 0 <= sh.n < (1 << 31) - 1:
         raise ValueError(f"{name}: an index of {sh.n} symbols leaves int32")
+    return per
 
 
 def owner_divisor(width: int) -> tuple[int, int]:
@@ -229,7 +258,7 @@ backward_search_cuda.launches = 0
 
 
 def backward_search_sharded_cuda(
-    sh,  # a ShardedFMIndex after put_sharded: S = 1..16 interval shards
+    sh,  # a ShardedFMIndex after put_sharded: S = 1..16 interval shards, stacked or not
     reads: torch.Tensor,  # (B, L) int32 codes 0..3, contiguous, on a CUDA device
     lengths: torch.Tensor,  # (B,) int32
     n_pieces: int,
@@ -238,13 +267,14 @@ def backward_search_sharded_cuda(
     """Launch the piece search over the interval shards -> (lo, hi)
     (B, n_pieces) int32: read b's piece p is [floor(len p / P),
     floor(len (p + 1) / P)), searched last character first for ``trip``
-    steps at most, each row read from the shard that owns it.  Launches on
+    steps at most, each row read from the shard that owns it, wherever its
+    tensor lies (one base pointer a shard).  Launches on
     the current stream without synchronising; counts each launch in
     ``.launches``."""
     name = "backward_search_sharded_cuda"
     if not 1 <= n_pieces <= MAX_PIECES:
         raise ValueError(f"{name}: n_pieces={n_pieces}: the kernel takes 1..{MAX_PIECES}")
-    check_sharded(sh, reads.device, name, marks=False)
+    per = check_sharded(sh, reads.device, name, marks=False)
     check_reads(reads, lengths, name)
     B, L = reads.shape
     dev = reads.device
@@ -252,11 +282,12 @@ def backward_search_sharded_cuda(
     hi = torch.empty((B, n_pieces), dtype=I32, device=dev)
     if B == 0:
         return lo, hi
-    S, R = sh.bwt_blocks.shape[:2]
+    S, R = len(per["bwt_blocks"]), per["bwt_blocks"][0].shape[0]
     with torch.cuda.device(dev):
         rc = _library().gwa_backward_search_sharded(
-            reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, S, R, sh.bwt_blocks.data_ptr(),
-            sh.occ_cp.data_ptr(), sh.pk_start.data_ptr(), sh.pk_end.data_ptr(),
+            reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, S, R,
+            shard_ptrs(per["bwt_blocks"]), shard_ptrs(per["occ_cp"]), sh.pk_start.data_ptr(),
+            sh.pk_end.data_ptr(),
             *packed_divisor(sh), sh.C.data_ptr(), sh.primary, sh.n, max(trip, 0), lo.data_ptr(),
             hi.data_ptr(), stream(),
         )

@@ -25,7 +25,7 @@ import torch
 
 from ._cuda_build import load_kernel_library
 from .fm_search_cuda import (
-    check_sharded, check_table, owner_divisor, packed_divisor, sm_count, stream,
+    PTRS, check_sharded, check_table, owner_divisor, packed_divisor, shard_ptrs, sm_count, stream,
 )
 from .rank import MARK_WORDS_PER_BLOCK, DeviceFMIndex
 
@@ -43,8 +43,8 @@ def _library() -> ctypes.CDLL:
         vp, i64, vp, i32, vp, i32, i32, vp, i32, vp, vp, i32, i32, vp, i32, vp,
     ]
     lib.gwa_locate_sharded.argtypes = [
-        vp, i64, i32, i32, vp, vp, vp, vp, u32, i32, i32, vp, vp, vp, vp, u32, i32, i32, vp, vp,
-        vp, i32, i32, i32, vp, i32, vp,
+        vp, i64, i32, i32, PTRS, PTRS, vp, vp, u32, i32, i32, PTRS, PTRS, vp, vp, u32, i32, i32,
+        PTRS, vp, vp, i32, i32, i32, vp, i32, vp,
     ]
     lib.gwa_locate_resident.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.gwa_locate, lib.gwa_locate_sharded, lib.gwa_locate_resident):
@@ -121,7 +121,8 @@ locate_cuda.launches = 0
 def locate_sharded_cuda(sh, rows: torch.Tensor) -> torch.Tensor:
     """Text positions of the BWT rows ``rows`` (int32, any shape, values in
     [0, n], on a CUDA device) over the interval shards of ``sh`` (a
-    ``ShardedFMIndex`` after ``put_sharded``) -> int32 of that shape.  Each
+    ``ShardedFMIndex`` after ``put_sharded``: stacked, or one tensor a
+    shard, some mapped from other processes) -> int32 of that shape.  Each
     step's owners are guessed by division (``shard_fm_index``'s equal
     widths: nbs = R - 1 blocks of 128 packed coordinates, mbs mark blocks
     of 128 rows) and confirmed against the bounds; other bounds take a scan.
@@ -129,22 +130,23 @@ def locate_sharded_cuda(sh, rows: torch.Tensor) -> torch.Tensor:
     launch in ``.launches``."""
     name = "locate_sharded_cuda"
     _check_rows(rows, name)
-    check_sharded(sh, rows.device, name)
+    per = check_sharded(sh, rows.device, name)
     if not rows.is_cuda:  # last, so that CPU tensors reach every other check
         raise ValueError(f"{name} needs rows on a CUDA device")
     out = torch.empty_like(rows)
     if rows.numel() == 0:
         return out
-    S, R = sh.bwt_blocks.shape[:2]
-    mbs = sh.mark_blocks.shape[1]
+    S, R = len(per["bwt_blocks"]), per["bwt_blocks"][0].shape[0]
+    mbs = per["mark_blocks"][0].shape[0]
+    ptrs = {key: shard_ptrs(ts) for key, ts in per.items()}
     grid, _ = launch_shape(rows.numel(), rows.device, True)
     with torch.cuda.device(rows.device):
         rc = _library().gwa_locate_sharded(
-            rows.data_ptr(), rows.numel(), S, R, sh.bwt_blocks.data_ptr(), sh.occ_cp.data_ptr(),
+            rows.data_ptr(), rows.numel(), S, R, ptrs["bwt_blocks"], ptrs["occ_cp"],
             sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), *packed_divisor(sh), mbs,
-            sh.mark_blocks.data_ptr(), sh.mark_cp.data_ptr(), sh.row_start.data_ptr(),
-            sh.row_end.data_ptr(), *owner_divisor(mbs * 128), sh.ssa_values.shape[1],
-            sh.ssa_values.data_ptr(), sh.ssa_base.data_ptr(), sh.C.data_ptr(), sh.primary, sh.n,
+            ptrs["mark_blocks"], ptrs["mark_cp"], sh.row_start.data_ptr(),
+            sh.row_end.data_ptr(), *owner_divisor(mbs * 128), per["ssa_values"][0].shape[0],
+            ptrs["ssa_values"], sh.ssa_base.data_ptr(), sh.C.data_ptr(), sh.primary, sh.n,
             sh.sample_rate, out.data_ptr(), grid, stream())
     if rc != 0:
         raise RuntimeError(f"gwa_locate_sharded launch failed ({S} shards): CUDA error {rc}")

@@ -12,7 +12,9 @@ rank + shard sum that replaces ``_fused_rank_ring_kernel`` has two entries:
 
 ``ring_allreduce_cuda`` equals ``parallel.ring.ring_psum_plain``.  Every
 kernel is one pass over every shard's input: nothing to wait on, no
-scratch, nothing read back.  ``ops._cuda_build`` compiles the source at first use with
+scratch, nothing read back.  Every shard's buffers are passed as their own
+device pointers, so a shard may be a row of a stacked tensor, its own
+allocation, or another process's mapped through CUDA IPC.  ``ops._cuda_build`` compiles the source at first use with
 ``nvcc`` for ``sm_90a``; without ``nvcc``, or when the build fails, loading
 raises: there is no fallback to the plain versions.
 """
@@ -25,7 +27,7 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
-from .fm_search_cuda import owner_divisor
+from .fm_search_cuda import PTRS, owner_divisor, shard_parts, shard_ptrs
 
 MAX_SHARDS = 16
 _DTYPES = {torch.int32: 0, torch.float32: 1}
@@ -39,7 +41,7 @@ def _library() -> ctypes.CDLL:
     lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
     lib.gwa_fused_words.argtypes = [i32, i64, vp, vp]
     lib.gwa_fused_occ.argtypes = [
-        i32, i32, i32, i64, vp, vp, vp, vp, ctypes.c_uint32, i32, vp, vp, vp, vp,
+        i32, i32, i32, i64, PTRS, PTRS, vp, vp, ctypes.c_uint32, i32, vp, vp, vp, vp,
     ]
     for fn in (lib.gwa_allreduce, lib.gwa_fused_words, lib.gwa_fused_occ):
         fn.restype = ctypes.c_int
@@ -55,33 +57,41 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def ring_allreduce_cuda(parts: torch.Tensor) -> torch.Tensor:
-    """All-reduce over the leading shard axis of a CUDA tensor ``(S, ...)``
-    int32 or float32: every shard's row of the result holds the sum, added
-    in ``ring_psum_plain``'s order.  One kernel pass; launches on the
-    current stream without synchronising.  Counts each launch in
-    ``.launches``."""
+def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
+    """All-reduce over the shards of a CUDA tensor ``(S, ...)`` int32 or
+    float32, or of S such ``(...)`` tensors, each its own allocation (the
+    ranks' partial slots, mapped from other processes): every shard's row of
+    the result holds the sum, added in ``ring_psum_plain``'s order.  With
+    ``only`` = d the kernel writes shard d's sum alone and returns it
+    ``(...)``.  One kernel pass; launches on the current stream without
+    synchronising.  Counts each launch in ``.launches``."""
     # Bad input: the kernel is built for int32 and float32 on the card; a
     # CPU tensor or another type raises here and never reaches a plain
     # version
-    if not parts.is_cuda:
-        raise ValueError("ring_allreduce_cuda needs a tensor on a CUDA device")
-    if parts.dtype not in _DTYPES:
-        raise TypeError(f"ring_allreduce_cuda takes int32 or float32, got {parts.dtype}")
-    if parts.dim() < 1 or not parts.is_contiguous():
-        raise ValueError("ring_allreduce_cuda needs a contiguous (S, ...) tensor")
-    S = parts.shape[0]
+    ins = shard_parts(parts)
+    S = len(ins)
     _check_shards(S)
-    out = torch.empty_like(parts)
-    n = parts[0].numel()
+    if not all(t.is_cuda and t.device == ins[0].device for t in ins):
+        raise ValueError("ring_allreduce_cuda needs its tensors on one CUDA device")
+    if any(t.dtype not in _DTYPES or t.dtype != ins[0].dtype for t in ins):
+        raise TypeError(f"ring_allreduce_cuda takes int32 or float32, got "
+                        f"{sorted({str(t.dtype) for t in ins})}")
+    if not all(t.is_contiguous() and t.shape == ins[0].shape for t in ins):
+        raise ValueError("ring_allreduce_cuda needs contiguous shards of one shape")
+    if only is not None and not 0 <= only < S:
+        raise ValueError(f"ring_allreduce_cuda: only={only} is not a shard of {S}")
+    dtype, dev, shape = ins[0].dtype, ins[0].device, ins[0].shape
+    out = torch.empty((S, *shape) if only is None else shape, dtype=dtype, device=dev)
+    n = ins[0].numel()
     if n == 0:
         return out
-    flat, oflat = parts.reshape(S, n), out.view(S, n)
-    ptr_in = (ctypes.c_uint64 * S)(*[flat[d].data_ptr() for d in range(S)])
-    ptr_out = (ctypes.c_uint64 * S)(*[oflat[d].data_ptr() for d in range(S)])
+    outs = list(out.view(S, n)) if only is None else [
+        out if d == only else None for d in range(S)]
+    ptr_in = shard_ptrs(ins)
+    ptr_out = (ctypes.c_uint64 * S)(*[0 if t is None else t.data_ptr() for t in outs])
     lib = _library()
-    with torch.cuda.device(parts.device):
-        rc = lib.gwa_allreduce(_DTYPES[parts.dtype], S, n, ptr_in, ptr_out, _stream())
+    with torch.cuda.device(dev):
+        rc = lib.gwa_allreduce(_DTYPES[dtype], S, n, ptr_in, ptr_out, _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_allreduce launch failed ({S} shards): CUDA error {rc}")
     ring_allreduce_cuda.launches += 1
@@ -142,8 +152,8 @@ fused_rank_ring_cuda.launches = 0
 
 
 def fused_occ_cuda(
-    bwt_blocks: torch.Tensor,  # (S, R, 8) int32 words of each shard's BWT blocks
-    occ_cp: torch.Tensor,  # (S, R, 4) int32 global checkpoint values
+    bwt_blocks,  # (S, R, 8) int32 words of each shard's BWT blocks, or S (R, 8) tensors
+    occ_cp,  # (S, R, 4) int32 global checkpoint values, or S (R, 4) tensors
     pk_start: torch.Tensor,  # (S,) int32 packed-coordinate shard starts
     pk_end: torch.Tensor,  # (S,) int32 shard ends (exclusive)
     primary: int,  # the sentinel's BWT row
@@ -151,19 +161,23 @@ def fused_occ_cuda(
     k: torch.Tensor,  # (...) int32 sentinel-inclusive coordinates
 ) -> torch.Tensor:
     """Merged occ$(codes, k) over the interval shards, each query's row read
-    from its owner's table -> (...) int32, equal to
+    from its owner's table, wherever that shard's tensor lies (one base
+    pointer a shard) -> (...) int32, equal to
     ``sharded_index.fused_occ_plain``.  Launches on the current stream
     without synchronising; counts each launch in ``.launches``."""
-    ts = (bwt_blocks, occ_cp, pk_start, pk_end, codes, k)
+    bwt, cp = shard_parts(bwt_blocks), shard_parts(occ_cp)
+    ts = (*bwt, *cp, pk_start, pk_end, codes, k)
     _check_int32_cuda("fused_occ_cuda", ts)
-    S, R = bwt_blocks.shape[:2]
-    if (bwt_blocks.shape[2:] != (8,) or occ_cp.shape != (S, R, 4)
-            or pk_start.shape != (S,) or pk_end.shape != (S,) or codes.shape != k.shape):
+    S = len(bwt)
+    R = bwt[0].shape[0] if bwt[0].dim() == 2 else -1
+    if (any(t.shape != (R, 8) for t in bwt) or len(cp) != S
+            or any(t.shape != (R, 4) for t in cp) or pk_start.shape != (S,)
+            or pk_end.shape != (S,) or codes.shape != k.shape):
         raise ValueError(
             f"expected bwt_blocks (S, R, 8), occ_cp (S, R, 4), pk_start/pk_end (S,) and codes "
             f"and k of one shape, got {[tuple(t.shape) for t in ts]}"
         )
-    if bwt_blocks.data_ptr() % 16 or occ_cp.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in (*bwt, *cp)):
         raise ValueError("fused_occ_cuda loads each 32-byte word row and its 16-byte checkpoints "
                          "as 16-byte vectors: bwt_blocks and occ_cp must start 16-byte aligned")
     _check_shards(S)
@@ -172,9 +186,10 @@ def fused_occ_cuda(
     if n == 0:
         return out
     with torch.cuda.device(codes.device):
-        rc = _library().gwa_fused_occ(S, R, int(primary), n, *(t.data_ptr() for t in ts[:4]),
-                                      *owner_divisor((R - 1) * 128),
-                                      *(t.data_ptr() for t in ts[4:]), out.data_ptr(), _stream())
+        rc = _library().gwa_fused_occ(S, R, int(primary), n, shard_ptrs(bwt), shard_ptrs(cp),
+                                      pk_start.data_ptr(), pk_end.data_ptr(),
+                                      *owner_divisor((R - 1) * 128), codes.data_ptr(),
+                                      k.data_ptr(), out.data_ptr(), _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_fused_occ launch failed ({S} shards): CUDA error {rc}")
     fused_occ_cuda.launches += 1

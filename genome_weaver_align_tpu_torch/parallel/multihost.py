@@ -17,6 +17,12 @@ The transport is gloo, always:
 - gloo runs the same way on the CPU and with several ranks on one card;
 - NCCL refuses two ranks on one GPU.
 
+The interval group (``interval_group``) is the processes that together
+hold one copy of an interval-sharded index: every process, each holding
+``n_interval / P`` of the shards (``mesh.make_layout``,
+``parallel.peer``).  Its collectives are the shard maps' exchanges and
+barriers and the exact search's cross-process merges.
+
 NCCL belongs with shards spread across cards (ROADMAP queue 1 #16).
 """
 
@@ -35,6 +41,8 @@ from ..models import exact
 # instead of hanging them
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
+_INTERVAL_GROUP = None
+
 
 def initialize_distributed(
     coordinator_address: str | None = None,
@@ -42,7 +50,9 @@ def initialize_distributed(
     process_id: int | None = None,
 ) -> None:
     """Join a gloo process group at ``coordinator_address`` (``host:port``;
-    process 0 listens there); no-op for a single process."""
+    process 0 listens there) and make its interval group; no-op for a
+    single process."""
+    global _INTERVAL_GROUP
     if num_processes is None or num_processes <= 1:
         return
     dist.init_process_group(
@@ -52,6 +62,18 @@ def initialize_distributed(
         rank=process_id,
         timeout=COLLECTIVE_TIMEOUT,
     )
+    _INTERVAL_GROUP = dist.new_group(list(range(num_processes)), backend="gloo",
+                                     timeout=COLLECTIVE_TIMEOUT)
+
+
+def interval_group():
+    """The gloo group of the processes that together hold one copy of an
+    interval-sharded index (all of them), or None in one process."""
+    if process_count() == 1:
+        return None
+    if _INTERVAL_GROUP is None:
+        raise RuntimeError("the process group was not made by initialize_distributed")
+    return _INTERVAL_GROUP
 
 
 def process_index() -> int:
@@ -81,13 +103,14 @@ def host_shard_info(global_batch: int) -> HostShardInfo:
 
 def make_global_batch(layout, host_reads: np.ndarray, host_lengths: np.ndarray):
     """Upload this process's slice of a batch to ``layout.device``:
-    (reads, lengths, global batch size), the global size by the layout's
-    process count.  Each process passes ONLY its own rows; with one process
-    they are the whole batch."""
+    (reads, lengths, global batch size), the global size by the processes
+    the layout's data axis spans.  Each process passes ONLY its own rows;
+    with one process, or a data axis that spans none, they are the whole
+    batch."""
     dev = layout.device
     reads = torch.from_numpy(np.ascontiguousarray(host_reads, dtype=np.int32)).to(dev)
     lengths = torch.from_numpy(np.ascontiguousarray(host_lengths, dtype=np.int32)).to(dev)
-    return reads, lengths, host_reads.shape[0] * layout.process_count
+    return reads, lengths, host_reads.shape[0] * layout.data_procs
 
 
 def gather_to_host(tensors) -> list[np.ndarray]:

@@ -2,12 +2,14 @@
 ``genome_weaver_align_tpu.parallel.ring``.
 
 Every extension step of the interval-sharded exact search merges the
-shards' rank partials.  Here all shards of a ``(S, ...)`` tensor live on
-one device, and the merge is a sum over the leading axis that every shard
-receives:
+shards' rank partials.  Here all shards live on one device, and the merge
+is a sum over the shards that every shard receives:
 
 - ``ring_psum(parts)``: ``(S, ...)`` int32 or float32 -> ``(S, ...)``,
-  every row the sum;
+  every row the sum; ``parts`` may also be S tensors ``(...)`` in their
+  own allocations (across processes: each rank's partial slots, mapped,
+  ``sharded_index.make_sharded_exact_search``), and ``only`` = d returns
+  shard d's sum alone, the only output written;
 - ``fused_rank_ring(words, codes, roff, base, own)``: the occ-rank
   partials of M payloads computed and ring-summed in one pass -> ``(M, Q)``
   int32 (shard 0's copy: every shard holds the same).
@@ -46,16 +48,21 @@ def ring_psum_plain(parts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def ring_psum(parts: torch.Tensor) -> torch.Tensor:
-    """All-reduce sum over the leading shard axis: ``(S, ...)`` int32 or
-    float32 -> ``(S, ...)`` with every shard's row the sum."""
-    if parts.dtype not in _DTYPES:
-        raise TypeError(f"ring_psum takes int32 or float32, got {parts.dtype}")
-    if parts.is_cuda:
+def ring_psum(parts, only: int | None = None) -> torch.Tensor:
+    """All-reduce sum over the shards: ``(S, ...)`` int32 or float32, or S
+    ``(...)`` tensors -> ``(S, ...)`` with every shard's row the sum, or
+    with ``only`` = d shard d's ``(...)``."""
+    first = parts if isinstance(parts, torch.Tensor) else parts[0]
+    if first.dtype not in _DTYPES:
+        raise TypeError(f"ring_psum takes int32 or float32, got {first.dtype}")
+    if first.is_cuda:
         from ..ops import ring_cuda
 
-        return ring_cuda.ring_allreduce_cuda(parts.contiguous())
-    return ring_psum_plain(parts)
+        if isinstance(parts, torch.Tensor):
+            parts = parts.contiguous()
+        return ring_cuda.ring_allreduce_cuda(parts, only)
+    out = ring_psum_plain(parts if isinstance(parts, torch.Tensor) else torch.stack(list(parts)))
+    return out if only is None else out[only]
 
 
 def rank_partials(words, codes, roff, base, own) -> torch.Tensor:

@@ -14,12 +14,19 @@ Two coordinate spaces are sharded independently (both 128-aligned):
 Checkpoint values stay global (no rebasing), so a local partial popcount
 plus the local checkpoint is already the global occ value.
 
-All shards live on one device, stacked on a leading shard axis S as in the
-JAX package's host layout; every ``local_*`` function answers a query for
-all S shards at once and returns ``(S, ...)`` partials.  A ``merge`` takes
-those partials and returns the ``(...)`` sum: ``parts.sum(0)`` by default
-(the analogue of ``psum``), or the ring kernels of ``parallel.ring``.
-Words are int32 tensors holding the uint32 bits, as in ``ops.rank``.
+In one process all shards live on one device, stacked on a leading shard
+axis S as in the JAX package's host layout.  Under
+``multihost.initialize_distributed`` a layout whose interval axis spans
+the P processes (``mesh.make_layout``) gives each process S / P of the
+shards, and ``put_sharded`` maps the others' (``parallel.peer``): the big
+tables become ``peer.Shards``, one tensor a shard.  Every ``local_*``
+function answers a query for all S shards at once, wherever they live, and
+returns ``(S, ...)`` partials.  A ``merge`` takes those partials and
+returns the ``(...)`` sum: ``parts.sum(0)`` by default (the analogue of
+``psum``), or the ring kernels of ``parallel.ring``; across processes the
+exact search merges each process's own shards' partials
+(``make_sharded_exact_search``).  Words are int32 tensors holding the
+uint32 bits, as in ``ops.rank``.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..index.build import BLOCK_BASES, WORDS_PER_BLOCK, FMIndexData
 from ..ops import rank
 from ..ops.rank import MARK_BLOCK_BITS, MARK_WORDS_PER_BLOCK
-from . import ring
+from . import multihost as mh
+from . import peer, ring
 from .mesh import ShardLayout
 
 I32 = torch.int32
@@ -50,6 +59,10 @@ _STACKED = (
     "ssa_values",
     "ssa_base",
 )
+# the tables that shrink with the shards (each process uploads its own);
+# the bounds and C are every process's
+_TABLES = ("bwt_blocks", "occ_cp", "mark_blocks", "mark_cp", "ssa_values")
+_BOUNDS = tuple(f for f in _STACKED if f not in _TABLES)
 
 
 @dataclass(frozen=True)
@@ -166,11 +179,41 @@ def shard_fm_index(fm: FMIndexData, n_shards: int, pk_cuts=None,
     )
 
 
-def put_sharded(sh: ShardedFMIndex, device) -> ShardedFMIndex:
-    """Upload every table to ``device`` as int32 tensors (uint32 words keep
-    their bits); all shards on the one device."""
-    kw = {f: rank._upload(np.asarray(getattr(sh, f)), device) for f in (*_STACKED, "C")}
-    return dataclasses.replace(sh, **kw)
+def put_tables(host, device, layout: ShardLayout, tables, small):
+    """Upload a sharded structure's ``tables`` and its ``small`` bounds to
+    ``device`` as int32 tensors (uint32 words keep their bits).  In one
+    process, or with a layout whose interval axis spans none, all shards
+    go on the one device, stacked.  With a layout whose interval axis spans
+    the processes, each uploads the shards of ``tables`` it holds
+    (``layout.held``) and maps every other process's: they become
+    ``peer.Shards`` (a collective: every process of the interval group
+    calls it); the small bounds are every process's."""
+    spread = layout is not None and layout.interval_procs > 1
+    group = mh.interval_group() if spread else None
+    kw = {f: peer.shard_table(np.asarray(getattr(host, f)), device, layout, group)
+          if spread else rank._upload(np.asarray(getattr(host, f)), device) for f in tables}
+    kw.update({f: rank._upload(np.asarray(getattr(host, f)), device) for f in small})
+    return dataclasses.replace(host, **kw)
+
+
+def put_sharded(sh: ShardedFMIndex, device, layout: ShardLayout = None) -> ShardedFMIndex:
+    """The index's shards on ``device`` (``put_tables``: across processes
+    each uploads its own and maps the others')."""
+    if layout is not None and layout.n_interval != sh.n_shards:
+        raise ValueError(f"a layout of {layout.n_interval} shards for an index of {sh.n_shards}")
+    return put_tables(sh, device, layout, _TABLES, (*_BOUNDS, "C"))
+
+
+def held_index(sh: ShardedFMIndex, layout: ShardLayout) -> ShardedFMIndex:
+    """The shards this process holds, as a stacked index of their own
+    (``local_*`` partials of these shards only): ``sh`` itself in the
+    stacked layout."""
+    if layout.interval_procs == 1:
+        return sh
+    held = layout.held
+    kw = {f: getattr(sh, f).held for f in _TABLES}
+    kw.update({f: getattr(sh, f)[held.start : held.stop] for f in _BOUNDS})
+    return dataclasses.replace(sh, n_shards=len(held), **kw)
 
 
 # ---- local (per-shard) queries, vectorised over the shard axis: a query of
@@ -182,8 +225,11 @@ def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * ndim)
 
 
-def _shard_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table (S, R, ...) gathered at per-shard row indices idx (S, ...)."""
+def shard_rows(table, idx: torch.Tensor) -> torch.Tensor:
+    """table (S, R, ...), stacked or ``peer.Shards``, gathered at per-shard
+    row indices idx (S, ...)."""
+    if not isinstance(table, torch.Tensor):
+        return torch.stack([t[i.long()] for t, i in zip(table, idx)])
     S, R = table.shape[:2]
     flat = idx.long() + _col(torch.arange(S, device=idx.device) * R, idx.dim() - 1)
     return table.reshape((S * R,) + table.shape[2:])[flat]
@@ -205,9 +251,9 @@ def local_occ_codes(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) ->
     """Each shard's contribution to occ$(codes, k): (S, ...); the caller
     merges."""
     own, b_local, r = _block_split(sh, k)
-    words = _shard_rows(sh.bwt_blocks, b_local)
+    words = shard_rows(sh.bwt_blocks, b_local)
     cs = codes.to(I32).expand(own.shape)
-    base = torch.gather(_shard_rows(sh.occ_cp, b_local), -1, cs[..., None].long())[..., 0]
+    base = torch.gather(shard_rows(sh.occ_cp, b_local), -1, cs[..., None].long())[..., 0]
     val = base + rank._match_counts(words, cs, rank._pair_masks(r))
     return torch.where(own, val, 0)
 
@@ -223,9 +269,9 @@ def local_occ_gather(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor):
     for non-owned clamped queries: the mask saturates at the full block and
     ``own`` zeroes the result."""
     own, b_local, roff = _block_split(sh, k)
-    words = _shard_rows(sh.bwt_blocks, b_local)  # ONE gather
+    words = shard_rows(sh.bwt_blocks, b_local)  # ONE gather
     cs = codes.to(I32).expand(own.shape)
-    base = torch.gather(_shard_rows(sh.occ_cp, b_local), -1, cs[..., None].long())[..., 0]
+    base = torch.gather(shard_rows(sh.occ_cp, b_local), -1, cs[..., None].long())[..., 0]
     return words, roff, base, own.to(I32)
 
 
@@ -256,13 +302,13 @@ def fused_occ(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) -> torch
 def local_occ_all4(sh: ShardedFMIndex, k: torch.Tensor) -> torch.Tensor:
     """occ$(c, k) contributions for all four codes: (S, ..., 4)."""
     own, b_local, r = _block_split(sh, k)
-    words = _shard_rows(sh.bwt_blocks, b_local)
+    words = shard_rows(sh.bwt_blocks, b_local)
     masks = rank._pair_masks(r)
     counts = [
         rank._match_counts(words, torch.full(own.shape, c, dtype=I32, device=k.device), masks)
         for c in range(4)
     ]
-    val = _shard_rows(sh.occ_cp, b_local) + torch.stack(counts, dim=-1)
+    val = shard_rows(sh.occ_cp, b_local) + torch.stack(counts, dim=-1)
     return torch.where(own[..., None], val, 0)
 
 
@@ -273,7 +319,7 @@ def local_bwt_char(sh: ShardedFMIndex, i: torch.Tensor) -> torch.Tensor:
     own = (idx >= ps) & (idx < pe) & (idx < sh.n)
     local = (idx - ps).clamp(min=0)
     b_local = (local // BLOCK_BASES).clamp(0, sh.bwt_blocks.shape[1] - 1)
-    row = _shard_rows(sh.bwt_blocks, b_local)
+    row = shard_rows(sh.bwt_blocks, b_local)
     w = torch.gather(row, -1, ((local % BLOCK_BASES) // 16)[..., None].long())[..., 0]
     c = (w >> (2 * (local % 16))) & 3
     return torch.where(own, c, 0)
@@ -290,7 +336,7 @@ def _row_split(sh: ShardedFMIndex, i: torch.Tensor):
 
 def local_mark_get(sh: ShardedFMIndex, i: torch.Tensor) -> torch.Tensor:
     own, local, b = _row_split(sh, i)
-    row = _shard_rows(sh.mark_blocks, b)
+    row = shard_rows(sh.mark_blocks, b)
     w = torch.gather(row, -1, ((local % MARK_BLOCK_BITS) // 32)[..., None].long())[..., 0]
     bit = (w >> (local % 32)) & 1
     return torch.where(own, bit, 0)
@@ -299,19 +345,19 @@ def local_mark_get(sh: ShardedFMIndex, i: torch.Tensor) -> torch.Tensor:
 def local_mark_rank1(sh: ShardedFMIndex, i: torch.Tensor) -> torch.Tensor:
     """Global rank1(i) contribution (checkpoints hold global values)."""
     own, local, b = _row_split(sh, i)
-    words = _shard_rows(sh.mark_blocks, b)
+    words = shard_rows(sh.mark_blocks, b)
     rem = local - b * MARK_BLOCK_BITS
     j = 32 * torch.arange(MARK_WORDS_PER_BLOCK, dtype=I32, device=i.device)
     masks = rank._low_bits((rem[..., None] - j).clamp(0, 32))
     part = rank._popcount(words & masks).sum(dim=-1, dtype=I32)
-    return torch.where(own, _shard_rows(sh.mark_cp, b) + part, 0)
+    return torch.where(own, shard_rows(sh.mark_cp, b) + part, 0)
 
 
 def local_ssa_value(sh: ShardedFMIndex, i: torch.Tensor, global_rank: torch.Tensor) -> torch.Tensor:
     own, _, _ = _row_split(sh, i)
     slot = (global_rank.to(I32)[None] - _col(sh.ssa_base, i.dim()))
     slot = slot.clamp(0, sh.ssa_values.shape[1] - 1)
-    return torch.where(own, _shard_rows(sh.ssa_values, slot), 0)
+    return torch.where(own, shard_rows(sh.ssa_values, slot), 0)
 
 
 # ---- merged primitives: a merge maps (S, ...) partials to their (...) sum.
@@ -375,6 +421,47 @@ def locate_plain(sh, rows, merge=None):
     return val + d
 
 
+def _psum_across(group):
+    """The psum merge across processes: each process's own shards' partials
+    summed, then ``all_reduce`` over the interval group (gloo, on the
+    host: the JAX ``psum`` over an interval axis that spans processes)."""
+    def merge(parts: torch.Tensor) -> torch.Tensor:
+        x = parts.sum(0, dtype=I32).cpu()
+        dist.all_reduce(x, group=group)
+        return x.to(parts.device)
+
+    return merge
+
+
+class _RingSlots:
+    """The ring merge across processes: every process's own shards'
+    partials go to its slot, mapped by every process (``peer.share``), and
+    one ``ring.ring_psum`` reads the S shards' partials from the slots and
+    writes this process's sum alone.  The host orders the steps: two slots
+    taken in turn, and a stream synchronize and a barrier between a
+    process's write of its slot and any read of it (no kernel waits on
+    another process's flag: the card time-slices their kernels).  Merge i
+    writes slot i % 2: every process finished reading it in merge i - 2
+    before the barrier of merge i - 1."""
+
+    def __init__(self, layout: ShardLayout, group, shape, device):
+        self.group, self.first, self.turn = group, layout.held.start, 0
+        self.slots = [peer.shards(peer.share(torch.zeros((len(layout.held), *shape), dtype=I32,
+                                                         device=device), group), layout)
+                      for _ in range(2)]
+
+    def close(self) -> None:
+        """Let go of the slots, this process's and the mapped ones."""
+        self.slots = []
+
+    def __call__(self, parts: torch.Tensor) -> torch.Tensor:
+        slot = self.slots[self.turn % 2]
+        self.turn += 1
+        slot.held.copy_(parts)
+        peer.barrier(self.group)
+        return ring.ring_psum(slot, only=self.first)
+
+
 def make_sharded_exact_search(
     layout: ShardLayout,
     max_len: int,
@@ -397,10 +484,19 @@ def make_sharded_exact_search(
     the results are the same for every chunking.  The located positions
     come from ``locate``: one kernel on a CUDA device, whatever ``merge``.
     ``like`` is accepted for the JAX signature; nothing is read from it.
+
+    When the layout's interval axis spans the processes, every process of
+    the interval group takes the same reads (a data axis of 1, as the
+    devices of a JAX interval group do), and the merges cross them: "psum"
+    sums each process's own shards' partials and ``all_reduce``s them over
+    the group, "ring" reads the S shards' partials from every process's
+    mapped slots in one kernel (``_RingSlots``), and "fused" needs no
+    exchange: the table entry reads each query's row from the shard that
+    owns it, through the peer map.  Every process gets the whole result.
     """
     if merge not in ("psum", "ring", "fused"):
         raise ValueError(f"merge={merge!r}: expected psum, ring or fused")
-    step_merge = ring_merge if merge == "ring" else default_merge
+    group = mh.interval_group() if layout.interval_procs > 1 else None
 
     def fn(sh: ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor):
         B, L = reads.shape
@@ -409,6 +505,13 @@ def make_sharded_exact_search(
         lengths = lengths.to(I32)
         mb = microbatch if B % microbatch == 0 else 1
         Bc = B // mb
+        own = held_index(sh, layout)  # the partials' shards: this process's
+        if group is None:
+            step_merge = ring_merge if merge == "ring" else default_merge
+        elif merge == "ring":
+            step_merge = _RingSlots(layout, group, (2, Bc), dev)
+        else:
+            step_merge = _psum_across(group)
         rchunks = [reads[m * Bc : (m + 1) * Bc] for m in range(mb)]
         lchunks = [lengths[m * Bc : (m + 1) * Bc] for m in range(mb)]
         state = [
@@ -433,12 +536,14 @@ def make_sharded_exact_search(
                 ]
             else:
                 news = [
-                    backward_step(sh, c, *state[m], step_merge) for m, c in enumerate(cs)
+                    backward_step(own, c, *state[m], step_merge) for m, c in enumerate(cs)
                 ]
             state = [
                 (torch.where(a, nlo, lo), torch.where(a, nhi, hi))
                 for a, (nlo, nhi), (lo, hi) in zip(actives, news, state)
             ]
+        if isinstance(step_merge, _RingSlots):
+            peer.release(group, step_merge.close)
         lo = torch.cat([s[0] for s in state])
         hi = torch.cat([s[1] for s in state])
         pos = locate(sh, lo.clamp(0, sh.n))

@@ -2,8 +2,10 @@
 ``genome_weaver_align_tpu.parallel.sharded_pipeline``.
 
 Per batch, with the index, the genome text and the seed table split into S
-interval shards on one device (and the batch split across processes, when
-there are several):
+interval shards on one device (and, under several processes, the batch
+split across them while each process holds S / P of the shards and maps
+the others' through ``parallel.peer``: every step below reads any shard
+wherever it lives, so any process runs the whole pipeline for its reads):
 
 1. piece exact search  — every interval update answered by the owning BWT
    (FM path)             shard (``sharded_piece_search``: one kernel on a
@@ -52,6 +54,7 @@ from ..ops.rank import _upload
 from ..utils import sam as sam_mod
 from . import mesh as pmesh
 from . import multihost as mh
+from . import peer
 from . import sharded_index as si
 
 I32 = torch.int32
@@ -83,11 +86,10 @@ def shard_text(text_words: np.ndarray, n: int, n_shards: int) -> ShardedText:
     return ShardedText(words, base, end, n)
 
 
-def put_text(tx: ShardedText, device) -> ShardedText:
-    return dataclasses.replace(
-        tx, words=_upload(tx.words, device), base=_upload(tx.base, device),
-        end=_upload(tx.end, device),
-    )
+def put_text(tx: ShardedText, device, layout: pmesh.ShardLayout = None) -> ShardedText:
+    """The text shards on ``device``; across processes each uploads its own
+    and maps the others' (as ``sharded_index.put_sharded``)."""
+    return si.put_tables(tx, device, layout, ("words",), ("base", "end"))
 
 
 def local_gather_windows(tx: ShardedText, starts: torch.Tensor, width: int):
@@ -99,9 +101,8 @@ def local_gather_windows(tx: ShardedText, starts: torch.Tensor, width: int):
     base, end = tx.base[:, None, None], tx.end[:, None, None]
     own = (idx[None] >= base) & (idx[None] < end)
     local = (idx[None] - base).clamp(min=0)
-    S, wlen = tx.words.shape
-    row = (local >> 4).clamp(0, wlen - 1).long() + (torch.arange(S, device=idx.device) * wlen)[:, None, None]
-    codes = (tx.words.reshape(-1)[row] >> (2 * (local & 15))) & 3
+    wlen = tx.words.shape[1]
+    codes = (si.shard_rows(tx.words, (local >> 4).clamp(0, wlen - 1)) >> (2 * (local & 15))) & 3
     return torch.where(own, codes, 0), own.to(I32)
 
 
@@ -144,18 +145,10 @@ def shard_seed_table(
     return ShardedSeedTable(off_arr, pos_arr, k_lo, k_hi, j)
 
 
-def put_seed(st: ShardedSeedTable, device) -> ShardedSeedTable:
-    return dataclasses.replace(
-        st, offsets=_upload(st.offsets, device), positions=_upload(st.positions, device),
-        k_lo=_upload(st.k_lo, device), k_hi=_upload(st.k_hi, device),
-    )
-
-
-def _take_shard_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table (S, R) at per-shard indices idx (S, ...)."""
-    S, R = table.shape
-    off = (torch.arange(S, device=idx.device) * R).reshape((S,) + (1,) * (idx.dim() - 1))
-    return table.reshape(-1)[idx.long() + off]
+def put_seed(st: ShardedSeedTable, device, layout: pmesh.ShardLayout = None) -> ShardedSeedTable:
+    """The seed table's shards on ``device``; across processes each uploads
+    its own and maps the others' (as ``sharded_index.put_sharded``)."""
+    return si.put_tables(st, device, layout, ("offsets", "positions"), ("k_lo", "k_hi"))
 
 
 def _dedupe(cand: torch.Tensor) -> torch.Tensor:
@@ -221,8 +214,8 @@ def make_sharded_seed_align(
         col = lambda v: v.reshape(S, 1, 1, 1)  # noqa: E731
         mine_all = (idx[None] >= col(st.k_lo)) & (idx[None] < col(st.k_hi))
         idx_loc = (idx[None] - col(st.k_lo)).clamp(0, st.offsets.shape[1] - 2)
-        start_all = _take_shard_rows(st.offsets, idx_loc)
-        end_all = _take_shard_rows(st.offsets, idx_loc + 1)
+        start_all = si.shard_rows(st.offsets, idx_loc)
+        end_all = si.shard_rows(st.offsets, idx_loc + 1)
         width_all = si.default_merge(torch.where(mine_all, end_all - start_all, 0))
         r_best = torch.argmin(width_all, dim=2, keepdim=True)  # first min: deterministic
 
@@ -237,7 +230,7 @@ def make_sharded_seed_align(
         # merge
         slots = start[..., None] + torch.arange(max_hits, dtype=I32, device=reads.device)
         valid_l = mine[..., None] & (slots < end[..., None])
-        hit = _take_shard_rows(st.positions, slots.clamp(0, st.positions.shape[1] - 1))
+        hit = si.shard_rows(st.positions, slots.clamp(0, st.positions.shape[1] - 1))
         cand_part = torch.where(valid_l, hit - jst[None, ..., None], 0)
         cand_all = si.default_merge(cand_part.reshape(S, B, -1)).reshape(B, n_pieces, max_hits)
         overflow = torch.any(width > max_hits, dim=1)
@@ -336,14 +329,20 @@ class ShardedAligner:
 
     Splits the index, the text and (when given) the seed table into
     ``n_interval`` interval shards on ``device`` and runs the merged
-    pipeline per batch.  Under ``multihost.initialize_distributed`` every
-    process passes the whole batch, aligns its slice of it and gathers the
-    rest; a branch that decides a collective (the seed path, the overflow
-    cohort) is decided from the gathered batch, so every process makes the
-    same collectives in the same order.  CIGARs come from the same
-    fast-Hamming / host traceback split as the single-device aligner, over
-    the full text, so the SAM bytes are the same whatever the shard and
-    process counts.
+    pipeline per batch.  Under ``multihost.initialize_distributed`` with P
+    processes each holds ``n_interval / P`` of the shards and maps the
+    others' (``parallel.peer``; P must divide ``n_interval`` when it is
+    above 1), every process passes the whole batch, aligns its slice of it
+    and gathers the rest: the batch is split over all P processes, and the
+    interval axis shards the memory (the JAX package's interval group
+    aligns the same reads on each of its devices).  A branch that decides a
+    collective (the seed path, the overflow cohort) is decided from the
+    gathered batch, so every process makes the same collectives in the same
+    order.  CIGARs come from the same fast-Hamming / host traceback split as
+    the single-device aligner, over the full text (``_text``: every process
+    uploads all of it, n / 4 bytes), so the SAM bytes are the same whatever
+    the shard and process counts.  ``close`` releases the mapped shards (a
+    collective).
     """
 
     def __init__(
@@ -364,19 +363,21 @@ class ShardedAligner:
         self.device = torch.device(device)
         # the data axis spans the processes (one in a plain run): each one
         # aligns its slice of every batch, and every one runs the host tail
-        # on the gathered batch, as every JAX process does
+        # on the gathered batch, as every JAX process does; the interval
+        # axis spans them too (n_interval > 1): each holds its own shards
         self.layout = pmesh.make_layout(mh.process_count(), n_interval, self.device)
         self.sst = None
         self.seed_j = 0
         if seed_table is not None and seed_j > 0:
             self.sst = put_seed(
-                shard_seed_table(seed_table[0], seed_table[1], seed_j, n_interval), self.device
-            )
+                shard_seed_table(seed_table[0], seed_table[1], seed_j, n_interval), self.device,
+                self.layout)
             self.seed_j = seed_j
         # FM shards are always built: batches whose shortest read has pieces
         # < seed_j fall back to them
-        self.sh = si.put_sharded(si.shard_fm_index(gi.fwd, n_interval), self.device)
-        self.tx = put_text(shard_text(gi.fwd.text_words, gi.fwd.n, n_interval), self.device)
+        self.sh = si.put_sharded(si.shard_fm_index(gi.fwd, n_interval), self.device, self.layout)
+        self.tx = put_text(shard_text(gi.fwd.text_words, gi.fwd.n, n_interval), self.device,
+                           self.layout)
         self.max_hits = max_hits
         self.scored = True  # the same scored affine indel tail as the
         # single-device aligner
@@ -512,6 +513,15 @@ class ShardedAligner:
                 for t, i in enumerate(idx.tolist()):
                     out[i] = fh[t]
         return out
+
+    def close(self) -> None:
+        """Release the shard tables, the mapped ones first in every process
+        (``peer.release``: a collective), then this process's own."""
+        def drop():
+            self.sh = self.tx = self.sst = self._fb = None
+            self._fns = {}
+
+        peer.release(mh.interval_group() if self.layout.interval_procs > 1 else None, drop)
 
     def _get_fb(self) -> "ShardedAligner":
         """Fallback: 4x per-piece hit budgets, the same shards."""

@@ -8,7 +8,8 @@ each from the packed text and from given windows; the shard sum; the fused
 rank + shard sum from gathered rows and from the shard tables; the backward
 exact and piece search, the staircase and the one-mismatch search) against
 its plain torch version, and the aligners, the sharded search, two ranks of
-``ShardedAligner`` sharing the card, the device suffix-array build and the
+``ShardedAligner`` sharing the card, the sharded kernels on shards in their
+own allocations and on another process's shards mapped through CUDA IPC, the device suffix-array build and the
 wavelet search on the card against the same code on the CPU (or native
 SA-IS), which the CPU tests hold against the JAX package."""
 
@@ -1234,6 +1235,88 @@ def test_sharded_kernels_on_unequal_bounds(cuda, cuts):
     k = torch.randint(0, fwd.n + 2, (4096,), generator=gen, device=cuda, dtype=torch.int32)
     c = torch.randint(0, 4, (4096,), generator=gen, device=cuda, dtype=torch.int32)
     assert torch.equal(sharded_index.fused_occ(sh, c, k), sharded_index.fused_occ_plain(sh, c, k))
+
+
+def _own_allocations(sh):
+    """``sh`` with each shard of each sharded table in an allocation of its
+    own (``peer.Shards``), as shards mapped from other processes are."""
+    import dataclasses
+
+    from genome_weaver_align_tpu_torch.parallel import peer
+
+    return dataclasses.replace(sh, **{
+        f: peer.Shards([t.clone() for t in getattr(sh, f)], getattr(sh, f))
+        for f in sharded_index._TABLES})
+
+
+@pytest.mark.parametrize("S,cuts", [(S, None) for S in range(1, 17)] + [
+    (len(c[0]) - 1, c) for c in UNEQUAL])
+def test_sharded_kernels_on_shards_in_their_own_allocations(cuda, S, cuts):
+    """The three sharded kernels (locate, piece search, fused table entry)
+    with every shard in its own allocation (one base pointer a shard) equal
+    the stacked tables' launch and the plain versions on every element."""
+    codes = fm_models.genome_codes(84, size=3_000 if cuts else 20_000)
+    fwd = build_fm_index(codes, sample_rate=8)
+    stacked = sharded_index.put_sharded(
+        sharded_index.shard_fm_index(fwd, S, *(cuts or ())), cuda)
+    apart = _own_allocations(stacked)
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(apart.bwt_blocks, stacked.bwt_blocks))
+    rows = torch.arange(fwd.n + 1, dtype=torch.int32, device=cuda)
+    want = sharded_index.locate_plain(stacked, rows)
+    assert torch.equal(sharded_index.locate(apart, rows), want)
+    assert torch.equal(sharded_index.locate(stacked, rows), want)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 85))
+    want = sharded_pipeline.sharded_piece_search_plain(stacked, r, ln, 3, r.shape[1])
+    for sh in (apart, stacked):
+        got = sharded_pipeline.sharded_piece_search(sh, r, ln, 3, r.shape[1])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gen = torch.Generator(device=cuda).manual_seed(86)
+    k = torch.randint(0, fwd.n + 2, (8192,), generator=gen, device=cuda, dtype=torch.int32)
+    c = torch.randint(0, 4, (8192,), generator=gen, device=cuda, dtype=torch.int32)
+    want = sharded_index.fused_occ_plain(stacked, c, k)
+    assert torch.equal(sharded_index.fused_occ(apart, c, k), want)
+    assert torch.equal(sharded_index.fused_occ(stacked, c, k), want)
+    assert torch.equal(sharded_index.fused_occ_plain(apart, c, k), want)
+
+
+def test_ring_sum_over_separate_allocations_writes_one_output(cuda):
+    """The sum kernel over S tensors in their own allocations (the ranks'
+    mapped slots) with ``only``: shard d's sum, equal to the stacked sum's
+    row d, float32 in its ring order."""
+    gen = torch.Generator(device=cuda).manual_seed(87)
+    for S in (1, 2, 3, 4, 8, 16):
+        for dtype in (torch.int32, torch.float32):
+            x = (torch.randint(-(1 << 30), 1 << 30, (S, 2, 777), generator=gen, device=cuda,
+                               dtype=torch.int32) if dtype == torch.int32
+                 else torch.randn((S, 2, 777), generator=gen, device=cuda) * 1e4)
+            apart = [t.clone() for t in x]
+            want = ring.ring_psum_plain(x)
+            for d in range(S):
+                assert torch.equal(ring.ring_psum(apart, only=d), want[d]), (S, dtype, d)
+            assert torch.equal(ring_cuda.ring_allreduce_cuda(apart), want)
+
+
+def test_two_processes_map_each_others_shards_on_the_card(cuda, tmp_path):
+    """Two processes on the card, each holding 2 of 4 shards and mapping
+    the other's through CUDA IPC: the sharded locate kernel on the mapped
+    shards equals its plain loop on every row, each process reads the
+    other's changes through its map, and the exact search under every merge
+    and the SAM equal the same run on the CPU."""
+    import json
+
+    import torch_multihost_driver as drv
+
+    for dev in ("cuda", "cpu"):
+        drv.launch(2, tmp_path / f"{dev}.sam", "interval", "--n-interval", "4", "--device", dev,
+                   timeout=300)
+    assert (tmp_path / "cuda.sam").read_bytes() == (tmp_path / "cpu.sam").read_bytes()
+    for pid in range(2):
+        facts = json.loads((tmp_path / f"cuda.sam.{pid}.json").read_text())
+        assert facts["locate_equal"] and facts["locate_launches"] == 1
+        assert facts["seen"] == [True] * 4
+        assert all(here * 2 == stacked for here, stacked in facts["bytes"].values())
+        got, want = (np.load(tmp_path / f"{d}.sam.{pid}.npz") for d in ("cuda", "cpu"))
+        assert all(np.array_equal(got[key], want[key]) for key in want.files)
 
 
 @pytest.mark.parametrize("S", range(1, 17))

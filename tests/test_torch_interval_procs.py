@@ -1,0 +1,183 @@
+"""Interval shards in separate processes (BASELINE config 5's layout) on
+the CPU: 2 gloo processes (``tests/torch_multihost_driver.py``, mode
+``interval``) hold S = 2 and 4 shards of a 100 kb genome's index, each
+process its own S / 2 and the other's mapped through shared memory.
+
+- the exact search's (lo, hi, pos) in every process, under the psum, ring
+  and fused merges, equals the JAX ``make_sharded_exact_search`` on a
+  (1, S) mesh of the CPU's virtual devices (the ring and fused merges in
+  interpret mode, as ``tests/test_ring.py`` runs them);
+- the ``ShardedAligner`` SAM from 2 processes equals the 1-process SAM and
+  the JAX package's (``tests/multihost_driver.py``) byte for byte, but
+  ``@PG``;
+- each process holds only its own shards, and what it reads of the
+  others' shards is theirs, not a copy;
+- ``mesh.make_layout`` refuses a process count that does not divide S."""
+
+import functools
+import json
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from genome_weaver_align_tpu.index import native as j_native
+from genome_weaver_align_tpu.index.build import build_fm_index
+from genome_weaver_align_tpu.parallel import mesh as j_mesh
+from genome_weaver_align_tpu.parallel import sharded_index as j_si
+from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+from genome_weaver_align_tpu_torch.parallel import multihost as mh
+from tests.torch_multihost_driver import (
+    EXACT_L, exact_search_reads, launch, sharded_genome, sharded_main,
+)
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+TESTS = Path(__file__).resolve().parent
+PROCS = 2
+MERGES = ("psum", "ring", "fused")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_off():
+    """The JAX index comes from the JAX package's numpy SA builder, never
+    from its in-place ``make -C native``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_native, "_lib", None)
+        mp.setattr(j_native, "_build_failed", True)
+        yield
+
+
+@pytest.fixture(scope="module", params=(2, 4), ids=lambda s: f"S{s}")
+def procs(request, tmp_path_factory):
+    """One run of 2 processes holding S shards: (S, the run's directory)."""
+    S = request.param
+    d = tmp_path_factory.mktemp(f"interval{S}")
+    launch(PROCS, d / "out.sam", "interval", "--n-interval", str(S), "--device", "cpu",
+           timeout=120)
+    return S, d
+
+
+@functools.cache
+def _jax_exact(S: int, merge: str):
+    g = sharded_genome()
+    fm = build_fm_index(g, sample_rate=16)
+    reads, lengths = exact_search_reads(g)
+    jm = j_mesh.make_mesh(n_data=1, n_interval=S, devices=jax.devices()[:S])
+    jsh = j_si.put_sharded(j_si.shard_fm_index(fm, S), jm, j_mesh.INTERVAL_AXIS)
+    fn = j_si.make_sharded_exact_search(jm, j_mesh.INTERVAL_AXIS, j_mesh.DATA_AXIS,
+                                        max_len=EXACT_L, like=jsh, merge=merge, microbatch=2,
+                                        ring_interpret=True)
+    r, ln, _ = j_mesh.shard_reads(jm, reads, lengths)
+    return [np.asarray(v)[: reads.shape[0]] for v in fn(jsh, r, ln)]
+
+
+@pytest.mark.parametrize("merge", MERGES)
+def test_exact_search_across_processes_equals_jax(procs, merge):
+    S, d = procs
+    want = _jax_exact(S, merge)
+    assert (want[1] > want[0]).sum() > len(want[0]) // 2
+    for pid in range(PROCS):
+        got = np.load(d / f"out.sam.{pid}.npz")
+        for key, w in zip(("lo", "hi", "pos"), want):
+            assert np.array_equal(got[f"{merge}_{key}"], w), (pid, key)
+
+
+def test_sam_across_processes_equals_one_process_and_jax(procs, tmp_path):
+    S, d = procs
+    sharded_main(0, tmp_path / "one.sam", torch.device("cpu"), S).close()
+    launch(1, tmp_path / "jax.sam", "sharded", driver=TESTS / "multihost_driver.py", timeout=120)
+    two, one, jx = ((p).read_text() for p in (d / "out.sam", tmp_path / "one.sam",
+                                               tmp_path / "jax.sam"))
+    assert two == one
+    assert [ln for ln in two.splitlines() if not ln.startswith("@PG")] == [
+        ln for ln in jx.splitlines() if not ln.startswith("@PG")]
+    assert len([ln for ln in two.splitlines() if ln[0] != "@"]) == 128
+
+
+def test_each_process_holds_only_its_own_shards(procs):
+    """Every sharded table here is 1/2 of the stacked one, and each
+    process's change to its own shard is what every process reads through
+    its map of that shard."""
+    S, d = procs
+    per = S // PROCS
+    for pid in range(PROCS):
+        facts = json.loads((d / f"out.sam.{pid}.json").read_text())
+        assert facts["held"] == list(range(pid * per, (pid + 1) * per))
+        assert facts["owners"] == [s // per for s in range(S)]
+        for table, (here, stacked) in facts["bytes"].items():
+            assert here * PROCS == stacked, table
+        assert facts["seen"] == [True] * S
+
+
+@pytest.mark.parametrize("procs_, shards", [(2, 3), (4, 2), (4, 6), (3, 4)])
+def test_make_layout_refuses_a_process_count_that_does_not_divide_the_shards(
+        monkeypatch, procs_, shards):
+    monkeypatch.setattr(mh, "process_count", lambda: procs_)
+    with pytest.raises(ValueError, match=rf"interval axis \({shards} shards\).*{procs_} processes"):
+        pmesh.make_layout(procs_, shards, "cpu")
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3])
+def test_layout_records_the_shards_each_process_holds(monkeypatch, rank):
+    monkeypatch.setattr(mh, "process_count", lambda: 4)
+    monkeypatch.setattr(mh, "process_index", lambda: rank)
+    lay = pmesh.make_layout(4, 8, "cpu")
+    assert lay.interval_procs == 4 and lay.held == range(2 * rank, 2 * rank + 2)
+    assert lay.owners == (0, 0, 1, 1, 2, 2, 3, 3)
+    exact = pmesh.make_layout(1, 8, "cpu")  # every process the same reads
+    assert exact.data_procs == 1 and exact.held == lay.held
+    one = pmesh.make_layout(4, 1, "cpu")  # an index of one shard: whole in every process
+    assert one.interval_procs == 1 and one.held == range(1) and one.data_procs == 4
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+def test_plain_queries_read_shards_in_their_own_tensors(S):
+    """Every ``local_*`` query, the plain locate, piece search and fused
+    occ, the window gather and the seed-path step read a table held one
+    tensor a shard (``peer.Shards``, as mapped shards are) exactly as the
+    stacked table."""
+    import dataclasses
+
+    from genome_weaver_align_tpu_torch.index.build import build_fm_index as p_build
+    from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
+    from genome_weaver_align_tpu_torch.parallel import peer
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+    from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
+
+    def apart(obj, fields):
+        return dataclasses.replace(obj, **{
+            f: peer.Shards([t.clone() for t in getattr(obj, f)], getattr(obj, f))
+            for f in fields})
+
+    g = sharded_genome()[:20_000]
+    fm = p_build(g, sample_rate=16)
+    sh = si.put_sharded(si.shard_fm_index(fm, S), "cpu")
+    ap = apart(sh, si._TABLES)
+    ks = torch.arange(fm.n + 2, dtype=torch.int32)
+    for c in range(4):
+        assert torch.equal(si.local_occ_codes(ap, torch.full_like(ks, c), ks),
+                           si.local_occ_codes(sh, torch.full_like(ks, c), ks))
+    assert torch.equal(si.local_occ_all4(ap, ks), si.local_occ_all4(sh, ks))
+    assert torch.equal(si.local_bwt_char(ap, ks), si.local_bwt_char(sh, ks))
+    rows = ks[: fm.n + 1]
+    assert torch.equal(si.locate_plain(ap, rows), si.locate_plain(sh, rows))
+    assert torch.equal(si.locate(ap, rows), si.locate(sh, rows))
+    assert torch.equal(si.fused_occ(ap, ks % 4, ks), si.fused_occ(sh, ks % 4, ks))
+    reads, lengths = (torch.from_numpy(a) for a in exact_search_reads(g))
+    for a, b in zip(sp.sharded_piece_search(ap, reads, lengths, 3, EXACT_L),
+                    sp.sharded_piece_search(sh, reads, lengths, 3, EXACT_L)):
+        assert torch.equal(a, b)
+    tx = sp.put_text(sp.shard_text(fm.text_words, fm.n, S), "cpu")
+    starts = torch.arange(-40, fm.n + 40, 97, dtype=torch.int32)
+    for a, b in zip(sp.local_gather_windows(apart(tx, ("words",)), starts, 53),
+                    sp.local_gather_windows(tx, starts, 53)):
+        assert torch.equal(a, b)
+    offsets, positions = build_seed_table(g, 6)
+    st = sp.put_seed(sp.shard_seed_table(offsets, positions, 6, S), "cpu")
+    layout = pmesh.make_layout(1, S, "cpu")
+    step = sp.make_sharded_seed_align(layout, like_seed=st, max_len=EXACT_L, k=2)
+    for a, b in zip(step(apart(st, ("offsets", "positions")), apart(tx, ("words",)), reads,
+                         lengths), step(st, tx, reads, lengths)):
+        assert torch.equal(a, b)

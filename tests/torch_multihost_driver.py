@@ -5,8 +5,8 @@ of them as separate interpreters and holds the N-process SAM against the
 1-process SAM byte for byte.
 
 Usage:
-    python torch_multihost_driver.py <pid> <nprocs> <port> <out.sam> [exact|sharded]
-        [--device cpu|cuda]
+    python torch_multihost_driver.py <pid> <nprocs> <port> <out.sam>
+        [exact|sharded|interval] [--device cpu|cuda] [--n-interval S]
 
 mode "exact" (default): a 20 kb genome (seed 21), 32 reads of 40 bases
 (seed 22) through ``multihost.exact_align``: each process passes only its
@@ -14,10 +14,20 @@ slice through ``make_global_batch``, runs ``exact_interval_search`` +
 ``locate_hits`` on both strands and ``gather_to_host``; process 0 writes
 the SAM.
 
-mode "sharded": ``ShardedAligner(k=2, n_interval=2, seed_j=8)`` on a
-100 kb genome (seed 31): a batch of 100 bp reads with indels takes the
-seed path, a batch of 30 bp reads the FM path; each maps >= 90%; process
-0 writes the SAM.
+mode "sharded": ``ShardedAligner(k=2, n_interval=S, seed_j=8)`` (S = 2
+unless ``--n-interval``) on a 100 kb genome (seed 31): a batch of 100 bp
+reads with indels takes the seed path, a batch of 30 bp reads the FM
+path; each maps >= 90%; process 0 writes the SAM.  With several processes
+each holds S / P of the shards and maps the others'.
+
+mode "interval" (BASELINE config 5's layout): the "sharded" run, then in
+every process the exact search (``make_sharded_exact_search`` on a data
+axis of 1: every process the same reads, ``exact_search_reads``) under
+the psum, ring and fused merges, written to ``<out.sam>.<pid>.npz``; and
+``<out.sam>.<pid>.json``: the shards this process holds, each sharded
+table's bytes here against the stacked table's, and what this process
+reads through its map of every shard after each process has changed a word
+of its own shards (the mapped peers are not copies).
 
 The device defaults to cuda (process p on ``cuda:p % device_count``).
 """
@@ -69,8 +79,9 @@ def main(argv):
     p.add_argument("nprocs", type=int)
     p.add_argument("port")
     p.add_argument("out")
-    p.add_argument("mode", nargs="?", choices=["exact", "sharded"], default="exact")
+    p.add_argument("mode", nargs="?", choices=["exact", "sharded", "interval"], default="exact")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--n-interval", type=int, default=2)
     a = p.parse_args(argv)
     pid, nprocs, port, out, mode, device = a.pid, a.nprocs, a.port, a.out, a.mode, a.device
 
@@ -88,7 +99,13 @@ def main(argv):
     if device == "cuda":
         device = f"cuda:{pid % torch.cuda.device_count()}"
     try:
-        (sharded_main if mode == "sharded" else exact_main)(pid, out, torch.device(device))
+        if mode == "exact":
+            exact_main(pid, out, torch.device(device))
+        else:
+            al = sharded_main(pid, out, torch.device(device), a.n_interval)
+            if mode == "interval":
+                interval_main(pid, out, al)
+            al.close()
     finally:
         if nprocs > 1:
             torch.distributed.destroy_process_group()
@@ -123,11 +140,12 @@ def exact_main(pid, out, device):
         sam.write_sam(out, sam.header(gi.genome.names, gi.genome.lengths), recs)
 
 
-def sharded_main(pid, out, device):
+def sharded_main(pid, out, device, n_interval=2):
     """ShardedAligner across processes on a 100 kb genome with planted
     substitutions and indels: 100 bp reads take the seed-table path, 30 bp
     reads the FM path (their pieces are shorter than seed_j).  Every process
-    holds the whole index on the host."""
+    holds the whole index on the host and its own shards on ``device``.
+    -> the aligner (close it: a collective)."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch.index.files import Genome, build_genome_index
@@ -136,11 +154,11 @@ def sharded_main(pid, out, device):
     from genome_weaver_align_tpu_torch.utils import sam, simulate
     from genome_weaver_align_tpu_torch.utils.fasta import Contig, Read
 
-    g = simulate.random_genome(100_000, seed=31)
+    g = sharded_genome()
     gi = build_genome_index(Genome.from_contigs([Contig("c1", g)]), sample_rate=16)
     seed_j = 8
     so, sp = build_seed_table(g, seed_j)
-    al = ShardedAligner(gi, k=2, n_interval=2, max_hits=8, seed_table=(so, sp),
+    al = ShardedAligner(gi, k=2, n_interval=n_interval, max_hits=8, seed_table=(so, sp),
                         seed_j=seed_j, device=device)
 
     recs = []
@@ -162,6 +180,88 @@ def sharded_main(pid, out, device):
         from genome_weaver_align_tpu_torch.ops import dp_cuda
 
         print(f"windows-entry launches {dp_cuda.banded_edit_distance_cuda.launches}")
+    return al
+
+
+EXACT_B, EXACT_L = 48, 30
+
+
+def sharded_genome():
+    """The 100 kb genome of the sharded and interval modes."""
+    from genome_weaver_align_tpu_torch.utils import simulate
+
+    return simulate.random_genome(100_000, seed=31)
+
+
+def exact_search_reads(g):
+    """``EXACT_B`` reads of ``EXACT_L`` bases from the genome (seed 34),
+    lengths down to ``EXACT_L`` - 6, every 5th with a base changed (most of
+    those have no exact match) -> (reads, lengths) int32."""
+    import numpy as np
+
+    rng = np.random.default_rng(34)
+    starts = rng.integers(0, g.size - EXACT_L, size=EXACT_B)
+    reads = g[starts[:, None] + np.arange(EXACT_L)[None, :]].astype(np.int32)
+    reads[::5, 3] = (reads[::5, 3] + 1) % 4
+    lengths = rng.integers(EXACT_L - 6, EXACT_L + 1, size=EXACT_B).astype(np.int32)
+    return reads, lengths
+
+
+def interval_main(pid, out, al):
+    """The exact search under each merge in every process, and what this
+    process holds and sees of the shard tables (see the module's
+    docstring)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
+    from genome_weaver_align_tpu_torch.parallel import multihost as mh
+    from genome_weaver_align_tpu_torch.parallel import peer
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    S = al.layout.n_interval
+    layout = pmesh.make_layout(1, S, al.device)
+    reads, lengths = exact_search_reads(sharded_genome())
+    r, ln, B = pmesh.shard_reads(layout, reads, lengths)
+    res = {}
+    for merge in ("psum", "ring", "fused"):
+        fn = si.make_sharded_exact_search(layout, EXACT_L, al.sh, merge=merge, microbatch=2)
+        for key, v in zip(("lo", "hi", "pos"), fn(al.sh, r, ln)):
+            res[f"{merge}_{key}"] = v.cpu().numpy()[:B]
+    np.savez(f"{out}.{pid}.npz", **res)
+
+    tables = {**{f: getattr(al.sh, f) for f in si._TABLES}, "words": al.tx.words,
+              "offsets": al.sst.offsets, "positions": al.sst.positions}
+    facts = {"held": list(layout.held), "owners": list(layout.owners), "bytes": {}}
+    for f, t in tables.items():
+        held = t.held if isinstance(t, peer.Shards) else t
+        facts["bytes"][f] = [held.numel() * 4, int(np.prod(t.shape)) * 4]
+    if al.device.type == "cuda":  # the sharded locate kernel on the mapped shards
+        from genome_weaver_align_tpu_torch.ops import locate_cuda
+
+        rows = torch.arange(al.gi.fwd.n + 1, dtype=torch.int32, device=al.device)
+        before = locate_cuda.locate_sharded_cuda.launches
+        got = si.locate(al.sh, rows)
+        facts["locate_launches"] = locate_cuda.locate_sharded_cuda.launches - before
+        facts["locate_equal"] = bool(torch.equal(got, si.locate_plain(al.sh, rows)))
+    # each process flips a word of its first shard's BWT table; every
+    # process then reads every shard's word through its own map
+    bwt = al.sh.bwt_blocks
+    host = si.shard_fm_index(al.gi.fwd, S).bwt_blocks.view(np.int32)[:, 0, 0]
+    flip = 0x5A5A5A5A
+    if isinstance(bwt, peer.Shards):
+        group = mh.interval_group()
+        peer.barrier(group)  # no process reads the tables any more
+        bwt.held[0, 0, 0] ^= flip
+        peer.barrier(group)
+        firsts = {s for s in range(S) if s % len(layout.held) == 0}
+        facts["seen"] = [int(bwt[s][0, 0]) == int(host[s] ^ flip if s in firsts else host[s])
+                         for s in range(S)]
+        peer.barrier(group)
+    with open(f"{out}.{pid}.json", "w") as fh:
+        json.dump(facts, fh)
 
 
 if __name__ == "__main__":
