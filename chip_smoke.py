@@ -138,23 +138,24 @@ per line, and exits non-zero at the first phase that fails:
    (the staircase in each rescue tier that runs); align and load seconds,
    reads/s, each part's peak device memory, the rescue cohort, and the banded text entry
    launched in each part's stream;
-16. several processes on one card (BASELINE config 5's stream on one
-   host): the card's compute mode must not be ``Exclusive_Process``; this
-   script starts itself as each rank (``--rank``), joined by gloo on a free
-   loopback port, all ranks on the one card.  ``ShardedAligner`` (k = 2,
-   4 interval shards, the phase-4 index and seed table; with 2 ranks each
-   holds 2 of the shards and maps the other's, as in [20]) on 4 x 32,768
-   reads of 150 bp (seed 17, <= 1 substitution, one indel in 15%), each
-   rank aligning its slice of every batch and running the host tail on
-   the gathered batch; then the exact search (``multihost.exact_align``:
-   ``make_global_batch``, ``exact_interval_search`` + ``locate_hits`` on
-   both strands, ``gather_to_host``) on 65,536 error-free 36 bp reads.
-   Each with 1 rank and with 2: the 2-rank SAM byte-identical to the 1-rank
-   SAM, >= 99% mapped and correct, the windows entry launched in every
-   sharded rank (each rank counts its own) and equal to the plain DP on
-   every call of one batch of that rank (L = 150, W = 156); reads/s,
-   ``gather_to_host`` ms a batch (after a barrier, whose wait is printed
-   apart) and each rank's peak device memory;
+16. several processes (BASELINE config 5's stream on one host): card 0's
+   compute mode must not be ``Exclusive_Process``; this script starts
+   itself as each rank (``--rank``), joined by gloo on a free loopback
+   port, rank r on card r % device_count (on one card, all of them).
+   ``ShardedAligner`` (k = 2, 4 interval shards, the phase-4 index and seed
+   table; with 2 ranks each holds 2 of the shards and maps the other's, as
+   in [20]) on 4 x 32,768 reads of 150 bp (seed 17, <= 1 substitution, one
+   indel in 15%), each rank aligning its slice of every batch and running
+   the host tail on the gathered batch; then the exact search
+   (``multihost.exact_align``: ``make_global_batch``,
+   ``exact_interval_search`` + ``locate_hits`` on both strands,
+   ``gather_to_host``) on 65,536 error-free 36 bp reads. Each with 1 rank
+   and with 2: the 2-rank SAM byte-identical to the 1-rank SAM, >= 99%
+   mapped and correct, the windows entry launched in every sharded rank
+   (each rank counts its own) and equal to the plain DP on every call of
+   one batch of that rank (L = 150, W = 156); reads/s, ``gather_to_host``
+   ms a batch (after a barrier, whose wait is printed apart) and each
+   rank's peak device memory;
 17. index builders and rank backends: ``index --builder device --seed 13``
    through the CLI on the phase-4 FASTA must write every array of the
    phase-4 index (native SA-IS) and its seed table; the device build's
@@ -209,31 +210,50 @@ per line, and exits non-zero at the first phase that fails:
    sharded locate, the sharded piece search and the fused table entry
    (65,536 random queries) must equal their plain versions at each S and
    on the unequal bounds;
-20. interval shards in separate processes (BASELINE config 5's layout) on
-   the one card: this script as 1, 2 and 4 ranks (``--rank interval``),
-   ``ShardedAligner`` with 4 interval shards, each rank holding 4 / n of
-   them and mapping the others' through CUDA IPC (``parallel.peer``; one
+20. interval shards in separate processes (BASELINE config 5's layout),
+   rank r on card r % device_count: first, in this process, the flag-wait
+   ring entry against its plain version on every element on one card (the
+   peer's flags pre-published), and its failures: a wait no peer satisfies
+   must time out, the rank's later merges must not wait and must poison
+   its peer's word, the peer arriving late must fail too, and both must
+   raise.  Then this script as 1, 2 and 4 ranks (``--rank
+   interval``), ``ShardedAligner`` with 4 interval shards, each rank
+   holding 4 / n of them and mapping the others' through CUDA IPC
+   (``parallel.peer``; over NVLink where they lie on other cards; one
    rank: the stacked layout): the seed path on [16]'s reads and the FM
-   path on [11]'s, each rank aligning its slice; [10]'s exact search on
-   the same 65,536 reads in every rank under the psum (gloo
-   ``all_reduce``), ring (the sum kernel over the ranks' mapped slots)
-   and fused (the table entry through the peer map) merges.  The n-rank
-   SAMs must equal the 1-rank SAMs byte for byte with >= 99% mapped and
-   correct, every rank's exact search the 1-rank result, each rank's
-   sharded tables at most 1 / n of the stacked bytes plus one block row a
-   shard (the allocator's requested bytes of the uploads, mapped peers
-   not counted; the whole text printed apart), the sharded locate, piece
-   search and fused table entry equal to their plain versions on the
-   mapped layout, and every rank must launch the sharded locate, the
-   sharded piece search, the fused table entry, the ring sum and the
-   windows entry; each run's wall, reads/s, ms a batch, host barriers and
-   peak device memory a rank are printed.
+   path on [11]'s, each rank aligning its slice; each card's used memory
+   with every rank alive; [10]'s exact search on the same 65,536 reads in
+   every rank under the psum (NCCL ``all_reduce`` on the card where the
+   ranks have a card each, else gloo on the host), ring (the flag-wait
+   sum over the ranks' mapped slots across cards, else the sum kernel
+   behind a host barrier) and fused (the table entry through the peer
+   map) merges, with the route each merge took; one merge at the search's
+   payload (2 x 32,768 int32) timed by route (the ring merge, NCCL and
+   gloo ``all_reduce``).  The n-rank SAMs must equal the 1-rank SAMs byte
+   for byte with >= 99% mapped and correct, every rank's exact search the
+   1-rank result, each rank's sharded tables at most 1 / n of the stacked
+   bytes plus one block row a shard (the allocator's requested bytes of
+   the uploads, mapped peers not counted; the whole text printed apart),
+   the sharded locate, piece search, fused table entry and the ring merge
+   equal to their plain versions on the mapped layout, and every rank
+   must launch the sharded locate, the sharded piece search, the fused
+   table entry, the ring sum (the flag-wait entry across cards) and the
+   windows entry.
+   Where the ranks have a card each, the psum must go over NCCL alone and
+   the ring merge through the flag wait with no host barrier.  Each run's
+   wall, reads/s, ms a batch, host barriers and peak device memory a rank
+   are printed;
+21. the two-axis layout: [20] with 2 shards over 4 ranks, two interval
+   groups of two ranks (two copies of the index, one shard a rank), the
+   exact search giving each group its half of the reads: the SAMs and
+   each rank's exact search equal to [20]'s 1-rank stacked run, each rank
+   holding only its group's one shard, and [20]'s routes and launches.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; the locate kernel's are read in [7], [12], [13], [15] and
 [16]'s exact ranks, the sharded locate's in [10], [11], [16]'s sharded
-ranks (which take the seed path: 0 there) and [20]'s, the sharded piece
-search's in [11], [16] and [20], the sum's and the fused table entry's in
-[10] and [20].  The last lines are a JSON summary of every kernel entry (each
+ranks (which take the seed path: 0 there), [20]'s and [21]'s, the sharded
+piece search's in [11], [16], [20] and [21], the sum's and the fused table
+entry's in [10], [20] and [21], the flag-wait sum's in [20] and [21].  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
 a bound from its inputs' bytes and operations, and the time of one PyTorch
 call that computes the same function where there is one; integer work is
@@ -299,6 +319,8 @@ RANK_BATCH, RANK_BATCHES, RANK_L, RANK_SEED = 32_768, 4, 150, 17
 RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's length
 RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
 INTERVAL_RANKS = (1, 2, 4)  # phase 20: the shards over 1 (stacked), 2 and 4 processes
+TWO_AXIS_RANKS, TWO_AXIS_SHARDS = 4, 2  # phase 21: two interval groups of two ranks
+NVLINK_BYTES_PER_S = 450e9  # one direction between two cards of the host
 # phase 17: the wavelet search's traffic
 WAVELET_READS, WAVELET_L = 65_536, 36
 # phase 18: the FM search kernels at their paths' shapes
@@ -567,7 +589,9 @@ def phase_kernel(torch, dev, card):
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
     log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu, "
-        f"one_mismatch.cu and locate.cu with nvcc for sm_90a in {time.time() - t0:.1f} s; ptxas: "
+        f"one_mismatch.cu and locate.cu with nvcc for sm_90a in "
+        f"{time.time() - t0:.1f} s; ptxas: flag-wait sum (4 shards) "
+        f"{ptxas_usage('ring.cu', 'allreduce_kernelIiLi4ELb1E')}, "
         f"fm_search {ptxas_usage('fm_search.cu', 'backward_search_kernel')}, fm_search sharded "
         f"{ptxas_usage('fm_search.cu', 'backward_search_sharded_kernel')}, "
         f"locate {ptxas_usage('locate.cu', '13locate_kernel')}, locate sharded "
@@ -2213,10 +2237,11 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
 
 
 def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path,
-              tag: str = "[16]") -> list[dict]:
-    """``n`` processes of this script (``--rank``), one gloo group on a free
-    loopback port, all on the one card; every one must exit 0 within
-    RANK_TIMEOUT_S.  -> each rank's result line, in rank order."""
+              tag: str = "[16]", extra=()) -> list[dict]:
+    """``n`` processes of this script (``--rank``, then ``extra``), one gloo
+    group on a free loopback port, rank r on card r % device_count; every
+    one must exit 0 within RANK_TIMEOUT_S.  -> each rank's result line, in
+    rank order."""
     import socket
 
     with socket.socket() as s:
@@ -2225,7 +2250,7 @@ def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path,
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--rank", mode, str(r), str(n), port,
-         str(idx), str(seedf), str(reads), str(sam)],
+         str(idx), str(seedf), str(reads), str(sam), *extra],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)]
     results = []
     try:
@@ -2275,10 +2300,11 @@ def check_windows_entry(torch, aligner, batch) -> dict:
 
 
 def rank_child(argv: list[str]) -> int:
-    """One rank of phase 16 or 20 (``chip_smoke.py --rank MODE RANK N PORT
-    INDEX SEEDS READS SAM``; mode ``interval``: ``interval_child``): joins
-    the gloo group, runs its slice of every batch
-    on ``cuda:RANK % device_count``, and prints one ``RANK_RESULT`` JSON
+    """One rank of phase 16, 20 or 21 (``chip_smoke.py --rank MODE RANK N
+    PORT INDEX SEEDS READS SAM [SHARDS]``; mode ``interval``:
+    ``interval_child``): joins the gloo group, runs its slice of every
+    batch on the card ``multihost.device`` gave it (``cuda:RANK %
+    device_count``), and prints one ``RANK_RESULT`` JSON
     line: wall seconds of the main path, its windows-entry, locate and
     sharded search launches (set to 0 just before it and read just after),
     the seconds each
@@ -2287,7 +2313,7 @@ def rank_child(argv: list[str]) -> int:
     mode, before the timed run, every windows-entry call of one batch is
     held against the plain DP on the same tensors.  Rank 0 writes the
     SAM."""
-    mode, rank, n, port, idx, seedf, reads_path, sam_path = argv
+    mode, rank, n, port, idx, seedf, reads_path, sam_path, *extra = argv
     rank, n = int(rank), int(n)
     import numpy as np
     import torch
@@ -2307,11 +2333,14 @@ def rank_child(argv: list[str]) -> int:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     mh.initialize_distributed(f"127.0.0.1:{port}", n, rank)
     check(mh.process_count() == n and mh.process_index() == rank, "the process group is wrong")
-    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    dev = mh.device()  # card rank % device_count
+    check(dev == torch.device("cuda", rank % torch.cuda.device_count()),
+          f"rank {rank} took {dev}")
     torch.cuda.set_device(dev)
     gi = load_index(idx)
     if mode == "interval":
-        return interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path)
+        return interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path,
+                              int(extra[0]) if extra else SHARDS)
     z = np.load(reads_path)
     reads, pos, strand = z["reads"], z["pos"], z["strand"]
     names = [f"r{i}_p{p}_s{s}" for i, (p, s) in enumerate(zip(pos.tolist(), strand.tolist()))]
@@ -2395,11 +2424,12 @@ def rank_child(argv: list[str]) -> int:
 
 
 def phase_ranks(torch, codes, card) -> dict:
-    """Several processes on one card: ``ShardedAligner`` (k = 2, 4 interval
-    shards, the phase-4 index and seed table) on 4 x 32,768 reads of 150
+    """Several processes, rank r on card r % device_count:
+    ``ShardedAligner`` (k = 2, 4 interval shards, the phase-4 index and
+    seed table) on 4 x 32,768 reads of 150
     bp with at most one substitution and, in 15% of them, one indel, then
     the exact search on 65,536 error-free 36 bp reads; each with 1 rank and
-    with 2, every rank a process of this script on the one card.  The
+    with 2, every rank a process of this script.  The
     2-rank SAM must equal the 1-rank SAM byte for byte, and in every
     sharded rank the windows entry must equal the plain DP on one batch's
     calls.  -> (the windows entry's launches in each sharded rank, keyed by
@@ -2440,7 +2470,7 @@ def phase_ranks(torch, codes, card) -> dict:
             def per_batch_ms(key):
                 return [round(1e3 * r[key] / n_batches, 3) for r in res]
 
-            log(f"[16] {mode}, {n} rank(s) on one card: {n_reads} reads of {length} bp in "
+            log(f"[16] {mode}, {n} rank(s): {n_reads} reads of {length} bp in "
                 f"{wall:.3f} s, {n_reads / wall:.1f} reads/s ({card}); mapped {mapped / n_sam:.6f}, "
                 f"correct {correct / n_sam:.6f}; by rank: wall_s "
                 f"{[round(r['wall_s'], 3) for r in res]}, gather_to_host ms a batch "
@@ -2479,26 +2509,34 @@ def phase_ranks(torch, codes, card) -> dict:
     return launches, max_err, fm_launches
 
 
-def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
-    """One rank of phase 20 (``--rank interval``): ``ShardedAligner`` with
-    SHARDS interval shards, this rank holding SHARDS / n of them and mapping
-    the others' (the stacked layout with one rank).  The device bytes of
-    each sharded upload (the allocator's requested and allocated bytes,
-    the mapped peers not counted), the seed path on [16]'s reads and the
-    FM path on [11]'s, each rank aligning its slice; [10]'s exact search on
-    the same reads in every rank under each merge (results to
-    ``SAM.<rank>.npz``); the sharded kernels against their plain versions
-    on this layout; the kernels' launches of each run (set to 0 just before
-    it and read just after); one ``RANK_RESULT`` line.  Rank 0 writes the
-    seed path's SAM and the FM path's (``SAM.fm.sam``)."""
+def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards) -> int:
+    """One rank of phases 20 and 21 (``--rank interval ... [SHARDS]``):
+    ``ShardedAligner`` with ``shards`` interval shards, this rank holding
+    its interval group's ``shards / g`` of them and mapping the other
+    members' (``mesh.interval_span``; the stacked layout with one rank).
+    The device bytes of each sharded upload (the allocator's requested and
+    allocated bytes, the mapped peers not counted), the seed path on [16]'s
+    reads and the FM path on [11]'s, each rank aligning its slice; each
+    card's used memory while every rank holds both aligners; [10]'s exact
+    search, every rank of a group on its group's slice of the reads, under
+    each merge (results to ``SAM.<rank>.npz``), with the route each merge
+    took; the sharded kernels and the ring sum against their plain
+    versions on this layout; the merge of one step at the
+    exact search's payload timed by route (the ring merge, NCCL and gloo
+    ``all_reduce``); the kernels' launches of each run (set to 0 just
+    before it and read just after); one ``RANK_RESULT`` line.  Rank 0
+    writes the seed path's SAM and the FM path's (``SAM.fm.sam``)."""
     import dataclasses
 
     import numpy as np
 
     from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
-    from genome_weaver_align_tpu_torch.ops import dp_cuda, fm_search_cuda, locate_cuda, ring_cuda
+    from genome_weaver_align_tpu_torch.ops import (
+        dp_cuda, fm_search_cuda, locate_cuda, ring_cuda,
+    )
     from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
-    from genome_weaver_align_tpu_torch.parallel import peer
+    from genome_weaver_align_tpu_torch.parallel import multihost as mh
+    from genome_weaver_align_tpu_torch.parallel import peer, ring
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
     from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
     from genome_weaver_align_tpu_torch.utils import sam
@@ -2508,12 +2546,15 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
                 "sharded locate": locate_cuda.locate_sharded_cuda,
                 "sharded piece search": fm_search_cuda.backward_search_sharded_cuda,
                 "fused table entry": ring_cuda.fused_occ_cuda,
-                "ring sum": ring_cuda.ring_allreduce_cuda}
+                "ring sum": ring_cuda.ring_allreduce_cuda,
+                "flag-wait ring sum": ring_cuda.ring_allreduce_wait_cuda}
 
     def zero():
         torch.cuda.synchronize(dev)
         for c in counters.values():
             c.launches = 0
+        for key in si.CROSS_MERGES:
+            si.CROSS_MERGES[key] = 0
 
     def launches():
         torch.cuda.synchronize(dev)
@@ -2551,12 +2592,19 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
     with mock.patch.object(si, "put_sharded", measured(si.put_sharded, si._TABLES)), \
             mock.patch.object(sp, "put_text", measured(sp.put_text, ("words",))), \
             mock.patch.object(sp, "put_seed", measured(sp.put_seed, ("offsets", "positions"))):
-        al = sp.ShardedAligner(gi, k=K, n_interval=SHARDS, seed_table=(so, spos), seed_j=j,
+        al = sp.ShardedAligner(gi, k=K, n_interval=shards, seed_table=(so, spos), seed_j=j,
                                device=dev)
     del so, spos
+    lay = al.layout
+    mapped = isinstance(al.sh.bwt_blocks, peer.Shards)
     text_bytes = al._text.numel() * al._text.element_size()
-    result = {"rank": rank, "ranks": n, "held": list(al.layout.held), "mem": mem,
-              "text_bytes": text_bytes, "launches": {}, "wall_s": {}, "reads": {}, "bad": {}}
+    result = {"rank": rank, "ranks": n, "shards": shards, "held": list(lay.held),
+              "group": list(lay.group_ranks), "card": dev.index, "mem": mem,
+              "text_bytes": text_bytes, "mapped": mapped,
+              "shard_cards": list(al.sh.bwt_blocks.cards) if mapped else [dev.index] * shards,
+              "apart": mapped and peer.apart(al.sh.bwt_blocks, lay),
+              "nccl": mh.nccl_group(lay.interval_procs) is not None if mapped else False,
+              "launches": {}, "routes": {}, "wall_s": {}, "reads": {}, "bad": {}}
 
     def run(tag, aligner, bs):
         aligner.align_batch(bs[0][:4096])  # warm-up
@@ -2573,12 +2621,24 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
         return recs, aligner.sam_header()
 
     seed_recs, hdr = run("seed path", al, batches("seed", RANK_BATCH))
-    fm_al = sp.ShardedAligner(gi, k=K, n_interval=SHARDS, device=dev)
+    fm_al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev)
     fm_batches = batches("fm", BATCH)
     fm_recs, _ = run("FM path", fm_al, fm_batches)
     if rank == 0:
         sam.write_sam(sam_path, hdr, seed_recs)
         sam.write_sam(f"{sam_path}.fm.sam", hdr, fm_recs)
+
+    # every card's used memory while every rank holds both aligners
+    if n > 1:
+        torch.distributed.barrier()
+    if rank == 0:
+        for key, query in (("memory_used", ["--query-gpu=index,memory.used"]),
+                           ("compute_apps", ["--query-compute-apps=pid,gpu_uuid,used_memory"])):
+            res = subprocess.run(["nvidia-smi", *query, "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=60)
+            result[key] = res.stdout.strip().splitlines() or [res.stderr.strip()]
+    if n > 1:
+        torch.distributed.barrier()
 
     # the piece search on this layout against its plain loop
     fr = torch.from_numpy(np.where(z["fm_reads"][:4096] >= 4, 0, z["fm_reads"][:4096])
@@ -2588,11 +2648,14 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
     want = sp.sharded_piece_search_plain(fm_al.sh, fr, fl, K + 1, fr.shape[1])
     result["bad"]["sharded piece search"] = sum(int((a != b).sum()) for a, b in zip(got, want))
 
-    # [10]'s exact search: every rank the same reads, the merges across
-    # the ranks
-    layout = pmesh.make_layout(1, SHARDS, dev)
+    # [10]'s exact search: every rank of a group its group's slice of the
+    # reads, the merges across the group's ranks
+    layout = pmesh.make_layout(lay.groups, shards, dev)
     er = z["exact_reads"]
     r, ln, B = pmesh.shard_reads(layout, er, np.full(er.shape[0], er.shape[1], np.int32))
+    check(B % layout.groups == 0, "[20] the exact reads do not split evenly over the groups")
+    first = layout.data_index * r.shape[0]
+    result["rows"] = [first, first + r.shape[0]]
     barrier = {"s": 0.0, "calls": 0}
     real_barrier = peer.barrier
 
@@ -2616,10 +2679,11 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
             tag = f"exact, merge={merge}"
             result["wall_s"][tag] = time.perf_counter() - t0
             result["launches"][tag] = launches()
-            result["reads"][tag] = B
+            result["routes"][tag] = dict(si.CROSS_MERGES)
+            result["reads"][tag] = r.shape[0]
             result[f"barrier_{merge}"] = dict(barrier)
             for key, v in zip(("lo", "hi", "pos"), out):
-                exact[f"{merge}_{key}"] = v.cpu().numpy()[:B]
+                exact[f"{merge}_{key}"] = v.cpu().numpy()
     np.savez(f"{sam_path}.{rank}.npz", **exact)
 
     # the sharded locate and the fused table entry on this layout against
@@ -2635,7 +2699,59 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
     qc = torch.randint(0, 4, (2, 65_536), generator=gen, device=dev, dtype=torch.int32)
     result["bad"]["fused table entry"] = int((si.fused_occ(al.sh, qc, qk)
                                               != si.fused_occ_plain(al.sh, qc, qk)).sum())
-    result["mapped"] = isinstance(al.sh.bwt_blocks, peer.Shards)
+
+    # one merge at the exact search's payload ((2, 32,768) int32 a step at
+    # microbatch 2), by route: the ring merge this layout takes, NCCL
+    # all_reduce and gloo all_reduce (as _psum_across runs them); the ring
+    # merge's sums held against the plain ring sum of every rank's parts
+    group = lay.group
+    if group is not None:
+        payload = (2, er.shape[0] // RING_MICROBATCH)
+        h = len(lay.held)
+
+        def parts_of(q):  # group rank q's partials, the same in every rank
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 + q)
+            return torch.randint(-(1 << 30), 1 << 30, (h, *payload), generator=g, device=dev,
+                                 dtype=torch.int32)
+
+        mine = parts_of(lay.group_rank)
+        want = ring.ring_psum_plain(torch.cat([parts_of(q) for q in range(lay.interval_procs)]))
+        slots = si._RingSlots(lay, group, payload, dev, result["apart"])
+        reps = 200
+        for _ in range(5):
+            got = slots(mine)
+        peer.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = slots(mine)
+        torch.cuda.synchronize(dev)
+        ms = {"ring": 1e3 * (time.perf_counter() - t0) / reps,
+              "ring_route": "flag wait" if result["apart"] else "host barrier"}
+        result["bad"]["ring merge"] = int((got != want[lay.held.start]).sum())
+        peer.release(group, slots.close)
+        slots.check()
+        x = mine.sum(0, dtype=torch.int32)
+        nccl = mh.nccl_group(lay.interval_procs)
+        if nccl is not None:
+            for _ in range(5):
+                torch.distributed.all_reduce(x, group=nccl)
+            peer.barrier(group)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                torch.distributed.all_reduce(x, group=nccl)
+            torch.cuda.synchronize(dev)
+            ms["nccl"] = 1e3 * (time.perf_counter() - t0) / reps
+        peer.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(reps // 4):
+            y = x.cpu()
+            torch.distributed.all_reduce(y, group=group)
+            x = y.to(dev)
+        torch.cuda.synchronize(dev)
+        ms["gloo"] = 1e3 * (time.perf_counter() - t0) / (reps // 4)
+        ms["payload"] = list(payload)
+        result["merge_ms"] = ms
     fm_al.close()
     al.close()
     if n > 1:
@@ -2644,17 +2760,97 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path) -> int:
     return 0
 
 
+def phase_flag_wait(torch, card) -> dict:
+    """The flag-wait ring entry against its plain version on every element,
+    on card 0 alone: at [10]'s ring payload over SHARDS slots in their own
+    allocations, two ranks' flag words on the card with the peer's
+    pre-published (the wait passes at once; the epoch this rank publishes
+    must land in the peer's words), timed.  Then the failures: rank 0
+    waits for an epoch its peer never publishes, must time out, and goes
+    on to two later merges that must not wait and must publish the poison;
+    rank 1, arriving late at that epoch, must find the poison and fail
+    too; ``check_flag_wait`` must raise for both.  Across cards the entry
+    runs in [20]'s ranks.  -> the largest mismatch and the times."""
+    from genome_weaver_align_tpu_torch.ops import ring_cuda
+    from genome_weaver_align_tpu_torch.parallel import ring
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    payload = (2, BATCH // RING_MICROBATCH)  # [10]'s ring payload
+    parts = torch.randint(-(1 << 30), 1 << 30, (SHARDS, *payload), generator=gen, device=dev,
+                          dtype=torch.int32)
+    want = ring.ring_psum_plain(parts)
+    slots = [t.clone() for t in parts]
+    flags = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2)]
+    flags[0][1] = 1 << 30  # the peer (rank 1) has published every epoch
+    error = torch.zeros(1, dtype=torch.int32, device=dev)
+    bad = 0
+    for d in range(SHARDS):
+        got = ring_cuda.ring_allreduce_wait_cuda(slots, d, flags, 0, d + 1, error)
+        bad += int((got != want[d]).sum())
+    published = int(flags[1][0])
+    check(published == SHARDS and int(error) == 0,
+          f"[20] flag wait on one card: published {published}, error word {int(error)}")
+    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, 7, error),
+                      reps=200, hide_host=True)
+    plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(parts), reps=20)
+
+    def raises(err) -> bool:
+        try:
+            ring_cuda.check_flag_wait(err)
+        except RuntimeError:
+            return True
+        return False
+
+    # rank 0 times out at an epoch rank 1 has not reached, then runs on
+    flags = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2)]
+    errors = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
+    t0 = time.perf_counter()
+    ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, 1, errors[0], timeout_s=0.01)
+    torch.cuda.synchronize(dev)
+    waited = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for epoch in (2, 3):
+        ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, epoch, errors[0], timeout_s=30.0)
+    torch.cuda.synchronize(dev)
+    after = time.perf_counter() - t0
+    poisoned = int(flags[1][0]) == ring_cuda.POISON
+    # rank 1 arrives late at epoch 1: rank 0 has poisoned its word there
+    t0 = time.perf_counter()
+    ring_cuda.ring_allreduce_wait_cuda(slots, 1, flags, 1, 1, errors[1], timeout_s=30.0)
+    torch.cuda.synchronize(dev)
+    late = time.perf_counter() - t0
+    both = raises(errors[0]) and raises(errors[1])
+    log(f"[20] one card: the flag-wait sum ({SHARDS} slots of {payload}, peer pre-published) "
+        f"against plain: {bad} mismatches; flag-wait launch {ms:.4f} ms, plain ring sum "
+        f"{plain_ms:.4f} ms; a wait no peer satisfies timed out after {waited:.3f} s, the "
+        f"rank's two later merges took {after:.3f} s and left the poison in its peer's word: "
+        f"{poisoned}; the late peer failed after {late:.3f} s; both raised: {both} ({card})")
+    check(bad == 0, "[20] the flag-wait sum differs from plain on one card")
+    check(both and poisoned and after < 5 and late < 5,
+          "[20] a failed flag wait did not reach its peer, or a rank waited after it")
+    return {"err": bad, "ms": ms, "plain_ms": plain_ms, "payload": list(payload),
+            "bytes": (SHARDS + 1) * parts[0].numel() * 4}
+
+
 def phase_interval(torch, codes, card) -> dict:
-    """Interval shards in separate processes (BASELINE config 5's layout)
-    on the one card: SHARDS shards over 1 (the stacked layout), 2 and 4
-    ranks, each holding SHARDS / n and mapping the others' through CUDA
-    IPC.  The SAMs (seed and FM path) of n ranks must equal the 1-rank SAMs
-    byte for byte, every rank's exact search under each merge the 1-rank
-    result, each rank's sharded tables at most 1 / n of the stacked bytes
-    plus one block row a shard, the sharded kernels equal to their plain
-    versions on the mapped layout, and every rank must launch the sharded
-    locate, the sharded piece search, the fused table entry, the ring sum
-    and the windows entry.  -> the launches of each rank, keyed by run."""
+    """Interval shards in separate processes (BASELINE config 5's layout),
+    rank r on card r % device_count: [20] SHARDS shards over 1 (the
+    stacked layout), 2 and 4 ranks, one interval group; [21] the two-axis
+    layout, 2 shards over 4 ranks (two interval groups, two copies of the
+    index).  Each rank holds its group's shards and maps the other
+    members' (CUDA IPC; over NVLink where they lie on other cards).  The
+    P-rank SAMs (seed and FM path) must equal the 1-rank SAMs byte for
+    byte, every rank's exact search the 1-rank result on its group's rows,
+    each rank's sharded tables at most its share of the stacked bytes plus
+    one block row a shard, the sharded kernels and the ring merge equal to
+    their plain versions on the mapped layout, and every rank must launch
+    the sharded locate, the sharded piece search, the fused table entry,
+    the ring sum (the flag-wait entry across cards) and the windows entry.
+    Where the ranks have a card each, the psum must go over NCCL, the ring
+    merge through the flag wait with no host barrier.  -> the launches of
+    each rank, keyed by run, and each run's merge timings."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch import cli
@@ -2672,71 +2868,112 @@ def phase_interval(torch, codes, card) -> dict:
     np.savez(work / "reads.npz", **{f"{key}_{f}": a for key, arrs in (("seed", seed), ("fm", fm))
                                     for f, a in zip(("reads", "pos", "strand"), arrs)},
              exact_reads=er.numpy())
-    ref, launches, max_err = {}, {}, 0
-    for n in INTERVAL_RANKS:
-        sam = work / f"seed{n}.sam"
-        res = run_ranks("interval", n, idx, seedf, work / "reads.npz", sam, tag="[20]")
+    n_cards = torch.cuda.device_count()
+    ref, launches, timings = {}, {}, {}
+    runs = [("[20]", n, SHARDS) for n in INTERVAL_RANKS] + [("[21]", TWO_AXIS_RANKS,
+                                                            TWO_AXIS_SHARDS)]
+    for phase, n, S in runs:
+        sam = work / f"seed{n}x{S}.sam"
+        res = run_ranks("interval", n, idx, seedf, work / "reads.npz", sam, tag=phase,
+                        extra=(str(S),))
+        g = pmesh.interval_span(n, S)
+        own_cards = 1 < n <= n_cards  # every rank on a card of its own
+        head = f"{phase} {n} rank(s), {S} shards ({n // g} interval group(s) of {g})"
         bodies = {"seed path": sam.read_bytes(), "FM path": Path(f"{sam}.fm.sam").read_bytes()}
         exact = [dict(np.load(f"{sam}.{r['rank']}.npz")) for r in res]
+        for r in res:
+            log(f"{head}: rank {r['rank']} on cuda:{r['card']}, group {r['group']}, shards "
+                f"{r['held']} on cards {r['shard_cards']}: peers on other cards "
+                f"{r['apart']}, NCCL group {r['nccl']}; merge routes by run "
+                f"{r['routes']}")
+            if r.get("memory_used"):
+                log(f"{head}: with every rank alive, memory.used by card {r['memory_used']}; "
+                    f"compute apps {r['compute_apps']} ({card})")
         for tag, path in (("seed path", sam), ("FM path", Path(f"{sam}.fm.sam"))):
             n_sam, mapped, correct = score_sam(path)
             wall = max(r["wall_s"][tag] for r in res)
             n_batches = -(-n_sam // (RANK_BATCH if tag == "seed path" else BATCH))
-            log(f"[20] {tag}, {n} rank(s), {SHARDS} shards: {n_sam} reads in {wall:.3f} s, "
-                f"{n_sam / wall:.1f} reads/s, {1e3 * wall / n_batches:.1f} ms a batch ({card}); "
-                f"mapped {mapped / n_sam:.6f}, correct {correct / n_sam:.6f}; peak device "
-                f"memory by rank {[r[f'peak_mem_bytes_{tag}'] for r in res]} B; launches by rank "
+            log(f"{head}, {tag}: {n_sam} reads in {wall:.3f} s, {n_sam / wall:.1f} reads/s, "
+                f"{1e3 * wall / n_batches:.1f} ms a batch ({card}); mapped "
+                f"{mapped / n_sam:.6f}, correct {correct / n_sam:.6f}; peak device memory by "
+                f"rank {[r[f'peak_mem_bytes_{tag}'] for r in res]} B; launches by rank "
                 f"{[r['launches'][tag] for r in res]}")
             check(mapped / n_sam >= MIN_MAPPED and correct / n_sam >= MIN_CORRECT,
-                  f"[20] {tag}, {n} ranks: mapped {mapped / n_sam:.4f}, correct "
+                  f"{phase} {tag}, {n} ranks: mapped {mapped / n_sam:.4f}, correct "
                   f"{correct / n_sam:.4f}")
         for merge in ("psum", "ring", "fused"):
             tag = f"exact, merge={merge}"
             wall = max(r["wall_s"][tag] for r in res)
             bar = [r[f"barrier_{merge}"] for r in res]
-            log(f"[20] {tag}, {n} rank(s): {res[0]['reads'][tag]} reads in every rank, "
-                f"{wall:.3f} s ({card}); host barriers {[b['calls'] for b in bar]}, "
+            log(f"{head}, {tag}: {res[0]['reads'][tag]} reads in each rank, {wall:.3f} s "
+                f"({card}); host barriers {[b['calls'] for b in bar]}, "
                 f"{[round(1e3 * b['s'] / max(1, b['calls']), 4) for b in bar]} ms each by rank; "
                 f"launches by rank {[r['launches'][tag] for r in res]}")
+        for r in res:
+            if "merge_ms" in r:
+                log(f"{head}: rank {r['rank']}, one merge of {r['merge_ms']['payload']} int32, "
+                    f"ms: {r['merge_ms']} ({card})")
         if n == 1:
             ref = {"bodies": bodies, "exact": exact[0]}
         for tag, body in bodies.items() if n > 1 else ():
             same = body == ref["bodies"][tag]
-            log(f"[20] {tag}: the {n}-rank SAM is byte-identical to the 1-rank stacked SAM: "
-                f"{same}")
-            check(same, f"[20] {tag}: the {n}-rank SAM differs from the 1-rank SAM")
+            log(f"{head}, {tag}: the SAM is byte-identical to the 1-rank stacked SAM: {same}")
+            check(same, f"{phase} {tag}: the {n}-rank SAM differs from the 1-rank SAM")
         for r, ex in zip(res, exact):
-            same = all(np.array_equal(ex[key], ref["exact"][key]) for key in ref["exact"])
-            check(same, f"[20] rank {r['rank']} of {n}: the exact search differs from the "
-                  f"1-rank stacked search")
+            who = f"{phase} rank {r['rank']} of {n}"
+            first, stop = r["rows"]
+            same = all(np.array_equal(ex[key], ref["exact"][key][first:stop])
+                       for key in ref["exact"])
+            check(same, f"{who}: the exact search differs from the 1-rank stacked search")
             m = r["mem"]
             big = m["requested"] - m["small"]
-            limit = m["stacked"] * (SHARDS // n) / SHARDS + FM_ROW_BYTES * (SHARDS // n)
-            log(f"[20] rank {r['rank']} of {n} holds shards {r['held']} "
+            per = S // g
+            limit = m["stacked"] * per / S + FM_ROW_BYTES * per
+            log(f"{who} holds shards {r['held']} "
                 f"({'the others mapped' if r['mapped'] else 'stacked'}): sharded tables "
                 f"{big} B requested ({m['allocated']} B allocated with the bounds), stacked "
                 f"{m['stacked']} B, limit {limit:.0f} B; the whole text (_text) {r['text_bytes']} "
-                f"B apart; the exact search equal to the 1-rank search under psum, ring and "
-                f"fused: {same}; kernels against plain on this layout, mismatches {r['bad']}")
-            check(big <= limit, f"[20] rank {r['rank']} of {n} holds {big} B of sharded tables, "
-                  f"more than {limit:.0f}")
-            check(r["mapped"] == (n > 1), f"[20] rank {r['rank']} of {n}: mapped {r['mapped']}")
-            check(not any(r["bad"].values()), f"[20] rank {r['rank']} of {n}: a sharded kernel "
-                  f"differs from its plain version: {r['bad']}")
+                f"B apart; the exact search on rows {r['rows']} equal to the 1-rank search "
+                f"under psum, ring and fused: {same}; kernels against plain on this layout, "
+                f"mismatches {r['bad']}")
+            check(big <= limit, f"{who} holds {big} B of sharded tables, more than {limit:.0f}")
+            check(r["mapped"] == (g > 1), f"{who}: mapped {r['mapped']}")
+            check(r["held"] == list(range(per * (r["rank"] % g), per * (r["rank"] % g + 1))),
+                  f"{who} holds shards {r['held']}")
+            check(not any(r["bad"].values()), f"{who}: a kernel differs from its plain "
+                  f"version: {r['bad']}")
+            check(r["card"] == r["rank"] % n_cards, f"{who} is on cuda:{r['card']}")
+            routes = {tag: r["routes"][f"exact, merge={tag}"] for tag in ("psum", "ring")}
+            if own_cards:
+                check(r["apart"] and len(set(r["shard_cards"])) == g,
+                      f"{who}: its group's shards are not one card a rank: {r['shard_cards']}")
+                check(routes["psum"]["psum nccl"] > 0 and routes["psum"]["psum gloo"] == 0,
+                      f"{who}: the psum did not go over NCCL: {routes['psum']}")
+                check(routes["ring"]["ring flag wait"] > 0
+                      and routes["ring"]["ring host barrier"] == 0,
+                      f"{who}: the ring merge did not take the flag wait alone: "
+                      f"{routes['ring']}")
+            elif g > 1:
+                check(routes["psum"]["psum gloo"] > 0 and routes["ring"]["ring host barrier"] > 0,
+                      f"{who}: ranks that share a card must merge over gloo and host barriers: "
+                      f"{routes}")
             want = {"seed path": ("windows entry",),
                     "FM path": ("windows entry", "sharded locate", "sharded piece search"),
                     "exact, merge=psum": ("sharded locate",),
-                    "exact, merge=ring": ("sharded locate", "ring sum"),
+                    "exact, merge=ring": ("sharded locate", "flag-wait ring sum" if own_cards
+                                          else "ring sum"),
                     "exact, merge=fused": ("sharded locate", "fused table entry")}
             for tag, kernels in want.items():
                 for kname in kernels:
-                    check(r["launches"][tag][kname] > 0, f"[20] rank {r['rank']} of {n}, {tag}: "
-                          f"the {kname} kernel was never launched")
-                launches[f"[20] {tag}, rank {r['rank']} of {n}"] = r["launches"][tag]
-    log(f"[20] the ranks share one card: a peer's shard is read from the same HBM as this "
-        f"rank's own, so these times say nothing of reads across NVLink ({card})")
+                    check(r["launches"][tag][kname] > 0, f"{who}, {tag}: the {kname} kernel was "
+                          f"never launched")
+                launches[f"{phase} {tag}, rank {r['rank']} of {n}"] = r["launches"][tag]
+        timings[phase, n] = {key: res[0][key] for key in ("merge_ms",) if key in res[0]}
+    if n_cards == 1:
+        log(f"[20] the ranks share one card: a peer's shard is read from the same HBM as this "
+            f"rank's own, so these times say nothing of reads across NVLink ({card})")
     shutil.rmtree(work)
-    return launches
+    return launches, timings
 
 
 def phase_builders(torch, dev, codes, card, native_index_s):
@@ -3529,7 +3766,8 @@ def kernel_row(name, source, replaces, path, launches, max_err, timing, **extra)
     launches are counted."""
     ms, plain_ms, bound_ms, bound_by, library_ms = timing
     return {"name": name, "route": "cuda", "source": f"genome_weaver_align_tpu_torch/csrc/{source}",
-            "replaces": f"genome_weaver_align_tpu/{replaces}", "path": path,
+            "replaces": replaces if replaces.startswith("none") else
+            f"genome_weaver_align_tpu/{replaces}", "path": path,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
@@ -3573,6 +3811,39 @@ def fm_rows(fm_k, fm_cli_launches, tier2_staircase, mode_launches, mp_launches) 
         row("one_mismatch", "one_mismatch.cu", "models/one_mismatch.py:127", "one-mismatch",
             "[13] align --mode onemm", onemm["[13] align --mode onemm"], onemm),
     ]
+
+def across_cards_bound(local_bytes: float, remote_bytes: float) -> tuple[float, str]:
+    """(least ms, what sets it) of a function that moves ``local_bytes``
+    in this card's memory and ``remote_bytes`` over NVLink from other
+    cards: whichever takes longer."""
+    t_local = local_bytes / PEAK_BYTES_PER_S * 1e3
+    t_remote = remote_bytes / NVLINK_BYTES_PER_S * 1e3
+    return (t_remote, "bytes over NVLink") if t_remote > t_local else (t_local, "bytes")
+
+
+def flag_wait_row(wait20, timings20, launches20) -> dict:
+    """The flag-wait ring entry's row: where [20]'s 4 ranks had a card
+    each, one merge of the exact search's step timed in the ranks (the
+    slot copy and the flag-wait launch, the skew between ranks included),
+    bounded by the peers' slots over NVLink, with NCCL's ``all_reduce`` of
+    the same payload as the library call and gloo's beside it; on one card
+    the launch with the peer's flags pre-published ([20] one card)."""
+    run = f"[20] exact, merge=ring, rank 0 of {INTERVAL_RANKS[-1]}"
+    ms = timings20.get(("[20]", INTERVAL_RANKS[-1]), {}).get("merge_ms", {})
+    slot = 4 * 2 * (BATCH // RING_MICROBATCH)  # one shard's partials, (2, 32,768) int32
+    extra = {"one_card_ms": wait20["ms"], "launches_by_path": per_run(launches20,
+                                                                       "flag-wait ring sum")}
+    if ms.get("ring_route") == "flag wait":
+        timing = (ms["ring"], wait20["plain_ms"],
+                  *across_cards_bound(2 * slot, (SHARDS - 1) * slot), ms.get("nccl"))
+        extra.update(library="NCCL all_reduce of the payload across the ranks' cards",
+                     gloo_ms=ms["gloo"], measured="one merge in 4 ranks on 4 cards")
+    else:
+        timing = (wait20["ms"], wait20["plain_ms"], *bound((SHARDS + 1) * slot, 0), None)
+        extra.update(measured="one launch on one card, the peer's flags pre-published")
+    return kernel_row("ring_allreduce_flag_wait", "ring.cu", "parallel/ring.py:58", run,
+                      launches20[run]["flag-wait ring sum"], wait20["err"], timing, **extra)
+
 
 def per_run(launches: dict, kernel: str) -> dict:
     """One kernel's launches in each run of a phase's ranks (keyed by run)."""
@@ -3693,7 +3964,8 @@ def main() -> int:
         long_launches = phase_long_reads(torch, dev, codes, card)
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
         rank_launches, rank_err, fm16 = phase_ranks(torch, codes, card)
-        launches20 = phase_interval(torch, codes, card)
+        wait20 = phase_flag_wait(torch, card)
+        launches20, timings20 = phase_interval(torch, codes, card)
         phase_builders(torch, dev, codes, card, native_index_s)
         fm_k = phase_fm_kernels(torch, dev, codes, rep_codes, card)
         loc_k = phase_locate(torch, dev, codes, rep_codes, card, fm_k["step_us"])
@@ -3743,6 +4015,7 @@ def main() -> int:
                    "[10] merge=ring", ring_launches, ring_err["ring"], ring_timing["ring"],
                    launches_by_path={"[10] merge=ring": ring_launches,
                                      **per_run(launches20, "ring sum")}),
+        flag_wait_row(wait20, timings20, launches20),
         kernel_row("fused_rank_ring_words", "ring.cu", "parallel/ring.py:162",
                    "none: the JAX contract's entry, held against plain in [9]", 0,
                    ring_err["words"], ring_timing["words"]),

@@ -13,11 +13,39 @@
 // added in that order, so the float32 sum is bit-equal to the plain loop.
 // Every shard's buffers come in as their own base pointers: one stacked
 // tensor's rows, or separate allocations, another process's mapped through
-// CUDA IPC (parallel/peer.py).  Across processes the sum's inputs are the
-// ranks' mapped partial slots, and each process writes its own output only
-// (a null output pointer is skipped); the host orders the steps (a stream
-// synchronize and a barrier before the sum reads the peers' slots: kernels
-// of two processes time-slice one card, so none waits on another's flag).
+// CUDA IPC (parallel/peer.py: opened on this card with lazy peer access,
+// so memory on another card is read over NVLink).  Across processes the
+// sum's inputs are the ranks' mapped partial slots, and each process writes
+// its own output only (a null output pointer is skipped).  Two orders between the processes:
+//   - ranks that share one card: the host orders the steps (a stream
+//     synchronize and a barrier before the sum reads the peers' slots):
+//     kernels of two processes time-slice one card, so none may wait on
+//     another's flag;
+//   - ranks on separate cards: allreduce_kernel<T, S, true>, the
+//     flag-wait entry (gwa_allreduce_wait), the port of what _ring_kernel
+//     does with its barrier and capacity semaphores (ring.py:69-84,
+//     :107-118).  Each block's thread 0 publishes the merge's epoch into
+//     every peer's flag word (a system-scope fence, then an atomicMax over
+//     NVLink; every block publishes, so the first block to run does it
+//     whatever the order of the blocks), then spins, reading this rank's
+//     own flag words (acquire), until every peer has reached that epoch,
+//     and the block sums as below.  A peer publishes after its slot write
+//     (stream order: the copy precedes the launch), so the acquire makes
+//     its slot complete.  Two slots taken in turn are enough: a rank
+//     writes slot i % 2 after its merge i - 1 saw every peer reach epoch
+//     i - 1, so every peer's merge i - 2, the last reader of that slot,
+//     has ended.
+//     The wait is bounded, and a failure reaches every peer.  Past
+//     `timeout_ns` of the card's global timer, or on finding a peer's word
+//     poisoned, the block writes 1 to the error word and publishes the
+//     poison (kPoison, above every epoch: the atomicMax keeps it) into
+//     every peer's word; a launch that finds the error word set waits no
+//     more and publishes the poison, never an epoch.  So a rank that has
+//     stopped waiting, and may reuse a slot a slow peer still reads, has
+//     poisoned that peer's next wait at the latest: the peer's error word
+//     is set before its search ends.  The caller reads the error word once
+//     the merges are done and raises, so a failed search never hangs and
+//     never returns its sums.
 //
 // No ring.  The TPU ran a ring because ICI moves data by remote DMA between
 // neighbours.  On one card all S shards lie in the same device memory and a
@@ -25,8 +53,11 @@
 // each kernel is one pass that reads every shard's input once and writes
 // every shard's output.  Stream order makes every input complete at launch:
 // nothing to wait on, no scratch, nothing for the host to read back.  Across
-// NVLink-joined cards the choice is between NCCL's all_reduce and this
-// one-pass shape over peer pointers behind one ready barrier.
+// NVLink-joined cards the same one pass reads the peers' slots over NVLink
+// behind the flag wait: each rank reads every other rank's partial once
+// (the bytes a ring would move to it) in one hop, not S-1 dependent ones.
+// Its yardstick is NCCL's all_reduce on the same payload (chip_smoke.py
+// [20]).
 //
 // allreduce_kernel: each thread reads the same 16-byte vector of every
 // shard's input; int32 adds wrap, so one sum serves every shard; float32
@@ -61,8 +92,8 @@
 // built.  At chr20 scale the shards' bwt_blocks are ~16 MB and stay in the
 // 50 MB L2.  Bound: bytes, k, code, row, checkpoint and out, 48 B a query.
 //
-// Entries: gwa_allreduce, gwa_fused_words and gwa_fused_occ, plain C
-// functions bound with ctypes.  The launches run on the caller's stream, do
+// Entries: gwa_allreduce, gwa_allreduce_wait, gwa_fused_words and
+// gwa_fused_occ, plain C functions bound with ctypes.  The launches run on the caller's stream, do
 // not synchronise, allocate nothing, and return the launch's CUDA error
 // code.
 
@@ -141,13 +172,88 @@ __device__ __forceinline__ void ring_sums(const T (&x)[S][E], T (&out)[S][E],
   }
 }
 
+// The flag words of a merge across cards: rank r's flags are `ranks` int32
+// words on its card, word q the last epoch rank q published to it, or
+// kPoison once rank q's wait has failed.
+constexpr int kPoison = 0x7fffffff;
+struct Flags {
+  int* peer[kMaxShards];  // each rank's flag words, mapped (this rank's own at me)
+  const int* own;         // this rank's flag words
+  int* error;             // this rank's error word, on its card
+  int ranks, me, epoch;
+  long long timeout_ns;
+};
+
+__device__ __forceinline__ int load_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// `v` into this rank's word of every peer's flags, after this rank's
+// earlier writes.  The rank loop runs over constant indices (unrolled and
+// masked): a parameter indexed by a variable is copied to the stack.
+__device__ __forceinline__ void publish(const Flags& f, int v) {
+  __threadfence_system();
+#pragma unroll
+  for (int q = 0; q < kMaxShards; ++q) {
+    if (q < f.ranks && q != f.me) atomicMax_system(f.peer[q] + f.me, v);
+  }
+}
+
+// Thread 0 of the block publishes the epoch to every peer, then waits
+// (bounded) until every peer has published it here; on a failure (the
+// error word already set, a poisoned peer, the timeout) it sets the error
+// word and publishes the poison.  The block waits on thread 0.
+__device__ __forceinline__ void publish_and_wait(const Flags& f) {
+  if (threadIdx.x == 0) {
+    bool failed = load_acquire_sys(f.error) != 0;  // an earlier merge or block failed
+    publish(f, failed ? kPoison : f.epoch);
+    const long long t0 = global_ns();
+    for (int q = 0; q < f.ranks && !failed; ++q) {
+      while (q != f.me) {
+        const int v = load_acquire_sys(f.own + q);
+        if (v >= f.epoch && v != kPoison) break;
+        if (v == kPoison || global_ns() - t0 > f.timeout_ns ||
+            load_acquire_sys(f.error) != 0) {
+          failed = true;
+          break;
+        }
+        __nanosleep(64);
+      }
+    }
+    if (failed) {
+      atomicExch(f.error, 1);
+      publish(f, kPoison);
+    }
+  }
+  __syncthreads();
+}
+
+template <bool Wait>
+__device__ __forceinline__ uint4 load_vec(const void* p, int64_t v) {
+  // across cards the peers' slots are read with plain loads after the
+  // acquire: not through the read-only path
+  if constexpr (Wait) {
+    return static_cast<const uint4*>(p)[v];
+  } else {
+    return __ldg(static_cast<const uint4*>(p) + v);
+  }
+}
+
 // Elements [0, 4 n_vec) as 16-byte vectors (every pointer 16-byte aligned),
 // then [4 n_vec, n) one at a time.
 // A null output pointer is not written: across processes each writes its
-// own shard's output only.
-template <typename T, int S>
+// own shard's output only.  With Wait, the flag wait first (Flags).
+template <typename T, int S, bool Wait>
 __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, int64_t n,
-                                                             int64_t n_vec) {
+                                                             int64_t n_vec, const Flags f) {
+  if constexpr (Wait) publish_and_wait(f);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   bool want[S];
@@ -157,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
     T x[S][4], out[S][4];
 #pragma unroll
     for (int d = 0; d < S; ++d) {
-      const uint4 u = __ldg(static_cast<const uint4*>(p.in[d]) + v);
+      const uint4 u = load_vec<Wait>(p.in[d], v);
       x[d][0] = from_bits<T>(u.x);
       x[d][1] = from_bits<T>(u.y);
       x[d][2] = from_bits<T>(u.z);
@@ -187,8 +293,8 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
   }
 }
 
-template <typename T, int S>
-int allreduce(const ShardIO& p, int64_t n, cudaStream_t stream) {
+template <typename T, int S, bool Wait>
+int allreduce(const ShardIO& p, int64_t n, const Flags& f, cudaStream_t stream) {
   bool aligned = true;
   for (int d = 0; d < S; ++d)
     aligned &= (reinterpret_cast<uintptr_t>(p.in[d]) | reinterpret_cast<uintptr_t>(p.out[d])) %
@@ -197,29 +303,29 @@ int allreduce(const ShardIO& p, int64_t n, cudaStream_t stream) {
   unsigned blocks = 0;
   const int rc = grid_blocks(n_vec > n - 4 * n_vec ? n_vec : n - 4 * n_vec, &blocks);
   if (rc != 0) return rc;
-  allreduce_kernel<T, S><<<blocks, kThreads, 0, stream>>>(p, n, n_vec);
+  allreduce_kernel<T, S, Wait><<<blocks, kThreads, 0, stream>>>(p, n, n_vec, f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int allreduce_s(int S, const ShardIO& p, int64_t n, cudaStream_t s) {
+template <typename T, bool Wait = false>
+int allreduce_s(int S, const ShardIO& p, int64_t n, cudaStream_t s, const Flags& f = Flags{}) {
   switch (S) {
-    case 1: return allreduce<T, 1>(p, n, s);
-    case 2: return allreduce<T, 2>(p, n, s);
-    case 3: return allreduce<T, 3>(p, n, s);
-    case 4: return allreduce<T, 4>(p, n, s);
-    case 5: return allreduce<T, 5>(p, n, s);
-    case 6: return allreduce<T, 6>(p, n, s);
-    case 7: return allreduce<T, 7>(p, n, s);
-    case 8: return allreduce<T, 8>(p, n, s);
-    case 9: return allreduce<T, 9>(p, n, s);
-    case 10: return allreduce<T, 10>(p, n, s);
-    case 11: return allreduce<T, 11>(p, n, s);
-    case 12: return allreduce<T, 12>(p, n, s);
-    case 13: return allreduce<T, 13>(p, n, s);
-    case 14: return allreduce<T, 14>(p, n, s);
-    case 15: return allreduce<T, 15>(p, n, s);
-    case 16: return allreduce<T, 16>(p, n, s);
+    case 1: return allreduce<T, 1, Wait>(p, n, f, s);
+    case 2: return allreduce<T, 2, Wait>(p, n, f, s);
+    case 3: return allreduce<T, 3, Wait>(p, n, f, s);
+    case 4: return allreduce<T, 4, Wait>(p, n, f, s);
+    case 5: return allreduce<T, 5, Wait>(p, n, f, s);
+    case 6: return allreduce<T, 6, Wait>(p, n, f, s);
+    case 7: return allreduce<T, 7, Wait>(p, n, f, s);
+    case 8: return allreduce<T, 8, Wait>(p, n, f, s);
+    case 9: return allreduce<T, 9, Wait>(p, n, f, s);
+    case 10: return allreduce<T, 10, Wait>(p, n, f, s);
+    case 11: return allreduce<T, 11, Wait>(p, n, f, s);
+    case 12: return allreduce<T, 12, Wait>(p, n, f, s);
+    case 13: return allreduce<T, 13, Wait>(p, n, f, s);
+    case 14: return allreduce<T, 14, Wait>(p, n, f, s);
+    case 15: return allreduce<T, 15, Wait>(p, n, f, s);
+    case 16: return allreduce<T, 16, Wait>(p, n, f, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -339,6 +445,38 @@ extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptr
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return allreduce_s<int>(S, p, n, s);
   if (dtype == 1) return allreduce_s<float>(S, p, n, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The flag-wait entry (ranks on separate cards): gwa_allreduce's sum after
+// this rank publishes `epoch` (1 .. kPoison - 1) to every peer and waits,
+// at most `timeout_ns`, until every peer has published it.  flag_ptrs: `ranks`
+// device pointers, rank q's `ranks` flag words (this rank's at `me`, the
+// others mapped); error: this rank's error word.
+extern "C" int gwa_allreduce_wait(int dtype, int S, int64_t n, const uint64_t* in_ptrs,
+                                  const uint64_t* out_ptrs, int ranks, int me,
+                                  const uint64_t* flag_ptrs, int epoch, void* error,
+                                  long long timeout_ns, void* stream) {
+  if (S < 1 || S > kMaxShards || n < 0 || ranks < 1 || ranks > kMaxShards || me < 0 ||
+      me >= ranks || epoch < 1 || epoch >= kPoison || error == nullptr || timeout_ns < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  ShardIO p{};
+  for (int d = 0; d < S; ++d) {
+    p.in[d] = reinterpret_cast<const void*>(in_ptrs[d]);
+    p.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
+  }
+  Flags f{};
+  for (int q = 0; q < ranks; ++q) f.peer[q] = reinterpret_cast<int*>(flag_ptrs[q]);
+  f.own = f.peer[me];
+  f.error = static_cast<int*>(error);
+  f.ranks = ranks;
+  f.me = me;
+  f.epoch = epoch;
+  f.timeout_ns = timeout_ns;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return allreduce_s<int, true>(S, p, n, s, f);
+  if (dtype == 1) return allreduce_s<float, true>(S, p, n, s, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

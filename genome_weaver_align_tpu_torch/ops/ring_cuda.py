@@ -14,9 +14,19 @@ rank + shard sum that replaces ``_fused_rank_ring_kernel`` has two entries:
 kernel is one pass over every shard's input: nothing to wait on, no
 scratch, nothing read back.  Every shard's buffers are passed as their own
 device pointers, so a shard may be a row of a stacked tensor, its own
-allocation, or another process's mapped through CUDA IPC.  ``ops._cuda_build`` compiles the source at first use with
-``nvcc`` for ``sm_90a``; without ``nvcc``, or when the build fails, loading
-raises: there is no fallback to the plain versions.
+allocation, or another process's mapped through CUDA IPC (on this card,
+whichever card holds the memory: ``parallel.peer``).
+
+``ring_allreduce_wait_cuda`` is the sum's flag-wait entry, for ranks on
+separate cards (``sharded_index._RingSlots``): before it sums, its launch
+publishes the merge's epoch into every peer's flag word and waits, bounded,
+until every peer has published it.  A wait that times out, or that finds a
+peer's word poisoned, sets the error word, which ``check_flag_wait`` turns
+into an exception; from then on this rank publishes the poison instead of
+its epochs, so every peer's wait fails too.  It equals
+``ring_psum_plain`` too.  ``ops._cuda_build`` compiles the source at first
+use with ``nvcc`` for ``sm_90a``; without ``nvcc``, or when the build
+fails, loading raises: there is no fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -31,6 +41,12 @@ from .fm_search_cuda import PTRS, owner_divisor, shard_parts, shard_ptrs
 
 MAX_SHARDS = 16
 _DTYPES = {torch.int32: 0, torch.float32: 1}
+# a flag wait gives up after this long: far above any merge's skew between
+# ranks, far below the collectives' timeout
+FLAG_TIMEOUT_S = 30.0
+# a flag word that holds this is poisoned: its rank's wait failed
+# (``csrc/ring.cu`` kPoison, above every epoch)
+POISON = (1 << 31) - 1
 
 
 @functools.cache
@@ -39,11 +55,14 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("ring.cu")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
+    lib.gwa_allreduce_wait.argtypes = [i32, i32, i64, vp, vp, i32, i32, vp, i32, vp,
+                                       ctypes.c_longlong, vp]
     lib.gwa_fused_words.argtypes = [i32, i64, vp, vp]
     lib.gwa_fused_occ.argtypes = [
         i32, i32, i32, i64, PTRS, PTRS, vp, vp, ctypes.c_uint32, i32, vp, vp, vp, vp,
     ]
-    for fn in (lib.gwa_allreduce, lib.gwa_fused_words, lib.gwa_fused_occ):
+    for fn in (lib.gwa_allreduce, lib.gwa_allreduce_wait, lib.gwa_fused_words,
+               lib.gwa_fused_occ):
         fn.restype = ctypes.c_int
     return lib
 
@@ -57,48 +76,109 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
-    """All-reduce over the shards of a CUDA tensor ``(S, ...)`` int32 or
-    float32, or of S such ``(...)`` tensors, each its own allocation (the
-    ranks' partial slots, mapped from other processes): every shard's row of
-    the result holds the sum, added in ``ring_psum_plain``'s order.  With
-    ``only`` = d the kernel writes shard d's sum alone and returns it
-    ``(...)``.  One kernel pass; launches on the current stream without
-    synchronising.  Counts each launch in ``.launches``."""
+def _sum_io(parts, only, name):
+    """Check a sum's shards and allocate its output on the launching card
+    (shard ``only``'s, or the first shard's): (inputs, output, output rows,
+    dtype code)."""
     # Bad input: the kernel is built for int32 and float32 on the card; a
     # CPU tensor or another type raises here and never reaches a plain
     # version
     ins = shard_parts(parts)
     S = len(ins)
     _check_shards(S)
-    if not all(t.is_cuda and t.device == ins[0].device for t in ins):
-        raise ValueError("ring_allreduce_cuda needs its tensors on one CUDA device")
+    if only is not None and not 0 <= only < S:
+        raise ValueError(f"{name}: only={only} is not a shard of {S}")
+    dev = ins[0 if only is None else only].device
+    if not all(t.is_cuda and t.device == dev for t in ins):
+        raise ValueError(f"{name} needs its tensors on one CUDA device")
     if any(t.dtype not in _DTYPES or t.dtype != ins[0].dtype for t in ins):
-        raise TypeError(f"ring_allreduce_cuda takes int32 or float32, got "
+        raise TypeError(f"{name} takes int32 or float32, got "
                         f"{sorted({str(t.dtype) for t in ins})}")
     if not all(t.is_contiguous() and t.shape == ins[0].shape for t in ins):
-        raise ValueError("ring_allreduce_cuda needs contiguous shards of one shape")
-    if only is not None and not 0 <= only < S:
-        raise ValueError(f"ring_allreduce_cuda: only={only} is not a shard of {S}")
-    dtype, dev, shape = ins[0].dtype, ins[0].device, ins[0].shape
+        raise ValueError(f"{name} needs contiguous shards of one shape")
+    dtype, shape = ins[0].dtype, ins[0].shape
     out = torch.empty((S, *shape) if only is None else shape, dtype=dtype, device=dev)
+    n = ins[0].numel()
+    outs = list(out.view(S, n)) if only is None else [
+        out if d == only else None for d in range(S)]
+    return ins, out, outs, _DTYPES[dtype]
+
+
+def _out_ptrs(outs) -> ctypes.Array:
+    return (ctypes.c_uint64 * len(outs))(*[0 if t is None else t.data_ptr() for t in outs])
+
+
+def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
+    """All-reduce over the shards of a CUDA tensor ``(S, ...)`` int32 or
+    float32, or of S such ``(...)`` tensors, each its own allocation (the
+    ranks' partial slots, mapped from other processes): every shard's row of
+    the result holds the sum, added in ``ring_psum_plain``'s order.  With
+    ``only`` = d the kernel writes shard d's sum alone and returns it
+    ``(...)``.  One kernel pass on the output's card (shard d's, or the
+    first shard's); launches on the current stream without synchronising.
+    Counts each launch in ``.launches``."""
+    ins, out, outs, code = _sum_io(parts, only, "ring_allreduce_cuda")
     n = ins[0].numel()
     if n == 0:
         return out
-    outs = list(out.view(S, n)) if only is None else [
-        out if d == only else None for d in range(S)]
-    ptr_in = shard_ptrs(ins)
-    ptr_out = (ctypes.c_uint64 * S)(*[0 if t is None else t.data_ptr() for t in outs])
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.gwa_allreduce(_DTYPES[dtype], S, n, ptr_in, ptr_out, _stream())
+    with torch.cuda.device(out.device):
+        rc = _library().gwa_allreduce(code, len(ins), n, shard_ptrs(ins), _out_ptrs(outs),
+                                      _stream())
     if rc != 0:
-        raise RuntimeError(f"gwa_allreduce launch failed ({S} shards): CUDA error {rc}")
+        raise RuntimeError(f"gwa_allreduce launch failed ({len(ins)} shards): CUDA error {rc}")
     ring_allreduce_cuda.launches += 1
     return out
 
 
 ring_allreduce_cuda.launches = 0
+
+
+def ring_allreduce_wait_cuda(parts, only: int, flags, me: int, epoch: int,
+                             error: torch.Tensor, timeout_s: float = FLAG_TIMEOUT_S):
+    """The flag-wait sum across cards: ``ring_allreduce_cuda(parts, only)``
+    after this rank (``me`` of ``len(flags)``) publishes ``epoch`` (>= 1,
+    rising from merge to merge) into every peer's flag words and waits, at
+    most ``timeout_s``, until every peer has published it into this rank's.
+    ``flags``: every rank's ``(ranks,)`` int32 flag words, mapped onto the
+    output's card (``parallel.peer.share``); ``error``: a ``(1,)`` int32
+    word on that card that a failed wait sets to 1 (read it with
+    ``check_flag_wait``): a timed-out wait, or one that finds a peer's word
+    poisoned.  Once ``error`` is set the launch waits no more and publishes
+    the poison, not ``epoch``.  Counts each launch in ``.launches``."""
+    name = "ring_allreduce_wait_cuda"
+    ins, out, outs, code = _sum_io(parts, only, name)
+    dev = out.device
+    ranks = len(flags)
+    if not 1 <= ranks <= MAX_SHARDS or not 0 <= me < ranks or not 1 <= epoch < POISON:
+        raise ValueError(f"{name}: rank {me} of {ranks}, epoch {epoch}")
+    if error.device != dev or error.dtype != torch.int32 or error.numel() != 1:
+        raise ValueError(f"{name}: the error word must be one int32 on {dev}")
+    if any(f.dtype != torch.int32 or f.shape != (ranks,) or not f.is_contiguous()
+           or f.device != dev for f in flags):
+        raise ValueError(f"{name}: every rank's flags must be ({ranks},) contiguous int32 on "
+                         f"{dev}")
+    n = ins[0].numel()
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _library().gwa_allreduce_wait(
+            code, len(ins), n, shard_ptrs(ins), _out_ptrs(outs), ranks, me, shard_ptrs(flags),
+            epoch, error.data_ptr(), int(timeout_s * 1e9), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gwa_allreduce_wait launch failed ({len(ins)} shards, {ranks} ranks): "
+                           f"CUDA error {rc}")
+    ring_allreduce_wait_cuda.launches += 1
+    return out
+
+
+ring_allreduce_wait_cuda.launches = 0
+
+
+def check_flag_wait(error: torch.Tensor) -> None:
+    """Raise if a flag wait set ``error`` (reads the word: a synchronise)."""
+    if int(error.item()):
+        raise RuntimeError("a flag wait of the ring merge across cards failed: it timed out, or "
+                           "a peer's had; the merged sums are not valid")
 
 
 def _check_int32_cuda(name: str, ts) -> None:

@@ -1,34 +1,44 @@
 """Several processes over ``torch.distributed``: the torch counterpart of
 ``genome_weaver_align_tpu.parallel.multihost``.
 
-One process per host (or per card), joined by ``initialize_distributed``.
-Reads are streamed data-parallel: every process holds the whole batch, pads
-it to a multiple of the process count and aligns only its own slice
+One process per card, joined by ``initialize_distributed``.  Reads are
+streamed data-parallel: every process holds the whole batch, pads it to a
+multiple of the process count and aligns only its own slice
 (``host_shard_info``, ``make_global_batch``).  ``gather_to_host`` brings
 every slice's results back to every process, in global read order, so the
 host tail that follows (CIGARs, SAM) sees the whole batch and the SAM bytes
 are the same for any process count.  With one process every function
 degenerates to the local case.
 
-The transport is gloo, always:
+Each process takes a card: its local rank (``LOCAL_RANK``, else its rank:
+one host) modulo the cards it sees (``card_for``, ``device``); several
+processes share a card where there are fewer cards than processes.
 
-- the results go to the host for the SAM tail in any case, as the JAX
-  package's ``process_allgather`` returns host arrays;
-- gloo runs the same way on the CPU and with several ranks on one card;
-- NCCL refuses two ranks on one GPU.
+Two transports:
 
-The interval group (``interval_group``) is the processes that together
-hold one copy of an interval-sharded index: every process, each holding
-``n_interval / P`` of the shards (``mesh.make_layout``,
-``parallel.peer``).  Its collectives are the shard maps' exchanges and
-barriers and the exact search's cross-process merges.
+- gloo, the world group: ``gather_to_host`` (the results go to the host
+  for the SAM in any case, as the JAX package's ``process_allgather``
+  returns host arrays), the shard maps' exchanges and barriers, and every
+  collective on CPU tensors;
+- NCCL, beside gloo, for each interval group whose processes lie on
+  distinct cards (``nccl_group``): the exact search's psum on the card,
+  with no hop to the host.  NCCL refuses two ranks on one card, so a group
+  whose ranks share a card has no NCCL group and keeps gloo.
 
-NCCL belongs with shards spread across cards (ROADMAP queue 1 #16).
+The interval groups (``interval_group``) are the processes that together
+hold one copy of an interval-sharded index: g consecutive ranks, each
+holding ``n_interval / g`` of the shards (``mesh.make_layout`` chooses g;
+``parallel.peer`` maps the others').  ``initialize_distributed`` makes the
+groups of every span g that divides the process count, so a layout of any
+shard count finds its groups made.  Their collectives are the shard maps'
+exchanges and barriers and the exact search's cross-process merges.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
+import socket
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,7 +51,32 @@ from ..models import exact
 # instead of hanging them
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
-_INTERVAL_GROUP = None
+_CARD = None  # this process's card, recorded by initialize_distributed
+_GROUPS = {}  # span -> (this process's gloo group, its NCCL group or None)
+
+
+def card_for(local_rank: int, n_cards: int) -> int | None:
+    """The card a process of local rank ``local_rank`` takes among
+    ``n_cards`` (None without a card)."""
+    return local_rank % n_cards if n_cards > 0 else None
+
+
+def spans(n_procs: int) -> list[int]:
+    """The spans of the interval groups made for ``n_procs`` processes:
+    every divisor above 1."""
+    return [g for g in range(2, n_procs + 1) if n_procs % g == 0]
+
+
+def groups_of(n_procs: int, span: int) -> list[list[int]]:
+    """The interval groups of ``span`` consecutive ranks."""
+    return [list(range(first, first + span)) for first in range(0, n_procs, span)]
+
+
+def apart(places, ranks) -> bool:
+    """Whether the processes ``ranks`` lie on distinct cards: ``places``
+    is every process's (host, card), card None without one."""
+    cards = [places[r] for r in ranks]
+    return all(c[1] is not None for c in cards) and len(set(cards)) == len(cards)
 
 
 def initialize_distributed(
@@ -50,9 +85,11 @@ def initialize_distributed(
     process_id: int | None = None,
 ) -> None:
     """Join a gloo process group at ``coordinator_address`` (``host:port``;
-    process 0 listens there) and make its interval group; no-op for a
-    single process."""
-    global _INTERVAL_GROUP
+    process 0 listens there), take this process's card (``card_for``; made
+    the current CUDA device) and make the interval groups of every span,
+    each with an NCCL group beside its gloo group where its processes lie
+    on distinct cards; no-op for a single process."""
+    global _CARD
     if num_processes is None or num_processes <= 1:
         return
     dist.init_process_group(
@@ -62,18 +99,63 @@ def initialize_distributed(
         rank=process_id,
         timeout=COLLECTIVE_TIMEOUT,
     )
-    _INTERVAL_GROUP = dist.new_group(list(range(num_processes)), backend="gloo",
-                                     timeout=COLLECTIVE_TIMEOUT)
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    _CARD = card_for(int(os.environ.get("LOCAL_RANK", process_id)), n_cards)
+    if _CARD is not None:
+        torch.cuda.set_device(_CARD)
+    places = [None] * num_processes
+    dist.all_gather_object(places, (socket.gethostname(), _CARD))
+    nccl = dist.is_nccl_available() and n_cards > 0
+    _GROUPS.clear()
+    for g in spans(num_processes):
+        # every process makes every group, in one order (a collective)
+        for ranks in groups_of(num_processes, g):
+            gloo = dist.new_group(ranks, backend="gloo", timeout=COLLECTIVE_TIMEOUT)
+            fast = (dist.new_group(ranks, backend="nccl", timeout=COLLECTIVE_TIMEOUT)
+                    if nccl and apart(places, ranks) else None)
+            if process_id in ranks:
+                _GROUPS[g] = (gloo, fast)
 
 
-def interval_group():
-    """The gloo group of the processes that together hold one copy of an
-    interval-sharded index (all of them), or None in one process."""
-    if process_count() == 1:
+def card() -> int | None:
+    """This process's card (None in one process, or without a card)."""
+    return _CARD if process_count() > 1 else None
+
+
+def device() -> torch.device:
+    """This process's card as a device (the current CUDA device in one
+    process; the CPU without a card)."""
+    c = card()
+    if c is not None:
+        return torch.device("cuda", c)
+    return torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() \
+        else torch.device("cpu")
+
+
+def _group(span: int | None):
+    span = process_count() if span is None else span
+    if process_count() == 1 or span == 1:
         return None
-    if _INTERVAL_GROUP is None:
-        raise RuntimeError("the process group was not made by initialize_distributed")
-    return _INTERVAL_GROUP
+    if span not in _GROUPS:
+        raise RuntimeError(f"no interval group of {span} processes: the process group was not "
+                           "made by initialize_distributed, or the span does not divide "
+                           f"{process_count()} processes")
+    return _GROUPS[span]
+
+
+def interval_group(span: int | None = None):
+    """The gloo group of this process's interval group of ``span``
+    consecutive processes (all of them by default; ``mesh.ShardLayout.
+    group``), or None when it is this process alone."""
+    g = _group(span)
+    return None if g is None else g[0]
+
+
+def nccl_group(span: int | None = None):
+    """The NCCL group beside ``interval_group(span)``: None where its
+    processes share a card or have none (they keep gloo)."""
+    g = _group(span)
+    return None if g is None else g[1]
 
 
 def process_index() -> int:

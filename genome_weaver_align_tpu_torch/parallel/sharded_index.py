@@ -17,9 +17,10 @@ plus the local checkpoint is already the global occ value.
 In one process all shards live on one device, stacked on a leading shard
 axis S as in the JAX package's host layout.  Under
 ``multihost.initialize_distributed`` a layout whose interval axis spans
-the P processes (``mesh.make_layout``) gives each process S / P of the
-shards, and ``put_sharded`` maps the others' (``parallel.peer``): the big
-tables become ``peer.Shards``, one tensor a shard.  Every ``local_*``
+interval groups of g processes (``mesh.make_layout``) gives each process
+S / g of the shards, and ``put_sharded`` maps the other members' on their
+cards (``parallel.peer``): the big tables become ``peer.Shards``, one
+tensor a shard.  Every ``local_*``
 function answers a query for all S shards at once, wherever they live, and
 returns ``(S, ...)`` partials.  A ``merge`` takes those partials and
 returns the ``(...)`` sum: ``parts.sum(0)`` by default (the analogue of
@@ -189,7 +190,7 @@ def put_tables(host, device, layout: ShardLayout, tables, small):
     ``peer.Shards`` (a collective: every process of the interval group
     calls it); the small bounds are every process's."""
     spread = layout is not None and layout.interval_procs > 1
-    group = mh.interval_group() if spread else None
+    group = layout.group if spread else None
     kw = {f: peer.shard_table(np.asarray(getattr(host, f)), device, layout, group)
           if spread else rank._upload(np.asarray(getattr(host, f)), device) for f in tables}
     kw.update({f: rank._upload(np.asarray(getattr(host, f)), device) for f in small})
@@ -227,7 +228,9 @@ def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def shard_rows(table, idx: torch.Tensor) -> torch.Tensor:
     """table (S, R, ...), stacked or ``peer.Shards``, gathered at per-shard
-    row indices idx (S, ...)."""
+    row indices idx (S, ...).  A mapped shard's tensor lies on this
+    process's card whichever card holds its memory (``peer.share``), so
+    torch indexes it there, over NVLink for a shard on another card."""
     if not isinstance(table, torch.Tensor):
         return torch.stack([t[i.long()] for t, i in zip(table, idx)])
     S, R = table.shape[:2]
@@ -421,13 +424,27 @@ def locate_plain(sh, rows, merge=None):
     return val + d
 
 
-def _psum_across(group):
+# The merges across processes by route, counted where each runs: psum over
+# NCCL on the card or gloo on the host; ring by the flag wait or behind a
+# host barrier (chip_smoke.py [20] reads them)
+CROSS_MERGES = dict.fromkeys(("psum nccl", "psum gloo", "ring flag wait", "ring host barrier"), 0)
+
+
+def _psum_across(group, nccl):
     """The psum merge across processes: each process's own shards' partials
-    summed, then ``all_reduce`` over the interval group (gloo, on the
-    host: the JAX ``psum`` over an interval axis that spans processes)."""
+    summed, then ``all_reduce`` over the interval group (the JAX ``psum``
+    over an interval axis that spans processes): over the NCCL group
+    ``nccl`` on the device tensor where the group's processes lie on
+    separate cards, else over gloo on the host."""
     def merge(parts: torch.Tensor) -> torch.Tensor:
-        x = parts.sum(0, dtype=I32).cpu()
+        x = parts.sum(0, dtype=I32)
+        if nccl is not None:
+            dist.all_reduce(x, group=nccl)
+            CROSS_MERGES["psum nccl"] += 1
+            return x
+        x = x.cpu()
         dist.all_reduce(x, group=group)
+        CROSS_MERGES["psum gloo"] += 1
         return x.to(parts.device)
 
     return merge
@@ -436,30 +453,59 @@ def _psum_across(group):
 class _RingSlots:
     """The ring merge across processes: every process's own shards'
     partials go to its slot, mapped by every process (``peer.share``), and
-    one ``ring.ring_psum`` reads the S shards' partials from the slots and
-    writes this process's sum alone.  The host orders the steps: two slots
-    taken in turn, and a stream synchronize and a barrier between a
-    process's write of its slot and any read of it (no kernel waits on
-    another process's flag: the card time-slices their kernels).  Merge i
-    writes slot i % 2: every process finished reading it in merge i - 2
-    before the barrier of merge i - 1."""
+    one sum kernel reads the S shards' partials from the slots and writes
+    this process's sum alone.  Two slots taken in turn; merge i writes slot
+    i % 2.  Two orders between the processes, picked by the layout:
 
-    def __init__(self, layout: ShardLayout, group, shape, device):
+    - one card a process (``apart``): the flag-wait entry
+      (``ops.ring_cuda.ring_allreduce_wait_cuda``): the kernel publishes
+      the merge's epoch into every peer's flag words and waits until every
+      peer has published it, so the host orders nothing.  A wait that
+      times out sets the error word and poisons the peers' waits, which
+      set theirs; ``check`` raises in every process;
+    - processes that share a card: a stream synchronize and a barrier
+      between a process's write of its slot and any read of it (no kernel
+      waits on another process's flag: the card time-slices their
+      kernels).
+
+    Either way every process finished reading slot i % 2 in merge i - 2
+    before it could pass merge i - 1's barrier or flag wait."""
+
+    def __init__(self, layout: ShardLayout, group, shape, device, apart: bool):
         self.group, self.first, self.turn = group, layout.held.start, 0
         self.slots = [peer.shards(peer.share(torch.zeros((len(layout.held), *shape), dtype=I32,
                                                          device=device), group), layout)
                       for _ in range(2)]
+        self.me = layout.group_rank
+        self.flags = peer.share(torch.zeros(layout.interval_procs, dtype=I32, device=device),
+                                group) if apart else None
+        self.error = torch.zeros(1, dtype=I32, device=device) if apart else None
 
     def close(self) -> None:
-        """Let go of the slots, this process's and the mapped ones."""
-        self.slots = []
+        """Let go of the slots and flags, this process's and the mapped
+        ones."""
+        self.slots, self.flags = [], None
+
+    def check(self) -> None:
+        """Raise if a flag wait timed out (a synchronise)."""
+        if self.error is not None:
+            from ..ops import ring_cuda
+
+            ring_cuda.check_flag_wait(self.error)
 
     def __call__(self, parts: torch.Tensor) -> torch.Tensor:
         slot = self.slots[self.turn % 2]
         self.turn += 1
         slot.held.copy_(parts)
-        peer.barrier(self.group)
-        return ring.ring_psum(slot, only=self.first)
+        if self.flags is None:
+            peer.barrier(self.group)
+            CROSS_MERGES["ring host barrier"] += 1
+            return ring.ring_psum(slot, only=self.first)
+        from ..ops import ring_cuda
+
+        CROSS_MERGES["ring flag wait"] += 1
+        return ring_cuda.ring_allreduce_wait_cuda(slot, self.first, self.flags, self.me,
+                                                  self.turn, self.error)
 
 
 def make_sharded_exact_search(
@@ -485,18 +531,34 @@ def make_sharded_exact_search(
     come from ``locate``: one kernel on a CUDA device, whatever ``merge``.
     ``like`` is accepted for the JAX signature; nothing is read from it.
 
-    When the layout's interval axis spans the processes, every process of
-    the interval group takes the same reads (a data axis of 1, as the
-    devices of a JAX interval group do), and the merges cross them: "psum"
-    sums each process's own shards' partials and ``all_reduce``s them over
-    the group, "ring" reads the S shards' partials from every process's
-    mapped slots in one kernel (``_RingSlots``), and "fused" needs no
-    exchange: the table entry reads each query's row from the shard that
-    owns it, through the peer map.  Every process gets the whole result.
+    When the layout's interval axis spans interval groups of processes,
+    every process of a group takes the group's reads (``mesh.shard_reads``
+    with a data axis over the groups: each group its slice, as the devices
+    of a JAX interval group take the same reads; a layout whose data axis
+    spans the processes is refused), and the merges cross the
+    group's processes: "psum" sums each process's own shards' partials and
+    ``all_reduce``s them over the group (NCCL on the card where the
+    processes hold their shards on separate cards, ``peer.apart``; gloo on
+    the host where they share one), "ring" reads the S shards' partials
+    from every process's mapped slots in one kernel (``_RingSlots``: a flag
+    wait in the kernel across cards, a host barrier on one card; a wait
+    that fails, here or in a peer, makes the search raise at its end), and
+    "fused" needs
+    no exchange: the table entry reads each query's row from the shard
+    that owns it, through the peer map, on whichever card it lies.  Every
+    process of a group gets the group's whole result.  ``CROSS_MERGES``
+    counts the merges by route.
     """
     if merge not in ("psum", "ring", "fused"):
         raise ValueError(f"merge={merge!r}: expected psum, ring or fused")
-    group = mh.interval_group() if layout.interval_procs > 1 else None
+    if layout.interval_procs > 1 and layout.data_procs == layout.process_count:
+        # each process of a group would search other reads than its peers,
+        # and the merges would add up partials of different reads
+        raise ValueError(
+            f"the exact search's data axis ({layout.n_data}) spans the {layout.process_count} "
+            f"processes, but its interval groups of {layout.interval_procs} need the same reads "
+            f"in every member: make the layout with n_data = {layout.groups} (or 1)")
+    group = layout.group
 
     def fn(sh: ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor):
         B, L = reads.shape
@@ -506,12 +568,21 @@ def make_sharded_exact_search(
         mb = microbatch if B % microbatch == 0 else 1
         Bc = B // mb
         own = held_index(sh, layout)  # the partials' shards: this process's
+        apart = group is not None and peer.apart(sh.bwt_blocks, layout)
         if group is None:
             step_merge = ring_merge if merge == "ring" else default_merge
         elif merge == "ring":
-            step_merge = _RingSlots(layout, group, (2, Bc), dev)
+            step_merge = _RingSlots(layout, group, (2, Bc), dev, apart)
+        elif merge == "psum":
+            nccl = mh.nccl_group(layout.interval_procs) if apart else None
+            if apart and nccl is None:
+                raise RuntimeError("the interval group's processes hold their shards on "
+                                   "separate cards, but initialize_distributed made no NCCL "
+                                   "group for them (their recorded cards differ from the "
+                                   "shards' cards)")
+            step_merge = _psum_across(group, nccl)
         else:
-            step_merge = _psum_across(group)
+            step_merge = None  # fused: the table entry reads every shard, no exchange
         rchunks = [reads[m * Bc : (m + 1) * Bc] for m in range(mb)]
         lchunks = [lengths[m * Bc : (m + 1) * Bc] for m in range(mb)]
         state = [
@@ -544,6 +615,7 @@ def make_sharded_exact_search(
             ]
         if isinstance(step_merge, _RingSlots):
             peer.release(group, step_merge.close)
+            step_merge.check()
         lo = torch.cat([s[0] for s in state])
         hi = torch.cat([s[1] for s in state])
         pos = locate(sh, lo.clamp(0, sh.n))

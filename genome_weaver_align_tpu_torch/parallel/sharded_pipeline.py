@@ -3,9 +3,10 @@
 
 Per batch, with the index, the genome text and the seed table split into S
 interval shards on one device (and, under several processes, the batch
-split across them while each process holds S / P of the shards and maps
-the others' through ``parallel.peer``: every step below reads any shard
-wherever it lives, so any process runs the whole pipeline for its reads):
+split across them while each process holds its interval group's S / g
+shards and maps the others' through ``parallel.peer``, on its card or on
+others: every step below reads any shard wherever it lives, so any process
+runs the whole pipeline for its reads):
 
 1. piece exact search  — every interval update answered by the owning BWT
    (FM path)             shard (``sharded_piece_search``: one kernel on a
@@ -330,12 +331,15 @@ class ShardedAligner:
     Splits the index, the text and (when given) the seed table into
     ``n_interval`` interval shards on ``device`` and runs the merged
     pipeline per batch.  Under ``multihost.initialize_distributed`` with P
-    processes each holds ``n_interval / P`` of the shards and maps the
-    others' (``parallel.peer``; P must divide ``n_interval`` when it is
-    above 1), every process passes the whole batch, aligns its slice of it
-    and gathers the rest: the batch is split over all P processes, and the
-    interval axis shards the memory (the JAX package's interval group
-    aligns the same reads on each of its devices).  A branch that decides a
+    processes (one a card) the processes form interval groups of g
+    (``mesh.interval_span``: one shard a process where ``n_interval``
+    divides P, giving P / g copies of the index; else every process, each
+    holding ``n_interval / P``): each holds its group's ``n_interval / g``
+    shards and maps the others' (``parallel.peer``, over NVLink where they
+    lie on other cards).  Every process passes the whole batch, aligns its
+    slice of it and gathers the rest: the batch is split over all P
+    processes, and the interval axis shards the memory (the JAX package's
+    interval group aligns the same reads on each of its devices).  A branch that decides a
     collective (the seed path, the overflow cohort) is decided from the
     gathered batch, so every process makes the same collectives in the same
     order.  CIGARs come from the same fast-Hamming / host traceback split as
@@ -364,7 +368,8 @@ class ShardedAligner:
         # the data axis spans the processes (one in a plain run): each one
         # aligns its slice of every batch, and every one runs the host tail
         # on the gathered batch, as every JAX process does; the interval
-        # axis spans them too (n_interval > 1): each holds its own shards
+        # axis spans each interval group (n_interval > 1): each process
+        # holds its own shards
         self.layout = pmesh.make_layout(mh.process_count(), n_interval, self.device)
         self.sst = None
         self.seed_j = 0
@@ -521,7 +526,7 @@ class ShardedAligner:
             self.sh = self.tx = self.sst = self._fb = None
             self._fns = {}
 
-        peer.release(mh.interval_group() if self.layout.interval_procs > 1 else None, drop)
+        peer.release(self.layout.group, drop)
 
     def _get_fb(self) -> "ShardedAligner":
         """Fallback: 4x per-piece hit budgets, the same shards."""

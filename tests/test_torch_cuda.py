@@ -1381,3 +1381,127 @@ def test_locate_kernels_reject_what_they_cannot_take(cuda):
                                 r[:8] & 3, r[:8])
     assert locate_cuda.locate_cuda(fm, r[:0]).shape == (0,)
     assert locate_cuda.locate_sharded_cuda(shc, r[:0]).shape == (0,)
+
+
+def _cards(n: int) -> list:
+    """The first n cards; skips with fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    return [torch.device("cuda", d) for d in range(n)]
+
+
+def test_two_ranks_on_two_cards_map_each_others_shards(tmp_path):
+    """Two processes, one a card, each holding 2 of 4 shards and mapping the
+    other's over NVLink: the sharded locate, piece search, fused table
+    entry and the torch gather of rows on the mapped shards equal their
+    plain versions, the psum goes over NCCL and the ring merge through the
+    flag wait with no host barrier, and the exact search and the SAM equal
+    the CPU run's."""
+    import json
+
+    import torch_multihost_driver as drv
+
+    _cards(2)
+    for dev in ("cuda", "cpu"):
+        drv.launch(2, tmp_path / f"{dev}.sam", "interval", "--n-interval", "4", "--device", dev,
+                   timeout=300)
+    assert (tmp_path / "cuda.sam").read_bytes() == (tmp_path / "cpu.sam").read_bytes()
+    for pid in range(2):
+        facts = json.loads((tmp_path / f"cuda.sam.{pid}.json").read_text())
+        assert facts["card"] == pid and facts["cards"] == [0, 0, 1, 1]
+        assert all(facts[f"{k}_equal"] for k in ("locate", "pieces", "fused", "gather"))
+        routes = facts["routes"]
+        assert routes["psum nccl"] > 0 and routes["psum gloo"] == 0, routes
+        assert routes["ring flag wait"] > 0 and routes["ring host barrier"] == 0, routes
+        assert facts["seen"] == [True] * 4
+        got, want = (np.load(tmp_path / f"{d}.sam.{pid}.npz") for d in ("cuda", "cpu"))
+        assert all(np.array_equal(got[key], want[key]) for key in want.files)
+
+
+@pytest.mark.parametrize("N", [2, 4])
+def test_flag_wait_ring_equals_plain_across_cards(tmp_path, N):
+    """N processes, one a card, each slot and flag word mapped by the others
+    (CUDA IPC opened on each process's card): the flag-wait sum equals the
+    plain ring sum on every element, int32 and float32, merge after merge.
+    Then process 0 times out at an epoch no peer has reached and runs two
+    more merges; every peer, arriving after that, fails at once on the
+    poison, and every process raises."""
+    import json
+
+    import torch_multihost_driver as drv
+
+    _cards(N)
+    drv.launch(N, tmp_path / "fw", "flagwait", timeout=300)
+    for pid in range(N):
+        facts = json.loads((tmp_path / f"fw.{pid}.json").read_text())
+        assert facts["card"] == pid and facts["cards"] == list(range(N))
+        assert facts["equal"] == [True] * 3 and facts["launches"] == 3
+        assert facts["error"] == 0
+        assert facts["raised"], facts
+        assert facts["poisoned"] == [q != pid for q in range(N)], facts
+        assert facts["failure_s"] < 10, facts
+
+
+def test_flag_wait_times_out_and_raises(cuda):
+    """Two ranks' flag words on one card, launched from this process: rank 0
+    waits for an epoch rank 1 never publishes, gives up after the timeout,
+    sets its error word and poisons rank 1's word; its later merges do not
+    wait and publish the poison, never their epochs.  Rank 1, arriving late
+    at that epoch, fails at once.  ``check_flag_wait`` raises for both."""
+    import time
+
+    flags = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2)]
+    errors = [torch.zeros(1, dtype=torch.int32, device=cuda) for _ in range(2)]
+    slots = [torch.ones(1024, dtype=torch.int32, device=cuda) for _ in range(2)]
+    t0 = time.perf_counter()
+    ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, 1, errors[0], timeout_s=0.05)
+    with pytest.raises(RuntimeError, match="flag wait"):
+        ring_cuda.check_flag_wait(errors[0])
+    assert 0.05 <= time.perf_counter() - t0 < 10
+    assert int(flags[1][0]) == ring_cuda.POISON
+    t0 = time.perf_counter()
+    for epoch in (2, 3):
+        ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, epoch, errors[0], timeout_s=5.0)
+    torch.cuda.synchronize(cuda)
+    assert time.perf_counter() - t0 < 1.0  # the error word set: no wait
+    assert int(flags[1][0]) == ring_cuda.POISON  # the poison, never a later epoch
+    t0 = time.perf_counter()
+    out = ring_cuda.ring_allreduce_wait_cuda(slots, 1, flags, 1, 1, errors[1], timeout_s=5.0)
+    torch.cuda.synchronize(cuda)
+    assert time.perf_counter() - t0 < 1.0  # failed on the poison, not on the timeout
+    assert out.shape == (1024,)
+    with pytest.raises(RuntimeError, match="flag wait"):
+        ring_cuda.check_flag_wait(errors[1])
+    assert int(flags[0][1]) == ring_cuda.POISON
+    with pytest.raises(ValueError, match="epoch"):
+        ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, ring_cuda.POISON, errors[0])
+
+
+def test_wrappers_raise_on_a_shard_on_another_card():
+    """A shard tensor that lies on another card (not mapped onto this one
+    through ``parallel.peer``) is refused by every kernel wrapper that
+    reads shards: no kernel reads another card's memory unmapped."""
+    import dataclasses
+
+    from genome_weaver_align_tpu_torch.ops import locate_cuda
+    from genome_weaver_align_tpu_torch.parallel import peer
+
+    devs = _cards(2)
+    codes = fm_models.genome_codes(88, size=3_000)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(build_fm_index(
+        codes, sample_rate=8), 2), devs[0])
+    far = dataclasses.replace(sh, **{
+        f: peer.Shards([getattr(sh, f)[0].clone(), getattr(sh, f)[1].to(devs[1])],
+                       getattr(sh, f)) for f in sharded_index._TABLES})
+    rows = torch.arange(100, dtype=torch.int32, device=devs[0])
+    reads = torch.zeros((4, 20), dtype=torch.int32, device=devs[0])
+    lens = torch.full((4,), 20, dtype=torch.int32, device=devs[0])
+    with pytest.raises(ValueError, match="device"):
+        locate_cuda.locate_sharded_cuda(far, rows)
+    with pytest.raises(ValueError, match="device"):
+        fm_search_cuda.backward_search_sharded_cuda(far, reads, lens, 3, 8)
+    with pytest.raises(ValueError, match="device"):
+        ring_cuda.fused_occ_cuda(far.bwt_blocks, far.occ_cp, far.pk_start, far.pk_end,
+                                 far.primary, rows & 3, rows)
+    with pytest.raises(ValueError, match="device"):
+        ring_cuda.ring_allreduce_cuda([rows, rows.to(devs[1])], only=0)

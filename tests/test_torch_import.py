@@ -34,7 +34,7 @@ from genome_weaver_align_tpu_torch.ops import (
     staircase_cuda, window,
 )
 from genome_weaver_align_tpu_torch.parallel import (
-    mesh, multihost, ring, sharded_index, sharded_pipeline,
+    mesh, multihost, peer, ring, sharded_index, sharded_pipeline,
 )
 from genome_weaver_align_tpu_torch.utils.fasta import Contig, write_fasta
 

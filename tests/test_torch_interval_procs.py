@@ -1,18 +1,27 @@
 """Interval shards in separate processes (BASELINE config 5's layout) on
-the CPU: 2 gloo processes (``tests/torch_multihost_driver.py``, mode
-``interval``) hold S = 2 and 4 shards of a 100 kb genome's index, each
-process its own S / 2 and the other's mapped through shared memory.
+the CPU: gloo processes (``tests/torch_multihost_driver.py``, mode
+``interval``) hold S shards of a 100 kb genome's index, each process its
+interval group's S / g and the others' mapped through shared memory: 2
+processes at S = 2 and 4 (one group), and 4 processes at S = 2 (two
+groups of two, one shard a process: the two-axis layout) and S = 4 (one
+group, one shard a process).
 
 - the exact search's (lo, hi, pos) in every process, under the psum, ring
   and fused merges, equals the JAX ``make_sharded_exact_search`` on a
   (1, S) mesh of the CPU's virtual devices (the ring and fused merges in
-  interpret mode, as ``tests/test_ring.py`` runs them);
-- the ``ShardedAligner`` SAM from 2 processes equals the 1-process SAM and
+  interpret mode, as ``tests/test_ring.py`` runs them) on the rows of its
+  interval group's slice of the batch;
+- the ``ShardedAligner`` SAM from P processes equals the 1-process SAM and
   the JAX package's (``tests/multihost_driver.py``) byte for byte, but
   ``@PG``;
 - each process holds only its own shards, and what it reads of the
-  others' shards is theirs, not a copy;
-- ``mesh.make_layout`` refuses a process count that does not divide S."""
+  others' shards is theirs, not a copy; its interval group is the right
+  processes;
+- ``mesh.make_layout``'s arithmetic: the span g of an interval group, the
+  groups, the shards each process holds and the data axis, over P = 1..4
+  and S = 1, 2, 4, 8, and its refusals;
+- ``sharded_index.shard_rows`` of shards in their own tensors equals the
+  stacked gather."""
 
 import functools
 import json
@@ -35,8 +44,13 @@ from tests.torch_multihost_driver import (
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TESTS = Path(__file__).resolve().parent
-PROCS = 2
 MERGES = ("psum", "ring", "fused")
+# (P, S) runs of the driver; the 2-process runs keep their ids
+RUNS = ((2, 2), (2, 4), (4, 2), (4, 4))
+# an interval group's span g at P processes and S shards; None: refused
+SPAN = {(1, 1): 1, (1, 2): 1, (1, 4): 1, (1, 8): 1, (2, 1): 1, (2, 2): 2, (2, 4): 2, (2, 8): 2,
+        (3, 1): 1, (3, 2): None, (3, 4): None, (3, 8): None,
+        (4, 1): 1, (4, 2): 2, (4, 4): 4, (4, 8): 4}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -49,14 +63,16 @@ def _jax_native_off():
         yield
 
 
-@pytest.fixture(scope="module", params=(2, 4), ids=lambda s: f"S{s}")
+@pytest.fixture(scope="module", params=RUNS,
+                ids=lambda ps: f"S{ps[1]}" if ps[0] == 2 else f"P{ps[0]}-S{ps[1]}")
 def procs(request, tmp_path_factory):
-    """One run of 2 processes holding S shards: (S, the run's directory)."""
-    S = request.param
-    d = tmp_path_factory.mktemp(f"interval{S}")
-    launch(PROCS, d / "out.sam", "interval", "--n-interval", str(S), "--device", "cpu",
-           timeout=120)
-    return S, d
+    """One run of P processes holding S shards: (P, S, the run's
+    directory)."""
+    P, S = request.param
+    d = tmp_path_factory.mktemp(f"interval{P}x{S}")
+    launch(P, d / "out.sam", "interval", "--n-interval", str(S), "--device", "cpu",
+           timeout=180)
+    return P, S, d
 
 
 @functools.cache
@@ -75,17 +91,21 @@ def _jax_exact(S: int, merge: str):
 
 @pytest.mark.parametrize("merge", MERGES)
 def test_exact_search_across_processes_equals_jax(procs, merge):
-    S, d = procs
+    P, S, d = procs
     want = _jax_exact(S, merge)
     assert (want[1] > want[0]).sum() > len(want[0]) // 2
-    for pid in range(PROCS):
+    covered = set()
+    for pid in range(P):
         got = np.load(d / f"out.sam.{pid}.npz")
+        first, stop = json.loads((d / f"out.sam.{pid}.json").read_text())["rows"]
+        covered.update(range(first, stop))
         for key, w in zip(("lo", "hi", "pos"), want):
-            assert np.array_equal(got[f"{merge}_{key}"], w), (pid, key)
+            assert np.array_equal(got[f"{merge}_{key}"], w[first:stop]), (pid, key)
+    assert covered == set(range(len(want[0])))
 
 
 def test_sam_across_processes_equals_one_process_and_jax(procs, tmp_path):
-    S, d = procs
+    P, S, d = procs
     sharded_main(0, tmp_path / "one.sam", torch.device("cpu"), S).close()
     launch(1, tmp_path / "jax.sam", "sharded", driver=TESTS / "multihost_driver.py", timeout=120)
     two, one, jx = ((p).read_text() for p in (d / "out.sam", tmp_path / "one.sam",
@@ -97,26 +117,75 @@ def test_sam_across_processes_equals_one_process_and_jax(procs, tmp_path):
 
 
 def test_each_process_holds_only_its_own_shards(procs):
-    """Every sharded table here is 1/2 of the stacked one, and each
-    process's change to its own shard is what every process reads through
-    its map of that shard."""
-    S, d = procs
-    per = S // PROCS
-    for pid in range(PROCS):
+    """Every sharded table here is 1/g of the stacked one, each process's
+    change to its own shard is what every process of its group reads
+    through its map of that shard, and the interval group is the g
+    consecutive processes around it."""
+    P, S, d = procs
+    g = SPAN[P, S]
+    per = S // g
+    for pid in range(P):
         facts = json.loads((d / f"out.sam.{pid}.json").read_text())
-        assert facts["held"] == list(range(pid * per, (pid + 1) * per))
+        place = pid % g
+        assert facts["held"] == list(range(place * per, (place + 1) * per))
         assert facts["owners"] == [s // per for s in range(S)]
+        assert facts["group"] == list(range(pid - place, pid - place + g))
+        assert facts["card"] is None  # no card: the CPU run
+        assert facts["cards"] == ([None] * S if g > 1 else None)
+        routes = facts["routes"]  # a group on the CPU merges over gloo and host barriers
+        assert routes["psum nccl"] == routes["ring flag wait"] == 0
+        assert (routes["psum gloo"] > 0 and routes["ring host barrier"] > 0) == (g > 1)
         for table, (here, stacked) in facts["bytes"].items():
-            assert here * PROCS == stacked, table
+            assert here * g == stacked, table
         assert facts["seen"] == [True] * S
 
 
-@pytest.mark.parametrize("procs_, shards", [(2, 3), (4, 2), (4, 6), (3, 4)])
+@pytest.mark.parametrize("procs_, shards", [(2, 3), (4, 3), (4, 6), (3, 4)])
 def test_make_layout_refuses_a_process_count_that_does_not_divide_the_shards(
         monkeypatch, procs_, shards):
     monkeypatch.setattr(mh, "process_count", lambda: procs_)
     with pytest.raises(ValueError, match=rf"interval axis \({shards} shards\).*{procs_} processes"):
         pmesh.make_layout(procs_, shards, "cpu")
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_layout_arithmetic(monkeypatch, P, S):
+    """The interval groups' span g, the groups, each process's place,
+    shards and data-axis unit, with the data axis over the processes
+    (``ShardedAligner``'s n_data = P) and over the groups (the exact
+    search's); the pairs where neither S divides P nor P divides S are
+    refused."""
+    monkeypatch.setattr(mh, "process_count", lambda: P)
+    g = SPAN[P, S]
+    assert g == (None if g is None else pmesh.interval_span(P, S))
+    if g is None:
+        with pytest.raises(ValueError, match=rf"interval axis \({S} shards\)"):
+            pmesh.interval_span(P, S)
+        with pytest.raises(ValueError, match=rf"interval axis \({S} shards\)"):
+            pmesh.make_layout(P, S, "cpu")
+        return
+    per = S // g
+    held = []
+    for rank in range(P):
+        monkeypatch.setattr(mh, "process_index", lambda: rank)
+        lay = pmesh.make_layout(P, S, "cpu")
+        assert (lay.interval_procs, lay.groups) == (g, P // g)
+        assert (lay.group_index, lay.group_rank) == (rank // g, rank % g)
+        assert lay.group_ranks == range(rank - rank % g, rank - rank % g + g)
+        assert lay.held == range(per * (rank % g), per * (rank % g) + per)
+        assert lay.owners == tuple(s // per for s in range(S))
+        assert (lay.data_procs, lay.data_index) == (P, rank)
+        grouped = pmesh.make_layout(P // g, S, "cpu")
+        want = (P, rank) if g == 1 else (P // g, rank // g)
+        assert (grouped.data_procs, grouped.data_index) == want
+        held.append((rank // g, tuple(lay.held)))
+    # every interval group holds every shard once
+    for gi in range(P // g):
+        assert sorted(s for grp, h in held if grp == gi for s in h) == list(range(S))
+    if P // g > 1:
+        with pytest.raises(ValueError, match="interval groups"):
+            pmesh.make_layout(1, S, "cpu")
 
 
 @pytest.mark.parametrize("rank", [0, 1, 2, 3])
@@ -181,3 +250,58 @@ def test_plain_queries_read_shards_in_their_own_tensors(S):
     for a, b in zip(step(apart(st, ("offsets", "positions")), apart(tx, ("words",)), reads,
                          lengths), step(st, tx, reads, lengths)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("row", [(), (4,), (8,)], ids=["scalar", "w4", "w8"])
+def test_shard_rows_of_shards_apart_equals_the_stacked_gather(S, row):
+    """``shard_rows`` of a table held one tensor a shard (``peer.Shards``,
+    as mapped shards are) equals the stacked table's gather at every
+    per-shard index shape."""
+    from genome_weaver_align_tpu_torch.parallel import peer
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    rng = np.random.default_rng(40 + S)
+    R = 37
+    stacked = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(S, R, *row),
+                                            dtype=np.int64).astype(np.int32))
+    apart = peer.Shards([t.clone() for t in stacked], stacked)
+    for shape in ((S,), (S, 5), (S, 3, 7)):
+        idx = torch.from_numpy(rng.integers(0, R, size=shape).astype(np.int32))
+        want = si.shard_rows(stacked, idx)
+        assert want.shape == (*shape, *row)
+        assert torch.equal(si.shard_rows(apart, idx), want)
+
+
+@pytest.mark.parametrize("P, S", [(2, 2), (2, 4), (4, 2), (4, 4), (4, 8)])
+def test_exact_search_refuses_a_data_axis_over_the_processes(monkeypatch, P, S):
+    """A layout whose interval groups span several processes but whose
+    data axis spans the processes (``make_layout(P, S)``, as
+    ``ShardedAligner`` makes it) would give the members of a group other
+    reads each, and the merges would add partials of different reads: the
+    exact search refuses it before it makes a collective."""
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    monkeypatch.setattr(mh, "process_count", lambda: P)
+    monkeypatch.setattr(mh, "process_index", lambda: P - 1)
+    lay = pmesh.make_layout(P, S, "cpu")
+    assert lay.interval_procs > 1 and lay.data_procs == P
+    for merge in ("psum", "ring", "fused"):
+        with pytest.raises(ValueError, match=rf"data axis \({P}\) spans the {P} processes"):
+            si.make_sharded_exact_search(lay, EXACT_L, None, merge=merge)
+
+
+@pytest.mark.parametrize("own, theirs, reach", [(0, 1, False), (1, 0, False), (0, 1, True),
+                                                (2, 2, False)])
+def test_a_card_that_cannot_reach_a_peer_raises_naming_both(monkeypatch, own, theirs, reach):
+    """``peer.check_reach``, which ``share`` runs before it maps a peer's
+    tensor: a card that cannot reach the card holding it raises, naming
+    both; a reachable card, or the card itself, passes."""
+    from genome_weaver_align_tpu_torch.parallel import peer
+
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: reach)
+    if own == theirs or reach:
+        peer.check_reach(own, theirs)
+        return
+    with pytest.raises(RuntimeError, match=rf"cuda:{own} cannot reach card cuda:{theirs}"):
+        peer.check_reach(own, theirs)

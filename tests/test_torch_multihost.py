@@ -118,3 +118,30 @@ def test_one_process_sam_equals_the_jax_driver(tmp_path, mode):
                    if not line.startswith("@PG")] for n in ("port.sam", "jax.sam"))
     assert len([line for line in want if line[0] != "@"]) == (32 if mode == "exact" else 128)
     assert port == want
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_cards", [0, 1, 2, 4])
+def test_each_rank_takes_a_card_and_groups_apart_get_nccl(P, n_cards):
+    """Rank r takes card r % n_cards (none without cards); the interval
+    groups of every span g that divides P are g consecutive ranks; a group
+    gets an NCCL group beside gloo only where its ranks' cards differ."""
+    cards = [mh.card_for(r, n_cards) for r in range(P)]
+    assert cards == [r % n_cards if n_cards else None for r in range(P)]
+    places = [("host", c) for c in cards]
+    assert mh.spans(P) == [g for g in (2, 3, 4) if g <= P and P % g == 0]
+    for g in mh.spans(P):
+        groups = mh.groups_of(P, g)
+        assert [r for grp in groups for r in grp] == list(range(P))
+        for grp in groups:
+            assert grp == list(range(grp[0], grp[0] + g))
+            assert mh.apart(places, grp) == (0 < g <= n_cards)
+    # one card a host, two hosts: apart
+    assert mh.apart([("a", 0), ("b", 0)], [0, 1])
+
+
+def test_one_process_has_no_card_of_its_own():
+    mh.initialize_distributed(num_processes=1)
+    assert mh.card() is None and mh.interval_group() is None and mh.nccl_group() is None
+    assert mh.device() == (torch.device("cuda", torch.cuda.current_device())
+                           if torch.cuda.is_available() else torch.device("cpu"))

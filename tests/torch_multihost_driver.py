@@ -6,7 +6,7 @@ of them as separate interpreters and holds the N-process SAM against the
 
 Usage:
     python torch_multihost_driver.py <pid> <nprocs> <port> <out.sam>
-        [exact|sharded|interval] [--device cpu|cuda] [--n-interval S]
+        [exact|sharded|interval|flagwait] [--device cpu|cuda] [--n-interval S]
 
 mode "exact" (default): a 20 kb genome (seed 21), 32 reads of 40 bases
 (seed 22) through ``multihost.exact_align``: each process passes only its
@@ -21,13 +21,25 @@ path; each maps >= 90%; process 0 writes the SAM.  With several processes
 each holds S / P of the shards and maps the others'.
 
 mode "interval" (BASELINE config 5's layout): the "sharded" run, then in
-every process the exact search (``make_sharded_exact_search`` on a data
-axis of 1: every process the same reads, ``exact_search_reads``) under
-the psum, ring and fused merges, written to ``<out.sam>.<pid>.npz``; and
-``<out.sam>.<pid>.json``: the shards this process holds, each sharded
-table's bytes here against the stacked table's, and what this process
-reads through its map of every shard after each process has changed a word
-of its own shards (the mapped peers are not copies).
+every process the exact search (``make_sharded_exact_search`` with the
+data axis over the interval groups: every process of a group its group's
+slice of ``exact_search_reads``) under the psum, ring and fused merges,
+written to ``<out.sam>.<pid>.npz``; and ``<out.sam>.<pid>.json``: the
+shards this process holds, its interval group's members, the rows of the
+batch its group searched, its card and the card of each shard, the merges
+by route, each sharded table's bytes here
+against the stacked table's, and what this process reads through its map
+of every shard after each process has changed a word of its own shards
+(the mapped peers are not copies).
+
+mode "flagwait" (the card only, a card a process): the ring merge's
+flag-wait entry over every process's slot and flag words, mapped through
+``parallel.peer``: three merges (int32 65,536 and 7, float32 4,099), each
+against ``ring_psum_plain`` of every process's slot; then process 0 waits
+for an epoch no other process has reached, times out and runs two more
+merges, and the others, arriving after that, must fail at once.
+``<out.sam>.<pid>.json``: the cards, the merges' equality, the launches,
+the seconds each failure took and whether ``check_flag_wait`` raised.
 
 The device defaults to cuda (process p on ``cuda:p % device_count``).
 """
@@ -79,7 +91,8 @@ def main(argv):
     p.add_argument("nprocs", type=int)
     p.add_argument("port")
     p.add_argument("out")
-    p.add_argument("mode", nargs="?", choices=["exact", "sharded", "interval"], default="exact")
+    p.add_argument("mode", nargs="?", choices=["exact", "sharded", "interval", "flagwait"],
+                   default="exact")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--n-interval", type=int, default=2)
     a = p.parse_args(argv)
@@ -101,6 +114,8 @@ def main(argv):
     try:
         if mode == "exact":
             exact_main(pid, out, torch.device(device))
+        elif mode == "flagwait":
+            flagwait_main(pid, nprocs, out, torch.device(device))
         else:
             al = sharded_main(pid, out, torch.device(device), a.n_interval)
             if mode == "interval":
@@ -222,37 +237,58 @@ def interval_main(pid, out, al):
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
 
     S = al.layout.n_interval
-    layout = pmesh.make_layout(1, S, al.device)
+    layout = pmesh.make_layout(al.layout.groups, S, al.device)  # a group's slice each
     reads, lengths = exact_search_reads(sharded_genome())
     r, ln, B = pmesh.shard_reads(layout, reads, lengths)
+    assert B % layout.groups == 0  # no padding: each group's rows are its slice
+    first = layout.data_index * r.shape[0]
     res = {}
     for merge in ("psum", "ring", "fused"):
         fn = si.make_sharded_exact_search(layout, EXACT_L, al.sh, merge=merge, microbatch=2)
         for key, v in zip(("lo", "hi", "pos"), fn(al.sh, r, ln)):
-            res[f"{merge}_{key}"] = v.cpu().numpy()[:B]
+            res[f"{merge}_{key}"] = v.cpu().numpy()
     np.savez(f"{out}.{pid}.npz", **res)
 
     tables = {**{f: getattr(al.sh, f) for f in si._TABLES}, "words": al.tx.words,
               "offsets": al.sst.offsets, "positions": al.sst.positions}
-    facts = {"held": list(layout.held), "owners": list(layout.owners), "bytes": {}}
+    group = layout.group
+    facts = {"held": list(layout.held), "owners": list(layout.owners), "bytes": {},
+             "group": (torch.distributed.get_process_group_ranks(group) if group is not None
+                       else [pid]),
+             "rows": [first, first + r.shape[0]], "card": mh.card(),
+             "cards": list(al.sh.bwt_blocks.cards) if isinstance(al.sh.bwt_blocks, peer.Shards)
+             else None}
     for f, t in tables.items():
         held = t.held if isinstance(t, peer.Shards) else t
         facts["bytes"][f] = [held.numel() * 4, int(np.prod(t.shape)) * 4]
-    if al.device.type == "cuda":  # the sharded locate kernel on the mapped shards
+    facts["routes"] = dict(si.CROSS_MERGES)  # the merges above, by route
+    if al.device.type == "cuda":  # the sharded kernels on the mapped shards
         from genome_weaver_align_tpu_torch.ops import locate_cuda
+        from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
 
         rows = torch.arange(al.gi.fwd.n + 1, dtype=torch.int32, device=al.device)
         before = locate_cuda.locate_sharded_cuda.launches
         got = si.locate(al.sh, rows)
         facts["locate_launches"] = locate_cuda.locate_sharded_cuda.launches - before
         facts["locate_equal"] = bool(torch.equal(got, si.locate_plain(al.sh, rows)))
+        rd, ld = r.to(al.device), ln.to(al.device)
+        facts["pieces_equal"] = all(torch.equal(a, b) for a, b in zip(
+            sp.sharded_piece_search(al.sh, rd, ld, 3, EXACT_L),
+            sp.sharded_piece_search_plain(al.sh, rd, ld, 3, EXACT_L)))
+        k = rows[: 4096] * 7 % (al.gi.fwd.n + 2)
+        facts["fused_equal"] = bool(torch.equal(si.fused_occ(al.sh, k % 4, k),
+                                                si.fused_occ_plain(al.sh, k % 4, k)))
+        pos = al.sst.positions  # rows of mapped shards, read on this card
+        idx = (rows[: 4096] % pos.shape[1]).expand(S, -1)
+        stacked = torch.stack([t.cpu() for t in pos])
+        facts["gather_equal"] = bool(torch.equal(si.shard_rows(pos, idx).cpu(),
+                                                 si.shard_rows(stacked, idx.cpu())))
     # each process flips a word of its first shard's BWT table; every
     # process then reads every shard's word through its own map
     bwt = al.sh.bwt_blocks
     host = si.shard_fm_index(al.gi.fwd, S).bwt_blocks.view(np.int32)[:, 0, 0]
     flip = 0x5A5A5A5A
     if isinstance(bwt, peer.Shards):
-        group = mh.interval_group()
         peer.barrier(group)  # no process reads the tables any more
         bwt.held[0, 0, 0] ^= flip
         peer.barrier(group)
@@ -260,6 +296,68 @@ def interval_main(pid, out, al):
         facts["seen"] = [int(bwt[s][0, 0]) == int(host[s] ^ flip if s in firsts else host[s])
                          for s in range(S)]
         peer.barrier(group)
+    with open(f"{out}.{pid}.json", "w") as fh:
+        json.dump(facts, fh)
+
+
+def flagwait_main(pid, nprocs, out, device):
+    import json
+    import time
+
+    import numpy as np
+    import torch
+
+    from genome_weaver_align_tpu_torch.ops import ring_cuda
+    from genome_weaver_align_tpu_torch.parallel import multihost as mh
+    from genome_weaver_align_tpu_torch.parallel import peer, ring
+
+    group = mh.interval_group(nprocs)
+    mapped = {"flags": peer.share(torch.zeros(nprocs, dtype=torch.int32, device=device), group)}
+    error = torch.zeros(1, dtype=torch.int32, device=device)
+    rng = np.random.default_rng(7)  # every process draws every process's slot
+    facts = {"card": device.index, "cards": list(mapped["flags"].cards), "equal": []}
+    before = ring_cuda.ring_allreduce_wait_cuda.launches
+    for epoch, (dtype, n) in enumerate([(np.int32, 65_536), (np.int32, 7),
+                                        (np.float32, 4099)], start=1):
+        x = torch.from_numpy(
+            rng.integers(-(1 << 30), 1 << 30, size=(nprocs, n)).astype(np.int32)
+            if dtype == np.int32 else (rng.standard_normal((nprocs, n)) * 1e4).astype(dtype))
+        mapped["slots"] = peer.share(x[pid].to(device), group)
+        got = ring_cuda.ring_allreduce_wait_cuda(mapped["slots"], pid, mapped["flags"], pid,
+                                                 epoch, error)
+        facts["equal"].append(bool(torch.equal(got.cpu(), ring.ring_psum_plain(x)[pid])))
+        peer.release(group, lambda: mapped.pop("slots"))
+    facts["launches"] = ring_cuda.ring_allreduce_wait_cuda.launches - before
+    facts["error"] = int(error.item())
+    peer.release(group, mapped.clear)
+
+    # process 0 times out at epoch 1 and runs on; the others arrive late
+    flags = peer.share(torch.zeros(nprocs, dtype=torch.int32, device=device), group)
+    mapped.update(flags=flags, slots=peer.share(torch.ones(1024, dtype=torch.int32,
+                                                           device=device), group))
+    error = torch.zeros(1, dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
+    if pid == 0:
+        for epoch, timeout_s in ((1, 0.5), (2, 30.0), (3, 30.0)):
+            ring_cuda.ring_allreduce_wait_cuda(mapped["slots"], 0, flags, 0, epoch, error,
+                                               timeout_s=timeout_s)
+        torch.cuda.synchronize(device)
+    peer.barrier(group)
+    if pid != 0:
+        t0 = time.perf_counter()
+        ring_cuda.ring_allreduce_wait_cuda(mapped["slots"], pid, flags, pid, 1, error,
+                                           timeout_s=30.0)
+        torch.cuda.synchronize(device)
+    facts["failure_s"] = time.perf_counter() - t0
+    peer.barrier(group)  # every process's failure is published
+    facts["poisoned"] = [int(v) == ring_cuda.POISON for v in flags[pid].cpu()]
+    try:
+        ring_cuda.check_flag_wait(error)
+        facts["raised"] = False
+    except RuntimeError:
+        facts["raised"] = True
+    del flags
+    peer.release(group, mapped.clear)
     with open(f"{out}.{pid}.json", "w") as fh:
         json.dump(facts, fh)
 
