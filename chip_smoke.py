@@ -247,13 +247,31 @@ per line, and exits non-zero at the first phase that fails:
    groups of two ranks (two copies of the index, one shard a rank), the
    exact search giving each group its half of the reads: the SAMs and
    each rank's exact search equal to [20]'s 1-rank stacked run, each rank
-   holding only its group's one shard, and [20]'s routes and launches.
+   holding only its group's one shard, and [20]'s routes and launches;
+22. BASELINE config 5 with the index sharded across hosts: [20]'s traffic
+   with 4 shards over 4 ranks declared on two hosts (``GROUP_RANK`` = r //
+   2, ``LOCAL_RANK`` = r: rank r on card r % device_count), one interval
+   group across both, which takes the collective route: each rank uploads
+   its own shard only and maps nothing (no ``peer.share`` call), the piece
+   search is a loop of one fused-table-entry launch and one ``all_reduce``
+   a step, the locate one ``all_reduce`` a step, and the verify is split
+   over the ranks (each its share of the candidates through the banded
+   DP's text entry, the distances all_gathered); the exact search under
+   psum, ring and fused refused naming both hosts.  The SAMs and the
+   search must equal [20]'s 1-rank results, the merges go over NCCL alone
+   where the ranks have a card each and over gloo alone where they share
+   one, each rank's tables at most its share plus a block row a shard, the
+   fused table entry and the text entry launched in every rank (never the
+   windows entry or the mapped route's sharded kernels), and the table
+   entry on a rank's held shards equal to plain (0 off them); reads/s, ms
+   a batch, merges a batch by route and one merge's ms by route printed.
 Each path's kernel launch counts are set to 0 just before it runs and read
 just after; the locate kernel's are read in [7], [12], [13], [15] and
 [16]'s exact ranks, the sharded locate's in [10], [11], [16]'s sharded
 ranks (which take the seed path: 0 there), [20]'s and [21]'s, the sharded
 piece search's in [11], [16], [20] and [21], the sum's and the fused table
-entry's in [10], [20] and [21], the flag-wait sum's in [20] and [21].  The last lines are a JSON summary of every kernel entry (each
+entry's in [10], [20] and [21], the fused table entry's and the text
+entry's in [22], the flag-wait sum's in [20] and [21].  The last lines are a JSON summary of every kernel entry (each
 with the run its launches were counted in, its time, its plain version's,
 a bound from its inputs' bytes and operations, and the time of one PyTorch
 call that computes the same function where there is one; integer work is
@@ -320,6 +338,7 @@ RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's l
 RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
 INTERVAL_RANKS = (1, 2, 4)  # phase 20: the shards over 1 (stacked), 2 and 4 processes
 TWO_AXIS_RANKS, TWO_AXIS_SHARDS = 4, 2  # phase 21: two interval groups of two ranks
+HOST_RANKS, RANKS_A_HOST = 4, 2  # phase 22: SHARDS shards over 4 ranks on two declared hosts
 NVLINK_BYTES_PER_S = 450e9  # one direction between two cards of the host
 # phase 17: the wavelet search's traffic
 WAVELET_READS, WAVELET_L = 65_536, 36
@@ -2237,11 +2256,12 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
 
 
 def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path,
-              tag: str = "[16]", extra=()) -> list[dict]:
+              tag: str = "[16]", extra=(), env_of=None) -> list[dict]:
     """``n`` processes of this script (``--rank``, then ``extra``), one gloo
-    group on a free loopback port, rank r on card r % device_count; every
-    one must exit 0 within RANK_TIMEOUT_S.  -> each rank's result line, in
-    rank order."""
+    group on a free loopback port, rank r on card r % device_count (its
+    ``LOCAL_RANK`` where ``env_of(r)``, variables added to rank r's
+    environment, sets one); every one must exit 0 within RANK_TIMEOUT_S.
+    -> each rank's result line, in rank order."""
     import socket
 
     with socket.socket() as s:
@@ -2251,7 +2271,8 @@ def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path,
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--rank", mode, str(r), str(n), port,
          str(idx), str(seedf), str(reads), str(sam), *extra],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        env={**env, **(env_of(r) if env_of else {})}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
     results = []
     try:
         for r, p in enumerate(procs):
@@ -2272,36 +2293,59 @@ def run_ranks(mode: str, n: int, idx: Path, seedf: Path, reads: Path, sam: Path,
     return results
 
 
-def check_windows_entry(torch, aligner, batch) -> dict:
-    """Align ``batch`` once (also the warm-up) with every call of the banded
-    DP's windows entry held against the plain DP on the same tensors: the
-    sharded verify's shapes in this rank.  -> lanes, read and window widths
-    of each call, and the mismatches of dist and end_b."""
+def check_dp_entry(torch, aligner, batch, text: bool = False) -> dict:
+    """Align ``batch`` once (also the warm-up) with every call of one entry
+    of the banded DP held against its plain version on the same tensors, at
+    this rank's shapes: the windows entry (the verify over mapped or
+    stacked shards) or, with ``text``, the text entry (the collective
+    route's verify of the rank's share of the candidates).  -> lanes, read
+    and window widths of each call, and the mismatches of dist and end_b."""
+    import inspect
+
     from genome_weaver_align_tpu_torch.ops import dp
 
-    real = dp.banded_edit_distance_best  # the windows entry on a CUDA tensor
+    name = "banded_edit_distance_text" if text else "banded_edit_distance_best"
+    real = getattr(dp, name)  # the entry on a CUDA tensor
+    plain = dp.banded_edit_distance_text_plain if text else dp.banded_edit_distance
+    sig = inspect.signature(real)
     res = {"lanes": [], "L": [], "W": [], "bad_dist": 0, "bad_end": 0, "max_abs_err": 0}
 
-    def held(r, ln, w, k):
-        check(r.is_cuda, "the sharded verify's reads are not on the card")
-        d, e = real(r, ln, w, k)
-        d_plain, e_plain = dp.banded_edit_distance(r, ln, w, k)
-        res["lanes"].append(r.shape[0])
-        res["L"].append(r.shape[1])
-        res["W"].append(w.shape[1])
+    def held(*a, **kw):
+        arg = sig.bind(*a, **kw).arguments
+        reads = arg["reads"]
+        check(reads.is_cuda, "the sharded verify's reads are not on the card")
+        d, e = real(*a, **kw)
+        d_plain, e_plain = plain(*a, **kw)
+        res["lanes"].append(int(d.shape[0]))
+        res["L"].append(reads.shape[1])
+        res["W"].append(arg["W"] if text else arg["windows"].shape[1])
         res["bad_dist"] += int((d != d_plain).sum())
         res["bad_end"] += int((e != e_plain).sum())
-        res["max_abs_err"] = max(res["max_abs_err"], int((d - d_plain).abs().max()))
+        if d.numel():
+            res["max_abs_err"] = max(res["max_abs_err"], int((d - d_plain).abs().max()))
         return d, e
 
-    with mock.patch.object(dp, "banded_edit_distance_best", held):
+    with mock.patch.object(dp, name, held):
         aligner.align_batch(batch)
     return res
 
 
+def check_dp_results(who: str, checks: dict, entry: str) -> int:
+    """Log and check one rank's ``check_dp_entry`` results, keyed by run:
+    every call's dist and end_b equal to the plain DP's.  -> the largest
+    |dist err|."""
+    for tag, c in checks.items():
+        log(f"{who}, {tag}: the {entry} against the plain DP on one batch's calls, lanes "
+            f"{c['lanes']}, L {c['L']}, W {c['W']}, k={K}: dist mismatches {c['bad_dist']}, "
+            f"end_b mismatches {c['bad_end']}, max |dist err| {c['max_abs_err']}")
+        check(c["lanes"] and c["bad_dist"] == 0 and c["bad_end"] == 0,
+              f"{who}, {tag}: the {entry} disagrees with the plain DP")
+    return max((c["max_abs_err"] for c in checks.values()), default=0)
+
+
 def rank_child(argv: list[str]) -> int:
-    """One rank of phase 16, 20 or 21 (``chip_smoke.py --rank MODE RANK N
-    PORT INDEX SEEDS READS SAM [SHARDS]``; mode ``interval``:
+    """One rank of phase 16, 20, 21 or 22 (``chip_smoke.py --rank MODE RANK
+    N PORT INDEX SEEDS READS SAM [SHARDS]``; mode ``interval``:
     ``interval_child``): joins the gloo group, runs its slice of every
     batch on the card ``multihost.device`` gave it (``cuda:RANK %
     device_count``), and prints one ``RANK_RESULT`` JSON
@@ -2347,14 +2391,14 @@ def rank_child(argv: list[str]) -> int:
     gather = {"s": 0.0, "wait_s": 0.0, "calls": 0}
     real_gather = mh.gather_to_host
 
-    def timed_gather(tensors):
+    def timed_gather(tensors, span=1):
         # the gather, not the step before it nor the wait for the slower rank
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         if n > 1:
             torch.distributed.barrier()
         t1 = time.perf_counter()
-        out = real_gather(tensors)
+        out = real_gather(tensors, span)
         gather["wait_s"] += t1 - t0
         gather["s"] += time.perf_counter() - t1
         gather["calls"] += 1
@@ -2372,7 +2416,7 @@ def rank_child(argv: list[str]) -> int:
         del so, sp
         batches = [[Read(names[i], reads[i]) for i in range(b * RANK_BATCH, (b + 1) * RANK_BATCH)]
                    for b in range(reads.shape[0] // RANK_BATCH)]
-        dp_check = check_windows_entry(torch, al, batches[0])
+        dp_check = check_dp_entry(torch, al, batches[0])
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         gather.update(s=0.0, wait_s=0.0, calls=0)
@@ -2494,14 +2538,8 @@ def phase_ranks(torch, codes, card) -> dict:
                     key = f"[16] sharded, rank {r['rank']} of {n}"
                     launches[key] = r["windows_launches"]
                     check(launches[key] > 0, f"{key} never launched the banded DP's windows entry")
-                    c = r["dp_check"]
-                    log(f"[16] {key[5:]}: windows entry against the plain DP on one batch's "
-                        f"calls, lanes {c['lanes']}, L {c['L']}, W {c['W']}, k={K}: dist "
-                        f"mismatches {c['bad_dist']}, end_b mismatches {c['bad_end']}, max "
-                        f"|dist err| {c['max_abs_err']}")
-                    check(c["lanes"] and c["bad_dist"] == 0 and c["bad_end"] == 0,
-                          f"{key}: the windows entry disagrees with the plain DP")
-                    max_err = max(max_err, c["max_abs_err"])
+                    max_err = max(max_err, check_dp_results(key, {"seed path": r["dp_check"]},
+                                                            "windows entry"))
         same = bodies[RANKS] == bodies[1]
         log(f"[16] {mode}: the {RANKS}-rank SAM is byte-identical to the 1-rank SAM: {same}")
         check(same, f"[16] {mode}: the {RANKS}-rank SAM differs from the 1-rank SAM")
@@ -2509,25 +2547,80 @@ def phase_ranks(torch, codes, card) -> dict:
     return launches, max_err, fm_launches
 
 
-def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards) -> int:
-    """One rank of phases 20 and 21 (``--rank interval ... [SHARDS]``):
-    ``ShardedAligner`` with ``shards`` interval shards, this rank holding
-    its interval group's ``shards / g`` of them and mapping the other
-    members' (``mesh.interval_span``; the stacked layout with one rank).
-    The device bytes of each sharded upload (the allocator's requested and
-    allocated bytes, the mapped peers not counted), the seed path on [16]'s
-    reads and the FM path on [11]'s, each rank aligning its slice; each
-    card's used memory while every rank holds both aligners; [10]'s exact
-    search, every rank of a group on its group's slice of the reads, under
-    each merge (results to ``SAM.<rank>.npz``), with the route each merge
-    took; the sharded kernels and the ring sum against their plain
-    versions on this layout; the merge of one step at the
-    exact search's payload timed by route (the ring merge, NCCL and gloo
-    ``all_reduce``); the kernels' launches of each run (set to 0 just
-    before it and read just after); one ``RANK_RESULT`` line.  Rank 0
-    writes the seed path's SAM and the FM path's (``SAM.fm.sam``)."""
+def metered_uploads(torch, dev, mem: dict):
+    """Patches of the sharded uploads (``put_sharded``, ``put_text``,
+    ``put_seed``) that add each upload's device bytes to ``mem``: the
+    allocator's requested and allocated bytes ("requested", "allocated",
+    the mapped peers not counted), and the host bytes of the stacked big
+    tables ("stacked") apart from the small bounds every rank uploads
+    ("small").  -> a context manager that holds them."""
     import dataclasses
 
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+    from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
+
+    def measured(put, tables):
+        def wrapped(host, device, layout=None):
+            torch.cuda.synchronize(dev)
+            r0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+            a0 = torch.cuda.memory_allocated(dev)
+            out = put(host, device, layout)
+            torch.cuda.synchronize(dev)
+            mem["requested"] += torch.cuda.memory_stats(dev)["requested_bytes.all.current"] - r0
+            mem["allocated"] += torch.cuda.memory_allocated(dev) - a0
+            for f in dataclasses.fields(host):
+                a = getattr(host, f.name)
+                if isinstance(a, np.ndarray):
+                    mem["stacked" if f.name in tables else "small"] += a.size * 4
+            return out
+        return wrapped
+
+    stack = contextlib.ExitStack()
+    for mod, name, tables in ((si, "put_sharded", si._TABLES), (sp, "put_text", ("words",)),
+                              (sp, "put_seed", ("offsets", "positions"))):
+        stack.enter_context(mock.patch.object(mod, name, measured(getattr(mod, name), tables)))
+    return stack
+
+
+def read_batches(z, key: str, size: int) -> list:
+    """The reads ``key`` of a rank phase's reads file as batches of
+    ``size`` ``Read``s, each named by its true position and strand."""
+    from genome_weaver_align_tpu_torch.utils.fasta import Read
+
+    reads, pos, strand = z[f"{key}_reads"], z[f"{key}_pos"], z[f"{key}_strand"]
+    recs = [Read(f"r{i}_p{p}_s{s}", reads[i])
+            for i, (p, s) in enumerate(zip(pos.tolist(), strand.tolist()))]
+    return [recs[b : b + size] for b in range(0, len(recs), size)]
+
+
+def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards) -> int:
+    """One rank of phases 20, 21 and 22 (``--rank interval ... [SHARDS]``;
+    for [22] started with its ``GROUP_RANK``, the declared host, and
+    ``LOCAL_RANK``): ``ShardedAligner`` with ``shards`` interval shards,
+    this rank holding its interval group's ``shards / g`` of them
+    (``mesh.interval_span``; the stacked layout with one rank).  On the
+    mapped route it maps the other members' shards; on the collective route
+    (a group spans hosts) it maps nothing and merges by collectives.  The
+    device bytes of each sharded upload (the allocator's requested and
+    allocated bytes, the mapped peers not counted) and the ``peer.share``
+    calls; the seed path on [16]'s reads and the FM path on [11]'s, each
+    rank aligning its slice, every call of the verify's DP entry (windows
+    entry on the mapped route, text entry on the collective one) of one
+    batch held against its plain version; each card's used memory while
+    every rank holds both aligners; [10]'s exact search, every rank of a
+    group on its group's slice of the reads, under each merge (results to
+    ``SAM.<rank>.npz``) or, where a merge reads the other members' memory
+    across a host, the error it raises; the merges of each run by route;
+    the sharded kernels, the fused table entry (on the held shards alone on
+    the collective route, with 0 on every coordinate they do not own) and
+    the ring sum against their plain versions on this layout; the merge of
+    one step at the exact search's payload timed by route (the ring merge
+    on the mapped route, NCCL where the group has a card a rank, and gloo);
+    the kernels' launches of each run (set to 0 just before it and read
+    just after); one ``RANK_RESULT`` line.  Rank 0 writes the seed path's
+    SAM and the FM path's (``SAM.fm.sam``)."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch.index.seedtable import load_seed_table
@@ -2540,9 +2633,9 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
     from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
     from genome_weaver_align_tpu_torch.utils import sam
-    from genome_weaver_align_tpu_torch.utils.fasta import Read
 
-    counters = {"windows entry": dp_cuda.banded_edit_distance_cuda,
+    counters = {"text entry": dp_cuda.banded_edit_distance_text_cuda,
+                "windows entry": dp_cuda.banded_edit_distance_cuda,
                 "sharded locate": locate_cuda.locate_sharded_cuda,
                 "sharded piece search": fm_search_cuda.backward_search_sharded_cuda,
                 "fused table entry": ring_cuda.fused_occ_cuda,
@@ -2560,54 +2653,40 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
         torch.cuda.synchronize(dev)
         return {key: c.launches for key, c in counters.items()}
 
+    shares = {"calls": 0}
+    real_share = peer.share
+
+    def counted_share(*a, **kw):
+        shares["calls"] += 1
+        return real_share(*a, **kw)
+
+    counting = mock.patch.object(peer, "share", counted_share)
+    counting.start()
     mem = {"requested": 0, "allocated": 0, "small": 0, "stacked": 0}
-
-    def measured(put, tables):
-        """``put`` with its upload's device bytes counted: the big tables
-        (``tables``) apart from the small bounds every rank uploads."""
-        def wrapped(host, device, layout=None):
-            torch.cuda.synchronize(dev)
-            r0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
-            a0 = torch.cuda.memory_allocated(dev)
-            out = put(host, device, layout)
-            torch.cuda.synchronize(dev)
-            mem["requested"] += torch.cuda.memory_stats(dev)["requested_bytes.all.current"] - r0
-            mem["allocated"] += torch.cuda.memory_allocated(dev) - a0
-            for f in dataclasses.fields(host):
-                a = getattr(host, f.name)
-                if isinstance(a, np.ndarray):
-                    mem["stacked" if f.name in tables else "small"] += a.size * 4
-            return out
-        return wrapped
-
     z = np.load(reads_path)
-
-    def batches(key, size):
-        reads, pos, strand = z[f"{key}_reads"], z[f"{key}_pos"], z[f"{key}_strand"]
-        recs = [Read(f"r{i}_p{p}_s{s}", reads[i])
-                for i, (p, s) in enumerate(zip(pos.tolist(), strand.tolist()))]
-        return [recs[b : b + size] for b in range(0, len(recs), size)]
-
     so, spos, j = load_seed_table(seedf)
-    with mock.patch.object(si, "put_sharded", measured(si.put_sharded, si._TABLES)), \
-            mock.patch.object(sp, "put_text", measured(sp.put_text, ("words",))), \
-            mock.patch.object(sp, "put_seed", measured(sp.put_seed, ("offsets", "positions"))):
+    with metered_uploads(torch, dev, mem):
         al = sp.ShardedAligner(gi, k=K, n_interval=shards, seed_table=(so, spos), seed_j=j,
                                device=dev)
     del so, spos
     lay = al.layout
     mapped = isinstance(al.sh.bwt_blocks, peer.Shards)
-    text_bytes = al._text.numel() * al._text.element_size()
     result = {"rank": rank, "ranks": n, "shards": shards, "held": list(lay.held),
               "group": list(lay.group_ranks), "card": dev.index, "mem": mem,
-              "text_bytes": text_bytes, "mapped": mapped,
+              "hosts": [mh.host_of(r) for r in range(n)], "collective": lay.collective,
+              "data": [lay.data_procs, lay.data_index],
+              "text_bytes": al._text.numel() * al._text.element_size(),
+              "text_shards": al.tx is not None, "mapped": mapped,
               "shard_cards": list(al.sh.bwt_blocks.cards) if mapped else [dev.index] * shards,
               "apart": mapped and peer.apart(al.sh.bwt_blocks, lay),
-              "nccl": mh.nccl_group(lay.interval_procs) is not None if mapped else False,
-              "launches": {}, "routes": {}, "wall_s": {}, "reads": {}, "bad": {}}
+              "nccl": si.group_nccl(lay, dev) is not None, "launches": {}, "routes": {},
+              "wall_s": {}, "reads": {}, "batches": {}, "bad": {}, "dp_check": {},
+              "refused": {}}
 
     def run(tag, aligner, bs):
-        aligner.align_batch(bs[0][:4096])  # warm-up
+        # the warm-up: the verify's DP entry against plain on one batch
+        result["dp_check"][tag] = check_dp_entry(torch, aligner, bs[0][:4096],
+                                                 text=lay.collective)
         zero()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -2616,14 +2695,15 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
             recs.extend(aligner.to_sam(b, aligner.align_batch(b)))
         result["wall_s"][tag] = time.perf_counter() - t0
         result["launches"][tag] = launches()
+        result["routes"][tag] = dict(si.CROSS_MERGES)
         result["reads"][tag] = sum(len(b) for b in bs)
+        result["batches"][tag] = len(bs)
         result[f"peak_mem_bytes_{tag}"] = torch.cuda.max_memory_allocated(dev)
         return recs, aligner.sam_header()
 
-    seed_recs, hdr = run("seed path", al, batches("seed", RANK_BATCH))
+    seed_recs, hdr = run("seed path", al, read_batches(z, "seed", RANK_BATCH))
     fm_al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev)
-    fm_batches = batches("fm", BATCH)
-    fm_recs, _ = run("FM path", fm_al, fm_batches)
+    fm_recs, _ = run("FM path", fm_al, read_batches(z, "fm", BATCH))
     if rank == 0:
         sam.write_sam(sam_path, hdr, seed_recs)
         sam.write_sam(f"{sam_path}.fm.sam", hdr, fm_recs)
@@ -2640,13 +2720,14 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
     if n > 1:
         torch.distributed.barrier()
 
-    # the piece search on this layout against its plain loop
-    fr = torch.from_numpy(np.where(z["fm_reads"][:4096] >= 4, 0, z["fm_reads"][:4096])
-                          .astype(np.int32)).to(dev)
-    fl = torch.full((fr.shape[0],), fr.shape[1], dtype=torch.int32, device=dev)
-    got = sp.sharded_piece_search(fm_al.sh, fr, fl, K + 1, fr.shape[1])
-    want = sp.sharded_piece_search_plain(fm_al.sh, fr, fl, K + 1, fr.shape[1])
-    result["bad"]["sharded piece search"] = sum(int((a != b).sum()) for a, b in zip(got, want))
+    if not lay.collective:  # the piece search over every shard against its plain loop
+        fr = torch.from_numpy(np.where(z["fm_reads"][:4096] >= 4, 0, z["fm_reads"][:4096])
+                              .astype(np.int32)).to(dev)
+        fl = torch.full((fr.shape[0],), fr.shape[1], dtype=torch.int32, device=dev)
+        got = sp.sharded_piece_search(fm_al.sh, fr, fl, K + 1, fr.shape[1])
+        want = sp.sharded_piece_search_plain(fm_al.sh, fr, fl, K + 1, fr.shape[1])
+        result["bad"]["sharded piece search"] = sum(int((a != b).sum())
+                                                    for a, b in zip(got, want))
 
     # [10]'s exact search: every rank of a group its group's slice of the
     # reads, the merges across the group's ranks
@@ -2668,6 +2749,13 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
     exact = {}
     with mock.patch.object(peer, "barrier", timed_barrier):
         for merge, mb in (("psum", 1), ("ring", RING_MICROBATCH), ("fused", RING_MICROBATCH)):
+            if lay.collective and merge != "psum":  # they read the other members' memory
+                try:
+                    si.make_sharded_exact_search(layout, er.shape[1], al.sh, merge=merge,
+                                                 microbatch=mb)
+                except ValueError as e:
+                    result["refused"][merge] = str(e)
+                continue
             fn = si.make_sharded_exact_search(layout, er.shape[1], al.sh, merge=merge,
                                               microbatch=mb)
             fn(al.sh, r[:1024], ln[:1024])  # warm-up
@@ -2681,32 +2769,45 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
             result["launches"][tag] = launches()
             result["routes"][tag] = dict(si.CROSS_MERGES)
             result["reads"][tag] = r.shape[0]
+            result["batches"][tag] = 1
             result[f"barrier_{merge}"] = dict(barrier)
             for key, v in zip(("lo", "hi", "pos"), out):
                 exact[f"{merge}_{key}"] = v.cpu().numpy()
     np.savez(f"{sam_path}.{rank}.npz", **exact)
+    counting.stop()
+    result["shares"] = shares["calls"]
 
     # the sharded locate and the fused table entry on this layout against
     # their plain versions, at the exact search's rows and 2 x 65,536
-    # random queries
-    rows = torch.from_numpy(exact["psum_lo"]).to(dev).clamp(0, gi.fwd.n)
-    result["bad"]["sharded locate"] = int((si.locate(al.sh, rows)
-                                           != si.locate_plain(al.sh, rows)).sum())
+    # random queries over every coordinate; on the collective route the
+    # table entry over the held shards alone
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
+    if not lay.collective:
+        rows = torch.from_numpy(exact["psum_lo"]).to(dev).clamp(0, gi.fwd.n)
+        result["bad"]["sharded locate"] = int((si.locate(al.sh, rows)
+                                               != si.locate_plain(al.sh, rows)).sum())
+    tab = si.held_index(al.sh, lay) if lay.collective else al.sh
     qk = torch.randint(0, gi.fwd.n + 2, (2, 65_536), generator=gen, device=dev,
                        dtype=torch.int32)
     qc = torch.randint(0, 4, (2, 65_536), generator=gen, device=dev, dtype=torch.int32)
-    result["bad"]["fused table entry"] = int((si.fused_occ(al.sh, qc, qk)
-                                              != si.fused_occ_plain(al.sh, qc, qk)).sum())
+    got = si.fused_occ(tab, qc, qk)
+    result["bad"]["fused table entry"] = int((got != si.fused_occ_plain(tab, qc, qk)).sum())
+    if lay.collective:
+        k_adj = qk - (qk > tab.primary).to(torch.int32)
+        owned = (k_adj >= tab.pk_start[0]) & (k_adj < tab.pk_end[-1])
+        result["bad"]["unowned coordinates not 0"] = int((got[~owned] != 0).sum())
+        result["unowned"] = int((~owned).sum())
 
-    # one merge at the exact search's payload ((2, 32,768) int32 a step at
-    # microbatch 2), by route: the ring merge this layout takes, NCCL
-    # all_reduce and gloo all_reduce (as _psum_across runs them); the ring
-    # merge's sums held against the plain ring sum of every rank's parts
+    # one merge at the exact search's payload, (2, 32,768) int32 a step at
+    # microbatch 2 (the ring's) on the mapped route, (2, 65,536) at
+    # microbatch 1 (the psum's) on the collective one, by route: the ring
+    # merge this layout takes (mapped route; its sums held against the
+    # plain ring sum of every rank's parts), NCCL all_reduce and gloo
+    # all_reduce (as _psum_across runs them)
     group = lay.group
     if group is not None:
-        payload = (2, er.shape[0] // RING_MICROBATCH)
+        payload = (2, er.shape[0] // (1 if lay.collective else RING_MICROBATCH))
         h = len(lay.held)
 
         def parts_of(q):  # group rank q's partials, the same in every rank
@@ -2716,23 +2817,26 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
                                  dtype=torch.int32)
 
         mine = parts_of(lay.group_rank)
-        want = ring.ring_psum_plain(torch.cat([parts_of(q) for q in range(lay.interval_procs)]))
-        slots = si._RingSlots(lay, group, payload, dev, result["apart"])
+        ms = {"payload": list(payload)}
         reps = 200
-        for _ in range(5):
-            got = slots(mine)
-        peer.barrier(group)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            got = slots(mine)
-        torch.cuda.synchronize(dev)
-        ms = {"ring": 1e3 * (time.perf_counter() - t0) / reps,
-              "ring_route": "flag wait" if result["apart"] else "host barrier"}
-        result["bad"]["ring merge"] = int((got != want[lay.held.start]).sum())
-        peer.release(group, slots.close)
-        slots.check()
+        if not lay.collective:
+            want = ring.ring_psum_plain(torch.cat([parts_of(q)
+                                                   for q in range(lay.interval_procs)]))
+            slots = si._RingSlots(lay, group, payload, dev, result["apart"])
+            for _ in range(5):
+                got = slots(mine)
+            peer.barrier(group)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                got = slots(mine)
+            torch.cuda.synchronize(dev)
+            ms["ring"] = 1e3 * (time.perf_counter() - t0) / reps
+            ms["ring_route"] = "flag wait" if result["apart"] else "host barrier"
+            result["bad"]["ring merge"] = int((got != want[lay.held.start]).sum())
+            peer.release(group, slots.close)
+            slots.check()
         x = mine.sum(0, dtype=torch.int32)
-        nccl = mh.nccl_group(lay.interval_procs)
+        nccl = si.group_nccl(lay, dev)
         if nccl is not None:
             for _ in range(5):
                 torch.distributed.all_reduce(x, group=nccl)
@@ -2750,7 +2854,6 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
             x = y.to(dev)
         torch.cuda.synchronize(dev)
         ms["gloo"] = 1e3 * (time.perf_counter() - t0) / (reps // 4)
-        ms["payload"] = list(payload)
         result["merge_ms"] = ms
     fm_al.close()
     al.close()
@@ -2844,13 +2947,16 @@ def phase_interval(torch, codes, card) -> dict:
     P-rank SAMs (seed and FM path) must equal the 1-rank SAMs byte for
     byte, every rank's exact search the 1-rank result on its group's rows,
     each rank's sharded tables at most its share of the stacked bytes plus
-    one block row a shard, the sharded kernels and the ring merge equal to
+    one block row a shard, the sharded kernels, the ring merge and every
+    windows-entry call of one batch (each aligner path's warm-up) equal to
     their plain versions on the mapped layout, and every rank must launch
     the sharded locate, the sharded piece search, the fused table entry,
     the ring sum (the flag-wait entry across cards) and the windows entry.
     Where the ranks have a card each, the psum must go over NCCL, the ring
     merge through the flag wait with no host barrier.  -> the launches of
-    each rank, keyed by run, and each run's merge timings."""
+    each rank, keyed by run, each run's merge timings, the 1-rank run's SAM
+    bodies and exact search, the directory of its reads (for [22], which
+    removes it), and the windows entry's largest |dist err|."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch import cli
@@ -2869,7 +2975,8 @@ def phase_interval(torch, codes, card) -> dict:
                                     for f, a in zip(("reads", "pos", "strand"), arrs)},
              exact_reads=er.numpy())
     n_cards = torch.cuda.device_count()
-    ref, launches, timings = {}, {}, {}
+    ref, launches, timings, dp_err = {}, {}, {}, 0
+    t_phase = time.time()
     runs = [("[20]", n, SHARDS) for n in INTERVAL_RANKS] + [("[21]", TWO_AXIS_RANKS,
                                                             TWO_AXIS_SHARDS)]
     for phase, n, S in runs:
@@ -2937,7 +3044,9 @@ def phase_interval(torch, codes, card) -> dict:
                 f"under psum, ring and fused: {same}; kernels against plain on this layout, "
                 f"mismatches {r['bad']}")
             check(big <= limit, f"{who} holds {big} B of sharded tables, more than {limit:.0f}")
-            check(r["mapped"] == (g > 1), f"{who}: mapped {r['mapped']}")
+            check(r["mapped"] == (g > 1) and not r["collective"],
+                  f"{who}: mapped {r['mapped']}, collective {r['collective']}")
+            dp_err = max(dp_err, check_dp_results(who, r["dp_check"], "windows entry"))
             check(r["held"] == list(range(per * (r["rank"] % g), per * (r["rank"] % g + 1))),
                   f"{who} holds shards {r['held']}")
             check(not any(r["bad"].values()), f"{who}: a kernel differs from its plain "
@@ -2972,8 +3081,127 @@ def phase_interval(torch, codes, card) -> dict:
     if n_cards == 1:
         log(f"[20] the ranks share one card: a peer's shard is read from the same HBM as this "
             f"rank's own, so these times say nothing of reads across NVLink ({card})")
+    log(f"[20], [21] phase wall {time.time() - t_phase:.1f} s ({card})")
+    return launches, timings, ref, work, dp_err
+
+
+def phase_hosts(torch, codes, card, ref, work) -> dict:
+    """BASELINE config 5 with the index sharded across hosts: [20]'s
+    traffic (the seed path on [16]'s reads, the FM path on [11]'s, [10]'s
+    exact search) with SHARDS shards over HOST_RANKS ranks declared on two
+    hosts (``GROUP_RANK`` = r // RANKS_A_HOST, ``LOCAL_RANK`` = r: rank r on
+    card r % device_count), one interval group across both, so the
+    collective route: each rank uploads its own shard only, maps nothing,
+    and merges every step by ``all_reduce`` (and the verify's distances by
+    ``all_gather``) over the group.  The SAMs and the exact search must
+    equal [20]'s 1-rank results (``ref``), the merges go over NCCL alone
+    where the ranks have a card each and over gloo alone where they share
+    one, no rank shares memory with another (0 ``peer.share`` calls) or
+    makes text shards, each rank's tables are at most its share of the
+    stacked bytes plus a block row a shard, ring and fused raise naming
+    both hosts, every rank launches the fused table entry (FM path, exact
+    search) and the banded DP's text entry (both aligner paths) and neither
+    the windows entry nor the sharded locate or piece search, every text
+    entry call of one batch (the warm-up of each aligner path) equals the
+    plain DP in every rank, and the table entry on a rank's held shards
+    equals its plain version with 0 on every coordinate they do not own.
+    Reads/s, ms a batch, merges a batch by route, one merge's ms by route,
+    each rank's table bytes and peak device memory, each card's used memory
+    and the phase's wall are printed.  -> (the launches of each rank, keyed
+    by run; the text entry's largest |dist err|)."""
+    import numpy as np
+
+    from genome_weaver_align_tpu_torch import cli
+
+    t_phase = time.time()
+    idx, seedf, _ = build_index(cli, codes)
+    n, S = HOST_RANKS, SHARDS
+    n_cards = torch.cuda.device_count()
+    sam = work / "hosts.sam"
+    res = run_ranks("interval", n, idx, seedf, work / "reads.npz", sam, tag="[22]",
+                    extra=(str(S),),
+                    env_of=lambda r: {"GROUP_RANK": str(r // RANKS_A_HOST), "LOCAL_RANK": str(r)})
+    own_cards = n <= n_cards
+    head = (f"[22] {n} ranks on {n // RANKS_A_HOST} declared hosts, {S} shards, one interval "
+            f"group across them")
+    bodies = {"seed path": sam.read_bytes(), "FM path": Path(f"{sam}.fm.sam").read_bytes()}
+    launches, dp_err = {}, 0
+    for r in res:
+        log(f"{head}: rank {r['rank']} on cuda:{r['card']}, host {r['hosts'][r['rank']]}, shards "
+            f"{r['held']}, collective route {r['collective']}, NCCL group {r['nccl']}, data axis "
+            f"{r['data']}, peer.share calls {r['shares']}; merges by run and route {r['routes']}")
+        if r.get("memory_used"):
+            log(f"{head}: with every rank alive, memory.used by card {r['memory_used']}; compute "
+                f"apps {r['compute_apps']} ({card})")
+    for tag in ("seed path", "FM path"):
+        n_sam, mapped, correct = score_sam(sam if tag == "seed path" else Path(f"{sam}.fm.sam"))
+        wall = max(r["wall_s"][tag] for r in res)
+        batches = res[0]["batches"][tag]
+        per_batch = {key: v / batches for key, v in res[0]["routes"][tag].items() if v}
+        log(f"{head}, {tag}: {n_sam} reads in {wall:.3f} s, {n_sam / wall:.1f} reads/s, "
+            f"{1e3 * wall / batches:.1f} ms a batch ({card}); mapped {mapped / n_sam:.6f}, "
+            f"correct {correct / n_sam:.6f}; merges a batch by route {per_batch}; peak device "
+            f"memory by rank {[r[f'peak_mem_bytes_{tag}'] for r in res]} B; launches by rank "
+            f"{[r['launches'][tag] for r in res]}")
+        check(mapped / n_sam >= MIN_MAPPED and correct / n_sam >= MIN_CORRECT,
+              f"[22] {tag}: mapped {mapped / n_sam:.4f}, correct {correct / n_sam:.4f}")
+        same = bodies[tag] == ref["bodies"][tag]
+        log(f"{head}, {tag}: the SAM is byte-identical to [20]'s 1-rank stacked SAM: {same}")
+        check(same, f"[22] {tag}: the SAM differs from [20]'s 1-rank SAM")
+    tag = "exact, merge=psum"
+    wall = max(r["wall_s"][tag] for r in res)
+    log(f"{head}, {tag}: {res[0]['reads'][tag]} reads in each rank, {wall:.3f} s ({card}); "
+        f"merges {res[0]['routes'][tag]}; launches by rank {[r['launches'][tag] for r in res]}")
+    for r in res:
+        who = f"[22] rank {r['rank']} of {n}"
+        ex = dict(np.load(f"{sam}.{r['rank']}.npz"))
+        first, stop = r["rows"]
+        same = all(np.array_equal(ex[key], ref["exact"][key][first:stop]) for key in ex)
+        check(same, f"{who}: the exact search differs from [20]'s 1-rank search")
+        m = r["mem"]
+        big = m["requested"] - m["small"]
+        limit = m["stacked"] * len(r["held"]) / S + FM_ROW_BYTES * len(r["held"])
+        log(f"{who} holds shards {r['held']} alone: tables {big} B requested ({m['allocated']} B "
+            f"allocated with the bounds), stacked {m['stacked']} B, limit {limit:.0f} B; the "
+            f"whole text {r['text_bytes']} B apart; exact search on rows {r['rows']} equal to "
+            f"[20]'s: {same}; kernels against plain, mismatches {r['bad']} ({r['unowned']} "
+            f"queries outside its shards); one merge of {r['merge_ms']['payload']} int32, ms "
+            f"{r['merge_ms']} ({card}); ring refused: {r['refused'].get('ring')}")
+        check(r["collective"] and r["shares"] == 0 and not r["text_shards"],
+              f"{who}: not the collective route, or memory shared: {r['collective']}, "
+              f"{r['shares']} peer.share calls, text shards {r['text_shards']}")
+        check(r["held"] == [r["rank"]] and r["data"] == [1, 0],
+              f"{who} holds {r['held']}, data axis {r['data']}")
+        check(big <= limit, f"{who} holds {big} B of tables, more than {limit:.0f}")
+        check(not any(r["bad"].values()), f"{who}: the table entry on its held shards differs "
+              f"from plain: {r['bad']}")
+        dp_err = max(dp_err, check_dp_results(who, r["dp_check"], "text entry"))
+        check(r["card"] == r["rank"] % n_cards, f"{who} is on cuda:{r['card']}")
+        a, b = r["hosts"][0], r["hosts"][-1]
+        check(a != b and all(f"{a!r}" in r["refused"].get(m, "") and f"{b!r}" in r["refused"][m]
+                             for m in ("ring", "fused")),
+              f"{who}: ring and fused did not raise naming hosts {a} and {b}: {r['refused']}")
+        for run, routes in r["routes"].items():
+            fast, slow = ("nccl", "gloo") if own_cards else ("gloo", "nccl")
+            check(routes[f"psum {fast}"] > 0 and routes[f"psum {slow}"] == 0
+                  and routes[f"all_gather {slow}"] == 0
+                  and sum(routes.values()) == routes[f"psum {fast}"] + routes[f"all_gather {fast}"],
+                  f"{who}, {run}: the merges did not go over {fast} alone: {routes}")
+        want = {"seed path": ("text entry",), "FM path": ("text entry", "fused table entry"),
+                "exact, merge=psum": ("fused table entry",)}
+        for run, kernels in want.items():
+            got = r["launches"][run]
+            for kname in kernels:
+                check(got[kname] > 0, f"{who}, {run}: the {kname} was never launched")
+            check(got["windows entry"] == got["sharded locate"] == got["sharded piece search"]
+                  == 0, f"{who}, {run}: a mapped-route kernel launched: {got}")
+            launches[f"[22] {run}, rank {r['rank']} of {n}"] = got
+    if not own_cards:
+        log(f"[22] the ranks share one card: the merges go over gloo on the host, so these times "
+            f"say nothing of NCCL between cards ({card})")
     shutil.rmtree(work)
-    return launches, timings
+    log(f"[22] phase wall {time.time() - t_phase:.1f} s ({card})")
+    return launches, dp_err
 
 
 def phase_builders(torch, dev, codes, card, native_index_s):
@@ -3965,7 +4193,8 @@ def main() -> int:
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
         rank_launches, rank_err, fm16 = phase_ranks(torch, codes, card)
         wait20 = phase_flag_wait(torch, card)
-        launches20, timings20 = phase_interval(torch, codes, card)
+        launches20, timings20, ref20, work20, err20 = phase_interval(torch, codes, card)
+        launches22, err22 = phase_hosts(torch, codes, card, ref20, work20)
         phase_builders(torch, dev, codes, card, native_index_s)
         fm_k = phase_fm_kernels(torch, dev, codes, rep_codes, card)
         loc_k = phase_locate(torch, dev, codes, rep_codes, card, fm_k["step_us"])
@@ -3978,7 +4207,8 @@ def main() -> int:
     myers_win_err, myers_text_err = myers_err
     log(json.dumps({"kernels": [
         kernel_row("banded_dp_text", "banded_dp.cu", "ops/dp_pallas.py:47",
-                   "[4] align --seed-table", launches, max_err, (*dp_timing["text"], None),
+                   "[4] align --seed-table", launches, max(max_err, err22),
+                   (*dp_timing["text"], None),
                    launches_by_path={"[4] align --seed-table": launches,
                                      "[12] tier 2 (repeat genome)": tier2_launches,
                                      **{f"[13] align {m}": n["banded"]
@@ -3990,14 +4220,16 @@ def main() -> int:
                                      **{f"[15] multi-part repeat, part {p}": n
                                         for p, n in enumerate(mp_launches["repeat_by_part"])},
                                      "[15] multi-part repeat, rescue":
-                                         mp_launches["repeat_rescue"]}),
+                                         mp_launches["repeat_rescue"],
+                                     **per_run(launches22, "text entry")}),
         kernel_row("banded_dp_text_long_read", "banded_dp.cu", "ops/dp_pallas.py:47",
                    "[14] long reads (LongReadAligner, kb = 16)", long_launches, max_err,
                    (*dp_timing["text_long"], None),
                    shape={"Q": LONG_B * (LONG_L // LONG_SEG), "L": LONG_SEG,
                           "W": LONG_SEG + 3 * LONG_KB, "k": LONG_KB}),
         kernel_row("banded_dp_windows", "banded_dp.cu", "ops/dp_pallas.py:47",
-                   "[11] align --n-interval 4", banded_win_launches, max(max_err, rank_err),
+                   "[11] align --n-interval 4", banded_win_launches,
+                   max(max_err, rank_err, err20),
                    (*dp_timing["windows"], None),
                    launches_by_path={"[11] align --n-interval 4": banded_win_launches,
                                      **rank_launches,
@@ -4023,7 +4255,8 @@ def main() -> int:
                    fused_launches, ring_err["table"], ring_timing["table"],
                    stage_ms=ring_timing["stage"], separate_allocations_ms=ring_timing["apart"],
                    launches_by_path={"[10] merge=fused": fused_launches,
-                                     **per_run(launches20, "fused table entry")}),
+                                     **per_run(launches20, "fused table entry"),
+                                     **per_run(launches22, "fused table entry")}),
         *fm_rows(fm_k, fm_cli_launches, tier2["staircase"], mode_launches, mp_launches),
         *locate_rows(loc_k, fm_cli_locate, tier2["locate"], mode_launches, mp_launches, locate10,
                      fm11, fm16, launches20),

@@ -298,10 +298,14 @@ __device__ __forceinline__ int shard_of(const int* start, const int* end, int S,
 }
 
 // One coordinate space's split: the S bounds in shared memory, whether they
-// are disjoint, and the division x / width (__umulhi(x, magic) >> shift,
-// exact for 0 <= x < 2^31; ops/fm_search_cuda.py owner_divisor) that
-// guesses the owner.  shard_fm_index splits each space into equal widths
-// clamped to n + 1, so there the guess is the owner of every x in [0, n].
+// are disjoint, and the division (x - base) / width (__umulhi(x - base,
+// magic) >> shift, exact for 0 <= x - base < 2^31; ops/fm_search_cuda.py
+// owner_divisor) that guesses the owner, base the first shard's start.
+// shard_fm_index splits each space into equal widths clamped to n + 1, so
+// there the guess is the owner of every x in [0, n]; so it is over any run
+// of consecutive shards of that split (the shards one process holds, which
+// start at base), and an x below base wraps to a guess that the bounds
+// refuse.
 struct Split {
   const int* start;
   const int* end;
@@ -309,6 +313,7 @@ struct Split {
   unsigned magic;
   int shift;
   bool disjoint;
+  int base;
 };
 
 // Every thread of the block calls it (it synchronises): the S bounds copied
@@ -329,14 +334,15 @@ __device__ __forceinline__ Split load_split(const int* start, const int* end, in
       overlap |= e != t && max(s_start[t], s_start[e]) < min(s_end[t], s_end[e]);
   }
   const bool disjoint = !__syncthreads_or(overlap);
-  return {s_start, s_end, S, magic, shift, disjoint};
+  return {s_start, s_end, S, magic, shift, disjoint, s_start[0]};
 }
 
-// shard_of(x) by arithmetic: the guess x / width, kept when its range holds
-// x and the ranges are disjoint (then no other shard holds x), else the
-// scan.  Equal to shard_of for every bounds; unequal ones cost the scan.
+// shard_of(x) by arithmetic: the guess (x - base) / width, kept when its
+// range holds x and the ranges are disjoint (then no other shard holds x),
+// else the scan.  Equal to shard_of for every bounds; unequal ones cost the
+// scan.
 __device__ __forceinline__ int owner_of(const Split& sp, int x) {
-  const unsigned g = min(__umulhi(static_cast<unsigned>(x), sp.magic) >> sp.shift,
+  const unsigned g = min(__umulhi(static_cast<unsigned>(x - sp.base), sp.magic) >> sp.shift,
                          static_cast<unsigned>(sp.S - 1));
   if (sp.disjoint && x >= sp.start[g] && x < sp.end[g]) return static_cast<int>(g);
   return shard_of(sp.start, sp.end, sp.S, x);

@@ -163,7 +163,7 @@ int launch_sharded(const SearchArgs& a, int S, int R, int primary, unsigned pk_m
                    int pk_shift, const void* C, const void* pk_start, const void* pk_end,
                    const gwa::ShardPtrs& bwt, const gwa::ShardPtrs& cp, cudaStream_t stream) {
   gwa::ShardedFM<Stacked> fm{};
-  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
+  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false, 0};
   fm.R = R;
   fm.primary = primary;
   backward_search_sharded_kernel<Stacked><<<grid(a), kThreads, 0, stream>>>(
@@ -197,8 +197,8 @@ extern "C" int gwa_backward_search(const void* reads, const void* lengths, int B
 // reads (B, L), lengths (B,), the S interval shards' bwt (R, 8) and occ_cp
 // (R, 4) 16-byte aligned (bwt_ptrs and cp_ptrs: S device pointers each),
 // pk_start / pk_end (S,), C (5,), out_lo / out_hi (B * P,): all int32.  The
-// owner guess is x / width = __umulhi(x, pk_magic) >> pk_shift
-// (fm_search_cuda.owner_divisor).
+// owner guess is (x - pk_start[0]) / width = __umulhi(x - pk_start[0],
+// pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
 extern "C" int gwa_backward_search_sharded(const void* reads, const void* lengths, int B, int L,
                                            int P, int S, int R, const uint64_t* bwt_ptrs,
                                            const uint64_t* cp_ptrs, const void* pk_start,

@@ -297,10 +297,10 @@ template <bool Stacked>
 int launch_sharded(LocateArgs a, int64_t Q, const ShardSizes& z, const int* c, ShardBounds sb,
                    ShardTables t, int grid, cudaStream_t stream) {
   Shards<Stacked> tab{};
-  tab.fm.pk = {nullptr, nullptr, z.S, z.pk_magic, z.pk_shift, false};
+  tab.fm.pk = {nullptr, nullptr, z.S, z.pk_magic, z.pk_shift, false, 0};
   tab.fm.R = z.R;
   tab.fm.primary = z.primary;
-  tab.rows = {nullptr, nullptr, z.S, z.row_magic, z.row_shift, false};
+  tab.rows = {nullptr, nullptr, z.S, z.row_magic, z.row_shift, false, 0};
   tab.mbs = z.mbs;
   tab.vmax = z.vmax;
   tab.n = z.n;
@@ -347,8 +347,8 @@ extern "C" int gwa_locate(const void* rows, int64_t Q, const void* blocks, int n
 // 16-byte aligned, mark_blocks (mbs, 4) 16-byte aligned, mark_cp (mbs + 1)
 // and ssa_values (vmax) (the *_ptrs: S device pointers each); pk_start /
 // pk_end, row_start / row_end and ssa_base (S,), C (5,): all int32.  Each
-// split's owner guess is x / width = __umulhi(x, magic) >> shift
-// (fm_search_cuda.owner_divisor).
+// split's owner guess is (x - start[0]) / width = __umulhi(x - start[0],
+// magic) >> shift (fm_search_cuda.owner_divisor).
 extern "C" int gwa_locate_sharded(const void* rows, int64_t Q, int S, int R,
                                   const uint64_t* bwt_ptrs, const uint64_t* cp_ptrs,
                                   const void* pk_start, const void* pk_end, unsigned pk_magic,

@@ -423,7 +423,7 @@ __global__ void __launch_bounds__(kThreads)
 template <bool Stacked>
 gwa::ShardedFM<Stacked> sharded_fm(int S, int R, int primary, unsigned pk_magic, int pk_shift) {
   gwa::ShardedFM<Stacked> fm{};
-  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false};
+  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false, 0};
   fm.R = R;
   fm.primary = primary;
   return fm;
@@ -505,8 +505,10 @@ extern "C" int gwa_fused_words(int S, int64_t n, const uint64_t* ptrs, void* str
 
 // Each of the S shards' bwt (R, 8) and occ_cp (R, 4) 16-byte aligned
 // (bwt_ptrs and cp_ptrs: S device pointers each), pk_start and pk_end (S,),
-// codes, k and out (n,), all int32.  The owner guess is x / width =
-// __umulhi(x, pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
+// codes, k and out (n,), all int32.  The owner guess is (x - pk_start[0]) /
+// width = __umulhi(x - pk_start[0], pk_magic) >> pk_shift
+// (fm_search_cuda.owner_divisor): the shards need not start at 0 (the held
+// shards of one process, whose coordinates outside them add 0).
 extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const uint64_t* bwt_ptrs,
                              const uint64_t* cp_ptrs, const void* pk_start, const void* pk_end,
                              unsigned pk_magic, int pk_shift, const void* codes, const void* k,

@@ -12,12 +12,24 @@ consecutive ranks (``interval_span``):
   S / P shards.
 
 Each process of a group holds ``n_interval / g`` consecutive shards
-(``held``) and maps the other members' (``parallel.peer``), wherever their
-cards lie; S = 1, or one process, is the stacked layout: every sharded
-table keeps a leading shard axis of size ``n_interval`` on ``device``.
-Each rank query is answered by its owning shard and the per-shard partials
-are merged by a sum over the shards (``parallel.ring``, ``parts.sum(0)``,
-or across processes ``sharded_index.make_sharded_exact_search``'s merges).
+(``held``).  Two routes, one for the whole world (``mapped``):
+
+- every interval group on one host (``multihost.one_host``): each process
+  maps the other members' shards (``parallel.peer``), wherever their cards
+  lie, and reads any shard directly;
+- some interval group across hosts, where CUDA IPC cannot reach: the
+  collective route, the JAX mesh's across hosts.  Each process uploads its
+  own shards only and maps nothing; every step that reads the index is
+  answered by each process from its own shards (non-owners give 0) and
+  merged by one ``all_reduce`` over the group.  Every member of a group
+  takes the group's reads: the data axis spans the groups.
+
+S = 1, or one process, is the stacked layout: every sharded table keeps a
+leading shard axis of size ``n_interval`` on ``device``.  Each rank query
+is answered by its owning shard and the per-shard partials are merged by a
+sum over the shards (``parallel.ring``, ``parts.sum(0)``, or across
+processes the merges of ``sharded_index.make_sharded_exact_search`` and of
+the sharded pipeline).
 
 Axes keep the JAX package's names:
 
@@ -25,12 +37,13 @@ Axes keep the JAX package's names:
                  batch to a multiple of ``n_data`` and uploads this
                  process's slice of it.  Where P divides ``n_data`` the
                  axis spans the processes: each takes its own slice (the
-                 port's ``ShardedAligner``, whose every process runs the
-                 whole pipeline over the mapped shards).  Else it spans the
-                 interval groups, P / g of them dividing ``n_data``: every
-                 process of a group takes the group's slice, as the devices
-                 of a JAX interval group take the same reads (the exact
-                 search).  With one group and ``n_data`` = 1 every process
+                 port's ``ShardedAligner`` on the mapped route, whose every
+                 process runs the whole pipeline over the mapped shards).
+                 Else it spans the interval groups, P / g of them dividing
+                 ``n_data``: every process of a group takes the group's
+                 slice, as the devices of a JAX interval group take the
+                 same reads (the exact search, and ``ShardedAligner`` on
+                 the collective route).  With one group and ``n_data`` = 1 every process
                  takes the whole batch.  In one process it is only padding,
                  and the outputs, sliced to the batch, are the same for
                  every ``n_data``.
@@ -73,7 +86,9 @@ class ShardLayout:
     of this process's interval group (each holds ``n_interval //
     interval_procs`` consecutive shards), the data axis ``data_procs``
     units, processes or interval groups (each owns ``n_data // data_procs``
-    consecutive positions on it)."""
+    consecutive positions on it).  ``mapped``: every interval group lies
+    on one host, so its members map each other's shards; else the whole
+    world takes the collective route (``collective``)."""
 
     n_data: int = 1
     n_interval: int = 1
@@ -82,6 +97,14 @@ class ShardLayout:
     process_count: int = 1
     interval_procs: int = 1
     data_procs: int = 1
+    mapped: bool = True
+
+    @property
+    def collective(self) -> bool:
+        """Whether this process's interval group merges by collectives over
+        its own shards (some group spans hosts) instead of mapping the
+        other members' shards."""
+        return self.interval_procs > 1 and not self.mapped
 
     @property
     def shape(self) -> dict:
@@ -136,13 +159,22 @@ class ShardLayout:
         return tuple(s // per for s in range(self.n_interval))
 
 
+def groups_mapped(n_procs: int, n_interval: int) -> bool:
+    """Whether every interval group of ``n_procs`` processes at
+    ``n_interval`` shards lies on one host (``multihost.one_host``): the
+    mapped route, else the collective one."""
+    g = interval_span(n_procs, n_interval)
+    return all(mh.one_host(ranks) for ranks in mh.groups_of(n_procs, g))
+
+
 def make_layout(n_data: int = 1, n_interval: int = 1, device="cuda") -> ShardLayout:
     """A layout for this process in the current process group (one process
     when none is initialised): make it after ``initialize_distributed``.
     With P > 1 processes the interval axis spans groups of
     ``interval_span(P, n_interval)`` processes, and the data axis the P
     processes where P divides ``n_data``, else the P / g groups, which must
-    divide it."""
+    divide it.  The route (``mapped``) follows the hosts of the groups
+    (``groups_mapped``)."""
     if n_data < 1 or n_interval < 1:
         raise ValueError(f"axis sizes must be >= 1, got n_data={n_data}, n_interval={n_interval}")
     pi, pc = mh.process_index(), mh.process_count()
@@ -154,7 +186,8 @@ def make_layout(n_data: int = 1, n_interval: int = 1, device="cuda") -> ShardLay
     else:
         raise ValueError(f"the data axis ({n_data}) must divide across {pc} processes or their "
                          f"{pc // g} interval groups")
-    return ShardLayout(n_data, n_interval, torch.device(device), pi, pc, g, data_procs)
+    return ShardLayout(n_data, n_interval, torch.device(device), pi, pc, g, data_procs,
+                       groups_mapped(pc, n_interval))
 
 
 def shard_reads(layout: ShardLayout, reads: np.ndarray, lengths: np.ndarray):

@@ -12,7 +12,14 @@ degenerates to the local case.
 
 Each process takes a card: its local rank (``LOCAL_RANK``, else its rank:
 one host) modulo the cards it sees (``card_for``, ``device``); several
-processes share a card where there are fewer cards than processes.
+processes share a card where there are fewer cards than processes.  Each
+process also records every process's host (``host_of``): its hostname,
+joined with its node rank where a multi-node launcher states one
+(``GROUP_RANK``, as torchrun sets it).  On real nodes both differ; on one
+machine the node rank alone declares the nodes.  CUDA IPC, and so the shard
+maps of ``parallel.peer``, stops at the host: an interval group whose
+processes lie on several hosts merges by collectives instead
+(``mesh.ShardLayout.mapped``).
 
 Two transports:
 
@@ -53,6 +60,7 @@ COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
 _CARD = None  # this process's card, recorded by initialize_distributed
 _GROUPS = {}  # span -> (this process's gloo group, its NCCL group or None)
+_HOSTS = []  # every process's host, recorded by initialize_distributed
 
 
 def card_for(local_rank: int, n_cards: int) -> int | None:
@@ -72,6 +80,25 @@ def groups_of(n_procs: int, span: int) -> list[list[int]]:
     return [list(range(first, first + span)) for first in range(0, n_procs, span)]
 
 
+def this_host() -> str:
+    """This process's host: its hostname, and its node rank where the
+    launcher sets ``GROUP_RANK``."""
+    node = os.environ.get("GROUP_RANK")
+    return socket.gethostname() if node is None else f"{socket.gethostname()}/node{node}"
+
+
+def host_of(rank: int) -> str:
+    """The host of process ``rank`` as ``initialize_distributed`` recorded
+    it; without a record (one process, or a group that function did not
+    make) every process is taken for one on this host."""
+    return _HOSTS[rank] if process_count() > 1 and rank < len(_HOSTS) else this_host()
+
+
+def one_host(ranks) -> bool:
+    """Whether the processes ``ranks`` lie on one host."""
+    return len({host_of(r) for r in ranks}) <= 1
+
+
 def apart(places, ranks) -> bool:
     """Whether the processes ``ranks`` lie on distinct cards: ``places``
     is every process's (host, card), card None without one."""
@@ -86,9 +113,10 @@ def initialize_distributed(
 ) -> None:
     """Join a gloo process group at ``coordinator_address`` (``host:port``;
     process 0 listens there), take this process's card (``card_for``; made
-    the current CUDA device) and make the interval groups of every span,
-    each with an NCCL group beside its gloo group where its processes lie
-    on distinct cards; no-op for a single process."""
+    the current CUDA device), record every process's host (``host_of``)
+    and make the interval groups of every span, each with an NCCL group
+    beside its gloo group where its processes lie on distinct cards; no-op
+    for a single process."""
     global _CARD
     if num_processes is None or num_processes <= 1:
         return
@@ -103,8 +131,12 @@ def initialize_distributed(
     _CARD = card_for(int(os.environ.get("LOCAL_RANK", process_id)), n_cards)
     if _CARD is not None:
         torch.cuda.set_device(_CARD)
-    places = [None] * num_processes
-    dist.all_gather_object(places, (socket.gethostname(), _CARD))
+    # (hostname, card) names a physical card whatever node rank a process
+    # declares: processes of two declared nodes on one machine may share one
+    found = [None] * num_processes
+    dist.all_gather_object(found, (socket.gethostname(), _CARD, this_host()))
+    places = [f[:2] for f in found]
+    _HOSTS[:] = [f[2] for f in found]
     nccl = dist.is_nccl_available() and n_cards > 0
     _GROUPS.clear()
     for g in spans(num_processes):
@@ -195,12 +227,17 @@ def make_global_batch(layout, host_reads: np.ndarray, host_lengths: np.ndarray):
     return reads, lengths, host_reads.shape[0] * layout.data_procs
 
 
-def gather_to_host(tensors) -> list[np.ndarray]:
+def gather_to_host(tensors, span: int = 1) -> list[np.ndarray]:
     """Every process's slice of each result, concatenated along axis 0 in
     process order, as numpy arrays on every process (the JAX package's
     ``process_allgather(tiled=True)``).  Slices must have the same shape on
     every process: pad the batch before it is split, and slice the padding
-    off after the gather."""
+    off after the gather.  ``span`` > 1 takes the slice of the first of
+    every ``span`` consecutive processes only: the members of an interval
+    group whose data axis spans the groups hold one slice each.  The
+    transfer still moves all P slices and drops the duplicates here, which
+    keeps one collective over the whole world; a gather from one member a
+    group would move 1/span of the bytes."""
     local = [t.cpu() if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
              for t in tensors]
     pc = process_count()
@@ -211,7 +248,7 @@ def gather_to_host(tensors) -> list[np.ndarray]:
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(pc)]
         dist.all_gather(parts, t)
-        out.append(torch.cat(parts).numpy())
+        out.append(torch.cat(parts[::span]).numpy())
     return out
 
 

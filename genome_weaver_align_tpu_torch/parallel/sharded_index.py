@@ -18,16 +18,20 @@ In one process all shards live on one device, stacked on a leading shard
 axis S as in the JAX package's host layout.  Under
 ``multihost.initialize_distributed`` a layout whose interval axis spans
 interval groups of g processes (``mesh.make_layout``) gives each process
-S / g of the shards, and ``put_sharded`` maps the other members' on their
-cards (``parallel.peer``): the big tables become ``peer.Shards``, one
-tensor a shard.  Every ``local_*``
-function answers a query for all S shards at once, wherever they live, and
-returns ``(S, ...)`` partials.  A ``merge`` takes those partials and
-returns the ``(...)`` sum: ``parts.sum(0)`` by default (the analogue of
-``psum``), or the ring kernels of ``parallel.ring``; across processes the
-exact search merges each process's own shards' partials
-(``make_sharded_exact_search``).  Words are int32 tensors holding the
-uint32 bits, as in ``ops.rank``.
+S / g of the shards.  On the mapped route (every group on one host)
+``put_sharded`` maps the other members' on their cards (``parallel.peer``):
+the big tables become ``peer.Shards``, one tensor a shard.  Every
+``local_*`` function answers a query for all S shards at once, wherever
+they live, and returns ``(S, ...)`` partials.  A ``merge`` takes those
+partials and returns the ``(...)`` sum: ``parts.sum(0)`` by default (the
+analogue of ``psum``), or the ring kernels of ``parallel.ring``; across
+processes the exact search merges each process's own shards' partials
+(``make_sharded_exact_search``).  On the collective route (a group spans
+hosts, where CUDA IPC cannot reach) each process uploads only its own
+shards and reads them through ``held_index``; every step is answered from
+them and merged by one ``all_reduce`` over the group (``held_step``,
+``locate_collective``), as the JAX ``psum`` does across hosts.  Words are
+int32 tensors holding the uint32 bits, as in ``ops.rank``.
 """
 
 from __future__ import annotations
@@ -186,13 +190,21 @@ def put_tables(host, device, layout: ShardLayout, tables, small):
     process, or with a layout whose interval axis spans none, all shards
     go on the one device, stacked.  With a layout whose interval axis spans
     the processes, each uploads the shards of ``tables`` it holds
-    (``layout.held``) and maps every other process's: they become
-    ``peer.Shards`` (a collective: every process of the interval group
-    calls it); the small bounds are every process's."""
+    (``layout.held``): on the mapped route it maps every other process's,
+    and they become ``peer.Shards`` (a collective: every process of the
+    interval group calls it); on the collective route it maps nothing, and
+    each table is the ``(h, R, ...)`` tensor of its own shards alone (read
+    it through ``held_index``).  The small bounds are every shard's."""
     spread = layout is not None and layout.interval_procs > 1
-    group = layout.group if spread else None
-    kw = {f: peer.shard_table(np.asarray(getattr(host, f)), device, layout, group)
-          if spread else rank._upload(np.asarray(getattr(host, f)), device) for f in tables}
+
+    def big(a):
+        if not spread:
+            return rank._upload(a, device)
+        if layout.collective:
+            return rank._upload(a[layout.held.start : layout.held.stop], device)
+        return peer.shard_table(a, device, layout, layout.group)
+
+    kw = {f: big(np.asarray(getattr(host, f))) for f in tables}
     kw.update({f: rank._upload(np.asarray(getattr(host, f)), device) for f in small})
     return dataclasses.replace(host, **kw)
 
@@ -205,16 +217,27 @@ def put_sharded(sh: ShardedFMIndex, device, layout: ShardLayout = None) -> Shard
     return put_tables(sh, device, layout, _TABLES, (*_BOUNDS, "C"))
 
 
+def held_tables(obj, layout: ShardLayout, tables, small):
+    """A sharded structure's shards that this process holds, as a stacked
+    structure of their own: each of ``tables`` its held ``(h, R, ...)``
+    tensor (a ``peer.Shards``' ``held``, or the table itself on the
+    collective route, which uploads nothing else) and each of ``small``
+    cut to the held shards; ``obj`` itself in the stacked layout."""
+    if layout.interval_procs == 1:
+        return obj
+    held = layout.held
+    kw = {f: getattr(obj, f).held if isinstance(getattr(obj, f), peer.Shards)
+          else getattr(obj, f) for f in tables}
+    kw.update({f: getattr(obj, f)[held.start : held.stop] for f in small})
+    return dataclasses.replace(obj, **kw)
+
+
 def held_index(sh: ShardedFMIndex, layout: ShardLayout) -> ShardedFMIndex:
     """The shards this process holds, as a stacked index of their own
     (``local_*`` partials of these shards only): ``sh`` itself in the
     stacked layout."""
-    if layout.interval_procs == 1:
-        return sh
-    held = layout.held
-    kw = {f: getattr(sh, f).held for f in _TABLES}
-    kw.update({f: getattr(sh, f)[held.start : held.stop] for f in _BOUNDS})
-    return dataclasses.replace(sh, n_shards=len(held), **kw)
+    own = held_tables(sh, layout, _TABLES, _BOUNDS)
+    return own if own is sh else dataclasses.replace(own, n_shards=len(layout.held))
 
 
 # ---- local (per-shard) queries, vectorised over the shard axis: a query of
@@ -391,10 +414,65 @@ def backward_step(sh, codes, lo, hi, merge=None):
     return Cc + occ_lo, Cc + occ_hi
 
 
+def held_step(own, codes, lo, hi, merge):
+    """One interval update answered by the shards ``own`` this process
+    holds and merged across its interval group by ``merge``.  On the card
+    the held shards' lo and hi partials come from one launch of the fused
+    table entry (``fused_occ``: a coordinate no held shard owns adds 0),
+    merged as one ``(1, 2, ...)`` payload; on the CPU ``backward_step``'s
+    ``(h, 2, ...)`` partials.  The sharded piece search and the exact
+    search's psum share it."""
+    if not codes.is_cuda:
+        return backward_step(own, codes, lo, hi, merge)
+    occ_lo, occ_hi = merge(fused_occ(own, torch.stack([codes, codes]), torch.stack([lo, hi]))[None])
+    Cc = own.C[codes.long()]
+    return Cc + occ_lo, Cc + occ_hi
+
+
 def lf(sh, i, merge=None):
     merge = merge or default_merge
     c = merge(local_bwt_char(sh, i))
     return sh.C[c.long()] + merge(local_occ_codes(sh, c, i))
+
+
+def local_lf(sh: ShardedFMIndex, i: torch.Tensor) -> torch.Tensor:
+    """Each shard's contribution to ``lf(i)``: the owner of i's packed
+    coordinate gives C[c] + occ(c, i) with c its own BWT character at i,
+    the others 0.  ``shard_fm_index``'s packed ranges are disjoint and
+    cover [0, n], so one shard owns each row, its c is the merged one, and
+    the sum over the shards is ``lf``'s value: one merge where ``lf`` makes
+    two."""
+    own, _, _ = _block_split(sh, i)
+    c = local_bwt_char(sh, i)
+    return torch.where(own, sh.C[c.long()] + local_occ_codes(sh, c, i), 0)
+
+
+def local_ssa_at(sh: ShardedFMIndex, i: torch.Tensor) -> torch.Tensor:
+    """Each shard's contribution to the sampled value at a marked row i:
+    the owner of the row reads its global rank and its value, the others
+    0 (one merge where the walk's tail makes two)."""
+    own, _, _ = _row_split(sh, i)
+    slot = local_mark_rank1(sh, i) - _col(sh.ssa_base, i.dim())
+    slot = slot.clamp(0, sh.ssa_values.shape[1] - 1)
+    return torch.where(own, shard_rows(sh.ssa_values, slot), 0)
+
+
+def locate_collective(own: ShardedFMIndex, rows: torch.Tensor, merge) -> torch.Tensor:
+    """``locate``'s LF walk over the shards ``own`` this process holds,
+    merged across its interval group by ``merge`` (``(h, ...)`` partials to
+    the group's sum) once a step: the stacked (marked, next row) partials
+    (``local_mark_get``, ``local_lf``), then one merge of the sampled
+    value (``local_ssa_at``): ``sample_rate + 1`` merges where the JAX
+    walk makes three a step and two at its end, with exactly its values
+    (the owner of a row computes each fused quantity whole).  Every
+    process of the group passes the same rows."""
+    i = rows.to(I32)
+    d = torch.zeros_like(i)
+    for _ in range(own.sample_rate):
+        marked, nxt = merge(torch.stack([local_mark_get(own, i), local_lf(own, i)], dim=1))
+        marked = marked > 0
+        i, d = torch.where(marked, i, nxt), torch.where(marked, d, d + 1)
+    return merge(local_ssa_at(own, i)) + d
 
 
 def locate(sh, rows):
@@ -426,8 +504,42 @@ def locate_plain(sh, rows, merge=None):
 
 # The merges across processes by route, counted where each runs: psum over
 # NCCL on the card or gloo on the host; ring by the flag wait or behind a
-# host barrier (chip_smoke.py [20] reads them)
-CROSS_MERGES = dict.fromkeys(("psum nccl", "psum gloo", "ring flag wait", "ring host barrier"), 0)
+# host barrier; the collective route's verify gathers (chip_smoke.py [20]
+# and [22] read them)
+CROSS_MERGES = dict.fromkeys(("psum nccl", "psum gloo", "ring flag wait", "ring host barrier",
+                              "all_gather nccl", "all_gather gloo"), 0)
+
+
+def group_nccl(layout: ShardLayout, dev: torch.device):
+    """The NCCL group of this process's interval group where its tensors
+    lie on the card and ``initialize_distributed`` made one (its members
+    on distinct cards), else None (gloo on the host)."""
+    return mh.nccl_group(layout.interval_procs) if dev.type == "cuda" else None
+
+
+def hosts_apart(layout: ShardLayout) -> list[str]:
+    """Two hosts of the first interval group that spans hosts (none on the
+    mapped route)."""
+    for ranks in mh.groups_of(layout.process_count, layout.interval_procs):
+        hosts = list(dict.fromkeys(mh.host_of(r) for r in ranks))
+        if len(hosts) > 1:
+            return hosts[:2]
+    return []
+
+
+def gather_across(group, nccl):
+    """``all_gather`` across the interval group, concatenated along the
+    last axis in group order (the JAX ``all_gather(tiled=True)`` over an
+    interval axis that spans processes): over ``nccl`` on the device
+    tensor, else over gloo on the host."""
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        y = x.contiguous() if nccl is not None else x.cpu().contiguous()
+        parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, y, group=group if nccl is None else nccl)
+        CROSS_MERGES["all_gather gloo" if nccl is None else "all_gather nccl"] += 1
+        return torch.cat(parts, dim=-1).to(x.device)
+
+    return gather
 
 
 def _psum_across(group, nccl):
@@ -528,18 +640,20 @@ def make_sharded_exact_search(
     ``microbatch`` > 1 splits the batch into that many chunks per step (when
     it divides the batch), as the JAX code splits each data shard's batch;
     the results are the same for every chunking.  The located positions
-    come from ``locate``: one kernel on a CUDA device, whatever ``merge``.
-    ``like`` is accepted for the JAX signature; nothing is read from it.
+    come from ``locate``: one kernel on a CUDA device, whatever ``merge``
+    (on the collective route, ``locate_collective``).  ``like`` is
+    accepted for the JAX signature; nothing is read from it.
 
     When the layout's interval axis spans interval groups of processes,
     every process of a group takes the group's reads (``mesh.shard_reads``
     with a data axis over the groups: each group its slice, as the devices
     of a JAX interval group take the same reads; a layout whose data axis
     spans the processes is refused), and the merges cross the
-    group's processes: "psum" sums each process's own shards' partials and
-    ``all_reduce``s them over the group (NCCL on the card where the
-    processes hold their shards on separate cards, ``peer.apart``; gloo on
-    the host where they share one), "ring" reads the S shards' partials
+    group's processes: "psum" sums each process's own shards' partials
+    (``held_step``) and ``all_reduce``s them over the group (NCCL on the
+    card where the processes hold their shards on separate cards,
+    ``peer.apart``; gloo on the host where they share one), "ring" reads
+    the S shards' partials
     from every process's mapped slots in one kernel (``_RingSlots``: a flag
     wait in the kernel across cards, a host barrier on one card; a wait
     that fails, here or in a peer, makes the search raise at its end), and
@@ -548,6 +662,13 @@ def make_sharded_exact_search(
     that owns it, through the peer map, on whichever card it lies.  Every
     process of a group gets the group's whole result.  ``CROSS_MERGES``
     counts the merges by route.
+
+    On the collective route (``layout.collective``: an interval group
+    spans hosts) only "psum" runs, as the JAX ``psum`` does across hosts:
+    each step's held partials ``all_reduce``d over the group (NCCL where
+    its members have cards of their own, else gloo), and the final locate
+    is ``locate_collective``.  "ring" and "fused" read the other members'
+    memory, which cannot cross a host: they raise, naming two hosts.
     """
     if merge not in ("psum", "ring", "fused"):
         raise ValueError(f"merge={merge!r}: expected psum, ring or fused")
@@ -558,6 +679,11 @@ def make_sharded_exact_search(
             f"the exact search's data axis ({layout.n_data}) spans the {layout.process_count} "
             f"processes, but its interval groups of {layout.interval_procs} need the same reads "
             f"in every member: make the layout with n_data = {layout.groups} (or 1)")
+    if layout.collective and merge != "psum":
+        a, b = hosts_apart(layout)
+        raise ValueError(f"merge={merge!r} reads the other members' shards or slots directly, "
+                         f"which cannot cross a host: an interval group spans hosts {a!r} and "
+                         f"{b!r} (use merge='psum')")
     group = layout.group
 
     def fn(sh: ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor):
@@ -568,9 +694,12 @@ def make_sharded_exact_search(
         mb = microbatch if B % microbatch == 0 else 1
         Bc = B // mb
         own = held_index(sh, layout)  # the partials' shards: this process's
-        apart = group is not None and peer.apart(sh.bwt_blocks, layout)
+        apart = group is not None and not layout.collective and peer.apart(sh.bwt_blocks,
+                                                                            layout)
         if group is None:
             step_merge = ring_merge if merge == "ring" else default_merge
+        elif layout.collective:
+            step_merge = _psum_across(group, group_nccl(layout, dev))
         elif merge == "ring":
             step_merge = _RingSlots(layout, group, (2, Bc), dev, apart)
         elif merge == "psum":
@@ -606,9 +735,11 @@ def make_sharded_exact_search(
                     for m, c in enumerate(cs)
                 ]
             else:
-                news = [
-                    backward_step(own, c, *state[m], step_merge) for m, c in enumerate(cs)
-                ]
+                # the psum across processes sums the held partials first:
+                # one table-entry launch gives them (the ring's slots take
+                # each held shard's partial)
+                step = held_step if group is not None and merge == "psum" else backward_step
+                news = [step(own, c, *state[m], step_merge) for m, c in enumerate(cs)]
             state = [
                 (torch.where(a, nlo, lo), torch.where(a, nhi, hi))
                 for a, (nlo, nhi), (lo, hi) in zip(actives, news, state)
@@ -618,7 +749,8 @@ def make_sharded_exact_search(
             step_merge.check()
         lo = torch.cat([s[0] for s in state])
         hi = torch.cat([s[1] for s in state])
-        pos = locate(sh, lo.clamp(0, sh.n))
+        pos = (locate_collective(own, lo.clamp(0, sh.n), step_merge) if layout.collective
+               else locate(sh, lo.clamp(0, sh.n)))
         return lo, hi, torch.where(hi > lo, pos, -1)
 
     return fn

@@ -30,6 +30,22 @@ runs the whole pipeline for its reads):
 
 The verify runs the hand-written banded-DP kernel on a CUDA device and its
 plain version on the CPU (``ops.dp.banded_edit_distance_best``).
+
+Where an interval group spans hosts (``mesh.ShardLayout.collective``: CUDA
+IPC cannot reach across them) the JAX design holds: every process of a
+group takes the group's reads, holds its own shards only and maps nothing,
+and every step that reads the shards is answered by each process from its
+own (non-owners give 0) and merged by one ``all_reduce`` over the group
+(``sharded_index._psum_across``: NCCL where the members have cards of
+their own, else gloo).  The seed path's two merges as above; the piece
+search a loop of ``sharded_index.held_step`` (one launch of the fused table
+entry a step on the card); the locate ``sharded_index.locate_collective``
+(one merge a step); and the verify split over the g members as the JAX
+package splits it: each verifies its share of the padded candidates with
+the banded DP's text entry (``ops.dp.banded_edit_distance_text``) against
+the whole packed text every process holds for the CIGAR check, and the
+distances are all_gathered (``sharded_index.gather_across``).  The same
+windows as the owner-computes merge, and no window bytes moved.
 """
 
 from __future__ import annotations
@@ -162,13 +178,48 @@ def _dedupe(cand: torch.Tensor) -> torch.Tensor:
     return torch.sort(torch.where(dup, sf.NO_CAND, cand), dim=1).values
 
 
+def _pad_candidates(cand, n_interval):
+    """The candidates padded with NO_CAND to Cs * S columns, Cs = ceil(C /
+    S): the JAX package's split of the verify over the interval axis."""
+    B, C = cand.shape
+    pad = -(-C // n_interval) * n_interval - C
+    return torch.cat([cand, torch.full((B, pad), sf.NO_CAND, dtype=I32, device=cand.device)], dim=1)
+
+
+def _verify_split(text, reads, lengths, cand, k, W, layout, gather):
+    """The collective route's verify: the padded candidates split over the
+    interval group's members in order; this member verifies its share
+    against the whole packed text ``text`` = (words, n) with the banded
+    DP's text entry, and ``gather`` all_gathers the distances; best hit.
+    The windows are those the owner-computes merge gives (code 4 off the
+    genome)."""
+    words, n = text
+    B = cand.shape[0]
+    cand_p = _pad_candidates(cand, layout.n_interval)
+    Cm = cand_p.shape[1] // layout.interval_procs
+    mine = cand_p[:, layout.group_rank * Cm : (layout.group_rank + 1) * Cm]
+    invalid = mine == sf.NO_CAND
+    starts = torch.where(invalid, 0, mine - k).reshape(-1).to(I32).contiguous()
+    rid = torch.arange(B, dtype=I32, device=cand.device).repeat_interleave(Cm)
+    dist, _ = dp_ops.banded_edit_distance_text(words, n, starts, reads.to(torch.int8).contiguous(),
+                                               lengths.to(I32).contiguous(), rid, k, W)
+    dist = torch.where(invalid, dp_ops.INF, dist.reshape(B, Cm))
+    return sf.best_hit(cand_p, gather(dist), k)
+
+
+def _collective(layout: pmesh.ShardLayout, dev):
+    """The collective route's merges for this process's interval group:
+    (psum, all_gather), over NCCL where the members have cards of their own
+    and the tensors lie on the card, else over gloo."""
+    nccl = si.group_nccl(layout, dev)
+    return si._psum_across(layout.group, nccl), si.gather_across(layout.group, nccl)
+
+
 def _verify_best(tx, reads, lengths, cand, k, W, n_interval):
     """Windows of every candidate (owner-computes + merge), one banded
     verify over the padded (B, Cs * S) candidates, best hit."""
-    B, C = cand.shape
-    Cs = -(-C // n_interval)
-    pad = Cs * n_interval - C
-    cand_p = torch.cat([cand, torch.full((B, pad), sf.NO_CAND, dtype=I32, device=cand.device)], dim=1)
+    B = cand.shape[0]
+    cand_p = _pad_candidates(cand, n_interval)
     Cp = cand_p.shape[1]
     invalid = cand_p == sf.NO_CAND
     ws_all = torch.where(invalid, 0, cand_p - k).reshape(-1)
@@ -194,7 +245,10 @@ def make_sharded_seed_align(
     """Seed-path sharded align step: candidate generation needs one merge
     of the probe widths and one of the candidates, and no locate.  Returns
     fn(seed_shards, text_shards, reads, lengths) -> (best_pos, best_dist,
-    n_good, overflow)."""
+    n_good, overflow).  On the collective route (``layout.collective``)
+    the seed shards are this process's own (``put_seed``), the merges are
+    ``all_reduce``s over its interval group, and ``text_shards`` is the
+    whole packed text (words, n) for the split verify."""
     n_pieces = k + 1
     n_interval = layout.n_interval
     W = max_len + 3 * k
@@ -204,6 +258,11 @@ def make_sharded_seed_align(
         reads = reads.to(I32)
         lengths = lengths.to(I32)
         B = reads.shape[0]
+        if layout.collective:
+            st = si.held_tables(st, layout, ("offsets", "positions"), ("k_lo", "k_hi"))
+            merge, gather = _collective(layout, reads.device)
+        else:
+            merge = si.default_merge
         S = st.k_lo.shape[0]
         bounds = sf._piece_bounds(lengths, n_pieces)
         s, e = bounds[:, :-1], bounds[:, 1:]
@@ -217,7 +276,7 @@ def make_sharded_seed_align(
         idx_loc = (idx[None] - col(st.k_lo)).clamp(0, st.offsets.shape[1] - 2)
         start_all = si.shard_rows(st.offsets, idx_loc)
         end_all = si.shard_rows(st.offsets, idx_loc + 1)
-        width_all = si.default_merge(torch.where(mine_all, end_all - start_all, 0))
+        width_all = merge(torch.where(mine_all, end_all - start_all, 0))
         r_best = torch.argmin(width_all, dim=2, keepdim=True)  # first min: deterministic
 
         def take(a):
@@ -233,12 +292,15 @@ def make_sharded_seed_align(
         valid_l = mine[..., None] & (slots < end[..., None])
         hit = si.shard_rows(st.positions, slots.clamp(0, st.positions.shape[1] - 1))
         cand_part = torch.where(valid_l, hit - jst[None, ..., None], 0)
-        cand_all = si.default_merge(cand_part.reshape(S, B, -1)).reshape(B, n_pieces, max_hits)
+        cand_all = merge(cand_part.reshape(S, B, -1)).reshape(B, n_pieces, max_hits)
         overflow = torch.any(width > max_hits, dim=1)
         valid = torch.arange(max_hits, dtype=I32, device=reads.device) < width[..., None]
         cand = torch.where(valid, cand_all, sf.NO_CAND).reshape(B, -1)
 
-        best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W, n_interval)
+        if layout.collective:
+            best = _verify_split(tx, reads, lengths, _dedupe(cand), k, W, layout, gather)
+        else:
+            best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W, n_interval)
         return best.best_pos, best.best_dist, best.n_good, overflow
 
     return fn
@@ -264,25 +326,45 @@ def sharded_piece_search(sh: si.ShardedFMIndex, reads: torch.Tensor, lengths: to
         _piece_steps(max_len, n_pieces))
 
 
-def sharded_piece_search_plain(sh: si.ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor,
-                               n_pieces: int, max_len: int):
-    """The piece search as a loop of torch ops (the kernel's plain version):
-    ceil(max_len / P) + 1 interval updates, each answered by the owning BWT
-    shard with the partials summed over the shards; lanes whose piece is
-    exhausted or whose interval is empty stop updating."""
+def _piece_loop(n: int, reads: torch.Tensor, lengths: torch.Tensor, n_pieces: int, max_len: int,
+                step):
+    """ceil(max_len / P) + 1 interval updates of every piece, each
+    ``step(codes, lo, hi)``; lanes whose piece is exhausted or whose
+    interval is empty stop updating."""
     reads = reads.to(I32)
     B, L = reads.shape
     dev = reads.device
     bounds = sf._piece_bounds(lengths, n_pieces)
     s, e = bounds[:, :-1], bounds[:, 1:]
     lo = torch.zeros((B, n_pieces), dtype=I32, device=dev)
-    hi = torch.full((B, n_pieces), sh.n + 1, dtype=I32, device=dev)
+    hi = torch.full((B, n_pieces), n + 1, dtype=I32, device=dev)
     for t in range(_piece_steps(max_len, n_pieces)):
         j = e - 1 - t
         active = (j >= s) & (lo < hi)
         c = torch.gather(reads, 1, j.clamp(0, L - 1).long())
-        lo, hi = rank.step_where(active, si.backward_step(sh, c, lo, hi), (lo, hi))
+        lo, hi = rank.step_where(active, step(c, lo, hi), (lo, hi))
     return lo, hi
+
+
+def sharded_piece_search_plain(sh: si.ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor,
+                               n_pieces: int, max_len: int):
+    """The piece search as a loop of torch ops (the kernel's plain version):
+    ceil(max_len / P) + 1 interval updates, each answered by the owning BWT
+    shard with the partials summed over the shards; lanes whose piece is
+    exhausted or whose interval is empty stop updating."""
+    return _piece_loop(sh.n, reads, lengths, n_pieces, max_len,
+                       lambda c, lo, hi: si.backward_step(sh, c, lo, hi))
+
+
+def held_piece_search(own: si.ShardedFMIndex, reads: torch.Tensor, lengths: torch.Tensor,
+                      n_pieces: int, max_len: int, merge):
+    """The collective route's piece search over the shards ``own`` this
+    process holds: each interval update is ``sharded_index.held_step``, the
+    held shards' lo and hi partials (one launch of the fused table entry on
+    the card; on the CPU the partials of ``sharded_piece_search_plain``'s
+    step) merged across the interval group by ``merge``."""
+    return _piece_loop(own.n, reads, lengths, n_pieces, max_len,
+                       lambda c, lo, hi: si.held_step(own, c, lo, hi, merge))
 
 
 def make_sharded_pigeonhole_align(
@@ -297,7 +379,12 @@ def make_sharded_pigeonhole_align(
     """FM-path sharded align step: the piece search and the locate over the
     interval shards (one kernel each on a CUDA device).  Returns
     fn(index_shards, text_shards, reads, lengths) -> (best_pos, best_dist,
-    n_good, overflow)."""
+    n_good, overflow).  On the collective route (``layout.collective``)
+    the piece search is ``held_piece_search``, the locate
+    ``sharded_index.locate_collective`` and the verify split over the
+    group, each over this process's own shards and merged across its
+    interval group; ``text_shards`` is then the whole packed text (words,
+    n)."""
     n_pieces = k + 1
     n_interval = layout.n_interval
     W = max_len + 3 * k
@@ -308,18 +395,29 @@ def make_sharded_pigeonhole_align(
         B = reads.shape[0]
         dev = reads.device
         s = sf._piece_bounds(lengths, n_pieces)[:, :-1]
+        if layout.collective:
+            own = si.held_index(sh, layout)
+            merge, gather = _collective(layout, dev)
 
         # 1. piece search, every interval update answered by its owner shard
-        lo, hi = sharded_piece_search(sh, reads, lengths, n_pieces, max_len)
+        if layout.collective:
+            lo, hi = held_piece_search(own, reads, lengths, n_pieces, max_len, merge)
+        else:
+            lo, hi = sharded_piece_search(sh, reads, lengths, n_pieces, max_len)
         overflow = torch.any((hi - lo) > max_hits, dim=1)
 
         # 2. locate candidate rows (the LF walk over the shards)
         rows = lo[:, :, None] + torch.arange(max_hits, dtype=I32, device=dev)[None, None, :]
         valid = rows < hi[:, :, None]
-        pos = si.locate(sh, rows.clamp(0, sh.n).reshape(-1)).reshape(rows.shape)
+        rows = rows.clamp(0, sh.n).reshape(-1)
+        pos = (si.locate_collective(own, rows, merge) if layout.collective
+               else si.locate(sh, rows)).reshape(valid.shape)
         cand = torch.where(valid, pos - s[:, :, None], sf.NO_CAND).reshape(B, -1)
 
-        best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W, n_interval)
+        if layout.collective:
+            best = _verify_split(tx, reads, lengths, _dedupe(cand), k, W, layout, gather)
+        else:
+            best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W, n_interval)
         return best.best_pos, best.best_dist, best.n_good, overflow
 
     return fn
@@ -347,6 +445,14 @@ class ShardedAligner:
     uploads all of it, n / 4 bytes), so the SAM bytes are the same whatever
     the shard and process counts.  ``close`` releases the mapped shards (a
     collective).
+
+    Where an interval group spans hosts (``mesh.ShardLayout.collective``,
+    the hosts from ``multihost.host_of``) the aligner takes the collective
+    route: the data axis spans the interval groups (every member of a group
+    takes the group's slice of each batch, and the gather keeps one copy a
+    group), each process uploads its own shards of the index and the seed
+    table only and maps nothing, and no text shards are made (the split
+    verify reads the whole text ``_text``).
     """
 
     def __init__(
@@ -371,6 +477,9 @@ class ShardedAligner:
         # axis spans each interval group (n_interval > 1): each process
         # holds its own shards
         self.layout = pmesh.make_layout(mh.process_count(), n_interval, self.device)
+        if self.layout.collective:
+            # an interval group spans hosts: its members take the same reads
+            self.layout = pmesh.make_layout(self.layout.groups, n_interval, self.device)
         self.sst = None
         self.seed_j = 0
         if seed_table is not None and seed_j > 0:
@@ -381,8 +490,8 @@ class ShardedAligner:
         # FM shards are always built: batches whose shortest read has pieces
         # < seed_j fall back to them
         self.sh = si.put_sharded(si.shard_fm_index(gi.fwd, n_interval), self.device, self.layout)
-        self.tx = put_text(shard_text(gi.fwd.text_words, gi.fwd.n, n_interval), self.device,
-                           self.layout)
+        self.tx = None if self.layout.collective else put_text(
+            shard_text(gi.fwd.text_words, gi.fwd.n, n_interval), self.device, self.layout)
         self.max_hits = max_hits
         self.scored = True  # the same scored affine indel tail as the
         # single-device aligner
@@ -428,12 +537,15 @@ class ShardedAligner:
         use_seed = self.sst is not None and min_piece >= self.seed_j
         fn = self._fn(L, use_seed)
         tab = self.sst if use_seed else self.sh
+        lay = self.layout
+        tx = (self._text, self.gi.fwd.n) if lay.collective else self.tx
+        span = lay.interval_procs if lay.collective else 1  # one copy a group
 
         res = []
         for batch in (np.where(vf >= 4, 0, vf), np.where(vrc >= 4, 0, vrc)):
-            r, l, _ = pmesh.shard_reads(self.layout, batch.astype(np.int32), lengths)
-            out = fn(tab, self.tx, r, l)
-            res.append(tuple(x[: len(reads)] for x in mh.gather_to_host(out)))
+            r, l, _ = pmesh.shard_reads(lay, batch.astype(np.int32), lengths)
+            out = fn(tab, tx, r, l)
+            res.append(tuple(x[: len(reads)] for x in mh.gather_to_host(out, span)))
         (pf, df, nf, of), (pr, dr, nr, orr) = res
         df = np.where(df <= self.k, df, 1 << 20)
         dr = np.where(dr <= self.k, dr, 1 << 20)
@@ -521,12 +633,16 @@ class ShardedAligner:
 
     def close(self) -> None:
         """Release the shard tables, the mapped ones first in every process
-        (``peer.release``: a collective), then this process's own."""
+        (``peer.release``: a collective), then this process's own; on the
+        collective route nothing was mapped."""
         def drop():
             self.sh = self.tx = self.sst = self._fb = None
             self._fns = {}
 
-        peer.release(self.layout.group, drop)
+        if self.layout.collective:
+            drop()
+        else:
+            peer.release(self.layout.group, drop)
 
     def _get_fb(self) -> "ShardedAligner":
         """Fallback: 4x per-piece hit budgets, the same shards."""

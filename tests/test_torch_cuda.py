@@ -9,7 +9,9 @@ rank + shard sum from gathered rows and from the shard tables; the backward
 exact and piece search, the staircase and the one-mismatch search) against
 its plain torch version, and the aligners, the sharded search, two ranks of
 ``ShardedAligner`` sharing the card, the sharded kernels on shards in their
-own allocations and on another process's shards mapped through CUDA IPC, the device suffix-array build and the
+own allocations and on another process's shards mapped through CUDA IPC,
+the table entry over one process's held shards, two processes on two
+cards declared as two hosts (the collective route), the device suffix-array build and the
 wavelet search on the card against the same code on the CPU (or native
 SA-IS), which the CPU tests hold against the JAX package."""
 
@@ -486,6 +488,38 @@ def test_fused_occ_equals_plain(cuda, ring_fm, S):
     want = sharded_index.fused_occ_plain(sh, torch.stack([c, 3 - c]), torch.stack([k, k.flip(0)]))
     assert torch.equal(got, want)
     assert torch.equal(got[0], rank.occ_codes(rank.from_host(fm, cuda), c, k))
+
+
+@pytest.mark.parametrize("S", range(2, 17))
+def test_fused_occ_on_held_shards_equals_plain(cuda, ring_fm, S):
+    """The table entry over the shards one process of a collective interval
+    group holds (uploaded alone, ``held_index``; for every g dividing S, so
+    held shards that do not start at shard 0): every coordinate of [0,
+    n + 1] against ``fused_occ_plain`` over the same shards, coordinates no
+    held shard owns give 0, and the group's results sum to the stacked
+    index's occ."""
+    fm = ring_fm
+    rng = np.random.default_rng(100 + S)
+    k = torch.arange(fm.n + 2, dtype=torch.int32, device=cuda)
+    c = torch.from_numpy(rng.integers(0, 4, size=fm.n + 2).astype(np.int32)).to(cuda)
+    stacked = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, S), cuda)
+    whole = sharded_index.fused_occ_plain(stacked, c, k)
+    for g in (d for d in range(2, S + 1) if S % d == 0):
+        total = torch.zeros_like(whole)
+        for rank in range(g):
+            lay = pmesh.ShardLayout(1, S, cuda, rank, g, g, 1, mapped=False)
+            held = sharded_index.held_index(
+                sharded_index.put_sharded(sharded_index.shard_fm_index(fm, S), cuda, lay), lay)
+            assert held.bwt_blocks.shape[0] == S // g
+            before = ring_cuda.fused_occ_cuda.launches
+            got = sharded_index.fused_occ(held, c, k)
+            assert ring_cuda.fused_occ_cuda.launches == before + 1
+            assert torch.equal(got, sharded_index.fused_occ_plain(held, c, k)), (g, rank)
+            k_adj = k - (k > fm.primary).to(torch.int32)
+            owned = (k_adj >= held.pk_start[0]) & (k_adj < held.pk_end[-1])
+            assert not bool(got[~owned].any()), (g, rank)
+            total += got
+        assert torch.equal(total, whole), g
 
 
 @pytest.mark.parametrize("overlap", ["a block", "the whole range"])
@@ -1414,6 +1448,39 @@ def test_two_ranks_on_two_cards_map_each_others_shards(tmp_path):
         assert routes["psum nccl"] > 0 and routes["psum gloo"] == 0, routes
         assert routes["ring flag wait"] > 0 and routes["ring host barrier"] == 0, routes
         assert facts["seen"] == [True] * 4
+        got, want = (np.load(tmp_path / f"{d}.sam.{pid}.npz") for d in ("cuda", "cpu"))
+        assert all(np.array_equal(got[key], want[key]) for key in want.files)
+
+
+def test_two_hosts_on_two_cards_merge_by_collectives(tmp_path):
+    """Two processes, one a card, declared on two hosts (``GROUP_RANK`` 0 and
+    1): the collective route.  Nothing is mapped (``peer.share`` raises in
+    them), each holds its own 2 of 4 shards, the psums and the verify's
+    gathers go over NCCL, every process launches the fused table entry and
+    the banded DP's text entry (never its windows entry), and the seed-path
+    and FM-path SAMs and the exact search equal the CPU run's (which the
+    CPU tests hold against one process and the JAX package)."""
+    import json
+
+    import torch_multihost_driver as drv
+
+    _cards(2)
+    for dev in ("cuda", "cpu"):
+        drv.launch(2, tmp_path / f"{dev}.sam", "interval", "--n-interval", "4", "--device", dev,
+                   timeout=300, nodes=[0, 1])
+    for tail in ("", ".fm.sam"):
+        assert (tmp_path / f"cuda.sam{tail}").read_bytes() == \
+            (tmp_path / f"cpu.sam{tail}").read_bytes()
+    for pid in range(2):
+        facts = json.loads((tmp_path / f"cuda.sam.{pid}.json").read_text())
+        assert facts["collective"] and facts["held"] == [2 * pid, 2 * pid + 1]
+        assert all(facts["plain"].values()) and not facts["text_shards"]
+        for routes in (facts["routes"], facts["aligner_routes"]):
+            assert routes["psum nccl"] > 0 and routes["psum gloo"] == 0, routes
+        assert facts["aligner_routes"]["all_gather nccl"] > 0, facts["aligner_routes"]
+        assert facts["aligner_routes"]["all_gather gloo"] == 0, facts["aligner_routes"]
+        n = facts["launches"]
+        assert n["text entry"] > 0 and n["fused table entry"] > 0 and n["windows entry"] == 0, n
         got, want = (np.load(tmp_path / f"{d}.sam.{pid}.npz") for d in ("cuda", "cpu"))
         assert all(np.array_equal(got[key], want[key]) for key in want.files)
 

@@ -164,11 +164,12 @@ def split(bounds, width):
 
 
 def owner_of(sp, x):
-    """fm_occ.cuh owner_of on a ``split``: the guess x / width
-    (__umulhi(x, magic) >> shift), kept when its range holds x and the
-    ranges are disjoint, else the scan (shard_of)."""
+    """fm_occ.cuh owner_of on a ``split``: the guess (x - base) / width
+    (__umulhi(x - base, magic) >> shift, base the first shard's start; an x
+    below it wraps), kept when its range holds x and the ranges are
+    disjoint, else the scan (shard_of)."""
     bounds, (magic, shift), apart = sp
-    g = min((((x & M32) * magic) >> 32) >> shift, len(bounds[0]) - 1)
+    g = min(((((x - int(bounds[0][0])) & M32) * magic) >> 32) >> shift, len(bounds[0]) - 1)
     if apart and int(bounds[0][g]) <= x < int(bounds[1][g]):
         return g
     return Shards.owner(bounds, x)

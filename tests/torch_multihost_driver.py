@@ -16,21 +16,30 @@ the SAM.
 
 mode "sharded": ``ShardedAligner(k=2, n_interval=S, seed_j=8)`` (S = 2
 unless ``--n-interval``) on a 100 kb genome (seed 31): a batch of 100 bp
-reads with indels takes the seed path, a batch of 30 bp reads the FM
-path; each maps >= 90%; process 0 writes the SAM.  With several processes
+reads with indels and a batch of 30 bp reads, both on the seed path
+(pieces of 10 bases and more); each maps >= 90%; process 0 writes the SAM.  With several processes
 each holds S / P of the shards and maps the others'.
 
-mode "interval" (BASELINE config 5's layout): the "sharded" run, then in
-every process the exact search (``make_sharded_exact_search`` with the
-data axis over the interval groups: every process of a group its group's
-slice of ``exact_search_reads``) under the psum, ring and fused merges,
-written to ``<out.sam>.<pid>.npz``; and ``<out.sam>.<pid>.json``: the
-shards this process holds, its interval group's members, the rows of the
-batch its group searched, its card and the card of each shard, the merges
-by route, each sharded table's bytes here
-against the stacked table's, and what this process reads through its map
-of every shard after each process has changed a word of its own shards
-(the mapped peers are not copies).
+mode "interval" (BASELINE config 5's layout): the "sharded" run without
+the seed table (the FM path; process 0 writes ``<out.sam>.fm.sam``) and
+with it, then in every process the exact search
+(``make_sharded_exact_search`` with the data axis over the interval
+groups: every process of a group its group's slice of
+``exact_search_reads``) under the psum, ring and fused merges, written to
+``<out.sam>.<pid>.npz``; and ``<out.sam>.<pid>.json``: the route, every
+process's host, the shards this process holds, its interval group's
+members, the rows of the batch its group searched, its card and the card
+of each shard, the aligners' merges and the exact search's by route, each
+sharded table's bytes here against the stacked table's and whether it is
+a plain tensor, whether text shards were made, on the card the launches
+of the banded DP's two entries and the fused table entry, and what this
+process reads through its map of every shard after each process has
+changed a word of its own shards (the mapped peers are not copies).
+Where an interval group spans hosts (start the processes with their own
+``GROUP_RANK``, ``launch(..., nodes=...)``), the collective route:
+``parallel.peer.share`` is replaced by a function that raises, the
+exact search runs under psum alone, and the errors that the ring and
+fused merges raise are recorded.
 
 mode "flagwait" (the card only, a card a process): the ring merge's
 flag-wait entry over every process's slot and flag words, mapped through
@@ -53,26 +62,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def launch(nprocs: int, out, *args: str, driver=__file__, timeout: float = 300) -> list[str]:
+def launch(nprocs: int, out, *args: str, driver=__file__, timeout: float = 300,
+           nodes=None) -> list[str]:
     """Run ``nprocs`` interpreters of ``driver`` (this file by default) as
     processes 0..nprocs-1 of one group on a free loopback port, the checkout
-    on their ``PYTHONPATH``; every one must exit 0 within ``timeout``.
-    Returns their outputs in process order."""
+    on their ``PYTHONPATH``; every one must exit 0 within ``timeout`` of
+    the start (each is cut off at its own deadline).  ``nodes`` gives each
+    process its node rank (``GROUP_RANK``, as torchrun sets it), declaring
+    the hosts.  Returns their outputs in process order."""
+    import time
+
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "GROUP_RANK")}
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     procs = [
         subprocess.Popen([sys.executable, str(driver), str(pid), str(nprocs), port, str(out),
-                          *args], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
+                          *args], env=env if nodes is None else {**env, "GROUP_RANK": str(nodes[pid])},
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for pid in range(nprocs)
     ]
+    deadline = time.monotonic() + timeout
     texts = []
     try:
         for p in procs:
-            text, _ = p.communicate(timeout=timeout)
+            text, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
             if p.returncode != 0:
                 raise AssertionError(f"{driver} exited {p.returncode}: {text[-3000:]}")
             texts.append(text)
@@ -116,11 +131,10 @@ def main(argv):
             exact_main(pid, out, torch.device(device))
         elif mode == "flagwait":
             flagwait_main(pid, nprocs, out, torch.device(device))
+        elif mode == "interval":
+            interval_main(pid, out, torch.device(device), a.n_interval)
         else:
-            al = sharded_main(pid, out, torch.device(device), a.n_interval)
-            if mode == "interval":
-                interval_main(pid, out, al)
-            al.close()
+            sharded_main(pid, out, torch.device(device), a.n_interval).close()
     finally:
         if nprocs > 1:
             torch.distributed.destroy_process_group()
@@ -155,37 +169,51 @@ def exact_main(pid, out, device):
         sam.write_sam(out, sam.header(gi.genome.names, gi.genome.lengths), recs)
 
 
-def sharded_main(pid, out, device, n_interval=2):
-    """ShardedAligner across processes on a 100 kb genome with planted
-    substitutions and indels: 100 bp reads take the seed-table path, 30 bp
-    reads the FM path (their pieces are shorter than seed_j).  Every process
-    holds the whole index on the host and its own shards on ``device``.
-    -> the aligner (close it: a collective)."""
+def sharded_batches(g):
+    """The sharded modes' two batches of 64 reads: (tag, reads) with reads
+    a list of (name, codes), 100 bp reads with <= 1 substitution and an
+    indel in 15% (seed 32), and 30 bp reads with <= 1 substitution (seed
+    33)."""
     import numpy as np
 
-    from genome_weaver_align_tpu_torch.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
-    from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
-    from genome_weaver_align_tpu_torch.utils import sam, simulate
-    from genome_weaver_align_tpu_torch.utils.fasta import Contig, Read
+    from genome_weaver_align_tpu_torch.utils import simulate
 
-    g = sharded_genome()
-    gi = build_genome_index(Genome.from_contigs([Contig("c1", g)]), sample_rate=16)
-    seed_j = 8
-    so, sp = build_seed_table(g, seed_j)
-    al = ShardedAligner(gi, k=2, n_interval=n_interval, max_hits=8, seed_table=(so, sp),
-                        seed_j=seed_j, device=device)
-
-    recs = []
+    out = []
     for tag, (L, max_subs, indel_frac, seed) in (
-        ("long", (100, 1, 0.15, 32)),  # seed path; <= 1 sub + <= 1 indel: within k = 2
-        ("short", (30, 1, 0.0, 33)),  # FM path
+        ("long", (100, 1, 0.15, 32)),  # <= 1 sub + <= 1 indel: within k = 2
+        ("short", (30, 1, 0.0, 33)),
     ):
         B = 64
         rarr, _, _, _ = simulate.simulate_reads_array(
             g, B, L, seed=seed, max_subs=max_subs, indel_frac=indel_frac)
-        reads = [Read(f"{tag}{i}", rarr[i].astype(np.uint8)) for i in range(B)]
+        out.append((tag, [(f"{tag}{i}", rarr[i].astype(np.uint8)) for i in range(B)]))
+    return out
+
+
+def sharded_main(pid, out, device, n_interval=2, seed_table=True):
+    """ShardedAligner across processes on a 100 kb genome with planted
+    substitutions and indels (``sharded_batches``): with the seed table
+    (seed_j = 8) both batches take the seed-table path, without it the FM
+    path.  Every process holds the whole index on the host and its own
+    shards on ``device``.  -> the aligner (close it: a collective)."""
+    from genome_weaver_align_tpu_torch.index.files import Genome, build_genome_index
+    from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
+    from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
+    from genome_weaver_align_tpu_torch.utils import sam
+    from genome_weaver_align_tpu_torch.utils.fasta import Contig, Read
+
+    g = sharded_genome()
+    gi = build_genome_index(Genome.from_contigs([Contig("c1", g)]), sample_rate=16)
+    kw = {}
+    if seed_table:
+        kw = {"seed_table": build_seed_table(g, 8), "seed_j": 8}
+    al = ShardedAligner(gi, k=2, n_interval=n_interval, max_hits=8, device=device, **kw)
+
+    recs = []
+    for tag, batch in sharded_batches(g):
+        reads = [Read(name, codes) for name, codes in batch]
         hits = al.align_batch(reads)
+        B = len(reads)
         assert sum(h is not None for h in hits) >= int(0.9 * B), tag
         recs.extend(al.to_sam(reads, hits))
 
@@ -222,10 +250,13 @@ def exact_search_reads(g):
     return reads, lengths
 
 
-def interval_main(pid, out, al):
-    """The exact search under each merge in every process, and what this
-    process holds and sees of the shard tables (see the module's
-    docstring)."""
+def interval_main(pid, out, device, n_interval):
+    """The interval mode (see the module's docstring): the FM path and the
+    seed path, then the exact search under each merge in every process, and
+    what this process holds and sees of the shard tables.  Where an
+    interval group spans hosts (the collective route) nothing may be
+    mapped, so ``peer.share`` raises if anything calls it, and the ring and
+    fused merges must refuse."""
     import json
 
     import numpy as np
@@ -236,33 +267,67 @@ def interval_main(pid, out, al):
     from genome_weaver_align_tpu_torch.parallel import peer
     from genome_weaver_align_tpu_torch.parallel import sharded_index as si
 
-    S = al.layout.n_interval
-    layout = pmesh.make_layout(al.layout.groups, S, al.device)  # a group's slice each
+    collective = pmesh.make_layout(mh.process_count(), n_interval, device).collective
+    if collective:
+        def no_share(*_a, **_k):
+            raise AssertionError("peer.share was called on the collective route")
+
+        peer.share = no_share
+    sharded_main(pid, f"{out}.fm.sam", device, n_interval, seed_table=False).close()
+    al = sharded_main(pid, out, device, n_interval)
+    lay = al.layout
+    S = lay.n_interval
+    layout = pmesh.make_layout(lay.groups, S, device)  # a group's slice each
     reads, lengths = exact_search_reads(sharded_genome())
     r, ln, B = pmesh.shard_reads(layout, reads, lengths)
     assert B % layout.groups == 0  # no padding: each group's rows are its slice
     first = layout.data_index * r.shape[0]
+    facts = {"collective": lay.collective, "mapped": lay.mapped,
+             "hosts": [mh.host_of(q) for q in range(lay.process_count)],
+             "held": list(lay.held), "owners": list(lay.owners), "group": list(lay.group_ranks),
+             "data": [lay.data_procs, lay.data_index], "text_shards": al.tx is not None,
+             "rows": [first, first + r.shape[0]], "card": mh.card(),
+             "cards": list(al.sh.bwt_blocks.cards) if isinstance(al.sh.bwt_blocks, peer.Shards)
+             else None, "aligner_routes": dict(si.CROSS_MERGES), "bytes": {}, "plain": {},
+             "refused": {}}
+    for key in si.CROSS_MERGES:
+        si.CROSS_MERGES[key] = 0
     res = {}
     for merge in ("psum", "ring", "fused"):
+        if lay.collective and merge != "psum":  # they read the other members' memory
+            try:
+                si.make_sharded_exact_search(layout, EXACT_L, al.sh, merge=merge, microbatch=2)
+            except ValueError as e:
+                facts["refused"][merge] = str(e)
+            continue
         fn = si.make_sharded_exact_search(layout, EXACT_L, al.sh, merge=merge, microbatch=2)
         for key, v in zip(("lo", "hi", "pos"), fn(al.sh, r, ln)):
             res[f"{merge}_{key}"] = v.cpu().numpy()
     np.savez(f"{out}.{pid}.npz", **res)
+    facts["routes"] = dict(si.CROSS_MERGES)  # the exact search's merges, by route
 
-    tables = {**{f: getattr(al.sh, f) for f in si._TABLES}, "words": al.tx.words,
-              "offsets": al.sst.offsets, "positions": al.sst.positions}
-    group = layout.group
-    facts = {"held": list(layout.held), "owners": list(layout.owners), "bytes": {},
-             "group": (torch.distributed.get_process_group_ranks(group) if group is not None
-                       else [pid]),
-             "rows": [first, first + r.shape[0]], "card": mh.card(),
-             "cards": list(al.sh.bwt_blocks.cards) if isinstance(al.sh.bwt_blocks, peer.Shards)
-             else None}
+    # each table's bytes here against the stacked table's (None where the
+    # collective route keeps no stacked shape: the seed table's shards)
+    tables = {**{f: getattr(al.sh, f) for f in si._TABLES}, "offsets": al.sst.offsets,
+              "positions": al.sst.positions}
+    if al.tx is not None:
+        tables["words"] = al.tx.words
+    stacked = si.shard_fm_index(al.gi.fwd, S)
     for f, t in tables.items():
         held = t.held if isinstance(t, peer.Shards) else t
-        facts["bytes"][f] = [held.numel() * 4, int(np.prod(t.shape)) * 4]
-    facts["routes"] = dict(si.CROSS_MERGES)  # the merges above, by route
-    if al.device.type == "cuda":  # the sharded kernels on the mapped shards
+        whole = (int(np.prod(t.shape)) * 4 if lay.mapped
+                 else getattr(stacked, f).size * 4 if f in si._TABLES else None)
+        facts["bytes"][f] = [held.numel() * 4, whole]
+        facts["plain"][f] = type(t) is torch.Tensor
+    facts["seed_rows"] = [tuple(t.shape) for t in (al.sst.offsets, al.sst.positions)]
+    if device.type == "cuda":  # every run above, this process's launches
+        from genome_weaver_align_tpu_torch.ops import dp_cuda, ring_cuda
+
+        torch.cuda.synchronize(device)
+        facts["launches"] = {"text entry": dp_cuda.banded_edit_distance_text_cuda.launches,
+                             "windows entry": dp_cuda.banded_edit_distance_cuda.launches,
+                             "fused table entry": ring_cuda.fused_occ_cuda.launches}
+    if device.type == "cuda" and lay.mapped:  # the sharded kernels on the mapped shards
         from genome_weaver_align_tpu_torch.ops import locate_cuda
         from genome_weaver_align_tpu_torch.parallel import sharded_pipeline as sp
 
@@ -280,22 +345,23 @@ def interval_main(pid, out, al):
                                                 si.fused_occ_plain(al.sh, k % 4, k)))
         pos = al.sst.positions  # rows of mapped shards, read on this card
         idx = (rows[: 4096] % pos.shape[1]).expand(S, -1)
-        stacked = torch.stack([t.cpu() for t in pos])
+        stacked_pos = torch.stack([t.cpu() for t in pos])
         facts["gather_equal"] = bool(torch.equal(si.shard_rows(pos, idx).cpu(),
-                                                 si.shard_rows(stacked, idx.cpu())))
+                                                 si.shard_rows(stacked_pos, idx.cpu())))
     # each process flips a word of its first shard's BWT table; every
     # process then reads every shard's word through its own map
     bwt = al.sh.bwt_blocks
-    host = si.shard_fm_index(al.gi.fwd, S).bwt_blocks.view(np.int32)[:, 0, 0]
-    flip = 0x5A5A5A5A
     if isinstance(bwt, peer.Shards):
-        peer.barrier(group)  # no process reads the tables any more
+        host = stacked.bwt_blocks.view(np.int32)[:, 0, 0]
+        flip = 0x5A5A5A5A
+        peer.barrier(layout.group)  # no process reads the tables any more
         bwt.held[0, 0, 0] ^= flip
-        peer.barrier(group)
+        peer.barrier(layout.group)
         firsts = {s for s in range(S) if s % len(layout.held) == 0}
         facts["seen"] = [int(bwt[s][0, 0]) == int(host[s] ^ flip if s in firsts else host[s])
                          for s in range(S)]
-        peer.barrier(group)
+        peer.barrier(layout.group)
+    al.close()
     with open(f"{out}.{pid}.json", "w") as fh:
         json.dump(facts, fh)
 
