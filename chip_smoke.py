@@ -212,11 +212,14 @@ per line, and exits non-zero at the first phase that fails:
    on the unequal bounds;
 20. interval shards in separate processes (BASELINE config 5's layout),
    rank r on card r % device_count: first, in this process, the flag-wait
-   ring entry against its plain version on every element on one card (the
-   peer's flags pre-published), and its failures: a wait no peer satisfies
-   must time out, the rank's later merges must not wait and must poison
-   its peer's word, the peer arriving late must fail too, and both must
-   raise.  Then this script as 1, 2 and 4 ranks (``--rank
+   ring entry (push, one flag word a block) against its plain version on
+   every element on one card (4 ranks emulated, the peers' flags
+   pre-published; the pushes and epochs must land in every peer; then the
+   peer's per-block words published in reverse order from a second stream
+   while the kernel waits), the prepared launch timed, and its failures:
+   a wait no peer satisfies must time out, the rank's later merges must
+   not wait and must poison every word of its peer, the peer arriving
+   late must fail too, and both must raise.  Then this script as 1, 2 and 4 ranks (``--rank
    interval``), ``ShardedAligner`` with 4 interval shards, each rank
    holding 4 / n of them and mapping the others' through CUDA IPC
    (``parallel.peer``; over NVLink where they lie on other cards; one
@@ -224,12 +227,13 @@ per line, and exits non-zero at the first phase that fails:
    path on [11]'s, each rank aligning its slice; each card's used memory
    with every rank alive; [10]'s exact search on the same 65,536 reads in
    every rank under the psum (NCCL ``all_reduce`` on the card where the
-   ranks have a card each, else gloo on the host), ring (the flag-wait
-   sum over the ranks' mapped slots across cards, else the sum kernel
-   behind a host barrier) and fused (the table entry through the peer
-   map) merges, with the route each merge took; one merge at the search's
-   payload (2 x 32,768 int32) timed by route (the ring merge, NCCL and
-   gloo ``all_reduce``).  The n-rank SAMs must equal the 1-rank SAMs byte
+   ranks have a card each, else gloo on the host), ring (each rank's held
+   partial written into its inbox row by the fused table entry, then the
+   flag-wait push across cards, else the sum kernel behind a host
+   barrier) and fused (the table entry through the peer map) merges, with
+   the route each merge took; one merge at the search's payload (2 x
+   32,768 int32) timed by route (the ring merge, NCCL back to back and
+   synchronised every merge, and gloo ``all_reduce``).  The n-rank SAMs must equal the 1-rank SAMs byte
    for byte with >= 99% mapped and correct, every rank's exact search the
    1-rank result, each rank's sharded tables at most 1 / n of the stacked
    bytes plus one block row a shard (the allocator's requested bytes of
@@ -238,7 +242,8 @@ per line, and exits non-zero at the first phase that fails:
    equal to their plain versions on the mapped layout, and every rank
    must launch the sharded locate, the sharded piece search, the fused
    table entry, the ring sum (the flag-wait entry across cards) and the
-   windows entry.
+   windows entry; a ring search across ranks exactly one table-entry
+   launch and one merge launch a chunk-step.
    Where the ranks have a card each, the psum must go over NCCL alone and
    the ring merge through the flag wait with no host barrier.  Each run's
    wall, reads/s, ms a batch, host barriers and peak device memory a rank
@@ -2802,50 +2807,70 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
     # one merge at the exact search's payload, (2, 32,768) int32 a step at
     # microbatch 2 (the ring's) on the mapped route, (2, 65,536) at
     # microbatch 1 (the psum's) on the collective one, by route: the ring
-    # merge this layout takes (mapped route; its sums held against the
-    # plain ring sum of every rank's parts), NCCL all_reduce and gloo
-    # all_reduce (as _psum_across runs them)
+    # merge this layout takes (mapped route: this rank's partial in its
+    # inbox row, the merge alone timed; its sums held against the plain
+    # ring sum of every rank's partial), NCCL all_reduce and gloo
+    # all_reduce (as _psum_across runs them).  The ring merge and NCCL are
+    # timed back to back (the host and the device overlap: wall / merges)
+    # and with a synchronize after every merge; the host ms of the ring
+    # merge's calls alone beside them
     group = lay.group
     if group is not None:
         payload = (2, er.shape[0] // (1 if lay.collective else RING_MICROBATCH))
-        h = len(lay.held)
 
-        def parts_of(q):  # group rank q's partials, the same in every rank
+        def partial_of(q):  # group rank q's partial, the same in every rank
             g = torch.Generator(device=dev)
             g.manual_seed(1000 + q)
-            return torch.randint(-(1 << 30), 1 << 30, (h, *payload), generator=g, device=dev,
+            return torch.randint(-(1 << 30), 1 << 30, payload, generator=g, device=dev,
                                  dtype=torch.int32)
 
-        mine = parts_of(lay.group_rank)
+        mine = partial_of(lay.group_rank)
         ms = {"payload": list(payload)}
         reps = 200
-        if not lay.collective:
-            want = ring.ring_psum_plain(torch.cat([parts_of(q)
-                                                   for q in range(lay.interval_procs)]))
-            slots = si._RingSlots(lay, group, payload, dev, result["apart"])
-            for _ in range(5):
-                got = slots(mine)
+
+        def timed(merge):  # (back to back, synchronised every merge) ms a merge
             peer.barrier(group)
             t0 = time.perf_counter()
             for _ in range(reps):
-                got = slots(mine)
+                merge()
             torch.cuda.synchronize(dev)
-            ms["ring"] = 1e3 * (time.perf_counter() - t0) / reps
+            free = 1e3 * (time.perf_counter() - t0) / reps
+            peer.barrier(group)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                merge()
+                torch.cuda.synchronize(dev)
+            return free, 1e3 * (time.perf_counter() - t0) / reps
+
+        if not lay.collective:
+            want = ring.ring_psum_plain(torch.stack([partial_of(q)
+                                                     for q in range(lay.interval_procs)]))
+            slots = si._RingSlots(lay, group, payload, dev, result["apart"])
+            for s in range(2):  # this rank's partial in both inboxes
+                slots.inboxes[s][slots.me][slots.me].copy_(mine)
+            for _ in range(6):
+                got = slots.merge()
+            torch.cuda.synchronize(dev)
+            if result["apart"]:  # the host barrier's merges wait on the host
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    got = slots.merge()
+                ms["ring_host"] = 1e3 * (time.perf_counter() - t0) / reps
+                torch.cuda.synchronize(dev)
+            ms["ring"], ms["ring_sync"] = timed(slots.merge)
+            got = slots.merge()
+            torch.cuda.synchronize(dev)
             ms["ring_route"] = "flag wait" if result["apart"] else "host barrier"
-            result["bad"]["ring merge"] = int((got != want[lay.held.start]).sum())
-            peer.release(group, slots.close)
+            result["bad"]["ring merge"] = int((got != want[lay.group_rank]).sum())
+            peer.release(group, slots.close, collect=False)
             slots.check()
-        x = mine.sum(0, dtype=torch.int32)
+        x = mine.clone()
         nccl = si.group_nccl(lay, dev)
         if nccl is not None:
             for _ in range(5):
                 torch.distributed.all_reduce(x, group=nccl)
-            peer.barrier(group)
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                torch.distributed.all_reduce(x, group=nccl)
-            torch.cuda.synchronize(dev)
-            ms["nccl"] = 1e3 * (time.perf_counter() - t0) / reps
+            ms["nccl"], ms["nccl_sync"] = timed(lambda: torch.distributed.all_reduce(x,
+                                                                                     group=nccl))
         peer.barrier(group)
         t0 = time.perf_counter()
         for _ in range(reps // 4):
@@ -2864,40 +2889,88 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
 
 
 def phase_flag_wait(torch, card) -> dict:
-    """The flag-wait ring entry against its plain version on every element,
-    on card 0 alone: at [10]'s ring payload over SHARDS slots in their own
-    allocations, two ranks' flag words on the card with the peer's
-    pre-published (the wait passes at once; the epoch this rank publishes
-    must land in the peer's words), timed.  Then the failures: rank 0
-    waits for an epoch its peer never publishes, must time out, and goes
-    on to two later merges that must not wait and must publish the poison;
-    rank 1, arriving late at that epoch, must find the poison and fail
-    too; ``check_flag_wait`` must raise for both.  Across cards the entry
-    runs in [20]'s ranks.  -> the largest mismatch and the times."""
+    """The flag-wait ring entry (push, one flag word a block) against its
+    plain version on every element, on card 0 alone, at [10]'s ring
+    payload, with SHARDS ranks emulated on the card: each rank's inbox
+    holds every rank's partial (the peers' pushes already landed) and its
+    peers' flag words are pre-published, so the wait passes at once; each
+    rank's launch must push its row into every other inbox and publish its
+    epoch in every peer's words; int32 at every rank, float32 at one; the
+    prepared launch timed (device and host).  Then two ranks with the
+    peer's per-block words published one block at a time, in reverse
+    order, from a second stream while the kernel waits.  Then the
+    failures: rank 0 waits for an epoch its peer never publishes, must
+    time out, and goes on to two later merges that must not wait and must
+    publish the poison; rank 1, arriving late at that epoch, must find the
+    poison and fail too; ``check_flag_wait`` must raise for both.  Across
+    cards the entry runs in [20]'s ranks.  -> the largest mismatch and the
+    times."""
     from genome_weaver_align_tpu_torch.ops import ring_cuda
     from genome_weaver_align_tpu_torch.parallel import ring
 
     dev = torch.device("cuda", 0)
+    W = ring_cuda.WAIT_BLOCKS
     gen = torch.Generator(device=dev)
     gen.manual_seed(21)
     payload = (2, BATCH // RING_MICROBATCH)  # [10]'s ring payload
-    parts = torch.randint(-(1 << 30), 1 << 30, (SHARDS, *payload), generator=gen, device=dev,
-                          dtype=torch.int32)
-    want = ring.ring_psum_plain(parts)
-    slots = [t.clone() for t in parts]
-    flags = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2)]
-    flags[0][1] = 1 << 30  # the peer (rank 1) has published every epoch
+    P = SHARDS
+    bad, pushed = 0, True
+    for dtype, ranks in ((torch.int32, range(P)), (torch.float32, (1,))):
+        x = (torch.randint(-(1 << 30), 1 << 30, (P, *payload), generator=gen, device=dev,
+                           dtype=torch.int32) if dtype == torch.int32
+             else torch.randn((P, *payload), generator=gen, device=dev) * 1e4)
+        want = ring.ring_psum_plain(x)
+        if dtype == torch.int32:
+            xi = x.view(P, -1)
+        for me in ranks:
+            boxes = [x.clone() if q == me else torch.zeros_like(x) for q in range(P)]
+            flags = [torch.zeros((P, W), dtype=torch.int32, device=dev) for _ in range(P)]
+            flags[me].fill_(1 << 30)  # every peer has published every epoch
+            error = torch.zeros(1, dtype=torch.int32, device=dev)
+            got = ring_cuda.ring_allreduce_wait_cuda(boxes, flags, me, me + 1, error)
+            bad += int((got != want[me]).sum())
+            G = ring_cuda.wait_blocks(x[0].numel())
+            pushed &= all(torch.equal(boxes[q][me], x[me]) and
+                          bool((flags[q][me, :G] == me + 1).all()) for q in range(P) if q != me)
+            check(int(error) == 0, f"[20] flag wait on one card: error word {int(error)}")
+    x = xi
+    boxes = [x.clone()] + [torch.zeros_like(x) for _ in range(P - 1)]
+    flags = [torch.full((P, W), 1 << 30, dtype=torch.int32, device=dev) for _ in range(P)]
     error = torch.zeros(1, dtype=torch.int32, device=dev)
-    bad = 0
-    for d in range(SHARDS):
-        got = ring_cuda.ring_allreduce_wait_cuda(slots, d, flags, 0, d + 1, error)
-        bad += int((got != want[d]).sum())
-    published = int(flags[1][0])
-    check(published == SHARDS and int(error) == 0,
-          f"[20] flag wait on one card: published {published}, error word {int(error)}")
-    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, 7, error),
-                      reps=200, hide_host=True)
-    plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(parts), reps=20)
+    prepared = ring_cuda.FlagWait([boxes], flags, 0, error)
+    ms = cuda_time_ms(lambda: prepared(0, 7), reps=200, hide_host=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        prepared(0, 7)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize(dev)
+    plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(x), reps=20)
+
+    # two ranks, the peer's words published block by block in reverse order
+    n = x[0].numel()
+    G = ring_cuda.wait_blocks(n)
+    mine, theirs = x[:2].clone(), torch.zeros_like(x[:2])
+    flags = [torch.zeros((2, W), dtype=torch.int32, device=dev) for _ in range(2)]
+    error = torch.zeros(1, dtype=torch.int32, device=dev)
+    main, side = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    # CUDA loads a kernel at its first launch, and a load while a kernel
+    # spins waits for that kernel: the publisher's kernels run once first
+    # (torch picks the one-word fill's kernel by the word's alignment)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1)
+        for i in range(4):
+            flags[1][1, i].fill_(0)
+    torch.cuda.synchronize(dev)
+    with torch.cuda.stream(main):
+        got = ring_cuda.ring_allreduce_wait_cuda([mine, theirs], flags, 0, 1, error,
+                                                 timeout_s=5.0)
+    with torch.cuda.stream(side):
+        for b in reversed(range(G)):
+            torch.cuda._sleep(20_000)
+            flags[0][1, b].fill_(1)
+    torch.cuda.synchronize(dev)
+    reverse_bad = int((got != ring.ring_psum_plain(x[:2])[0]).sum()) + int(error) * n
 
     def raises(err) -> bool:
         try:
@@ -2907,34 +2980,40 @@ def phase_flag_wait(torch, card) -> dict:
         return False
 
     # rank 0 times out at an epoch rank 1 has not reached, then runs on
-    flags = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(2)]
+    boxes = [x[:2].clone(), x[:2].clone()]
+    flags = [torch.zeros((2, W), dtype=torch.int32, device=dev) for _ in range(2)]
     errors = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
     t0 = time.perf_counter()
-    ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, 1, errors[0], timeout_s=0.01)
+    ring_cuda.ring_allreduce_wait_cuda(boxes, flags, 0, 1, errors[0], timeout_s=0.01)
     torch.cuda.synchronize(dev)
     waited = time.perf_counter() - t0
     t0 = time.perf_counter()
     for epoch in (2, 3):
-        ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, epoch, errors[0], timeout_s=30.0)
+        ring_cuda.ring_allreduce_wait_cuda(boxes, flags, 0, epoch, errors[0], timeout_s=30.0)
     torch.cuda.synchronize(dev)
     after = time.perf_counter() - t0
-    poisoned = int(flags[1][0]) == ring_cuda.POISON
-    # rank 1 arrives late at epoch 1: rank 0 has poisoned its word there
+    poisoned = bool((flags[1][0] == ring_cuda.POISON).all())
+    # rank 1 arrives late at epoch 1: rank 0 has poisoned its words there
     t0 = time.perf_counter()
-    ring_cuda.ring_allreduce_wait_cuda(slots, 1, flags, 1, 1, errors[1], timeout_s=30.0)
+    ring_cuda.ring_allreduce_wait_cuda(boxes, flags, 1, 1, errors[1], timeout_s=30.0)
     torch.cuda.synchronize(dev)
     late = time.perf_counter() - t0
     both = raises(errors[0]) and raises(errors[1])
-    log(f"[20] one card: the flag-wait sum ({SHARDS} slots of {payload}, peer pre-published) "
-        f"against plain: {bad} mismatches; flag-wait launch {ms:.4f} ms, plain ring sum "
-        f"{plain_ms:.4f} ms; a wait no peer satisfies timed out after {waited:.3f} s, the "
-        f"rank's two later merges took {after:.3f} s and left the poison in its peer's word: "
-        f"{poisoned}; the late peer failed after {late:.3f} s; both raised: {both} ({card})")
-    check(bad == 0, "[20] the flag-wait sum differs from plain on one card")
+    log(f"[20] one card: the flag-wait sum ({P} ranks emulated, {tuple(payload)} a partial, "
+        f"peers pre-published; int32 at every rank, float32 at one) against plain: {bad} "
+        f"mismatches, pushes and epochs landed in every peer: {pushed}; the prepared launch "
+        f"{ms:.4f} ms on the device, {host_ms:.4f} ms on the host a call, plain ring sum "
+        f"{plain_ms:.4f} ms; {G} blocks, the peer's words published in reverse order: "
+        f"{reverse_bad} mismatches; a wait no peer satisfies timed out after {waited:.3f} s, "
+        f"the rank's two later merges took {after:.3f} s and left the poison in every word of "
+        f"its peer: {poisoned}; the late peer failed after {late:.3f} s; both raised: {both} "
+        f"({card})")
+    check(bad == 0 and pushed and reverse_bad == 0,
+          "[20] the flag-wait sum differs from plain on one card")
     check(both and poisoned and after < 5 and late < 5,
           "[20] a failed flag wait did not reach its peer, or a rank waited after it")
-    return {"err": bad, "ms": ms, "plain_ms": plain_ms, "payload": list(payload),
-            "bytes": (SHARDS + 1) * parts[0].numel() * 4}
+    return {"err": bad, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "payload": list(payload), "blocks": G}
 
 
 def phase_interval(torch, codes, card) -> dict:
@@ -3077,6 +3156,13 @@ def phase_interval(torch, codes, card) -> dict:
                     check(r["launches"][tag][kname] > 0, f"{who}, {tag}: the {kname} kernel was "
                           f"never launched")
                 launches[f"{phase} {tag}, rank {r['rank']} of {n}"] = r["launches"][tag]
+            if g > 1:  # the ring's chunk-step: one table-entry launch, one merge launch
+                ring_run = r["launches"]["exact, merge=ring"]
+                merges = sum(routes["ring"][k] for k in ("ring flag wait", "ring host barrier"))
+                kname = "flag-wait ring sum" if own_cards else "ring sum"
+                check(ring_run["fused table entry"] == ring_run[kname] == merges > 0,
+                      f"{who}: the ring search's chunk-steps are not one table-entry launch and "
+                      f"one merge launch each: {ring_run}, {merges} merges")
         timings[phase, n] = {key: res[0][key] for key in ("merge_ms",) if key in res[0]}
     if n_cards == 1:
         log(f"[20] the ranks share one card: a peer's shard is read from the same HBM as this "
@@ -4052,23 +4138,29 @@ def across_cards_bound(local_bytes: float, remote_bytes: float) -> tuple[float, 
 def flag_wait_row(wait20, timings20, launches20) -> dict:
     """The flag-wait ring entry's row: where [20]'s 4 ranks had a card
     each, one merge of the exact search's step timed in the ranks (the
-    slot copy and the flag-wait launch, the skew between ranks included),
-    bounded by the peers' slots over NVLink, with NCCL's ``all_reduce`` of
-    the same payload as the library call and gloo's beside it; on one card
-    the launch with the peer's flags pre-published ([20] one card)."""
+    prepared launch back to back, the skew between ranks included; beside
+    it synchronised every merge, and its host ms a call), bounded by this
+    rank's row pushed to the 3 peers over NVLink or the 4 rows read and the
+    sum written on this card, with NCCL's ``all_reduce`` of the same
+    payload as the library call (also synchronised every merge) and gloo's
+    beside it; on one card the prepared launch with the peers' flags
+    pre-published ([20] one card)."""
     run = f"[20] exact, merge=ring, rank 0 of {INTERVAL_RANKS[-1]}"
     ms = timings20.get(("[20]", INTERVAL_RANKS[-1]), {}).get("merge_ms", {})
-    slot = 4 * 2 * (BATCH // RING_MICROBATCH)  # one shard's partials, (2, 32,768) int32
-    extra = {"one_card_ms": wait20["ms"], "launches_by_path": per_run(launches20,
-                                                                       "flag-wait ring sum")}
+    row = 4 * 2 * (BATCH // RING_MICROBATCH)  # one rank's partial, (2, 32,768) int32
+    extra = {"one_card_ms": wait20["ms"], "one_card_host_ms": wait20["host_ms"],
+             "blocks": wait20["blocks"],
+             "launches_by_path": per_run(launches20, "flag-wait ring sum")}
     if ms.get("ring_route") == "flag wait":
         timing = (ms["ring"], wait20["plain_ms"],
-                  *across_cards_bound(2 * slot, (SHARDS - 1) * slot), ms.get("nccl"))
+                  *across_cards_bound((SHARDS + 1) * row, (SHARDS - 1) * row), ms.get("nccl"))
         extra.update(library="NCCL all_reduce of the payload across the ranks' cards",
-                     gloo_ms=ms["gloo"], measured="one merge in 4 ranks on 4 cards")
+                     synchronised_ms=ms["ring_sync"], host_ms=ms["ring_host"],
+                     library_synchronised_ms=ms.get("nccl_sync"), gloo_ms=ms["gloo"],
+                     measured="one merge in 4 ranks on 4 cards")
     else:
-        timing = (wait20["ms"], wait20["plain_ms"], *bound((SHARDS + 1) * slot, 0), None)
-        extra.update(measured="one launch on one card, the peer's flags pre-published")
+        timing = (wait20["ms"], wait20["plain_ms"], *bound((SHARDS + 1) * row, 0), None)
+        extra.update(measured="one prepared launch on one card, the peers' flags pre-published")
     return kernel_row("ring_allreduce_flag_wait", "ring.cu", "parallel/ring.py:58", run,
                       launches20[run]["flag-wait ring sum"], wait20["err"], timing, **extra)
 

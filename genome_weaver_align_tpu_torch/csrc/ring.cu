@@ -2,7 +2,8 @@
 // fused occ-rank + shard sum, each one grid-stride pass.
 //
 // Replaces the two Pallas TPU kernels of genome_weaver_align_tpu/parallel/ring.py:
-//   _ring_kernel             -> allreduce_kernel<T, S>  (int32, float32; S = 1..16)
+//   _ring_kernel             -> allreduce_kernel<T, S>  (int32, float32; S = 1..16),
+//                               push_wait_kernel<T, R, Vec> (across cards; R = 1..16)
 //   _fused_rank_ring_kernel  -> fused_words_kernel      (the JAX contract: gathered rows)
 //                               fused_occ_kernel        (rows read from the sharded tables)
 // and computes exactly the plain versions in
@@ -14,38 +15,46 @@
 // Every shard's buffers come in as their own base pointers: one stacked
 // tensor's rows, or separate allocations, another process's mapped through
 // CUDA IPC (parallel/peer.py: opened on this card with lazy peer access,
-// so memory on another card is read over NVLink).  Across processes the
-// sum's inputs are the ranks' mapped partial slots, and each process writes
-// its own output only (a null output pointer is skipped).  Two orders between the processes:
+// so memory on another card is reached over NVLink).  Across processes
+// each rank merges one partial, its held shards' sum (a row of its inbox,
+// written there by the fused table entry), and the sum runs over the
+// group's ranks in group order.  Two orders between the processes:
 //   - ranks that share one card: the host orders the steps (a stream
-//     synchronize and a barrier before the sum reads the peers' slots):
-//     kernels of two processes time-slice one card, so none may wait on
-//     another's flag;
-//   - ranks on separate cards: allreduce_kernel<T, S, true>, the
-//     flag-wait entry (gwa_allreduce_wait), the port of what _ring_kernel
-//     does with its barrier and capacity semaphores (ring.py:69-84,
-//     :107-118).  Each block's thread 0 publishes the merge's epoch into
-//     every peer's flag word (a system-scope fence, then an atomicMax over
-//     NVLink; every block publishes, so the first block to run does it
-//     whatever the order of the blocks), then spins, reading this rank's
-//     own flag words (acquire), until every peer has reached that epoch,
-//     and the block sums as below.  A peer publishes after its slot write
-//     (stream order: the copy precedes the launch), so the acquire makes
-//     its slot complete.  Two slots taken in turn are enough: a rank
-//     writes slot i % 2 after its merge i - 1 saw every peer reach epoch
-//     i - 1, so every peer's merge i - 2, the last reader of that slot,
-//     has ended.
+//     synchronize and a barrier before allreduce_kernel reads every rank's
+//     row, writing this rank's output only: a null output pointer is
+//     skipped): kernels of two processes time-slice one card, so none may
+//     wait on another's flag;
+//   - ranks on separate cards: push_wait_kernel, the flag-wait entry
+//     (gwa_allreduce_wait), the port of what _ring_kernel does with its
+//     remote copies, barrier and capacity semaphores (ring.py:69-84,
+//     :107-118).  It pushes as the TPU's remote DMA does and never pulls:
+//     block b stores its chunk of this rank's partial into row me of every
+//     peer's inbox over NVLink (posted 16-byte stores, no round trip), makes
+//     them visible (the block's barrier, then a system fence) and publishes
+//     the epoch into word [me][b] of every peer's flags (atomicMax over
+//     NVLink).  It then waits with acquire loads of its own card's words
+//     [q][b] and sums chunk b from its own inbox, this card's memory only.
+//     One flag a block: chunk b depends only on block b of each peer, and
+//     no block waits on a block of its own grid.  The grid is a function of
+//     the payload alone (wait_blocks: the same on every rank, at most
+//     kWaitBlocks blocks, one wave), so every block of every rank is
+//     resident while it waits, whatever order the blocks start in.
+//     Two inboxes taken in turn are enough, chunk by chunk: a rank pushes
+//     chunk b into inbox i % 2 in merge i after its block b of merge i - 1
+//     saw every peer's block b publish epoch i - 1; a peer publishes that
+//     in its merge i - 1, which starts after its merge i - 2, the last
+//     reader of inbox i % 2, has ended (stream order).
 //     The wait is bounded, and a failure reaches every peer.  Past
 //     `timeout_ns` of the card's global timer, or on finding a peer's word
 //     poisoned, the block writes 1 to the error word and publishes the
 //     poison (kPoison, above every epoch: the atomicMax keeps it) into
-//     every peer's word; a launch that finds the error word set waits no
-//     more and publishes the poison, never an epoch.  So a rank that has
-//     stopped waiting, and may reuse a slot a slow peer still reads, has
-//     poisoned that peer's next wait at the latest: the peer's error word
-//     is set before its search ends.  The caller reads the error word once
-//     the merges are done and raises, so a failed search never hangs and
-//     never returns its sums.
+//     every word [me][*] of every peer; a launch that finds the error word
+//     set pushes nothing, waits no more and publishes the poison, never an
+//     epoch.  So a rank that has stopped waiting, and may push into an
+//     inbox a slow peer still reads, has poisoned that peer's next wait at
+//     the latest: the peer's error word is set before its search ends.  The
+//     caller reads the error word once the merges are done and raises, so
+//     a failed search never hangs and never returns its sums.
 //
 // No ring.  The TPU ran a ring because ICI moves data by remote DMA between
 // neighbours.  On one card all S shards lie in the same device memory and a
@@ -53,11 +62,11 @@
 // each kernel is one pass that reads every shard's input once and writes
 // every shard's output.  Stream order makes every input complete at launch:
 // nothing to wait on, no scratch, nothing for the host to read back.  Across
-// NVLink-joined cards the same one pass reads the peers' slots over NVLink
-// behind the flag wait: each rank reads every other rank's partial once
-// (the bytes a ring would move to it) in one hop, not S-1 dependent ones.
-// Its yardstick is NCCL's all_reduce on the same payload (chip_smoke.py
-// [20]).
+// NVLink-joined cards each rank pushes its partial once to every peer (the
+// bytes a ring would move) in one hop, not S-1 dependent ones.  Bound: the
+// (P - 1) pushed rows over NVLink, or this card's P rows read and the sum
+// written.  Its yardstick is NCCL's all_reduce on the same payload
+// (chip_smoke.py [20]).
 //
 // allreduce_kernel: each thread reads the same 16-byte vector of every
 // shard's input; int32 adds wrap, so one sum serves every shard; float32
@@ -92,10 +101,11 @@
 // built.  At chr20 scale the shards' bwt_blocks are ~16 MB and stay in the
 // 50 MB L2.  Bound: bytes, k, code, row, checkpoint and out, 48 B a query.
 //
-// Entries: gwa_allreduce, gwa_allreduce_wait, gwa_fused_words and
-// gwa_fused_occ, plain C functions bound with ctypes.  The launches run on the caller's stream, do
-// not synchronise, allocate nothing, and return the launch's CUDA error
-// code.
+// Entries: gwa_allreduce, gwa_allreduce_wait (and its grid,
+// gwa_allreduce_wait_blocks), gwa_fused_words and gwa_fused_occ, plain C
+// functions bound with ctypes.  The launches run on the caller's stream,
+// do not synchronise, allocate nothing, and return the launch's CUDA
+// error code.
 
 #include <cuda_runtime.h>
 
@@ -172,88 +182,13 @@ __device__ __forceinline__ void ring_sums(const T (&x)[S][E], T (&out)[S][E],
   }
 }
 
-// The flag words of a merge across cards: rank r's flags are `ranks` int32
-// words on its card, word q the last epoch rank q published to it, or
-// kPoison once rank q's wait has failed.
-constexpr int kPoison = 0x7fffffff;
-struct Flags {
-  int* peer[kMaxShards];  // each rank's flag words, mapped (this rank's own at me)
-  const int* own;         // this rank's flag words
-  int* error;             // this rank's error word, on its card
-  int ranks, me, epoch;
-  long long timeout_ns;
-};
-
-__device__ __forceinline__ int load_acquire_sys(const int* p) {
-  int v;
-  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// `v` into this rank's word of every peer's flags, after this rank's
-// earlier writes.  The rank loop runs over constant indices (unrolled and
-// masked): a parameter indexed by a variable is copied to the stack.
-__device__ __forceinline__ void publish(const Flags& f, int v) {
-  __threadfence_system();
-#pragma unroll
-  for (int q = 0; q < kMaxShards; ++q) {
-    if (q < f.ranks && q != f.me) atomicMax_system(f.peer[q] + f.me, v);
-  }
-}
-
-// Thread 0 of the block publishes the epoch to every peer, then waits
-// (bounded) until every peer has published it here; on a failure (the
-// error word already set, a poisoned peer, the timeout) it sets the error
-// word and publishes the poison.  The block waits on thread 0.
-__device__ __forceinline__ void publish_and_wait(const Flags& f) {
-  if (threadIdx.x == 0) {
-    bool failed = load_acquire_sys(f.error) != 0;  // an earlier merge or block failed
-    publish(f, failed ? kPoison : f.epoch);
-    const long long t0 = global_ns();
-    for (int q = 0; q < f.ranks && !failed; ++q) {
-      while (q != f.me) {
-        const int v = load_acquire_sys(f.own + q);
-        if (v >= f.epoch && v != kPoison) break;
-        if (v == kPoison || global_ns() - t0 > f.timeout_ns ||
-            load_acquire_sys(f.error) != 0) {
-          failed = true;
-          break;
-        }
-        __nanosleep(64);
-      }
-    }
-    if (failed) {
-      atomicExch(f.error, 1);
-      publish(f, kPoison);
-    }
-  }
-  __syncthreads();
-}
-
-template <bool Wait>
-__device__ __forceinline__ uint4 load_vec(const void* p, int64_t v) {
-  // across cards the peers' slots are read with plain loads after the
-  // acquire: not through the read-only path
-  if constexpr (Wait) {
-    return static_cast<const uint4*>(p)[v];
-  } else {
-    return __ldg(static_cast<const uint4*>(p) + v);
-  }
-}
-
 // Elements [0, 4 n_vec) as 16-byte vectors (every pointer 16-byte aligned),
 // then [4 n_vec, n) one at a time.
-// A null output pointer is not written: across processes each writes its
-// own shard's output only.  With Wait, the flag wait first (Flags).
-template <typename T, int S, bool Wait>
+// A null output pointer is not written: across processes on one card
+// each writes its own shard's output only.
+template <typename T, int S>
 __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, int64_t n,
-                                                             int64_t n_vec, const Flags f) {
-  if constexpr (Wait) publish_and_wait(f);
+                                                             int64_t n_vec) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   bool want[S];
@@ -263,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
     T x[S][4], out[S][4];
 #pragma unroll
     for (int d = 0; d < S; ++d) {
-      const uint4 u = load_vec<Wait>(p.in[d], v);
+      const uint4 u = __ldg(static_cast<const uint4*>(p.in[d]) + v);
       x[d][0] = from_bits<T>(u.x);
       x[d][1] = from_bits<T>(u.y);
       x[d][2] = from_bits<T>(u.z);
@@ -293,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
   }
 }
 
-template <typename T, int S, bool Wait>
-int allreduce(const ShardIO& p, int64_t n, const Flags& f, cudaStream_t stream) {
+template <typename T, int S>
+int allreduce(const ShardIO& p, int64_t n, cudaStream_t stream) {
   bool aligned = true;
   for (int d = 0; d < S; ++d)
     aligned &= (reinterpret_cast<uintptr_t>(p.in[d]) | reinterpret_cast<uintptr_t>(p.out[d])) %
@@ -303,31 +238,200 @@ int allreduce(const ShardIO& p, int64_t n, const Flags& f, cudaStream_t stream) 
   unsigned blocks = 0;
   const int rc = grid_blocks(n_vec > n - 4 * n_vec ? n_vec : n - 4 * n_vec, &blocks);
   if (rc != 0) return rc;
-  allreduce_kernel<T, S, Wait><<<blocks, kThreads, 0, stream>>>(p, n, n_vec, f);
+  allreduce_kernel<T, S><<<blocks, kThreads, 0, stream>>>(p, n, n_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool Wait = false>
-int allreduce_s(int S, const ShardIO& p, int64_t n, cudaStream_t s, const Flags& f = Flags{}) {
+template <typename T>
+int allreduce_s(int S, const ShardIO& p, int64_t n, cudaStream_t s) {
   switch (S) {
-    case 1: return allreduce<T, 1, Wait>(p, n, f, s);
-    case 2: return allreduce<T, 2, Wait>(p, n, f, s);
-    case 3: return allreduce<T, 3, Wait>(p, n, f, s);
-    case 4: return allreduce<T, 4, Wait>(p, n, f, s);
-    case 5: return allreduce<T, 5, Wait>(p, n, f, s);
-    case 6: return allreduce<T, 6, Wait>(p, n, f, s);
-    case 7: return allreduce<T, 7, Wait>(p, n, f, s);
-    case 8: return allreduce<T, 8, Wait>(p, n, f, s);
-    case 9: return allreduce<T, 9, Wait>(p, n, f, s);
-    case 10: return allreduce<T, 10, Wait>(p, n, f, s);
-    case 11: return allreduce<T, 11, Wait>(p, n, f, s);
-    case 12: return allreduce<T, 12, Wait>(p, n, f, s);
-    case 13: return allreduce<T, 13, Wait>(p, n, f, s);
-    case 14: return allreduce<T, 14, Wait>(p, n, f, s);
-    case 15: return allreduce<T, 15, Wait>(p, n, f, s);
-    case 16: return allreduce<T, 16, Wait>(p, n, f, s);
+    case 1: return allreduce<T, 1>(p, n, s);
+    case 2: return allreduce<T, 2>(p, n, s);
+    case 3: return allreduce<T, 3>(p, n, s);
+    case 4: return allreduce<T, 4>(p, n, s);
+    case 5: return allreduce<T, 5>(p, n, s);
+    case 6: return allreduce<T, 6>(p, n, s);
+    case 7: return allreduce<T, 7>(p, n, s);
+    case 8: return allreduce<T, 8>(p, n, s);
+    case 9: return allreduce<T, 9>(p, n, s);
+    case 10: return allreduce<T, 10>(p, n, s);
+    case 11: return allreduce<T, 11>(p, n, s);
+    case 12: return allreduce<T, 12>(p, n, s);
+    case 13: return allreduce<T, 13>(p, n, s);
+    case 14: return allreduce<T, 14>(p, n, s);
+    case 15: return allreduce<T, 15>(p, n, s);
+    case 16: return allreduce<T, 16>(p, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---- the flag-wait merge across cards (push)
+
+// A rank's flag words: (ranks, kWaitBlocks) int32 on its card; word [q][b]
+// is the last epoch that block b of rank q published to it, or kPoison
+// once a wait of rank q has failed.  A grid has at most kWaitBlocks
+// blocks of kThreads.
+constexpr int kWaitBlocks = 128;
+constexpr int kPoison = 0x7fffffff;
+
+struct Push {
+  void* inbox[kMaxShards];  // rank q's inbox (ranks, n), mapped on this card
+  int* flags[kMaxShards];   // rank q's flag words, mapped on this card
+  const void* own_inbox;    // this rank's inbox: its partial is row me
+  const int* own_flags;     // this rank's flag words
+  void* out;                // (n,) this rank's sum
+  int* error;               // this rank's error word
+  int64_t n, items;         // items: n / 4 vectors, or n elements
+  int me, epoch, blocks;
+  long long timeout_ns;
+};
+
+// The grid of a merge of n elements: a function of n alone, the same on
+// every rank, at most kWaitBlocks blocks (one wave on any card: no block
+// may wait for a block that is not resident).
+__host__ __device__ __forceinline__ int64_t wait_items(int64_t n) { return n % 4 ? n : n / 4; }
+int wait_blocks(int64_t n) {
+  const int64_t want = (wait_items(n) + kThreads - 1) / kThreads;
+  return static_cast<int>(want < kWaitBlocks ? want : kWaitBlocks);
+}
+
+__device__ __forceinline__ int load_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One item: a 16-byte vector of 4 elements, or one element.
+template <bool Vec>
+using Item = typename std::conditional<Vec, uint4, unsigned>::type;
+
+__device__ __forceinline__ uint4 ld_cg(const uint4* p) { return __ldcg(p); }
+__device__ __forceinline__ unsigned ld_cg(const unsigned* p) { return __ldcg(p); }
+
+template <typename T>
+__device__ __forceinline__ unsigned add_bits(unsigned a, unsigned b) {
+  return to_bits(add(from_bits<T>(a), from_bits<T>(b)));
+}
+template <typename T>
+__device__ __forceinline__ uint4 add_bits(uint4 a, uint4 b) {
+  return make_uint4(add_bits<T>(a.x, b.x), add_bits<T>(a.y, b.y), add_bits<T>(a.z, b.z),
+                    add_bits<T>(a.w, b.w));
+}
+
+// Block b of rank me: (1) stores its items of this rank's partial (row me
+// of its own inbox) into row me of every peer's inbox, over NVLink;
+// (2) thread 0 makes them visible (the block's barrier, then a system
+// fence), publishes the epoch into word [me][b] of every peer's flags and
+// waits, bounded, with acquire loads of this card's words [q][b] until
+// every peer's block b has published it; (3) sums its items of the R rows
+// of its own inbox, this card's memory only, in the ring's order: row me,
+// me - 1, ..., me - R + 1.  A failure (the error word already set, a
+// poisoned word, the timeout) sets the error word and publishes the poison
+// into every word [me][*] of every peer; a launch that finds the error
+// word set pushes nothing.  The rank loops run over constant indices:
+// a kernel parameter indexed by a variable is copied to the stack.
+template <typename T, int R, bool Vec>
+__global__ void __launch_bounds__(kThreads) push_wait_kernel(const Push p) {
+  using It = Item<Vec>;
+  __shared__ int s_failed;
+  const int b = blockIdx.x;
+  const int64_t stride = static_cast<int64_t>(p.blocks) * kThreads;
+  const int64_t first = static_cast<int64_t>(b) * kThreads + threadIdx.x;
+  const int64_t row = Vec ? p.n / 4 : p.n;  // items a row
+  const It* own = static_cast<const It*>(p.own_inbox);
+  if (threadIdx.x == 0) s_failed = load_acquire_sys(p.error) != 0;
+  __syncthreads();
+  if (!s_failed) {
+    for (int64_t i = first; i < p.items; i += stride) {
+      const It v = __ldg(own + p.me * row + i);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (q != p.me) static_cast<It*>(p.inbox[q])[p.me * row + i] = v;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bool failed = s_failed;
+    if (!failed) {
+      __threadfence_system();
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (q != p.me) atomicMax_system(p.flags[q] + p.me * kWaitBlocks + b, p.epoch);
+      }
+      const long long t0 = global_ns();
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        while (q != p.me && !failed) {
+          const int v = load_acquire_sys(p.own_flags + q * kWaitBlocks + b);
+          if (v >= p.epoch && v != kPoison) break;
+          failed = v == kPoison || global_ns() - t0 > p.timeout_ns ||
+                   load_acquire_sys(p.error) != 0;
+          if (!failed) __nanosleep(32);
+        }
+      }
+      __threadfence();
+    }
+    if (failed) atomicExch(p.error, 1);
+    s_failed = failed;
+  }
+  __syncthreads();
+  if (s_failed) {
+    for (int w = threadIdx.x; w < kWaitBlocks; w += kThreads) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (q != p.me) atomicMax_system(p.flags[q] + p.me * kWaitBlocks + w, kPoison);
+      }
+    }
+    return;
+  }
+  for (int64_t i = first; i < p.items; i += stride) {
+    It acc = ld_cg(own + p.me * row + i);
+#pragma unroll
+    for (int t = 1; t < R; ++t) {
+      const int q = p.me - t < 0 ? p.me - t + R : p.me - t;
+      acc = add_bits<T>(acc, ld_cg(own + q * row + i));
+    }
+    static_cast<It*>(p.out)[i] = acc;
+  }
+}
+
+template <typename T, int R>
+void push_wait(const Push& p, cudaStream_t s) {
+  if (p.items == p.n) {
+    push_wait_kernel<T, R, false><<<p.blocks, kThreads, 0, s>>>(p);
+  } else {
+    push_wait_kernel<T, R, true><<<p.blocks, kThreads, 0, s>>>(p);
+  }
+}
+
+template <typename T>
+int push_wait_r(int R, const Push& p, cudaStream_t s) {
+  switch (R) {
+    case 1: push_wait<T, 1>(p, s); break;
+    case 2: push_wait<T, 2>(p, s); break;
+    case 3: push_wait<T, 3>(p, s); break;
+    case 4: push_wait<T, 4>(p, s); break;
+    case 5: push_wait<T, 5>(p, s); break;
+    case 6: push_wait<T, 6>(p, s); break;
+    case 7: push_wait<T, 7>(p, s); break;
+    case 8: push_wait<T, 8>(p, s); break;
+    case 9: push_wait<T, 9>(p, s); break;
+    case 10: push_wait<T, 10>(p, s); break;
+    case 11: push_wait<T, 11>(p, s); break;
+    case 12: push_wait<T, 12>(p, s); break;
+    case 13: push_wait<T, 13>(p, s); break;
+    case 14: push_wait<T, 14>(p, s); break;
+    case 15: push_wait<T, 15>(p, s); break;
+    case 16: push_wait<T, 16>(p, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- fused occ rank + shard sum
@@ -448,36 +552,50 @@ extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptr
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The flag-wait entry (ranks on separate cards): gwa_allreduce's sum after
-// this rank publishes `epoch` (1 .. kPoison - 1) to every peer and waits,
-// at most `timeout_ns`, until every peer has published it.  flag_ptrs: `ranks`
-// device pointers, rank q's `ranks` flag words (this rank's at `me`, the
-// others mapped); error: this rank's error word.
-extern "C" int gwa_allreduce_wait(int dtype, int S, int64_t n, const uint64_t* in_ptrs,
-                                  const uint64_t* out_ptrs, int ranks, int me,
-                                  const uint64_t* flag_ptrs, int epoch, void* error,
-                                  long long timeout_ns, void* stream) {
-  if (S < 1 || S > kMaxShards || n < 0 || ranks < 1 || ranks > kMaxShards || me < 0 ||
-      me >= ranks || epoch < 1 || epoch >= kPoison || error == nullptr || timeout_ns < 0)
+// The grid of a flag-wait merge of n elements (the same on every rank).
+extern "C" int gwa_allreduce_wait_blocks(int64_t n) { return n > 0 ? wait_blocks(n) : 0; }
+
+// The flag-wait entry (ranks on separate cards), one merge with `epoch`
+// (1 .. kPoison - 1): inbox_ptrs and flag_ptrs, `ranks` device pointers
+// each, are rank q's (ranks, n) inbox and (ranks, kWaitBlocks) flag words
+// (this rank's own at `me`, the others mapped on this card); this rank's
+// partial is row me of its own inbox; out: this rank's (n,) sum; error:
+// its error word.  Every pointer 16-byte aligned.  Launches on `device`
+// (made current for the launch if it is not).
+extern "C" int gwa_allreduce_wait(int dtype, int64_t n, int ranks, int me,
+                                  const uint64_t* inbox_ptrs, const uint64_t* flag_ptrs,
+                                  void* out, void* error, int epoch, long long timeout_ns,
+                                  int device, void* stream) {
+  if (n < 0 || ranks < 1 || ranks > kMaxShards || me < 0 || me >= ranks || epoch < 1 ||
+      epoch >= kPoison || error == nullptr || timeout_ns < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  ShardIO p{};
-  for (int d = 0; d < S; ++d) {
-    p.in[d] = reinterpret_cast<const void*>(in_ptrs[d]);
-    p.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
+  Push p{};
+  uintptr_t bits = reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(error);
+  for (int q = 0; q < ranks; ++q) {
+    p.inbox[q] = reinterpret_cast<void*>(inbox_ptrs[q]);
+    p.flags[q] = reinterpret_cast<int*>(flag_ptrs[q]);
+    bits |= inbox_ptrs[q] | flag_ptrs[q];
   }
-  Flags f{};
-  for (int q = 0; q < ranks; ++q) f.peer[q] = reinterpret_cast<int*>(flag_ptrs[q]);
-  f.own = f.peer[me];
-  f.error = static_cast<int*>(error);
-  f.ranks = ranks;
-  f.me = me;
-  f.epoch = epoch;
-  f.timeout_ns = timeout_ns;
+  if (bits % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n == 0) return 0;
+  p.own_inbox = p.inbox[me];
+  p.own_flags = p.flags[me];
+  p.out = out;
+  p.error = static_cast<int*>(error);
+  p.n = n;
+  p.items = wait_items(n);
+  p.me = me;
+  p.epoch = epoch;
+  p.blocks = wait_blocks(n);
+  p.timeout_ns = timeout_ns;
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return allreduce_s<int, true>(S, p, n, s, f);
-  if (dtype == 1) return allreduce_s<float, true>(S, p, n, s, f);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = dtype == 0 ? push_wait_r<int>(ranks, p, s) : push_wait_r<float>(ranks, p, s);
+  if (current != device) cudaSetDevice(current);
+  return rc;
 }
 
 // ptrs: 6 x S device pointers, shard-major: words (16-byte aligned), codes,

@@ -18,15 +18,22 @@ allocation, or another process's mapped through CUDA IPC (on this card,
 whichever card holds the memory: ``parallel.peer``).
 
 ``ring_allreduce_wait_cuda`` is the sum's flag-wait entry, for ranks on
-separate cards (``sharded_index._RingSlots``): before it sums, its launch
-publishes the merge's epoch into every peer's flag word and waits, bounded,
-until every peer has published it.  A wait that times out, or that finds a
-peer's word poisoned, sets the error word, which ``check_flag_wait`` turns
-into an exception; from then on this rank publishes the poison instead of
-its epochs, so every peer's wait fails too.  It equals
-``ring_psum_plain`` too.  ``ops._cuda_build`` compiles the source at first
-use with ``nvcc`` for ``sm_90a``; without ``nvcc``, or when the build
-fails, loading raises: there is no fallback to the plain versions.
+separate cards: each rank's partial lies in its row of its own inbox, and
+every rank's inbox is mapped on every card (``parallel.peer.share``).  Its
+launch pushes this rank's row into every peer's inbox over NVLink,
+publishes the merge's epoch into every peer's flag words, one word a
+block, and waits, bounded, until every peer's block has published it; each
+block then sums its chunk from its own inbox.  A wait that times out, or
+that finds a peer's word poisoned, sets the error word, which
+``check_flag_wait`` turns into an exception; from then on this rank
+publishes the poison instead of its epochs, so every peer's wait fails
+too.  It equals ``ring_psum_plain`` over the ranks' partials, this rank's
+row.  ``FlagWait`` is the same launch prepared once for a caller that
+merges many times (``sharded_index._RingSlots``): every check, the pointer
+arrays and the outputs made when it is built, one ctypes call a merge.
+``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
+``sm_90a``; without ``nvcc``, or when the build fails, loading raises:
+there is no fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ FLAG_TIMEOUT_S = 30.0
 # a flag word that holds this is poisoned: its rank's wait failed
 # (``csrc/ring.cu`` kPoison, above every epoch)
 POISON = (1 << 31) - 1
+# flag words a rank of a flag-wait merge holds for each peer: the most
+# blocks of its grid (``csrc/ring.cu`` kWaitBlocks)
+WAIT_BLOCKS = 128
 
 
 @functools.cache
@@ -55,14 +65,15 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("ring.cu")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
-    lib.gwa_allreduce_wait.argtypes = [i32, i32, i64, vp, vp, i32, i32, vp, i32, vp,
-                                       ctypes.c_longlong, vp]
+    lib.gwa_allreduce_wait.argtypes = [i32, i64, i32, i32, vp, vp, vp, vp, i32,
+                                       ctypes.c_longlong, i32, vp]
+    lib.gwa_allreduce_wait_blocks.argtypes = [i64]
     lib.gwa_fused_words.argtypes = [i32, i64, vp, vp]
     lib.gwa_fused_occ.argtypes = [
         i32, i32, i32, i64, PTRS, PTRS, vp, vp, ctypes.c_uint32, i32, vp, vp, vp, vp,
     ]
-    for fn in (lib.gwa_allreduce, lib.gwa_allreduce_wait, lib.gwa_fused_words,
-               lib.gwa_fused_occ):
+    for fn in (lib.gwa_allreduce, lib.gwa_allreduce_wait, lib.gwa_allreduce_wait_blocks,
+               lib.gwa_fused_words, lib.gwa_fused_occ):
         fn.restype = ctypes.c_int
     return lib
 
@@ -133,45 +144,105 @@ def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
 ring_allreduce_cuda.launches = 0
 
 
-def ring_allreduce_wait_cuda(parts, only: int, flags, me: int, epoch: int,
-                             error: torch.Tensor, timeout_s: float = FLAG_TIMEOUT_S):
-    """The flag-wait sum across cards: ``ring_allreduce_cuda(parts, only)``
-    after this rank (``me`` of ``len(flags)``) publishes ``epoch`` (>= 1,
-    rising from merge to merge) into every peer's flag words and waits, at
-    most ``timeout_s``, until every peer has published it into this rank's.
-    ``flags``: every rank's ``(ranks,)`` int32 flag words, mapped onto the
-    output's card (``parallel.peer.share``); ``error``: a ``(1,)`` int32
-    word on that card that a failed wait sets to 1 (read it with
-    ``check_flag_wait``): a timed-out wait, or one that finds a peer's word
-    poisoned.  Once ``error`` is set the launch waits no more and publishes
-    the poison, not ``epoch``.  Counts each launch in ``.launches``."""
-    name = "ring_allreduce_wait_cuda"
-    ins, out, outs, code = _sum_io(parts, only, name)
-    dev = out.device
-    ranks = len(flags)
-    if not 1 <= ranks <= MAX_SHARDS or not 0 <= me < ranks or not 1 <= epoch < POISON:
-        raise ValueError(f"{name}: rank {me} of {ranks}, epoch {epoch}")
-    if error.device != dev or error.dtype != torch.int32 or error.numel() != 1:
-        raise ValueError(f"{name}: the error word must be one int32 on {dev}")
-    if any(f.dtype != torch.int32 or f.shape != (ranks,) or not f.is_contiguous()
-           or f.device != dev for f in flags):
-        raise ValueError(f"{name}: every rank's flags must be ({ranks},) contiguous int32 on "
-                         f"{dev}")
-    n = ins[0].numel()
-    if n == 0:
-        return out
-    with torch.cuda.device(dev):
-        rc = _library().gwa_allreduce_wait(
-            code, len(ins), n, shard_ptrs(ins), _out_ptrs(outs), ranks, me, shard_ptrs(flags),
-            epoch, error.data_ptr(), int(timeout_s * 1e9), _stream())
-    if rc != 0:
-        raise RuntimeError(f"gwa_allreduce_wait launch failed ({len(ins)} shards, {ranks} ranks): "
-                           f"CUDA error {rc}")
-    ring_allreduce_wait_cuda.launches += 1
-    return out
+class FlagWait:
+    """The flag-wait merge prepared for one caller: every rank's inboxes
+    and flag words checked, and the ctypes pointer arrays and the outputs
+    made, once.  ``inboxes``: one entry a slot (taken in turn by the
+    caller), each every rank's ``(ranks, ...)`` int32 or float32 inbox
+    mapped on this card, this rank's own at ``me``; this rank's partial is
+    row ``me`` of its own inbox.  ``flags``: every rank's ``(ranks,
+    WAIT_BLOCKS)`` int32 flag words, mapped alike; ``error``: a ``(1,)``
+    int32 word on this card that a failed wait sets to 1 (read it with
+    ``check_flag_wait``).  Every tensor contiguous and 16-byte aligned.
+    ``self(slot, epoch)`` merges the slot's rows with ``epoch`` (>= 1,
+    rising from merge to merge, below ``POISON``) and returns that slot's
+    ``(...)`` output, overwritten by the slot's next merge: one ctypes
+    call on the stream that was current when it was built.  Counts each
+    launch in ``ring_allreduce_wait_cuda.launches``."""
+
+    def __init__(self, inboxes, flags, me: int, error: torch.Tensor,
+                 timeout_s: float = FLAG_TIMEOUT_S):
+        name = "the flag-wait merge"
+        ranks = len(flags)
+        if not 1 <= ranks <= MAX_SHARDS or not 0 <= me < ranks:
+            raise ValueError(f"{name}: rank {me} of {ranks} (1..{MAX_SHARDS} ranks)")
+        boxes = [list(slot) for slot in inboxes]
+        first = boxes[0][0] if boxes and boxes[0] else None
+        if first is None or first.dim() < 1 or first.shape[0] != ranks:
+            raise ValueError(f"{name}: every inbox must be ({ranks}, ...), got "
+                             f"{None if first is None else tuple(first.shape)}")
+        shape = first.shape
+        every = [t for slot in boxes for t in slot]
+        if any(len(slot) != ranks for slot in boxes) or any(t.shape != shape for t in every):
+            raise ValueError(f"{name}: every slot needs {ranks} inboxes of shape "
+                             f"{tuple(shape)}, got {[[tuple(t.shape) for t in s] for s in boxes]}")
+        if any(f.shape != (ranks, WAIT_BLOCKS) or f.dtype != torch.int32 for f in flags):
+            raise ValueError(f"{name}: every rank's flags must be ({ranks}, {WAIT_BLOCKS}) int32")
+        if error.dtype != torch.int32 or error.numel() != 1:
+            raise ValueError(f"{name}: the error word must be one int32")
+        if first.dtype not in _DTYPES or any(t.dtype != first.dtype for t in every):
+            raise TypeError(f"{name} takes int32 or float32 inboxes, got "
+                            f"{sorted({str(t.dtype) for t in every})}")
+        if timeout_s < 0:
+            raise ValueError(f"{name}: timeout {timeout_s} s")
+        tensors = [*every, *flags, error]
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError(f"{name} needs contiguous inboxes and flag words")
+        if any(t.data_ptr() % 16 for t in tensors):
+            raise ValueError(f"{name} moves 16-byte vectors: every inbox, flag tensor and the "
+                             "error word must start 16-byte aligned")
+        dev = error.device
+        if not all(t.is_cuda and t.device == dev for t in tensors):
+            raise ValueError(f"{name} needs its tensors on one CUDA device (the inboxes and "
+                             "flags of other cards mapped on it)")
+        self.outs = [torch.empty(shape[1:], dtype=first.dtype, device=dev) for _ in boxes]
+        self.keep = (boxes, list(flags), error)  # the pointers stay valid
+        self.n = first[0].numel()
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = _stream()
+        flag_ptrs = shard_ptrs(flags)
+        self._calls = [
+            (_DTYPES[first.dtype], self.n, ranks, me, shard_ptrs(slot), flag_ptrs,
+             out.data_ptr(), error.data_ptr()) for slot, out in zip(boxes, self.outs)]
+        self._tail = (int(timeout_s * 1e9), dev.index, stream)
+        self._launch = lib.gwa_allreduce_wait
+
+    def __call__(self, slot: int, epoch: int) -> torch.Tensor:
+        if not 1 <= epoch < POISON:
+            raise ValueError(f"the flag-wait merge: epoch {epoch} outside 1..{POISON - 1}")
+        rc = self._launch(*self._calls[slot], epoch, *self._tail)
+        if rc != 0:
+            raise RuntimeError(f"gwa_allreduce_wait launch failed ({self._calls[slot][2]} ranks): "
+                               f"CUDA error {rc}")
+        ring_allreduce_wait_cuda.launches += 1
+        return self.outs[slot]
+
+
+def ring_allreduce_wait_cuda(inboxes, flags, me: int, epoch: int, error: torch.Tensor,
+                             timeout_s: float = FLAG_TIMEOUT_S) -> torch.Tensor:
+    """One flag-wait merge across cards (``FlagWait`` prepared for one
+    slot): this rank's partial is row ``me`` of its own inbox
+    ``inboxes[me]``; every rank's ``(ranks, ...)`` inbox and ``(ranks,
+    WAIT_BLOCKS)`` flag words are mapped on this card.  Pushes the row
+    into every peer's inbox, publishes ``epoch`` into every peer's flag
+    words and waits, at most ``timeout_s``, until every peer has published
+    it; -> ``(...)``, ``ring_psum_plain`` of the ranks' partials, this
+    rank's row.  Once ``error`` is set the launch pushes nothing, waits no
+    more and publishes the poison, not ``epoch``.  Counts each launch in
+    ``.launches``."""
+    if not 1 <= epoch < POISON:
+        raise ValueError(f"the flag-wait merge: epoch {epoch} outside 1..{POISON - 1}")
+    return FlagWait([inboxes], flags, me, error, timeout_s)(0, epoch)
 
 
 ring_allreduce_wait_cuda.launches = 0
+
+
+def wait_blocks(n: int) -> int:
+    """The blocks of a flag-wait merge of ``n`` elements, one flag word a
+    block (the same on every rank; at most ``WAIT_BLOCKS``)."""
+    return _library().gwa_allreduce_wait_blocks(n)
 
 
 def check_flag_wait(error: torch.Tensor) -> None:
@@ -239,12 +310,14 @@ def fused_occ_cuda(
     primary: int,  # the sentinel's BWT row
     codes: torch.Tensor,  # (...) int32 query codes, 0..3
     k: torch.Tensor,  # (...) int32 sentinel-inclusive coordinates
+    out: torch.Tensor | None = None,  # (...) int32 to write, contiguous (else allocated)
 ) -> torch.Tensor:
     """Merged occ$(codes, k) over the interval shards, each query's row read
     from its owner's table, wherever that shard's tensor lies (one base
     pointer a shard) -> (...) int32, equal to
-    ``sharded_index.fused_occ_plain``.  Launches on the current stream
-    without synchronising; counts each launch in ``.launches``."""
+    ``sharded_index.fused_occ_plain``, written into ``out`` where given
+    (the ring merge's inbox row).  Launches on the current stream without
+    synchronising; counts each launch in ``.launches``."""
     bwt, cp = shard_parts(bwt_blocks), shard_parts(occ_cp)
     ts = (*bwt, *cp, pk_start, pk_end, codes, k)
     _check_int32_cuda("fused_occ_cuda", ts)
@@ -261,7 +334,12 @@ def fused_occ_cuda(
         raise ValueError("fused_occ_cuda loads each 32-byte word row and its 16-byte checkpoints "
                          "as 16-byte vectors: bwt_blocks and occ_cp must start 16-byte aligned")
     _check_shards(S)
-    out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
+    if out is None:
+        out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
+    elif (out.shape != codes.shape or out.dtype != torch.int32 or not out.is_contiguous()
+          or out.device != codes.device):
+        raise ValueError(f"fused_occ_cuda: out must be contiguous int32 {tuple(codes.shape)} on "
+                         f"{codes.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     n = codes.numel()
     if n == 0:
         return out

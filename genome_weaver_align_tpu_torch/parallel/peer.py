@@ -188,15 +188,18 @@ def shard_table(host: np.ndarray, device, layout, group) -> Shards:
     return shards(share(_upload(host[held.start : held.stop], device), group), layout)
 
 
-def release(group, drop) -> None:
+def release(group, drop, collect: bool = True) -> None:
     """Teardown of mapped tensors: a barrier (every process is done
     reading), ``drop()`` (the caller lets go of everything it mapped or
-    holds here, which closes the mappings), a second barrier; after it each
+    holds here, which closes the mappings), a garbage collection (for
+    mappings held in reference cycles; ``collect=False`` where ``drop``
+    lets go of the last reference itself), a second barrier; after it each
     process may free what it exported.  A collective."""
     if group is None:
         drop()
         return
     barrier(group)
     drop()
-    gc.collect()
+    if collect:
+        gc.collect()
     barrier(group)

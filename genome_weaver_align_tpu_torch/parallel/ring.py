@@ -7,9 +7,9 @@ is a sum over the shards that every shard receives:
 
 - ``ring_psum(parts)``: ``(S, ...)`` int32 or float32 -> ``(S, ...)``,
   every row the sum; ``parts`` may also be S tensors ``(...)`` in their
-  own allocations (across processes: each rank's partial slots, mapped,
-  ``sharded_index.make_sharded_exact_search``), and ``only`` = d returns
-  shard d's sum alone, the only output written;
+  own allocations (across processes on one card: each rank's partial,
+  its row of its mapped inbox, ``sharded_index._RingSlots``), and
+  ``only`` = d returns shard d's sum alone, the only output written;
 - ``fused_rank_ring(words, codes, roff, base, own)``: the occ-rank
   partials of M payloads computed and ring-summed in one pass -> ``(M, Q)``
   int32 (shard 0's copy: every shard holds the same).

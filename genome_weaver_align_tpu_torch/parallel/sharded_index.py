@@ -307,22 +307,24 @@ def fused_occ_plain(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) ->
     return local_occ_codes(sh, codes, k).sum(0, dtype=I32)
 
 
-def fused_occ(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def fused_occ(sh: ShardedFMIndex, codes: torch.Tensor, k: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """Merged occ$(codes, k) of queries of any shape (codes 0..3) -> int32
-    of that shape.  On the card one kernel reads each query's row from its
-    owner's table (``ops.ring_cuda.fused_occ_cuda``: no gathered word
-    tensor); with disjoint bounds, as ``shard_fm_index`` cuts them, that
-    owner's count is the sum over the shards, and with overlapping bounds
-    the kernel sums every owner's count.  A CPU tensor takes
-    ``fused_occ_plain``."""
+    of that shape, written into ``out`` where given.  On the card one
+    kernel reads each query's row from its owner's table
+    (``ops.ring_cuda.fused_occ_cuda``: no gathered word tensor); with
+    disjoint bounds, as ``shard_fm_index`` cuts them, that owner's count is
+    the sum over the shards, and with overlapping bounds the kernel sums
+    every owner's count.  A CPU tensor takes ``fused_occ_plain``."""
     if codes.is_cuda:
         from ..ops import ring_cuda
 
         return ring_cuda.fused_occ_cuda(
             sh.bwt_blocks, sh.occ_cp, sh.pk_start, sh.pk_end, sh.primary,
-            codes.to(I32).contiguous(), k.to(I32).contiguous(),
+            codes.to(I32).contiguous(), k.to(I32).contiguous(), out,
         )
-    return fused_occ_plain(sh, codes, k)
+    got = fused_occ_plain(sh, codes, k)
+    return got if out is None else out.copy_(got)
 
 
 def local_occ_all4(sh: ShardedFMIndex, k: torch.Tensor) -> torch.Tensor:
@@ -563,40 +565,57 @@ def _psum_across(group, nccl):
 
 
 class _RingSlots:
-    """The ring merge across processes: every process's own shards'
-    partials go to its slot, mapped by every process (``peer.share``), and
-    one sum kernel reads the S shards' partials from the slots and writes
-    this process's sum alone.  Two slots taken in turn; merge i writes slot
-    i % 2.  Two orders between the processes, picked by the layout:
+    """The ring merge across processes.  Each member of the interval group
+    holds two inboxes, taken in turn (merge i uses inbox i % 2), each a
+    ``(P, ...)`` tensor mapped by every member (``peer.share``): row q is
+    member q's partial.  A chunk-step (``step``) writes this process's
+    partial, its held shards' sum, into its row of its own inbox (on the
+    card one launch of the fused table entry, ``fused_occ(out=...)``; on
+    the CPU ``backward_step``'s partials summed), and one launch merges the
+    group's P rows in group order.  Two orders between the processes,
+    picked by the layout:
 
-    - one card a process (``apart``): the flag-wait entry
-      (``ops.ring_cuda.ring_allreduce_wait_cuda``): the kernel publishes
-      the merge's epoch into every peer's flag words and waits until every
-      peer has published it, so the host orders nothing.  A wait that
-      times out sets the error word and poisons the peers' waits, which
-      set theirs; ``check`` raises in every process;
-    - processes that share a card: a stream synchronize and a barrier
-      between a process's write of its slot and any read of it (no kernel
-      waits on another process's flag: the card time-slices their
+    - one card a process (``apart``): the flag-wait entry, prepared once
+      (``ops.ring_cuda.FlagWait``: every check, pointer array and output
+      made here; a merge is one ctypes call with its epoch).  The kernel
+      pushes this process's row into every peer's inbox over NVLink and
+      publishes the epoch into every peer's flag words, one a block, then
+      waits until every peer's block has published it and sums from its
+      own inbox, so the host orders nothing.  A wait that times out sets
+      the error word and poisons the peers' waits, which set theirs;
+      ``check`` raises in every process;
+    - processes that share a card (or the CPU): a stream synchronize and a
+      barrier between a process's write of its row and any read of it,
+      then the sum kernel reads each member's row from its inbox (no
+      kernel waits on another process's flag: the card time-slices their
       kernels).
 
-    Either way every process finished reading slot i % 2 in merge i - 2
+    Either way every process finished reading inbox i % 2 in merge i - 2
     before it could pass merge i - 1's barrier or flag wait."""
 
     def __init__(self, layout: ShardLayout, group, shape, device, apart: bool):
-        self.group, self.first, self.turn = group, layout.held.start, 0
-        self.slots = [peer.shards(peer.share(torch.zeros((len(layout.held), *shape), dtype=I32,
-                                                         device=device), group), layout)
-                      for _ in range(2)]
-        self.me = layout.group_rank
-        self.flags = peer.share(torch.zeros(layout.interval_procs, dtype=I32, device=device),
-                                group) if apart else None
-        self.error = torch.zeros(1, dtype=I32, device=device) if apart else None
+        from ..ops.ring_cuda import WAIT_BLOCKS, FlagWait
+
+        P = layout.interval_procs
+        self.group, self.me, self.turn = group, layout.group_rank, 0
+        # one shared buffer a process, one mapping a peer: the flag words
+        # (across cards), then the two inboxes, each 16-byte aligned
+        n = P * int(np.prod(shape))
+        box = -(-n // 4) * 4
+        words = P * WAIT_BLOCKS if apart else 0
+        bufs = peer.share(torch.zeros(words + 2 * box, dtype=I32, device=device), group)
+        self.inboxes = [[b[words + s * box : words + s * box + n].view(P, *shape) for b in bufs]
+                        for s in range(2)]
+        self.error = self.wait = None
+        if apart:
+            self.error = torch.zeros(1, dtype=I32, device=device)
+            self.wait = FlagWait(self.inboxes, [b[:words].view(P, WAIT_BLOCKS) for b in bufs],
+                                 self.me, self.error)
 
     def close(self) -> None:
-        """Let go of the slots and flags, this process's and the mapped
-        ones."""
-        self.slots, self.flags = [], None
+        """Let go of the inboxes and flags, this process's and the mapped
+        ones: the last references (``peer.release(..., collect=False)``)."""
+        self.inboxes, self.wait = [], None
 
     def check(self) -> None:
         """Raise if a flag wait timed out (a synchronise)."""
@@ -605,19 +624,37 @@ class _RingSlots:
 
             ring_cuda.check_flag_wait(self.error)
 
-    def __call__(self, parts: torch.Tensor) -> torch.Tensor:
-        slot = self.slots[self.turn % 2]
+    def row(self) -> torch.Tensor:
+        """This process's row of the inbox the next merge takes: write its
+        partial there."""
+        return self.inboxes[self.turn % 2][self.me][self.me]
+
+    def merge(self) -> torch.Tensor:
+        """The group's sum of the rows of the next merge's inbox."""
+        slot = self.turn % 2
         self.turn += 1
-        slot.held.copy_(parts)
-        if self.flags is None:
+        if self.wait is None:
             peer.barrier(self.group)
             CROSS_MERGES["ring host barrier"] += 1
-            return ring.ring_psum(slot, only=self.first)
-        from ..ops import ring_cuda
-
+            return ring.ring_psum([box[q] for q, box in enumerate(self.inboxes[slot])],
+                                  only=self.me)
         CROSS_MERGES["ring flag wait"] += 1
-        return ring_cuda.ring_allreduce_wait_cuda(slot, self.first, self.flags, self.me,
-                                                  self.turn, self.error)
+        return self.wait(slot, self.turn)
+
+    def __call__(self, parts: torch.Tensor) -> torch.Tensor:
+        """``(h, ...)`` partials of the held shards -> the group's sum."""
+        torch.sum(parts, 0, dtype=I32, out=self.row())
+        return self.merge()
+
+    def step(self, own, codes, lo, hi):
+        """``held_step`` with this merge: the held shards' lo and hi
+        partials written straight into this process's row."""
+        if not codes.is_cuda:
+            return backward_step(own, codes, lo, hi, self)
+        fused_occ(own, torch.stack([codes, codes]), torch.stack([lo, hi]), out=self.row())
+        occ_lo, occ_hi = self.merge()
+        Cc = own.C[codes.long()]
+        return Cc + occ_lo, Cc + occ_hi
 
 
 def make_sharded_exact_search(
@@ -652,11 +689,12 @@ def make_sharded_exact_search(
     group's processes: "psum" sums each process's own shards' partials
     (``held_step``) and ``all_reduce``s them over the group (NCCL on the
     card where the processes hold their shards on separate cards,
-    ``peer.apart``; gloo on the host where they share one), "ring" reads
-    the S shards' partials
-    from every process's mapped slots in one kernel (``_RingSlots``: a flag
-    wait in the kernel across cards, a host barrier on one card; a wait
-    that fails, here or in a peer, makes the search raise at its end), and
+    ``peer.apart``; gloo on the host where they share one), "ring" writes
+    each process's held partial into its row of its inbox and merges the
+    group's rows in one kernel (``_RingSlots``: pushed over NVLink behind a
+    flag wait in the kernel across cards, a host barrier on one card; a
+    wait that fails, here or in a peer, makes the search raise at its
+    end), and
     "fused" needs
     no exchange: the table entry reads each query's row from the shard
     that owns it, through the peer map, on whichever card it lies.  Every
@@ -734,18 +772,20 @@ def make_sharded_exact_search(
                     (sh.C[c.long()] + occ[m, :Bc], sh.C[c.long()] + occ[m, Bc:])
                     for m, c in enumerate(cs)
                 ]
+            elif isinstance(step_merge, _RingSlots):
+                # the held shards' partial straight into this process's row
+                news = [step_merge.step(own, c, *state[m]) for m, c in enumerate(cs)]
             else:
                 # the psum across processes sums the held partials first:
-                # one table-entry launch gives them (the ring's slots take
-                # each held shard's partial)
-                step = held_step if group is not None and merge == "psum" else backward_step
+                # one table-entry launch gives them
+                step = held_step if group is not None else backward_step
                 news = [step(own, c, *state[m], step_merge) for m, c in enumerate(cs)]
             state = [
                 (torch.where(a, nlo, lo), torch.where(a, nhi, hi))
                 for a, (nlo, nhi), (lo, hi) in zip(actives, news, state)
             ]
         if isinstance(step_merge, _RingSlots):
-            peer.release(group, step_merge.close)
+            peer.release(group, step_merge.close, collect=False)
             step_merge.check()
         lo = torch.cat([s[0] for s in state])
         hi = torch.cat([s[1] for s in state])

@@ -1348,6 +1348,7 @@ def test_two_processes_map_each_others_shards_on_the_card(cuda, tmp_path):
         facts = json.loads((tmp_path / f"cuda.sam.{pid}.json").read_text())
         assert facts["locate_equal"] and facts["locate_launches"] == 1
         assert facts["seen"] == [True] * 4
+        assert facts["ring"]["inbox"][0] == 2 and facts["ring"]["bad"] == 0, facts["ring"]
         assert all(here * 2 == stacked for here, stacked in facts["bytes"].values())
         got, want = (np.load(tmp_path / f"{d}.sam.{pid}.npz") for d in ("cuda", "cpu"))
         assert all(np.array_equal(got[key], want[key]) for key in want.files)
@@ -1447,6 +1448,7 @@ def test_two_ranks_on_two_cards_map_each_others_shards(tmp_path):
         routes = facts["routes"]
         assert routes["psum nccl"] > 0 and routes["psum gloo"] == 0, routes
         assert routes["ring flag wait"] > 0 and routes["ring host barrier"] == 0, routes
+        assert facts["ring"]["inbox"][0] == 2 and facts["ring"]["bad"] == 0, facts["ring"]
         assert facts["seen"] == [True] * 4
         got, want = (np.load(tmp_path / f"{d}.sam.{pid}.npz") for d in ("cuda", "cpu"))
         assert all(np.array_equal(got[key], want[key]) for key in want.files)
@@ -1487,12 +1489,14 @@ def test_two_hosts_on_two_cards_merge_by_collectives(tmp_path):
 
 @pytest.mark.parametrize("N", [2, 4])
 def test_flag_wait_ring_equals_plain_across_cards(tmp_path, N):
-    """N processes, one a card, each slot and flag word mapped by the others
-    (CUDA IPC opened on each process's card): the flag-wait sum equals the
-    plain ring sum on every element, int32 and float32, merge after merge.
-    Then process 0 times out at an epoch no peer has reached and runs two
-    more merges; every peer, arriving after that, fails at once on the
-    poison, and every process raises."""
+    """N processes, one a card, each inbox and flag word mapped by the
+    others (CUDA IPC opened on each process's card): the flag-wait sum
+    equals the plain ring sum of the processes' partials on every element,
+    int32 and float32, merge after merge, and every process's row arrives
+    in every inbox.  Then process 0 times out at an epoch no peer has
+    reached and runs two more merges; every peer, arriving after that,
+    fails at once on the poison, every flag word a peer holds of a failed
+    process is poisoned, and every process raises."""
     import json
 
     import torch_multihost_driver as drv
@@ -1502,7 +1506,8 @@ def test_flag_wait_ring_equals_plain_across_cards(tmp_path, N):
     for pid in range(N):
         facts = json.loads((tmp_path / f"fw.{pid}.json").read_text())
         assert facts["card"] == pid and facts["cards"] == list(range(N))
-        assert facts["equal"] == [True] * 3 and facts["launches"] == 3
+        assert facts["equal"] == [True] * 4 and facts["pushed"] == [True] * 4
+        assert facts["launches"] == 4
         assert facts["error"] == 0
         assert facts["raised"], facts
         assert facts["poisoned"] == [q != pid for q in range(N)], facts
@@ -1510,38 +1515,112 @@ def test_flag_wait_ring_equals_plain_across_cards(tmp_path, N):
 
 
 def test_flag_wait_times_out_and_raises(cuda):
-    """Two ranks' flag words on one card, launched from this process: rank 0
-    waits for an epoch rank 1 never publishes, gives up after the timeout,
-    sets its error word and poisons rank 1's word; its later merges do not
-    wait and publish the poison, never their epochs.  Rank 1, arriving late
-    at that epoch, fails at once.  ``check_flag_wait`` raises for both."""
+    """Two ranks' inboxes and flag words on one card, launched from this
+    process: rank 0 waits for an epoch rank 1 never publishes, gives up
+    after the timeout, sets its error word and poisons every word it holds
+    in rank 1's flags; its later merges do not wait and publish the
+    poison, never their epochs.  Rank 1, arriving late at that epoch,
+    fails at once.  ``check_flag_wait`` raises for both."""
     import time
 
-    flags = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2)]
+    W = ring_cuda.WAIT_BLOCKS
+    flags = [torch.zeros((2, W), dtype=torch.int32, device=cuda) for _ in range(2)]
     errors = [torch.zeros(1, dtype=torch.int32, device=cuda) for _ in range(2)]
-    slots = [torch.ones(1024, dtype=torch.int32, device=cuda) for _ in range(2)]
+    inboxes = [torch.ones((2, 1024), dtype=torch.int32, device=cuda) for _ in range(2)]
     t0 = time.perf_counter()
-    ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, 1, errors[0], timeout_s=0.05)
+    ring_cuda.ring_allreduce_wait_cuda(inboxes, flags, 0, 1, errors[0], timeout_s=0.05)
     with pytest.raises(RuntimeError, match="flag wait"):
         ring_cuda.check_flag_wait(errors[0])
     assert 0.05 <= time.perf_counter() - t0 < 10
-    assert int(flags[1][0]) == ring_cuda.POISON
+    assert bool((flags[1][0] == ring_cuda.POISON).all())
     t0 = time.perf_counter()
     for epoch in (2, 3):
-        ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, epoch, errors[0], timeout_s=5.0)
+        ring_cuda.ring_allreduce_wait_cuda(inboxes, flags, 0, epoch, errors[0], timeout_s=5.0)
     torch.cuda.synchronize(cuda)
     assert time.perf_counter() - t0 < 1.0  # the error word set: no wait
-    assert int(flags[1][0]) == ring_cuda.POISON  # the poison, never a later epoch
+    assert bool((flags[1][0] == ring_cuda.POISON).all())  # the poison, never a later epoch
     t0 = time.perf_counter()
-    out = ring_cuda.ring_allreduce_wait_cuda(slots, 1, flags, 1, 1, errors[1], timeout_s=5.0)
+    out = ring_cuda.ring_allreduce_wait_cuda(inboxes, flags, 1, 1, errors[1], timeout_s=5.0)
     torch.cuda.synchronize(cuda)
     assert time.perf_counter() - t0 < 1.0  # failed on the poison, not on the timeout
     assert out.shape == (1024,)
     with pytest.raises(RuntimeError, match="flag wait"):
         ring_cuda.check_flag_wait(errors[1])
-    assert int(flags[0][1]) == ring_cuda.POISON
+    assert bool((flags[0][1] == ring_cuda.POISON).all())
     with pytest.raises(ValueError, match="epoch"):
-        ring_cuda.ring_allreduce_wait_cuda(slots, 0, flags, 0, ring_cuda.POISON, errors[0])
+        ring_cuda.ring_allreduce_wait_cuda(inboxes, flags, 0, ring_cuda.POISON, errors[0])
+
+
+def _load_publisher(side) -> None:
+    """Run the emulated peer's kernels (a device sleep, a one-word fill at
+    every alignment: torch picks the fill kernel by the address) once on
+    ``side`` before any wait: CUDA loads a kernel lazily at its first
+    launch, and a load while a kernel spins on the card waits for that
+    kernel."""
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1)
+        words = torch.zeros(8, dtype=torch.int32, device=side.device)
+        for i in range(4):
+            words[i].fill_(1)
+    side.synchronize()
+
+
+def _block_of(n: int, G: int, device) -> torch.Tensor:
+    """The block of a flag-wait grid of G blocks that sums each of n
+    elements: item i (a 16-byte vector where n % 4 == 0, else an element)
+    goes to block (i // 256) % G."""
+    e = torch.arange(n, device=device)
+    return ((e // 4 if n % 4 == 0 else e) // 256) % G
+
+
+@pytest.mark.parametrize("dtype, n", [(torch.int32, 65_536), (torch.float32, 65_536),
+                                      (torch.int32, 262_148), (torch.float32, 4_099)])
+def test_flag_wait_blocks_wait_for_their_own_flags(cuda, dtype, n):
+    """One card, rank 0 of 2 with its peer emulated: the peer's row lies in
+    rank 0's inbox before the launch, and while the kernel waits a second
+    stream publishes the peer's flag words one block at a time, in reverse
+    order.  Every block's chunk equals the plain ring sum, rank 0's row
+    lands in the peer's inbox and its epoch in each of the grid's words.
+    Then with one block's word never published, that block times out,
+    sets the error word and poisons every word rank 0 holds in the peer's
+    flags, while every other block's chunk is still the plain sum."""
+    W = ring_cuda.WAIT_BLOCKS
+    G = ring_cuda.wait_blocks(n)
+    items = n // 4 if n % 4 == 0 else n
+    assert G == min(-(-items // 256), W)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.randint(-(1 << 30), 1 << 30, (2, n), generator=gen, device=cuda,
+                       dtype=torch.int32) if dtype == torch.int32
+         else torch.randn((2, n), generator=gen, device=cuda) * 1e4)
+    want = ring.ring_psum_plain(x)[0]
+    block = _block_of(n, G, cuda)
+    main, side = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    _load_publisher(side)
+    for never in (None, G // 2):
+        mine = x.clone()  # rank 0's inbox: its row, and the peer's row already pushed
+        theirs = torch.zeros_like(x)
+        flags = [torch.zeros((2, W), dtype=torch.int32, device=cuda) for _ in range(2)]
+        error = torch.zeros(1, dtype=torch.int32, device=cuda)
+        torch.cuda.synchronize(cuda)
+        with torch.cuda.stream(main):
+            wait = ring_cuda.FlagWait([[mine, theirs]], flags, 0, error,
+                                      timeout_s=5.0 if never is None else 0.2)
+            out = wait(0, 1)
+        with torch.cuda.stream(side):
+            for b in reversed(range(G)):
+                torch.cuda._sleep(20_000)
+                if b != never:
+                    flags[0][1, b].fill_(1)
+        torch.cuda.synchronize(cuda)
+        ok = block != never if never is not None else torch.ones_like(block, dtype=torch.bool)
+        assert torch.equal(out[ok], want[ok]), never
+        assert torch.equal(theirs[0], x[0]), never
+        if never is None:
+            assert int(error) == 0 and bool((flags[1][0, :G] == 1).all())
+        else:
+            assert int(error) == 1 and bool((flags[1][0] == ring_cuda.POISON).all())
+            with pytest.raises(RuntimeError, match="flag wait"):
+                ring_cuda.check_flag_wait(error)
 
 
 def test_wrappers_raise_on_a_shard_on_another_card():

@@ -448,6 +448,64 @@ def test_bindings_refuse_what_the_kernels_cannot_take(genome):
             call()
 
 
+def _flag_wait_case(case: str):
+    """One refusal of the flag-wait binding (CPU tensors: each check comes
+    before the device's) -> (call, match)."""
+    from genome_weaver_align_tpu_torch.ops import ring_cuda
+
+    P, n, W = 2, 8, ring_cuda.WAIT_BLOCKS
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype)
+
+    inboxes = [zeros(P, 2, n) for _ in range(P)]
+    flags = [zeros(P, W) for _ in range(P)]
+    err = zeros(1)
+    wait = ring_cuda.ring_allreduce_wait_cuda
+    misaligned = zeros(P * 2 * n + 1)[1:].view(P, 2, n)
+    return {
+        "rank past the ranks": (lambda: wait(inboxes, flags, P, 1, err), f"rank {P} of {P}"),
+        "negative rank": (lambda: wait(inboxes, flags, -1, 1, err), f"rank -1 of {P}"),
+        "17 ranks": (lambda: wait([zeros(17, 4)] * 17, [zeros(17, W)] * 17, 0, 1, err),
+                     "rank 0 of 17"),
+        "epoch 0": (lambda: wait(inboxes, flags, 0, 0, err), "epoch 0"),
+        "epoch at the poison": (lambda: wait(inboxes, flags, 0, ring_cuda.POISON, err),
+                                f"epoch {ring_cuda.POISON}"),
+        "an inbox of other ranks": (lambda: wait([zeros(3, 2, n)] * P, flags, 0, 1, err),
+                                    r"\(2, \.\.\.\)"),
+        "inboxes of two shapes": (lambda: wait([inboxes[0], zeros(P, 2, n + 4)], flags, 0, 1,
+                                               err), "inboxes of shape"),
+        "one inbox short": (lambda: wait(inboxes[:1], flags, 0, 1, err), "inboxes of shape"),
+        "flags of another width": (lambda: wait(inboxes, [zeros(P, W // 2)] * P, 0, 1, err),
+                                   f"\\({P}, {W}\\) int32"),
+        "two error words": (lambda: wait(inboxes, flags, 0, 1, zeros(2)), "error word"),
+        "int64 inboxes": (lambda: wait([zeros(P, 2, n, dtype=torch.int64)] * P, flags, 0, 1,
+                                       err), "int32 or float32"),
+        "a strided inbox": (lambda: wait([zeros(P, 2, 2 * n)[:, :, ::2]] * P, flags, 0, 1,
+                                         err), "contiguous"),
+        "a misaligned inbox": (lambda: wait([inboxes[0], misaligned], flags, 0, 1, err),
+                               "16-byte aligned"),
+        "CPU tensors": (lambda: wait(inboxes, flags, 0, 1, err), "CUDA device"),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "rank past the ranks", "negative rank", "17 ranks", "epoch 0", "epoch at the poison",
+    "an inbox of other ranks", "inboxes of two shapes", "one inbox short",
+    "flags of another width", "two error words", "int64 inboxes", "a strided inbox",
+    "a misaligned inbox", "CPU tensors"])
+def test_flag_wait_binding_refuses_what_the_kernel_cannot_take(case):
+    """The ring merge's flag-wait binding (``ring_cuda.FlagWait``, one
+    merge by ``ring_allreduce_wait_cuda``) refuses, before any launch,
+    what its kernel cannot take: a rank or an epoch out of range, inboxes
+    that are not one ``(ranks, ...)`` tensor a rank, flag words that are
+    not ``(ranks, WAIT_BLOCKS)``, another type, a strided or misaligned
+    tensor, a tensor off the card."""
+    call, match = _flag_wait_case(case)
+    with pytest.raises((ValueError, TypeError), match=match):
+        call()
+
+
 @pytest.mark.parametrize("groups, least, most, want", [
     (0, 1, 16, 16), (100, 1, 16, 16), (150, 1, 16, 8), (400, 1, 16, 4), (3_200, 1, 16, 1),
     (1_000, 2, 32, 2), (40, 2, 32, 32)])

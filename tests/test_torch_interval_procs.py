@@ -10,7 +10,9 @@ group, one shard a process).
   and fused merges, equals the JAX ``make_sharded_exact_search`` on a
   (1, S) mesh of the CPU's virtual devices (the ring and fused merges in
   interpret mode, as ``tests/test_ring.py`` runs them) on the rows of its
-  interval group's slice of the batch;
+  interval group's slice of the batch, and in one process (g = 1);
+- the ring merge across processes writes one ``(2, Bc)`` inbox row a
+  member, the held shards' partial;
 - the ``ShardedAligner`` SAM from P processes equals the 1-process SAM and
   the JAX package's (``tests/multihost_driver.py``) byte for byte, but
   ``@PG``;
@@ -138,6 +140,59 @@ def test_each_process_holds_only_its_own_shards(procs):
         for table, (here, stacked) in facts["bytes"].items():
             assert here * g == stacked, table
         assert facts["seen"] == [True] * S
+
+
+def test_ring_route_writes_one_row_a_rank(procs):
+    """Across processes the ring merge's inbox is one ``(2, Bc)`` row a
+    member of the interval group, and after every chunk-step this
+    process's row holds its held shards' lo and hi partials (the exact
+    search's equality with JAX is ``test_exact_search_across_processes_
+    equals_jax``)."""
+    P, S, d = procs
+    g = SPAN[P, S]
+    for pid in range(P):
+        facts = json.loads((d / f"out.sam.{pid}.json").read_text())
+        first, stop = facts["rows"]
+        ring = facts["ring"]
+        assert ring["inbox"] == [g, 2, (stop - first) // 2], ring  # microbatch 2
+        assert ring["steps"] == 2 * EXACT_L and ring["bad"] == 0, ring
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_ring_route_in_one_process(S):
+    """g = 1: one process holds every shard.  The search's ring merge (the
+    stacked ``ring_merge``) equals the JAX search and the stacked psum
+    search, and ``_RingSlots`` over a group of one writes one ``(2, Bc)``
+    row, the held shards' partial, and returns ``backward_step``'s
+    values."""
+    from genome_weaver_align_tpu_torch.index.build import build_fm_index as p_build
+    from genome_weaver_align_tpu_torch.parallel import sharded_index as si
+
+    g = sharded_genome()
+    sh = si.put_sharded(si.shard_fm_index(p_build(g, sample_rate=16), S), "cpu")
+    layout = pmesh.make_layout(1, S, "cpu")
+    reads, lengths = exact_search_reads(g)
+    r, ln, _ = pmesh.shard_reads(layout, reads, lengths)
+    got = si.make_sharded_exact_search(layout, EXACT_L, sh, merge="ring", microbatch=2)(sh, r, ln)
+    psum = si.make_sharded_exact_search(layout, EXACT_L, sh, merge="psum")(sh, r, ln)
+    for a, b, w in zip(got, psum, _jax_exact(S, "ring")):
+        assert np.array_equal(a.numpy(), w) and torch.equal(a, b)
+    Bc = r.shape[0] // 2
+    slots = si._RingSlots(layout, None, (2, Bc), "cpu", apart=False)
+    assert [tuple(box[0].shape) for box in slots.inboxes] == [(1, 2, Bc)] * 2
+    lo = torch.zeros(Bc, dtype=torch.int32)
+    hi = torch.full((Bc,), sh.n + 1, dtype=torch.int32)
+    before = si.CROSS_MERGES["ring host barrier"]
+    for t in range(6):
+        c = r[:Bc, t]
+        want = si.backward_step(sh, c, lo, hi)
+        nlo, nhi = slots.step(sh, c, lo, hi)
+        row = slots.inboxes[t % 2][0][0]
+        assert torch.equal(row, torch.stack([si.local_occ_codes(sh, c, k).sum(0, dtype=torch.int32)
+                                             for k in (lo, hi)]))
+        assert torch.equal(nlo, want[0]) and torch.equal(nhi, want[1])
+        lo, hi = nlo, nhi
+    assert si.CROSS_MERGES["ring host barrier"] == before + 6
 
 
 @pytest.mark.parametrize("procs_, shards", [(2, 3), (4, 3), (4, 6), (3, 4)])

@@ -32,9 +32,11 @@ members, the rows of the batch its group searched, its card and the card
 of each shard, the aligners' merges and the exact search's by route, each
 sharded table's bytes here against the stacked table's and whether it is
 a plain tensor, whether text shards were made, on the card the launches
-of the banded DP's two entries and the fused table entry, and what this
-process reads through its map of every shard after each process has
-changed a word of its own shards (the mapped peers are not copies).
+of the banded DP's two entries and the fused table entry, the ring
+merge's inbox shape, chunk-steps and the elements of its row that differ
+from the held shards' partials, and what this process reads through its
+map of every shard after each process has changed a word of its own
+shards (the mapped peers are not copies).
 Where an interval group spans hosts (start the processes with their own
 ``GROUP_RANK``, ``launch(..., nodes=...)``), the collective route:
 ``parallel.peer.share`` is replaced by a function that raises, the
@@ -42,13 +44,16 @@ exact search runs under psum alone, and the errors that the ring and
 fused merges raise are recorded.
 
 mode "flagwait" (the card only, a card a process): the ring merge's
-flag-wait entry over every process's slot and flag words, mapped through
-``parallel.peer``: three merges (int32 65,536 and 7, float32 4,099), each
-against ``ring_psum_plain`` of every process's slot; then process 0 waits
-for an epoch no other process has reached, times out and runs two more
-merges, and the others, arriving after that, must fail at once.
-``<out.sam>.<pid>.json``: the cards, the merges' equality, the launches,
-the seconds each failure took and whether ``check_flag_wait`` raised.
+flag-wait entry over every process's inbox and flag words, mapped through
+``parallel.peer``: four merges (int32 65,536 and 7, float32 4,099 and
+65,536), each process's partial in its row of its own inbox, each merge
+against ``ring_psum_plain`` of every process's partial, and each inbox
+holding every process's row after it (the pushes landed); then process 0
+waits for an epoch no other process has reached, times out and runs two
+more merges, and the others, arriving after that, must fail at once.
+``<out.sam>.<pid>.json``: the cards, the merges' equality, the pushes,
+the launches, the seconds each failure took, which peers poisoned every
+flag word of this process and whether ``check_flag_wait`` raised.
 
 The device defaults to cuda (process p on ``cuda:p % device_count``).
 """
@@ -293,6 +298,22 @@ def interval_main(pid, out, device, n_interval):
     for key in si.CROSS_MERGES:
         si.CROSS_MERGES[key] = 0
     res = {}
+    # the ring merge's inbox rows: after each chunk-step this process's row
+    # must hold its held shards' lo and hi partials
+    facts["ring"] = {"inbox": None, "steps": 0, "bad": 0}
+    ring_step = si._RingSlots.step
+
+    def checked_step(slots, own, codes, lo, hi):
+        got = ring_step(slots, own, codes, lo, hi)
+        row = slots.inboxes[(slots.turn - 1) % 2][slots.me][slots.me]
+        want = torch.stack([si.local_occ_codes(own, codes, k).sum(0, dtype=torch.int32)
+                            for k in (lo, hi)])
+        facts["ring"]["inbox"] = list(slots.inboxes[0][slots.me].shape)
+        facts["ring"]["steps"] += 1
+        facts["ring"]["bad"] += int((row.cpu() != want.cpu()).sum())
+        return got
+
+    si._RingSlots.step = checked_step
     for merge in ("psum", "ring", "fused"):
         if lay.collective and merge != "psum":  # they read the other members' memory
             try:
@@ -303,6 +324,7 @@ def interval_main(pid, out, device, n_interval):
         fn = si.make_sharded_exact_search(layout, EXACT_L, al.sh, merge=merge, microbatch=2)
         for key, v in zip(("lo", "hi", "pos"), fn(al.sh, r, ln)):
             res[f"{merge}_{key}"] = v.cpu().numpy()
+    si._RingSlots.step = ring_step
     np.savez(f"{out}.{pid}.npz", **res)
     facts["routes"] = dict(si.CROSS_MERGES)  # the exact search's merges, by route
 
@@ -378,45 +400,54 @@ def flagwait_main(pid, nprocs, out, device):
     from genome_weaver_align_tpu_torch.parallel import peer, ring
 
     group = mh.interval_group(nprocs)
-    mapped = {"flags": peer.share(torch.zeros(nprocs, dtype=torch.int32, device=device), group)}
+
+    def flag_words():
+        return peer.share(torch.zeros((nprocs, ring_cuda.WAIT_BLOCKS), dtype=torch.int32,
+                                      device=device), group)
+
+    mapped = {"flags": flag_words()}
     error = torch.zeros(1, dtype=torch.int32, device=device)
-    rng = np.random.default_rng(7)  # every process draws every process's slot
-    facts = {"card": device.index, "cards": list(mapped["flags"].cards), "equal": []}
+    rng = np.random.default_rng(7)  # every process draws every process's partial
+    facts = {"card": device.index, "cards": list(mapped["flags"].cards), "equal": [],
+             "pushed": []}
     before = ring_cuda.ring_allreduce_wait_cuda.launches
-    for epoch, (dtype, n) in enumerate([(np.int32, 65_536), (np.int32, 7),
-                                        (np.float32, 4099)], start=1):
+    for epoch, (dtype, n) in enumerate([(np.int32, 65_536), (np.int32, 7), (np.float32, 4099),
+                                        (np.float32, 65_536)], start=1):
         x = torch.from_numpy(
             rng.integers(-(1 << 30), 1 << 30, size=(nprocs, n)).astype(np.int32)
             if dtype == np.int32 else (rng.standard_normal((nprocs, n)) * 1e4).astype(dtype))
-        mapped["slots"] = peer.share(x[pid].to(device), group)
-        got = ring_cuda.ring_allreduce_wait_cuda(mapped["slots"], pid, mapped["flags"], pid,
-                                                 epoch, error)
+        own = torch.zeros_like(x, device=device)
+        own[pid] = x[pid].to(device)  # this process's partial: its row of its inbox
+        mapped["inboxes"] = peer.share(own, group)
+        got = ring_cuda.ring_allreduce_wait_cuda(mapped["inboxes"], mapped["flags"], pid, epoch,
+                                                 error)
         facts["equal"].append(bool(torch.equal(got.cpu(), ring.ring_psum_plain(x)[pid])))
-        peer.release(group, lambda: mapped.pop("slots"))
+        facts["pushed"].append(bool(torch.equal(own.cpu(), x)))  # every peer's row arrived
+        peer.release(group, lambda: mapped.pop("inboxes"))
     facts["launches"] = ring_cuda.ring_allreduce_wait_cuda.launches - before
     facts["error"] = int(error.item())
     peer.release(group, mapped.clear)
 
     # process 0 times out at epoch 1 and runs on; the others arrive late
-    flags = peer.share(torch.zeros(nprocs, dtype=torch.int32, device=device), group)
-    mapped.update(flags=flags, slots=peer.share(torch.ones(1024, dtype=torch.int32,
-                                                           device=device), group))
+    flags = flag_words()
+    mapped.update(flags=flags, inboxes=peer.share(torch.ones((nprocs, 1024), dtype=torch.int32,
+                                                             device=device), group))
     error = torch.zeros(1, dtype=torch.int32, device=device)
     t0 = time.perf_counter()
     if pid == 0:
         for epoch, timeout_s in ((1, 0.5), (2, 30.0), (3, 30.0)):
-            ring_cuda.ring_allreduce_wait_cuda(mapped["slots"], 0, flags, 0, epoch, error,
+            ring_cuda.ring_allreduce_wait_cuda(mapped["inboxes"], flags, 0, epoch, error,
                                                timeout_s=timeout_s)
         torch.cuda.synchronize(device)
     peer.barrier(group)
     if pid != 0:
         t0 = time.perf_counter()
-        ring_cuda.ring_allreduce_wait_cuda(mapped["slots"], pid, flags, pid, 1, error,
+        ring_cuda.ring_allreduce_wait_cuda(mapped["inboxes"], flags, pid, 1, error,
                                            timeout_s=30.0)
         torch.cuda.synchronize(device)
     facts["failure_s"] = time.perf_counter() - t0
     peer.barrier(group)  # every process's failure is published
-    facts["poisoned"] = [int(v) == ring_cuda.POISON for v in flags[pid].cpu()]
+    facts["poisoned"] = [bool((row == ring_cuda.POISON).all()) for row in flags[pid].cpu()]
     try:
         ring_cuda.check_flag_wait(error)
         facts["raised"] = False
