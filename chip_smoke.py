@@ -24,7 +24,14 @@ per line, and exits non-zero at the first phase that fails:
    verify's shape (8,192 lanes of 128 bases, W = 176, k = 16); the SASS of
    the text kernel's unrolled row loop is counted per band cell
    (``cuobjdump``), and ptxas's registers and spills at k = 14 and 16 are
-   printed;
+   printed.  Past the one-thread kernel: both entries against plain on
+   every lane at the segment shape (8,192 lanes of 128 bases) for k = 17,
+   24, 32, 48 and 64 (a group of threads a lane), at k = 130 (a warp a lane
+   over scratch, 1,024 lanes) and at k = 2 on 4,096 reads of 1,816, 2,000
+   and 4,096 bases (fewer staged rows a block, then rows from global
+   memory), the text entry timed beside its plain version and its bound
+   (4 (4k+1) integer instructions a live row and lane), and the new
+   kernels' registers and spills;
 3. one fused align step on a 65,536-read batch, with the kernel and with
    the plain DP, both on the card: the packed results must be identical;
 4. end to end through the port's CLI on a chr20-scale random genome
@@ -51,7 +58,11 @@ per line, and exits non-zero at the first phase that fails:
    replaces (``gather_windows`` + ``where`` + ``contiguous`` + the windows
    entry), the windows entry and the plain versions are timed, and the
    text kernel's dependent chain a window column is counted from its SASS
-   (the latency floor);
+   (the latency floor).  Past 8 words (a group of threads a lane): both
+   entries at L = 257, 300, 512, 1,000 and 2,048 (2,048 lanes, W = L +
+   400), and at 520 words on 256 lanes of 300 bases (a warp a lane over
+   scratch), each timed with its bound ((11 nwords + 5) integer
+   instructions a lane-step), the group kernels' registers and spills;
 7. the FM pigeonhole path end to end: the CLI's ``align -k 2`` without a
    seed table on the same index, 2 x 65,536 reads; >= 99% mapped and
    correct, banded-DP kernel, the backward-search kernel (the pieces'
@@ -62,7 +73,12 @@ per line, and exits non-zero at the first phase that fails:
    bar); >= 90% proper pairs and the Myers kernel launched; then the same
    pairs through ``PairedAligner.align_pair_arrays`` (inserts 200-600):
    pairs/s, the phase split, and >= 5% of pairs rescued; the rescue must
-   reach the Myers text entry and never the windows entry;
+   reach the Myers text entry and never the windows entry.  Then
+   MiSeq-style pairs: the CLI on 2 x 8,192 pairs of 300 bp (inserts
+   450-750, 10% of mate2 with 8 more substitutions: within the rescue bar
+   15), exit 0, >= 90% proper, >= 5% rescued, the Myers text entry's group
+   kernel launched at 10 words, and the first rescue call's lanes equal to
+   the plain version;
 9. the shard-sum kernels (``csrc/ring.cu``, built in phase 2) held against
    their plain torch versions on every element: the one-pass
    ``ring_psum`` over S = 1, 2, 3, 4, 8, 16 shards (int32 at 3, 777,
@@ -121,7 +137,9 @@ per line, and exits non-zero at the first phase that fails:
    4 hits a segment, 4 probes, band 48, kb = 16) without and then with
    traceback: reads/s of each, >= 99% mapped, >= 99% at their locus (same
    strand, within band + kb), >= 99% at their exact start after traceback
-   (+-4), the banded text entry launched; then ``align --mode long``
+   (+-4), the banded text entry launched; the same reads at kb = 24 (the
+   banded group kernel, launched) without traceback, >= 99% mapped and at
+   their locus; then ``align --mode long``
    through the CLI on the same 1,024 reads: >= 99% mapped, every mapped
    record tagged ``XT:A:L``;
 15. multi-part streaming with the JAX package's gbp bench traffic
@@ -334,6 +352,18 @@ MODE_READS = 16_384
 LONG_B, LONG_L, LONG_BATCHES, LONG_SEED = 256, 4096, 4, 31
 LONG_SEG, LONG_KB, LONG_BAND = 128, 16, 48  # LongReadAligner's defaults
 MIN_EXACT_POS = 0.99
+# the verify kernels past their one-thread designs: segment bands past 16
+# (a group of threads a lane), a band for the scratch kernel, reads past
+# the 1,815 bases of which 128 rows fill a block's shared memory ([2], [14]);
+# Myers reads past 8 words, and the scratch kernel's words ([6], [8])
+WIDE_KS = (17, 24, 32, 48, 64)
+WIDE_LONG_KB = 24  # [14]'s second aligner
+SCRATCH_K, SCRATCH_K_LANES = 130, 1_024
+LONG_ROWS, LONG_ROW_LANES = (1_816, 2_000, 4_096), 4_096
+WIDE_MYERS_L = (257, 300, 512, 1_000, 2_048)
+SCRATCH_WORDS, SCRATCH_MYERS_LANES, SCRATCH_MYERS_L = 520, 256, 300
+PAIR300_L, PAIR300_BATCH, PAIR300_BATCHES = 300, 8_192, 2
+PAIR300_INSERTS, PAIR300_FAR_SUBS = (450, 750), 8  # rescue bar max(k, 300 // 20) = 15
 # phase 15: the JAX package's gbp bench traffic (bench.py bench_gbp)
 GBP_BATCH, GBP_BATCHES, GBP_L, GBP_SEED = 8_192, 16, 150, 29
 # phase 16: several processes on one card (BASELINE config 5's stream)
@@ -392,6 +422,11 @@ CYCLES_PER_LINK = 4
 DP_OPS_PER_CELL = 4
 MYERS_OPS_PER_WORD, MYERS_OPS_PER_STEP = 11, 5
 RANK_OPS_PER_WORD = 7
+
+
+# the wall of the checks past the verify kernels' one-thread designs, by
+# phase ([2], [6], [8], [14]); main() prints their sum
+WIDE_WALL_S: dict[str, float] = {}
 
 
 class SmokeFailure(Exception):
@@ -575,16 +610,18 @@ def sass_per_cell(lib, tag: str) -> str:
     return f"no kernel named *{tag}* in {lib._name}"
 
 
-def ptxas_usage(source: str, tag: str) -> str:
+def ptxas_usage(source: str, tag) -> str:
     """Registers and spills that ptxas reported for the kernel of
-    ``csrc/<source>`` whose mangled name holds ``tag``."""
+    ``csrc/<source>`` whose mangled name holds ``tag`` (or every string of
+    a tuple of tags)."""
     import re
 
     from genome_weaver_align_tpu_torch.ops._cuda_build import ptxas_report
 
+    tags = (tag,) if isinstance(tag, str) else tuple(tag)
     for part in ptxas_report(source).split("Compiling entry function '")[1:]:
         name, _, rest = part.partition("'")
-        if tag not in name:
+        if not all(t in name for t in tags):
             continue
         regs = re.search(r"Used (\d+) registers", rest)
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
@@ -627,7 +664,7 @@ def phase_kernel(torch, dev, card):
     Q = BATCH * VERIFY_SLACK
     max_err = 0
     timing = None
-    for k in (1, 2, 3, 4, *range(9, dp_cuda.MAX_K + 1)):
+    for k in (1, 2, 3, 4, *range(9, dp_cuda.REGISTER_K + 1)):
         # the main-path window width, then a narrow one whose long reads
         # cannot reach the window end (dead lanes: dist saturates at INF)
         for W in (L + 3 * k, L // 2):
@@ -648,8 +685,8 @@ def phase_kernel(torch, dev, card):
     codes, words = random_text(torch, dev, GENOME_LEN, seed=3)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    for k in range(1, dp_cuda.MAX_K + 1):
-        for W in ((L + 3 * k, L // 2) if k in (1, 2, 8, dp_cuda.MAX_K) else (L + 3 * k,)):
+    for k in range(1, dp_cuda.REGISTER_K + 1):
+        for W in ((L + 3 * k, L // 2) if k in (1, 2, 8, dp_cuda.REGISTER_K) else (L + 3 * k,)):
             starts, reads, lengths, rid = text_lanes(torch, codes, k, W, gen)
             args = (words, GENOME_LEN, starts, reads, lengths, rid, k, W)
             d_kern, e_kern = dp_cuda.banded_edit_distance_text_cuda(*args)
@@ -707,26 +744,21 @@ def phase_kernel(torch, dev, card):
                 del wins, r, ln
     timing["text_long"] = long_segment_timing(torch, dev, codes, words, gen, card)
     log(f"[2] SASS: {sass_per_cell(dp_cuda._library(), f'banded_dp_kernelILi{K}ELb1E')}")
-    for k in (14, dp_cuda.MAX_K):  # the short-read aligners' top k, the kernel's
+    for k in (14, dp_cuda.REGISTER_K):  # the short-read aligners' top k, one thread's top
         for entry, flag in (("text", 1), ("windows", 0)):
             tag = f"banded_dp_kernelILi{k}ELb{flag}E"
             log(f"[2] ptxas, {entry} entry at k={k}: {ptxas_usage('banded_dp.cu', tag)}")
-    return max_err, timing
+    wide_err, timing["wide"] = wide_band_checks(torch, dev, codes, words, gen, card)
+    return max(max_err, wide_err), timing
 
 
-def long_segment_timing(torch, dev, codes, words, gen, card):
-    """The text entry at the long-read segment verify's shape: LONG_B
-    reads of LONG_L bases in LONG_SEG-base segments (Q = 8,192 lanes a
-    strand), kb = 16, W = LONG_SEG + 3 kb, each lane its own segment
-    (rid = arange(Q)), the window starting at the segment's diagonal.
-    Segments copied from the text with 1% substitutions and a one-base
-    indel in a quarter of them; 5% ragged (a read's tail segment).  Held
-    against the plain version on every lane and timed.  -> (kernel ms,
-    plain ms, bound ms, bound by)."""
-    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda
-
-    k, Lseg = LONG_KB, LONG_SEG
-    Q, W = LONG_B * (LONG_L // Lseg), Lseg + 3 * k
+def segment_lanes(torch, dev, codes, gen, k: int, Q: int, Lseg: int):
+    """Lanes like the long-read segment verify's: Q segments of Lseg bases,
+    each its own lane (rid = arange(Q)), the window of Lseg + 3k starting
+    at the segment's diagonal.  Segments copied from the text with 1%
+    substitutions and a one-base indel in a quarter of them; 5% ragged (a
+    read's tail segment).  -> (starts, reads, lengths, rid, W)."""
+    W = Lseg + 3 * k
     n = codes.numel()
     locus = torch.randint(0, n - W - 2, (Q,), generator=gen, device=dev)
     cols = torch.arange(Lseg, device=dev)[None, :].expand(Q, Lseg)
@@ -740,8 +772,34 @@ def long_segment_timing(torch, dev, codes, words, gen, card):
     tail = torch.rand(Q, generator=gen, device=dev) < 0.05
     lengths[tail] = torch.randint(0, Lseg, (int(tail.sum()),), generator=gen, device=dev,
                                   dtype=torch.int32)
-    starts = locus.to(torch.int32)
     rid = torch.arange(Q, dtype=torch.int32, device=dev)
+    return locus.to(torch.int32), reads, lengths, rid, W
+
+
+def segment_bound(torch, words, starts, reads, lengths, W: int, k: int) -> tuple[float, str]:
+    """The text entry's bound on segment lanes: reads, lengths, rid, starts
+    and the text words the windows cover in, dist and end_b out;
+    DP_OPS_PER_CELL a band cell of every live row."""
+    Q = starts.numel()
+    w0 = (starts >> 4).long()[:, None] + torch.arange(W // 16 + 2, device=starts.device)
+    n_words = int(torch.unique(w0.clamp(0, words.numel() - 1)).numel())
+    rows = int(lengths.clamp(max=reads.shape[1]).sum())
+    return bound(reads.numel() + 4 * (3 * Q + n_words) + 8 * Q,
+                 DP_OPS_PER_CELL * (4 * k + 1) * rows)
+
+
+def long_segment_timing(torch, dev, codes, words, gen, card):
+    """The text entry at the long-read segment verify's shape: LONG_B
+    reads of LONG_L bases in LONG_SEG-base segments (Q = 8,192 lanes a
+    strand), kb = 16 (``segment_lanes``).  Held against the plain version
+    on every lane and timed.  -> (kernel ms, plain ms, bound ms, bound
+    by)."""
+    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda
+
+    k, Lseg = LONG_KB, LONG_SEG
+    Q = LONG_B * (LONG_L // Lseg)
+    n = codes.numel()
+    starts, reads, lengths, rid, W = segment_lanes(torch, dev, codes, gen, k, Q, Lseg)
     args = (words, n, starts, reads, lengths, rid, k, W)
     d_kern, e_kern = dp_cuda.banded_edit_distance_text_cuda(*args)
     d_plain, e_plain = dp.banded_edit_distance_text_plain(*args)
@@ -752,14 +810,71 @@ def long_segment_timing(torch, dev, codes, words, gen, card):
     t = [cuda_time_ms(lambda: dp_cuda.banded_edit_distance_text_cuda(*args), reps=50,
                       hide_host=True) for _ in range(2)]
     plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance_text_plain(*args), reps=3, warmup=1)
-    rows = int(lengths.sum())
-    w0 = (starts >> 4).long()[:, None] + torch.arange(W // 16 + 2, device=dev)
-    n_words = int(torch.unique(w0.clamp(0, words.numel() - 1)).numel())
-    b = bound(reads.numel() + 4 * (3 * Q + n_words) + 8 * Q, DP_OPS_PER_CELL * (4 * k + 1) * rows)
+    b = segment_bound(torch, words, starts, reads, lengths, W, k)
     log(f"[2] text entry at the long-read segment shape, k={k} Q={Q} L={Lseg} W={W}: {n_hit} "
         f"lanes within 2k, mismatches with plain 0; kernel {t[0]:.4f} / {t[1]:.4f} ms (bound "
-        f"{b[0]:.4f} ms by {b[1]}, {rows} live rows), plain {plain_ms:.3f} ms ({card})")
+        f"{b[0]:.4f} ms by {b[1]}, {int(lengths.sum())} live rows), plain {plain_ms:.3f} ms "
+        f"({card})")
     return (min(t), plain_ms, *b)
+
+
+def wide_band_checks(torch, dev, codes, words, gen, card):
+    """Both banded entries past the one-thread kernel, against their plain
+    versions on every lane (dist, end_b): the group of threads a lane at
+    the segment shape (8,192 lanes of 128 bases) for each k of WIDE_KS, the
+    scratch kernel at k = SCRATCH_K, and k = 2 on LONG_ROW_LANES reads of
+    each LONG_ROWS length (fewer staged rows a block, then rows from global
+    memory).  The text entry timed (CUDA events) beside its plain version
+    and its bound: DP_OPS_PER_CELL (4k+1) integer instructions a live row
+    and lane at the card's int32 rate.  ptxas's registers and spills of the
+    new kernels.  -> (max |err|, {case: (ms, plain ms, bound ms, by,
+    lanes, L, W, k, launches by design)})."""
+    from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, window
+
+    t_wall = time.time()
+    n = codes.numel()
+    cases = ([(k, LONG_SEG, LONG_B * (LONG_L // LONG_SEG)) for k in WIDE_KS]
+             + [(SCRATCH_K, LONG_SEG, SCRATCH_K_LANES)]
+             + [(2, Lr, LONG_ROW_LANES) for Lr in LONG_ROWS])
+    out, max_err = {}, 0
+    for k, Lr, Q in cases:
+        starts, reads, lengths, rid, W = segment_lanes(torch, dev, codes, gen, k, Q, Lr)
+        args = (words, n, starts, reads, lengths, rid, k, W)
+        before = dict(dp_cuda.banded_edit_distance_text_cuda.by_design)
+        d_kern, e_kern = dp_cuda.banded_edit_distance_text_cuda(*args)
+        ran = [d for d, c in dp_cuda.banded_edit_distance_text_cuda.by_design.items()
+               if c != before[d]]
+        wins = window.gather_windows(words, n, starts, W)
+        d_win, e_win = dp_cuda.banded_edit_distance_cuda(reads, lengths, wins, k)
+        d_plain, e_plain = dp.banded_edit_distance_text_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((d_kern - d_plain).abs().max()), int((d_win - d_plain).abs().max()))
+        max_err = max(max_err, err)
+        n_bad = sum(int((x != y).sum()) for x, y in ((d_kern, d_plain), (e_kern, e_plain),
+                                                     (d_win, d_plain), (e_win, e_plain)))
+        n_hit = int((d_plain <= 2 * k + 2).sum())
+        check(n_bad == 0, f"banded entries disagree with plain at k={k} L={Lr} ({n_bad} values)")
+        if Lr == LONG_SEG:  # long rows carry 1% substitutions: dozens at L = 4,096
+            check(n_hit > Q // 2, f"too few planted lanes found at k={k} L={Lr}: {n_hit}")
+        t = [cuda_time_ms(lambda: dp_cuda.banded_edit_distance_text_cuda(*args), reps=20,
+                          hide_host=True) for _ in range(2)]
+        plain_ms = cuda_time_ms(lambda: dp.banded_edit_distance_text_plain(*args), reps=1,
+                                warmup=0)
+        b = segment_bound(torch, words, starts, reads, lengths, W, k)
+        out[f"k={k} L={Lr}"] = (min(t), plain_ms, *b, Q, Lr, W, k, ran)
+        log(f"[2] wide band / long rows, k={k} Q={Q} L={Lr} W={W} ({', '.join(ran)} kernel): "
+            f"{n_hit} lanes within 2k + 2; text and windows entries against plain: mismatches 0, "
+            f"max |dist err| {err}; text entry {t[0]:.4f} / {t[1]:.4f} ms (bound {b[0]:.4f} ms "
+            f"by {b[1]}, {int(lengths.sum())} live rows), plain {plain_ms:.3f} ms ({card})")
+        del wins
+    for what, tag in (("group, text", "banded_group_kernelILb1E"),
+                      ("group, windows", "banded_group_kernelILb0E"),
+                      ("scratch, text", "banded_mem_kernelILb1E"),
+                      ("one thread, text, k = 0", "banded_dp_kernelILi0ELb1E")):
+        log(f"[2] ptxas, banded {what}: {ptxas_usage('banded_dp.cu', tag)}")
+    WIDE_WALL_S["[2]"] = time.time() - t_wall
+    log(f"[2] wide band and long rows: {WIDE_WALL_S['[2]']:.1f} s of wall")
+    return max_err, out
 
 
 def phase_fused_step(torch, dev, codes, offsets, positions):
@@ -1190,11 +1305,16 @@ def phase_myers(torch, dev, card):
 
     max_err = 0
     times = {}
-    shapes = [(RESCUE_LANES, Lr, Lr + 400) for Lr in (32, 64, 100, 150, 256)]
-    shapes.append((BATCH * VERIFY_SLACK, L, L + 3 * K))
-    for Q, Lr, W in shapes:
+    # the one-thread kernel's shapes, the verify shape, reads past 8 words
+    # (a group of threads a lane) and the scratch kernel's words
+    shapes = [(RESCUE_LANES, Lr, Lr + 400, -(-Lr // 32)) for Lr in (32, 64, 100, 150, 256)]
+    shapes.append((BATCH * VERIFY_SLACK, L, L + 3 * K, -(-L // 32)))
+    shapes += [(RESCUE_LANES, Lr, Lr + 400, -(-Lr // 32)) for Lr in WIDE_MYERS_L]
+    shapes.append((SCRATCH_MYERS_LANES, SCRATCH_MYERS_L, SCRATCH_MYERS_L + 400, SCRATCH_WORDS))
+    t_wide = 0.0
+    for Q, Lr, W, nwords in shapes:
+        t_shape = time.time()
         r, ln, w = (torch.from_numpy(a).to(dev) for a in myers_inputs(Q, Lr, W, Lr + Q))
-        nwords = -(-Lr // 32)
         b_kern, e_kern = myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords)
         b_plain, e_plain = myers._myers_plain(r, ln, w, nwords, W)
         torch.cuda.synchronize()
@@ -1202,9 +1322,15 @@ def phase_myers(torch, dev, card):
         max_err = max(max_err, err)
         n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
         n_hit = int((b_plain <= max(K, Lr // 20)).sum())
-        log(f"[6] windows entry Q={Q} L={Lr} W={W}: {n_hit} lanes within the rescue bar, "
+        log(f"[6] windows entry Q={Q} L={Lr} W={W} nwords={nwords} "
+            f"({myers_cuda.design(nwords)} kernel): {n_hit} lanes within the rescue bar, "
             f"(best, end) mismatches {n_bad}, max |err| {err}")
         check(n_bad == 0, f"Myers windows entry disagrees with plain at Q={Q} L={Lr} W={W}")
+        if nwords > myers_cuda.LANE_WORDS:
+            times["windows_wide", Lr, nwords] = cuda_time_ms(
+                lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=20,
+                hide_host=True)
+            t_wide += time.time() - t_shape
         if Lr == L:
             shape = "rescue" if Q == RESCUE_LANES else "verify"
             ms = cuda_time_ms(lambda: myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords), reps=50,
@@ -1225,12 +1351,16 @@ def phase_myers(torch, dev, card):
     codes, words = random_text(torch, dev, GENOME_LEN, seed=5)
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    text_shapes = [(RESCUE_LANES, Lr, Lr + 400, mode) for Lr in (32, 64, 100, 150, 256)
-                   for mode in ("identity", "repeat")]
-    text_shapes.append((BATCH * VERIFY_SLACK, L, L + 3 * K, "verify"))
-    for Q, Lr, W, mode in text_shapes:
+    text_shapes = [(RESCUE_LANES, Lr, Lr + 400, mode, -(-Lr // 32))
+                   for Lr in (32, 64, 100, 150, 256) for mode in ("identity", "repeat")]
+    text_shapes.append((BATCH * VERIFY_SLACK, L, L + 3 * K, "verify", -(-L // 32)))
+    text_shapes += [(RESCUE_LANES, Lr, Lr + 400, "identity", -(-Lr // 32)) for Lr in WIDE_MYERS_L]
+    text_shapes.append((RESCUE_LANES, PAIR300_L, PAIR300_L + 400, "repeat", -(-PAIR300_L // 32)))
+    text_shapes.append((SCRATCH_MYERS_LANES, SCRATCH_MYERS_L, SCRATCH_MYERS_L + 400, "identity",
+                        SCRATCH_WORDS))
+    for Q, Lr, W, mode, nwords in text_shapes:
+        t_shape = time.time()
         starts, reads, lengths, rid, valid = myers_text_lanes(torch, codes, Q, Lr, W, gen, mode)
-        nwords = -(-Lr // 32)
         args = (words, GENOME_LEN, starts, reads, lengths, rid, valid, W, nwords)
         b_kern, e_kern = myers_cuda.myers_semiglobal_text_cuda(*args)
         b_plain, e_plain = myers.myers_semiglobal_text_plain(*args)
@@ -1239,11 +1369,35 @@ def phase_myers(torch, dev, card):
         max_text = max(max_text, err)
         n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
         n_hit = int((b_plain <= max(K, Lr // 20)).sum())
-        log(f"[6] text entry Q={Q} L={Lr} W={W} rid {mode}: {n_hit} lanes within the rescue "
+        log(f"[6] text entry Q={Q} L={Lr} W={W} nwords={nwords} rid {mode} "
+            f"({myers_cuda.design(nwords)} kernel): {n_hit} lanes within the rescue "
             f"bar, {int((valid < W).sum())} lanes with valid < W, (best, end) mismatches "
             f"{n_bad}, max |err| {err}")
         check(n_bad == 0, f"Myers text entry disagrees with plain at Q={Q} L={Lr} W={W} {mode}")
         check(n_hit > Q // 20, f"too few planted lanes found at Q={Q} L={Lr}")
+        if nwords > myers_cuda.LANE_WORDS and mode == "identity":
+            # reads, lengths, starts, rid, valid and the text words in, best
+            # and end out; (11 nwords + 5) instructions a lane-step
+            t = [cuda_time_ms(lambda: myers_cuda.myers_semiglobal_text_cuda(*args), reps=20,
+                              hide_host=True) for _ in range(2)]
+            plain_ms = None
+            if Lr == PAIR300_L or nwords > myers_cuda.MEM_WORDS:
+                plain_ms = cuda_time_ms(lambda: myers.myers_semiglobal_text_plain(*args),
+                                        reps=1, warmup=0)
+            w0 = (starts >> 4).long()[:, None] + torch.arange(W // 16 + 2, device=dev)
+            n_words = int(torch.unique(w0.clamp(0, words.numel() - 1)).numel())
+            n_bytes = reads.numel() + 4 * (lengths.numel() + 3 * Q + n_words) + 8 * Q
+            n_ops = (MYERS_OPS_PER_WORD * nwords + MYERS_OPS_PER_STEP) * W * int(
+                (lengths[rid.long()] > 0).sum())
+            b = bound(n_bytes, n_ops)
+            times["text_wide", Lr, nwords] = (min(t), plain_ms, *b, Q, W)
+            win_ms = times.get(("windows_wide", Lr, nwords))
+            log(f"[6] text entry Q={Q} L={Lr} W={W} nwords={nwords} "
+                f"({myers_cuda.design(nwords)} kernel): kernel {t[0]:.4f} / {t[1]:.4f} ms (bound "
+                f"{b[0]:.4f} ms by {b[1]}); windows entry {win_ms:.4f} ms; plain "
+                + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed") + f" ({card})")
+        if nwords > myers_cuda.LANE_WORDS:
+            t_wide += time.time() - t_shape
         if Lr != L or mode == "repeat":
             continue
         shape = "rescue" if Q == RESCUE_LANES else "verify"
@@ -1278,6 +1432,14 @@ def phase_myers(torch, dev, card):
             f"(bound {b[0]:.4f} ms by {b[1]}); the stage it replaces (gather_windows + where + "
             f"contiguous + windows entry) {t['stage']:.4f} ms; plain {plain_ms:.3f} ms ({card})")
 
+    WIDE_WALL_S["[6]"] = t_wide
+    log(f"[6] reads past 8 words: {t_wide:.1f} s of wall")
+    for what, tags in (("4 words a thread", ("myers_group_kernel", "RegWordsILi4E", "TextStream")),
+                       ("8 words a thread", ("myers_group_kernel", "RegWordsILi8E", "TextStream")),
+                       ("16 words a thread", ("myers_group_kernel", "RegWordsILi16E",
+                                              "TextStream")),
+                       ("scratch", ("myers_group_kernel", "MemWords", "TextStream"))):
+        log(f"[6] ptxas, Myers group text entry, {what}: {ptxas_usage('myers.cu', tags)}")
     name, loop = sass_loop(myers_cuda._library(), ("myers_kernelILi4E", "TextStream"))
     chain = dependent_chain(loop) if loop else 0
     if chain:
@@ -1346,28 +1508,29 @@ def phase_fm_cli(codes, card) -> tuple[int, int]:
     return search_launches, locate_launches
 
 
-def make_pairs(codes):
-    """6 x 16,384 FR pairs of 100 bp: inserts 250-550, 1-2 substitutions on
-    each mate, 10% of mate2 with 4 more (unmappable at k = 2, within the
-    rescue bar max(k, L // 20) = 5)."""
+def make_pairs(codes, n: int = PAIR_BATCH * PAIR_BATCHES, Lr: int = L,
+               inserts: tuple[int, int] = (250, 550), far_subs: int = 4, seed: int = 21):
+    """n FR pairs of Lr bases: inserts in ``inserts``, 1-2 substitutions on
+    each mate, 10% of mate2 with ``far_subs`` more (unmappable at k = 2,
+    within the rescue bar max(k, Lr // 20): 5 for 6 x 16,384 pairs of 100
+    bp with 4, 15 for 2 x 8,192 of 300 bp with 8)."""
     import numpy as np
 
-    rng = np.random.default_rng(21)
-    n = PAIR_BATCH * PAIR_BATCHES
-    insert = rng.integers(250, 550, size=n)
-    pos1 = rng.integers(0, codes.size - 600, size=n)
-    c1 = codes[pos1[:, None] + np.arange(L)[None, :]].astype(np.int8)
-    p2 = pos1 + insert - L
-    c2raw = codes[p2[:, None] + np.arange(L)[None, :]].astype(np.int8)
+    rng = np.random.default_rng(seed)
+    insert = rng.integers(*inserts, size=n)
+    pos1 = rng.integers(0, codes.size - inserts[1] - 50, size=n)
+    c1 = codes[pos1[:, None] + np.arange(Lr)[None, :]].astype(np.int8)
+    p2 = pos1 + insert - Lr
+    c2raw = codes[p2[:, None] + np.arange(Lr)[None, :]].astype(np.int8)
     c2 = np.ascontiguousarray((3 - c2raw)[:, ::-1])  # mate2 on the reverse strand
     for arr in (c1, c2):
         for _ in range(2):
-            at = rng.integers(0, L, size=n)
+            at = rng.integers(0, Lr, size=n)
             rows = np.nonzero(rng.random(n) < 0.6)[0]
             arr[rows, at[rows]] = (arr[rows, at[rows]] + rng.integers(1, 4, size=rows.size)) % 4
     half = np.nonzero(rng.random(n) < 0.10)[0]
-    for _ in range(4):
-        at = rng.integers(0, L, size=n)
+    for _ in range(far_subs):
+        at = rng.integers(0, Lr, size=n)
         c2[half, at[half]] = (c2[half, at[half]] + rng.integers(1, 4, size=half.size)) % 4
     return c1, c2, pos1
 
@@ -1375,11 +1538,12 @@ def make_pairs(codes):
 def write_mates(path: Path, mates, pos1) -> None:
     import numpy as np
 
+    Lr = mates.shape[1]
     seqs = np.frombuffer(b"ACGT", np.uint8)[mates].tobytes()
-    qual = "I" * L
+    qual = "I" * Lr
     with open(path, "w") as fh:
         fh.write("".join(
-            f"@p{i}_{p}\n{seqs[i * L:(i + 1) * L].decode()}\n+\n{qual}\n"
+            f"@p{i}_{p}\n{seqs[i * Lr:(i + 1) * Lr].decode()}\n+\n{qual}\n"
             for i, p in enumerate(pos1.tolist())
         ))
 
@@ -1459,6 +1623,96 @@ def phase_paired(torch, dev, codes, card):
         log(f"[8]   rescue jobs {jobs}, last_phase_ms {ms}")
     check(rescued >= MIN_RESCUED, f"rescued share {rescued:.4f} < {MIN_RESCUED}")
     return launches[1]
+
+
+def phase_paired_300(torch, dev, codes, card) -> dict:
+    """MiSeq-style pairs through the CLI: ``align --paired --seed-table`` on
+    PAIR300_BATCHES x PAIR300_BATCH pairs of 300 bp (``make_pairs``: inserts
+    450-750, 10% of mate2 with 8 more substitutions).  Exit 0, >= 90%
+    proper pairs, >= 5% of pairs rescued (counted from the pairs the CLI's
+    ``PairedAligner.align_pairs`` returns), the Myers text entry launched
+    at 10 words (its group kernel) and never the windows entry, and the
+    first rescue call's lanes equal to the plain version on its own
+    inputs.  -> {"launches", "group", "max_err", "ms", "pairs_per_s"}."""
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.models.paired import PairedAligner
+    from genome_weaver_align_tpu_torch.ops import myers, myers_cuda
+
+    idx, seedf, _ = build_index(cli, codes)
+    t_wall = time.time()
+    n_pairs = PAIR300_BATCH * PAIR300_BATCHES
+    c1, c2, pos1 = make_pairs(codes, n_pairs, PAIR300_L, PAIR300_INSERTS, PAIR300_FAR_SUBS,
+                              seed=23)
+    work = CACHE / f"pairs300_{os.getpid()}"
+    work.mkdir(parents=True)
+    f1, f2, sam, rep = work / "r1.fq", work / "r2.fq", work / "out.sam", work / "report.json"
+    write_mates(f1, c1, pos1)
+    write_mates(f2, c2, pos1)
+
+    calls, words, hits = [], [], []
+    real_text, real_pairs = myers.myers_semiglobal_text, PairedAligner.align_pairs
+
+    def rescue(*args):
+        words.append(args[-1])
+        out = real_text(*args)
+        if not calls:  # the first rescue call: its inputs and lanes, held below
+            calls.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                          [o.clone() for o in out]))
+        return out
+
+    def align_pairs(self, batch):
+        out = real_pairs(self, batch)
+        hits.extend(out)
+        return out
+
+    myers_cuda.myers_semiglobal_text_cuda.launches = 0
+    myers_cuda.myers_semiglobal_text_cuda.by_design = dict.fromkeys(myers_cuda.DESIGNS, 0)
+    myers_cuda.myers_semiglobal_cuda.launches = 0
+    with mock.patch.object(myers, "myers_semiglobal_text", rescue), \
+            mock.patch.object(PairedAligner, "align_pairs", align_pairs):
+        rc = cli.main(["align", str(idx), str(f1), "--paired", str(f2), "-k", str(K),
+                       "--seed-table", str(seedf), "--batch-size", str(PAIR300_BATCH),
+                       "--report", str(rep), "-o", str(sam)])
+    launches = myers_cuda.myers_semiglobal_text_cuda.launches
+    by_design = dict(myers_cuda.myers_semiglobal_text_cuda.by_design)
+    win_launches = myers_cuda.myers_semiglobal_cuda.launches
+    check(rc == 0, f"paired align of {PAIR300_L} bp exited {rc}")
+    report = json.loads(rep.read_text())
+    n_rec = n_proper_rec = 0
+    with open(sam) as fh:
+        for line in fh:
+            if line[0] != "@":
+                n_rec += 1
+                n_proper_rec += bool(int(line.split("\t", 2)[1]) & 2)
+    shutil.rmtree(work)
+    proper = n_proper_rec / 2 / n_pairs
+    rescued = sum(ph.rescued != 0 for ph in hits) / n_pairs
+    check(calls, "the 300 bp pairs never reached the mate rescue")
+    args, (b_kern, e_kern) = calls[0]
+    b_plain, e_plain = myers.myers_semiglobal_text_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((b_kern - b_plain).abs().max()), int((e_kern - e_plain).abs().max()))
+    n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
+    lanes, W, nwords = int(args[2].numel()), args[-2], args[-1]
+    ms = cuda_time_ms(lambda: real_text(*args), reps=20, hide_host=True)
+    WIDE_WALL_S["[8]"] = wall = time.time() - t_wall
+    log(f"[8] paired CLI, {n_pairs} pairs of {PAIR300_L} bp (inserts {PAIR300_INSERTS[0]}-"
+        f"{PAIR300_INSERTS[1]}): {n_rec} records, proper {proper:.6f} (report "
+        f"{report['proper_pairs']}), rescued {rescued:.6f}, {report['reads_per_s']} reads/s over "
+        f"{report['wall_s']} s (phase wall {wall:.1f} s); Myers text-entry launches {launches} "
+        f"({by_design}), at nwords {sorted(set(words))}, windows entry {win_launches}; the first "
+        f"rescue call, {lanes} lanes x W={W} at {nwords} words, against plain: mismatches "
+        f"{n_bad}, max |err| {err}; that call's kernel {ms:.4f} ms ({card})")
+    check(n_rec == 2 * n_pairs, f"SAM holds {n_rec} records")
+    check(proper >= MIN_PROPER, f"{PAIR300_L} bp proper share {proper:.4f} < {MIN_PROPER}")
+    check(rescued >= MIN_RESCUED, f"{PAIR300_L} bp rescued share {rescued:.4f} < {MIN_RESCUED}")
+    check(launches > 0 and set(words) == {-(-PAIR300_L // 32)} and by_design["group"] == launches,
+          f"the {PAIR300_L} bp rescue did not run the Myers text entry's group kernel at "
+          f"{-(-PAIR300_L // 32)} words")
+    check(win_launches == 0, "the 300 bp rescue built a window tensor for the windows entry")
+    check(n_bad == 0, "a 300 bp rescue call's lanes disagree with the plain version")
+    return {"launches": launches, "group": by_design["group"], "max_err": err, "ms": ms,
+            "lanes": lanes, "W": W, "nwords": nwords}
 
 
 def fused_inputs(torch, sh, M: int, Q: int, gen, gather: bool = True):
@@ -2027,12 +2281,14 @@ def long_reads(codes):
     return reads, pos, strand
 
 
-def phase_long_reads(torch, dev, codes, card) -> int:
+def phase_long_reads(torch, dev, codes, card) -> tuple[int, int]:
     """Long reads on the phase-4 index and seed table, as the JAX package's
     long-read bench runs them: the default LongReadAligner on LONG_BATCHES
-    batches of LONG_B reads, without and then with traceback; then ``align
-    --mode long`` through the CLI on the same reads.  -> the banded text
-    entry's launches in the loop (all at kb = 16)."""
+    batches of LONG_B reads, without and then with traceback; the same
+    reads at kb = WIDE_LONG_KB without traceback (the banded group kernel);
+    then ``align --mode long`` through the CLI on the same reads.  -> the
+    banded text entry's launches in the kb = 16 loop and in the kb =
+    WIDE_LONG_KB loop."""
     import numpy as np
 
     from genome_weaver_align_tpu_torch import cli
@@ -2085,6 +2341,36 @@ def phase_long_reads(torch, dev, codes, card) -> int:
     check(launches > 0, "the long-read loop never launched the banded DP kernel's text entry")
     del al
 
+    # a segment band past the one-thread kernel's 16: a group of threads a lane
+    t_wall = time.time()
+    al = LongReadAligner(gi, (offsets, positions), sj, kb=WIDE_LONG_KB, device=dev)
+    al.align_arrays(reads[:LONG_B], lens, traceback=False)  # warm-up
+    torch.cuda.synchronize()
+    dp_cuda.banded_edit_distance_text_cuda.launches = 0
+    dp_cuda.banded_edit_distance_text_cuda.by_design = dict.fromkeys(dp_cuda.DESIGNS, 0)
+    times, n_mapped, n_close = [], 0, 0
+    for b in range(LONG_BATCHES):
+        sl = slice(b * LONG_B, (b + 1) * LONG_B)
+        t0 = time.perf_counter()
+        lh = al.align_arrays(reads[sl], lens, traceback=False)
+        times.append(time.perf_counter() - t0)
+        n_mapped += int(lh.mapped.sum())
+        ok = lh.mapped & (lh.strand == strand[sl])
+        n_close += int((ok & (np.abs(lh.pos - pos[sl]) <= al.band + al.kb)).sum())
+    wide = {"launches": dp_cuda.banded_edit_distance_text_cuda.launches,
+            "by_design": dict(dp_cuda.banded_edit_distance_text_cuda.by_design)}
+    WIDE_WALL_S["[14]"] = time.time() - t_wall
+    log(f"[14] LongReadAligner(kb={al.kb}), {LONG_BATCHES} x {LONG_B} reads of {LONG_L}: "
+        f"{LONG_B * LONG_BATCHES / sum(times):.1f} reads/s without traceback (batches "
+        f"{', '.join(f'{t:.3f}' for t in times)} s); mapped {n_mapped / N:.6f}, locus-correct "
+        f"{n_close / N:.6f}; banded text-entry launches {wide['launches']} "
+        f"({wide['by_design']}); {WIDE_WALL_S['[14]']:.1f} s of wall ({card})")
+    check(n_mapped / N >= MIN_MAPPED, f"long reads at kb={al.kb}: mapped {n_mapped / N:.4f}")
+    check(n_close / N >= MIN_CORRECT, f"long reads at kb={al.kb}: locus-correct {n_close / N:.4f}")
+    check(wide["launches"] > 0 and wide["by_design"]["group"] == wide["launches"],
+          f"the kb={al.kb} loop did not run the banded text entry's group kernel")
+    del al
+
     work = CACHE / f"long{os.getpid()}"
     work.mkdir(parents=True)
     fq, sam, rep = work / "long.fq", work / "long.sam", work / "report.json"
@@ -2115,7 +2401,7 @@ def phase_long_reads(torch, dev, codes, card) -> int:
     check(n_map / n >= MIN_MAPPED, f"align --mode long: mapped share {n_map / n:.4f}")
     check(n_tag == n_map, "a mapped long-read record lacks XT:A:L")
     shutil.rmtree(work)
-    return launches
+    return launches, wide["launches"]
 
 
 def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
@@ -4241,6 +4527,7 @@ def main() -> int:
     from genome_weaver_align_tpu_torch.index.seedtable import build_seed_table
 
     global INT_OPS_PER_S, MAX_SM_HZ
+    t_smoke = time.time()
     dev = torch.device("cuda", 0)
     card = card_line()
     MAX_SM_HZ = max_sm_hz()
@@ -4269,6 +4556,7 @@ def main() -> int:
         myers_err, myers_times = phase_myers(torch, dev, card)
         fm_cli_launches, fm_cli_locate = phase_fm_cli(codes, card)
         myers_launches = phase_paired(torch, dev, codes, card)
+        pairs300 = phase_paired_300(torch, dev, codes, card)
         from genome_weaver_align_tpu_torch import cli
         from genome_weaver_align_tpu_torch.index.files import load_index
 
@@ -4281,7 +4569,7 @@ def main() -> int:
         tier2, rep_codes = phase_tier2(torch, dev, card)
         tier2_launches = tier2["launches"]
         mode_launches = phase_modes(codes, card)
-        long_launches = phase_long_reads(torch, dev, codes, card)
+        long_launches, wide_long_launches = phase_long_reads(torch, dev, codes, card)
         mp_launches = phase_multipart(torch, dev, codes, rep_codes, card)
         rank_launches, rank_err, fm16 = phase_ranks(torch, codes, card)
         wait20 = phase_flag_wait(torch, card)
@@ -4297,6 +4585,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     myers_win_err, myers_text_err = myers_err
+    log(f"[smoke] wall {time.time() - t_smoke:.1f} s, of which the checks past the verify "
+        f"kernels' one-thread designs {sum(WIDE_WALL_S.values()):.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in WIDE_WALL_S.items())})")
     log(json.dumps({"kernels": [
         kernel_row("banded_dp_text", "banded_dp.cu", "ops/dp_pallas.py:47",
                    "[4] align --seed-table", launches, max(max_err, err22),
@@ -4318,7 +4609,24 @@ def main() -> int:
                    "[14] long reads (LongReadAligner, kb = 16)", long_launches, max_err,
                    (*dp_timing["text_long"], None),
                    shape={"Q": LONG_B * (LONG_L // LONG_SEG), "L": LONG_SEG,
-                          "W": LONG_SEG + 3 * LONG_KB, "k": LONG_KB}),
+                          "W": LONG_SEG + 3 * LONG_KB, "k": LONG_KB},
+                   long_rows={Lr: {key: dp_timing["wide"][f"k=2 L={Lr}"][i]
+                                   for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}
+                              for Lr in LONG_ROWS}),
+        kernel_row("banded_dp_text_group", "banded_dp.cu", "ops/dp_pallas.py:47",
+                   f"[14] long reads (LongReadAligner, kb = {WIDE_LONG_KB})", wide_long_launches,
+                   max_err, (*dp_timing["wide"][f"k={WIDE_LONG_KB} L={LONG_SEG}"][:4], None),
+                   shape={"Q": LONG_B * (LONG_L // LONG_SEG), "L": LONG_SEG,
+                          "W": LONG_SEG + 3 * WIDE_LONG_KB, "k": WIDE_LONG_KB},
+                   ms_by_k={k: dp_timing["wide"][f"k={k} L={LONG_SEG}"][0] for k in WIDE_KS},
+                   bound_ms_by_k={k: dp_timing["wide"][f"k={k} L={LONG_SEG}"][2]
+                                  for k in WIDE_KS}),
+        kernel_row("banded_dp_scratch", "banded_dp.cu", "ops/dp_pallas.py:47",
+                   f"none: k >= 128 runs on no path here; both entries held against plain in "
+                   f"[2] at k = {SCRATCH_K}", 0, max_err,
+                   (*dp_timing["wide"][f"k={SCRATCH_K} L={LONG_SEG}"][:4], None),
+                   shape={"Q": SCRATCH_K_LANES, "L": LONG_SEG, "W": LONG_SEG + 3 * SCRATCH_K,
+                          "k": SCRATCH_K}),
         kernel_row("banded_dp_windows", "banded_dp.cu", "ops/dp_pallas.py:47",
                    "[11] align --n-interval 4", banded_win_launches,
                    max(max_err, rank_err, err20),
@@ -4332,6 +4640,23 @@ def main() -> int:
                    stage_ms=myers_times["stage", "rescue"],
                    latency_floor_ms=myers_times["floor"],
                    warp_issue_floor_ms=myers_times["issue_floor"]),
+        kernel_row("myers_text_group", "myers.cu", "ops/myers_pallas.py:75",
+                   f"[8] align --paired, {PAIR300_L} bp (mate rescue)", pairs300["launches"],
+                   max(myers_text_err, pairs300["max_err"]),
+                   (*myers_times["text_wide", PAIR300_L, -(-PAIR300_L // 32)][:4], None),
+                   shape={"Q": RESCUE_LANES, "L": PAIR300_L, "W": PAIR300_L + 400,
+                          "nwords": -(-PAIR300_L // 32)},
+                   rescue_call={k: pairs300[k] for k in ("lanes", "W", "nwords", "ms")},
+                   ms_by_L={Lr: myers_times["text_wide", Lr, -(-Lr // 32)][0]
+                            for Lr in WIDE_MYERS_L},
+                   bound_ms_by_L={Lr: myers_times["text_wide", Lr, -(-Lr // 32)][2]
+                                  for Lr in WIDE_MYERS_L}),
+        kernel_row("myers_scratch", "myers.cu", "ops/myers_pallas.py:75",
+                   f"none: past 512 words runs on no path here; both entries held against "
+                   f"plain in [6] at {SCRATCH_WORDS} words", 0, myers_text_err,
+                   (*myers_times["text_wide", SCRATCH_MYERS_L, SCRATCH_WORDS][:4], None),
+                   shape={"Q": SCRATCH_MYERS_LANES, "L": SCRATCH_MYERS_L,
+                          "W": SCRATCH_MYERS_L + 400, "nwords": SCRATCH_WORDS}),
         kernel_row("myers_windows", "myers.cu", "ops/myers_pallas.py:75",
                    "none: the JAX contract's entry, held against plain in [6]", 0,
                    myers_win_err, (*myers_times["windows", "rescue"], None)),

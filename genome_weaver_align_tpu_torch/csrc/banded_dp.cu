@@ -60,15 +60,42 @@
 //     windows.
 //   So the kernel is bound by its integer issue rate: 4 instructions for
 //   each of the (4k+1) cells of every live read row.
-//   * k = 1..16: the short-read aligners' k < 15 (their 4-bit dist field)
-//     and the long-read segment verify's band, kb = 16.  The band's D and
-//     window codes take 2 (4k+1) = 130 registers at k = 16; storing E too
-//     would add 65 more.  What ptxas reports at k = 14 and 16, chip_smoke.py
-//     prints.
+//   * k = 0..16 in one thread: the short-read aligners' k < 15 (their
+//     4-bit dist field) and the long-read segment verify's default band,
+//     kb = 16.  The band's D and window codes take 2 (4k+1) = 130 registers
+//     at k = 16; storing E too would add 65 more.  What ptxas reports at
+//     k = 14 and 16, chip_smoke.py prints.
+//   * k = 17..127: a lane is a group of G = 8..32 threads (a power of two
+//     inside a warp), each holding 16 consecutive band slots of D and
+//     window codes in registers; the group pads the band at its bottom
+//     (slots below 0 hold a value above every real one), so the top slot
+//     is always the last thread's last register.  A row: the insertion
+//     term D_old[b+1] crosses a thread boundary once (__shfl_down_sync of
+//     slot 0); the window deletion D_new[b] = min(c_b, D_new[b-1] + 1) is
+//     b + the prefix min over j <= b of (c_j - j), so each thread scans its
+//     16 slots, the group takes an exclusive prefix min of its threads'
+//     minima with log2(G) + 1 shuffles, and each slot takes the min of its
+//     own scan and the carried-in minimum + b; the window codes move down
+//     one slot a row (one shuffle), the last thread reading the new top
+//     code.  Integer min and + are exact, so every cell, garbage above INF
+//     on dead lanes included, equals the plain version's; end_b is the
+//     group's first argmin of the last row (a shuffle min of (value, slot)).
+//     Lanes of one warp may have different lengths: the warp runs its
+//     longest lane's rows and a finished lane keeps its D.
+//   * k >= 128: a warp a lane, ceil((4k+1) / 32) slots a thread, D in a
+//     scratch buffer the binding allocates (two rows, in turn) and the
+//     window codes read per cell; the same scan.  Slow, right, no band
+//     refused.
+//   * Long reads: a block stages its lanes' rows while lanes x L fits a
+//     block's shared memory, with fewer threads a block down to a warp
+//     (L up to 7,231 at k <= 16); past that each lane reads its row from
+//     global memory (one byte a row, from L2), the text still streamed
+//     from the packed words.
 //
 // Entry: gwa_banded_dp, a plain C function bound with ctypes.  It launches
-// on the caller's stream, does not synchronise, allocates nothing, and
-// returns the launch's CUDA error code.
+// on the caller's stream, does not synchronise, allocates nothing (the
+// binding allocates gwa_banded_dp_scratch_words words of scratch for
+// k >= 128), and returns the launch's CUDA error code.
 
 #include <cuda_runtime.h>
 
@@ -84,6 +111,10 @@ namespace {
 constexpr int32_t kInf = 1 << 20;
 constexpr int32_t kNoMatch = 256;  // a window code no int8 read code equals
 constexpr int kThreads = gwa::kMaxStageThreads;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int32_t kBig = 1 << 30;        // a padding slot's D: above every real cell
+constexpr int kSlots = 16;               // band slots a thread of a group
+constexpr int32_t kMaxGroupK = 127;      // 32 threads x 16 slots >= 4k + 1
 // The body's rows are unrolled by 4k+1 for k up to this; a wider band runs
 // its body one row at a time with the window codes shifted by moves, so
 // that the (4k+1)^2-cell unrolled body of every k up to 16 does not
@@ -99,8 +130,11 @@ struct Args {
   const int32_t* starts;   // (Q,) window starts for the text entry
   int32_t* dist;
   int32_t* end_b;
+  int32_t* scratch;        // 2 x 32 x slots words a lane for k > kMaxGroupK
   int64_t Q;
   int32_t B, L, W, nw, n_text;
+  int32_t k, group, slots;  // band half-width; threads a lane; slots a thread
+  int32_t stage;            // rows staged in shared memory (else read from global memory)
 };
 
 // Window codes j = 0, 1, 2, ... of one lane from the packed text: 2 bits a
@@ -152,6 +186,40 @@ struct WindowStream {
   }
 };
 
+// Random access to one lane's window codes (the group and scratch
+// kernels): code of window position j, kNoMatch off the text, at a byte >= 4
+// or past W.
+struct TextCodes {
+  const uint32_t* text;
+  int64_t p0, n;
+
+  __device__ __forceinline__ void init(const Args& a, int64_t q) {
+    text = a.text;
+    p0 = a.starts[q];
+    n = a.n_text;
+  }
+  __device__ __forceinline__ int32_t at(int32_t j) const {
+    const int64_t p = p0 + j;
+    if (p < 0 || p >= n) return kNoMatch;
+    return static_cast<int32_t>((__ldg(text + (p >> 4)) >> (2 * (p & 15))) & 3u);
+  }
+};
+
+struct WindowCodes {
+  const int8_t* w;
+  int32_t W;
+
+  __device__ __forceinline__ void init(const Args& a, int64_t q) {
+    w = a.windows + q * a.W;
+    W = a.W;
+  }
+  __device__ __forceinline__ int32_t at(int32_t j) const {
+    if (j < 0 || j >= W) return kNoMatch;
+    const int32_t c = static_cast<int32_t>(w[j]);
+    return c < 4 ? c : kNoMatch;
+  }
+};
+
 template <int K>
 struct Band {
   static constexpr int kBand = 4 * K + 1;
@@ -192,7 +260,7 @@ __device__ __forceinline__ void body_row(Band<K>& s, Stream& win, const int8_t* 
     // slot the plain version reads INF
     int32_t m;
     if (b == 0) {
-      m = min(s.D[0], s.D[1]);
+      m = min(s.D[0], BAND > 1 ? s.D[BAND > 1 ? 1 : 0] : kInf);
     } else {
       m = __vimin3_s32(s.D[b], b + 1 < BAND ? s.D[b + 1] : kInf, s.D[b - 1]);
     }
@@ -210,11 +278,12 @@ template <int K, bool kText>
 __global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
   constexpr int BAND = 4 * K + 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool live = q < a.Q;
   int32_t r = 0;
   if (live) r = a.rid ? min(max(a.rid[q], 0), a.B - 1) : static_cast<int32_t>(q);
-  const int8_t* rrow = gwa::stage_rows(a.reads, a.L, r, live, smem);
+  const int8_t* rrow = a.stage ? gwa::stage_rows(a.reads, a.L, r, live, smem)
+                               : a.reads + static_cast<int64_t>(r) * a.L;
   if (!live) return;
 
   const int32_t len = a.lengths[r];
@@ -264,25 +333,192 @@ __global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
   a.end_b[q] = best_b;
 }
 
-size_t smem_bytes(int32_t L) { return static_cast<size_t>(kThreads) * L + 16; }
+// The group's first argmin of (value, slot) over the last row, written by
+// thread 0 of the group.
+__device__ __forceinline__ void write_best(const Args& a, int64_t q, bool out, int32_t best,
+                                           int32_t best_b, int G) {
+  unsigned long long key = (static_cast<unsigned long long>(static_cast<uint32_t>(best)) << 32) |
+                           static_cast<uint32_t>(best_b);
+  for (int d = G / 2; d >= 1; d >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(kFull, key, d, G);
+    key = other < key ? other : key;
+  }
+  if (out) {
+    a.dist[q] = min(static_cast<int32_t>(key >> 32), kInf);
+    a.end_b[q] = static_cast<int32_t>(key & 0xFFFFFFFFu);
+  }
+}
+
+// The exclusive prefix min over the group's threads of v (kBig for the
+// group's first thread).
+__device__ __forceinline__ int32_t carried_min(int32_t v, int j, int G) {
+  for (int d = 1; d < G; d <<= 1) {
+    const int32_t o = __shfl_up_sync(kFull, v, d, G);
+    if (j >= d) v = min(v, o);
+  }
+  const int32_t c = __shfl_up_sync(kFull, v, 1, G);
+  return j == 0 ? kBig : c;
+}
+
+// k = 17..kMaxGroupK: a group of G threads a lane, kSlots band slots each.
+template <bool kText>
+__global__ void __launch_bounds__(kThreads) banded_group_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = a.group;
+  const int64_t gt = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t q = gt / G;
+  const bool live = q < a.Q;
+  const int64_t qc = live ? q : a.Q - 1;  // a lane past the end runs lane Q-1, unwritten
+  const int32_t r = a.rid ? min(max(a.rid[qc], 0), a.B - 1) : static_cast<int32_t>(qc);
+  const int8_t* rrow = a.stage ? gwa::stage_rows(a.reads, a.L, r, live, smem, G)
+                               : a.reads + static_cast<int64_t>(r) * a.L;
+  if (__all_sync(kFull, !live)) return;  // no later __syncthreads
+
+  const int j = static_cast<int>(threadIdx.x) & (G - 1);
+  const int32_t K = a.k, BAND = 4 * K + 1, W = a.W;
+  const int32_t base = j * kSlots - (G * kSlots - BAND);  // band slot of register 0
+  const int32_t len = live ? a.lengths[r] : 0;
+  const int32_t steps = min(len, a.L);
+  typename std::conditional<kText, TextCodes, WindowCodes>::type cd;
+  cd.init(a, qc);
+
+  int32_t D[kSlots], wc[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int32_t b = base + s;
+    D[s] = b < 0 ? kBig : (b >= K ? 0 : kInf);
+    wc[s] = (b >= K && b < BAND - 1) ? cd.at(b - K) : kNoMatch;
+  }
+  const int32_t rows = __reduce_max_sync(kFull, steps);
+  for (int32_t i = 0; i < rows; ++i) {
+    const bool active = i < steps;
+    if (j == G - 1) wc[kSlots - 1] = cd.at(i + 3 * K);  // slot 4k: window position i + 3k
+    const int32_t rc = active ? static_cast<int32_t>(rrow[i]) : 0;
+    int32_t above = __shfl_down_sync(kFull, D[0], 1, G);  // D_old of the next thread's first slot
+    if (j == G - 1) above = kInf;                          // past the band: INF
+    int32_t l[kSlots];
+    int32_t run = kBig;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int32_t b = base + s;
+      const int32_t up = s + 1 < kSlots ? D[s + 1 < kSlots ? s + 1 : s] : above;
+      const bool valid = static_cast<uint32_t>(i + b - K) < static_cast<uint32_t>(W);
+      const int32_t x = (wc[s] ^ rc) & 0x1FF;
+      // the plain version's min(D + sub, D_old[b+1] + 1): a mismatch costs 1
+      // through min(D, up) + 1
+      int32_t t = valid ? __viaddmin_s32(min(D[s], up), 1, D[s] + x) : kInf;
+      if (b < 0) t = kBig;
+      run = s == 0 ? t : __viaddmin_s32(run, 1, t);
+      l[s] = run;
+    }
+    const int32_t cin = carried_min(run - (base + kSlots - 1), j, G);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int32_t nd = min(l[s], cin + base + s);
+      D[s] = active ? nd : D[s];
+    }
+    const int32_t w0 = __shfl_down_sync(kFull, wc[0], 1, G);
+#pragma unroll
+    for (int s = 0; s < kSlots - 1; ++s) wc[s] = wc[s + 1];
+    wc[kSlots - 1] = w0;
+  }
+
+  int32_t best = kBig, best_b = BAND;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int32_t b = base + s;
+    const int32_t j_end = len + b - K;
+    const int32_t df = (j_end >= 0 && j_end <= W) ? D[s] : kInf;
+    if (b >= 0 && df < best) {
+      best = df;
+      best_b = b;
+    }
+  }
+  write_best(a, q, live && j == 0, best, best_b, G);
+}
+
+// k > kMaxGroupK: a warp a lane, a.slots band slots a thread, D in scratch
+// (two rows in turn; slot register s of thread j at s * 32 + j).
+template <bool kText>
+__global__ void __launch_bounds__(kThreads) banded_mem_kernel(const Args a) {
+  const int64_t gt = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t q = gt / 32;
+  if (q >= a.Q) return;  // the whole warp
+  const int32_t r = a.rid ? min(max(a.rid[q], 0), a.B - 1) : static_cast<int32_t>(q);
+  const int8_t* rrow = a.reads + static_cast<int64_t>(r) * a.L;
+  const int j = static_cast<int>(threadIdx.x) & 31;
+  const int32_t K = a.k, BAND = 4 * K + 1, W = a.W, S = a.slots;
+  const int32_t base = j * S - (32 * S - BAND);
+  const int32_t len = a.lengths[r];
+  const int32_t steps = min(len, a.L);
+  typename std::conditional<kText, TextCodes, WindowCodes>::type cd;
+  cd.init(a, q);
+  int32_t* d_old = a.scratch + q * 64 * static_cast<int64_t>(S);
+  int32_t* d_new = d_old + 32 * S;
+  for (int32_t s = 0; s < S; ++s) {
+    const int32_t b = base + s;
+    d_old[s * 32 + j] = b < 0 ? kBig : (b >= K ? 0 : kInf);
+  }
+  __syncwarp();
+  for (int32_t i = 0; i < steps; ++i) {
+    const int32_t rc = static_cast<int32_t>(rrow[i]);
+    int32_t run = kBig;
+    for (int32_t s = 0; s < S; ++s) {
+      const int32_t b = base + s;
+      int32_t t = kBig;
+      if (b >= 0) {
+        const int32_t jp = i + b - K;
+        if (static_cast<uint32_t>(jp) < static_cast<uint32_t>(W)) {
+          const int32_t up = s + 1 < S ? d_old[(s + 1) * 32 + j] : (j < 31 ? d_old[j + 1] : kInf);
+          const int32_t x = (cd.at(jp) ^ rc) & 0x1FF;
+          const int32_t d = d_old[s * 32 + j];
+          t = __viaddmin_s32(min(d, up), 1, d + x);
+        } else {
+          t = kInf;
+        }
+      }
+      run = s == 0 ? t : __viaddmin_s32(run, 1, t);
+      d_new[s * 32 + j] = run;
+    }
+    const int32_t cin = carried_min(run - (base + S - 1), j, 32);
+    for (int32_t s = 0; s < S; ++s) d_new[s * 32 + j] = min(d_new[s * 32 + j], cin + base + s);
+    __syncwarp();
+    int32_t* t = d_old;
+    d_old = d_new;
+    d_new = t;
+  }
+  int32_t best = kBig, best_b = BAND;
+  for (int32_t s = 0; s < S; ++s) {
+    const int32_t b = base + s;
+    const int32_t j_end = len + b - K;
+    const int32_t df = (j_end >= 0 && j_end <= W) ? d_old[s * 32 + j] : kInf;
+    if (b >= 0 && df < best) {
+      best = df;
+      best_b = b;
+    }
+  }
+  write_best(a, q, j == 0, best, best_b, 32);
+}
 
 template <int K, bool kText>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = banded_dp_kernel<K, kText>;
-  const size_t smem = smem_bytes(a.L);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const unsigned blocks = static_cast<unsigned>((a.Q + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return gwa::launch_staged<int8_t>(banded_dp_kernel<K, kText>, a, 1, 0, stream);
 }
 
+// Threads a lane for k = 17..kMaxGroupK: the power of two whose kSlots-slot
+// threads cover the band (8..32).
+int group_for(int32_t k) {
+  int g = 1;
+  while (g * kSlots < 4 * k + 1) g *= 2;
+  return g;
+}
+
+int64_t slots_for(int32_t k) { return (4 * static_cast<int64_t>(k) + 1 + 31) / 32; }
+
 template <bool kText>
-int dispatch(int32_t k, const Args& a, cudaStream_t s) {
+int dispatch(int32_t k, Args a, int64_t scratch_words, cudaStream_t s) {
   switch (k) {
+    case 0: return launch<0, kText>(a, s);
     case 1: return launch<1, kText>(a, s);
     case 2: return launch<2, kText>(a, s);
     case 3: return launch<3, kText>(a, s);
@@ -299,8 +535,21 @@ int dispatch(int32_t k, const Args& a, cudaStream_t s) {
     case 14: return launch<14, kText>(a, s);
     case 15: return launch<15, kText>(a, s);
     case 16: return launch<16, kText>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if (k < 0 || k >= kInf) return static_cast<int>(cudaErrorInvalidValue);
+  a.k = k;
+  if (k <= kMaxGroupK) {
+    a.group = group_for(k);
+    return gwa::launch_staged<int8_t>(banded_group_kernel<kText>, a, a.group, 0, s);
+  }
+  a.slots = static_cast<int32_t>(slots_for(k));
+  if (!a.scratch || scratch_words < 64 * static_cast<int64_t>(a.slots) * a.Q)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.stage = 0;
+  const unsigned blocks = static_cast<unsigned>((a.Q * 32 + kThreads - 1) / kThreads);
+  banded_mem_kernel<kText><<<blocks, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -308,10 +557,17 @@ int dispatch(int32_t k, const Args& a, cudaStream_t s) {
 // text != null: the text entry (rid, starts, text over nw words of n_text
 // bases; windows unused); else the windows entry (rid and starts null,
 // B = Q).  Reads (B, L) int8, lengths (B,), dist and end_b (Q,) int32.
+// Scratch words a launch over Q lanes at band half-width k needs (0 up to
+// kMaxGroupK).
+extern "C" int64_t gwa_banded_dp_scratch_words(int64_t Q, int32_t k) {
+  return k <= kMaxGroupK ? 0 : 64 * slots_for(k) * Q;
+}
+
 extern "C" int gwa_banded_dp(const void* reads, const void* lengths, const void* rid,
                              const void* windows, const void* text, const void* starts,
                              void* dist, void* end_b, int64_t Q, int32_t B, int32_t L,
-                             int32_t W, int32_t nw, int32_t n_text, int32_t k, void* stream) {
+                             int32_t W, int32_t nw, int32_t n_text, int32_t k, void* scratch,
+                             int64_t scratch_words, void* stream) {
   if (Q <= 0) return 0;
   if (B <= 0 || L < 0 || W < 0 || (text && nw <= 0)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
@@ -329,6 +585,7 @@ extern "C" int gwa_banded_dp(const void* reads, const void* lengths, const void*
   a.W = W;
   a.nw = nw;
   a.n_text = n_text;
+  a.scratch = static_cast<int32_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  return text ? dispatch<true>(k, a, s) : dispatch<false>(k, a, s);
+  return text ? dispatch<true>(k, a, scratch_words, s) : dispatch<false>(k, a, scratch_words, s);
 }

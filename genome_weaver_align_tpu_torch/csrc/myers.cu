@@ -1,11 +1,13 @@
 // Myers bit-parallel semi-global edit distance on Hopper (sm_90a), one
-// thread per lane, with the window streamed from the 2-bit packed text.
+// thread per lane up to 8 words and a group of threads per lane past them,
+// with the window streamed from the 2-bit packed text.
 //
 // Replaces the Pallas TPU kernel genome_weaver_align_tpu/ops/myers_pallas.py::_kernel
 // and computes exactly genome_weaver_align_tpu_torch/ops/myers.py::myers_semiglobal_end
 // (itself the twin of genome_weaver_align_tpu/ops/myers.py::myers_semiglobal_end):
-// the read is a column bit-vector of NW 32-bit words (NW = 1..8, reads of at
-// most 256 bases); each window step runs the search-variant recurrence
+// the read is a column bit-vector of nwords 32-bit words (any nwords >= 1;
+// the TPU kernel stops at 8, the jnp engine the JAX paths call does not);
+// each window step runs the search-variant recurrence
 // (Myers 1999 / Hyyro 2003) with a free text start; window codes >= 4 have
 // Peq = 0 and a negative code reads Peq[0], as the plain version's clamp
 // does; the score row is one bit test on the word that holds bit len-1;
@@ -50,9 +52,36 @@
 //   5 a step for the score, far below the card's issue rate at the rescue
 //   shape; the latency floor is what chip_smoke.py prints beside it.
 //
+// Past 8 words (reads past 256 bases: 2 x 300 bp mate rescue, long reads
+// under verify_mode="myers") one thread would carry nwords words of seven
+// vectors in registers and a carry chain nwords adds long.  So a lane is a
+// group of G threads (G = 4..32, a power of two inside a warp), thread j
+// holding P consecutive words j P .. j P + P - 1 (P = 4, 8 or 16 in
+// registers, chosen by the host from nwords; the group pads the top words,
+// which nothing reads: carries and shifts only move up).  Each step:
+//   * the carried add (Peq & PV) + PV crosses threads by carry lookahead:
+//     each thread adds its words with carry-in 0 and ballots its generate
+//     (carry out) and propagate (every word all ones); one 32-bit add on the
+//     ballots, ((g | p) + g) ^ p with the group-top bits cleared so no carry
+//     crosses into the next group, gives every thread its carry-in, which
+//     moves each word by one where all the words below it are all ones (a
+//     flag known before the ballot);
+//   * the shift by one of Ph and Mh: each thread computes its top word
+//     first and hands its two top bits up with one __shfl_up_sync; thread 0
+//     of a group takes the search variant's zero fill;
+//   * the score bit at len - 1 is tested by the thread that holds it, which
+//     also keeps best and end and writes them.
+// Past 512 words (16,384 bases) the words live in a scratch buffer the
+// binding allocates, a warp a lane, 7 x ceil(nwords / 32) words a thread,
+// and the same code runs over them (slow, right, and no length refused).
+// Rows are staged as above while lanes a block x L fits a block's shared
+// memory (fewer threads a block down to a warp; past that each lane reads
+// its row from global memory once, for the Peq build).
+//
 // Entries: gwa_myers (windows) and gwa_myers_text, plain C functions bound
 // with ctypes.  They launch on the caller's stream, do not synchronise,
-// allocate nothing, and return the launch's CUDA error code.
+// allocate nothing (the binding allocates gwa_myers_scratch_words words of
+// scratch past 512 words), and return the launch's CUDA error code.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +95,10 @@ namespace {
 constexpr int kMaxThreads = gwa::kMaxStageThreads;
 constexpr uint32_t kGroup = 16;  // window columns a packed text word
 
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int32_t kMemWords = 16 * 32;    // words past which a group's words live in scratch
+constexpr int kScratchVectors = 7;        // Peq x 4, PV, MV, the add's sums
+
 struct Args {
   const void* reads;       // (B, L) int8, or the windows entry's (Q, L) int8 / int32
   const int32_t* lengths;  // (B,)
@@ -76,8 +109,11 @@ struct Args {
   const int32_t* valid;    // (Q,) live columns of each window for the text entry
   int32_t* best;
   int32_t* end;
-  int64_t Q;
+  uint32_t* scratch;       // kScratchVectors x wpt x stride words past kMemWords
+  int64_t Q, stride;
   int32_t B, L, W, steps, nw, n_text;
+  int32_t nwords, group, wpt;  // read words; threads a lane; words a thread
+  int32_t stage;               // rows staged in shared memory (else read from global memory)
 };
 
 // Window columns of one lane from the packed text: 16 columns a group as
@@ -189,7 +225,8 @@ __global__ void __launch_bounds__(kMaxThreads) myers_kernel(const Args a) {
   const bool live_lane = q < a.Q;
   int32_t r = 0;
   if (live_lane) r = a.rid ? min(max(a.rid[q], 0), a.B - 1) : static_cast<int32_t>(q);
-  const T* row = gwa::stage_rows(static_cast<const T*>(a.reads), a.L, r, live_lane, smem);
+  const T* row = a.stage ? gwa::stage_rows(static_cast<const T*>(a.reads), a.L, r, live_lane, smem)
+                         : static_cast<const T*>(a.reads) + static_cast<int64_t>(r) * a.L;
   if (!live_lane) return;
 
   const int32_t len = a.lengths[r];
@@ -243,28 +280,258 @@ __global__ void __launch_bounds__(kMaxThreads) myers_kernel(const Args a) {
   a.end[q] = s.end;
 }
 
-template <int NW, typename T, class Stream>
-int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = myers_kernel<NW, T, Stream>;
+// Two blocks a multiprocessor at least, so a small cohort spreads over the
+// card (gwa::launch_staged halves the block down to a warp for it).
+template <typename T, class Kernel>
+int launch_spread(Kernel kernel, const Args& a, int group, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int threads = kMaxThreads;
-  while (threads > 32 && (a.Q + threads - 1) / threads < 2 * static_cast<int64_t>(sms)) threads /= 2;
-  const size_t smem = static_cast<size_t>(threads) * a.L * sizeof(T) + 16;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  return gwa::launch_staged<T>(kernel, a, group, 2 * static_cast<int64_t>(sms), stream);
+}
+
+template <int NW, typename T, class Stream>
+int launch(const Args& a, cudaStream_t stream) {
+  return launch_spread<T>(myers_kernel<NW, T, Stream>, a, 1, stream);
+}
+
+// ------------------------------------------------ a group of threads a lane
+
+// P words of one thread in registers.
+template <int P>
+struct RegWords {
+  // the 16 columns a text word are unrolled for 4 words a thread only: at 8
+  // and 16 the unrolled step is so long that nvcc's build time, not the
+  // loop overhead, is what it costs
+  static constexpr bool kUnroll = P <= 4;
+  uint32_t e0[P], e1[P], e2[P], e3[P], pv_[P], mv_[P], s_[P];
+
+  __device__ __forceinline__ void init(const Args&, int64_t) {}
+  __device__ __forceinline__ int n() const { return P; }
+  __device__ __forceinline__ uint32_t peq(uint32_t code, int u) const {
+    const uint32_t e01 = (code & 1u) ? e1[u] : e0[u];
+    const uint32_t e23 = (code & 1u) ? e3[u] : e2[u];
+    return (code & 2u) ? e23 : e01;
   }
-  const unsigned blocks = static_cast<unsigned>((a.Q + threads - 1) / threads);
-  kernel<<<blocks, threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  __device__ __forceinline__ void set_eq(int u, uint32_t m0, uint32_t m1, uint32_t m2,
+                                         uint32_t m3) {
+    e0[u] = m0;
+    e1[u] = m1;
+    e2[u] = m2;
+    e3[u] = m3;
+  }
+  __device__ __forceinline__ uint32_t& pv(int u) { return pv_[u]; }
+  __device__ __forceinline__ uint32_t& mv(int u) { return mv_[u]; }
+  __device__ __forceinline__ uint32_t& s(int u) { return s_[u]; }
+};
+
+// wpt words of one thread in the scratch buffer: vector v's word u of
+// thread t at (v wpt + u) stride + t, so a warp's threads touch consecutive
+// words.
+struct MemWords {
+  static constexpr bool kUnroll = false;
+  uint32_t* p;
+  int64_t stride;
+  int np;
+
+  __device__ __forceinline__ void init(const Args& a, int64_t t) {
+    p = a.scratch + t;
+    stride = a.stride;
+    np = a.wpt;
+  }
+  __device__ __forceinline__ int n() const { return np; }
+  __device__ __forceinline__ uint32_t& at(int v, int u) const {
+    return p[(static_cast<int64_t>(v) * np + u) * stride];
+  }
+  __device__ __forceinline__ uint32_t peq(uint32_t code, int u) const {
+    return at(static_cast<int>(code), u);
+  }
+  __device__ __forceinline__ void set_eq(int u, uint32_t m0, uint32_t m1, uint32_t m2,
+                                         uint32_t m3) {
+    at(0, u) = m0;
+    at(1, u) = m1;
+    at(2, u) = m2;
+    at(3, u) = m3;
+  }
+  __device__ __forceinline__ uint32_t& pv(int u) { return at(4, u); }
+  __device__ __forceinline__ uint32_t& mv(int u) { return at(5, u); }
+  __device__ __forceinline__ uint32_t& s(int u) { return at(6, u); }
+};
+
+template <class Words>
+struct GroupLane {
+  Words w;
+  int own;           // this thread's word holding bit len-1, or -1
+  uint32_t own_bit;
+  uint32_t top;      // the warp's group-top lanes: no carry leaves a group
+  int j, ln, G;      // index in the group, lane in the warp, group size
+  int32_t score, best, end;
+
+  __device__ __forceinline__ void step(uint32_t code, bool live, int32_t t) {
+    const int n = w.n();
+    // the thread's add with carry-in 0; pre: every word so far all ones
+    uint32_t carry = 0u, pre = 1u, pre_top = 1u;
+#pragma unroll
+    for (int u = 0; u < n; ++u) {
+      const uint32_t peq = live ? w.peq(code, u) : 0u;
+      const uint32_t pv = w.pv(u);
+      const uint64_t sum = static_cast<uint64_t>(peq & pv) + pv + carry;
+      carry = static_cast<uint32_t>(sum >> 32);
+      w.s(u) = static_cast<uint32_t>(sum);
+      if (u == n - 1) pre_top = pre;
+      pre &= static_cast<uint32_t>(static_cast<uint32_t>(sum) == kFull);
+    }
+    // carry lookahead over the group: carry into thread i = g_{i-1} |
+    // (p_{i-1} & carry into i-1), the carries of the add (g | p) + g
+    const uint32_t gen = __ballot_sync(kFull, carry != 0u);
+    const uint32_t prop = __ballot_sync(kFull, pre != 0u);
+    const uint32_t ga = (gen | prop) & ~top, gb = gen & ~top;
+    const uint32_t cin = (((ga + gb) ^ ga ^ gb) >> ln) & 1u;
+    // the top word first: its Ph and Mh top bits enter the next thread
+    const int ut = n - 1;
+    const uint32_t pv_t = w.pv(ut), mv_t = w.mv(ut);
+    const uint32_t peq_t = live ? w.peq(code, ut) : 0u;
+    const uint32_t d0_t = ((w.s(ut) + (cin & pre_top)) ^ pv_t) | peq_t | mv_t;
+    const uint32_t hp_t = mv_t | ~(pv_t | d0_t), hn_t = pv_t & d0_t;
+    uint32_t in = __shfl_up_sync(kFull, (hp_t >> 31) | ((hn_t >> 31) << 1), 1, G);
+    if (j == 0) in = 0u;  // word 0: the search variant's free text start
+    uint32_t hp_in = in & 1u, hn_in = in >> 1;
+    uint32_t up = 0u, dn = 0u, below = 1u;
+#pragma unroll
+    for (int u = 0; u < n; ++u) {
+      const uint32_t peq = live ? w.peq(code, u) : 0u;
+      const uint32_t pv = w.pv(u), mv = w.mv(u), sum = w.s(u);
+      const uint32_t d0 = ((sum + (cin & below)) ^ pv) | peq | mv;
+      below &= static_cast<uint32_t>(sum == kFull);
+      const uint32_t hn = pv & d0;
+      const uint32_t hp = mv | ~(pv | d0);
+      const uint32_t m = u == own ? own_bit : 0u;
+      up |= hp & m;
+      dn |= hn & m;
+      const uint32_t xs = (hp << 1) | hp_in;
+      hp_in = hp >> 31;
+      const uint32_t hns = (hn << 1) | hn_in;
+      hn_in = hn >> 31;
+      w.mv(u) = xs & d0;
+      w.pv(u) = hns | ~(xs | d0);
+    }
+    score += (up != 0u) - (dn != 0u);
+    if (score < best) {  // strict: ties keep the earliest end
+      best = score;
+      end = t + 1;
+    }
+  }
+};
+
+template <class Words, typename T, class Stream>
+__global__ void __launch_bounds__(kMaxThreads) myers_group_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = a.group;
+  const int64_t gt = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t q = gt / G;
+  const bool live_lane = q < a.Q;
+  const int64_t qc = live_lane ? q : a.Q - 1;  // a lane past the end runs lane Q-1, unwritten
+  const int32_t r = a.rid ? min(max(a.rid[qc], 0), a.B - 1) : static_cast<int32_t>(qc);
+  const T* row = a.stage ? gwa::stage_rows(static_cast<const T*>(a.reads), a.L, r, live_lane,
+                                           smem, G)
+                         : static_cast<const T*>(a.reads) + static_cast<int64_t>(r) * a.L;
+  if (__all_sync(kFull, !live_lane)) return;  // no later __syncthreads
+
+  GroupLane<Words> s;
+  s.w.init(a, gt);
+  s.G = G;
+  s.j = static_cast<int>(threadIdx.x) & (G - 1);
+  s.ln = static_cast<int>(threadIdx.x) & 31;
+  const uint32_t low = G == 32 ? 1u : kFull / ((1u << G) - 1u);  // bit 0 of each group
+  s.top = low << (G - 1);
+  const int n = s.w.n();
+  const int32_t len = live_lane ? a.lengths[r] : 0;
+  const int32_t n_in = len < a.L ? len : a.L;
+  const int32_t last_word = len >= 1 ? (len - 1) >> 5 : -1;
+  const bool has_owner = last_word >= 0 && last_word < a.nwords;
+  s.own = has_owner ? last_word - s.j * n : -1;
+  if (s.own >= n) s.own = -1;
+  s.own_bit = len >= 1 ? 1u << ((len - 1) & 31) : 0u;
+  const bool writer = has_owner ? (s.own >= 0) : (s.j == 0);
+  // Peq[c][word]: bit b of word v set iff read[32 v + b] == c (i < len)
+#pragma unroll
+  for (int u = 0; u < n; ++u) {
+    const int32_t v = s.j * n + u;
+    const int32_t base = 32 * v;
+    const int32_t hi = v < a.nwords ? min(max(n_in - base, 0), 32) : 0;
+    uint32_t m0 = 0, m1 = 0, m2 = 0, m3 = 0;
+    for (int32_t b = 0; b < hi; ++b) {
+      const int32_t c = static_cast<int32_t>(row[base + b]);
+      const uint32_t bit = 1u << b;
+      m0 |= c == 0 ? bit : 0u;
+      m1 |= c == 1 ? bit : 0u;
+      m2 |= c == 2 ? bit : 0u;
+      m3 |= c == 3 ? bit : 0u;
+    }
+    s.w.set_eq(u, m0, m1, m2, m3);
+    s.w.pv(u) = kFull;
+    s.w.mv(u) = 0u;
+  }
+  s.score = len;
+  s.best = len;
+  s.end = 0;
+
+  Stream win;
+  win.init(a, qc);
+  const int32_t full = a.steps / static_cast<int32_t>(kGroup);
+  const int32_t rem = a.steps % static_cast<int32_t>(kGroup);
+  uint32_t codes, live;
+  for (int32_t u = 0; u < full; ++u) {
+    win.group(u, codes, live);
+    const int32_t t0 = static_cast<int32_t>(kGroup) * u;
+    if constexpr (Words::kUnroll) {
+#pragma unroll
+      for (int jj = 0; jj < static_cast<int>(kGroup); ++jj)
+        s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u, t0 + jj);
+    } else {
+#pragma unroll 1
+      for (int jj = 0; jj < static_cast<int>(kGroup); ++jj)
+        s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u, t0 + jj);
+    }
+  }
+  if (rem) {
+    win.group(full, codes, live);
+    const int32_t t0 = static_cast<int32_t>(kGroup) * full;
+    for (int32_t jj = 0; jj < rem; ++jj)
+      s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u, t0 + jj);
+  }
+  if (live_lane && writer) {
+    a.best[q] = s.best;
+    a.end[q] = s.end;
+  }
+}
+
+// The group's shape from nwords: P = 4 words a thread and G the power of
+// two that covers nwords (4..32 threads, up to 128 words), then a warp of 8
+// or 16 words a thread, then a warp over the scratch buffer.
+struct Shape {
+  int group, wpt;
+};
+
+__host__ __device__ inline Shape group_shape(int32_t nwords) {
+  if (nwords <= 4 * 32) {
+    int g = 4;
+    while (g * 4 < nwords) g *= 2;
+    return {g, 4};
+  }
+  if (nwords <= 8 * 32) return {32, 8};
+  if (nwords <= kMemWords) return {32, 16};
+  return {32, (nwords + 31) / 32};
+}
+
+template <class Words, typename T, class Stream>
+int launch_group(const Args& a, cudaStream_t stream) {
+  return launch_spread<T>(myers_group_kernel<Words, T, Stream>, a, a.group, stream);
 }
 
 template <typename T, class Stream>
-int dispatch(int32_t nwords, const Args& a, cudaStream_t s) {
+int dispatch(int32_t nwords, Args a, int64_t scratch_words, cudaStream_t s) {
   switch (nwords) {
     case 1: return launch<1, T, Stream>(a, s);
     case 2: return launch<2, T, Stream>(a, s);
@@ -274,16 +541,40 @@ int dispatch(int32_t nwords, const Args& a, cudaStream_t s) {
     case 6: return launch<6, T, Stream>(a, s);
     case 7: return launch<7, T, Stream>(a, s);
     case 8: return launch<8, T, Stream>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
+  }
+  if (nwords < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh = group_shape(nwords);
+  a.nwords = nwords;
+  a.group = sh.group;
+  a.wpt = sh.wpt;
+  if (nwords > kMemWords) {
+    a.stride = a.Q * sh.group;
+    if (!a.scratch || scratch_words < kScratchVectors * static_cast<int64_t>(sh.wpt) * a.stride)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_group<MemWords, T, Stream>(a, s);
+  }
+  switch (sh.wpt) {
+    case 4: return launch_group<RegWords<4>, T, Stream>(a, s);
+    case 8: return launch_group<RegWords<8>, T, Stream>(a, s);
+    default: return launch_group<RegWords<16>, T, Stream>(a, s);
   }
 }
 
 }  // namespace
 
+// Scratch words a launch over Q lanes of nwords needs (0 up to kMemWords).
+extern "C" int64_t gwa_myers_scratch_words(int64_t Q, int32_t nwords) {
+  if (nwords <= kMemWords) return 0;
+  const Shape sh = group_shape(nwords);
+  return kScratchVectors * static_cast<int64_t>(sh.wpt) * Q * sh.group;
+}
+
 // The windows entry.  elem_bytes: 1 for int8 reads and windows, 4 for int32.
 extern "C" int gwa_myers(const void* reads, const void* lengths, const void* windows, void* best,
                          void* end, int64_t Q, int32_t L, int32_t W, int32_t nwords,
-                         int32_t steps, int32_t elem_bytes, void* stream) {
+                         int32_t steps, int32_t elem_bytes, void* scratch, int64_t scratch_words,
+                         void* stream) {
   if (Q <= 0) return 0;
   if (L < 0 || steps < 0 || (steps > 0 && W <= 0) || Q > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -298,9 +589,10 @@ extern "C" int gwa_myers(const void* reads, const void* lengths, const void* win
   a.L = L;
   a.W = W;
   a.steps = steps;
+  a.scratch = static_cast<uint32_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 1) return dispatch<int8_t, WindowStream<int8_t>>(nwords, a, s);
-  if (elem_bytes == 4) return dispatch<int32_t, WindowStream<int32_t>>(nwords, a, s);
+  if (elem_bytes == 1) return dispatch<int8_t, WindowStream<int8_t>>(nwords, a, scratch_words, s);
+  if (elem_bytes == 4) return dispatch<int32_t, WindowStream<int32_t>>(nwords, a, scratch_words, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -310,7 +602,8 @@ extern "C" int gwa_myers(const void* reads, const void* lengths, const void* win
 extern "C" int gwa_myers_text(const void* text, int32_t nw, int32_t n_text, const void* starts,
                               const void* reads, const void* lengths, const void* rid,
                               const void* valid, void* best, void* end, int64_t Q, int32_t B,
-                              int32_t L, int32_t W, int32_t nwords, void* stream) {
+                              int32_t L, int32_t W, int32_t nwords, void* scratch,
+                              int64_t scratch_words, void* stream) {
   if (Q <= 0) return 0;
   if (B <= 0 || L < 0 || W < 0 || nw <= 0 || n_text < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -330,5 +623,6 @@ extern "C" int gwa_myers_text(const void* text, int32_t nw, int32_t n_text, cons
   a.steps = W;
   a.nw = nw;
   a.n_text = n_text;
-  return dispatch<int8_t, TextStream>(nwords, a, static_cast<cudaStream_t>(stream));
+  a.scratch = static_cast<uint32_t*>(scratch);
+  return dispatch<int8_t, TextStream>(nwords, a, scratch_words, static_cast<cudaStream_t>(stream));
 }

@@ -22,8 +22,9 @@ host (``ops.affine``, half-width ``kb + band``).
 
 Differences from the JAX package: the aligner uploads only the packed text
 and the seed table (the JAX one also uploads the FM tables, of which it
-reads only the text length), and it refuses a ``kb`` outside the kernel's
-1..16 when built (the JAX engines compute any).
+reads only the text length), and it refuses a negative ``kb`` when built
+(the JAX engine fails on it when it verifies: a band of 4 kb + 1 < 1
+slots).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import affine, dp_cuda
+from ..ops import affine
 from ..ops import dp as dp_ops
 from ..ops import window
 from .pipeline import _to_device, revcomp_verify_batch
@@ -142,7 +143,8 @@ class LongReadAligner:
     A read maps when its summed per-segment banded distance is at most
     ``max_edit_frac`` of its length and at least ``min_support`` segments
     voted for the winning diagonal.  ``kb`` is the segment verify's band
-    half-width, 1..16 (the kernel's range)."""
+    half-width, any kb >= 0 (the banded kernel holds the band in one
+    thread up to 16, in a group of threads past it)."""
 
     def __init__(
         self,
@@ -158,9 +160,9 @@ class LongReadAligner:
         max_edit_frac: float = 0.12,
         device: str | torch.device = "cuda",  # the CPU only when asked for
     ):
-        if not 1 <= kb <= dp_cuda.MAX_K:
-            raise ValueError(f"kb={kb}: the long-read segment verify takes 1 <= kb <= "
-                             f"{dp_cuda.MAX_K}")
+        if kb < 0:
+            raise ValueError(f"kb={kb}: the long-read segment verify takes kb >= 0 (a band "
+                             f"of 4 kb + 1 slots)")
         self.gi = gi
         self.device = torch.device(device)
         self.n_text = int(gi.fwd.n)

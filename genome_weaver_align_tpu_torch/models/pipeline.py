@@ -50,7 +50,7 @@ from . import exact, staircase, suffix_filter
 I32 = torch.int32
 # The k-edit aligners take 1 <= k <= MAX_ALIGNER_K: the packed result's 4-bit
 # distance field saturates at 15, so a read at distance 15 would read as
-# unmapped.  The banded DP kernel itself takes k up to ``dp_cuda.MAX_K``.
+# unmapped.  The banded DP kernel itself takes any k >= 0.
 MAX_ALIGNER_K = 14
 
 

@@ -46,7 +46,8 @@ def banded_edit_distance(
     dev = reads.device
     lengths = lengths.to(torch.int32)
 
-    boff = torch.arange(band, dtype=torch.int32, device=dev) - k  # j - i per slot
+    slot = torch.arange(band, dtype=torch.int32, device=dev)
+    boff = slot - k  # j - i per slot
     inf_col = torch.full((Q, 1), INF, dtype=torch.int32, device=dev)
     # row i=0: D(0, j) = 0 wherever j = b - k is a valid window position
     D = torch.where(boff >= 0, 0, INF).to(torch.int32).expand(Q, band).contiguous()
@@ -61,11 +62,11 @@ def banded_edit_distance(
         # read-insertion: D(i, j) -> D(i+1, j): slot shifts down by one
         ins = torch.cat([D[:, 1:], inf_col], dim=1) + 1
         tmp = torch.where(valid, torch.minimum(diag, ins), INF)
-        # window-deletion: running min along the band (in-row dependency)
-        cols = [tmp[:, 0]]
-        for b in range(1, band):
-            cols.append(torch.minimum(tmp[:, b], cols[-1] + 1))
-        D = torch.where(active, torch.stack(cols, dim=1), D)
+        # window-deletion: the running min D[b] = min(tmp[b], D[b-1] + 1)
+        # along the band, which is b + the prefix min of tmp[j] - j (exact:
+        # no value saturates)
+        run = torch.cummin(tmp - slot, dim=1).values + slot
+        D = torch.where(active, run, D)
 
     j_end = lengths[:, None] + boff[None, :]
     valid_end = (j_end >= 0) & (j_end <= W)
@@ -248,3 +249,77 @@ def traceback_banded_batch(
         vals = row[np.r_[cut, row.size - 1]]
         cigars.append("".join(f"{r}{sym[v]}" for r, v in zip(runs, vals)))
     return dist, start, cigars
+
+
+# ---------------------------------------------------------------- host oracle
+#
+# Full-matrix (unbanded) semi-global DP on the host, copies of the JAX
+# package's numpy oracles: independent of the band, they check the banded
+# DP and Myers on single lanes.
+
+
+def edit_distance_semiglobal_host(read: np.ndarray, window: np.ndarray) -> int:
+    """Full-matrix oracle: min edits of read vs any substring of window."""
+    L, W = read.size, window.size
+    prev = np.zeros(W + 1, dtype=np.int64)
+    for i in range(L):
+        cur = np.empty(W + 1, dtype=np.int64)
+        cur[0] = i + 1
+        sub = prev[:-1] + ((window != read[i]) | (read[i] >= 4))
+        ins = prev[1:] + 1
+        best = np.minimum(sub, ins)
+        # sequential deletion scan
+        run = cur[0]
+        for j in range(W):
+            run = min(best[j], run + 1)
+            cur[j + 1] = run
+        prev = cur
+    return int(prev.min())
+
+
+def traceback_semiglobal_host(read: np.ndarray, window: np.ndarray):
+    """Full DP + traceback -> (dist, start_in_window, end_in_window, cigar).
+
+    CIGAR uses M (match/mismatch), I (insertion to reference = extra read
+    base), D (deletion from reference).  Leading/trailing window bases free.
+    """
+    L, W = read.size, window.size
+    D = np.zeros((L + 1, W + 1), dtype=np.int64)
+    D[:, 0] = np.arange(L + 1)
+    for i in range(1, L + 1):
+        sub = D[i - 1, :-1] + ((window != read[i - 1]) | (read[i - 1] >= 4))
+        ins = D[i - 1, 1:] + 1
+        best = np.minimum(sub, ins)
+        run = D[i, 0]
+        for j in range(W):
+            run = min(best[j], run + 1)
+            D[i, j + 1] = run
+    dist = int(D[L].min())
+    j = int(D[L].argmin())
+    i = L
+    ops = []
+    while i > 0:
+        if j > 0 and D[i, j] == D[i - 1, j - 1] + (
+            (window[j - 1] != read[i - 1]) | (read[i - 1] >= 4)
+        ):
+            ops.append("M")
+            i -= 1
+            j -= 1
+        elif D[i, j] == D[i - 1, j] + 1:
+            ops.append("I")
+            i -= 1
+        elif j > 0 and D[i, j] == D[i, j - 1] + 1:
+            ops.append("D")
+            j -= 1
+        else:  # pragma: no cover - defensive
+            raise AssertionError("traceback stuck")
+    start = j
+    ops.reverse()
+    cigar = []  # run-length encode
+    for op in ops:
+        if cigar and cigar[-1][1] == op:
+            cigar[-1][0] += 1
+        else:
+            cigar.append([1, op])
+    cigar_str = "".join(f"{c}{op}" for c, op in cigar)
+    return dist, start, int(D[L].argmin()), cigar_str

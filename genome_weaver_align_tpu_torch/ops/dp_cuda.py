@@ -10,6 +10,12 @@ over one kernel body:
 - ``banded_edit_distance_cuda``: (Q, W) int8 windows and (Q, L) reads; equal
   to ``ops.dp.banded_edit_distance``.
 
+Both take any band half-width k >= 0 and any read length below INF, as
+the plain version does: one thread a lane for k <= ``REGISTER_K``, a group
+of 8-32 threads a lane for k <= ``GROUP_K``, a warp a lane over a scratch
+buffer (allocated here) past it; rows staged in shared memory while a
+block's lanes x L fits it, read from global memory past that.
+
 ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
 ``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
 when the build fails, loading raises: there is no fallback to the plain
@@ -26,9 +32,15 @@ import torch
 from ._cuda_build import load_kernel_library
 from .dp import INF
 
-MAX_K = 16  # the kernel is instantiated for k = 1..MAX_K: the long-read band, kb = 16
-_THREADS = 128  # lanes a block; the block stages up to this many read rows
-_MAX_SMEM = 232_448  # shared memory a block can have on sm_90
+REGISTER_K = 16  # one thread a lane (the band in registers) for k = 0..REGISTER_K
+GROUP_K = 127  # a group of threads a lane, 16 band slots a thread, up to here
+DESIGNS = ("lane", "group", "scratch")
+
+
+def design(k: int) -> str:
+    """The kernel a launch at band half-width k runs: one thread a lane, a
+    group of threads a lane, or a warp a lane over scratch."""
+    return "lane" if k <= REGISTER_K else "group" if k <= GROUP_K else "scratch"
 
 
 @functools.cache
@@ -38,8 +50,11 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.gwa_banded_dp.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int64, i32, i32, i32, i32, i32, i32, vp,
+        ctypes.c_int64, vp,
     ]
     lib.gwa_banded_dp.restype = ctypes.c_int
+    lib.gwa_banded_dp_scratch_words.argtypes = [ctypes.c_int64, i32]
+    lib.gwa_banded_dp_scratch_words.restype = ctypes.c_int64
     return lib
 
 
@@ -50,13 +65,11 @@ def _check_common(reads: torch.Tensor, lengths: torch.Tensor, k: int, name: str)
     if reads.dim() != 2 or lengths.shape != (reads.shape[0],):
         raise ValueError(f"{name}: shape mismatch: reads {tuple(reads.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k}: the CUDA banded DP is built for 1 <= k <= {MAX_K}")
+    if not 0 <= k < INF:  # the plain version's band needs 4k + 1 >= 1 slots
+        raise ValueError(f"k={k}: the banded DP takes 0 <= k < {INF}")
     L = reads.shape[1]
     if L >= INF:  # distances must stay below the saturation value
         raise ValueError(f"read length {L} >= {INF}: kernel would saturate")
-    if _THREADS * L + 16 > _MAX_SMEM:
-        raise ValueError(f"read length {L}: {_THREADS} rows of it exceed a block's shared memory")
 
 
 def _launch(reads, lengths, rid, windows, text, starts, Q: int, W: int, nw: int, n_text: int,
@@ -68,11 +81,13 @@ def _launch(reads, lengths, rid, windows, text, starts, Q: int, W: int, nw: int,
         return dist, end_b
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    n_scratch = lib.gwa_banded_dp_scratch_words(Q, k)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) if n_scratch else None
     with torch.cuda.device(dev):
         rc = lib.gwa_banded_dp(
             ptr(reads), ptr(lengths), ptr(rid), ptr(windows), ptr(text), ptr(starts),
             dist.data_ptr(), end_b.data_ptr(), Q, reads.shape[0], reads.shape[1], W, nw,
-            n_text, k, torch.cuda.current_stream().cuda_stream,
+            n_text, k, ptr(scratch), n_scratch, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gwa_banded_dp launch failed: CUDA error {rc}")
@@ -88,7 +103,8 @@ def banded_edit_distance_cuda(
     """Launch the windows entry -> (dist (Q,) int32, end_b (Q,) int32),
     equal to ``ops.dp.banded_edit_distance`` on every lane.  Launches on the
     current stream without synchronising; counts each launch in
-    ``.launches``."""
+    ``.launches`` and, by the kernel design it ran (``design``), in
+    ``.by_design``."""
     if not (reads.is_cuda and lengths.device == reads.device == windows.device):
         raise ValueError("banded_edit_distance_cuda needs all tensors on one CUDA device")
     if windows.dtype != torch.int8:
@@ -103,10 +119,12 @@ def banded_edit_distance_cuda(
     out = _launch(reads, lengths, None, windows, None, None, Q, windows.shape[1], 0, 0, k)
     if Q:
         banded_edit_distance_cuda.launches += 1
+        banded_edit_distance_cuda.by_design[design(k)] += 1
     return out
 
 
 banded_edit_distance_cuda.launches = 0
+banded_edit_distance_cuda.by_design = dict.fromkeys(DESIGNS, 0)  # launches by kernel design
 
 
 def banded_edit_distance_text_cuda(
@@ -123,7 +141,7 @@ def banded_edit_distance_text_cuda(
     to ``ops.dp.banded_edit_distance_text_plain`` on every lane.  A rid
     outside [0, B) is clamped into it (the plain version raises).  Launches
     on the current stream without synchronising; counts each launch in
-    ``.launches``."""
+    ``.launches`` and ``.by_design``."""
     ts = (text_words, starts, reads, lengths, rid)
     if not (reads.is_cuda and all(t.device == reads.device for t in ts)):
         raise ValueError("banded_edit_distance_text_cuda needs all tensors on one CUDA device")
@@ -145,7 +163,9 @@ def banded_edit_distance_text_cuda(
                   n_text, k)
     if Q:
         banded_edit_distance_text_cuda.launches += 1
+        banded_edit_distance_text_cuda.by_design[design(k)] += 1
     return out
 
 
 banded_edit_distance_text_cuda.launches = 0
+banded_edit_distance_text_cuda.by_design = dict.fromkeys(DESIGNS, 0)

@@ -8,17 +8,18 @@ packed into ``nwords`` 32-bit words; one window character costs ~20 word
 ops whatever the read length, with carry and shift propagation across
 words.  Window codes >= 4 have no matching bits (Peq = 0).
 
-Words are int32 tensors holding the JAX package's uint32 bits.  ``+``
-wraps, and ``>>`` is arithmetic, so every right shift is followed by a
-mask; the carry of a word add comes from the bit-majority identity
-``((a & b) | ((a | b) & ~s)) >> 31`` instead of an unsigned compare.
+Words are int32 tensors holding the JAX package's uint32 bits.  ``>>`` is
+arithmetic, so every right shift is followed by a mask; the multi-word add
+and the shift by one run over all words at once (the add's carries by
+lookahead in int64), so a step costs the same few dozen tensor operations
+whatever the read length.
 
 ``myers_semiglobal_text`` (windows streamed from the packed text: mate
 rescue and ``verify_mode="myers"``), ``myers_semiglobal`` and
 ``myers_semiglobal_end`` (windows given) send CUDA tensors to the
-hand-written kernel (``ops.myers_cuda``, source ``csrc/myers.cu``; it takes
-reads of at most 256 bases) and CPU tensors to the plain loop below; there
-is no fallback from one to the other.
+hand-written kernel (``ops.myers_cuda``, source ``csrc/myers.cu``; like the
+plain loop it takes any number of words) and CPU tensors to the plain loop
+below; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -55,31 +56,29 @@ def _scatter_or(bits: torch.Tensor, word: torch.Tensor, nwords: int) -> torch.Te
     return torch.stack(acc, dim=1)
 
 
-def _carry(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Carry out of the 32-bit add s = a + b: bit 31 of majority(a, b, ~s)."""
-    return (((a & b) | ((a | b) & ~s)) >> 31) & 1
-
-
 def _add_with_carry(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Multi-word unsigned add along the last axis; returns sum words."""
-    outs = []
-    carry = torch.zeros(a.shape[:-1], dtype=I32, device=a.device)
-    for w in range(a.shape[-1]):
-        s1 = a[..., w] + b[..., w]
-        s2 = s1 + carry
-        outs.append(s2)
-        carry = _carry(a[..., w], b[..., w], s1) | _carry(s1, carry, s2)
-    return torch.stack(outs, dim=-1)
+    """Multi-word unsigned add along the last axis (word 0 lowest, the carry
+    out of the top word dropped); returns the sum words.  Each word adds
+    with carry-in 0 in int64; the carry into word w is the generate bit of
+    the nearest word below w that does not propagate (a word whose sum is
+    all ones passes a carry on), found with one ``cummax`` over the words
+    whatever their number."""
+    m32 = (1 << 32) - 1
+    s = (a.long() & m32) + (b.long() & m32)
+    gen = s >> 32
+    decides = (gen == 1) | ((s & m32) != m32)  # not a pure propagate
+    idx = torch.arange(s.shape[-1], device=s.device).expand_as(s)
+    last = torch.where(decides, idx, -1).cummax(dim=-1).values  # nearest decider at or below
+    cin = torch.where(last >= 0, gen.gather(-1, last.clamp(min=0)), 0)
+    cin = torch.cat([torch.zeros_like(cin[..., :1]), cin[..., :-1]], dim=-1)
+    out = (s + cin) & m32
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(I32)
 
 
 def _shl1_or(x: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
     """(x << 1) | fill across the word chain (fill enters bit 0 of word 0)."""
-    outs = []
-    carry_in = fill.to(I32)
-    for w in range(x.shape[-1]):
-        outs.append((x[..., w] << 1) | carry_in)
-        carry_in = (x[..., w] >> 31) & 1
-    return torch.stack(outs, dim=-1)
+    below = torch.cat([fill.to(I32)[..., None], (x[..., :-1] >> 31) & 1], dim=-1)
+    return (x << 1) | below
 
 
 def _myers_plain(reads, lengths, windows, nwords: int, steps: int):

@@ -11,6 +11,11 @@ entries over one kernel body:
 - ``myers_semiglobal_cuda``: (Q, W) windows and (Q, L) reads; equal to
   ``ops.myers.myers_semiglobal_end``.
 
+Both take any number of words, as the plain version does: one thread a
+lane up to ``LANE_WORDS`` words, a group of 4-32 threads a lane (4, 8 or
+16 words a thread in registers) up to ``MEM_WORDS``, a warp a lane over a
+scratch buffer (allocated here) past it.
+
 ``ops._cuda_build`` compiles it at first use with ``nvcc`` for ``sm_90a``;
 without ``nvcc``, or when the build fails, loading raises: there is no
 fallback to the plain versions.
@@ -25,8 +30,15 @@ import torch
 
 from ._cuda_build import load_kernel_library
 
-MAX_LEN = 256  # 8 words of 32 bits, as the TPU kernel
-MAX_WORDS = MAX_LEN // 32
+LANE_WORDS = 8  # one thread a lane up to 8 words (256 bases), as the TPU kernel
+MEM_WORDS = 512  # a group's words in registers up to here (16,384 bases)
+DESIGNS = ("lane", "group", "scratch")
+
+
+def design(nwords: int) -> str:
+    """The kernel a launch over nwords words runs: one thread a lane, a
+    group of threads a lane, or a warp a lane over scratch."""
+    return "lane" if nwords <= LANE_WORDS else "group" if nwords <= MEM_WORDS else "scratch"
 
 
 @functools.cache
@@ -34,20 +46,28 @@ def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = load_kernel_library("myers.cu")
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
-    lib.gwa_myers.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64, i32, i32, i32, i32, i32, vp]
+    i64 = ctypes.c_int64
+    lib.gwa_myers.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp, i64, vp]
     lib.gwa_myers.restype = ctypes.c_int
     lib.gwa_myers_text.argtypes = [
-        vp, i32, i32, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int64, i32, i32, i32, i32, vp,
+        vp, i32, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp, i64, vp,
     ]
     lib.gwa_myers_text.restype = ctypes.c_int
+    lib.gwa_myers_scratch_words.argtypes = [i64, i32]
+    lib.gwa_myers_scratch_words.restype = i64
     return lib
 
 
-def _check_words(L: int, nwords: int) -> None:
-    if L > MAX_LEN:
-        raise ValueError(f"read length {L} > {MAX_LEN} unsupported")
-    if not 1 <= nwords <= MAX_WORDS:
-        raise ValueError(f"nwords={nwords}: the kernel is built for 1..{MAX_WORDS} words")
+def _check_words(nwords: int) -> None:
+    if not 1 <= nwords < 1 << 26:
+        raise ValueError(f"nwords={nwords}: the kernel takes 1 <= nwords < 2^26")
+
+
+def _scratch(lib, Q: int, nwords: int, device):
+    """The scratch buffer a launch past ``MEM_WORDS`` words needs: (tensor
+    or None, its words)."""
+    n = lib.gwa_myers_scratch_words(Q, nwords)
+    return (torch.empty(n, dtype=torch.int32, device=device) if n else None), n
 
 
 def myers_semiglobal_cuda(
@@ -60,7 +80,8 @@ def myers_semiglobal_cuda(
     """Launch the kernel -> (best (Q,) int32, end (Q,) int32), equal to
     ``ops.myers.myers_semiglobal_end`` on every lane.  Launches on the
     current stream without synchronising; counts each launch in
-    ``.launches``."""
+    ``.launches`` and, by the kernel design it ran (``design``), in
+    ``.by_design``."""
     if not (reads.is_cuda and lengths.device == reads.device == windows.device):
         raise ValueError("myers_semiglobal_cuda needs all tensors on one CUDA device")
     if reads.dtype != windows.dtype or reads.dtype not in (torch.int8, torch.int32) \
@@ -81,7 +102,7 @@ def myers_semiglobal_cuda(
     W = windows.shape[1]
     nwords = max(1, -(-L // 32)) if nwords is None else nwords
     steps = W if steps is None else steps
-    _check_words(L, nwords)
+    _check_words(nwords)
     if steps > 0 and W == 0:
         raise ValueError("windows have no columns to step over")
     best = torch.empty(Q, dtype=torch.int32, device=reads.device)
@@ -89,19 +110,23 @@ def myers_semiglobal_cuda(
     if Q == 0:
         return best, end
     lib = _library()
+    scratch, n_scratch = _scratch(lib, Q, nwords, reads.device)
     with torch.cuda.device(reads.device):
         rc = lib.gwa_myers(
             reads.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
             best.data_ptr(), end.data_ptr(), Q, L, W, nwords, steps,
-            reads.element_size(), torch.cuda.current_stream().cuda_stream,
+            reads.element_size(), None if scratch is None else scratch.data_ptr(), n_scratch,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gwa_myers launch failed: CUDA error {rc}")
     myers_semiglobal_cuda.launches += 1
+    myers_semiglobal_cuda.by_design[design(nwords)] += 1
     return best, end
 
 
 myers_semiglobal_cuda.launches = 0
+myers_semiglobal_cuda.by_design = dict.fromkeys(DESIGNS, 0)  # launches by kernel design
 
 
 def myers_semiglobal_text_cuda(
@@ -119,7 +144,7 @@ def myers_semiglobal_text_cuda(
     ``ops.myers.myers_semiglobal_text_plain`` on every lane.  A rid outside
     [0, B) is clamped into it (the plain version raises).  Launches on the
     current stream without synchronising; counts each launch in
-    ``.launches``."""
+    ``.launches`` and ``.by_design``."""
     ts = (text_words, starts, reads, lengths, rid, valid)
     if not (reads.is_cuda and all(t.device == reads.device for t in ts)):
         raise ValueError("myers_semiglobal_text_cuda needs all tensors on one CUDA device")
@@ -133,7 +158,7 @@ def myers_semiglobal_text_cuda(
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("myers_semiglobal_text_cuda needs contiguous tensors")
     B, L = reads.shape
-    _check_words(L, nwords)
+    _check_words(nwords)
     if not 0 <= n_text < 1 << 31 or W < 0:
         raise ValueError(f"n_text={n_text}, W={W}: out of the kernel's int32 range")
     best = torch.empty(Q, dtype=torch.int32, device=reads.device)
@@ -143,17 +168,21 @@ def myers_semiglobal_text_cuda(
     if B == 0 or text_words.shape[0] == 0:
         raise ValueError("myers_semiglobal_text_cuda needs at least one read and one text word")
     lib = _library()
+    scratch, n_scratch = _scratch(lib, Q, nwords, reads.device)
     with torch.cuda.device(reads.device):
         rc = lib.gwa_myers_text(
             text_words.data_ptr(), text_words.shape[0], n_text, starts.data_ptr(),
             reads.data_ptr(), lengths.data_ptr(), rid.data_ptr(), valid.data_ptr(),
             best.data_ptr(), end.data_ptr(), Q, B, L, W, nwords,
+            None if scratch is None else scratch.data_ptr(), n_scratch,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gwa_myers_text launch failed: CUDA error {rc}")
     myers_semiglobal_text_cuda.launches += 1
+    myers_semiglobal_text_cuda.by_design[design(nwords)] += 1
     return best, end
 
 
 myers_semiglobal_text_cuda.launches = 0
+myers_semiglobal_text_cuda.by_design = dict.fromkeys(DESIGNS, 0)

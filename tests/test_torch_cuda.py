@@ -48,7 +48,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("k", range(1, dp_cuda.MAX_K + 1))
+@pytest.mark.parametrize("k", range(1, dp_cuda.REGISTER_K + 1))
 @pytest.mark.parametrize("narrow", [False, True])
 def test_kernel_equals_plain(cuda, k, narrow):
     rng = np.random.default_rng(k)
@@ -69,27 +69,67 @@ def test_kernel_equals_plain(cuda, k, narrow):
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
-    r = torch.zeros((4, 10), dtype=torch.int8, device=cuda)
-    w = torch.zeros((4, 16), dtype=torch.int8, device=cuda)
+    """The wrappers refuse a wrong dtype, a strided tensor and a negative
+    band; a band past the one-thread kernel (k = 17, a group of threads)
+    and reads of 1,816 bases (128 rows of them overflow a block's shared
+    memory: fewer rows a block) are taken and equal the plain version."""
+    rng = np.random.default_rng(17)
+    r = torch.from_numpy(rng.integers(0, 5, size=(4, 10)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(0, 5, size=(4, 16)).astype(np.int8)).to(cuda)
     ln = torch.full((4,), 10, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=f"k={dp_cuda.MAX_K + 1}"):
-        dp_cuda.banded_edit_distance_cuda(r, ln, w, dp_cuda.MAX_K + 1)
+    k = dp_cuda.REGISTER_K + 1
+    got = dp_cuda.banded_edit_distance_cuda(r, ln, w, k)
+    want = dp.banded_edit_distance(r, ln, w, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="int8"):
         dp_cuda.banded_edit_distance_cuda(r.int(), ln, w, 2)
     with pytest.raises(ValueError, match="contiguous"):
         dp_cuda.banded_edit_distance_cuda(r.t().contiguous().t(), ln, w, 2)
     got = dp_cuda.banded_edit_distance_cuda(r[:0], ln[:0], w[:0], 2)
     assert got[0].shape == (0,)
-    long_r = torch.zeros((4, 1816), dtype=torch.int8, device=cuda)  # 128 rows exceed the block
-    with pytest.raises(ValueError, match="shared memory"):
-        dp_cuda.banded_edit_distance_cuda(long_r, ln, torch.zeros((4, 1822), dtype=torch.int8,
-                                                                  device=cuda), 2)
+    long_r = torch.from_numpy(rng.integers(0, 5, size=(4, 1816)).astype(np.int8)).to(cuda)
+    long_w = long_r.new_zeros((4, 1822))
+    long_w[:, 2:1818] = long_r
+    long_ln = torch.full((4,), 1816, dtype=torch.int32, device=cuda)
+    got = dp_cuda.banded_edit_distance_cuda(long_r, long_ln, long_w, 2)
+    want = dp.banded_edit_distance(long_r, long_ln, long_w, 2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     words = torch.zeros(8, dtype=torch.int32, device=cuda)
     starts = torch.zeros(4, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="k=0"):
-        dp_cuda.banded_edit_distance_text_cuda(words, 100, starts, r, ln, starts, 0, 16)
+    with pytest.raises(ValueError, match="k=-1"):
+        dp_cuda.banded_edit_distance_text_cuda(words, 100, starts, r, ln, starts, -1, 16)
     with pytest.raises(ValueError, match="int32"):
         dp_cuda.banded_edit_distance_text_cuda(words, 100, starts.long(), r, ln, starts, 2, 16)
+
+
+@pytest.mark.parametrize("k,L", [(0, 77), (16, 77), (17, 77), (24, 128), (32, 128), (64, 128),
+                                 (127, 60), (128, 60), (200, 40), (2, 1815), (2, 1816),
+                                 (2, 7231), (2, 7232), (17, 3000)])
+def test_kernel_designs_equal_plain(cuda, k, L):
+    """Both entries on each side of the kernel's design edges: one thread
+    a lane up to k = 16 (and k = 0, a band of one slot), a group of 8-32
+    threads a lane up to 127, a warp over scratch past it; reads whose
+    rows fill a block's shared memory at 128, 64 and 32 threads a block,
+    and past a warp's (rows from global memory).  dist and end_b equal
+    to plain on every lane, and each launch counted under its design."""
+    W = L + 3 * k
+    Q = 1001 if L < 1000 else 300
+    for B in (Q, Q // 6):  # a lane a read, ~6 lanes a read
+        words, n, starts, reads, lengths, rid = (
+            torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in _text_inputs(k, W, k + L + B, Q=Q, B=B, L=L))
+        before = dict(dp_cuda.banded_edit_distance_text_cuda.by_design)
+        got = dp.banded_edit_distance_text(words, n, starts, reads, lengths, rid, k, W)
+        after = dp_cuda.banded_edit_distance_text_cuda.by_design
+        assert after[dp_cuda.design(k)] == before[dp_cuda.design(k)] + 1
+        want = dp.banded_edit_distance_text_plain(words, n, starts, reads, lengths, rid, k, W)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
+        r, ln = reads[rid.long()].contiguous(), lengths[rid.long()].contiguous()
+        wins = window.gather_windows(words, n, starts, W)
+        got = dp_cuda.banded_edit_distance_cuda(r, ln, wins, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
 
 
 def _text_inputs(k, W, seed, Q=3001, B=500, L=77, n=20_000):
@@ -114,7 +154,7 @@ def _text_inputs(k, W, seed, Q=3001, B=500, L=77, n=20_000):
     return words.view(np.int32), n, starts, reads, lengths, rid
 
 
-@pytest.mark.parametrize("k", range(1, dp_cuda.MAX_K + 1))
+@pytest.mark.parametrize("k", range(1, dp_cuda.REGISTER_K + 1))
 @pytest.mark.parametrize("narrow", [False, True])
 def test_text_entry_equals_plain(cuda, k, narrow):
     """The fused entry (window gathered from the packed text in the kernel)
@@ -212,11 +252,18 @@ def test_myers_kernel_equals_plain(cuda, L, dtype):
 
 
 def test_myers_kernel_rejects_what_it_cannot_take(cuda):
-    r = torch.zeros((4, 257), dtype=torch.int8, device=cuda)
-    w = torch.zeros((4, 300), dtype=torch.int8, device=cuda)
-    ln = torch.full((4,), 257, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="257"):
-        myers_cuda.myers_semiglobal_cuda(r, ln, w)
+    """The wrappers refuse CPU tensors, a strided tensor, mixed dtypes and
+    no words; reads of 257 bases (9 words: a group of threads a lane) are
+    taken by both entries and equal the plain version."""
+    reads, lengths, wins = _myers_inputs(4, 257, 300, 257)
+    r = torch.from_numpy(reads).to(cuda, torch.int8)
+    w = torch.from_numpy(wins).to(cuda, torch.int8)
+    ln = torch.from_numpy(lengths).to(cuda)
+    got = myers_cuda.myers_semiglobal_cuda(r, ln, w)
+    want = myers._myers_plain(r, ln, w, 9, 300)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="nwords=0"):
+        myers_cuda.myers_semiglobal_cuda(r, ln, w, 0)
     r, w, ln = r[:, :100].contiguous(), w[:, :120].contiguous(), ln.clone().fill_(100)
     with pytest.raises(ValueError, match="CUDA"):
         myers_cuda.myers_semiglobal_cuda(r.cpu(), ln.cpu(), w.cpu())
@@ -226,11 +273,16 @@ def test_myers_kernel_rejects_what_it_cannot_take(cuda):
         myers_cuda.myers_semiglobal_cuda(r, ln, w.int())
     got = myers_cuda.myers_semiglobal_cuda(r[:0], ln[:0], w[:0])
     assert got[0].shape == (0,)
-    words = torch.zeros(8, dtype=torch.int32, device=cuda)
+    words = torch.from_numpy(packing.pack(np.arange(128, dtype=np.uint8) % 4).view(np.int32))
+    words = words.to(cuda)
     z = torch.zeros(4, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="257"):
-        myers_cuda.myers_semiglobal_text_cuda(words, 100, z, torch.zeros((4, 257), dtype=torch.int8,
-                                              device=cuda), ln, z, z + 9, 300, 9)
+    r257 = torch.from_numpy(reads).to(cuda, torch.int8)
+    ln257 = torch.from_numpy(lengths).to(cuda)
+    args = (words, 128, z - 5, r257, ln257, z + torch.arange(4, dtype=torch.int32, device=cuda),
+            z + 290, 300, 9)
+    got = myers_cuda.myers_semiglobal_text_cuda(*args)
+    want = myers.myers_semiglobal_text_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="int8"):
         myers_cuda.myers_semiglobal_text_cuda(words, 100, z, r.int(), ln, z, z, 120, 4)
     got = myers_cuda.myers_semiglobal_text_cuda(words, 100, z[:0], r, ln, z[:0], z[:0], 120, 4)
@@ -261,6 +313,37 @@ def _myers_text_inputs(L, W, B, Q, seed, n=30_000):
     lengths[::37] = 0
     valid = np.where(rng.random(Q) < 0.5, W, rng.integers(-2, W + 1, size=Q)).astype(np.int32)
     return words, n, starts, reads, lengths, rid, valid
+
+
+@pytest.mark.parametrize("nwords", [8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513])
+def test_myers_designs_equal_plain(cuda, nwords):
+    """Both entries on each side of the kernel's design edges: one thread a
+    lane up to 8 words, then groups of 4, 8, 16 and 32 threads of 4 words,
+    a warp of 8 and of 16 words a thread, and a warp over scratch past 512
+    words (reads of 32 nwords - 5 bases; the int32 windows entry too).
+    (best, end) equal to plain on every lane, each launch counted under
+    its design."""
+    L = 32 * nwords - 5
+    W = L + 43
+    Q = 257 if nwords <= 64 else 64
+    words, n, starts, reads, lengths, rid, valid = _myers_text_inputs(L, W, Q, Q, nwords,
+                                                                      n=L + 30_000)
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in (words, n, starts, reads, lengths, rid, valid)]
+    before = dict(myers_cuda.myers_semiglobal_text_cuda.by_design)
+    got = myers.myers_semiglobal_text(*args, W, nwords)
+    after = myers_cuda.myers_semiglobal_text_cuda.by_design
+    assert after[myers_cuda.design(nwords)] == before[myers_cuda.design(nwords)] + 1
+    want = myers.myers_semiglobal_text_plain(*args, W, nwords)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int((want[0] <= max(5, L // 20)).sum()) > Q // 20
+    r, ln, w = (torch.from_numpy(a).to(cuda) for a in _myers_inputs(Q, L, W, nwords))
+    want = myers._myers_plain(r, ln, w, nwords, W - 7)
+    for dtype in (torch.int8, torch.int32):
+        got = myers_cuda.myers_semiglobal_cuda(r.to(dtype), ln, w.to(dtype), nwords, W - 7)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), dtype
 
 
 @pytest.mark.parametrize("L", [20, 32, 64, 100, 150, 256])

@@ -2,9 +2,10 @@
 package's on the same numpy index and seed table: ``_chunk_vote_verify``
 and ``LongReadAligner.align_arrays`` (with and without traceback) equal
 field for field on ragged reads of 512-1,024 bases on both strands, a read
-shorter than one segment, a read of junk and a read with N codes; and the
-plain banded DP at the long-read band (k = 15, 16) equal to the JAX jnp
-engine on every lane."""
+shorter than one segment, a read of junk and a read with N codes, at the
+default segment band kb = 16 and at kb = 0, 17, 24 and 32; and the plain
+banded DP at the long-read band (k = 15, 16) equal to the JAX jnp engine on
+every lane."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,11 +132,39 @@ def test_long_read_aligner_other_shapes_match_jax(setup):
 
 @pytest.mark.parametrize("kb", [0, 17, -1])
 def test_kb_outside_1_to_16_is_refused(setup, kb):
-    """The JAX engines compute any band; the port's segment verify runs on
-    the kernel, built for 1 <= kb <= 16, and refuses the rest when built."""
-    _, gi, tab = setup
-    with pytest.raises(ValueError, match="1 <= kb <= 16"):
-        long_read.LongReadAligner(gi, tab, J, kb=kb, device="cpu")
+    """A band outside the one-thread kernel's 1..16: the port takes what
+    the JAX aligner computes (kb = 0, a band of one slot, and kb = 17, a
+    group of threads on the card) with the JAX aligner's hits, and refuses
+    kb = -1 when built, where the JAX aligner fails as it verifies."""
+    codes, gi, tab = setup
+    reads, lens = _long_reads(codes, seed=5)
+    if kb < 0:
+        with pytest.raises(ValueError, match="kb >= 0"):
+            long_read.LongReadAligner(gi, tab, J, kb=kb, device="cpu")
+        with pytest.raises(IndexError):
+            j_long_read.LongReadAligner(gi, tab, J, kb=kb).align_arrays(reads, lens)
+        return
+    want = j_long_read.LongReadAligner(gi, tab, J, kb=kb).align_arrays(reads, lens,
+                                                                       traceback=False)
+    got = long_read.LongReadAligner(gi, tab, J, kb=kb, device="cpu").align_arrays(
+        reads, lens, traceback=False)
+    _hits_equal(got, want)
+    assert got.mapped.sum() >= 6
+
+
+@pytest.mark.parametrize("kb", [17, 24, 32])
+def test_long_read_aligner_wide_band_matches_jax(setup, kb):
+    """Segment bands past the one-thread kernel's 16 (a group of 8 or 16
+    threads a lane on the card), without traceback: every field equal to
+    the JAX aligner's."""
+    codes, gi, tab = setup
+    reads, lens = _long_reads(codes, seed=kb)
+    want = j_long_read.LongReadAligner(gi, tab, J, kb=kb).align_arrays(reads, lens,
+                                                                       traceback=False)
+    got = long_read.LongReadAligner(gi, tab, J, kb=kb, device="cpu").align_arrays(
+        reads, lens, traceback=False)
+    _hits_equal(got, want)
+    assert got.mapped[[0, 1, 2, 3]].all() and not got.mapped[9]
 
 
 @pytest.mark.parametrize("k", [15, 16])

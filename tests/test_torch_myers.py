@@ -2,7 +2,9 @@
 JAX package's jnp engine and its Pallas kernel in interpret mode: (best,
 end) bit-identical on mixed streams (planted edits, junk rows, N codes,
 ragged and zero lengths); the text entry's plain version against the jnp
-engine on JAX-gathered windows."""
+engine on JAX-gathered windows; past 256 bases (the Pallas kernel's
+limit, not the jnp engine's), reads of 9-32 words against the jnp engine,
+and a few lanes against the full-matrix host oracle."""
 
 import numpy as np
 import pytest
@@ -13,12 +15,16 @@ from genome_weaver_align_tpu.ops import myers as j_myers
 from genome_weaver_align_tpu.ops import myers_pallas
 from genome_weaver_align_tpu.ops import window as j_window
 from genome_weaver_align_tpu.utils import packing
-from genome_weaver_align_tpu_torch.ops import myers, myers_cuda
+from genome_weaver_align_tpu_torch.ops import dp, myers, myers_cuda
 from tests.streams import mixed_stream
 
-# the shapes of tests/test_myers_pallas.py, then its non-lane-multiple case
+# the shapes of tests/test_myers_pallas.py, then its non-lane-multiple case,
+# then reads past the Pallas kernel's 256 bases (9, 10, 16 and 32 words),
+# which the jnp engine the JAX paths call takes
 SHAPES = [(600, 100, 112, 2), (300, 150, 174, 4), (64, 33, 60, 1), (128, 256, 280, 3),
-          (133, 70, 83, 2)]
+          (133, 70, 83, 2), (96, 257, 300, 3), (96, 300, 360, 4), (64, 512, 560, 5),
+          (32, 1000, 1060, 6)]
+PALLAS_MAX_LEN = 256  # myers_pallas takes reads of at most 8 words
 
 
 def _inputs(S, L, W, k):
@@ -42,11 +48,17 @@ def test_plain_matches_jax_engines(S, L, W, k):
     )
     assert np.array_equal(got_b.numpy(), np.asarray(want_b))
     assert np.array_equal(got_e.numpy(), np.asarray(want_e))
-    pal_b, pal_e = myers_pallas.myers_semiglobal_pallas(
-        jnp.asarray(reads), jnp.asarray(lens), jnp.asarray(wins), interpret=True, lanes=128,
-    )
-    assert np.array_equal(got_b.numpy(), np.asarray(pal_b))
-    assert np.array_equal(got_e.numpy(), np.asarray(pal_e))
+    if L <= PALLAS_MAX_LEN:
+        pal_b, pal_e = myers_pallas.myers_semiglobal_pallas(
+            jnp.asarray(reads), jnp.asarray(lens), jnp.asarray(wins), interpret=True, lanes=128,
+        )
+        assert np.array_equal(got_b.numpy(), np.asarray(pal_b))
+        assert np.array_equal(got_e.numpy(), np.asarray(pal_e))
+    else:  # two lanes against the full-matrix oracle: (dist, first argmin end)
+        for q in np.nonzero(lens > 0)[0][[0, 1] if L <= 512 else [1]]:  # junk, planted
+            d, _, e, _ = dp.traceback_semiglobal_host(reads[q, :lens[q]].astype(np.int64),
+                                                      wins[q].astype(np.int64))
+            assert (d, e) == (int(got_b[q]), int(got_e[q]))
     assert np.all(got_b.numpy()[lens == 0] == 0) and np.all(got_e.numpy()[lens == 0] == 0)
     best = myers.myers_semiglobal(*_t(reads, lens, wins), nwords)
     assert np.array_equal(best.numpy(), np.asarray(
@@ -67,7 +79,9 @@ def test_max_window_matches_jax(max_window):
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("seed,L,W", [(0, 100, 140), (1, 64, 90), (2, 150, 183)])
+@pytest.mark.parametrize("seed,L,W", [(0, 100, 140), (1, 64, 90), (2, 150, 183),
+                                      (3, 257, 300), (4, 300, 360), (5, 512, 560),
+                                      (6, 1000, 1060)])
 def test_text_entry_plain_matches_jax(seed, L, W):
     """Lane q runs read rid[q] against the text at starts[q] with columns >=
     valid[q] set to 4: starts off both text ends and at word edges,

@@ -1,7 +1,8 @@
 """The port's PairedAligner against the JAX one: pairs built as the JAX
 bench builds them (FR mates, 1-2 substitutions each, 10% of mate2 with 4
 more substitutions: unmappable at k = 2, within the rescue bar), equal
-PairHits, SAM records and rescue counts, on both candidate paths."""
+PairHits, SAM records and rescue counts, on both candidate paths; and
+2 x 300 bp pairs (MiSeq-style), whose rescue runs Myers over 10 words."""
 
 import numpy as np
 import pytest
@@ -104,3 +105,63 @@ def test_align_pairs_list_api_and_half_mapped(data):
     got_hits = ppa.align_pairs(mixed)
     assert [r.line() for r in ppa.to_sam(mixed, got_hits)] == want
     assert sum(ph.h2 is None for ph in got_hits) >= 8
+
+
+@pytest.fixture(scope="module")
+def pairs_300(data):
+    """128 FR pairs of 300 bp on ``data``'s genome: inserts 450-750, 1-2
+    substitutions a mate, 10% of mate2 with 8 more (unmappable at k = 2,
+    within the rescue bar max(k, 300 // 20) = 15)."""
+    gi = data[0]
+    codes = gi.genome.codes
+    rng = np.random.default_rng(300)
+    n, L3 = 128, 300
+    insert = rng.integers(450, 750, size=n)
+    pos1 = rng.integers(0, codes.size - 800, size=n)
+    c1 = codes[pos1[:, None] + np.arange(L3)[None, :]].astype(np.int8)
+    p2 = pos1 + insert - L3
+    c2 = np.ascontiguousarray((3 - codes[p2[:, None] + np.arange(L3)[None, :]].astype(np.int8))
+                              [:, ::-1])
+    for arr in (c1, c2):
+        for _ in range(2):
+            at = rng.integers(0, L3, size=n)
+            rows = np.nonzero(rng.random(n) < 0.6)[0]
+            arr[rows, at[rows]] = (arr[rows, at[rows]] + rng.integers(1, 4, size=rows.size)) % 4
+    far = np.nonzero(rng.random(n) < 0.10)[0]
+    for _ in range(8):
+        at = rng.integers(0, L3, size=n)
+        c2[far, at[far]] = (c2[far, at[far]] + rng.integers(1, 4, size=far.size)) % 4
+    pairs = [(Read(f"m{i}", c1[i].astype(np.uint8)), Read(f"m{i}", c2[i].astype(np.uint8)))
+             for i in range(n)]
+    return c1, c2, pairs
+
+
+def test_paired_300bp_rescue_matches_jax(data, pairs_300, monkeypatch):
+    """2 x 300 bp: the rescue cohort runs Myers over 10 words (past the
+    one-thread kernel's 8; the JAX rescue's jnp engine takes any), and
+    PairHits, SAM records and rescue counts equal the JAX aligner's."""
+    from genome_weaver_align_tpu_torch.ops import myers
+
+    gi, tab = data[0], data[1]
+    c1, c2, pairs = pairs_300
+    kw = dict(k=2, max_hits_per_piece=8, seed_table=tab, seed_j=J, max_cands=12, verify_slack=4)
+    ins = dict(min_insert=300, max_insert=900)
+    jpa = j_paired.PairedAligner(j_pipeline.SuffixFilterAligner(gi, **kw), **ins)
+    ppa = paired.PairedAligner(pipeline.SuffixFilterAligner(gi, device="cpu", **kw), **ins)
+    words = []
+    real = myers.myers_semiglobal_text
+    monkeypatch.setattr(myers, "myers_semiglobal_text",
+                        lambda *a: words.append(a[-1]) or real(*a))
+    n = c1.shape[0]
+    lengths = np.full(n, 300, np.int32)
+    want = jpa.align_pair_arrays(c1, lengths, c2, lengths)
+    got = ppa.align_pair_arrays(c1, lengths, c2, lengths)
+    for g, w in zip(got, want):
+        assert (_hit_tuple(g.h1), _hit_tuple(g.h2), g.proper, g.rescued) == \
+            (_hit_tuple(w.h1), _hit_tuple(w.h2), w.proper, w.rescued)
+    assert ppa.last_rescue_jobs == jpa.last_rescue_jobs > 0
+    assert words and set(words) == {10}  # the cohort's Myers ran over 10 words
+    assert sum(ph.rescued != 0 for ph in got) >= 0.05 * n
+    assert sum(ph.proper for ph in got) >= 0.9 * n
+    assert [r.line() for r in ppa.to_sam(pairs, got)] == \
+        [r.line() for r in jpa.to_sam(pairs, want)]

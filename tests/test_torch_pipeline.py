@@ -283,7 +283,7 @@ def test_k_outside_1_to_14_is_rejected(random_gi, k):
     from genome_weaver_align_tpu_torch.ops import dp_cuda
     from genome_weaver_align_tpu_torch.parallel.sharded_pipeline import ShardedAligner
 
-    assert pipeline.MAX_ALIGNER_K == 14 and dp_cuda.MAX_K == 16
+    assert pipeline.MAX_ALIGNER_K == 14 and dp_cuda.REGISTER_K == 16
     gi, _ = random_gi
     with pytest.raises(ValueError, match="1 <= k <= 14"):
         pipeline.SuffixFilterAligner(gi, k=k, device="cpu")
@@ -292,14 +292,15 @@ def test_k_outside_1_to_14_is_rejected(random_gi, k):
     pipeline.SuffixFilterAligner(gi, k=14, device="cpu")
 
 
-@pytest.mark.parametrize("k", [15, 16])
+@pytest.mark.parametrize("k", [15, 16, 17, 32])
 def test_kernel_band_past_14_stays_refused_by_short_read_aligners(random_gi, k):
-    """The banded DP kernel takes k = 15 and 16 (the long-read band), but
-    the short-read aligners keep their own bound: their 4-bit dist field
-    saturates at 15."""
+    """The banded DP kernel takes any k (one thread a lane up to 16, a
+    group of threads past it: the long-read bands), but the short-read
+    aligners keep their own bound: their 4-bit dist field saturates at
+    15."""
     from genome_weaver_align_tpu_torch.ops import dp_cuda
 
-    assert k <= dp_cuda.MAX_K
+    assert (k <= dp_cuda.REGISTER_K) == (k <= 16) and k <= dp_cuda.GROUP_K
     gi, _ = random_gi
     with pytest.raises(ValueError, match="1 <= k <= 14"):
         pipeline.SuffixFilterAligner(gi, k=k, device="cpu")

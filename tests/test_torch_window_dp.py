@@ -156,3 +156,61 @@ def test_banded_text_entry_clamps_read_ids():
     for g, w, j in zip(got, want, (jax_d, jax_e)):
         assert torch.equal(g, w)
         assert np.array_equal(g.numpy()[up], np.asarray(j)[up])
+
+
+@pytest.mark.parametrize("k,L", [(17, 48), (24, 48), (32, 48), (2, 1816), (2, 2000)])
+def test_wide_band_and_long_rows_match_jax(k, L):
+    """Bands past k = 16 and reads past 1,815 bases (more than 128 rows of
+    them overflow a block's shared memory on the card): the text entry's
+    plain version and the windows entry's against the JAX package's
+    ``gather_windows`` + jnp banded DP on every lane, dist and end_b, and
+    a planted lane against the full-matrix host oracle."""
+    rng = np.random.default_rng(k * L)
+    n, B = 3 * L + 4001, 24
+    W = L + 3 * k
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    words = packing.pack(codes)
+    rid = np.sort(rng.integers(0, B, size=60)).astype(np.int32)
+    starts = rng.integers(0, n - W, size=rid.size).astype(np.int32)
+    starts[:5] = [-W - 3, -k - 1, 0, n - W + 2, n + 9]
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+    for q in range(5, rid.size, 2):  # the read near the window start, k // 2 substitutions
+        seg = codes[starts[q] + k : starts[q] + k + L].astype(np.int8)
+        seg[rng.integers(0, L, size=k // 2)] = rng.integers(0, 4, size=k // 2)
+        reads[rid[q], : seg.size] = seg
+    lengths = np.where(rng.random(B) < 0.7, L, rng.integers(0, L + 1, size=B)).astype(np.int32)
+    got_d, got_e = (t.numpy() for t in dp.banded_edit_distance_text(
+        torch.from_numpy(words.view(np.int32)), n, torch.from_numpy(starts),
+        torch.from_numpy(reads), torch.from_numpy(lengths), torch.from_numpy(rid), k, W))
+    wins = np.array(j_window.gather_windows(jnp.asarray(words), n, jnp.asarray(starts), W))
+    jr, jl = reads[rid].astype(np.int32), lengths[rid]
+    want_d, want_e = (np.asarray(a) for a in j_dp.banded_edit_distance(
+        jnp.asarray(jr), jnp.asarray(jl), jnp.asarray(wins.astype(np.int32)), k))
+    assert np.array_equal(got_d, want_d)
+    assert np.array_equal(got_e, want_e)
+    win_d, win_e = (t.numpy() for t in dp.banded_edit_distance_best(
+        torch.from_numpy(reads[rid]), torch.from_numpy(jl), torch.from_numpy(wins), k))
+    assert np.array_equal(win_d, want_d)
+    assert np.array_equal(win_e, want_e)
+    q = next(q for q in range(5, rid.size, 2) if jl[q] == L)
+    assert got_d[q] <= k
+    assert got_d[q] == dp.edit_distance_semiglobal_host(jr[q].astype(np.int64),
+                                                        wins[q].astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_oracles_match_jax(seed):
+    """The full-matrix oracles, copies of the JAX package's: distance, start,
+    end and CIGAR equal on planted reads with indels, junk and N codes."""
+    rng = np.random.default_rng(seed)
+    for L, W in ((30, 45), (57, 80), (1, 5), (12, 12)):
+        read = rng.integers(0, 5, size=L).astype(np.int64)
+        window = rng.integers(0, 5, size=W).astype(np.int64)
+        if W >= 16:
+            seg = list(read[: W - 8])
+            del seg[int(rng.integers(2, len(seg) - 2))]
+            window[4 : 4 + len(seg)] = seg
+        assert dp.edit_distance_semiglobal_host(read, window) == \
+            j_dp.edit_distance_semiglobal_host(read, window)
+        assert dp.traceback_semiglobal_host(read, window) == \
+            j_dp.traceback_semiglobal_host(read, window)

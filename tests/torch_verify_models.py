@@ -1,0 +1,162 @@
+"""Numpy models of the two verify kernels' group designs, in the kernels'
+own order of operations, for the CPU tests: ``csrc/myers.cu``'s group of G
+threads a lane (P words a thread, the carry lookahead over ballots, the
+top word first and its bits handed up) and ``csrc/banded_dp.cu``'s group
+of G threads a lane (S band slots a thread padded at the band's bottom,
+the group's exclusive prefix min of c_j - j, the window codes moved down a
+slot a row).  Each runs every lane of a batch at once; the tests hold them
+against the plain torch versions on every lane, so a fault in the design
+shows here before the card runs it.  The card tests hold the kernels
+themselves against the plain versions."""
+
+import numpy as np
+
+M32 = np.uint64(0xFFFFFFFF)
+INF = 1 << 20
+BIG = 1 << 30
+NO_MATCH = 256
+
+
+def myers_group(reads, lengths, windows, nwords: int, steps: int, G: int, P: int):
+    """``myers_group_kernel`` over (Q, L) reads and (Q, W) windows (codes;
+    >= 4 never match, a negative code reads Peq[0]) with G threads of P
+    words a lane -> (best (Q,), end (Q,)) int32."""
+    Q, L = reads.shape
+    W = windows.shape[1]
+    assert G * P >= nwords and G & (G - 1) == 0
+    lengths = np.asarray(lengths, np.int64)
+    n_in = np.minimum(lengths, L)
+    # eq[c, q, j, u]: word v = j P + u of code c
+    eq = np.zeros((4, Q, G, P), np.uint64)
+    for j in range(G):
+        for u in range(P):
+            v = j * P + u
+            if v >= nwords:
+                continue
+            for b in range(32):
+                i = 32 * v + b
+                if i >= L:
+                    break
+                on = i < n_in
+                for c in range(4):
+                    eq[c, :, j, u] |= np.where(on & (reads[:, i] == c), np.uint64(1 << b),
+                                               np.uint64(0))
+    pv = np.full((Q, G, P), M32, np.uint64)
+    mv = np.zeros((Q, G, P), np.uint64)
+    last_word = np.where(lengths >= 1, (lengths - 1) >> 5, -1)
+    has_owner = (last_word >= 0) & (last_word < nwords)
+    own_j = np.where(has_owner, last_word // P, -1)
+    own_u = np.where(has_owner, last_word % P, -1)
+    own_bit = np.where(lengths >= 1, np.uint64(1) << ((lengths - 1) & 31).astype(np.uint64),
+                       np.uint64(0))
+    score = lengths.copy()
+    best = lengths.copy()
+    end = np.zeros(Q, np.int64)
+    q = np.arange(Q)
+    top_clear = np.uint64((1 << (G - 1)) - 1)  # the group-top bit cleared
+    for t in range(steps):
+        c = windows[:, min(t, W - 1)].astype(np.int64)
+        live = c < 4
+        code = np.clip(c, 0, 3)
+        peq = np.where(live[:, None, None], eq[code, q], np.uint64(0))  # (Q, G, P)
+        s = np.zeros((Q, G, P), np.uint64)
+        carry = np.zeros((Q, G), np.uint64)
+        pre = np.ones((Q, G), bool)
+        below = np.ones((Q, G, P), bool)  # every word below u all ones
+        for u in range(P):
+            below[:, :, u] = pre
+            tot = (peq[:, :, u] & pv[:, :, u]) + pv[:, :, u] + carry
+            carry = tot >> np.uint64(32)
+            s[:, :, u] = tot & M32
+            pre &= s[:, :, u] == M32
+        weights = np.uint64(1) << np.arange(G, dtype=np.uint64)
+        gen = (carry.astype(np.uint64) * weights).sum(axis=1)
+        prop = (pre.astype(np.uint64) * weights).sum(axis=1)
+        ga, gb = (gen | prop) & top_clear, gen & top_clear
+        cbits = (ga + gb) ^ ga ^ gb
+        cin = ((cbits[:, None] >> np.arange(G, dtype=np.uint64)[None, :]) & np.uint64(1))
+        cin = cin.astype(np.uint64)[:, :, None]  # (Q, G, 1)
+        d0 = (((s + (cin & below.astype(np.uint64))) & M32) ^ pv) | peq | mv
+        hn = pv & d0
+        hp = (mv | (~(pv | d0) & M32)) & M32
+        # the top word's two bits go to the next thread; thread 0 takes 0
+        hp_in = np.zeros((Q, G), np.uint64)
+        hn_in = np.zeros((Q, G), np.uint64)
+        hp_in[:, 1:] = hp[:, :-1, P - 1] >> np.uint64(31)
+        hn_in[:, 1:] = hn[:, :-1, P - 1] >> np.uint64(31)
+        up = np.zeros(Q, bool)
+        dn = np.zeros(Q, bool)
+        for u in range(P):
+            m = np.where((own_j >= 0) & (own_u == u), own_bit, np.uint64(0))
+            jj = np.clip(own_j, 0, G - 1)
+            up |= (hp[q, jj, u] & m) != 0
+            dn |= (hn[q, jj, u] & m) != 0
+            xs = ((hp[:, :, u] << np.uint64(1)) & M32) | hp_in
+            hp_in = hp[:, :, u] >> np.uint64(31)
+            hns = ((hn[:, :, u] << np.uint64(1)) & M32) | hn_in
+            hn_in = hn[:, :, u] >> np.uint64(31)
+            mv[:, :, u] = xs & d0[:, :, u]
+            pv[:, :, u] = (hns | ~(xs | d0[:, :, u])) & M32
+        score = score + up - dn
+        better = score < best
+        end = np.where(better, t + 1, end)
+        best = np.minimum(best, score)
+    return best.astype(np.int32), end.astype(np.int32)
+
+
+def banded_group(reads, lengths, windows, k: int, G: int, S: int):
+    """``banded_group_kernel`` over (Q, L) int8 reads and (Q, W) windows
+    (bytes >= 4 never match) with G threads of S band slots a lane ->
+    (dist (Q,), end_b (Q,)) int32."""
+    Q, L = reads.shape
+    W = windows.shape[1]
+    band = 4 * k + 1
+    assert G * S >= band
+    lengths = np.asarray(lengths, np.int64)
+    steps = np.minimum(lengths, L)
+    b = np.arange(G * S).reshape(G, S) - (G * S - band)  # band slot of each register
+    wb = np.where(windows < 4, windows.astype(np.int64), NO_MATCH)
+
+    def code_at(jp):  # (Q,) window positions -> codes
+        ok = (jp >= 0) & (jp < W)
+        return np.where(ok, wb[np.arange(Q), np.clip(jp, 0, W - 1)], NO_MATCH)
+
+    D = np.where(b < 0, BIG, np.where(b >= k, 0, INF))[None].repeat(Q, 0).astype(np.int64)
+    wc = np.full((Q, G, S), NO_MATCH, np.int64)
+    for j in range(G):
+        for s in range(S):
+            if k <= b[j, s] < band - 1:
+                wc[:, j, s] = code_at(np.full(Q, b[j, s] - k))
+    for i in range(int(steps.max(initial=0))):
+        active = i < steps
+        wc[:, G - 1, S - 1] = code_at(np.full(Q, i + 3 * k))
+        rc = np.where(active, reads[:, min(i, L - 1)].astype(np.int64), 0)
+        above = np.full((Q, G), INF, np.int64)
+        above[:, :-1] = D[:, 1:, 0]
+        up = np.concatenate([D[:, :, 1:], above[:, :, None]], axis=2)
+        valid = ((i + b - k) >= 0) & ((i + b - k) < W)
+        x = (wc ^ rc[:, None, None]) & 0x1FF
+        t = np.where(valid[None], np.minimum(np.minimum(D, up) + 1, D + x), INF)
+        t = np.where(b[None] < 0, BIG, t)
+        l = np.empty_like(t)
+        run = t[:, :, 0]
+        l[:, :, 0] = run
+        for s in range(1, S):
+            run = np.minimum(run + 1, t[:, :, s])
+            l[:, :, s] = run
+        o = run - b[None, :, S - 1]
+        incl = np.minimum.accumulate(o, axis=1)
+        cin = np.full((Q, G), BIG, np.int64)
+        cin[:, 1:] = incl[:, :-1]
+        nd = np.minimum(l, cin[:, :, None] + b[None])
+        D = np.where(active[:, None, None], nd, D)
+        w0 = np.full((Q, G), NO_MATCH, np.int64)
+        w0[:, :-1] = wc[:, 1:, 0]
+        w0[:, -1] = wc[:, -1, 0]
+        wc = np.concatenate([wc[:, :, 1:], w0[:, :, None]], axis=2)
+    j_end = lengths[:, None, None] + b[None] - k
+    df = np.where((j_end >= 0) & (j_end <= W), D, INF)
+    df = np.where(b[None] >= 0, df, BIG).reshape(Q, G * S)
+    best_at = df.argmin(axis=1)
+    dist = np.minimum(df[np.arange(Q), best_at], INF)
+    return dist.astype(np.int32), b.reshape(-1)[best_at].astype(np.int32)
