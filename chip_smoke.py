@@ -26,9 +26,10 @@ per line, and exits non-zero at the first phase that fails:
    (``cuobjdump``), and ptxas's registers and spills at k = 14 and 16 are
    printed.  Past the one-thread kernel: both entries against plain on
    every lane at the segment shape (8,192 lanes of 128 bases) for k = 17,
-   24, 32, 48 and 64 (a group of threads a lane), at k = 130 (a warp a lane
-   over scratch, 1,024 lanes) and at k = 2 on 4,096 reads of 1,816, 2,000
-   and 4,096 bases (fewer staged rows a block, then rows from global
+   20, 24, 31, 32, 48, 64, 96 and 127 (a group of 8, 16 or 32 threads a
+   lane, 9..16 band slots a thread), at k = 130 (a warp a lane over
+   scratch, 1,024 lanes) and at k = 2 and 24 on 4,096 reads of 1,816,
+   2,000 and 4,096 bases (fewer staged rows a block, then rows from global
    memory), the text entry timed beside its plain version and its bound
    (4 (4k+1) integer instructions a live row and lane), and the new
    kernels' registers and spills;
@@ -91,7 +92,10 @@ per line, and exits non-zero at the first phase that fails:
    ``rank.occ_codes``; then the kernels, their plain versions,
    ``parts.sum(0)`` and the stage the table entry replaces timed at the
    exact search's payloads (S = 4: sum (2, 32,768), fused M = 2,
-   Q = 65,536);
+   Q = 65,536).  Past 16 shards at S = 17, 32, 64, 128
+   and 1,024: the sum (int32 and float32; stacked, in separate
+   allocations, one output), the table entry (stacked and one allocation
+   a shard) and, up to 64, the words entry, each against plain;
 10. the interval-sharded exact search at full size: the phase-4 index in
    4 interval shards on the card, 65,536 error-free forward-strand 100 bp
    reads; ``make_sharded_exact_search`` with ``merge="psum"``, ``"ring"``
@@ -99,13 +103,15 @@ per line, and exits non-zero at the first phase that fails:
    other and as the single-device ``exact_interval_search`` + ``locate``,
    find every read, and place every unique one at its true start; the
    sum kernel launched 100 x 2 times and the fused table entry 100 times,
-   the sharded locate once under each merge;
+   the sharded locate once under each merge; the same at 32 shards;
 11. ``ShardedAligner`` end to end through the CLI: ``align -k 2
    --n-interval 4`` with the seed table on 65,536 reads and without it
    (FM shards) on 16,384 reads; the SAM body must be byte-identical to
    the single-device CLI's on the same FASTQ, >= 99% mapped and correct,
    and the banded-DP kernel launched; on the FM shards the sharded piece
-   search and the sharded locate launched (the locate on one device);
+   search and the sharded locate launched (the locate on one device); then
+   ``--n-interval 32`` (FM shards) on 2 x 16,384 reads
+   against ``--n-interval 1``;
 12. the tier-2 staircase at scale, on the JAX package's repeat bench
    configuration (``bench.py`` ``bench_repeat``): ``repeat_genome`` of the
    same length (seed 4) indexed by the CLI with its reverse text (cached
@@ -204,7 +210,11 @@ per line, and exits non-zero at the first phase that fails:
    of each non-empty staircase pool-step are counted (mean and maximum), and
    so are the one-mismatch search's case-B dead chains (distinct dead lo
    values a read and step, a row each for bit-equal outputs), with the
-   bound that adds them beside the live-only one;
+   bound that adds them beside the live-only one.  Past 64 slots: the
+   staircase at 65, 128 and 256 slots, slot-major and
+   narrowing, on the tier-2 cohort of the repeat index (pools that fill),
+   and the one-mismatch search at 65 and 128 slots on 4,096 reads, held
+   and timed alike;
 19. the LF-walk locate (``csrc/locate.cu``: ``rank.locate`` and the
    sharded ``locate``) and the sharded piece search
    (``csrc/fm_search.cu``'s sharded entry), each held against its plain
@@ -227,7 +237,10 @@ per line, and exits non-zero at the first phase that fails:
    base pointer a shard, as a shard mapped from another process is), the
    sharded locate, the sharded piece search and the fused table entry
    (65,536 random queries) must equal their plain versions at each S and
-   on the unequal bounds;
+   on the unequal bounds.  The same past 16 shards at
+   S = 17, 32, 64, 128 and 1,024 and on 32 unequal shards, and the sharded
+   locate and piece search timed at [11]'s and [10]'s shapes at 32 shards,
+   stacked and one allocation a shard;
 20. interval shards in separate processes (BASELINE config 5's layout),
    rank r on card r % device_count: first, in this process, the flag-wait
    ring entry (push, one flag word a block) against its plain version on
@@ -237,8 +250,11 @@ per line, and exits non-zero at the first phase that fails:
    while the kernel waits), the prepared launch timed, and its failures:
    a wait no peer satisfies must time out, the rank's later merges must
    not wait and must poison every word of its peer, the peer arriving
-   late must fail too, and both must raise.  Then this script as 1, 2 and 4 ranks (``--rank
-   interval``), ``ShardedAligner`` with 4 interval shards, each rank
+   late must fail too, and both must raise; and 17 and 32 ranks emulated
+   (addresses from a device table), held and timed.  Then this script as 1, 2 and 4
+   ranks (``--rank interval``), and as 2 ranks with 32 shards (16 held,
+   16 mapped: the kernels on IPC-mapped tables past 16 shards),
+   ``ShardedAligner`` with 4 interval shards, each rank
    holding 4 / n of them and mapping the others' through CUDA IPC
    (``parallel.peer``; over NVLink where they lie on other cards; one
    rank: the stacked layout): the seed path on [16]'s reads and the FM
@@ -356,7 +372,7 @@ MIN_EXACT_POS = 0.99
 # (a group of threads a lane), a band for the scratch kernel, reads past
 # the 1,815 bases of which 128 rows fill a block's shared memory ([2], [14]);
 # Myers reads past 8 words, and the scratch kernel's words ([6], [8])
-WIDE_KS = (17, 24, 32, 48, 64)
+WIDE_KS = (17, 20, 24, 31, 32, 48, 64, 96, 127)  # every G (8, 16, 32) and N (9..16) at its edges
 WIDE_LONG_KB = 24  # [14]'s second aligner
 SCRATCH_K, SCRATCH_K_LANES = 130, 1_024
 LONG_ROWS, LONG_ROW_LANES = (1_816, 2_000, 4_096), 4_096
@@ -372,6 +388,17 @@ RANK_BATCH, RANK_BATCHES, RANK_L, RANK_SEED = 32_768, 4, 150, 17
 RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's length
 RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
 INTERVAL_RANKS = (1, 2, 4)  # phase 20: the shards over 1 (stacked), 2 and 4 processes
+# past 16 shards and ranks (the kernels' limit until it was lifted): [9],
+# [19] sweep these shard counts, [10], [11] and [20] run WIDE_SHARDS on the
+# paths ([20]: over 2 ranks, each mapping the other's 16), [20] emulates the
+# flag-wait ranks
+WIDE_SHARD_COUNTS = (17, 32, 64, 128, 1_024)
+WIDE_SHARDS = 32
+WIDE_RANKS = (17, 32)
+# the checks past 16 shards and 64 slots in [9] and [18], which every entry
+# takes; scripts/fm_kernels_ab.py --old-limits turns them off to drive a
+# checkout whose kernels stopped there
+PAST_OLD_LIMITS = True
 TWO_AXIS_RANKS, TWO_AXIS_SHARDS = 4, 2  # phase 21: two interval groups of two ranks
 HOST_RANKS, RANKS_A_HOST = 4, 2  # phase 22: SHARDS shards over 4 ranks on two declared hosts
 NVLINK_BYTES_PER_S = 450e9  # one direction between two cards of the host
@@ -381,6 +408,8 @@ WAVELET_READS, WAVELET_L = 65_536, 36
 FM_KMER_J = 10  # a 4^10-entry k-mer table (8 MB)
 STAIR_COHORT = 256  # a tier-2 call's padded cohort ([12]) and a rescue chunk's reads ([15])
 RESCUE_SLOTS = 64  # the multi-part rescue's pools
+WIDE_SLOTS = (65, 128, 256)  # [18]: pools past 64 slots, both orders
+WIDE_MM_SLOTS = (65, 128)
 # the shapes on either side of the bindings' lane choices: larger tier-2
 # cohorts (padded to powers of two, up to the pipeline's 4,096-read chunk),
 # the multi-part rescue's own chunk, and smaller --mode batches
@@ -433,7 +462,14 @@ class SmokeFailure(Exception):
     pass
 
 
+# when each phase printed its first line (time.time()), keyed by its tag:
+# the phases' walls at the end
+PHASE_START: dict[str, float] = {}
+
+
 def log(msg: str) -> None:
+    if msg.startswith("["):
+        PHASE_START.setdefault(msg[: msg.find("]") + 1], time.time())
     print(msg, flush=True)
 
 
@@ -636,7 +672,7 @@ def phase_kernel(torch, dev, card):
     """Build all kernels; hold both banded-DP entries against their plain
     versions; time the text entry, the stage it replaces and the windows
     entry; the bound at the timed shape."""
-    from concurrent.futures import ThreadPoolExecutor
+    from concurrent.futures import ThreadPoolExecutor, as_completed
 
     from genome_weaver_align_tpu_torch.ops import (
         dp, dp_cuda, fm_search_cuda, locate_cuda, myers_cuda, one_mismatch_cuda, ring_cuda,
@@ -644,15 +680,20 @@ def phase_kernel(torch, dev, card):
     )
 
     t0 = time.time()
-    libs = (dp_cuda._library, myers_cuda._library, ring_cuda._library, fm_search_cuda._library,
-            staircase_cuda._library, one_mismatch_cuda._library, locate_cuda._library)
+    libs = (dp_cuda._library, dp_cuda._group_library, myers_cuda._library, ring_cuda._library,
+            fm_search_cuda._library, staircase_cuda._library, one_mismatch_cuda._library,
+            locate_cuda._library)
+    done = {}
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
-        for f in [pool.submit(lib) for lib in libs]:
+        futures = {pool.submit(lib): f"{lib.__module__.rsplit('.', 1)[-1]}{lib.__name__}"
+                   for lib in libs}
+        for f in as_completed(futures):
             f.result()
-    log(f"[2] built csrc/banded_dp.cu, myers.cu, ring.cu, fm_search.cu, staircase.cu, "
-        f"one_mismatch.cu and locate.cu with nvcc for sm_90a in "
-        f"{time.time() - t0:.1f} s; ptxas: flag-wait sum (4 shards) "
-        f"{ptxas_usage('ring.cu', 'allreduce_kernelIiLi4ELb1E')}, "
+            done[futures[f]] = round(time.time() - t0, 1)
+    log(f"[2] built csrc/banded_dp.cu, banded_group.cu, myers.cu, ring.cu, fm_search.cu, "
+        f"staircase.cu, one_mismatch.cu and locate.cu with nvcc for sm_90a in "
+        f"{time.time() - t0:.1f} s (each binding's library done at, s: {done}); ptxas: "
+        f"flag-wait sum (4 ranks) {ptxas_usage('ring.cu', 'push_wait_kernelIiLi4ELb1E')}, "
         f"fm_search {ptxas_usage('fm_search.cu', 'backward_search_kernel')}, fm_search sharded "
         f"{ptxas_usage('fm_search.cu', 'backward_search_sharded_kernel')}, "
         f"locate {ptxas_usage('locate.cu', '13locate_kernel')}, locate sharded "
@@ -820,22 +861,23 @@ def long_segment_timing(torch, dev, codes, words, gen, card):
 
 def wide_band_checks(torch, dev, codes, words, gen, card):
     """Both banded entries past the one-thread kernel, against their plain
-    versions on every lane (dist, end_b): the group of threads a lane at
-    the segment shape (8,192 lanes of 128 bases) for each k of WIDE_KS, the
-    scratch kernel at k = SCRATCH_K, and k = 2 on LONG_ROW_LANES reads of
-    each LONG_ROWS length (fewer staged rows a block, then rows from global
-    memory).  The text entry timed (CUDA events) beside its plain version
-    and its bound: DP_OPS_PER_CELL (4k+1) integer instructions a live row
-    and lane at the card's int32 rate.  ptxas's registers and spills of the
-    new kernels.  -> (max |err|, {case: (ms, plain ms, bound ms, by,
-    lanes, L, W, k, launches by design)})."""
+    versions on every lane (dist, end_b): the group of threads a lane at the
+    segment shape (8,192 lanes of 128 bases) for each k of WIDE_KS, the
+    scratch kernel at k = SCRATCH_K, and k = 2 and k = WIDE_LONG_KB (the
+    group kernel) on LONG_ROW_LANES reads of each LONG_ROWS length (fewer
+    staged rows a block, then rows from global memory). The text entry timed
+    (CUDA events) beside its plain version and its bound: DP_OPS_PER_CELL
+    (4k+1) integer instructions a live row and lane at the card's int32
+    rate. ptxas's registers and spills of the new kernels. -> (max |err|,
+    {case: (ms, plain ms, bound ms, by, lanes, L, W, k, launches by
+    design)})."""
     from genome_weaver_align_tpu_torch.ops import dp, dp_cuda, window
 
     t_wall = time.time()
     n = codes.numel()
     cases = ([(k, LONG_SEG, LONG_B * (LONG_L // LONG_SEG)) for k in WIDE_KS]
              + [(SCRATCH_K, LONG_SEG, SCRATCH_K_LANES)]
-             + [(2, Lr, LONG_ROW_LANES) for Lr in LONG_ROWS])
+             + [(kk, Lr, LONG_ROW_LANES) for kk in (2, WIDE_LONG_KB) for Lr in LONG_ROWS])
     out, max_err = {}, 0
     for k, Lr, Q in cases:
         starts, reads, lengths, rid, W = segment_lanes(torch, dev, codes, gen, k, Q, Lr)
@@ -867,11 +909,15 @@ def wide_band_checks(torch, dev, codes, words, gen, card):
             f"max |dist err| {err}; text entry {t[0]:.4f} / {t[1]:.4f} ms (bound {b[0]:.4f} ms "
             f"by {b[1]}, {int(lengths.sum())} live rows), plain {plain_ms:.3f} ms ({card})")
         del wins
-    for what, tag in (("group, text", "banded_group_kernelILb1E"),
-                      ("group, windows", "banded_group_kernelILb0E"),
-                      ("scratch, text", "banded_mem_kernelILb1E"),
-                      ("one thread, text, k = 0", "banded_dp_kernelILi0ELb1E")):
-        log(f"[2] ptxas, banded {what}: {ptxas_usage('banded_dp.cu', tag)}")
+    for what, source, tag in (
+            ("group, text, 9 slots a thread", "banded_group.cu", "banded_group_kernelILi9ELb1E"),
+            ("group, text, 16 slots a thread", "banded_group.cu",
+             "banded_group_kernelILi16ELb1E"),
+            ("group, windows, 13 slots a thread", "banded_group.cu",
+             "banded_group_kernelILi13ELb0E"),
+            ("scratch, text", "banded_dp.cu", "banded_mem_kernelILb1E"),
+            ("one thread, text, k = 0", "banded_dp.cu", "banded_dp_kernelILi0ELb1E")):
+        log(f"[2] ptxas, banded {what}: {ptxas_usage(source, tag)}")
     WIDE_WALL_S["[2]"] = time.time() - t_wall
     log(f"[2] wide band and long rows: {WIDE_WALL_S['[2]']:.1f} s of wall")
     return max_err, out
@@ -1796,6 +1842,44 @@ def phase_rings(torch, dev, fm, card):
         if S not in (SHARDS,):
             del shards[S]
 
+    # past 16 shards: the sum stacked and in separate allocations (one
+    # output and all), the words entry, the table entry stacked and one
+    # allocation a shard
+    t_wide = time.time()
+    for S in WIDE_SHARD_COUNTS if PAST_OLD_LIMITS else ():
+        for dtype, n in ((torch.int32, 777), (torch.int32, 65_536), (torch.float32, 777)):
+            x = (torch.randint(-(1 << 30), 1 << 30, (S, n), generator=gen, device=dev,
+                               dtype=torch.int32) if dtype == torch.int32
+                 else torch.randn((S, n), generator=gen, device=dev) * 1e4)
+            want = ring.ring_psum_plain(x)
+            apart = [t.clone() for t in x]
+            outs = [ring_cuda.ring_allreduce_cuda(x), ring_cuda.ring_allreduce_cuda(apart),
+                    torch.stack([ring.ring_psum(apart, only=d) for d in (0, S - 1)])]
+            n_bad = sum(int((o != w).sum()) for o, w in zip(outs, (want, want, want[[0, -1]])))
+            check(n_bad == 0, f"[9] ring kernel disagrees with plain at S={S} {dtype} n={n}")
+        sh = si.put_sharded(si.shard_fm_index(fm, S), dev)
+        if S <= 64:
+            ins, (c, k) = fused_inputs(torch, sh, 2, 96, gen)
+            check(torch.equal(ring_cuda.fused_rank_ring_cuda(*ins),
+                              ring.fused_rank_ring_plain(*ins)),
+                  f"[9] fused words entry wrong at S={S}")
+        # 2 x 65,536 queries; past 64 shards 2 x 8,192 (the plain version's
+        # (S, 2, Q, 8) words must fit the card)
+        _, (c, k) = fused_inputs(torch, sh, 2, 65_536 if S <= 64 else 8_192, gen, gather=False)
+        want = si.fused_occ_plain(sh, c, k)
+        ap = own_allocations(sh)
+        n_bad = sum(int((ring_cuda.fused_occ_cuda(t.bwt_blocks, t.occ_cp, sh.pk_start, sh.pk_end,
+                                                  sh.primary, c, k) != want).sum())
+                    for t in (sh, ap))
+        n_bad += int((want != rank.occ_codes(fm_dev, c, k)).sum())
+        check(n_bad == 0, f"[9] fused table entry wrong at S={S}")
+        del sh, ap
+    log(f"[9] past 16 shards, S = {list(WIDE_SHARD_COUNTS)}: the sum (int32 x 777 and 65,536, "
+        f"float32 x 777; stacked, separate allocations, one output) and the table entry (2 x "
+        f"65,536 queries, past S = 64 2 x 8,192; stacked and one allocation a shard; the "
+        f"single-device occ) equal to plain, the words entry too up to S = 64; "
+        f"{time.time() - t_wide:.1f} s")
+
     # the exact search's payloads: ring (2, B / microbatch) per shard,
     # fused M = microbatch payloads of Q = 2 B / M
     timing = {}
@@ -1862,6 +1946,36 @@ def phase_rings(torch, dev, fm, card):
         f"every shard in its own allocation {t['apart']:.4f} ms ({card})")
     timing["stage"] = t["stage"]
     timing["apart"] = t["apart"]
+    if PAST_OLD_LIMITS:  # the same payloads at WIDE_SHARDS shards
+        Sw = WIDE_SHARDS
+        wparts = torch.randint(-(1 << 20), 1 << 20, (Sw, 2, n), generator=gen, device=dev,
+                               dtype=torch.int32)
+        check(torch.equal(ring_cuda.ring_allreduce_cuda(wparts), ring.ring_psum_plain(wparts)),
+              f"[9] the sum differs from plain at S={Sw}")
+        timing["ring_wide"] = (
+            cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(wparts), reps=200, hide_host=True),
+            cuda_time_ms(lambda: ring.ring_psum_plain(wparts), reps=20, hide_host=True),
+            *bound(2 * wparts.numel() * 4, (Sw - 1) * wparts.numel()),
+            cuda_time_ms(lambda: wparts.sum(0, dtype=torch.int32), reps=200, hide_host=True))
+        wsh = si.put_sharded(si.shard_fm_index(fm, Sw), dev)
+
+        def wide_table():
+            return ring_cuda.fused_occ_cuda(wsh.bwt_blocks, wsh.occ_cp, wsh.pk_start,
+                                            wsh.pk_end, wsh.primary, c, k)
+
+        check(torch.equal(wide_table(), si.fused_occ_plain(wsh, c, k)),
+              f"[9] the fused table entry differs from plain at S={Sw}")
+        timing["table_wide"] = (
+            cuda_time_ms(wide_table, reps=200, hide_host=True),
+            cuda_time_ms(lambda: si.fused_occ_plain(wsh, c, k), reps=10, hide_host=True),
+            *bound(n_q * (4 + 4 + 32 + 4 + 4) + 8 * Sw,
+                   n_q * (8 * RANK_OPS_PER_WORD + 4 * Sw + 6)), None)
+        for name, shape in (("ring_wide", (Sw, 2, n)), ("table_wide", (Sw, M, Q))):
+            tm, p, b, by, lib = timing[name]
+            log(f"[9] {name} at S={Sw}, payload {shape}: kernel {tm:.4f} ms, plain torch "
+                f"{p:.4f} ms, parts.sum(0) {'%.4f ms' % lib if lib is not None else 'none'}, "
+                f"bound {b:.4f} ms by {by} ({card})")
+        del wsh, wparts
     return max_err, timing
 
 
@@ -1925,6 +2039,31 @@ def phase_sharded_search(torch, dev, codes, gi, card):
             f"{launches[merge][1]}, fused words entry {launches[merge][2]}, sharded locate "
             f"{launches[merge][3]} ({card})")
         check(same, f"merge={merge} differs from the single-device search")
+    # WIDE_SHARDS shards on the search's path
+    t0 = time.time()
+    wlay = pmesh.make_layout(1, WIDE_SHARDS, dev)
+    wsh = si.put_sharded(si.shard_fm_index(gi.fwd, WIDE_SHARDS), dev)
+    for merge, mb in (("psum", 1), ("ring", RING_MICROBATCH), ("fused", RING_MICROBATCH)):
+        fn = si.make_sharded_exact_search(wlay, L, wsh, merge=merge, microbatch=mb)
+        counters = (ring_cuda.ring_allreduce_cuda, ring_cuda.fused_occ_cuda,
+                    locate_cuda.locate_sharded_cuda)
+        for f in counters:
+            f.launches = 0
+        t1 = time.time()
+        out = fn(wsh, r, ln)
+        torch.cuda.synchronize()
+        wide = tuple(f.launches for f in counters)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+        log(f"[10] {WIDE_SHARDS} shards, merge={merge}: {time.time() - t1:.3f} s, equal to the "
+            f"single-device search: {same}; launches: sum {wide[0]}, fused table entry "
+            f"{wide[1]}, sharded locate {wide[2]} ({card})")
+        check(same, f"{WIDE_SHARDS} shards, merge={merge}: differs from the single-device search")
+        expect = {"psum": (0, 0, 1), "ring": (L * RING_MICROBATCH, 0, 1), "fused": (0, L, 1)}
+        check(wide == expect[merge], f"{WIDE_SHARDS} shards, merge={merge} launched {wide}, "
+              f"expected {expect[merge]}")
+        launches[f"{WIDE_SHARDS} {merge}"] = wide
+    del wsh
+    log(f"[10] {WIDE_SHARDS} shards: {time.time() - t0:.1f} s")
     lo, hi, pos = ref
     n_found = int((hi > lo).sum())
     unique = (hi - lo == 1).numpy()
@@ -1940,7 +2079,11 @@ def phase_sharded_search(torch, dev, codes, gi, card):
     check(launches["psum"] == (0, 0, 0, 1), "merge=psum launched a ring kernel, or the sharded "
           "locate other than once")
     return launches["ring"][0], launches["fused"][1], {
-        f"[10] merge={m}": launches[m][3] for m in ("psum", "ring", "fused")}
+        **{f"[10] merge={m}": launches[m][3] for m in ("psum", "ring", "fused")},
+        **{f"[10] {WIDE_SHARDS} shards, merge={m}": launches[f"{WIDE_SHARDS} {m}"][2]
+           for m in ("psum", "ring", "fused")}}, {
+        f"[10] {WIDE_SHARDS} shards, merge={m}": launches[f"{WIDE_SHARDS} {m}"]
+        for m in ("ring", "fused")}
 
 
 def phase_sharded_cli(codes, card):
@@ -1956,19 +2099,22 @@ def phase_sharded_cli(codes, card):
     sharded_launches, fm_launches = 0, {}
     work = CACHE / f"sharded{os.getpid()}"
     work.mkdir(parents=True)
-    for name, n_reads, extra, seed in (("seed-table", BATCH, ["--seed-table", str(seedf)], 51),
-                                       ("FM", SHARDED_FM_READS, [], 52)):
+    for name, n_reads, extra, seed, shards, batch in (
+            ("seed-table", BATCH, ["--seed-table", str(seedf)], 51, SHARDS, BATCH),
+            ("FM", SHARDED_FM_READS, [], 52, SHARDS, BATCH),
+            (f"FM, {WIDE_SHARDS} shards", 2 * SHARDED_FM_READS, [], 52, WIDE_SHARDS,
+             SHARDED_FM_READS)):
         fq = work / "reads.fq"
         write_reads(fq, codes, n_reads, seed=seed)
         bodies = {}
-        for n_int in (SHARDS, 1):
+        for n_int in (shards, 1):
             sam, rep = work / f"out{n_int}.sam", work / f"report{n_int}.json"
             dp_cuda.banded_edit_distance_text_cuda.launches = 0
             dp_cuda.banded_edit_distance_cuda.launches = 0
             for c in fm_counters.values():
                 c.launches = 0
             rc = cli.main(["align", str(idx), str(fq), "-k", str(K), *extra, "--n-interval",
-                           str(n_int), "--batch-size", str(BATCH), "--report", str(rep),
+                           str(n_int), "--batch-size", str(batch), "--report", str(rep),
                            "-o", str(sam)])
             # the sharded verify takes the windows entry (its windows are
             # sums of shard partials), the single-device one the text entry
@@ -1993,13 +2139,13 @@ def phase_sharded_cli(codes, card):
                   f"kernel's {('text', 'windows')[entry]} entry")
             if n_int > 1:
                 sharded_launches += launches[1]
-            if name == "FM":  # the FM path: its searches and locate are kernels
+            if name.startswith("FM"):  # the FM path: its searches and locate are kernels
                 want = ("sharded locate", "sharded piece search") if n_int > 1 else ("locate",)
                 for key in want:
                     check(fm_launches[name, n_int][key] > 0,
                           f"FM --n-interval {n_int} never launched the {key} kernel")
-        same = bodies[SHARDS] == bodies[1]
-        log(f"[11] {name}: the --n-interval {SHARDS} SAM body is byte-identical to the "
+        same = bodies[shards] == bodies[1]
+        log(f"[11] {name}: the --n-interval {shards} SAM body is byte-identical to the "
             f"single-device one: {same}")
         check(same, f"{name}: the sharded SAM differs from the single-device SAM")
     shutil.rmtree(work)
@@ -2955,10 +3101,13 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
     counting.start()
     mem = {"requested": 0, "allocated": 0, "small": 0, "stacked": 0}
     z = np.load(reads_path)
-    so, spos, j = load_seed_table(seedf)
+    # the run past 16 shards takes the FM path alone: the seed path's plain
+    # window gather holds (S, lanes, W) int32, 21 GB a batch at 32 shards
+    seed_path = shards <= SHARDS
+    so, spos, j = load_seed_table(seedf) if seed_path else (None, None, 0)
     with metered_uploads(torch, dev, mem):
-        al = sp.ShardedAligner(gi, k=K, n_interval=shards, seed_table=(so, spos), seed_j=j,
-                               device=dev)
+        al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev,
+                               **(dict(seed_table=(so, spos), seed_j=j) if seed_path else {}))
     del so, spos
     lay = al.layout
     mapped = isinstance(al.sh.bwt_blocks, peer.Shards)
@@ -2992,11 +3141,13 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
         result[f"peak_mem_bytes_{tag}"] = torch.cuda.max_memory_allocated(dev)
         return recs, aligner.sam_header()
 
-    seed_recs, hdr = run("seed path", al, read_batches(z, "seed", RANK_BATCH))
-    fm_al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev)
-    fm_recs, _ = run("FM path", fm_al, read_batches(z, "fm", BATCH))
+    if seed_path:
+        seed_recs, hdr = run("seed path", al, read_batches(z, "seed", RANK_BATCH))
+    fm_al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev) if seed_path else al
+    fm_recs, hdr = run("FM path", fm_al, read_batches(z, "fm", BATCH))
     if rank == 0:
-        sam.write_sam(sam_path, hdr, seed_recs)
+        if seed_path:
+            sam.write_sam(sam_path, hdr, seed_recs)
         sam.write_sam(f"{sam_path}.fm.sam", hdr, fm_recs)
 
     # every card's used memory while every rank holds both aligners
@@ -3298,8 +3449,39 @@ def phase_flag_wait(torch, card) -> dict:
           "[20] the flag-wait sum differs from plain on one card")
     check(both and poisoned and after < 5 and late < 5,
           "[20] a failed flag wait did not reach its peer, or a rank waited after it")
+
+    # past 16 ranks, emulated as above: int32 at the first, a middle and the last rank, float32 at one
+    wide = {}
+    for P in WIDE_RANKS if PAST_OLD_LIMITS else ():
+        wbad, wpushed = 0, True
+        for dtype, ranks in ((torch.int32, (0, P // 2, P - 1)), (torch.float32, (1,))):
+            x = (torch.randint(-(1 << 30), 1 << 30, (P, *payload), generator=gen, device=dev,
+                               dtype=torch.int32) if dtype == torch.int32
+                 else torch.randn((P, *payload), generator=gen, device=dev) * 1e4)
+            want = ring.ring_psum_plain(x)
+            for me in ranks:
+                boxes = [x.clone() if q == me else torch.zeros_like(x) for q in range(P)]
+                flags = [torch.zeros((P, W), dtype=torch.int32, device=dev) for _ in range(P)]
+                flags[me].fill_(1 << 30)
+                error = torch.zeros(1, dtype=torch.int32, device=dev)
+                got = ring_cuda.ring_allreduce_wait_cuda(boxes, flags, me, me + 1, error)
+                wbad += int((got != want[me]).sum()) + int(error)
+                wpushed &= all(torch.equal(boxes[q][me], x[me]) and
+                               bool((flags[q][me, :G] == me + 1).all())
+                               for q in range(P) if q != me)
+        boxes = [x.clone()] + [torch.zeros_like(x) for _ in range(P - 1)]
+        flags = [torch.full((P, W), 1 << 30, dtype=torch.int32, device=dev) for _ in range(P)]
+        error = torch.zeros(1, dtype=torch.int32, device=dev)
+        prepared = ring_cuda.FlagWait([boxes], flags, 0, error)
+        wide[P] = {"err": wbad, "ms": cuda_time_ms(lambda: prepared(0, 7), reps=200,
+                                                    hide_host=True),
+                   "plain_ms": cuda_time_ms(lambda: ring.ring_psum_plain(x), reps=5)}
+        log(f"[20] one card, {P} ranks emulated ({tuple(payload)} a partial): the flag-wait sum "
+            f"against plain {wbad} mismatches, pushes and epochs landed in every peer: "
+            f"{wpushed}; the prepared launch {wide[P]['ms']:.4f} ms ({card})")
+        check(wbad == 0 and wpushed, f"[20] the flag-wait sum differs from plain at {P} ranks")
     return {"err": bad, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "payload": list(payload), "blocks": G}
+            "payload": list(payload), "blocks": G, "wide": wide}
 
 
 def phase_interval(torch, codes, card) -> dict:
@@ -3342,16 +3524,21 @@ def phase_interval(torch, codes, card) -> dict:
     n_cards = torch.cuda.device_count()
     ref, launches, timings, dp_err = {}, {}, {}, 0
     t_phase = time.time()
-    runs = [("[20]", n, SHARDS) for n in INTERVAL_RANKS] + [("[21]", TWO_AXIS_RANKS,
-                                                            TWO_AXIS_SHARDS)]
+    runs = [("[20]", n, SHARDS) for n in INTERVAL_RANKS] + [
+        ("[20]", 2, WIDE_SHARDS), ("[21]", TWO_AXIS_RANKS, TWO_AXIS_SHARDS)]
     for phase, n, S in runs:
+        if phase == "[20]" and S != SHARDS:  # its own keys beside the SHARDS run's
+            phase = f"[20] {S} shards"
         sam = work / f"seed{n}x{S}.sam"
         res = run_ranks("interval", n, idx, seedf, work / "reads.npz", sam, tag=phase,
                         extra=(str(S),))
         g = pmesh.interval_span(n, S)
         own_cards = 1 < n <= n_cards  # every rank on a card of its own
         head = f"{phase} {n} rank(s), {S} shards ({n // g} interval group(s) of {g})"
-        bodies = {"seed path": sam.read_bytes(), "FM path": Path(f"{sam}.fm.sam").read_bytes()}
+        paths = {"seed path": sam, "FM path": Path(f"{sam}.fm.sam")}
+        if S > SHARDS:  # the run past 16 shards: the FM path alone (interval_child)
+            del paths["seed path"]
+        bodies = {tag: path.read_bytes() for tag, path in paths.items()}
         exact = [dict(np.load(f"{sam}.{r['rank']}.npz")) for r in res]
         for r in res:
             log(f"{head}: rank {r['rank']} on cuda:{r['card']}, group {r['group']}, shards "
@@ -3361,7 +3548,7 @@ def phase_interval(torch, codes, card) -> dict:
             if r.get("memory_used"):
                 log(f"{head}: with every rank alive, memory.used by card {r['memory_used']}; "
                     f"compute apps {r['compute_apps']} ({card})")
-        for tag, path in (("seed path", sam), ("FM path", Path(f"{sam}.fm.sam"))):
+        for tag, path in paths.items():
             n_sam, mapped, correct = score_sam(path)
             wall = max(r["wall_s"][tag] for r in res)
             n_batches = -(-n_sam // (RANK_BATCH if tag == "seed path" else BATCH))
@@ -3431,7 +3618,7 @@ def phase_interval(torch, codes, card) -> dict:
                 check(routes["psum"]["psum gloo"] > 0 and routes["ring"]["ring host barrier"] > 0,
                       f"{who}: ranks that share a card must merge over gloo and host barriers: "
                       f"{routes}")
-            want = {"seed path": ("windows entry",),
+            want = {**({"seed path": ("windows entry",)} if "seed path" in paths else {}),
                     "FM path": ("windows entry", "sharded locate", "sharded piece search"),
                     "exact, merge=psum": ("sharded locate",),
                     "exact, merge=ring": ("sharded locate", "flag-wait ring sum" if own_cards
@@ -3870,6 +4057,15 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
             f"{b[0]:.4f} ms by {b[1]} ({rows} row fetches); latency floor {floor_ms:.4f} ms "
             f"({steps} sequential steps){note} ({card})")
 
+    def held(name, shape, kernel, plain):
+        """The kernel against plain on every field once, then timed (no
+        stage, bound or floor: the shapes measure() covers beside it)."""
+        err = err_of(kernel(), plain())
+        check(err == 0, f"[18] {name}: the kernel differs from its plain version by {err}")
+        ms = cuda_time_ms(kernel, reps=20, hide_host=True)
+        out[name] = dict(err=err, ms=ms, shape=shape)
+        log(f"[18] {name} ({shape}): equal on every field; kernel {ms:.4f} ms ({card})")
+
     # ---- the backward search on the [4] index: -k 0's and [7]'s shapes
     t0 = time.time()
     tab = tuple(torch.from_numpy(a).to(dev) for a in build_kmer_table(fm_tables.fwd, FM_KMER_J))
@@ -3931,6 +4127,21 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
     onemm("one-mismatch", mr)
     for n in ONEMM_SUBSETS:
         onemm(f"one-mismatch, {n} reads", mr[:n].contiguous())
+    # past 64 slots
+    if PAST_OLD_LIMITS:
+        sub = mr[:max(ONEMM_SUBSETS)].contiguous()
+        ln = lens(sub.shape[0])
+        for n_slots in WIDE_MM_SLOTS:
+            (measure if n_slots == WIDE_MM_SLOTS[-1] else held)(
+                    f"one-mismatch, {n_slots} slots",
+                    f"{sub.shape[0]} reads x {L}, {n_slots} slots",
+                    lambda n_slots=n_slots: one_mismatch.one_mismatch_candidates(
+                        fm, sub, ln, n_slots=n_slots),
+                    lambda n_slots=n_slots: one_mismatch.one_mismatch_candidates_plain(
+                        fm, sub, ln, n_slots=n_slots),
+                    *((FM_OPS_PER_ROW_ALL4,
+                       sub.numel() * 4 + sub.shape[0] * (4 + (2 * n_slots + 1) * 8 + 1))
+                      if n_slots == WIDE_MM_SLOTS[-1] else ()))
 
     # ---- edges on the [4] index: reads of length 0, 1 and < P, N codes
     # mapped to 0, a 1-slot pool (it overflows every step), keep 1
@@ -3992,6 +4203,22 @@ def phase_fm_kernels(torch, dev, codes, rep_codes, card) -> dict:
               f"2 x {RESCUE_CHUNK} lanes, k = {K}, {RESCUE_SLOTS} slots"
               f"{', narrow_left' * narrow}, keep 8, repeat index", n_slots=RESCUE_SLOTS,
               narrow_left=narrow)
+    # past 64 slots (a narrowing step counts before it places): the
+    # tier-2 cohort, both orders, the binding's lanes (a warp here), no sweep
+    if PAST_OLD_LIMITS:
+        for n_slots in WIDE_SLOTS:
+            for narrow in (False, True):
+                ln = lens(cr.shape[0])
+                kw = dict(n_slots=n_slots, narrow_left=narrow)
+                row = n_slots == WIDE_SLOTS[1] and narrow  # the kernels line's shape
+                (measure if row else held)(
+                    f"staircase, {n_slots} slots{', narrow_left' * narrow}",
+                    f"2 x {STAIR_COHORT} lanes, k = {K}, {n_slots} slots"
+                    f"{', narrow_left' * narrow}, keep 8, repeat index",
+                    lambda kw=kw, ln=ln: staircase.staircase_pools(rbi, cr, ln, K, **kw),
+                    lambda kw=kw, ln=ln: staircase.staircase_pools_plain(rbi, cr, ln, K, **kw),
+                    *((FM_OPS_PER_ROW_ALL4, cr.numel() * 4 + cr.shape[0] * (4 + (K + 1) * 65))
+                      if row else ()))
     del rbi, rep, cr, chunk
     torch.cuda.empty_cache()
     return out
@@ -4225,8 +4452,8 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
                 2 * live[0] * FM_OPS_PER_ROW_ONE), steps[0])
 
     # the same launches with every shard in its own allocation: the kernels'
-    # other instantiation (one base pointer a shard in shared memory), the
-    # layout of shards mapped from other processes ([20])
+    # other instantiation (one base pointer a shard, from a device table),
+    # the layout of shards mapped from other processes ([20])
     ap = own_allocations(sh)
     out["apart"] = {}
     for name, on in ((f"sharded locate, [11] S = {SHARDS}", lambda t: si.locate(t, rows11)),
@@ -4320,6 +4547,56 @@ def phase_locate(torch, dev, codes, rep_codes, card, step_us=None, edges=True) -
               "[19] the sharded piece search differs on the unequal shard bounds")
         apart_equal(uneq, "unequal bounds")
         bounds = [(int(a), int(b)) for a, b in zip(uneq.row_start, uneq.row_end)]
+        # past 16 shards, the equal split and WIDE_SHARDS unequal shards
+        t_wide = time.time()
+        wide_launches = {}
+        rng = np.random.default_rng(191)
+        cuts = [sorted(int(x) for x in rng.integers(0, m + 1, size=WIDE_SHARDS - 1))
+                for m in (nb, mb)]
+        wides = [(S, None) for S in WIDE_SHARD_COUNTS] + [
+            (WIDE_SHARDS, ([0, *cuts[0], nb], [0, *cuts[1], mb]))]
+        for S, cut in wides:
+            tag = f"S = {S}{', unequal' if cut else ''}"
+            shs = si.put_sharded(si.shard_fm_index(gi.fwd, S, *(cut or ())), dev)
+            locate_cuda.locate_sharded_cuda.launches = 0
+            check(err_of(si.locate(shs, edge), want) == 0 and
+                  err_of(si.locate_plain(shs, edge[:4096]), want[:4096]) == 0,
+                  f"[19] the sharded locate differs at the edges, {tag}")
+            check(err_of(sp.sharded_piece_search(shs, sr[:2048], sln[:2048], P, L),
+                         sp.sharded_piece_search_plain(shs, sr[:2048], sln[:2048], P, L)) == 0,
+                  f"[19] the sharded piece search differs from its plain loop, {tag}")
+            apart_equal(shs, tag)
+            wide_launches[tag] = locate_cuda.locate_sharded_cuda.launches
+            del shs
+        check(all(n == 2 for n in wide_launches.values()),
+              f"[19] the sharded locate did not launch its kernel at every S: {wide_launches}")
+        log(f"[19] past 16 shards, {list(wide_launches)}: the sharded locate at the edges equal "
+            f"to the one-index plain loop (and its own plain loop on 4,096 rows), the sharded "
+            f"piece search on 2,048 reads equal to its plain loop, stacked and with every shard "
+            f"in its own allocation, the fused table entry too; {time.time() - t_wide:.1f} s")
+        # the [11] shapes at WIDE_SHARDS shards, stacked and one allocation a
+        # shard, beside the S = SHARDS times above
+        wsh = si.put_sharded(si.shard_fm_index(gi.fwd, WIDE_SHARDS), dev)
+        wap = own_allocations(wsh)
+        for rows, tag in ((rows11, "[11]"), (rows10, "[10]")):
+            locate_case(f"sharded locate, {tag} S = {WIDE_SHARDS}", fm, rows,
+                        lambda rows=rows: si.locate(wsh, rows),
+                        lambda rows=rows: si.locate_plain(wsh, rows), True)
+        timed(f"sharded piece search, [11] S = {WIDE_SHARDS}",
+              f"{SHARDED_FM_READS} reads x {L}, P = {P}, {live[0]} live extensions",
+              lambda: sp.sharded_piece_search(wsh, sr, sln, P, L),
+              lambda: sp.sharded_piece_search_plain(wsh, sr, sln, P, L),
+              out[f"sharded piece search, [11] S = {SHARDS}"]["bound"], steps[0])
+        out["apart"].update({
+            f"sharded locate, [11] S = {WIDE_SHARDS}": cuda_time_ms(
+                lambda: si.locate(wap, rows11), reps=20, hide_host=True),
+            f"sharded piece search, [11] S = {WIDE_SHARDS}": cuda_time_ms(
+                lambda: sp.sharded_piece_search(wap, sr, sln, P, L), reps=20, hide_host=True)})
+        log(f"[19] {WIDE_SHARDS} shards, one allocation a shard: sharded locate on [11]'s rows "
+            f"{out['apart'][f'sharded locate, [11] S = {WIDE_SHARDS}']:.4f} ms, sharded piece "
+            f"search {out['apart'][f'sharded piece search, [11] S = {WIDE_SHARDS}']:.4f} ms "
+            f"({card})")
+        del wsh, wap
         log(f"[19] edges (row 0, the primary row, n twice, 65,536 random rows): locate equal to "
             f"its plain loop; the sharded locate equal to the one-index plain loop at S = {done} "
             f"and on unequal row bounds {bounds} (and its own plain loop on 4,096 of them); the "
@@ -4410,6 +4687,12 @@ def fm_rows(fm_k, fm_cli_launches, tier2_staircase, mode_launches, mp_launches) 
             sum(mp_launches["repeat_staircase"].values()), stair),
         row("one_mismatch", "one_mismatch.cu", "models/one_mismatch.py:127", "one-mismatch",
             "[13] align --mode onemm", onemm["[13] align --mode onemm"], onemm),
+        row("staircase_wide", "staircase.cu", "models/staircase.py:235",
+            f"staircase, {WIDE_SLOTS[1]} slots, narrow_left",
+            "none: no path takes more than 64 slots (the API does)", 0, {}),
+        row("one_mismatch_wide", "one_mismatch.cu", "models/one_mismatch.py:127",
+            f"one-mismatch, {WIDE_MM_SLOTS[-1]} slots",
+            "none: no path takes more than 64 slots (the API does)", 0, {}),
     ]
 
 def across_cards_bound(local_bytes: float, remote_bytes: float) -> tuple[float, str]:
@@ -4436,6 +4719,7 @@ def flag_wait_row(wait20, timings20, launches20) -> dict:
     row = 4 * 2 * (BATCH // RING_MICROBATCH)  # one rank's partial, (2, 32,768) int32
     extra = {"one_card_ms": wait20["ms"], "one_card_host_ms": wait20["host_ms"],
              "blocks": wait20["blocks"],
+             "one_card_ms_by_ranks": {P: v["ms"] for P, v in wait20.get("wide", {}).items()},
              "launches_by_path": per_run(launches20, "flag-wait ring sum")}
     if ms.get("ring_route") == "flag wait":
         timing = (ms["ring"], wait20["plain_ms"],
@@ -4489,11 +4773,14 @@ def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, 
            **{f"[15] multi-part repeat, {k}": n for k, n in mp_launches["repeat_locate"].items()},
            **{run: n["locate"] for run, n in fm16.items()}}
     fm_run = fm11["FM", SHARDS]
+    wide_run = fm11[f"FM, {WIDE_SHARDS} shards", WIDE_SHARDS]
+    path11w = f"[11] align --n-interval {WIDE_SHARDS} (FM shards)"
     sharded = {**locate10, f"[11] align --n-interval {SHARDS} (FM shards)":
-               fm_run["sharded locate"],
+               fm_run["sharded locate"], path11w: wide_run["sharded locate"],
                **{run: n["sharded locate"] for run, n in fm16.items() if "sharded" in run},
                **per_run(launches20, "sharded locate")}
     pieces = {f"[11] align --n-interval {SHARDS} (FM shards)": fm_run["sharded piece search"],
+              path11w: wide_run["sharded piece search"],
               **{run: n["sharded piece search"] for run, n in fm16.items() if "sharded" in run},
               **per_run(launches20, "sharded piece search")}
     path11 = f"[11] align --n-interval {SHARDS} (FM shards)"
@@ -4506,6 +4793,12 @@ def locate_rows(loc_k, fm_cli_locate, tier2_locate, mode_launches, mp_launches, 
         row("fm_backward_search_sharded_pieces", "parallel/sharded_pipeline.py:330",
             f"sharded piece search, [11] S = {SHARDS}", path11, fm_run["sharded piece search"],
             pieces),
+        row("locate_sharded_wide", "parallel/sharded_index.py:267",
+            f"sharded locate, [11] S = {WIDE_SHARDS}", path11w, wide_run["sharded locate"],
+            sharded, (f"sharded locate, [10] S = {WIDE_SHARDS}",)),
+        row("fm_backward_search_sharded_pieces_wide", "parallel/sharded_pipeline.py:330",
+            f"sharded piece search, [11] S = {WIDE_SHARDS}", path11w,
+            wide_run["sharded piece search"], pieces),
     ]
 
 
@@ -4562,8 +4855,8 @@ def main() -> int:
 
         gi = load_index(build_index(cli, codes)[0])
         ring_err, ring_timing = phase_rings(torch, dev, gi.fwd, card)
-        ring_launches, fused_launches, locate10 = phase_sharded_search(torch, dev, codes, gi,
-                                                                       card)
+        ring_launches, fused_launches, locate10, wide10 = phase_sharded_search(torch, dev, codes,
+                                                                               gi, card)
         del gi
         banded_win_launches, fm11 = phase_sharded_cli(codes, card)
         tier2, rep_codes = phase_tier2(torch, dev, card)
@@ -4585,9 +4878,12 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     myers_win_err, myers_text_err = myers_err
+    wide20 = wait20["wide"][WIDE_RANKS[-1]]
     log(f"[smoke] wall {time.time() - t_smoke:.1f} s, of which the checks past the verify "
         f"kernels' one-thread designs {sum(WIDE_WALL_S.values()):.1f} s "
-        f"({', '.join(f'{k} {v:.1f}' for k, v in WIDE_WALL_S.items())})")
+        f"({', '.join(f'{k} {v:.1f}' for k, v in WIDE_WALL_S.items())}); each phase's first "
+        f"line, s after the start: "
+        f"{', '.join(f'{k} {v - t_smoke:.1f}' for k, v in PHASE_START.items())}")
     log(json.dumps({"kernels": [
         kernel_row("banded_dp_text", "banded_dp.cu", "ops/dp_pallas.py:47",
                    "[4] align --seed-table", launches, max(max_err, err22),
@@ -4620,7 +4916,10 @@ def main() -> int:
                           "W": LONG_SEG + 3 * WIDE_LONG_KB, "k": WIDE_LONG_KB},
                    ms_by_k={k: dp_timing["wide"][f"k={k} L={LONG_SEG}"][0] for k in WIDE_KS},
                    bound_ms_by_k={k: dp_timing["wide"][f"k={k} L={LONG_SEG}"][2]
-                                  for k in WIDE_KS}),
+                                  for k in WIDE_KS},
+                   long_rows={Lr: {key: dp_timing["wide"][f"k={WIDE_LONG_KB} L={Lr}"][i]
+                                   for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}
+                              for Lr in LONG_ROWS}),
         kernel_row("banded_dp_scratch", "banded_dp.cu", "ops/dp_pallas.py:47",
                    f"none: k >= 128 runs on no path here; both entries held against plain in "
                    f"[2] at k = {SCRATCH_K}", 0, max_err,
@@ -4663,15 +4962,32 @@ def main() -> int:
         kernel_row("ring_allreduce", "ring.cu", "parallel/ring.py:58",
                    "[10] merge=ring", ring_launches, ring_err["ring"], ring_timing["ring"],
                    launches_by_path={"[10] merge=ring": ring_launches,
+                                     f"[10] {WIDE_SHARDS} shards, merge=ring":
+                                         wide10[f"[10] {WIDE_SHARDS} shards, merge=ring"][0],
                                      **per_run(launches20, "ring sum")}),
         flag_wait_row(wait20, timings20, launches20),
+        kernel_row("ring_allreduce_wide", "ring.cu", "parallel/ring.py:58",
+                   f"[10] {WIDE_SHARDS} shards, merge=ring",
+                   wide10[f"[10] {WIDE_SHARDS} shards, merge=ring"][0], ring_err["ring"],
+                   ring_timing["ring_wide"],
+                   shape={"S": WIDE_SHARDS, "payload": [2, BATCH // RING_MICROBATCH]}),
+        kernel_row("ring_allreduce_flag_wait_wide", "ring.cu", "parallel/ring.py:58",
+                   f"none: one card, {WIDE_RANKS[-1]} ranks emulated ([20]); across cards the "
+                   f"ranks are the cards", 0, wide20["err"],
+                   (wide20["ms"], wide20["plain_ms"],
+                    *bound((WIDE_RANKS[-1] + 1) * 4 * 2 * (BATCH // RING_MICROBATCH), 0), None),
+                   ms_by_ranks={P: v["ms"] for P, v in wait20["wide"].items()}),
         kernel_row("fused_rank_ring_words", "ring.cu", "parallel/ring.py:162",
                    "none: the JAX contract's entry, held against plain in [9]", 0,
                    ring_err["words"], ring_timing["words"]),
         kernel_row("fused_occ_table", "ring.cu", "parallel/ring.py:162", "[10] merge=fused",
                    fused_launches, ring_err["table"], ring_timing["table"],
                    stage_ms=ring_timing["stage"], separate_allocations_ms=ring_timing["apart"],
+                   wide_ms={WIDE_SHARDS: ring_timing["table_wide"][0]},
+                   wide_bound_ms={WIDE_SHARDS: ring_timing["table_wide"][2]},
                    launches_by_path={"[10] merge=fused": fused_launches,
+                                     f"[10] {WIDE_SHARDS} shards, merge=fused":
+                                         wide10[f"[10] {WIDE_SHARDS} shards, merge=fused"][1],
                                      **per_run(launches20, "fused table entry"),
                                      **per_run(launches22, "fused table entry")}),
         *fm_rows(fm_k, fm_cli_launches, tier2["staircase"], mode_launches, mp_launches),

@@ -65,23 +65,22 @@
 //     kb = 16.  The band's D and window codes take 2 (4k+1) = 130 registers
 //     at k = 16; storing E too would add 65 more.  What ptxas reports at
 //     k = 14 and 16, chip_smoke.py prints.
-//   * k = 17..127: a lane is a group of G = 8..32 threads (a power of two
-//     inside a warp), each holding 16 consecutive band slots of D and
-//     window codes in registers; the group pads the band at its bottom
-//     (slots below 0 hold a value above every real one), so the top slot
-//     is always the last thread's last register.  A row: the insertion
-//     term D_old[b+1] crosses a thread boundary once (__shfl_down_sync of
-//     slot 0); the window deletion D_new[b] = min(c_b, D_new[b-1] + 1) is
-//     b + the prefix min over j <= b of (c_j - j), so each thread scans its
-//     16 slots, the group takes an exclusive prefix min of its threads'
-//     minima with log2(G) + 1 shuffles, and each slot takes the min of its
-//     own scan and the carried-in minimum + b; the window codes move down
-//     one slot a row (one shuffle), the last thread reading the new top
-//     code.  Integer min and + are exact, so every cell, garbage above INF
-//     on dead lanes included, equals the plain version's; end_b is the
-//     group's first argmin of the last row (a shuffle min of (value, slot)).
-//     Lanes of one warp may have different lengths: the warp runs its
-//     longest lane's rows and a finished lane keeps its D.
+//   * k = 17..127 (banded_group.cu, its own source, built beside this one):
+//     a lane is a group of G = 8..32 threads (a power of two
+//     inside a warp), each holding N = ceil((4k+1) / G) = 9..16
+//     consecutive band slots of D and window codes in registers (a kernel
+//     template a N: the band padded by fewer than G slots); a row is the
+//     one-thread design's 4 instructions a cell in each thread's own slots,
+//     then one __viaddmin_s32 a cell for the window deletion carried in
+//     from the group's lower threads (an exclusive prefix min over the
+//     threads, log2(G) + 1 shuffles) and one shuffle for the insertion
+//     term across the thread boundary; the window codes rotate by register
+//     index over N unrolled rows, decoded from the packed text a block of
+//     N rows at a time.  No row checks the window's bounds (banded_group_
+//     kernel says why the outputs equal the plain version's all the
+//     same).  end_b is the group's first argmin of the last row (a
+//     shuffle min of (value, slot)).  Lanes of one warp may have different
+//     lengths: each group runs its own rows.
 //   * k >= 128: a warp a lane, ceil((4k+1) / 32) slots a thread, D in a
 //     scratch buffer the binding allocates (two rows, in turn) and the
 //     window codes read per cell; the same scan.  Slow, right, no band
@@ -104,38 +103,17 @@
 #include <type_traits>
 #include <utility>
 
-#include "stage_rows.cuh"
+#include "banded_dp.cuh"
 
 namespace {
 
-constexpr int32_t kInf = 1 << 20;
-constexpr int32_t kNoMatch = 256;  // a window code no int8 read code equals
-constexpr int kThreads = gwa::kMaxStageThreads;
-constexpr uint32_t kFull = 0xFFFFFFFFu;
-constexpr int32_t kBig = 1 << 30;        // a padding slot's D: above every real cell
-constexpr int kSlots = 16;               // band slots a thread of a group
-constexpr int32_t kMaxGroupK = 127;      // 32 threads x 16 slots >= 4k + 1
+using namespace gwa::banded;
+
 // The body's rows are unrolled by 4k+1 for k up to this; a wider band runs
 // its body one row at a time with the window codes shifted by moves, so
 // that the (4k+1)^2-cell unrolled body of every k up to 16 does not
 // multiply the build time.
 constexpr int kMaxUnrolledK = 8;
-
-struct Args {
-  const int8_t* reads;     // (B, L)
-  const int32_t* lengths;  // (B,)
-  const int32_t* rid;      // (Q,) the read of each lane; null: lane q reads row q
-  const int8_t* windows;   // (Q, W) for the windows entry
-  const uint32_t* text;    // (nw,) packed text for the text entry
-  const int32_t* starts;   // (Q,) window starts for the text entry
-  int32_t* dist;
-  int32_t* end_b;
-  int32_t* scratch;        // 2 x 32 x slots words a lane for k > kMaxGroupK
-  int64_t Q;
-  int32_t B, L, W, nw, n_text;
-  int32_t k, group, slots;  // band half-width; threads a lane; slots a thread
-  int32_t stage;            // rows staged in shared memory (else read from global memory)
-};
 
 // Window codes j = 0, 1, 2, ... of one lane from the packed text: 2 bits a
 // base, 16 bases a word, base p at bits 2 (p & 15) of word p >> 4.
@@ -333,22 +311,6 @@ __global__ void __launch_bounds__(kThreads) banded_dp_kernel(const Args a) {
   a.end_b[q] = best_b;
 }
 
-// The group's first argmin of (value, slot) over the last row, written by
-// thread 0 of the group.
-__device__ __forceinline__ void write_best(const Args& a, int64_t q, bool out, int32_t best,
-                                           int32_t best_b, int G) {
-  unsigned long long key = (static_cast<unsigned long long>(static_cast<uint32_t>(best)) << 32) |
-                           static_cast<uint32_t>(best_b);
-  for (int d = G / 2; d >= 1; d >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(kFull, key, d, G);
-    key = other < key ? other : key;
-  }
-  if (out) {
-    a.dist[q] = min(static_cast<int32_t>(key >> 32), kInf);
-    a.end_b[q] = static_cast<int32_t>(key & 0xFFFFFFFFu);
-  }
-}
-
 // The exclusive prefix min over the group's threads of v (kBig for the
 // group's first thread).
 __device__ __forceinline__ int32_t carried_min(int32_t v, int j, int G) {
@@ -358,83 +320,6 @@ __device__ __forceinline__ int32_t carried_min(int32_t v, int j, int G) {
   }
   const int32_t c = __shfl_up_sync(kFull, v, 1, G);
   return j == 0 ? kBig : c;
-}
-
-// k = 17..kMaxGroupK: a group of G threads a lane, kSlots band slots each.
-template <bool kText>
-__global__ void __launch_bounds__(kThreads) banded_group_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G = a.group;
-  const int64_t gt = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t q = gt / G;
-  const bool live = q < a.Q;
-  const int64_t qc = live ? q : a.Q - 1;  // a lane past the end runs lane Q-1, unwritten
-  const int32_t r = a.rid ? min(max(a.rid[qc], 0), a.B - 1) : static_cast<int32_t>(qc);
-  const int8_t* rrow = a.stage ? gwa::stage_rows(a.reads, a.L, r, live, smem, G)
-                               : a.reads + static_cast<int64_t>(r) * a.L;
-  if (__all_sync(kFull, !live)) return;  // no later __syncthreads
-
-  const int j = static_cast<int>(threadIdx.x) & (G - 1);
-  const int32_t K = a.k, BAND = 4 * K + 1, W = a.W;
-  const int32_t base = j * kSlots - (G * kSlots - BAND);  // band slot of register 0
-  const int32_t len = live ? a.lengths[r] : 0;
-  const int32_t steps = min(len, a.L);
-  typename std::conditional<kText, TextCodes, WindowCodes>::type cd;
-  cd.init(a, qc);
-
-  int32_t D[kSlots], wc[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int32_t b = base + s;
-    D[s] = b < 0 ? kBig : (b >= K ? 0 : kInf);
-    wc[s] = (b >= K && b < BAND - 1) ? cd.at(b - K) : kNoMatch;
-  }
-  const int32_t rows = __reduce_max_sync(kFull, steps);
-  for (int32_t i = 0; i < rows; ++i) {
-    const bool active = i < steps;
-    if (j == G - 1) wc[kSlots - 1] = cd.at(i + 3 * K);  // slot 4k: window position i + 3k
-    const int32_t rc = active ? static_cast<int32_t>(rrow[i]) : 0;
-    int32_t above = __shfl_down_sync(kFull, D[0], 1, G);  // D_old of the next thread's first slot
-    if (j == G - 1) above = kInf;                          // past the band: INF
-    int32_t l[kSlots];
-    int32_t run = kBig;
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int32_t b = base + s;
-      const int32_t up = s + 1 < kSlots ? D[s + 1 < kSlots ? s + 1 : s] : above;
-      const bool valid = static_cast<uint32_t>(i + b - K) < static_cast<uint32_t>(W);
-      const int32_t x = (wc[s] ^ rc) & 0x1FF;
-      // the plain version's min(D + sub, D_old[b+1] + 1): a mismatch costs 1
-      // through min(D, up) + 1
-      int32_t t = valid ? __viaddmin_s32(min(D[s], up), 1, D[s] + x) : kInf;
-      if (b < 0) t = kBig;
-      run = s == 0 ? t : __viaddmin_s32(run, 1, t);
-      l[s] = run;
-    }
-    const int32_t cin = carried_min(run - (base + kSlots - 1), j, G);
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int32_t nd = min(l[s], cin + base + s);
-      D[s] = active ? nd : D[s];
-    }
-    const int32_t w0 = __shfl_down_sync(kFull, wc[0], 1, G);
-#pragma unroll
-    for (int s = 0; s < kSlots - 1; ++s) wc[s] = wc[s + 1];
-    wc[kSlots - 1] = w0;
-  }
-
-  int32_t best = kBig, best_b = BAND;
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int32_t b = base + s;
-    const int32_t j_end = len + b - K;
-    const int32_t df = (j_end >= 0 && j_end <= W) ? D[s] : kInf;
-    if (b >= 0 && df < best) {
-      best = df;
-      best_b = b;
-    }
-  }
-  write_best(a, q, live && j == 0, best, best_b, G);
 }
 
 // k > kMaxGroupK: a warp a lane, a.slots band slots a thread, D in scratch
@@ -505,14 +390,6 @@ int launch(const Args& a, cudaStream_t stream) {
   return gwa::launch_staged<int8_t>(banded_dp_kernel<K, kText>, a, 1, 0, stream);
 }
 
-// Threads a lane for k = 17..kMaxGroupK: the power of two whose kSlots-slot
-// threads cover the band (8..32).
-int group_for(int32_t k) {
-  int g = 1;
-  while (g * kSlots < 4 * k + 1) g *= 2;
-  return g;
-}
-
 int64_t slots_for(int32_t k) { return (4 * static_cast<int64_t>(k) + 1 + 31) / 32; }
 
 template <bool kText>
@@ -539,10 +416,7 @@ int dispatch(int32_t k, Args a, int64_t scratch_words, cudaStream_t s) {
   }
   if (k < 0 || k >= kInf) return static_cast<int>(cudaErrorInvalidValue);
   a.k = k;
-  if (k <= kMaxGroupK) {
-    a.group = group_for(k);
-    return gwa::launch_staged<int8_t>(banded_group_kernel<kText>, a, a.group, 0, s);
-  }
+  if (k <= kMaxGroupK) return static_cast<int>(cudaErrorInvalidValue);  // banded_group.cu
   a.slots = static_cast<int32_t>(slots_for(k));
   if (!a.scratch || scratch_words < 64 * static_cast<int64_t>(a.slots) * a.Q)
     return static_cast<int>(cudaErrorInvalidValue);

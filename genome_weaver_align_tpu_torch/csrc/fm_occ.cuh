@@ -2,7 +2,7 @@
 // shared by fm_search.cu, locate.cu, staircase.cu, one_mismatch.cu and
 // ring.cu, the owner lookup and row reads of the interval-sharded tables
 // (one definition of the split: owner_of, load_row(ShardedFM); one base
-// pointer a shard: ShardPtrs, ShardTable), and the
+// pointer a shard: ShardPtrs or a device table, ShardTable), and the
 // block size of a launch of lane groups (block_threads).  No kernel.
 //
 // The tables are the port's DeviceFMIndex (ops/rank.py): `blocks` holds one
@@ -221,43 +221,31 @@ __device__ __forceinline__ FMTable load_table(const int* blocks, const int* C, i
   return t;
 }
 
-// ---- interval shards (parallel/sharded_index.py).  S <= kMaxShards
-// shards on one device, each coordinate space split into ranges
-// [start[s], end[s]): the packed BWT coordinates (BWT words and
-// checkpoints, two arrays) and the row coordinates (marks, sampled values).
-// A query reads its owner's table only; with no owner it is the plain
-// version's sum of zeros.  Each table comes as one base pointer a shard
-// (ShardPtrs), and every shard's table has the same rows.  Two layouts,
-// one kernel template each (ShardTable): the shards are the rows of one
-// stacked tensor (base + s * stride: arithmetic, nothing loaded), or each
-// lies in an allocation of its own, this process's or a peer's mapped
-// through CUDA IPC (parallel/peer.py).  Then a kernel copies the S
-// pointers to shared memory once a block (load_shards): a lane indexes them
-// by its query's owner, which differs between the lanes of a warp, and an
-// indexed read of the parameter space would serialise.  The host entry
-// picks the layout from the pointers themselves (evenly_spaced).
-
-constexpr int kMaxShards = 16;
-
-// One table's S base pointers, a kernel parameter.
-struct ShardPtrs {
-  const int* p[kMaxShards];
-};
-
-// Whether the S pointers are the rows of one stacked tensor: shard s at
-// p[0] + s * stride ints (host side).
-inline bool evenly_spaced(const ShardPtrs& t, int S, int64_t stride) {
-  for (int s = 1; s < S; ++s) {
-    if (t.p[s] != t.p[0] + s * stride) return false;
-  }
-  return true;
-}
+// ---- interval shards (parallel/sharded_index.py).  S interval shards
+// on one device, each coordinate space split into ranges [start[s],
+// end[s]): the packed BWT coordinates (BWT words and checkpoints, two
+// arrays) and the row coordinates (marks, sampled values).  A query reads
+// its owner's table only; with no owner it is the plain version's sum of
+// zeros.  Each table comes as one base pointer a shard, and every shard's
+// table has the same rows.  Two layouts, one kernel template each
+// (ShardTable): the shards are the rows of one stacked tensor (base + s *
+// stride: arithmetic, nothing loaded), or each lies in an allocation of
+// its own, this process's or a peer's mapped through CUDA IPC
+// (parallel/peer.py), its S pointers a table in device memory that the
+// binding uploads once for a set of shards (ops/fm_search_cuda.py
+// device_table), read by the lane that needs one.  The binding decides
+// the layout (no table: stacked), and what a split's bounds are
+// (disjoint, in order: fm_search_cuda.split_facts, found once for a
+// bounds tensor); the bounds are read from the bounds tensors through the
+// owner guess.  Nothing is sized by S, and nothing but the card's memory
+// limits S.  One kernel alone stages the bounds and pointers in shared
+// memory at up to kMaxStaged shards (below).
 
 // One table's shards in a kernel.
 template <bool Stacked>
 struct ShardTable {
   const int* base;        // Stacked: shard 0's rows, shard s at base + s * stride
-  const int* const* ptr;  // else: each shard's base, in shared memory
+  const int* const* ptr;  // else: each shard's base, in a device table (or staged)
   int64_t stride;
   __device__ __forceinline__ const int* operator[](int s) const {
     if constexpr (Stacked) {
@@ -268,44 +256,25 @@ struct ShardTable {
   }
 };
 
-// A table's shards for the kernel; apart, thread 0 stores the S pointers to
-// `smem` (kMaxShards entries), visible to the block after its next
-// __syncthreads (load_split's).  The indices are constants: a parameter
-// indexed by the thread (thread d storing pointer d) is copied to each
-// thread's stack first, 128 bytes a table.  Every thread calls it.
+// A table's shards, made on the host: stacked (shard 0's base and the
+// stride in ints) or apart (`table`: the S device pointers in device
+// memory).
 template <bool Stacked>
-__device__ __forceinline__ ShardTable<Stacked> load_shards(const ShardPtrs& src, int S,
-                                                           int64_t stride, const int** smem) {
-  if constexpr (!Stacked) {
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int d = 0; d < kMaxShards; ++d) {
-        if (d < S) smem[d] = src.p[d];
-      }
-    }
-  }
-  return {src.p[0], smem, stride};
+inline ShardTable<Stacked> shard_table(const void* base, const uint64_t* table,
+                                       int64_t stride) {
+  return {static_cast<const int*>(base), reinterpret_cast<const int* const*>(table), stride};
 }
 
-// The shard whose [start, end) holds x, or -1 (the last such shard where
-// ranges overlap).  start and end are the S bounds, in shared memory.
-__device__ __forceinline__ int shard_of(const int* start, const int* end, int S, int x) {
-  int s = -1;
-  for (int d = 0; d < S; ++d) {
-    if (x >= start[d] && x < end[d]) s = d;
-  }
-  return s;
-}
-
-// One coordinate space's split: the S bounds in shared memory, whether they
-// are disjoint, and the division (x - base) / width (__umulhi(x - base,
-// magic) >> shift, exact for 0 <= x - base < 2^31; ops/fm_search_cuda.py
-// owner_divisor) that guesses the owner, base the first shard's start.
-// shard_fm_index splits each space into equal widths clamped to n + 1, so
-// there the guess is the owner of every x in [0, n]; so it is over any run
-// of consecutive shards of that split (the shards one process holds, which
-// start at base), and an x below base wraps to a guess that the bounds
-// refuse.
+// One coordinate space's split: the S bounds in device memory, whether
+// they are disjoint and in order (start[0] <= end[0] <= start[1] <= end[1]
+// ..., the split of shard_fm_index), and the division (x - base) / width
+// (__umulhi(x - base, magic) >> shift, exact for 0 <= x - base < 2^31;
+// ops/fm_search_cuda.py owner_divisor) that guesses the owner, base the
+// first shard's start.  shard_fm_index splits each space into equal
+// widths clamped to n + 1, so there the guess is the owner of every x in
+// [0, n]; so it is over any run of consecutive shards of that split (the
+// shards one process holds, which start at base), and an x below base
+// wraps to a guess that the bounds refuse.
 struct Split {
   const int* start;
   const int* end;
@@ -313,12 +282,57 @@ struct Split {
   unsigned magic;
   int shift;
   bool disjoint;
-  int base;
+  bool sorted;
+  int base;  // read by the kernel (split_base)
 };
 
-// Every thread of the block calls it (it synchronises): the S bounds copied
-// into s_start / s_end (shared memory, S <= blockDim.x) and checked for
-// overlap once a block.
+// A split, made on the host: the bounds tensors and the binding's findings
+// on them (facts bit 0: disjoint, bit 1: in order).
+inline Split make_split(const void* start, const void* end, int S, unsigned magic, int shift,
+                        int facts) {
+  return {static_cast<const int*>(start), static_cast<const int*>(end), S, magic, shift,
+          (facts & 1) != 0, (facts & 2) != 0, 0};
+}
+
+// Every thread of a sharded kernel calls it once: the guess's base, the
+// first shard's start.
+__device__ __forceinline__ void split_base(Split& sp) { sp.base = __ldg(sp.start); }
+
+// ---- bounds and pointers staged in shared memory: the sharded locate at
+// S <= kMaxStaged.  Its LF step finds two owners on a dependent chain, and
+// there bounds in shared memory beat the same bounds read through L1
+// (PERF.md section 6: 0.0613 against 0.0673 ms at [11]'s shape, S = 4).
+// A block copies the S pointers (ShardPtrs, a kernel parameter) by
+// constant index (a parameter indexed by the thread would be copied to
+// each thread's stack first, 128 bytes a table) and the bounds, and checks
+// the bounds for overlap once.
+constexpr int kMaxStaged = 16;
+
+// One table's S <= kMaxStaged base pointers, a kernel parameter.
+struct ShardPtrs {
+  const int* p[kMaxStaged];
+};
+
+// A table's shards, staged: thread 0 stores the S pointers to `smem`
+// (kMaxStaged entries), visible to the block after its next __syncthreads
+// (load_split's).  Every thread calls it.
+template <bool Stacked>
+__device__ __forceinline__ ShardTable<Stacked> load_shards(const ShardPtrs& src, int S,
+                                                           int64_t stride, const int** smem) {
+  if constexpr (!Stacked) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int d = 0; d < kMaxStaged; ++d) {
+        if (d < S) smem[d] = src.p[d];
+      }
+    }
+  }
+  return {src.p[0], smem, stride};
+}
+
+// Every thread of the block calls it (it synchronises): the S <=
+// kMaxStaged bounds copied into s_start / s_end (shared memory, S <=
+// blockDim.x) and checked for overlap once a block.
 __device__ __forceinline__ Split load_split(const int* start, const int* end, int S,
                                             unsigned magic, int shift, int* s_start,
                                             int* s_end) {
@@ -334,23 +348,54 @@ __device__ __forceinline__ Split load_split(const int* start, const int* end, in
       overlap |= e != t && max(s_start[t], s_start[e]) < min(s_end[t], s_end[e]);
   }
   const bool disjoint = !__syncthreads_or(overlap);
-  return {s_start, s_end, S, magic, shift, disjoint, s_start[0]};
+  return {s_start, s_end, S, magic, shift, disjoint, false, s_start[0]};
 }
 
-// shard_of(x) by arithmetic: the guess (x - base) / width, kept when its
-// range holds x and the ranges are disjoint (then no other shard holds x),
-// else the scan.  Equal to shard_of for every bounds; unequal ones cost the
-// scan.
+// A bound (or base) d of a split: from shared memory (Staged) or read
+// through L1.
+template <bool Staged>
+__device__ __forceinline__ int bound_at(const int* p, int d) {
+  if constexpr (Staged) {
+    return p[d];
+  } else {
+    return __ldg(p + d);
+  }
+}
+
+// The shard whose [start, end) holds x, or -1 (the last such shard where
+// ranges overlap), by arithmetic: the guess (x - base) / width, kept when
+// its range holds x and the ranges are disjoint (then no other shard holds
+// x), else (not staged) a bisection where the bounds are in order (the
+// last shard whose start is at most x, kept when its end is above x: in
+// order, no earlier shard can hold x), else a scan of every shard's bounds.
+template <bool Staged = false>
 __device__ __forceinline__ int owner_of(const Split& sp, int x) {
   const unsigned g = min(__umulhi(static_cast<unsigned>(x - sp.base), sp.magic) >> sp.shift,
                          static_cast<unsigned>(sp.S - 1));
-  if (sp.disjoint && x >= sp.start[g] && x < sp.end[g]) return static_cast<int>(g);
-  return shard_of(sp.start, sp.end, sp.S, x);
+  if (sp.disjoint && x >= bound_at<Staged>(sp.start, g) && x < bound_at<Staged>(sp.end, g))
+    return static_cast<int>(g);
+  if (!Staged && sp.sorted) {
+    int lo = 0, hi = sp.S;  // lo: the shards whose start is at most x
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (bound_at<Staged>(sp.start, mid) <= x) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    return lo > 0 && x < bound_at<Staged>(sp.end, lo - 1) ? lo - 1 : -1;
+  }
+  int s = -1;
+  for (int d = 0; d < sp.S; ++d) {
+    if (x >= bound_at<Staged>(sp.start, d) && x < bound_at<Staged>(sp.end, d)) s = d;
+  }
+  return s;
 }
 
 // The packed-space tables: each shard's bwt (R, 8) words and occ_cp (R, 4)
 // global checkpoint values, 16-byte aligned, and their split.
-template <bool Stacked>
+template <bool Stacked, bool Staged = false>
 struct ShardedFM {
   ShardTable<Stacked> bwt, cp;
   Split pk;
@@ -366,9 +411,10 @@ struct ShardRow {
 // Shard s's row at packed coordinate k_adj (sentinel removed; s's range
 // holds it), split as sharded_index._block_split does: local block clamped
 // to the shard's table, r the offset in it.
-template <bool Stacked>
-__device__ __forceinline__ FusedRow shard_row(const ShardedFM<Stacked>& t, int s, int k_adj) {
-  const int local = k_adj - t.pk.start[s];  // >= 0: the shard's range holds k_adj
+template <bool Stacked, bool Staged>
+__device__ __forceinline__ FusedRow shard_row(const ShardedFM<Stacked, Staged>& t, int s,
+                                              int k_adj) {
+  const int local = k_adj - bound_at<Staged>(t.pk.start, s);  // >= 0: the shard's range holds k_adj
   const int b = min(local >> 7, t.R - 1);
   const uint4* w = reinterpret_cast<const uint4*>(t.bwt[s] + static_cast<int64_t>(b) * 8);
   FusedRow out;
@@ -382,10 +428,10 @@ __device__ __forceinline__ FusedRow shard_row(const ShardedFM<Stacked>& t, int s
 // The owner's row at sentinel-inclusive coordinate k (owner_of; where
 // ranges overlap, the last shard that holds it).  Nothing is loaded
 // without an owner.
-template <bool Stacked>
-__device__ __forceinline__ ShardRow load_row(const ShardedFM<Stacked>& t, int k) {
+template <bool Stacked, bool Staged>
+__device__ __forceinline__ ShardRow load_row(const ShardedFM<Stacked, Staged>& t, int k) {
   const int k_adj = k - (k > t.primary ? 1 : 0);
-  const int s = owner_of(t.pk, k_adj);
+  const int s = owner_of<Staged>(t.pk, k_adj);
   ShardRow out;
   out.own = s >= 0;
   if (out.own) out.row = shard_row(t, s, k_adj);

@@ -21,11 +21,11 @@
 //
 // One loop (search_lane) over a table accessor: OneIndex reads the fused
 // rows of one DeviceFMIndex; gwa::ShardedFM finds the shard that owns each
-// coordinate (fm_occ.cuh owner_of: x / width, confirmed against the bounds
-// in shared memory) and reads that shard's BWT words and checkpoints
-// (fm_occ.cuh ShardTable: the stacked tables' rows, one instantiation, or
-// shards in their own allocations, a peer process's mapped through CUDA
-// IPC, the other), which equals the plain loop's sum over the shards of
+// coordinate (fm_occ.cuh owner_of: x / width, confirmed against the bounds)
+// and reads that shard's BWT words and checkpoints (fm_occ.cuh ShardTable:
+// the stacked tables' rows, one instantiation, or shards in their own
+// allocations, a peer process's mapped through CUDA IPC, through a device
+// table of their pointers, the other), which equals the plain loop's sum over the shards of
 // sharded_index.local_occ_codes (a coordinate of [0, n] always has one
 // owner; a query without one counts 0, as the sum of zeros does).
 //
@@ -37,7 +37,7 @@
 // from the rows plus 4 of read.
 //
 // Entries: gwa_backward_search (one index) and gwa_backward_search_sharded
-// (S = 1..16 interval shards), plain C functions bound with ctypes; they
+// (any S >= 1 interval shards), plain C functions bound with ctypes; they
 // launch on the caller's stream, do not synchronise, allocate nothing, and
 // return the launch's CUDA error code.
 
@@ -120,20 +120,15 @@ __global__ void __launch_bounds__(kThreads)
   search_lane(a, OneIndex{gwa::load_table(blocks, C, primary)}, i);
 }
 
+// `fm` comes whole from the host (the tables stacked or in a device table,
+// the split's bounds in device memory with the binding's findings).
 template <bool Stacked>
 __global__ void __launch_bounds__(kThreads)
     backward_search_sharded_kernel(const SearchArgs a, gwa::ShardedFM<Stacked> fm,
-                                   const int* C, const int* pk_start, const int* pk_end,
-                                   const gwa::ShardPtrs bwt, const gwa::ShardPtrs cp) {
-  __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
-  __shared__ const int* s_bwt[gwa::kMaxShards];
-  __shared__ const int* s_cp[gwa::kMaxShards];
-  const int S = fm.pk.S;
-  fm.bwt = gwa::load_shards<Stacked>(bwt, S, static_cast<int64_t>(fm.R) * 8, s_bwt);
-  fm.cp = gwa::load_shards<Stacked>(cp, S, static_cast<int64_t>(fm.R) * 4, s_cp);
-  fm.pk = gwa::load_split(pk_start, pk_end, S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
+                                   const int* C) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<int64_t>(a.B) * a.P) return;
+  gwa::split_base(fm.pk);
 #pragma unroll
   for (int c = 0; c < 4; ++c) fm.C[c] = __ldg(C + c);
   search_lane(a, Sharded<Stacked>{fm}, i);
@@ -159,16 +154,17 @@ unsigned grid(const SearchArgs& a) {
 }
 
 template <bool Stacked>
-int launch_sharded(const SearchArgs& a, int S, int R, int primary, unsigned pk_magic,
-                   int pk_shift, const void* C, const void* pk_start, const void* pk_end,
-                   const gwa::ShardPtrs& bwt, const gwa::ShardPtrs& cp, cudaStream_t stream) {
+int launch_sharded(const SearchArgs& a, int S, int R, int primary, const gwa::Split& pk,
+                   const void* C, const void* bwt, const void* cp, const uint64_t* table,
+                   cudaStream_t stream) {
   gwa::ShardedFM<Stacked> fm{};
-  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false, 0};
+  fm.bwt = gwa::shard_table<Stacked>(bwt, table, static_cast<int64_t>(R) * 8);
+  fm.cp = gwa::shard_table<Stacked>(cp, table ? table + S : nullptr, static_cast<int64_t>(R) * 4);
+  fm.pk = pk;
   fm.R = R;
   fm.primary = primary;
   backward_search_sharded_kernel<Stacked><<<grid(a), kThreads, 0, stream>>>(
-      a, fm, static_cast<const int*>(C), static_cast<const int*>(pk_start),
-      static_cast<const int*>(pk_end), bwt, cp);
+      a, fm, static_cast<const int*>(C));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,31 +191,27 @@ extern "C" int gwa_backward_search(const void* reads, const void* lengths, int B
 }
 
 // reads (B, L), lengths (B,), the S interval shards' bwt (R, 8) and occ_cp
-// (R, 4) 16-byte aligned (bwt_ptrs and cp_ptrs: S device pointers each),
-// pk_start / pk_end (S,), C (5,), out_lo / out_hi (B * P,): all int32.  The
-// owner guess is (x - pk_start[0]) / width = __umulhi(x - pk_start[0],
-// pk_magic) >> pk_shift (fm_search_cuda.owner_divisor).
+// (R, 4) 16-byte aligned, pk_start / pk_end (S,), C (5,), out_lo / out_hi
+// (B * P,): all int32.  The shards are the rows of one stacked bwt and
+// occ_cp (shard 0's at `bwt` and `cp`) where `table` is null, else each in
+// its own allocation, `table` their 2 S pointers in device memory (bwt's,
+// then occ_cp's).  The owner guess is (x - pk_start[0]) / width =
+// __umulhi(x - pk_start[0], pk_magic) >> pk_shift
+// (fm_search_cuda.owner_divisor); pk_facts is the binding's finding on the
+// bounds (bit 0: disjoint, bit 1: in order).
 extern "C" int gwa_backward_search_sharded(const void* reads, const void* lengths, int B, int L,
-                                           int P, int S, int R, const uint64_t* bwt_ptrs,
-                                           const uint64_t* cp_ptrs, const void* pk_start,
+                                           int P, int S, int R, const void* bwt, const void* cp,
+                                           const void* table, const void* pk_start,
                                            const void* pk_end, unsigned pk_magic, int pk_shift,
-                                           const void* C, int primary, int n, int trip,
-                                           void* out_lo, void* out_hi, void* stream) {
-  if (B < 0 || L < 0 || P < 1 || S < 1 || S > gwa::kMaxShards || R < 1 || pk_shift < 0 ||
-      pk_shift > 31)
+                                           int pk_facts, const void* C, int primary, int n,
+                                           int trip, void* out_lo, void* out_hi, void* stream) {
+  if (B < 0 || L < 0 || P < 1 || S < 1 || R < 1 || pk_shift < 0 || pk_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<int64_t>(B) * P == 0) return 0;
   const SearchArgs a = search_args(reads, lengths, B, L, P, n, trip, out_lo, out_hi);
-  gwa::ShardPtrs bwt{}, cp{};
-  for (int s = 0; s < S; ++s) {
-    bwt.p[s] = reinterpret_cast<const int*>(bwt_ptrs[s]);
-    cp.p[s] = reinterpret_cast<const int*>(cp_ptrs[s]);
-  }
+  const gwa::Split pk = gwa::make_split(pk_start, pk_end, S, pk_magic, pk_shift, pk_facts);
+  const auto tab = static_cast<const uint64_t*>(table);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (gwa::evenly_spaced(bwt, S, static_cast<int64_t>(R) * 8) &&
-      gwa::evenly_spaced(cp, S, static_cast<int64_t>(R) * 4))
-    return launch_sharded<true>(a, S, R, primary, pk_magic, pk_shift, C, pk_start, pk_end, bwt,
-                                cp, st);
-  return launch_sharded<false>(a, S, R, primary, pk_magic, pk_shift, C, pk_start, pk_end, bwt,
-                               cp, st);
+  if (tab == nullptr) return launch_sharded<true>(a, S, R, primary, pk, C, bwt, cp, tab, st);
+  return launch_sharded<false>(a, S, R, primary, pk, C, bwt, cp, tab, st);
 }

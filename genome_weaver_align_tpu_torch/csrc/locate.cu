@@ -26,11 +26,11 @@
 // (parallel/sharded_index.py:56), one base pointer a shard and table
 // (fm_occ.cuh ShardTable: the stacked tables' rows, one kernel
 // instantiation, or shards in their own allocations, a peer process's
-// mapped through CUDA IPC, the other).  Each step
-// finds the row's owner in the row coordinates (marks, sampled values) and
-// in the packed coordinates (BWT words and checkpoints) with fm_occ.cuh
-// owner_of (x / width, confirmed against the S bounds in shared memory) and
-// reads only the owners' tables.
+// mapped through CUDA IPC, through a device table of their pointers, the
+// other).  Each step finds the row's owner in the row coordinates (marks,
+// sampled values) and in the packed coordinates (BWT words and
+// checkpoints) with fm_occ.cuh owner_of (x / width, confirmed against the
+// bounds) and reads only the owners' tables.
 // That equals the plain loop's sums over the shards, where non-owners add
 // 0, including its quirks: the BWT code has an owner only below n
 // (local_bwt_char), a coordinate with no owner adds 0, and the sampled slot
@@ -56,8 +56,11 @@
 // that let a slot start a new row while its warp still walked (its
 // per-trip overhead lengthens every step's chain).
 //
-// Entries: gwa_locate (one index) and gwa_locate_sharded (S = 1..16
-// interval shards), plain C functions bound with ctypes; they launch on the
+// Entries: gwa_locate (one index) and gwa_locate_sharded (any S >= 1
+// interval shards: up to fm_occ.cuh kMaxStaged with the pointers and
+// bounds staged in shared memory once a block, past it the wide kernel,
+// everything read through L1), plain C functions bound with ctypes; they
+// launch on the
 // caller's stream, do not synchronise, allocate nothing, and return the
 // launch's CUDA error code.  gwa_locate_resident gives the blocks of a
 // kernel that fit on one SM (the binding's persistent grid).
@@ -144,11 +147,12 @@ struct OneIndex {
 };
 
 // Interval shards: ShardedFMIndex's tables (fm_occ.cuh ShardTable: stacked,
-// or one base pointer a shard in shared memory), both splits in shared
-// memory.
-template <bool Stacked>
+// or one base pointer a shard, from a device table or, Staged, in shared
+// memory), both splits' bounds and the sampled values' bases in device
+// memory (Staged: in shared memory).
+template <bool Stacked, bool Staged>
 struct Shards {
-  gwa::ShardedFM<Stacked> fm;          // the packed split in fm.pk
+  gwa::ShardedFM<Stacked, Staged> fm;    // the packed split in fm.pk
   gwa::Split rows;                     // the row coordinates' split
   gwa::ShardTable<Stacked> blocks;     // each shard's (mbs, 4) mark words
   gwa::ShardTable<Stacked> cp;         // each shard's (mbs + 1) global rank1 at its block starts
@@ -164,11 +168,11 @@ struct Shards {
   };
   __device__ __forceinline__ Step load(int i) const {
     Step s;
-    s.owner = gwa::owner_of(rows, i);
+    s.owner = gwa::owner_of<Staged>(rows, i);
     s.b = s.rem = 0;
     s.marks = make_uint4(0, 0, 0, 0);
     if (s.owner >= 0) {
-      const int local = i - rows.start[s.owner];  // >= 0: the owner's range holds i
+      const int local = i - gwa::bound_at<Staged>(rows.start, s.owner);  // >= 0: the owner's range holds i
       s.b = min(local >> 7, mbs - 1);
       s.rem = local - s.b * kMarkBits;
       s.marks = load4(blocks[s.owner] + static_cast<int64_t>(s.b) * 4);
@@ -189,7 +193,7 @@ struct Shards {
   }
   __device__ __forceinline__ const int* value_at(int key, int rank0) const {
     const int owner = key >> 8;
-    return ssa[owner] + min(max(rank0 + (key & 255) - ssa_base[owner], 0), vmax - 1);
+    return ssa[owner] + min(max(rank0 + (key & 255) - gwa::bound_at<Staged>(ssa_base, owner), 0), vmax - 1);
   }
 };
 
@@ -227,8 +231,8 @@ __global__ void __launch_bounds__(kThreads)
   walk(a, tab);
 }
 
-// The S bounds of both splits, the sampled values' bases and the tables'
-// base pointers go to shared memory once a block.
+// The bounds of both splits and the sampled values' bases, in device
+// memory.
 struct ShardBounds {
   const int* pk_start;
   const int* pk_end;
@@ -241,13 +245,16 @@ struct ShardTables {
   gwa::ShardPtrs bwt, occ_cp, mark_blocks, mark_cp, ssa_values;
 };
 
+// Up to gwa::kMaxStaged shards: the S bounds of both splits, the sampled
+// values' bases and the tables' base pointers go to shared memory once a
+// block (fm_occ.cuh load_shards, load_split).
 template <bool Stacked>
 __global__ void __launch_bounds__(kThreads)
-    locate_sharded_kernel(const LocateArgs a, Shards<Stacked> tab, const int* C,
+    locate_sharded_kernel(const LocateArgs a, Shards<Stacked, true> tab, const int* C,
                           const ShardBounds sb, const ShardTables t) {
-  __shared__ int s_ps[gwa::kMaxShards], s_pe[gwa::kMaxShards];
-  __shared__ int s_rs[gwa::kMaxShards], s_re[gwa::kMaxShards], s_base[gwa::kMaxShards];
-  __shared__ const int* s_ptr[5][gwa::kMaxShards];
+  __shared__ int s_ps[gwa::kMaxStaged], s_pe[gwa::kMaxStaged];
+  __shared__ int s_rs[gwa::kMaxStaged], s_re[gwa::kMaxStaged], s_base[gwa::kMaxStaged];
+  __shared__ const int* s_ptr[5][gwa::kMaxStaged];
   const int S = tab.fm.pk.S;
   const int64_t R = tab.fm.R, mbs = tab.mbs;
   if (threadIdx.x < S) s_base[threadIdx.x] = sb.ssa_base[threadIdx.x];
@@ -266,9 +273,25 @@ __global__ void __launch_bounds__(kThreads)
   walk(a, tab);
 }
 
-// The kernel of one index, or of the shards (stacked, or apart).
-const void* kernel_of(bool sharded, bool stacked = true) {
+// Any S: `tab` comes whole from the host (the tables stacked or in a
+// device table, the splits with the binding's findings).
+template <bool Stacked>
+__global__ void __launch_bounds__(kThreads)
+    locate_wide_kernel(const LocateArgs a, Shards<Stacked, false> tab, const int* C) {
+  gwa::split_base(tab.fm.pk);
+  gwa::split_base(tab.rows);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) tab.fm.C[c] = __ldg(C + c);
+  walk(a, tab);
+}
+
+// The kernel of one index, or of the shards (stacked, or apart; staged up
+// to gwa::kMaxStaged shards).
+const void* kernel_of(bool sharded, bool stacked = true, bool staged = true) {
   if (!sharded) return reinterpret_cast<const void*>(&locate_kernel);
+  if (!staged)
+    return stacked ? reinterpret_cast<const void*>(&locate_wide_kernel<true>)
+                   : reinterpret_cast<const void*>(&locate_wide_kernel<false>);
   return stacked ? reinterpret_cast<const void*>(&locate_sharded_kernel<true>)
                  : reinterpret_cast<const void*>(&locate_sharded_kernel<false>);
 }
@@ -292,20 +315,54 @@ struct ShardSizes {
   int row_shift;
 };
 
-// The launch of one layout's kernel (its arguments are this call's copies).
+// The staged launch (S <= gwa::kMaxStaged): the S pointers of each table
+// (`ptrs`, host memory, in the order bwt, occ_cp, mark blocks, mark
+// checkpoints, sampled values) go in as parameters.
 template <bool Stacked>
-int launch_sharded(LocateArgs a, int64_t Q, const ShardSizes& z, const int* c, ShardBounds sb,
-                   ShardTables t, int grid, cudaStream_t stream) {
-  Shards<Stacked> tab{};
-  tab.fm.pk = {nullptr, nullptr, z.S, z.pk_magic, z.pk_shift, false, 0};
+int launch_staged(LocateArgs a, int64_t Q, const ShardSizes& z, const int* c, ShardBounds sb,
+                  const uint64_t* const* ptrs, int grid, cudaStream_t stream) {
+  ShardTables t{};
+  gwa::ShardPtrs* tables[] = {&t.bwt, &t.occ_cp, &t.mark_blocks, &t.mark_cp, &t.ssa_values};
+  for (int u = 0; u < 5; ++u) {
+    for (int s = 0; s < z.S; ++s) tables[u]->p[s] = reinterpret_cast<const int*>(ptrs[u][s]);
+  }
+  Shards<Stacked, true> tab{};
+  tab.fm.pk = {nullptr, nullptr, z.S, z.pk_magic, z.pk_shift, false, false, 0};
   tab.fm.R = z.R;
   tab.fm.primary = z.primary;
-  tab.rows = {nullptr, nullptr, z.S, z.row_magic, z.row_shift, false, 0};
+  tab.rows = {nullptr, nullptr, z.S, z.row_magic, z.row_shift, false, false, 0};
   tab.mbs = z.mbs;
   tab.vmax = z.vmax;
   tab.n = z.n;
   void* args[] = {&a, &tab, &c, &sb, &t};
   return launch(kernel_of(true, Stacked), Q, grid, args, stream);
+}
+
+// The launch for any S: `table` (null for stacked tables) holds the five
+// tables' S pointers each, in `ptrs`' order.
+template <bool Stacked>
+int launch_wide(LocateArgs a, int64_t Q, const ShardSizes& z, const int* c, ShardBounds sb,
+                const uint64_t* const* ptrs, const uint64_t* table, int pk_facts, int row_facts,
+                int grid, cudaStream_t stream) {
+  const auto at = [&](int u) { return table ? table + static_cast<int64_t>(u) * z.S : nullptr; };
+  Shards<Stacked, false> tab{};
+  const void* first[5];
+  for (int u = 0; u < 5; ++u) first[u] = reinterpret_cast<const void*>(ptrs[u][0]);
+  tab.fm.bwt = gwa::shard_table<Stacked>(first[0], at(0), static_cast<int64_t>(z.R) * 8);
+  tab.fm.cp = gwa::shard_table<Stacked>(first[1], at(1), static_cast<int64_t>(z.R) * 4);
+  tab.blocks = gwa::shard_table<Stacked>(first[2], at(2), static_cast<int64_t>(z.mbs) * 4);
+  tab.cp = gwa::shard_table<Stacked>(first[3], at(3), z.mbs + 1);
+  tab.ssa = gwa::shard_table<Stacked>(first[4], at(4), z.vmax);
+  tab.fm.pk = gwa::make_split(sb.pk_start, sb.pk_end, z.S, z.pk_magic, z.pk_shift, pk_facts);
+  tab.fm.R = z.R;
+  tab.fm.primary = z.primary;
+  tab.rows = gwa::make_split(sb.row_start, sb.row_end, z.S, z.row_magic, z.row_shift, row_facts);
+  tab.ssa_base = sb.ssa_base;
+  tab.mbs = z.mbs;
+  tab.vmax = z.vmax;
+  tab.n = z.n;
+  void* args[] = {&a, &tab, &c};
+  return launch(kernel_of(true, Stacked, false), Q, grid, args, stream);
 }
 
 }  // namespace
@@ -345,21 +402,27 @@ extern "C" int gwa_locate(const void* rows, int64_t Q, const void* blocks, int n
 
 // rows and out (Q,); each of the S shards' bwt (R, 8) and occ_cp (R, 4)
 // 16-byte aligned, mark_blocks (mbs, 4) 16-byte aligned, mark_cp (mbs + 1)
-// and ssa_values (vmax) (the *_ptrs: S device pointers each); pk_start /
-// pk_end, row_start / row_end and ssa_base (S,), C (5,): all int32.  Each
-// split's owner guess is (x - start[0]) / width = __umulhi(x - start[0],
-// magic) >> shift (fm_search_cuda.owner_divisor).
+// and ssa_values (vmax) (the *_ptrs: S device pointers each, in host
+// memory); pk_start / pk_end, row_start / row_end and ssa_base (S,), C
+// (5,): all int32.  The shards are the rows of five stacked tables where
+// `table` is null, else each in its own allocation, `table` the 5 S
+// pointers in device memory, in the *_ptrs' order.  Each split's owner
+// guess is (x - start[0]) / width = __umulhi(x - start[0], magic) >> shift
+// (fm_search_cuda.owner_divisor); pk_facts / row_facts are the binding's
+// findings on each split's bounds (bit 0: disjoint, bit 1: in order), read
+// past gwa::kMaxStaged shards (below it a block finds disjointness itself).
 extern "C" int gwa_locate_sharded(const void* rows, int64_t Q, int S, int R,
                                   const uint64_t* bwt_ptrs, const uint64_t* cp_ptrs,
                                   const void* pk_start, const void* pk_end, unsigned pk_magic,
-                                  int pk_shift, int mbs, const uint64_t* mark_block_ptrs,
-                                  const uint64_t* mark_cp_ptrs, const void* row_start,
-                                  const void* row_end, unsigned row_magic, int row_shift,
-                                  int vmax, const uint64_t* ssa_ptrs, const void* ssa_base,
-                                  const void* C, int primary, int n, int sample_rate, void* out,
-                                  int grid, void* stream) {
-  if (S < 1 || S > gwa::kMaxShards || R < 1 || mbs < 1 || vmax < 1 || sample_rate < 0 ||
-      n < 0 || pk_shift < 0 || pk_shift > 31 || row_shift < 0 || row_shift > 31)
+                                  int pk_shift, int pk_facts, int mbs,
+                                  const uint64_t* mark_block_ptrs, const uint64_t* mark_cp_ptrs,
+                                  const void* row_start, const void* row_end,
+                                  unsigned row_magic, int row_shift, int row_facts, int vmax,
+                                  const uint64_t* ssa_ptrs, const void* ssa_base, const void* C,
+                                  int primary, int n, int sample_rate, void* out, int grid,
+                                  const void* table, void* stream) {
+  if (S < 1 || R < 1 || mbs < 1 || vmax < 1 || sample_rate < 0 || n < 0 || pk_shift < 0 ||
+      pk_shift > 31 || row_shift < 0 || row_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   LocateArgs a{static_cast<const int*>(rows), static_cast<int*>(out), static_cast<int>(Q),
                sample_rate};
@@ -368,19 +431,14 @@ extern "C" int gwa_locate_sharded(const void* rows, int64_t Q, int S, int R,
   ShardBounds sb{static_cast<const int*>(pk_start), static_cast<const int*>(pk_end),
                  static_cast<const int*>(row_start), static_cast<const int*>(row_end),
                  static_cast<const int*>(ssa_base)};
-  ShardTables t{};
-  for (int s = 0; s < S; ++s) {
-    t.bwt.p[s] = reinterpret_cast<const int*>(bwt_ptrs[s]);
-    t.occ_cp.p[s] = reinterpret_cast<const int*>(cp_ptrs[s]);
-    t.mark_blocks.p[s] = reinterpret_cast<const int*>(mark_block_ptrs[s]);
-    t.mark_cp.p[s] = reinterpret_cast<const int*>(mark_cp_ptrs[s]);
-    t.ssa_values.p[s] = reinterpret_cast<const int*>(ssa_ptrs[s]);
-  }
+  const uint64_t* ptrs[] = {bwt_ptrs, cp_ptrs, mark_block_ptrs, mark_cp_ptrs, ssa_ptrs};
+  const auto tab = static_cast<const uint64_t*>(table);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (gwa::evenly_spaced(t.bwt, S, static_cast<int64_t>(R) * 8) &&
-      gwa::evenly_spaced(t.occ_cp, S, static_cast<int64_t>(R) * 4) &&
-      gwa::evenly_spaced(t.mark_blocks, S, static_cast<int64_t>(mbs) * 4) &&
-      gwa::evenly_spaced(t.mark_cp, S, mbs + 1) && gwa::evenly_spaced(t.ssa_values, S, vmax))
-    return launch_sharded<true>(a, Q, z, c, sb, t, grid, st);
-  return launch_sharded<false>(a, Q, z, c, sb, t, grid, st);
+  if (S <= gwa::kMaxStaged) {
+    if (tab == nullptr) return launch_staged<true>(a, Q, z, c, sb, ptrs, grid, st);
+    return launch_staged<false>(a, Q, z, c, sb, ptrs, grid, st);
+  }
+  if (tab == nullptr)
+    return launch_wide<true>(a, Q, z, c, sb, ptrs, tab, pk_facts, row_facts, grid, st);
+  return launch_wide<false>(a, Q, z, c, sb, ptrs, tab, pk_facts, row_facts, grid, st);
 }

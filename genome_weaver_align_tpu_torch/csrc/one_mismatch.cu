@@ -58,13 +58,17 @@
 // and each live slot, 1 for each chain in case B, all requested before any
 // is counted; a group's chain is `steps` spine builds and `steps` search
 // steps, at about 0.46 us each.  Several groups a warp (G lanes each: the
-// binding takes 4, and 2 once the launch outgrows the card) keep the
-// card's issue slots on live work, not on dead slots.  The pool lives in
-// shared memory, sized by S: lo, hi and rlo of each slot (rhi = rlo + hi -
-// lo), `aux` (S ints: the chains, then the newly dead; a step has at most
-// hw + 1 of them, hw + 1 <= S when the tail exists) and the spine's
-// children (12 ints); at S = 48 and 2 lanes a case, shared memory holds 4
-// blocks of 64 groups an SM.
+// binding takes 4, and 2 once the launch outgrows the card; more where a
+// warp's groups outgrow a block's shared memory) keep the card's issue
+// slots on live work, not on dead slots.
+// The pool lives in shared memory, sized by S: lo, hi and rlo of each slot
+// (rhi = rlo + hi - lo), `aux` (S ints: the chains, then the newly dead; a
+// step has at most hw + 1 of them, hw + 1 <= S when the tail exists) and
+// the spine's children (12 ints); at S = 48 and 2 lanes a case, shared
+// memory holds 4 blocks of 64 groups an SM.  Nothing in the search ties S
+// to a size: a group takes more lanes where a warp's groups outgrow a
+// block's shared memory (fit_lanes), and past 14,000 slots at a warp a
+// case the pools live in global scratch (the Global kernel).
 //
 // Entry: gwa_one_mismatch, a plain C function bound with ctypes; it launches
 // on the caller's stream, does not synchronise, allocates nothing, and
@@ -80,7 +84,6 @@
 namespace {
 
 constexpr int kThreads = 128;  // a block: 4 warps, fewer where shared memory runs short
-constexpr int kMaxSlots = 64;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
 struct MMArgs {
@@ -89,6 +92,8 @@ struct MMArgs {
   int* cand_lo;        // (B, 2 S + 1)
   int* cand_hi;
   unsigned char* overflow;  // (B,) bool, zeros on entry
+  int* scratch;             // where a warp's groups outgrow shared memory: group_ints(S)
+                            // ints a (read, case), else null
   int B, L, S, steps, n, lanes;
 };
 
@@ -105,7 +110,8 @@ __device__ __forceinline__ gwa::BiIv child(const gwa::Children& m, bool forward,
 
 // One (read, case) group: builds its spine, runs its steps, writes its
 // slots (and case A its spine) and its overflow.  `rev` is read in case A.
-template <bool kForward>
+// Global: the group's pool in a.scratch, not in shared memory.
+template <bool kForward, bool Global>
 __device__ __forceinline__ void search_case(const MMArgs& a, const gwa::FMTable& fwd,
                                             const gwa::FMTable& rev) {
   constexpr bool forward = kForward;
@@ -118,6 +124,9 @@ __device__ __forceinline__ void search_case(const MMArgs& a, const gwa::FMTable&
   const bool valid = b < a.B;  // a group past the batch idles through the collectives
   const int S = a.S;
   int* lo = smem + group * group_ints(S);
+  if constexpr (Global) {
+    lo = a.scratch + ((valid ? b : 0) * 2 + (kForward ? 0 : 1)) * group_ints(S);
+  }
   int* hi = lo + S;
   int* rlo = hi + S;
   int* aux = rlo + S;
@@ -290,31 +299,56 @@ __device__ __forceinline__ void search_case(const MMArgs& a, const gwa::FMTable&
 
 // 6 blocks an SM cap the registers at 80 (at 2 lanes a case shared memory
 // holds 4); phase [2] of chip_smoke.py prints what ptxas used and spilled.
+// Global: the pools in scratch (a warp's groups outgrow shared memory).
+template <bool Global>
 __global__ void __launch_bounds__(kThreads, 6)
     one_mismatch_kernel(const MMArgs a, const int* fwd_blocks, const int* fwd_C, int fwd_primary,
                         const int* rev_blocks, const int* rev_C, int rev_primary) {
   const gwa::FMTable fwd = gwa::load_table(fwd_blocks, fwd_C, fwd_primary);
   const gwa::FMTable rev = gwa::load_table(rev_blocks, rev_C, rev_primary);
   if (blockIdx.y == 0) {  // grid.y: the case
-    search_case<true>(a, fwd, rev);
+    search_case<true, Global>(a, fwd, rev);
   } else {
-    search_case<false>(a, fwd, rev);
+    search_case<false, Global>(a, fwd, rev);
+  }
+}
+
+// The lanes a (read, case) takes: `lanes`, doubled while a warp's groups
+// outgrow a block's shared memory, up to 32 (threads 0 there: the pools go
+// to scratch); the block's threads and shared memory in threads and smem.
+int fit_lanes(int lanes, int S, size_t& smem, int& threads) {
+  for (;; lanes *= 2) {
+    threads = gwa::block_threads(kThreads, lanes, group_ints(S) * sizeof(int), smem);
+    if (threads > 0 || lanes >= 32) return lanes;
   }
 }
 
 }  // namespace
 
+// Scratch ints a launch over B reads of S slots at `lanes` lanes a case
+// needs (fit_lanes): 0 where a warp's groups fit a block's shared memory at
+// some lanes up to 32, else group_ints(S) a (read, case).
+extern "C" int64_t gwa_one_mismatch_scratch_ints(int lanes, int S, int64_t B) {
+  size_t smem = 0;
+  int threads = 0;
+  if (lanes < 1 || lanes > 32 || S < 1) return 0;
+  fit_lanes(lanes, S, smem, threads);
+  return threads > 0 ? 0 : 2 * B * group_ints(S);
+}
+
 // reads (B, L), lengths (B,), the forward and reverse tables' blocks
 // (nb + 1, 12, 16-byte aligned) and C (5,): int32; cand_lo / cand_hi
 // (B, 2 S + 1) int32, overflow (B,) bytes, zeros on entry; lanes a group:
-// a power of two, 1..32.
+// a power of two, 1..32 (doubled here while a warp's groups outgrow shared
+// memory: fit_lanes); scratch: gwa_one_mismatch_scratch_ints ints (null
+// where that is 0).
 extern "C" int gwa_one_mismatch(const void* reads, const void* lengths, int B, int L, int S,
                                 int steps, const void* fwd_blocks, const void* fwd_C,
                                 int fwd_primary, const void* rev_blocks, const void* rev_C,
                                 int rev_primary, int n, void* cand_lo, void* cand_hi,
-                                void* overflow, int lanes, void* stream) {
-  if (B < 0 || L < 0 || S < 1 || S > kMaxSlots || lanes < 1 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0)
+                                void* overflow, int lanes, void* scratch, int64_t scratch_ints,
+                                void* stream) {
+  if (B < 0 || L < 0 || S < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   MMArgs a{};
@@ -328,18 +362,27 @@ extern "C" int gwa_one_mismatch(const void* reads, const void* lengths, int B, i
   a.S = S;
   a.steps = steps;
   a.n = n;
-  a.lanes = lanes;
   size_t smem = 0;
-  const int threads = gwa::block_threads(kThreads, lanes, group_ints(S) * sizeof(int), smem);
-  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = 0;
+  a.lanes = lanes = fit_lanes(lanes, S, smem, threads);
+  auto kernel = one_mismatch_kernel<false>;
+  if (threads == 0) {  // a warp's group outgrows shared memory: the pools live in scratch
+    if (scratch == nullptr || scratch_ints < 2 * static_cast<int64_t>(B) * group_ints(S))
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.scratch = static_cast<int*>(scratch);
+    threads = kThreads;
+    smem = 0;
+    kernel = one_mismatch_kernel<true>;
+  }
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        one_mismatch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int groups = threads / lanes;
   const dim3 grid(static_cast<unsigned>((static_cast<int64_t>(B) + groups - 1) / groups), 2);
-  one_mismatch_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int*>(fwd_blocks), static_cast<const int*>(fwd_C), fwd_primary,
       static_cast<const int*>(rev_blocks), static_cast<const int*>(rev_C), rev_primary);
   return static_cast<int>(cudaGetLastError());

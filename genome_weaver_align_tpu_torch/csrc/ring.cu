@@ -2,10 +2,12 @@
 // fused occ-rank + shard sum, each one grid-stride pass.
 //
 // Replaces the two Pallas TPU kernels of genome_weaver_align_tpu/parallel/ring.py:
-//   _ring_kernel             -> allreduce_kernel<T, S>  (int32, float32; S = 1..16),
-//                               push_wait_kernel<T, R, Vec> (across cards; R = 1..16)
-//   _fused_rank_ring_kernel  -> fused_words_kernel      (the JAX contract: gathered rows)
-//                               fused_occ_kernel        (rows read from the sharded tables)
+//   _ring_kernel             -> allreduce_kernel<T, S>   (int32, float32; S = 1..16),
+//                               allreduce_wide_kernel    (past 16 shards),
+//                               push_wait_kernel<T, R, Vec> (across cards; R = 1..16,
+//                                                        R = 0 past 16 ranks)
+//   _fused_rank_ring_kernel  -> fused_words_kernel       (the JAX contract: gathered rows)
+//                               fused_occ_kernel         (rows read from the sharded tables)
 // and computes exactly the plain versions in
 // genome_weaver_align_tpu_torch/parallel/ring.py (ring_psum_plain,
 // fused_rank_ring_plain) and parallel/sharded_index.py (fused_occ_plain):
@@ -21,7 +23,7 @@
 // group's ranks in group order.  Two orders between the processes:
 //   - ranks that share one card: the host orders the steps (a stream
 //     synchronize and a barrier before allreduce_kernel reads every rank's
-//     row, writing this rank's output only: a null output pointer is
+//     row, writing this rank's output only: a null output address is
 //     skipped): kernels of two processes time-slice one card, so none may
 //     wait on another's flag;
 //   - ranks on separate cards: push_wait_kernel, the flag-wait entry
@@ -68,11 +70,13 @@
 // written.  Its yardstick is NCCL's all_reduce on the same payload
 // (chip_smoke.py [20]).
 //
-// allreduce_kernel: each thread reads the same 16-byte vector of every
-// shard's input; int32 adds wrap, so one sum serves every shard; float32
-// adds each shard's sum in its own ring order.  Bound: bytes (S inputs read
-// and S outputs written once); the adds are S-1 an element (int32) or
-// S(S-1) (float32).
+// allreduce_kernel: each thread reads the same 16-byte vector (or, where a
+// shard's buffers are not 16-byte aligned or n is not a multiple of 4, the
+// same element) of every shard's input; int32 adds wrap, so one sum serves
+// every shard; float32 adds each shard's sum in its own ring order, reading
+// every input once for each output.  Bound: bytes (S inputs read and S
+// outputs written once); the adds are S-1 an element (int32) or S(S-1)
+// (float32).
 //
 // fused_words_kernel: one thread per (payload, query) walks the S shards.
 // It reads own first and loads the 32-byte word row (two 16-byte loads),
@@ -94,12 +98,23 @@
 // confirmed against the S bounds in shared memory (owner_of), and only the
 // owner's 32-byte row of bwt_blocks and 16 bytes of occ_cp read (one
 // sector each); occ1 counts it.  A coordinate with no owner adds 0 without
-// a load; where the ranges are disjoint (shard_fm_index's split; load_split
-// tests it once a block) the owner's value is the plain version's sum over
+// a load; where the ranges are disjoint (shard_fm_index's split; the
+// binding finds it once for the bounds) the owner's value is the plain version's sum over
 // the shards, and where they overlap the kernel sums every owner's partial
 // as the plain version does.  No (S, M, Q, 8) word tensor is ever
 // built.  At chr20 scale the shards' bwt_blocks are ~16 MB and stay in the
 // 50 MB L2.  Bound: bytes, k, code, row, checkpoint and out, 48 B a query.
+//
+// Every entry takes any number of shards or ranks: their addresses are a
+// stacked tensor's base and stride, or a device table the binding uploads
+// once for a set of addresses (the binding decides which), and the bounds,
+// with the binding's findings on them, are read from the bounds tensors
+// (fm_occ.cuh): any count the card's memory holds.  The sum and the push
+// keep a second kernel up to kMaxShards shards or ranks, their loops
+// unrolled over a constant count and the addresses kernel parameters read
+// at constant indices: at S = 4 the sum takes 0.0024 ms against the loop
+// over a runtime count's 0.0030, the push (4 ranks emulated on one card)
+// 0.0060 against 0.0064 (PERF.md section 6).
 //
 // Entries: gwa_allreduce, gwa_allreduce_wait (and its grid,
 // gwa_allreduce_wait_blocks), gwa_fused_words and gwa_fused_occ, plain C
@@ -116,7 +131,7 @@
 
 namespace {
 
-constexpr int kMaxShards = 16;
+constexpr int kMaxShards = 16;  // the unrolled sum's and push's shards or ranks
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ int add(int a, int b) {  // wraps like torch's int32 add
@@ -132,6 +147,15 @@ template <>
 __device__ __forceinline__ float from_bits<float>(unsigned u) { return __uint_as_float(u); }
 __device__ __forceinline__ unsigned to_bits(int v) { return static_cast<unsigned>(v); }
 __device__ __forceinline__ unsigned to_bits(float v) { return __float_as_uint(v); }
+template <typename T>
+__device__ __forceinline__ unsigned add_bits(unsigned a, unsigned b) {
+  return to_bits(add(from_bits<T>(a), from_bits<T>(b)));
+}
+template <typename T>
+__device__ __forceinline__ uint4 add_bits(uint4 a, uint4 b) {
+  return make_uint4(add_bits<T>(a.x, b.x), add_bits<T>(a.y, b.y), add_bits<T>(a.z, b.z),
+                    add_bits<T>(a.w, b.w));
+}
 
 // Blocks of a grid-stride pass over `items` work items: enough to cover
 // them, at most 8 a multiprocessor.
@@ -148,6 +172,10 @@ int grid_blocks(int64_t items, unsigned* blocks) {
 
 // ---- one-pass all-reduce
 
+// Up to kMaxShards shards: every shard's input and output a kernel
+// parameter, the loops over the shards unrolled (S a template argument):
+// at S = 4 a third faster than the loop over a runtime S below (PERF.md
+// section 6).
 struct ShardIO {
   const void* in[kMaxShards];
   void* out[kMaxShards];
@@ -229,11 +257,7 @@ __global__ void __launch_bounds__(kThreads) allreduce_kernel(const ShardIO p, in
 }
 
 template <typename T, int S>
-int allreduce(const ShardIO& p, int64_t n, cudaStream_t stream) {
-  bool aligned = true;
-  for (int d = 0; d < S; ++d)
-    aligned &= (reinterpret_cast<uintptr_t>(p.in[d]) | reinterpret_cast<uintptr_t>(p.out[d])) %
-                   16 == 0;
+int allreduce(const ShardIO& p, int64_t n, bool aligned, cudaStream_t stream) {
   const int64_t n_vec = aligned ? n / 4 : 0;
   unsigned blocks = 0;
   const int rc = grid_blocks(n_vec > n - 4 * n_vec ? n_vec : n - 4 * n_vec, &blocks);
@@ -242,25 +266,76 @@ int allreduce(const ShardIO& p, int64_t n, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Any S: shard d's input at base + d * n elements (stacked) or at the d-th
+// address of a device table; the outputs stacked (`only` < 0) or shard
+// `only`'s alone.  The same sums in the same order, each item's S inputs
+// read from device memory (float32 reads every input once for each
+// output: S^2 adds an item, as the ring's order asks).
+struct WideIO {
+  const char* in;
+  char* out;
+  int64_t stride;  // bytes a shard: n elements
+  const uint64_t* in_tab;
+  int S, only;
+  __device__ __forceinline__ const void* in_at(int d) const {
+    return in_tab ? reinterpret_cast<const void*>(__ldg(in_tab + d)) : in + d * stride;
+  }
+  __device__ __forceinline__ void* out_at(int d) const {
+    if (only >= 0) return d == only ? out : nullptr;
+    return out + d * stride;
+  }
+};
+
+// out[d] = x_d + x_{d-1} + ... + x_{d-S+1} for each item (a 16-byte vector
+// of 4 elements, or one element) of x[0..S-1].
+template <typename T, bool Vec>
+__global__ void __launch_bounds__(kThreads) allreduce_wide_kernel(const WideIO p, int64_t items) {
+  using It = typename std::conditional<Vec, uint4, unsigned>::type;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; v < items;
+       v += stride) {
+    const auto at = [&](int d) { return static_cast<const It*>(p.in_at(d))[v]; };
+    if constexpr (std::is_same<T, int>::value) {
+      It acc = at(0);
+#pragma unroll 4
+      for (int d = 1; d < p.S; ++d) acc = add_bits<T>(acc, at(d));
+      for (int d = 0; d < p.S; ++d) {
+        void* o = p.out_at(d);
+        if (o != nullptr) static_cast<It*>(o)[v] = acc;
+      }
+    } else {
+      for (int d = 0; d < p.S; ++d) {
+        void* o = p.out_at(d);
+        if (o == nullptr) continue;
+        It acc = at(d);
+#pragma unroll 4
+        for (int t = 1; t < p.S; ++t)
+          acc = add_bits<T>(acc, at(d - t < 0 ? d - t + p.S : d - t));
+        static_cast<It*>(o)[v] = acc;
+      }
+    }
+  }
+}
+
 template <typename T>
-int allreduce_s(int S, const ShardIO& p, int64_t n, cudaStream_t s) {
+int allreduce_s(int S, const ShardIO& p, int64_t n, bool a, cudaStream_t s) {
   switch (S) {
-    case 1: return allreduce<T, 1>(p, n, s);
-    case 2: return allreduce<T, 2>(p, n, s);
-    case 3: return allreduce<T, 3>(p, n, s);
-    case 4: return allreduce<T, 4>(p, n, s);
-    case 5: return allreduce<T, 5>(p, n, s);
-    case 6: return allreduce<T, 6>(p, n, s);
-    case 7: return allreduce<T, 7>(p, n, s);
-    case 8: return allreduce<T, 8>(p, n, s);
-    case 9: return allreduce<T, 9>(p, n, s);
-    case 10: return allreduce<T, 10>(p, n, s);
-    case 11: return allreduce<T, 11>(p, n, s);
-    case 12: return allreduce<T, 12>(p, n, s);
-    case 13: return allreduce<T, 13>(p, n, s);
-    case 14: return allreduce<T, 14>(p, n, s);
-    case 15: return allreduce<T, 15>(p, n, s);
-    case 16: return allreduce<T, 16>(p, n, s);
+    case 1: return allreduce<T, 1>(p, n, a, s);
+    case 2: return allreduce<T, 2>(p, n, a, s);
+    case 3: return allreduce<T, 3>(p, n, a, s);
+    case 4: return allreduce<T, 4>(p, n, a, s);
+    case 5: return allreduce<T, 5>(p, n, a, s);
+    case 6: return allreduce<T, 6>(p, n, a, s);
+    case 7: return allreduce<T, 7>(p, n, a, s);
+    case 8: return allreduce<T, 8>(p, n, a, s);
+    case 9: return allreduce<T, 9>(p, n, a, s);
+    case 10: return allreduce<T, 10>(p, n, a, s);
+    case 11: return allreduce<T, 11>(p, n, a, s);
+    case 12: return allreduce<T, 12>(p, n, a, s);
+    case 13: return allreduce<T, 13>(p, n, a, s);
+    case 14: return allreduce<T, 14>(p, n, a, s);
+    case 15: return allreduce<T, 15>(p, n, a, s);
+    case 16: return allreduce<T, 16>(p, n, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -277,6 +352,9 @@ constexpr int kPoison = 0x7fffffff;
 struct Push {
   void* inbox[kMaxShards];  // rank q's inbox (ranks, n), mapped on this card
   int* flags[kMaxShards];   // rank q's flag words, mapped on this card
+  const uint64_t* table;    // past kMaxShards ranks: the inboxes' and flags' addresses in
+                            // device memory (ranks each), in place of inbox and flags
+  int ranks;
   const void* own_inbox;    // this rank's inbox: its partial is row me
   const int* own_flags;     // this rank's flag words
   void* out;                // (n,) this rank's sum
@@ -313,14 +391,25 @@ using Item = typename std::conditional<Vec, uint4, unsigned>::type;
 __device__ __forceinline__ uint4 ld_cg(const uint4* p) { return __ldcg(p); }
 __device__ __forceinline__ unsigned ld_cg(const unsigned* p) { return __ldcg(p); }
 
-template <typename T>
-__device__ __forceinline__ unsigned add_bits(unsigned a, unsigned b) {
-  return to_bits(add(from_bits<T>(a), from_bits<T>(b)));
+
+// Rank q's inbox and flag words: a parameter read at a constant index
+// (R > 0: the loops over the ranks are unrolled), or past kMaxShards ranks
+// (R = 0, the count p.ranks) an address from the device table.
+template <int R>
+__device__ __forceinline__ void* inbox_of(const Push& p, int q) {
+  if constexpr (R > 0) {
+    return p.inbox[q];
+  } else {
+    return reinterpret_cast<void*>(__ldg(p.table + q));
+  }
 }
-template <typename T>
-__device__ __forceinline__ uint4 add_bits(uint4 a, uint4 b) {
-  return make_uint4(add_bits<T>(a.x, b.x), add_bits<T>(a.y, b.y), add_bits<T>(a.z, b.z),
-                    add_bits<T>(a.w, b.w));
+template <int R>
+__device__ __forceinline__ int* flags_of(const Push& p, int q) {
+  if constexpr (R > 0) {
+    return p.flags[q];
+  } else {
+    return reinterpret_cast<int*>(__ldg(p.table + p.ranks + q));
+  }
 }
 
 // Block b of rank me: (1) stores its items of this rank's partial (row me
@@ -333,11 +422,15 @@ __device__ __forceinline__ uint4 add_bits(uint4 a, uint4 b) {
 // me - 1, ..., me - R + 1.  A failure (the error word already set, a
 // poisoned word, the timeout) sets the error word and publishes the poison
 // into every word [me][*] of every peer; a launch that finds the error
-// word set pushes nothing.  The rank loops run over constant indices:
-// a kernel parameter indexed by a variable is copied to the stack.
+// word set pushes nothing.  Up to kMaxShards ranks the rank loops run over
+// constant indices: a kernel parameter indexed by a variable is copied to
+// the stack.  Past it (R = 0) they run over p.ranks, each address read
+// from the device table.
 template <typename T, int R, bool Vec>
 __global__ void __launch_bounds__(kThreads) push_wait_kernel(const Push p) {
   using It = Item<Vec>;
+  constexpr bool kWide = R == 0;
+  const int ranks = kWide ? p.ranks : R;
   __shared__ int s_failed;
   const int b = blockIdx.x;
   const int64_t stride = static_cast<int64_t>(p.blocks) * kThreads;
@@ -347,11 +440,20 @@ __global__ void __launch_bounds__(kThreads) push_wait_kernel(const Push p) {
   if (threadIdx.x == 0) s_failed = load_acquire_sys(p.error) != 0;
   __syncthreads();
   if (!s_failed) {
-    for (int64_t i = first; i < p.items; i += stride) {
-      const It v = __ldg(own + p.me * row + i);
+    if constexpr (kWide) {
+      for (int q = 0; q < ranks; ++q) {
+        if (q == p.me) continue;
+        It* dst = static_cast<It*>(inbox_of<R>(p, q));
+        for (int64_t i = first; i < p.items; i += stride)
+          dst[p.me * row + i] = __ldg(own + p.me * row + i);
+      }
+    } else {
+      for (int64_t i = first; i < p.items; i += stride) {
+        const It v = __ldg(own + p.me * row + i);
 #pragma unroll
-      for (int q = 0; q < R; ++q) {
-        if (q != p.me) static_cast<It*>(p.inbox[q])[p.me * row + i] = v;
+        for (int q = 0; q < R; ++q) {
+          if (q != p.me) static_cast<It*>(inbox_of<R>(p, q))[p.me * row + i] = v;
+        }
       }
     }
   }
@@ -361,12 +463,12 @@ __global__ void __launch_bounds__(kThreads) push_wait_kernel(const Push p) {
     if (!failed) {
       __threadfence_system();
 #pragma unroll
-      for (int q = 0; q < R; ++q) {
-        if (q != p.me) atomicMax_system(p.flags[q] + p.me * kWaitBlocks + b, p.epoch);
+      for (int q = 0; q < (kWide ? ranks : R); ++q) {
+        if (q != p.me) atomicMax_system(flags_of<R>(p, q) + p.me * kWaitBlocks + b, p.epoch);
       }
       const long long t0 = global_ns();
 #pragma unroll
-      for (int q = 0; q < R; ++q) {
+      for (int q = 0; q < (kWide ? ranks : R); ++q) {
         while (q != p.me && !failed) {
           const int v = load_acquire_sys(p.own_flags + q * kWaitBlocks + b);
           if (v >= p.epoch && v != kPoison) break;
@@ -384,8 +486,8 @@ __global__ void __launch_bounds__(kThreads) push_wait_kernel(const Push p) {
   if (s_failed) {
     for (int w = threadIdx.x; w < kWaitBlocks; w += kThreads) {
 #pragma unroll
-      for (int q = 0; q < R; ++q) {
-        if (q != p.me) atomicMax_system(p.flags[q] + p.me * kWaitBlocks + w, kPoison);
+      for (int q = 0; q < (kWide ? ranks : R); ++q) {
+        if (q != p.me) atomicMax_system(flags_of<R>(p, q) + p.me * kWaitBlocks + w, kPoison);
       }
     }
     return;
@@ -393,8 +495,8 @@ __global__ void __launch_bounds__(kThreads) push_wait_kernel(const Push p) {
   for (int64_t i = first; i < p.items; i += stride) {
     It acc = ld_cg(own + p.me * row + i);
 #pragma unroll
-    for (int t = 1; t < R; ++t) {
-      const int q = p.me - t < 0 ? p.me - t + R : p.me - t;
+    for (int t = 1; t < (kWide ? ranks : R); ++t) {
+      const int q = p.me - t < 0 ? p.me - t + ranks : p.me - t;
       acc = add_bits<T>(acc, ld_cg(own + q * row + i));
     }
     static_cast<It*>(p.out)[i] = acc;
@@ -429,7 +531,7 @@ int push_wait_r(int R, const Push& p, cudaStream_t s) {
     case 14: push_wait<T, 14>(p, s); break;
     case 15: push_wait<T, 15>(p, s); break;
     case 16: push_wait<T, 16>(p, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: push_wait<T, 0>(p, s); break;  // wider: the device table
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -456,15 +558,16 @@ __device__ __forceinline__ unsigned rank_partial(const int* row, int code, int r
   return static_cast<unsigned>(cnt);
 }
 
-// The words entry: per shard, (n, 8) word rows and (n,) codes, roff, base,
-// own; out (n,) per shard.
+// The words entry: (S, n, 8) word rows and (S, n) codes, roff, base, own
+// and out, each one stacked tensor: shard d's rows at base + d * n (words
+// at words + d * 8 n).
 struct WordsIO {
-  const int* words[kMaxShards];
-  const int* codes[kMaxShards];
-  const int* roff[kMaxShards];
-  const int* base[kMaxShards];
-  const int* own[kMaxShards];
-  int* out[kMaxShards];
+  const int* words;
+  const int* codes;
+  const int* roff;
+  const int* base;
+  const int* own;
+  int* out;
 };
 
 __global__ void __launch_bounds__(kThreads) fused_words_kernel(const WordsIO p, int S, int64_t n) {
@@ -473,38 +576,33 @@ __global__ void __launch_bounds__(kThreads) fused_words_kernel(const WordsIO p, 
        i += stride) {
     unsigned acc = 0;
     for (int d = 0; d < S; ++d) {
-      const int own = __ldg(p.own[d] + i);
+      const int64_t j = d * n + i;
+      const int own = __ldg(p.own + j);
       if (own != 0) {
-        const unsigned cnt = rank_partial(p.words[d] + i * 8, __ldg(p.codes[d] + i),
-                                          __ldg(p.roff[d] + i));
-        acc += static_cast<unsigned>(own) * (static_cast<unsigned>(__ldg(p.base[d] + i)) + cnt);
+        const unsigned cnt =
+            rank_partial(p.words + j * 8, __ldg(p.codes + j), __ldg(p.roff + j));
+        acc += static_cast<unsigned>(own) * (static_cast<unsigned>(__ldg(p.base + j)) + cnt);
       }
     }
-    for (int d = 0; d < S; ++d) p.out[d][i] = static_cast<int>(acc);
+    for (int d = 0; d < S; ++d) p.out[d * n + i] = static_cast<int>(acc);
   }
 }
 
 // The table entry: the stacked shard tables and n (code, coordinate)
 // queries -> n merged occ values.
 struct TableIO {
-  const int* pk_start;  // (S,)
-  const int* pk_end;    // (S,)
   const int* codes;     // (n,) 0..3
   const int* k;         // (n,) sentinel-inclusive coordinates
   int* out;             // (n,)
   int64_t n;
 };
 
+// `fm` comes whole from the host (the tables stacked or in a device table,
+// the bounds in device memory with the binding's findings).
 template <bool Stacked>
 __global__ void __launch_bounds__(kThreads)
-    fused_occ_kernel(const TableIO a, gwa::ShardedFM<Stacked> fm, const gwa::ShardPtrs bwt,
-                     const gwa::ShardPtrs cp) {
-  __shared__ int s_ps[kMaxShards], s_pe[kMaxShards];
-  __shared__ const int* s_bwt[kMaxShards];
-  __shared__ const int* s_cp[kMaxShards];
-  fm.bwt = gwa::load_shards<Stacked>(bwt, fm.pk.S, static_cast<int64_t>(fm.R) * 8, s_bwt);
-  fm.cp = gwa::load_shards<Stacked>(cp, fm.pk.S, static_cast<int64_t>(fm.R) * 4, s_cp);
-  fm.pk = gwa::load_split(a.pk_start, a.pk_end, fm.pk.S, fm.pk.magic, fm.pk.shift, s_ps, s_pe);
+    fused_occ_kernel(const TableIO a, gwa::ShardedFM<Stacked> fm) {
+  gwa::split_base(fm.pk);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < a.n;
        i += stride) {
@@ -516,7 +614,7 @@ __global__ void __launch_bounds__(kThreads)
       const int k_adj = k - (k > fm.primary ? 1 : 0);
       unsigned acc = 0;
       for (int d = 0; d < fm.pk.S; ++d) {
-        if (k_adj >= fm.pk.start[d] && k_adj < fm.pk.end[d])
+        if (k_adj >= __ldg(fm.pk.start + d) && k_adj < __ldg(fm.pk.end + d))
           acc += static_cast<unsigned>(gwa::occ1(gwa::shard_row(fm, d, k_adj), c));
       }
       a.out[i] = static_cast<int>(acc);
@@ -525,31 +623,69 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool Stacked>
-gwa::ShardedFM<Stacked> sharded_fm(int S, int R, int primary, unsigned pk_magic, int pk_shift) {
+int launch_occ(const TableIO& a, int S, int R, int primary, const gwa::Split& pk,
+               const void* bwt, const void* cp, const uint64_t* table, unsigned blocks,
+               cudaStream_t stream) {
   gwa::ShardedFM<Stacked> fm{};
-  fm.pk = {nullptr, nullptr, S, pk_magic, pk_shift, false, 0};
+  fm.bwt = gwa::shard_table<Stacked>(bwt, table, static_cast<int64_t>(R) * 8);
+  fm.cp = gwa::shard_table<Stacked>(cp, table ? table + S : nullptr, static_cast<int64_t>(R) * 4);
+  fm.pk = pk;
   fm.R = R;
   fm.primary = primary;
-  return fm;
+  fused_occ_kernel<Stacked><<<blocks, kThreads, 0, stream>>>(a, fm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype 0: int32, 1: float32.  in_ptrs, out_ptrs: S device pointers each, n
-// elements a shard; a null output pointer is not written.
+// dtype 0: int32, 1: float32; n elements a shard.  in_ptrs, out_ptrs: S
+// device pointers each (host memory); a null output pointer is not
+// written, and `only` (-1: none) is the one output that is.  aligned:
+// every pointer 16-byte aligned (the binding's finding).  Up to
+// kMaxShards shards the pointers are the kernel's parameters; past it the
+// inputs are the rows of one stacked tensor (shard 0's at in_ptrs[0])
+// where `in_table` is null, else their S addresses in device memory
+// (`in_table`), and the outputs one stacked tensor or shard `only`'s.
 extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptrs,
-                             const uint64_t* out_ptrs, void* stream) {
-  if (S < 1 || S > kMaxShards || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+                             const uint64_t* out_ptrs, const void* in_table, int aligned,
+                             int only, void* stream) {
+  if (S < 1 || n < 0 || (dtype != 0 && dtype != 1) || only < -1 || only >= S)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  ShardIO p{};
-  for (int d = 0; d < S; ++d) {
-    p.in[d] = reinterpret_cast<const void*>(in_ptrs[d]);
-    p.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
-  }
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return allreduce_s<int>(S, p, n, s);
-  if (dtype == 1) return allreduce_s<float>(S, p, n, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= kMaxShards) {
+    ShardIO p{};
+    for (int d = 0; d < S; ++d) {
+      p.in[d] = reinterpret_cast<const void*>(in_ptrs[d]);
+      p.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
+    }
+    return dtype == 0 ? allreduce_s<int>(S, p, n, aligned != 0, s)
+                      : allreduce_s<float>(S, p, n, aligned != 0, s);
+  }
+  WideIO p{};
+  p.S = S;
+  p.only = only;
+  p.in = reinterpret_cast<const char*>(in_ptrs[0]);
+  p.out = reinterpret_cast<char*>(out_ptrs[only < 0 ? 0 : only]);
+  p.stride = n * 4;  // int32 and float32 alike
+  p.in_tab = static_cast<const uint64_t*>(in_table);
+  const bool vec = aligned && n % 4 == 0;
+  const int64_t items = vec ? n / 4 : n;
+  unsigned blocks = 0;
+  const int rc = grid_blocks(items, &blocks);
+  if (rc != 0) return rc;
+  if (dtype == 0) {
+    if (vec) {
+      allreduce_wide_kernel<int, true><<<blocks, kThreads, 0, s>>>(p, items);
+    } else {
+      allreduce_wide_kernel<int, false><<<blocks, kThreads, 0, s>>>(p, items);
+    }
+  } else if (vec) {
+    allreduce_wide_kernel<float, true><<<blocks, kThreads, 0, s>>>(p, items);
+  } else {
+    allreduce_wide_kernel<float, false><<<blocks, kThreads, 0, s>>>(p, items);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The grid of a flag-wait merge of n elements (the same on every rank).
@@ -557,29 +693,36 @@ extern "C" int gwa_allreduce_wait_blocks(int64_t n) { return n > 0 ? wait_blocks
 
 // The flag-wait entry (ranks on separate cards), one merge with `epoch`
 // (1 .. kPoison - 1): inbox_ptrs and flag_ptrs, `ranks` device pointers
-// each, are rank q's (ranks, n) inbox and (ranks, kWaitBlocks) flag words
-// (this rank's own at `me`, the others mapped on this card); this rank's
-// partial is row me of its own inbox; out: this rank's (n,) sum; error:
-// its error word.  Every pointer 16-byte aligned.  Launches on `device`
-// (made current for the launch if it is not).
+// each (host memory), are rank q's (ranks, n) inbox and (ranks,
+// kWaitBlocks) flag words (this rank's own at `me`, the others mapped on
+// this card); this rank's partial is row me of its own inbox; out: this
+// rank's (n,) sum; error: its error word.  Every pointer 16-byte aligned.
+// `table` holds the same 2 ranks addresses in device memory (the
+// inboxes', then the flags'), read past kMaxShards ranks.  Launches on
+// `device` (made current for the launch if it is not).
 extern "C" int gwa_allreduce_wait(int dtype, int64_t n, int ranks, int me,
                                   const uint64_t* inbox_ptrs, const uint64_t* flag_ptrs,
                                   void* out, void* error, int epoch, long long timeout_ns,
-                                  int device, void* stream) {
-  if (n < 0 || ranks < 1 || ranks > kMaxShards || me < 0 || me >= ranks || epoch < 1 ||
-      epoch >= kPoison || error == nullptr || timeout_ns < 0 || (dtype != 0 && dtype != 1))
+                                  int device, const void* table, void* stream) {
+  if (n < 0 || ranks < 1 || me < 0 || me >= ranks || epoch < 1 || epoch >= kPoison ||
+      error == nullptr || timeout_ns < 0 || (dtype != 0 && dtype != 1) ||
+      (ranks > kMaxShards && table == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Push p{};
   uintptr_t bits = reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(error);
   for (int q = 0; q < ranks; ++q) {
-    p.inbox[q] = reinterpret_cast<void*>(inbox_ptrs[q]);
-    p.flags[q] = reinterpret_cast<int*>(flag_ptrs[q]);
+    if (q < kMaxShards) {
+      p.inbox[q] = reinterpret_cast<void*>(inbox_ptrs[q]);
+      p.flags[q] = reinterpret_cast<int*>(flag_ptrs[q]);
+    }
     bits |= inbox_ptrs[q] | flag_ptrs[q];
   }
   if (bits % 16) return static_cast<int>(cudaErrorMisalignedAddress);
   if (n == 0) return 0;
-  p.own_inbox = p.inbox[me];
-  p.own_flags = p.flags[me];
+  p.table = ranks > kMaxShards ? static_cast<const uint64_t*>(table) : nullptr;
+  p.ranks = ranks;
+  p.own_inbox = reinterpret_cast<const void*>(inbox_ptrs[me]);
+  p.own_flags = reinterpret_cast<const int*>(flag_ptrs[me]);
   p.out = out;
   p.error = static_cast<int*>(error);
   p.n = n;
@@ -598,67 +741,51 @@ extern "C" int gwa_allreduce_wait(int dtype, int64_t n, int ranks, int me,
   return rc;
 }
 
-// ptrs: 6 x S device pointers, shard-major: words (16-byte aligned), codes,
-// roff, base, own and out of shard d at ptrs[6 d .. 6 d + 5]; n queries a
-// shard.
-extern "C" int gwa_fused_words(int S, int64_t n, const uint64_t* ptrs, void* stream) {
-  if (S < 1 || S > kMaxShards || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+// words (S, n, 8) 16-byte aligned, codes, roff, base, own and out (S, n):
+// int32, each one stacked tensor.
+extern "C" int gwa_fused_words(int S, int64_t n, const void* words, const void* codes,
+                               const void* roff, const void* base, const void* own, void* out,
+                               void* stream) {
+  if (S < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  WordsIO p{};
-  for (int d = 0; d < S; ++d) {
-    const uint64_t* q = ptrs + 6 * d;
-    p.words[d] = reinterpret_cast<const int*>(q[0]);
-    p.codes[d] = reinterpret_cast<const int*>(q[1]);
-    p.roff[d] = reinterpret_cast<const int*>(q[2]);
-    p.base[d] = reinterpret_cast<const int*>(q[3]);
-    p.own[d] = reinterpret_cast<const int*>(q[4]);
-    p.out[d] = reinterpret_cast<int*>(q[5]);
-  }
   unsigned blocks = 0;
   const int rc = grid_blocks(n, &blocks);
   if (rc != 0) return rc;
+  const WordsIO p{static_cast<const int*>(words), static_cast<const int*>(codes),
+                  static_cast<const int*>(roff),  static_cast<const int*>(base),
+                  static_cast<const int*>(own),   static_cast<int*>(out)};
   fused_words_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, S, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Each of the S shards' bwt (R, 8) and occ_cp (R, 4) 16-byte aligned
-// (bwt_ptrs and cp_ptrs: S device pointers each), pk_start and pk_end (S,),
-// codes, k and out (n,), all int32.  The owner guess is (x - pk_start[0]) /
-// width = __umulhi(x - pk_start[0], pk_magic) >> pk_shift
-// (fm_search_cuda.owner_divisor): the shards need not start at 0 (the held
-// shards of one process, whose coordinates outside them add 0).
-extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const uint64_t* bwt_ptrs,
-                             const uint64_t* cp_ptrs, const void* pk_start, const void* pk_end,
-                             unsigned pk_magic, int pk_shift, const void* codes, const void* k,
-                             void* out, void* stream) {
-  if (S < 1 || S > kMaxShards || R < 1 || n < 0 || pk_shift < 0 || pk_shift > 31)
+// Each of the S shards' bwt (R, 8) and occ_cp (R, 4) 16-byte aligned,
+// pk_start and pk_end (S,), codes, k and out (n,), all int32.  The shards
+// are the rows of one stacked bwt and occ_cp (shard 0's at `bwt` and `cp`)
+// where `table` is null, else each in its own allocation, `table` their 2
+// S pointers in device memory (bwt's, then occ_cp's).  The owner guess is
+// (x - pk_start[0]) / width = __umulhi(x - pk_start[0], pk_magic) >>
+// pk_shift (fm_search_cuda.owner_divisor): the shards need not start at 0
+// (the held shards of one process, whose coordinates outside them add 0);
+// pk_facts is the binding's finding on the bounds (bit 0: disjoint, bit 1:
+// in order).
+extern "C" int gwa_fused_occ(int S, int R, int primary, int64_t n, const void* bwt,
+                             const void* cp, const void* table, const void* pk_start,
+                             const void* pk_end, unsigned pk_magic, int pk_shift, int pk_facts,
+                             const void* codes, const void* k, void* out, void* stream) {
+  if (S < 1 || R < 1 || n < 0 || pk_shift < 0 || pk_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   TableIO a{};
-  a.pk_start = static_cast<const int*>(pk_start);
-  a.pk_end = static_cast<const int*>(pk_end);
   a.codes = static_cast<const int*>(codes);
   a.k = static_cast<const int*>(k);
   a.out = static_cast<int*>(out);
   a.n = n;
-  gwa::ShardPtrs bwt{}, cp{};
-  for (int s = 0; s < S; ++s) {
-    bwt.p[s] = reinterpret_cast<const int*>(bwt_ptrs[s]);
-    cp.p[s] = reinterpret_cast<const int*>(cp_ptrs[s]);
-  }
   unsigned blocks = 0;
   const int rc = grid_blocks(n, &blocks);
   if (rc != 0) return rc;
+  const gwa::Split pk = gwa::make_split(pk_start, pk_end, S, pk_magic, pk_shift, pk_facts);
+  const auto tab = static_cast<const uint64_t*>(table);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (gwa::evenly_spaced(bwt, S, static_cast<int64_t>(R) * 8) &&
-      gwa::evenly_spaced(cp, S, static_cast<int64_t>(R) * 4)) {
-    fused_occ_kernel<true><<<blocks, kThreads, 0, st>>>(a, sharded_fm<true>(S, R, primary,
-                                                                            pk_magic, pk_shift),
-                                                        bwt, cp);
-  } else {
-    fused_occ_kernel<false><<<blocks, kThreads, 0, st>>>(a, sharded_fm<false>(S, R, primary,
-                                                                              pk_magic, pk_shift),
-                                                         bwt, cp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tab == nullptr) return launch_occ<true>(a, S, R, primary, pk, bwt, cp, tab, blocks, st);
+  return launch_occ<false>(a, S, R, primary, pk, bwt, cp, tab, blocks, st);
 }

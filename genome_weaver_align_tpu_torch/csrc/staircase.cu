@@ -50,9 +50,13 @@
 // and halves them as the launch outgrows the card, down to one lane a pool
 // at --mode staircase's 98,304 pools (about one live slot a non-empty
 // pool-step there: a warp counts 32 pools' rows at once); a narrowing pool
-// always takes a warp.  Every step waits on the 48-byte rows the previous
-// step chose: 2 a live slot, requested before either is counted.  Bytes a
-// step a pool: 96 a live slot plus 4 of read.
+// always takes a warp (past 64 slots in the Wide kernel, whose narrowing
+// step counts before it places).  Any count of slots: a pool takes more
+// lanes where a warp's pools outgrow a block's shared memory (fit_lanes),
+// and past 7,000 slots at a warp the pools move to global scratch (the
+// Wide kernel).  Every step waits on the
+// 48-byte rows the previous step chose: 2 a live slot, requested before
+// either is counted.  Bytes a step a pool: 96 a live slot plus 4 of read.
 //
 // Entry: gwa_staircase, a plain C function bound with ctypes; it launches on
 // the caller's stream, does not synchronise, allocates nothing, and returns
@@ -67,7 +71,7 @@
 namespace {
 
 constexpr int kThreads = 128;  // a block: 4 warps, fewer where shared memory runs short
-constexpr int kMaxSlots = 64;
+constexpr int kMaxSlots = 64;  // slots of the one-pass narrowing step; past it the Wide kernel
 constexpr int kMaxPieces = 32;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
@@ -77,6 +81,8 @@ struct StairArgs {
   int* out_lo;         // (P, B, keep)
   int* out_hi;
   unsigned char* overflow;  // (P, B) bool
+  int* scratch;             // past kMaxSlots, where a warp's pool outgrows shared memory:
+                            // 8 n_slots ints a pool (else null)
   int B, L, P, k, n_slots, keep, spine_steps, fwd_steps, bwd_steps, n, lanes;
   bool narrow_left;
 };
@@ -172,12 +178,22 @@ __device__ __forceinline__ void put(const Slots& dst, int dest, const Kids& k, i
   }
 }
 
+// Rank r's code: rank 0 is the read's code c, ranks 1..3 the other codes
+// in order.
+__device__ __forceinline__ int rank_code(int r, int c) {
+  return r == 0 ? c : (r - 1) + (r - 1 >= c ? 1 : 0);
+}
+
 // One all-4 expansion of the live slots [0, live) of `src` into `dst` and
 // the compaction of the kept children; returns the number kept (which may
 // exceed n_slots).  A pass takes H G parents, H a lane.  Every lane of the
 // warp calls it (the ballots are warp-wide); a group with live == 0 takes
-// part with no work.
-template <int H>
+// part with no work.  Wide (past kMaxSlots slots, a warp a pool): a
+// rank-major step may take several passes, so it counts each rank's kept
+// children over every pass first, then runs the passes again (their rows
+// read a second time, from L2) and places each child after every earlier
+// rank's and after its rank's children of earlier parents.
+template <int H, bool Wide>
 __device__ int expand_step(const Slots& src, const Slots& dst, int live, const gwa::FMTable& tab,
                            bool forward, int c, int budget, bool rank_major, const Group& g) {
   const int passes = (live + H * g.G - 1) / (H * g.G);  // the same in every lane of a group
@@ -207,13 +223,46 @@ __device__ int expand_step(const Slots& src, const Slots& dst, int live, const g
     __syncwarp();
     return base;
   }
+  if constexpr (Wide) {
+    int total[4] = {0, 0, 0, 0};
+    for (int q = 0; __any_sync(kAll, q < passes); ++q) {
+      pass_children<H>(src, live, q, tab, forward, c, budget, g, k);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int a = rank_code(r, c);
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          total[r] += __popc(__ballot_sync(kAll, (k[h].keep >> a) & 1u) & g.mask);
+      }
+    }
+    int at[4];  // where rank r's next child goes
+    at[0] = 0;
+#pragma unroll
+    for (int r = 1; r < 4; ++r) at[r] = at[r - 1] + total[r - 1];
+    for (int q = 0; __any_sync(kAll, q < passes); ++q) {
+      pass_children<H>(src, live, q, tab, forward, c, budget, g, k);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int a = rank_code(r, c);
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const bool kept = (k[h].keep >> a) & 1u;
+          const unsigned bal = __ballot_sync(kAll, kept) & g.mask;
+          if (kept) put(dst, at[r] + __popc(bal & g.below), k[h], a, k[h].mm + (a != c));
+          at[r] += __popc(bal);
+        }
+      }
+    }
+    __syncwarp();
+    return at[3];
+  }
   // rank-major: rank 0 is child c, ranks 1..3 the other codes in order; a
   // narrowing pool is a whole warp whose one pass covers every live slot
   // (the entry refuses fewer lanes), so the pass's ballots are the totals
   pass_children<H>(src, live, 0, tab, forward, c, budget, g, k);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int a = r == 0 ? c : (r - 1) + (r - 1 >= c ? 1 : 0);
+    const int a = rank_code(r, c);
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const bool kept = (k[h].keep >> a) & 1u;
@@ -230,9 +279,12 @@ __device__ int expand_step(const Slots& src, const Slots& dst, int live, const g
 // than 32 slots, so that one pass requests every live slot's rows).  The
 // minimum blocks an SM cap the registers: H = 1 at 5 blocks (96 registers;
 // one lane a pool of 16 slots fits 3 blocks in shared memory anyway), H = 2
-// at 3 (168: a rescue call's 1,536 warps in one wave).  Phase [2] of
+// at 3 (168: a rescue call's 1,536 warps in one wave).  Wide: past
+// kMaxSlots slots (a warp a pool, H = 2), the rank-major step in two
+// rounds of passes (expand_step), and the pool in global scratch where a
+// warp's pool outgrows a block's shared memory.  Phase [2] of
 // chip_smoke.py prints what ptxas used and spilled.
-template <int H>
+template <int H, bool Wide>
 __global__ void __launch_bounds__(kThreads, H == 1 ? 5 : 3)
     staircase_kernel(const StairArgs a, const int* fwd_blocks, const int* fwd_C, int fwd_primary,
                      const int* rev_blocks, const int* rev_C, int rev_primary) {
@@ -248,7 +300,10 @@ __global__ void __launch_bounds__(kThreads, H == 1 ? 5 : 3)
   const int64_t pool_id = static_cast<int64_t>(blockIdx.x) * (blockDim.x / g.G) + group;
   const bool valid = pool_id < static_cast<int64_t>(a.P) * a.B;  // else idle in the collectives
   const int n = a.n_slots;
-  int* const pool = smem + group * 8 * n;  // two buffers of n slots
+  int* pool = smem + group * 8 * n;  // two buffers of n slots
+  if constexpr (Wide) {
+    if (a.scratch != nullptr) pool = a.scratch + (valid ? pool_id : 0) * 8 * n;
+  }
   const gwa::FMTable fwd = gwa::load_table(fwd_blocks, fwd_C, fwd_primary);
   const gwa::FMTable rev = gwa::load_table(rev_blocks, rev_C, rev_primary);
   const int p = valid ? static_cast<int>(pool_id / a.B) : 0;
@@ -291,9 +346,9 @@ __global__ void __launch_bounds__(kThreads, H == 1 ? 5 : 3)
       c = gwa::code_at(read, a.L, j);
       while (next_bound <= j) next_bound = len * (++piece + 1) / a.P;
     }
-    const int kept = expand_step<H>(Slots{pool + cur * 4 * n, n},
-                                    Slots{pool + (cur ^ 1) * 4 * n, n}, act ? live : 0, rev, true,
-                                    c, piece - p, a.narrow_left, g);
+    const int kept = expand_step<H, Wide>(Slots{pool + cur * 4 * n, n},
+                                          Slots{pool + (cur ^ 1) * 4 * n, n}, act ? live : 0,
+                                          rev, true, c, piece - p, a.narrow_left, g);
     if (act) {
       overflow |= kept > n;
       live = min(kept, n);
@@ -308,9 +363,9 @@ __global__ void __launch_bounds__(kThreads, H == 1 ? 5 : 3)
       const bool act = live > 0 && j >= 0;
       if (!__any_sync(kAll, act)) break;
       const int c = act ? gwa::code_at(read, a.L, j) : 0;
-      const int kept = expand_step<H>(Slots{pool + cur * 4 * n, n},
-                                      Slots{pool + (cur ^ 1) * 4 * n, n}, act ? live : 0, fwd,
-                                      false, c, a.k, true, g);
+      const int kept = expand_step<H, Wide>(Slots{pool + cur * 4 * n, n},
+                                            Slots{pool + (cur ^ 1) * 4 * n, n}, act ? live : 0,
+                                            fwd, false, c, a.k, true, g);
       if (act) {
         overflow |= kept > n;
         live = min(kept, n);
@@ -331,21 +386,44 @@ __global__ void __launch_bounds__(kThreads, H == 1 ? 5 : 3)
   if (g.gl == 0) a.overflow[pool_id] = (overflow || live > a.keep) ? 1 : 0;
 }
 
+// The lanes a pool takes: `lanes`, doubled while a warp's pools outgrow a
+// block's shared memory, up to 32 (threads 0 there: the pools go to
+// scratch); the block's threads and shared memory in threads and smem.
+int fit_lanes(int lanes, int n_slots, size_t& smem, int& threads) {
+  for (;; lanes *= 2) {
+    threads = gwa::block_threads(kThreads, lanes, 8 * static_cast<size_t>(n_slots) * sizeof(int),
+                                 smem);
+    if (threads > 0 || lanes >= 32) return lanes;
+  }
+}
+
 }  // namespace
+
+// Scratch ints a launch of `pools` pools of n_slots slots at `lanes` lanes a
+// pool needs (fit_lanes): 0 where a warp's pools fit a block's shared memory
+// at some lanes up to 32 (always up to kMaxSlots), else 8 n_slots a pool.
+extern "C" int64_t gwa_staircase_scratch_ints(int lanes, int n_slots, int64_t pools) {
+  size_t smem = 0;
+  int threads = 0;
+  if (lanes < 1 || lanes > 32 || n_slots < 1) return 0;
+  fit_lanes(lanes, n_slots, smem, threads);
+  return threads > 0 ? 0 : pools * 8 * n_slots;
+}
 
 // reads (B, L), lengths (B,), the forward and reverse tables' blocks
 // (nb + 1, 12, 16-byte aligned) and C (5,): int32; out_lo / out_hi
 // (P, B, keep) int32, overflow (P, B) bytes; lanes a pool: a power of two,
-// 1..32, and 32 under narrow_left.
+// 1..32, and 32 under narrow_left (doubled here while a warp's pools
+// outgrow shared memory: fit_lanes); scratch: gwa_staircase_scratch_ints
+// ints (null where that is 0).
 extern "C" int gwa_staircase(const void* reads, const void* lengths, int B, int L, int P, int k,
                              int n_slots, int keep, int spine_steps, int fwd_steps, int bwd_steps,
                              int narrow_left, const void* fwd_blocks, const void* fwd_C,
                              int fwd_primary, const void* rev_blocks, const void* rev_C,
                              int rev_primary, int n, void* out_lo, void* out_hi, void* overflow,
-                             int lanes, void* stream) {
-  if (B < 0 || L < 0 || P < 1 || P > kMaxPieces || n_slots < 1 || n_slots > kMaxSlots ||
-      keep < 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
-      (narrow_left && lanes != 32))
+                             int lanes, void* scratch, int64_t scratch_ints, void* stream) {
+  if (B < 0 || L < 0 || P < 1 || P > kMaxPieces || n_slots < 1 || keep < 0 || lanes < 1 ||
+      lanes > 32 || (lanes & (lanes - 1)) != 0 || (narrow_left && lanes != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t pools = static_cast<int64_t>(P) * B;
   if (pools == 0) return 0;
@@ -365,13 +443,23 @@ extern "C" int gwa_staircase(const void* reads, const void* lengths, int B, int 
   a.fwd_steps = fwd_steps;
   a.bwd_steps = bwd_steps;
   a.n = n;
-  a.lanes = lanes;
   a.narrow_left = narrow_left != 0;
   size_t smem = 0;
-  const int threads = gwa::block_threads(kThreads, lanes, 8 * n_slots * sizeof(int), smem);
-  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = 0;
+  a.lanes = lanes = fit_lanes(lanes, n_slots, smem, threads);
+  if (threads == 0) {  // a warp's pool outgrows shared memory: the pools live in scratch
+    if (scratch == nullptr || scratch_ints < pools * 8 * n_slots)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.scratch = static_cast<int*>(scratch);
+    threads = kThreads;
+    smem = 0;
+  }
+  // the Wide kernel: a narrowing step in two rounds of passes, or the pools
+  // in scratch (a warp a pool either way)
+  const bool wide = (narrow_left && n_slots > kMaxSlots) || a.scratch != nullptr;
   const bool two = lanes == 32 && n_slots > 32;  // a warp's pass covers every slot
-  const auto kernel = two ? staircase_kernel<2> : staircase_kernel<1>;
+  const auto kernel = wide ? staircase_kernel<2, true>
+                           : two ? staircase_kernel<2, false> : staircase_kernel<1, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -1,4 +1,5 @@
-"""Binding of the hand-written CUDA banded-DP kernel (``csrc/banded_dp.cu``).
+"""Binding of the hand-written CUDA banded-DP kernels (``csrc/banded_dp.cu``,
+and ``csrc/banded_group.cu`` for the group of threads a lane).
 
 The kernel replaces the JAX package's Pallas kernel
 ``genome_weaver_align_tpu/ops/dp_pallas.py::_kernel``.  It has two entries
@@ -33,7 +34,7 @@ from ._cuda_build import load_kernel_library
 from .dp import INF
 
 REGISTER_K = 16  # one thread a lane (the band in registers) for k = 0..REGISTER_K
-GROUP_K = 127  # a group of threads a lane, 16 band slots a thread, up to here
+GROUP_K = 127  # a group of 8-32 threads a lane, 9-16 band slots a thread, up to here
 DESIGNS = ("lane", "group", "scratch")
 
 
@@ -58,6 +59,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _group_library() -> ctypes.CDLL:
+    """Build and load the group kernel's library (k = REGISTER_K + 1 ..
+    GROUP_K)."""
+    lib = load_kernel_library("banded_group.cu")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.gwa_banded_group.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int64, i32, i32, i32, i32, i32, i32, vp,
+    ]
+    lib.gwa_banded_group.restype = ctypes.c_int
+    return lib
+
+
 def _check_common(reads: torch.Tensor, lengths: torch.Tensor, k: int, name: str) -> None:
     if reads.dtype != torch.int8 or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: expected int8 reads and int32 lengths, got "
@@ -79,18 +93,20 @@ def _launch(reads, lengths, rid, windows, text, starts, Q: int, W: int, nw: int,
     end_b = torch.empty(Q, dtype=torch.int32, device=dev)
     if Q == 0:
         return dist, end_b
-    lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    n_scratch = lib.gwa_banded_dp_scratch_words(Q, k)
-    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) if n_scratch else None
+    args = (ptr(reads), ptr(lengths), ptr(rid), ptr(windows), ptr(text), ptr(starts),
+            dist.data_ptr(), end_b.data_ptr(), Q, reads.shape[0], reads.shape[1], W, nw, n_text, k)
     with torch.cuda.device(dev):
-        rc = lib.gwa_banded_dp(
-            ptr(reads), ptr(lengths), ptr(rid), ptr(windows), ptr(text), ptr(starts),
-            dist.data_ptr(), end_b.data_ptr(), Q, reads.shape[0], reads.shape[1], W, nw,
-            n_text, k, ptr(scratch), n_scratch, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if design(k) == "group":
+            rc = _group_library().gwa_banded_group(*args, stream)
+        else:
+            lib = _library()
+            n_scratch = lib.gwa_banded_dp_scratch_words(Q, k)
+            scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) if n_scratch else None
+            rc = lib.gwa_banded_dp(*args, ptr(scratch), n_scratch, stream)
     if rc != 0:
-        raise RuntimeError(f"gwa_banded_dp launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gwa_banded_dp launch failed (k = {k}): CUDA error {rc}")
     return dist, end_b
 
 

@@ -18,10 +18,12 @@ when the build fails, loading raises: there is no fallback to the plain
 versions.  ``check_table`` (built on ``check_tables``, which owns the
 dtype, contiguity, alignment and device rules) and ``group_lanes`` are
 shared with the staircase, one-mismatch and locate bindings,
-``check_sharded``, ``shard_ptrs`` (one base pointer a shard: the rows of a
-stacked table, or shards in their own allocations, another process's
-mapped) and ``owner_divisor`` (the sharded kernels' owner by division) with
-the locate and fused-occ bindings.
+``check_sharded``, ``owner_divisor`` (the sharded kernels' owner by
+division) and ``sharded_args`` (the layout of the shards' tables, decided
+here and nowhere else: the rows of one stacked tensor, or shards in their
+own allocations, another process's mapped, whose pointers go to the card
+as a table; and what a split's bounds are; each found once and cached)
+with the locate and fused-occ bindings.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .rank import FUSED_WIDTH, MARK_WORDS_PER_BLOCK, DeviceFMIndex
 I32 = torch.int32
 PTRS = ctypes.POINTER(ctypes.c_uint64)  # an array of device pointers, one a shard
 MAX_PIECES = 32  # pieces a read (the staircase's k + 1)
-MAX_SHARDS = 16  # interval shards a sharded kernel takes
+_CACHED = 64  # device tables and split findings kept, the oldest dropped first
 # Lanes a launch of lane groups may take an SM before each group takes
 # fewer: the crossover of the staircase and one-mismatch kernels' group
 # sizes at their paths' shapes (PERF.md section 6, chip_smoke.py [18])
@@ -53,8 +55,8 @@ def _library() -> ctypes.CDLL:
         vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, i32, vp, vp, vp,
     ]
     lib.gwa_backward_search_sharded.argtypes = [
-        vp, vp, i32, i32, i32, i32, i32, PTRS, PTRS, vp, vp, ctypes.c_uint32, i32, vp, i32, i32,
-        i32, vp, vp, vp,
+        vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, ctypes.c_uint32, i32, i32, vp, i32,
+        i32, i32, vp, vp, vp,
     ]
     lib.gwa_backward_search.restype = lib.gwa_backward_search_sharded.restype = ctypes.c_int
     return lib
@@ -118,14 +120,79 @@ def shard_parts(table) -> list[torch.Tensor]:
 
 
 def shard_ptrs(parts) -> ctypes.Array:
-    """The device pointers of the per-shard tensors, for a kernel's table
-    argument."""
+    """The device pointers of the per-shard tensors, a kernel parameter's
+    source (the staged sharded locate, the sums up to 16 shards or ranks)."""
     return (ctypes.c_uint64 * len(parts))(*[t.data_ptr() for t in parts])
+
+
+def _remember(cache: dict, key, value):
+    cache[key] = value
+    while len(cache) > _CACHED:
+        cache.pop(next(iter(cache)))
+    return value
+
+
+_TABLES: dict = {}
+
+
+def address_table(dev: torch.device, addrs) -> torch.Tensor:
+    """``addrs`` (device addresses) as an int64 tensor on ``dev``: a
+    kernel's pointer table (``csrc/fm_occ.cuh``, ``csrc/ring.cu``).  Made
+    once for a set of addresses and kept (a blocking upload the first
+    time)."""
+    key = (dev, tuple(addrs))
+    if key in _TABLES:
+        return _TABLES[key]
+    return _remember(_TABLES, key, torch.tensor(key[1], dtype=torch.int64, device=dev))
+
+
+def device_table(dev: torch.device, *parts) -> torch.Tensor | None:
+    """The device pointers of the per-shard tensors of each of ``parts``
+    (lists of S tensors), one list after another (``address_table``); None
+    where every list is the rows of one stacked tensor (the kernels add the
+    stride instead)."""
+    if all(stacked(ts) for ts in parts):
+        return None
+    return address_table(dev, [t.data_ptr() for ts in parts for t in ts])
+
+
+def stacked(parts) -> bool:
+    """Whether the per-shard tensors are the rows of one stacked tensor:
+    shard s at shard 0's address plus s rows (the kernels then add the
+    stride, and get no pointer table)."""
+    first, row = parts[0].data_ptr(), parts[0].numel() * parts[0].element_size()
+    return all(t.data_ptr() == first + s * row for s, t in enumerate(parts))
+
+
+_FACTS: dict = {}
+
+
+def split_facts(start: torch.Tensor, end: torch.Tensor) -> int:
+    """What the S ranges [start, end) of a split are, for the sharded
+    kernels (``csrc/fm_occ.cuh`` owner_of): bit 0 where no x lies in two
+    ranges, bit 1 where they are also in order, start[0] <= end[0] <=
+    start[1] <= ... (``shard_fm_index``'s splits and any run of their
+    shards).  Read from the device once for the bounds' memory and kept
+    while it is unchanged (the version counter, which a view shares with
+    its base): a process's held bounds are a new view of the same memory
+    each step.  The cache holds the tensors, so their memory is not
+    reused while it does."""
+    key = tuple((t.device, t.data_ptr(), t.shape, t.stride()) for t in (start, end))
+    hit = _FACTS.get(key)
+    if hit is not None and hit[2] == (start._version, end._version):
+        return hit[3]
+    lo, hi = start.tolist(), end.tolist()
+    spans = sorted((a, b) for a, b in zip(lo, hi) if a < b)
+    disjoint = all(b0 <= a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
+    in_order = all(a <= b for a, b in zip(lo, hi)) and all(b <= a for b, a in zip(hi, lo[1:]))
+    facts = int(disjoint) | int(disjoint and in_order) << 1
+    _remember(_FACTS, key, (start, end, (start._version, end._version), facts))
+    return facts
 
 
 def check_sharded(sh, dev: torch.device, name: str, marks: bool = True) -> dict:
     """The tables of a ``ShardedFMIndex`` (``put_sharded``), stacked or one
-    tensor a shard: S of 1..16 shards, shapes that agree, every shard's
+    tensor a shard: S >= 1 shards, shapes that agree, every shard's
     tensor int32 and contiguous on ``dev``, the vector-read ones 16-byte
     aligned; with ``marks`` the row-space tables too (locate), else the
     packed space alone (the piece search).  -> each table's per-shard
@@ -133,8 +200,8 @@ def check_sharded(sh, dev: torch.device, name: str, marks: bool = True) -> dict:
     keys = ("bwt_blocks", "occ_cp") + (("mark_blocks", "mark_cp", "ssa_values") if marks else ())
     per = {key: shard_parts(getattr(sh, key)) for key in keys}
     S = len(per["bwt_blocks"])
-    if not 1 <= S <= MAX_SHARDS:
-        raise ValueError(f"{name}: {S} shards: the kernels take 1..{MAX_SHARDS}")
+    if S < 1:
+        raise ValueError(f"{name}: an index of no shards")
     first = {key: ts[0].shape for key, ts in per.items()}
     R = first["bwt_blocks"][0] if len(first["bwt_blocks"]) == 2 else -1
     shapes = {"bwt_blocks": (R, 8), "occ_cp": (R, 4)}
@@ -257,8 +324,17 @@ def backward_search_cuda(
 backward_search_cuda.launches = 0
 
 
+def sharded_args(dev: torch.device, parts, *splits) -> tuple:
+    """The sharded kernels' layout arguments: the pointer table of
+    ``parts`` (``device_table``'s pointer; None where every table is
+    stacked) and each split's ``split_facts``."""
+    table = device_table(dev, *parts)
+    return (None if table is None else table.data_ptr(),
+            *[split_facts(a, b) for a, b in splits])
+
+
 def backward_search_sharded_cuda(
-    sh,  # a ShardedFMIndex after put_sharded: S = 1..16 interval shards, stacked or not
+    sh,  # a ShardedFMIndex after put_sharded: S >= 1 interval shards, stacked or not
     reads: torch.Tensor,  # (B, L) int32 codes 0..3, contiguous, on a CUDA device
     lengths: torch.Tensor,  # (B,) int32
     n_pieces: int,
@@ -282,14 +358,15 @@ def backward_search_sharded_cuda(
     hi = torch.empty((B, n_pieces), dtype=I32, device=dev)
     if B == 0:
         return lo, hi
-    S, R = len(per["bwt_blocks"]), per["bwt_blocks"][0].shape[0]
+    bwt, cp = per["bwt_blocks"], per["occ_cp"]
+    S, R = len(bwt), bwt[0].shape[0]
     with torch.cuda.device(dev):
+        table, facts = sharded_args(dev, (bwt, cp), (sh.pk_start, sh.pk_end))
         rc = _library().gwa_backward_search_sharded(
-            reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, S, R,
-            shard_ptrs(per["bwt_blocks"]), shard_ptrs(per["occ_cp"]), sh.pk_start.data_ptr(),
-            sh.pk_end.data_ptr(),
-            *packed_divisor(sh), sh.C.data_ptr(), sh.primary, sh.n, max(trip, 0), lo.data_ptr(),
-            hi.data_ptr(), stream(),
+            reads.data_ptr(), lengths.data_ptr(), B, L, n_pieces, S, R, bwt[0].data_ptr(),
+            cp[0].data_ptr(), table, sh.pk_start.data_ptr(), sh.pk_end.data_ptr(),
+            *packed_divisor(sh), facts, sh.C.data_ptr(), sh.primary, sh.n, max(trip, 0),
+            lo.data_ptr(), hi.data_ptr(), stream(),
         )
     if rc != 0:
         raise RuntimeError(f"gwa_backward_search_sharded launch failed ({S} shards): CUDA error "

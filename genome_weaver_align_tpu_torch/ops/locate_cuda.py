@@ -25,7 +25,8 @@ import torch
 
 from ._cuda_build import load_kernel_library
 from .fm_search_cuda import (
-    PTRS, check_sharded, check_table, owner_divisor, packed_divisor, shard_ptrs, sm_count, stream,
+    PTRS, check_sharded, check_table, owner_divisor, packed_divisor, shard_ptrs, sharded_args,
+    sm_count, stream,
 )
 from .rank import MARK_WORDS_PER_BLOCK, DeviceFMIndex
 
@@ -43,8 +44,8 @@ def _library() -> ctypes.CDLL:
         vp, i64, vp, i32, vp, i32, i32, vp, i32, vp, vp, i32, i32, vp, i32, vp,
     ]
     lib.gwa_locate_sharded.argtypes = [
-        vp, i64, i32, i32, PTRS, PTRS, vp, vp, u32, i32, i32, PTRS, PTRS, vp, vp, u32, i32, i32,
-        PTRS, vp, vp, i32, i32, i32, vp, i32, vp,
+        vp, i64, i32, i32, PTRS, PTRS, vp, vp, u32, i32, i32, i32, PTRS, PTRS, vp, vp, u32, i32,
+        i32, i32, PTRS, vp, vp, i32, i32, i32, vp, i32, vp, vp,
     ]
     lib.gwa_locate_resident.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.gwa_locate, lib.gwa_locate_sharded, lib.gwa_locate_resident):
@@ -140,14 +141,19 @@ def locate_sharded_cuda(sh, rows: torch.Tensor) -> torch.Tensor:
     mbs = per["mark_blocks"][0].shape[0]
     ptrs = {key: shard_ptrs(ts) for key, ts in per.items()}
     grid, _ = launch_shape(rows.numel(), rows.device, True)
+    keys = ("bwt_blocks", "occ_cp", "mark_blocks", "mark_cp", "ssa_values")
     with torch.cuda.device(rows.device):
+        table, pk_facts, row_facts = sharded_args(
+            rows.device, [per[key] for key in keys], (sh.pk_start, sh.pk_end),
+            (sh.row_start, sh.row_end))
         rc = _library().gwa_locate_sharded(
             rows.data_ptr(), rows.numel(), S, R, ptrs["bwt_blocks"], ptrs["occ_cp"],
-            sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), *packed_divisor(sh), mbs,
+            sh.pk_start.data_ptr(), sh.pk_end.data_ptr(), *packed_divisor(sh), pk_facts, mbs,
             ptrs["mark_blocks"], ptrs["mark_cp"], sh.row_start.data_ptr(),
-            sh.row_end.data_ptr(), *owner_divisor(mbs * 128), per["ssa_values"][0].shape[0],
-            ptrs["ssa_values"], sh.ssa_base.data_ptr(), sh.C.data_ptr(), sh.primary, sh.n,
-            sh.sample_rate, out.data_ptr(), grid, stream())
+            sh.row_end.data_ptr(), *owner_divisor(mbs * 128), row_facts,
+            per["ssa_values"][0].shape[0], ptrs["ssa_values"], sh.ssa_base.data_ptr(),
+            sh.C.data_ptr(), sh.primary, sh.n, sh.sample_rate, out.data_ptr(), grid, table,
+            stream())
     if rc != 0:
         raise RuntimeError(f"gwa_locate_sharded launch failed ({S} shards): CUDA error {rc}")
     locate_sharded_cuda.launches += 1

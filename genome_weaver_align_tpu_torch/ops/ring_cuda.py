@@ -12,10 +12,14 @@ rank + shard sum that replaces ``_fused_rank_ring_kernel`` has two entries:
 
 ``ring_allreduce_cuda`` equals ``parallel.ring.ring_psum_plain``.  Every
 kernel is one pass over every shard's input: nothing to wait on, no
-scratch, nothing read back.  Every shard's buffers are passed as their own
-device pointers, so a shard may be a row of a stacked tensor, its own
-allocation, or another process's mapped through CUDA IPC (on this card,
-whichever card holds the memory: ``parallel.peer``).
+scratch, nothing read back.  A shard may be a row of a stacked tensor (the
+kernel adds the stride), its own allocation, or another process's mapped
+through CUDA IPC (on this card, whichever card holds the memory:
+``parallel.peer``); this binding decides which, and passes the kernels
+the addresses of shards apart as a device table (``fm_search_cuda.
+address_table``, made once for a set of addresses), which the sum and the
+flag-wait push read past 16 shards or ranks (below, their pointers are
+kernel parameters).
 
 ``ring_allreduce_wait_cuda`` is the sum's flag-wait entry, for ranks on
 separate cards: each rank's partial lies in its row of its own inbox, and
@@ -44,9 +48,9 @@ import functools
 import torch
 
 from ._cuda_build import load_kernel_library
-from .fm_search_cuda import PTRS, owner_divisor, shard_parts, shard_ptrs
-
-MAX_SHARDS = 16
+from .fm_search_cuda import (
+    PTRS, address_table, owner_divisor, shard_parts, shard_ptrs, sharded_args, stacked,
+)
 _DTYPES = {torch.int32: 0, torch.float32: 1}
 # a flag wait gives up after this long: far above any merge's skew between
 # ranks, far below the collectives' timeout
@@ -64,13 +68,13 @@ def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = load_kernel_library("ring.cu")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    lib.gwa_allreduce.argtypes = [i32, i32, i64, vp, vp, vp]
+    lib.gwa_allreduce.argtypes = [i32, i32, i64, PTRS, PTRS, vp, i32, i32, vp]
     lib.gwa_allreduce_wait.argtypes = [i32, i64, i32, i32, vp, vp, vp, vp, i32,
-                                       ctypes.c_longlong, i32, vp]
+                                       ctypes.c_longlong, i32, vp, vp]
     lib.gwa_allreduce_wait_blocks.argtypes = [i64]
-    lib.gwa_fused_words.argtypes = [i32, i64, vp, vp]
+    lib.gwa_fused_words.argtypes = [i32, i64, vp, vp, vp, vp, vp, vp, vp]
     lib.gwa_fused_occ.argtypes = [
-        i32, i32, i32, i64, PTRS, PTRS, vp, vp, ctypes.c_uint32, i32, vp, vp, vp, vp,
+        i32, i32, i32, i64, vp, vp, vp, vp, vp, ctypes.c_uint32, i32, i32, vp, vp, vp, vp,
     ]
     for fn in (lib.gwa_allreduce, lib.gwa_allreduce_wait, lib.gwa_allreduce_wait_blocks,
                lib.gwa_fused_words, lib.gwa_fused_occ):
@@ -79,8 +83,12 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_shards(S: int) -> None:
-    if not 1 <= S <= MAX_SHARDS:
-        raise ValueError(f"{S} shards: the ring kernels take 1..{MAX_SHARDS}")
+    if S < 1:
+        raise ValueError(f"{S} shards: the ring kernels take one or more")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _stream() -> int:
@@ -115,10 +123,6 @@ def _sum_io(parts, only, name):
     return ins, out, outs, _DTYPES[dtype]
 
 
-def _out_ptrs(outs) -> ctypes.Array:
-    return (ctypes.c_uint64 * len(outs))(*[0 if t is None else t.data_ptr() for t in outs])
-
-
 def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
     """All-reduce over the shards of a CUDA tensor ``(S, ...)`` int32 or
     float32, or of S such ``(...)`` tensors, each its own allocation (the
@@ -132,9 +136,14 @@ def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
     n = ins[0].numel()
     if n == 0:
         return out
-    with torch.cuda.device(out.device):
-        rc = _library().gwa_allreduce(code, len(ins), n, shard_ptrs(ins), _out_ptrs(outs),
-                                      _stream())
+    in_ptrs = shard_ptrs(ins)
+    out_ptrs = (ctypes.c_uint64 * len(outs))(*[0 if t is None else t.data_ptr() for t in outs])
+    aligned = not any(a % 16 for a in (*in_ptrs, *out_ptrs))
+    dev = out.device
+    with torch.cuda.device(dev):
+        in_table = None if stacked(ins) else address_table(dev, list(in_ptrs))
+        rc = _library().gwa_allreduce(code, len(ins), n, in_ptrs, out_ptrs, _ptr(in_table),
+                                      int(aligned), -1 if only is None else only, _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_allreduce launch failed ({len(ins)} shards): CUDA error {rc}")
     ring_allreduce_cuda.launches += 1
@@ -164,8 +173,8 @@ class FlagWait:
                  timeout_s: float = FLAG_TIMEOUT_S):
         name = "the flag-wait merge"
         ranks = len(flags)
-        if not 1 <= ranks <= MAX_SHARDS or not 0 <= me < ranks:
-            raise ValueError(f"{name}: rank {me} of {ranks} (1..{MAX_SHARDS} ranks)")
+        if ranks < 1 or not 0 <= me < ranks:
+            raise ValueError(f"{name}: rank {me} of {ranks}")
         boxes = [list(slot) for slot in inboxes]
         first = boxes[0][0] if boxes and boxes[0] else None
         if first is None or first.dim() < 1 or first.shape[0] != ranks:
@@ -196,22 +205,27 @@ class FlagWait:
             raise ValueError(f"{name} needs its tensors on one CUDA device (the inboxes and "
                              "flags of other cards mapped on it)")
         self.outs = [torch.empty(shape[1:], dtype=first.dtype, device=dev) for _ in boxes]
-        self.keep = (boxes, list(flags), error)  # the pointers stay valid
         self.n = first[0].numel()
         lib = _library()
+        flag_ptrs = shard_ptrs(flags)
         with torch.cuda.device(dev):
             stream = _stream()
-        flag_ptrs = shard_ptrs(flags)
+            # each slot's inbox and flag addresses on the card (read past 16 ranks)
+            tables = [address_table(dev, [*shard_ptrs(slot), *flag_ptrs]) for slot in boxes]
         self._calls = [
             (_DTYPES[first.dtype], self.n, ranks, me, shard_ptrs(slot), flag_ptrs,
              out.data_ptr(), error.data_ptr()) for slot, out in zip(boxes, self.outs)]
-        self._tail = (int(timeout_s * 1e9), dev.index, stream)
+        self._tables = [_ptr(t) for t in tables]
+        self.keep = (boxes, list(flags), error, tables)  # the pointers stay valid
+        self._tail = (int(timeout_s * 1e9), dev.index)
+        self._stream = stream
         self._launch = lib.gwa_allreduce_wait
 
     def __call__(self, slot: int, epoch: int) -> torch.Tensor:
         if not 1 <= epoch < POISON:
             raise ValueError(f"the flag-wait merge: epoch {epoch} outside 1..{POISON - 1}")
-        rc = self._launch(*self._calls[slot], epoch, *self._tail)
+        rc = self._launch(*self._calls[slot], epoch, *self._tail, self._tables[slot],
+                          self._stream)
         if rc != 0:
             raise RuntimeError(f"gwa_allreduce_wait launch failed ({self._calls[slot][2]} ranks): "
                                f"CUDA error {rc}")
@@ -288,11 +302,8 @@ def fused_rank_ring_cuda(
     n = codes[0].numel()
     if n == 0:
         return out
-    ptrs = (ctypes.c_uint64 * (6 * S))(
-        *[t[d].data_ptr() for d in range(S) for t in (*ts, out)]
-    )
     with torch.cuda.device(words.device):
-        rc = _library().gwa_fused_words(S, n, ptrs, _stream())
+        rc = _library().gwa_fused_words(S, n, *[t.data_ptr() for t in (*ts, out)], _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_fused_words launch failed ({S} shards): CUDA error {rc}")
     fused_rank_ring_cuda.launches += 1
@@ -344,9 +355,10 @@ def fused_occ_cuda(
     if n == 0:
         return out
     with torch.cuda.device(codes.device):
-        rc = _library().gwa_fused_occ(S, R, int(primary), n, shard_ptrs(bwt), shard_ptrs(cp),
-                                      pk_start.data_ptr(), pk_end.data_ptr(),
-                                      *owner_divisor((R - 1) * 128), codes.data_ptr(),
+        table, facts = sharded_args(codes.device, (bwt, cp), (pk_start, pk_end))
+        rc = _library().gwa_fused_occ(S, R, int(primary), n, bwt[0].data_ptr(), cp[0].data_ptr(),
+                                      table, pk_start.data_ptr(), pk_end.data_ptr(),
+                                      *owner_divisor((R - 1) * 128), facts, codes.data_ptr(),
                                       k.data_ptr(), out.data_ptr(), _stream())
     if rc != 0:
         raise RuntimeError(f"gwa_fused_occ launch failed ({S} shards): CUDA error {rc}")

@@ -5,10 +5,12 @@ The kernel replaces the JAX package's device loops of
 forward staircase :215, the left narrowing :235 and ``_compact_pool``
 :43): one group of lanes a (piece, read) pool, the whole search in one
 launch, up to and including each pool's compaction to ``keep`` slots, lanes
-only on live slots.  ``staircase_pools_cuda`` is equal to
+only on live slots, any ``n_slots``.  ``staircase_pools_cuda`` is equal to
 ``models.staircase.staircase_pools_plain`` on every output.  The binding
 picks the lanes a pool from the pool count, ``n_slots`` and
-``narrow_left`` (``lanes_for``).
+``narrow_left`` (``lanes_for``; the entry takes more where a warp's pools
+outgrow a block's shared memory), and allocates global scratch for pools
+that outgrow it even at a warp a pool (``gwa_staircase_scratch_ints``).
 
 ``ops._cuda_build`` compiles the source at first use with ``nvcc`` for
 ``sm_90a`` into the gitignored ``_build/`` directory; without ``nvcc``, or
@@ -27,7 +29,6 @@ from ._cuda_build import load_kernel_library
 from .fm_search_cuda import MAX_PIECES, check_reads, check_table, group_lanes, sm_count, stream
 
 I32 = torch.int32
-MAX_SLOTS = 64
 
 
 @functools.cache
@@ -37,18 +38,21 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.gwa_staircase.argtypes = [
         vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, i32, vp, vp, i32, i32,
-        vp, vp, vp, i32, vp,
+        vp, vp, vp, i32, vp, ctypes.c_int64, vp,
     ]
     lib.gwa_staircase.restype = ctypes.c_int
+    lib.gwa_staircase_scratch_ints.argtypes = [i32, i32, ctypes.c_int64]
+    lib.gwa_staircase_scratch_ints.restype = ctypes.c_int64
     return lib
 
 
 def lanes_for(pools: int, n_slots: int, narrow_left: bool, dev: torch.device) -> int:
     """Lanes a pool: a whole warp under ``narrow_left`` (rank-major
-    placement sees a step's parents in one pass; a warp takes two slots a
+    placement counts a step's parents by ballot; a warp takes two slots a
     lane past 32); else enough for a pool's slots in one pass while the
     launch fits ``group_lanes``' lanes an SM, fewer as the pools grow, down
-    to one."""
+    to one (the kernel's entry takes more where a warp's pools outgrow a
+    block's shared memory)."""
     if narrow_left:
         return 32
     return group_lanes(pools, 1, min(32, 1 << (n_slots - 1).bit_length()), sm_count(dev))
@@ -74,8 +78,8 @@ def staircase_pools_cuda(
     P = k + 1
     if not 1 <= P <= MAX_PIECES:
         raise ValueError(f"{name}: k={k}: the kernel takes 0 <= k < {MAX_PIECES}")
-    if not 1 <= n_slots <= MAX_SLOTS:
-        raise ValueError(f"{name}: n_slots={n_slots}: the kernel takes 1..{MAX_SLOTS}")
+    if n_slots < 1:
+        raise ValueError(f"{name}: n_slots={n_slots}: the kernel takes one or more")
     if keep < 0:
         raise ValueError(f"{name}: keep={keep} must be >= 0")
     check_reads(reads, lengths, name)
@@ -90,14 +94,17 @@ def staircase_pools_cuda(
     overflow = torch.empty((P, B), dtype=torch.bool, device=dev)
     if B == 0:
         return lo, hi, overflow
+    lanes = lanes_for(P * B, n_slots, narrow_left, dev)
     with torch.cuda.device(dev):
+        n_scratch = _library().gwa_staircase_scratch_ints(lanes, n_slots, P * B)
+        scratch = torch.empty(n_scratch, dtype=I32, device=dev) if n_scratch else None
         rc = _library().gwa_staircase(
             reads.data_ptr(), lengths.data_ptr(), B, L, P, k, n_slots, keep,
             max(spine_steps, 0), max(fwd_steps, 0), max(bwd_steps, 0), int(narrow_left),
             bi.fwd.blocks.data_ptr(), bi.fwd.C.data_ptr(), bi.fwd.primary,
             bi.rev.blocks.data_ptr(), bi.rev.C.data_ptr(), bi.rev.primary, bi.fwd.n,
-            lo.data_ptr(), hi.data_ptr(), overflow.data_ptr(),
-            lanes_for(P * B, n_slots, narrow_left, dev), stream(),
+            lo.data_ptr(), hi.data_ptr(), overflow.data_ptr(), lanes,
+            None if scratch is None else scratch.data_ptr(), n_scratch, stream(),
         )
     if rc != 0:
         raise RuntimeError(f"gwa_staircase launch failed: CUDA error {rc}")

@@ -6,10 +6,12 @@ locate`` its phase [19] without the edges and the S sweep (the locate and
 the sharded locate at their five path shapes and on subsets of [7]'s rows;
 the SASS of their loops; the sharded piece search at [11]) and its phase
 [9] (the shard sums and the fused table entry, which reads the shard
-tables through the same owner lookup), from several checkouts in turn, on
-one card.
+tables through the same owner lookup) and the first part of its phase [20]
+(the flag-wait sum, the ranks emulated on one card), from several
+checkouts in turn, on one card.
 
-    python3 scripts/fm_kernels_ab.py [--phase modes|locate] [--smoke DIR] DIR [DIR ...]
+    python3 scripts/fm_kernels_ab.py [--phase modes|locate] [--smoke DIR] [--old-limits]
+        DIR [DIR ...]
 
 Each DIR is a checkout of the repository (``git archive <commit>``
 unpacked).  The runs go in the order given (parent, change, change,
@@ -24,10 +26,12 @@ the phase's lines and then one JSON line, ``{"dir": ..., "kernels":
 {entry: {"ms": ..., "plain_ms": ..., ...}}}`` for [18], ``{"dir": ...,
 "launches": {mode: {kernel: n}}}`` for [13], ``{"dir": ..., "locate":
 {case: {"ms": ..., ...}, "sweep": ..., "sass": ...}, "rings": {"table":
-[ms, ...], ...}}`` for [19] and [9]; the script exits non-zero when a run
-fails.  A locate binding from before the persistent grid (one thread a
-row, no ``launch_shape``) is given the grid it launches, so ``--smoke``
-with the newer checkout drives both.
+[ms, ...], ...}, "flag_wait": {"ms": ...}}`` for [19], [9] and [20]; the
+script exits non-zero when a run fails.  A locate binding from before the
+persistent grid (one thread a row, no ``launch_shape``) is given the grid
+it launches, so ``--smoke`` with the newer checkout drives both.  ``--old-limits`` leaves out the
+smoke's checks past 16 shards and 64 slots in every run (its
+``PAST_OLD_LIMITS``), for a checkout whose kernels stop there.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ CHILD = """
 import importlib.util, json, sys
 from pathlib import Path
 import torch
-root, cache, smoke, phase = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
+root, cache, smoke, phase, old = sys.argv[1:6]
 sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("chip_smoke", Path(smoke) / "chip_smoke.py")
 s = importlib.util.module_from_spec(spec)
@@ -50,6 +54,7 @@ import genome_weaver_align_tpu_torch as port
 from genome_weaver_align_tpu_torch.utils.simulate import random_genome, repeat_genome
 print(f"package {Path(port.__file__).parent}, smoke {smoke}/chip_smoke.py", flush=True)
 s.CACHE = Path(cache)
+s.PAST_OLD_LIMITS = old != "old-limits"
 s.MAX_SM_HZ = s.max_sm_hz()
 s.INT_OPS_PER_S = s.int_ops_per_s(torch, s.MAX_SM_HZ)
 codes = random_genome(s.GENOME_LEN, seed=s.GENOME_SEED)
@@ -73,6 +78,8 @@ elif phase == "locate":  # the kernels built first, as the smoke's [2] builds th
     out = {"locate": s.phase_locate(torch, dev, codes, rep, s.card_line(), edges=False)}
     fwd = load_index(s.build_index(cli, codes)[0]).fwd
     out["rings"] = s.phase_rings(torch, dev, fwd, s.card_line())[1]
+    w = s.phase_flag_wait(torch, s.card_line())  # the flag-wait sum, ranks emulated
+    out["flag_wait"] = {"ms": w["ms"], **{P: v["ms"] for P, v in w["wide"].items()}}
 else:
     rep = repeat_genome(s.GENOME_LEN, seed=s.REPEAT_SEED)
     out = {"kernels": s.phase_fm_kernels(torch, torch.device("cuda", 0), codes, rep,
@@ -82,8 +89,12 @@ print(json.dumps({"dir": root, "smoke": smoke, **out}, default=str), flush=True)
 
 
 def main(argv: list[str]) -> int:
-    smoke, phase = None, "fm_kernels"
-    while argv[:1] in (["--smoke"], ["--phase"]) and len(argv) > 1:
+    smoke, phase, old = None, "fm_kernels", "new-limits"
+    while argv[:1] in (["--smoke"], ["--phase"], ["--old-limits"]) and len(argv) > 1:
+        if argv[0] == "--old-limits":
+            old = "old-limits"
+            argv = argv[1:]
+            continue
         if argv[0] == "--smoke":
             smoke = Path(argv[1]).resolve()
         elif argv[1] in ("fm_kernels", "modes", "locate"):
@@ -102,7 +113,7 @@ def main(argv: list[str]) -> int:
         print(f"=== run {i + 1} of {len(dirs)}: {d}", flush=True)
         env = dict(os.environ, PYTHONPATH=str(d))
         rc = subprocess.run([sys.executable, "-c", CHILD, str(d), str(cache), str(smoke or d),
-                             phase],
+                             phase, old],
                             cwd=d, env=env).returncode
         if rc != 0:
             print(f"fm_kernels_ab: run {i + 1} ({d}) exited {rc}", file=sys.stderr)

@@ -3,8 +3,9 @@
 in turn, on one card: the banded DP's text entry at the verify shape
 (65,536 reads x 6 lanes of 100 bases, k = 2, W = 106: ``chip_smoke.py``'s
 ``text_lanes``) and at the long-read segment shape (8,192 lanes of 128
-bases, kb = 16: ``segment_lanes``), and the Myers text entry at the
-rescue shape (2,048 lanes of 100 bases, W = 500: ``myers_text_lanes``).
+bases, kb = 16: ``segment_lanes``; and at every band of the smoke's
+``WIDE_KS``, k = 17-127, the group kernel), and the Myers text entry at
+the rescue shape (2,048 lanes of 100 bases, W = 500: ``myers_text_lanes``).
 
     python3 scripts/verify_kernels_ab.py --smoke DIR DIR [DIR ...]
 
@@ -61,6 +62,13 @@ starts, reads, lengths, rid, W = s.segment_lanes(torch, dev, codes, gen, s.LONG_
 b = (words, n, starts, reads, lengths, rid, s.LONG_KB, W)
 ms["banded text, kb = 16, 8,192 segments"] = twice(
     lambda: dp_cuda.banded_edit_distance_text_cuda(*b))
+for k in s.WIDE_KS:
+    starts, reads, lengths, rid, W = s.segment_lanes(torch, dev, codes, gen, k,
+                                                     s.LONG_B * (s.LONG_L // s.LONG_SEG),
+                                                     s.LONG_SEG)
+    g = (words, n, starts, reads, lengths, rid, k, W)
+    ms[f"banded text, k = {k}, 8,192 segments"] = twice(
+        lambda: dp_cuda.banded_edit_distance_text_cuda(*g))
 W = s.L + 400
 starts, reads, lengths, rid, valid = s.myers_text_lanes(torch, codes, s.RESCUE_LANES, s.L, W,
                                                         gen, "identity")

@@ -102,9 +102,10 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         dp_cuda.banded_edit_distance_text_cuda(words, 100, starts.long(), r, ln, starts, 2, 16)
 
 
-@pytest.mark.parametrize("k,L", [(0, 77), (16, 77), (17, 77), (24, 128), (32, 128), (64, 128),
-                                 (127, 60), (128, 60), (200, 40), (2, 1815), (2, 1816),
-                                 (2, 7231), (2, 7232), (17, 3000)])
+@pytest.mark.parametrize("k,L", [(0, 77), (16, 77), (17, 77), (20, 77), (24, 128), (31, 77),
+                                 (32, 128), (48, 128), (64, 128), (96, 60), (127, 60), (128, 60),
+                                 (200, 40), (2, 1815), (2, 1816), (2, 7231), (2, 7232),
+                                 (17, 3000), (24, 2000)])
 def test_kernel_designs_equal_plain(cuda, k, L):
     """Both entries on each side of the kernel's design edges: one thread
     a lane up to k = 16 (and k = 0, a band of one slot), a group of 8-32
@@ -130,6 +131,34 @@ def test_kernel_designs_equal_plain(cuda, k, L):
         got = dp_cuda.banded_edit_distance_cuda(r, ln, wins, k)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
+
+
+@pytest.mark.parametrize("k", [17, 20, 24, 31, 32, 48, 64, 96, 127])
+def test_group_kernel_at_the_window_edges_equals_plain(cuda, k):
+    """The group kernel (no row checks the window's bounds) at its edges,
+    both entries: the verify window, a narrow window (W = 16: long reads
+    end with no candidate in the band) and W = 1, lengths past the read
+    rows, negative read and window bytes (equal ones match), starts off
+    both text ends."""
+    L = 70
+    for W in (L + 3 * k, 16, 1):
+        Q = 601
+        words, n, starts, reads, lengths, rid = (
+            torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in _text_inputs(k, W, 3 * k + W, Q=Q, B=100, L=L))
+        lengths[::13] = L + 5
+        reads[::7, ::5] = -1
+        want = dp.banded_edit_distance_text_plain(words, n, starts, reads, lengths, rid, k, W)
+        got = dp_cuda.banded_edit_distance_text_cuda(words, n, starts, reads, lengths, rid, k, W)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), W
+        r, ln = reads[rid.long()].contiguous(), lengths[rid.long()].contiguous()
+        wins = window.gather_windows(words, n, starts, W)
+        wins[::5, ::3] = -1
+        want = dp.banded_edit_distance(r, ln, wins, k)
+        got = dp_cuda.banded_edit_distance_cuda(r, ln, wins, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), W
 
 
 def _text_inputs(k, W, seed, Q=3001, B=500, L=77, n=20_000):
@@ -489,6 +518,27 @@ def test_ring_allreduce_equals_plain(cuda, S):
     assert ring_cuda.ring_allreduce_cuda.launches == before + 1
 
 
+@pytest.mark.parametrize("S", [17, 32, 64, 1024])
+def test_ring_allreduce_past_16_shards_equals_plain(cuda, S):
+    """Past 16 shards: stacked shards and shards in their own allocations
+    (the addresses from a device table), every output or one (``only``),
+    int32 and float32 bit for bit in the ring's order."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    for n in (1, 3, 777, 4099):
+        x = torch.randint(-(1 << 30), 1 << 30, (S, n), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        xf = torch.randn((S, n), generator=gen, device=cuda) * 1e4
+        for t in (x, xf):
+            want = ring.ring_psum_plain(t)
+            before = ring_cuda.ring_allreduce_cuda.launches
+            assert torch.equal(ring_cuda.ring_allreduce_cuda(t), want), (n, t.dtype)
+            assert ring_cuda.ring_allreduce_cuda.launches == before + 1
+            apart = [u.clone() for u in t]
+            assert torch.equal(ring_cuda.ring_allreduce_cuda(apart), want), (n, t.dtype)
+            for d in (0, S // 2, S - 1):
+                assert torch.equal(ring.ring_psum(apart, only=d), want[d]), (n, t.dtype, d)
+
+
 def test_ring_rejects_what_it_cannot_take(cuda):
     for dtype in (torch.int64, torch.float16, torch.int8):
         with pytest.raises(TypeError, match="int32 or float32"):
@@ -496,10 +546,10 @@ def test_ring_rejects_what_it_cannot_take(cuda):
         with pytest.raises(TypeError, match="int32 or float32"):
             ring.ring_psum(torch.zeros((2, 8), dtype=dtype, device=cuda))
     with pytest.raises(ValueError, match="shards"):
-        ring_cuda.ring_allreduce_cuda(torch.zeros((17, 8), dtype=torch.int32, device=cuda))
-    z = torch.zeros((17, 2, 5), dtype=torch.int32, device=cuda)
+        ring_cuda.ring_allreduce_cuda(torch.zeros((0, 8), dtype=torch.int32, device=cuda))
+    z = torch.zeros((0, 2, 5), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shards"):
-        ring_cuda.fused_rank_ring_cuda(torch.zeros((17, 2, 5, 8), dtype=torch.int32, device=cuda),
+        ring_cuda.fused_rank_ring_cuda(torch.zeros((0, 2, 5, 8), dtype=torch.int32, device=cuda),
                                        z, z, z, z)
     s = torch.zeros(2, dtype=torch.int32, device=cuda)
     q = torch.zeros(5, dtype=torch.int32, device=cuda)
@@ -537,12 +587,12 @@ def ring_fm():
     return build_fm_index(rng.integers(0, 4, size=200_000, dtype=np.uint8), sample_rate=8)
 
 
-@pytest.mark.parametrize("S", range(1, 17))
+@pytest.mark.parametrize("S", [*range(1, 17), 17, 32, 64])
 def test_fused_rank_ring_equals_plain(cuda, ring_fm, S):
     """The words entry: one pass, any M, against the plain rank + ring sum
-    and the index's own occ."""
+    and the index's own occ, to 64 shards."""
     fm = ring_fm
-    for M in range(1, 10):
+    for M in (range(1, 10) if S <= 16 else (1, 2, 9)):
         for Q in ((96, 65_536) if M in (2, 9) else (96,)):
             ins = _sharded_rows(fm, S, M, Q, Q + S + M)
             plain = ring.fused_rank_ring_plain(*ins[:5])
@@ -556,15 +606,17 @@ def test_fused_rank_ring_equals_plain(cuda, ring_fm, S):
                 assert np.array_equal(got[0, m, :50].cpu().numpy(), want.reshape(-1))
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16, 17, 32, 64, 128, 1024])
 def test_fused_occ_equals_plain(cuda, ring_fm, S):
     """The table entry: rows read from the shard tables on the card against
     ``fused_occ_plain`` and the single-device rank, every coordinate."""
     fm = ring_fm
     sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, S), cuda)
     rng = np.random.default_rng(S)
-    k = torch.arange(fm.n + 2, dtype=torch.int32, device=cuda)
-    c = torch.from_numpy(rng.integers(0, 4, size=fm.n + 2).astype(np.int32)).to(cuda)
+    # every coordinate; past 64 shards every 29th (the plain version's
+    # (S, 2, queries) partials must fit the card)
+    k = torch.arange(0, fm.n + 2, 1 if S <= 64 else 29, dtype=torch.int32, device=cuda)
+    c = torch.from_numpy(rng.integers(0, 4, size=k.numel()).astype(np.int32)).to(cuda)
     before = ring_cuda.fused_occ_cuda.launches
     got = sharded_index.fused_occ(sh, torch.stack([c, 3 - c]), torch.stack([k, k.flip(0)]))
     assert ring_cuda.fused_occ_cuda.launches == before + 1
@@ -573,7 +625,7 @@ def test_fused_occ_equals_plain(cuda, ring_fm, S):
     assert torch.equal(got[0], rank.occ_codes(rank.from_host(fm, cuda), c, k))
 
 
-@pytest.mark.parametrize("S", range(2, 17))
+@pytest.mark.parametrize("S", [*range(2, 17), 34, 64])
 def test_fused_occ_on_held_shards_equals_plain(cuda, ring_fm, S):
     """The table entry over the shards one process of a collective interval
     group holds (uploaded alone, ``held_index``; for every g dividing S, so
@@ -605,8 +657,9 @@ def test_fused_occ_on_held_shards_equals_plain(cuda, ring_fm, S):
         assert torch.equal(total, whole), g
 
 
+@pytest.mark.parametrize("S", [4, 32])
 @pytest.mark.parametrize("overlap", ["a block", "the whole range"])
-def test_fused_occ_on_overlapping_bounds_sums_every_owner(cuda, ring_fm, overlap):
+def test_fused_occ_on_overlapping_bounds_sums_every_owner(cuda, ring_fm, overlap, S):
     """Packed bounds that overlap (each of the first three shards reaching
     100 coordinates into the next, or the first shard's range covering
     every coordinate): the table entry sums every owner's count, as
@@ -614,7 +667,7 @@ def test_fused_occ_on_overlapping_bounds_sums_every_owner(cuda, ring_fm, overlap
     import dataclasses
 
     fm = ring_fm
-    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, 4), cuda)
+    sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fm, S), cuda)
     pk_end = sh.pk_end.clone()
     if overlap == "a block":
         pk_end[:3] = (pk_end[:3] + 100).clamp(max=fm.n + 1)
@@ -1024,6 +1077,7 @@ STAIRCASE_CARD_CASES = [
     dict(k=2), dict(k=1), dict(k=2, n_slots=1), dict(k=2, n_slots=64), dict(k=2, keep=1),
     dict(k=3, narrow_left=True), dict(k=2, n_slots=64, narrow_left=True),
     dict(k=2, n_slots=2, narrow_left=True, keep=3), dict(k=2, max_len=20),
+    dict(k=2, n_slots=65), dict(k=3, n_slots=128, narrow_left=True),
 ]
 
 
@@ -1052,7 +1106,7 @@ def test_staircase_kernel_equals_plain(cuda, kw):
     assert all(torch.equal(a, b) for a, b in zip(cands, plain))
 
 
-@pytest.mark.parametrize("n_slots", [1, 4, 48, 64])
+@pytest.mark.parametrize("n_slots", [1, 4, 48, 64, 65, 128])
 @pytest.mark.parametrize("max_len", [None, 7])
 def test_one_mismatch_kernel_equals_plain(cuda, n_slots, max_len):
     """cand_lo, cand_hi (dead slots' stale intervals included) and
@@ -1111,7 +1165,9 @@ def _fm_bi(cuda, codes):
 
 @pytest.mark.parametrize("n_slots, narrow, lanes", [
     (n_slots, narrow, lanes) for n_slots in (1, 8, 16, 17, 32, 33, 64) for narrow in (False, True)
-    for lanes in ((32,) if narrow else (1, 2, 4, 8, 32))])
+    for lanes in ((32,) if narrow else (1, 2, 4, 8, 32))] + [
+    (n_slots, narrow, None) for n_slots in (65, 96, 128, 256, 1024) for narrow in (False, True)]
+    + [(n_slots, False, lanes) for n_slots in (128, 1024) for lanes in (1, 4)])
 def test_staircase_kernel_at_slot_counts_and_group_sizes(cuda, n_slots, narrow, lanes):
     """301 reads (903 pools: no multiple of the pools a block holds at any
     group size) on the repeat genome, every field against the plain loop; a
@@ -1157,7 +1213,7 @@ def test_fm_kernels_where_pools_of_one_warp_die_at_different_steps(cuda, lanes):
 
 
 @pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32])
-@pytest.mark.parametrize("n_slots", [48, 9, 64])
+@pytest.mark.parametrize("n_slots", [48, 9, 64, 65, 128, 1024])
 def test_one_mismatch_kernel_with_many_dead_chains(cuda, lanes, n_slots):
     """A 7 bp repeat: spawned branches die at different places, so a
     read's dead slots hold several distinct lo values (five or more in some
@@ -1175,6 +1231,31 @@ def test_one_mismatch_kernel_with_many_dead_chains(cuda, lanes, n_slots):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int((want[1] > want[0]).sum()) > 0
+
+
+def test_fm_kernels_with_pools_in_global_scratch(cuda):
+    """Pools past a block's shared memory at a warp a pool (8,192
+    staircase slots, both orders; 16,384 one-mismatch slots): global
+    scratch; and 1,024 one-mismatch slots asked at 1 lane a case (the
+    entry doubles the lanes until a warp's groups fit): every field
+    against the plain loop."""
+    from genome_weaver_align_tpu_torch.models import one_mismatch, staircase
+
+    codes = fm_models.genome_codes(40)
+    bi = _fm_bi(cuda, codes)
+    r, ln = (t.to(cuda) for t in _fm_reads(codes, 43, B=31))
+    for narrow in (False, True):
+        assert staircase_cuda._library().gwa_staircase_scratch_ints(32, 8192, 93) > 0
+        got = staircase.staircase_pools(bi, r, ln, 2, n_slots=8192, narrow_left=narrow)
+        want = staircase.staircase_pools_plain(bi, r, ln, 2, n_slots=8192, narrow_left=narrow)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), narrow
+    for n_slots, lanes in ((16_384, None), (1024, 1)):
+        with _lanes(one_mismatch_cuda, lanes):
+            got = one_mismatch.one_mismatch_candidates(bi, r, ln, None, n_slots)
+        want = one_mismatch.one_mismatch_candidates_plain(bi, r, ln, None, n_slots)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), n_slots
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
@@ -1207,8 +1288,10 @@ def test_fm_kernels_reject_what_they_cannot_take(cuda):
             rank.DeviceFMIndex(shifted, *[getattr(bi.fwd, f) for f in
                                           ("C", "primary", "mark_blocks", "mark_cp",
                                            "ssa_values", "n", "sample_rate")]), r, ln, 1, 5)
-    with pytest.raises(ValueError, match="n_slots=65"):
-        staircase_cuda.staircase_pools_cuda(bi, r, ln, 2, 65, 8, 7, 14, 14, False)
+    with pytest.raises(ValueError, match="n_slots=0"):
+        staircase_cuda.staircase_pools_cuda(bi, r, ln, 2, 0, 8, 7, 14, 14, False)
+    with pytest.raises(ValueError, match="n_slots=0"):
+        one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r, ln, 5, 0)
     with pytest.raises(ValueError, match="contiguous"):
         one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r.t().contiguous().t(), ln, 5, 48)
     with pytest.raises(ValueError, match="int32"):
@@ -1257,7 +1340,7 @@ def test_locate_kernel_equals_plain_on_every_row(cuda, rate):
     assert locate_cuda.locate_cuda.launches == before
 
 
-@pytest.mark.parametrize("S", range(1, 17))
+@pytest.mark.parametrize("S", [*range(1, 17), 17, 32, 64, 128, 1024])
 def test_sharded_locate_kernel_equals_plain_on_every_row(cuda, S):
     """The sharded ``locate`` on the card launches the kernel once and
     equals its plain loop (with the sum and the ring merges), and the
@@ -1321,10 +1404,11 @@ def test_locate_kernels_on_rows_repeated_across_a_warp(cuda, sharded):
 
 # block cuts of the packed and the row coordinates (tests/test_torch_locate.py)
 UNEQUAL = [([0, 3, 4, 16, 30], [0, 9, 10, 11, 30]), ([0, 1, 30], [0, 20, 28]),
-           ([0, 5, 5, 9, 12, 30], [0, 2, 2, 17, 18, 30])]
+           ([0, 5, 5, 9, 12, 30], [0, 2, 2, 17, 18, 30]),
+           (fm_models.unequal_cuts(32, 30, 5), fm_models.unequal_cuts(32, 30, 6))]
 
 
-@pytest.mark.parametrize("cuts", UNEQUAL, ids=["S4", "S2", "S5-empty"])
+@pytest.mark.parametrize("cuts", UNEQUAL, ids=["S4", "S2", "S5-empty", "S32"])
 def test_sharded_kernels_on_unequal_bounds(cuda, cuts):
     """Hand-made unequal shard bounds (the owner guess misses: each owner
     comes from the scan): the sharded locate, the sharded piece search and
@@ -1366,7 +1450,7 @@ def _own_allocations(sh):
         for f in sharded_index._TABLES})
 
 
-@pytest.mark.parametrize("S,cuts", [(S, None) for S in range(1, 17)] + [
+@pytest.mark.parametrize("S,cuts", [(S, None) for S in (*range(1, 17), 17, 32, 1024)] + [
     (len(c[0]) - 1, c) for c in UNEQUAL])
 def test_sharded_kernels_on_shards_in_their_own_allocations(cuda, S, cuts):
     """The three sharded kernels (locate, piece search, fused table entry)
@@ -1401,7 +1485,7 @@ def test_ring_sum_over_separate_allocations_writes_one_output(cuda):
     mapped slots) with ``only``: shard d's sum, equal to the stacked sum's
     row d, float32 in its ring order."""
     gen = torch.Generator(device=cuda).manual_seed(87)
-    for S in (1, 2, 3, 4, 8, 16):
+    for S in (1, 2, 3, 4, 8, 16, 17, 32):
         for dtype in (torch.int32, torch.float32):
             x = (torch.randint(-(1 << 30), 1 << 30, (S, 2, 777), generator=gen, device=cuda,
                                dtype=torch.int32) if dtype == torch.int32
@@ -1437,7 +1521,7 @@ def test_two_processes_map_each_others_shards_on_the_card(cuda, tmp_path):
         assert all(np.array_equal(got[key], want[key]) for key in want.files)
 
 
-@pytest.mark.parametrize("S", range(1, 17))
+@pytest.mark.parametrize("S", [*range(1, 17), 17, 32, 64, 128, 1024])
 @pytest.mark.parametrize("max_len", [None, 9])
 def test_sharded_piece_search_kernel_equals_plain(cuda, S, max_len):
     """The sharded piece search on the card launches the kernel once and
@@ -1478,12 +1562,12 @@ def test_locate_kernels_reject_what_they_cannot_take(cuda):
         locate_cuda.locate_cuda(
             dataclasses.replace(fm, mark_blocks=shifted.view(fm.mark_blocks.shape)), r)
     sh17 = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 17), cuda)
-    with pytest.raises(ValueError, match="17 shards"):
-        locate_cuda.locate_sharded_cuda(sh17, r)
+    assert torch.equal(locate_cuda.locate_sharded_cuda(sh17, r), rank.locate_plain(fm, r))
     reads = torch.zeros((4, 20), dtype=torch.int32, device=cuda)
     lens = torch.full((4,), 20, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="17 shards"):
-        fm_search_cuda.backward_search_sharded_cuda(sh17, reads, lens, 3, 8)
+    got = sharded_pipeline.sharded_piece_search(sh17, reads, lens, 3, 8)
+    want = sharded_pipeline.sharded_piece_search_plain(sh17, reads, lens, 3, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     sh = sharded_index.put_sharded(sharded_index.shard_fm_index(fwd, 4), "cpu")
     with pytest.raises(ValueError, match="device"):
         locate_cuda.locate_sharded_cuda(sh, r)
@@ -1704,6 +1788,38 @@ def test_flag_wait_blocks_wait_for_their_own_flags(cuda, dtype, n):
             assert int(error) == 1 and bool((flags[1][0] == ring_cuda.POISON).all())
             with pytest.raises(RuntimeError, match="flag wait"):
                 ring_cuda.check_flag_wait(error)
+
+
+@pytest.mark.parametrize("R", [2, 4, 16, 17, 32])
+def test_flag_wait_emulated_ranks_equal_plain(cuda, R):
+    """One card, rank me of R with every peer emulated (the peers' rows
+    already in rank me's inbox, their flag words already published): the
+    merge equals the plain ring sum of the R rows, rank me's row lands in
+    every peer's inbox and its epoch in each of the grid's words; past 16
+    ranks through the device table."""
+    W = ring_cuda.WAIT_BLOCKS
+    n = 4_099 if R % 2 else 65_536
+    G = ring_cuda.wait_blocks(n)
+    gen = torch.Generator(device=cuda).manual_seed(R)
+    for dtype in (torch.int32, torch.float32):
+        x = (torch.randint(-(1 << 30), 1 << 30, (R, n), generator=gen, device=cuda,
+                           dtype=torch.int32) if dtype == torch.int32
+             else torch.randn((R, n), generator=gen, device=cuda) * 1e4)
+        me = R // 2
+        inboxes = [x.clone() if q == me else torch.zeros_like(x) for q in range(R)]
+        flags = [torch.zeros((R, W), dtype=torch.int32, device=cuda) for _ in range(R)]
+        flags[me][:, :G] = 3
+        error = torch.zeros(1, dtype=torch.int32, device=cuda)
+        before = ring_cuda.ring_allreduce_wait_cuda.launches
+        out = ring_cuda.ring_allreduce_wait_cuda(inboxes, flags, me, 3, error, timeout_s=5.0)
+        torch.cuda.synchronize(cuda)
+        assert ring_cuda.ring_allreduce_wait_cuda.launches == before + 1
+        assert int(error) == 0
+        assert torch.equal(out, ring.ring_psum_plain(x)[me]), dtype
+        for q in range(R):
+            if q != me:
+                assert torch.equal(inboxes[q][me], x[me]), q
+                assert bool((flags[q][me, :G] == 3).all()), q
 
 
 def test_wrappers_raise_on_a_shard_on_another_card():

@@ -137,6 +137,8 @@ STAIRCASE_EDGES = [
     dict(k=3, narrow_left=True),
     dict(k=2, n_slots=2, narrow_left=True, keep=3, hits_per_state=2),
     dict(k=2, max_len=20),
+    dict(k=2, n_slots=65),
+    dict(k=2, n_slots=128, narrow_left=True),
 ]
 
 
@@ -152,8 +154,9 @@ def test_staircase_plain_matches_jax_at_edges(genome, kw):
     _eq(got, want)
 
 
-@pytest.mark.parametrize("kw", [dict(n_slots=1), dict(n_slots=64), dict(max_len=7)],
-                         ids=["slots1", "slots64", "max_len7"])
+@pytest.mark.parametrize("kw", [dict(n_slots=1), dict(n_slots=64), dict(max_len=7),
+                                dict(n_slots=65), dict(n_slots=128)],
+                         ids=["slots1", "slots64", "max_len7", "slots65", "slots128"])
 def test_one_mismatch_plain_matches_jax_at_edges(genome, kw):
     reads, lengths = models.edge_reads(genome["codes"], 4, subs=1)
     got = one_mismatch.one_mismatch_candidates_plain(
@@ -219,7 +222,7 @@ def test_staircase_model_matches_plain(genome, kw):
     _eq(want, got)
 
 
-@pytest.mark.parametrize("n_slots", [1, 4, 48, 64])
+@pytest.mark.parametrize("n_slots", [1, 4, 48, 64, 65, 128])
 def test_one_mismatch_model_matches_plain(genome, n_slots):
     reads, lengths = models.edge_reads(genome["codes"], 8, B=8, subs=1)
     want = one_mismatch.one_mismatch_candidates_plain(
@@ -245,6 +248,7 @@ _STAIR_GROUP_INPUTS = [
     ("edge", dict(k=2)), ("edge", dict(k=2, n_slots=1)), ("edge", dict(k=3, narrow_left=True)),
     ("edge", dict(k=2, n_slots=64, narrow_left=True, keep=3)),
     ("chains", dict(k=2, n_slots=17)), ("chains", dict(k=2, n_slots=33, narrow_left=True)),
+    ("chains", dict(k=2, n_slots=96)), ("chains", dict(k=2, n_slots=128, narrow_left=True)),
 ]
 
 
@@ -426,7 +430,7 @@ def test_bindings_refuse_what_the_kernels_cannot_take(genome):
         (lambda: staircase_cuda.staircase_pools_cuda(bi, r, ln, 2, 0, 8, 1, 1, 1, False),
          "n_slots=0"),
         (lambda: staircase_cuda.staircase_pools_cuda(bi, r, ln, 2, 65, 8, 1, 1, 1, False),
-         "n_slots=65"),
+         "CUDA device"),  # 65 slots taken: only the CPU tensors refused
         (lambda: staircase_cuda.staircase_pools_cuda(bi, r, ln, 32, 16, 8, 1, 1, 1, False),
          "k=32"),
         (lambda: staircase_cuda.staircase_pools_cuda(bi, r, ln, 2, 16, -1, 1, 1, 1, False),
@@ -437,7 +441,7 @@ def test_bindings_refuse_what_the_kernels_cannot_take(genome):
          "CUDA device"),
         (lambda: one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r, ln, 5, 0), "n_slots=0"),
         (lambda: one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r, ln, 5, 65),
-         "n_slots=65"),
+         "CUDA device"),  # 65 slots taken: only the CPU tensors refused
         (lambda: one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r, ln.long(), 5, 48),
          "int32"),
         (lambda: one_mismatch_cuda.one_mismatch_candidates_cuda(bi, r, ln, 5, 48),
@@ -466,8 +470,10 @@ def _flag_wait_case(case: str):
     return {
         "rank past the ranks": (lambda: wait(inboxes, flags, P, 1, err), f"rank {P} of {P}"),
         "negative rank": (lambda: wait(inboxes, flags, -1, 1, err), f"rank -1 of {P}"),
+        # 17 ranks are taken (past 16 the kernel reads the addresses from a
+        # device table): only the CPU tensors are refused
         "17 ranks": (lambda: wait([zeros(17, 4)] * 17, [zeros(17, W)] * 17, 0, 1, err),
-                     "rank 0 of 17"),
+                     "CUDA device"),
         "epoch 0": (lambda: wait(inboxes, flags, 0, 0, err), "epoch 0"),
         "epoch at the poison": (lambda: wait(inboxes, flags, 0, ring_cuda.POISON, err),
                                 f"epoch {ring_cuda.POISON}"),
@@ -608,3 +614,23 @@ def test_index_upload_names_its_device(genome):
     with pytest.raises(TypeError):
         rank.from_arrays(*args)
     assert rank.from_arrays(*args, device="cpu").blocks.device == CPU
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_wide_staircase_steps_take_several_passes(chains, narrow):
+    """At 128 slots the chains genome's pools fill (overflow), so a warp's
+    steps run several passes of 64 parents, and a narrowing step two
+    rounds of them: the model equals the plain loop, and the plain loop the
+    JAX search."""
+    g = chains
+    reads, lengths = models.chain_reads(g["codes"], 12, B=8)
+    r, ln = torch.from_numpy(reads), torch.from_numpy(lengths)
+    want = staircase.staircase_pools_plain(g["bi"], r, ln, 2, n_slots=128, narrow_left=narrow)
+    assert bool(want[2].any())  # some pool held more than 128 live slots
+    trips = staircase._trip_counts(reads.shape[1], 2, None)
+    _eq(want, models.staircase_pools(g["bi"], reads, lengths, 2, 128, 8, *trips, narrow))
+    _eq(staircase.staircase_filter_candidates(g["bi"], r, ln, 2, n_slots=128,
+                                              narrow_left=narrow),
+        j_staircase.staircase_filter_candidates(g["jbi"], jnp.asarray(reads),
+                                                jnp.asarray(lengths), 2, n_slots=128,
+                                                narrow_left=narrow))

@@ -375,7 +375,7 @@ def test_held_piece_search_equals_the_stacked_search(S):
         assert grp.merges == [sp._piece_steps(EXACT_L, 3)] * g
 
 
-@pytest.mark.parametrize("S", range(2, 17))
+@pytest.mark.parametrize("S", [*range(2, 17), 34, 64])
 def test_owner_guess_over_held_shards(S):
     """The sharded kernels' owner guess (the model of ``fm_occ.cuh``
     ``owner_of``) over the bounds of every run of consecutive shards a
@@ -390,9 +390,9 @@ def test_owner_guess_over_held_shards(S):
         per = S // g
         for rank in range(g):
             a, b = rank * per, (rank + 1) * per
-            for bounds, (magic, shift), _ in (st.pk_split, st.row_split):
+            for bounds, (magic, shift), *_ in (st.pk_split, st.row_split):
                 held = (bounds[0][a:b], bounds[1][a:b])
-                sp_ = (held, (magic, shift), models.disjoint(held))  # the kernel's divisor
+                sp_ = (held, (magic, shift), *models.facts(held))  # the kernel's divisor
                 base = int(held[0][0])
                 for x in xs:
                     s = models.owner_of(sp_, x)

@@ -145,7 +145,8 @@ def test_locate_model_matches_plain_on_every_row(genome, rate):
     assert (writes == 1).all()
 
 
-@pytest.mark.parametrize("rate, S", [(8, 1), (16, 3), (8, 8), (16, 16)])
+@pytest.mark.parametrize("rate, S", [(8, 1), (16, 3), (8, 8), (16, 16), (8, 17), (16, 32),
+                                     (8, 64)])
 def test_sharded_locate_model_matches_plain_on_every_row(genome, rate, S):
     """Every row 0..n, and row n + 1, which no shard owns in the row
     coordinates (the plain version's sums of zeros)."""
@@ -203,7 +204,7 @@ def _scan_and_guess(sp, xs):
     return ([models.Shards.owner(sp[0], x) for x in xs], [models.owner_of(sp, x) for x in xs])
 
 
-@pytest.mark.parametrize("S", range(1, 17))
+@pytest.mark.parametrize("S", [*range(1, 17), 17, 32, 64, 1024])
 def test_owner_of_equals_the_scan_on_the_equal_split(S):
     """Both splits of ``shard_fm_index`` on a 2,000-base genome (16 blocks
     of 128: from S = 9 on the last shards are empty), every x of [0,
@@ -215,7 +216,7 @@ def test_owner_of_equals_the_scan_on_the_equal_split(S):
     for sp in (st.pk_split, st.row_split):
         scan, guess = _scan_and_guess(sp, xs)
         assert scan == guess
-        bounds, (magic, shift), apart = sp
+        bounds, (magic, shift), apart, _ = sp
         assert apart
         assert all(((x * magic) >> 32) >> shift == s for x, s in zip(xs, scan) if s >= 0)
         assert scan[-1] == -1 and min(scan[:-1]) == 0  # n + 1 has no owner; [0, n] all do
@@ -225,10 +226,11 @@ def test_owner_of_equals_the_scan_on_the_equal_split(S):
 
 # block cuts of the packed and the row coordinates (29 and 28 blocks)
 UNEQUAL = [([0, 3, 4, 16, 30], [0, 9, 10, 11, 30]), ([0, 1, 30], [0, 20, 28]),
-           ([0, 5, 5, 9, 12, 30], [0, 2, 2, 17, 18, 30]), ([0, 30], [0, 30])]
+           ([0, 5, 5, 9, 12, 30], [0, 2, 2, 17, 18, 30]), ([0, 30], [0, 30]),
+           (models.unequal_cuts(32, 30, 5), models.unequal_cuts(32, 30, 6))]
 
 
-@pytest.mark.parametrize("cuts", UNEQUAL, ids=["S4", "S2", "S5-empty", "S1"])
+@pytest.mark.parametrize("cuts", UNEQUAL, ids=["S4", "S2", "S5-empty", "S1", "S32"])
 def test_owner_of_and_the_locates_on_unequal_bounds(genome, cuts):
     """Hand-made unequal splits (an empty shard among them): ``owner_of``
     equals the scan for every coordinate, and the sharded plain locate and
@@ -267,7 +269,7 @@ def test_shard_fm_index_at_its_own_equal_cuts_gives_the_equal_split(genome):
             si.shard_fm_index(fm, S, cuts, [s * mbs for s in range(S + 1)])
 
 
-@pytest.mark.parametrize("S", [1, 3, 16])
+@pytest.mark.parametrize("S", [1, 3, 16, 32, 1024])
 @pytest.mark.parametrize("max_len", [None, 9])
 def test_sharded_piece_search_model_matches_plain(genome, S, max_len):
     reads, lengths = models.edge_reads(genome["codes"], 83)
@@ -348,7 +350,7 @@ def test_locate_bindings_refuse_what_the_kernels_cannot_take(genome):
             dataclasses.replace(pfm, mark_cp=pfm.mark_cp[:-1]), rows), "checkpoints"),
         (lambda: locate_cuda.locate_sharded_cuda(sh, rows), "CUDA device"),
         (lambda: locate_cuda.locate_sharded_cuda(sh, rows.short()), "int32"),
-        (lambda: locate_cuda.locate_sharded_cuda(sh17, rows), "17 shards"),
+        (lambda: locate_cuda.locate_sharded_cuda(sh17, rows), "CUDA device"),  # 17 taken
         (lambda: locate_cuda.locate_sharded_cuda(
             dataclasses.replace(sh, bwt_blocks=shifted(sh.bwt_blocks)), rows), "aligned"),
         (lambda: locate_cuda.locate_sharded_cuda(
@@ -358,7 +360,7 @@ def test_locate_bindings_refuse_what_the_kernels_cannot_take(genome):
         (lambda: locate_cuda.launch_shape(-1, CPU, False), "0 to 2"),
         (lambda: locate_cuda.launch_shape(locate_cuda.MAX_ROWS + 1, CPU, True), "0 to 2"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(sh, r, ln, 3, 8), "CUDA device"),
-        (lambda: fm_search_cuda.backward_search_sharded_cuda(sh17, r, ln, 3, 8), "17 shards"),
+        (lambda: fm_search_cuda.backward_search_sharded_cuda(sh17, r, ln, 3, 8), "CUDA device"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(sh, r.long(), ln, 3, 8), "int32"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(sh, r, ln, 33, 8), "n_pieces=33"),
         (lambda: fm_search_cuda.backward_search_sharded_cuda(

@@ -1,15 +1,20 @@
 """The port's interval-sharded index (``parallel/sharded_index.py``) against
-the JAX package's: the host split array for array, every occ value through
-the sum merge, and the sharded exact search (psum, and the ring and fused
-merges through their plain versions, microbatch 1 and 2) equal to the JAX
-``make_sharded_exact_search`` psum path on the 8-device CPU mesh."""
+the JAX package's: the host split array for array (up to 64 shards), every
+occ value through the sum merge, and the sharded exact search (psum, and
+the ring and fused merges through their plain versions, microbatch 1 and
+2) equal to the JAX ``make_sharded_exact_search`` psum path on the
+8-device CPU mesh, and at 32 shards (more than that mesh holds) to the JAX
+single-device search and locate."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from genome_weaver_align_tpu.index import native as j_native
 from genome_weaver_align_tpu.index.build import build_fm_index
+from genome_weaver_align_tpu.models import exact as j_exact
+from genome_weaver_align_tpu.ops import rank as j_rank
 from genome_weaver_align_tpu.parallel import mesh as j_mesh
 from genome_weaver_align_tpu.parallel import sharded_index as j_si
 from genome_weaver_align_tpu_torch.parallel import mesh as pmesh
@@ -32,7 +37,7 @@ def setup():
     return codes, build_fm_index(codes, sample_rate=16)
 
 
-@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 8, 17, 32, 64])
 def test_shard_fm_index_equals_jax(setup, n_shards):
     _, fm = setup
     want = j_si.shard_fm_index(fm, n_shards)
@@ -90,6 +95,43 @@ def test_sharded_exact_search_matches_jax(setup, n_data, n_interval):
             got = [v.numpy()[:B] for v in fn(sh, r, l)]
             for a, b, name in zip(got, want, ("lo", "hi", "pos")):
                 assert np.array_equal(a, b), (merge, mb, name)
+
+
+def _exact_reads(codes, B, L, seed):
+    rng = np.random.default_rng(seed)
+    reads = np.zeros((B, L), dtype=np.int32)
+    lengths = rng.integers(L - 6, L + 1, size=B).astype(np.int32)
+    for i in range(B):
+        p = int(rng.integers(0, codes.size - L))
+        reads[i] = codes[p : p + L]
+    reads[::5, 3] = (reads[::5, 3] + 1) % 4  # some reads with no exact match
+    lengths[:3] = [0, 1, 2]
+    return reads, lengths
+
+
+@pytest.mark.parametrize("merge", ["psum", "ring", "fused"])
+def test_sharded_exact_search_at_32_shards_matches_jax_single_device(setup, merge):
+    """32 interval shards on one device (the JAX package's CPU mesh of 8
+    devices cannot hold them): the sharded exact search under each merge
+    (its plain versions here) equals the JAX single-device exact search,
+    and its positions the JAX locate of each interval's first row."""
+    codes, fm = setup
+    B, L = 40, 28
+    reads, lengths = _exact_reads(codes, B, L, 3)
+    jfm = j_rank.from_host(fm)
+    jlo, jhi = (np.asarray(v) for v in j_exact.exact_interval_search(
+        jfm, jnp.asarray(reads), jnp.asarray(lengths)))
+    jrows = jnp.clip(jnp.asarray(jlo), 0, fm.n)
+    jpos = np.where(jhi > jlo, np.asarray(j_rank.locate(jfm, jrows)), -1)
+    assert (jhi > jlo).sum() > B // 2
+
+    layout = pmesh.make_layout(1, 32, "cpu")
+    sh = si.put_sharded(si.shard_fm_index(fm, 32), "cpu")
+    r, l, nb = pmesh.shard_reads(layout, reads, lengths)
+    fn = si.make_sharded_exact_search(layout, L, sh, merge=merge)
+    lo, hi, pos = (v.numpy()[:B] for v in fn(sh, r, l))
+    assert np.array_equal(lo, jlo) and np.array_equal(hi, jhi)
+    assert np.array_equal(pos, jpos)
 
 
 def test_ring_merges_reach_the_ring(setup, monkeypatch):

@@ -176,6 +176,33 @@ def cli_files(tmp_path_factory):
 
 
 @pytest.mark.parametrize("seed_table", [False, True])
+def test_cli_32_interval_shards_identical_to_jax_single_device(tmp_path, seed_table):
+    """``align --n-interval 32`` (the sharded aligner's plain versions on
+    the CPU: 32 shards, more than the JAX package's CPU mesh holds) writes
+    the JAX CLI's single-device SAM body byte for byte on a random genome."""
+    from genome_weaver_align_tpu.utils.fasta import write_fasta
+
+    rng = np.random.default_rng(32)
+    write_fasta(tmp_path / "g.fa", [Contig("chrR", rng.integers(0, 4, size=40_000,
+                                                                dtype=np.uint8))])
+    assert port_main(["index", str(tmp_path / "g.fa"), "-o", str(tmp_path / "g.npz"),
+                      "--sample-rate", "8", "--seed", "10"]) == 0
+    assert port_main(["simulate", str(tmp_path / "g.fa"), "-o", str(tmp_path / "r.fq"), "-n",
+                      "200", "-l", "100", "--seed", "4", "--sub-rate", "0.02", "--max-subs",
+                      "2"]) == 0
+    extra = ["--seed-table", str(tmp_path / "g.npz.seed10.npz")] if seed_table else []
+    base = ["align", str(tmp_path / "g.npz"), str(tmp_path / "r.fq"), "-k", "2",
+            "--batch-size", "128", *extra]
+    assert port_main([*base, "--n-interval", "32", "-o", str(tmp_path / "port.sam"),
+                      "--device", "cpu"]) == 0
+    assert jax_main([*base, "-o", str(tmp_path / "jax.sam")]) == 0
+    port = [line for line in (tmp_path / "port.sam").read_text().splitlines() if line[0] != "@"]
+    ref = [line for line in (tmp_path / "jax.sam").read_text().splitlines() if line[0] != "@"]
+    assert port == ref and len(port) == 200
+    assert sum(line.split("\t")[1] != "4" for line in port) > 150  # mapped
+
+
+@pytest.mark.parametrize("seed_table", [False, True])
 def test_cli_n_interval_identical_to_jax(cli_files, seed_table):
     d = cli_files
     extra = ["--seed-table", str(d / "g.npz.seed10.npz")] if seed_table else []

@@ -4,7 +4,7 @@ against the port's plain versions on every lane (tolerance: equal on every
 element, the pipeline is integer): Myers past 8 words (a group of G
 threads, P words each, carry lookahead over ballots) at the shapes the
 binding picks and at the scratch path's (a warp, ceil(nwords / 32) words a
-thread); the banded DP past k = 16 (a group of G threads, 16 slots each,
+thread); the banded DP past k = 16 (a group of G threads, 9..16 slots each,
 the band padded at its bottom) and at the scratch path's (a warp,
 ceil((4k+1) / 32) slots a thread).  A few lanes also against the
 full-matrix host oracle."""
@@ -33,11 +33,16 @@ def myers_shape(nwords):
 
 
 def banded_group(k):
-    """``csrc/banded_dp.cu``'s ``group_for``: threads a lane at 16 slots."""
+    """``csrc/banded_dp.cuh``'s ``group_for`` and its slots a thread: (G, N),
+    G the power of two whose 16-slot threads cover the band, N =
+    ceil((4k + 1) / G)."""
     g = 1
     while g * 16 < 4 * k + 1:
         g *= 2
-    return g
+    return g, -(-(4 * k + 1) // g)
+
+
+GROUP_KS = [17, 20, 24, 31, 32, 48, 64, 96, 127]  # every G and N = 9..16 at its edges
 
 
 def _myers_inputs(Q, L, W, seed):
@@ -106,20 +111,22 @@ def _dp_inputs(k, Q, L, W, seed):
     return reads, lens, wins
 
 
-@pytest.mark.parametrize("k", [17, 24, 32])
+@pytest.mark.parametrize("k", GROUP_KS)
 @pytest.mark.parametrize("narrow", [False, True])
 def test_banded_group_model_equals_plain(k, narrow):
-    """G = 8, 8, 16 threads of 16 slots; the verify window W = L + 3k and a
-    narrow one whose long reads cannot reach its end (dead lanes: garbage
-    above INF, the same in both)."""
+    """G = 8, 16, 32 threads of 9..16 slots; the verify window W = L + 3k
+    and a narrow one whose long reads cannot reach its end (dead lanes, no
+    candidate in the band: INF in both), the window's surroundings read as
+    no-match (the windows entry) and as codes (the text entry's text)."""
     Q = 30
-    L = 3 * k if narrow else 64
+    L = k + 32 if narrow else 64
     W = 16 if narrow else L + 3 * k
     reads, lens, wins = _dp_inputs(k, Q, L, W, 10 * k + narrow)
-    got = models.banded_group(reads, lens, wins, k, banded_group(k), 16)
     want = dp.banded_edit_distance(*(torch.from_numpy(a) for a in (reads, lens, wins)), k)
-    for g, w in zip(got, want):
-        assert np.array_equal(g, w.numpy())
+    for beyond in (None, k):
+        got = models.banded_group(reads, lens, wins, k, *banded_group(k), beyond=beyond)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.numpy())
     assert bool((want[0].numpy() >= dp.INF).any()) == narrow
 
 
@@ -129,13 +136,13 @@ def test_banded_scratch_shape_model_equals_plain(k, G, S):
     thread (k = 128 is where it starts)."""
     Q, L = 12, 48
     reads, lens, wins = _dp_inputs(k, Q, L, L + 3 * k, k)
-    got = models.banded_group(reads, lens, wins, k, G, S)
+    got = models.banded_scratch(reads, lens, wins, k, G, S)
     want = dp.banded_edit_distance(*(torch.from_numpy(a) for a in (reads, lens, wins)), k)
     for g, w in zip(got, want):
         assert np.array_equal(g, w.numpy())
 
 
-@pytest.mark.parametrize("k", [17, 24])
+@pytest.mark.parametrize("k", [17, 24, 48, 96, 127])
 def test_banded_model_against_full_matrix_oracle(k):
     """Where the read lies inside its window (the band holds every
     alignment within k), the banded distance is the full-matrix one."""
@@ -144,7 +151,7 @@ def test_banded_model_against_full_matrix_oracle(k):
     reads, lens, wins = _dp_inputs(k, Q, L, W, 7 * k)
     lens[:] = L
     reads = np.where(reads >= 4, 0, reads).astype(np.int8)
-    got, _ = models.banded_group(reads, lens, wins, k, banded_group(k), 16)
+    got, _ = models.banded_group(reads, lens, wins, k, *banded_group(k), beyond=k)
     for q in range(0, Q, 2):
         want = dp.edit_distance_semiglobal_host(reads[q].astype(np.int64),
                                                 wins[q].astype(np.int64))

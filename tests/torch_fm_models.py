@@ -8,17 +8,20 @@ row split and three-popcount count (code 0 as r less the other three),
 shared by one index and the interval shards through a table accessor
 (the sharded one finds each coordinate's owner and reads that shard's
 split tables, the owner guessed by division and confirmed as
-``fm_occ.cuh`` ``owner_of`` does), ``csrc/locate.cu``'s persistent walk
+``fm_occ.cuh`` ``owner_of`` does: up to 16 shards the bounds checked for
+overlap and scanned, past 16 the bindings' findings on the bounds and a
+bisection where they are in order), ``csrc/locate.cu``'s persistent walk
 (a thread's rows one after another, the next the grid's threads further
 on; mark block and row read together, stop at the first mark; over the
 shards, each step's row and packed owners looked up),
-``csrc/staircase.cu``'s one pool at a time as a group of G lanes (the
-spine in group lane 0, passes of G live slots into the other buffer, the
+``csrc/staircase.cu``'s one pool at a time as a group of G lanes (the spine
+in group lane 0, passes of G live slots into the other buffer, the
 ballot-and-prefix placement; rank-major placement in one pass of a whole
-warp), and ``csrc/one_mismatch.cu``'s one (read, case)
-at a time as a group of G lanes (the work items: spine, live slots and
-case B's distinct dead chains, found by chunks of G; the newly dead staged
-until the live count is known; spawns in code order).  Shared memory the
+warp, or past 64 slots in two rounds of passes, the counts first), and
+``csrc/one_mismatch.cu``'s one (read, case) at a time as a group of G lanes
+(the work items: spine, live slots and case B's distinct dead chains, found
+by chunks of G; the newly dead staged until the live count is known; spawns
+in code order).  Shared memory the
 kernel never writes holds None here, so a model that reads it fails.  The
 tests hold each model against the plain torch version on every output, at
 several G, so the formulation the CUDA code follows is checked on the CPU.
@@ -30,7 +33,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from genome_weaver_align_tpu_torch.ops.fm_search_cuda import owner_divisor
+import torch
+
+from genome_weaver_align_tpu_torch.ops.fm_search_cuda import owner_divisor, split_facts
 
 M32 = 0xFFFFFFFF
 
@@ -148,30 +153,48 @@ class OneIndex:
         return occ1_row(*row, c)
 
 
-def disjoint(bounds):
-    """No x lies in two shards' [start, end) (fm_occ.cuh load_split)."""
-    starts, ends = (int(x) for x in bounds[0]), (int(x) for x in bounds[1])
-    spans = list(zip(starts, ends))
-    return not any(max(a0, b0) < min(a1, b1)
-                   for i, (a0, a1) in enumerate(spans) for b0, b1 in spans[i + 1:])
+STAGED = 16  # csrc/fm_occ.cuh kMaxStaged: the sharded locate stages its bounds up to it
 
 
-def split(bounds, width):
+def split(bounds, width, staged=False):
     """fm_occ.cuh Split: the bounds, the bindings' divisor of ``width``
-    (ops/fm_search_cuda.py owner_divisor) and whether the ranges are
-    disjoint."""
-    return bounds, owner_divisor(width), disjoint(bounds)
+    (ops/fm_search_cuda.py owner_divisor), whether the ranges are disjoint
+    and whether they are in order (``facts``)."""
+    return bounds, owner_divisor(width), *facts(bounds, staged)
+
+
+def facts(bounds, staged=False):
+    """(disjoint, in order) of a split's bounds as the kernels have them:
+    the bindings' split_facts, or, staged (load_split, once a block), the
+    bounds checked for overlap pair by pair and no order."""
+    if staged:
+        spans = list(zip((int(x) for x in bounds[0]), (int(x) for x in bounds[1])))
+        return not any(max(a0, b0) < min(a1, b1)
+                       for i, (a0, a1) in enumerate(spans) for b0, b1 in spans[i + 1:]), False
+    found = split_facts(*(torch.as_tensor(np.asarray(b)) for b in bounds))
+    return bool(found & 1), bool(found & 2)
 
 
 def owner_of(sp, x):
     """fm_occ.cuh owner_of on a ``split``: the guess (x - base) / width
     (__umulhi(x - base, magic) >> shift, base the first shard's start; an x
     below it wraps), kept when its range holds x and the ranges are
-    disjoint, else the scan (shard_of)."""
-    bounds, (magic, shift), apart = sp
+    disjoint, else with the bounds in order the bisection (the last shard
+    whose start is at most x, kept when its end is above x), else the scan
+    of every shard's bounds."""
+    bounds, (magic, shift), apart, in_order = sp
     g = min(((((x - int(bounds[0][0])) & M32) * magic) >> 32) >> shift, len(bounds[0]) - 1)
     if apart and int(bounds[0][g]) <= x < int(bounds[1][g]):
         return g
+    if in_order:
+        lo, hi = 0, len(bounds[0])
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if int(bounds[0][mid]) <= x:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo - 1 if lo > 0 and x < int(bounds[1][lo - 1]) else -1
     return Shards.owner(bounds, x)
 
 
@@ -179,9 +202,10 @@ class Shards:
     """The stacked tables of a ``ShardedFMIndex`` (on the CPU) as host
     values, and fm_search.cu's accessor over them: a coordinate's row is
     read from the shard that owns it (fm_occ.cuh load_row), none without
-    an owner."""
+    an owner.  ``locate``: the sharded locate's splits, staged up to
+    ``STAGED`` shards."""
 
-    def __init__(self, sh):
+    def __init__(self, sh, locate=False):
         def host(x):
             return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
@@ -196,12 +220,14 @@ class Shards:
         self.primary, self.n, self.S = int(sh.primary), int(sh.n), self.words.shape[0]
         self.sample_rate = int(sh.sample_rate)
         # the splits as the bindings pass them: shard_fm_index's equal widths
-        self.pk_split = split(self.pk, (self.words.shape[1] - 1) * 128)
-        self.row_split = split(self.rows, self.marks.shape[1] * 128)
+        staged = locate and self.S <= STAGED
+        self.pk_split = split(self.pk, (self.words.shape[1] - 1) * 128, staged)
+        self.row_split = split(self.rows, self.marks.shape[1] * 128, staged)
 
     @staticmethod
     def owner(bounds, x):
-        """fm_occ.cuh shard_of: the shard whose [start, end) holds x, -1 if none."""
+        """The shard whose [start, end) holds x, -1 if none (fm_occ.cuh
+        owner_of's scan)."""
         s = -1
         for d in range(len(bounds[0])):
             if bounds[0][d] <= x < bounds[1][d]:
@@ -308,7 +334,7 @@ class _ShardWalk:
     """locate.cu's Shards accessor: each step's owners by owner_of."""
 
     def __init__(self, sh):
-        self.st = Shards(sh)
+        self.st = Shards(sh, locate=True)
         self.cp, self.ssa = self.st.mark_cp.reshape(-1), self.st.ssa.reshape(-1)
         self.mbs, self.vmax = self.st.marks.shape[1], self.st.ssa.shape[1]
         self.sample_rate = self.st.sample_rate
@@ -407,7 +433,10 @@ def _expand_step(cur, nxt, live, n_slots, fwd, rev, forward, c, budget, rank_maj
     ``lanes`` parents in slot order, the kept children placed by ballot and
     prefix popcount (a warp taking two slots a lane is ``lanes`` = 64).
     Rank-major placement takes every parent in one pass, whose ballots give
-    each rank's total.  Returns the kept count (which may exceed n_slots)."""
+    each rank's total; past 64 slots (the Wide kernel) in two rounds of the
+    passes, the first counting each rank's kept children, the second
+    recomputing and placing them.  Returns the kept count (which may exceed
+    n_slots)."""
     passes = [range(p0, min(p0 + lanes, live)) for p0 in range(0, live, lanes)]
 
     def write(dest, child, mm):
@@ -425,15 +454,32 @@ def _expand_step(cur, nxt, live, n_slots, fwd, rev, forward, c, budget, rank_maj
                         write(base, ch[a], mm + (a != c))
                         base += 1
         return base
-    assert len(passes) <= 1, "rank-major placement in more than one pass"
-    work = [_children_of(cur, s, fwd, rev, forward, c, budget) for s in range(live)]
-    for a in [c] + [a for a in range(4) if a != c]:  # exact child first, then by code
-        ballot = [(keep >> a) & 1 for _, _, keep in work]
-        for lane, (ch, mm, keep) in enumerate(work):
-            if ballot[lane]:
-                write(base + sum(ballot[:lane]), ch[a], mm + (a != c))
-        base += sum(ballot)
-    return base
+    ranks = [c] + [a for a in range(4) if a != c]  # exact child first, then by code
+    if n_slots <= 64:
+        assert len(passes) <= 1, "rank-major placement in more than one pass"
+        work = [_children_of(cur, s, fwd, rev, forward, c, budget) for s in range(live)]
+        for a in ranks:
+            ballot = [(keep >> a) & 1 for _, _, keep in work]
+            for lane, (ch, mm, keep) in enumerate(work):
+                if ballot[lane]:
+                    write(base + sum(ballot[:lane]), ch[a], mm + (a != c))
+            base += sum(ballot)
+        return base
+    total = [0] * 4
+    for slots in passes:  # round 1: each rank's kept children over every pass
+        for _, _, keep in (_children_of(cur, s, fwd, rev, forward, c, budget) for s in slots):
+            for r, a in enumerate(ranks):
+                total[r] += (keep >> a) & 1
+    at = [sum(total[:r]) for r in range(4)]
+    for slots in passes:  # round 2: the children again, placed
+        work = [_children_of(cur, s, fwd, rev, forward, c, budget) for s in slots]
+        for r, a in enumerate(ranks):
+            ballot = [(keep >> a) & 1 for _, _, keep in work]
+            for lane, (ch, mm, keep) in enumerate(work):
+                if ballot[lane]:
+                    write(at[r] + sum(ballot[:lane]), ch[a], mm + (a != c))
+            at[r] += sum(ballot)
+    return at[3]
 
 
 def staircase_pools(bi, reads, lengths, k, n_slots, keep, spine_steps, fwd_steps, bwd_steps,
@@ -675,6 +721,13 @@ def dying_reads(codes, seed, B=8, L=30):
             if e > 0:
                 reads[i, e - 1] = 3
     return reads, lengths
+
+
+def unequal_cuts(S, total, seed):
+    """S + 1 non-decreasing block cuts from 0 to ``total`` at random, some
+    equal (empty shards): ``shard_fm_index``'s explicit cuts."""
+    rng = np.random.default_rng(seed)
+    return [0, *sorted(int(x) for x in rng.integers(0, total + 1, size=S - 1)), total]
 
 
 def chains_genome(seed, copies=300, size=4_000):

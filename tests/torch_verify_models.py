@@ -1,13 +1,15 @@
-"""Numpy models of the two verify kernels' group designs, in the kernels'
-own order of operations, for the CPU tests: ``csrc/myers.cu``'s group of G
-threads a lane (P words a thread, the carry lookahead over ballots, the
-top word first and its bits handed up) and ``csrc/banded_dp.cu``'s group
-of G threads a lane (S band slots a thread padded at the band's bottom,
-the group's exclusive prefix min of c_j - j, the window codes moved down a
-slot a row).  Each runs every lane of a batch at once; the tests hold them
-against the plain torch versions on every lane, so a fault in the design
-shows here before the card runs it.  The card tests hold the kernels
-themselves against the plain versions."""
+"""Numpy models of the two verify kernels' group designs, in the kernels' own
+order of operations, for the CPU tests: ``csrc/myers.cu``'s group of G
+threads a lane (P words a thread, the carry lookahead over ballots, the top
+word first and its bits handed up), ``csrc/banded_group.cu``'s group of G
+threads a lane (N band slots a thread padded at the band's bottom with pads
+that never match, each thread's fused scan, the group's exclusive prefix min
+of c_j - j, no bounds check of the window, the window codes by position) and
+its scratch kernel (a warp a lane, the per-cell window check and the pads
+held at 2^30, ``csrc/banded_dp.cu``). Each runs every lane of a batch at
+once; the tests hold them against the plain torch versions on every lane, so
+a fault in the design shows here before the card runs it. The card tests
+hold the kernels themselves against the plain versions."""
 
 import numpy as np
 
@@ -104,8 +106,66 @@ def myers_group(reads, lengths, windows, nwords: int, steps: int, G: int, P: int
     return best.astype(np.int32), end.astype(np.int32)
 
 
-def banded_group(reads, lengths, windows, k: int, G: int, S: int):
+def banded_group(reads, lengths, windows, k: int, G: int, N: int, beyond: int | None = None):
     """``banded_group_kernel`` over (Q, L) int8 reads and (Q, W) windows
+    (bytes >= 4 never match) with G threads of N band slots a lane ->
+    (dist (Q,), end_b (Q,)) int32.  Every group runs its own rows.  Off
+    the window a cell reads code 256 (the windows entry), or with
+    ``beyond`` (a seed) codes 0..3 made from the lane and the position, as
+    the text entry reads the text around its window."""
+    Q, L = reads.shape
+    W = windows.shape[1]
+    band = 4 * k + 1
+    assert G * N >= band
+    lengths = np.asarray(lengths, np.int64)
+    steps = np.minimum(lengths, L)
+    b = np.arange(G * N).reshape(G, N) - (G * N - band)  # band slot of each register
+    pm = (b < 0).astype(np.int64)  # pads never match
+    # codes as unsigned bytes: a byte >= 4 (and off the window) is 256
+    wb = np.where(windows < 4, windows.astype(np.int64) & 0xFF, NO_MATCH)
+    rb = reads.astype(np.int64) & 0xFF
+
+    lane = np.arange(Q)[:, None, None]
+
+    def code_at(pos):  # (Q, G, N) window positions -> codes
+        ok = (pos >= 0) & (pos < W)
+        off = NO_MATCH if beyond is None else (lane * 7919 + pos * 104729 + beyond) % 4
+        return np.where(ok, wb[lane, np.clip(pos, 0, W - 1)], off)
+
+    D = np.where(b < 0, BIG, np.where(b >= k, 0, INF))[None].repeat(Q, 0).astype(np.int64)
+    for i in range(int(steps.max(initial=0)) if W > 0 else 0):
+        active = i < steps
+        wc = code_at(np.broadcast_to(i + b - k, (Q, G, N)))  # the rotated registers' codes
+        rc = rb[:, min(i, L - 1)]
+        above = np.full((Q, G), INF, np.int64)
+        above[:, :-1] = D[:, 1:, 0]  # the next thread's slot 0, row i - 1
+        up = np.concatenate([D[:, :, 1:], above[:, :, None]], axis=2)
+        x = (wc ^ rc[:, None, None]) | pm[None]
+        new = np.empty_like(D)
+        new[:, :, 0] = np.minimum(np.minimum(D[:, :, 0], up[:, :, 0]) + 1, D[:, :, 0] + x[:, :, 0])
+        for s in range(1, N):
+            m = np.minimum(np.minimum(new[:, :, s - 1], D[:, :, s]), up[:, :, s])
+            new[:, :, s] = np.minimum(m + 1, D[:, :, s] + x[:, :, s])
+        v = new[:, :, N - 1] - b[None, :, N - 1]
+        incl = np.minimum.accumulate(v, axis=1)
+        cin = np.full((Q, G), BIG, np.int64)
+        cin[:, 1:] = incl[:, :-1]
+        new = np.minimum(new, cin[:, :, None] + b[None])
+        if i == 0:  # row 0's slots below the diagonal: INF (the row before is 0 from slot k)
+            new = np.where(((b >= 0) & (b < k))[None], INF, new)
+        D = np.where(active[:, None, None], new, D)
+    if W == 0:
+        D = np.where((steps > 0)[:, None, None], INF, D)
+    j_end = lengths[:, None, None] + b[None] - k
+    df = np.where((j_end >= 0) & (j_end <= W), np.minimum(D, INF), INF)
+    df = np.where(b[None] >= 0, df, BIG).reshape(Q, G * N)
+    best_at = df.argmin(axis=1)
+    dist = np.minimum(df[np.arange(Q), best_at], INF)
+    return dist.astype(np.int32), b.reshape(-1)[best_at].astype(np.int32)
+
+
+def banded_scratch(reads, lengths, windows, k: int, G: int, S: int):
+    """``banded_mem_kernel`` over (Q, L) int8 reads and (Q, W) windows
     (bytes >= 4 never match) with G threads of S band slots a lane ->
     (dist (Q,), end_b (Q,)) int32."""
     Q, L = reads.shape
