@@ -59,11 +59,17 @@ per line, and exits non-zero at the first phase that fails:
    replaces (``gather_windows`` + ``where`` + ``contiguous`` + the windows
    entry), the windows entry and the plain versions are timed, and the
    text kernel's dependent chain a window column is counted from its SASS
-   (the latency floor).  Past 8 words (a group of threads a lane): both
-   entries at L = 257, 300, 512, 1,000 and 2,048 (2,048 lanes, W = L +
-   400), and at 520 words on 256 lanes of 300 bases (a warp a lane over
-   scratch), each timed with its bound ((11 nwords + 5) integer
-   instructions a lane-step), the group kernels' registers and spills;
+   (the latency floor).  Past 8 words (a group of threads a lane, run as
+   a wavefront): both entries at L = 257, 300, 512, 1,000 and 2,048
+   (2,048 lanes, W = L + 400), and at 520 words on 256 lanes of 300 bases
+   (a warp a lane over scratch), each timed with its bound ((11 nwords +
+   5) integer instructions a lane-step) and the group shape (G x P) the
+   binding picked, beside the earlier design's times as PERF.md records
+   them (``LOOKAHEAD_MYERS_GROUP_MS``: constants, printed, not measured
+   here); the group kernels' registers and spills, and the group kernel's
+   step chain from its SASS (the latency floor at [8]'s rescue call: time
+   steps x (chain + one shuffle), each link and the shuffle at the
+   latencies ``probe_latencies`` measures on the card);
 7. the FM pigeonhole path end to end: the CLI's ``align -k 2`` without a
    seed table on the same index, 2 x 65,536 reads; >= 99% mapped and
    correct, banded-DP kernel, the backward-search kernel (the pieces'
@@ -79,7 +85,8 @@ per line, and exits non-zero at the first phase that fails:
    450-750, 10% of mate2 with 8 more substitutions: within the rescue bar
    15), exit 0, >= 90% proper, >= 5% rescued, the Myers text entry's group
    kernel launched at 10 words, and the first rescue call's lanes equal to
-   the plain version;
+   the plain version; that call timed at the binding's group shape and at
+   every other, beside the lookahead design's figure;
 9. the shard-sum kernels (``csrc/ring.cu``, built in phase 2) held against
    their plain torch versions on every element: the one-pass
    ``ring_psum`` over S = 1, 2, 3, 4, 8, 16 shards (int32 at 3, 777,
@@ -91,8 +98,9 @@ per line, and exits non-zero at the first phase that fails:
    tables) at S = 1, 2, 4, 8, 16, both also against the single-device
    ``rank.occ_codes``; then the kernels, their plain versions,
    ``parts.sum(0)`` and the stage the table entry replaces timed at the
-   exact search's payloads (S = 4: sum (2, 32,768), fused M = 2,
-   Q = 65,536).  Past 16 shards at S = 17, 32, 64, 128
+   exact search's payloads (S = 4: sum (2, 32,768) as the ring merge calls
+   it, shard 0's row alone, and every row; fused M = 2, Q = 65,536), the
+   sum also at 32 shards.  Past 16 shards at S = 17, 32, 64, 128
    and 1,024: the sum (int32 and float32; stacked, in separate
    allocations, one output), the table entry (stacked and one allocation
    a shard) and, up to 64, the words entry, each against plain;
@@ -110,8 +118,8 @@ per line, and exits non-zero at the first phase that fails:
    the single-device CLI's on the same FASTQ, >= 99% mapped and correct,
    and the banded-DP kernel launched; on the FM shards the sharded piece
    search and the sharded locate launched (the locate on one device); then
-   ``--n-interval 32`` (FM shards) on 2 x 16,384 reads
-   against ``--n-interval 1``;
+   ``--n-interval 32`` on 2 x 16,384 reads, FM shards and with the seed
+   table, each against ``--n-interval 1``;
 12. the tier-2 staircase at scale, on the JAX package's repeat bench
    configuration (``bench.py`` ``bench_repeat``): ``repeat_genome`` of the
    same length (seed 4) indexed by the CLI with its reverse text (cached
@@ -253,7 +261,9 @@ per line, and exits non-zero at the first phase that fails:
    late must fail too, and both must raise; and 17 and 32 ranks emulated
    (addresses from a device table), held and timed.  Then this script as 1, 2 and 4
    ranks (``--rank interval``), and as 2 ranks with 32 shards (16 held,
-   16 mapped: the kernels on IPC-mapped tables past 16 shards),
+   16 mapped: the kernels on IPC-mapped tables past 16 shards, and the
+   seed path's verify, whose peak device memory at 32 shards must stay
+   within 1.5x of the 4-shard run's),
    ``ShardedAligner`` with 4 interval shards, each rank
    holding 4 / n of them and mapping the others' through CUDA IPC
    (``parallel.peer``; over NVLink where they lie on other cards; one
@@ -380,11 +390,12 @@ WIDE_MYERS_L = (257, 300, 512, 1_000, 2_048)
 SCRATCH_WORDS, SCRATCH_MYERS_LANES, SCRATCH_MYERS_L = 520, 256, 300
 PAIR300_L, PAIR300_BATCH, PAIR300_BATCHES = 300, 8_192, 2
 PAIR300_INSERTS, PAIR300_FAR_SUBS = (450, 750), 8  # rescue bar max(k, 300 // 20) = 15
+PAIR300_RESCUE_W = 1_250  # the first 300 bp rescue call's window columns
 # phase 15: the JAX package's gbp bench traffic (bench.py bench_gbp)
-GBP_BATCH, GBP_BATCHES, GBP_L, GBP_SEED = 8_192, 16, 150, 29
+GBP_BATCH, GBP_BATCHES, GBP_L, GBP_SEED = 8_192, 8, 150, 29  # the bench runs 16 batches
 # phase 16: several processes on one card (BASELINE config 5's stream)
 RANKS = 2
-RANK_BATCH, RANK_BATCHES, RANK_L, RANK_SEED = 32_768, 4, 150, 17
+RANK_BATCH, RANK_BATCHES, RANK_L, RANK_SEED = 32_768, 2, 150, 17
 RANK_EXACT_READS, RANK_EXACT_L, RANK_EXACT_SEED = 65_536, 36, 18  # config 1's length
 RANK_TIMEOUT_S = 600  # a rank that hangs fails the phase
 INTERVAL_RANKS = (1, 2, 4)  # phase 20: the shards over 1 (stacked), 2 and 4 processes
@@ -441,10 +452,14 @@ PEAK_FLOAT_OPS_PER_S = 67e12
 INT32_PER_CLOCK_PER_SM = 64
 INT_OPS_PER_S = None  # set in main()
 MAX_SM_HZ = None  # the card's maximum SM clock, set in main()
-# Cycles from one fixed-latency integer instruction to a dependent one on
-# Hopper, for the Myers latency floor: its step chain is counted in such
-# links from the SASS.
-CYCLES_PER_LINK = 4
+# The earlier Myers group kernel (carry lookahead over ballots), as PERF.md
+# section 6 records its times on an NVIDIA H100 80GB HBM3 at 700.00 W: the
+# text entry at [6]'s shapes (2,048 lanes, W = L + 400; 520 words: 256
+# lanes of 300) and [8]'s first 300 bp rescue call (819 lanes, W = 1,250),
+# ms.  Constants, printed in [6] and [8] beside this run's figures and
+# nowhere else: this run does not measure them.
+LOOKAHEAD_MYERS_GROUP_MS = {257: 0.0889, 300: 0.0940, 512: 0.1231, 1_000: 0.1795, 2_048: 0.5757,
+                       "520 words": 1.4322, "[8] rescue call": 0.1616}
 # Least integer instructions per unit of work, as each kernel's source note
 # derives them: a banded-DP band cell; a Myers step per read word and per
 # step; a fused-rank word.
@@ -460,6 +475,11 @@ WIDE_WALL_S: dict[str, float] = {}
 
 class SmokeFailure(Exception):
     pass
+
+
+# [20]'s verify peak device memory (bytes above what was allocated at its
+# call), by (ranks, shards, path)
+VERIFY_PEAK: dict[tuple, int] = {}
 
 
 # when each phase printed its first line (time.time()), keyed by its tag:
@@ -964,6 +984,92 @@ def phase_fused_step(torch, dev, codes, offsets, positions):
     check(mapped >= MIN_MAPPED, f"fused step mapped only {mapped:.4f}")
 
 
+def build_parts(g, name: str) -> tuple[Path, float | None]:
+    """[15]'s parts of ``g``: cut into two contigs and built into two flat
+    parts with their reversed-text indexes, once, into smoke_cache/parts_<name>
+    -> (the directory, the build's seconds or None where it was built)."""
+    from genome_weaver_align_tpu_torch.index import multipart_io
+    from genome_weaver_align_tpu_torch.utils.fasta import Contig
+
+    part_dir = CACHE / f"parts_{name}"
+    if (part_dir / "parts.json").exists():
+        return part_dir, None
+    mid = g.size // 2
+    tmp = part_dir.with_name(part_dir.name + f".tmp{os.getpid()}")
+    t0 = time.time()
+    multipart_io.build_multipart(
+        tmp, [Contig("chr20a", g[:mid]), Contig("chr20b", g[mid:])],
+        part_limit=g.size - mid, seed_j=SEED_J, sample_rate=8,
+        flat=True, log=lambda m: log(f"[15] {m}"))
+    os.replace(tmp, part_dir)
+    return part_dir, time.time() - t0
+
+
+def prebuild_child() -> int:
+    """``chip_smoke.py --prebuild``: the host-only index builds that [12]
+    and [15] read from smoke_cache/, made on the host's cores while the main
+    process runs [2]-[11] on the card: the repeat genome's CLI index (its
+    seconds to smoke_cache/prebuild.json) and both genomes' parts.  The
+    card is hidden from it (CUDA_VISIBLE_DEVICES is empty): every builder
+    runs on the host, as in the main process."""
+    sys.path.insert(0, str(ROOT))
+    from genome_weaver_align_tpu_torch import cli
+    from genome_weaver_align_tpu_torch.utils.simulate import random_genome, repeat_genome
+
+    rep_codes = repeat_genome(GENOME_LEN, seed=REPEAT_SEED)
+    _, _, index_s = build_index(cli, rep_codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}",
+                                "chr20rep")
+    (CACHE / "prebuild.json").write_text(json.dumps({"repeat_index_s": index_s}))
+    parts_s = {}
+    for name, g in ((f"{GENOME_LEN}_seed{GENOME_SEED}", random_genome(GENOME_LEN,
+                                                                      seed=GENOME_SEED)),
+                    (f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}", rep_codes)):
+        parts_s[name] = build_parts(g, name)[1]
+    (CACHE / "prebuild.json").write_text(json.dumps({"repeat_index_s": index_s,
+                                                     "parts_s": parts_s}))
+    return 0
+
+
+# the prebuild process (``prebuild_child``) while it runs
+PREBUILD: dict = {}
+
+
+def start_prebuild() -> None:
+    """Start ``chip_smoke.py --prebuild`` with its output to smoke_cache/."""
+    CACHE.mkdir(exist_ok=True)
+    out = open(CACHE / "prebuild.log", "w")
+    PREBUILD["proc"] = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--prebuild"], stdout=out,
+        stderr=subprocess.STDOUT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    PREBUILD["t0"] = time.time()
+    out.close()
+
+
+def join_prebuild(tag: str) -> dict:
+    """Wait for the prebuild (once), print its lines and how long ``tag``
+    waited for it; it must have exited 0.  -> its prebuild.json."""
+    proc = PREBUILD.pop("proc", None)
+    if proc is not None:
+        t0 = time.time()
+        rc = proc.wait()
+        lines = (CACHE / "prebuild.log").read_text().splitlines()
+        for line in lines:
+            log(f"{tag} prebuild: {line}")
+        log(f"{tag} the prebuild of [12]'s index and [15]'s parts ran on the host beside [2]-"
+            f"[11]: exited {rc} after {time.time() - PREBUILD['t0']:.1f} s, {tag} waited "
+            f"{time.time() - t0:.1f} s for it")
+        check(rc == 0, f"the prebuild exited {rc}")
+    return json.loads((CACHE / "prebuild.json").read_text())
+
+
+def stop_prebuild() -> None:
+    """End the prebuild if it still runs (a phase failed before joining it)."""
+    proc = PREBUILD.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 def build_index(cli, codes, name: str = f"random_{GENOME_LEN}_seed{GENOME_SEED}",
                 contig: str = "chr20s") -> tuple[Path, Path, float | None]:
     """The CLI index (with its reverse text) and seed table of a smoke
@@ -1292,6 +1398,74 @@ def dependent_chain(loop, iterations: int = 4) -> int:
     return ends[-1] - ends[-2]
 
 
+# One warp times two dependent chains with the SM clock: 64 x n integer
+# instructions, an xor and an add in turn (LOP3 and IADD3, the links of the
+# Myers step), then 32 x n warp shuffles, each taking the last's result.
+LATENCY_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void chains(long long* out, unsigned x, unsigned y, unsigned z, int n) {
+  x += threadIdx.x;
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      asm volatile("xor.b32 %0, %0, %1;" : "+r"(x) : "r"(y));
+      asm volatile("add.u32 %0, %0, %1;" : "+r"(x) : "r"(z));
+    }
+  }
+  const long long t1 = clock64();
+  unsigned v = x;
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) v = __shfl_up_sync(0xFFFFFFFFu, v, 1);
+  }
+  const long long t2 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = t2 - t1;
+    out[2] = static_cast<long long>(v);
+  }
+}
+extern "C" int gwa_latency_probe(long long* host, int n) {
+  long long* d = nullptr;
+  cudaError_t e = cudaMalloc(&d, 3 * sizeof(long long));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  chains<<<1, 32>>>(d, 0x9E3779B9u, 0x85EBCA6Bu, 0xC2B2AE35u, n);
+  e = cudaMemcpy(host, d, 3 * sizeof(long long), cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return static_cast<int>(e);
+}
+"""
+
+
+def probe_latencies() -> tuple[float, float]:
+    """(cycles from an integer instruction to a dependent one, cycles from
+    a warp shuffle to a dependent one), measured on card 0 by
+    ``LATENCY_PROBE``: its two chains timed with clock64, the second of
+    two launches (the first warms the code)."""
+    import ctypes
+
+    from genome_weaver_align_tpu_torch.ops._cuda_build import BUILD_DIR, NVCC_FLAGS, find_nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"latency_probe{os.getpid()}.cu"
+    lib_path = src.with_suffix(".so")
+    src.write_text(LATENCY_PROBE)
+    try:
+        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True,
+                       capture_output=True, text=True, timeout=300)
+        lib = ctypes.CDLL(str(lib_path))
+        out = (ctypes.c_longlong * 3)()
+        n = 256
+        for _ in range(2):
+            rc = lib.gwa_latency_probe(out, n)
+            check(rc == 0, f"the latency probe failed: CUDA error {rc}")
+    finally:
+        src.unlink(missing_ok=True)
+        lib_path.unlink(missing_ok=True)
+    return out[0] / (64 * n), out[1] / (32 * n)
+
+
 def myers_text_lanes(torch, codes, Q: int, Lr: int, W: int, gen, rid_mode: str):
     """Text-entry lanes on the card: Q windows of W over the text, half of
     them holding their read (substitutions, and an indel in 30%), starts off
@@ -1346,7 +1520,9 @@ def myers_text_lanes(torch, codes, Q: int, Lr: int, W: int, gen, rid_mode: str):
 def phase_myers(torch, dev, card):
     """Both Myers entries against their plain versions on every lane; the
     text entry, the stage it replaces, the windows entry and the plain
-    versions timed; the text kernel's step chain from its SASS."""
+    versions timed, the group kernel at the binding's group shape; the
+    text kernel's and the group kernel's step chains from their SASS, at
+    the latencies ``probe_latencies`` measures."""
     from genome_weaver_align_tpu_torch.ops import myers, myers_cuda, window
 
     max_err = 0
@@ -1438,10 +1614,15 @@ def phase_myers(torch, dev, card):
             b = bound(n_bytes, n_ops)
             times["text_wide", Lr, nwords] = (min(t), plain_ms, *b, Q, W)
             win_ms = times.get(("windows_wide", Lr, nwords))
+            G, P = myers_cuda.group_shape(nwords)
+            before = LOOKAHEAD_MYERS_GROUP_MS.get(Lr if nwords <= myers_cuda.MEM_WORDS
+                                                  else f"{nwords} words")
             log(f"[6] text entry Q={Q} L={Lr} W={W} nwords={nwords} "
-                f"({myers_cuda.design(nwords)} kernel): kernel {t[0]:.4f} / {t[1]:.4f} ms (bound "
-                f"{b[0]:.4f} ms by {b[1]}); windows entry {win_ms:.4f} ms; plain "
-                + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed") + f" ({card})")
+                f"({myers_cuda.design(nwords)} kernel, G x P = {G} x {P}): kernel {t[0]:.4f} / "
+                f"{t[1]:.4f} ms (bound {b[0]:.4f} ms by {b[1]}); windows entry {win_ms:.4f} ms; "
+                f"plain " + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed")
+                + f" ({card}); the lookahead design's {before} ms as PERF.md records it "
+                "(a constant, not measured in this run)")
         if nwords > myers_cuda.LANE_WORDS:
             t_wide += time.time() - t_shape
         if Lr != L or mode == "repeat":
@@ -1480,18 +1661,43 @@ def phase_myers(torch, dev, card):
 
     WIDE_WALL_S["[6]"] = t_wide
     log(f"[6] reads past 8 words: {t_wide:.1f} s of wall")
-    for what, tags in (("4 words a thread", ("myers_group_kernel", "RegWordsILi4E", "TextStream")),
-                       ("8 words a thread", ("myers_group_kernel", "RegWordsILi8E", "TextStream")),
-                       ("16 words a thread", ("myers_group_kernel", "RegWordsILi16E",
-                                              "TextStream")),
-                       ("scratch", ("myers_group_kernel", "MemWords", "TextStream"))):
-        log(f"[6] ptxas, Myers group text entry, {what}: {ptxas_usage('myers.cu', tags)}")
+    for P in myers_cuda.REG_WORDS:
+        tags = ("myers_group_kernel", f"RegWordsILi{P}E", "TextStream")
+        log(f"[6] ptxas, Myers group text entry, {P} words a thread: "
+            f"{ptxas_usage('myers.cu', tags)}")
+    log(f"[6] ptxas, Myers group text entry, scratch: "
+        f"{ptxas_usage('myers.cu', ('myers_group_kernel', 'MemWords', 'TextStream'))}")
+    times["shape_by_L"] = {Lr: "x".join(map(str, myers_cuda.group_shape(-(-Lr // 32))))
+                           for Lr in WIDE_MYERS_L}
+    link, shfl = probe_latencies()
+    times["link_cycles"], times["shfl_cycles"] = link, shfl
+    log(f"[6] measured on the card: {link:.2f} cycles from an integer instruction to a "
+        f"dependent one, {shfl:.2f} from a warp shuffle to a dependent one ({card})")
+    # the wavefront's floor: a time step waits on one thread's chain and one
+    # shuffle; [8]'s rescue call runs (RESCUE_W + G - 1) of them at 10 words
+    G, P = myers_cuda.group_shape(-(-PAIR300_L // 32))
+    name, loop = sass_loop(myers_cuda._library(),
+                           ("myers_group_kernel", f"RegWordsILi{P}E", "TextStream"))
+    chain = dependent_chain(loop) if loop else 0
+    if chain:
+        per_step = chain / 16
+        steps = PAIR300_RESCUE_W + G - 1
+        floor_ms = steps * (per_step * link + shfl) / MAX_SM_HZ * 1e3
+        times["group_floor"] = floor_ms
+        log(f"[6] SASS of {name}: the 16-step loop is {len(loop)} instructions, its longest "
+            f"dependent chain a trip {chain} fixed-latency instructions = {per_step:.2f} a time "
+            f"step, plus one shuffle; at [8]'s rescue call ({PAIR300_RESCUE_W} columns + "
+            f"{G - 1}, G x P = {G} x {P}, {MAX_SM_HZ / 1e9:.2f} GHz, the latencies above) the "
+            f"latency floor is {floor_ms:.4f} ms")
+    else:
+        times["group_floor"] = None
+        log(f"[6] SASS of the group kernel: not measured ({name})")
     name, loop = sass_loop(myers_cuda._library(), ("myers_kernelILi4E", "TextStream"))
     chain = dependent_chain(loop) if loop else 0
     if chain:
         # 16 window columns a trip round the unrolled loop
         per_step = chain / 16
-        floor_ms = (L + 400) * per_step * CYCLES_PER_LINK / MAX_SM_HZ * 1e3
+        floor_ms = (L + 400) * per_step * link / MAX_SM_HZ * 1e3
         # a warp issues at most one instruction a cycle, and the rescue
         # cohort is a warp or less a multiprocessor: each lane's warp issues
         # the loop's instructions of every column itself
@@ -1500,7 +1706,7 @@ def phase_myers(torch, dev, card):
         log(f"[6] SASS of {name}: the 16-column loop is {len(loop)} instructions "
             f"({len(loop) / 16:.2f} a column), its longest dependent chain a trip {chain} "
             f"instructions = {per_step:.2f} a column; at the rescue shape ({L + 400} columns, "
-            f"{MAX_SM_HZ / 1e9:.2f} GHz) the latency floor ({CYCLES_PER_LINK} cycles a link) is "
+            f"{MAX_SM_HZ / 1e9:.2f} GHz) the latency floor ({link:.2f} cycles a link) is "
             f"{floor_ms:.4f} ms and one warp's issue floor (one instruction a cycle) "
             f"{issue_ms:.4f} ms")
     else:
@@ -1741,6 +1947,7 @@ def phase_paired_300(torch, dev, codes, card) -> dict:
     n_bad = int(((b_kern != b_plain) | (e_kern != e_plain)).sum())
     lanes, W, nwords = int(args[2].numel()), args[-2], args[-1]
     ms = cuda_time_ms(lambda: real_text(*args), reps=20, hide_host=True)
+    G, P = myers_cuda.group_shape(nwords)
     WIDE_WALL_S["[8]"] = wall = time.time() - t_wall
     log(f"[8] paired CLI, {n_pairs} pairs of {PAIR300_L} bp (inserts {PAIR300_INSERTS[0]}-"
         f"{PAIR300_INSERTS[1]}): {n_rec} records, proper {proper:.6f} (report "
@@ -1748,7 +1955,9 @@ def phase_paired_300(torch, dev, codes, card) -> dict:
         f"{report['wall_s']} s (phase wall {wall:.1f} s); Myers text-entry launches {launches} "
         f"({by_design}), at nwords {sorted(set(words))}, windows entry {win_launches}; the first "
         f"rescue call, {lanes} lanes x W={W} at {nwords} words, against plain: mismatches "
-        f"{n_bad}, max |err| {err}; that call's kernel {ms:.4f} ms ({card})")
+        f"{n_bad}, max |err| {err}; that call's kernel {ms:.4f} ms at G x P = {G} x {P} "
+        f"({card}); the lookahead design's {LOOKAHEAD_MYERS_GROUP_MS['[8] rescue call']} ms as "
+        "PERF.md records it (a constant, not measured in this run)")
     check(n_rec == 2 * n_pairs, f"SAM holds {n_rec} records")
     check(proper >= MIN_PROPER, f"{PAIR300_L} bp proper share {proper:.4f} < {MIN_PROPER}")
     check(rescued >= MIN_RESCUED, f"{PAIR300_L} bp rescued share {rescued:.4f} < {MIN_RESCUED}")
@@ -1758,7 +1967,7 @@ def phase_paired_300(torch, dev, codes, card) -> dict:
     check(win_launches == 0, "the 300 bp rescue built a window tensor for the windows entry")
     check(n_bad == 0, "a 300 bp rescue call's lanes disagree with the plain version")
     return {"launches": launches, "group": by_design["group"], "max_err": err, "ms": ms,
-            "lanes": lanes, "W": W, "nwords": nwords}
+            "lanes": lanes, "W": W, "nwords": nwords, "shape": [G, P]}
 
 
 def fused_inputs(torch, sh, M: int, Q: int, gen, gather: bool = True):
@@ -1782,6 +1991,32 @@ def fused_inputs(torch, sh, M: int, Q: int, gen, gather: bool = True):
                               for f in range(4))
     codes = c[None].expand(sh.n_shards, M, Q).contiguous()
     return (words, codes, roff, base, own), (c, k)
+
+
+# the sum kernel writing every shard's row, by S ([9], beside the path's
+# one-row call)
+RING_ALL_ROWS_MS: dict[int, float] = {}
+
+
+def time_path_sum(torch, ring_cuda, ring, parts) -> tuple:
+    """The sum as the exact search's ring merge calls it (shard 0's row
+    alone), held against plain first: (kernel ms, plain ms, bound ms, bound
+    by, ``parts.sum(0)`` ms), all timed in one run; the kernel writing every
+    row goes to ``RING_ALL_ROWS_MS``.  Bound: every shard's partial read
+    and one row written; S - 1 adds an element."""
+    S = parts.shape[0]
+    check(torch.equal(ring_cuda.ring_allreduce_cuda(parts, only=0), ring.ring_psum_plain(parts)[0]),
+          f"[9] the one-row sum differs from plain at S={S}")
+    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts, only=0), reps=200,
+                      hide_host=True)
+    lib_ms = cuda_time_ms(lambda: parts.sum(0, dtype=torch.int32), reps=200, hide_host=True)
+    ms2 = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts, only=0), reps=200,
+                       hide_host=True)
+    RING_ALL_ROWS_MS[S] = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts), reps=200,
+                                       hide_host=True)
+    plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(parts), reps=20, hide_host=True)
+    row = parts[0].numel()
+    return (min(ms, ms2), plain_ms, *bound((S + 1) * row * 4, (S - 1) * row), lib_ms)
 
 
 def phase_rings(torch, dev, fm, card):
@@ -1887,12 +2122,7 @@ def phase_rings(torch, dev, fm, card):
     sh = shards[S]
     parts = torch.randint(-(1 << 20), 1 << 20, (S, 2, n), generator=gen, device=dev,
                           dtype=torch.int32)
-    ms = cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(parts), reps=200, hide_host=True)
-    plain_ms = cuda_time_ms(lambda: ring.ring_psum_plain(parts), reps=200, hide_host=True)
-    lib_ms = cuda_time_ms(lambda: parts.sum(0, dtype=torch.int32), reps=200, hide_host=True)
-    # each shard's partials in, each shard's sum out; S - 1 adds an element
-    timing["ring"] = (ms, plain_ms, *bound(2 * parts.numel() * 4, (S - 1) * parts.numel()),
-                      lib_ms)
+    timing["ring"] = time_path_sum(torch, ring_cuda, ring, parts)
     M, Q = RING_MICROBATCH, 2 * BATCH // RING_MICROBATCH
     ins, (c, k) = fused_inputs(torch, sh, M, Q, gen)
     ms = cuda_time_ms(lambda: ring_cuda.fused_rank_ring_cuda(*ins), reps=200, hide_host=True)
@@ -1938,6 +2168,9 @@ def phase_rings(torch, dev, fm, card):
                               n_q * (8 * RANK_OPS_PER_WORD + 4 * S + 6)), None)
     for name, (tm, p, b, by, lib) in timing.items():
         shape = tuple(parts.shape) if name == "ring" else (S, M, Q)
+        if name == "ring":
+            log(f"[9] ring at S={S}: the path's call (shard 0's row alone, as ring_merge asks) "
+                f"{tm:.4f} ms; every shard's row {RING_ALL_ROWS_MS[S]:.4f} ms ({card})")
         log(f"[9] {name} at S={S}, payload {shape}: kernel {tm:.4f} ms, plain torch {p:.4f} ms, "
             f"parts.sum(0) {'%.4f ms' % lib if lib is not None else 'none'}, bound {b:.4f} ms "
             f"by {by} ({card})")
@@ -1952,11 +2185,10 @@ def phase_rings(torch, dev, fm, card):
                                dtype=torch.int32)
         check(torch.equal(ring_cuda.ring_allreduce_cuda(wparts), ring.ring_psum_plain(wparts)),
               f"[9] the sum differs from plain at S={Sw}")
-        timing["ring_wide"] = (
-            cuda_time_ms(lambda: ring_cuda.ring_allreduce_cuda(wparts), reps=200, hide_host=True),
-            cuda_time_ms(lambda: ring.ring_psum_plain(wparts), reps=20, hide_host=True),
-            *bound(2 * wparts.numel() * 4, (Sw - 1) * wparts.numel()),
-            cuda_time_ms(lambda: wparts.sum(0, dtype=torch.int32), reps=200, hide_host=True))
+        timing["ring_wide"] = time_path_sum(torch, ring_cuda, ring, wparts)
+        log(f"[9] ring at S={Sw}: the path's call (shard 0's row alone) "
+            f"{timing['ring_wide'][0]:.4f} ms; every shard's row {RING_ALL_ROWS_MS[Sw]:.4f} ms "
+            f"({card})")
         wsh = si.put_sharded(si.shard_fm_index(fm, Sw), dev)
 
         def wide_table():
@@ -2103,7 +2335,9 @@ def phase_sharded_cli(codes, card):
             ("seed-table", BATCH, ["--seed-table", str(seedf)], 51, SHARDS, BATCH),
             ("FM", SHARDED_FM_READS, [], 52, SHARDS, BATCH),
             (f"FM, {WIDE_SHARDS} shards", 2 * SHARDED_FM_READS, [], 52, WIDE_SHARDS,
-             SHARDED_FM_READS)):
+             SHARDED_FM_READS),
+            (f"seed-table, {WIDE_SHARDS} shards", 2 * SHARDED_FM_READS,
+             ["--seed-table", str(seedf)], 53, WIDE_SHARDS, SHARDED_FM_READS)):
         fq = work / "reads.fq"
         write_reads(fq, codes, n_reads, seed=seed)
         bodies = {}
@@ -2169,11 +2403,13 @@ def phase_tier2(torch, dev, card):
     from genome_weaver_align_tpu_torch.ops import dp_cuda, locate_cuda, staircase_cuda
     from genome_weaver_align_tpu_torch.utils.simulate import repeat_genome, simulate_reads_array
 
+    index_s = join_prebuild("[12]")["repeat_index_s"]
     t0 = time.time()
     codes = repeat_genome(GENOME_LEN, seed=REPEAT_SEED)
     gen_s = time.time() - t0
-    idx, seedf, index_s = build_index(cli, codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}",
-                                      "chr20rep")
+    idx, seedf, here_s = build_index(cli, codes, f"repeat_{GENOME_LEN}_seed{REPEAT_SEED}",
+                                     "chr20rep")
+    index_s = here_s if here_s is not None else index_s
     log(f"[12] repeat_genome({GENOME_LEN}, seed={REPEAT_SEED}) in {gen_s:.1f} s; index --seed "
         f"{SEED_J}: " + (f"{index_s:.1f} s ({card})" if index_s is not None
                          else f"cached in {idx.parent}"))
@@ -2552,7 +2788,7 @@ def phase_long_reads(torch, dev, codes, card) -> tuple[int, int]:
 
 def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
     """Multi-part streaming with the JAX package's gbp bench traffic
-    (batches of 8,192 reads of 150 bp, 16 batches, k = 2, <= 2
+    (batches of 8,192 reads of 150 bp, 8 batches, k = 2, <= 2
     substitutions, both strands) on the chr20-scale genome cut into two
     contigs, then on the phase-12 repeat genome cut the same way, each
     indexed by the port into two parts with their reversed texts in the
@@ -2562,27 +2798,19 @@ def phase_multipart(torch, dev, codes, rep_codes, card) -> dict:
 
     from genome_weaver_align_tpu_torch.index import multipart_io
     from genome_weaver_align_tpu_torch.ops import dp_cuda, locate_cuda, staircase_cuda
-    from genome_weaver_align_tpu_torch.utils.fasta import Contig
     from genome_weaver_align_tpu_torch.utils.simulate import simulate_reads_array
 
+    prebuilt = join_prebuild("[15]").get("parts_s", {})
+
     def parts_of(g, name):
-        """``g`` cut into two contigs and built into two flat parts."""
-        mid = g.size // 2
-        part_dir = CACHE / f"parts_{name}"
-        if (part_dir / "parts.json").exists():
-            mi = multipart_io.load_multi_index(part_dir)
-            log(f"[15] {mi.n_parts} parts cached in {part_dir}")
-        else:
-            tmp = part_dir.with_name(part_dir.name + f".tmp{os.getpid()}")
-            t0 = time.time()
-            multipart_io.build_multipart(
-                tmp, [Contig("chr20a", g[:mid]), Contig("chr20b", g[mid:])],
-                part_limit=g.size - mid, seed_j=SEED_J, sample_rate=8,
-                flat=True, log=lambda m: log(f"[15] {m}"))
-            os.replace(tmp, part_dir)
-            mi = multipart_io.load_multi_index(part_dir)
-            log(f"[15] {name}: built {mi.n_parts} parts with their reversed-text indexes and "
-                f"the flat layout in {time.time() - t0:.1f} s ({card})")
+        """``g`` cut into two contigs and built into two flat parts (by the
+        prebuild, or here)."""
+        part_dir, secs = build_parts(g, name)
+        secs = secs if secs is not None else prebuilt.get(name)
+        mi = multipart_io.load_multi_index(part_dir)
+        log(f"[15] {name}: " + (f"built {mi.n_parts} parts with their reversed-text indexes "
+                                f"and the flat layout in {secs:.1f} s ({card})" if secs is not None
+                                else f"{mi.n_parts} parts cached in {part_dir}"))
         check(mi.n_parts == 2 and multipart_io.has_flat(part_dir, 2), "expected 2 flat parts")
         return mi
 
@@ -3101,13 +3329,10 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
     counting.start()
     mem = {"requested": 0, "allocated": 0, "small": 0, "stacked": 0}
     z = np.load(reads_path)
-    # the run past 16 shards takes the FM path alone: the seed path's plain
-    # window gather holds (S, lanes, W) int32, 21 GB a batch at 32 shards
-    seed_path = shards <= SHARDS
-    so, spos, j = load_seed_table(seedf) if seed_path else (None, None, 0)
+    so, spos, j = load_seed_table(seedf)
     with metered_uploads(torch, dev, mem):
-        al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev,
-                               **(dict(seed_table=(so, spos), seed_j=j) if seed_path else {}))
+        al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev, seed_table=(so, spos),
+                               seed_j=j)
     del so, spos
     lay = al.layout
     mapped = isinstance(al.sh.bwt_blocks, peer.Shards)
@@ -3123,31 +3348,47 @@ def interval_child(torch, rank, n, dev, gi, seedf, reads_path, sam_path, shards)
               "wall_s": {}, "reads": {}, "batches": {}, "bad": {}, "dp_check": {},
               "refused": {}}
 
+    # the verify's own peak device memory (the window gather and the DP
+    # entry over one batch's candidates), above what was allocated at its
+    # call; the run's overall peak kept across the resets this needs
+    real_verify, peaks = sp._verify_best, {"run": 0, "verify": 0}
+
+    def metered_verify(*a, **kw):
+        torch.cuda.synchronize(dev)
+        peaks["run"] = max(peaks["run"], torch.cuda.max_memory_allocated(dev))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = real_verify(*a, **kw)
+        torch.cuda.synchronize(dev)
+        peaks["verify"] = max(peaks["verify"], torch.cuda.max_memory_allocated(dev) - base)
+        return out
+
     def run(tag, aligner, bs):
         # the warm-up: the verify's DP entry against plain on one batch
         result["dp_check"][tag] = check_dp_entry(torch, aligner, bs[0][:4096],
                                                  text=lay.collective)
         zero()
         torch.cuda.reset_peak_memory_stats(dev)
+        peaks["run"] = peaks["verify"] = 0
         t0 = time.perf_counter()
         recs = []
-        for b in bs:
-            recs.extend(aligner.to_sam(b, aligner.align_batch(b)))
+        with mock.patch.object(sp, "_verify_best", metered_verify):
+            for b in bs:
+                recs.extend(aligner.to_sam(b, aligner.align_batch(b)))
         result["wall_s"][tag] = time.perf_counter() - t0
         result["launches"][tag] = launches()
         result["routes"][tag] = dict(si.CROSS_MERGES)
         result["reads"][tag] = sum(len(b) for b in bs)
         result["batches"][tag] = len(bs)
-        result[f"peak_mem_bytes_{tag}"] = torch.cuda.max_memory_allocated(dev)
+        result[f"peak_mem_bytes_{tag}"] = max(peaks["run"], torch.cuda.max_memory_allocated(dev))
+        result[f"verify_peak_bytes_{tag}"] = peaks["verify"]
         return recs, aligner.sam_header()
 
-    if seed_path:
-        seed_recs, hdr = run("seed path", al, read_batches(z, "seed", RANK_BATCH))
-    fm_al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev) if seed_path else al
+    seed_recs, hdr = run("seed path", al, read_batches(z, "seed", RANK_BATCH))
+    fm_al = sp.ShardedAligner(gi, k=K, n_interval=shards, device=dev)
     fm_recs, hdr = run("FM path", fm_al, read_batches(z, "fm", BATCH))
     if rank == 0:
-        if seed_path:
-            sam.write_sam(sam_path, hdr, seed_recs)
+        sam.write_sam(sam_path, hdr, seed_recs)
         sam.write_sam(f"{sam_path}.fm.sam", hdr, fm_recs)
 
     # every card's used memory while every rank holds both aligners
@@ -3536,8 +3777,6 @@ def phase_interval(torch, codes, card) -> dict:
         own_cards = 1 < n <= n_cards  # every rank on a card of its own
         head = f"{phase} {n} rank(s), {S} shards ({n // g} interval group(s) of {g})"
         paths = {"seed path": sam, "FM path": Path(f"{sam}.fm.sam")}
-        if S > SHARDS:  # the run past 16 shards: the FM path alone (interval_child)
-            del paths["seed path"]
         bodies = {tag: path.read_bytes() for tag, path in paths.items()}
         exact = [dict(np.load(f"{sam}.{r['rank']}.npz")) for r in res]
         for r in res:
@@ -3555,8 +3794,11 @@ def phase_interval(torch, codes, card) -> dict:
             log(f"{head}, {tag}: {n_sam} reads in {wall:.3f} s, {n_sam / wall:.1f} reads/s, "
                 f"{1e3 * wall / n_batches:.1f} ms a batch ({card}); mapped "
                 f"{mapped / n_sam:.6f}, correct {correct / n_sam:.6f}; peak device memory by "
-                f"rank {[r[f'peak_mem_bytes_{tag}'] for r in res]} B; launches by rank "
-                f"{[r['launches'][tag] for r in res]}")
+                f"rank {[r[f'peak_mem_bytes_{tag}'] for r in res]} B, of the verify (above "
+                f"what was allocated at its call) {[r[f'verify_peak_bytes_{tag}'] for r in res]} "
+                f"B; launches by rank {[r['launches'][tag] for r in res]}")
+            if not res[0]["collective"]:
+                VERIFY_PEAK[n, S, tag] = max(r[f"verify_peak_bytes_{tag}"] for r in res)
             check(mapped / n_sam >= MIN_MAPPED and correct / n_sam >= MIN_CORRECT,
                   f"{phase} {tag}, {n} ranks: mapped {mapped / n_sam:.4f}, correct "
                   f"{correct / n_sam:.4f}")
@@ -3618,7 +3860,7 @@ def phase_interval(torch, codes, card) -> dict:
                 check(routes["psum"]["psum gloo"] > 0 and routes["ring"]["ring host barrier"] > 0,
                       f"{who}: ranks that share a card must merge over gloo and host barriers: "
                       f"{routes}")
-            want = {**({"seed path": ("windows entry",)} if "seed path" in paths else {}),
+            want = {"seed path": ("windows entry",),
                     "FM path": ("windows entry", "sharded locate", "sharded piece search"),
                     "exact, merge=psum": ("sharded locate",),
                     "exact, merge=ring": ("sharded locate", "flag-wait ring sum" if own_cards
@@ -3637,6 +3879,12 @@ def phase_interval(torch, codes, card) -> dict:
                       f"{who}: the ring search's chunk-steps are not one table-entry launch and "
                       f"one merge launch each: {ring_run}, {merges} merges")
         timings[phase, n] = {key: res[0][key] for key in ("merge_ms",) if key in res[0]}
+    for tag in ("seed path", "FM path"):
+        few, wide = VERIFY_PEAK[2, SHARDS, tag], VERIFY_PEAK[2, WIDE_SHARDS, tag]
+        log(f"[20] 2 ranks, {tag}: the verify's peak device memory {few} B at {SHARDS} shards, "
+            f"{wide} B at {WIDE_SHARDS} shards ({wide / max(few, 1):.3f}x, limit 1.5x) ({card})")
+        check(wide <= 1.5 * few, f"[20] {tag}: the verify's peak at {WIDE_SHARDS} shards is "
+              f"{wide / max(few, 1):.3f}x that at {SHARDS}")
     if n_cards == 1:
         log(f"[20] the ranks share one card: a peer's shard is read from the same HBM as this "
             f"rank's own, so these times say nothing of reads across NVLink ({card})")
@@ -4836,6 +5084,7 @@ def main() -> int:
         omp = {True: "with OpenMP", False: "without OpenMP", None: "prebuilt, loaded"}[
             native.built_with_openmp]
         log(f"[2] built native/*.cpp with g++ in {time.time() - t0:.1f} s ({omp})")
+        start_prebuild()
         max_err, dp_timing = phase_kernel(torch, dev, card)
         t0 = time.time()
         codes = random_genome(GENOME_LEN, seed=GENOME_SEED)
@@ -4877,6 +5126,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_prebuild()
     myers_win_err, myers_text_err = myers_err
     wide20 = wait20["wide"][WIDE_RANKS[-1]]
     log(f"[smoke] wall {time.time() - t_smoke:.1f} s, of which the checks past the verify "
@@ -4945,9 +5196,13 @@ def main() -> int:
                    (*myers_times["text_wide", PAIR300_L, -(-PAIR300_L // 32)][:4], None),
                    shape={"Q": RESCUE_LANES, "L": PAIR300_L, "W": PAIR300_L + 400,
                           "nwords": -(-PAIR300_L // 32)},
-                   rescue_call={k: pairs300[k] for k in ("lanes", "W", "nwords", "ms")},
+                   rescue_call={k: pairs300[k] for k in ("lanes", "W", "nwords", "ms", "shape")},
+                   latency_floor_ms=myers_times["group_floor"],
+                   link_cycles=myers_times["link_cycles"],
+                   shfl_cycles=myers_times["shfl_cycles"],
                    ms_by_L={Lr: myers_times["text_wide", Lr, -(-Lr // 32)][0]
                             for Lr in WIDE_MYERS_L},
+                   shape_by_L=myers_times["shape_by_L"],
                    bound_ms_by_L={Lr: myers_times["text_wide", Lr, -(-Lr // 32)][2]
                                   for Lr in WIDE_MYERS_L}),
         kernel_row("myers_scratch", "myers.cu", "ops/myers_pallas.py:75",
@@ -4961,6 +5216,8 @@ def main() -> int:
                    myers_win_err, (*myers_times["windows", "rescue"], None)),
         kernel_row("ring_allreduce", "ring.cu", "parallel/ring.py:58",
                    "[10] merge=ring", ring_launches, ring_err["ring"], ring_timing["ring"],
+                   shape={"S": SHARDS, "payload": [2, BATCH // RING_MICROBATCH], "only": 0},
+                   all_rows_ms=RING_ALL_ROWS_MS[SHARDS],
                    launches_by_path={"[10] merge=ring": ring_launches,
                                      f"[10] {WIDE_SHARDS} shards, merge=ring":
                                          wide10[f"[10] {WIDE_SHARDS} shards, merge=ring"][0],
@@ -4970,7 +5227,8 @@ def main() -> int:
                    f"[10] {WIDE_SHARDS} shards, merge=ring",
                    wide10[f"[10] {WIDE_SHARDS} shards, merge=ring"][0], ring_err["ring"],
                    ring_timing["ring_wide"],
-                   shape={"S": WIDE_SHARDS, "payload": [2, BATCH // RING_MICROBATCH]}),
+                   shape={"S": WIDE_SHARDS, "payload": [2, BATCH // RING_MICROBATCH], "only": 0},
+                   all_rows_ms=RING_ALL_ROWS_MS[WIDE_SHARDS]),
         kernel_row("ring_allreduce_flag_wait_wide", "ring.cu", "parallel/ring.py:58",
                    f"none: one card, {WIDE_RANKS[-1]} ranks emulated ([20]); across cards the "
                    f"ranks are the cards", 0, wide20["err"],
@@ -5004,4 +5262,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(rank_child(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())
+    sys.exit(rank_child(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else prebuild_child() if sys.argv[1:2] == ["--prebuild"] else main())

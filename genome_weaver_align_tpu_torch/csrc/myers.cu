@@ -53,26 +53,41 @@
 //   shape; the latency floor is what chip_smoke.py prints beside it.
 //
 // Past 8 words (reads past 256 bases: 2 x 300 bp mate rescue, long reads
-// under verify_mode="myers") one thread would carry nwords words of seven
+// under verify_mode="myers") one thread would carry nwords words of six
 // vectors in registers and a carry chain nwords adds long.  So a lane is a
-// group of G threads (G = 4..32, a power of two inside a warp), thread j
-// holding P consecutive words j P .. j P + P - 1 (P = 4, 8 or 16 in
-// registers, chosen by the host from nwords; the group pads the top words,
-// which nothing reads: carries and shifts only move up).  Each step:
-//   * the carried add (Peq & PV) + PV crosses threads by carry lookahead:
-//     each thread adds its words with carry-in 0 and ballots its generate
-//     (carry out) and propagate (every word all ones); one 32-bit add on the
-//     ballots, ((g | p) + g) ^ p with the group-top bits cleared so no carry
-//     crosses into the next group, gives every thread its carry-in, which
-//     moves each word by one where all the words below it are all ones (a
-//     flag known before the ballot);
-//   * the shift by one of Ph and Mh: each thread computes its top word
-//     first and hands its two top bits up with one __shfl_up_sync; thread 0
-//     of a group takes the search variant's zero fill;
-//   * the score bit at len - 1 is tested by the thread that holds it, which
-//     also keeps best and end and writes them.
+// group of G threads (a power of two inside a warp), thread j holding P
+// consecutive words j P .. j P + P - 1 (P = 1, 4, 8 or 16 in
+// registers; the binding picks (G, P) from nwords, myers_cuda.group_shape;
+// the group pads the top words, which nothing reads: carries and shifts
+// only move up).  The group runs as a wavefront.  Both of a column's
+// dependencies across words flow upwards (the carry of (Peq & PV) + PV and
+// the shift by one of Ph and Mh), so at time step t thread j runs column
+// t - j: it takes the add's carry-in and its top word's Ph and Mh that
+// thread j - 1 computed for the same column one time step earlier (three
+// __shfl_up_sync; thread 0 takes 0, the search variant's free text start),
+// runs its P words (the shift by one a funnel shift with the word below),
+// and keeps its own for thread j + 1.  No ballot and no lookahead: a time
+// step is one thread's P-word chain, and a lane takes steps + G - 1 of
+// them.  What sets the pace at the rescue's few warps a multiprocessor is
+// the instructions a warp issues a step, not the shuffle's latency:
+// handing up a block of 16 columns at a time (one handoff a block) took
+// [8]'s first 300 bp rescue call 0.1103 ms against 0.0903 for a column at
+// a time with one packed shuffle, on an NVIDIA H100 80GB HBM3 at 700.00 W:
+// its 16 (G - 1) more columns a lane cost as much as the shuffles it saved
+// (PERF.md section 6).  So a step keeps only the recurrence, three
+// independent shuffles of whole words (nothing packed or unpacked) and one
+// bit a step of the owner's Ph and Mh at len - 1; the score, best and the
+// end of the first strict improvement are taken every 16 steps from those
+// bits, at once where the run cannot beat best.  Each thread streams its own columns, j behind
+// thread 0 (the window's start moved j bases left, its live columns j
+// right), so before its column 0 a thread runs dead columns (Peq = 0),
+// which leave the initial state (PV all ones, MV 0, nothing handed up) as
+// it is; past its last column its state runs on and is never scored.  The
+// thread that holds bit len - 1 keeps the score at its own column index
+// and writes it.  The same recurrence in another order of time, so (best,
+// end) equal the plain version's on every lane.
 // Past 512 words (16,384 bases) the words live in a scratch buffer the
-// binding allocates, a warp a lane, 7 x ceil(nwords / 32) words a thread,
+// binding allocates, a warp a lane, 6 x ceil(nwords / 32) words a thread,
 // and the same code runs over them (slow, right, and no length refused).
 // Rows are staged as above while lanes a block x L fits a block's shared
 // memory (fewer threads a block down to a warp; past that each lane reads
@@ -80,8 +95,8 @@
 //
 // Entries: gwa_myers (windows) and gwa_myers_text, plain C functions bound
 // with ctypes.  They launch on the caller's stream, do not synchronise,
-// allocate nothing (the binding allocates gwa_myers_scratch_words words of
-// scratch past 512 words), and return the launch's CUDA error code.
+// allocate nothing (the binding allocates the scratch words past 512 words),
+// and return the launch's CUDA error code.
 
 #include <cuda_runtime.h>
 
@@ -97,7 +112,7 @@ constexpr uint32_t kGroup = 16;  // window columns a packed text word
 
 constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int32_t kMemWords = 16 * 32;    // words past which a group's words live in scratch
-constexpr int kScratchVectors = 7;        // Peq x 4, PV, MV, the add's sums
+constexpr int kScratchVectors = 6;        // Peq x 4, PV, MV
 
 struct Args {
   const void* reads;       // (B, L) int8, or the windows entry's (Q, L) int8 / int32
@@ -112,7 +127,7 @@ struct Args {
   uint32_t* scratch;       // kScratchVectors x wpt x stride words past kMemWords
   int64_t Q, stride;
   int32_t B, L, W, steps, nw, n_text;
-  int32_t nwords, group, wpt;  // read words; threads a lane; words a thread
+  int32_t nwords, group, wpt;  // read words; threads a lane; words a thread (the binding's)
   int32_t stage;               // rows staged in shared memory (else read from global memory)
 };
 
@@ -128,19 +143,24 @@ struct TextStream {
   __device__ __forceinline__ uint32_t word(int32_t w) const {
     return __ldg(text + min(max(w, 0), last));
   }
-  __device__ __forceinline__ void init(const Args& a, int64_t q) {
+  // lag: the columns run `lag` behind the window's (a wavefront thread's
+  // place in its group): column c is window column c - lag, dead below 0
+  __device__ __forceinline__ void init(const Args& a, int64_t q, int32_t lag) {
     text = a.text;
     last = a.nw - 1;
-    const int32_t p = a.starts[q];
-    w0 = p >> 4;
+    const long long start = a.starts[q];
+    const long long p = start - lag;
+    w0 = static_cast<int32_t>(p >> 4);
     shift = 2u * static_cast<uint32_t>(p & 15);
-    // live columns: on the text ([-p, n_text - p)) and below min(W, valid)
-    const long long lo = p < 0 ? -static_cast<long long>(p) : 0;
-    const long long cap = static_cast<long long>(min(a.W, a.valid[q]));
-    long long hi = static_cast<long long>(a.n_text) - p;
+    // live columns: on the text ([-start, n_text - start)) and below
+    // min(W, valid), moved by lag
+    const long long lo = (start < 0 ? -start : 0) + lag;
+    const long long cap = static_cast<long long>(min(a.W, a.valid[q])) + lag;
+    long long hi = static_cast<long long>(a.n_text) - start + lag;
     hi = hi < cap ? hi : cap;
     t_lo = static_cast<int32_t>(lo < INT_MAX ? lo : INT_MAX);
-    t_hi = static_cast<int32_t>(hi > lo ? hi : lo);
+    hi = hi > lo ? hi : lo;
+    t_hi = static_cast<int32_t>(hi < INT_MAX ? hi : INT_MAX);
     cur = word(w0);
     nxt = word(w0 + 1);
   }
@@ -156,23 +176,25 @@ struct TextStream {
 };
 
 // Window columns of one lane from a (Q, W) tensor; a column past W reads
-// the last one.
+// the last one; `lag` as TextStream's.
 template <typename T>
 struct WindowStream {
   const T* w;
-  int32_t last;
+  int32_t last, lag;
 
-  __device__ __forceinline__ void init(const Args& a, int64_t q) {
+  __device__ __forceinline__ void init(const Args& a, int64_t q, int32_t lag_) {
     w = static_cast<const T*>(a.windows) + q * a.W;
     last = a.W - 1;
+    lag = lag_;
   }
   __device__ __forceinline__ void group(int32_t u, uint32_t& codes, uint32_t& live) {
     codes = 0;
     live = 0;
 #pragma unroll
     for (int j = 0; j < static_cast<int>(kGroup); ++j) {
-      const int32_t c = static_cast<int32_t>(w[min(static_cast<int32_t>(kGroup) * u + j, last)]);
-      live |= static_cast<uint32_t>(c < 4) << j;
+      const int32_t col = static_cast<int32_t>(kGroup) * u + j - lag;
+      const int32_t c = static_cast<int32_t>(w[min(max(col, 0), last)]);
+      live |= static_cast<uint32_t>(c < 4 && col >= 0) << j;
       codes |= static_cast<uint32_t>(min(max(c, 0), 3)) << (2 * j);
     }
   }
@@ -260,7 +282,7 @@ __global__ void __launch_bounds__(kMaxThreads) myers_kernel(const Args a) {
   s.end = 0;
 
   Stream win;
-  win.init(a, q);
+  win.init(a, q, 0);
   const int32_t full = a.steps / static_cast<int32_t>(kGroup);
   const int32_t rem = a.steps % static_cast<int32_t>(kGroup);
   uint32_t codes, live;
@@ -305,7 +327,7 @@ struct RegWords {
   // and 16 the unrolled step is so long that nvcc's build time, not the
   // loop overhead, is what it costs
   static constexpr bool kUnroll = P <= 4;
-  uint32_t e0[P], e1[P], e2[P], e3[P], pv_[P], mv_[P], s_[P];
+  uint32_t e0[P], e1[P], e2[P], e3[P], pv_[P], mv_[P];
 
   __device__ __forceinline__ void init(const Args&, int64_t) {}
   __device__ __forceinline__ int n() const { return P; }
@@ -323,7 +345,6 @@ struct RegWords {
   }
   __device__ __forceinline__ uint32_t& pv(int u) { return pv_[u]; }
   __device__ __forceinline__ uint32_t& mv(int u) { return mv_[u]; }
-  __device__ __forceinline__ uint32_t& s(int u) { return s_[u]; }
 };
 
 // wpt words of one thread in the scratch buffer: vector v's word u of
@@ -356,70 +377,82 @@ struct MemWords {
   }
   __device__ __forceinline__ uint32_t& pv(int u) { return at(4, u); }
   __device__ __forceinline__ uint32_t& mv(int u) { return at(5, u); }
-  __device__ __forceinline__ uint32_t& s(int u) { return at(6, u); }
 };
 
 template <class Words>
-struct GroupLane {
+struct WaveLane {
   Words w;
-  int own;           // this thread's word holding bit len-1, or -1
+  int own;          // this thread's word holding bit len-1, or -1
   uint32_t own_bit;
-  uint32_t top;      // the warp's group-top lanes: no carry leaves a group
-  int j, ln, G;      // index in the group, lane in the warp, group size
+  int own_pos;      // bit len-1's place in its word
+  int j, G;         // index in the group, group size
+  uint32_t from_below;  // 0 for thread 0 (the search variant's free text start), else all ones
+  // of this thread's last column, from its top word: the add's carry out,
+  // and Ph and Mh (bit 31 is what the shift by one carries up)
+  uint32_t carry_top, hp_top, hn_top;
+  // the owner's Ph and Mh bits at len-1, one bit a time step, the newest at
+  // bit 0: scored a run of 16 time steps at a time (score_run)
+  uint32_t up_run, dn_run;
   int32_t score, best, end;
 
-  __device__ __forceinline__ void step(uint32_t code, bool live, int32_t t) {
+  // time step: column t - j of this thread, whose code and liveness the
+  // stream gave; what comes in from below is what thread j - 1 computed for
+  // the same column at the time step before
+  __device__ __forceinline__ void step(uint32_t code, bool live) {
+    uint32_t carry = __shfl_up_sync(kFull, carry_top, 1, G) & from_below;
+    uint32_t hp_lo = __shfl_up_sync(kFull, hp_top, 1, G) & from_below;
+    uint32_t hn_lo = __shfl_up_sync(kFull, hn_top, 1, G) & from_below;
+    uint32_t up = 0u, dn = 0u;
     const int n = w.n();
-    // the thread's add with carry-in 0; pre: every word so far all ones
-    uint32_t carry = 0u, pre = 1u, pre_top = 1u;
 #pragma unroll
     for (int u = 0; u < n; ++u) {
       const uint32_t peq = live ? w.peq(code, u) : 0u;
-      const uint32_t pv = w.pv(u);
+      const uint32_t pv = w.pv(u), mv = w.mv(u);
       const uint64_t sum = static_cast<uint64_t>(peq & pv) + pv + carry;
       carry = static_cast<uint32_t>(sum >> 32);
-      w.s(u) = static_cast<uint32_t>(sum);
-      if (u == n - 1) pre_top = pre;
-      pre &= static_cast<uint32_t>(static_cast<uint32_t>(sum) == kFull);
-    }
-    // carry lookahead over the group: carry into thread i = g_{i-1} |
-    // (p_{i-1} & carry into i-1), the carries of the add (g | p) + g
-    const uint32_t gen = __ballot_sync(kFull, carry != 0u);
-    const uint32_t prop = __ballot_sync(kFull, pre != 0u);
-    const uint32_t ga = (gen | prop) & ~top, gb = gen & ~top;
-    const uint32_t cin = (((ga + gb) ^ ga ^ gb) >> ln) & 1u;
-    // the top word first: its Ph and Mh top bits enter the next thread
-    const int ut = n - 1;
-    const uint32_t pv_t = w.pv(ut), mv_t = w.mv(ut);
-    const uint32_t peq_t = live ? w.peq(code, ut) : 0u;
-    const uint32_t d0_t = ((w.s(ut) + (cin & pre_top)) ^ pv_t) | peq_t | mv_t;
-    const uint32_t hp_t = mv_t | ~(pv_t | d0_t), hn_t = pv_t & d0_t;
-    uint32_t in = __shfl_up_sync(kFull, (hp_t >> 31) | ((hn_t >> 31) << 1), 1, G);
-    if (j == 0) in = 0u;  // word 0: the search variant's free text start
-    uint32_t hp_in = in & 1u, hn_in = in >> 1;
-    uint32_t up = 0u, dn = 0u, below = 1u;
-#pragma unroll
-    for (int u = 0; u < n; ++u) {
-      const uint32_t peq = live ? w.peq(code, u) : 0u;
-      const uint32_t pv = w.pv(u), mv = w.mv(u), sum = w.s(u);
-      const uint32_t d0 = ((sum + (cin & below)) ^ pv) | peq | mv;
-      below &= static_cast<uint32_t>(sum == kFull);
+      const uint32_t d0 = (static_cast<uint32_t>(sum) ^ pv) | peq | mv;
       const uint32_t hn = pv & d0;
       const uint32_t hp = mv | ~(pv | d0);
       const uint32_t m = u == own ? own_bit : 0u;
       up |= hp & m;
       dn |= hn & m;
-      const uint32_t xs = (hp << 1) | hp_in;
-      hp_in = hp >> 31;
-      const uint32_t hns = (hn << 1) | hn_in;
-      hn_in = hn >> 31;
+      // (hp << 1) | the top bit of the word below, and the same for hn
+      const uint32_t xs = __funnelshift_l(hp_lo, hp, 1);
+      hp_lo = hp;
+      const uint32_t hns = __funnelshift_l(hn_lo, hn, 1);
+      hn_lo = hn;
       w.mv(u) = xs & d0;
       w.pv(u) = hns | ~(xs | d0);
     }
-    score += (up != 0u) - (dn != 0u);
-    if (score < best) {  // strict: ties keep the earliest end
-      best = score;
-      end = t + 1;
+    carry_top = carry;
+    hp_top = hp_lo;
+    hn_top = hn_lo;
+    up_run = (up_run << 1) | (up >> own_pos);
+    dn_run = (dn_run << 1) | (dn >> own_pos);
+  }
+
+  // the last k time steps' bits (k <= 16), time step t_last the newest:
+  // score += up - dn a step, best and the end of its first strict
+  // improvement kept at this thread's column; steps at or past `stop`
+  // (steps + j, past its last column) are not scored.  A run whose lowest
+  // reachable score cannot beat best is added at once.
+  __device__ __forceinline__ void score_run(int k, int32_t t_last, int32_t stop) {
+    const int32_t t_first = t_last - k + 1;
+    const int live = min(max(stop - t_first, 0), k);  // scored steps, the oldest first
+    const uint32_t keep = ((1u << live) - 1u) << (k - live);
+    const uint32_t u = up_run & keep, d = dn_run & keep;
+    up_run = dn_run = 0u;
+    if ((u | d) == 0u) return;
+    if (score - __popc(d) >= best) {
+      score += __popc(u) - __popc(d);
+      return;
+    }
+    for (int i = k - 1; i >= 0; --i) {
+      score += static_cast<int32_t>((u >> i) & 1u) - static_cast<int32_t>((d >> i) & 1u);
+      if (score < best) {  // strict: ties keep the earliest end
+        best = score;
+        end = t_last - i - j + 1;
+      }
     }
   }
 };
@@ -438,13 +471,10 @@ __global__ void __launch_bounds__(kMaxThreads) myers_group_kernel(const Args a) 
                          : static_cast<const T*>(a.reads) + static_cast<int64_t>(r) * a.L;
   if (__all_sync(kFull, !live_lane)) return;  // no later __syncthreads
 
-  GroupLane<Words> s;
+  WaveLane<Words> s;
   s.w.init(a, gt);
   s.G = G;
   s.j = static_cast<int>(threadIdx.x) & (G - 1);
-  s.ln = static_cast<int>(threadIdx.x) & 31;
-  const uint32_t low = G == 32 ? 1u : kFull / ((1u << G) - 1u);  // bit 0 of each group
-  s.top = low << (G - 1);
   const int n = s.w.n();
   const int32_t len = live_lane ? a.lengths[r] : 0;
   const int32_t n_in = len < a.L ? len : a.L;
@@ -452,7 +482,8 @@ __global__ void __launch_bounds__(kMaxThreads) myers_group_kernel(const Args a) 
   const bool has_owner = last_word >= 0 && last_word < a.nwords;
   s.own = has_owner ? last_word - s.j * n : -1;
   if (s.own >= n) s.own = -1;
-  s.own_bit = len >= 1 ? 1u << ((len - 1) & 31) : 0u;
+  s.own_pos = len >= 1 ? (len - 1) & 31 : 0;
+  s.own_bit = len >= 1 ? 1u << s.own_pos : 0u;
   const bool writer = has_owner ? (s.own >= 0) : (s.j == 0);
   // Peq[c][word]: bit b of word v set iff read[32 v + b] == c (i < len)
 #pragma unroll
@@ -476,53 +507,40 @@ __global__ void __launch_bounds__(kMaxThreads) myers_group_kernel(const Args a) 
   s.score = len;
   s.best = len;
   s.end = 0;
+  s.from_below = s.j == 0 ? 0u : kFull;
+  s.carry_top = s.hp_top = s.hn_top = 0u;
+  s.up_run = s.dn_run = 0u;
 
+  // thread j streams its columns j behind thread j - 1 (the window moved j
+  // bases left); thread G - 1 runs the last column at time step steps + G - 2
   Stream win;
-  win.init(a, qc);
-  const int32_t full = a.steps / static_cast<int32_t>(kGroup);
-  const int32_t rem = a.steps % static_cast<int32_t>(kGroup);
+  win.init(a, qc, s.j);
+  const int32_t span = a.steps > 0 ? a.steps + G - 1 : 0;
+  const int32_t stop = a.steps + s.j;
+  const int32_t full = span / static_cast<int32_t>(kGroup);
+  const int32_t rem = span % static_cast<int32_t>(kGroup);
+  constexpr int kG = static_cast<int>(kGroup);
   uint32_t codes, live;
   for (int32_t u = 0; u < full; ++u) {
     win.group(u, codes, live);
-    const int32_t t0 = static_cast<int32_t>(kGroup) * u;
     if constexpr (Words::kUnroll) {
 #pragma unroll
-      for (int jj = 0; jj < static_cast<int>(kGroup); ++jj)
-        s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u, t0 + jj);
+      for (int jj = 0; jj < kG; ++jj) s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u);
     } else {
 #pragma unroll 1
-      for (int jj = 0; jj < static_cast<int>(kGroup); ++jj)
-        s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u, t0 + jj);
+      for (int jj = 0; jj < kG; ++jj) s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u);
     }
+    s.score_run(kG, kG * u + kG - 1, stop);
   }
   if (rem) {
     win.group(full, codes, live);
-    const int32_t t0 = static_cast<int32_t>(kGroup) * full;
-    for (int32_t jj = 0; jj < rem; ++jj)
-      s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u, t0 + jj);
+    for (int32_t jj = 0; jj < rem; ++jj) s.step((codes >> (2 * jj)) & 3u, (live >> jj) & 1u);
+    s.score_run(rem, kG * full + rem - 1, stop);
   }
   if (live_lane && writer) {
     a.best[q] = s.best;
     a.end[q] = s.end;
   }
-}
-
-// The group's shape from nwords: P = 4 words a thread and G the power of
-// two that covers nwords (4..32 threads, up to 128 words), then a warp of 8
-// or 16 words a thread, then a warp over the scratch buffer.
-struct Shape {
-  int group, wpt;
-};
-
-__host__ __device__ inline Shape group_shape(int32_t nwords) {
-  if (nwords <= 4 * 32) {
-    int g = 4;
-    while (g * 4 < nwords) g *= 2;
-    return {g, 4};
-  }
-  if (nwords <= 8 * 32) return {32, 8};
-  if (nwords <= kMemWords) return {32, 16};
-  return {32, (nwords + 31) / 32};
 }
 
 template <class Words, typename T, class Stream>
@@ -543,38 +561,37 @@ int dispatch(int32_t nwords, Args a, int64_t scratch_words, cudaStream_t s) {
     case 8: return launch<8, T, Stream>(a, s);
     default: break;
   }
-  if (nwords < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Shape sh = group_shape(nwords);
+  // a group: G a power of two inside a warp, G x P words covering nwords
+  const int32_t G = a.group, P = a.wpt;
+  if (nwords < 1 || G < 2 || G > 32 || (G & (G - 1)) != 0 || P < 1 ||
+      static_cast<int64_t>(G) * P < nwords)
+    return static_cast<int>(cudaErrorInvalidValue);
   a.nwords = nwords;
-  a.group = sh.group;
-  a.wpt = sh.wpt;
   if (nwords > kMemWords) {
-    a.stride = a.Q * sh.group;
-    if (!a.scratch || scratch_words < kScratchVectors * static_cast<int64_t>(sh.wpt) * a.stride)
+    a.stride = a.Q * G;
+    if (G != 32 || !a.scratch ||
+        scratch_words < kScratchVectors * static_cast<int64_t>(P) * a.stride)
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_group<MemWords, T, Stream>(a, s);
   }
-  switch (sh.wpt) {
+  switch (P) {
+    case 1: return launch_group<RegWords<1>, T, Stream>(a, s);
     case 4: return launch_group<RegWords<4>, T, Stream>(a, s);
     case 8: return launch_group<RegWords<8>, T, Stream>(a, s);
-    default: return launch_group<RegWords<16>, T, Stream>(a, s);
+    case 16: return launch_group<RegWords<16>, T, Stream>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Scratch words a launch over Q lanes of nwords needs (0 up to kMemWords).
-extern "C" int64_t gwa_myers_scratch_words(int64_t Q, int32_t nwords) {
-  if (nwords <= kMemWords) return 0;
-  const Shape sh = group_shape(nwords);
-  return kScratchVectors * static_cast<int64_t>(sh.wpt) * Q * sh.group;
-}
-
 // The windows entry.  elem_bytes: 1 for int8 reads and windows, 4 for int32.
+// Past 8 words a group of `group` threads of `wpt` words a lane (the
+// binding's choice); past 512 words scratch_words >= 6 wpt Q group.
 extern "C" int gwa_myers(const void* reads, const void* lengths, const void* windows, void* best,
                          void* end, int64_t Q, int32_t L, int32_t W, int32_t nwords,
-                         int32_t steps, int32_t elem_bytes, void* scratch, int64_t scratch_words,
-                         void* stream) {
+                         int32_t group, int32_t wpt, int32_t steps, int32_t elem_bytes,
+                         void* scratch, int64_t scratch_words, void* stream) {
   if (Q <= 0) return 0;
   if (L < 0 || steps < 0 || (steps > 0 && W <= 0) || Q > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -589,6 +606,8 @@ extern "C" int gwa_myers(const void* reads, const void* lengths, const void* win
   a.L = L;
   a.W = W;
   a.steps = steps;
+  a.group = group;
+  a.wpt = wpt;
   a.scratch = static_cast<uint32_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 1) return dispatch<int8_t, WindowStream<int8_t>>(nwords, a, scratch_words, s);
@@ -598,12 +617,12 @@ extern "C" int gwa_myers(const void* reads, const void* lengths, const void* win
 
 // The text entry: reads (B, L) int8, lengths (B,), rid, starts and valid
 // (Q,) int32 (rid clamped into [0, B)), text over nw words of n_text bases;
-// W columns a window.
+// W columns a window; group and wpt as gwa_myers'.
 extern "C" int gwa_myers_text(const void* text, int32_t nw, int32_t n_text, const void* starts,
                               const void* reads, const void* lengths, const void* rid,
                               const void* valid, void* best, void* end, int64_t Q, int32_t B,
-                              int32_t L, int32_t W, int32_t nwords, void* scratch,
-                              int64_t scratch_words, void* stream) {
+                              int32_t L, int32_t W, int32_t nwords, int32_t group, int32_t wpt,
+                              void* scratch, int64_t scratch_words, void* stream) {
   if (Q <= 0) return 0;
   if (B <= 0 || L < 0 || W < 0 || nw <= 0 || n_text < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -623,6 +642,8 @@ extern "C" int gwa_myers_text(const void* text, int32_t nw, int32_t n_text, cons
   a.steps = W;
   a.nw = nw;
   a.n_text = n_text;
+  a.group = group;
+  a.wpt = wpt;
   a.scratch = static_cast<uint32_t*>(scratch);
   return dispatch<int8_t, TextStream>(nwords, a, scratch_words, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,8 @@
 //
 // Replaces the two Pallas TPU kernels of genome_weaver_align_tpu/parallel/ring.py:
 //   _ring_kernel             -> allreduce_kernel<T, S>   (int32, float32; S = 1..16),
-//                               allreduce_wide_kernel    (past 16 shards),
+//                               allreduce_split_kernel<Vec> (int32, past 16 shards),
+//                               allreduce_ring_kernel<Vec> (float32, past 16 shards),
 //                               push_wait_kernel<T, R, Vec> (across cards; R = 1..16,
 //                                                        R = 0 past 16 ranks)
 //   _fused_rank_ring_kernel  -> fused_words_kernel       (the JAX contract: gathered rows)
@@ -22,7 +23,7 @@
 // written there by the fused table entry), and the sum runs over the
 // group's ranks in group order.  Two orders between the processes:
 //   - ranks that share one card: the host orders the steps (a stream
-//     synchronize and a barrier before allreduce_kernel reads every rank's
+//     synchronize and a barrier before the sum kernel reads every rank's
 //     row, writing this rank's output only: a null output address is
 //     skipped): kernels of two processes time-slice one card, so none may
 //     wait on another's flag;
@@ -70,13 +71,23 @@
 // written.  Its yardstick is NCCL's all_reduce on the same payload
 // (chip_smoke.py [20]).
 //
-// allreduce_kernel: each thread reads the same 16-byte vector (or, where a
-// shard's buffers are not 16-byte aligned or n is not a multiple of 4, the
-// same element) of every shard's input; int32 adds wrap, so one sum serves
-// every shard; float32 adds each shard's sum in its own ring order, reading
-// every input once for each output.  Bound: bytes (S inputs read and S
-// outputs written once); the adds are S-1 an element (int32) or S(S-1)
-// (float32).
+// allreduce_kernel (S <= 16): each thread reads the same 16-byte vector (or,
+// where a shard's buffers are not 16-byte aligned or n is not a multiple
+// of 4, the same element) of every shard's input, the loops over the
+// shards unrolled over S; int32 adds wrap, so one sum serves every shard;
+// float32 adds each shard's sum in its own ring order.
+// allreduce_split_kernel (int32, past 16 shards): an item (a 16-byte
+// vector of 4 elements where every pointer is 16-byte aligned and n a
+// multiple of 4, else one element) is a group of up to a warp's lanes,
+// each reading a slice of the shards with several independent loads in
+// flight, combined by shuffles; int32 adds wrap, so one sum serves every
+// shard.  The exact search's merge asks for one shard's sum (`only`): one
+// output row written, not S.
+// allreduce_ring_kernel (float32, past 16 shards): one thread an item adds
+// each output in its own ring order, reading every input once for each
+// output.  Bound:
+// bytes (S inputs read and every output written once); the adds are S-1 an
+// element (int32) or S(S-1) (float32).
 //
 // fused_words_kernel: one thread per (payload, query) walks the S shards.
 // It reads own first and loads the 32-byte word row (two 16-byte loads),
@@ -112,9 +123,10 @@
 // (fm_occ.cuh): any count the card's memory holds.  The sum and the push
 // keep a second kernel up to kMaxShards shards or ranks, their loops
 // unrolled over a constant count and the addresses kernel parameters read
-// at constant indices: at S = 4 the sum takes 0.0024 ms against the loop
-// over a runtime count's 0.0030, the push (4 ranks emulated on one card)
-// 0.0060 against 0.0064 (PERF.md section 6).
+// at constant indices: at S = 4 the sum's one-row call takes 0.0023 ms
+// against the int32 split's 0.0028, the push (4 ranks emulated on one
+// card) 0.0060 against the loop over a runtime count's 0.0064, on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6).
 //
 // Entries: gwa_allreduce, gwa_allreduce_wait (and its grid,
 // gwa_allreduce_wait_blocks), gwa_fused_words and gwa_fused_occ, plain C
@@ -266,12 +278,28 @@ int allreduce(const ShardIO& p, int64_t n, bool aligned, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Any S: shard d's input at base + d * n elements (stacked) or at the d-th
-// address of a device table; the outputs stacked (`only` < 0) or shard
-// `only`'s alone.  The same sums in the same order, each item's S inputs
-// read from device memory (float32 reads every input once for each
-// output: S^2 adds an item, as the ring's order asks).
-struct WideIO {
+// One item: a 16-byte vector of 4 elements, or one element.
+template <bool Vec>
+using Item = typename std::conditional<Vec, uint4, unsigned>::type;
+
+__device__ __forceinline__ uint4 shfl_xor(uint4 v, int o, unsigned mask) {
+  return make_uint4(__shfl_xor_sync(mask, v.x, o), __shfl_xor_sync(mask, v.y, o),
+                    __shfl_xor_sync(mask, v.z, o), __shfl_xor_sync(mask, v.w, o));
+}
+__device__ __forceinline__ unsigned shfl_xor(unsigned v, int o, unsigned mask) {
+  return __shfl_xor_sync(mask, v, o);
+}
+template <bool Vec>
+__device__ __forceinline__ Item<Vec> zero_item();
+template <>
+__device__ __forceinline__ uint4 zero_item<true>() { return make_uint4(0u, 0u, 0u, 0u); }
+template <>
+__device__ __forceinline__ unsigned zero_item<false>() { return 0u; }
+
+// Shard d's input at base + d * n elements (stacked) or at the d-th address
+// of a device table; the outputs stacked (`only` < 0) or shard `only`'s
+// alone.
+struct SumIO {
   const char* in;
   char* out;
   int64_t stride;  // bytes a shard: n elements
@@ -286,35 +314,87 @@ struct WideIO {
   }
 };
 
-// out[d] = x_d + x_{d-1} + ... + x_{d-S+1} for each item (a 16-byte vector
-// of 4 elements, or one element) of x[0..S-1].
-template <typename T, bool Vec>
-__global__ void __launch_bounds__(kThreads) allreduce_wide_kernel(const WideIO p, int64_t items) {
-  using It = typename std::conditional<Vec, uint4, unsigned>::type;
+// int32: an item's S inputs split over a group of G = 2^g_log lanes of a
+// warp.  Lane i of the group reads shards i, i + G, ..., kLoads of them at
+// a time, every load independent of the others (kLoads loads in flight a
+// lane), and the group adds its lanes' partials with __shfl_xor_sync.  Wrapping
+// int32 adds are associative and commutative, so the sum is the ring's bit
+// for bit in any order, and one sum serves every shard.  The group's lanes
+// then write the outputs, lane i rows i, i + G, ... (lane 0 shard `only`'s
+// alone).  A round of kLoads x G shards takes one load latency, so an item
+// waits ceil(S / (kLoads G)) of them, and G lanes an item put S / kLoads
+// loads in flight where one thread an item had kLoads.  Eight loads a
+// lane: a warp's load of one shard then covers eight consecutive 16-byte
+// vectors, a whole 128-byte line.
+constexpr int kLoads = 8;
+
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads) allreduce_split_kernel(const SumIO p, int64_t items,
+                                                                   int g_log) {
+  using It = Item<Vec>;
+  const int G = 1 << g_log;
+  const int i = static_cast<int>(threadIdx.x) & (G - 1);
+  const int first = static_cast<int>(threadIdx.x) & 31 & ~(G - 1);  // the group's first lane
+  const unsigned mask = G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << first;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (kThreads >> g_log);
+  for (int64_t v = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> g_log;
+       v < items; v += stride) {
+    It acc = zero_item<Vec>();
+    for (int d0 = i; d0 < p.S; d0 += kLoads * G) {
+      It x[kLoads];
+#pragma unroll
+      for (int l = 0; l < kLoads; ++l) {
+        const int d = d0 + l * G;
+        x[l] = d < p.S ? __ldg(static_cast<const It*>(p.in_at(d)) + v) : zero_item<Vec>();
+      }
+#pragma unroll
+      for (int l = 0; l < kLoads; ++l) acc = add_bits<int>(acc, x[l]);
+    }
+    for (int o = 1; o < G; o <<= 1) acc = add_bits<int>(acc, shfl_xor(acc, o, mask));
+    if (p.only >= 0) {
+      if (i == 0) reinterpret_cast<It*>(p.out)[v] = acc;
+    } else {
+      for (int d = i; d < p.S; d += G) static_cast<It*>(p.out_at(d))[v] = acc;
+    }
+  }
+}
+
+// float32: one thread an item, every output in its own ring order,
+// out[d] = x_d + x_{d-1} + ... + x_{d-S+1} (S^2 adds an item where every
+// output is written, as the ring's order asks; S - 1 with `only`).
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads) allreduce_ring_kernel(const SumIO p, int64_t items) {
+  using It = Item<Vec>;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; v < items;
        v += stride) {
-    const auto at = [&](int d) { return static_cast<const It*>(p.in_at(d))[v]; };
-    if constexpr (std::is_same<T, int>::value) {
-      It acc = at(0);
+    const auto at = [&](int d) { return __ldg(static_cast<const It*>(p.in_at(d)) + v); };
+    for (int d = 0; d < p.S; ++d) {
+      void* o = p.out_at(d);
+      if (o == nullptr) continue;
+      It acc = at(d);
 #pragma unroll 4
-      for (int d = 1; d < p.S; ++d) acc = add_bits<T>(acc, at(d));
-      for (int d = 0; d < p.S; ++d) {
-        void* o = p.out_at(d);
-        if (o != nullptr) static_cast<It*>(o)[v] = acc;
-      }
-    } else {
-      for (int d = 0; d < p.S; ++d) {
-        void* o = p.out_at(d);
-        if (o == nullptr) continue;
-        It acc = at(d);
-#pragma unroll 4
-        for (int t = 1; t < p.S; ++t)
-          acc = add_bits<T>(acc, at(d - t < 0 ? d - t + p.S : d - t));
-        static_cast<It*>(o)[v] = acc;
-      }
+      for (int t = 1; t < p.S; ++t) acc = add_bits<float>(acc, at(d - t < 0 ? d - t + p.S : d - t));
+      static_cast<It*>(o)[v] = acc;
     }
   }
+}
+
+// The int32 split past kMaxShards shards: G lanes an item, the power of
+// two that covers S / kLoads shards, at most a warp.
+inline int split_lanes_log(int S) {
+  int g_log = 0;
+  while (g_log < 5 && (kLoads << g_log) < S) ++g_log;
+  return g_log;
+}
+
+template <bool Vec>
+int launch_split(const SumIO& p, int64_t items, int g_log, cudaStream_t s) {
+  unsigned blocks = 0;
+  const int rc = grid_blocks(items << g_log, &blocks);
+  if (rc != 0) return rc;
+  allreduce_split_kernel<Vec><<<blocks, kThreads, 0, s>>>(p, items, g_log);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -383,10 +463,6 @@ __device__ __forceinline__ long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-
-// One item: a 16-byte vector of 4 elements, or one element.
-template <bool Vec>
-using Item = typename std::conditional<Vec, uint4, unsigned>::type;
 
 __device__ __forceinline__ uint4 ld_cg(const uint4* p) { return __ldcg(p); }
 __device__ __forceinline__ unsigned ld_cg(const unsigned* p) { return __ldcg(p); }
@@ -640,11 +716,11 @@ int launch_occ(const TableIO& a, int S, int R, int primary, const gwa::Split& pk
 
 // dtype 0: int32, 1: float32; n elements a shard.  in_ptrs, out_ptrs: S
 // device pointers each (host memory); a null output pointer is not
-// written, and `only` (-1: none) is the one output that is.  aligned:
-// every pointer 16-byte aligned (the binding's finding).  Up to
-// kMaxShards shards the pointers are the kernel's parameters; past it the
-// inputs are the rows of one stacked tensor (shard 0's at in_ptrs[0])
-// where `in_table` is null, else their S addresses in device memory
+// written, and `only` (-1: none) is the one output that is.  aligned: every
+// pointer 16-byte aligned (the binding's finding).  Up to kMaxShards shards
+// the pointers are the unrolled kernel's parameters; past it the inputs
+// are the rows of one stacked tensor (shard 0's at in_ptrs[0]) where
+// `in_table` is null, else their S addresses in device memory
 // (`in_table`), and the outputs one stacked tensor or shard `only`'s.
 extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptrs,
                              const uint64_t* out_ptrs, const void* in_table, int aligned,
@@ -662,7 +738,7 @@ extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptr
     return dtype == 0 ? allreduce_s<int>(S, p, n, aligned != 0, s)
                       : allreduce_s<float>(S, p, n, aligned != 0, s);
   }
-  WideIO p{};
+  SumIO p{};
   p.S = S;
   p.only = only;
   p.in = reinterpret_cast<const char*>(in_ptrs[0]);
@@ -671,19 +747,17 @@ extern "C" int gwa_allreduce(int dtype, int S, int64_t n, const uint64_t* in_ptr
   p.in_tab = static_cast<const uint64_t*>(in_table);
   const bool vec = aligned && n % 4 == 0;
   const int64_t items = vec ? n / 4 : n;
+  if (dtype == 0) {
+    const int g_log = split_lanes_log(S);
+    return vec ? launch_split<true>(p, items, g_log, s) : launch_split<false>(p, items, g_log, s);
+  }
   unsigned blocks = 0;
   const int rc = grid_blocks(items, &blocks);
   if (rc != 0) return rc;
-  if (dtype == 0) {
-    if (vec) {
-      allreduce_wide_kernel<int, true><<<blocks, kThreads, 0, s>>>(p, items);
-    } else {
-      allreduce_wide_kernel<int, false><<<blocks, kThreads, 0, s>>>(p, items);
-    }
-  } else if (vec) {
-    allreduce_wide_kernel<float, true><<<blocks, kThreads, 0, s>>>(p, items);
+  if (vec) {
+    allreduce_ring_kernel<true><<<blocks, kThreads, 0, s>>>(p, items);
   } else {
-    allreduce_wide_kernel<float, false><<<blocks, kThreads, 0, s>>>(p, items);
+    allreduce_ring_kernel<false><<<blocks, kThreads, 0, s>>>(p, items);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,10 @@ entries over one kernel body:
   ``ops.myers.myers_semiglobal_end``.
 
 Both take any number of words, as the plain version does: one thread a
-lane up to ``LANE_WORDS`` words, a group of 4-32 threads a lane (4, 8 or
-16 words a thread in registers) up to ``MEM_WORDS``, a warp a lane over a
-scratch buffer (allocated here) past it.
+lane up to ``LANE_WORDS`` words, a group of 8-32 threads a lane (1-16
+words a thread in registers, ``group_shape``) up to ``MEM_WORDS``, a warp
+a lane over a scratch buffer (allocated here) past it.  A group runs as a
+wavefront: thread j a window column behind thread j - 1.
 
 ``ops._cuda_build`` compiles it at first use with ``nvcc`` for ``sm_90a``;
 without ``nvcc``, or when the build fails, loading raises: there is no
@@ -33,6 +34,34 @@ from ._cuda_build import load_kernel_library
 LANE_WORDS = 8  # one thread a lane up to 8 words (256 bases), as the TPU kernel
 MEM_WORDS = 512  # a group's words in registers up to here (16,384 bases)
 DESIGNS = ("lane", "group", "scratch")
+# words a thread the register design is built for (``csrc/myers.cu``
+# ``dispatch``): those ``group_shape`` picks
+REG_WORDS = (1, 4, 8, 16)
+
+
+def group_shape(nwords: int) -> tuple[int, int]:
+    """(G threads a lane, P words a thread) past ``LANE_WORDS`` words.  A
+    wavefront time step is one thread's P-word chain, and what sets its
+    pace is the instructions a warp issues a step: up to 16 words 16
+    threads of one word (the 300 bp rescue's few hundred lanes leave most
+    schedulers a warp or less, and a one-word step is the shortest), past
+    them 4 words a thread (the step unrolled) on the power of two that
+    covers nwords / 4, 8-32 threads, then a warp of 8 or 16.  Measured on
+    an NVIDIA H100 80GB HBM3 at 700.00 W (``scripts/verify_kernels_ab.py``
+    with ``DIR:GxP``, PERF.md section 6): [8]'s first 300 bp rescue call
+    0.0670 ms at 16 x 1 against 0.1323 at 4 x 4 and 0.2847 at 8 x 8; at
+    2,048 lanes 32 words 0.1485 ms at 8 x 4 against 0.3202 at 8 x 8, 64
+    words 0.4906 at 16 x 4 against 0.5616 at 8 x 8.  Past ``MEM_WORDS`` a
+    warp of ceil(nwords / 32) words a thread in scratch."""
+    if nwords > MEM_WORDS:
+        return 32, -(-nwords // 32)
+    if nwords <= 16:
+        return 16, 1
+    for P in (4, 8, 16):
+        need = -(-nwords // P)
+        if need <= 32:
+            return 1 << (need - 1).bit_length(), P
+    raise AssertionError(nwords)
 
 
 def design(nwords: int) -> str:
@@ -47,14 +76,13 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("myers.cu")
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     i64 = ctypes.c_int64
-    lib.gwa_myers.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp, i64, vp]
+    lib.gwa_myers.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp,
+                              i64, vp]
     lib.gwa_myers.restype = ctypes.c_int
     lib.gwa_myers_text.argtypes = [
-        vp, i32, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp, i64, vp,
+        vp, i32, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i32, vp, i64, vp,
     ]
     lib.gwa_myers_text.restype = ctypes.c_int
-    lib.gwa_myers_scratch_words.argtypes = [i64, i32]
-    lib.gwa_myers_scratch_words.restype = i64
     return lib
 
 
@@ -63,10 +91,13 @@ def _check_words(nwords: int) -> None:
         raise ValueError(f"nwords={nwords}: the kernel takes 1 <= nwords < 2^26")
 
 
-def _scratch(lib, Q: int, nwords: int, device):
+SCRATCH_VECTORS = 6  # Peq x 4, PV, MV (``csrc/myers.cu`` kScratchVectors)
+
+
+def _scratch(Q: int, nwords: int, G: int, P: int, device):
     """The scratch buffer a launch past ``MEM_WORDS`` words needs: (tensor
     or None, its words)."""
-    n = lib.gwa_myers_scratch_words(Q, nwords)
+    n = SCRATCH_VECTORS * P * Q * G if nwords > MEM_WORDS else 0
     return (torch.empty(n, dtype=torch.int32, device=device) if n else None), n
 
 
@@ -103,6 +134,7 @@ def myers_semiglobal_cuda(
     nwords = max(1, -(-L // 32)) if nwords is None else nwords
     steps = W if steps is None else steps
     _check_words(nwords)
+    G, P = group_shape(nwords) if nwords > LANE_WORDS else (0, 0)
     if steps > 0 and W == 0:
         raise ValueError("windows have no columns to step over")
     best = torch.empty(Q, dtype=torch.int32, device=reads.device)
@@ -110,11 +142,11 @@ def myers_semiglobal_cuda(
     if Q == 0:
         return best, end
     lib = _library()
-    scratch, n_scratch = _scratch(lib, Q, nwords, reads.device)
+    scratch, n_scratch = _scratch(Q, nwords, G, P, reads.device)
     with torch.cuda.device(reads.device):
         rc = lib.gwa_myers(
             reads.data_ptr(), lengths.data_ptr(), windows.data_ptr(),
-            best.data_ptr(), end.data_ptr(), Q, L, W, nwords, steps,
+            best.data_ptr(), end.data_ptr(), Q, L, W, nwords, G, P, steps,
             reads.element_size(), None if scratch is None else scratch.data_ptr(), n_scratch,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -159,6 +191,7 @@ def myers_semiglobal_text_cuda(
         raise ValueError("myers_semiglobal_text_cuda needs contiguous tensors")
     B, L = reads.shape
     _check_words(nwords)
+    G, P = group_shape(nwords) if nwords > LANE_WORDS else (0, 0)
     if not 0 <= n_text < 1 << 31 or W < 0:
         raise ValueError(f"n_text={n_text}, W={W}: out of the kernel's int32 range")
     best = torch.empty(Q, dtype=torch.int32, device=reads.device)
@@ -168,12 +201,12 @@ def myers_semiglobal_text_cuda(
     if B == 0 or text_words.shape[0] == 0:
         raise ValueError("myers_semiglobal_text_cuda needs at least one read and one text word")
     lib = _library()
-    scratch, n_scratch = _scratch(lib, Q, nwords, reads.device)
+    scratch, n_scratch = _scratch(Q, nwords, G, P, reads.device)
     with torch.cuda.device(reads.device):
         rc = lib.gwa_myers_text(
             text_words.data_ptr(), text_words.shape[0], n_text, starts.data_ptr(),
             reads.data_ptr(), lengths.data_ptr(), rid.data_ptr(), valid.data_ptr(),
-            best.data_ptr(), end.data_ptr(), Q, B, L, W, nwords,
+            best.data_ptr(), end.data_ptr(), Q, B, L, W, nwords, G, P,
             None if scratch is None else scratch.data_ptr(), n_scratch,
             torch.cuda.current_stream().cuda_stream,
         )

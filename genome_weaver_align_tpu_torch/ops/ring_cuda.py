@@ -17,9 +17,11 @@ kernel adds the stride), its own allocation, or another process's mapped
 through CUDA IPC (on this card, whichever card holds the memory:
 ``parallel.peer``); this binding decides which, and passes the kernels
 the addresses of shards apart as a device table (``fm_search_cuda.
-address_table``, made once for a set of addresses), which the sum and the
-flag-wait push read past 16 shards or ranks (below, their pointers are
-kernel parameters).
+address_table``, made once for a set of addresses), which the sum reads for
+past 16 shards and the flag-wait push past 16 ranks (below, their pointers
+are kernel parameters).  Past 16 shards the int32 sum spreads each 16-byte
+vector's shards over a group of a warp's lanes, several loads in flight a
+lane; every sum writes one output row where ``only`` names it.
 
 ``ring_allreduce_wait_cuda`` is the sum's flag-wait entry, for ranks on
 separate cards: each rank's partial lies in its row of its own inbox, and
@@ -129,9 +131,9 @@ def ring_allreduce_cuda(parts, only: int | None = None) -> torch.Tensor:
     ranks' partial slots, mapped from other processes): every shard's row of
     the result holds the sum, added in ``ring_psum_plain``'s order.  With
     ``only`` = d the kernel writes shard d's sum alone and returns it
-    ``(...)``.  One kernel pass on the output's card (shard d's, or the
-    first shard's); launches on the current stream without synchronising.
-    Counts each launch in ``.launches``."""
+    ``(...)``.  One kernel pass on the output's card (shard
+    d's, or the first shard's); launches on the current stream without
+    synchronising.  Counts each launch in ``.launches``."""
     ins, out, outs, code = _sum_io(parts, only, "ring_allreduce_cuda")
     n = ins[0].numel()
     if n == 0:

@@ -397,8 +397,9 @@ def default_merge(parts: torch.Tensor) -> torch.Tensor:
 
 
 def ring_merge(parts: torch.Tensor) -> torch.Tensor:
-    """The ring all-reduce (``parallel.ring.ring_psum``); shard 0's copy."""
-    return ring.ring_psum(parts)[0]
+    """The ring all-reduce (``parallel.ring.ring_psum``); shard 0's copy, the
+    only output the kernel writes."""
+    return ring.ring_psum(parts, only=0)
 
 
 def occ_codes(sh, codes, k, merge=None):

@@ -20,12 +20,17 @@ runs the whole pipeline for its reads):
                          CUDA device, ``csrc/locate.cu``; on the CPU merges
                          per LF step);
 3. candidate dedup     — sort + neighbour mask;
-4. window gather       — each genome position contributed by the shard that
-                         owns it, merged;
-5. banded DP verify    — one verify over all (B, Cs*S) candidates, NO_CAND
-                         padding giving INF.  The JAX package splits this
-                         across the interval axis and all_gathers the
-                         distances; on one device the split buys nothing;
+4. window gather       — each genome position read from the one shard that
+                         owns it (``gather_windows``: one (Q, W) tensor,
+                         code 4 where no shard owns the position; the sum
+                         of the owners' contributions that the JAX package
+                         merges, since ownership is disjoint);
+5. banded DP verify    — one verify over all (B, C) candidates, NO_CAND
+                         giving INF.  The JAX package pads the candidates
+                         to Cs*S, splits the verify across the interval
+                         axis and all_gathers the distances; on one device
+                         the split buys nothing, and the padding only adds
+                         lanes that best_hit never picks;
 6. best hit            — deterministic (dist, pos) order.
 
 The verify runs the hand-written banded-DP kernel on a CUDA device and its
@@ -65,7 +70,7 @@ from ..models.pipeline import (
     reads_to_batch_verify,
     revcomp_verify_batch,
 )
-from ..ops import affine, rank
+from ..ops import affine, rank, window
 from ..ops import dp as dp_ops
 from ..ops.rank import _upload
 from ..utils import sam as sam_mod
@@ -109,18 +114,53 @@ def put_text(tx: ShardedText, device, layout: pmesh.ShardLayout = None) -> Shard
     return si.put_tables(tx, device, layout, ("words",), ("base", "end"))
 
 
-def local_gather_windows(tx: ShardedText, starts: torch.Tensor, width: int):
-    """Each shard's contribution to the (Q, width) window codes and its
-    ownership mask: two (S, Q, width) int32 tensors; the merge sums them.
-    Positions outside the genome have no owner: the caller writes code 4
-    where the merged mask is 0."""
-    idx = starts.to(I32)[:, None] + torch.arange(width, dtype=I32, device=starts.device)[None, :]
-    base, end = tx.base[:, None, None], tx.end[:, None, None]
-    own = (idx[None] >= base) & (idx[None] < end)
-    local = (idx[None] - base).clamp(min=0)
-    wlen = tx.words.shape[1]
-    codes = (si.shard_rows(tx.words, (local >> 4).clamp(0, wlen - 1)) >> (2 * (local & 15))) & 3
-    return torch.where(own, codes, 0), own.to(I32)
+def _shard_order(tx: ShardedText):
+    """The shards in order of their first base, empty ones last: (order,
+    the sorted keys).  The one shard that can hold a position is at the
+    place ``searchsorted(keys, pos, right=True) - 1`` of that order: the
+    last non-empty shard whose base is at most pos, -1 before every shard
+    (the caller checks the shard's end)."""
+    key = torch.where(tx.end > tx.base, tx.base, torch.iinfo(I32).max)
+    order = torch.argsort(key, stable=True).to(I32)
+    return order, key[order].contiguous()
+
+
+def gather_windows(tx: ShardedText, starts: torch.Tensor, width: int) -> torch.Tensor:
+    """The (Q, width) int8 window codes at ``starts``, each base read from
+    the one shard whose [base, end) holds it, code 4 where none does (off
+    the genome): what the owners' contributions merged by a sum give, since
+    the shards' ranges are disjoint.  Nothing grows with the shard count.
+    The windows in order of their start: the windows a shard's range
+    touches are then one run of them, found for every shard at once and
+    read to the host in one synchronisation; each shard fills its run from
+    its own words wherever they live (stacked, one tensor a shard, mapped
+    from another process; ``ops.window.gather_windows``)."""
+    starts = starts.to(I32)
+    # the windows' codes in order of their start, 4 until an owner writes
+    got = torch.full((starts.shape[0], width), 4, dtype=torch.int8, device=starts.device)
+    if starts.shape[0] == 0 or width == 0:
+        return got
+    by = torch.argsort(starts)
+    s_by = starts[by]
+    order, keys = _shard_order(tx)
+    # the shard places of each window's first and last base: both
+    # nondecreasing along ``by``
+    first = torch.searchsorted(keys, s_by, right=True) - 1
+    last = torch.searchsorted(keys, s_by + (width - 1), right=True) - 1
+    ranks = torch.arange(len(tx.words), device=starts.device)
+    lo = torch.searchsorted(last, ranks)  # the first window reaching the shard
+    hi = torch.searchsorted(first, ranks, right=True)  # past the last starting by it
+    runs = torch.stack([order.long(), lo, hi, tx.base[order].long(), tx.end[order].long()])
+    for s, a, z, b, e in zip(*runs.tolist()):
+        if a < z and b < e:
+            # the shard's codes where it owns a position, 4 elsewhere: the
+            # owners are disjoint, so the least code is the owner's
+            run = got[a:z]
+            torch.minimum(run, window.gather_windows(tx.words[s], e - b, s_by[a:z] - b, width),
+                          out=run)
+    out = torch.empty_like(got)
+    out[by] = got
+    return out
 
 
 @dataclass(frozen=True)
@@ -215,22 +255,19 @@ def _collective(layout: pmesh.ShardLayout, dev):
     return si._psum_across(layout.group, nccl), si.gather_across(layout.group, nccl)
 
 
-def _verify_best(tx, reads, lengths, cand, k, W, n_interval):
-    """Windows of every candidate (owner-computes + merge), one banded
-    verify over the padded (B, Cs * S) candidates, best hit."""
-    B = cand.shape[0]
-    cand_p = _pad_candidates(cand, n_interval)
-    Cp = cand_p.shape[1]
-    invalid = cand_p == sf.NO_CAND
-    ws_all = torch.where(invalid, 0, cand_p - k).reshape(-1)
-    part, own = local_gather_windows(tx, ws_all, W)
-    wins = si.default_merge(torch.stack([part, own], dim=1))
-    codes_all = torch.where(wins[1] > 0, wins[0], 4)
-    r = reads.to(torch.int8).repeat_interleave(Cp, dim=0)
-    ln = lengths.to(I32).repeat_interleave(Cp)
-    dist, _ = dp_ops.banded_edit_distance_best(r, ln, codes_all.to(torch.int8), k)
-    dist = torch.where(invalid, dp_ops.INF, dist.reshape(B, Cp))
-    return sf.best_hit(cand_p, dist, k)
+def _verify_best(tx, reads, lengths, cand, k, W):
+    """Windows of every candidate, each base read from its owner shard
+    (``gather_windows``), one banded verify over the (B, C) candidates
+    (the windows entry), best hit."""
+    B, C = cand.shape
+    invalid = cand == sf.NO_CAND
+    ws_all = torch.where(invalid, 0, cand - k).reshape(-1)
+    codes_all = gather_windows(tx, ws_all, W)
+    r = reads.to(torch.int8).repeat_interleave(C, dim=0)
+    ln = lengths.to(I32).repeat_interleave(C)
+    dist, _ = dp_ops.banded_edit_distance_best(r, ln, codes_all, k)
+    dist = torch.where(invalid, dp_ops.INF, dist.reshape(B, C))
+    return sf.best_hit(cand, dist, k)
 
 
 def make_sharded_seed_align(
@@ -250,7 +287,6 @@ def make_sharded_seed_align(
     ``all_reduce``s over its interval group, and ``text_shards`` is the
     whole packed text (words, n) for the split verify."""
     n_pieces = k + 1
-    n_interval = layout.n_interval
     W = max_len + 3 * k
     j = like_seed.j
 
@@ -300,7 +336,7 @@ def make_sharded_seed_align(
         if layout.collective:
             best = _verify_split(tx, reads, lengths, _dedupe(cand), k, W, layout, gather)
         else:
-            best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W, n_interval)
+            best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W)
         return best.best_pos, best.best_dist, best.n_good, overflow
 
     return fn
@@ -386,7 +422,6 @@ def make_sharded_pigeonhole_align(
     interval group; ``text_shards`` is then the whole packed text (words,
     n)."""
     n_pieces = k + 1
-    n_interval = layout.n_interval
     W = max_len + 3 * k
 
     def fn(sh, tx, reads, lengths):
@@ -417,7 +452,7 @@ def make_sharded_pigeonhole_align(
         if layout.collective:
             best = _verify_split(tx, reads, lengths, _dedupe(cand), k, W, layout, gather)
         else:
-            best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W, n_interval)
+            best = _verify_best(tx, reads, lengths, _dedupe(cand), k, W)
         return best.best_pos, best.best_dist, best.n_good, overflow
 
     return fn

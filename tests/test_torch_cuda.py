@@ -344,12 +344,13 @@ def _myers_text_inputs(L, W, B, Q, seed, n=30_000):
     return words, n, starts, reads, lengths, rid, valid
 
 
-@pytest.mark.parametrize("nwords", [8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513])
+@pytest.mark.parametrize("nwords", [8, 9, 16, 17, 32, 33, 64, 65, 96, 97, 128, 129, 256, 257,
+                                    512, 513])
 def test_myers_designs_equal_plain(cuda, nwords):
     """Both entries on each side of the kernel's design edges: one thread a
-    lane up to 8 words, then groups of 4, 8, 16 and 32 threads of 4 words,
-    a warp of 8 and of 16 words a thread, and a warp over scratch past 512
-    words (reads of 32 nwords - 5 bases; the int32 windows entry too).
+    lane up to 8 words, then groups of 16 and 32 threads of one word, a
+    warp of 2, 3, 4, 8 and 16 words a thread, and a warp over scratch past
+    512 words (reads of 32 nwords - 5 bases; the int32 windows entry too).
     (best, end) equal to plain on every lane, each launch counted under
     its design."""
     L = 32 * nwords - 5
@@ -373,6 +374,34 @@ def test_myers_designs_equal_plain(cuda, nwords):
         got = myers_cuda.myers_semiglobal_cuda(r.to(dtype), ln, w.to(dtype), nwords, W - 7)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), dtype
+
+
+@pytest.mark.parametrize("L", [257, 300, 512, 1000, 2048, 4000, 8000, 16_000, 32 * 520 - 5])
+def test_myers_wavefront_shapes_equal_plain(cuda, L):
+    """The group kernel as a wavefront, both entries, at [8]'s 300 bp
+    rescue length, 257-16,000 bases (every (G, P) that ``group_shape``
+    picks: 16 x 1, then 8, 16 and 32 threads of 4 words, a warp of 8 and
+    of 16) and 520 words (scratch): (best, end) equal to plain on every
+    lane."""
+    nwords = -(-L // 32)
+    G, P = myers_cuda.group_shape(nwords)
+    assert G * P >= nwords and (P in myers_cuda.REG_WORDS or nwords > myers_cuda.MEM_WORDS)
+    W = L + 43
+    Q = 257 if nwords <= 64 else 48
+    words, n, starts, reads, lengths, rid, valid = _myers_text_inputs(L, W, Q, Q, L,
+                                                                      n=L + 30_000)
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in (words, n, starts, reads, lengths, rid, valid)]
+    want_t = myers.myers_semiglobal_text_plain(*args, W, nwords)
+    r, ln, w = (torch.from_numpy(a).to(cuda) for a in _myers_inputs(Q, L, W, nwords))
+    want_w = myers._myers_plain(r, ln, w, nwords, W - 7)
+    got = myers_cuda.myers_semiglobal_text_cuda(*args, W, nwords)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want_t[0]) and torch.equal(got[1], want_t[1]), (G, P)
+    got = myers_cuda.myers_semiglobal_cuda(r, ln, w, nwords, W - 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want_w[0]) and torch.equal(got[1], want_w[1]), (G, P)
+    assert int((want_t[0] <= max(5, L // 20)).sum()) > Q // 20
 
 
 @pytest.mark.parametrize("L", [20, 32, 64, 100, 150, 256])
@@ -537,6 +566,68 @@ def test_ring_allreduce_past_16_shards_equals_plain(cuda, S):
             assert torch.equal(ring_cuda.ring_allreduce_cuda(apart), want), (n, t.dtype)
             for d in (0, S // 2, S - 1):
                 assert torch.equal(ring.ring_psum(apart, only=d), want[d]), (n, t.dtype, d)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 100, 128, 129, 256, 1024])
+def test_ring_sum_split_equals_plain_with_and_without_only(cuda, S):
+    """The int32 sum split over a group's lanes (and the float32 ring
+    order) at S = 1..1,024: stacked and from a device table (one allocation
+    a shard), every output and ``only``, vector and element items, against
+    ``ring_psum_plain`` on every element."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 + S)
+    for n in (5, 4 * 1025, 2 * 32_768):
+        for dtype in (torch.int32, torch.float32):
+            x = (torch.randint(-(1 << 31), (1 << 31) - 1, (S, n), generator=gen, device=cuda,
+                               dtype=torch.int32) if dtype == torch.int32
+                 else torch.randn((S, n), generator=gen, device=cuda) * 1e4)
+            want = ring.ring_psum_plain(x)
+            apart = [t.clone() for t in x]
+            for parts in (x, apart):
+                assert torch.equal(ring_cuda.ring_allreduce_cuda(parts), want), (n, dtype)
+                for d in sorted({0, S // 3, S - 1}):
+                    got = ring_cuda.ring_allreduce_cuda(parts, only=d)
+                    assert got.shape == (n,) and torch.equal(got, want[d]), (n, dtype, d)
+    parts = torch.randint(-99, 99, (S, 2, 64), generator=gen, device=cuda, dtype=torch.int32)
+    before = ring_cuda.ring_allreduce_cuda.launches
+    assert torch.equal(sharded_index.ring_merge(parts), parts.sum(0, dtype=torch.int32))
+    assert ring_cuda.ring_allreduce_cuda.launches == before + 1
+
+
+def test_sharded_seed_verify_at_32_shards_equals_the_stacked_plain(cuda):
+    """The seed path's verify at 32 shards on the card (the window gather
+    from each base's owner shard, then the banded windows entry), stacked
+    and one allocation a shard: the windows equal the whole text's
+    (``window.gather_windows``), and (best_pos, best_dist, n_good) equal the
+    plain verify of those windows on the CPU."""
+    rng = np.random.default_rng(32)
+    codes = rng.integers(0, 4, size=200_000, dtype=np.uint8)
+    fm = build_fm_index(codes, sample_rate=8)
+    B, C, L, k = 512, 24, 100, 2
+    W = L + 3 * k
+    pos = rng.integers(-20, fm.n - L + 20, size=(B, C))
+    pos[:, 0] = rng.integers(0, fm.n - L, size=B)
+    cand = np.sort(np.where(rng.random((B, C)) < 0.3, suffix_filter.NO_CAND, pos), axis=1)
+    reads = codes[pos[:, 0, None] + np.arange(L)].astype(np.int32)
+    reads[::5, 7] = (reads[::5, 7] + 1) % 4
+    lengths = np.full(B, L, np.int32)
+    args = [torch.from_numpy(a) for a in (reads, lengths, cand.astype(np.int32))]
+    invalid = args[2] == suffix_filter.NO_CAND
+    starts = torch.where(invalid, 0, args[2] - k).reshape(-1)
+    wins = window.gather_windows(torch.from_numpy(fm.text_words.view(np.int32)), fm.n, starts, W)
+    dist, _ = dp.banded_edit_distance_best(
+        args[0].to(torch.int8).repeat_interleave(C, dim=0), args[1].repeat_interleave(C), wins, k)
+    want = suffix_filter.best_hit(args[2], torch.where(invalid, dp.INF, dist.reshape(B, C)), k)
+    tx = sharded_pipeline.put_text(sharded_pipeline.shard_text(fm.text_words, fm.n, 32), cuda)
+    apart = sharded_pipeline.ShardedText(
+        [t.clone() for t in tx.words], tx.base, tx.end, tx.n)
+    for t in (tx, apart):
+        assert torch.equal(sharded_pipeline.gather_windows(t, starts.to(cuda), W).cpu(), wins)
+        before = dp_cuda.banded_edit_distance_cuda.launches
+        got = sharded_pipeline._verify_best(t, *(a.to(cuda) for a in args), k, W)
+        assert dp_cuda.banded_edit_distance_cuda.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert int((want.best_dist == 0).sum()) >= B // 2
 
 
 def test_ring_rejects_what_it_cannot_take(cuda):

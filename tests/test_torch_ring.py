@@ -153,3 +153,75 @@ def test_ring_loader_names_missing_nvcc(monkeypatch, tmp_path):
             ring_cuda._library()
     finally:
         ring_cuda._library.cache_clear()
+
+
+SPLIT_LOADS = 8  # ``csrc/ring.cu`` kLoads: loads in flight a lane
+
+
+def _split_lanes(S):
+    """``csrc/ring.cu``'s ``split_lanes_log``: G lanes an item, the power of
+    two that covers S / 8 shards, at most a warp."""
+    g_log = 0
+    while g_log < 5 and (SPLIT_LOADS << g_log) < S:
+        g_log += 1
+    return 1 << g_log
+
+
+def split_sum_model(parts: np.ndarray, only=None) -> np.ndarray:
+    """``allreduce_split_kernel`` (the int32 sum past 16 shards) over (S, n)
+    int32 parts in its own order: lane i of an item's group of G adds
+    shards i, i + G, ... in rounds of 8 loads (absent shards 0), the group
+    adds by xor shuffles (after the step of offset o lane i holds its own
+    and lane i ^ o's), and lane i writes rows i, i + G, ..., or lane 0 row
+    ``only`` alone -> (S, n), or (n,)."""
+    S, n = parts.shape
+    L, G = SPLIT_LOADS, _split_lanes(S)
+    x = parts.astype(np.uint32)
+    lane = np.zeros((G, n), np.uint32)
+    for i in range(G):
+        for d0 in range(i, S, L * G):
+            loads = [x[d] if d < S else np.zeros(n, np.uint32)
+                     for d in (d0 + l * G for l in range(L))]
+            for v in loads:
+                lane[i] = lane[i] + v  # wraps
+    o = 1
+    while o < G:
+        lane = lane + lane[np.arange(G) ^ o]
+        o <<= 1
+    assert all(np.array_equal(lane[0], lane[i]) for i in range(G))  # every lane the sum
+    if only is not None:
+        return lane[0].view(np.int32)
+    out = np.zeros((S, n), np.uint32)
+    for i in range(G):
+        for d in range(i, S, G):
+            out[d] = lane[i]
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 31, 32, 33, 64, 100, 128, 129,
+                               256, 513, 1024])
+def test_split_int32_sum_model_equals_the_ring_and_only(S):
+    """The int32 sum kernel's split over a group's lanes (its G from S,
+    absent shards, the shuffle tree, every output row or ``only``'s) equals
+    ``ring_psum_plain`` on every element, wrapping included; and
+    ``ring_psum(only=d)`` on the CPU is row d of the plain sum."""
+    rng = np.random.default_rng(S)
+    parts = rng.integers(-(1 << 31), 1 << 31, size=(S, 37), dtype=np.int64).astype(np.int32)
+    want = ring.ring_psum_plain(torch.from_numpy(parts)).numpy()
+    assert np.array_equal(split_sum_model(parts), want)
+    for d in sorted({0, S // 2, S - 1}):
+        assert np.array_equal(split_sum_model(parts, only=d), want[d])
+        assert torch.equal(ring.ring_psum(torch.from_numpy(parts), only=d),
+                           torch.from_numpy(want[d]))
+    G = _split_lanes(S)
+    assert 1 <= G <= 32 and (G * SPLIT_LOADS >= S or G == 32)
+
+
+@pytest.mark.parametrize("S", [1, 4, 32])
+def test_ring_merge_is_shard_zeros_sum(S):
+    """The exact search's ring merge asks for shard 0's sum alone; on the
+    CPU it equals the int32 sum over the shards."""
+    rng = np.random.default_rng(100 + S)
+    parts = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, size=(S, 2, 9)).astype(np.int32))
+    assert torch.equal(si.ring_merge(parts), si.default_merge(parts))
+    assert si.ring_merge(parts).shape == (2, 9)

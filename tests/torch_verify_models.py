@@ -1,7 +1,8 @@
 """Numpy models of the two verify kernels' group designs, in the kernels' own
 order of operations, for the CPU tests: ``csrc/myers.cu``'s group of G
-threads a lane (P words a thread, the carry lookahead over ballots, the top
-word first and its bits handed up), ``csrc/banded_group.cu``'s group of G
+threads a lane (P words a thread, run as a wavefront: thread j a column
+behind thread j - 1, the add's carry and the top bits of Ph and Mh handed
+up one time step later), ``csrc/banded_group.cu``'s group of G
 threads a lane (N band slots a thread padded at the band's bottom with pads
 that never match, each thread's fused scan, the group's exclusive prefix min
 of c_j - j, no bounds check of the window, the window codes by position) and
@@ -19,10 +20,21 @@ BIG = 1 << 30
 NO_MATCH = 256
 
 
-def myers_group(reads, lengths, windows, nwords: int, steps: int, G: int, P: int):
+def myers_wavefront(reads, lengths, windows, nwords: int, steps: int, G: int, P: int):
     """``myers_group_kernel`` over (Q, L) reads and (Q, W) windows (codes;
     >= 4 never match, a negative code reads Peq[0]) with G threads of P
-    words a lane -> (best (Q,), end (Q,)) int32."""
+    words a lane, run as its wavefront -> (best (Q,), end (Q,)) int32.
+
+    At time step t thread j runs column t - j: it takes the add's carry and
+    the top bits of Ph and Mh that thread j - 1 computed for that column,
+    handed up at time step t - 1 (thread 0 takes 0: the free text start),
+    and hands up its own.  Before its column 0 a thread runs dead columns
+    (Peq = 0), which leave the initial state as it is; past the last column
+    its state runs on and is never scored.  The thread that holds bit
+    len - 1 keeps score, best and the end at its own column, from its Ph
+    and Mh bits at len - 1 collected a time step at a time and scored every
+    16 time steps (at once where the run's lowest reachable score cannot
+    beat best)."""
     Q, L = reads.shape
     W = windows.shape[1]
     assert G * P >= nwords and G & (G - 1) == 0
@@ -47,7 +59,7 @@ def myers_group(reads, lengths, windows, nwords: int, steps: int, G: int, P: int
     mv = np.zeros((Q, G, P), np.uint64)
     last_word = np.where(lengths >= 1, (lengths - 1) >> 5, -1)
     has_owner = (last_word >= 0) & (last_word < nwords)
-    own_j = np.where(has_owner, last_word // P, -1)
+    own_j = np.where(has_owner, last_word // P, 0)
     own_u = np.where(has_owner, last_word % P, -1)
     own_bit = np.where(lengths >= 1, np.uint64(1) << ((lengths - 1) & 31).astype(np.uint64),
                        np.uint64(0))
@@ -55,54 +67,62 @@ def myers_group(reads, lengths, windows, nwords: int, steps: int, G: int, P: int
     best = lengths.copy()
     end = np.zeros(Q, np.int64)
     q = np.arange(Q)
-    top_clear = np.uint64((1 << (G - 1)) - 1)  # the group-top bit cleared
-    for t in range(steps):
-        c = windows[:, min(t, W - 1)].astype(np.int64)
-        live = c < 4
-        code = np.clip(c, 0, 3)
-        peq = np.where(live[:, None, None], eq[code, q], np.uint64(0))  # (Q, G, P)
-        s = np.zeros((Q, G, P), np.uint64)
-        carry = np.zeros((Q, G), np.uint64)
-        pre = np.ones((Q, G), bool)
-        below = np.ones((Q, G, P), bool)  # every word below u all ones
+    j = np.arange(G)
+    # carry, Ph top, Mh top of each thread's column of the last time step
+    handed = np.zeros((Q, G, 3), np.uint64)
+    n_steps = steps + G - 1 if steps > 0 else 0
+    up_run = np.zeros(Q, np.int64)
+    dn_run = np.zeros(Q, np.int64)
+    stop = steps + own_j  # the owner's time steps past its last column
+
+    def score_run(k, t_last):
+        nonlocal score, best, end, up_run, dn_run
+        live = np.clip(stop - (t_last - k + 1), 0, k)
+        keep = ((1 << live) - 1) << (k - live)
+        u, d = up_run & keep, dn_run & keep
+        up_run, dn_run = np.zeros_like(up_run), np.zeros_like(dn_run)
+        pu = np.array([bin(x).count("1") for x in u])
+        pd = np.array([bin(x).count("1") for x in d])
+        quick = score - pd >= best
+        score = np.where(quick, score + pu - pd, score)
+        for i in range(k - 1, -1, -1):
+            score = np.where(quick, score, score + ((u >> i) & 1) - ((d >> i) & 1))
+            better = ~quick & (score < best)
+            end = np.where(better, t_last - i - own_j + 1, end)
+            best = np.where(better, score, best)
+
+    for t in range(n_steps):
+        inp = np.zeros((Q, G, 3), np.uint64)
+        inp[:, 1:] = handed[:, :-1]
+        col = t - j  # (G,) each thread's column
+        c = windows[:, np.clip(col, 0, W - 1)].astype(np.int64)  # (Q, G)
+        live = (c < 4) & (col >= 0)[None, :]
+        peq = np.where(live[:, :, None], eq[np.clip(c, 0, 3), q[:, None], j[None, :]],
+                       np.uint64(0))  # (Q, G, P)
+        carry, hp_in, hn_in = inp[:, :, 0], inp[:, :, 1], inp[:, :, 2]
+        up = np.zeros((Q, G), bool)
+        dn = np.zeros((Q, G), bool)
         for u in range(P):
-            below[:, :, u] = pre
             tot = (peq[:, :, u] & pv[:, :, u]) + pv[:, :, u] + carry
             carry = tot >> np.uint64(32)
-            s[:, :, u] = tot & M32
-            pre &= s[:, :, u] == M32
-        weights = np.uint64(1) << np.arange(G, dtype=np.uint64)
-        gen = (carry.astype(np.uint64) * weights).sum(axis=1)
-        prop = (pre.astype(np.uint64) * weights).sum(axis=1)
-        ga, gb = (gen | prop) & top_clear, gen & top_clear
-        cbits = (ga + gb) ^ ga ^ gb
-        cin = ((cbits[:, None] >> np.arange(G, dtype=np.uint64)[None, :]) & np.uint64(1))
-        cin = cin.astype(np.uint64)[:, :, None]  # (Q, G, 1)
-        d0 = (((s + (cin & below.astype(np.uint64))) & M32) ^ pv) | peq | mv
-        hn = pv & d0
-        hp = (mv | (~(pv | d0) & M32)) & M32
-        # the top word's two bits go to the next thread; thread 0 takes 0
-        hp_in = np.zeros((Q, G), np.uint64)
-        hn_in = np.zeros((Q, G), np.uint64)
-        hp_in[:, 1:] = hp[:, :-1, P - 1] >> np.uint64(31)
-        hn_in[:, 1:] = hn[:, :-1, P - 1] >> np.uint64(31)
-        up = np.zeros(Q, bool)
-        dn = np.zeros(Q, bool)
-        for u in range(P):
-            m = np.where((own_j >= 0) & (own_u == u), own_bit, np.uint64(0))
-            jj = np.clip(own_j, 0, G - 1)
-            up |= (hp[q, jj, u] & m) != 0
-            dn |= (hn[q, jj, u] & m) != 0
-            xs = ((hp[:, :, u] << np.uint64(1)) & M32) | hp_in
-            hp_in = hp[:, :, u] >> np.uint64(31)
-            hns = ((hn[:, :, u] << np.uint64(1)) & M32) | hn_in
-            hn_in = hn[:, :, u] >> np.uint64(31)
-            mv[:, :, u] = xs & d0[:, :, u]
-            pv[:, :, u] = (hns | ~(xs | d0[:, :, u])) & M32
-        score = score + up - dn
-        better = score < best
-        end = np.where(better, t + 1, end)
-        best = np.minimum(best, score)
+            d0 = ((tot & M32) ^ pv[:, :, u]) | peq[:, :, u] | mv[:, :, u]
+            hn = pv[:, :, u] & d0
+            hp = (mv[:, :, u] | ~(pv[:, :, u] | d0)) & M32
+            m = np.where(own_u == u, own_bit, np.uint64(0))[:, None]
+            up |= (hp & m) != 0
+            dn |= (hn & m) != 0
+            xs = ((hp << np.uint64(1)) & M32) | hp_in
+            hp_in = hp >> np.uint64(31)
+            hns = ((hn << np.uint64(1)) & M32) | hn_in
+            hn_in = hn >> np.uint64(31)
+            mv[:, :, u] = xs & d0
+            pv[:, :, u] = (hns | ~(xs | d0)) & M32
+        handed = np.stack([carry, hp_in, hn_in], axis=-1)
+        # a bit a time step, scored every 16
+        up_run = (up_run << 1) | up[q, own_j]
+        dn_run = (dn_run << 1) | dn[q, own_j]
+        if (t + 1) % 16 == 0 or t == n_steps - 1:
+            score_run(t % 16 + 1, t)
     return best.astype(np.int32), end.astype(np.int32)
 
 
